@@ -1,0 +1,31 @@
+"""ΦFlow-TPU's PyTorch/CUDA port (`phiflow_tpu_torch`).
+
+The JAX package `phiflow_tpu` stays the reference. This package mirrors its
+main path — the 3D smoke-plume step (`models.SmokePlume.step`) — at the array
+level: plain functions on `torch.Tensor`s whose hot loops are hand-written CUDA
+kernels for Hopper (`csrc/*.cu`, built with `nvcc` at first use by
+`ops/_build.py`). Every kernel has a plain PyTorch twin in the same module; a
+wrapper takes the twin only for tensors on the CPU.
+
+Entry points run on the card (`device='cuda'`) unless the caller passes
+`device='cpu'`, as the tests do.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ['resolve_device']
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device`, or CUDA when None.
+
+    Raises RuntimeError when CUDA is asked for (explicitly or by default) and
+    absent — the port never drops to the CPU on its own."""
+    dev = torch.device('cuda' if device is None else device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run the plain "
+                           "PyTorch versions of the kernels on the CPU")
+    if dev.type not in ('cuda', 'cpu'):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

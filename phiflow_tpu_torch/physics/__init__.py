@@ -1,0 +1,2 @@
+"""Physics of the port (mirrors `phiflow_tpu/physics`)."""
+from . import fluid

@@ -1,0 +1,106 @@
+"""The port's multigrid transfers (K4 `prolong_add` / `prolong_pc`,
+`restrict_mean`) and fused advection (K5, at model level) against the JAX
+package, whose Pallas kernels run in interpret mode. The port runs on the
+CPU, where its wrappers take the plain PyTorch twins."""
+import numpy as np
+import jax.numpy as jnp
+import torch
+
+from phiflow_tpu.ops import transfer as JT
+from phiflow_tpu_torch.ops import transfer as TT
+
+ORDER = ('x', 'y', 'z')
+
+
+def test_prolong_add_matches_pallas():
+    rng = np.random.default_rng(6)
+    c = rng.standard_normal((8, 8, 128)).astype(np.float32)
+    u = rng.standard_normal((16, 16, 256)).astype(np.float32)
+    ref = JT._prolong_add_pallas_3d(jnp.asarray(c), jnp.asarray(u), interpret=True)
+    got = TT.prolong_add(torch.from_numpy(c), torch.from_numpy(u))
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_prolong_pc_matches_pallas():
+    rng = np.random.default_rng(7)
+    c = rng.standard_normal((8, 8, 128)).astype(np.float32)
+    ref = JT._prolong_add_pallas_3d(jnp.asarray(c), None, interpret=True)
+    got = TT.prolong_pc(torch.from_numpy(c))
+    assert np.array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_restrict_mean_matches_reduce_window():
+    rng = np.random.default_rng(8)
+    r = rng.standard_normal((2, 16, 8, 6)).astype(np.float32)
+    ref = JT.restrict_mean(jnp.asarray(r), 3)
+    got = TT.restrict_mean(torch.from_numpy(r), 3)
+    assert tuple(got.shape) == (2, 8, 4, 3)
+    assert float(np.abs(got.numpy() - np.asarray(ref)).max()) < 1e-6
+
+
+def _jax_state(model, vx, vy, vz, smoke):
+    """JAX Fields holding the given raw arrays (JAX's own layout)."""
+    from phiflow_tpu.math import Tensor, dual, stack
+    v0, s0, _ = model.initial_state()
+    comps = [Tensor(jnp.asarray(a), v0.vector[d].values.shape.only(ORDER, reorder=True))
+             for d, a in zip(ORDER, (vx, vy, vz))]
+    v = v0.with_values(stack(comps, dual(vector=list(ORDER))))
+    s = s0.with_values(Tensor(jnp.asarray(smoke), s0.values.shape.only(ORDER, reorder=True)))
+    return v, s
+
+
+def test_fused_advect_matches_pallas_model():
+    """Both advection phases (three fused calls: MacCormack forward with
+    extrema, backward + combine + clip + inflow + lift, staggered velocity +
+    buoyancy) on a random state with |u|·dt/dx < 1, against JAX's
+    `SmokePlume._fused_advect` in interpret mode."""
+    from phiflow_tpu.models import SmokePlume as JaxSmoke
+    from phiflow_tpu_torch.models import SmokePlume
+    N = 64
+    rng = np.random.default_rng(11)
+    vel = [rng.uniform(-1.9, 1.9, s).astype(np.float32)
+           for s in ((N - 1, N, N), (N, N - 1, N), (N, N, N - 1))]
+    smoke = rng.uniform(0., 1., (N, N, N)).astype(np.float32)
+    jax_model = JaxSmoke(resolution=N, dims=3)
+    v, s = _jax_state(jax_model, *vel, smoke)
+    jv, js = jax_model._fused_advect(v, s, interpret=True)
+    model = SmokePlume(resolution=N, dims=3, device='cpu')
+    tv, ts = model._fused_advect(tuple(torch.from_numpy(a) for a in vel), torch.from_numpy(smoke))
+    assert float(np.abs(ts.numpy() - np.asarray(js.values.native(ORDER))).max()) < 2e-5
+    for d, dim in enumerate(ORDER):
+        ref = np.asarray(jv.vector[dim].values.native(ORDER))
+        assert tv[d].shape == ref.shape
+        assert float(np.abs(tv[d].numpy() - ref).max()) < 2e-5, dim
+
+
+def test_fused_advect_periodic_sources_match_pallas():
+    """Periodic ('wrap') sources — the periodic box's layout, faces 0..N−1 on
+    the own axis — against JAX's periodic slab staging, for the MacCormack
+    forward call (with extrema) and the staggered self-advection call."""
+    from phiflow_tpu.ops import advect3d as JA
+    from phiflow_tpu_torch.ops.advect3d import OutSpec, Source, fused_advect_3d
+    N, K = (16, 16, 16), 1
+    rng = np.random.default_rng(12)
+    vel = [rng.uniform(-2.4, 2.4, N).astype(np.float32) for _ in range(3)]  # clips at ±1 cell
+    smoke = rng.uniform(0., 1., N).astype(np.float32)
+    scales = (-0.5,) * 3
+    slabs = [JA.stage_slab_periodic(jnp.asarray(vel[d]), d, N, K) for d in range(3)]
+    smoke_slab = JA.stage_slab_periodic(jnp.asarray(smoke), None, N, K)
+    srcs = [Source(torch.from_numpy(vel[d]), own_axis=d, mode='wrap') for d in range(3)]
+
+    def crop(a):
+        return np.asarray(a)[:N[0], :N[1], :N[2]]
+
+    [ref] = JA.fused_advect_3d(slabs + [smoke_slab], N, K, [JA.OutSpec(slab=3, extrema=True)], scales,
+                               interpret=True)
+    [got] = fused_advect_3d(srcs + [Source(torch.from_numpy(smoke), mode='wrap')], N, K,
+                            [OutSpec(slab=3, extrema=True)], scales)
+    for g, r in zip(got, ref):
+        assert float(np.abs(g.numpy() - crop(r)).max()) < 2e-5
+    refs = JA.fused_advect_3d(slabs, N, K, [JA.OutSpec(slab=d, d_own=d) for d in range(3)], scales,
+                              interpret=True)
+    gots = fused_advect_3d(srcs, N, K, [OutSpec(slab=d, d_own=d) for d in range(3)], scales)
+    for g, r in zip(gots, refs):
+        assert tuple(g.shape) == N
+        assert float(np.abs(g.numpy() - crop(r)).max()) < 2e-5
