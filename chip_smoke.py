@@ -3,25 +3,31 @@
 
     python3 chip_smoke.py           # all phases, one card
     python3 chip_smoke.py --quick   # build + kernel-versus-twin checks at the small shapes only
-    python3 chip_smoke.py --profile # all phases, then torch.profiler over 3 steps at 256³
+    python3 chip_smoke.py --profile # all phases, then torch.profiler over 3 steps of each path
 
 Phases; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi) and the torch / CUDA versions;
   2. the build of phiflow_tpu_torch/csrc/*.cu with nvcc, one process per source;
-  3. each kernel K1–K5 against its plain PyTorch twin on the card, at a shape
-     of the 256³ path and at a small shape that is not a power of two, over the
-     three boundary modes, float32 and bfloat16 where the path stores it; the
-     median CUDA-event time of the kernel, of the twin and, where one PyTorch
-     call computes the same function, of that call (library_ms — the port never
-     calls it), beside the bound: the larger of bytes moved / 3.35 TB/s and
-     float32 operations / 67 TFLOP/s (H100 SXM data sheet);
-  4. SmokePlume(256, dims=3, cg_tol=1e-3, max_iterations=100) on the card:
-     2 warm-up steps, then 5 timed steps through `step` with every launch
-     counter set to 0 just before and read just after; ms per step, Mcells/s,
-     the advection / pressure split, CG iterations, max |div|, the displacement
-     bound and finiteness;
-  5. 2 steps at 64³ from one numpy state on the CPU (the twins) and on the card
-     (the kernels), compared at 1e-3 abs;
+  3. each kernel K1–K7 against its plain PyTorch twin on the card, at a shape
+     of its path (256³; 4096² for K7) and at a small shape that is not a power
+     of two, over the three boundary modes, float32 and bfloat16 where the path
+     stores it; the median CUDA-event time of the kernel, of the twin and,
+     where one PyTorch call computes the same function, of that call
+     (library_ms — the port never calls it), beside the bound: the larger of
+     bytes moved / 3.35 TB/s and float32 operations / 67 TFLOP/s (H100 SXM
+     data sheet);
+  4. three paths of SmokePlume(cg_tol=1e-3, max_iterations=100) on the card,
+     each 2 warm-up steps, then 5 timed steps with every launch counter set to
+     0 just before and read just after; ms per step, Mcells/s, the advection /
+     pressure split, CG iterations, max |div|, the displacement bound and
+     finiteness:
+     4a. the fused path, `step` at 256³ (K1–K5);
+     4b. the per-phase path at 256³ through `advect_smoke`, `advect_velocity`,
+         `project` (K6 and K1–K4);
+     4c. the per-phase path in 2D at 4096² (K7; the 2D projection is PyTorch
+         operations);
+  5. 2 steps from one numpy state on the CPU (the twins) and on the card (the
+     kernels), compared at 1e-3 abs: fused at 64³, per-phase at 64³, 2D at 256²;
   6. the `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -40,6 +46,7 @@ BC_SETS = [(('neumann', 'neumann'),) * 3,
 PATH_BC = BC_SETS[0]
 SMALL = (24, 40, 72)
 PATH_N = 256
+PATH_N_2D = 4096  # 16.8 M cells, the cell count of 256³
 
 KERNELS = {  # launch-counter name → (source, the Pallas kernel it replaces)
     'poisson_stencil': ('phiflow_tpu_torch/csrc/poisson.cu', 'phiflow_tpu/ops/poisson.py:284'),
@@ -47,7 +54,12 @@ KERNELS = {  # launch-counter name → (source, the Pallas kernel it replaces)
     'residual_restrict': ('phiflow_tpu_torch/csrc/poisson.cu', 'phiflow_tpu/ops/poisson.py:507'),
     'prolong_add': ('phiflow_tpu_torch/csrc/transfer.cu', 'phiflow_tpu/ops/transfer.py:101'),
     'fused_advect': ('phiflow_tpu_torch/csrc/advect3d.cu', 'phiflow_tpu/ops/advect3d.py:232'),
+    'window_interp_3d': ('phiflow_tpu_torch/csrc/interp.cu', 'phiflow_tpu/ops/interp.py:111'),
+    'window_interp_2d': ('phiflow_tpu_torch/csrc/interp.cu', 'phiflow_tpu/ops/interp.py:323'),
 }
+FUSED_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'fused_advect')
+PHASES_3D_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'window_interp_3d')
+PHASES_2D_KERNELS = ('window_interp_2d',)
 
 
 class Checks:
@@ -91,15 +103,17 @@ class Checks:
             self.failed.append(f'{kernel} {case} dot')
         self.passed[kernel] += ok
 
-    def time(self, kernel, what, fn_kernel, fn_plain, n_bytes, n_ops, fn_library=None):
+    def time(self, kernel, what, fn_kernel, fn_plain, n_bytes, n_ops, fn_library=None, key=None):
+        """Times are kept under `key` (default: the kernel's name, whose entry
+        goes into the `kernels` line; any other key is printed only)."""
         ms = median_ms(fn_kernel)
         plain_ms = median_ms(fn_plain)
         library_ms = median_ms(fn_library) if fn_library is not None else None
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / F32_OPS_PER_S * 1e3
         bound_ms, bound_by = (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
-        self.timing[kernel] = dict(timed=what, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by, library_ms=library_ms)
+        self.timing[key or kernel] = dict(timed=what, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                          bound_by=bound_by, library_ms=library_ms)
         lib = 'n/a' if library_ms is None else f'{library_ms:.4f}'
         print(f'time  {kernel:17s} {what:58s} ms={ms:.4f} plain_ms={plain_ms:.4f} '
               f'library_ms={lib} bound_ms={bound_ms:.4f} ({bound_by}; {n_bytes / 1e6:.1f} MB, '
@@ -292,79 +306,203 @@ def check_advect(ch, gen, quick):
                     nbytes(*vel_t, smoke) + 3 * nbytes(smoke), 60 * smoke.numel())
 
 
+def _grid_sample_lookup(grid, disps, K, scale, padding_mode):
+    """`torch.nn.functional.grid_sample` for the same lookup: a closure over
+    the prebuilt normalised coordinate grid (align_corners=True), so that only
+    the library call itself is timed."""
+    import torch
+    d = grid.ndim
+    coords = []
+    for ax in range(d):
+        n = grid.shape[ax]
+        idx = torch.arange(n, device=grid.device, dtype=torch.float32).reshape((-1,) + (1,) * (d - ax - 1))
+        pos = idx + torch.clamp(scale[ax] * disps[ax], -float(K), float(K))
+        coords.append(pos * (2.0 / (n - 1)) - 1.0)
+    coord_grid = torch.stack(coords[::-1], dim=-1)[None]  # last entry first: (x, y[, z]) = (W, H[, D])
+    F = torch.nn.functional
+    return lambda: F.grid_sample(grid[None, None], coord_grid, mode='bilinear', padding_mode=padding_mode,
+                                 align_corners=True)[0, 0]
+
+
+def check_interp(ch, gen, quick):
+    """K6 / K7 against their twin: values within 1e-5, lo / up exactly."""
+    import torch
+    from phiflow_tpu_torch.ops import interp as I
+    dev = 'cuda'
+    fns = {3: (I.window_interp_3d, 'window_interp_3d'), 2: (I.window_interp_2d, 'window_interp_2d')}
+
+    def twin(grid, disps, K, extrema, negate, scale, mode, const=0.0):
+        sgn = -1.0 if negate else 1.0
+        return I._window_interp_plain(grid, list(disps), K, extrema, tuple(I._f32(sgn * x) for x in scale),
+                                      mode, I._f32(const))
+
+    def kernel(d, grid, disps, K, extrema, negate, scale, mode, const=0.0):
+        halo = {None: {}, 'const': dict(const_pad=const), 'edge': dict(halo='edge'), 'wrap': dict(halo='wrap')}[mode]
+        return fns[d][0](grid, disps, K, compute_extrema=extrema, negate=negate, disp_scale=scale, **halo)
+
+    def compare(d, case, got, ref, extrema):
+        name = fns[d][1]
+        if not extrema:
+            got, ref = (got,), (ref,)
+        ch.compare(name, case + ' value', got[0], ref[0], 1e-5)
+        for what, g, r in zip(('lo', 'up'), got[1:], ref[1:]):
+            ch.compare(name, f'{case} {what} (exact)', g, r, 0.0)
+
+    # --- small shapes: every halo, K, option; integer displacements ---
+    for d, shape in ((3, SMALL), (2, SMALL[1:])):
+        scale = (0.8, -1.1, 0.6)[:d]
+        for K in (1, 2):
+            for mode in (None, 'const', 'edge', 'wrap'):
+                gshape = tuple(n + 2 * K for n in shape) if mode is None else shape
+                grid = torch.randn(gshape, generator=gen, device=dev)
+                # up to ±(K + 1) cells after scaling: the clamp is reached
+                disps = (torch.rand((d,) + shape, generator=gen, device=dev) * 2 - 1) * ((K + 1) / 0.6)
+                for extrema, negate in ((False, False), (True, False), (True, True)):
+                    case = (f'{shape} K={K} {mode or "padded"}{" extrema" if extrema else ""}'
+                            f'{" negate" if negate else ""}')
+                    got = kernel(d, grid, disps, K, extrema, negate, scale, mode, 0.25)
+                    ref = twin(grid, disps, K, extrema, negate, scale, mode, 0.25)
+                    compare(d, case, got, ref, extrema)
+        K = 2
+        grid = torch.randn(tuple(n + 2 * K for n in shape), generator=gen, device=dev)
+        ints = torch.randint(-1, 2, (d,) + shape, generator=gen, device=dev).float() * K  # −K, 0, +K
+        got = kernel(d, grid, ints, K, True, False, (1.0,) * d, None)
+        ref = twin(grid, ints, K, True, False, (1.0,) * d, None)
+        compare(d, f'{shape} K={K} padded, integer displacements 0 and ±K', got, ref, True)
+        ch.compare(fns[d][1], f'{shape} integer displacements: lo == up == value', got[1], got[2], 0.0)
+    if quick:
+        return
+    # --- the paths' shapes: a velocity component (constant halo, no extrema)
+    #     and the smoke's forward pass (edge halo, extrema), as a step calls them ---
+    for d, shape in ((3, (PATH_N,) * 3), (2, (PATH_N_2D,) * 2)):
+        name = fns[d][1]
+        scale = (-0.5,) * d
+        grid = torch.rand(shape, generator=gen, device=dev)
+        disps = [torch.rand(shape, generator=gen, device=dev) * 5.0 - 2.5 for _ in range(d)]  # clips at ±1
+        out_bytes = nbytes(grid)
+        for K in (1, 2):
+            got = kernel(d, grid, disps, K, True, False, scale, 'edge')
+            ref = twin(grid, disps, K, True, False, scale, 'edge')
+            compare(d, f'{shape} K={K} edge extrema', got, ref, True)
+            del got, ref
+        K = 1
+        got = kernel(d, grid, disps, K, False, False, scale, 'const')
+        ref = twin(grid, disps, K, False, False, scale, 'const')
+        compare(d, f'{shape} K={K} const', got, ref, False)
+        # corners: a weight product of d−1 multiplies, one FMA; the tent weights 4 ops per tap
+        ops = (2 ** d * (d + 1) + 8 * d) * grid.numel()
+        lib = _grid_sample_lookup(grid, disps, K, scale, 'zeros')
+        print(f'note  {name:17s} grid_sample (zeros padding) vs twin, const halo 0: '
+              f'max |diff| {float((lib() - ref).abs().max()):.2e}')
+        ch.time(name, f'velocity component: const halo, no extrema, {shape} K=1',
+                lambda: kernel(d, grid, disps, K, False, False, scale, 'const'),
+                lambda: twin(grid, disps, K, False, False, scale, 'const'),
+                nbytes(grid, *disps) + out_bytes, ops, lib)
+        del lib
+        lib = _grid_sample_lookup(grid, disps, K, scale, 'border')
+        ch.time(name, f'smoke forward: edge halo + extrema, {shape} K=1',
+                lambda: kernel(d, grid, disps, K, True, False, scale, 'edge'),
+                lambda: twin(grid, disps, K, True, False, scale, 'edge'),
+                nbytes(grid, *disps) + 3 * out_bytes, ops + 2 ** (d + 1) * grid.numel(), lib,
+                key=name + ' +extrema')
+        del lib, grid, disps, got, ref
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
-# phases 4 and 5: the slice
+# phases 4 and 5: the paths
 # ---------------------------------------------------------------------------
 
-def run_slice(N=PATH_N, warmup=2, steps=5):
+def _stepper(model, per_phase):
+    """One step through the model's public methods: `step` (the fused path at
+    these sizes), or the three phases in turn — what `step` does wherever the
+    fused path does not apply."""
+    if not per_phase:
+        return model.step, model._fused_advect
+
+    def phases(v, s):
+        s = model.advect_smoke(v, s)
+        return model.advect_velocity(v, s), s
+
+    def step(v, s, p):
+        v, s = phases(v, s)
+        v, p = model.project(v, p)
+        return v, s, p
+    return step, phases
+
+
+def run_slice(tag, dims, N, per_phase, required, warmup=2, steps=5):
     import torch
     from phiflow_tpu_torch.field import divergence
     from phiflow_tpu_torch.models import SmokePlume
     from phiflow_tpu_torch.ops import _build
-    model = SmokePlume(resolution=N, dims=3, cg_tol=1e-3, max_iterations=100, device='cuda')
+    model = SmokePlume(resolution=N, dims=dims, cg_tol=1e-3, max_iterations=100, device='cuda')
+    step, advect = _stepper(model, per_phase)
+    size = f'{N}^{dims}'
     v, s, p = model.initial_state()
     for _ in range(warmup):
-        v, s, p = model.step(v, s, p)
+        v, s, p = step(v, s, p)
     torch.cuda.synchronize()
     _build.reset_launches()
     iters = []
     t0 = time.perf_counter()
     for _ in range(steps):
-        v, s, p = model.step(v, s, p)
+        v, s, p = step(v, s, p)
         iters.append(model.last_solve.iterations)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     ms = elapsed / steps * 1e3
-    print(f'slice {N}^3: {ms:.2f} ms/step, {N ** 3 / (ms * 1e-3) / 1e6:.1f} Mcells/s over {steps} steps '
+    print(f'{tag} {size}: {ms:.2f} ms/step, {N ** dims / (ms * 1e-3) / 1e6:.1f} Mcells/s over {steps} steps '
           f'after {warmup} warm-up steps; CG iterations per step {iters}')
-    print('slice launches per step: ' + ', '.join(f'{k}={launches.get(k, 0) / steps:g}' for k in KERNELS))
-    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
+    print(f'{tag} launches per step: ' + ', '.join(f'{k}={launches.get(k, 0) / steps:g}' for k in KERNELS))
+    missing = [k for k in required if launches.get(k, 0) == 0]
     if missing:
-        raise RuntimeError(f'kernels not launched on the main path: {missing}')
+        raise RuntimeError(f'{tag}: kernels not launched on the path: {missing}')
     # the advection / pressure split, from 3 more steps timed phase by phase
     adv, prs = [], []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        v2, s = model._fused_advect(v, s)
+        v2, s = advect(v, s)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         v, p = model.project(v2, p)
         torch.cuda.synchronize()
         adv.append((t1 - t0) * 1e3)
         prs.append((time.perf_counter() - t1) * 1e3)
-    print(f'slice split: advection {statistics.median(adv):.2f} ms, pressure {statistics.median(prs):.2f} ms '
+    print(f'{tag} split: advection {statistics.median(adv):.2f} ms, pressure {statistics.median(prs):.2f} ms '
           f'(median of 3 steps timed phase by phase)')
     div = float(divergence(v, model._dx).abs().max())
     disp = max(float(c.abs().max()) for c in v) * model.dt / model._dx
     finite = all(bool(torch.isfinite(t).all()) for t in (*v, s, p))
-    print(f'slice max |div| after projection {div:.3e}; max |displacement| <= {disp:.3f} cells '
+    print(f'{tag} max |div| after projection {div:.3e}; max |displacement| <= {disp:.3f} cells '
           f'(max|v|·dt/dx; certified <= max_cells={model.max_cells}: {disp <= model.max_cells}); '
           f'all finite: {finite}; max smoke {float(s.max()):.4f}')
-    shapes_ok = [tuple(t.shape) for t in v] == [(N - 1, N, N), (N, N - 1, N), (N, N, N - 1)] \
-        and tuple(s.shape) == (N,) * 3 and tuple(p.shape) == (N,) * 3
-    if not (finite and shapes_ok and disp <= model.max_cells):
-        raise RuntimeError(f'slice output wrong: finite={finite} shapes_ok={shapes_ok} disp={disp}')
+    comps, cells = model._shapes()
+    shapes_ok = [tuple(t.shape) for t in v] == comps and tuple(s.shape) == cells and tuple(p.shape) == cells
+    if not (finite and shapes_ok and disp <= model.max_cells and div < 0.1):
+        raise RuntimeError(f'{tag} output wrong: finite={finite} shapes_ok={shapes_ok} disp={disp} div={div}')
     return launches
 
 
-def profile_slice(N=PATH_N, warmup=2, steps=3):
-    """torch.profiler over `steps` steps of the slice: device time by kernel
+def profile_slice(tag, dims, N, per_phase, warmup=2, steps=3):
+    """torch.profiler over `steps` steps of a path: device time by kernel
     and the device's busy share of the wall time (the profiler's own host
     overhead included in that wall time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from phiflow_tpu_torch.models import SmokePlume
-    model = SmokePlume(resolution=N, dims=3, cg_tol=1e-3, max_iterations=100, device='cuda')
+    model = SmokePlume(resolution=N, dims=dims, cg_tol=1e-3, max_iterations=100, device='cuda')
+    step, _ = _stepper(model, per_phase)
     v, s, p = model.initial_state()
     for _ in range(warmup):
-        v, s, p = model.step(v, s, p)
+        v, s, p = step(v, s, p)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            v, s, p = model.step(v, s, p)
+            v, s, p = step(v, s, p)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
@@ -375,16 +513,18 @@ def profile_slice(N=PATH_N, warmup=2, steps=3):
     device_ms = sum(r[2] for r in rows)
     ours = sum(r[2] for r in rows if any(k in r[0] for k in ('poisson_stencil_kernel', 'jacobi_sweep_kernel',
                                                              'residual_restrict_kernel', 'prolong_add_kernel',
-                                                             'fused_advect_kernel', 'advect_lift_kernel')))
-    print(f'profile {N}^3, {steps} steps: device busy {device_ms / steps:.2f} ms/step of '
+                                                             'fused_advect_kernel', 'advect_lift_kernel',
+                                                             'window_interp_kernel')))
+    print(f'profile {tag} {N}^{dims}, {steps} steps: device busy {device_ms / steps:.2f} ms/step of '
           f'{wall_ms / steps:.2f} ms/step wall under the profiler ({100 * device_ms / wall_ms:.1f}% busy); '
           f'the port\'s kernels {ours / steps:.2f} ms/step, PyTorch kernels {(device_ms - ours) / steps:.2f} ms/step')
     for key, count, ms in rows[:16]:
         print(f'profile   {ms / steps:8.3f} ms/step {count / steps:7.1f} calls/step  {key[:110]}')
 
 
-def smooth_state(N, seed=0):
-    """A smooth random state: low-mode sinusoids, |v|·dt/dx ≤ 0.6 cells."""
+def smooth_state(N, dims=3, seed=0):
+    """A smooth random closed-box state: low-mode sinusoids, |v|·dt/dx ≤ 0.6
+    cells. Returns the velocity components, smoke and pressure."""
     import numpy as np
     rng = np.random.default_rng(seed)
 
@@ -392,42 +532,51 @@ def smooth_state(N, seed=0):
         grids = np.meshgrid(*[np.arange(n) / N for n in shape], indexing='ij')
         out = np.zeros(shape)
         for _ in range(4):
-            k = rng.integers(1, 4, 3)
-            ph = rng.uniform(0, 2 * np.pi, 3)
-            out += np.prod([np.sin(2 * np.pi * k[a] * grids[a] + ph[a]) for a in range(3)], axis=0)
+            k = rng.integers(1, 4, dims)
+            ph = rng.uniform(0, 2 * np.pi, dims)
+            out += np.prod([np.sin(2 * np.pi * k[a] * grids[a] + ph[a]) for a in range(dims)], axis=0)
         return (amp * out / np.abs(out).max()).astype(np.float32)
-    vx = field((N - 1, N, N), 1.2)
-    vy = field((N, N - 1, N), 1.2)
-    vz = field((N, N, N - 1), 1.2)
-    smoke = (0.5 + field((N, N, N), 0.5)).astype(np.float32)
-    return vx, vy, vz, smoke, np.zeros((N, N, N), np.float32)
+    vel = [field(tuple(N - (a == d) for a in range(dims)), 1.2) for d in range(dims)]
+    smoke = (0.5 + field((N,) * dims, 0.5)).astype(np.float32)
+    return (*vel, smoke, np.zeros((N,) * dims, np.float32))
 
 
-def cpu_vs_card(N=64, steps=2, tol=1e-3):
+def cpu_vs_card(tag, dims, N, per_phase, steps=2, tol=1e-3):
     import numpy as np
     from phiflow_tpu_torch.models import SmokePlume, state_from_numpy, state_to_numpy
-    arrays = smooth_state(N)
+    arrays = smooth_state(N, dims)
     out = {}
     for dev in ('cpu', 'cuda'):
-        model = SmokePlume(resolution=N, dims=3, cg_tol=1e-3, max_iterations=100, device=dev)
+        model = SmokePlume(resolution=N, dims=dims, cg_tol=1e-3, max_iterations=100, device=dev)
+        step, _ = _stepper(model, per_phase)
         v, s, p = state_from_numpy(*arrays, device=dev)
         for _ in range(steps):
-            v, s, p = model.step(v, s, p)
+            v, s, p = step(v, s, p)
         out[dev] = state_to_numpy((v, s, p))
-    names = ('vx', 'vy', 'vz', 'smoke')
+    names = [f'v{"xyz"[d]}' for d in range(dims)] + ['smoke']
     errs = {n: float(np.abs(a - b).max()) for n, a, b in zip(names, out['cpu'], out['cuda'])}
     worst = max(errs.values())
-    print(f'cpu vs card {N}^3, {steps} steps from one numpy state: '
+    print(f'cpu vs card, {tag} {N}^{dims}, {steps} steps from one numpy state: '
           + ', '.join(f'{n} {e:.2e}' for n, e in errs.items())
           + f'; max {worst:.2e} tol {tol:.0e} {"ok" if worst <= tol else "FAIL"}')
     if not worst <= tol:
-        raise RuntimeError(f'CPU and card disagree: {errs}')
+        raise RuntimeError(f'CPU and card disagree ({tag}): {errs}')
 
 
 def card_line():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# the path whose run gives a kernel's `launches` in the `kernels` line: the one that brought it
+COUNTED_ON = {**{k: 'fused' for k in FUSED_KERNELS}, 'window_interp_3d': 'per-phase',
+              'window_interp_2d': 'per-phase-2d'}
+PATHS = [  # (tag, dims, N, per-phase?, the kernels it must launch)
+    ('fused', 3, PATH_N, False, FUSED_KERNELS),
+    ('per-phase', 3, PATH_N, True, PHASES_3D_KERNELS),
+    ('per-phase-2d', 2, PATH_N_2D, True, PHASES_2D_KERNELS),
+]
 
 
 def main(argv):
@@ -457,21 +606,29 @@ def main(argv):
     check_poisson(ch, gen, quick)
     check_transfer(ch, gen, quick)
     check_advect(ch, gen, quick)
+    check_interp(ch, gen, quick)
     torch.cuda.synchronize()
-    print(f'checks: {time.perf_counter() - t0:.1f} s, {len(ch.failed)} failed')
+    print(f'checks: {time.perf_counter() - t0:.1f} s, {sum(ch.passed.values())} passed, {len(ch.failed)} failed')
     if ch.failed:
         raise RuntimeError(f'kernel checks failed: {ch.failed}')
     if quick:
         return 0
-    launches = run_slice()
-    cpu_vs_card()
+    by_path = {}
+    for tag, dims, N, per_phase, required in PATHS:
+        by_path[tag] = run_slice(tag, dims, N, per_phase, required)
+        torch.cuda.empty_cache()
+    cpu_vs_card('fused', 3, 64, False)
+    cpu_vs_card('per-phase', 3, 64, True)
+    cpu_vs_card('per-phase-2d', 2, 256, True)
     if '--profile' in argv:
-        profile_slice()
+        for tag, dims, N, per_phase, _ in PATHS:
+            profile_slice(tag, dims, N, per_phase)
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rows.append(dict(name=name, route='cuda', source=source, replaces=replaces,
-                         launches=int(launches.get(name, 0)), max_abs_err=ch.max_err[name],
-                         checks_passed=ch.passed[name], **ch.timing[name]))
+                         launches=int(by_path[COUNTED_ON[name]].get(name, 0)), launches_path=COUNTED_ON[name],
+                         launches_by_path={tag: int(c.get(name, 0)) for tag, c in by_path.items()},
+                         max_abs_err=ch.max_err[name], checks_passed=ch.passed[name], **ch.timing[name]))
     print(f'card: {card}')
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

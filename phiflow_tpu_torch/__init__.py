@@ -1,11 +1,15 @@
 """ΦFlow-TPU's PyTorch/CUDA port (`phiflow_tpu_torch`).
 
-The JAX package `phiflow_tpu` stays the reference. This package mirrors its
-main path — the 3D smoke-plume step (`models.SmokePlume.step`) — at the array
-level: plain functions on `torch.Tensor`s whose hot loops are hand-written CUDA
-kernels for Hopper (`csrc/*.cu`, built with `nvcc` at first use by
-`ops/_build.py`). Every kernel has a plain PyTorch twin in the same module; a
-wrapper takes the twin only for tensors on the CPU.
+The JAX package `phiflow_tpu` stays the reference. This package mirrors the
+smoke-plume step (`models.SmokePlume.step`, 2D and 3D, closed or periodic box)
+at the array level, on both of its advection paths: the fused 3D path
+(`ops/advect3d.py`) and the per-phase path of the public advection functions
+(`physics/advect.py` → `math/_nd.py` → `ops/interp.py`), each followed by the
+pressure projection (`physics/fluid.py`). They are plain functions on
+`torch.Tensor`s whose hot loops are hand-written CUDA kernels for Hopper
+(`csrc/*.cu`, built with `nvcc` at first use by `ops/_build.py`). Every kernel
+has a plain PyTorch twin in the same module; a wrapper takes the twin only for
+tensors on the CPU.
 
 Entry points run on the card (`device='cuda'`) unless the caller passes
 `device='cpu'`, as the tests do.

@@ -30,19 +30,7 @@
 // hits; the distinct bytes (each input read once, each output written once)
 // set the floor, so the kernel is bound by device-memory bytes. This first
 // version leaves the neighbour reuse to the L1/L2 caches.
-#include "common.cuh"
-
-#define SRC_CONST 0
-#define SRC_EDGE 1
-#define SRC_WRAP 2
-
-struct Src {
-    const float *p;
-    int n[3];      // raw shape
-    int shift[3];  // raw index = logical index - shift
-    int mode;      // SRC_CONST | SRC_EDGE | SRC_WRAP outside the raw extent
-    float c;       // the constant of SRC_CONST
-};
+#include "window.cuh"
 
 struct Blk {  // an operand indexed by the output point (shape >= the output's)
     const float *p;
@@ -68,22 +56,6 @@ struct AdvectArgs {
     int add_ball;
     float ball[5];  // cx, cy, cz, radius (cells), rate
 };
-
-__device__ __forceinline__ int resolve(int l, int n, int mode, bool &outside) {
-    if (mode == SRC_WRAP) return ((l % n) + n) % n;
-    if (mode == SRC_EDGE) return min(max(l, 0), n - 1);
-    if (l < 0 || l >= n) outside = true;
-    return l;
-}
-
-__device__ __forceinline__ float fetch(const Src &s, int l0, int l1, int l2) {
-    bool outside = false;
-    const int r0 = resolve(l0 - s.shift[0], s.n[0], s.mode, outside);
-    const int r1 = resolve(l1 - s.shift[1], s.n[1], s.mode, outside);
-    const int r2 = resolve(l2 - s.shift[2], s.n[2], s.mode, outside);
-    if (outside) return s.c;
-    return __ldg(s.p + ((long long)r0 * s.n[1] + r1) * s.n[2] + r2);
-}
 
 __device__ __forceinline__ float blk(const Blk &b, int o0, int o1, int o2) {
     return __ldg(b.p + ((long long)o0 * b.n1 + o1) * b.n2 + o2);
@@ -115,26 +87,14 @@ __global__ void fused_advect_kernel(const AdvectArgs a) {
             m[e] += 1;
             v = (fetch(a.vel[e], l[0], l[1], l[2]) + fetch(a.vel[e], m[0], m[1], m[2])) * 0.5f;
         }
-        const float kf = (float)a.K;
-        disp[e] = fminf(fmaxf(a.scale[e] * v, -kf), kf);
+        disp[e] = clip_cells(a.scale[e], v, a.K);
     }
-    // corners s = floor(d) and floor(d) + 1 per axis, with the TPU window's
-    // tent weight max(0, 1 - |d - s|) and its corner test |d - s| < 1 written
-    // the same way, so both count the same corners in floating point
+    // corners s = floor(d) and floor(d) + 1 per axis (window.cuh)
     int base[3];
     float wt[3][2];
     bool hit[3][2];
 #pragma unroll
-    for (int e = 0; e < 3; ++e) {
-        const float f = floorf(disp[e]);
-        base[e] = l[e] + (int)f;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-            const float dist = fabsf(disp[e] - (f + (float)c));
-            wt[e][c] = fmaxf(0.f, 1.f - dist);
-            hit[e][c] = dist < 1.f;
-        }
-    }
+    for (int e = 0; e < 3; ++e) base[e] = l[e] + window_taps(disp[e], wt[e], hit[e]);
     float val = 0.f, lo = 3.4e38f, up = -3.4e38f;
 #pragma unroll
     for (int cx = 0; cx < 2; ++cx)

@@ -51,7 +51,9 @@ def make_poisson_vcycle(resolution: Tuple[int, ...], dx: Tuple[float, ...], bcs,
                         min_size: int = 4, max_direct: int = 512,
                         dtype='auto') -> Callable:
     """Build ``vcycle(b, emit_dot=False) -> (u, dot)`` with u ≈ A⁻¹ b for the
-    Poisson operator on a uniform cell-centred 3D grid; b, u: (X, Y, Z).
+    Poisson operator on a uniform cell-centred 2D or 3D grid; b, u: (X, Y[, Z]).
+    A 3D grid on CUDA goes through K2–K4, a 2D grid through the same wrappers'
+    PyTorch route.
 
     ``dot`` is ⟨u, b⟩ from the last fine post-smooth (K2's ``emit_dot``) when
     ``emit_dot`` is set, else None — the finest level's dot only.

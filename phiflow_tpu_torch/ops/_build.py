@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/<name>.cu` has a plain C interface and is compiled on its own by
+Each `csrc/<name>.cu` (with the headers `csrc/*.cuh` it includes) has a plain C interface and is compiled on its own by
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC` into
 `phiflow_tpu_torch/_build/lib<name>.so` at first use, then loaded with
 `ctypes`. A build takes seconds: no source includes PyTorch's headers. The
@@ -19,6 +19,7 @@ through the kernels.
 from __future__ import annotations
 
 import collections
+import functools
 import os
 import shutil
 import subprocess
@@ -27,12 +28,12 @@ import time
 from typing import Dict, Iterable, Sequence
 
 __all__ = ['SOURCES', 'LAUNCHES', 'reset_launches', 'build', 'ptxas_log', 'library', 'check',
-           'block_x', 'stream_of']
+           'block_x', 'stream_of', 'SRC_MODE', 'src_struct']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
-SOURCES = ('poisson', 'transfer', 'advect3d')
+SOURCES = ('poisson', 'transfer', 'advect3d', 'interp')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 
@@ -141,3 +142,19 @@ def block_x(n: int) -> int:
 def stream_of(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# what an array read by the advection kernels holds past its raw extent
+# (`csrc/window.cuh`): a constant, its nearest edge value, or a periodic wrap
+SRC_MODE = {'const': 0, 'edge': 1, 'wrap': 2}
+
+
+@functools.lru_cache(maxsize=1)
+def src_struct():
+    """The ctypes mirror of `Src` in `csrc/window.cuh`."""
+    import ctypes
+
+    class Src(ctypes.Structure):
+        _fields_ = [('p', ctypes.c_void_p), ('n', ctypes.c_int * 3), ('shift', ctypes.c_int * 3),
+                    ('mode', ctypes.c_int), ('c', ctypes.c_float)]
+    return Src

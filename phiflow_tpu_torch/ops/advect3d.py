@@ -40,9 +40,6 @@ from . import _build
 
 __all__ = ['Source', 'OutSpec', 'fused_advect_3d']
 
-_SRC_MODE = {'const': 0, 'edge': 1, 'wrap': 2}
-
-
 class Source(NamedTuple):
     """An array the fused call reads: a velocity component (indices 0..2 of the
     source list, own_axis = its axis) or an advected array.
@@ -121,8 +118,8 @@ def fused_advect_3d(sources: Sequence[Source], N: Sequence[int], K: int,
     if len(N) != 3 or len(sources) < 3:
         raise ValueError("fused_advect_3d takes a 3D grid and the three velocity components first")
     for s in sources:
-        if s.mode not in _SRC_MODE:
-            raise ValueError(f"source mode {s.mode!r} not in {tuple(_SRC_MODE)}")
+        if s.mode not in _build.SRC_MODE:
+            raise ValueError(f"source mode {s.mode!r} not in {tuple(_build.SRC_MODE)}")
     if not 1 <= K <= 7:
         raise ValueError(f"window K must be in [1, 7], got {K}")
     if sources[0].values.is_cuda:
@@ -250,9 +247,7 @@ def _fused_advect_plain(sources, N, K, outs, scales, blocked_extras):
 def _ctypes_args():
     import ctypes
     I, F, P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-
-    class Src(ctypes.Structure):
-        _fields_ = [('p', P), ('n', I * 3), ('shift', I * 3), ('mode', I), ('c', F)]
+    Src = _build.src_struct()
 
     class Blk(ctypes.Structure):
         _fields_ = [('p', P), ('n1', I), ('n2', I)]
@@ -297,7 +292,7 @@ def _advect_cuda(sources, N, K, outs, scales, blocked_extras):
     def src(s: Source):
         return Src(s.values.data_ptr(), (ctypes.c_int * 3)(*s.values.shape),
                    (ctypes.c_int * 3)(*(_shift(s, N, ax) for ax in range(3))),
-                   _SRC_MODE[s.mode], _f32(s.const))
+                   _build.SRC_MODE[s.mode], _f32(s.const))
 
     def blk(i, O):
         e = blocked_extras[i]

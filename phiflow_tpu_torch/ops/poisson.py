@@ -17,9 +17,15 @@ Three CUDA kernels (`csrc/poisson.cu`) carry it on the card:
   residual.
 
 Their plain twin is `_apply_plain` (`_apply_xla` of the JAX package, masks
-included). A wrapper takes the twin only for tensors on the CPU; for CUDA
+included). A wrapper takes the twin only for tensors on the CPU; for 3D CUDA
 tensors it launches its kernel or raises. Storage is float32 or bfloat16,
 arithmetic float32 — the twins cast the same way.
+
+The kernels are 3D, as the TPU kernels are: the JAX package computes a 2D
+stencil through XLA on the TPU too (`_apply_xla`). So each wrapper decides on
+dimensionality alone, before anything else: with two spatial axes
+(``len(bc) == 2``) it computes with the PyTorch functions below on whatever
+device the tensor lies, and with three it takes the kernel route above.
 """
 from __future__ import annotations
 
@@ -59,6 +65,17 @@ def _unmasked_coeffs_1d(n, lo, hi, dtype):
     return am.astype(dtype), ap.astype(dtype), c0.astype(dtype)
 
 
+@functools.lru_cache(maxsize=256)
+def _unmasked_profiles(n, lo, hi, inv, trailing, device, dtype):
+    """(a⁻, a⁺, c0·inv) of one axis as tensors on `device`, shaped to
+    broadcast over `trailing` later axes. Cached: the stencil is applied
+    hundreds of times a step with the same few (size, modes, device, dtype),
+    and building the profiles anew is a host-to-device copy each time."""
+    am, ap, c0 = (torch.from_numpy(a).to(device, dtype).reshape((n,) + (1,) * trailing)
+                  for a in _unmasked_coeffs_1d(n, lo, hi, np.float32))
+    return am, ap, c0 * inv
+
+
 def _lap_plain(p, inv_dx2, bc, mA_list, c0):
     """A·p via torch.roll; p: (..., *spatial) with len(bc) trailing spatial axes."""
     ndim = len(bc)
@@ -73,11 +90,9 @@ def _lap_plain(p, inv_dx2, bc, mA_list, c0):
             max_ = mA.ndim - ndim + d
             term = mA * pm + torch.roll(mA, -1, max_) * pp
         else:
-            am, ap, c0d = (torch.from_numpy(a).to(p.device, p.dtype)
-                           for a in _unmasked_coeffs_1d(p.shape[ax], lo, hi, np.float32))
-            prof_shape = (p.shape[ax],) + (1,) * (ndim - d - 1)
-            term = am.reshape(prof_shape) * pm + ap.reshape(prof_shape) * pp
-            c0_term = (c0d * float(np.float32(inv))).reshape(prof_shape)
+            am, ap, c0_term = _unmasked_profiles(p.shape[ax], lo, hi, float(np.float32(inv)), ndim - d - 1,
+                                                 p.device, p.dtype)
+            term = am * pm + ap * pp
             c0_eff = c0_term if c0_eff is None else c0_eff + c0_term
         term = term * float(np.float32(inv))
         lap = term if lap is None else lap + term
@@ -179,10 +194,13 @@ def poisson_apply(p: torch.Tensor, inv_dx2: Sequence[float], bc: Sequence[Tuple[
     'jacobi' → p + ω/diag·(b − A·p). The result has p's dtype. With
     ``with_dot`` returns (result, ⟨p, result⟩) — the CG denominator ⟨p, A·p⟩.
 
-    On CUDA: one 3D unmasked field (the masked form, for obstacles and free
+    Two spatial axes: PyTorch operations on any device (module docstring). On
+    CUDA in 3D: one unmasked field (the masked form, for obstacles and free
     surfaces, comes with a later slice of the port)."""
     if mode not in _EPILOGUE:
         raise ValueError(mode)
+    if len(bc) == 2:
+        return _poisson_apply_plain(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag, with_dot)
     if p.is_cuda:
         if mA_list is not None or c0 is not None or active is not None:
             raise NotImplementedError("the masked Poisson stencil (mA_list / c0 / active) is not "
@@ -243,14 +261,15 @@ def poisson_smooth(u: Optional[torch.Tensor], b: torch.Tensor,
     ``emit_dot`` returns (u_out, ⟨u_out, b⟩) — the CG's ⟨z, r⟩ when this is
     the V-cycle's last fine post-smooth.
 
-    On CUDA one kernel launch per sweep; the zero-init sweep rides in the first
-    launch, so a zero-init triple is two launches and sweeps must be ≥ 2."""
+    Two spatial axes: PyTorch operations on any device. On CUDA in 3D one
+    kernel launch per sweep; the zero-init sweep rides in the first launch, so
+    a zero-init triple is two launches and sweeps must be ≥ 2."""
     if sweeps < 1:
         raise ValueError(f"sweeps must be >= 1, got {sweeps}")
     if u is None and not zero_init:
         raise ValueError("u is None: pass zero_init=True")
     out_dtype = out_dtype or (b.dtype if zero_init else u.dtype)
-    if b.is_cuda:
+    if b.is_cuda and len(bc) != 2:
         return _smooth_cuda(u, b, inv_dx2, bc, omega_over_diag, sweeps, zero_init, out_dtype, emit_dot)
     return _poisson_smooth_plain(u, b, inv_dx2, bc, omega_over_diag, sweeps, zero_init, out_dtype, emit_dot)
 
@@ -311,9 +330,10 @@ def _smooth_cuda(u, b, inv_dx2, bc, omega_over_diag, sweeps, zero_init, out_dtyp
 
 def residual_restrict(u: torch.Tensor, b: torch.Tensor, inv_dx2: Sequence[float],
                       bc: Sequence[Tuple[str, str]]) -> torch.Tensor:
-    """restrict_mean(b − A·u) over the three spatial axes, in u's dtype.
-    u, b: (X, Y, Z) with even sizes."""
-    if u.is_cuda:
+    """restrict_mean(b − A·u) over the spatial axes, in u's dtype. u, b:
+    (X, Y, Z) or (X, Y) with even sizes; the 2D form is PyTorch operations on
+    any device."""
+    if u.is_cuda and len(bc) != 2:
         _check_bc(bc)
         _check_field('u', u)
         _check_field('b', b, u.shape)

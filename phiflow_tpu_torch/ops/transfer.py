@@ -6,6 +6,9 @@
 * `prolong_add` / `prolong_pc` — u + nearest-2×-upsample(c), or the upsample
   alone: K4, `csrc/transfer.cu`, on CUDA; `_prolong_plain` (JAX's
   `_prolong_xla`) on the CPU. Arithmetic is float32, stored in u's dtype.
+  The kernel is 3D, as the TPU kernel is; with ``ndim=2`` the wrappers
+  compute with `_prolong_plain` on any device, as the JAX package computes
+  through XLA there. That choice is made on `ndim` alone.
 """
 from __future__ import annotations
 
@@ -61,6 +64,8 @@ def _prolong_cuda(c: torch.Tensor, u: Optional[torch.Tensor]) -> torch.Tensor:
 
 def prolong_pc(c: torch.Tensor, ndim: int = 3) -> torch.Tensor:
     """Piecewise-constant 2× upsample of the trailing `ndim` spatial axes."""
+    if ndim == 2:
+        return _prolong_plain(c, ndim)
     if c.is_cuda:
         if ndim != 3:
             raise NotImplementedError("the CUDA prolongation is 3D")
@@ -70,6 +75,8 @@ def prolong_pc(c: torch.Tensor, ndim: int = 3) -> torch.Tensor:
 
 def prolong_add(c: torch.Tensor, u: torch.Tensor, ndim: int = 3) -> torch.Tensor:
     """u + piecewise-constant-upsample(c), in u's dtype (float32 arithmetic)."""
+    if ndim == 2:
+        return _prolong_add_plain(c, u, ndim)
     if u.is_cuda:
         if ndim != 3:
             raise NotImplementedError("the CUDA prolongation is 3D")

@@ -3,9 +3,10 @@
 
 divergence → `_balance_divergence` → CG on the Poisson stencil (K1),
 preconditioned by the multigrid V-cycle (K2–K4) from x0 = the previous
-pressure → subtract the pressure gradient. Closed box or periodic box, no
-obstacles, no free surface: the obstacle / FLIP branch (K1's masked form)
-comes with a later slice.
+pressure → subtract the pressure gradient. Closed box or periodic box, 2D or
+3D (the kernels are 3D; a 2D solve runs the same code through the wrappers'
+PyTorch route, `ops/poisson.py`), no obstacles, no free surface: the obstacle /
+FLIP branch (K1's masked form) comes with a later slice.
 """
 from __future__ import annotations
 
@@ -56,7 +57,7 @@ def _grid_multigrid_preconditioner(resolution, dx: float, bcs, device):
 def make_incompressible(velocity: Sequence[torch.Tensor], pressure: Optional[torch.Tensor], dx: float,
                         rel_tol: float = 1e-5, abs_tol: float = 1e-5, max_iterations: int = 1000,
                         periodic: bool = False) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor, SolveResult]:
-    """Project the staggered velocity (raw components x, y, z) onto its
+    """Project the staggered velocity (raw components x, y[, z]) onto its
     divergence-free part. `pressure` is the solve's initial guess x0 (zeros
     when None). Returns (velocity, pressure, solve result); not converging
     within max_iterations is not an error, as for the smoke model's solve."""
