@@ -8,26 +8,38 @@
 Phases; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi) and the torch / CUDA versions;
   2. the build of phiflow_tpu_torch/csrc/*.cu with nvcc, one process per source;
-  3. each kernel K1–K7 against its plain PyTorch twin on the card, at a shape
-     of its path (256³; 4096² for K7) and at a small shape that is not a power
-     of two, over the three boundary modes, float32 and bfloat16 where the path
-     stores it; the median CUDA-event time of the kernel, of the twin and,
-     where one PyTorch call computes the same function, of that call
-     (library_ms — the port never calls it), beside the bound: the larger of
-     bytes moved / 3.35 TB/s and float32 operations / 67 TFLOP/s (H100 SXM
-     data sheet);
-  4. three paths of SmokePlume(cg_tol=1e-3, max_iterations=100) on the card,
-     each 2 warm-up steps, then 5 timed steps with every launch counter set to
-     0 just before and read just after; ms per step, Mcells/s, the advection /
-     pressure split, CG iterations, max |div|, the displacement bound and
-     finiteness:
+  3. each kernel K1–K8 and the masked form of K1 (K1m) against its plain
+     PyTorch twin on the card, at a shape of its path (256³; 4096² for K7; 128³
+     and 64³ with 1.06 M and 125 k particles for K8 and K1m) and at a small
+     shape that is not a power of two, over the three boundary modes, float32
+     and bfloat16 where the path stores it; the median CUDA-event time of the
+     kernel, of the twin and, where one PyTorch call computes the same
+     function, of that call (library_ms — the port never calls it), beside the
+     bound: the larger of bytes moved / 3.35 TB/s and float32 operations /
+     67 TFLOP/s (H100 SXM data sheet); for K8 and K1m, whose eager calls at
+     the FLIP sizes are mostly the host's time, also the call's time on the
+     device alone, replayed from a CUDA graph (device_ms);
+  4. five paths on the card, each 2 warm-up steps, then 5 timed steps with
+     every launch counter set to 0 just before and read just after. Three of
+     SmokePlume(cg_tol=1e-3, max_iterations=100): ms per step, Mcells/s, the
+     advection / pressure split, CG iterations, max |div|, the displacement
+     bound and finiteness:
      4a. the fused path, `step` at 256³ (K1–K5);
      4b. the per-phase path at 256³ through `advect_smoke`, `advect_velocity`,
          `project` (K6 and K1–K4);
      4c. the per-phase path in 2D at 4096² (K7; the 2D projection is PyTorch
          operations);
+     and two of FlipLiquid(dims=3, points_per_cell=8), `step` through K8 (4
+     launches a step: the three face grids and the occupancy) and K1m (6 + 4
+     per CG iteration): ms per step, M particles/s, the split P2G + fill /
+     projection / G2P + RK4 + push, CG iterations and `converged`, max
+     |div·active|; the particle count kept, positions finite and inside the
+     box ± 0.5, the mean height falling:
+     4d. 128³, 1,061,208 particles;
+     4e. 64³, 125,000 particles;
   5. 2 steps from one numpy state on the CPU (the twins) and on the card (the
-     kernels), compared at 1e-3 abs: fused at 64³, per-phase at 64³, 2D at 256²;
+     kernels), compared at 1e-3 abs: fused at 64³, per-phase at 64³, 2D at
+     256², FLIP at 32³ (positions);
   6. the `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -47,6 +59,7 @@ PATH_BC = BC_SETS[0]
 SMALL = (24, 40, 72)
 PATH_N = 256
 PATH_N_2D = 4096  # 16.8 M cells, the cell count of 256³
+FLIP_N = (128, 64)  # 1,061,208 and 125,000 particles at 8 a cell
 
 KERNELS = {  # launch-counter name → (source, the Pallas kernel it replaces)
     'poisson_stencil': ('phiflow_tpu_torch/csrc/poisson.cu', 'phiflow_tpu/ops/poisson.py:284'),
@@ -56,10 +69,14 @@ KERNELS = {  # launch-counter name → (source, the Pallas kernel it replaces)
     'fused_advect': ('phiflow_tpu_torch/csrc/advect3d.cu', 'phiflow_tpu/ops/advect3d.py:232'),
     'window_interp_3d': ('phiflow_tpu_torch/csrc/interp.cu', 'phiflow_tpu/ops/interp.py:111'),
     'window_interp_2d': ('phiflow_tpu_torch/csrc/interp.cu', 'phiflow_tpu/ops/interp.py:323'),
+    # K1m: the launches of K1's C entry with coefficient arrays or active cells (also counted in poisson_stencil)
+    'poisson_stencil_masked': ('phiflow_tpu_torch/csrc/poisson.cu', 'phiflow_tpu/ops/poisson.py:284'),
+    'p2g': ('phiflow_tpu_torch/csrc/p2g.cu', 'phiflow_tpu/ops/p2g.py:142'),
 }
 FUSED_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'fused_advect')
 PHASES_3D_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'window_interp_3d')
 PHASES_2D_KERNELS = ('window_interp_2d',)
+P2G_LAUNCHES_PER_STEP = 4  # three face grids and the occupancy grid
 
 
 class Checks:
@@ -94,6 +111,17 @@ class Checks:
             self.failed.append(f'{kernel} {case}')
         self.passed[kernel] += ok
 
+    def compare_with_nan(self, kernel, case, got, ref, tol):
+        """`compare` for results in which NaN is data: the NaN patterns must
+        be equal, the other entries within tol."""
+        import torch
+        same = bool((torch.isnan(got) == torch.isnan(ref)).all())
+        if not same:
+            print(f'check {kernel:17s} {case:58s} NaN patterns differ FAIL')
+            self.failed.append(f'{kernel} {case} NaN pattern')
+            return
+        self.compare(kernel, case, torch.nan_to_num(got, nan=0.0), torch.nan_to_num(ref, nan=0.0), tol)
+
     def compare_dot(self, kernel, case, got, ref, rtol):
         err = abs(float(got) - float(ref))
         ok = err <= rtol * max(abs(float(ref)), 1.0)
@@ -103,21 +131,31 @@ class Checks:
             self.failed.append(f'{kernel} {case} dot')
         self.passed[kernel] += ok
 
-    def time(self, kernel, what, fn_kernel, fn_plain, n_bytes, n_ops, fn_library=None, key=None):
+    def time(self, kernel, what, fn_kernel, fn_plain, n_bytes, n_ops, fn_library=None, key=None, replay=False):
         """Times are kept under `key` (default: the kernel's name, whose entry
-        goes into the `kernels` line; any other key is printed only)."""
+        goes into the `kernels` line; any other key is printed only). With
+        `replay`, the wrapper's call (and the library's) is also captured in a
+        CUDA graph and replayed: its time on the device without the host's
+        share, which at the FLIP path's sizes is most of `ms`."""
         ms = median_ms(fn_kernel)
         plain_ms = median_ms(fn_plain)
         library_ms = median_ms(fn_library) if fn_library is not None else None
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / F32_OPS_PER_S * 1e3
         bound_ms, bound_by = (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
-        self.timing[key or kernel] = dict(timed=what, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                          bound_by=bound_by, library_ms=library_ms)
+        row = dict(timed=what, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
         lib = 'n/a' if library_ms is None else f'{library_ms:.4f}'
-        print(f'time  {kernel:17s} {what:58s} ms={ms:.4f} plain_ms={plain_ms:.4f} '
-              f'library_ms={lib} bound_ms={bound_ms:.4f} ({bound_by}; {n_bytes / 1e6:.1f} MB, '
-              f'{n_ops / 1e9:.2f} GFLOP)')
+        line = (f'time  {kernel:17s} {what:58s} ms={ms:.4f} plain_ms={plain_ms:.4f} '
+                f'library_ms={lib} bound_ms={bound_ms:.4f} ({bound_by}; {n_bytes / 1e6:.1f} MB, '
+                f'{n_ops / 1e9:.2f} GFLOP)')
+        if replay:
+            row['device_ms'] = replay_ms(fn_kernel)
+            line += f' device_ms={row["device_ms"]:.4f}'
+            if fn_library is not None:
+                row['library_device_ms'] = replay_ms(fn_library)
+                line += f' library_device_ms={row["library_device_ms"]:.4f}'
+        self.timing[key or kernel] = row
+        print(line)
 
 
 def median_ms(fn, reps=7, warmup=2):
@@ -135,6 +173,33 @@ def median_ms(fn, reps=7, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def replay_ms(fn, reps=20):
+    """Device time of one call of `fn`: its launches captured in a CUDA graph
+    and replayed back to back, so the host's share of an eager call (Python,
+    allocation, launch overhead) is left out. The arrays stay in the L2 cache
+    between replays where they fit."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def nbytes(*ts):
@@ -225,6 +290,159 @@ def check_poisson(ch, gen, quick):
             lambda: P.residual_restrict(u, b, one, PATH_BC),
             lambda: P._residual_restrict_plain(u, b, one, PATH_BC),
             nbytes(u, b, got), 23 * u.numel())
+
+
+def _random_face_masks(shape, bcs, gen, dev):
+    """0/1 masks of every face along each axis: N+1 entries along the own
+    axis, N where it is periodic (face N is face 0); about one face in five
+    closed, first and last planes included."""
+    import torch
+    masks = []
+    for d, (lo, _) in enumerate(bcs):
+        fshape = list(shape)
+        fshape[d] += 0 if lo == 'periodic' else 1
+        masks.append((torch.rand(fshape, generator=gen, device=dev) < 0.8).float())
+    return masks
+
+
+def check_poisson_masked(ch, gen, quick):
+    """K1m against the twin: coefficient arrays from `stage_masks` of random
+    face masks, active cells, and both, over boundary sets × epilogues, with
+    the dot."""
+    import torch
+    from phiflow_tpu_torch.ops import poisson as P
+    dev = 'cuda'
+    name = 'poisson_stencil_masked'
+    inv = (1.0, 0.7, 1.3)
+
+    def forms(shape, bcs, inv_dx2):
+        mA, c0 = P.stage_masks(_random_face_masks(shape, bcs, gen, dev), bcs, inv_dx2)
+        active = (torch.rand(shape, generator=gen, device=dev) < 0.7).float()
+        return {'mA+c0': dict(mA_list=mA, c0=c0), 'active': dict(active=active),
+                'mA+c0+active': dict(mA_list=mA, c0=c0, active=active)}
+
+    for bcs in BC_SETS:
+        tag = '/'.join(f'{lo[0]}{hi[0]}' for lo, hi in bcs)
+        p = torch.randn(SMALL, generator=gen, device=dev)
+        b = torch.randn(SMALL, generator=gen, device=dev)
+        for form, kw in forms(SMALL, bcs, inv).items():
+            for mode in ('matvec', 'residual', 'jacobi'):
+                got = P.poisson_apply(p, inv, bcs, b=b, mode=mode, omega_over_diag=0.15, **kw)
+                ref = P._poisson_apply_plain(p, inv, bcs, b=b, mode=mode, omega_over_diag=0.15, **kw)
+                ch.compare(name, f'{form} {mode} {SMALL} {tag}', got, ref, 2e-5)
+            got, dot = P.poisson_apply(p, inv, bcs, with_dot=True, **kw)
+            ref, rdot = P._poisson_apply_plain(p, inv, bcs, with_dot=True, **kw)
+            ch.compare(name, f'{form} matvec with_dot {SMALL} {tag}', got, ref, 2e-5)
+            ch.compare_dot(name, f'{form} matvec with_dot {SMALL} {tag}', dot, rdot, 1e-5)
+        pb = p.to(torch.bfloat16)
+        kw = forms(SMALL, bcs, inv)['mA+c0+active']
+        ch.compare(name, f'mA+c0+active matvec {SMALL} {tag} bfloat16', P.poisson_apply(pb, inv, bcs, **kw),
+                   P._poisson_apply_plain(pb, inv, bcs, **kw), 2e-5)
+    if quick:
+        return
+    # --- the FLIP path's shape: 128³, closed box, unit cells ---
+    N3 = (FLIP_N[0],) * 3
+    one = (1.0, 1.0, 1.0)
+    p = torch.randn(N3, generator=gen, device=dev)
+    b = torch.randn(N3, generator=gen, device=dev)
+    all_forms = forms(N3, PATH_BC, one)
+    for form, kw in all_forms.items():
+        for mode in ('matvec', 'residual', 'jacobi'):
+            got = P.poisson_apply(p, one, PATH_BC, b=b, mode=mode, omega_over_diag=-0.15, **kw)
+            ref = P._poisson_apply_plain(p, one, PATH_BC, b=b, mode=mode, omega_over_diag=-0.15, **kw)
+            ch.compare(name, f'{form} {mode} {N3}', got, ref, 2e-5)
+        got, dot = P.poisson_apply(p, one, PATH_BC, with_dot=True, **kw)
+        ref, rdot = P._poisson_apply_plain(p, one, PATH_BC, with_dot=True, **kw)
+        ch.compare_dot(name, f'{form} matvec with_dot {N3}', dot, rdot, 1e-5)
+        arrays = [p, got] + [m for v in kw.values() for m in (v if isinstance(v, list) else [v])]
+        # the path's form (the free surface's active cells) goes into the `kernels` line, the others are printed
+        ch.time(name, f'{form}: matvec + dot, {N3} float32',
+                lambda kw=kw: P.poisson_apply(p, one, PATH_BC, with_dot=True, **kw),
+                lambda kw=kw: P._poisson_apply_plain(p, one, PATH_BC, with_dot=True, **kw),
+                nbytes(*arrays), 22 * p.numel(), key=name if form == 'active' else f'{name} {form}', replay=True)
+
+
+def _particles(n_cells, points_per_cell, gen, dev, lower, dx, stray=0.02):
+    """Random particle positions (N, 3) over a grid of `n_cells` cells of size
+    dx from `lower`: uniform inside, a share `stray` up to two cells outside on
+    any side, and one particle in 64 exactly on a cell border; with values."""
+    import torch
+    n = n_cells[0] * n_cells[1] * n_cells[2] * points_per_cell
+    res = torch.tensor(n_cells, device=dev, dtype=torch.float32)
+    u = torch.rand((n, 3), generator=gen, device=dev)
+    cells = u * res
+    outside = torch.rand((n, 1), generator=gen, device=dev) < stray
+    cells = torch.where(outside, u * (res + 4.0) - 2.0, cells)
+    on_border = torch.rand((n, 3), generator=gen, device=dev) < 1.0 / 64
+    cells = torch.where(on_border, torch.round(cells), cells)
+    pos = cells * torch.tensor(dx, device=dev) + torch.tensor(lower, device=dev)
+    return pos.contiguous(), torch.randn(n, generator=gen, device=dev)
+
+
+def check_p2g(ch, gen, quick):
+    """K8 against its twin: counts exactly, sums to float32 roundoff of a
+    cell's addends (1e-6 relative to the largest sum, atomics add in any
+    order), the mean with NaN in the empty cells."""
+    import torch
+    from phiflow_tpu_torch.field._resample import face_grid
+    from phiflow_tpu_torch.models import FlipLiquid
+    from phiflow_tpu_torch.ops import p2g as G
+    dev = 'cuda'
+
+    def check(case, pos, vals, res, lower, inv_dx, clamp, base):
+        sums, counts = G.p2g_sums_counts(pos, vals, res, lower, inv_dx, clamp)
+        rsums, rcounts = G._p2g_plain(pos, vals, res, lower, inv_dx, clamp)
+        how = 'clamp' if clamp else 'discard'
+        ch.compare('p2g', f'{case} {how} counts (exact)', counts, rcounts, 0.0)
+        ch.compare('p2g', f'{case} {how} sums', sums, rsums, 1e-6 * max(1.0, float(rsums.abs().max())))
+        got = G.p2g_mean_3d(pos, vals, res, lower, inv_dx, clamp, base)
+        ch.compare_with_nan('p2g', f'{case} {how} mean, base {base}', got, G._mean_or_base(rsums, rcounts, base), 5e-6)
+
+    # --- a small grid that is not cubic, cells of 0.5 × 1.0 × 0.25 from a lower corner off the origin ---
+    lower, dx = (0.5, -1.0, 0.25), (0.5, 1.0, 0.25)
+    pos, vals = _particles(SMALL, 2, gen, dev, lower, dx)
+    for clamp in (False, True):
+        for base in (0.0, float('nan')):
+            check(f'{pos.shape[0]} particles -> {SMALL}', pos, vals, SMALL, lower, tuple(1.0 / h for h in dx), clamp, base)
+    if quick:
+        return
+    # --- the FLIP paths' particle sets and their four target grids ---
+    timed = None
+    for N in FLIP_N:
+        pos = torch.from_numpy(FlipLiquid(N, dims=3, points_per_cell=8, device='cuda').positions0).to(dev)
+        # the block moved to the corner and stretched past two walls: particles outside every face grid
+        pos = ((pos - 0.15 * N) * 1.2 - 1.0).contiguous()
+        vals = torch.randn(pos.shape[0], generator=gen, device=dev)
+        for axis in (None, 0, 1, 2):
+            res, lo, _ = face_grid((N,) * 3, (1.0,) * 3, axis)
+            lo = tuple(float(x) for x in lo)
+            clamp, base = (False, 0.0) if axis is None else (True, float('nan'))
+            check(f'{pos.shape[0]} particles -> {res}', pos, vals, res, lo, (1.0,) * 3, clamp, base)
+            if N == FLIP_N[0] and axis == 0:
+                timed = (pos, vals, res, lo)
+    pos, vals, res, lo = timed
+    one = (1.0,) * 3
+    ids, _ = G._cell_ids(pos, res, lo, one, True)
+    ones = torch.ones_like(vals)
+    n_cells = res[0] * res[1] * res[2]
+
+    def library():
+        out = torch.zeros((2, n_cells), device=dev)
+        out[0].index_add_(0, ids, vals)
+        out[1].index_add_(0, ids, ones)
+        return out
+
+    # K8's function — sums and counts — beside the two index_add_ that compute the same from precomputed cell
+    # ids; per particle 12 B of position and 4 B of value read, per cell 8 B written
+    ch.time('p2g', f'sums + counts of {pos.shape[0]} particles -> x faces {res}, clamp',
+            lambda: G.p2g_sums_counts(pos, vals, res, lo, one, True),
+            lambda: G._p2g_plain(pos, vals, res, lo, one, True),
+            16 * pos.shape[0] + 8 * n_cells, 8 * pos.shape[0], library, replay=True)
+    # the whole mean as the path calls it: sums and counts are also read back and the mean written (20 B a cell)
+    ch.time('p2g', f'mean of {pos.shape[0]} particles -> x faces {res}, clamp, base NaN',
+            lambda: G.p2g_mean_3d(pos, vals, res, lo, one, True, float('nan')),
+            lambda: G._mean_or_base(*G._p2g_plain(pos, vals, res, lo, one, True), float('nan')),
+            16 * pos.shape[0] + 20 * n_cells, 8 * pos.shape[0] + 2 * n_cells, key='p2g mean', replay=True)
 
 
 def check_transfer(ch, gen, quick):
@@ -486,6 +704,111 @@ def run_slice(tag, dims, N, per_phase, required, warmup=2, steps=5):
     return launches
 
 
+def run_flip(tag, N, warmup=2, steps=5):
+    """FlipLiquid(N, dims=3).step on the card: the launch counts of a timed
+    run, the split by phase, and the gates on what comes out."""
+    import torch
+    from phiflow_tpu_torch.field import divergence
+    from phiflow_tpu_torch.models import FlipLiquid
+    from phiflow_tpu_torch.ops import _build
+    model = FlipLiquid(N, dims=3, points_per_cell=8, device='cuda')
+    particles, pressure = model.initial_state()
+    n = particles[0].shape[0]
+    z0 = float(particles[0][:, 2].mean())
+    for _ in range(warmup):
+        particles, pressure = model.step(particles, pressure)
+    torch.cuda.synchronize()
+    z_warm = float(particles[0][:, 2].mean())
+    _build.reset_launches()
+    solves = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        particles, pressure = model.step(particles, pressure)
+        solves.append(model.last_solve)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    ms = elapsed / steps * 1e3
+    iters = [r.iterations for r in solves]
+    print(f'{tag} {N}^3, {n} particles: {ms:.2f} ms/step, {n / (ms * 1e-3) / 1e6:.2f} M particles/s over {steps} '
+          f'steps after {warmup} warm-up steps; CG iterations per step {iters}, converged '
+          f'{[r.converged for r in solves]} (cg_tol {model.cg_tol}, at most {model.max_iterations})')
+    print(f'{tag} launches per step: ' + ', '.join(f'{k}={launches.get(k, 0) / steps:g}' for k in KERNELS))
+    # K1m: two diagonal probes, A·x0 and the first preconditioner's three a solve, four an iteration
+    expected = {'p2g': P2G_LAUNCHES_PER_STEP * steps, 'poisson_stencil_masked': sum(6 + 4 * it for it in iters)}
+    expected['poisson_stencil'] = expected['poisson_stencil_masked']
+    wrong = {k: (launches.get(k, 0), e) for k, e in expected.items() if launches.get(k, 0) != e or e == 0}
+    if wrong:
+        raise RuntimeError(f'{tag}: launches on the path (counted, expected): {wrong}')
+    # the split, from 3 more steps timed phase by phase
+    split = {'P2G + fill': [], 'projection': [], 'G2P + RK4 + push': []}
+    div_active = 0.0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prev_v, occupied = model.particles_to_grid(particles)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grid_v, pressure = model.project(prev_v, occupied, pressure)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        particles = model.grid_to_particles(particles, grid_v, prev_v)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[key].append(dt * 1e3)
+        div = divergence(grid_v, model._dx) * occupied
+        div_active = max(div_active, float(torch.nan_to_num(div, nan=0.0).abs().max()))
+    print(f'{tag} split: ' + ', '.join(f'{k} {statistics.median(v):.2f} ms' for k, v in split.items())
+          + ' (median of 3 steps timed phase by phase)')
+    positions, velocities = particles
+    z1 = float(positions[:, 2].mean())
+    finite = bool(torch.isfinite(positions).all()) and bool(torch.isfinite(pressure).all())
+    inside = bool((positions > -0.5).all()) and bool((positions < N + 0.5).all())
+    kept = tuple(positions.shape) == (n, 3) and tuple(velocities.shape) == (n, 3) and tuple(pressure.shape) == (N,) * 3
+    print(f'{tag} max |div·active| after projection {div_active:.3e}; mean height {z0:.3f} at rest, {z_warm:.3f} '
+          f'after the warm-up, {z1:.3f} at the end; positions finite: {finite}, inside the box ± 0.5: {inside}, '
+          f'{int(torch.isnan(velocities).any(dim=1).sum())} particles with a NaN velocity')
+    if not (finite and inside and kept and z1 < z_warm < z0):
+        raise RuntimeError(f'{tag} output wrong: finite={finite} inside={inside} kept={kept} heights {z0} {z_warm} {z1}')
+    return launches
+
+
+def profile_flip(tag, N, warmup=2, steps=3):
+    """torch.profiler over `steps` FLIP steps: device time by kernel and the
+    device's busy share of the wall time under the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from phiflow_tpu_torch.models import FlipLiquid
+    model = FlipLiquid(N, dims=3, points_per_cell=8, device='cuda')
+    particles, pressure = model.initial_state()
+    for _ in range(warmup):
+        particles, pressure = model.step(particles, pressure)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            particles, pressure = model.step(particles, pressure)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    device_ms = sum(r[2] for r in rows)
+    ours = sum(r[2] for r in rows if 'poisson_stencil_kernel' in r[0] or 'p2g_kernel' in r[0])
+    print(f'profile {tag} {N}^3, {steps} steps: device busy {device_ms / steps:.2f} ms/step of '
+          f'{wall_ms / steps:.2f} ms/step wall under the profiler ({100 * device_ms / wall_ms:.1f}% busy); '
+          f'the port\'s kernels {ours / steps:.2f} ms/step, PyTorch kernels {(device_ms - ours) / steps:.2f} ms/step, '
+          f'{sum(r[1] for r in rows) / steps:.0f} device kernels a step')
+    for key, count, ms in rows[:12]:
+        print(f'profile   {ms / steps:8.3f} ms/step {count / steps:7.1f} calls/step  {key[:110]}')
+    for key, count, ms in rows:
+        if 'p2g_kernel' in key or 'poisson_stencil_kernel' in key:
+            print(f'profile   the port\'s {key.split("(")[0][:60]}: {1e3 * ms / count:.2f} us a launch, '
+                  f'{count / steps:.1f} launches a step')
+
+
 def profile_slice(tag, dims, N, per_phase, warmup=2, steps=3):
     """torch.profiler over `steps` steps of a path: device time by kernel
     and the device's busy share of the wall time (the profiler's own host
@@ -563,6 +886,35 @@ def cpu_vs_card(tag, dims, N, per_phase, steps=2, tol=1e-3):
         raise RuntimeError(f'CPU and card disagree ({tag}): {errs}')
 
 
+def flip_cpu_vs_card(N=32, steps=2, tol=1e-3):
+    """FLIP steps from one numpy state — the block with a smooth velocity
+    field — on the CPU (the twins) and on the card (K8, K1m)."""
+    import numpy as np
+    from phiflow_tpu_torch.models import FlipLiquid
+    from phiflow_tpu_torch.models.flip import state_from_numpy, state_to_numpy
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        model = FlipLiquid(N, dims=3, points_per_cell=8, device=dev)
+        pos = model.positions0
+        vel = 0.2 * np.stack([np.sin(2 * np.pi * pos[:, (a + 1) % 3] / N) * np.cos(2 * np.pi * pos[:, a] / N)
+                              for a in range(3)], axis=1)
+        particles, pressure = state_from_numpy(pos, vel, np.zeros((N,) * 3), device=dev)
+        iters = []
+        for _ in range(steps):
+            particles, pressure = model.step(particles, pressure)
+            iters.append(model.last_solve.iterations)
+        out[dev] = state_to_numpy((particles, pressure)) + (iters,)
+    errs = {n: float(np.abs(a - b).max()) for n, a, b in zip(('positions', 'velocities', 'pressure'),
+                                                            out['cpu'], out['cuda'])}
+    ok = errs['positions'] <= tol
+    print(f'cpu vs card, flip {N}^3 ({out["cpu"][0].shape[0]} particles), {steps} steps from one numpy state: '
+          + ', '.join(f'{n} {e:.2e}' for n, e in errs.items())
+          + f'; CG iterations cpu {out["cpu"][3]} card {out["cuda"][3]}; positions tol {tol:.0e} '
+          + ('ok' if ok else 'FAIL'))
+    if not ok:
+        raise RuntimeError(f'CPU and card disagree (flip): {errs}')
+
+
 def card_line():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, timeout=60, check=True)
@@ -571,7 +923,8 @@ def card_line():
 
 # the path whose run gives a kernel's `launches` in the `kernels` line: the one that brought it
 COUNTED_ON = {**{k: 'fused' for k in FUSED_KERNELS}, 'window_interp_3d': 'per-phase',
-              'window_interp_2d': 'per-phase-2d'}
+              'window_interp_2d': 'per-phase-2d', 'poisson_stencil_masked': f'flip-{FLIP_N[0]}',
+              'p2g': f'flip-{FLIP_N[0]}'}
 PATHS = [  # (tag, dims, N, per-phase?, the kernels it must launch)
     ('fused', 3, PATH_N, False, FUSED_KERNELS),
     ('per-phase', 3, PATH_N, True, PHASES_3D_KERNELS),
@@ -604,6 +957,8 @@ def main(argv):
     gen.manual_seed(0)
     t0 = time.perf_counter()
     check_poisson(ch, gen, quick)
+    check_poisson_masked(ch, gen, quick)
+    check_p2g(ch, gen, quick)
     check_transfer(ch, gen, quick)
     check_advect(ch, gen, quick)
     check_interp(ch, gen, quick)
@@ -617,12 +972,18 @@ def main(argv):
     for tag, dims, N, per_phase, required in PATHS:
         by_path[tag] = run_slice(tag, dims, N, per_phase, required)
         torch.cuda.empty_cache()
+    for N in FLIP_N:
+        by_path[f'flip-{N}'] = run_flip(f'flip-{N}', N)
+        torch.cuda.empty_cache()
     cpu_vs_card('fused', 3, 64, False)
     cpu_vs_card('per-phase', 3, 64, True)
     cpu_vs_card('per-phase-2d', 2, 256, True)
+    flip_cpu_vs_card()
     if '--profile' in argv:
         for tag, dims, N, per_phase, _ in PATHS:
             profile_slice(tag, dims, N, per_phase)
+        for N in FLIP_N:
+            profile_flip(f'flip-{N}', N)
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rows.append(dict(name=name, route='cuda', source=source, replaces=replaces,

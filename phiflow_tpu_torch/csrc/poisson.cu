@@ -1,8 +1,9 @@
-// The unmasked 7-point Poisson stencil of the pressure solve, with its three
-// kernels:
+// The 7-point Poisson stencil of the pressure solve, with its three kernels:
 //
 //   K1 poisson_stencil   replaces phiflow_tpu/ops/poisson.py::_apply_pallas_3d
-//                        (the CG matvec, with the fused <p, A p> partials)
+//                        (the CG matvec, with the fused <p, A p> partials), in
+//                        its unmasked and its masked form (obstacle
+//                        coefficients and the free surface's active cells)
 //   K2 jacobi_sweep      replaces phiflow_tpu/ops/poisson.py::_jacobi2_pallas_3d
 //                        (V-cycle smoothing; one launch per sweep here)
 //   K3 residual_restrict replaces phiflow_tpu/ops/poisson.py::_residual_restrict_pallas_3d
@@ -15,6 +16,17 @@
 // ghost cell holds 0: a = 0, c0 = -2) — the profiles of
 // phiflow_tpu/ops/poisson.py::_unmasked_coeffs_1d, formed here from the global
 // index.
+//
+// The masked form of K1 reads its coefficients from arrays instead
+// (phiflow_tpu/ops/poisson.py::stage_masks): mA_d holds a-_d per cell, a+_d is
+// mA_d one cell up along d (0 past a non-periodic last plane, by definition),
+// c0 is the whole centre coefficient, 1/dx^2 included:
+//
+//   lap(c) = sum_d inv_d * (mA_d(c) p[c - e_d] + mA_d(c + e_d) p[c + e_d]) + c0(c) p[c]
+//
+// Independently, `active` marks the cells the system covers: where it is 0
+// the result is p itself (an identity row), after the epilogue and before the
+// <p, out> partial, so such a cell contributes p^2 to the dot.
 //
 // Bound: every kernel here does a few flops per byte, far below the card's
 // ~20 flop/byte balance point in float32, so each is bound by device-memory
@@ -76,23 +88,61 @@ __device__ __forceinline__ float laplace_at(const Load &load, const Grid &g, int
 
 __device__ __forceinline__ int block_index() { return (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x; }
 
+// The masked form's coefficient arrays (float32, the field's shape); mA[0] is
+// null for the boundary-profile coefficients, active null where every cell is.
+struct Masks {
+    const float *mA[3];
+    const float *c0;
+    const float *active;
+};
+
+// One axis' share of the masked stencil, inv_d excluded: a- p[c-1] + a+ p[c+1].
+template <class Load>
+__device__ __forceinline__ float masked_axis_term(const Load &load, const float *__restrict__ mA, long long q, int c,
+                                                  int n, long long stride, int lo, int hi) {
+    float lower = 0.f, upper = 0.f;
+    if (c > 0) {
+        lower = mA[q] * load(q - stride);
+    } else if (lo == MODE_PERIODIC) {
+        lower = mA[q] * load(q + (long long)(n - 1) * stride);
+    }
+    if (c < n - 1) {
+        upper = mA[q + stride] * load(q + stride);
+    } else if (hi == MODE_PERIODIC) {
+        const long long first = q - (long long)(n - 1) * stride;
+        upper = mA[first] * load(first);
+    }
+    return lower + upper;
+}
+
 // ---------------------------------------------------------------------------
-// K1: out = A p | b - A p | p + w (b - A p); optional per-block <p, out> partials
+// K1: out = A p | b - A p | p + w (b - A p); optional per-block <p, out> partials.
+// MASKED = false is the unmasked kernel, which reads no mask; MASKED = true
+// takes the coefficient arrays, the active cells, or both.
 // ---------------------------------------------------------------------------
-template <int EPI, typename TP, typename TB>
+template <int EPI, bool MASKED, typename TP, typename TB>
 __global__ void poisson_stencil_kernel(const TP *__restrict__ p, const TB *__restrict__ b, TP *__restrict__ out,
-                                       float *__restrict__ partials, Grid g, float w) {
+                                       float *__restrict__ partials, Grid g, float w, Masks m) {
     const int k = blockIdx.x * blockDim.x + threadIdx.x, j = blockIdx.y, i = blockIdx.z;
     float contrib = 0.f;
     if (k < g.n[2]) {
         const long long q = ((long long)i * g.n[1] + j) * g.n[2] + k;
         auto load = [&](long long r) { return ld(p, r); };
         const float pc = ld(p, q);
-        const float lap = laplace_at(load, g, i, j, k, q, pc);
+        float lap;
+        if (MASKED && m.mA[0] != nullptr) {
+            const long long sy = g.n[2], sx = (long long)g.n[1] * g.n[2];
+            lap = g.inv[0] * masked_axis_term(load, m.mA[0], q, i, g.n[0], sx, g.lo[0], g.hi[0]) +
+                  g.inv[1] * masked_axis_term(load, m.mA[1], q, j, g.n[1], sy, g.lo[1], g.hi[1]) +
+                  g.inv[2] * masked_axis_term(load, m.mA[2], q, k, g.n[2], 1, g.lo[2], g.hi[2]) + m.c0[q] * pc;
+        } else {
+            lap = laplace_at(load, g, i, j, k, q, pc);
+        }
         float o;
         if (EPI == EPI_MATVEC) o = lap;
         else if (EPI == EPI_RESIDUAL) o = ld(b, q) - lap;
         else o = pc + w * (ld(b, q) - lap);
+        if (MASKED && m.active != nullptr && m.active[q] == 0.f) o = pc;
         st(out, q, o);
         contrib = pc * o;
     }
@@ -155,21 +205,37 @@ __global__ void residual_restrict_kernel(const TU *__restrict__ u, const TB *__r
 // ---------------------------------------------------------------------------
 static dim3 grid_of(int X, int Y, int Z, int bx) { return dim3((Z + bx - 1) / bx, Y, X); }
 
-extern "C" int poisson_stencil(const void *p, int p_dt, const void *b, int b_dt, void *out, float *partials,
-                               const Grid *g, int epilogue, float w, int bx, void *stream) {
+template <int EPI, typename TP, typename TB>
+static void launch_stencil(dim3 grid, int bx, cudaStream_t s, const TP *p, const TB *b, TP *out, float *partials,
+                           const Grid &g, float w, const Masks &m) {
+    if (m.mA[0] != nullptr || m.active != nullptr)
+        poisson_stencil_kernel<EPI, true, TP, TB><<<grid, bx, 0, s>>>(p, b, out, partials, g, w, m);
+    else
+        poisson_stencil_kernel<EPI, false, TP, TB><<<grid, bx, 0, s>>>(p, b, out, partials, g, w, m);
+}
+
+// mA_x, mA_y, mA_z and c0 come together or are all null; active may be null.
+extern "C" int poisson_stencil(const void *p, int p_dt, const void *b, int b_dt, const float *mA_x,
+                               const float *mA_y, const float *mA_z, const float *c0, const float *active,
+                               void *out, float *partials, const Grid *g, int epilogue, float w, int bx,
+                               void *stream) {
     const dim3 grid = grid_of(g->n[0], g->n[1], g->n[2], bx);
     cudaStream_t s = (cudaStream_t)stream;
+    const bool any_coeff = mA_x != nullptr || mA_y != nullptr || mA_z != nullptr || c0 != nullptr;
+    const bool all_coeff = mA_x != nullptr && mA_y != nullptr && mA_z != nullptr && c0 != nullptr;
+    if (any_coeff != all_coeff) return (int)cudaErrorInvalidValue;
+    const Masks m = {{mA_x, mA_y, mA_z}, c0, active};
     if (epilogue == EPI_MATVEC) b_dt = p_dt;  // b is not read
     PTT_DT(p_dt, TP, PTT_DT(b_dt, TB, {
         const TP *pp = (const TP *)p;
         const TB *bb = (const TB *)b;
         TP *oo = (TP *)out;
         if (epilogue == EPI_MATVEC)
-            poisson_stencil_kernel<EPI_MATVEC, TP, TB><<<grid, bx, 0, s>>>(pp, bb, oo, partials, *g, w);
+            launch_stencil<EPI_MATVEC>(grid, bx, s, pp, bb, oo, partials, *g, w, m);
         else if (epilogue == EPI_RESIDUAL)
-            poisson_stencil_kernel<EPI_RESIDUAL, TP, TB><<<grid, bx, 0, s>>>(pp, bb, oo, partials, *g, w);
+            launch_stencil<EPI_RESIDUAL>(grid, bx, s, pp, bb, oo, partials, *g, w, m);
         else if (epilogue == EPI_JACOBI)
-            poisson_stencil_kernel<EPI_JACOBI, TP, TB><<<grid, bx, 0, s>>>(pp, bb, oo, partials, *g, w);
+            launch_stencil<EPI_JACOBI>(grid, bx, s, pp, bb, oo, partials, *g, w, m);
         else
             return (int)cudaErrorInvalidValue;
     }));

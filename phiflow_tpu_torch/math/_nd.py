@@ -1,4 +1,6 @@
-"""Window-shift interpolation of a grid at its own displaced lattice — port of
+"""Grid functions on raw tensors: `shift_window_interp` and `masked_fill`.
+
+Window-shift interpolation of a grid at its own displaced lattice — port of
 `phiflow_tpu/math/_nd.py::shift_window_interp` (`:468-623`).
 
 The grid's extrapolation describes its halo to the kernel, which resolves it by
@@ -10,16 +12,19 @@ window at run time (`:554-578`) because its cost grows with (2K+1)^d. A corner
 gather costs the same for every K and both windows give the same result
 wherever both are exact, so the port takes no min/max pass and no host sync
 for that choice.
+
+`masked_fill` ports the function of that name (`:443-461`): the flood fill
+behind `field.finite_fill`, PyTorch operations on any device.
 """
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Sequence, Tuple, Union
 
 import torch
 
 from ..ops.interp import window_interp_2d, window_interp_3d
 
-__all__ = ['BOUNDARY', 'PERIODIC', 'shift_window_interp']
+__all__ = ['BOUNDARY', 'PERIODIC', 'shift_window_interp', 'masked_fill', 'shift_zero']
 
 BOUNDARY, PERIODIC = 'boundary', 'periodic'
 Extrapolation = Union[float, str]  # a constant value, BOUNDARY or PERIODIC
@@ -56,3 +61,33 @@ def shift_window_interp(grid: torch.Tensor, displacement_cells: Sequence[torch.T
         raise ValueError(f"extrapolation {extrap!r}: a constant value, BOUNDARY or PERIODIC expected")
     return fn(grid, list(displacement_cells), max_cells, compute_extrema=compute_extrema, negate=negate,
               disp_scale=disp_scale, **halo)
+
+
+def shift_zero(x: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x[i−1], x[i+1]) along `axis`, 0 beyond the ends."""
+    n = x.shape[axis]
+    zero = torch.zeros_like(x.narrow(axis, 0, 1))
+    lower = torch.cat([zero, x.narrow(axis, 0, n - 1)], dim=axis)
+    upper = torch.cat([x.narrow(axis, 1, n - 1), zero], dim=axis)
+    return lower, upper
+
+
+def masked_fill(values: torch.Tensor, valid: torch.Tensor, distance: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Propagate values into invalid cells as the mean of their valid axis
+    neighbours, `distance` times. Returns (filled values, new validity)."""
+    valid_f = valid.to(values.dtype)
+    for _ in range(distance):
+        values_v = values * valid_f
+        neighbor_sum = torch.zeros_like(values_v)
+        neighbor_count = torch.zeros_like(valid_f)
+        for axis in range(values.ndim):
+            lo, up = shift_zero(values_v, axis)
+            vlo, vup = shift_zero(valid_f, axis)
+            neighbor_sum = neighbor_sum + (lo + up)
+            neighbor_count = neighbor_count + (vlo + vup)
+        none = neighbor_count == 0
+        avg = torch.where(none, torch.zeros_like(neighbor_sum),
+                          neighbor_sum / torch.where(none, torch.ones_like(neighbor_count), neighbor_count))
+        values = torch.where(valid_f != 0, values, avg)
+        valid_f = torch.maximum(valid_f, torch.clamp(neighbor_count, max=1.0))
+    return values, valid_f != 0

@@ -33,7 +33,7 @@ __all__ = ['SOURCES', 'LAUNCHES', 'reset_launches', 'build', 'ptxas_log', 'libra
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
-SOURCES = ('poisson', 'transfer', 'advect3d', 'interp')
+SOURCES = ('poisson', 'transfer', 'advect3d', 'interp', 'p2g')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 

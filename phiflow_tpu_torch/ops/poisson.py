@@ -11,6 +11,9 @@ Three CUDA kernels (`csrc/poisson.cu`) carry it on the card:
 
 * `poisson_apply` — K1, the CG matvec. ``with_dot=True`` also returns
   ⟨p, A·p⟩ from per-block partials (JAX arms a global capture box instead).
+  Its masked form takes the coefficient arrays ``mA_list`` and ``c0`` that
+  `stage_masks` makes from face masks (obstacles), the ``active`` cells (a
+  free surface: the result is p itself where active is 0), or both.
 * `poisson_smooth` — K2, damped-Jacobi sweeps, one launch per sweep;
   ``zero_init`` forms u₀ = w·b in registers, ``emit_dot`` returns ⟨u_out, b⟩.
 * `residual_restrict` — K3, restrict_mean(b − A·u) without storing the fine
@@ -19,7 +22,7 @@ Three CUDA kernels (`csrc/poisson.cu`) carry it on the card:
 Their plain twin is `_apply_plain` (`_apply_xla` of the JAX package, masks
 included). A wrapper takes the twin only for tensors on the CPU; for 3D CUDA
 tensors it launches its kernel or raises. Storage is float32 or bfloat16,
-arithmetic float32 — the twins cast the same way.
+arithmetic float32 — the twins cast the same way; masks are float32.
 
 The kernels are 3D, as the TPU kernels are: the JAX package computes a 2D
 stencil through XLA on the TPU too (`_apply_xla`). So each wrapper decides on
@@ -38,13 +41,53 @@ import torch
 from . import _build
 from .transfer import restrict_mean
 
-__all__ = ['poisson_apply', 'poisson_smooth', 'residual_restrict',
+__all__ = ['poisson_apply', 'poisson_smooth', 'residual_restrict', 'stage_masks',
            'PERIODIC', 'NEUMANN', 'GHOST0']
 
 PERIODIC, NEUMANN, GHOST0 = 'periodic', 'neumann', 'ghost0'
 _MODE_CODE = {PERIODIC: 0, NEUMANN: 1, GHOST0: 2}
 _EPILOGUE = {'matvec': 0, 'residual': 1, 'jacobi': 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ---------------------------------------------------------------------------
+# staging: face masks → cell-aligned coefficient arrays (once per solve)
+# ---------------------------------------------------------------------------
+
+def stage_masks(full_face_masks: Sequence[torch.Tensor], bc: Sequence[Tuple[str, str]],
+                inv_dx2: Sequence[float]):
+    """Stage per-axis full-face mask arrays into (mA_list, c0).
+
+    full_face_masks[d]: the mask of every face along axis d — the cell grid's
+    shape except that axis d has N+1 entries (N when periodic, where face N is
+    face 0).
+
+    Returns mA[d], the lower-face coefficient a⁻/inv per cell (plane 0 zeroed
+    unless periodic; the stencil takes a⁺ as mA one cell up along d), and c0,
+    the whole centre coefficient −Σ_d inv_d·(cA_d + cB_d) with the ghost0
+    outer-face corrections."""
+    ndim = len(bc)
+    mA_list = []
+    c0 = None
+    for d, (F, (lo, hi), inv) in enumerate(zip(full_face_masks, bc, inv_dx2)):
+        ax = F.ndim - ndim + d
+        n_faces = F.shape[ax]
+        if (lo, hi) == (PERIODIC, PERIODIC):
+            mA = cA = F
+            cB = torch.roll(F, -1, ax)
+        else:
+            N = n_faces - 1
+            face_lo, face_hi = F.narrow(ax, 0, 1), F.narrow(ax, N, 1)
+            zero_plane = torch.zeros_like(face_lo)
+            interior = F.narrow(ax, 1, N - 1)  # faces 1..N−1: cell c's lower face for c ≥ 1, upper for c ≤ N−2
+            # a⁻ per cell: face c, but the outer face 0 belongs to c0 (ghost), not a⁻
+            mA = torch.cat([zero_plane, interior], dim=ax)
+            cA = torch.cat([face_lo if lo == GHOST0 else zero_plane, interior], dim=ax)
+            cB = torch.cat([interior, face_hi if hi == GHOST0 else zero_plane], dim=ax)
+        mA_list.append(mA * 1.0)
+        term = (cA + cB) * float(np.float32(inv))
+        c0 = term if c0 is None else c0 + term
+    return mA_list, -c0
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +175,7 @@ def _lib():
     import ctypes
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.library('poisson', {
-        'poisson_stencil': [P, I, P, I, P, P, P, I, F, I, P],
+        'poisson_stencil': [P, I, P, I, P, P, P, P, P, P, P, P, I, F, I, P],
         'jacobi_sweep': [P, I, P, I, P, I, P, P, F, I, I, P],
         'residual_restrict': [P, I, P, I, P, P, I, P],
     })
@@ -194,18 +237,19 @@ def poisson_apply(p: torch.Tensor, inv_dx2: Sequence[float], bc: Sequence[Tuple[
     'jacobi' → p + ω/diag·(b − A·p). The result has p's dtype. With
     ``with_dot`` returns (result, ⟨p, result⟩) — the CG denominator ⟨p, A·p⟩.
 
+    ``mA_list`` and ``c0`` (both or neither) are the coefficient arrays of
+    `stage_masks`; where ``active`` is 0 the result is p itself.
+
     Two spatial axes: PyTorch operations on any device (module docstring). On
-    CUDA in 3D: one unmasked field (the masked form, for obstacles and free
-    surfaces, comes with a later slice of the port)."""
+    CUDA in 3D: one field, masks of its shape or broadcastable to it."""
     if mode not in _EPILOGUE:
         raise ValueError(mode)
     if len(bc) == 2:
         return _poisson_apply_plain(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag, with_dot)
+    if (mA_list is None) != (c0 is None):
+        raise ValueError("mA_list and c0 come together (both from stage_masks) or not at all")
     if p.is_cuda:
-        if mA_list is not None or c0 is not None or active is not None:
-            raise NotImplementedError("the masked Poisson stencil (mA_list / c0 / active) is not "
-                                      "ported to CUDA yet; it comes with the obstacle / FLIP slice")
-        return _stencil_cuda(p, inv_dx2, bc, b, mode, omega_over_diag, with_dot)
+        return _stencil_cuda(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag, with_dot)
     return _poisson_apply_plain(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag, with_dot)
 
 
@@ -220,9 +264,26 @@ def _poisson_apply_plain(p, inv_dx2, bc, mA_list=None, c0=None, active=None, b=N
     return (out, dot) if with_dot else out
 
 
-def _stencil_cuda(p, inv_dx2, bc, b, mode, omega_over_diag, with_dot):
+def _mask_field(name, m, like):
+    """A mask as a contiguous float32 tensor of the field's shape."""
+    if m.device != like.device:
+        raise ValueError(f"{name}: on {m.device}, the field on {like.device}")
+    try:
+        return m.to(torch.float32).expand(like.shape).contiguous()
+    except RuntimeError:
+        raise ValueError(f"{name}: shape {tuple(m.shape)} does not broadcast to {tuple(like.shape)}") from None
+
+
+def _stencil_cuda(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag, with_dot):
     _check_bc(bc)
     _check_field('p', p)
+    masks = [None] * 5
+    if mA_list is not None:
+        if len(mA_list) != 3:
+            raise ValueError(f"mA_list: three arrays expected, got {len(mA_list)}")
+        masks[:4] = [_mask_field(f'mA_list[{d}]', m, p) for d, m in enumerate(mA_list)] + [_mask_field('c0', c0, p)]
+    if active is not None:
+        masks[4] = _mask_field('active', active, p)
     if mode != 'matvec':
         if b is None:
             raise ValueError(f"mode {mode!r} needs b")
@@ -236,11 +297,14 @@ def _stencil_cuda(p, inv_dx2, bc, b, mode, omega_over_diag, with_dot):
     g = _grid(p.shape, inv_dx2, bc)
     err = lib.poisson_stencil(p.data_ptr(), _DTYPE_CODE[p.dtype], _ptr(b if mode != 'matvec' else None),
                               _DTYPE_CODE[b.dtype] if (b is not None and mode != 'matvec') else 0,
+                              *(_ptr(m) for m in masks),
                               out.data_ptr(), _ptr(partials), ctypes.byref(g), _EPILOGUE[mode],
                               float(np.float32(omega_over_diag or 0.0)), _build.block_x(p.shape[2]),
                               _build.stream_of(p))
     _build.check(lib, err, 'poisson_stencil')
     _build.LAUNCHES['poisson_stencil'] += 1
+    if any(m is not None for m in masks):
+        _build.LAUNCHES['poisson_stencil_masked'] += 1  # the masked form's share of the count above
     if with_dot:
         return out, partials.sum()
     return out

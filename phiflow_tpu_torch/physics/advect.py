@@ -1,5 +1,7 @@
-"""Semi-Lagrangian and MacCormack advection on raw grid tensors — port of the
-bounded-window fast path of `phiflow_tpu/physics/advect.py`: the `euler`
+"""Advection on raw tensors: grids by semi-Lagrangian and MacCormack lookups,
+particles by `points` with the `finite_rk4` integrator.
+
+The grid schemes port the bounded-window fast path of `phiflow_tpu/physics/advect.py`: the `euler`
 integrator with `max_cells` set, which is what `semi_lagrangian` (`:338`,
 branch `:362-366`) and `mac_cormack` (`:393`, branch `:412-427`) run for a
 uniform grid advected by a staggered velocity of the same resolution.
@@ -12,8 +14,12 @@ velocity array, the others are 2-point averages per shifted axis — and the
 window kernels (K6 in 3D, K7 in 2D) apply −dt/dx, the sign and the ±max_cells
 clamp in registers.
 
-Not ported yet, waiting for the named-dim core: the integrators `rk4` and
-`finite_rk4`, `substeps='auto'`, `differential`, `points`, and the gather
+`points` (`:109-117`) and `finite_rk4` (`:50-61`) move the particles of the
+FLIP model through a closed-box staggered velocity, NaN velocities (the unset
+cells of a FLIP grid) counting as zero.
+
+Not ported yet, waiting for the named-dim core: the integrators `euler` and
+`rk4` for points and lookups, `substeps='auto'`, `differential`, and the gather
 branches (`max_cells=None`).
 """
 from __future__ import annotations
@@ -22,10 +28,10 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
-from ..field._resample import sample_grid_at_centers
+from ..field._resample import sample_grid_at_centers, sample_staggered_at_points
 from ..math._nd import PERIODIC, Extrapolation, shift_window_interp
 
-__all__ = ['semi_lagrangian', 'mac_cormack', 'max_displacement_cells']
+__all__ = ['semi_lagrangian', 'mac_cormack', 'max_displacement_cells', 'finite_rk4', 'points']
 
 Grid = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -138,3 +144,26 @@ def max_displacement_cells(field: Grid, velocity: Sequence[torch.Tensor], dt: fl
     maxima = [torch.max(torch.abs(arr)) * abs(scales[axis]) for per_axis in lists
               for axis, arr in enumerate(per_axis)]
     return torch.stack(maxima).max()
+
+
+def _nan_to_0(x: torch.Tensor) -> torch.Tensor:
+    return torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def finite_rk4(positions: torch.Tensor, velocity: Sequence[torch.Tensor], dt: float, dx) -> torch.Tensor:
+    """4th-order Runge–Kutta end points of `positions` (N, d) in the closed-box
+    staggered `velocity`, with non-finite velocity samples taken as zero."""
+    def sample(pts):
+        return _nan_to_0(sample_staggered_at_points(velocity, pts, dx))
+    v0 = sample(positions)
+    vel_half = sample(positions + 0.5 * dt * v0)
+    vel_half2 = sample(positions + 0.5 * dt * vel_half)
+    vel_full = sample(positions + dt * vel_half2)
+    vel_rk4 = (1 / 6.) * (v0 + 2 * (vel_half + vel_half2) + vel_full)
+    return positions + dt * vel_rk4
+
+
+def points(positions: torch.Tensor, velocity: Sequence[torch.Tensor], dt: float, dx,
+           integrator=finite_rk4) -> torch.Tensor:
+    """Lagrangian advection of particle positions (N, d)."""
+    return integrator(positions, velocity, dt, dx)
