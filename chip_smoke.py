@@ -8,9 +8,11 @@
 Phases; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi) and the torch / CUDA versions;
   2. the build of phiflow_tpu_torch/csrc/*.cu with nvcc, one process per source;
-  3. each kernel K1–K8 and the masked form of K1 (K1m) against its plain
+  3. each kernel K1–K8 and the masked forms of K1 (K1m: active cells; the
+     coefficient arrays of obstacles) against its plain
      PyTorch twin on the card, at a shape of its path (256³; 4096² for K7; 128³
-     and 64³ with 1.06 M and 125 k particles for K8 and K1m) and at a small
+     and 64³ with 1.06 M and 125 k particles for K8 and K1m; 256³ with the
+     obstacle path's own masks for K1m's coefficient form) and at a small
      shape that is not a power of two, over the three boundary modes, float32
      and bfloat16 where the path stores it; the median CUDA-event time of the
      kernel, of the twin and, where one PyTorch call computes the same
@@ -19,7 +21,7 @@ Phases; any failure exits non-zero and prints no result:
      67 TFLOP/s (H100 SXM data sheet); for K8 and K1m, whose eager calls at
      the FLIP sizes are mostly the host's time, also the call's time on the
      device alone, replayed from a CUDA graph (device_ms);
-  4. five paths on the card, each 2 warm-up steps, then 5 timed steps with
+  4. six paths on the card, each (but 4g) 2 warm-up steps, then 5 timed steps with
      every launch counter set to 0 just before and read just after. Three of
      SmokePlume(cg_tol=1e-3, max_iterations=100): ms per step, Mcells/s, the
      advection / pressure split, CG iterations, max |div|, the displacement
@@ -37,9 +39,34 @@ Phases; any failure exits non-zero and prints no result:
      box ± 0.5, the mean height falling:
      4d. 128³, 1,061,208 particles;
      4e. 64³, 125,000 particles;
+     and one of obstacles in the closed box, driven through the public
+     functions (the JAX package has no 3D obstacle model; its entry point is
+     `make_incompressible` itself):
+     4f. obstacle-256: 256³ from a smooth divergent velocity with a stationary
+         sphere, a translating cuboid and a translating, spinning sphere; a
+         step moves the obstacles, advects the velocity with `mac_cormack`
+         (K6, 6 launches) and projects with `make_incompressible(...,
+         obstacles=...)` (K1m with its coefficient arrays and the accessible
+         cells, exactly 6 + 4 per CG iteration; cg_tol 1e-4, at most 500
+         iterations, not converging is reported, not an error): ms per step,
+         Mcells/s, the split masks + boundary conditions / advection / solve /
+         gradient, CG iterations and `converged`, the blocked cells, max
+         |div·active − its mean| < 2e-4 (about ten times the 1.277e-05 read
+         on an H100), 0 on the faces inside the stationary sphere and the cuboid's
+         velocity on the faces inside it (1e-6);
+     4g. obstacle-256-vcycle: the same step, 1 warm-up and 3 timed, with
+         `fluid.MASKED_PRECONDITIONER = 'vcycle'` (the projected V-cycle: K1m
+         exactly 1 + 1 per CG iteration, K2–K4 the same whole number of
+         launches in each of the 1 + iterations V-cycles), the same gates with
+         the divergence under 8e-4 (ten times its reading of 8.237e-05);
+     then the two 2D obstacle models at the JAX benchmark's size,
+     MovingObstacles(256) and LidDrivenCavity(256, obstacle=True): ms per
+     step, CG iterations, K7 launched (their masked stencil is PyTorch
+     operations, as every 2D stencil; they are small for the card);
   5. 2 steps from one numpy state on the CPU (the twins) and on the card (the
      kernels), compared at 1e-3 abs: fused at 64³, per-phase at 64³, 2D at
-     256², FLIP at 32³ (positions);
+     256², FLIP at 32³ (positions); the obstacle step at 48³ under both
+     preconditioners at 1e-4 abs with the CG counts at most 1 apart;
   6. the `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -72,11 +99,16 @@ KERNELS = {  # launch-counter name → (source, the Pallas kernel it replaces)
     # K1m: the launches of K1's C entry with coefficient arrays or active cells (also counted in poisson_stencil)
     'poisson_stencil_masked': ('phiflow_tpu_torch/csrc/poisson.cu', 'phiflow_tpu/ops/poisson.py:284'),
     'p2g': ('phiflow_tpu_torch/csrc/p2g.cu', 'phiflow_tpu/ops/p2g.py:142'),
+    # K1m with the coefficient arrays mA, c0 of obstacles (also counted in the two above)
+    'poisson_stencil_coeffs': ('phiflow_tpu_torch/csrc/poisson.cu', 'phiflow_tpu/ops/poisson.py:284'),
 }
 FUSED_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'fused_advect')
 PHASES_3D_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'window_interp_3d')
 PHASES_2D_KERNELS = ('window_interp_2d',)
 P2G_LAUNCHES_PER_STEP = 4  # three face grids and the occupancy grid
+OBSTACLE_N = 256
+OBSTACLE_DT = 0.5
+K6_LAUNCHES_PER_OBSTACLE_STEP = 6  # MacCormack: a forward and a backward lookup per velocity component
 
 
 class Checks:
@@ -312,8 +344,10 @@ def check_poisson_masked(ch, gen, quick):
     import torch
     from phiflow_tpu_torch.ops import poisson as P
     dev = 'cuda'
-    name = 'poisson_stencil_masked'
     inv = (1.0, 0.7, 1.3)
+
+    def row(form):  # the kernel row a form's checks count for
+        return 'poisson_stencil_masked' if form == 'active' else 'poisson_stencil_coeffs'
 
     def forms(shape, bcs, inv_dx2):
         mA, c0 = P.stage_masks(_random_face_masks(shape, bcs, gen, dev), bcs, inv_dx2)
@@ -326,6 +360,7 @@ def check_poisson_masked(ch, gen, quick):
         p = torch.randn(SMALL, generator=gen, device=dev)
         b = torch.randn(SMALL, generator=gen, device=dev)
         for form, kw in forms(SMALL, bcs, inv).items():
+            name = row(form)
             for mode in ('matvec', 'residual', 'jacobi'):
                 got = P.poisson_apply(p, inv, bcs, b=b, mode=mode, omega_over_diag=0.15, **kw)
                 ref = P._poisson_apply_plain(p, inv, bcs, b=b, mode=mode, omega_over_diag=0.15, **kw)
@@ -336,8 +371,8 @@ def check_poisson_masked(ch, gen, quick):
             ch.compare_dot(name, f'{form} matvec with_dot {SMALL} {tag}', dot, rdot, 1e-5)
         pb = p.to(torch.bfloat16)
         kw = forms(SMALL, bcs, inv)['mA+c0+active']
-        ch.compare(name, f'mA+c0+active matvec {SMALL} {tag} bfloat16', P.poisson_apply(pb, inv, bcs, **kw),
-                   P._poisson_apply_plain(pb, inv, bcs, **kw), 2e-5)
+        ch.compare(row('mA+c0+active'), f'mA+c0+active matvec {SMALL} {tag} bfloat16',
+                   P.poisson_apply(pb, inv, bcs, **kw), P._poisson_apply_plain(pb, inv, bcs, **kw), 2e-5)
     if quick:
         return
     # --- the FLIP path's shape: 128³, closed box, unit cells ---
@@ -347,6 +382,7 @@ def check_poisson_masked(ch, gen, quick):
     b = torch.randn(N3, generator=gen, device=dev)
     all_forms = forms(N3, PATH_BC, one)
     for form, kw in all_forms.items():
+        name = row(form)
         for mode in ('matvec', 'residual', 'jacobi'):
             got = P.poisson_apply(p, one, PATH_BC, b=b, mode=mode, omega_over_diag=-0.15, **kw)
             ref = P._poisson_apply_plain(p, one, PATH_BC, b=b, mode=mode, omega_over_diag=-0.15, **kw)
@@ -355,11 +391,35 @@ def check_poisson_masked(ch, gen, quick):
         ref, rdot = P._poisson_apply_plain(p, one, PATH_BC, with_dot=True, **kw)
         ch.compare_dot(name, f'{form} matvec with_dot {N3}', dot, rdot, 1e-5)
         arrays = [p, got] + [m for v in kw.values() for m in (v if isinstance(v, list) else [v])]
-        # the path's form (the free surface's active cells) goes into the `kernels` line, the others are printed
+        # the FLIP path's form (the free surface's active cells) goes into the `kernels` line, the others are printed
         ch.time(name, f'{form}: matvec + dot, {N3} float32',
                 lambda kw=kw: P.poisson_apply(p, one, PATH_BC, with_dot=True, **kw),
                 lambda kw=kw: P._poisson_apply_plain(p, one, PATH_BC, with_dot=True, **kw),
                 nbytes(*arrays), 22 * p.numel(), key=name if form == 'active' else f'{name} {form}', replay=True)
+    del p, b, all_forms
+    # --- the obstacle path's shape and its own masks: 256³, the three obstacles' open faces and accessible cells ---
+    from phiflow_tpu_torch.field import cell_grid, geometry_mask, stagger
+    from phiflow_tpu_torch.geom import union
+    from phiflow_tpu_torch.physics import fluid
+    N3 = (OBSTACLE_N,) * 3
+    accessible = geometry_mask(~union([o.geometry for o in obstacle_setup(OBSTACLE_N)]),
+                               cell_grid(N3, 1.0, dev)).contiguous()
+    mA, c0 = P.stage_masks(fluid._full_face_masks(stagger(accessible, torch.minimum, 0.0), False), PATH_BC, one)
+    kw = dict(mA_list=mA, c0=c0, active=accessible)
+    p = torch.randn(N3, generator=gen, device=dev)
+    got, dot = P.poisson_apply(p, one, PATH_BC, with_dot=True, **kw)
+    ref, rdot = P._poisson_apply_plain(p, one, PATH_BC, with_dot=True, **kw)
+    name = 'poisson_stencil_coeffs'
+    ch.compare(name, f'mA+c0+active matvec, obstacle masks {N3}', got, ref, 2e-5)
+    ch.compare_dot(name, f'mA+c0+active matvec with_dot, obstacle masks {N3}', dot, rdot, 1e-5)
+    del ref
+    # 7 arrays read or written once; this row goes into the `kernels` line
+    ch.time(name, f'mA+c0+active: matvec + dot, obstacle masks, {N3} float32',
+            lambda: P.poisson_apply(p, one, PATH_BC, with_dot=True, **kw),
+            lambda: P._poisson_apply_plain(p, one, PATH_BC, with_dot=True, **kw),
+            nbytes(p, got, *mA, c0, accessible), 22 * p.numel(), replay=True)
+    del p, got, mA, c0, accessible, kw
+    torch.cuda.empty_cache()
 
 
 def _particles(n_cells, points_per_cell, gen, dev, lower, dx, stray=0.02):
@@ -774,75 +834,60 @@ def run_flip(tag, N, warmup=2, steps=5):
     return launches
 
 
-def profile_flip(tag, N, warmup=2, steps=3):
-    """torch.profiler over `steps` FLIP steps: device time by kernel and the
-    device's busy share of the wall time under the profiler."""
+PORT_KERNELS = ('poisson_stencil_kernel', 'jacobi_sweep_kernel', 'residual_restrict_kernel', 'prolong_add_kernel',
+                'fused_advect_kernel', 'advect_lift_kernel', 'window_interp_kernel', 'p2g_kernel')
+
+
+def profile_path(tag, size, advance, state, warmup=2, steps=3, rows_shown=12):
+    """torch.profiler over `steps` steps of a path (`advance(state) -> state`):
+    device time by kernel and the device's busy share of the wall time (the
+    profiler's own host overhead included in that wall time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from phiflow_tpu_torch.models import FlipLiquid
-    model = FlipLiquid(N, dims=3, points_per_cell=8, device='cuda')
-    particles, pressure = model.initial_state()
     for _ in range(warmup):
-        particles, pressure = model.step(particles, pressure)
+        state = advance(state)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            particles, pressure = model.step(particles, pressure)
+            state = advance(state)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[2])
-    device_ms = sum(r[2] for r in rows)
-    ours = sum(r[2] for r in rows if 'poisson_stencil_kernel' in r[0] or 'p2g_kernel' in r[0])
-    print(f'profile {tag} {N}^3, {steps} steps: device busy {device_ms / steps:.2f} ms/step of '
-          f'{wall_ms / steps:.2f} ms/step wall under the profiler ({100 * device_ms / wall_ms:.1f}% busy); '
-          f'the port\'s kernels {ours / steps:.2f} ms/step, PyTorch kernels {(device_ms - ours) / steps:.2f} ms/step, '
-          f'{sum(r[1] for r in rows) / steps:.0f} device kernels a step')
-    for key, count, ms in rows[:12]:
-        print(f'profile   {ms / steps:8.3f} ms/step {count / steps:7.1f} calls/step  {key[:110]}')
-    for key, count, ms in rows:
-        if 'p2g_kernel' in key or 'poisson_stencil_kernel' in key:
-            print(f'profile   the port\'s {key.split("(")[0][:60]}: {1e3 * ms / count:.2f} us a launch, '
-                  f'{count / steps:.1f} launches a step')
-
-
-def profile_slice(tag, dims, N, per_phase, warmup=2, steps=3):
-    """torch.profiler over `steps` steps of a path: device time by kernel
-    and the device's busy share of the wall time (the profiler's own host
-    overhead included in that wall time)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from phiflow_tpu_torch.models import SmokePlume
-    model = SmokePlume(resolution=N, dims=dims, cg_tol=1e-3, max_iterations=100, device='cuda')
-    step, _ = _stepper(model, per_phase)
-    v, s, p = model.initial_state()
-    for _ in range(warmup):
-        v, s, p = step(v, s, p)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            v, s, p = step(v, s, p)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
     # device-side kernel rows only: a CPU op's row repeats its kernels' time
     rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[2])
     device_ms = sum(r[2] for r in rows)
-    ours = sum(r[2] for r in rows if any(k in r[0] for k in ('poisson_stencil_kernel', 'jacobi_sweep_kernel',
-                                                             'residual_restrict_kernel', 'prolong_add_kernel',
-                                                             'fused_advect_kernel', 'advect_lift_kernel',
-                                                             'window_interp_kernel')))
-    print(f'profile {tag} {N}^{dims}, {steps} steps: device busy {device_ms / steps:.2f} ms/step of '
+    ours = [r for r in rows if any(k in r[0] for k in PORT_KERNELS)]
+    ours_ms = sum(r[2] for r in ours)
+    print(f'profile {tag} {size}, {steps} steps: device busy {device_ms / steps:.2f} ms/step of '
           f'{wall_ms / steps:.2f} ms/step wall under the profiler ({100 * device_ms / wall_ms:.1f}% busy); '
-          f'the port\'s kernels {ours / steps:.2f} ms/step, PyTorch kernels {(device_ms - ours) / steps:.2f} ms/step')
-    for key, count, ms in rows[:16]:
+          f'the port\'s kernels {ours_ms / steps:.2f} ms/step, PyTorch kernels {(device_ms - ours_ms) / steps:.2f} ms/step, '
+          f'{sum(r[1] for r in rows) / steps:.0f} device kernels a step')
+    for key, count, ms in rows[:rows_shown]:
         print(f'profile   {ms / steps:8.3f} ms/step {count / steps:7.1f} calls/step  {key[:110]}')
+    for key, count, ms in ours:
+        print(f'profile   the port\'s {key.split("(")[0][:70]}: {1e3 * ms / count:.2f} us a launch, '
+              f'{count / steps:.1f} launches a step')
+
+
+def profile_flip(tag, N):
+    from phiflow_tpu_torch.models import FlipLiquid
+    model = FlipLiquid(N, dims=3, points_per_cell=8, device='cuda')
+    profile_path(tag, f'{N}^3', lambda state: model.step(*state), model.initial_state())
+
+
+def profile_slice(tag, dims, N, per_phase):
+    from phiflow_tpu_torch.models import SmokePlume
+    model = SmokePlume(resolution=N, dims=dims, cg_tol=1e-3, max_iterations=100, device='cuda')
+    step, _ = _stepper(model, per_phase)
+    profile_path(tag, f'{N}^{dims}', lambda state: step(*state), model.initial_state(), rows_shown=16)
+
+
+def profile_obstacles(tag, N, preconditioner='chebyshev'):
+    step = obstacle_stepper(N, preconditioner=preconditioner)[0]
+    profile_path(tag, f'{N}^3', lambda state: step(*state)[0], obstacle_state(N, 'cuda'))
 
 
 def smooth_state(N, dims=3, seed=0):
@@ -914,6 +959,232 @@ def flip_cpu_vs_card(N=32, steps=2, tol=1e-3):
     if not ok:
         raise RuntimeError(f'CPU and card disagree (flip): {errs}')
 
+# ---------------------------------------------------------------------------
+# the obstacle path: make_incompressible(velocity, obstacles) in 3D
+# ---------------------------------------------------------------------------
+
+def obstacle_setup(N):
+    """The three obstacles of the obstacle path in a closed box of N³ unit
+    cells, apart from each other by more than a cell: a stationary sphere, a
+    translating cuboid, a translating and spinning sphere."""
+    from phiflow_tpu_torch.geom import Cuboid, Sphere
+    from phiflow_tpu_torch.physics.fluid import Obstacle
+    return (Obstacle(Sphere((0.5 * N, 0.5 * N, 0.3 * N), N / 8)),
+            Obstacle(Cuboid((0.25 * N, 0.7 * N, 0.62 * N), (N / 16, N / 10, N / 12)), velocity=(1.0, 0.0, 0.5)),
+            Obstacle(Sphere((0.74 * N, 0.3 * N, 0.72 * N), N / 10), velocity=(-0.5, 1.0, 0.0),
+                     angular_velocity=(0.0, 0.02, 0.05)))
+
+
+def obstacle_stepper(N, dt=OBSTACLE_DT, cg_tol=1e-4, max_iterations=500, preconditioner='chebyshev'):
+    """The body of `MovingObstacles.step` in 3D in the closed box, written
+    with the port's public functions; the projection runs with
+    `fluid.MASKED_PRECONDITIONER` set to `preconditioner`. Returns
+    step(v, p, *obstacles) -> ((v, p, *obstacles), solve result) and its
+    three phases."""
+    import numpy as np
+    from phiflow_tpu_torch.physics import advect, fluid
+    size = np.full(3, N, np.float32)
+
+    def move(obstacles):
+        return tuple(o.at((o.geometry.center + o.velocity * np.float32(dt)) % size) for o in obstacles)
+
+    def advect_velocity(v):
+        return advect.mac_cormack(v, v, dt, 1.0, 0.0)
+
+    def project(v, p, obstacles):
+        default = fluid.MASKED_PRECONDITIONER
+        fluid.MASKED_PRECONDITIONER = preconditioner
+        try:
+            return fluid.make_incompressible(v, p, 1.0, rel_tol=cg_tol, abs_tol=0., max_iterations=max_iterations,
+                                             obstacles=obstacles)
+        finally:
+            fluid.MASKED_PRECONDITIONER = default
+
+    def step(v, p, *obstacles):
+        obstacles = move(obstacles)
+        v, p, result = project(advect_velocity(v), p, obstacles)
+        return (v, p) + obstacles, result
+
+    return step, move, advect_velocity, project
+
+
+def obstacle_state(N, dev):
+    import torch
+    *vel, _, pressure = smooth_state(N, 3)
+    return (tuple(torch.from_numpy(c).to(dev) for c in vel), torch.from_numpy(pressure).to(dev)) + obstacle_setup(N)
+
+
+V_CYCLE_KERNELS = ('jacobi_sweeps', 'residual_restrict', 'prolong_add')
+# max |div·active − its mean| after an obstacle projection at 256³, cg_tol 1e-4, by preconditioner: about ten times
+# what each read on an H100 (1.277e-05 in three runs under 'chebyshev', 8.237e-05 under 'vcycle')
+OBSTACLE_DIV_BOUND = {'chebyshev': 2e-4, 'vcycle': 8e-4}
+
+
+def run_obstacles(tag, N, warmup=2, steps=5, preconditioner='chebyshev'):
+    """The obstacle step at N³ on the card under one of the masked systems'
+    preconditioners: launch counts of a timed run, the split, and the gates
+    on what comes out."""
+    import torch
+    from phiflow_tpu_torch.field import cell_grid, divergence, geometry_mask, spatial_gradient, stagger
+    from phiflow_tpu_torch.geom import union
+    from phiflow_tpu_torch.ops import _build
+    from phiflow_tpu_torch.physics import fluid
+    step, move, advect_velocity, project = obstacle_stepper(N, preconditioner=preconditioner)
+    state = obstacle_state(N, 'cuda')
+    for _ in range(warmup):
+        state, _ = step(*state)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    solves = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, result = step(*state)
+        solves.append(result)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    ms = elapsed / steps * 1e3
+    iters = [r.iterations for r in solves]
+    print(f'{tag} {N}^3: {ms:.2f} ms/step, {N ** 3 / (ms * 1e-3) / 1e6:.1f} Mcells/s over {steps} steps after '
+          f'{warmup} warm-up steps; CG iterations per step {iters}, converged {[r.converged for r in solves]} '
+          f'(cg_tol 1e-4, at most 500, MASKED_PRECONDITIONER {preconditioner!r})')
+    print(f'{tag} launches per step: ' + ', '.join(f'{k}={launches.get(k, 0) / steps:g}' for k in KERNELS))
+    if preconditioner == 'chebyshev':
+        # K1m: two diagonal probes, A·x0 and the first preconditioner's three a solve, four an iteration — all of
+        # them with the coefficient arrays and the accessible cells
+        k1m = sum(6 + 4 * it for it in iters)
+        v_cycles = 0
+    else:
+        # the projected V-cycle: A·x0 and one matvec an iteration through K1m; one V-cycle (K2–K4, no K1) a solve
+        # and one an iteration
+        k1m = v_cycles = sum(1 + it for it in iters)
+    expected = {'poisson_stencil_coeffs': k1m, 'poisson_stencil_masked': k1m, 'poisson_stencil': k1m,
+                'window_interp_3d': K6_LAUNCHES_PER_OBSTACLE_STEP * steps}
+    wrong = {k: (launches.get(k, 0), e) for k, e in expected.items() if launches.get(k, 0) != e or e == 0}
+    # K2–K4: the same whole number of launches in every V-cycle, none without one
+    for k in V_CYCLE_KERNELS:
+        count = launches.get(k, 0)
+        if (count == 0 or count % v_cycles) if v_cycles else count:
+            wrong[k] = (count, f'a positive multiple of {v_cycles} V-cycles' if v_cycles else 0)
+    if wrong:
+        raise RuntimeError(f'{tag}: launches on the path (counted, expected): {wrong}')
+    if v_cycles:
+        print(f'{tag}: {v_cycles} V-cycles in {steps} steps, launches a V-cycle: '
+              + ', '.join(f'{k}={launches[k] // v_cycles}' for k in V_CYCLE_KERNELS))
+    # the split, from 3 more steps timed phase by phase; the masks and boundary conditions and the gradient are
+    # the projection's own first and last part, run once more on their own to be timed
+    split = {'masks + boundary conditions': [], 'advection': [], 'projection': [], 'gradient': []}
+    v, p, *obstacles = state
+    cells = cell_grid((N,) * 3, 1.0, 'cuda')
+    for _ in range(3):
+        obstacles = move(obstacles)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accessible = geometry_mask(~union([o.geometry for o in obstacles]), cells).contiguous()
+        hard_bcs = stagger(accessible, torch.minimum, 0.0)
+        fluid.apply_boundary_conditions(v, obstacles, 1.0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        v = advect_velocity(v)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        v, p, result = project(v, p, obstacles)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        tuple(c - g * m for c, g, m in zip(v, spatial_gradient(p, 1.0), hard_bcs))
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            split[key].append(dt * 1e3)
+        solves.append(result)
+    med = {k: statistics.median(x) for k, x in split.items()}
+    print(f'{tag} split: advection {med["advection"]:.2f} ms, projection {med["projection"]:.2f} ms, of which masks + '
+          f'boundary conditions {med["masks + boundary conditions"]:.2f} ms, gradient {med["gradient"]:.2f} ms and '
+          f'the solve the rest, {med["projection"] - med["masks + boundary conditions"] - med["gradient"]:.2f} ms '
+          f'({solves[-1].iterations} iterations in the last; median of 3 steps timed phase by phase)')
+    # gates on the final state
+    blocked = int((accessible == 0).sum())
+    div = divergence(v, 1.0) * accessible
+    balance = float(div.sum() / accessible.sum())
+    div_dev = float(((div - balance) * accessible).abs().max())
+    finite = all(bool(torch.isfinite(t).all()) for t in (*v, p))
+    sphere, cuboid = obstacles[0], obstacles[1]
+    inside_err = 0.0
+    for geometry, imposed in ((sphere.geometry, sphere.velocity), (cuboid.geometry, cuboid.velocity)):
+        # a face is fully inside where both its cells' centres are
+        faces = stagger(geometry_mask(geometry, cells), torch.minimum, 0.0)
+        for comp, m, u in zip(v, faces, imposed):
+            if int(m.sum()) == 0:
+                raise RuntimeError(f'{tag}: no face inside {geometry!r}')
+            inside_err = max(inside_err, float(((comp - float(u)) * m).abs().max()))
+    print(f'{tag} blocked cells {blocked} of {N ** 3} ({100 * blocked / N ** 3:.2f}%); after projection max |div·active − '
+          f'its mean {balance:.3e}| {div_dev:.3e} (bound {OBSTACLE_DIV_BOUND[preconditioner]:.0e}); faces inside the stationary sphere and the translating '
+          f'cuboid off their imposed velocity by at most {inside_err:.3e} (tol 1e-6); all finite: {finite}; '
+          f'max |v| {max(float(c.abs().max()) for c in v):.3f}')
+    shapes_ok = [tuple(c.shape) for c in v] == [tuple(N - (a == d) for a in range(3)) for d in range(3)]
+    if not (finite and shapes_ok and 0 < blocked < N ** 3 and div_dev < OBSTACLE_DIV_BOUND[preconditioner] and inside_err <= 1e-6):
+        raise RuntimeError(f'{tag} output wrong: finite={finite} shapes_ok={shapes_ok} blocked={blocked} '
+                           f'div_dev={div_dev} inside_err={inside_err}')
+    return launches
+
+
+def obstacles_cpu_vs_card(N=48, steps=2, tol=1e-4, preconditioner='chebyshev'):
+    """The obstacle step from one numpy state on the CPU (the twins) and on
+    the card (K6, K1m; K2–K4 under 'vcycle'). The velocity within `tol` (the
+    Chebyshev run read 2.15e-06 on an H100; the solves stop at cg_tol 1e-4 of
+    a right-hand side of order 1) and the CG counts within 1 of each other."""
+    import numpy as np
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        step = obstacle_stepper(N, preconditioner=preconditioner)[0]
+        state = obstacle_state(N, dev)
+        iters = []
+        for _ in range(steps):
+            state, result = step(*state)
+            iters.append(result.iterations)
+        out[dev] = [c.cpu().numpy() for c in state[0]] + [state[1].cpu().numpy(), iters]
+    names = ('vx', 'vy', 'vz', 'pressure')
+    errs = {n: float(np.abs(a - b).max()) for n, a, b in zip(names, out['cpu'], out['cuda'])}
+    worst = max(errs[n] for n in names[:3])
+    iters_apart = max(abs(a - b) for a, b in zip(out['cpu'][4], out['cuda'][4]))
+    ok = worst <= tol and iters_apart <= 1
+    print(f'cpu vs card, obstacles {N}^3 under {preconditioner!r}, {steps} steps from one numpy state: '
+          + ', '.join(f'{n} {e:.2e}' for n, e in errs.items())
+          + f'; CG iterations cpu {out["cpu"][4]} card {out["cuda"][4]} (at most 1 apart); velocity tol {tol:.0e} '
+          + ('ok' if ok else 'FAIL'))
+    if not ok:
+        raise RuntimeError(f'CPU and card disagree (obstacles, {preconditioner}): {errs}, CG iterations '
+                           f'{out["cpu"][4]} and {out["cuda"][4]}')
+
+
+def run_model_2d(tag, model, warmup=2, steps=5):
+    """A 2D obstacle model on the card: its `step` from rest. The advection
+    goes through K7; the masked stencil is PyTorch operations."""
+    import torch
+    from phiflow_tpu_torch.ops import _build
+    state = model.initial_state()
+    for _ in range(warmup):
+        state = model.step(*state)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    solves = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = model.step(*state)
+        solves.append(model.last_solve)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = dict(_build.LAUNCHES)
+    v, p = state[0], state[1]
+    finite = all(bool(torch.isfinite(t).all()) for t in (*v, p))
+    print(f'{tag} {model.resolution}^2: {ms:.2f} ms/step over {steps} steps after {warmup} warm-up steps; CG iterations '
+          f'per step {[r.iterations for r in solves]}, converged {[r.converged for r in solves]}; launches per step: '
+          f'window_interp_2d={launches.get("window_interp_2d", 0) / steps:g}; max |v| '
+          f'{max(float(c.abs().max()) for c in v):.3f}; all finite: {finite}')
+    if launches.get('window_interp_2d', 0) == 0 or not finite or max(float(c.abs().max()) for c in v) == 0:
+        raise RuntimeError(f'{tag}: window_interp_2d launched {launches.get("window_interp_2d", 0)} times, finite={finite}')
+    return launches
+
 
 def card_line():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -924,7 +1195,7 @@ def card_line():
 # the path whose run gives a kernel's `launches` in the `kernels` line: the one that brought it
 COUNTED_ON = {**{k: 'fused' for k in FUSED_KERNELS}, 'window_interp_3d': 'per-phase',
               'window_interp_2d': 'per-phase-2d', 'poisson_stencil_masked': f'flip-{FLIP_N[0]}',
-              'p2g': f'flip-{FLIP_N[0]}'}
+              'p2g': f'flip-{FLIP_N[0]}', 'poisson_stencil_coeffs': f'obstacle-{OBSTACLE_N}'}
 PATHS = [  # (tag, dims, N, per-phase?, the kernels it must launch)
     ('fused', 3, PATH_N, False, FUSED_KERNELS),
     ('per-phase', 3, PATH_N, True, PHASES_3D_KERNELS),
@@ -975,15 +1246,27 @@ def main(argv):
     for N in FLIP_N:
         by_path[f'flip-{N}'] = run_flip(f'flip-{N}', N)
         torch.cuda.empty_cache()
+    by_path[f'obstacle-{OBSTACLE_N}'] = run_obstacles(f'obstacle-{OBSTACLE_N}', OBSTACLE_N)
+    torch.cuda.empty_cache()
+    by_path[f'obstacle-{OBSTACLE_N}-vcycle'] = run_obstacles(f'obstacle-{OBSTACLE_N}-vcycle', OBSTACLE_N, warmup=1,
+                                                             steps=3, preconditioner='vcycle')
+    torch.cuda.empty_cache()
+    from phiflow_tpu_torch.models import LidDrivenCavity, MovingObstacles
+    by_path['moving-obstacles-2d'] = run_model_2d('moving-obstacles-2d', MovingObstacles(256, device='cuda'))
+    by_path['cavity-2d'] = run_model_2d('cavity-2d', LidDrivenCavity(256, obstacle=True, device='cuda'))
     cpu_vs_card('fused', 3, 64, False)
     cpu_vs_card('per-phase', 3, 64, True)
     cpu_vs_card('per-phase-2d', 2, 256, True)
     flip_cpu_vs_card()
+    obstacles_cpu_vs_card()
+    obstacles_cpu_vs_card(preconditioner='vcycle')
     if '--profile' in argv:
         for tag, dims, N, per_phase, _ in PATHS:
             profile_slice(tag, dims, N, per_phase)
         for N in FLIP_N:
             profile_flip(f'flip-{N}', N)
+        profile_obstacles(f'obstacle-{OBSTACLE_N}', OBSTACLE_N)
+        profile_obstacles(f'obstacle-{OBSTACLE_N}-vcycle', OBSTACLE_N, 'vcycle')
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rows.append(dict(name=name, route='cuda', source=source, replaces=replaces,

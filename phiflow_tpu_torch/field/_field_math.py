@@ -3,7 +3,9 @@ of `phiflow_tpu/field/_field_math.py` the pressure projection uses:
 `divergence` of a staggered velocity (`:243`) and the face `spatial_gradient`
 of a centred pressure (`:135`), for the closed box and the periodic box — and
 `finite_fill` (`:476-503`), the one-cell extension of a FLIP velocity grid
-into its unset (NaN) cells.
+into its unset (NaN) cells. For obstacles: `stagger` (`:208-236`), a cell
+mask combined onto the faces, and `safe_mul` (`:412-431`); for diffusion the
+order-2 `laplace` (`:81-106`).
 
 Closed box: component d holds the interior faces 1..N−1 along axis d (N−1
 entries); the outer faces carry the wall's zero normal velocity. Periodic:
@@ -11,13 +13,14 @@ component d holds faces 0..N−1, face N ≡ face 0.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from ..math._nd import masked_fill, shift_zero
+from ..math._nd import Extrapolation, masked_fill, pad, shift_zero
 
-__all__ = ['divergence', 'spatial_gradient', 'finite_fill']
+__all__ = ['divergence', 'spatial_gradient', 'finite_fill', 'stagger', 'safe_mul', 'laplace']
 
 
 def divergence(velocity: Sequence[torch.Tensor], dx: float, periodic: bool = False) -> torch.Tensor:
@@ -65,3 +68,41 @@ def finite_fill(values: torch.Tensor, distance: int = 1) -> torch.Tensor:
             reach = torch.maximum(reach, torch.maximum(lo, up))
         reach = (reach > 0).to(values.dtype)
     return torch.where(reach > 0, filled, values)
+
+
+def stagger(values: torch.Tensor, face_function: Callable, extrap: Extrapolation,
+            periodic: bool = False) -> Tuple[torch.Tensor, ...]:
+    """A centred grid at the faces a staggered field stores: each face gets
+    `face_function` of its two cells (`torch.minimum` makes a face open only
+    where both cells are). `extrap` is the centred grid's extrapolation, which
+    gives the cells beyond the outer faces; `periodic` is the staggered
+    field's box and decides which outer faces it stores."""
+    comps = []
+    for axis in range(values.ndim):
+        padded = pad(values, axis, 1, 1, extrap)
+        n = values.shape[axis]
+        faces = face_function(padded.narrow(axis, 0, n + 1), padded.narrow(axis, 1, n + 1))
+        comps.append(faces.narrow(axis, 0, n) if periodic else faces.narrow(axis, 1, n - 1))
+    return tuple(comps)
+
+
+def safe_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a · b with 0 · NaN = 0 on either side: masking a velocity that holds
+    NaN in its unset faces."""
+    a_n = torch.where(b == 0, torch.zeros_like(a), a)
+    b_n = torch.where(a == 0, torch.zeros_like(b), b)
+    return a_n * b_n
+
+
+def laplace(values: torch.Tensor, dx, extrap: Extrapolation) -> torch.Tensor:
+    """The order-2 Laplacian of one grid array: per axis
+    (v[i−1] + v[i+1] − 2·v[i]) / dx² with ghost cells from `extrap`."""
+    h = tuple(dx) if isinstance(dx, (tuple, list)) else (dx,) * values.ndim
+    result = None
+    for axis in range(values.ndim):
+        padded = pad(values, axis, 1, 1, extrap)
+        n = values.shape[axis]
+        lo, ce, up = padded.narrow(axis, 0, n), padded.narrow(axis, 1, n), padded.narrow(axis, 2, n)
+        term = (lo + up - 2 * ce) / float(np.float32(h[axis]) ** 2)
+        result = term if result is None else result + term
+    return result

@@ -1,5 +1,6 @@
 """Resampling on raw tensors: between half-cell-shifted aligned grids, from
-particles to a grid (P2G) and from a grid to particles (G2P).
+particles to a grid (P2G), from a grid to particles (G2P), and of a geometry
+onto a cell grid or the face grids (obstacle masks).
 
 `sample_grid_at_centers` is the port of the order-2 branch of
 `phiflow_tpu/field/_resample.py::_shift_resample` (`:310-347`) as
@@ -22,6 +23,11 @@ along d, one entry shorter there. `sample_grid_at_points` ports the function
 of that name (`:251-262`): multilinear interpolation at particle positions, a
 gather written with PyTorch indexing (the JAX package has no kernel for it).
 
+`geometry_mask` ports `_geometry_mask` (`:151-158`) and the `at='face'` route
+of `sample` (`:77-80`): hard, 1 where a sample point lies inside; soft, the
+fraction of the sample point's cell inside. `staggered_cells` gives the face
+grids in the layouts above.
+
 The domain's lower corner is the origin.
 """
 from __future__ import annotations
@@ -32,25 +38,13 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..math._nd import BOUNDARY, PERIODIC, Extrapolation
+from ..geom._geom import Geometry
+from ..geom._grid import UniformGrid
+from ..math._nd import Extrapolation, pad
 from ..ops.p2g import p2g_mean
 
 __all__ = ['sample_grid_at_centers', 'scatter_to_grid', 'sample_grid_at_points', 'sample_staggered_at_points',
-           'face_grid']
-
-
-def _pad_axis(v: torch.Tensor, axis: int, lower: int, upper: int, extrap: Extrapolation) -> torch.Tensor:
-    """`v` extended by `lower` / `upper` (0 or 1) entries along `axis`."""
-    n = v.shape[axis]
-    first, last = v.narrow(axis, 0, 1), v.narrow(axis, n - 1, 1)
-    if extrap == PERIODIC:
-        lo, hi = last, first
-    elif extrap == BOUNDARY:
-        lo, hi = first, last
-    else:
-        lo = hi = torch.full_like(first, float(extrap))
-    parts = ([lo] if lower else []) + [v] + ([hi] if upper else [])
-    return torch.cat(parts, dim=axis) if len(parts) > 1 else v
+           'face_grid', 'cell_grid', 'staggered_cells', 'geometry_mask']
 
 
 def sample_grid_at_centers(values: torch.Tensor, own_axis: Optional[int], target_axis: Optional[int],
@@ -71,10 +65,43 @@ def sample_grid_at_centers(values: torch.Tensor, own_axis: Optional[int], target
             lower, upper = (0, 1) if periodic else (1, 1)
         else:
             lower, upper = (1, 0) if periodic else (0, 0)
-        padded = _pad_axis(v, axis, lower, upper, extrap)
+        padded = pad(v, axis, lower, upper, extrap)
         size = padded.shape[axis]
         v = (padded.narrow(axis, 0, size - 1) + padded.narrow(axis, 1, size - 1)) * 0.5
     return v
+
+
+# ---------------------------------------------------------------------------
+# geometry → grid
+# ---------------------------------------------------------------------------
+
+def cell_grid(resolution: Sequence[int], dx, device=None) -> UniformGrid:
+    """The cells of a domain of `resolution` cells of size `dx` from the
+    origin, on `device` (None: the card)."""
+    f32 = np.float32
+    h = _per_axis(dx, len(resolution))
+    return UniformGrid(resolution, [f32(0.0)] * len(h), [f32(n) * f32(x) for n, x in zip(resolution, h)], device)
+
+
+def staggered_cells(cells: UniformGrid, periodic: bool) -> Tuple[UniformGrid, ...]:
+    """Per axis the grid of the faces a staggered field stores: the interior
+    faces in the closed box, faces 0..N−1 in the periodic box."""
+    return tuple(cells.stagger(axis, periodic, False) for axis in range(cells.spatial_rank))
+
+
+def geometry_mask(geometry: Geometry, target: Union[UniformGrid, Sequence[UniformGrid]], soft: bool = False,
+                  balance: float = 0.5) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """`geometry` sampled on the cells of `target` as float32: 1 where the
+    cell's centre lies inside, or with ``soft`` the cell's fraction inside
+    (`balance`: of a cell whose centre lies on the surface). A sequence of
+    grids — the face grids of `staggered_cells` — gives one mask each."""
+    if not isinstance(target, UniformGrid):
+        return tuple(geometry_mask(geometry, g, soft, balance) for g in target)
+    if soft:
+        mask = geometry.approximate_fraction_inside(target, balance)
+    else:
+        mask = geometry.lies_inside(target.center).to(torch.float32)
+    return mask.expand(target.resolution)
 
 
 # ---------------------------------------------------------------------------

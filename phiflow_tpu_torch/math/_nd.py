@@ -6,6 +6,8 @@ Window-shift interpolation of a grid at its own displaced lattice — port of
 The grid's extrapolation describes its halo to the kernel, which resolves it by
 index: a constant (a float: the closed box's velocity, 0 at the walls),
 `BOUNDARY` (zero gradient: the smoke) or `PERIODIC`. No padded copy is made.
+`PerSide` is a constant that differs by side (a moving lid); such a grid is
+padded here, side by side, and the kernel takes the padded array.
 
 One kernel per call, whatever K: the TPU route picks between a K=1 and a K
 window at run time (`:554-578`) because its cost grows with (2K+1)^d. A corner
@@ -24,10 +26,49 @@ import torch
 
 from ..ops.interp import window_interp_2d, window_interp_3d
 
-__all__ = ['BOUNDARY', 'PERIODIC', 'shift_window_interp', 'masked_fill', 'shift_zero']
+__all__ = ['BOUNDARY', 'PERIODIC', 'PerSide', 'pad', 'component_extrapolation', 'shift_window_interp', 'masked_fill', 'shift_zero']
 
 BOUNDARY, PERIODIC = 'boundary', 'periodic'
-Extrapolation = Union[float, str]  # a constant value, BOUNDARY or PERIODIC
+
+
+class PerSide(tuple):
+    """A constant extrapolation with its own value on every side: one
+    (lower, upper) pair of floats per axis — `combine_sides` of the JAX
+    package for constants."""
+
+    def __new__(cls, *sides):
+        return super().__new__(cls, tuple((float(lo), float(up)) for lo, up in sides))
+
+
+Extrapolation = Union[float, str, PerSide]  # a constant value, BOUNDARY, PERIODIC, or constants per side
+
+
+def component_extrapolation(extrap, component: int) -> Extrapolation:
+    """The extrapolation of one component of a staggered grid: `extrap` itself,
+    or its entry where it is a sequence with one extrapolation per component."""
+    if isinstance(extrap, (list, tuple)) and not isinstance(extrap, PerSide):
+        return extrap[component]
+    return extrap
+
+
+def pad(v: torch.Tensor, axis: int, lower: int, upper: int, extrap: Extrapolation) -> torch.Tensor:
+    """`v` extended by `lower` / `upper` entries along `axis`."""
+    if not lower and not upper:
+        return v
+    n = v.shape[axis]
+    if extrap == PERIODIC:
+        lo, hi = v.narrow(axis, n - lower, lower), v.narrow(axis, 0, upper)
+    elif extrap == BOUNDARY:
+        lo = v.narrow(axis, 0, 1).expand(*[lower if a == axis else -1 for a in range(v.ndim)])
+        hi = v.narrow(axis, n - 1, 1).expand(*[upper if a == axis else -1 for a in range(v.ndim)])
+    else:
+        c_lo, c_hi = extrap[axis] if isinstance(extrap, PerSide) else (extrap, extrap)
+        shape = list(v.shape)
+        shape[axis] = lower
+        lo = torch.full(shape, float(c_lo), dtype=v.dtype, device=v.device)
+        shape[axis] = upper
+        hi = torch.full(shape, float(c_hi), dtype=v.dtype, device=v.device)
+    return torch.cat(([lo] if lower else []) + [v] + ([hi] if upper else []), dim=axis)
 
 
 def shift_window_interp(grid: torch.Tensor, displacement_cells: Sequence[torch.Tensor],
@@ -51,14 +92,19 @@ def shift_window_interp(grid: torch.Tensor, displacement_cells: Sequence[torch.T
     if d not in (2, 3):
         raise NotImplementedError(f"{d}D grids come with a later slice of the port (2D and 3D are ported)")
     fn = window_interp_3d if d == 3 else window_interp_2d
-    if extrap == BOUNDARY:
+    if isinstance(extrap, PerSide):
+        # axis after axis, so a corner of the halo holds the later axis' value
+        for axis in range(d):
+            grid = pad(grid, axis, max_cells, max_cells, extrap)
+        halo = {}
+    elif extrap == BOUNDARY:
         halo = dict(halo='edge')
     elif extrap == PERIODIC:
         halo = dict(halo='wrap')
     elif isinstance(extrap, (int, float)):
         halo = dict(const_pad=float(extrap))
     else:
-        raise ValueError(f"extrapolation {extrap!r}: a constant value, BOUNDARY or PERIODIC expected")
+        raise ValueError(f"extrapolation {extrap!r}: a constant value, BOUNDARY, PERIODIC or PerSide expected")
     return fn(grid, list(displacement_cells), max_cells, compute_extrema=compute_extrema, negate=negate,
               disp_scale=disp_scale, **halo)
 

@@ -305,6 +305,8 @@ def _stencil_cuda(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag,
     _build.LAUNCHES['poisson_stencil'] += 1
     if any(m is not None for m in masks):
         _build.LAUNCHES['poisson_stencil_masked'] += 1  # the masked form's share of the count above
+    if mA_list is not None:
+        _build.LAUNCHES['poisson_stencil_coeffs'] += 1  # of those, the launches with coefficient arrays (obstacles)
     if with_dot:
         return out, partials.sum()
     return out

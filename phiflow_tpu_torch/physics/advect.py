@@ -8,7 +8,8 @@ uniform grid advected by a staggered velocity of the same resolution.
 
 A field is a tensor (centred) or a sequence of face-component tensors
 (staggered, in the layout of `field/_resample.py`); the velocity is always
-staggered. The backtrace displacements are built per axis from the velocity
+staggered. A staggered grid's extrapolation may be a sequence, one entry per
+component (the lid of a cavity moves one component's wall value only). The backtrace displacements are built per axis from the velocity
 arrays, unscaled — the own component of a staggered target aliases its
 velocity array, the others are 2-point averages per shifted axis — and the
 window kernels (K6 in 3D, K7 in 2D) apply −dt/dx, the sign and the ±max_cells
@@ -29,7 +30,7 @@ from typing import Sequence, Tuple, Union
 import torch
 
 from ..field._resample import sample_grid_at_centers, sample_staggered_at_points
-from ..math._nd import PERIODIC, Extrapolation, shift_window_interp
+from ..math._nd import PERIODIC, Extrapolation, component_extrapolation, shift_window_interp
 
 __all__ = ['semi_lagrangian', 'mac_cormack', 'max_displacement_cells', 'finite_rk4', 'points']
 
@@ -44,17 +45,20 @@ def _per_axis(dx, ndim: int) -> Tuple[float, ...]:
     return tuple(float(x) for x in dx) if isinstance(dx, (tuple, list)) else (float(dx),) * ndim
 
 
-def _euler_disp_natives(staggered: bool, velocity: Sequence[torch.Tensor], dt_signed: float, dx, periodic: bool):
+def _euler_disp_natives(staggered: bool, velocity: Sequence[torch.Tensor], dt_signed: float, dx, periodic: bool,
+                        velocity_extrap=None):
     """Per-axis displacement arrays in velocity units at the field's sample
     points, and the scales dt/dx that turn them into cells (applied by the
     window kernel). A staggered field gets one list per component t, whose
     entry t is the velocity array itself."""
     ndim = len(velocity)
     scales = tuple(float(dt_signed) / h for h in _per_axis(dx, ndim))
-    v_extrap = PERIODIC if periodic else 0.0
+    if velocity_extrap is None:
+        velocity_extrap = PERIODIC if periodic else 0.0
 
     def disp_at(t):
-        return [velocity[s] if s == t else sample_grid_at_centers(velocity[s], s, t, v_extrap, periodic)
+        return [velocity[s] if s == t else
+                sample_grid_at_centers(velocity[s], s, t, component_extrapolation(velocity_extrap, s), periodic)
                 for s in range(ndim)]
 
     if staggered:
@@ -69,8 +73,9 @@ def _window_interp_field_native(field: Grid, disp_and_scale, extrap: Extrapolati
     per component for a staggered field."""
     disps, scales = disp_and_scale
     if _is_staggered(field):
-        results = [shift_window_interp(comp, disps[t], extrap, max_cells, compute_extrema=extrema,
-                                       negate=negate, disp_scale=scales) for t, comp in enumerate(field)]
+        results = [shift_window_interp(comp, disps[t], component_extrapolation(extrap, t), max_cells,
+                                       compute_extrema=extrema, negate=negate, disp_scale=scales)
+                   for t, comp in enumerate(field)]
         if extrema:
             return tuple(tuple(r[i] for r in results) for i in range(3))
         return tuple(results)
@@ -93,22 +98,25 @@ def _check(field: Grid, velocity, max_cells, substeps):
             f"axes come with the batched-smoke slice of the port")
 
 
-def semi_lagrangian(field: Grid, velocity: Sequence[torch.Tensor], dt: float, dx, extrap: Extrapolation,
-                    periodic: bool = False, max_cells: int = 2, substeps: int = 1) -> Grid:
-    """Backtrace + interpolate. `extrap` is the field's extrapolation, `periodic`
-    the velocity's box (its extrapolation is PERIODIC, else the constant 0).
-    Exact whenever the CFL number ≤ max_cells; larger displacements are
-    clamped. ``substeps=n`` applies n steps of dt/n."""
+def semi_lagrangian(field: Grid, velocity: Sequence[torch.Tensor], dt: float, dx, extrap,
+                    periodic: bool = False, max_cells: int = 2, substeps: int = 1, velocity_extrap=None) -> Grid:
+    """Backtrace + interpolate. `extrap` is the field's extrapolation (for a
+    staggered field also one per component), `periodic` the velocity's box.
+    The velocity's extrapolation is PERIODIC there, else the constant 0 of
+    closed walls, unless `velocity_extrap` says otherwise (one per component
+    allowed). Exact whenever the CFL number ≤ max_cells; larger displacements
+    are clamped. ``substeps=n`` applies n steps of dt/n."""
     _check(field, velocity, max_cells, substeps)
     if substeps > 1:
         for _ in range(substeps):
-            field = semi_lagrangian(field, velocity, dt / substeps, dx, extrap, periodic, max_cells)
+            field = semi_lagrangian(field, velocity, dt / substeps, dx, extrap, periodic, max_cells,
+                                    velocity_extrap=velocity_extrap)
         return field
-    fast = _euler_disp_natives(_is_staggered(field), velocity, -dt, dx, periodic)
+    fast = _euler_disp_natives(_is_staggered(field), velocity, -dt, dx, periodic, velocity_extrap)
     return _window_interp_field_native(field, fast, extrap, max_cells)
 
 
-def mac_cormack(field: Grid, velocity: Sequence[torch.Tensor], dt: float, dx, extrap: Extrapolation,
+def mac_cormack(field: Grid, velocity: Sequence[torch.Tensor], dt: float, dx, extrap,
                 periodic: bool = False, correction_strength: float = 1.0, max_cells: int = 2,
                 substeps: int = 1) -> Grid:
     """MacCormack advection with the monotonicity clamp: a forward pass with

@@ -1,35 +1,149 @@
 """Pressure projection — port of the staggered branches of
-`phiflow_tpu/physics/fluid.py::make_incompressible` (`:164-272`) without
-obstacles.
+`phiflow_tpu/physics/fluid.py::make_incompressible` (`:164-272`), with
+obstacles (`Obstacle`, `apply_boundary_conditions`) and free surfaces.
 
-All cells active: divergence → `_balance_divergence` → CG on the Poisson
-stencil (K1), preconditioned by the multigrid V-cycle (K2–K4) from x0 = the
-previous pressure → subtract the pressure gradient. Closed box or periodic box.
+All cells active, no obstacle: divergence → `_balance_divergence` → CG on the
+Poisson stencil (K1), preconditioned by the multigrid V-cycle (K2–K4) from
+x0 = the previous pressure → subtract the pressure gradient. Closed box or
+periodic box.
 
 With `active` (a free surface: 1 in the cells the liquid occupies, 0
 elsewhere): divergence · active, non-finite entries zeroed → CG on K1's masked
 form (inactive cells are identity rows), preconditioned by Chebyshev(Jacobi)
 on the exact masked diagonal, from x0 = the previous pressure; the system is
 nonsingular, so no mean is removed anywhere. `boundary_push` keeps particles
-inside the domain.
+inside the domain and outside box obstacles.
+
+With `obstacles`: the cells outside every obstacle are `accessible`; a face is
+open (`hard_bcs`) where both its cells are. The obstacles' velocities are
+blended into the field, the open-face masks are staged once per solve into
+K1's coefficient arrays (`mA`, `c0`) and the accessible cells are its
+`active` cells, so every matvec is one launch of K1's masked form with all
+seven arrays; the pressure gradient is subtracted on open faces only. Without
+a caller's `active` the closed or periodic box stays singular and is treated
+as the JAX package treats it: the right-hand side is balanced over the
+accessible cells, and the plain mean over all cells is removed from it, from
+every preconditioner output and from the result. `MASKED_PRECONDITIONER`
+chooses the masked systems' preconditioner.
 
 2D or 3D: the kernels are 3D; a 2D solve runs the same code through the
-wrappers' PyTorch route (`ops/poisson.py`). Obstacles — the path that feeds K1's
-masked form its coefficient arrays — are not ported yet.
+wrappers' PyTorch route (`ops/poisson.py`).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from ..field._field_math import divergence, spatial_gradient
-from ..geom._box import box_push
+from ..field._angular_velocity import angular_velocity_at_faces
+from ..field._field_math import divergence, safe_mul, spatial_gradient, stagger
+from ..field._resample import cell_grid, geometry_mask, staggered_cells
+from ..geom._box import Box, Cuboid, box_push
+from ..geom._geom import Geometry, union, vec32
 from ..math._multigrid import make_poisson_vcycle
+from ..math._nd import BOUNDARY, PERIODIC as PERIODIC_EXTRAPOLATION, Extrapolation
 from ..math._solve import SolveResult, cg, sub_mean
-from ..ops.poisson import NEUMANN, PERIODIC, poisson_apply
+from ..ops.poisson import NEUMANN, PERIODIC, poisson_apply, stage_masks
 
-__all__ = ['make_incompressible', 'boundary_push']
+__all__ = ['Obstacle', 'make_incompressible', 'apply_boundary_conditions', 'boundary_push', 'MASKED_PRECONDITIONER']
+
+MASKED_PRECONDITIONER = 'chebyshev'  # 'chebyshev' | 'vcycle' | None — the masked systems' preconditioner
+
+
+class Obstacle:
+    """Boundary conditions inside a geometry that may move and rotate. Its
+    numbers are float32 on the host: `velocity` a vector, `angular_velocity` a
+    scalar in 2D and a rotation vector in 3D; 0 is at rest in both."""
+
+    def __init__(self, geometry: Geometry, velocity=0, angular_velocity=0):
+        d = geometry.spatial_rank
+        self.geometry = geometry
+        self.velocity = vec32(velocity, d)
+        w = np.asarray(angular_velocity, np.float32)
+        if d == 3 and w.ndim == 0 and w == 0:
+            w = np.zeros(3, np.float32)
+        if w.shape != (() if d == 2 else (3,)):
+            raise ValueError(f"angular_velocity of shape {w.shape} for a {d}D obstacle: a scalar in 2D, "
+                             f"a vector of 3 entries in 3D")
+        self.angular_velocity = w
+
+    @property
+    def is_stationary(self) -> bool:
+        return not self.is_moving and not self.is_rotating
+
+    @property
+    def is_rotating(self) -> bool:
+        return bool(np.any(self.angular_velocity != 0))
+
+    @property
+    def is_moving(self) -> bool:
+        return bool(np.any(self.velocity != 0))
+
+    def with_geometry(self, geometry: Geometry) -> 'Obstacle':
+        return Obstacle(geometry, self.velocity, self.angular_velocity)
+
+    def shifted(self, delta) -> 'Obstacle':
+        return self.with_geometry(self.geometry.shifted(delta))
+
+    def at(self, position) -> 'Obstacle':
+        return self.with_geometry(self.geometry.at(position))
+
+    def rotated(self, angle) -> 'Obstacle':
+        return self.with_geometry(self.geometry.rotated(angle))
+
+    def __repr__(self):
+        return f"Obstacle({self.geometry!r})"
+
+
+def _get_obstacles_for(obstacles) -> List[Obstacle]:
+    """A bare geometry is a stationary obstacle; one obstacle is a list of one."""
+    if isinstance(obstacles, (Obstacle, Geometry)):
+        obstacles = [obstacles]
+    if not isinstance(obstacles, (tuple, list)):
+        raise TypeError(f"obstacles: an Obstacle, a Geometry or a sequence of them expected, got {type(obstacles)}")
+    return [Obstacle(o) if isinstance(o, Geometry) else o for o in obstacles]
+
+
+def _accessible_extrapolation(vext: Extrapolation) -> Extrapolation:
+    """The extrapolation of the accessible-cells mask from the velocity's:
+    beyond a wall (a constant velocity) nothing is accessible, beyond an open
+    (zero-gradient) side everything, a periodic box wraps."""
+    if vext == PERIODIC_EXTRAPOLATION:
+        return PERIODIC_EXTRAPOLATION
+    if vext == BOUNDARY:
+        return 1.0
+    return 0.0
+
+
+def _resolution(velocity: Sequence[torch.Tensor], periodic: bool) -> Tuple[int, ...]:
+    """The cells of a staggered velocity's domain: in the closed box component
+    0 lacks one entry along its own axis."""
+    return tuple(n + (1 if a == 0 and not periodic else 0) for a, n in enumerate(velocity[0].shape))
+
+
+def apply_boundary_conditions(velocity: Sequence[torch.Tensor], obstacles, dx,
+                              periodic: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Blend the obstacles' velocities into the staggered `velocity`: on the
+    share of each face that an obstacle covers (the soft mask with
+    ``balance=1``: a face whose centre lies on the surface counts as covered)
+    the obstacle's own velocity, translation plus rotation, replaces the
+    fluid's; a stationary obstacle leaves 0."""
+    obstacles = _get_obstacles_for(obstacles)
+    faces = staggered_cells(cell_grid(_resolution(velocity, periodic), dx, velocity[0].device), periodic)
+    velocity = tuple(velocity)
+    for obstacle in obstacles:
+        obs_mask = geometry_mask(obstacle.geometry, faces, soft=True, balance=1)
+        if obstacle.is_stationary:
+            velocity = tuple(safe_mul(1 - m, v) for m, v in zip(obs_mask, velocity))
+            continue
+        if obstacle.is_rotating:
+            angular = angular_velocity_at_faces(faces, obstacle.geometry.center, obstacle.angular_velocity)
+        else:
+            angular = tuple(v * 0 for v in velocity)
+        velocity = tuple(safe_mul(1 - m, v) + safe_mul(m, (w + float(u)).expand(m.shape))
+                         for m, v, w, u in zip(obs_mask, velocity, angular, obstacle.velocity))
+    return velocity
 
 
 def _classify_pressure_bc(periodic: bool, ndim: int = 3):
@@ -40,8 +154,11 @@ def _classify_pressure_bc(periodic: bool, ndim: int = 3):
     return ((mode, mode),) * ndim
 
 
-def _balance_divergence(div: torch.Tensor) -> torch.Tensor:
-    """Subtract the mean so the singular Poisson system is solvable."""
+def _balance_divergence(div: torch.Tensor, active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Subtract the mean so the singular Poisson system is solvable; with
+    `active`, spread it over the active cells only."""
+    if active is not None:
+        return div - active * (torch.mean(div) / torch.mean(active))
     return div - torch.mean(div)
 
 
@@ -119,45 +236,114 @@ def _masked_chebyshev_preconditioner(apply_A: Callable, template: torch.Tensor, 
     return preconditioner
 
 
-def _project_free_surface(velocity, div, pressure, active, dx, inv_dx2, bcs, periodic, rel_tol, abs_tol,
-                          max_iterations):
-    """The `active` branch of `make_incompressible`."""
-    # JAX's order: the product first (0 · NaN is NaN), then non-finite entries to 0
-    div = div * active
-    rhs = torch.where(torch.isfinite(div), div, torch.zeros_like(div))
+def _masked_vcycle_preconditioner(resolution, dx: float, bcs, active: torch.Tensor):
+    """Projected multigrid for masked systems: z = P·V(P·r) + (I − P)·r with P
+    the active-cell projection and V the unmasked Poisson V-cycle (K2–K4).
+    Identity rows are exact; next to an obstacle V only approximates, which
+    slows CG down and does not break it. None below 16 cells per axis."""
+    if max(resolution) < 16:
+        return None
+    vcycle = make_poisson_vcycle(tuple(resolution), (dx,) * len(resolution), bcs, active.device)
+
+    def preconditioner(r: torch.Tensor):
+        z, _ = vcycle(r * active)
+        return z * active + r * (1. - active), None
+
+    return preconditioner
+
+
+def _full_face_masks(hard_bcs: Sequence[torch.Tensor], periodic: bool):
+    """The open-face masks over every face of each axis, as `stage_masks`
+    takes them: the outer faces that a closed box's velocity does not store
+    are closed (their flux is dropped), so they enter as 0."""
+    if periodic:
+        return list(hard_bcs)
+    full = []
+    for axis, m in enumerate(hard_bcs):
+        zero = torch.zeros_like(m.narrow(axis, 0, 1))
+        full.append(torch.cat([zero, m, zero], dim=axis))
+    return full
+
+
+def _project_masked(velocity, div, pressure, active, hard_bcs, singular, dx, inv_dx2, bcs, periodic, rel_tol,
+                    abs_tol, max_iterations):
+    """The masked branches of `make_incompressible`: a free surface
+    (`active`), obstacles (`hard_bcs` and `active`), or both. `singular`: the
+    box is closed or periodic with every cell the caller's, so the constant
+    is in the operator's null space as the JAX package sees it."""
+    mA_list = c0 = None
+    if hard_bcs is not None:
+        # staged once per solve: contiguous float32 arrays of the cells' shape, which the kernel's wrapper
+        # passes on as they are at every launch
+        mA_list, c0 = stage_masks(_full_face_masks(hard_bcs, periodic), bcs, inv_dx2)
+    rhs = div
+    if singular:
+        rhs = sub_mean(_balance_divergence(div, active))
     x0 = torch.zeros_like(div) if pressure is None else pressure
 
     def apply_A(p):
-        return poisson_apply(p, inv_dx2, bcs, active=active)
+        return poisson_apply(p, inv_dx2, bcs, mA_list=mA_list, c0=c0, active=active)
 
     def A(p):
-        return poisson_apply(p, inv_dx2, bcs, active=active, with_dot=True)
+        return poisson_apply(p, inv_dx2, bcs, mA_list=mA_list, c0=c0, active=active, with_dot=True)
 
-    M = _masked_chebyshev_preconditioner(apply_A, div, bcs)
+    M = None
+    if MASKED_PRECONDITIONER == 'vcycle':
+        M = _masked_vcycle_preconditioner(tuple(div.shape), dx, bcs, active)
+    elif MASKED_PRECONDITIONER == 'chebyshev':
+        M = _masked_chebyshev_preconditioner(apply_A, div, bcs)
+    elif MASKED_PRECONDITIONER is not None:
+        raise ValueError(f"MASKED_PRECONDITIONER {MASKED_PRECONDITIONER!r}: 'chebyshev', 'vcycle' or None expected")
+    if singular and M is not None:
+        inner = M
+
+        def M(r):
+            return sub_mean(inner(r)[0]), None
+
     result = cg(A, rhs, x0, rel_tol, abs_tol, max_iterations, M)
-    grad = spatial_gradient(result.x, dx, periodic)
-    return tuple(v - g for v, g in zip(velocity, grad)), result.x, result
+    p = sub_mean(result.x) if singular else result.x
+    grad = spatial_gradient(p, dx, periodic)
+    if hard_bcs is not None:
+        grad = tuple(g * m for g, m in zip(grad, hard_bcs))
+    return tuple(v - g for v, g in zip(velocity, grad)), p, result._replace(x=p)
 
 
 def make_incompressible(velocity: Sequence[torch.Tensor], pressure: Optional[torch.Tensor], dx: float,
                         rel_tol: float = 1e-5, abs_tol: float = 1e-5, max_iterations: int = 1000,
-                        periodic: bool = False, active: Optional[torch.Tensor] = None
+                        periodic: bool = False, active: Optional[torch.Tensor] = None, obstacles=()
                         ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor, SolveResult]:
     """Project the staggered velocity (raw components x, y[, z]) onto its
     divergence-free part. `pressure` is the solve's initial guess x0 (zeros
     when None). `active` (cells' shape, 1 or 0) restricts the system to the
     active cells; elsewhere the pressure solves p = 0 and the velocity may
-    hold NaN. Returns (velocity, pressure, solve result); not converging
-    within max_iterations is not an error, as for the models' solves."""
+    hold NaN. `obstacles`: `Obstacle`s or bare geometries (stationary); their
+    velocities are imposed on the faces they cover and no flux crosses a face
+    next to a cell whose centre lies inside one. Returns (velocity, pressure,
+    solve result); not converging within max_iterations is not an error, as
+    for the models' solves."""
+    obstacles = _get_obstacles_for(obstacles)
+    resolution = _resolution(velocity, periodic)
+    bcs = _classify_pressure_bc(periodic, len(resolution))
+    inv_dx2 = (1.0 / (dx * dx),) * len(resolution)
+    if active is not None and tuple(active.shape) != resolution:
+        raise ValueError(f"active: shape {tuple(active.shape)} != the cells' {resolution}")
+    all_active = active is None
+    hard_bcs = None
+    if obstacles:
+        cells = cell_grid(resolution, dx, velocity[0].device)
+        accessible = geometry_mask(~union([o.geometry for o in obstacles]), cells).contiguous()
+        v_extrap = PERIODIC_EXTRAPOLATION if periodic else 0.0
+        hard_bcs = stagger(accessible, torch.minimum, _accessible_extrapolation(v_extrap), periodic)
+        active = accessible if active is None else active * accessible
+        velocity = apply_boundary_conditions(velocity, obstacles, dx, periodic)
     div = divergence(velocity, dx, periodic)
-    resolution = tuple(div.shape)
-    bcs = _classify_pressure_bc(periodic, div.ndim)
-    inv_dx2 = (1.0 / (dx * dx),) * div.ndim
     if active is not None:
-        if tuple(active.shape) != resolution:
-            raise ValueError(f"active: shape {tuple(active.shape)} != the cells' {resolution}")
-        return _project_free_surface(velocity, div, pressure, active, dx, inv_dx2, bcs, periodic, rel_tol, abs_tol,
-                                     max_iterations)
+        # JAX's order: the product first (0 · NaN is NaN), then, for a caller's active cells, non-finite entries to 0
+        div = div * active
+        if not all_active:
+            div = torch.where(torch.isfinite(div), div, torch.zeros_like(div))
+        return _project_masked(velocity, div, pressure, active, hard_bcs, all_active, dx, inv_dx2, bcs, periodic,
+                               rel_tol, abs_tol, max_iterations)
     rhs = sub_mean(_balance_divergence(div))  # rank deficiency 1: project onto range(A)
     x0 = torch.zeros_like(div) if pressure is None else pressure
     M = _grid_multigrid_preconditioner(resolution, dx, bcs, div.device)
@@ -172,9 +358,17 @@ def make_incompressible(velocity: Sequence[torch.Tensor], pressure: Optional[tor
     return velocity, p, result._replace(x=p)
 
 
-def boundary_push(positions: torch.Tensor, domain_size: Sequence[float], separation: float = 0.5) -> torch.Tensor:
-    """Pull particles that left the domain [0, domain_size] back inside, to
-    `separation` from the wall — `boundary_push(particles, [~bounds])` of the
-    JAX package; obstacles are not ported yet."""
+def boundary_push(positions: torch.Tensor, domain_size: Sequence[float], separation: float = 0.5,
+                  obstacles=()) -> torch.Tensor:
+    """Push particles out of the box obstacles (`Box`, `Cuboid`, or
+    `Obstacle`s of them; the box's axes, as the JAX package pushes), then pull
+    those that left the domain [0, domain_size] back inside; both to
+    `separation` from the surface — `boundary_push(particles, [*obstacles,
+    ~bounds])` of the JAX package. Other geometries have no exact push."""
+    for obj in obstacles:
+        geometry = obj.geometry if isinstance(obj, Obstacle) else obj
+        if not isinstance(geometry, (Box, Cuboid)):
+            raise NotImplementedError(f"boundary_push: {type(geometry).__name__} has no exact push; only boxes are ported")
+        positions = box_push(positions, geometry.lower, geometry.upper, outward=True, shift_amount=separation)
     return box_push(positions, (0.0,) * len(domain_size), tuple(domain_size), outward=False,
                     shift_amount=separation)

@@ -8,6 +8,9 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, 'phiflow_tpu_torch')
 FORBIDDEN = re.compile(r'^\s*(import|from)\s+(jax|phiflow_tpu)\b', re.MULTILINE)
+OBSTACLE_MODULES = ['geom._geom', 'geom._sphere', 'geom._box', 'geom._grid', 'geom._transform',
+                    'field._angular_velocity', 'physics.diffuse', 'physics.fluid', 'models.moving_obstacle',
+                    'models.cavity']
 
 
 def test_imports_with_jax_blocked():
@@ -15,8 +18,11 @@ def test_imports_with_jax_blocked():
             "sys.modules['jax'] = None\n"
             "sys.modules['phiflow_tpu'] = None\n"
             "import phiflow_tpu_torch\n"
-            "for m in pkgutil.walk_packages(phiflow_tpu_torch.__path__, 'phiflow_tpu_torch.'):\n"
-            "    importlib.import_module(m.name)\n"
+            "names = [m.name for m in pkgutil.walk_packages(phiflow_tpu_torch.__path__, 'phiflow_tpu_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            f"missing = [m for m in {OBSTACLE_MODULES!r} if 'phiflow_tpu_torch.' + m not in names]\n"
+            "assert not missing, missing\n"
             "print('imported')\n")
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -28,6 +34,8 @@ def test_no_module_imports_jax():
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith('.py')]
     assert len(files) > 10
+    for module in OBSTACLE_MODULES:
+        assert os.path.join(PKG, *module.split('.')) + '.py' in files, module
     offenders = []
     for path in files:
         with open(path, encoding='utf-8') as f:
