@@ -18,15 +18,18 @@ Phases; any failure exits non-zero and prints no result:
      kernel, of the twin and, where one PyTorch call computes the same
      function, of that call (library_ms — the port never calls it), beside the
      bound: the larger of bytes moved / 3.35 TB/s and float32 operations /
-     67 TFLOP/s (H100 SXM data sheet); for K8 and K1m, whose eager calls at
-     the FLIP sizes are mostly the host's time, also the call's time on the
-     device alone, replayed from a CUDA graph (device_ms);
+     67 TFLOP/s (H100 SXM data sheet); and the kernel's and the library's
+     time on the device alone, replayed from a CUDA graph (device_ms,
+     library_device_ms), without the wrapper's host time. K5 is timed per
+     call and for a step's three calls, K2 per smooth as a V-cycle calls it
+     and for a 256³ level's pair;
   4. six paths on the card, each (but 4g) 2 warm-up steps, then 5 timed steps with
      every launch counter set to 0 just before and read just after. Three of
      SmokePlume(cg_tol=1e-3, max_iterations=100): ms per step, Mcells/s, the
      advection / pressure split, CG iterations, max |div|, the displacement
      bound and finiteness:
-     4a. the fused path, `step` at 256³ (K1–K5);
+     4a. the fused path, `step` at 256³ (K1–K5): K5 exactly 3 launches a
+         step, K2 exactly 5 per smoothed level per V-cycle (4b too);
      4b. the per-phase path at 256³ through `advect_smoke`, `advect_velocity`,
          `project` (K6 and K1–K4);
      4c. the per-phase path in 2D at 4096² (K7; the 2D projection is PyTorch
@@ -56,8 +59,8 @@ Phases; any failure exits non-zero and prints no result:
          velocity on the faces inside it (1e-6);
      4g. obstacle-256-vcycle: the same step, 1 warm-up and 3 timed, with
          `fluid.MASKED_PRECONDITIONER = 'vcycle'` (the projected V-cycle: K1m
-         exactly 1 + 1 per CG iteration, K2–K4 the same whole number of
-         launches in each of the 1 + iterations V-cycles), the same gates with
+         exactly 1 + 1 per CG iteration, K2 exactly 30 and K3, K4 the same
+         whole number of launches in each of the 1 + iterations V-cycles), the same gates with
          the divergence under 8e-4 (ten times its reading of 8.237e-05);
      then the two 2D obstacle models at the JAX benchmark's size,
      MovingObstacles(256) and LidDrivenCavity(256, obstacle=True): ms per
@@ -109,6 +112,9 @@ P2G_LAUNCHES_PER_STEP = 4  # three face grids and the occupancy grid
 OBSTACLE_N = 256
 OBSTACLE_DT = 0.5
 K6_LAUNCHES_PER_OBSTACLE_STEP = 6  # MacCormack: a forward and a backward lookup per velocity component
+FUSED_CALLS_PER_STEP = 3  # K5: the smoke's forward and backward passes, the velocity
+# K2, one launch a sweep: a smoothed level's zero-init pre-smooth (ν = 3) takes 2, its post-smooth 3
+K2_LAUNCHES_PER_LEVEL = 5
 
 
 class Checks:
@@ -163,31 +169,32 @@ class Checks:
             self.failed.append(f'{kernel} {case} dot')
         self.passed[kernel] += ok
 
-    def time(self, kernel, what, fn_kernel, fn_plain, n_bytes, n_ops, fn_library=None, key=None, replay=False):
+    def time(self, kernel, what, fn_kernel, fn_plain, n_bytes, n_ops, fn_library=None, key=None):
         """Times are kept under `key` (default: the kernel's name, whose entry
-        goes into the `kernels` line; any other key is printed only). With
-        `replay`, the wrapper's call (and the library's) is also captured in a
-        CUDA graph and replayed: its time on the device without the host's
-        share, which at the FLIP path's sizes is most of `ms`."""
+        goes into the `kernels` line; any other key is printed only, or
+        attached to its kernel's row by `attach`). Besides the eager `ms`, the
+        wrapper's call (and the library's) is captured in a CUDA graph and
+        replayed: `device_ms`, its time on the device without the host's
+        share (Python, ctypes, allocation), which at small sizes is most of `ms`."""
         ms = median_ms(fn_kernel)
         plain_ms = median_ms(fn_plain)
         library_ms = median_ms(fn_library) if fn_library is not None else None
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / F32_OPS_PER_S * 1e3
         bound_ms, bound_by = (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
-        row = dict(timed=what, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        row = dict(timed=what, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                   device_ms=replay_ms(fn_kernel),
+                   library_device_ms=replay_ms(fn_library) if fn_library is not None else None)
         lib = 'n/a' if library_ms is None else f'{library_ms:.4f}'
-        line = (f'time  {kernel:17s} {what:58s} ms={ms:.4f} plain_ms={plain_ms:.4f} '
-                f'library_ms={lib} bound_ms={bound_ms:.4f} ({bound_by}; {n_bytes / 1e6:.1f} MB, '
-                f'{n_ops / 1e9:.2f} GFLOP)')
-        if replay:
-            row['device_ms'] = replay_ms(fn_kernel)
-            line += f' device_ms={row["device_ms"]:.4f}'
-            if fn_library is not None:
-                row['library_device_ms'] = replay_ms(fn_library)
-                line += f' library_device_ms={row["library_device_ms"]:.4f}'
+        lib_dev = 'n/a' if fn_library is None else f'{row["library_device_ms"]:.4f}'
+        print(f'time  {kernel:17s} {what:58s} ms={ms:.4f} device_ms={row["device_ms"]:.4f} plain_ms={plain_ms:.4f} '
+              f'library_ms={lib} library_device_ms={lib_dev} bound_ms={bound_ms:.4f} ({bound_by}; '
+              f'{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP) device/bound={row["device_ms"] / bound_ms:.2f}')
         self.timing[key or kernel] = row
-        print(line)
+
+    def attach(self, kernel, keys):
+        """Put the rows timed under `keys` into `kernel`'s row as its `parts`."""
+        self.timing[kernel]['parts'] = {k: self.timing.pop(k) for k in keys}
 
 
 def median_ms(fn, reps=7, warmup=2):
@@ -265,15 +272,20 @@ def check_poisson(ch, gen, quick):
             ref, rdot = P._poisson_apply_plain(p, inv, bcs, with_dot=True)
             ch.compare_dot('poisson_stencil', f'matvec with_dot {SMALL} {tag} {str(dt)[6:]}', dot, rdot, 1e-5)
         w = 0.9 / (-2.0 * sum(inv))
-        u, b = rnd(SMALL), rnd(SMALL)
-        for zero_init in (True, False):
-            for sweeps in (2, 3):
+        # K2: 1-3 sweeps (zero-init: u0 = w b rides in the first launch, then 1-3 more), u and b stored in
+        # float32 or bfloat16, either result type, with and without the dot; and the 24-sweep coarse smooth
+        for dt in (f32, bf16):
+            u, b = rnd(SMALL, dt), rnd(SMALL, dt)
+            for zero_init, sweeps in [(True, s) for s in (2, 3, 4, 24)] + [(False, s) for s in (1, 2, 3)]:
                 for out_dtype in (f32, bf16):
                     args = (None if zero_init else u, b, inv, bcs, w, sweeps)
-                    got, dot = P.poisson_smooth(*args, zero_init=zero_init, out_dtype=out_dtype, emit_dot=True)
+                    case = (f'{"zero-init" if zero_init else "warm"} sweeps={sweeps} {SMALL} {tag} '
+                            f'{str(dt)[6:]}->{str(out_dtype)[6:]}')
                     ref, rdot = P._poisson_smooth_plain(*args, zero_init, out_dtype, True)
-                    case = f'{"zero-init" if zero_init else "warm"} sweeps={sweeps} {SMALL} {tag} ->{str(out_dtype)[6:]}'
-                    ch.compare('jacobi_sweeps', case, got, ref, 2e-5)
+                    ch.compare('jacobi_sweeps', case, P.poisson_smooth(*args, zero_init=zero_init, out_dtype=out_dtype),
+                               ref, 2e-5)
+                    got, dot = P.poisson_smooth(*args, zero_init=zero_init, out_dtype=out_dtype, emit_dot=True)
+                    ch.compare('jacobi_sweeps', case + ' +dot', got, ref, 2e-5)
                     ch.compare_dot('jacobi_sweeps', case, dot, rdot, 1e-5)
         for dt in (f32, bf16):
             u, b = rnd(SMALL, dt), rnd(SMALL)
@@ -300,21 +312,11 @@ def check_poisson(ch, gen, quick):
             lambda: P._poisson_apply_plain(p, one, PATH_BC, with_dot=True),
             nbytes(p, p), 22 * p.numel(),
             lambda: F.conv3d(F.pad(p[None, None], (1,) * 6, mode='replicate'), weight))
+    time_smooths(ch, gen)
     b = rnd(N3)
-    got = P.poisson_smooth(None, b, one, PATH_BC, w, 3, zero_init=True, out_dtype=bf16)
-    ref = P._poisson_smooth_plain(None, b, one, PATH_BC, w, 3, True, bf16, False)
-    ch.compare('jacobi_sweeps', f'pre-smooth zero-init x3 {N3} float32 -> bfloat16', got, ref, 2e-5)
-    u = ref
-    got, dot = P.poisson_smooth(u, b, one, PATH_BC, w, 3, out_dtype=f32, emit_dot=True)
-    ref, rdot = P._poisson_smooth_plain(u, b, one, PATH_BC, w, 3, False, f32, True)
-    ch.compare('jacobi_sweeps', f'post-smooth x3 + dot, u bfloat16, b {N3} float32', got, ref, 2e-5)
-    ch.compare_dot('jacobi_sweeps', f'post-smooth x3 + dot {N3}', dot, rdot, 1e-5)
-    uf = ref
-    ch.time('jacobi_sweeps', f'one sweep, u b out {N3} float32',
-            lambda: P.poisson_smooth(uf, b, one, PATH_BC, w, 1),
-            lambda: P._poisson_smooth_plain(uf, b, one, PATH_BC, w, 1, False, f32, False),
-            nbytes(uf, b, uf), 23 * uf.numel())
-    u = uf.to(bf16)
+    # a smoothed level array, as the V-cycle restricts it
+    u = P._poisson_smooth_plain(P._poisson_smooth_plain(None, b, one, PATH_BC, w, 3, True, bf16, False), b, one,
+                                PATH_BC, w, 3, False, bf16, False)
     got = P.residual_restrict(u, b, one, PATH_BC)
     ref = P._residual_restrict_plain(u, b, one, PATH_BC)
     ch.compare('residual_restrict', f'u bfloat16, b float32 {N3} -> bfloat16', got, ref, 1e-5)
@@ -322,6 +324,53 @@ def check_poisson(ch, gen, quick):
             lambda: P.residual_restrict(u, b, one, PATH_BC),
             lambda: P._residual_restrict_plain(u, b, one, PATH_BC),
             nbytes(u, b, got), 23 * u.numel())
+
+
+def time_smooths(ch, gen):
+    """K2 timed per smooth as a V-cycle (ν = 3) calls it at the fused path's
+    two finest levels, each against the bound of the whole smooth (its inputs
+    read once, its result written once); the `jacobi_sweeps` row is the 256³
+    level's pre- and post-smooth together."""
+    import torch
+    from phiflow_tpu_torch.ops import poisson as P
+    f32, bf16 = torch.float32, torch.bfloat16
+    one = (1.0, 1.0, 1.0)
+    smooths = {}
+    for n, b_dt, post_dt, dot in ((PATH_N, f32, f32, True), (PATH_N // 2, bf16, bf16, False)):
+        inv = (1.0 / (PATH_N // n) ** 2,) * 3
+        w = 0.9 / (-2.0 * sum(inv))
+        b = torch.randn((n,) * 3, generator=gen, device='cuda').to(b_dt)
+        u = P._poisson_smooth_plain(None, b, inv, PATH_BC, w, 3, True, bf16, False)
+        ch.compare('jacobi_sweeps', f'pre-smooth zero-init x3 {n}^3 {str(b_dt)[6:]} -> bfloat16',
+                   P.poisson_smooth(None, b, inv, PATH_BC, w, 3, zero_init=True, out_dtype=bf16), u, 2e-5)
+        ref = P._poisson_smooth_plain(u, b, inv, PATH_BC, w, 3, False, post_dt, dot)
+        got = P.poisson_smooth(u, b, inv, PATH_BC, w, 3, out_dtype=post_dt, emit_dot=dot)
+        case = f'post-smooth x3 {n}^3 u bfloat16, b {str(b_dt)[6:]} -> {str(post_dt)[6:]}'
+        if dot:
+            ch.compare_dot('jacobi_sweeps', case, got[1], ref[1], 1e-5)
+            got, ref = got[0], ref[0]
+        ch.compare('jacobi_sweeps', case, got, ref, 2e-5)
+        del got, ref
+        smooths[f'pre-smooth zero-init x3 {n}^3, b {str(b_dt)[6:]} -> bfloat16'] = (
+            lambda b=b, inv=inv, w=w: P.poisson_smooth(None, b, inv, PATH_BC, w, 3, zero_init=True, out_dtype=bf16),
+            lambda b=b, inv=inv, w=w: P._poisson_smooth_plain(None, b, inv, PATH_BC, w, 3, True, bf16, False),
+            nbytes(b, u), 2 * 23 * b.numel())
+        post_out = torch.empty(b.shape, dtype=post_dt, device='cuda')
+        smooths[f'post-smooth x3{" + dot" if dot else ""} {n}^3, u bfloat16, b {str(b_dt)[6:]} -> '
+                f'{str(post_dt)[6:]}'] = (
+            lambda u=u, b=b, inv=inv, w=w, dt=post_dt, dot=dot: P.poisson_smooth(u, b, inv, PATH_BC, w, 3, out_dtype=dt,
+                                                                                 emit_dot=dot),
+            lambda u=u, b=b, inv=inv, w=w, dt=post_dt, dot=dot: P._poisson_smooth_plain(u, b, inv, PATH_BC, w, 3, False,
+                                                                                        dt, dot),
+            nbytes(u, b, post_out), 3 * 23 * b.numel())
+    keys = []
+    for what, (fn, plain, n_bytes, n_ops) in smooths.items():
+        keys.append(f'jacobi_sweeps {what}')
+        ch.time('jacobi_sweeps', what, fn, plain, n_bytes, n_ops, key=keys[-1])
+    (pre, pre_plain, pre_b, pre_o), (post, post_plain, post_b, post_o) = list(smooths.values())[:2]
+    ch.time('jacobi_sweeps', f'a {PATH_N}^3 level: pre- + post-smooth', lambda: (pre(), post()),
+            lambda: (pre_plain(), post_plain()), pre_b + post_b, pre_o + post_o)
+    ch.attach('jacobi_sweeps', keys)
 
 
 def _random_face_masks(shape, bcs, gen, dev):
@@ -395,7 +444,7 @@ def check_poisson_masked(ch, gen, quick):
         ch.time(name, f'{form}: matvec + dot, {N3} float32',
                 lambda kw=kw: P.poisson_apply(p, one, PATH_BC, with_dot=True, **kw),
                 lambda kw=kw: P._poisson_apply_plain(p, one, PATH_BC, with_dot=True, **kw),
-                nbytes(*arrays), 22 * p.numel(), key=name if form == 'active' else f'{name} {form}', replay=True)
+                nbytes(*arrays), 22 * p.numel(), key=name if form == 'active' else f'{name} {form}')
     del p, b, all_forms
     # --- the obstacle path's shape and its own masks: 256³, the three obstacles' open faces and accessible cells ---
     from phiflow_tpu_torch.field import cell_grid, geometry_mask, stagger
@@ -417,7 +466,7 @@ def check_poisson_masked(ch, gen, quick):
     ch.time(name, f'mA+c0+active: matvec + dot, obstacle masks, {N3} float32',
             lambda: P.poisson_apply(p, one, PATH_BC, with_dot=True, **kw),
             lambda: P._poisson_apply_plain(p, one, PATH_BC, with_dot=True, **kw),
-            nbytes(p, got, *mA, c0, accessible), 22 * p.numel(), replay=True)
+            nbytes(p, got, *mA, c0, accessible), 22 * p.numel())
     del p, got, mA, c0, accessible, kw
     torch.cuda.empty_cache()
 
@@ -497,12 +546,12 @@ def check_p2g(ch, gen, quick):
     ch.time('p2g', f'sums + counts of {pos.shape[0]} particles -> x faces {res}, clamp',
             lambda: G.p2g_sums_counts(pos, vals, res, lo, one, True),
             lambda: G._p2g_plain(pos, vals, res, lo, one, True),
-            16 * pos.shape[0] + 8 * n_cells, 8 * pos.shape[0], library, replay=True)
+            16 * pos.shape[0] + 8 * n_cells, 8 * pos.shape[0], library)
     # the whole mean as the path calls it: sums and counts are also read back and the mean written (20 B a cell)
     ch.time('p2g', f'mean of {pos.shape[0]} particles -> x faces {res}, clamp, base NaN',
             lambda: G.p2g_mean_3d(pos, vals, res, lo, one, True, float('nan')),
             lambda: G._mean_or_base(*G._p2g_plain(pos, vals, res, lo, one, True), float('nan')),
-            16 * pos.shape[0] + 20 * n_cells, 8 * pos.shape[0] + 2 * n_cells, key='p2g mean', replay=True)
+            16 * pos.shape[0] + 20 * n_cells, 8 * pos.shape[0] + 2 * n_cells, key='p2g mean')
 
 
 def check_transfer(ch, gen, quick):
@@ -530,45 +579,56 @@ def check_transfer(ch, gen, quick):
             lambda: torch.nn.functional.interpolate(c[None, None], scale_factor=2, mode='nearest'))
 
 
-def _advect_inputs(N, gen, dev):
-    """Random velocity (|v|·dt/dx up to 1.25 cells: the ±1 clip is reached)
-    and smoke for the three fused calls of a step."""
+def _advect_inputs(N, gen, dev, K=1, periodic=False):
+    """Random velocity (|v|·dt/dx up to 1.25·K cells: the ±K clip is reached)
+    in the closed or the periodic layout, and smoke, for the fused calls."""
     import torch
-    shapes = [list(N) for _ in range(3)]
-    for d in range(3):
-        shapes[d][d] -= 1
-    vel = [(torch.rand(s, generator=gen, device=dev) * 5.0 - 2.5).contiguous() for s in shapes]
+    shapes = [[n - (0 if periodic else a == d) for a, n in enumerate(N)] for d in range(3)]
+    vel = [((torch.rand(s, generator=gen, device=dev) * 5.0 - 2.5) * K).contiguous() for s in shapes]
     smoke = torch.rand(N, generator=gen, device=dev)
     return vel, smoke
 
 
-def check_advect(ch, gen, quick):
+def _advect_calls(N, K, vel_t, smoke, periodic):
+    """The three fused calls of a step on these inputs (their extras from the
+    twin), and a call of several outputs in every form at once."""
     import torch
-    from phiflow_tpu_torch.ops.advect3d import OutSpec, Source, fused_advect_3d, _fused_advect_plain
-    dev = 'cuda'
+    from phiflow_tpu_torch.ops.advect3d import OutSpec, Source, _fused_advect_plain
     scales = (-0.5,) * 3
-    K = 1
-    for N in ([SMALL] if quick else [SMALL, (PATH_N,) * 3]):
-        vel_t, smoke = _advect_inputs(N, gen, dev)
-        vel = [Source(vel_t[d], own_axis=d) for d in range(3)]
-        ball = (N[0] / 2, N[1] / 2, N[2] / 8, N[0] / 10, 0.2)
-        s1 = vel + [Source(smoke, mode='edge')]
-        o1 = [OutSpec(slab=3, extrema=True)]
-        [(fwd, lo, up)] = _fused_advect_plain(s1, N, K, o1, scales, [])
-        s2 = vel + [Source(fwd, mode='edge')]
-        o2 = [OutSpec(slab=3, negate=True, combine=(0, 1, 2, 1.0), add_ball=ball, emit_lift=(2, 0.05))]
-        [(_, lift)] = _fused_advect_plain(s2, N, K, o2, scales, [smoke, lo, up])
-        o3 = [OutSpec(slab=d, d_own=d) for d in range(3)]
-        o3[2] = o3[2]._replace(add_blocked=(0, 1.0))
-        calls = [('call 1: smoke forward + extrema', s1, o1, []),
-                 ('call 2: backward + combine + ball + lift', s2, o2, [smoke, lo, up]),
-                 ('call 3: velocity + buoyancy', vel, o3, [lift])]
-        if N == SMALL:
-            # the periodic layout: wrapped sources, faces 0..N−1 on the own axis
-            wrap = [Source(torch.rand(N, generator=gen, device=dev) * 5.0 - 2.5, own_axis=d, mode='wrap')
-                    for d in range(3)]
-            calls += [('periodic forward + extrema', wrap + [Source(smoke, mode='wrap')], o1, []),
-                      ('periodic velocity', wrap, [OutSpec(slab=d, d_own=d) for d in range(3)], [])]
+    v_mode, s_mode = ('wrap', 'wrap') if periodic else ('const', 'edge')
+    vel = [Source(vel_t[d], own_axis=d, mode=v_mode) for d in range(3)]
+    ball = (N[0] / 2, N[1] / 2, N[2] / 8, N[0] / 10, 0.2)
+    s1 = vel + [Source(smoke, mode=s_mode)]
+    o1 = [OutSpec(slab=3, extrema=True)]
+    [(fwd, lo, up)] = _fused_advect_plain(s1, N, K, o1, scales, [])
+    s2 = vel + [Source(fwd, mode=s_mode)]
+    o2 = [OutSpec(slab=3, negate=True, combine=(0, 1, 2, 1.0), add_ball=ball, emit_lift=(2, 0.05))]
+    [(_, lift)] = _fused_advect_plain(s2, N, K, o2, scales, [smoke, lo, up])
+    o3 = [OutSpec(slab=d, d_own=d) for d in range(3)]
+    o3[2] = o3[2]._replace(add_blocked=(0, 1.0))
+    # five sources, four outputs: a staggered output of an advected scalar, a centred one of a velocity component
+    mixed = ([Source(smoke, mode=s_mode), Source(fwd, mode='const', const=0.25)],
+             [OutSpec(slab=4, d_own=1, negate=True, extrema=True), OutSpec(slab=0, extrema=True, add_ball=ball),
+              OutSpec(slab=2, d_own=2, emit_lift=(0, 0.5)), OutSpec(slab=3, d_own=0, add_blocked=(0, -2.0))])
+    return scales, [('call 1: smoke forward + extrema', s1, o1, []),
+                    ('call 2: backward + combine + ball + lift', s2, o2, [smoke, lo, up]),
+                    ('call 3: velocity + buoyancy', vel, o3, [lift]),
+                    ('five sources, four outputs', vel + mixed[0], mixed[1], [smoke])]
+
+
+def check_advect(ch, gen, quick):
+    """K5 against its twin: the three calls of a step and a call of four
+    outputs, closed and periodic, K = 1, 2, 3; values within 2e-5, lo / up
+    exactly. The step's three calls timed at 256³, K = 1."""
+    import torch
+    from phiflow_tpu_torch.ops.advect3d import fused_advect_3d, _fused_advect_plain
+    dev = 'cuda'
+    cases = [(SMALL, K, periodic) for K in (1, 2, 3) for periodic in (False, True)]
+    if not quick:
+        cases += [((PATH_N,) * 3, K, False) for K in (1, 2, 3)] + [((PATH_N,) * 3, 1, True)]
+    for N, K, periodic in cases:
+        vel_t, smoke = _advect_inputs(N, gen, dev, K, periodic)
+        scales, calls = _advect_calls(N, K, vel_t, smoke, periodic)
         for what, srcs, outs, extras in calls:
             got = fused_advect_3d(srcs, N, K, outs, scales, extras)
             ref = _fused_advect_plain(srcs, N, K, outs, scales, extras)
@@ -576,12 +636,30 @@ def check_advect(ch, gen, quick):
                 g = g if isinstance(g, tuple) else (g,)
                 r = r if isinstance(r, tuple) else (r,)
                 for j, (gg, rr) in enumerate(zip(g, r)):
-                    ch.compare('fused_advect', f'{what} out{i}.{j} {N}', gg, rr, 2e-5)
-        if N != SMALL:
-            ch.time('fused_advect', f'call 1 (forward + extrema) {N} float32',
-                    lambda: fused_advect_3d(s1, N, K, o1, scales),
-                    lambda: _fused_advect_plain(s1, N, K, o1, scales, []),
-                    nbytes(*vel_t, smoke) + 3 * nbytes(smoke), 60 * smoke.numel())
+                    exact = outs[i].extrema and j in (1, 2)
+                    ch.compare('fused_advect', f'{what} out{i}.{j}{" (exact)" if exact else ""} {N} K={K}'
+                               f'{" periodic" if periodic else ""}', gg, rr, 0.0 if exact else 2e-5)
+            del got, ref
+        if N != SMALL and K == 1 and not periodic:
+            # each input read once, each output written once: call 2's lift plane included
+            (_, s1, o1, _), (_, s2, o2, x2), (_, s3, o3, x3) = calls[:3]
+            fwd, lo, up = s2[3].values, x2[1], x2[2]
+            moved = [nbytes(*vel_t, smoke) + 3 * nbytes(smoke),
+                     nbytes(*vel_t, fwd, smoke, lo, up) + 2 * nbytes(smoke),
+                     nbytes(*vel_t, x3[0]) + nbytes(*vel_t)]
+            runs = [(lambda srcs=srcs, outs=outs, extras=extras: fused_advect_3d(srcs, N, K, outs, scales, extras),
+                     lambda srcs=srcs, outs=outs, extras=extras: _fused_advect_plain(srcs, N, K, outs, scales, extras))
+                    for _, srcs, outs, extras in calls[:3]]
+            keys = []
+            for i, ((what, _, outs, _), (fn, plain), n_bytes) in enumerate(zip(calls, runs, moved)):
+                keys.append(f'fused_advect call {i + 1}')
+                ch.time('fused_advect', f'{what} {N} K={K}', fn, plain, n_bytes, 60 * len(outs) * smoke.numel(),
+                        key=keys[-1])
+            ch.time('fused_advect', f'a step: calls 1-3 {N} K={K}', lambda: [fn() for fn, _ in runs],
+                    lambda: [plain() for _, plain in runs], sum(moved), 60 * 5 * smoke.numel())
+            ch.attach('fused_advect', keys)
+        del vel_t, smoke, calls
+        torch.cuda.empty_cache()
 
 
 def _grid_sample_lookup(grid, disps, K, scale, padding_mode):
@@ -626,8 +704,9 @@ def check_interp(ch, gen, quick):
         for what, g, r in zip(('lo', 'up'), got[1:], ref[1:]):
             ch.compare(name, f'{case} {what} (exact)', g, r, 0.0)
 
-    # --- small shapes: every halo, K, option; integer displacements ---
-    for d, shape in ((3, SMALL), (2, SMALL[1:])):
+    # --- small shapes: every halo, K, option; integer displacements. K7 also at rows of 45, which take its
+    #     scalar loads and stores instead of float4 ---
+    for d, shape in ((3, SMALL), (2, SMALL[1:]), (2, (37, 45))):
         scale = (0.8, -1.1, 0.6)[:d]
         for K in (1, 2):
             for mode in (None, 'const', 'edge', 'wrap'):
@@ -737,6 +816,15 @@ def run_slice(tag, dims, N, per_phase, required, warmup=2, steps=5):
     missing = [k for k in required if launches.get(k, 0) == 0]
     if missing:
         raise RuntimeError(f'{tag}: kernels not launched on the path: {missing}')
+    if dims == 3:
+        # K2 on each smoothed level of each V-cycle (one a solve and one a CG iteration); K5: one launch a fused
+        # call, three a step
+        expected = {'jacobi_sweeps': K2_LAUNCHES_PER_LEVEL * smoothed_levels(N) * sum(1 + it for it in iters)}
+        if not per_phase:
+            expected['fused_advect'] = FUSED_CALLS_PER_STEP * steps
+        wrong = {k: (launches.get(k, 0), e) for k, e in expected.items() if launches.get(k, 0) != e}
+        if wrong:
+            raise RuntimeError(f'{tag}: launches on the path (counted, expected): {wrong}')
     # the advection / pressure split, from 3 more steps timed phase by phase
     adv, prs = [], []
     for _ in range(3):
@@ -835,7 +923,8 @@ def run_flip(tag, N, warmup=2, steps=5):
 
 
 PORT_KERNELS = ('poisson_stencil_kernel', 'jacobi_sweep_kernel', 'residual_restrict_kernel', 'prolong_add_kernel',
-                'fused_advect_kernel', 'advect_lift_kernel', 'window_interp_kernel', 'p2g_kernel')
+                'fused_advect_kernel', 'advect_lift_kernel', 'window_interp_kernel', 'window_interp_2d_kernel',
+                'p2g_kernel')
 
 
 def profile_path(tag, size, advance, state, warmup=2, steps=3, rows_shown=12):
@@ -1015,6 +1104,17 @@ def obstacle_state(N, dev):
 
 
 V_CYCLE_KERNELS = ('jacobi_sweeps', 'residual_restrict', 'prolong_add')
+
+
+def smoothed_levels(N):
+    """The V-cycle's levels with smoothing at N³ under math/_multigrid.py's
+    defaults (halving down to 4 cells, a direct solve up to 512 unknowns):
+    every level but a coarsest one solved directly."""
+    levels, n = 1, N
+    while n % 2 == 0 and n > 4:
+        n //= 2
+        levels += 1
+    return levels - 1 if n ** 3 <= 512 else levels
 # max |div·active − its mean| after an obstacle projection at 256³, cg_tol 1e-4, by preconditioner: about ten times
 # what each read on an H100 (1.277e-05 in three runs under 'chebyshev', 8.237e-05 under 'vcycle')
 OBSTACLE_DIV_BOUND = {'chebyshev': 2e-4, 'vcycle': 8e-4}
@@ -1060,9 +1160,13 @@ def run_obstacles(tag, N, warmup=2, steps=5, preconditioner='chebyshev'):
         k1m = v_cycles = sum(1 + it for it in iters)
     expected = {'poisson_stencil_coeffs': k1m, 'poisson_stencil_masked': k1m, 'poisson_stencil': k1m,
                 'window_interp_3d': K6_LAUNCHES_PER_OBSTACLE_STEP * steps}
+    if v_cycles:
+        expected['jacobi_sweeps'] = K2_LAUNCHES_PER_LEVEL * smoothed_levels(N) * v_cycles
     wrong = {k: (launches.get(k, 0), e) for k, e in expected.items() if launches.get(k, 0) != e or e == 0}
-    # K2–K4: the same whole number of launches in every V-cycle, none without one
+    # K3, K4 (K2 under Chebyshev): the same whole number of launches in every V-cycle, none without one
     for k in V_CYCLE_KERNELS:
+        if k in expected:
+            continue
         count = launches.get(k, 0)
         if (count == 0 or count % v_cycles) if v_cycles else count:
             wrong[k] = (count, f'a positive multiple of {v_cycles} V-cycles' if v_cycles else 0)

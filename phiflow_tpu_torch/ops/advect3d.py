@@ -18,10 +18,11 @@ a wrap (periodic). The closed box's component d holds the interior faces
 0..N−1 (logical = raw). This replaces the TPU slab staging (`stage_slab*`):
 the CUDA kernel resolves boundaries by index and reads the raw arrays.
 
-`fused_advect_3d` runs one output per `OutSpec`: K5 (`csrc/advect3d.cu`), one
-launch per output, on CUDA; `_fused_advect_plain` on the CPU — the TPU
-kernel's window sum (tent weights over the (2K+1)³ window, extrema over the
-taps with |δ−s| < 1) written with tensor slices.
+`fused_advect_3d` computes every `OutSpec` of a call: on CUDA in one launch
+of K5 (`csrc/advect3d.cu`, tiled by `advect_plan`; a lift plane is one more
+small pass), on the CPU by `_fused_advect_plain` — the TPU kernel's window
+sum (tent weights over the (2K+1)³ window, extrema over the taps with
+|δ−s| < 1) written with tensor slices.
 
 Outputs have their exact shapes: N³ for a centred output; a staggered output
 d has its source's extent on axis d, and its row a is face a+1 (the closed
@@ -243,6 +244,51 @@ def _fused_advect_plain(sources, N, K, outs, scales, blocked_extras):
 # K5 on CUDA
 # ---------------------------------------------------------------------------
 
+ADV_TZ = 32               # K5's tile extent along z (csrc/advect3d.cu)
+MAX_SOURCES, MAX_OUTS = 5, 4
+SMEM_LIMIT = 232448      # dynamic shared memory a block may take on Hopper
+# (x, y) tile extents in order of preference: the largest whose staged arrays
+# leave room for two blocks a SM, else the largest that fits one
+_TILES = ((8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
+
+
+def advect_plan(out_shapes: Sequence[Sequence[int]], K: int, n_sources: int, slabs: Sequence[int]):
+    """Tiles of one K5 launch. A block owns t0 × t1 × 32 output points of the
+    union of the outputs' shapes and stages in shared memory each source it
+    reads: an advected source (a slab) over [o − K, o + t + K + 1] per axis,
+    a velocity source read only for displacements over [o, o + t], the z
+    range widened to whole groups of 4 (16-byte copies), each with three
+    tables of resolved indices. Returns dict(tile, staged, smem, grid):
+    `staged` maps a source to (offset, table offset, lower halos, extents);
+    the kernel checks `smem` against the extents it is given."""
+    if n_sources > MAX_SOURCES or not 1 <= len(out_shapes) <= MAX_OUTS:
+        raise ValueError(f"K5 takes at most {MAX_SOURCES} sources and 1..{MAX_OUTS} outputs a call, got "
+                         f"{n_sources} and {len(out_shapes)}")
+    union = tuple(max(int(s[a]) for s in out_shapes) for a in range(3))
+    slabs = set(slabs)
+    read = [i for i in range(n_sources) if i < 3 or i in slabs]
+
+    def layout(T, group):
+        staged, off, tab = {}, 0, 0
+        for i in read:
+            lo, hi = (K, K + 2) if i in slabs else (0, 1)
+            lo_z, hi_z = -(-lo // group) * group, -(-hi // group) * group
+            e = (T[0] + lo + hi, T[1] + lo + hi, T[2] + lo_z + hi_z)
+            staged[i] = (off, tab, (lo, lo, lo_z), e)
+            off += e[0] * e[1] * e[2]
+            tab += sum(e)
+        return staged, 4 * (off + tab)
+
+    # z widened to whole groups of 4 where a tile fits that way; a wide window with many slabs goes without
+    fits = [(T, *layout(T, group)) for group in (4, 1) for T in ((t0, t1, ADV_TZ) for t0, t1 in _TILES)]
+    fits = [f for f in fits if f[2] <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"K5: no tile fits {SMEM_LIMIT} bytes of shared memory at K={K}")
+    T, staged, smem = next((f for f in fits if f[2] <= SMEM_LIMIT // 2), fits[0])
+    grid = (-(-union[2] // T[2]), -(-union[1] // T[1]), -(-union[0] // T[0]))
+    return dict(tile=T, staged=staged, smem=smem, grid=grid, union=union)
+
+
 @functools.lru_cache(maxsize=1)
 def _ctypes_args():
     import ctypes
@@ -252,22 +298,27 @@ def _ctypes_args():
     class Blk(ctypes.Structure):
         _fields_ = [('p', P), ('n1', I), ('n2', I)]
 
-    class AdvectArgs(ctypes.Structure):
-        _fields_ = [('vel', Src * 3), ('fld', Src),
-                    ('out', P), ('out_lo', P), ('out_up', P),
-                    ('o', I * 3), ('ds', I * 3), ('d_own', I), ('K', I), ('scale', F * 3),
-                    ('extrema', I),
+    class Staged(ctypes.Structure):
+        _fields_ = [('off', I), ('tab', I), ('lo', I * 3), ('e', I * 3)]
+
+    class OutArgs(ctypes.Structure):
+        _fields_ = [('slab', I), ('d_own', I), ('scale', F * 3), ('extrema', I),
+                    ('out', P), ('out_lo', P), ('out_up', P), ('o', I * 3),
                     ('combine', I), ('c_field', Blk), ('c_lo', Blk), ('c_up', Blk), ('c_half_strength', F),
                     ('add_blocked', I), ('add', Blk), ('add_scale', F),
                     ('add_ball', I), ('ball', F * 5)]
-    return Src, Blk, AdvectArgs
+
+    class AdvectArgs(ctypes.Structure):
+        _fields_ = [('src', Src * MAX_SOURCES), ('st', Staged * MAX_SOURCES), ('out', OutArgs * MAX_OUTS),
+                    ('n_src', I), ('n_out', I), ('K', I), ('t', I * 2), ('log2_t1', I)]
+    return Src, Blk, Staged, AdvectArgs
 
 
 def _lib():
     import ctypes
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.library('advect3d', {
-        'fused_advect': [P, I, P],
+        'fused_advect': [P, I, I, I, I, P],
         'advect_lift': [P, P, I, I, I, I, F, I, P],
     })
 
@@ -280,7 +331,7 @@ def _check_f32(name, t):
 
 def _advect_cuda(sources, N, K, outs, scales, blocked_extras):
     import ctypes
-    Src, Blk, AdvectArgs = _ctypes_args()
+    Src, Blk, Staged, AdvectArgs = _ctypes_args()
     for i, s in enumerate(sources):
         _check_f32(f'sources[{i}]', s.values)
     for i, e in enumerate(blocked_extras):
@@ -288,11 +339,8 @@ def _advect_cuda(sources, N, K, outs, scales, blocked_extras):
     lib = _lib()
     device = sources[0].values.device
     stream = _build.stream_of(sources[0].values)
-
-    def src(s: Source):
-        return Src(s.values.data_ptr(), (ctypes.c_int * 3)(*s.values.shape),
-                   (ctypes.c_int * 3)(*(_shift(s, N, ax) for ax in range(3))),
-                   _build.SRC_MODE[s.mode], _f32(s.const))
+    shapes = [_out_shape(spec, sources, N) for spec in outs]
+    plan = advect_plan(shapes, K, len(sources), [spec.slab for spec in outs])
 
     def blk(i, O):
         e = blocked_extras[i]
@@ -300,50 +348,56 @@ def _advect_cuda(sources, N, K, outs, scales, blocked_extras):
             raise ValueError(f"blocked_extras[{i}] of shape {tuple(e.shape)} is smaller than the output {O}")
         return Blk(e.data_ptr(), e.shape[1], e.shape[2])
 
+    a = AdvectArgs()
+    a.n_src, a.n_out, a.K = len(sources), len(outs), K
+    a.t[0], a.t[1] = plan['tile'][:2]
+    a.log2_t1 = plan['tile'][1].bit_length() - 1
+    for i, s in enumerate(sources):
+        a.src[i] = Src(s.values.data_ptr(), (ctypes.c_int * 3)(*s.values.shape),
+                       (ctypes.c_int * 3)(*(_shift(s, N, ax) for ax in range(3))),
+                       _build.SRC_MODE[s.mode], _f32(s.const))
+        off, tab, lo, e = plan['staged'].get(i, (-1, 0, (0, 0, 0), (0, 0, 0)))
+        a.st[i] = Staged(off, tab, (ctypes.c_int * 3)(*lo), (ctypes.c_int * 3)(*e))
     results = []
-    for spec in outs:
-        O = _out_shape(spec, sources, N)
+    for j, (spec, O) in enumerate(zip(outs, shapes)):
         sgn = -1.0 if spec.negate else 1.0
         val = torch.empty(O, dtype=torch.float32, device=device)
         planes = [val]
-        a = AdvectArgs()
-        for e in range(3):
-            a.vel[e] = src(sources[e])
-        a.fld = src(sources[spec.slab])
-        a.out = val.data_ptr()
+        o = a.out[j]
+        o.slab = spec.slab
+        o.d_own = -1 if spec.d_own is None else spec.d_own
+        o.out = val.data_ptr()
         if spec.extrema:
             planes += [torch.empty_like(val), torch.empty_like(val)]
-            a.out_lo, a.out_up = planes[1].data_ptr(), planes[2].data_ptr()
-            a.extrema = 1
+            o.out_lo, o.out_up = planes[1].data_ptr(), planes[2].data_ptr()
+            o.extrema = 1
         for ax in range(3):
-            a.o[ax] = O[ax]
-            a.ds[ax] = _ds(spec)[ax]
-            a.scale[ax] = _f32(sgn * scales[ax])
-        a.d_own = -1 if spec.d_own is None else spec.d_own
-        a.K = K
+            o.o[ax] = O[ax]
+            o.scale[ax] = _f32(sgn * scales[ax])
         if spec.combine is not None:
             f_idx, lo_idx, up_idx, strength = spec.combine
-            a.combine = 1
-            a.c_field, a.c_lo, a.c_up = blk(f_idx, O), blk(lo_idx, O), blk(up_idx, O)
-            a.c_half_strength = _f32(0.5 * strength)
+            o.combine = 1
+            o.c_field, o.c_lo, o.c_up = blk(f_idx, O), blk(lo_idx, O), blk(up_idx, O)
+            o.c_half_strength = _f32(0.5 * strength)
         if spec.add_blocked is not None:
             extra_idx, scale = spec.add_blocked
-            a.add_blocked = 1
-            a.add = blk(extra_idx, O)
-            a.add_scale = _f32(scale)
+            o.add_blocked = 1
+            o.add = blk(extra_idx, O)
+            o.add_scale = _f32(scale)
         if spec.add_ball is not None:
-            a.add_ball = 1
+            o.add_ball = 1
             for i, x in enumerate(spec.add_ball):
-                a.ball[i] = _f32(x)
-        err = lib.fused_advect(ctypes.byref(a), _build.block_x(O[2]), stream)
-        _build.check(lib, err, 'fused_advect')
-        _build.LAUNCHES['fused_advect'] += 1
+                o.ball[i] = _f32(x)
+        results.append(planes)
+    err = lib.fused_advect(ctypes.byref(a), *plan['union'], plan['smem'], stream)
+    _build.check(lib, err, 'fused_advect')
+    _build.LAUNCHES['fused_advect'] += 1
+    for spec, O, planes in zip(outs, shapes, results):
         if spec.emit_lift is not None:
             axis, scale = spec.emit_lift
-            lift = torch.empty_like(val)
-            err = lib.advect_lift(val.data_ptr(), lift.data_ptr(), *O, int(axis), _f32(0.5 * scale),
+            lift = torch.empty_like(planes[0])
+            err = lib.advect_lift(planes[0].data_ptr(), lift.data_ptr(), *O, int(axis), _f32(0.5 * scale),
                                   _build.block_x(O[2]), stream)
             _build.check(lib, err, 'advect_lift')
             planes.append(lift)
-        results.append(_group(spec, planes))
-    return results
+    return [_group(spec, planes) for spec, planes in zip(outs, results)]

@@ -100,6 +100,29 @@ def test_poisson_smooth_sweeps_match_pallas(bcs, sweeps):
     assert _max_err(got, ref) < 2e-5
 
 
+@pytest.mark.parametrize('sweeps', [1, 2, 3, 4])
+@pytest.mark.parametrize('bcs', BCS, ids=BC_IDS)
+def test_poisson_smooth_zero_init_sweep_counts_match_jax(bcs, sweeps):
+    """Zero-init smooths of 1-4 sweeps (u0 = w·b, then 0-3 more) against JAX's
+    `poisson_smooth` in interpret mode: u0 alone, u0 and one Pallas Jacobi
+    sweep, the fused triple (`_jacobi2_pallas_3d`), the triple and one more."""
+    (b,) = _fields(7, n=1)
+    ref = JP.poisson_smooth(None, jnp.asarray(b), INV, bcs, W, sweeps, zero_init=True, use_pallas=True,
+                            interpret=True)
+    got = TP.poisson_smooth(None, torch.from_numpy(b), INV, bcs, W, sweeps, zero_init=True)
+    assert _max_err(got, ref) < 2e-5
+
+
+@pytest.mark.parametrize('bcs', BCS, ids=BC_IDS)
+def test_poisson_smooth_one_sweep_matches_pallas(bcs):
+    """One warm sweep against the Pallas stencil's Jacobi epilogue, which is
+    what JAX's `poisson_smooth` runs for a sweep it does not fuse."""
+    u, b = _fields(8)
+    ref = JP.poisson_smooth(jnp.asarray(u), jnp.asarray(b), INV, bcs, W, 1, use_pallas=True, interpret=True)
+    got = TP.poisson_smooth(torch.from_numpy(u), torch.from_numpy(b), INV, bcs, W, 1)
+    assert _max_err(got, ref) < 2e-5
+
+
 def test_poisson_smooth_emit_dot_matches_pallas():
     u, b = _fields(5)
     bcs = BCS[0]

@@ -4,6 +4,7 @@ package, whose Pallas kernels run in interpret mode. The port runs on the
 CPU, where its wrappers take the plain PyTorch twins."""
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from phiflow_tpu.ops import transfer as JT
@@ -62,16 +63,84 @@ def test_fused_advect_matches_pallas_model():
     vel = [rng.uniform(-1.9, 1.9, s).astype(np.float32)
            for s in ((N - 1, N, N), (N, N - 1, N), (N, N, N - 1))]
     smoke = rng.uniform(0., 1., (N, N, N)).astype(np.float32)
+    # the port first: in a fresh process, its first call after JAX's interpret mode has been seen to land
+    # 3e-4 off at a few hundred points (ROADMAP §3)
+    model = SmokePlume(resolution=N, dims=3, device='cpu')
+    tv, ts = model._fused_advect(tuple(torch.from_numpy(a) for a in vel), torch.from_numpy(smoke))
     jax_model = JaxSmoke(resolution=N, dims=3)
     v, s = _jax_state(jax_model, *vel, smoke)
     jv, js = jax_model._fused_advect(v, s, interpret=True)
-    model = SmokePlume(resolution=N, dims=3, device='cpu')
-    tv, ts = model._fused_advect(tuple(torch.from_numpy(a) for a in vel), torch.from_numpy(smoke))
     assert float(np.abs(ts.numpy() - np.asarray(js.values.native(ORDER))).max()) < 2e-5
     for d, dim in enumerate(ORDER):
         ref = np.asarray(jv.vector[dim].values.native(ORDER))
         assert tv[d].shape == ref.shape
         assert float(np.abs(tv[d].numpy() - ref).max()) < 2e-5, dim
+
+
+@pytest.mark.parametrize('periodic', [False, True], ids=['closed', 'periodic'])
+@pytest.mark.parametrize('K', [2, 3])
+def test_fused_advect_wide_window_matches_pallas_model(K, periodic):
+    """The three fused calls at max_cells K = 2, 3, in the closed and the
+    periodic box: call 2's combine + inflow ball + lift plane and call 3's
+    three staggered outputs from one call, displacements up to 0.95·K cells,
+    against JAX's `SmokePlume._fused_advect` in interpret mode."""
+    from phiflow_tpu.models import SmokePlume as JaxSmoke
+    from phiflow_tpu_torch.models import SmokePlume
+    N = 64
+    rng = np.random.default_rng(13)
+    shapes = [tuple(N - (0 if periodic else a == d) for a in range(3)) for d in range(3)]
+    vel = [rng.uniform(-1.9 * K, 1.9 * K, s).astype(np.float32) for s in shapes]
+    smoke = rng.uniform(0., 1., (N, N, N)).astype(np.float32)
+    model = SmokePlume(resolution=N, dims=3, max_cells=K, periodic=periodic, device='cpu')
+    tv, ts = model._fused_advect(tuple(torch.from_numpy(a) for a in vel), torch.from_numpy(smoke))
+    jax_model = JaxSmoke(resolution=N, dims=3, max_cells=K, periodic=periodic)
+    v, s = _jax_state(jax_model, *vel, smoke)
+    jv, js = jax_model._fused_advect(v, s, interpret=True)
+    assert float(np.abs(ts.numpy() - np.asarray(js.values.native(ORDER))).max()) < 2e-5
+    for d, dim in enumerate(ORDER):
+        ref = np.asarray(jv.vector[dim].values.native(ORDER))
+        assert tv[d].shape == ref.shape
+        assert float(np.abs(tv[d].numpy() - ref).max()) < 2e-5, dim
+
+
+PATH_CALLS = {  # (output shapes, number of sources, the slabs) of a 256³ closed-box step's three fused calls
+    'call 1': ([(256,) * 3], 4, [3]),
+    'call 2': ([(256,) * 3], 4, [3]),
+    'call 3': ([(255, 256, 256), (256, 255, 256), (256, 256, 255)], 3, [0, 1, 2]),
+    'small, four outputs': ([(24, 40, 72), (24, 39, 72), (23, 40, 72), (24, 40, 71)], 5, [4, 0, 2, 3]),
+}
+
+
+@pytest.mark.parametrize('K', range(1, 8))
+@pytest.mark.parametrize('call', PATH_CALLS)
+def test_advect_plan(call, K):
+    """K5's launch plan: the staged arrays and their index tables fit a
+    block's shared memory (two blocks a SM at K ≤ 2 on the path), each slab
+    is staged over the corner window of a displacement clipped to ±K, each
+    velocity array over the tile and one more, and the grid covers every
+    output."""
+    from phiflow_tpu_torch.ops.advect3d import SMEM_LIMIT, advect_plan
+    shapes, n_sources, slabs = PATH_CALLS[call]
+    plan = advect_plan(shapes, K, n_sources, slabs)
+    T = plan['tile']
+    assert plan['smem'] <= SMEM_LIMIT
+    if K <= 2:
+        assert plan['smem'] <= SMEM_LIMIT // 2
+    assert set(plan['staged']) == set(range(3)) | set(slabs)
+    floats = ints = 0
+    for i, (off, tab, lo, e) in plan['staged'].items():
+        assert off == floats and tab == ints  # packed in order
+        below, above = (K, K + 2) if i in slabs else (0, 1)
+        assert lo[:2] == (below, below) and e[:2] == (T[0] + below + above, T[1] + below + above)
+        # z: whole groups of 4 floats (16-byte copies) on the path, covering the same range
+        group = 4 if (lo[2] % 4, e[2] % 4, off % 4) == (0, 0, 0) else 1
+        assert group == 4 or call.startswith('small') and K == 7
+        assert below <= lo[2] < below + group and e[2] - lo[2] - T[2] - above in range(group)
+        floats += e[0] * e[1] * e[2]
+        ints += sum(e)
+    assert plan['smem'] == 4 * (floats + ints)
+    for a, ax in ((0, 2), (1, 1), (2, 0)):
+        assert plan['grid'][a] * T[ax] >= max(s[ax] for s in shapes) > (plan['grid'][a] - 1) * T[ax]
 
 
 def test_fused_advect_periodic_sources_match_pallas():
