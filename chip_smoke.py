@@ -4,6 +4,7 @@
     python3 chip_smoke.py           # all phases, one card
     python3 chip_smoke.py --quick   # build + kernel-versus-twin checks at the small shapes only
     python3 chip_smoke.py --profile # all phases, then torch.profiler over 3 steps of each path
+                                    # and K2 at every level of the 256³ V-cycle with each x-chunk
 
 Phases; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi) and the torch / CUDA versions;
@@ -14,22 +15,27 @@ Phases; any failure exits non-zero and prints no result:
      and 64³ with 1.06 M and 125 k particles for K8 and K1m; 256³ with the
      obstacle path's own masks for K1m's coefficient form) and at a small
      shape that is not a power of two, over the three boundary modes, float32
-     and bfloat16 where the path stores it; the median CUDA-event time of the
+     and bfloat16 where the path stores it (K2 also at one narrower than 64 in
+     z, its second tile; K4 also at a fine z that is no whole number of
+     16-byte groups, its scalar path); the median CUDA-event time of the
      kernel, of the twin and, where one PyTorch call computes the same
      function, of that call (library_ms — the port never calls it), beside the
      bound: the larger of bytes moved / 3.35 TB/s and float32 operations /
      67 TFLOP/s (H100 SXM data sheet); and the kernel's and the library's
      time on the device alone, replayed from a CUDA graph (device_ms,
      library_device_ms), without the wrapper's host time. K5 is timed per
-     call and for a step's three calls, K2 per smooth as a V-cycle calls it
-     and for a 256³ level's pair;
+     call and for a step's three calls, K2 for a 256³ level's pair of
+     smooths, K4 at 128³ in float32 too; and K2 (each smooth), K3 and K4 at
+     every level of the 256³ V-cycle in its dtypes, each checked against its
+     twin there first, with their launches × (device − bound) summed a
+     V-cycle and a step beside K1's;
   4. six paths on the card, each (but 4g) 2 warm-up steps, then 5 timed steps with
      every launch counter set to 0 just before and read just after. Three of
      SmokePlume(cg_tol=1e-3, max_iterations=100): ms per step, Mcells/s, the
      advection / pressure split, CG iterations, max |div|, the displacement
      bound and finiteness:
      4a. the fused path, `step` at 256³ (K1–K5): K5 exactly 3 launches a
-         step, K2 exactly 5 per smoothed level per V-cycle (4b too);
+         step, K2 exactly 2 per smoothed level per V-cycle (4b too);
      4b. the per-phase path at 256³ through `advect_smoke`, `advect_velocity`,
          `project` (K6 and K1–K4);
      4c. the per-phase path in 2D at 4096² (K7; the 2D projection is PyTorch
@@ -59,7 +65,7 @@ Phases; any failure exits non-zero and prints no result:
          velocity on the faces inside it (1e-6);
      4g. obstacle-256-vcycle: the same step, 1 warm-up and 3 timed, with
          `fluid.MASKED_PRECONDITIONER = 'vcycle'` (the projected V-cycle: K1m
-         exactly 1 + 1 per CG iteration, K2 exactly 30 and K3, K4 the same
+         exactly 1 + 1 per CG iteration, K2 exactly 12 and K3, K4 the same
          whole number of launches in each of the 1 + iterations V-cycles), the same gates with
          the divergence under 8e-4 (ten times its reading of 8.237e-05);
      then the two 2D obstacle models at the JAX benchmark's size,
@@ -87,6 +93,8 @@ BC_SETS = [(('neumann', 'neumann'),) * 3,
            (('neumann', 'ghost0'), ('periodic', 'periodic'), ('ghost0', 'neumann'))]
 PATH_BC = BC_SETS[0]
 SMALL = (24, 40, 72)
+SMALL_NARROW = (24, 40, 24)  # z < 64: K2's 16 × 16 tile, its z wrapping inside a ragged tile where periodic
+RAGGED = (24, 40, 70)  # a fine z that is no whole number of 16-byte groups: K4's scalar path in both dtypes
 PATH_N = 256
 PATH_N_2D = 4096  # 16.8 M cells, the cell count of 256³
 FLIP_N = (128, 64)  # 1,061,208 and 125,000 particles at 8 a cell
@@ -113,8 +121,8 @@ OBSTACLE_N = 256
 OBSTACLE_DT = 0.5
 K6_LAUNCHES_PER_OBSTACLE_STEP = 6  # MacCormack: a forward and a backward lookup per velocity component
 FUSED_CALLS_PER_STEP = 3  # K5: the smoke's forward and backward passes, the velocity
-# K2, one launch a sweep: a smoothed level's zero-init pre-smooth (ν = 3) takes 2, its post-smooth 3
-K2_LAUNCHES_PER_LEVEL = 5
+# K2, one launch a smooth of up to 3 sweeps: a smoothed level's zero-init pre-smooth (ν = 3) and its post-smooth
+K2_LAUNCHES_PER_LEVEL = 2
 
 
 class Checks:
@@ -194,7 +202,7 @@ class Checks:
 
     def attach(self, kernel, keys):
         """Put the rows timed under `keys` into `kernel`'s row as its `parts`."""
-        self.timing[kernel]['parts'] = {k: self.timing.pop(k) for k in keys}
+        self.timing[kernel].setdefault('parts', {}).update({k: self.timing.pop(k) for k in keys})
 
 
 def median_ms(fn, reps=7, warmup=2):
@@ -272,21 +280,23 @@ def check_poisson(ch, gen, quick):
             ref, rdot = P._poisson_apply_plain(p, inv, bcs, with_dot=True)
             ch.compare_dot('poisson_stencil', f'matvec with_dot {SMALL} {tag} {str(dt)[6:]}', dot, rdot, 1e-5)
         w = 0.9 / (-2.0 * sum(inv))
-        # K2: 1-3 sweeps (zero-init: u0 = w b rides in the first launch, then 1-3 more), u and b stored in
-        # float32 or bfloat16, either result type, with and without the dot; and the 24-sweep coarse smooth
-        for dt in (f32, bf16):
-            u, b = rnd(SMALL, dt), rnd(SMALL, dt)
-            for zero_init, sweeps in [(True, s) for s in (2, 3, 4, 24)] + [(False, s) for s in (1, 2, 3)]:
-                for out_dtype in (f32, bf16):
-                    args = (None if zero_init else u, b, inv, bcs, w, sweeps)
-                    case = (f'{"zero-init" if zero_init else "warm"} sweeps={sweeps} {SMALL} {tag} '
-                            f'{str(dt)[6:]}->{str(out_dtype)[6:]}')
-                    ref, rdot = P._poisson_smooth_plain(*args, zero_init, out_dtype, True)
-                    ch.compare('jacobi_sweeps', case, P.poisson_smooth(*args, zero_init=zero_init, out_dtype=out_dtype),
-                               ref, 2e-5)
-                    got, dot = P.poisson_smooth(*args, zero_init=zero_init, out_dtype=out_dtype, emit_dot=True)
-                    ch.compare('jacobi_sweeps', case + ' +dot', got, ref, 2e-5)
-                    ch.compare_dot('jacobi_sweeps', case, dot, rdot, 1e-5)
+        # K2: 1-3 sweeps in one launch (zero-init: u0 = w b is the first of them, alone at sweeps=1), u and b
+        # stored in float32 or bfloat16, either result type, with and without the dot; and chains of launches:
+        # 4 sweeps and the 24-sweep coarse smooth; in both tiles (16 × 64, and 16 × 16 where z < 64)
+        for shape in (SMALL, SMALL_NARROW):
+            for dt in (f32, bf16):
+                u, b = rnd(shape, dt), rnd(shape, dt)
+                for zero_init, sweeps in [(True, s) for s in (1, 2, 3, 4, 24)] + [(False, s) for s in (1, 2, 3)]:
+                    for out_dtype in (f32, bf16):
+                        args = (None if zero_init else u, b, inv, bcs, w, sweeps)
+                        case = (f'{"zero-init" if zero_init else "warm"} sweeps={sweeps} {shape} {tag} '
+                                f'{str(dt)[6:]}->{str(out_dtype)[6:]}')
+                        ref, rdot = P._poisson_smooth_plain(*args, zero_init, out_dtype, True)
+                        ch.compare('jacobi_sweeps', case,
+                                   P.poisson_smooth(*args, zero_init=zero_init, out_dtype=out_dtype), ref, 2e-5)
+                        got, dot = P.poisson_smooth(*args, zero_init=zero_init, out_dtype=out_dtype, emit_dot=True)
+                        ch.compare('jacobi_sweeps', case + ' +dot', got, ref, 2e-5)
+                        ch.compare_dot('jacobi_sweeps', case, dot, rdot, 1e-5)
         for dt in (f32, bf16):
             u, b = rnd(SMALL, dt), rnd(SMALL)
             got = P.residual_restrict(u, b, inv, bcs)
@@ -312,7 +322,6 @@ def check_poisson(ch, gen, quick):
             lambda: P._poisson_apply_plain(p, one, PATH_BC, with_dot=True),
             nbytes(p, p), 22 * p.numel(),
             lambda: F.conv3d(F.pad(p[None, None], (1,) * 6, mode='replicate'), weight))
-    time_smooths(ch, gen)
     b = rnd(N3)
     # a smoothed level array, as the V-cycle restricts it
     u = P._poisson_smooth_plain(P._poisson_smooth_plain(None, b, one, PATH_BC, w, 3, True, bf16, False), b, one,
@@ -326,51 +335,119 @@ def check_poisson(ch, gen, quick):
             nbytes(u, b, got), 23 * u.numel())
 
 
-def time_smooths(ch, gen):
-    """K2 timed per smooth as a V-cycle (ν = 3) calls it at the fused path's
-    two finest levels, each against the bound of the whole smooth (its inputs
-    read once, its result written once); the `jacobi_sweeps` row is the 256³
-    level's pre- and post-smooth together."""
+V_CYCLES_PER_STEP = 4  # the fused 256³ path at 3 CG iterations: one V-cycle a solve and one an iteration
+K1_LAUNCHES_PER_STEP = 4  # the CG matvec: A·x0 and one an iteration
+
+
+def time_vcycle_levels(ch, gen):
+    """K2, K3 and K4 checked against their twins and timed at every smoothed
+    level of the 256³ V-cycle, in the dtypes `math/_multigrid.py` stores
+    there: the float32 CG residual at the finest level, bfloat16 level arrays
+    below it, the finest post-smooth to float32 with the dot. K2 within 2e-5
+    (bfloat16: one ulp + 2e-5), its dot within 1e-5 relative; K3 within 1e-5;
+    K4 bit-equal. The `jacobi_sweeps` row is the 256³ level's pre- and
+    post-smooth together, against the bound of the two smooths (their inputs
+    read once, their results written once). Each level's row is attached to
+    its kernel's row as a part; the printed sums are launches × (device −
+    bound) a V-cycle and a step, the number that ranks the kernels for a
+    redesign."""
+    import torch
+    from phiflow_tpu_torch.ops import poisson as P, transfer as T
+    f32, bf16 = torch.float32, torch.bfloat16
+    keys = {'jacobi_sweeps': [], 'residual_restrict': [], 'prolong_add': []}
+
+    def timed(kernel, what, fn, plain, n_bytes, n_ops, tol):
+        """`fn` against `plain` (a result, or a (result, dot) pair) at `tol`, then both timed."""
+        got, ref = fn(), plain()
+        if isinstance(ref, tuple):
+            ch.compare_dot(kernel, f'{what} (level)', got[1], ref[1], 1e-5)
+            got, ref = got[0], ref[0]
+        ch.compare(kernel, f'{what} (level)', got, ref, tol)
+        del got, ref
+        keys[kernel].append(f'{kernel} level {what}')
+        ch.time(kernel, what, fn, plain, n_bytes, n_ops, key=keys[kernel][-1])
+
+    n = PATH_N
+    while n > 4 and smoothed_levels(n) > 0:
+        finest = n == PATH_N
+        inv = (1.0 / (PATH_N // n) ** 2,) * 3
+        w = 0.9 / (-2.0 * sum(inv))
+        cells = n ** 3
+        b = torch.randn((n,) * 3, generator=gen, device='cuda').to(f32 if finest else bf16)
+        post_dt = f32 if finest else bf16
+        u = P._poisson_smooth_plain(None, b, inv, PATH_BC, w, 3, True, bf16, False)
+        e = torch.randn((n // 2,) * 3, generator=gen, device='cuda').to(bf16)
+        post = torch.empty(b.shape, dtype=post_dt, device='cuda')
+        coarse = torch.empty(e.shape, dtype=bf16, device='cuda')
+        tag = f'{n}^3'
+        timed('jacobi_sweeps', f'{tag} pre-smooth zero-init x3, b {str(b.dtype)[6:]} -> bfloat16',
+              lambda b=b, inv=inv, w=w: P.poisson_smooth(None, b, inv, PATH_BC, w, 3, zero_init=True, out_dtype=bf16),
+              lambda b=b, inv=inv, w=w: P._poisson_smooth_plain(None, b, inv, PATH_BC, w, 3, True, bf16, False),
+              nbytes(b, u), 2 * 23 * cells, 2e-5)
+        timed('residual_restrict', f'{tag} u bfloat16, b {str(b.dtype)[6:]} -> {n // 2}^3 bfloat16',
+              lambda u=u, b=b, inv=inv: P.residual_restrict(u, b, inv, PATH_BC),
+              lambda u=u, b=b, inv=inv: P._residual_restrict_plain(u, b, inv, PATH_BC),
+              nbytes(u, b, coarse), 23 * cells, 1e-5)
+        timed('prolong_add', f'{tag} c {n // 2}^3 + u {tag} bfloat16',
+              lambda e=e, u=u: T.prolong_add(e, u), lambda e=e, u=u: T._prolong_add_plain(e, u),
+              nbytes(e, u, u), cells, 0.0)
+        timed('jacobi_sweeps', f'{tag} post-smooth x3{" + dot" if finest else ""}, u bfloat16, '
+                               f'b {str(b.dtype)[6:]} -> {str(post_dt)[6:]}',
+              lambda u=u, b=b, inv=inv, w=w, dt=post_dt, dot=finest: P.poisson_smooth(
+                  u, b, inv, PATH_BC, w, 3, out_dtype=dt, emit_dot=dot),
+              lambda u=u, b=b, inv=inv, w=w, dt=post_dt, dot=finest: P._poisson_smooth_plain(
+                  u, b, inv, PATH_BC, w, 3, False, dt, dot),
+              nbytes(u, b, post), 3 * 23 * cells, 2e-5)
+        if finest:
+            ch.time('jacobi_sweeps', f'a {tag} level: pre-smooth zero-init x3 b float32 -> bfloat16, post-smooth x3 '
+                                     f'+ dot u bfloat16 -> float32',
+                    lambda: (P.poisson_smooth(None, b, inv, PATH_BC, w, 3, zero_init=True, out_dtype=bf16),
+                             P.poisson_smooth(u, b, inv, PATH_BC, w, 3, out_dtype=f32, emit_dot=True)),
+                    lambda: (P._poisson_smooth_plain(None, b, inv, PATH_BC, w, 3, True, bf16, False),
+                             P._poisson_smooth_plain(u, b, inv, PATH_BC, w, 3, False, f32, True)),
+                    nbytes(b, u) + nbytes(u, b, post), 5 * 23 * cells)
+        n //= 2
+    gaps = {}
+    for kernel, ks in keys.items():
+        gaps[kernel] = sum(ch.timing[k]['device_ms'] - ch.timing[k]['bound_ms'] for k in ks)
+        ch.attach(kernel, ks)
+    k1 = ch.timing['poisson_stencil']
+    gaps_step = {k: V_CYCLES_PER_STEP * g for k, g in gaps.items()}
+    gaps_step['poisson_stencil'] = K1_LAUNCHES_PER_STEP * (k1['device_ms'] - k1['bound_ms'])
+    print('gaps  launches x (device - bound), summed over the 256^3 V-cycle levels: a V-cycle '
+          + ', '.join(f'{k} {g:.4f} ms' for k, g in gaps.items())
+          + f'; a fused step ({V_CYCLES_PER_STEP} V-cycles, {K1_LAUNCHES_PER_STEP} K1 launches) '
+          + ', '.join(f'{k} {g:.4f} ms' for k, g in sorted(gaps_step.items(), key=lambda kv: -kv[1])))
+
+
+def time_smooth_chunks(gen):
+    """K2's device time at every smoothed level of the 256³ V-cycle (ν = 3,
+    the dtypes of `time_vcycle_levels`) with each x-chunk of 1 to 64 planes a
+    block fixed in `smooth_plan`, beside the chunk the plan picks: the
+    measurement behind the plan's cost model."""
     import torch
     from phiflow_tpu_torch.ops import poisson as P
     f32, bf16 = torch.float32, torch.bfloat16
-    one = (1.0, 1.0, 1.0)
-    smooths = {}
-    for n, b_dt, post_dt, dot in ((PATH_N, f32, f32, True), (PATH_N // 2, bf16, bf16, False)):
+    n = PATH_N
+    while n > 4 and smoothed_levels(n) > 0:
+        finest = n == PATH_N
         inv = (1.0 / (PATH_N // n) ** 2,) * 3
         w = 0.9 / (-2.0 * sum(inv))
-        b = torch.randn((n,) * 3, generator=gen, device='cuda').to(b_dt)
+        b = torch.randn((n,) * 3, generator=gen, device='cuda').to(f32 if finest else bf16)
         u = P._poisson_smooth_plain(None, b, inv, PATH_BC, w, 3, True, bf16, False)
-        ch.compare('jacobi_sweeps', f'pre-smooth zero-init x3 {n}^3 {str(b_dt)[6:]} -> bfloat16',
-                   P.poisson_smooth(None, b, inv, PATH_BC, w, 3, zero_init=True, out_dtype=bf16), u, 2e-5)
-        ref = P._poisson_smooth_plain(u, b, inv, PATH_BC, w, 3, False, post_dt, dot)
-        got = P.poisson_smooth(u, b, inv, PATH_BC, w, 3, out_dtype=post_dt, emit_dot=dot)
-        case = f'post-smooth x3 {n}^3 u bfloat16, b {str(b_dt)[6:]} -> {str(post_dt)[6:]}'
-        if dot:
-            ch.compare_dot('jacobi_sweeps', case, got[1], ref[1], 1e-5)
-            got, ref = got[0], ref[0]
-        ch.compare('jacobi_sweeps', case, got, ref, 2e-5)
-        del got, ref
-        smooths[f'pre-smooth zero-init x3 {n}^3, b {str(b_dt)[6:]} -> bfloat16'] = (
-            lambda b=b, inv=inv, w=w: P.poisson_smooth(None, b, inv, PATH_BC, w, 3, zero_init=True, out_dtype=bf16),
-            lambda b=b, inv=inv, w=w: P._poisson_smooth_plain(None, b, inv, PATH_BC, w, 3, True, bf16, False),
-            nbytes(b, u), 2 * 23 * b.numel())
-        post_out = torch.empty(b.shape, dtype=post_dt, device='cuda')
-        smooths[f'post-smooth x3{" + dot" if dot else ""} {n}^3, u bfloat16, b {str(b_dt)[6:]} -> '
-                f'{str(post_dt)[6:]}'] = (
-            lambda u=u, b=b, inv=inv, w=w, dt=post_dt, dot=dot: P.poisson_smooth(u, b, inv, PATH_BC, w, 3, out_dtype=dt,
-                                                                                 emit_dot=dot),
-            lambda u=u, b=b, inv=inv, w=w, dt=post_dt, dot=dot: P._poisson_smooth_plain(u, b, inv, PATH_BC, w, 3, False,
-                                                                                        dt, dot),
-            nbytes(u, b, post_out), 3 * 23 * b.numel())
-    keys = []
-    for what, (fn, plain, n_bytes, n_ops) in smooths.items():
-        keys.append(f'jacobi_sweeps {what}')
-        ch.time('jacobi_sweeps', what, fn, plain, n_bytes, n_ops, key=keys[-1])
-    (pre, pre_plain, pre_b, pre_o), (post, post_plain, post_b, post_o) = list(smooths.values())[:2]
-    ch.time('jacobi_sweeps', f'a {PATH_N}^3 level: pre- + post-smooth', lambda: (pre(), post()),
-            lambda: (pre_plain(), post_plain()), pre_b + post_b, pre_o + post_o)
-    ch.attach('jacobi_sweeps', keys)
+        post_dt = f32 if finest else bf16
+        picked = [P.smooth_plan(b.shape, 3, zero, (None if zero else bf16, b.dtype, out))['chunk']
+                  for zero, out in ((True, bf16), (False, post_dt))]
+        rows = []
+        for c in (1, 2, 4, 8, 16, 32, 64):
+            if c > n:
+                continue
+            pre = replay_ms(lambda: P._smooth_cuda(None, b, inv, PATH_BC, w, 3, True, bf16, False, chunk=c))
+            post = replay_ms(lambda: P._smooth_cuda(u, b, inv, PATH_BC, w, 3, False, post_dt, finest, chunk=c))
+            rows.append(f'chunk {c}: pre {pre:.4f} post {post:.4f}')
+        print(f'chunks {n}^3 (plan: pre chunk {picked[0]}, post chunk {picked[1]}) device ms: ' + '; '.join(rows),
+              flush=True)
+        n //= 2
 
 
 def _random_face_masks(shape, bcs, gen, dev):
@@ -558,14 +635,16 @@ def check_transfer(ch, gen, quick):
     import torch
     from phiflow_tpu_torch.ops import transfer as T
     dev = 'cuda'
-    coarse_small = tuple(n // 2 for n in SMALL)
-    for dt in (torch.float32, torch.bfloat16):
-        c = torch.randn(coarse_small, generator=gen, device=dev).to(dt)
-        u = torch.randn(SMALL, generator=gen, device=dev).to(dt)
-        ch.compare('prolong_add', f'c {coarse_small} + u {SMALL} {str(dt)[6:]}',
-                   T.prolong_add(c, u), T._prolong_add_plain(c, u), 0.0)
-        ch.compare('prolong_add', f'upsample c {coarse_small} {str(dt)[6:]}',
-                   T.prolong_pc(c), T._prolong_add_plain(c, None), 0.0)
+    # SMALL's rows are whole 16-byte groups (the vector path), RAGGED's are not (the masked scalar path)
+    for fine in (SMALL, RAGGED):
+        coarse = tuple(n // 2 for n in fine)
+        for dt in (torch.float32, torch.bfloat16):
+            c = torch.randn(coarse, generator=gen, device=dev).to(dt)
+            u = torch.randn(fine, generator=gen, device=dev).to(dt)
+            ch.compare('prolong_add', f'c {coarse} + u {fine} {str(dt)[6:]}',
+                       T.prolong_add(c, u), T._prolong_add_plain(c, u), 0.0)
+            ch.compare('prolong_add', f'upsample c {coarse} {str(dt)[6:]}',
+                       T.prolong_pc(c), T._prolong_add_plain(c, None), 0.0)
     if quick:
         return
     c = torch.randn((PATH_N // 2,) * 3, generator=gen, device=dev).to(torch.bfloat16)
@@ -577,6 +656,17 @@ def check_transfer(ch, gen, quick):
             lambda: T.prolong_add(c, u), lambda: T._prolong_add_plain(c, u),
             nbytes(c, u, got), u.numel(),
             lambda: torch.nn.functional.interpolate(c[None, None], scale_factor=2, mode='nearest'))
+    # the float32 form at 128³ (a V-cycle of float32 levels, below 64³ or off CUDA's bfloat16 rule)
+    c = torch.randn((PATH_N // 4,) * 3, generator=gen, device=dev)
+    u = torch.randn((PATH_N // 2,) * 3, generator=gen, device=dev)
+    got = T.prolong_add(c, u)
+    what = f'c {tuple(c.shape)} + u {tuple(u.shape)} float32'
+    ch.compare('prolong_add', what, got, T._prolong_add_plain(c, u), 0.0)
+    ch.time('prolong_add', what, lambda: T.prolong_add(c, u), lambda: T._prolong_add_plain(c, u),
+            nbytes(c, u, got), u.numel(),
+            lambda: torch.nn.functional.interpolate(c[None, None], scale_factor=2, mode='nearest'),
+            key='prolong_add float32')
+    ch.attach('prolong_add', ['prolong_add float32'])
 
 
 def _advect_inputs(N, gen, dev, K=1, periodic=False):
@@ -922,7 +1012,7 @@ def run_flip(tag, N, warmup=2, steps=5):
     return launches
 
 
-PORT_KERNELS = ('poisson_stencil_kernel', 'jacobi_sweep_kernel', 'residual_restrict_kernel', 'prolong_add_kernel',
+PORT_KERNELS = ('poisson_stencil_kernel', 'smooth_kernel', 'residual_restrict_kernel', 'prolong_add_kernel',
                 'fused_advect_kernel', 'advect_lift_kernel', 'window_interp_kernel', 'window_interp_2d_kernel',
                 'p2g_kernel')
 
@@ -1337,6 +1427,8 @@ def main(argv):
     check_transfer(ch, gen, quick)
     check_advect(ch, gen, quick)
     check_interp(ch, gen, quick)
+    if not quick:
+        time_vcycle_levels(ch, gen)
     torch.cuda.synchronize()
     print(f'checks: {time.perf_counter() - t0:.1f} s, {sum(ch.passed.values())} passed, {len(ch.failed)} failed')
     if ch.failed:
@@ -1371,6 +1463,7 @@ def main(argv):
             profile_flip(f'flip-{N}', N)
         profile_obstacles(f'obstacle-{OBSTACLE_N}', OBSTACLE_N)
         profile_obstacles(f'obstacle-{OBSTACLE_N}-vcycle', OBSTACLE_N, 'vcycle')
+        time_smooth_chunks(gen)
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rows.append(dict(name=name, route='cuda', source=source, replaces=replaces,

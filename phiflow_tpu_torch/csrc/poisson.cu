@@ -4,8 +4,9 @@
 //                        (the CG matvec, with the fused <p, A p> partials), in
 //                        its unmasked and its masked form (obstacle
 //                        coefficients and the free surface's active cells)
-//   K2 jacobi_sweep      replaces phiflow_tpu/ops/poisson.py::_jacobi2_pallas_3d
-//                        (V-cycle smoothing; one launch per sweep here)
+//   K2 smooth_kernel     replaces phiflow_tpu/ops/poisson.py::_jacobi2_pallas_3d
+//                        (V-cycle smoothing: 1-3 sweeps in one launch, the
+//                        intermediate sweeps kept in shared memory)
 //   K3 residual_restrict replaces phiflow_tpu/ops/poisson.py::_residual_restrict_pallas_3d
 //                        (restrict_mean(b - A u); the fine residual is never stored)
 //
@@ -30,11 +31,15 @@
 //
 // Bound: every kernel here does a few flops per byte, far below the card's
 // ~20 flop/byte balance point in float32, so each is bound by device-memory
-// bytes (inputs read once, outputs written once at best). The design is the
-// simplest one that moves near-minimal bytes: one thread per output cell,
+// bytes (inputs read once, outputs written once at best). K1 and K3 take the
+// simplest design that moves near-minimal bytes: one thread per output cell,
 // threads of a block along the contiguous z axis so loads coalesce, and the
 // six neighbour loads left to the L1/L2 caches instead of a shared-memory
-// tile. Storage is float32 or bfloat16; arithmetic is float32 in registers.
+// tile. K2 would move every intermediate sweep through device memory that
+// way (a float32 write and read of the whole field a sweep), so it keeps them
+// in shared memory instead: the smooth reads u and b once (plus a halo) and
+// writes its result once, whatever its sweep count (see its kernel below).
+// Storage is float32 or bfloat16; arithmetic is float32 in registers.
 #include "common.cuh"
 
 #define MODE_PERIODIC 0
@@ -153,29 +158,243 @@ __global__ void poisson_stencil_kernel(const TP *__restrict__ p, const TB *__res
 }
 
 // ---------------------------------------------------------------------------
-// K2: one damped-Jacobi sweep out = u + w (b - A u). With ZERO_INIT the sweep
-// starts from u0 = w b formed in registers (u is not read), so a zero-init
-// triple costs two launches. Optional per-block <out, b> partials.
+// K2: one smooth of 1-3 damped-Jacobi sweeps u <- u + w (b - A u) in one launch,
+// the counterpart of phiflow_tpu/ops/poisson.py::_jacobi2_pallas_3d.
+//
+// Bound: device-memory bytes, u and b read once and the result written once,
+// if the intermediate sweeps never reach device memory. Design: 2.5D temporal
+// blocking. A block owns a TY x TZ tile of (y, z) outputs (16 x 64, or 16 x 16
+// on a field narrower than 64 in z) and marches along x over a chunk of `cx`
+// planes. Each plane t of u and b is staged into shared memory over the tile
+// grown by S cells in y and z (S: the stencil sweeps of the launch); sweep s
+// then computes plane t - s over the tile grown by S - s, reading a ring of
+// three float32 planes of sweep s - 1, and the last sweep writes the output.
+// A chunk starts S planes early and ends S planes late (the x halo), so no
+// block reads another's results; the halo re-read comes from L2. Staged
+// cells past a periodic side wrap; past a non-periodic side they are 0 and
+// stay 0 through the sweeps, so only the centre coefficient carries the
+// boundary. A thread owns the same quads of z-neighbouring cells in every
+// plane and sweep (staged rows padded to whole quads), so a plane needs one
+// barrier, a quad is read and written with 16-byte shared-memory accesses,
+// and the next plane's loads are in flight while this plane's sweeps run.
+// With zero_init the staged level is u0 = w b and u is not read. Optional
+// per-block <out, b> partials from the float32 result. On the card the
+// sweeps' instructions and latency, not the bytes, set the time (PERF.md).
 // ---------------------------------------------------------------------------
-template <bool ZERO_INIT, typename TU, typename TB, typename TO>
-__global__ void jacobi_sweep_kernel(const TU *__restrict__ u, const TB *__restrict__ b, TO *__restrict__ out,
-                                    float *__restrict__ partials, Grid g, float w) {
-    const int k = blockIdx.x * blockDim.x + threadIdx.x, j = blockIdx.y, i = blockIdx.z;
-    float contrib = 0.f;
-    if (k < g.n[2]) {
-        const long long q = ((long long)i * g.n[1] + j) * g.n[2] + k;
-        auto load = [&](long long r) { return ZERO_INIT ? w * ld(b, r) : ld(u, r); };
-        const float bc = ld(b, q);
-        const float uc = ZERO_INIT ? w * bc : ld(u, q);
-        const float o = uc + w * (bc - laplace_at(load, g, i, j, k, q, uc));
-        st(out, q, o);
-        contrib = o * bc;
+namespace smooth {
+constexpr int TY = 16, THREADS = 512;  // TZ, the tile's z width, is 64 (fields with Z >= 64) or 16
+constexpr int MIN_BLOCKS = 2;  // blocks an SM: at most 64 registers a thread
+
+template <int S, int TZ>
+struct Geom {
+    static constexpr int W = (TZ + 2 * S + 3) / 4 * 4;  // staged row pitch (z): the grown row padded to whole quads
+    static constexpr int PL = W * (TY + 2 * S);    // floats a staged plane
+    static constexpr int R = S + 1;                // b planes alive at once
+    static constexpr int PLANES = 3 * S + R;       // S level rings of 3, then the b ring
+    static constexpr int QUADS = (PL / 4 + THREADS - 1) / THREADS;  // a thread's quads of z-neighbours in a plane
+    static constexpr int SMEM = 4 * PLANES * PL;   // bytes; the wrapper's plan must agree
+};
+
+// A raw position along an axis of n cells: true and its cell index where it
+// holds a value (inside, or past a periodic side), false past a non-periodic side.
+__device__ __forceinline__ bool resolve(int gi, int n, int lo, int hi, int &wi) {
+    if (gi >= 0 && gi < n) {
+        wi = gi;
+        return true;
     }
-    if (partials != nullptr) {
-        const float s = block_sum(contrib);
-        if (threadIdx.x == 0) partials[block_index()] = s;
+    wi = ((gi % n) + n) % n;
+    return gi < 0 ? lo == MODE_PERIODIC : hi == MODE_PERIODIC;
+}
+
+// The centre coefficient of the unmasked stencil at cell wi of an axis
+// (axis_term's profile). The neighbour terms need none here: a neighbour past a
+// non-periodic side is staged as 0, and every sweep keeps such cells at 0.
+__device__ __forceinline__ float center_coef(int wi, int n, int lo, int hi) {
+    float c0 = -2.f;
+    if (wi == 0 && lo != MODE_PERIODIC) c0 = lo == MODE_GHOST0 ? -2.f : -1.f;
+    if (wi == n - 1 && hi != MODE_PERIODIC) c0 = hi == MODE_GHOST0 ? -2.f : -1.f;
+    return c0;
+}
+
+__device__ __forceinline__ int slot3(int p, int base) { return (p - base) % 3; }
+
+// What a thread knows of each of its quads of z-neighbouring cells of a staged
+// plane (the same quads at every plane and sweep), for each cell of a quad:
+// its (y, z) offset in a field plane, or -1 past a non-periodic side; its
+// ring, the cells it lies outside the output tile (it takes part in sweeps
+// s <= S - ring; the row's padding and the plane's end lie in ring S + 1);
+// the y and z share of its centre coefficient, inv_y c0_y + inv_z c0_z.
+template <int N>
+struct Quads {
+    int off[N][4], ring[N][4];
+    float c0yz[N][4];
+};
+
+__device__ __forceinline__ float4 lds4(const float *p) { return *reinterpret_cast<const float4 *>(p); }
+__device__ __forceinline__ float el(const float4 &v, int e) { return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w; }
+
+// Sweep s at plane p over the tile grown by H = S - s: into level s's ring
+// (s < S) or to `out` with the dot's share (s == S). Each thread computes its
+// own quads, so a cell's x neighbours of sweep s - 1 are the thread's own
+// writes, and its y, z neighbours were written a plane, and a barrier, ago.
+// A quad is read with 16-byte loads; all of a thread's quads are computed
+// before any is stored, so their shared-memory loads are in flight together.
+// A quad outside the sweep's tile is skipped, most often by a whole warp.
+template <int S, int TZ, int s, typename TO>
+__device__ __forceinline__ void sweep(float *smem, const Quads<Geom<S, TZ>::QUADS> &cl, int p, int x0, int y0,
+                                      int z0, const Grid &g, float w, TO *__restrict__ out, float &contrib) {
+    using G = Geom<S, TZ>;
+    constexpr int H = S - s;
+    const int base = x0 - S;  // the chunk's first staged plane
+    const float *prev = smem + (s - 1) * 3 * G::PL;
+    const float *pc_pl = prev + slot3(p, base) * G::PL;
+    const float *xm_pl = prev + slot3(p - 1, base) * G::PL;
+    const float *xp_pl = prev + slot3(p + 1, base) * G::PL;
+    const float *b_pl = smem + (3 * S + (p - base) % G::R) * G::PL;
+    int wx;
+    const bool vx = resolve(p, g.n[0], g.lo[0], g.hi[0], wx);
+    const float c0x = g.inv[0] * center_coef(wx, g.n[0], g.lo[0], g.hi[0]);
+    float o[G::QUADS][4], bo[G::QUADS][4];
+    bool in[G::QUADS];  // the quad takes part in this sweep
+#pragma unroll
+    for (int i = 0; i < G::QUADS; ++i) {
+        const int li = 4 * (threadIdx.x + i * THREADS);
+        in[i] = min(min(cl.ring[i][0], cl.ring[i][1]), min(cl.ring[i][2], cl.ring[i][3])) <= H;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][e] = bo[i][e] = 0.f;
+        if (!in[i]) continue;
+        const float4 pc = lds4(pc_pl + li), ym = lds4(pc_pl + li - G::W), yp = lds4(pc_pl + li + G::W);
+        const float4 xm = lds4(xm_pl + li), xp = lds4(xp_pl + li), bq = lds4(b_pl + li);
+        const float zm = pc_pl[li - 1], zp = pc_pl[li + 4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float c = el(pc, e), lo = e == 0 ? zm : el(pc, e - 1), hi = e == 3 ? zp : el(pc, e + 1);
+            // the twin's form: the neighbour terms axis by axis, then the whole centre coefficient
+            const float lap = g.inv[0] * (el(xm, e) + el(xp, e)) + g.inv[1] * (el(ym, e) + el(yp, e)) +
+                              g.inv[2] * (lo + hi) + (c0x + cl.c0yz[i][e]) * c;
+            const bool v = vx && cl.ring[i][e] <= H && cl.off[i][e] >= 0;
+            bo[i][e] = el(bq, e);
+            o[i][e] = v ? c + w * (bo[i][e] - lap) : 0.f;  // 0 past a non-periodic side
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < G::QUADS; ++i) {
+        if (!in[i]) continue;
+        const int li = 4 * (threadIdx.x + i * THREADS);
+        if (s < S) {
+            *reinterpret_cast<float4 *>(smem + (s * 3 + slot3(p, base)) * G::PL + li) =
+                make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+        } else {
+            const int r = li / G::W, c = li - r * G::W, gy = y0 - S + r, gz = z0 - S + c;
+            if (p >= g.n[0] || gy >= g.n[1]) continue;
+            const long long q = ((long long)p * g.n[1] + gy) * g.n[2] + gz;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                if (cl.ring[i][e] == 0 && gz + e < g.n[2]) {  // an output of this block, inside the field
+                    st(out, q + e, o[i][e]);
+                    contrib += o[i][e] * bo[i][e];
+                }
+            }
+        }
     }
 }
+
+template <int S, int TZ, typename TU, typename TB, typename TO>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) smooth_kernel(const TU *__restrict__ u, const TB *__restrict__ b,
+                                                                     TO *__restrict__ out, float *__restrict__ partials,
+                                                                     Grid g, float w, int zero_init, int cx) {
+    using G = Geom<S, TZ>;
+    extern __shared__ float smem[];
+    const int z0 = blockIdx.x * TZ, y0 = blockIdx.y * TY, x0 = blockIdx.z * cx;
+    const int X = g.n[0], YZ = g.n[1] * g.n[2];
+    Quads<G::QUADS> cl;
+#pragma unroll
+    for (int i = 0; i < G::QUADS; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int li = 4 * (threadIdx.x + i * THREADS) + e;
+            const int r = li / G::W, c = li - r * G::W;
+            const bool staged = li < G::PL && c < TZ + 2 * S;  // not the row's padding, not past the plane
+            int wy, wz;
+            const bool vy = resolve(y0 - S + r, g.n[1], g.lo[1], g.hi[1], wy);
+            const bool vz = resolve(z0 - S + c, g.n[2], g.lo[2], g.hi[2], wz);
+            cl.off[i][e] = staged && vy && vz ? wy * g.n[2] + wz : -1;
+            cl.ring[i][e] = staged ? max(max(S - r, r - (S + TY - 1)), max(max(S - c, c - (S + TZ - 1)), 0)) : S + 1;
+            cl.c0yz[i][e] = g.inv[1] * center_coef(wy, g.n[1], g.lo[1], g.hi[1]) +
+                            g.inv[2] * center_coef(wz, g.n[2], g.lo[2], g.hi[2]);
+        }
+    }
+    float ru[G::QUADS][4], rb[G::QUADS][4];  // the next plane, loaded while the sweeps of this one run
+    auto fetch = [&](int t) {
+        int wx;
+        const bool vx = resolve(t, X, g.lo[0], g.hi[0], wx);
+        const long long plane = (long long)wx * YZ;
+        // every load unconditional (a cell past a non-periodic side reads its plane's first and takes 0), so
+        // that they all issue together
+#pragma unroll
+        for (int i = 0; i < G::QUADS; ++i) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const bool v = vx && cl.off[i][e] >= 0;
+                const long long q = plane + max(cl.off[i][e], 0);
+                const float bv = ld(b, q);
+                rb[i][e] = v ? bv : 0.f;
+                if (zero_init) {
+                    ru[i][e] = w * rb[i][e];
+                } else {
+                    const float uv = ld(u, q);
+                    ru[i][e] = v ? uv : 0.f;
+                }
+            }
+        }
+    };
+    float contrib = 0.f;
+    const int t_end = min(x0 + cx, X) - 1 + S;  // the last output plane's x halo
+    fetch(x0 - S);
+    for (int t = x0 - S; t <= t_end; ++t) {
+        if (S == 0) {  // u0 = w b alone: the staged cells are the outputs
+#pragma unroll
+            for (int i = 0; i < G::QUADS; ++i) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int li = 4 * (threadIdx.x + i * THREADS) + e, r = li / G::W, c = li - r * G::W;
+                    if (li < G::PL && c < TZ && y0 + r < g.n[1] && z0 + c < g.n[2]) {
+                        st(out, ((long long)t * g.n[1] + y0 + r) * g.n[2] + z0 + c, ru[i][e]);
+                        contrib += ru[i][e] * rb[i][e];
+                    }
+                }
+            }
+            if (t < t_end) fetch(t + 1);
+            continue;
+        }
+        // the one barrier of a plane: every y, z neighbour a sweep reads below was written before it, and
+        // every plane overwritten below was last read before it
+        __syncthreads();
+        float *lev0 = smem + slot3(t, x0 - S) * G::PL;
+        float *bpl = smem + (3 * S + (t - x0 + S) % G::R) * G::PL;
+#pragma unroll
+        for (int i = 0; i < G::QUADS; ++i) {
+            const int li = 4 * (threadIdx.x + i * THREADS);
+            if (li < G::PL) {
+                *reinterpret_cast<float4 *>(lev0 + li) = make_float4(ru[i][0], ru[i][1], ru[i][2], ru[i][3]);
+                *reinterpret_cast<float4 *>(bpl + li) = make_float4(rb[i][0], rb[i][1], rb[i][2], rb[i][3]);
+            }
+        }
+        if (t < t_end) fetch(t + 1);
+        // sweep s computes plane t - s once its chunk's first plane, x0 - S + s, has its x neighbours
+        if constexpr (S >= 1)
+            if (t >= x0 - S + 2) sweep<S, TZ, 1>(smem, cl, t - 1, x0, y0, z0, g, w, out, contrib);
+        if constexpr (S >= 2)
+            if (t >= x0 - S + 4) sweep<S, TZ, 2>(smem, cl, t - 2, x0, y0, z0, g, w, out, contrib);
+        if constexpr (S >= 3)
+            if (t >= x0 - S + 6) sweep<S, TZ, 3>(smem, cl, t - 3, x0, y0, z0, g, w, out, contrib);
+    }
+    if (partials != nullptr) {
+        const float sum = block_sum(contrib);
+        if (threadIdx.x == 0) partials[block_index()] = sum;
+    }
+}
+}  // namespace smooth
 
 // ---------------------------------------------------------------------------
 // K3: one thread per coarse cell — the eight fine residuals b - A u and their mean.
@@ -242,20 +461,50 @@ extern "C" int poisson_stencil(const void *p, int p_dt, const void *b, int b_dt,
     return (int)cudaGetLastError();
 }
 
-extern "C" int jacobi_sweep(const void *u, int u_dt, const void *b, int b_dt, void *out, int out_dt,
-                            float *partials, const Grid *g, float w, int zero_init, int bx, void *stream) {
-    const dim3 grid = grid_of(g->n[0], g->n[1], g->n[2], bx);
+template <int S, int TZ, typename TU, typename TB, typename TO>
+static int launch_smooth(const void *u, const void *b, void *out, float *partials, const Grid &g, float w,
+                         int zero_init, int cx, int smem, cudaStream_t s) {
+    using namespace smooth;
+    if (smem != Geom<S, TZ>::SMEM) return (int)cudaErrorInvalidValue;  // the wrapper's plan disagrees
+    auto kernel = smooth_kernel<S, TZ, TU, TB, TO>;
+    static bool opted_in = false;  // above 48 KB a kernel must opt in to its dynamic shared memory, once
+    if (smem > 48 * 1024 && !opted_in) {
+        const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+        opted_in = true;
+    }
+    const dim3 grid((g.n[2] + TZ - 1) / TZ, (g.n[1] + TY - 1) / TY, (g.n[0] + cx - 1) / cx);
+    kernel<<<grid, THREADS, smem, s>>>((const TU *)u, (const TB *)b, (TO *)out, partials, g, w, zero_init, cx);
+    return (int)cudaGetLastError();
+}
+
+template <int TZ, typename TU, typename TB, typename TO>
+static int launch_smooth_s(int S, const void *u, const void *b, void *out, float *partials, const Grid &g, float w,
+                           int zero_init, int cx, int smem, cudaStream_t s) {
+    switch (S) {
+        case 0: return launch_smooth<0, TZ, TU, TB, TO>(u, b, out, partials, g, w, zero_init, cx, smem, s);
+        case 1: return launch_smooth<1, TZ, TU, TB, TO>(u, b, out, partials, g, w, zero_init, cx, smem, s);
+        case 2: return launch_smooth<2, TZ, TU, TB, TO>(u, b, out, partials, g, w, zero_init, cx, smem, s);
+        default: return launch_smooth<3, TZ, TU, TB, TO>(u, b, out, partials, g, w, zero_init, cx, smem, s);
+    }
+}
+
+// One launch of K2: `sweeps` (1-3) sweeps, the first of them u0 = w b with
+// zero_init. `tz`: the tile's z width (64 or 16); `cx`: x planes a block;
+// `smem`: the plan's dynamic shared-memory bytes, checked against the
+// kernel's own layout.
+extern "C" int jacobi_smooth(const void *u, int u_dt, const void *b, int b_dt, void *out, int out_dt,
+                             float *partials, const Grid *g, float w, int sweeps, int zero_init, int tz, int cx,
+                             int smem, void *stream) {
+    const int S = zero_init ? sweeps - 1 : sweeps;  // stencil sweeps
+    if (sweeps < 1 || S > 3 || cx < 1 || (tz != 64 && tz != 16)) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     if (zero_init) u_dt = PTT_F32;  // u is not read
     PTT_DT(u_dt, TU, PTT_DT(b_dt, TB, PTT_DT(out_dt, TO, {
-        if (zero_init)
-            jacobi_sweep_kernel<true, TU, TB, TO><<<grid, bx, 0, s>>>(
-                nullptr, (const TB *)b, (TO *)out, partials, *g, w);
-        else
-            jacobi_sweep_kernel<false, TU, TB, TO><<<grid, bx, 0, s>>>(
-                (const TU *)u, (const TB *)b, (TO *)out, partials, *g, w);
+        if (tz == 64) return launch_smooth_s<64, TU, TB, TO>(S, u, b, out, partials, *g, w, zero_init, cx, smem, s);
+        return launch_smooth_s<16, TU, TB, TO>(S, u, b, out, partials, *g, w, zero_init, cx, smem, s);
     })));
-    return (int)cudaGetLastError();
+    return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int residual_restrict(const void *u, int u_dt, const void *b, int b_dt, void *out, const Grid *g,

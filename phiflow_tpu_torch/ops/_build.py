@@ -27,7 +27,7 @@ import threading
 import time
 from typing import Dict, Iterable, Sequence
 
-__all__ = ['SOURCES', 'LAUNCHES', 'reset_launches', 'build', 'ptxas_log', 'library', 'check',
+__all__ = ['SOURCES', 'LAUNCHES', 'SMEM_LIMIT', 'reset_launches', 'build', 'ptxas_log', 'library', 'check',
            'block_x', 'stream_of', 'SRC_MODE', 'src_struct']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,6 +38,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 
 LAUNCHES: collections.Counter = collections.Counter()
+SMEM_LIMIT = 232448  # dynamic shared memory a block may take on Hopper (227 KB)
 
 _libs: Dict[str, object] = {}
 _lock = threading.Lock()

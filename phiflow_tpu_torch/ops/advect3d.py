@@ -246,7 +246,7 @@ def _fused_advect_plain(sources, N, K, outs, scales, blocked_extras):
 
 ADV_TZ = 32               # K5's tile extent along z (csrc/advect3d.cu)
 MAX_SOURCES, MAX_OUTS = 5, 4
-SMEM_LIMIT = 232448      # dynamic shared memory a block may take on Hopper
+SMEM_LIMIT = _build.SMEM_LIMIT
 # (x, y) tile extents in order of preference: the largest whose staged arrays
 # leave room for two blocks a SM, else the largest that fits one
 _TILES = ((8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))

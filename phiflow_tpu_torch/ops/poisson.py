@@ -14,8 +14,9 @@ Three CUDA kernels (`csrc/poisson.cu`) carry it on the card:
   Its masked form takes the coefficient arrays ``mA_list`` and ``c0`` that
   `stage_masks` makes from face masks (obstacles), the ``active`` cells (a
   free surface: the result is p itself where active is 0), or both.
-* `poisson_smooth` — K2, damped-Jacobi sweeps, one launch per sweep;
-  ``zero_init`` forms u₀ = w·b in registers, ``emit_dot`` returns ⟨u_out, b⟩.
+* `poisson_smooth` — K2, damped-Jacobi sweeps, one launch for up to three
+  (`smooth_plan`); ``zero_init`` forms u₀ = w·b from the staged b,
+  ``emit_dot`` returns ⟨u_out, b⟩.
 * `residual_restrict` — K3, restrict_mean(b − A·u) without storing the fine
   residual.
 
@@ -176,7 +177,7 @@ def _lib():
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.library('poisson', {
         'poisson_stencil': [P, I, P, I, P, P, P, P, P, P, P, P, I, F, I, P],
-        'jacobi_sweep': [P, I, P, I, P, I, P, P, F, I, I, P],
+        'jacobi_smooth': [P, I, P, I, P, I, P, P, F, I, I, I, I, I, P],
         'residual_restrict': [P, I, P, I, P, P, I, P],
     })
 
@@ -328,8 +329,8 @@ def poisson_smooth(u: Optional[torch.Tensor], b: torch.Tensor,
     the V-cycle's last fine post-smooth.
 
     Two spatial axes: PyTorch operations on any device. On CUDA in 3D one
-    kernel launch per sweep; the zero-init sweep rides in the first launch, so
-    a zero-init triple is two launches and sweeps must be ≥ 2."""
+    kernel launch for up to three sweeps, the zero-init sweep among them; a
+    longer smooth chains launches of three (`smooth_plan`)."""
     if sweeps < 1:
         raise ValueError(f"sweeps must be >= 1, got {sweeps}")
     if u is None and not zero_init:
@@ -355,34 +356,101 @@ def _poisson_smooth_plain(u, b, inv_dx2, bc, omega_over_diag, sweeps, zero_init,
     return (out, dot) if emit_dot else out
 
 
-def _smooth_cuda(u, b, inv_dx2, bc, omega_over_diag, sweeps, zero_init, out_dtype, emit_dot):
+SMOOTH_TILES = ((16, 64), (16, 16))  # (y, z) outputs a block (smooth::TY, TZ in csrc/poisson.cu): Z ≥ 64, Z < 64
+# blocks an SM runs at the pace of one: two resident blocks take ≈ 1.4× one block's time a plane (H100 80GB HBM3,
+# `chip_smoke.py --profile`'s chunk sweep); every plan's shared memory leaves room for two
+_SMOOTH_PACE_PER_SM = 1.5
+SMOOTH_MAX_SWEEPS = 3  # a launch's sweeps; a longer smooth is a chain of launches
+SMEM_LIMIT = _build.SMEM_LIMIT
+_SMS = 132  # streaming multiprocessors of the H100 SXM part the cost model was measured on
+
+
+def _smooth_smem(stencil_sweeps: int, tile) -> int:
+    """Bytes of one K2 block (smooth::Geom<S>::SMEM): three float32 planes a
+    level of the S − 1 intermediate sweeps and of the staged u₀, and S + 1
+    planes of b, each over the tile grown by S cells in y and z, its rows
+    padded to whole quads of z-neighbours (a thread's unit of work)."""
+    S = stencil_sweeps
+    ty, tz = tile
+    return 4 * (3 * S + S + 1) * (ty + 2 * S) * (-(-(tz + 2 * S) // 4) * 4)
+
+
+def smooth_plan(shape: Sequence[int], sweeps: int, zero_init: bool, dtypes, chunk: Optional[int] = None) -> dict:
+    """K2's launches for one `poisson_smooth` of a 3D field of `shape`.
+
+    ``dtypes`` = (u's dtype or None, b's dtype, the result's dtype). The smooth
+    is a chain of launches of at most 3 sweeps: the first takes u (or forms
+    u₀ = w·b with ``zero_init``, which counts as one of its sweeps), a later
+    one the float32 result before it; only the last stores ``out_dtype``.
+
+    A block computes a tile of (y, z) outputs (16 × 64, or 16 × 16 where Z <
+    64) over ``chunk`` x-planes, marching along x through S more planes on
+    each side (S: the launch's stencil sweeps), one plane a step. The chunk
+    is the one that minimises the estimated steps in series — the larger of a
+    block's own steps and all blocks' steps over the SMs at the pace they run
+    blocks — so coarse levels take short chunks and many blocks; ``chunk``
+    fixes it instead (to time the choice against the others). Returns the
+    tile, the chunk, the grid (z tiles, y tiles, x chunks), the number of
+    blocks (the dot's partials), the largest launch's shared memory and the
+    launches, each with its sweeps, ``zero_init``, stencil sweeps, shared
+    memory and dtypes."""
+    X, Y, Z = (int(n) for n in shape)
+    u_dtype, b_dtype, out_dtype = dtypes
+    tile = SMOOTH_TILES[0] if Z >= 64 else SMOOTH_TILES[1]
+    launches = []
+    left, first = int(sweeps), True
+    while left > 0:
+        k = min(SMOOTH_MAX_SWEEPS, left)
+        zero = zero_init and first
+        left -= k
+        S = k - 1 if zero else k
+        launches.append(dict(sweeps=k, zero_init=zero, stencil_sweeps=S, smem=_smooth_smem(S, tile),
+                             u_dtype=None if zero else (u_dtype if first else torch.float32), b_dtype=b_dtype,
+                             out_dtype=out_dtype if left == 0 else torch.float32))
+        first = False
+    ty, tz = tile
+    tiles = -(-Y // ty) * -(-Z // tz)
+    S = max(l['stencil_sweeps'] for l in launches)
+    smem = max(l['smem'] for l in launches)
+    slots = _SMS * _SMOOTH_PACE_PER_SM
+
+    def cost(c):
+        blocks, steps = tiles * -(-X // c), c + 2 * S
+        return max(steps, blocks * steps / slots)
+    if chunk is None:
+        chunk = min((c for c in (64, 32, 16, 8, 4, 2, 1) if c <= max(X, 1)), key=cost)
+    elif chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    grid = (-(-Z // tz), -(-Y // ty), -(-X // chunk))
+    return dict(tile=tile, chunk=chunk, grid=grid, blocks=grid[0] * grid[1] * grid[2], smem=smem,
+                launches=launches)
+
+
+def _smooth_cuda(u, b, inv_dx2, bc, omega_over_diag, sweeps, zero_init, out_dtype, emit_dot, chunk=None):
     _check_bc(bc)
     _check_field('b', b)
     if not zero_init:
         _check_field('u', u, b.shape)
-    elif sweeps < 2:
-        raise ValueError("on CUDA a zero-init smooth needs sweeps >= 2 (u0 = w·b rides in the first launch)")
     if out_dtype not in _DTYPE_CODE:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     import ctypes
     lib = _lib()
+    plan = smooth_plan(b.shape, sweeps, zero_init, (None if zero_init else u.dtype, b.dtype, out_dtype), chunk)
     g = _grid(b.shape, inv_dx2, bc)
     w = float(np.float32(omega_over_diag))
-    bx = _build.block_x(b.shape[2])
     stream = _build.stream_of(b)
-    launches = sweeps - 1 if zero_init else sweeps
     cur = u
     partials = None
-    for s in range(launches):
-        last = s == launches - 1
-        out = torch.empty(b.shape, dtype=out_dtype if last else torch.float32, device=b.device)
-        partials = _partials(b.shape, b.device) if (last and emit_dot) else None
-        first_zero = zero_init and s == 0
-        err = lib.jacobi_sweep(None if first_zero else cur.data_ptr(),
-                               0 if first_zero else _DTYPE_CODE[cur.dtype],
-                               b.data_ptr(), _DTYPE_CODE[b.dtype], out.data_ptr(), _DTYPE_CODE[out.dtype],
-                               _ptr(partials), ctypes.byref(g), w, int(first_zero), bx, stream)
-        _build.check(lib, err, 'jacobi_sweep')
+    for i, launch in enumerate(plan['launches']):
+        last = i == len(plan['launches']) - 1
+        out = torch.empty(b.shape, dtype=launch['out_dtype'], device=b.device)
+        partials = torch.empty(plan['blocks'], dtype=torch.float32, device=b.device) if (last and emit_dot) else None
+        err = lib.jacobi_smooth(None if launch['zero_init'] else cur.data_ptr(),
+                                _DTYPE_CODE[launch['u_dtype'] or torch.float32],
+                                b.data_ptr(), _DTYPE_CODE[b.dtype], out.data_ptr(), _DTYPE_CODE[out.dtype],
+                                _ptr(partials), ctypes.byref(g), w, launch['sweeps'], int(launch['zero_init']),
+                                plan['tile'][1], plan['chunk'], launch['smem'], stream)
+        _build.check(lib, err, 'jacobi_smooth')
         _build.LAUNCHES['jacobi_sweeps'] += 1
         cur = out
     if emit_dot:

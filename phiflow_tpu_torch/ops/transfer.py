@@ -41,7 +41,7 @@ def _prolong_plain(c: torch.Tensor, ndim: int) -> torch.Tensor:
 def _lib():
     import ctypes
     P, I = ctypes.c_void_p, ctypes.c_int
-    return _build.library('transfer', {'prolong_add': [P, P, P, I, I, I, I, I, P]})
+    return _build.library('transfer', {'prolong_add': [P, P, P, I, I, I, I, P]})
 
 
 def _prolong_cuda(c: torch.Tensor, u: Optional[torch.Tensor]) -> torch.Tensor:
@@ -56,7 +56,7 @@ def _prolong_cuda(c: torch.Tensor, u: Optional[torch.Tensor]) -> torch.Tensor:
     lib = _lib()
     out = torch.empty(fine, dtype=c.dtype, device=c.device)
     err = lib.prolong_add(c.data_ptr(), None if u is None else u.data_ptr(), out.data_ptr(),
-                          _DTYPE_CODE[c.dtype], *fine, _build.block_x(fine[2]), _build.stream_of(c))
+                          _DTYPE_CODE[c.dtype], *fine, _build.stream_of(c))
     _build.check(lib, err, 'prolong_add')
     _build.LAUNCHES['prolong_add'] += 1
     return out

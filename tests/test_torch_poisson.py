@@ -144,6 +144,60 @@ def test_poisson_smooth_bf16_out_matches_pallas():
     assert _bf16_within_one_ulp(got, ref)
 
 
+# a 256³ V-cycle's levels, and chip_smoke.py's small shapes with z ≥ 64 and z < 64 (the 16 × 16 tile)
+V_CYCLE_SHAPES = [(n,) * 3 for n in (256, 128, 64, 32, 16, 8)] + [(24, 40, 72), (24, 40, 24)]
+
+
+@pytest.mark.parametrize('zero_init', [True, False], ids=['zero-init', 'warm'])
+@pytest.mark.parametrize('sweeps', [1, 2, 3, 4, 24])
+@pytest.mark.parametrize('shape', V_CYCLE_SHAPES, ids=lambda s: 'x'.join(map(str, s)))
+def test_smooth_plan(shape, sweeps, zero_init):
+    """K2's launch plan: one launch a smooth of up to 3 sweeps (the zero-init
+    u₀ = w·b one of them, alone at sweeps=1), a chain of ⌈ν/3⌉ beyond; float32
+    between launches and `out_dtype` at the end; shared memory within a
+    block's limit, and within half of it for one launch, so two blocks share
+    an SM; a grid that covers every output."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    plan = TP.smooth_plan(shape, sweeps, zero_init, (None if zero_init else bf16, f32, bf16))
+    launches = plan['launches']
+    assert len(launches) == -(-sweeps // 3)
+    assert [l['sweeps'] for l in launches] == [3] * (sweeps // 3) + [sweeps % 3] * (sweeps % 3 > 0)
+    assert [l['zero_init'] for l in launches] == [zero_init] + [False] * (len(launches) - 1)
+    for i, l in enumerate(launches):
+        S = l['sweeps'] - l['zero_init']
+        assert l['stencil_sweeps'] == S
+        # three float32 planes a level (u₀ and the S − 1 intermediate sweeps) and S + 1 of b, over the tile grown by S,
+        # rows padded to whole quads of cells
+        ty, tz = plan['tile']
+        assert l['smem'] == 4 * (4 * S + 1) * (ty + 2 * S) * (-(-(tz + 2 * S) // 4) * 4) <= TP.SMEM_LIMIT
+        assert l['u_dtype'] == (None if l['zero_init'] else bf16 if i == 0 else f32)
+        assert l['out_dtype'] == (bf16 if i == len(launches) - 1 else f32)
+    if sweeps <= 3:
+        assert plan['smem'] <= TP.SMEM_LIMIT // 2
+    if zero_init and sweeps == 1:
+        assert launches[0]['stencil_sweeps'] == 0  # u₀ = w·b alone, in one launch
+    assert plan['smem'] == max(l['smem'] for l in launches)
+    assert plan['tile'] == ((16, 64) if shape[2] >= 64 else (16, 16))
+    for n, t, g in zip(shape[::-1], (tz, ty, plan['chunk']), plan['grid']):
+        assert g * t >= n > (g - 1) * t
+    assert plan['blocks'] == plan['grid'][0] * plan['grid'][1] * plan['grid'][2]
+
+
+@pytest.mark.parametrize('chunk', [1, 3, 64, 300])
+def test_smooth_plan_fixed_chunk(chunk):
+    """A fixed x-chunk replaces the cost model's pick and only it: the grid's
+    x count follows it, the tile, launches and shared memory do not move."""
+    shape, dtypes = (256, 128, 64), (torch.bfloat16, torch.float32, torch.float32)
+    picked = TP.smooth_plan(shape, 3, False, dtypes)
+    plan = TP.smooth_plan(shape, 3, False, dtypes, chunk=chunk)
+    assert plan['chunk'] == chunk
+    assert plan['grid'] == picked['grid'][:2] + (-(-shape[0] // chunk),)
+    assert plan['blocks'] == plan['grid'][0] * plan['grid'][1] * plan['grid'][2]
+    assert {k: plan[k] for k in ('tile', 'smem', 'launches')} == {k: picked[k] for k in ('tile', 'smem', 'launches')}
+    with pytest.raises(ValueError):
+        TP.smooth_plan(shape, 3, False, dtypes, chunk=0)
+
+
 @pytest.mark.parametrize('bcs', [BCS[0], BCS[1], (('neumann', 'ghost0'), ('periodic', 'periodic'),
                                                   ('neumann', 'neumann'))], ids=BC_IDS)
 def test_residual_restrict_matches_pallas(bcs):
