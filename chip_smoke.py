@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py           # all phases, one card
     python3 chip_smoke.py --quick   # build + kernel-versus-twin checks at the small shapes only
-    python3 chip_smoke.py --profile # all phases, then torch.profiler over 3 steps of each path
-                                    # and K2 at every level of the 256³ V-cycle with each x-chunk
+    python3 chip_smoke.py --profile # all phases, then torch.profiler over 3 steps of each path,
+                                    # K2 and K3 at every level of the 256³ V-cycle and K1 at 256³
+                                    # with each x-chunk
 
 Phases; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi) and the torch / CUDA versions;
@@ -16,8 +17,10 @@ Phases; any failure exits non-zero and prints no result:
      obstacle path's own masks for K1m's coefficient form) and at a small
      shape that is not a power of two, over the three boundary modes, float32
      and bfloat16 where the path stores it (K2 also at one narrower than 64 in
-     z, its second tile; K4 also at a fine z that is no whole number of
-     16-byte groups, its scalar path); the median CUDA-event time of the
+     z, its second tile; K1, K3 and K4 also at a z that is no whole number of
+     16-byte groups, their scalar path, and K1 and K3 at one narrower than a
+     warp's runs, and K3 at the level shapes of the 48³ obstacle V-cycle,
+     with u and b in either dtype); the median CUDA-event time of the
      kernel, of the twin and, where one PyTorch call computes the same
      function, of that call (library_ms — the port never calls it), beside the
      bound: the larger of bytes moved / 3.35 TB/s and float32 operations /
@@ -267,18 +270,26 @@ def check_poisson(ch, gen, quick):
     def rnd(shape, dtype=f32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    # --- small shape: every boundary set, epilogue and storage type ---
+    # --- small shapes: every boundary set, epilogue and storage type; K1 and K3 at SMALL (their vector route),
+    # SMALL_NARROW (rows narrower than a warp's runs: idle lanes) and RAGGED (their scalar route) ---
     for bcs in BC_SETS:
         tag = '/'.join(f'{lo[0]}{hi[0]}' for lo, hi in bcs)
-        for dt in (f32, bf16):
-            p, b = rnd(SMALL, dt), rnd(SMALL, dt)
-            for mode in ('matvec', 'residual', 'jacobi'):
-                got = P.poisson_apply(p, inv, bcs, b=b, mode=mode, omega_over_diag=0.15)
-                ref = P._poisson_apply_plain(p, inv, bcs, b=b, mode=mode, omega_over_diag=0.15)
-                ch.compare('poisson_stencil', f'{mode} {SMALL} {tag} {str(dt)[6:]}', got, ref, 2e-5)
-            got, dot = P.poisson_apply(p, inv, bcs, with_dot=True)
-            ref, rdot = P._poisson_apply_plain(p, inv, bcs, with_dot=True)
-            ch.compare_dot('poisson_stencil', f'matvec with_dot {SMALL} {tag} {str(dt)[6:]}', dot, rdot, 1e-5)
+        for shape in (SMALL, SMALL_NARROW, RAGGED):
+            for dt, b_dt in ((f32, f32), (bf16, bf16), (bf16, f32), (f32, bf16)):
+                p, b = rnd(shape, dt), rnd(shape, b_dt)
+                for mode in ('matvec', 'residual', 'jacobi'):
+                    if mode == 'matvec' and b_dt != dt:
+                        continue  # b is not read
+                    case = f'{mode} {shape} {tag} p {str(dt)[6:]}'
+                    if mode != 'matvec':
+                        case += f', b {str(b_dt)[6:]}'
+                    ref, rdot = P._poisson_apply_plain(p, inv, bcs, b=b, mode=mode, omega_over_diag=0.15,
+                                                       with_dot=True)
+                    ch.compare('poisson_stencil', case, P.poisson_apply(p, inv, bcs, b=b, mode=mode,
+                                                                        omega_over_diag=0.15), ref, 2e-5)
+                    got, dot = P.poisson_apply(p, inv, bcs, b=b, mode=mode, omega_over_diag=0.15, with_dot=True)
+                    ch.compare('poisson_stencil', case + ' with_dot', got, ref, 2e-5)
+                    ch.compare_dot('poisson_stencil', case + ' with_dot', dot, rdot, 1e-5)
         w = 0.9 / (-2.0 * sum(inv))
         # K2: 1-3 sweeps in one launch (zero-init: u0 = w b is the first of them, alone at sweeps=1), u and b
         # stored in float32 or bfloat16, either result type, with and without the dot; and chains of launches:
@@ -297,11 +308,16 @@ def check_poisson(ch, gen, quick):
                         got, dot = P.poisson_smooth(*args, zero_init=zero_init, out_dtype=out_dtype, emit_dot=True)
                         ch.compare('jacobi_sweeps', case + ' +dot', got, ref, 2e-5)
                         ch.compare_dot('jacobi_sweeps', case, dot, rdot, 1e-5)
-        for dt in (f32, bf16):
-            u, b = rnd(SMALL, dt), rnd(SMALL)
-            got = P.residual_restrict(u, b, inv, bcs)
-            ref = P._residual_restrict_plain(u, b, inv, bcs)
-            ch.compare('residual_restrict', f'{SMALL} {tag} u {str(dt)[6:]}, b float32', got, ref, 1e-5)
+        # K3 at the small shapes and at the fine shapes of the 48³ obstacle V-cycle's levels (fine z 12 and 6:
+        # the scalar route in bfloat16, and in both dtypes)
+        for shape in (SMALL, SMALL_NARROW, RAGGED) + tuple((n,) * 3 for n in (48, 24, 12, 6)):
+            for dt in (f32, bf16):
+                for b_dt in (f32, bf16):
+                    u, b = rnd(shape, dt), rnd(shape, b_dt)
+                    got = P.residual_restrict(u, b, inv, bcs)
+                    ref = P._residual_restrict_plain(u, b, inv, bcs)
+                    ch.compare('residual_restrict', f'{shape} {tag} u {str(dt)[6:]}, b {str(b_dt)[6:]}', got, ref,
+                               1e-5)
     if quick:
         return
     # --- the 256³ path's shapes and dtypes (closed box = neumann everywhere) ---
@@ -447,6 +463,35 @@ def time_smooth_chunks(gen):
             rows.append(f'chunk {c}: pre {pre:.4f} post {post:.4f}')
         print(f'chunks {n}^3 (plan: pre chunk {picked[0]}, post chunk {picked[1]}) device ms: ' + '; '.join(rows),
               flush=True)
+        n //= 2
+
+
+def time_march_chunks(gen):
+    """K1 (256³, float32, with the dot) and K3 (every smoothed level of the
+    256³ V-cycle, in the dtypes of `time_vcycle_levels`) on the device with
+    each x-chunk of 1 to 64 planes a block (K3: coarse planes) fixed in their
+    plans, beside the chunk each plan picks: the measurement behind the
+    plans' cost model."""
+    import torch
+    from phiflow_tpu_torch.ops import poisson as P
+    f32, bf16 = torch.float32, torch.bfloat16
+    one = (1.0, 1.0, 1.0)
+
+    def sweep(what, planes, picked, fn):
+        rows = [f'chunk {c}: {replay_ms(lambda c=c: fn(c)):.4f}' for c in (1, 2, 4, 8, 16, 32, 64) if c <= planes]
+        print(f'chunks {what} (plan: chunk {picked}) device ms: ' + '; '.join(rows), flush=True)
+
+    p = torch.randn((PATH_N,) * 3, generator=gen, device='cuda')
+    sweep(f'K1 {PATH_N}^3 matvec + dot float32', PATH_N, P.stencil_plan(p.shape, f32)['chunk'],
+          lambda c: P._stencil_cuda(p, one, PATH_BC, None, None, None, None, 'matvec', None, True, chunk=c))
+    del p
+    n = PATH_N
+    while n > 4 and smoothed_levels(n) > 0:
+        inv = (1.0 / (PATH_N // n) ** 2,) * 3
+        b = torch.randn((n,) * 3, generator=gen, device='cuda').to(f32 if n == PATH_N else bf16)
+        u = torch.randn((n,) * 3, generator=gen, device='cuda').to(bf16)
+        sweep(f'K3 {n}^3 u bfloat16, b {str(b.dtype)[6:]}', n // 2, P.restrict_plan(u.shape, bf16, b.dtype)['chunk'],
+              lambda c, u=u, b=b, inv=inv: P._residual_restrict_cuda(u, b, inv, PATH_BC, chunk=c))
         n //= 2
 
 
@@ -1012,7 +1057,7 @@ def run_flip(tag, N, warmup=2, steps=5):
     return launches
 
 
-PORT_KERNELS = ('poisson_stencil_kernel', 'smooth_kernel', 'residual_restrict_kernel', 'prolong_add_kernel',
+PORT_KERNELS = ('stencil_kernel', 'smooth_kernel', 'residual_restrict_kernel', 'prolong_add_kernel',
                 'fused_advect_kernel', 'advect_lift_kernel', 'window_interp_kernel', 'window_interp_2d_kernel',
                 'p2g_kernel')
 
@@ -1464,6 +1509,7 @@ def main(argv):
         profile_obstacles(f'obstacle-{OBSTACLE_N}', OBSTACLE_N)
         profile_obstacles(f'obstacle-{OBSTACLE_N}-vcycle', OBSTACLE_N, 'vcycle')
         time_smooth_chunks(gen)
+        time_march_chunks(gen)
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rows.append(dict(name=name, route='cuda', source=source, replaces=replaces,

@@ -1,14 +1,16 @@
 // The 7-point Poisson stencil of the pressure solve, with its three kernels:
 //
-//   K1 poisson_stencil   replaces phiflow_tpu/ops/poisson.py::_apply_pallas_3d
-//                        (the CG matvec, with the fused <p, A p> partials), in
-//                        its unmasked and its masked form (obstacle
-//                        coefficients and the free surface's active cells)
+//   K1 stencil_kernel    replaces phiflow_tpu/ops/poisson.py::_apply_pallas_3d
+//                        (the CG matvec, with the fused <p, A p> partials): the
+//                        unmasked form as runs of cells marching along x
+//      poisson_stencil_kernel  its masked form (obstacle coefficients and the
+//                        free surface's active cells), one thread a cell
 //   K2 smooth_kernel     replaces phiflow_tpu/ops/poisson.py::_jacobi2_pallas_3d
 //                        (V-cycle smoothing: 1-3 sweeps in one launch, the
 //                        intermediate sweeps kept in shared memory)
-//   K3 residual_restrict replaces phiflow_tpu/ops/poisson.py::_residual_restrict_pallas_3d
-//                        (restrict_mean(b - A u); the fine residual is never stored)
+//   K3 residual_restrict_kernel replaces phiflow_tpu/ops/poisson.py::_residual_restrict_pallas_3d
+//                        (restrict_mean(b - A u); the fine residual is never
+//                        stored), runs of coarse cells marching along x
 //
 //   lap(c) = sum_d inv_d * (a-_d(c) p[c - e_d] + a+_d(c) p[c + e_d] + c0_d(c) p[c])
 //
@@ -31,15 +33,19 @@
 //
 // Bound: every kernel here does a few flops per byte, far below the card's
 // ~20 flop/byte balance point in float32, so each is bound by device-memory
-// bytes (inputs read once, outputs written once at best). K1 and K3 take the
-// simplest design that moves near-minimal bytes: one thread per output cell,
-// threads of a block along the contiguous z axis so loads coalesce, and the
-// six neighbour loads left to the L1/L2 caches instead of a shared-memory
-// tile. K2 would move every intermediate sweep through device memory that
-// way (a float32 write and read of the whole field a sweep), so it keeps them
-// in shared memory instead: the smooth reads u and b once (plus a halo) and
-// writes its result once, whatever its sweep count (see its kernel below).
-// Storage is float32 or bfloat16; arithmetic is float32 in registers.
+// bytes (inputs read once, outputs written once at best); on the card the
+// loads and instructions a cell costs on the way decide how near each comes.
+// K1 and K3 give a thread a run of z-neighbouring cells, 16 bytes of the
+// operand, marching along x with the planes x-1, x, x+1 of the run in
+// registers, so a cell costs a share of one vector load of its own plane; the
+// y neighbours are the neighbouring threads' runs (from L1), the z neighbours
+// the neighbouring lanes' by shuffle (see `march` below). The masked form
+// keeps one thread a cell, its neighbours from the L1/L2 caches. K2 would
+// move every intermediate sweep through device memory that way (a float32
+// write and read of the whole field a sweep), so it keeps them in shared
+// memory instead: the smooth reads u and b once (plus a halo) and writes its
+// result once, whatever its sweep count (see its kernel below). Storage is
+// float32 or bfloat16; arithmetic is float32 in registers.
 #include "common.cuh"
 
 #define MODE_PERIODIC 0
@@ -121,11 +127,10 @@ __device__ __forceinline__ float masked_axis_term(const Load &load, const float 
 }
 
 // ---------------------------------------------------------------------------
-// K1: out = A p | b - A p | p + w (b - A p); optional per-block <p, out> partials.
-// MASKED = false is the unmasked kernel, which reads no mask; MASKED = true
-// takes the coefficient arrays, the active cells, or both.
+// K1m: out = A p | b - A p | p + w (b - A p) of the masked form (the coefficient
+// arrays, the active cells, or both); optional per-block <p, out> partials.
 // ---------------------------------------------------------------------------
-template <int EPI, bool MASKED, typename TP, typename TB>
+template <int EPI, typename TP, typename TB>
 __global__ void poisson_stencil_kernel(const TP *__restrict__ p, const TB *__restrict__ b, TP *__restrict__ out,
                                        float *__restrict__ partials, Grid g, float w, Masks m) {
     const int k = blockIdx.x * blockDim.x + threadIdx.x, j = blockIdx.y, i = blockIdx.z;
@@ -135,7 +140,7 @@ __global__ void poisson_stencil_kernel(const TP *__restrict__ p, const TB *__res
         auto load = [&](long long r) { return ld(p, r); };
         const float pc = ld(p, q);
         float lap;
-        if (MASKED && m.mA[0] != nullptr) {
+        if (m.mA[0] != nullptr) {
             const long long sy = g.n[2], sx = (long long)g.n[1] * g.n[2];
             lap = g.inv[0] * masked_axis_term(load, m.mA[0], q, i, g.n[0], sx, g.lo[0], g.hi[0]) +
                   g.inv[1] * masked_axis_term(load, m.mA[1], q, j, g.n[1], sy, g.lo[1], g.hi[1]) +
@@ -147,7 +152,7 @@ __global__ void poisson_stencil_kernel(const TP *__restrict__ p, const TB *__res
         if (EPI == EPI_MATVEC) o = lap;
         else if (EPI == EPI_RESIDUAL) o = ld(b, q) - lap;
         else o = pc + w * (ld(b, q) - lap);
-        if (MASKED && m.active != nullptr && m.active[q] == 0.f) o = pc;
+        if (m.active != nullptr && m.active[q] == 0.f) o = pc;
         st(out, q, o);
         contrib = pc * o;
     }
@@ -397,52 +402,296 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) smooth_kernel(const TU *_
 }  // namespace smooth
 
 // ---------------------------------------------------------------------------
-// K3: one thread per coarse cell — the eight fine residuals b - A u and their mean.
+// K1 (unmasked) and K3: runs of cells marching along x.
+//
+// K1 computes out = A p | b - A p | p + w (b - A p) with optional per-block
+// <p, out> partials; K3 restrict_mean(b - A u) over 2 x 2 x 2 fine cells.
+// Both are bound by device-memory bytes, and how near they come depends on
+// the loads and index arithmetic a cell costs: one thread a cell would spend
+// seven 4-byte loads and the per-axis boundary tests on every cell, and one
+// thread a coarse cell would fetch each fine value of u about seven times.
+//
+// Design: a thread owns a run of z-neighbouring cells, 16 bytes of the
+// operand (4 float32 or 8 bfloat16 cells; K3: the fine run of 2 fine rows
+// under one run of coarse cells), and marches along x over a chunk of planes
+// (K3: fine planes, two a coarse plane), keeping the runs of planes x-1, x,
+// x+1 in registers: a plane costs one new 16-byte load a run, plus 16 bytes of
+// b where the epilogue reads it. The y neighbours are runs of the
+// neighbouring rows, which the block's other threads load as their own (so
+// they come from L1; K3's rows 2j and 2j+1 are each other's), the z
+// neighbours at a run's two ends come from the lanes beside it by shuffle,
+// and a scalar load at a warp's or a row's edge. Boundaries resolve by global
+// index: a neighbour past a periodic side wraps, one past a non-periodic
+// side is 0 and its mode goes into the centre coefficient. A block is bx
+// threads along z (a power of two <= 32, so a warp holds whole rows) by by
+// rows; a thread past the field computes on the field's first run, joins the
+// shuffles and the block sum, and stores nothing. Where a row is not a whole
+// number of 16-byte groups in every dtype read (or a pointer is not aligned
+// to them), the same threads take their values one at a time and mask the
+// ragged tail (VEC = false). The launch geometry comes from the wrapper's
+// plan (ops/poisson.py: stencil_plan, restrict_plan), which the C entries
+// check against the kernel's layout.
 // ---------------------------------------------------------------------------
-template <typename TU, typename TB>
-__global__ void residual_restrict_kernel(const TU *__restrict__ u, const TB *__restrict__ b, TU *__restrict__ out,
-                                         Grid g) {
-    const int kc = blockIdx.x * blockDim.x + threadIdx.x, jc = blockIdx.y, ic = blockIdx.z;
-    const int Zc = g.n[2] >> 1, Yc = g.n[1] >> 1;
-    if (kc >= Zc) return;
-    auto load = [&](long long r) { return ld(u, r); };
-    float sum = 0.f;
-    for (int di = 0; di < 2; ++di)
-        for (int dj = 0; dj < 2; ++dj)
-            for (int dk = 0; dk < 2; ++dk) {
-                const int i = 2 * ic + di, j = 2 * jc + dj, k = 2 * kc + dk;
-                const long long q = ((long long)i * g.n[1] + j) * g.n[2] + k;
-                const float pc = ld(u, q);
-                sum += ld(b, q) - laplace_at(load, g, i, j, k, q, pc);
+namespace march {
+constexpr int MAX_THREADS = 256;
+constexpr unsigned FULL = 0xffffffffu;
+
+// The offset of plane (or row) i of an axis of n, `stride` apart; -1 past a non-periodic side (i is at most one
+// past either end).
+__device__ __forceinline__ long long offset_or_none(int i, int n, int lo, int hi, long long stride) {
+    if (i >= 0 && i < n) return i * stride;
+    if (i < 0) return lo == MODE_PERIODIC ? (long long)(n - 1) * stride : -1;
+    return hi == MODE_PERIODIC ? 0 : -1;
+}
+
+// N values of storage type T at p[row + k0 ...] as float32. VEC: N * sizeof(T) bytes (8, 16 or 32) in aligned
+// vector loads. Otherwise one at a time: the cells k0 + i < n, the row's first cell at k0 + i == n when `wrap`
+// (the periodic neighbour of the row's last cell), 0 past them. row < 0: all 0 (past a non-periodic side).
+template <typename T, int N, bool VEC>
+__device__ __forceinline__ void load_run(const T *__restrict__ p, long long row, int k0, int n, bool wrap,
+                                         float (&f)[N]) {
+    if (row < 0) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) f[i] = 0.f;
+        return;
+    }
+    if constexpr (VEC) {
+        constexpr int W = N * (int)sizeof(T) / 4;  // 32-bit words
+        const T *src = p + row + k0;
+        uint32_t w[W];
+        if constexpr (W == 2) {
+            const uint2 h = *reinterpret_cast<const uint2 *>(src);
+            w[0] = h.x;
+            w[1] = h.y;
+        } else {
+#pragma unroll
+            for (int i = 0; i < W / 4; ++i) {
+                const uint4 r = reinterpret_cast<const uint4 *>(src)[i];
+                w[4 * i] = r.x;
+                w[4 * i + 1] = r.y;
+                w[4 * i + 2] = r.z;
+                w[4 * i + 3] = r.w;
             }
-    st(out, ((long long)ic * Yc + jc) * Zc + kc, sum * 0.125f);
+        }
+        unpack<T>(w, f);
+    } else {
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+            const int k = k0 + i;
+            f[i] = k < n ? ld(p, row + k) : (k == n && wrap) ? ld(p, row) : 0.f;
+        }
+    }
 }
 
-// ---------------------------------------------------------------------------
-// C entry points. `bx` is the block size along z (a multiple of 32), chosen by
-// the wrapper, which also sizes `partials` to the number of blocks.
-// ---------------------------------------------------------------------------
-static dim3 grid_of(int X, int Y, int Z, int bx) { return dim3((Z + bx - 1) / bx, Y, X); }
-
-template <int EPI, typename TP, typename TB>
-static void launch_stencil(dim3 grid, int bx, cudaStream_t s, const TP *p, const TB *b, TP *out, float *partials,
-                           const Grid &g, float w, const Masks &m) {
-    if (m.mA[0] != nullptr || m.active != nullptr)
-        poisson_stencil_kernel<EPI, true, TP, TB><<<grid, bx, 0, s>>>(p, b, out, partials, g, w, m);
-    else
-        poisson_stencil_kernel<EPI, false, TP, TB><<<grid, bx, 0, s>>>(p, b, out, partials, g, w, m);
+// N float32 values stored as T at p[q ...]: VEC in one 8- or 16-byte store, else the first `valid` one at a time.
+template <typename T, int N, bool VEC>
+__device__ __forceinline__ void store_run(T *__restrict__ p, long long q, int valid, const float (&f)[N]) {
+    if constexpr (VEC) {
+        constexpr int W = N * (int)sizeof(T) / 4;
+        static_assert(W == 2 || W == 4, "a run is stored in one 8- or 16-byte store");
+        uint32_t w[W];
+        pack<T>(f, w);
+        if constexpr (W == 2)
+            *reinterpret_cast<uint2 *>(p + q) = make_uint2(w[0], w[1]);
+        else
+            *reinterpret_cast<uint4 *>(p + q) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+            if (i < valid) st(p, q + i, f[i]);
+    }
 }
 
-// mA_x, mA_y, mA_z and c0 come together or are all null; active may be null.
-extern "C" int poisson_stencil(const void *p, int p_dt, const void *b, int b_dt, const float *mA_x,
-                               const float *mA_y, const float *mA_z, const float *c0, const float *active,
-                               void *out, float *partials, const Grid *g, int epilogue, float w, int bx,
-                               void *stream) {
-    const dim3 grid = grid_of(g->n[0], g->n[1], g->n[2], bx);
+// Where a thread's run of one row finds its z neighbours: the left one (cell k0 - 1, or the row's last where
+// periodic) from lane - 1 when that lane holds the run before it in the same row, else at `ql` (-1: 0, past a
+// non-periodic side); the right one (k0 + N, or the row's first) likewise from lane + 1 or at `qr`.
+struct ZEnds {
+    long long ql, qr;  // offsets within a plane, or -1
+    bool shl, shr;     // from the neighbouring lane
+};
+
+__device__ __forceinline__ ZEnds z_ends(long long row, int k0, int N, const Grid &g) {
+    const int Z = g.n[2], kl = k0 - 1, kr = k0 + N;
+    ZEnds e;
+    e.ql = kl >= 0 ? row + kl : g.lo[2] == MODE_PERIODIC ? row + Z - 1 : -1;
+    e.qr = kr < Z ? row + kr : (kr == Z && g.hi[2] == MODE_PERIODIC) ? row : -1;
+    e.shl = kl >= 0 && threadIdx.x > 0;
+    e.shr = kr < Z && threadIdx.x + 1 < blockDim.x;
+    return e;
+}
+
+// The z neighbours of a run's two ends in the plane at `pl`: every lane of the warp must call it.
+template <typename T>
+__device__ __forceinline__ void z_neighbours(const T *__restrict__ p, long long pl, const ZEnds &e, float first,
+                                             float last, float &zl, float &zr) {
+    const float up = __shfl_up_sync(FULL, last, 1), dn = __shfl_down_sync(FULL, first, 1);
+    zl = e.shl ? up : e.ql >= 0 ? ld(p, pl + e.ql) : 0.f;
+    zr = e.shr ? dn : e.qr >= 0 ? ld(p, pl + e.qr) : 0.f;
+}
+
+// K1, unmasked: a thread's run of V cells at (j, k0 ...) over planes [x0, x0 + cx).
+template <int EPI, typename TP, typename TB, bool VEC>
+__global__ void __launch_bounds__(MAX_THREADS) stencil_kernel(const TP *__restrict__ p, const TB *__restrict__ b,
+                                                              TP *__restrict__ out, float *__restrict__ partials,
+                                                              Grid g, float w, int cx) {
+    constexpr int V = 16 / sizeof(TP);
+    const int X = g.n[0], Y = g.n[1], Z = g.n[2];
+    const long long YZ = (long long)Y * Z;
+    const int k = (blockIdx.x * blockDim.x + threadIdx.x) * V, j = blockIdx.y * blockDim.y + threadIdx.y;
+    const bool live = j < Y && k < Z;
+    const int jj = live ? j : 0, k0 = live ? k : 0;
+    const long long row = (long long)jj * Z;
+    const long long rym = offset_or_none(jj - 1, Y, g.lo[1], g.hi[1], Z);
+    const long long ryp = offset_or_none(jj + 1, Y, g.lo[1], g.hi[1], Z);
+    const ZEnds ze = z_ends(row, k0, V, g);
+    const bool wrap_z = g.hi[2] == MODE_PERIODIC;
+    // the centre coefficient's y and z shares, cell by cell
+    const float cy = g.inv[1] * smooth::center_coef(jj, Y, g.lo[1], g.hi[1]);
+    float cyz[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) cyz[e] = cy + g.inv[2] * smooth::center_coef(k0 + e, Z, g.lo[2], g.hi[2]);
+    const int x0 = blockIdx.z * cx, x1 = min(x0 + cx, X);
+    float pm[V], pc[V], pn[V];
+    const long long plm = offset_or_none(x0 - 1, X, g.lo[0], g.hi[0], YZ);
+    load_run<TP, V, VEC>(p, plm < 0 ? -1 : plm + row, k0, Z, wrap_z, pm);
+    load_run<TP, V, VEC>(p, (long long)x0 * YZ + row, k0, Z, wrap_z, pc);
+    float contrib = 0.f;
+    for (int i = x0; i < x1; ++i) {
+        const long long pl = (long long)i * YZ, pln = offset_or_none(i + 1, X, g.lo[0], g.hi[0], YZ);
+        float ym[V], yp[V], bv[V];
+        load_run<TP, V, VEC>(p, pln < 0 ? -1 : pln + row, k0, Z, wrap_z, pn);
+        load_run<TP, V, VEC>(p, rym < 0 ? -1 : pl + rym, k0, Z, wrap_z, ym);
+        load_run<TP, V, VEC>(p, ryp < 0 ? -1 : pl + ryp, k0, Z, wrap_z, yp);
+        if (EPI != EPI_MATVEC) load_run<TB, V, VEC>(b, pl + row, k0, Z, false, bv);
+        float zl, zr;
+        z_neighbours(p, pl, ze, pc[0], pc[V - 1], zl, zr);
+        const float cx0 = g.inv[0] * smooth::center_coef(i, X, g.lo[0], g.hi[0]);
+        float o[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+            const float lo = e == 0 ? zl : pc[e - 1], hi = e == V - 1 ? zr : pc[e + 1];
+            // the twin's form: the neighbour terms axis by axis, then the whole centre coefficient
+            const float lap = g.inv[0] * (pm[e] + pn[e]) + g.inv[1] * (ym[e] + yp[e]) + g.inv[2] * (lo + hi) +
+                              (cx0 + cyz[e]) * pc[e];
+            if (EPI == EPI_MATVEC) o[e] = lap;
+            else if (EPI == EPI_RESIDUAL) o[e] = bv[e] - lap;
+            else o[e] = pc[e] + w * (bv[e] - lap);
+        }
+        if (live) {
+            store_run<TP, V, VEC>(out, pl + row + k0, Z - k0, o);
+#pragma unroll
+            for (int e = 0; e < V; ++e)
+                if (VEC || k0 + e < Z) contrib += pc[e] * o[e];
+        }
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+            pm[e] = pc[e];
+            pc[e] = pn[e];
+        }
+    }
+    if (partials != nullptr) {
+        const float sum = block_sum(contrib);
+        if (threadIdx.x == 0 && threadIdx.y == 0) partials[block_index()] = sum;
+    }
+}
+
+// K3: a thread's run of RC coarse cells at (jc, kc0 ...) over coarse planes [xc0, xc0 + cx): the fine rows 2 jc
+// and 2 jc + 1, F = 2 RC fine cells each, two fine planes a coarse plane.
+template <typename TU, typename TB, bool VEC>
+__global__ void __launch_bounds__(MAX_THREADS) residual_restrict_kernel(const TU *__restrict__ u,
+                                                                        const TB *__restrict__ b,
+                                                                        TU *__restrict__ out, Grid g, int cx) {
+    constexpr int F = 16 / sizeof(TU), RC = F / 2;
+    const int X = g.n[0], Y = g.n[1], Z = g.n[2], Yc = Y / 2, Zc = Z / 2;
+    const long long YZ = (long long)Y * Z;
+    const int kc = (blockIdx.x * blockDim.x + threadIdx.x) * RC, jc = blockIdx.y * blockDim.y + threadIdx.y;
+    const bool live = jc < Yc && kc < Zc;
+    const int jcc = live ? jc : 0, kc0 = live ? kc : 0, k0 = 2 * kc0;
+    const long long row[2] = {(long long)(2 * jcc) * Z, (long long)(2 * jcc + 1) * Z};
+    // row 2 jc's lower y neighbour and row 2 jc + 1's upper one; the rows are each other's other neighbour
+    const long long rym = offset_or_none(2 * jcc - 1, Y, g.lo[1], g.hi[1], Z);
+    const long long ryp = offset_or_none(2 * jcc + 2, Y, g.lo[1], g.hi[1], Z);
+    const ZEnds ze[2] = {z_ends(row[0], k0, F, g), z_ends(row[1], k0, F, g)};
+    const bool wrap_z = g.hi[2] == MODE_PERIODIC;
+    const float cy[2] = {g.inv[1] * smooth::center_coef(2 * jcc, Y, g.lo[1], g.hi[1]),
+                         g.inv[1] * smooth::center_coef(2 * jcc + 1, Y, g.lo[1], g.hi[1])};
+    float cz[F];
+#pragma unroll
+    for (int e = 0; e < F; ++e) cz[e] = g.inv[2] * smooth::center_coef(k0 + e, Z, g.lo[2], g.hi[2]);
+    const int f0 = 2 * blockIdx.z * cx, f1 = min(f0 + 2 * cx, X);
+    float qm[2][F], qc[2][F], qn[2][F];
+    const long long plm = offset_or_none(f0 - 1, X, g.lo[0], g.hi[0], YZ);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        load_run<TU, F, VEC>(u, plm < 0 ? -1 : plm + row[r], k0, Z, wrap_z, qm[r]);
+        load_run<TU, F, VEC>(u, (long long)f0 * YZ + row[r], k0, Z, wrap_z, qc[r]);
+    }
+    float acc[RC];
+#pragma unroll
+    for (int e = 0; e < RC; ++e) acc[e] = 0.f;
+    for (int f = f0; f < f1; ++f) {
+        const long long pl = (long long)f * YZ, pln = offset_or_none(f + 1, X, g.lo[0], g.hi[0], YZ);
+        float ym[F], yp[F], bv[2][F];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            load_run<TU, F, VEC>(u, pln < 0 ? -1 : pln + row[r], k0, Z, wrap_z, qn[r]);
+            load_run<TB, F, VEC>(b, pl + row[r], k0, Z, false, bv[r]);
+        }
+        load_run<TU, F, VEC>(u, rym < 0 ? -1 : pl + rym, k0, Z, wrap_z, ym);
+        load_run<TU, F, VEC>(u, ryp < 0 ? -1 : pl + ryp, k0, Z, wrap_z, yp);
+        float zl[2], zr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) z_neighbours(u, pl, ze[r], qc[r][0], qc[r][F - 1], zl[r], zr[r]);
+        const float cx0 = g.inv[0] * smooth::center_coef(f, X, g.lo[0], g.hi[0]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+            for (int e = 0; e < F; ++e) {
+                const float lo = e == 0 ? zl[r] : qc[r][e - 1], hi = e == F - 1 ? zr[r] : qc[r][e + 1];
+                const float ylo = r == 0 ? ym[e] : qc[0][e], yhi = r == 0 ? qc[1][e] : yp[e];
+                const float lap = g.inv[0] * (qm[r][e] + qn[r][e]) + g.inv[1] * (ylo + yhi) + g.inv[2] * (lo + hi) +
+                                  (cx0 + cy[r] + cz[e]) * qc[r][e];
+                acc[e / 2] += bv[r][e] - lap;
+            }
+        }
+        if (f & 1) {  // the coarse plane's second fine plane: its mean is complete
+            float o[RC];
+#pragma unroll
+            for (int e = 0; e < RC; ++e) {
+                o[e] = acc[e] * 0.125f;
+                acc[e] = 0.f;
+            }
+            if (live) store_run<TU, RC, VEC>(out, ((long long)(f >> 1) * Yc + jcc) * Zc + kc0, Zc - kc0, o);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+            for (int e = 0; e < F; ++e) {
+                qm[r][e] = qc[r][e];
+                qc[r][e] = qn[r][e];
+            }
+        }
+    }
+}
+}  // namespace march
+
+// ---------------------------------------------------------------------------
+// C entry points. Each checks the wrapper's plan against its kernel's layout
+// and refuses one that disagrees.
+// ---------------------------------------------------------------------------
+
+// K1m. `bx` is the block size along z (a multiple of 32), chosen by the wrapper, which also sizes `partials` to the
+// number of blocks. mA_x, mA_y, mA_z and c0 come together or are all null; active may be null; not all are null
+// (the unmasked form is stencil_unmasked).
+extern "C" int stencil_masked(const void *p, int p_dt, const void *b, int b_dt, const float *mA_x,
+                              const float *mA_y, const float *mA_z, const float *c0, const float *active,
+                              void *out, float *partials, const Grid *g, int epilogue, float w, int bx,
+                              void *stream) {
+    const dim3 grid((g->n[2] + bx - 1) / bx, g->n[1], g->n[0]);
     cudaStream_t s = (cudaStream_t)stream;
     const bool any_coeff = mA_x != nullptr || mA_y != nullptr || mA_z != nullptr || c0 != nullptr;
     const bool all_coeff = mA_x != nullptr && mA_y != nullptr && mA_z != nullptr && c0 != nullptr;
-    if (any_coeff != all_coeff) return (int)cudaErrorInvalidValue;
+    if (any_coeff != all_coeff || (!any_coeff && active == nullptr)) return (int)cudaErrorInvalidValue;
     const Masks m = {{mA_x, mA_y, mA_z}, c0, active};
     if (epilogue == EPI_MATVEC) b_dt = p_dt;  // b is not read
     PTT_DT(p_dt, TP, PTT_DT(b_dt, TB, {
@@ -450,15 +699,70 @@ extern "C" int poisson_stencil(const void *p, int p_dt, const void *b, int b_dt,
         const TB *bb = (const TB *)b;
         TP *oo = (TP *)out;
         if (epilogue == EPI_MATVEC)
-            launch_stencil<EPI_MATVEC>(grid, bx, s, pp, bb, oo, partials, *g, w, m);
+            poisson_stencil_kernel<EPI_MATVEC, TP, TB><<<grid, bx, 0, s>>>(pp, bb, oo, partials, *g, w, m);
         else if (epilogue == EPI_RESIDUAL)
-            launch_stencil<EPI_RESIDUAL>(grid, bx, s, pp, bb, oo, partials, *g, w, m);
+            poisson_stencil_kernel<EPI_RESIDUAL, TP, TB><<<grid, bx, 0, s>>>(pp, bb, oo, partials, *g, w, m);
         else if (epilogue == EPI_JACOBI)
-            launch_stencil<EPI_JACOBI>(grid, bx, s, pp, bb, oo, partials, *g, w, m);
+            poisson_stencil_kernel<EPI_JACOBI, TP, TB><<<grid, bx, 0, s>>>(pp, bb, oo, partials, *g, w, m);
         else
             return (int)cudaErrorInvalidValue;
     }));
     return (int)cudaGetLastError();
+}
+
+// The march kernels' launch geometry: blocks of bx (a power of two <= 32) by `by` threads, a whole number of warps
+// and at most march::MAX_THREADS, `runs` runs a row along z, `rows` rows, `planes` planes in chunks of cx; the
+// plan's block count must be the grid's. Returns the grid, or dim3(0) where the plan disagrees.
+static dim3 march_grid(int runs, int rows, int planes, int bx, int by, int cx, int blocks) {
+    const int threads = bx * by;
+    if (bx < 1 || bx > 32 || (bx & (bx - 1)) || by < 1 || threads % 32 || threads > march::MAX_THREADS || cx < 1)
+        return dim3(0);
+    const dim3 grid((runs + bx - 1) / bx, (rows + by - 1) / by, (planes + cx - 1) / cx);
+    if ((long long)grid.x * grid.y * grid.z != blocks) return dim3(0);
+    return grid;
+}
+
+// The vector route needs every row of every array it reads or writes to start on a 16-byte boundary.
+static bool rows_aligned(int Z, int itemsize, const void *ptr) {
+    return (long long)Z * itemsize % 16 == 0 && (uintptr_t)ptr % 16 == 0;
+}
+
+template <int EPI, typename TP, typename TB>
+static int launch_unmasked(const TP *p, const TB *b, TP *out, float *partials, const Grid &g, float w, int vector,
+                           int bx, int by, int cx, int blocks, cudaStream_t s) {
+    constexpr int V = 16 / sizeof(TP);
+    const dim3 grid = march_grid((g.n[2] + V - 1) / V, g.n[1], g.n[0], bx, by, cx, blocks);
+    if (grid.x == 0) return (int)cudaErrorInvalidValue;
+    const bool aligned = rows_aligned(g.n[2], sizeof(TP), p) && rows_aligned(g.n[2], sizeof(TP), out) &&
+                         (EPI == EPI_MATVEC || rows_aligned(g.n[2], sizeof(TB), b));
+    if (vector && !aligned) return (int)cudaErrorInvalidValue;
+    const dim3 block(bx, by);
+    if (vector)
+        march::stencil_kernel<EPI, TP, TB, true><<<grid, block, 0, s>>>(p, b, out, partials, g, w, cx);
+    else
+        march::stencil_kernel<EPI, TP, TB, false><<<grid, block, 0, s>>>(p, b, out, partials, g, w, cx);
+    return (int)cudaGetLastError();
+}
+
+// K1, unmasked. `vector`, `bx`, `by`, `cx` and `blocks` (the partials' count) are the wrapper's plan.
+extern "C" int stencil_unmasked(const void *p, int p_dt, const void *b, int b_dt, void *out, float *partials,
+                                const Grid *g, int epilogue, float w, int vector, int bx, int by, int cx,
+                                int blocks, void *stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (epilogue == EPI_MATVEC) b_dt = p_dt;  // b is not read
+    PTT_DT(p_dt, TP, PTT_DT(b_dt, TB, {
+        const TP *pp = (const TP *)p;
+        const TB *bb = (const TB *)b;
+        TP *oo = (TP *)out;
+        if (epilogue == EPI_MATVEC)
+            return launch_unmasked<EPI_MATVEC>(pp, bb, oo, partials, *g, w, vector, bx, by, cx, blocks, s);
+        if (epilogue == EPI_RESIDUAL)
+            return launch_unmasked<EPI_RESIDUAL>(pp, bb, oo, partials, *g, w, vector, bx, by, cx, blocks, s);
+        if (epilogue == EPI_JACOBI)
+            return launch_unmasked<EPI_JACOBI>(pp, bb, oo, partials, *g, w, vector, bx, by, cx, blocks, s);
+        return (int)cudaErrorInvalidValue;
+    }));
+    return (int)cudaErrorInvalidValue;
 }
 
 template <int S, int TZ, typename TU, typename TB, typename TO>
@@ -507,13 +811,28 @@ extern "C" int jacobi_smooth(const void *u, int u_dt, const void *b, int b_dt, v
     return (int)cudaErrorInvalidValue;
 }
 
+// K3. (X, Y, Z) in g: the fine shape, all even. `vector`, `bx`, `by`, `cx` (coarse planes a block) and `blocks`
+// are the wrapper's plan.
 extern "C" int residual_restrict(const void *u, int u_dt, const void *b, int b_dt, void *out, const Grid *g,
-                                 int bx, void *stream) {
-    if ((g->n[0] | g->n[1] | g->n[2]) & 1) return (int)cudaErrorInvalidValue;
-    const dim3 grid = grid_of(g->n[0] / 2, g->n[1] / 2, g->n[2] / 2, bx);
+                                 int vector, int bx, int by, int cx, int blocks, void *stream) {
+    const int X = g->n[0], Y = g->n[1], Z = g->n[2];
+    if ((X | Y | Z) & 1) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     PTT_DT(u_dt, TU, PTT_DT(b_dt, TB, {
-        residual_restrict_kernel<TU, TB><<<grid, bx, 0, s>>>((const TU *)u, (const TB *)b, (TU *)out, *g);
+        constexpr int RC = 8 / sizeof(TU);  // coarse cells a run: 16 bytes of a fine row of u
+        const dim3 grid = march_grid((Z / 2 + RC - 1) / RC, Y / 2, X / 2, bx, by, cx, blocks);
+        if (grid.x == 0) return (int)cudaErrorInvalidValue;
+        const bool aligned = rows_aligned(Z, sizeof(TU), u) && rows_aligned(Z, sizeof(TB), b) &&
+                             (uintptr_t)out % 8 == 0;
+        if (vector && !aligned) return (int)cudaErrorInvalidValue;
+        const dim3 block(bx, by);
+        if (vector)
+            march::residual_restrict_kernel<TU, TB, true><<<grid, block, 0, s>>>((const TU *)u, (const TB *)b,
+                                                                                  (TU *)out, *g, cx);
+        else
+            march::residual_restrict_kernel<TU, TB, false><<<grid, block, 0, s>>>((const TU *)u, (const TB *)b,
+                                                                                   (TU *)out, *g, cx);
+        return (int)cudaGetLastError();
     }));
-    return (int)cudaGetLastError();
+    return (int)cudaErrorInvalidValue;
 }

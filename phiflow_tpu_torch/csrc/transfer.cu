@@ -13,38 +13,7 @@
 // aligned to them), the same threads take their values one at a time and mask
 // the ragged tail. The TPU kernel's MXU pairing matmul (an interleave along
 // its lane axis) has no reason to exist here.
-#include <stdint.h>
-
 #include "common.cuh"
-
-// 32-bit words of storage type T as float32 values (2 a word for bfloat16,
-// whose float32 value is its bits in the upper half) and back, rounding to
-// nearest even as `st` does.
-template <typename T, int W>
-__device__ __forceinline__ void unpack(const uint32_t (&w)[W], float *f) {
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-        if constexpr (sizeof(T) == 4) {
-            f[i] = __uint_as_float(w[i]);
-        } else {
-            f[2 * i] = __uint_as_float(w[i] << 16);
-            f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-        }
-    }
-}
-
-template <typename T, int W>
-__device__ __forceinline__ void pack(const float *f, uint32_t (&w)[W]) {
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-        if constexpr (sizeof(T) == 4) {
-            w[i] = __float_as_uint(f[i]);
-        } else {
-            w[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i])) |
-                   (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i + 1])) << 16;
-        }
-    }
-}
 
 template <typename T, bool VEC>
 __global__ void prolong_add_kernel(const T *__restrict__ c, const T *__restrict__ u, T *__restrict__ out, int X,

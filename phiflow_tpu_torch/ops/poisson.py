@@ -11,14 +11,15 @@ Three CUDA kernels (`csrc/poisson.cu`) carry it on the card:
 
 * `poisson_apply` — K1, the CG matvec. ``with_dot=True`` also returns
   ⟨p, A·p⟩ from per-block partials (JAX arms a global capture box instead).
-  Its masked form takes the coefficient arrays ``mA_list`` and ``c0`` that
+  The unmasked form marches runs of cells along x (`stencil_plan`); the
+  masked form (K1m) takes the coefficient arrays ``mA_list`` and ``c0`` that
   `stage_masks` makes from face masks (obstacles), the ``active`` cells (a
   free surface: the result is p itself where active is 0), or both.
 * `poisson_smooth` — K2, damped-Jacobi sweeps, one launch for up to three
   (`smooth_plan`); ``zero_init`` forms u₀ = w·b from the staged b,
   ``emit_dot`` returns ⟨u_out, b⟩.
 * `residual_restrict` — K3, restrict_mean(b − A·u) without storing the fine
-  residual.
+  residual, marching runs of coarse cells along x (`restrict_plan`).
 
 Their plain twin is `_apply_plain` (`_apply_xla` of the JAX package, masks
 included). A wrapper takes the twin only for tensors on the CPU; for 3D CUDA
@@ -42,8 +43,8 @@ import torch
 from . import _build
 from .transfer import restrict_mean
 
-__all__ = ['poisson_apply', 'poisson_smooth', 'residual_restrict', 'stage_masks',
-           'PERIODIC', 'NEUMANN', 'GHOST0']
+__all__ = ['poisson_apply', 'poisson_smooth', 'residual_restrict', 'stage_masks', 'stencil_plan',
+           'restrict_plan', 'PERIODIC', 'NEUMANN', 'GHOST0']
 
 PERIODIC, NEUMANN, GHOST0 = 'periodic', 'neumann', 'ghost0'
 _MODE_CODE = {PERIODIC: 0, NEUMANN: 1, GHOST0: 2}
@@ -176,9 +177,10 @@ def _lib():
     import ctypes
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.library('poisson', {
-        'poisson_stencil': [P, I, P, I, P, P, P, P, P, P, P, P, I, F, I, P],
+        'stencil_masked': [P, I, P, I, P, P, P, P, P, P, P, P, I, F, I, P],
+        'stencil_unmasked': [P, I, P, I, P, P, P, I, F, I, I, I, I, I, P],
         'jacobi_smooth': [P, I, P, I, P, I, P, P, F, I, I, I, I, I, P],
-        'residual_restrict': [P, I, P, I, P, P, I, P],
+        'residual_restrict': [P, I, P, I, P, P, I, I, I, I, I, P],
     })
 
 
@@ -211,7 +213,8 @@ def _check_bc(bc):
         raise ValueError(f"bc: three (lower, upper) pairs of {tuple(_MODE_CODE)} expected, got {bc}")
 
 
-def _partials(shape, device):
+def _masked_partials(shape, device):
+    """K1m's per-block partials: one a block of `_build.block_x(Z)` cells of a row."""
     X, Y, Z = shape
     bx = _build.block_x(Z)
     return torch.empty(X * Y * ((Z + bx - 1) // bx), dtype=torch.float32, device=device)
@@ -219,6 +222,100 @@ def _partials(shape, device):
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def _aligned(*ts) -> bool:
+    """Every given tensor's data starts on a 16-byte boundary (the march kernels' vector route)."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+
+
+# ---------------------------------------------------------------------------
+# K1 (unmasked) and K3: the march kernels' launch plans
+# ---------------------------------------------------------------------------
+
+_SMS = 132  # streaming multiprocessors of the H100 SXM part the cost models were measured on
+MARCH_THREADS = 256  # threads a block at most (march::MAX_THREADS in csrc/poisson.cu)
+# threads an SM holds of each kernel, as its registers a thread allow (ptxas, `chip_smoke.py`'s build lines)
+_STENCIL_THREADS_PER_SM = 1024
+_RESTRICT_THREADS_PER_SM = 512
+_CHUNKS = (64, 32, 16, 8, 4, 2, 1)
+
+
+def _march_plan(runs: int, rows: int, planes: int, steps, threads_per_sm: int, chunk: Optional[int]) -> dict:
+    """A march kernel's blocks: bx threads along z (a power of two up to a
+    warp, so that a warp holds whole rows) by `by` rows, a whole number of
+    warps and at most `MARCH_THREADS`, with no more rows than the field
+    needs; each block marches over `chunk` planes. The chunk minimises the
+    estimated plane steps in series — the larger of a block's own, `steps(c)`
+    (its halo planes included), and all blocks' steps over the blocks the
+    SMs hold at once — unless ``chunk`` fixes it."""
+    bx = 1
+    while bx < min(runs, 32):
+        bx *= 2
+    rows_p2 = 1
+    while rows_p2 < rows:
+        rows_p2 *= 2
+    by = max(32 // bx, min(MARCH_THREADS // bx, rows_p2))
+    tiles = -(-runs // bx) * -(-rows // by)
+    slots = _SMS * min(32, threads_per_sm // (bx * by))
+
+    def cost(c):
+        return max(steps(c), tiles * -(-planes // c) * steps(c) / slots)
+    if chunk is None:
+        chunk = min((c for c in _CHUNKS if c <= max(planes, 1)), key=cost)
+    elif chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    grid = (-(-runs // bx), -(-rows // by), -(-planes // chunk))
+    return dict(block=(bx, by), chunk=chunk, grid=grid, blocks=grid[0] * grid[1] * grid[2])
+
+
+def _rows_aligned(Z: int, dtypes) -> bool:
+    return all(Z * dt.itemsize % 16 == 0 for dt in dtypes if dt is not None)
+
+
+@functools.lru_cache(maxsize=256)
+def stencil_plan(shape: Sequence[int], p_dtype: torch.dtype, b_dtype: Optional[torch.dtype] = None,
+                 aligned: bool = True, chunk: Optional[int] = None) -> dict:
+    """The unmasked K1's launch for a 3D field of `shape` stored as
+    ``p_dtype`` (``b_dtype``: b's, where the epilogue reads it).
+
+    A thread owns a run of 16 bytes of p along z (``run``: 4 float32 or 8
+    bfloat16 cells) and marches along x over ``chunk`` planes. ``route`` is
+    'vector' (16-byte loads and stores) where every row of p and b starts on
+    a 16-byte boundary (Z·itemsize a multiple of 16, the tensors
+    ``aligned``), else 'scalar' (the same threads, one value at a time, the
+    ragged tail masked). Returns the route, the run, the block (bx, by),
+    the chunk, the grid (z runs, y rows, x chunks), the number of blocks and
+    of the dot's partials (one a block). Cached (a few launches a CG
+    iteration ask for the same few plans): `shape` is a tuple or a
+    `torch.Size`, and the returned dict is shared, not to be modified."""
+    X, Y, Z = (int(n) for n in shape)
+    run = 16 // p_dtype.itemsize
+    vector = aligned and _rows_aligned(Z, (p_dtype, b_dtype))
+    plan = _march_plan(-(-Z // run), Y, X, lambda c: c + 2, _STENCIL_THREADS_PER_SM, chunk)
+    return dict(route='vector' if vector else 'scalar', run=run, partials=plan['blocks'], **plan)
+
+
+@functools.lru_cache(maxsize=256)
+def restrict_plan(shape: Sequence[int], u_dtype: torch.dtype, b_dtype: torch.dtype, aligned: bool = True,
+                  chunk: Optional[int] = None) -> dict:
+    """K3's launch for a fine field of `shape` (all even), u stored as
+    ``u_dtype`` and b as ``b_dtype``.
+
+    A thread owns a run of coarse cells along z (``run``: 2 float32 or 4
+    bfloat16 cells — 16 bytes of each of its two fine rows of u) and marches
+    along x over ``chunk`` coarse planes, two fine planes each. ``route`` is
+    'vector' where every fine row of u and of b starts on a 16-byte boundary,
+    else 'scalar'. Returns the route, the run, the block (bx, by), the
+    chunk, the grid (z runs, coarse y rows, x chunks) and the number of
+    blocks, all over the coarse field. Cached as `stencil_plan` is."""
+    X, Y, Z = (int(n) for n in shape)
+    if X % 2 or Y % 2 or Z % 2:
+        raise ValueError(f"residual_restrict needs even sizes, got {tuple(shape)}")
+    run = 8 // u_dtype.itemsize
+    vector = aligned and _rows_aligned(Z, (u_dtype, b_dtype))
+    plan = _march_plan(-(-(Z // 2) // run), Y // 2, X // 2, lambda c: 2 * c + 2, _RESTRICT_THREADS_PER_SM, chunk)
+    return dict(route='vector' if vector else 'scalar', run=run, **plan)
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +372,7 @@ def _mask_field(name, m, like):
         raise ValueError(f"{name}: shape {tuple(m.shape)} does not broadcast to {tuple(like.shape)}") from None
 
 
-def _stencil_cuda(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag, with_dot):
+def _stencil_cuda(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag, with_dot, chunk=None):
     _check_bc(bc)
     _check_field('p', p)
     masks = [None] * 5
@@ -294,14 +391,22 @@ def _stencil_cuda(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag,
     import ctypes
     lib = _lib()
     out = torch.empty_like(p)
-    partials = _partials(p.shape, p.device) if with_dot else None
     g = _grid(p.shape, inv_dx2, bc)
-    err = lib.poisson_stencil(p.data_ptr(), _DTYPE_CODE[p.dtype], _ptr(b if mode != 'matvec' else None),
-                              _DTYPE_CODE[b.dtype] if (b is not None and mode != 'matvec') else 0,
-                              *(_ptr(m) for m in masks),
-                              out.data_ptr(), _ptr(partials), ctypes.byref(g), _EPILOGUE[mode],
-                              float(np.float32(omega_over_diag or 0.0)), _build.block_x(p.shape[2]),
-                              _build.stream_of(p))
+    b_read = b if mode != 'matvec' else None
+    b_dt = _DTYPE_CODE[b_read.dtype] if b_read is not None else 0
+    w = float(np.float32(omega_over_diag or 0.0))
+    if any(m is not None for m in masks):
+        partials = _masked_partials(p.shape, p.device) if with_dot else None
+        err = lib.stencil_masked(p.data_ptr(), _DTYPE_CODE[p.dtype], _ptr(b_read), b_dt, *(_ptr(m) for m in masks),
+                                 out.data_ptr(), _ptr(partials), ctypes.byref(g), _EPILOGUE[mode], w,
+                                 _build.block_x(p.shape[2]), _build.stream_of(p))
+    else:
+        plan = stencil_plan(p.shape, p.dtype, None if b_read is None else b_read.dtype, _aligned(p, out, b_read),
+                            chunk)
+        partials = torch.empty(plan['partials'], dtype=torch.float32, device=p.device) if with_dot else None
+        err = lib.stencil_unmasked(p.data_ptr(), _DTYPE_CODE[p.dtype], _ptr(b_read), b_dt, out.data_ptr(),
+                                   _ptr(partials), ctypes.byref(g), _EPILOGUE[mode], w, int(plan['route'] == 'vector'),
+                                   *plan['block'], plan['chunk'], plan['blocks'], _build.stream_of(p))
     _build.check(lib, err, 'poisson_stencil')
     _build.LAUNCHES['poisson_stencil'] += 1
     if any(m is not None for m in masks):
@@ -362,7 +467,6 @@ SMOOTH_TILES = ((16, 64), (16, 16))  # (y, z) outputs a block (smooth::TY, TZ in
 _SMOOTH_PACE_PER_SM = 1.5
 SMOOTH_MAX_SWEEPS = 3  # a launch's sweeps; a longer smooth is a chain of launches
 SMEM_LIMIT = _build.SMEM_LIMIT
-_SMS = 132  # streaming multiprocessors of the H100 SXM part the cost model was measured on
 
 
 def _smooth_smem(stencil_sweeps: int, tile) -> int:
@@ -468,22 +572,25 @@ def residual_restrict(u: torch.Tensor, b: torch.Tensor, inv_dx2: Sequence[float]
     (X, Y, Z) or (X, Y) with even sizes; the 2D form is PyTorch operations on
     any device."""
     if u.is_cuda and len(bc) != 2:
-        _check_bc(bc)
-        _check_field('u', u)
-        _check_field('b', b, u.shape)
-        if any(n % 2 for n in u.shape):
-            raise ValueError(f"residual_restrict needs even sizes, got {tuple(u.shape)}")
-        import ctypes
-        lib = _lib()
-        out = torch.empty(tuple(n // 2 for n in u.shape), dtype=u.dtype, device=u.device)
-        g = _grid(u.shape, inv_dx2, bc)
-        err = lib.residual_restrict(u.data_ptr(), _DTYPE_CODE[u.dtype], b.data_ptr(), _DTYPE_CODE[b.dtype],
-                                    out.data_ptr(), ctypes.byref(g), _build.block_x(u.shape[2] // 2),
-                                    _build.stream_of(u))
-        _build.check(lib, err, 'residual_restrict')
-        _build.LAUNCHES['residual_restrict'] += 1
-        return out
+        return _residual_restrict_cuda(u, b, inv_dx2, bc)
     return _residual_restrict_plain(u, b, inv_dx2, bc)
+
+
+def _residual_restrict_cuda(u, b, inv_dx2, bc, chunk=None):
+    _check_bc(bc)
+    _check_field('u', u)
+    _check_field('b', b, u.shape)
+    import ctypes
+    lib = _lib()
+    out = torch.empty(tuple(n // 2 for n in u.shape), dtype=u.dtype, device=u.device)
+    plan = restrict_plan(u.shape, u.dtype, b.dtype, _aligned(u, b, out), chunk)
+    g = _grid(u.shape, inv_dx2, bc)
+    err = lib.residual_restrict(u.data_ptr(), _DTYPE_CODE[u.dtype], b.data_ptr(), _DTYPE_CODE[b.dtype],
+                                out.data_ptr(), ctypes.byref(g), int(plan['route'] == 'vector'), *plan['block'],
+                                plan['chunk'], plan['blocks'], _build.stream_of(u))
+    _build.check(lib, err, 'residual_restrict')
+    _build.LAUNCHES['residual_restrict'] += 1
+    return out
 
 
 def _residual_restrict_plain(u, b, inv_dx2, bc):

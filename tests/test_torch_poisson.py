@@ -1,7 +1,10 @@
 """The port's Poisson stencil (K1 `poisson_apply`, K2 `poisson_smooth`, K3
 `residual_restrict`) against the JAX package's Pallas kernels run in
-interpret mode. The port runs on the CPU, where its wrappers take the plain
-PyTorch twins; inputs are made with numpy from a seed and fed to both."""
+interpret mode (or its XLA route, at shapes its gates refuse). The port runs
+on the CPU, where its wrappers take the plain PyTorch twins; inputs are made
+with numpy from a seed and fed to both. The kernels' launch plans
+(`smooth_plan`, `stencil_plan`, `restrict_plan`) are pure Python and are
+checked here too."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -206,6 +209,129 @@ def test_residual_restrict_matches_pallas(bcs):
     ref = JP._residual_restrict_pallas_3d(jnp.asarray(u), jnp.asarray(b), inv, bcs, interpret=True)
     got = TP.residual_restrict(torch.from_numpy(u), torch.from_numpy(b), inv, bcs)
     assert tuple(got.shape) == (2, 8, 128)
+    assert _max_err(got, ref) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# K1 (unmasked) and K3: the march kernels' launch plans, and parity at ragged z
+# ---------------------------------------------------------------------------
+
+# the level shapes of the 256³ and 48³ V-cycles (fine shapes, as K3 takes them), and chip_smoke.py's small shapes:
+# SMALL, SMALL_NARROW (z narrower than a warp's runs) and RAGGED (rows that are no whole number of 16-byte groups)
+MARCH_SHAPES = ([(n,) * 3 for n in (256, 128, 64, 32, 16, 8)] + [(n,) * 3 for n in (48, 24, 12, 6)]
+                + [(24, 40, 72), (24, 40, 24), (24, 40, 70)])
+MARCH_IDS = ['x'.join(map(str, s)) for s in MARCH_SHAPES]
+DTYPES = {'f32': torch.float32, 'bf16': torch.bfloat16}
+
+
+def _covers_once(n, blocks, per_block, per_thread):
+    """Block g's thread t owns indices (g·per_block + t)·per_thread + e, e < per_thread: those below n cover
+    [0, n) exactly once, and the last block owns at least one of them."""
+    owned = [(g * per_block + t) * per_thread + e
+             for g in range(blocks) for t in range(per_block) for e in range(per_thread)]
+    return sorted(i for i in owned if i < n) == list(range(n)) and (blocks - 1) * per_block * per_thread < n
+
+
+def _check_march_block(plan):
+    bx, by = plan['block']
+    assert 1 <= bx <= 32 and bx & (bx - 1) == 0  # a warp holds whole rows
+    assert (bx * by) % 32 == 0 and bx * by <= TP.MARCH_THREADS
+    assert plan['blocks'] == plan['grid'][0] * plan['grid'][1] * plan['grid'][2]
+
+
+def _aligned_rows(Z, *dtypes):
+    return all(Z * dt.itemsize % 16 == 0 for dt in dtypes if dt is not None)
+
+
+@pytest.mark.parametrize('b_dtype', [None, 'f32', 'bf16'], ids=['matvec', 'b-f32', 'b-bf16'])
+@pytest.mark.parametrize('p_dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('shape', MARCH_SHAPES, ids=MARCH_IDS)
+def test_stencil_plan(shape, p_dtype, b_dtype):
+    """K1's plan: runs of 16 bytes of p, a grid that covers every cell exactly
+    once (z runs × y rows × x chunks), one partial a block, and the vector
+    route exactly where every row of p and b starts on a 16-byte boundary."""
+    X, Y, Z = shape
+    pdt, bdt = DTYPES[p_dtype], DTYPES.get(b_dtype)
+    plan = TP.stencil_plan(shape, pdt, bdt)
+    _check_march_block(plan)
+    bx, by = plan['block']
+    assert plan['run'] * pdt.itemsize == 16
+    assert _covers_once(Z, plan['grid'][0], bx, plan['run'])
+    assert _covers_once(Y, plan['grid'][1], by, 1)
+    assert _covers_once(X, plan['grid'][2], 1, plan['chunk'])
+    assert plan['partials'] == plan['blocks']
+    assert plan['route'] == ('vector' if _aligned_rows(Z, pdt, bdt) else 'scalar')
+    assert TP.stencil_plan(shape, pdt, bdt, aligned=False)['route'] == 'scalar'
+
+
+@pytest.mark.parametrize('b_dtype', ['f32', 'bf16'], ids=['b-f32', 'b-bf16'])
+@pytest.mark.parametrize('u_dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('shape', MARCH_SHAPES, ids=MARCH_IDS)
+def test_restrict_plan(shape, u_dtype, b_dtype):
+    """K3's plan: runs of coarse cells under 16 bytes of a fine row of u, a
+    grid that covers every coarse cell exactly once (z runs × coarse y rows ×
+    coarse x chunks), and the vector route exactly where every fine row of u
+    and of b starts on a 16-byte boundary."""
+    X, Y, Z = shape
+    udt, bdt = DTYPES[u_dtype], DTYPES[b_dtype]
+    plan = TP.restrict_plan(shape, udt, bdt)
+    _check_march_block(plan)
+    bx, by = plan['block']
+    assert 2 * plan['run'] * udt.itemsize == 16
+    assert _covers_once(Z // 2, plan['grid'][0], bx, plan['run'])
+    assert _covers_once(Y // 2, plan['grid'][1], by, 1)
+    assert _covers_once(X // 2, plan['grid'][2], 1, plan['chunk'])
+    assert plan['route'] == ('vector' if _aligned_rows(Z, udt, bdt) else 'scalar')
+    assert TP.restrict_plan(shape, udt, bdt, aligned=False)['route'] == 'scalar'
+
+
+@pytest.mark.parametrize('chunk', [1, 3, 64, 300])
+def test_march_plans_fixed_chunk(chunk):
+    """A fixed x-chunk replaces the cost model's pick and only it."""
+    shape, f32, bf16 = (256, 128, 64), torch.float32, torch.bfloat16
+    for plan_of in (lambda **kw: TP.stencil_plan(shape, f32, f32, **kw),
+                    lambda **kw: TP.restrict_plan(shape, bf16, f32, **kw)):
+        picked, plan = plan_of(), plan_of(chunk=chunk)
+        planes = shape[0] if 'partials' in plan else shape[0] // 2
+        assert plan['chunk'] == chunk
+        assert plan['grid'] == picked['grid'][:2] + (-(-planes // chunk),)
+        assert {k: plan[k] for k in ('route', 'run', 'block')} == {k: picked[k] for k in ('route', 'run', 'block')}
+        with pytest.raises(ValueError):
+            plan_of(chunk=0)
+
+
+def test_restrict_plan_refuses_odd_sizes():
+    with pytest.raises(ValueError, match='even'):
+        TP.restrict_plan((8, 8, 7), torch.float32, torch.float32)
+
+
+# z 70 and z 6: rows that are no whole number of 16-byte groups (the kernels' scalar route); JAX's gates refuse these
+# shapes, so it computes through XLA, as its own suite runs it
+RAGGED_SHAPES = [(4, 6, 70), (6, 6, 6)]
+
+
+@pytest.mark.parametrize('mode', ['matvec', 'residual', 'jacobi'])
+@pytest.mark.parametrize('bcs', BCS, ids=BC_IDS)
+@pytest.mark.parametrize('shape', RAGGED_SHAPES, ids=['z70', 'z6'])
+def test_poisson_apply_with_dot_ragged_matches_jax(shape, bcs, mode):
+    p, b = _fields(12, shape)
+    ref = np.asarray(JP.poisson_apply(jnp.asarray(p), INV, bcs, b=jnp.asarray(b), mode=mode, omega_over_diag=0.15))
+    ref_dot = float(np.sum(p.astype(np.float64) * ref))
+    got, dot = TP.poisson_apply(torch.from_numpy(p), INV, bcs, b=torch.from_numpy(b), mode=mode,
+                                omega_over_diag=0.15, with_dot=True)
+    assert tuple(got.shape) == shape
+    assert _max_err(got, ref) < 2e-5
+    assert abs(float(dot) - ref_dot) / max(abs(ref_dot), 1.0) < 1e-5
+
+
+@pytest.mark.parametrize('bcs', BCS, ids=BC_IDS)
+@pytest.mark.parametrize('shape', RAGGED_SHAPES, ids=['z70', 'z6'])
+def test_residual_restrict_ragged_matches_jax(shape, bcs):
+    u, b = _fields(13, shape)
+    inv = (1.0, 0.5, 2.0)
+    ref = JP.residual_restrict(jnp.asarray(u), jnp.asarray(b), inv, bcs)
+    got = TP.residual_restrict(torch.from_numpy(u), torch.from_numpy(b), inv, bcs)
+    assert tuple(got.shape) == tuple(n // 2 for n in shape)
     assert _max_err(got, ref) < 1e-5
 
 
