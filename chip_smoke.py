@@ -4,12 +4,13 @@
     python3 chip_smoke.py           # all phases, one card
     python3 chip_smoke.py --quick   # build + kernel-versus-twin checks at the small shapes only
     python3 chip_smoke.py --profile # all phases, then torch.profiler over 3 steps of each path,
-                                    # K2 and K3 at every level of the 256³ V-cycle and K1 at 256³
-                                    # with each x-chunk
+                                    # K2 and K3 at every level of the 256³ V-cycle, K1 at 256³ and
+                                    # K1m at 256³ (obstacle masks) and 128³ (active) with each x-chunk
 
 Phases; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi) and the torch / CUDA versions;
-  2. the build of phiflow_tpu_torch/csrc/*.cu with nvcc, one process per source;
+  2. the build of phiflow_tpu_torch/csrc/*.cu with nvcc, one process per source, with
+     ptxas's registers and spills of each instantiation of K1's and K6/K7's kernels;
   3. each kernel K1–K8 and the masked forms of K1 (K1m: active cells; the
      coefficient arrays of obstacles) against its plain
      PyTorch twin on the card, at a shape of its path (256³; 4096² for K7; 128³
@@ -17,10 +18,13 @@ Phases; any failure exits non-zero and prints no result:
      obstacle path's own masks for K1m's coefficient form) and at a small
      shape that is not a power of two, over the three boundary modes, float32
      and bfloat16 where the path stores it (K2 also at one narrower than 64 in
-     z, its second tile; K1, K3 and K4 also at a z that is no whole number of
-     16-byte groups, their scalar path, and K1 and K3 at one narrower than a
-     warp's runs, and K3 at the level shapes of the 48³ obstacle V-cycle,
-     with u and b in either dtype); the median CUDA-event time of the
+     z, its second tile; K1, K1m, K3 and K4 also at a z that is no whole
+     number of 16-byte groups, their scalar path, and K1, K1m and K3 at one
+     narrower than a warp's runs, and K3 at the level shapes of the 48³
+     obstacle V-cycle, with p / u and b in either dtype; K1m in its three forms
+     × three epilogues, each with and without the dot; K6 also at rows of 262
+     and 264, scalar and float4, with blocks inside the grid and on its
+     border in the padded and the raw layout); the median CUDA-event time of the
      kernel, of the twin and, where one PyTorch call computes the same
      function, of that call (library_ms — the port never calls it), beside the
      bound: the larger of bytes moved / 3.35 TB/s and float32 operations /
@@ -40,7 +44,7 @@ Phases; any failure exits non-zero and prints no result:
      4a. the fused path, `step` at 256³ (K1–K5): K5 exactly 3 launches a
          step, K2 exactly 2 per smoothed level per V-cycle (4b too);
      4b. the per-phase path at 256³ through `advect_smoke`, `advect_velocity`,
-         `project` (K6 and K1–K4);
+         `project` (K6 exactly 5 launches a step, and K1–K4);
      4c. the per-phase path in 2D at 4096² (K7; the 2D projection is PyTorch
          operations);
      and two of FlipLiquid(dims=3, points_per_cell=8), `step` through K8 (4
@@ -74,7 +78,9 @@ Phases; any failure exits non-zero and prints no result:
      then the two 2D obstacle models at the JAX benchmark's size,
      MovingObstacles(256) and LidDrivenCavity(256, obstacle=True): ms per
      step, CG iterations, K7 launched (their masked stencil is PyTorch
-     operations, as every 2D stencil; they are small for the card);
+     operations, as every 2D stencil; they are small for the card); and
+     K1m's and K6's launches a step × (device − bound) on each path that
+     runs them (`gaps` lines);
   5. 2 steps from one numpy state on the CPU (the twins) and on the card (the
      kernels), compared at 1e-3 abs: fused at 64³, per-phase at 64³, 2D at
      256², FLIP at 32³ (positions); the obstacle step at 48³ under both
@@ -98,9 +104,13 @@ PATH_BC = BC_SETS[0]
 SMALL = (24, 40, 72)
 SMALL_NARROW = (24, 40, 24)  # z < 64: K2's 16 × 16 tile, its z wrapping inside a ragged tile where periodic
 RAGGED = (24, 40, 70)  # a fine z that is no whole number of 16-byte groups: K4's scalar path in both dtypes
+# K6: rows of more than two warps' 128 outputs, so that some blocks lie inside the grid; 262 takes the scalar route
+K6_RAGGED = (12, 24, 262)
+K6_ROWS = (12, 24, 264)
 PATH_N = 256
 PATH_N_2D = 4096  # 16.8 M cells, the cell count of 256³
 FLIP_N = (128, 64)  # 1,061,208 and 125,000 particles at 8 a cell
+OBSTACLE_N = 256
 
 KERNELS = {  # launch-counter name → (source, the Pallas kernel it replaces)
     'poisson_stencil': ('phiflow_tpu_torch/csrc/poisson.cu', 'phiflow_tpu/ops/poisson.py:284'),
@@ -120,9 +130,11 @@ FUSED_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolo
 PHASES_3D_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'window_interp_3d')
 PHASES_2D_KERNELS = ('window_interp_2d',)
 P2G_LAUNCHES_PER_STEP = 4  # three face grids and the occupancy grid
-OBSTACLE_N = 256
 OBSTACLE_DT = 0.5
 K6_LAUNCHES_PER_OBSTACLE_STEP = 6  # MacCormack: a forward and a backward lookup per velocity component
+K6_LAUNCHES_PER_PHASE_STEP = 5  # the smoke's MacCormack pair, a semi-Lagrangian lookup per velocity component
+# of those, the MacCormack forward lookups, which compute the extrema too (physics/advect.py::mac_cormack)
+K6_EXTREMA_PER_STEP = {'per-phase': 1, f'obstacle-{OBSTACLE_N}': 3, f'obstacle-{OBSTACLE_N}-vcycle': 3}
 FUSED_CALLS_PER_STEP = 3  # K5: the smoke's forward and backward passes, the velocity
 # K2, one launch a smooth of up to 3 sweeps: a smoothed level's zero-init pre-smooth (ν = 3) and its post-smooth
 K2_LAUNCHES_PER_LEVEL = 2
@@ -467,11 +479,12 @@ def time_smooth_chunks(gen):
 
 
 def time_march_chunks(gen):
-    """K1 (256³, float32, with the dot) and K3 (every smoothed level of the
-    256³ V-cycle, in the dtypes of `time_vcycle_levels`) on the device with
-    each x-chunk of 1 to 64 planes a block (K3: coarse planes) fixed in their
-    plans, beside the chunk each plan picks: the measurement behind the
-    plans' cost model."""
+    """K1 (256³, float32, with the dot), K1m (its paths' forms: the obstacle
+    masks at 256³, active cells at 128³; float32, with the dot) and K3 (every
+    smoothed level of the 256³ V-cycle, in the dtypes of
+    `time_vcycle_levels`) on the device with each x-chunk of 1 to 64 planes a
+    block (K3: coarse planes) fixed in their plans, beside the chunk each
+    plan picks: the measurement behind the plans' cost model."""
     import torch
     from phiflow_tpu_torch.ops import poisson as P
     f32, bf16 = torch.float32, torch.bfloat16
@@ -484,7 +497,18 @@ def time_march_chunks(gen):
     p = torch.randn((PATH_N,) * 3, generator=gen, device='cuda')
     sweep(f'K1 {PATH_N}^3 matvec + dot float32', PATH_N, P.stencil_plan(p.shape, f32)['chunk'],
           lambda c: P._stencil_cuda(p, one, PATH_BC, None, None, None, None, 'matvec', None, True, chunk=c))
-    del p
+    # K1m at its two paths' shapes and forms: the obstacle masks at 256³, the active cells at 128³
+    mA, c0, accessible = obstacle_masks(OBSTACLE_N)
+    sweep(f'K1m {OBSTACLE_N}^3 mA+c0+active matvec + dot float32, obstacle masks', OBSTACLE_N,
+          P.stencil_plan(p.shape, f32, form='coeffs')['chunk'],
+          lambda c: P._stencil_cuda(p, one, PATH_BC, mA, c0, accessible, None, 'matvec', None, True, chunk=c))
+    del p, mA, c0, accessible
+    p = torch.randn((FLIP_N[0],) * 3, generator=gen, device='cuda')
+    active = (torch.rand(p.shape, generator=gen, device='cuda') < 0.7).float()
+    sweep(f'K1m {FLIP_N[0]}^3 active matvec + dot float32', FLIP_N[0],
+          P.stencil_plan(p.shape, f32, form='active')['chunk'],
+          lambda c: P._stencil_cuda(p, one, PATH_BC, None, None, active, None, 'matvec', None, True, chunk=c))
+    del p, active
     n = PATH_N
     while n > 4 and smoothed_levels(n) > 0:
         inv = (1.0 / (PATH_N // n) ** 2,) * 3
@@ -510,11 +534,13 @@ def _random_face_masks(shape, bcs, gen, dev):
 
 def check_poisson_masked(ch, gen, quick):
     """K1m against the twin: coefficient arrays from `stage_masks` of random
-    face masks, active cells, and both, over boundary sets × epilogues, with
-    the dot."""
+    face masks, active cells, and both, over boundary sets × epilogues × p
+    and b in either dtype, with and without the dot, at SMALL (the vector
+    route), SMALL_NARROW (idle lanes) and RAGGED (the scalar route)."""
     import torch
     from phiflow_tpu_torch.ops import poisson as P
     dev = 'cuda'
+    f32, bf16 = torch.float32, torch.bfloat16
     inv = (1.0, 0.7, 1.3)
 
     def row(form):  # the kernel row a form's checks count for
@@ -528,22 +554,24 @@ def check_poisson_masked(ch, gen, quick):
 
     for bcs in BC_SETS:
         tag = '/'.join(f'{lo[0]}{hi[0]}' for lo, hi in bcs)
-        p = torch.randn(SMALL, generator=gen, device=dev)
-        b = torch.randn(SMALL, generator=gen, device=dev)
-        for form, kw in forms(SMALL, bcs, inv).items():
-            name = row(form)
-            for mode in ('matvec', 'residual', 'jacobi'):
-                got = P.poisson_apply(p, inv, bcs, b=b, mode=mode, omega_over_diag=0.15, **kw)
-                ref = P._poisson_apply_plain(p, inv, bcs, b=b, mode=mode, omega_over_diag=0.15, **kw)
-                ch.compare(name, f'{form} {mode} {SMALL} {tag}', got, ref, 2e-5)
-            got, dot = P.poisson_apply(p, inv, bcs, with_dot=True, **kw)
-            ref, rdot = P._poisson_apply_plain(p, inv, bcs, with_dot=True, **kw)
-            ch.compare(name, f'{form} matvec with_dot {SMALL} {tag}', got, ref, 2e-5)
-            ch.compare_dot(name, f'{form} matvec with_dot {SMALL} {tag}', dot, rdot, 1e-5)
-        pb = p.to(torch.bfloat16)
-        kw = forms(SMALL, bcs, inv)['mA+c0+active']
-        ch.compare(row('mA+c0+active'), f'mA+c0+active matvec {SMALL} {tag} bfloat16',
-                   P.poisson_apply(pb, inv, bcs, **kw), P._poisson_apply_plain(pb, inv, bcs, **kw), 2e-5)
+        for shape in (SMALL, SMALL_NARROW, RAGGED):
+            for form, kw in forms(shape, bcs, inv).items():
+                name = row(form)
+                for dt, b_dt in ((f32, f32), (bf16, bf16), (bf16, f32), (f32, bf16)):
+                    p = torch.randn(shape, generator=gen, device=dev).to(dt)
+                    b = torch.randn(shape, generator=gen, device=dev).to(b_dt)
+                    for mode in ('matvec', 'residual', 'jacobi'):
+                        if mode == 'matvec' and b_dt != dt:
+                            continue  # b is not read
+                        case = f'{form} {mode} {shape} {tag} p {str(dt)[6:]}'
+                        if mode != 'matvec':
+                            case += f', b {str(b_dt)[6:]}'
+                        args = dict(b=b, mode=mode, omega_over_diag=0.15, **kw)
+                        ref, rdot = P._poisson_apply_plain(p, inv, bcs, with_dot=True, **args)
+                        ch.compare(name, case, P.poisson_apply(p, inv, bcs, **args), ref, 2e-5)
+                        got, dot = P.poisson_apply(p, inv, bcs, with_dot=True, **args)
+                        ch.compare(name, case + ' with_dot', got, ref, 2e-5)
+                        ch.compare_dot(name, case + ' with_dot', dot, rdot, 1e-5)
     if quick:
         return
     # --- the FLIP path's shape: 128³, closed box, unit cells ---
@@ -562,20 +590,17 @@ def check_poisson_masked(ch, gen, quick):
         ref, rdot = P._poisson_apply_plain(p, one, PATH_BC, with_dot=True, **kw)
         ch.compare_dot(name, f'{form} matvec with_dot {N3}', dot, rdot, 1e-5)
         arrays = [p, got] + [m for v in kw.values() for m in (v if isinstance(v, list) else [v])]
-        # the FLIP path's form (the free surface's active cells) goes into the `kernels` line, the others are printed
+        # the FLIP path's form (the free surface's active cells) is its row of the `kernels` line, the others are
+        # parts of the coefficient row
         ch.time(name, f'{form}: matvec + dot, {N3} float32',
                 lambda kw=kw: P.poisson_apply(p, one, PATH_BC, with_dot=True, **kw),
                 lambda kw=kw: P._poisson_apply_plain(p, one, PATH_BC, with_dot=True, **kw),
                 nbytes(*arrays), 22 * p.numel(), key=name if form == 'active' else f'{name} {form}')
     del p, b, all_forms
+    masked_parts = [f'poisson_stencil_coeffs {form}' for form in ('mA+c0', 'mA+c0+active')]
     # --- the obstacle path's shape and its own masks: 256³, the three obstacles' open faces and accessible cells ---
-    from phiflow_tpu_torch.field import cell_grid, geometry_mask, stagger
-    from phiflow_tpu_torch.geom import union
-    from phiflow_tpu_torch.physics import fluid
     N3 = (OBSTACLE_N,) * 3
-    accessible = geometry_mask(~union([o.geometry for o in obstacle_setup(OBSTACLE_N)]),
-                               cell_grid(N3, 1.0, dev)).contiguous()
-    mA, c0 = P.stage_masks(fluid._full_face_masks(stagger(accessible, torch.minimum, 0.0), False), PATH_BC, one)
+    mA, c0, accessible = obstacle_masks(OBSTACLE_N)
     kw = dict(mA_list=mA, c0=c0, active=accessible)
     p = torch.randn(N3, generator=gen, device=dev)
     got, dot = P.poisson_apply(p, one, PATH_BC, with_dot=True, **kw)
@@ -589,6 +614,7 @@ def check_poisson_masked(ch, gen, quick):
             lambda: P.poisson_apply(p, one, PATH_BC, with_dot=True, **kw),
             lambda: P._poisson_apply_plain(p, one, PATH_BC, with_dot=True, **kw),
             nbytes(p, got, *mA, c0, accessible), 22 * p.numel())
+    ch.attach(name, masked_parts)
     del p, got, mA, c0, accessible, kw
     torch.cuda.empty_cache()
 
@@ -839,9 +865,11 @@ def check_interp(ch, gen, quick):
         for what, g, r in zip(('lo', 'up'), got[1:], ref[1:]):
             ch.compare(name, f'{case} {what} (exact)', g, r, 0.0)
 
-    # --- small shapes: every halo, K, option; integer displacements. K7 also at rows of 45, which take its
-    #     scalar loads and stores instead of float4 ---
-    for d, shape in ((3, SMALL), (2, SMALL[1:]), (2, (37, 45))):
+    # --- small shapes: every halo, K, option; integer displacements. K7 also at rows of 45 and K6 at rows of
+    #     262, which take the scalar loads and stores instead of float4; K6 also at rows of 264 (float4). The
+    #     rows of 262 and 264 are long enough for blocks whose taps all lie inside the grid (direct addressing)
+    #     beside the border blocks (the halo resolved), in the padded layout and the raw one ---
+    for d, shape in ((3, SMALL), (3, K6_RAGGED), (3, K6_ROWS), (2, SMALL[1:]), (2, (37, 45))):
         scale = (0.8, -1.1, 0.6)[:d]
         for K in (1, 2):
             for mode in (None, 'const', 'edge', 'wrap'):
@@ -897,6 +925,7 @@ def check_interp(ch, gen, quick):
                 lambda: twin(grid, disps, K, True, False, scale, 'edge'),
                 nbytes(grid, *disps) + 3 * out_bytes, ops + 2 ** (d + 1) * grid.numel(), lib,
                 key=name + ' +extrema')
+        ch.attach(name, [name + ' +extrema'])
         del lib, grid, disps, got, ref
         torch.cuda.empty_cache()
 
@@ -943,7 +972,7 @@ def run_slice(tag, dims, N, per_phase, required, warmup=2, steps=5):
         iters.append(model.last_solve.iterations)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
+    launches = dict(_build.LAUNCHES, steps=steps)
     ms = elapsed / steps * 1e3
     print(f'{tag} {size}: {ms:.2f} ms/step, {N ** dims / (ms * 1e-3) / 1e6:.1f} Mcells/s over {steps} steps '
           f'after {warmup} warm-up steps; CG iterations per step {iters}')
@@ -955,7 +984,9 @@ def run_slice(tag, dims, N, per_phase, required, warmup=2, steps=5):
         # K2 on each smoothed level of each V-cycle (one a solve and one a CG iteration); K5: one launch a fused
         # call, three a step
         expected = {'jacobi_sweeps': K2_LAUNCHES_PER_LEVEL * smoothed_levels(N) * sum(1 + it for it in iters)}
-        if not per_phase:
+        if per_phase:
+            expected['window_interp_3d'] = K6_LAUNCHES_PER_PHASE_STEP * steps
+        else:
             expected['fused_advect'] = FUSED_CALLS_PER_STEP * steps
         wrong = {k: (launches.get(k, 0), e) for k, e in expected.items() if launches.get(k, 0) != e}
         if wrong:
@@ -1010,7 +1041,7 @@ def run_flip(tag, N, warmup=2, steps=5):
         solves.append(model.last_solve)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
+    launches = dict(_build.LAUNCHES, steps=steps)
     ms = elapsed / steps * 1e3
     iters = [r.iterations for r in solves]
     print(f'{tag} {N}^3, {n} particles: {ms:.2f} ms/step, {n / (ms * 1e-3) / 1e6:.2f} M particles/s over {steps} '
@@ -1058,8 +1089,7 @@ def run_flip(tag, N, warmup=2, steps=5):
 
 
 PORT_KERNELS = ('stencil_kernel', 'smooth_kernel', 'residual_restrict_kernel', 'prolong_add_kernel',
-                'fused_advect_kernel', 'advect_lift_kernel', 'window_interp_kernel', 'window_interp_2d_kernel',
-                'p2g_kernel')
+                'fused_advect_kernel', 'advect_lift_kernel', 'window_interp_kernel', 'p2g_kernel')
 
 
 def profile_path(tag, size, advance, state, warmup=2, steps=3, rows_shown=12):
@@ -1232,6 +1262,21 @@ def obstacle_stepper(N, dt=OBSTACLE_DT, cg_tol=1e-4, max_iterations=500, precond
     return step, move, advect_velocity, project
 
 
+def obstacle_masks(N):
+    """The obstacle path's staged coefficient arrays and accessible cells at
+    N³ on the card, as `make_incompressible` stages them for its solve."""
+    import torch
+    from phiflow_tpu_torch.field import cell_grid, geometry_mask, stagger
+    from phiflow_tpu_torch.geom import union
+    from phiflow_tpu_torch.ops import poisson as P
+    from phiflow_tpu_torch.physics import fluid
+    accessible = geometry_mask(~union([o.geometry for o in obstacle_setup(N)]),
+                               cell_grid((N,) * 3, 1.0, 'cuda')).contiguous()
+    mA, c0 = P.stage_masks(fluid._full_face_masks(stagger(accessible, torch.minimum, 0.0), False), PATH_BC,
+                           (1.0,) * 3)
+    return mA, c0, accessible
+
+
 def obstacle_state(N, dev):
     import torch
     *vel, _, pressure = smooth_state(N, 3)
@@ -1277,7 +1322,7 @@ def run_obstacles(tag, N, warmup=2, steps=5, preconditioner='chebyshev'):
         solves.append(result)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
+    launches = dict(_build.LAUNCHES, steps=steps)
     ms = elapsed / steps * 1e3
     iters = [r.iterations for r in solves]
     print(f'{tag} {N}^3: {ms:.2f} ms/step, {N ** 3 / (ms * 1e-3) / 1e6:.1f} Mcells/s over {steps} steps after '
@@ -1425,6 +1470,56 @@ def run_model_2d(tag, model, warmup=2, steps=5):
     return launches
 
 
+def print_path_gaps(ch, by_path):
+    """K1m's and K6's launches a step on each path that runs them × (device −
+    bound) of the row timed at that path's shape: K1m's coefficient row
+    (obstacle masks, 256³) on the obstacle paths, its active row (128³) on
+    FLIP 128³; K6's rows with and without the extrema, by the step's mix."""
+    k1m = {'poisson_stencil_coeffs': [f'obstacle-{OBSTACLE_N}', f'obstacle-{OBSTACLE_N}-vcycle'],
+           'poisson_stencil_masked': [f'flip-{FLIP_N[0]}']}
+    gaps = {}
+    for kernel, tags in k1m.items():
+        row = ch.timing[kernel]
+        for tag in tags:
+            per_step = by_path[tag][kernel] / by_path[tag]['steps']
+            gaps.setdefault(tag, []).append(f'K1m {per_step:g} x ({row["device_ms"]:.4f} - {row["bound_ms"]:.4f}) = '
+                                            f'{per_step * (row["device_ms"] - row["bound_ms"]):.4f} ms')
+    k6 = ch.timing['window_interp_3d']
+    k6x = k6['parts']['window_interp_3d +extrema']
+    for tag, with_extrema in K6_EXTREMA_PER_STEP.items():
+        per_step = by_path[tag]['window_interp_3d'] / by_path[tag]['steps']
+        gap = (with_extrema * (k6x['device_ms'] - k6x['bound_ms'])
+               + (per_step - with_extrema) * (k6['device_ms'] - k6['bound_ms']))
+        gaps.setdefault(tag, []).append(f'K6 {with_extrema:g} with extrema + {per_step - with_extrema:g} without '
+                                        f'= {gap:.4f} ms')
+    for tag, parts in gaps.items():
+        print(f'gaps  {tag}: launches a step x (device - bound): ' + '; '.join(parts))
+
+
+def ptxas_entries(log):
+    """(kernel, registers, spill-store bytes) of each entry function in a
+    `ptxas -v` log, the names demangled by `c++filt` where it is installed."""
+    import shutil
+    entries, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r'(\d+) bytes spill stores', line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name is not None:
+            entries.append([name, int(m.group(1)), spill])
+            name = None
+    if shutil.which('c++filt') and entries:
+        out = subprocess.run(['c++filt'], input='\n'.join(e[0] for e in entries), capture_output=True, text=True,
+                             timeout=60, check=True).stdout.splitlines()
+        for e, demangled in zip(entries, out):
+            e[0] = demangled.split('(')[0]
+    return entries
+
+
 def card_line():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, timeout=60, check=True)
@@ -1462,6 +1557,9 @@ def main(argv):
         spills = sum(int(x) for x in re.findall(r'(\d+) bytes spill stores', log))
         print(f'build: {name}.cu: {len(regs)} kernel instantiations, at most {max(regs)} registers '
               f'a thread, {spills} bytes of spill stores in all (ptxas -v)')
+        for entry, n_regs, n_spill in ptxas_entries(log):
+            if 'march::stencil_kernel' in entry or 'window_interp_kernel' in entry:
+                print(f'build: {name}.cu {entry}: {n_regs} registers, {n_spill} bytes of spill stores')
     ch = Checks()
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
@@ -1495,6 +1593,7 @@ def main(argv):
     from phiflow_tpu_torch.models import LidDrivenCavity, MovingObstacles
     by_path['moving-obstacles-2d'] = run_model_2d('moving-obstacles-2d', MovingObstacles(256, device='cuda'))
     by_path['cavity-2d'] = run_model_2d('cavity-2d', LidDrivenCavity(256, obstacle=True, device='cuda'))
+    print_path_gaps(ch, by_path)
     cpu_vs_card('fused', 3, 64, False)
     cpu_vs_card('per-phase', 3, 64, True)
     cpu_vs_card('per-phase-2d', 2, 256, True)

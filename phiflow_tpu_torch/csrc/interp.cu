@@ -12,11 +12,11 @@
 //
 // The TPU kernel sums all (2K+1)^D rolled windows because it has no gather.
 // Of those taps at most 2^D carry weight: s_a = floor(d_a), floor(d_a) + 1. So
-// here one thread computes one output cell: it reads its D displacements,
-// scales and clips them in registers, and gathers the 2^D corners with the
-// tent weight and the corner test of the window sum itself (window.cuh), so
-// an integer displacement (0 from rest, +-K at the clip) counts one corner
-// per axis, as the TPU kernel does. The cost does not depend on K.
+// here a thread reads its displacements, scales and clips them in registers,
+// and gathers the 2^D corners with the tent weight and the corner test of the
+// window sum itself (window.cuh), so an integer displacement (0 from rest, +-K
+// at the clip) counts one corner per axis, as the TPU kernel does. The cost
+// does not depend on K.
 //
 // The grid is read either as a padded array (K cells of halo on every side,
 // the TPU kernel's input) or in its raw layout with its halo described by a
@@ -26,11 +26,19 @@
 // Bound: ~10 flops per corner against D + 1 streamed arrays in and 1 or 3
 // out; the gathered corners of neighbouring cells overlap and come from the
 // caches. The distinct bytes set the floor: bound by device-memory bytes.
-// What this version does about it is to keep the instruction count down, which
-// is what held its first form back: the taps' raw indices are resolved once
-// per axis (2·D resolves, not D·2^D), element offsets are 32-bit wherever the
-// arrays allow, and the extrema are a template parameter. K6 (D = 3) runs this
-// template; K7 has a kernel of its own, four outputs a thread, below.
+// What keeps a gather from it is the instructions and transactions an output
+// costs. So (K7 since PR 5, K6 the same kernel in 3D) a warp owns 128 outputs
+// of a row along the last axis, four neighbouring ones a lane, and a block
+// eight rows of one plane: displacements are read and results written as
+// float4 where the rows allow it (VEC), and a block whose taps all lie inside
+// the grid (every block but the border ones) addresses its corners directly,
+// without resolving the halo; a border block resolves each axis' two taps
+// once per output (2·D resolves, not D·2^D). Element offsets are 32-bit
+// wherever the arrays allow, and the extrema are a template parameter. A form
+// of K7 that staged the block's grid tile in shared memory first (cp.async, 4-
+// or 16-byte) was measured slower on the H100: the gathered corners of
+// neighbouring outputs already come from L1, and the staging's load-wait-
+// compute phases left the memory idle (PERF.md, section 6).
 #include "window.cuh"
 
 struct InterpArgs {
@@ -43,150 +51,104 @@ struct InterpArgs {
     int extrema;
 };
 
-template <int D, typename Idx, bool EXTREMA>
-__global__ void window_interp_kernel(const InterpArgs a) {
-    int o[D];
-    o[D - 1] = blockIdx.x * blockDim.x + threadIdx.x;
-    o[D - 2] = blockIdx.y;
+#define WI_THREADS 256
+#define WI_TX 128  // a warp's row of outputs along the last axis: four a lane
+#define WI_TY 8    // a block's rows (the axis before the last): one a warp
+
+template <int D, bool EXTREMA, bool VEC, typename Idx>
+__global__ void __launch_bounds__(WI_THREADS) window_interp_kernel(const InterpArgs a) {
+    const int K = a.K, lane = threadIdx.x & 31;
+    const int r0 = blockIdx.y * WI_TY, c0 = blockIdx.x * WI_TX;
+    int o[D];  // the thread's first output
     if constexpr (D == 3) o[0] = blockIdx.z;
-    if (o[D - 1] >= a.o[D - 1]) return;
-    Idx q = 0;
+    o[D - 2] = r0 + (threadIdx.x >> 5);
+    o[D - 1] = c0 + 4 * lane;
+    const int n_out = a.o[D - 1];
+    if (o[D - 2] >= a.o[D - 2] || o[D - 1] >= n_out) return;
+    const Src &g = a.grid;
+    // every tap of the block: rows r0 - K .. r0 + WI_TY + K, columns c0 - K .. c0 + WI_TX + K (3D: planes
+    // o0 - K .. o0 + 1 + K), logical
+    bool interior = r0 - K - g.shift[D - 2] >= 0 && r0 + WI_TY + K - g.shift[D - 2] < g.n[D - 2] &&
+                    c0 - K - g.shift[D - 1] >= 0 && c0 + WI_TX + K - g.shift[D - 1] < g.n[D - 1];
+    if constexpr (D == 3) interior = interior && o[0] - K - g.shift[0] >= 0 && o[0] + 1 + K - g.shift[0] < g.n[0];
+    Idx q = 0, stride[D];  // the first output's offset; the raw grid's strides
 #pragma unroll
     for (int e = 0; e < D; ++e) q = q * a.o[e] + o[e];
-    // per axis: the two taps' weights and corner flags, and their raw indices
-    // resolved once (2 per axis, not once per corner)
-    float wt[D][2];
-    bool hit[D][2], outside[D][2];
-    int r[D][2];
+    stride[D - 1] = 1;
+#pragma unroll
+    for (int e = D - 2; e >= 0; --e) stride[e] = stride[e + 1] * g.n[e + 1];
+    float d[D][4];
 #pragma unroll
     for (int e = 0; e < D; ++e) {
-        const float d = clip_cells(a.scale[e], __ldg(a.disp[e] + q), a.K);
-        const int base = o[e] + window_taps(d, wt[e], hit[e]) - a.grid.shift[e];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-            outside[e][c] = false;
-            r[e][c] = resolve(base + c, a.grid.n[e], a.grid.mode, outside[e][c]);
-            if (outside[e][c]) r[e][c] = 0;  // not read; keeps the offset below inside the array
-        }
-    }
-    float val = 0.f, lo = 3.4e38f, up = -3.4e38f;
-#pragma unroll
-    for (int corner = 0; corner < (1 << D); ++corner) {
-        Idx g = 0;
-        float w = 1.f;
-        bool h = true, out = false;
-#pragma unroll
-        for (int e = 0; e < D; ++e) {
-            const int c = (corner >> (D - 1 - e)) & 1;
-            g = g * a.grid.n[e] + r[e][c];
-            w *= wt[e][c];
-            h = h && hit[e][c];
-            out = out || outside[e][c];
-        }
-        const float v = out ? a.grid.c : __ldg(a.grid.p + g);
-        val += w * v;
-        if (EXTREMA && h) {
-            lo = fminf(lo, v);
-            up = fmaxf(up, v);
-        }
-    }
-    a.out[q] = val;
-    if (EXTREMA) {
-        a.out_lo[q] = lo;
-        a.out_up[q] = up;
-    }
-}
-
-// 32-bit element offsets where both the grid and the output have fewer than
-// 2^31 elements (64-bit integer multiplies cost several instructions each)
-template <int D>
-static int launch(const InterpArgs &a, dim3 grid, int block, cudaStream_t stream) {
-    long long n_grid = 1, n_out = 1;
-    for (int e = 0; e < D; ++e) {
-        n_grid *= a.grid.n[e];
-        n_out *= a.o[e];
-    }
-    const bool small = n_grid < (1LL << 31) && n_out < (1LL << 31);
-    if (small && a.extrema) window_interp_kernel<D, int, true><<<grid, block, 0, stream>>>(a);
-    else if (small) window_interp_kernel<D, int, false><<<grid, block, 0, stream>>>(a);
-    else if (a.extrema) window_interp_kernel<D, long long, true><<<grid, block, 0, stream>>>(a);
-    else window_interp_kernel<D, long long, false><<<grid, block, 0, stream>>>(a);
-    return (int)cudaGetLastError();
-}
-
-extern "C" int window_interp_3d(const InterpArgs *a, int bx, void *stream) {
-    const dim3 grid((a->o[2] + bx - 1) / bx, a->o[1], a->o[0]);
-    return launch<3>(*a, grid, bx, (cudaStream_t)stream);
-}
-
-// ---------------------------------------------------------------------------
-// K7 on its own: the same lookup for a 2D grid, four outputs a thread. The
-// one-thread-a-cell gather above reached 1.69x its bound at 4096^2 and stayed
-// behind torch's grid_sample on the device. Here a warp owns 128 outputs of a
-// row, four neighbouring ones a lane, and a block eight rows: displacements
-// are read and results written as float4 where the rows allow it (VEC), and a
-// block whose taps all lie inside the grid (every block but the border ones)
-// addresses its corners directly, without resolving the halo. A form that
-// staged the block's grid tile in shared memory first (cp.async, 4- or
-// 16-byte) was measured slower on the H100: the gathered corners of
-// neighbouring outputs already come from L1, and the staging's load-wait-
-// compute phases left the memory idle (PERF.md, section 6).
-// ---------------------------------------------------------------------------
-#define K7_THREADS 256
-#define K7_TX 128  // a warp's row of outputs: four a lane
-#define K7_TY 8    // a block's rows: one a warp
-
-template <bool EXTREMA, bool VEC, typename Idx>
-__global__ void __launch_bounds__(K7_THREADS) window_interp_2d_kernel(const InterpArgs a) {
-    const int K = a.K, O0 = a.o[0], O1 = a.o[1];
-    const int lane = threadIdx.x & 31, row = blockIdx.y * K7_TY + (threadIdx.x >> 5);
-    const int c0 = blockIdx.x * K7_TX, col = c0 + 4 * lane;
-    if (row >= O0 || col >= O1) return;
-    const Src &g = a.grid;
-    const int n0 = g.n[0], n1 = g.n[1];
-    // every tap of the block: rows r0 - K .. r0 + K7_TY + K, columns c0 - K .. c0 + K7_TX + K (logical)
-    const int r0 = blockIdx.y * K7_TY;
-    const bool interior = r0 - K - g.shift[0] >= 0 && r0 + K7_TY + K - g.shift[0] < n0 &&
-                          c0 - K - g.shift[1] >= 0 && c0 + K7_TX + K - g.shift[1] < n1;
-    const Idx q = (Idx)row * O1 + col;
-    float d[2][4];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
         if (VEC) {
             const float4 v = __ldg(reinterpret_cast<const float4 *>(a.disp[e] + q));
             d[e][0] = v.x, d[e][1] = v.y, d[e][2] = v.z, d[e][3] = v.w;
         } else {
 #pragma unroll
-            for (int k = 0; k < 4; ++k) d[e][k] = col + k < O1 ? __ldg(a.disp[e] + q + k) : 0.f;
+            for (int k = 0; k < 4; ++k) d[e][k] = o[D - 1] + k < n_out ? __ldg(a.disp[e] + q + k) : 0.f;
         }
     }
     float val[4], lo[4], up[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-        float wt[2][2];
-        bool hit[2][2];
-        const int br = row + window_taps(clip_cells(a.scale[0], d[0][k], K), wt[0], hit[0]) - g.shift[0];
-        const int bc = col + k + window_taps(clip_cells(a.scale[1], d[1][k], K), wt[1], hit[1]) - g.shift[1];
-        float v[4];
-        if (interior) {
-            const float *p = g.p + (Idx)br * n1 + bc;
-            v[0] = __ldg(p), v[1] = __ldg(p + 1), v[2] = __ldg(p + n1), v[3] = __ldg(p + n1 + 1);
-        } else {  // the halo resolved once per axis: two rows, two columns
-            bool out_r[2] = {false, false}, out_c[2] = {false, false};
-            const int rr[2] = {resolve(br, n0, g.mode, out_r[0]), resolve(br + 1, n0, g.mode, out_r[1])};
-            const int cc[2] = {resolve(bc, n1, g.mode, out_c[0]), resolve(bc + 1, n1, g.mode, out_c[1])};
+        float wt[D][2];
+        bool hit[D][2];
+        int base[D];  // the lower tap's raw index per axis
 #pragma unroll
-            for (int corner = 0; corner < 4; ++corner) {
-                const int cy = corner >> 1, cx = corner & 1;
-                v[corner] = (out_r[cy] || out_c[cx]) ? g.c : __ldg(g.p + (Idx)rr[cy] * n1 + cc[cx]);
+        for (int e = 0; e < D; ++e)
+            base[e] = o[e] + (e == D - 1 ? k : 0) +
+                      window_taps(clip_cells(a.scale[e], d[e][k], K), wt[e], hit[e]) - g.shift[e];
+        float v[1 << D];
+        if (interior) {
+            Idx off = 0;
+#pragma unroll
+            for (int e = 0; e < D; ++e) off += (Idx)base[e] * stride[e];
+            const float *p = g.p + off;
+#pragma unroll
+            for (int corner = 0; corner < (1 << D); ++corner) {
+                Idx co = 0;
+#pragma unroll
+                for (int e = 0; e < D; ++e) co += ((corner >> (D - 1 - e)) & 1) ? stride[e] : 0;
+                v[corner] = __ldg(p + co);
+            }
+        } else {  // the halo resolved once per axis: two taps each
+            bool out[D][2];
+            Idx r[D][2];
+#pragma unroll
+            for (int e = 0; e < D; ++e) {
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    out[e][c] = false;
+                    const int l = resolve(base[e] + c, g.n[e], g.mode, out[e][c]);
+                    r[e][c] = out[e][c] ? 0 : (Idx)l * stride[e];  // an index past a constant halo is not read
+                }
+            }
+#pragma unroll
+            for (int corner = 0; corner < (1 << D); ++corner) {
+                Idx off = 0;
+                bool outside = false;
+#pragma unroll
+                for (int e = 0; e < D; ++e) {
+                    const int c = (corner >> (D - 1 - e)) & 1;
+                    off += r[e][c];
+                    outside = outside || out[e][c];
+                }
+                v[corner] = outside ? g.c : __ldg(g.p + off);
             }
         }
         val[k] = 0.f, lo[k] = 3.4e38f, up[k] = -3.4e38f;
 #pragma unroll
-        for (int corner = 0; corner < 4; ++corner) {
-            const int cy = corner >> 1, cx = corner & 1;
-            val[k] += wt[0][cy] * wt[1][cx] * v[corner];
-            if (EXTREMA && hit[0][cy] && hit[1][cx]) {
+        for (int corner = 0; corner < (1 << D); ++corner) {
+            float w = wt[0][corner >> (D - 1)];
+            bool h = hit[0][corner >> (D - 1)];
+#pragma unroll
+            for (int e = 1; e < D; ++e) {
+                const int c = (corner >> (D - 1 - e)) & 1;
+                w *= wt[e][c];
+                h = h && hit[e][c];
+            }
+            val[k] += w * v[corner];
+            if (EXTREMA && h) {
                 lo[k] = fminf(lo[k], v[corner]);
                 up[k] = fmaxf(up[k], v[corner]);
             }
@@ -201,7 +163,7 @@ __global__ void __launch_bounds__(K7_THREADS) window_interp_2d_kernel(const Inte
     } else {
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-            if (col + k >= O1) break;
+            if (o[D - 1] + k >= n_out) break;
             a.out[q + k] = val[k];
             if (EXTREMA) {
                 a.out_lo[q + k] = lo[k];
@@ -211,21 +173,35 @@ __global__ void __launch_bounds__(K7_THREADS) window_interp_2d_kernel(const Inte
     }
 }
 
-template <bool EXTREMA, bool VEC>
-static void launch_2d(const InterpArgs &a, bool small, dim3 grid, cudaStream_t s) {
-    if (small) window_interp_2d_kernel<EXTREMA, VEC, int><<<grid, K7_THREADS, 0, s>>>(a);
-    else window_interp_2d_kernel<EXTREMA, VEC, long long><<<grid, K7_THREADS, 0, s>>>(a);
+template <int D, bool EXTREMA, bool VEC>
+static void launch(const InterpArgs &a, bool small, dim3 grid, cudaStream_t s) {
+    if (small) window_interp_kernel<D, EXTREMA, VEC, int><<<grid, WI_THREADS, 0, s>>>(a);
+    else window_interp_kernel<D, EXTREMA, VEC, long long><<<grid, WI_THREADS, 0, s>>>(a);
 }
 
-// vec: the rows hold a multiple of 4 outputs and every displacement and
-// output array is 16-byte aligned (the wrapper checks)
-extern "C" int window_interp_2d(const InterpArgs *a, int vec, void *stream) {
-    const dim3 grid((a->o[1] + K7_TX - 1) / K7_TX, (a->o[0] + K7_TY - 1) / K7_TY, 1);
-    const bool small = (long long)a->grid.n[0] * a->grid.n[1] < (1LL << 31) && (long long)a->o[0] * a->o[1] < (1LL << 31);
-    cudaStream_t s = (cudaStream_t)stream;
-    if (a->extrema && vec) launch_2d<true, true>(*a, small, grid, s);
-    else if (a->extrema) launch_2d<true, false>(*a, small, grid, s);
-    else if (vec) launch_2d<false, true>(*a, small, grid, s);
-    else launch_2d<false, false>(*a, small, grid, s);
+template <int D>
+static int launch_d(const InterpArgs &a, int vec, cudaStream_t s) {
+    const dim3 grid((a.o[D - 1] + WI_TX - 1) / WI_TX, (a.o[D - 2] + WI_TY - 1) / WI_TY, D == 3 ? a.o[0] : 1);
+    // 32-bit element offsets where both the grid and the output have fewer than 2^31 elements (64-bit integer
+    // multiplies cost several instructions each)
+    long long n_grid = 1, n_out = 1;
+    for (int e = 0; e < D; ++e) {
+        n_grid *= a.grid.n[e];
+        n_out *= a.o[e];
+    }
+    const bool small = n_grid < (1LL << 31) && n_out < (1LL << 31);
+    if (a.extrema && vec) launch<D, true, true>(a, small, grid, s);
+    else if (a.extrema) launch<D, true, false>(a, small, grid, s);
+    else if (vec) launch<D, false, true>(a, small, grid, s);
+    else launch<D, false, false>(a, small, grid, s);
     return (int)cudaGetLastError();
+}
+
+// K6 (dims 3) and K7 (dims 2). vec: the rows hold a multiple of 4 outputs and every displacement and output array
+// is 16-byte aligned (the wrapper checks)
+extern "C" int window_interp(const InterpArgs *a, int dims, int vec, void *stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (dims == 3) return launch_d<3>(*a, vec, s);
+    if (dims == 2) return launch_d<2>(*a, vec, s);
+    return (int)cudaErrorInvalidValue;
 }

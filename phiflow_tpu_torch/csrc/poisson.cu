@@ -1,10 +1,10 @@
 // The 7-point Poisson stencil of the pressure solve, with its three kernels:
 //
 //   K1 stencil_kernel    replaces phiflow_tpu/ops/poisson.py::_apply_pallas_3d
-//                        (the CG matvec, with the fused <p, A p> partials): the
-//                        unmasked form as runs of cells marching along x
-//      poisson_stencil_kernel  its masked form (obstacle coefficients and the
-//                        free surface's active cells), one thread a cell
+//                        (the CG matvec, with the fused <p, A p> partials), in
+//                        the unmasked form and the masked one (K1m: obstacle
+//                        coefficients, the free surface's active cells, or
+//                        both), runs of cells marching along x
 //   K2 smooth_kernel     replaces phiflow_tpu/ops/poisson.py::_jacobi2_pallas_3d
 //                        (V-cycle smoothing: 1-3 sweeps in one launch, the
 //                        intermediate sweeps kept in shared memory)
@@ -36,11 +36,10 @@
 // bytes (inputs read once, outputs written once at best); on the card the
 // loads and instructions a cell costs on the way decide how near each comes.
 // K1 and K3 give a thread a run of z-neighbouring cells, 16 bytes of the
-// operand, marching along x with the planes x-1, x, x+1 of the run in
-// registers, so a cell costs a share of one vector load of its own plane; the
-// y neighbours are the neighbouring threads' runs (from L1), the z neighbours
-// the neighbouring lanes' by shuffle (see `march` below). The masked form
-// keeps one thread a cell, its neighbours from the L1/L2 caches. K2 would
+// operand (K1m: of each mask), marching along x with the planes x-1, x, x+1 of
+// the run in registers, so a cell costs a share of one vector load of its own
+// plane; the y neighbours are the neighbouring threads' runs (from L1), the z
+// neighbours the neighbouring lanes' by shuffle (see `march` below). K2 would
 // move every intermediate sweep through device memory that way (a float32
 // write and read of the whole field a sweep), so it keeps them in shared
 // memory instead: the smooth reads u and b once (plus a halo) and writes its
@@ -63,40 +62,6 @@ struct Grid {
     int hi[3];     // boundary mode of the upper side of each axis
 };
 
-// One axis' share of the stencil, inv_d excluded: a- p[c-1] + a+ p[c+1] + c0 pc.
-// `load(q)` returns the operand at flat index q.
-template <class Load>
-__device__ __forceinline__ float axis_term(const Load &load, long long q, int c, int n, long long stride,
-                                           int lo, int hi, float pc) {
-    float am = 1.f, ap = 1.f, c0 = -2.f, pm = 0.f, pp = 0.f;
-    if (c > 0) {
-        pm = load(q - stride);
-    } else if (lo == MODE_PERIODIC) {
-        pm = load(q + (long long)(n - 1) * stride);
-    } else {
-        am = 0.f;
-        c0 = lo == MODE_GHOST0 ? -2.f : -1.f;
-    }
-    if (c < n - 1) {
-        pp = load(q + stride);
-    } else if (hi == MODE_PERIODIC) {
-        pp = load(q - (long long)(n - 1) * stride);
-    } else {
-        ap = 0.f;
-        c0 = hi == MODE_GHOST0 ? -2.f : -1.f;
-    }
-    return am * pm + ap * pp + c0 * pc;
-}
-
-template <class Load>
-__device__ __forceinline__ float laplace_at(const Load &load, const Grid &g, int i, int j, int k, long long q,
-                                            float pc) {
-    const long long sy = g.n[2], sx = (long long)g.n[1] * g.n[2];
-    return g.inv[0] * axis_term(load, q, i, g.n[0], sx, g.lo[0], g.hi[0], pc) +
-           g.inv[1] * axis_term(load, q, j, g.n[1], sy, g.lo[1], g.hi[1], pc) +
-           g.inv[2] * axis_term(load, q, k, g.n[2], 1, g.lo[2], g.hi[2], pc);
-}
-
 __device__ __forceinline__ int block_index() { return (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x; }
 
 // The masked form's coefficient arrays (float32, the field's shape); mA[0] is
@@ -106,61 +71,6 @@ struct Masks {
     const float *c0;
     const float *active;
 };
-
-// One axis' share of the masked stencil, inv_d excluded: a- p[c-1] + a+ p[c+1].
-template <class Load>
-__device__ __forceinline__ float masked_axis_term(const Load &load, const float *__restrict__ mA, long long q, int c,
-                                                  int n, long long stride, int lo, int hi) {
-    float lower = 0.f, upper = 0.f;
-    if (c > 0) {
-        lower = mA[q] * load(q - stride);
-    } else if (lo == MODE_PERIODIC) {
-        lower = mA[q] * load(q + (long long)(n - 1) * stride);
-    }
-    if (c < n - 1) {
-        upper = mA[q + stride] * load(q + stride);
-    } else if (hi == MODE_PERIODIC) {
-        const long long first = q - (long long)(n - 1) * stride;
-        upper = mA[first] * load(first);
-    }
-    return lower + upper;
-}
-
-// ---------------------------------------------------------------------------
-// K1m: out = A p | b - A p | p + w (b - A p) of the masked form (the coefficient
-// arrays, the active cells, or both); optional per-block <p, out> partials.
-// ---------------------------------------------------------------------------
-template <int EPI, typename TP, typename TB>
-__global__ void poisson_stencil_kernel(const TP *__restrict__ p, const TB *__restrict__ b, TP *__restrict__ out,
-                                       float *__restrict__ partials, Grid g, float w, Masks m) {
-    const int k = blockIdx.x * blockDim.x + threadIdx.x, j = blockIdx.y, i = blockIdx.z;
-    float contrib = 0.f;
-    if (k < g.n[2]) {
-        const long long q = ((long long)i * g.n[1] + j) * g.n[2] + k;
-        auto load = [&](long long r) { return ld(p, r); };
-        const float pc = ld(p, q);
-        float lap;
-        if (m.mA[0] != nullptr) {
-            const long long sy = g.n[2], sx = (long long)g.n[1] * g.n[2];
-            lap = g.inv[0] * masked_axis_term(load, m.mA[0], q, i, g.n[0], sx, g.lo[0], g.hi[0]) +
-                  g.inv[1] * masked_axis_term(load, m.mA[1], q, j, g.n[1], sy, g.lo[1], g.hi[1]) +
-                  g.inv[2] * masked_axis_term(load, m.mA[2], q, k, g.n[2], 1, g.lo[2], g.hi[2]) + m.c0[q] * pc;
-        } else {
-            lap = laplace_at(load, g, i, j, k, q, pc);
-        }
-        float o;
-        if (EPI == EPI_MATVEC) o = lap;
-        else if (EPI == EPI_RESIDUAL) o = ld(b, q) - lap;
-        else o = pc + w * (ld(b, q) - lap);
-        if (m.active != nullptr && m.active[q] == 0.f) o = pc;
-        st(out, q, o);
-        contrib = pc * o;
-    }
-    if (partials != nullptr) {
-        const float s = block_sum(contrib);
-        if (threadIdx.x == 0) partials[block_index()] = s;
-    }
-}
 
 // ---------------------------------------------------------------------------
 // K2: one smooth of 1-3 damped-Jacobi sweeps u <- u + w (b - A u) in one launch,
@@ -402,35 +312,43 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) smooth_kernel(const TU *_
 }  // namespace smooth
 
 // ---------------------------------------------------------------------------
-// K1 (unmasked) and K3: runs of cells marching along x.
+// K1 (unmasked and masked) and K3: runs of cells marching along x.
 //
 // K1 computes out = A p | b - A p | p + w (b - A p) with optional per-block
-// <p, out> partials; K3 restrict_mean(b - A u) over 2 x 2 x 2 fine cells.
-// Both are bound by device-memory bytes, and how near they come depends on
-// the loads and index arithmetic a cell costs: one thread a cell would spend
-// seven 4-byte loads and the per-axis boundary tests on every cell, and one
-// thread a coarse cell would fetch each fine value of u about seven times.
+// <p, out> partials, with the boundary-profile coefficients or (K1m) the
+// coefficient arrays, and the active cells' identity rows or not; K3
+// restrict_mean(b - A u) over 2 x 2 x 2 fine cells. All are bound by
+// device-memory bytes (K1m: p, out and up to five float32 masks, b where the
+// epilogue reads it), and how near they come depends on the loads and index
+// arithmetic a cell costs: one thread a cell would spend seven 4-byte loads of
+// p (K1m: and six of masks) and the per-axis boundary tests on every cell, and
+// one thread a coarse cell would fetch each fine value of u about seven times.
 //
 // Design: a thread owns a run of z-neighbouring cells, 16 bytes of the
-// operand (4 float32 or 8 bfloat16 cells; K3: the fine run of 2 fine rows
-// under one run of coarse cells), and marches along x over a chunk of planes
-// (K3: fine planes, two a coarse plane), keeping the runs of planes x-1, x,
-// x+1 in registers: a plane costs one new 16-byte load a run, plus 16 bytes of
-// b where the epilogue reads it. The y neighbours are runs of the
-// neighbouring rows, which the block's other threads load as their own (so
-// they come from L1; K3's rows 2j and 2j+1 are each other's), the z
-// neighbours at a run's two ends come from the lanes beside it by shuffle,
-// and a scalar load at a warp's or a row's edge. Boundaries resolve by global
-// index: a neighbour past a periodic side wraps, one past a non-periodic
-// side is 0 and its mode goes into the centre coefficient. A block is bx
-// threads along z (a power of two <= 32, so a warp holds whole rows) by by
-// rows; a thread past the field computes on the field's first run, joins the
+// operand (4 float32 or 8 bfloat16 cells; K1m: 4 cells in either dtype, 16
+// bytes of each float32 mask; K3: the fine run of 2 fine rows under one run
+// of coarse cells), and marches along x over a chunk of planes (K3: fine
+// planes, two a coarse plane), keeping the runs of planes x-1, x, x+1 in
+// registers: a plane costs one new vector load a run of each array it reads.
+// The y neighbours are runs of the neighbouring rows, which the block's other
+// threads load as their own (so they come from L1; K3's rows 2j and 2j+1 are
+// each other's), the z neighbours at a run's two ends come from the lanes
+// beside it by shuffle, and a scalar load at a warp's or a row's edge. K1m's
+// upper coefficients come the same way: a+_x is mA_x's run of the next plane,
+// which the march loads anyway and keeps as the next plane's a-_x; a+_y the
+// next row's run of mA_y (L1); a+_z the next cell of the run, the last one's
+// from the next lane. Boundaries resolve by global index: a neighbour past a
+// periodic side wraps (a+ there is mA at plane, row or cell 0), one past a
+// non-periodic side is 0 and never read (a+ there is 0 by definition; the
+// profile's mode goes into the centre coefficient). A block is bx threads
+// along z (a power of two <= 32, so a warp holds whole rows) by by rows; a
+// thread past the field computes on the field's first run, joins the
 // shuffles and the block sum, and stores nothing. Where a row is not a whole
-// number of 16-byte groups in every dtype read (or a pointer is not aligned
-// to them), the same threads take their values one at a time and mask the
-// ragged tail (VEC = false). The launch geometry comes from the wrapper's
-// plan (ops/poisson.py: stencil_plan, restrict_plan), which the C entries
-// check against the kernel's layout.
+// number of runs in every array read (or a pointer is not 16-byte aligned),
+// the same threads take their values one at a time and mask the ragged tail
+// (VEC = false). The launch geometry comes from the wrapper's plan
+// (ops/poisson.py: stencil_plan, restrict_plan), which the C entries check
+// against the kernel's layout.
 // ---------------------------------------------------------------------------
 namespace march {
 constexpr int MAX_THREADS = 256;
@@ -520,21 +438,38 @@ __device__ __forceinline__ ZEnds z_ends(long long row, int k0, int N, const Grid
     return e;
 }
 
-// The z neighbours of a run's two ends in the plane at `pl`: every lane of the warp must call it.
+// The right z neighbour of a run in the plane at `pl`, `first` being the run's first value: every lane of the
+// warp must call it.
+template <typename T>
+__device__ __forceinline__ float z_right(const T *__restrict__ p, long long pl, const ZEnds &e, float first) {
+    const float dn = __shfl_down_sync(FULL, first, 1);
+    return e.shr ? dn : e.qr >= 0 ? ld(p, pl + e.qr) : 0.f;
+}
+
+// Both z neighbours of a run in the plane at `pl`: every lane of the warp must call it.
 template <typename T>
 __device__ __forceinline__ void z_neighbours(const T *__restrict__ p, long long pl, const ZEnds &e, float first,
                                              float last, float &zl, float &zr) {
-    const float up = __shfl_up_sync(FULL, last, 1), dn = __shfl_down_sync(FULL, first, 1);
+    const float up = __shfl_up_sync(FULL, last, 1);
     zl = e.shl ? up : e.ql >= 0 ? ld(p, pl + e.ql) : 0.f;
-    zr = e.shr ? dn : e.qr >= 0 ? ld(p, pl + e.qr) : 0.f;
+    zr = z_right(p, pl, e, first);
 }
 
-// K1, unmasked: a thread's run of V cells at (j, k0 ...) over planes [x0, x0 + cx).
-template <int EPI, typename TP, typename TB, bool VEC>
+// K1's forms: the coefficients of the boundary profiles (0) or of the arrays mA, c0 (FORM_COEFFS), with the
+// active cells' identity rows (FORM_ACTIVE) or without.
+constexpr int FORM_ACTIVE = 1, FORM_COEFFS = 2;
+
+// The cells of a thread's run: 16 bytes of p unmasked, 16 bytes of each float32 mask masked.
+template <int FORM, typename TP>
+__host__ __device__ constexpr int run_cells() { return FORM ? 4 : 16 / (int)sizeof(TP); }
+
+// K1: a thread's run of V cells at (j, k0 ...) over planes [x0, x0 + cx).
+template <int EPI, int FORM, typename TP, typename TB, bool VEC>
 __global__ void __launch_bounds__(MAX_THREADS) stencil_kernel(const TP *__restrict__ p, const TB *__restrict__ b,
                                                               TP *__restrict__ out, float *__restrict__ partials,
-                                                              Grid g, float w, int cx) {
-    constexpr int V = 16 / sizeof(TP);
+                                                              Grid g, float w, Masks m, int cx) {
+    constexpr bool COEFFS = FORM & FORM_COEFFS, ACTIVE = FORM & FORM_ACTIVE;
+    constexpr int V = run_cells<FORM, TP>();
     const int X = g.n[0], Y = g.n[1], Z = g.n[2];
     const long long YZ = (long long)Y * Z;
     const int k = (blockIdx.x * blockDim.x + threadIdx.x) * V, j = blockIdx.y * blockDim.y + threadIdx.y;
@@ -545,37 +480,55 @@ __global__ void __launch_bounds__(MAX_THREADS) stencil_kernel(const TP *__restri
     const long long ryp = offset_or_none(jj + 1, Y, g.lo[1], g.hi[1], Z);
     const ZEnds ze = z_ends(row, k0, V, g);
     const bool wrap_z = g.hi[2] == MODE_PERIODIC;
-    // the centre coefficient's y and z shares, cell by cell
+    // the profiles' centre coefficient, its y and z shares cell by cell
     const float cy = g.inv[1] * smooth::center_coef(jj, Y, g.lo[1], g.hi[1]);
     float cyz[V];
 #pragma unroll
     for (int e = 0; e < V; ++e) cyz[e] = cy + g.inv[2] * smooth::center_coef(k0 + e, Z, g.lo[2], g.hi[2]);
     const int x0 = blockIdx.z * cx, x1 = min(x0 + cx, X);
     float pm[V], pc[V], pn[V];
+    float ax[V], axn[V];  // COEFFS: mA_x at planes i and i + 1, a-_x and a+_x of plane i
     const long long plm = offset_or_none(x0 - 1, X, g.lo[0], g.hi[0], YZ);
     load_run<TP, V, VEC>(p, plm < 0 ? -1 : plm + row, k0, Z, wrap_z, pm);
     load_run<TP, V, VEC>(p, (long long)x0 * YZ + row, k0, Z, wrap_z, pc);
+    if constexpr (COEFFS) load_run<float, V, VEC>(m.mA[0], (long long)x0 * YZ + row, k0, Z, false, ax);
     float contrib = 0.f;
     for (int i = x0; i < x1; ++i) {
         const long long pl = (long long)i * YZ, pln = offset_or_none(i + 1, X, g.lo[0], g.hi[0], YZ);
-        float ym[V], yp[V], bv[V];
+        float ym[V], yp[V], bv[V], ay[V], ayp[V], az[V], c0[V], act[V];
         load_run<TP, V, VEC>(p, pln < 0 ? -1 : pln + row, k0, Z, wrap_z, pn);
         load_run<TP, V, VEC>(p, rym < 0 ? -1 : pl + rym, k0, Z, wrap_z, ym);
         load_run<TP, V, VEC>(p, ryp < 0 ? -1 : pl + ryp, k0, Z, wrap_z, yp);
         if (EPI != EPI_MATVEC) load_run<TB, V, VEC>(b, pl + row, k0, Z, false, bv);
-        float zl, zr;
+        if constexpr (COEFFS) {
+            load_run<float, V, VEC>(m.mA[0], pln < 0 ? -1 : pln + row, k0, Z, false, axn);
+            load_run<float, V, VEC>(m.mA[1], pl + row, k0, Z, false, ay);
+            load_run<float, V, VEC>(m.mA[1], ryp < 0 ? -1 : pl + ryp, k0, Z, false, ayp);
+            load_run<float, V, VEC>(m.mA[2], pl + row, k0, Z, wrap_z, az);
+            load_run<float, V, VEC>(m.c0, pl + row, k0, Z, false, c0);
+        }
+        if constexpr (ACTIVE) load_run<float, V, VEC>(m.active, pl + row, k0, Z, false, act);
+        float zl, zr, azr = 0.f;  // azr: a+_z of the run's last cell, mA_z one cell past the run
         z_neighbours(p, pl, ze, pc[0], pc[V - 1], zl, zr);
+        if constexpr (COEFFS) azr = z_right(m.mA[2], pl, ze, az[0]);
         const float cx0 = g.inv[0] * smooth::center_coef(i, X, g.lo[0], g.hi[0]);
         float o[V];
 #pragma unroll
         for (int e = 0; e < V; ++e) {
             const float lo = e == 0 ? zl : pc[e - 1], hi = e == V - 1 ? zr : pc[e + 1];
             // the twin's form: the neighbour terms axis by axis, then the whole centre coefficient
-            const float lap = g.inv[0] * (pm[e] + pn[e]) + g.inv[1] * (ym[e] + yp[e]) + g.inv[2] * (lo + hi) +
-                              (cx0 + cyz[e]) * pc[e];
+            float lap;
+            if constexpr (COEFFS)
+                lap = g.inv[0] * (ax[e] * pm[e] + axn[e] * pn[e]) + g.inv[1] * (ay[e] * ym[e] + ayp[e] * yp[e]) +
+                      g.inv[2] * (az[e] * lo + (e == V - 1 ? azr : az[e + 1]) * hi) + c0[e] * pc[e];
+            else
+                lap = g.inv[0] * (pm[e] + pn[e]) + g.inv[1] * (ym[e] + yp[e]) + g.inv[2] * (lo + hi) +
+                      (cx0 + cyz[e]) * pc[e];
             if (EPI == EPI_MATVEC) o[e] = lap;
             else if (EPI == EPI_RESIDUAL) o[e] = bv[e] - lap;
             else o[e] = pc[e] + w * (bv[e] - lap);
+            if constexpr (ACTIVE)
+                if (act[e] == 0.f) o[e] = pc[e];  // an identity row, before the dot
         }
         if (live) {
             store_run<TP, V, VEC>(out, pl + row + k0, Z - k0, o);
@@ -587,6 +540,7 @@ __global__ void __launch_bounds__(MAX_THREADS) stencil_kernel(const TP *__restri
         for (int e = 0; e < V; ++e) {
             pm[e] = pc[e];
             pc[e] = pn[e];
+            if constexpr (COEFFS) ax[e] = axn[e];
         }
     }
     if (partials != nullptr) {
@@ -680,36 +634,6 @@ __global__ void __launch_bounds__(MAX_THREADS) residual_restrict_kernel(const TU
 // and refuses one that disagrees.
 // ---------------------------------------------------------------------------
 
-// K1m. `bx` is the block size along z (a multiple of 32), chosen by the wrapper, which also sizes `partials` to the
-// number of blocks. mA_x, mA_y, mA_z and c0 come together or are all null; active may be null; not all are null
-// (the unmasked form is stencil_unmasked).
-extern "C" int stencil_masked(const void *p, int p_dt, const void *b, int b_dt, const float *mA_x,
-                              const float *mA_y, const float *mA_z, const float *c0, const float *active,
-                              void *out, float *partials, const Grid *g, int epilogue, float w, int bx,
-                              void *stream) {
-    const dim3 grid((g->n[2] + bx - 1) / bx, g->n[1], g->n[0]);
-    cudaStream_t s = (cudaStream_t)stream;
-    const bool any_coeff = mA_x != nullptr || mA_y != nullptr || mA_z != nullptr || c0 != nullptr;
-    const bool all_coeff = mA_x != nullptr && mA_y != nullptr && mA_z != nullptr && c0 != nullptr;
-    if (any_coeff != all_coeff || (!any_coeff && active == nullptr)) return (int)cudaErrorInvalidValue;
-    const Masks m = {{mA_x, mA_y, mA_z}, c0, active};
-    if (epilogue == EPI_MATVEC) b_dt = p_dt;  // b is not read
-    PTT_DT(p_dt, TP, PTT_DT(b_dt, TB, {
-        const TP *pp = (const TP *)p;
-        const TB *bb = (const TB *)b;
-        TP *oo = (TP *)out;
-        if (epilogue == EPI_MATVEC)
-            poisson_stencil_kernel<EPI_MATVEC, TP, TB><<<grid, bx, 0, s>>>(pp, bb, oo, partials, *g, w, m);
-        else if (epilogue == EPI_RESIDUAL)
-            poisson_stencil_kernel<EPI_RESIDUAL, TP, TB><<<grid, bx, 0, s>>>(pp, bb, oo, partials, *g, w, m);
-        else if (epilogue == EPI_JACOBI)
-            poisson_stencil_kernel<EPI_JACOBI, TP, TB><<<grid, bx, 0, s>>>(pp, bb, oo, partials, *g, w, m);
-        else
-            return (int)cudaErrorInvalidValue;
-    }));
-    return (int)cudaGetLastError();
-}
-
 // The march kernels' launch geometry: blocks of bx (a power of two <= 32) by `by` threads, a whole number of warps
 // and at most march::MAX_THREADS, `runs` runs a row along z, `rows` rows, `planes` planes in chunks of cx; the
 // plan's block count must be the grid's. Returns the grid, or dim3(0) where the plan disagrees.
@@ -727,40 +651,67 @@ static bool rows_aligned(int Z, int itemsize, const void *ptr) {
     return (long long)Z * itemsize % 16 == 0 && (uintptr_t)ptr % 16 == 0;
 }
 
-template <int EPI, typename TP, typename TB>
-static int launch_unmasked(const TP *p, const TB *b, TP *out, float *partials, const Grid &g, float w, int vector,
-                           int bx, int by, int cx, int blocks, cudaStream_t s) {
-    constexpr int V = 16 / sizeof(TP);
-    const dim3 grid = march_grid((g.n[2] + V - 1) / V, g.n[1], g.n[0], bx, by, cx, blocks);
+template <int EPI, int FORM, typename TP, typename TB>
+static int launch_stencil(const TP *p, const TB *b, TP *out, float *partials, const Grid &g, float w,
+                          const Masks &m, int vector, int bx, int by, int cx, int blocks, cudaStream_t s) {
+    constexpr int V = march::run_cells<FORM, TP>();
+    const int Z = g.n[2];
+    const dim3 grid = march_grid((Z + V - 1) / V, g.n[1], g.n[0], bx, by, cx, blocks);
     if (grid.x == 0) return (int)cudaErrorInvalidValue;
-    const bool aligned = rows_aligned(g.n[2], sizeof(TP), p) && rows_aligned(g.n[2], sizeof(TP), out) &&
-                         (EPI == EPI_MATVEC || rows_aligned(g.n[2], sizeof(TB), b));
+    // every array's rows whole runs (V values: 8, 16 or 32 bytes) from a 16-byte aligned start
+    bool aligned = Z % V == 0 && (uintptr_t)p % 16 == 0 && (uintptr_t)out % 16 == 0 &&
+                   (EPI == EPI_MATVEC || (uintptr_t)b % 16 == 0);
+    const float *masks[] = {m.mA[0], m.mA[1], m.mA[2], m.c0, m.active};
+    for (const float *a : masks) aligned = aligned && (uintptr_t)a % 16 == 0;
     if (vector && !aligned) return (int)cudaErrorInvalidValue;
     const dim3 block(bx, by);
     if (vector)
-        march::stencil_kernel<EPI, TP, TB, true><<<grid, block, 0, s>>>(p, b, out, partials, g, w, cx);
+        march::stencil_kernel<EPI, FORM, TP, TB, true><<<grid, block, 0, s>>>(p, b, out, partials, g, w, m, cx);
     else
-        march::stencil_kernel<EPI, TP, TB, false><<<grid, block, 0, s>>>(p, b, out, partials, g, w, cx);
+        march::stencil_kernel<EPI, FORM, TP, TB, false><<<grid, block, 0, s>>>(p, b, out, partials, g, w, m, cx);
     return (int)cudaGetLastError();
 }
 
-// K1, unmasked. `vector`, `bx`, `by`, `cx` and `blocks` (the partials' count) are the wrapper's plan.
-extern "C" int stencil_unmasked(const void *p, int p_dt, const void *b, int b_dt, void *out, float *partials,
-                                const Grid *g, int epilogue, float w, int vector, int bx, int by, int cx,
-                                int blocks, void *stream) {
+template <int FORM, typename TP, typename TB>
+static int launch_form(int epilogue, const void *p, const void *b, void *out, float *partials, const Grid &g,
+                       float w, const Masks &m, int vector, int bx, int by, int cx, int blocks, cudaStream_t s) {
+    const TP *pp = (const TP *)p;
+    TP *oo = (TP *)out;
+    if (epilogue == EPI_MATVEC)  // b is not read: one instantiation a p dtype
+        return launch_stencil<EPI_MATVEC, FORM, TP, TP>(pp, pp, oo, partials, g, w, m, vector, bx, by, cx, blocks, s);
+    const TB *bb = (const TB *)b;
+    if (epilogue == EPI_RESIDUAL)
+        return launch_stencil<EPI_RESIDUAL, FORM>(pp, bb, oo, partials, g, w, m, vector, bx, by, cx, blocks, s);
+    if (epilogue == EPI_JACOBI)
+        return launch_stencil<EPI_JACOBI, FORM>(pp, bb, oo, partials, g, w, m, vector, bx, by, cx, blocks, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// K1 in every form. mA_x, mA_y, mA_z and c0 come together (the coefficient arrays) or are all null (the boundary
+// profiles); active may be null. `vector`, `bx`, `by`, `cx` and `blocks` (the partials' count) are the wrapper's
+// plan.
+extern "C" int stencil(const void *p, int p_dt, const void *b, int b_dt, const float *mA_x, const float *mA_y,
+                       const float *mA_z, const float *c0, const float *active, void *out, float *partials,
+                       const Grid *g, int epilogue, float w, int vector, int bx, int by, int cx, int blocks,
+                       void *stream) {
+    const bool any_coeff = mA_x != nullptr || mA_y != nullptr || mA_z != nullptr || c0 != nullptr;
+    const bool all_coeff = mA_x != nullptr && mA_y != nullptr && mA_z != nullptr && c0 != nullptr;
+    if (any_coeff != all_coeff) return (int)cudaErrorInvalidValue;
+    const int form = (all_coeff ? march::FORM_COEFFS : 0) | (active != nullptr ? march::FORM_ACTIVE : 0);
+    const Masks m = {{mA_x, mA_y, mA_z}, c0, active};
     cudaStream_t s = (cudaStream_t)stream;
     if (epilogue == EPI_MATVEC) b_dt = p_dt;  // b is not read
     PTT_DT(p_dt, TP, PTT_DT(b_dt, TB, {
-        const TP *pp = (const TP *)p;
-        const TB *bb = (const TB *)b;
-        TP *oo = (TP *)out;
-        if (epilogue == EPI_MATVEC)
-            return launch_unmasked<EPI_MATVEC>(pp, bb, oo, partials, *g, w, vector, bx, by, cx, blocks, s);
-        if (epilogue == EPI_RESIDUAL)
-            return launch_unmasked<EPI_RESIDUAL>(pp, bb, oo, partials, *g, w, vector, bx, by, cx, blocks, s);
-        if (epilogue == EPI_JACOBI)
-            return launch_unmasked<EPI_JACOBI>(pp, bb, oo, partials, *g, w, vector, bx, by, cx, blocks, s);
-        return (int)cudaErrorInvalidValue;
+        switch (form) {
+            case 0:
+                return launch_form<0, TP, TB>(epilogue, p, b, out, partials, *g, w, m, vector, bx, by, cx, blocks, s);
+            case march::FORM_ACTIVE:
+                return launch_form<1, TP, TB>(epilogue, p, b, out, partials, *g, w, m, vector, bx, by, cx, blocks, s);
+            case march::FORM_COEFFS:
+                return launch_form<2, TP, TB>(epilogue, p, b, out, partials, *g, w, m, vector, bx, by, cx, blocks, s);
+            default:
+                return launch_form<3, TP, TB>(epilogue, p, b, out, partials, *g, w, m, vector, bx, by, cx, blocks, s);
+        }
     }));
     return (int)cudaErrorInvalidValue;
 }

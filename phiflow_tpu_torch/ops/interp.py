@@ -11,12 +11,14 @@ and with ``compute_extrema`` also lo / up, the min / max of grid[c + s] over
 the taps with |δ_a − s_a| < 1 on every axis — the MacCormack clamp bounds. An
 integer δ_a (0 from rest, ±K at the clip) has one such tap on its axis, not two.
 
-`window_interp_3d` (K6, `csrc/interp.cu`): one thread per output cell
-gathers the 2^d taps that carry weight, so the cost does not depend on K and
-any float32 grid size is taken — the size limits, tile picker and slab
-staging of the TPU kernels have no counterpart. `window_interp_2d` (K7, the
-same file) computes four neighbouring outputs a thread, with float4 loads and
-stores, and skips the halo's resolution in blocks whose taps lie inside. Their plain twin `_window_interp_plain` is the window sum itself
+`window_interp_3d` (K6) and `window_interp_2d` (K7) launch one kernel
+(`csrc/interp.cu`): a thread gathers the 2^d taps that carry weight for four
+neighbouring outputs of a row, so the cost does not depend on K and any
+float32 grid size is taken — the size limits, tile picker and slab staging of
+the TPU kernels have no counterpart. Displacements are loaded and results
+stored as float4 where `vector_route` allows it, and blocks whose taps lie
+inside the grid skip the halo's resolution. Their plain twin
+`_window_interp_plain` is the window sum itself
 (the `fori_loop` of `phiflow_tpu/math/_nd.py:584-622`), written for d axes. A
 wrapper takes the twin only for tensors on the CPU; for CUDA tensors it
 launches its kernel or raises.
@@ -39,7 +41,7 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ['window_interp_3d', 'window_interp_2d']
+__all__ = ['window_interp_3d', 'window_interp_2d', 'vector_route']
 
 _BIG = 3.4e38
 _PAD_MODE = {'edge': 'replicate', 'wrap': 'circular'}
@@ -164,7 +166,15 @@ def _ctypes_args():
 def _lib():
     import ctypes
     P, I = ctypes.c_void_p, ctypes.c_int
-    return _build.library('interp', {'window_interp_3d': [P, I, P], 'window_interp_2d': [P, I, P]})
+    return _build.library('interp', {'window_interp': [P, I, I, P]})
+
+
+def vector_route(out_shape: Sequence[int], arrays) -> bool:
+    """Whether the kernel reads the displacements and writes its results as
+    float4: every row (the last axis) holds a multiple of 4 outputs and every
+    displacement and output array starts on a 16-byte boundary. Otherwise
+    it loads and stores one value at a time and masks a row's ragged tail."""
+    return out_shape[-1] % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in arrays)
 
 
 def _check_f32(name, t):
@@ -203,11 +213,8 @@ def _window_interp_cuda(name, grid, disps, K, compute_extrema, scale, mode, cons
         a.out_lo, a.out_up = planes[1].data_ptr(), planes[2].data_ptr()
         a.extrema = 1
     a.K = K
-    if d == 2:  # K7: float4 loads and stores where every row starts on 16 bytes
-        vec = out_shape[1] % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (*disps, *planes))
-        err = lib.window_interp_2d(ctypes.byref(a), int(vec), _build.stream_of(grid))
-    else:
-        err = lib.window_interp_3d(ctypes.byref(a), _build.block_x(out_shape[-1]), _build.stream_of(grid))
+    err = lib.window_interp(ctypes.byref(a), d, int(vector_route(out_shape, (*disps, *planes))),
+                            _build.stream_of(grid))
     _build.check(lib, err, name)
     _build.LAUNCHES[name] += 1
     return tuple(planes) if compute_extrema else planes[0]

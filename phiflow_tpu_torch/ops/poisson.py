@@ -11,10 +11,11 @@ Three CUDA kernels (`csrc/poisson.cu`) carry it on the card:
 
 * `poisson_apply` — K1, the CG matvec. ``with_dot=True`` also returns
   ⟨p, A·p⟩ from per-block partials (JAX arms a global capture box instead).
-  The unmasked form marches runs of cells along x (`stencil_plan`); the
-  masked form (K1m) takes the coefficient arrays ``mA_list`` and ``c0`` that
-  `stage_masks` makes from face masks (obstacles), the ``active`` cells (a
-  free surface: the result is p itself where active is 0), or both.
+  It marches runs of cells along x (`stencil_plan`) in the unmasked form and
+  in the masked one (K1m), which takes the coefficient arrays ``mA_list`` and
+  ``c0`` that `stage_masks` makes from face masks (obstacles), the
+  ``active`` cells (a free surface: the result is p itself where active is
+  0), or both.
 * `poisson_smooth` — K2, damped-Jacobi sweeps, one launch for up to three
   (`smooth_plan`); ``zero_init`` forms u₀ = w·b from the staged b,
   ``emit_dot`` returns ⟨u_out, b⟩.
@@ -177,8 +178,7 @@ def _lib():
     import ctypes
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.library('poisson', {
-        'stencil_masked': [P, I, P, I, P, P, P, P, P, P, P, P, I, F, I, P],
-        'stencil_unmasked': [P, I, P, I, P, P, P, I, F, I, I, I, I, I, P],
+        'stencil': [P, I, P, I, P, P, P, P, P, P, P, P, I, F, I, I, I, I, I, P],
         'jacobi_smooth': [P, I, P, I, P, I, P, P, F, I, I, I, I, I, P],
         'residual_restrict': [P, I, P, I, P, P, I, I, I, I, I, P],
     })
@@ -213,13 +213,6 @@ def _check_bc(bc):
         raise ValueError(f"bc: three (lower, upper) pairs of {tuple(_MODE_CODE)} expected, got {bc}")
 
 
-def _masked_partials(shape, device):
-    """K1m's per-block partials: one a block of `_build.block_x(Z)` cells of a row."""
-    X, Y, Z = shape
-    bx = _build.block_x(Z)
-    return torch.empty(X * Y * ((Z + bx - 1) // bx), dtype=torch.float32, device=device)
-
-
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -230,14 +223,17 @@ def _aligned(*ts) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# K1 (unmasked) and K3: the march kernels' launch plans
+# K1 (unmasked and masked) and K3: the march kernels' launch plans
 # ---------------------------------------------------------------------------
 
 _SMS = 132  # streaming multiprocessors of the H100 SXM part the cost models were measured on
 MARCH_THREADS = 256  # threads a block at most (march::MAX_THREADS in csrc/poisson.cu)
-# threads an SM holds of each kernel, as its registers a thread allow (ptxas, `chip_smoke.py`'s build lines)
-_STENCIL_THREADS_PER_SM = 1024
+# threads an SM holds of each kernel, as its registers a thread allow (ptxas, `chip_smoke.py`'s build lines): K1 by
+# form, float32 — the boundary profiles, the active cells alone (48 registers: 5 blocks of 256), the coefficient
+# arrays with or without the active cells (68–72 registers: 3 blocks)
+_STENCIL_THREADS_PER_SM = {'plain': 1024, 'active': 1280, 'coeffs': 768}
 _RESTRICT_THREADS_PER_SM = 512
+MASKED_RUN = 4  # K1m's cells a run: 16 bytes of each float32 mask, in either dtype of p
 _CHUNKS = (64, 32, 16, 8, 4, 2, 1)
 
 
@@ -246,9 +242,10 @@ def _march_plan(runs: int, rows: int, planes: int, steps, threads_per_sm: int, c
     warp, so that a warp holds whole rows) by `by` rows, a whole number of
     warps and at most `MARCH_THREADS`, with no more rows than the field
     needs; each block marches over `chunk` planes. The chunk minimises the
-    estimated plane steps in series — the larger of a block's own, `steps(c)`
-    (its halo planes included), and all blocks' steps over the blocks the
-    SMs hold at once — unless ``chunk`` fixes it."""
+    estimated plane steps in series — a block's own, `steps(c)` (its halo
+    planes included), times the waves of blocks the SMs run, a wave being
+    the blocks they hold at once (a last wave that is partly empty takes a
+    whole wave's time) — unless ``chunk`` fixes it."""
     bx = 1
     while bx < min(runs, 32):
         bx *= 2
@@ -260,7 +257,7 @@ def _march_plan(runs: int, rows: int, planes: int, steps, threads_per_sm: int, c
     slots = _SMS * min(32, threads_per_sm // (bx * by))
 
     def cost(c):
-        return max(steps(c), tiles * -(-planes // c) * steps(c) / slots)
+        return -(-tiles * -(-planes // c) // slots) * steps(c)
     if chunk is None:
         chunk = min((c for c in _CHUNKS if c <= max(planes, 1)), key=cost)
     elif chunk < 1:
@@ -275,24 +272,35 @@ def _rows_aligned(Z: int, dtypes) -> bool:
 
 @functools.lru_cache(maxsize=256)
 def stencil_plan(shape: Sequence[int], p_dtype: torch.dtype, b_dtype: Optional[torch.dtype] = None,
-                 aligned: bool = True, chunk: Optional[int] = None) -> dict:
-    """The unmasked K1's launch for a 3D field of `shape` stored as
-    ``p_dtype`` (``b_dtype``: b's, where the epilogue reads it).
+                 aligned: bool = True, chunk: Optional[int] = None, form: str = 'plain') -> dict:
+    """K1's launch for a 3D field of `shape` stored as ``p_dtype``
+    (``b_dtype``: b's, where the epilogue reads it) in one of its ``form``s:
+    'plain' (the boundary profiles), or K1m's 'active' (the active cells
+    alone) and 'coeffs' (the coefficient arrays, with or without the active
+    cells); the masks are float32 of the field's shape.
 
-    A thread owns a run of 16 bytes of p along z (``run``: 4 float32 or 8
-    bfloat16 cells) and marches along x over ``chunk`` planes. ``route`` is
-    'vector' (16-byte loads and stores) where every row of p and b starts on
-    a 16-byte boundary (Z·itemsize a multiple of 16, the tensors
-    ``aligned``), else 'scalar' (the same threads, one value at a time, the
-    ragged tail masked). Returns the route, the run, the block (bx, by),
-    the chunk, the grid (z runs, y rows, x chunks), the number of blocks and
-    of the dot's partials (one a block). Cached (a few launches a CG
-    iteration ask for the same few plans): `shape` is a tuple or a
-    `torch.Size`, and the returned dict is shared, not to be modified."""
+    A thread owns a run of z-neighbouring cells (``run``: 16 bytes of p
+    unmasked, 4 float32 or 8 bfloat16 cells; masked, `MASKED_RUN` cells in
+    either dtype, 16 bytes of each mask) and marches along x over ``chunk``
+    planes. ``route`` is 'vector' (one vector load or store a run of each
+    array) where every row of every array starts on a 16-byte boundary
+    (unmasked: Z·itemsize of p and b a multiple of 16; masked: Z a multiple
+    of the run; the tensors ``aligned``), else 'scalar' (the same threads,
+    one value at a time, the ragged tail masked). Returns the route, the run,
+    the block (bx, by), the chunk, the grid (z runs, y rows, x chunks), the
+    number of blocks and of the dot's partials (one a block). Cached (a few
+    launches a CG iteration ask for the same few plans): `shape` is a tuple
+    or a `torch.Size`, and the returned dict is shared, not to be modified."""
     X, Y, Z = (int(n) for n in shape)
-    run = 16 // p_dtype.itemsize
-    vector = aligned and _rows_aligned(Z, (p_dtype, b_dtype))
-    plan = _march_plan(-(-Z // run), Y, X, lambda c: c + 2, _STENCIL_THREADS_PER_SM, chunk)
+    if form not in _STENCIL_THREADS_PER_SM:
+        raise ValueError(f"form {form!r} not in {tuple(_STENCIL_THREADS_PER_SM)}")
+    if form == 'plain':
+        run = 16 // p_dtype.itemsize
+        vector = aligned and _rows_aligned(Z, (p_dtype, b_dtype))
+    else:
+        run = MASKED_RUN
+        vector = aligned and Z % run == 0
+    plan = _march_plan(-(-Z // run), Y, X, lambda c: c + 2, _STENCIL_THREADS_PER_SM[form], chunk)
     return dict(route='vector' if vector else 'scalar', run=run, partials=plan['blocks'], **plan)
 
 
@@ -395,21 +403,17 @@ def _stencil_cuda(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag,
     b_read = b if mode != 'matvec' else None
     b_dt = _DTYPE_CODE[b_read.dtype] if b_read is not None else 0
     w = float(np.float32(omega_over_diag or 0.0))
-    if any(m is not None for m in masks):
-        partials = _masked_partials(p.shape, p.device) if with_dot else None
-        err = lib.stencil_masked(p.data_ptr(), _DTYPE_CODE[p.dtype], _ptr(b_read), b_dt, *(_ptr(m) for m in masks),
-                                 out.data_ptr(), _ptr(partials), ctypes.byref(g), _EPILOGUE[mode], w,
-                                 _build.block_x(p.shape[2]), _build.stream_of(p))
-    else:
-        plan = stencil_plan(p.shape, p.dtype, None if b_read is None else b_read.dtype, _aligned(p, out, b_read),
-                            chunk)
-        partials = torch.empty(plan['partials'], dtype=torch.float32, device=p.device) if with_dot else None
-        err = lib.stencil_unmasked(p.data_ptr(), _DTYPE_CODE[p.dtype], _ptr(b_read), b_dt, out.data_ptr(),
-                                   _ptr(partials), ctypes.byref(g), _EPILOGUE[mode], w, int(plan['route'] == 'vector'),
-                                   *plan['block'], plan['chunk'], plan['blocks'], _build.stream_of(p))
+    form = 'coeffs' if mA_list is not None else 'active' if active is not None else 'plain'
+    plan = stencil_plan(p.shape, p.dtype, None if b_read is None else b_read.dtype, _aligned(p, out, b_read, *masks),
+                        chunk, form)
+    partials = torch.empty(plan['partials'], dtype=torch.float32, device=p.device) if with_dot else None
+    err = lib.stencil(p.data_ptr(), _DTYPE_CODE[p.dtype], _ptr(b_read), b_dt, *(_ptr(m) for m in masks),
+                      out.data_ptr(), _ptr(partials), ctypes.byref(g), _EPILOGUE[mode], w,
+                      int(plan['route'] == 'vector'), *plan['block'], plan['chunk'], plan['blocks'],
+                      _build.stream_of(p))
     _build.check(lib, err, 'poisson_stencil')
     _build.LAUNCHES['poisson_stencil'] += 1
-    if any(m is not None for m in masks):
+    if form != 'plain':
         _build.LAUNCHES['poisson_stencil_masked'] += 1  # the masked form's share of the count above
     if mA_list is not None:
         _build.LAUNCHES['poisson_stencil_coeffs'] += 1  # of those, the launches with coefficient arrays (obstacles)

@@ -131,3 +131,69 @@ def test_refuses_batch_axes_and_bad_input():
         TI.window_interp_2d(torch.zeros(8, 8), disp, 1, const_pad=0.0, halo='edge')
     with pytest.raises(ValueError, match='extrapolation'):
         shift_window_interp(torch.zeros(8, 8), disp, 'reflect', 1)
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7 on the card: the float4 route and the blocks that skip the halo
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('out_shape,offset,expected', [
+    ((12, 24, 264), 0, True), ((256, 256, 256), 0, True), ((12, 24, 262), 0, False), ((256, 256, 255), 0, False),
+    ((12, 24, 264), 1, False), ((4096, 4096), 0, True), ((37, 45), 0, False), ((16, 24), 2, False)],
+    ids=['3d-rows-264', '3d-256', '3d-rows-262', '3d-z-face', '3d-misaligned', '2d-4096', '2d-rows-45',
+         '2d-misaligned'])
+def test_vector_route(out_shape, offset, expected):
+    """float4 loads and stores exactly where every row holds a multiple of 4
+    outputs and every array starts on a 16-byte boundary (a closed box's z
+    face component, 255 cells a row, takes the scalar route)."""
+    storage = torch.zeros(64 + offset)
+    aligned = storage[:4]
+    shifted = storage[offset:offset + 4]
+    assert shifted.data_ptr() % 16 == (4 * offset) % 16
+    assert TI.vector_route(out_shape, (aligned, shifted, aligned)) is expected
+
+
+WI_TX, WI_TY = 128, 8  # csrc/interp.cu: a warp's 128 outputs of a row, four a lane; a block's rows, one a warp
+
+
+@pytest.mark.parametrize('layout', ['padded', 'raw'])
+@pytest.mark.parametrize('K', [1, 2, 3])
+@pytest.mark.parametrize('out_shape', [(12, 24, 262), (12, 24, 264), (40, 300), (40, 45)],
+                         ids=['3d-262', '3d-264', '2d-300', '2d-45'])
+def test_window_blocks_cover_and_interior_taps_lie_inside(out_shape, K, layout):
+    """The kernel's blocks (csrc/interp.cu::window_interp_kernel): a block of
+    WI_TY rows × WI_TX outputs (× one plane in 3D) covers every output once,
+    four a lane; a block that the kernel takes for interior addresses its
+    corners directly, so every tap any of its outputs can reach — o − K − 1
+    … o + K + 1 along each axis after the clip, the zero-weight upper tap of
+    δ = +K included — must lie inside the raw grid. Both layouts; the 3D rows
+    of 262 and 264 hold interior and border blocks."""
+    D = len(out_shape)
+    shift = [-K if layout == 'padded' else 0] * D
+    n = [o + 2 * K if layout == 'padded' else o for o in out_shape]
+    grid = [-(-out_shape[-1] // WI_TX), -(-out_shape[-2] // WI_TY)] + ([out_shape[0]] if D == 3 else [])
+    covered = np.zeros(out_shape, np.int32)
+    interiors = 0
+    for bz in range(grid[2] if D == 3 else 1):
+        for by in range(grid[1]):
+            for bx in range(grid[0]):
+                r0, c0 = by * WI_TY, bx * WI_TX
+                interior = (r0 - K - shift[-2] >= 0 and r0 + WI_TY + K - shift[-2] < n[-2]
+                            and c0 - K - shift[-1] >= 0 and c0 + WI_TX + K - shift[-1] < n[-1])
+                if D == 3:
+                    interior = interior and bz - K - shift[0] >= 0 and bz + 1 + K - shift[0] < n[0]
+                rows = range(r0, min(r0 + WI_TY, out_shape[-2]))
+                cols = range(c0, min(c0 + WI_TX, out_shape[-1]))
+                lead = (bz,) if D == 3 else ()
+                for r in rows:
+                    covered[lead + (r, slice(cols.start, cols.stop))] += 1
+                if interior and len(rows) and len(cols):
+                    interiors += 1
+                    firsts = lead + (rows[0], cols[0])
+                    lasts = lead + (rows[-1], cols[-1])
+                    for e in range(D):
+                        assert firsts[e] - K - shift[e] >= 0  # floor(δ) ≥ −K
+                        assert lasts[e] + K + 1 - shift[e] < n[e]  # the upper tap of δ = +K
+    assert (covered == 1).all()
+    if out_shape[-1] > 2 * WI_TX:
+        assert interiors > 0

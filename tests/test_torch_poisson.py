@@ -439,3 +439,208 @@ def test_masked_arguments_come_together():
     p = torch.zeros(4, 4, 4)
     with pytest.raises(ValueError, match='together'):
         TP.poisson_apply(p, INV, BCS[0], c0=p)
+
+
+# ---------------------------------------------------------------------------
+# K1m's march: its launch plan, and a numpy model of its indexing
+# ---------------------------------------------------------------------------
+
+# the shapes K1m runs at on a path (obstacles 256³ and 48³, FLIP 128³, 64³, 32³ and 24³) and chip_smoke.py's small
+# shapes: SMALL, SMALL_NARROW (idle lanes) and RAGGED (rows that are no whole number of runs: the scalar route)
+MASKED_SHAPES = [(n,) * 3 for n in (256, 48, 128, 64, 32, 24)] + [(24, 40, 72), (24, 40, 24), (24, 40, 70)]
+
+
+@pytest.mark.parametrize('form', ['active', 'coeffs'])
+@pytest.mark.parametrize('b_dtype', [None, 'f32', 'bf16'], ids=['matvec', 'b-f32', 'b-bf16'])
+@pytest.mark.parametrize('p_dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('shape', MASKED_SHAPES, ids=['x'.join(map(str, s)) for s in MASKED_SHAPES])
+def test_masked_stencil_plan(shape, p_dtype, b_dtype, form):
+    """K1m's plan in both its forms: runs of `MASKED_RUN` cells (16 bytes of
+    each float32 mask) in either dtype of p, a grid that covers every cell
+    exactly once, one partial a block, and the vector route exactly where
+    every row is a whole number of runs."""
+    X, Y, Z = shape
+    pdt, bdt = DTYPES[p_dtype], DTYPES.get(b_dtype)
+    plan = TP.stencil_plan(shape, pdt, bdt, form=form)
+    _check_march_block(plan)
+    bx, by = plan['block']
+    assert plan['run'] == TP.MASKED_RUN == 4
+    assert _covers_once(Z, plan['grid'][0], bx, plan['run'])
+    assert _covers_once(Y, plan['grid'][1], by, 1)
+    assert _covers_once(X, plan['grid'][2], 1, plan['chunk'])
+    assert plan['partials'] == plan['blocks']
+    assert plan['route'] == ('vector' if Z % 4 == 0 else 'scalar')
+    assert TP.stencil_plan(shape, pdt, bdt, aligned=False, form=form)['route'] == 'scalar'
+
+
+def test_masked_stencil_plan_fixed_chunk():
+    """A fixed x-chunk replaces the cost model's pick and only it; the masked
+    plan's run does not follow p's dtype, the unmasked one's does; an
+    unknown form is refused."""
+    shape, f32, bf16 = (256, 128, 64), torch.float32, torch.bfloat16
+    picked = TP.stencil_plan(shape, f32, form='coeffs')
+    for chunk in (1, 3, 64, 300):
+        plan = TP.stencil_plan(shape, f32, form='coeffs', chunk=chunk)
+        assert plan['chunk'] == chunk and plan['grid'] == picked['grid'][:2] + (-(-shape[0] // chunk),)
+        assert {k: plan[k] for k in ('route', 'run', 'block')} == {k: picked[k] for k in ('route', 'run', 'block')}
+    assert TP.stencil_plan(shape, bf16, form='active')['run'] == 4
+    assert TP.stencil_plan(shape, bf16)['run'] == 8
+    with pytest.raises(ValueError):
+        TP.stencil_plan(shape, f32, form='coeffs', chunk=0)
+    with pytest.raises(ValueError, match='form'):
+        TP.stencil_plan(shape, f32, form='masked')
+
+
+def test_march_plan_counts_whole_waves():
+    """The chunk's cost counts whole waves of blocks: a last wave that is
+    partly empty costs a full one. At the obstacle path's 256³ the
+    coefficient form (3 blocks of 256 threads an SM) takes chunk 16 (1024
+    blocks, 2.6 waves of 396) over 32 (512 blocks, 1.3 waves), which the
+    fractional count would pick."""
+    f32 = torch.float32
+    plan = TP.stencil_plan((256, 256, 256), f32, form='coeffs')
+    slots = TP._SMS * (TP._STENCIL_THREADS_PER_SM['coeffs'] // (plan['block'][0] * plan['block'][1]))
+    assert slots == 396 and plan['chunk'] == 16 and plan['blocks'] == 1024
+    waves = -(-plan['blocks'] // slots)
+    half = TP.stencil_plan((256, 256, 256), f32, form='coeffs', chunk=32)
+    assert waves * (16 + 2) < -(-half['blocks'] // slots) * (32 + 2)
+
+
+def _offset_or_none(i, n, lo, hi, stride):
+    """csrc/poisson.cu::march::offset_or_none: plane or row i (at most one past either end), -1 past a
+    non-periodic side."""
+    if 0 <= i < n:
+        return i * stride
+    if i < 0:
+        return (n - 1) * stride if lo == 'periodic' else -1
+    return 0 if hi == 'periodic' else -1
+
+
+def _masked_march_model(p, b, inv, bcs, mA, c0, act, mode, w, plan):
+    """K1m as `march::stencil_kernel` indexes it, thread by thread: a run of
+    `plan['run']` cells of a row marching along x over its chunk, pm / ax
+    loaded at the chunk's start, a⁺_x the next plane's run of mA_x (0 past a
+    non-periodic last plane, plane 0 past a periodic one), a⁺_y the next row's
+    run of mA_y, a⁺_z the next cell (past the run: the next lane's first, or
+    the row's first where periodic). A lane's shuffled neighbour is the run
+    beside it in the same row, so its value is the one at that offset; the
+    scalar route fills a run past the row's end with the row's first cell
+    (periodic) or 0. Returns out and the dot, summed from per-block partials."""
+    X, Y, Z = p.shape
+    YZ = Y * Z
+    V, (bx, by), cx, vec = plan['run'], plan['block'], plan['chunk'], plan['route'] == 'vector'
+    f = [a.reshape(-1) if a is not None else None for a in (p, b, *(mA or (None,) * 3), c0, act)]
+    pf, bf, mx, my, mz, c0f, af = f
+    (xlo, xhi), (ylo, yhi), (zlo, zhi) = bcs
+    wrap_z = zhi == 'periodic'
+    f32 = np.float32
+
+    def load(a, row, k0, wrap):
+        if row < 0:
+            return np.zeros(V, f32)
+        if vec:
+            return a[row + k0:row + k0 + V].astype(f32)
+        return np.array([a[row + k] if k < Z else a[row] if (k == Z and wrap) else 0.0
+                         for k in range(k0, k0 + V)], f32)
+
+    def at(a, pl, q):
+        return f32(a[pl + q]) if q >= 0 else f32(0.0)
+
+    def centre(i, n, lo, hi):
+        c = -2.0
+        if i == 0 and lo != 'periodic':
+            c = -2.0 if lo == 'ghost0' else -1.0
+        if i == n - 1 and hi != 'periodic':
+            c = -2.0 if hi == 'ghost0' else -1.0
+        return f32(c)
+
+    out = np.full(X * Y * Z, np.nan, f32)
+    partials = []
+    inv = [f32(x) for x in inv]
+    for gz in range(plan['grid'][2]):
+        for gy in range(plan['grid'][1]):
+            for gx in range(plan['grid'][0]):
+                contrib = 0.0
+                for ty in range(by):
+                    for tx in range(bx):
+                        k0, j = (gx * bx + tx) * V, gy * by + ty
+                        if not (j < Y and k0 < Z):
+                            continue  # an idle thread stores nothing and adds 0
+                        row = j * Z
+                        rym = _offset_or_none(j - 1, Y, ylo, yhi, Z)
+                        ryp = _offset_or_none(j + 1, Y, ylo, yhi, Z)
+                        ql = row + k0 - 1 if k0 > 0 else (row + Z - 1 if zlo == 'periodic' else -1)
+                        qr = row + k0 + V if k0 + V < Z else (row if (k0 + V == Z and wrap_z) else -1)
+                        x0 = gz * cx
+                        plm = _offset_or_none(x0 - 1, X, xlo, xhi, YZ)
+                        pm = load(pf, plm + row if plm >= 0 else -1, k0, wrap_z)
+                        pc = load(pf, x0 * YZ + row, k0, wrap_z)
+                        ax = load(mx, x0 * YZ + row, k0, False) if mA else None
+                        for i in range(x0, min(x0 + cx, X)):
+                            pl, pln = i * YZ, _offset_or_none(i + 1, X, xlo, xhi, YZ)
+                            pn = load(pf, pln + row if pln >= 0 else -1, k0, wrap_z)
+                            ym = load(pf, pl + rym if rym >= 0 else -1, k0, wrap_z)
+                            yp = load(pf, pl + ryp if ryp >= 0 else -1, k0, wrap_z)
+                            bv = load(bf, pl + row, k0, False) if mode != 'matvec' else None
+                            zl, zr = at(pf, pl, ql), at(pf, pl, qr)
+                            if mA:
+                                axn = load(mx, pln + row if pln >= 0 else -1, k0, False)
+                                ay = load(my, pl + row, k0, False)
+                                ayp = load(my, pl + ryp if ryp >= 0 else -1, k0, False)
+                                az = load(mz, pl + row, k0, wrap_z)
+                                cc = load(c0f, pl + row, k0, False)
+                                azr = at(mz, pl, qr)
+                            ac = load(af, pl + row, k0, False) if act is not None else None
+                            for e in range(V):
+                                if k0 + e >= Z:
+                                    break
+                                lo = zl if e == 0 else pc[e - 1]
+                                hi = zr if e == V - 1 else pc[e + 1]
+                                if mA:
+                                    lap = (inv[0] * (ax[e] * pm[e] + axn[e] * pn[e])
+                                           + inv[1] * (ay[e] * ym[e] + ayp[e] * yp[e])
+                                           + inv[2] * (az[e] * lo + (azr if e == V - 1 else az[e + 1]) * hi)
+                                           + cc[e] * pc[e])
+                                else:
+                                    cen = (inv[0] * centre(i, X, xlo, xhi) + inv[1] * centre(j, Y, ylo, yhi)
+                                           + inv[2] * centre(k0 + e, Z, zlo, zhi))
+                                    lap = (inv[0] * (pm[e] + pn[e]) + inv[1] * (ym[e] + yp[e])
+                                           + inv[2] * (lo + hi) + cen * pc[e])
+                                o = lap if mode == 'matvec' else bv[e] - lap if mode == 'residual' else \
+                                    pc[e] + f32(w) * (bv[e] - lap)
+                                if ac is not None and ac[e] == 0.0:
+                                    o = pc[e]
+                                out[pl + row + k0 + e] = o
+                                contrib += float(pc[e]) * float(o)
+                            pm, pc = pc, pn
+                            if mA:
+                                ax = axn
+                partials.append(contrib)
+    return out.reshape(X, Y, Z), sum(partials)
+
+
+@pytest.mark.parametrize('mode', ['matvec', 'residual', 'jacobi'])
+@pytest.mark.parametrize('form', FORMS)
+@pytest.mark.parametrize('bcs', BCS, ids=BC_IDS)
+@pytest.mark.parametrize('shape', [(5, 6, 12), (5, 6, 10)], ids=['vector', 'scalar'])
+def test_masked_march_model_matches_twin_and_jax(shape, bcs, form, mode):
+    """The model of K1m's indexing (`_masked_march_model`, two-plane chunks:
+    every chunk start; idle lanes and rows) against the twin and JAX's XLA
+    route: every cell written once, values within 2e-5, the dot within 1e-5
+    relative."""
+    p, b, jkw, tkw = _masked_inputs(14, shape, bcs, form)
+    plan = TP.stencil_plan(shape, torch.float32, None if mode == 'matvec' else torch.float32, chunk=2,
+                           form='active' if form == 'active' else 'coeffs')
+    assert plan['route'] == ('vector' if shape[2] % 4 == 0 else 'scalar')
+    mA = [m.numpy() for m in tkw['mA_list']] if 'mA_list' in tkw else None
+    c0 = tkw['c0'].numpy() if 'c0' in tkw else None
+    act = tkw['active'].numpy() if 'active' in tkw else None
+    got, dot = _masked_march_model(p, b, INV, bcs, mA, c0, act, mode, 0.15, plan)
+    assert not np.isnan(got).any()
+    ref, ref_dot = TP.poisson_apply(torch.from_numpy(p), INV, bcs, b=torch.from_numpy(b), mode=mode,
+                                    omega_over_diag=0.15, with_dot=True, **tkw)
+    assert float(np.abs(got - ref.numpy()).max()) < 2e-5
+    assert abs(dot - float(ref_dot)) / max(abs(float(ref_dot)), 1.0) < 1e-5
+    jref = JP._apply_xla(jnp.asarray(p), INV, bcs, jkw['mA_list'], jkw['c0'], jkw['active'], jnp.asarray(b), mode,
+                         0.15)
+    assert _max_err(torch.from_numpy(got), jref) < 2e-5
