@@ -10,7 +10,7 @@
 Phases; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi) and the torch / CUDA versions;
   2. the build of phiflow_tpu_torch/csrc/*.cu with nvcc, one process per source, with
-     ptxas's registers and spills of each instantiation of K1's and K6/K7's kernels;
+     ptxas's registers and spills of each instantiation of K1's and K6/K7's kernels and of K8's two;
   3. each kernel K1–K8 and the masked forms of K1 (K1m: active cells; the
      coefficient arrays of obstacles) against its plain
      PyTorch twin on the card, at a shape of its path (256³; 4096² for K7; 128³
@@ -24,7 +24,13 @@ Phases; any failure exits non-zero and prints no result:
      obstacle V-cycle, with p / u and b in either dtype; K1m in its three forms
      × three epilogues, each with and without the dot; K6 also at rows of 262
      and 264, scalar and float4, with blocks inside the grid and on its
-     border in the padded and the raw layout); the median CUDA-event time of the
+     border in the padded and the raw layout; K8 and its mean (`p2g_mean`)
+     also with every particle in one cell and integer values, exact; with
+     NaN and infinite values on dropped particles and NaN values on kept ones;
+     at a particle count that is no multiple of a warp; on the FLIP sets in
+     the path's order and shuffled, onto the four target grids; the mean of a
+     call bit-equal to the twin's formula on that call's sums and counts); the
+     median CUDA-event time of the
      kernel, of the twin and, where one PyTorch call computes the same
      function, of that call (library_ms — the port never calls it), beside the
      bound: the larger of bytes moved / 3.35 TB/s and float32 operations /
@@ -35,7 +41,10 @@ Phases; any failure exits non-zero and prints no result:
      smooths, K4 at 128³ in float32 too; and K2 (each smooth), K3 and K4 at
      every level of the 256³ V-cycle in its dtypes, each checked against its
      twin there first, with their launches × (device − bound) summed a
-     V-cycle and a step beside K1's;
+     V-cycle and a step beside K1's; K8's sums + counts (beside two
+     `index_add_`) and its whole mean (beside one `index_reduce_` mean) onto
+     the x faces and the cells at 128³ and 64³, on the particles of the
+     path's first step in its order, and at 128³ shuffled;
   4. six paths on the card, each (but 4g) 2 warm-up steps, then 5 timed steps with
      every launch counter set to 0 just before and read just after. Three of
      SmokePlume(cg_tol=1e-3, max_iterations=100): ms per step, Mcells/s, the
@@ -47,9 +56,9 @@ Phases; any failure exits non-zero and prints no result:
          `project` (K6 exactly 5 launches a step, and K1–K4);
      4c. the per-phase path in 2D at 4096² (K7; the 2D projection is PyTorch
          operations);
-     and two of FlipLiquid(dims=3, points_per_cell=8), `step` through K8 (4
-     launches a step: the three face grids and the occupancy) and K1m (6 + 4
-     per CG iteration): ms per step, M particles/s, the split P2G + fill /
+     and two of FlipLiquid(dims=3, points_per_cell=8), `step` through K8 and
+     its mean (exactly 4 launches a step each: the three face grids and the
+     occupancy) and K1m (6 + 4 per CG iteration): ms per step, M particles/s, the split P2G + fill /
      projection / G2P + RK4 + push, CG iterations and `converged`, max
      |div·active|; the particle count kept, positions finite and inside the
      box ± 0.5, the mean height falling:
@@ -79,8 +88,8 @@ Phases; any failure exits non-zero and prints no result:
      MovingObstacles(256) and LidDrivenCavity(256, obstacle=True): ms per
      step, CG iterations, K7 launched (their masked stencil is PyTorch
      operations, as every 2D stencil; they are small for the card); and
-     K1m's and K6's launches a step × (device − bound) on each path that
-     runs them (`gaps` lines);
+     K1m's, K6's and K8's launches a step × (device − bound) on each path
+     that runs them (`gaps` lines);
   5. 2 steps from one numpy state on the CPU (the twins) and on the card (the
      kernels), compared at 1e-3 abs: fused at 64³, per-phase at 64³, 2D at
      256², FLIP at 32³ (positions); the obstacle step at 48³ under both
@@ -123,13 +132,16 @@ KERNELS = {  # launch-counter name → (source, the Pallas kernel it replaces)
     # K1m: the launches of K1's C entry with coefficient arrays or active cells (also counted in poisson_stencil)
     'poisson_stencil_masked': ('phiflow_tpu_torch/csrc/poisson.cu', 'phiflow_tpu/ops/poisson.py:284'),
     'p2g': ('phiflow_tpu_torch/csrc/p2g.cu', 'phiflow_tpu/ops/p2g.py:142'),
+    # K8's mean, the epilogue launch of the same source (the JAX package forms it beside its kernel)
+    'p2g_mean': ('phiflow_tpu_torch/csrc/p2g.cu', 'phiflow_tpu/ops/p2g.py:142'),
     # K1m with the coefficient arrays mA, c0 of obstacles (also counted in the two above)
     'poisson_stencil_coeffs': ('phiflow_tpu_torch/csrc/poisson.cu', 'phiflow_tpu/ops/poisson.py:284'),
 }
 FUSED_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'fused_advect')
 PHASES_3D_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'window_interp_3d')
 PHASES_2D_KERNELS = ('window_interp_2d',)
-P2G_LAUNCHES_PER_STEP = 4  # three face grids and the occupancy grid
+P2G_LAUNCHES_PER_STEP = 4  # three face grids and the occupancy grid, each a scatter and a mean
+P2G_SHUFFLE_SEED = 9
 OBSTACLE_DT = 0.5
 K6_LAUNCHES_PER_OBSTACLE_STEP = 6  # MacCormack: a forward and a backward lookup per velocity component
 K6_LAUNCHES_PER_PHASE_STEP = 5  # the smoke's MacCormack pair, a semi-Lagrangian lookup per velocity component
@@ -636,70 +648,198 @@ def _particles(n_cells, points_per_cell, gen, dev, lower, dx, stray=0.02):
     return pos.contiguous(), torch.randn(n, generator=gen, device=dev)
 
 
-def check_p2g(ch, gen, quick):
-    """K8 against its twin: counts exactly, sums to float32 roundoff of a
-    cell's addends (1e-6 relative to the largest sum, atomics add in any
-    order), the mean with NaN in the empty cells."""
+def _flip_particles(N, gen, dev, stretch=False):
+    """FLIP's particles at N³ in the path's order (`distribute_points`: cell by
+    cell, 8 a cell), as the path's first step scatters them, or with `stretch`
+    the block moved to the corner and stretched past two walls so that some
+    lie outside every face grid; and random values."""
     import torch
-    from phiflow_tpu_torch.field._resample import face_grid
     from phiflow_tpu_torch.models import FlipLiquid
+    pos = torch.from_numpy(FlipLiquid(N, dims=3, points_per_cell=8, device='cuda').positions0).to(dev)
+    if stretch:
+        pos = ((pos - 0.15 * N) * 1.2 - 1.0).contiguous()
+    return pos, torch.randn(pos.shape[0], generator=gen, device=dev)
+
+
+def _shuffled(pos, vals, seed=P2G_SHUFFLE_SEED):
+    """The same particles in a random order: one permutation of positions and
+    values from a generator seeded here. No warp then shares a cell often."""
+    import torch
+    shuffle = torch.Generator(device=pos.device)
+    shuffle.manual_seed(seed)
+    perm = torch.randperm(pos.shape[0], generator=shuffle, device=pos.device)
+    return pos[perm].contiguous(), vals[perm].contiguous()
+
+
+def _flip_grid(N, axis):
+    """(res, lower) of the FLIP grid at N³ that `axis` names: a face grid, or
+    the cells (None), as `scatter_to_grid` builds them."""
+    from phiflow_tpu_torch.field._resample import face_grid
+    res, lo, _ = face_grid((N,) * 3, (1.0,) * 3, axis)
+    return res, tuple(float(x) for x in lo)
+
+
+def check_p2g(ch, gen, quick):
+    """K8 against its twin: counts exactly; sums to float32 roundoff of a
+    cell's addends (1e-6 of the largest sum: the atomics add in any order), or
+    exactly where the values are integers; the mean of the same call bit-equal
+    to the twin's formula on its own sums and counts; the mean against the
+    twin's with the same NaN pattern. Cases: (a) FLIP's particles in the path's
+    order onto its four grids; (b) the same shuffled; (c) every particle in
+    one cell, integer values; (d) NaN and infinite values on dropped particles
+    in the warps of finite ones, and NaN values of kept particles; (e) particle
+    counts that are no multiple of a warp or a block."""
+    import torch
     from phiflow_tpu_torch.ops import p2g as G
     dev = 'cuda'
 
-    def check(case, pos, vals, res, lower, inv_dx, clamp, base):
+    def check(case, pos, vals, res, lower, inv_dx, clamp, base, exact=False):
         sums, counts = G.p2g_sums_counts(pos, vals, res, lower, inv_dx, clamp)
         rsums, rcounts = G._p2g_plain(pos, vals, res, lower, inv_dx, clamp)
-        how = 'clamp' if clamp else 'discard'
-        ch.compare('p2g', f'{case} {how} counts (exact)', counts, rcounts, 0.0)
-        ch.compare('p2g', f'{case} {how} sums', sums, rsums, 1e-6 * max(1.0, float(rsums.abs().max())))
+        case = f'{case} {"clamp" if clamp else "discard"}'
+        ch.compare('p2g', f'{case} counts (exact)', counts, rcounts, 0.0)
+        tol = 0.0 if exact else 1e-6 * max(1.0, float(torch.nan_to_num(rsums, nan=0.0).abs().max()))
+        ch.compare_with_nan('p2g', f'{case} sums{" (exact)" if exact else ""}', sums, rsums, tol)
+        mean, msums, mcounts = G._p2g_cuda(pos, vals, res, lower, inv_dx, clamp, base)
+        ch.compare('p2g', f'{case} counts of the mean call (exact)', mcounts, rcounts, 0.0)
+        ch.compare_with_nan('p2g_mean', f'{case} mean = its sums / counts, base {base} (bit-equal)', mean,
+                            G._mean_or_base(msums, mcounts, base), 0.0)
         got = G.p2g_mean_3d(pos, vals, res, lower, inv_dx, clamp, base)
-        ch.compare_with_nan('p2g', f'{case} {how} mean, base {base}', got, G._mean_or_base(rsums, rcounts, base), 5e-6)
+        ch.compare_with_nan('p2g_mean', f'{case} mean, base {base}', got, G._mean_or_base(rsums, rcounts, base), 5e-6)
 
     # --- a small grid that is not cubic, cells of 0.5 × 1.0 × 0.25 from a lower corner off the origin ---
     lower, dx = (0.5, -1.0, 0.25), (0.5, 1.0, 0.25)
+    inv = tuple(1.0 / h for h in dx)
     pos, vals = _particles(SMALL, 2, gen, dev, lower, dx)
     for clamp in (False, True):
         for base in (0.0, float('nan')):
-            check(f'{pos.shape[0]} particles -> {SMALL}', pos, vals, SMALL, lower, tuple(1.0 / h for h in dx), clamp, base)
+            check(f'{pos.shape[0]} particles -> {SMALL}', pos, vals, SMALL, lower, inv, clamp, base)
+    # (e) a count that is no multiple of 32 or of the block's 256; then also an odd number of cells (the mean's
+    # scalar route: the counts plane is not 16-byte aligned)
+    for clamp in (False, True):
+        check(f'(e) {pos.shape[0] - 77} particles -> {SMALL}', pos[:-77], vals[:-77], SMALL, lower, inv, clamp,
+              float('nan'))
+    odd = (7, 13, 21)
+    odd_pos, odd_vals = _particles(odd, 3, gen, dev, lower, dx)
+    for clamp, base in ((False, 0.0), (True, float('nan'))):
+        check(f'(e) {odd_pos.shape[0]} particles -> {odd}', odd_pos, odd_vals, odd, lower, inv, clamp, base)
+    # (d) dropped particles valued NaN, +inf, -inf beside finite ones; kept particles valued NaN (1 in 997)
+    _, outside = G._cell_ids(pos, SMALL, lower, inv, False)
+    outside = ~outside
+    poison = torch.tensor([float('nan'), float('inf'), float('-inf')], device=dev)[
+        torch.arange(pos.shape[0], device=dev) % 3]
+    check(f'(d) {int(outside.sum())} of {pos.shape[0]} dropped valued NaN/inf -> {SMALL}', pos,
+          torch.where(outside, poison, vals), SMALL, lower, inv, False, 0.0)
+    kept_nan = torch.where(torch.arange(pos.shape[0], device=dev) % 997 == 5, float('nan'), vals)
+    for clamp in (False, True):
+        check(f'(d) kept particles valued NaN -> {SMALL}', pos, kept_nan, SMALL, lower, inv, clamp, float('nan'))
+    # (c) every particle in cell (3, 5, 7), integer values: the sums are exact in any order of addition
+    n_one = 100_003
+    cell = torch.tensor([3.0, 5.0, 7.0], device=dev)
+    one_pos = ((cell + torch.rand((n_one, 3), generator=gen, device=dev) * 0.98 + 0.01)
+               * torch.tensor(dx, device=dev) + torch.tensor(lower, device=dev)).contiguous()
+    ints = torch.randint(-8, 9, (n_one,), generator=gen, device=dev).float()
+    for clamp in (False, True):
+        check(f'(c) {n_one} particles in one cell, integer values -> {SMALL}', one_pos, ints, SMALL, lower, inv,
+              clamp, 0.0, exact=True)
     if quick:
         return
-    # --- the FLIP paths' particle sets and their four target grids ---
-    timed = None
+    # (a) the FLIP paths' particle sets in the path's order, as timed and stretched past the walls, and (b) the
+    # same shuffled, onto the four target grids
     for N in FLIP_N:
-        pos = torch.from_numpy(FlipLiquid(N, dims=3, points_per_cell=8, device='cuda').positions0).to(dev)
-        # the block moved to the corner and stretched past two walls: particles outside every face grid
-        pos = ((pos - 0.15 * N) * 1.2 - 1.0).contiguous()
-        vals = torch.randn(pos.shape[0], generator=gen, device=dev)
-        for axis in (None, 0, 1, 2):
-            res, lo, _ = face_grid((N,) * 3, (1.0,) * 3, axis)
-            lo = tuple(float(x) for x in lo)
-            clamp, base = (False, 0.0) if axis is None else (True, float('nan'))
-            check(f'{pos.shape[0]} particles -> {res}', pos, vals, res, lo, (1.0,) * 3, clamp, base)
-            if N == FLIP_N[0] and axis == 0:
-                timed = (pos, vals, res, lo)
-    pos, vals, res, lo = timed
+        orders = []
+        for stretch in (False, True):
+            pos, vals = _flip_particles(N, gen, dev, stretch)
+            tag = ' stretched' if stretch else ''
+            orders += [(f'(a){tag}', pos, vals), (f'(b){tag} shuffled', *_shuffled(pos, vals))]
+        for order, p, v in orders:
+            for axis in (None, 0, 1, 2):
+                res, lo = _flip_grid(N, axis)
+                clamp, base = (False, 0.0) if axis is None else (True, float('nan'))
+                check(f'{order} {p.shape[0]} particles -> {res}', p, v, res, lo, (1.0,) * 3, clamp, base)
+
+
+def p2g_row(kind, N, order, grid):
+    """The key of a timed K8 row: `kind` (`p2g`, sums + counts; `p2g_mean`,
+    the whole mean) itself for the kernels line's row (128³, path order, x
+    faces), else a part of it."""
+    if (N, order, grid) == (FLIP_N[0], 'path order', 'x faces'):
+        return kind
+    return f'{kind} {N}^3 {order}, {grid}'
+
+
+def p2g_timing(ch, kind, N, order, grid):
+    key = p2g_row(kind, N, order, grid)
+    return ch.timing[kind] if key == kind else ch.timing[kind]['parts'][key]
+
+
+def time_p2g(ch, gen):
+    """K8's rows at the FLIP paths' shapes, on the particles of the path's
+    first step: sums + counts (`p2g`, beside the two `index_add_` that compute
+    them from precomputed cell ids) and the whole mean as the path calls it
+    (`p2g_mean`, beside one `index_reduce_` mean from the same ids), onto the
+    x faces (clamp, base NaN) and the cells (discard, base 0), in the path's
+    order at 128³ and 64³ and shuffled at 128³. Per particle 12 B of position
+    and 4 B of value are read; per cell 8 B written for sums + counts, 4 B for
+    the mean (the function's output; the call also writes the counts, the
+    backward's residual, which the bound leaves out)."""
+    import torch
+    from phiflow_tpu_torch.ops import p2g as G
+    dev = 'cuda'
     one = (1.0,) * 3
-    ids, _ = G._cell_ids(pos, res, lo, one, True)
-    ones = torch.ones_like(vals)
-    n_cells = res[0] * res[1] * res[2]
+    nan = float('nan')
+    keys = {'p2g': [], 'p2g_mean': []}
+    for N in FLIP_N:
+        pos, vals = _flip_particles(N, gen, dev)
+        orders = [('path order', pos, vals)] + ([('shuffled', *_shuffled(pos, vals))] if N == FLIP_N[0] else [])
+        for order, p, v in orders:
+            for grid, axis, clamp, base in (('x faces', 0, True, nan), ('cells', None, False, 0.0)):
+                res, lo = _flip_grid(N, axis)
+                n_cells = res[0] * res[1] * res[2]
+                ids, valid = G._cell_ids(p, res, lo, one, clamp)
+                w, ones = torch.where(valid, v, 0.0), valid.float()
 
-    def library():
-        out = torch.zeros((2, n_cells), device=dev)
-        out[0].index_add_(0, ids, vals)
-        out[1].index_add_(0, ids, ones)
-        return out
+                kept_ids, kept_v = ids[valid], v[valid]
 
-    # K8's function — sums and counts — beside the two index_add_ that compute the same from precomputed cell
-    # ids; per particle 12 B of position and 4 B of value read, per cell 8 B written
-    ch.time('p2g', f'sums + counts of {pos.shape[0]} particles -> x faces {res}, clamp',
-            lambda: G.p2g_sums_counts(pos, vals, res, lo, one, True),
-            lambda: G._p2g_plain(pos, vals, res, lo, one, True),
-            16 * pos.shape[0] + 8 * n_cells, 8 * pos.shape[0], library)
-    # the whole mean as the path calls it: sums and counts are also read back and the mean written (20 B a cell)
-    ch.time('p2g', f'mean of {pos.shape[0]} particles -> x faces {res}, clamp, base NaN',
-            lambda: G.p2g_mean_3d(pos, vals, res, lo, one, True, float('nan')),
-            lambda: G._mean_or_base(*G._p2g_plain(pos, vals, res, lo, one, True), float('nan')),
-            16 * pos.shape[0] + 20 * n_cells, 8 * pos.shape[0] + 2 * n_cells, key='p2g mean')
+                def library(ids=ids, w=w, ones=ones, n_cells=n_cells):
+                    out = torch.zeros((2, n_cells), device=dev)
+                    out[0].index_add_(0, ids, w)
+                    out[1].index_add_(0, ids, ones)
+                    return out
+
+                def library_mean(ids=kept_ids, v=kept_v, n_cells=n_cells, base=base):
+                    return torch.full((n_cells,), base, device=dev).index_reduce_(0, ids, v, 'mean',
+                                                                                  include_self=False)
+
+                what = f'{p.shape[0]} particles ({order}) -> {grid} {res}, {"clamp" if clamp else "discard"}'
+                n_bytes, n_ops = 16 * p.shape[0] + 8 * n_cells, 8 * p.shape[0]
+                key = p2g_row('p2g', N, order, grid)
+                ch.time('p2g', f'sums + counts of {what}',
+                        lambda p=p, v=v, res=res, lo=lo, clamp=clamp: G.p2g_sums_counts(p, v, res, lo, one, clamp),
+                        lambda p=p, v=v, res=res, lo=lo, clamp=clamp: G._p2g_plain(p, v, res, lo, one, clamp),
+                        n_bytes, n_ops, library, key=key)
+                keys['p2g'].append(key)
+                key = p2g_row('p2g_mean', N, order, grid)
+                twin_mean = G._mean_or_base(*G._p2g_plain(p, v, res, lo, one, clamp), base)
+                ch.compare_with_nan('p2g_mean', f'library index_reduce_ mean of {what}', library_mean().reshape(res),
+                                    twin_mean, 5e-6)
+                ch.time('p2g_mean', f'mean of {what}, base {base}',
+                        lambda p=p, v=v, res=res, lo=lo, clamp=clamp, base=base:
+                            G.p2g_mean_3d(p, v, res, lo, one, clamp, base),
+                        lambda p=p, v=v, res=res, lo=lo, clamp=clamp, base=base:
+                            G._mean_or_base(*G._p2g_plain(p, v, res, lo, one, clamp), base),
+                        16 * p.shape[0] + 4 * n_cells, n_ops + 2 * n_cells, library_mean, key=key)
+                keys['p2g_mean'].append(key)
+    for kind, ks in keys.items():
+        ch.attach(kind, [k for k in ks if k != kind])
+    # the share of the memset in each call: zeroing the same bytes (a PyTorch fill) at 128³ x faces
+    res, _ = _flip_grid(FLIP_N[0], 0)
+    planes = torch.empty((2,) + res, device=dev)
+    zeroing = dict(timed=f'zeroing sums + counts of x faces {res} (a PyTorch fill)', device_ms=replay_ms(planes.zero_),
+                   bound_ms=nbytes(planes) / HBM_BYTES_PER_S * 1e3)
+    print(f'time  p2g               {zeroing["timed"]:58s} device_ms={zeroing["device_ms"]:.4f} '
+          f'bound_ms={zeroing["bound_ms"]:.4f} (bytes; {nbytes(planes) / 1e6:.1f} MB)')
+    ch.timing['p2g']['zeroing'] = zeroing
 
 
 def check_transfer(ch, gen, quick):
@@ -1049,7 +1189,8 @@ def run_flip(tag, N, warmup=2, steps=5):
           f'{[r.converged for r in solves]} (cg_tol {model.cg_tol}, at most {model.max_iterations})')
     print(f'{tag} launches per step: ' + ', '.join(f'{k}={launches.get(k, 0) / steps:g}' for k in KERNELS))
     # K1m: two diagonal probes, A·x0 and the first preconditioner's three a solve, four an iteration
-    expected = {'p2g': P2G_LAUNCHES_PER_STEP * steps, 'poisson_stencil_masked': sum(6 + 4 * it for it in iters)}
+    expected = {'p2g': P2G_LAUNCHES_PER_STEP * steps, 'p2g_mean': P2G_LAUNCHES_PER_STEP * steps,
+                'poisson_stencil_masked': sum(6 + 4 * it for it in iters)}
     expected['poisson_stencil'] = expected['poisson_stencil_masked']
     wrong = {k: (launches.get(k, 0), e) for k, e in expected.items() if launches.get(k, 0) != e or e == 0}
     if wrong:
@@ -1089,7 +1230,8 @@ def run_flip(tag, N, warmup=2, steps=5):
 
 
 PORT_KERNELS = ('stencil_kernel', 'smooth_kernel', 'residual_restrict_kernel', 'prolong_add_kernel',
-                'fused_advect_kernel', 'advect_lift_kernel', 'window_interp_kernel', 'p2g_kernel')
+                'fused_advect_kernel', 'advect_lift_kernel', 'window_interp_kernel', 'p2g_scatter_kernel',
+                'p2g_mean_kernel')
 
 
 def profile_path(tag, size, advance, state, warmup=2, steps=3, rows_shown=12):
@@ -1127,9 +1269,13 @@ def profile_path(tag, size, advance, state, warmup=2, steps=3, rows_shown=12):
 
 
 def profile_flip(tag, N):
+    """A FLIP step, and its P2G + fill alone (its device kernels do not follow
+    the CG's iteration count)."""
     from phiflow_tpu_torch.models import FlipLiquid
     model = FlipLiquid(N, dims=3, points_per_cell=8, device='cuda')
     profile_path(tag, f'{N}^3', lambda state: model.step(*state), model.initial_state())
+    profile_path(f'{tag} P2G + fill', f'{N}^3', lambda state: (model.particles_to_grid(state[0]), state)[1],
+                 model.initial_state(), rows_shown=8)
 
 
 def profile_slice(tag, dims, N, per_phase):
@@ -1471,10 +1617,12 @@ def run_model_2d(tag, model, warmup=2, steps=5):
 
 
 def print_path_gaps(ch, by_path):
-    """K1m's and K6's launches a step on each path that runs them × (device −
-    bound) of the row timed at that path's shape: K1m's coefficient row
-    (obstacle masks, 256³) on the obstacle paths, its active row (128³) on
-    FLIP 128³; K6's rows with and without the extrema, by the step's mix."""
+    """K1m's, K6's and K8's launches a step on each path that runs them ×
+    (device − bound) of the row timed at that path's shape: K1m's coefficient
+    row (obstacle masks, 256³) on the obstacle paths, its active row (128³) on
+    FLIP 128³; K6's rows with and without the extrema, by the step's mix; K8's
+    whole mean at each FLIP size, three onto face grids (the x faces' row) and
+    one onto the cells."""
     k1m = {'poisson_stencil_coeffs': [f'obstacle-{OBSTACLE_N}', f'obstacle-{OBSTACLE_N}-vcycle'],
            'poisson_stencil_masked': [f'flip-{FLIP_N[0]}']}
     gaps = {}
@@ -1492,6 +1640,14 @@ def print_path_gaps(ch, by_path):
                + (per_step - with_extrema) * (k6['device_ms'] - k6['bound_ms']))
         gaps.setdefault(tag, []).append(f'K6 {with_extrema:g} with extrema + {per_step - with_extrema:g} without '
                                         f'= {gap:.4f} ms')
+    for N in FLIP_N:
+        tag = f'flip-{N}'
+        per_step = by_path[tag]['p2g_mean'] / by_path[tag]['steps']
+        faces, cells = (p2g_timing(ch, 'p2g_mean', N, 'path order', g) for g in ('x faces', 'cells'))
+        gap = (per_step - 1) * (faces['device_ms'] - faces['bound_ms']) + (cells['device_ms'] - cells['bound_ms'])
+        gaps.setdefault(tag, []).append(f'K8 mean {per_step - 1:g} x ({faces["device_ms"]:.4f} - '
+                                        f'{faces["bound_ms"]:.4f}) + 1 x ({cells["device_ms"]:.4f} - '
+                                        f'{cells["bound_ms"]:.4f}) = {gap:.4f} ms')
     for tag, parts in gaps.items():
         print(f'gaps  {tag}: launches a step x (device - bound): ' + '; '.join(parts))
 
@@ -1529,7 +1685,7 @@ def card_line():
 # the path whose run gives a kernel's `launches` in the `kernels` line: the one that brought it
 COUNTED_ON = {**{k: 'fused' for k in FUSED_KERNELS}, 'window_interp_3d': 'per-phase',
               'window_interp_2d': 'per-phase-2d', 'poisson_stencil_masked': f'flip-{FLIP_N[0]}',
-              'p2g': f'flip-{FLIP_N[0]}', 'poisson_stencil_coeffs': f'obstacle-{OBSTACLE_N}'}
+              'p2g': f'flip-{FLIP_N[0]}', 'p2g_mean': f'flip-{FLIP_N[0]}', 'poisson_stencil_coeffs': f'obstacle-{OBSTACLE_N}'}
 PATHS = [  # (tag, dims, N, per-phase?, the kernels it must launch)
     ('fused', 3, PATH_N, False, FUSED_KERNELS),
     ('per-phase', 3, PATH_N, True, PHASES_3D_KERNELS),
@@ -1558,7 +1714,7 @@ def main(argv):
         print(f'build: {name}.cu: {len(regs)} kernel instantiations, at most {max(regs)} registers '
               f'a thread, {spills} bytes of spill stores in all (ptxas -v)')
         for entry, n_regs, n_spill in ptxas_entries(log):
-            if 'march::stencil_kernel' in entry or 'window_interp_kernel' in entry:
+            if 'march::stencil_kernel' in entry or 'window_interp_kernel' in entry or 'p2g' in entry:
                 print(f'build: {name}.cu {entry}: {n_regs} registers, {n_spill} bytes of spill stores')
     ch = Checks()
     gen = torch.Generator(device='cuda')
@@ -1572,6 +1728,7 @@ def main(argv):
     check_interp(ch, gen, quick)
     if not quick:
         time_vcycle_levels(ch, gen)
+        time_p2g(ch, gen)
     torch.cuda.synchronize()
     print(f'checks: {time.perf_counter() - t0:.1f} s, {sum(ch.passed.values())} passed, {len(ch.failed)} failed')
     if ch.failed:

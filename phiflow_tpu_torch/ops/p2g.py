@@ -5,11 +5,13 @@ FLIP step's transfer of particle values to the grid.
     mean[c]   = Σ_{p in c} values[p] / #{p in c},     `base` where no particle lies
 
 A particle outside the grid is dropped (``clamp=False``) or kept at the border
-cell (``clamp=True``). Sums and counts come from one pass: on the card the CUDA
-kernel K8 (`csrc/p2g.cu`, one thread per particle, two atomic adds), on the CPU
-the plain twin `_p2g_plain` (`index_add_` on the flat grid, `_p2g_xla` of the
-JAX package). The mean and `base` are formed from them with PyTorch operations,
-as the JAX package forms them outside its kernel.
+cell (``clamp=True``). On the card the CUDA kernel K8 (`csrc/p2g.cu`) forms
+sums and counts in one pass: the lanes of a warp with the same cell add their
+values by shuffles and one lane makes the group's two atomic adds. The mean is
+one more launch of the same source (`p2g_mean`), after a memset and the
+scatter in one C call. On the CPU the plain twin `_p2g_plain` (`index_add_` on
+the flat grid, `_p2g_xla` of the JAX package) forms sums and counts and
+`_mean_or_base` the mean, as the JAX package forms it outside its kernel.
 
 The TPU kernel's limits (the one-hot plane must fit VMEM; at least 4096
 particles) are TPU layout and have no counterpart: on CUDA every call launches
@@ -19,7 +21,8 @@ whatever device the tensors lie (the JAX package scatters 2D through XLA).
 
 Sums on the card are atomic adds, so their order changes from run to run: two
 runs agree to float32 roundoff of a cell's addends, not bit for bit. Counts
-are exact. Positions are taken to be finite; a NaN position goes to cell 0 and
+are exact, and the mean is bit-equal to `_mean_or_base` of the same sums and
+counts. Positions are taken to be finite; a NaN position goes to cell 0 and
 counts as outside. A dropped particle contributes nothing, whatever its value.
 """
 from __future__ import annotations
@@ -72,30 +75,38 @@ def _ctypes_grid():
 def _lib():
     import ctypes
     P = ctypes.c_void_p
-    return _build.library('p2g', {'p2g_scatter': [P, P, P, P, ctypes.c_longlong, P, ctypes.c_int, P]})
+    return _build.library('p2g', {'p2g_mean': [P, P, P, P, ctypes.c_longlong, P, ctypes.c_int, ctypes.c_float, P]})
 
 
-def _p2g_cuda(pos, values, res, lower, inv_dx, clamp):
-    import ctypes
-    lib = _lib()
+def _grid(res, lower, inv_dx):
     g = _ctypes_grid()()
     for a in range(3):
         g.n[a] = int(res[a])
         g.lower[a] = float(np.float32(lower[a]))
         g.inv_dx[a] = float(np.float32(inv_dx[a]))
-    out = torch.zeros((2,) + tuple(int(r) for r in res), dtype=torch.float32, device=pos.device)
-    sums, counts = out[0], out[1]
-    err = lib.p2g_scatter(pos.data_ptr(), values.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-                          pos.shape[0], ctypes.byref(g), int(bool(clamp)), _build.stream_of(pos))
-    _build.check(lib, err, 'p2g_scatter')
-    _build.LAUNCHES['p2g'] += 1
-    return sums, counts
+    return g
 
 
-def p2g_sums_counts(pos: torch.Tensor, values: torch.Tensor, res: Sequence[int], lower: Sequence[float],
-                    inv_dx: Sequence[float], clamp: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per cell the sum of `values` and the number of particles, both float32
-    of shape `res`. pos: (N, d) float32, values: (N,) float32, d = len(res)."""
+def _p2g_cuda(pos, values, res, lower, inv_dx, clamp, base=None):
+    """K8 on the card, one C call: (mean, sums, counts) from a memset, the
+    scatter and, unless `base` is None (mean None then), the mean."""
+    import ctypes
+    lib = _lib()
+    out = torch.empty((2,) + tuple(res), dtype=torch.float32, device=pos.device)
+    mean = None if base is None else torch.empty(tuple(res), dtype=torch.float32, device=pos.device)
+    err = lib.p2g_mean(pos.data_ptr(), values.data_ptr(), out.data_ptr(), 0 if mean is None else mean.data_ptr(),
+                       pos.shape[0], ctypes.byref(_grid(res, lower, inv_dx)), int(bool(clamp)),
+                       0.0 if base is None else float(base), _build.stream_of(pos))
+    _build.check(lib, err, 'p2g_mean')
+    _build.LAUNCHES['p2g'] += int(pos.shape[0] > 0)
+    if mean is not None:
+        _build.LAUNCHES['p2g_mean'] += int(mean.numel() > 0)
+    return mean, out[0], out[1]
+
+
+def _kernel_route(pos, values, res, lower, inv_dx) -> bool:
+    """Check the arguments; True where the kernel computes (a 3D grid on
+    CUDA), False where the twin does."""
     d = len(res)
     if pos.ndim != 2 or pos.shape[1] != d or values.shape != pos.shape[:1]:
         raise ValueError(f"expected pos (N, {d}) and values (N,), got {tuple(pos.shape)} and {tuple(values.shape)}")
@@ -105,10 +116,19 @@ def p2g_sums_counts(pos: torch.Tensor, values: torch.Tensor, res: Sequence[int],
         raise TypeError(f"pos and values must be float32, got {pos.dtype} and {values.dtype}")
     if values.device != pos.device:
         raise ValueError(f"pos on {pos.device}, values on {values.device}")
-    if pos.is_cuda and d == 3:
-        if int(np.prod(res)) >= 2 ** 31:
-            raise ValueError(f"grid {tuple(res)} has too many cells for the kernel")
-        return _p2g_cuda(pos.detach().contiguous(), values.detach().contiguous(), res, lower, inv_dx, clamp)
+    if not (pos.is_cuda and d == 3):
+        return False
+    if int(np.prod(res)) >= 2 ** 31:
+        raise ValueError(f"grid {tuple(res)} has too many cells for the kernel")
+    return True
+
+
+def p2g_sums_counts(pos: torch.Tensor, values: torch.Tensor, res: Sequence[int], lower: Sequence[float],
+                    inv_dx: Sequence[float], clamp: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per cell the sum of `values` and the number of particles, both float32
+    of shape `res`. pos: (N, d) float32, values: (N,) float32, d = len(res)."""
+    if _kernel_route(pos, values, res, lower, inv_dx):
+        return _p2g_cuda(pos.detach().contiguous(), values.detach().contiguous(), res, lower, inv_dx, clamp)[1:]
     return _p2g_plain(pos.detach(), values.detach(), res, lower, inv_dx, clamp)
 
 
@@ -119,10 +139,15 @@ class _P2GMean(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pos, values, res, lower, inv_dx, clamp, base):
-        sums, counts = p2g_sums_counts(pos, values, res, lower, inv_dx, clamp)
+        if _kernel_route(pos, values, res, lower, inv_dx):
+            mean, _, counts = _p2g_cuda(pos.detach().contiguous(), values.detach().contiguous(), res, lower, inv_dx,
+                                        clamp, base)
+        else:
+            sums, counts = _p2g_plain(pos.detach(), values.detach(), res, lower, inv_dx, clamp)
+            mean = _mean_or_base(sums, counts, base)
         ctx.save_for_backward(pos, counts)
         ctx.geometry = (res, lower, inv_dx, clamp)
-        return _mean_or_base(sums, counts, base)
+        return mean
 
     @staticmethod
     def backward(ctx, g):
