@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py           # all phases, one card
     python3 chip_smoke.py --quick   # build + kernel-versus-twin checks at the small shapes only
-    python3 chip_smoke.py --profile # all phases, then torch.profiler over 3 steps of each path,
+    python3 chip_smoke.py --profile # all phases, then torch.profiler over 3 steps of each path (4-field too),
                                     # K2 and K3 at every level of the 256³ V-cycle, K1 at 256³ and
                                     # K1m at 256³ (obstacle masks) and 128³ (active) with each x-chunk
 
@@ -45,7 +45,7 @@ Phases; any failure exits non-zero and prints no result:
      `index_add_`) and its whole mean (beside one `index_reduce_` mean) onto
      the x faces and the cells at 128³ and 64³, on the particles of the
      path's first step in its order, and at 128³ shuffled;
-  4. six paths on the card, each (but 4g) 2 warm-up steps, then 5 timed steps with
+  4. seven paths on the card, each (but 4g) 2 warm-up steps, then 5 timed steps with
      every launch counter set to 0 just before and read just after. Three of
      SmokePlume(cg_tol=1e-3, max_iterations=100): ms per step, Mcells/s, the
      advection / pressure split, CG iterations, max |div|, the displacement
@@ -56,6 +56,17 @@ Phases; any failure exits non-zero and prints no result:
          `project` (K6 exactly 5 launches a step, and K1–K4);
      4c. the per-phase path in 2D at 4096² (K7; the 2D projection is PyTorch
          operations);
+     4-field. the per-phase step written in the public Field API, from 4b's
+         final state: `advect.mac_cormack(smoke, v, dt, max_cells=1) + rate *
+         inflow` (the model's own soft mask as a CenteredGrid),
+         `advect.semi_lagrangian(v, v, dt, max_cells=1)`, the buoyancy through
+         `resample(smoke * (buoyancy·dt), to=adv.vector['z'])`,
+         `fluid.make_incompressible(v, (), Solve('CG', 1e-3, 0., x0=p,
+         max_iterations=100, ...))` (K6 exactly 5 launches a step, K1–K4 as
+         many per V-cycle as on 4b); then 2 steps of 4-field and of 4b from
+         one state, velocity, smoke and pressure within 1e-5 of each field's
+         max |·| with equal CG counts, and both paths' host-clock ms/step,
+         alternating in 3 rounds of 3 steps;
      and two of FlipLiquid(dims=3, points_per_cell=8), `step` through K8 and
      its mean (exactly 4 launches a step each: the three face grids and the
      occupancy) and K1m (6 + 4 per CG iteration): ms per step, M particles/s, the split P2G + fill /
@@ -93,7 +104,10 @@ Phases; any failure exits non-zero and prints no result:
   5. 2 steps from one numpy state on the CPU (the twins) and on the card (the
      kernels), compared at 1e-3 abs: fused at 64³, per-phase at 64³, 2D at
      256², FLIP at 32³ (positions); the obstacle step at 48³ under both
-     preconditioners at 1e-4 abs with the CG counts at most 1 apart;
+     preconditioners at 1e-4 abs with the CG counts at most 1 apart; the
+     Field step at 64³ and 256² at 1e-3; and on the card a Field-level
+     `make_incompressible(v, [Obstacle(Sphere(...))])` at 48³ against the
+     array-level call on the same tensors, 1e-4, CG counts at most 1 apart;
   6. the `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -1094,7 +1108,7 @@ def _stepper(model, per_phase):
 
 def run_slice(tag, dims, N, per_phase, required, warmup=2, steps=5):
     import torch
-    from phiflow_tpu_torch.field import divergence
+    from phiflow_tpu_torch.field import divergence_native
     from phiflow_tpu_torch.models import SmokePlume
     from phiflow_tpu_torch.ops import _build
     model = SmokePlume(resolution=N, dims=dims, cg_tol=1e-3, max_iterations=100, device='cuda')
@@ -1145,7 +1159,7 @@ def run_slice(tag, dims, N, per_phase, required, warmup=2, steps=5):
         prs.append((time.perf_counter() - t1) * 1e3)
     print(f'{tag} split: advection {statistics.median(adv):.2f} ms, pressure {statistics.median(prs):.2f} ms '
           f'(median of 3 steps timed phase by phase)')
-    div = float(divergence(v, model._dx).abs().max())
+    div = float(divergence_native(v, model._dx).abs().max())
     disp = max(float(c.abs().max()) for c in v) * model.dt / model._dx
     finite = all(bool(torch.isfinite(t).all()) for t in (*v, s, p))
     print(f'{tag} max |div| after projection {div:.3e}; max |displacement| <= {disp:.3f} cells '
@@ -1155,14 +1169,14 @@ def run_slice(tag, dims, N, per_phase, required, warmup=2, steps=5):
     shapes_ok = [tuple(t.shape) for t in v] == comps and tuple(s.shape) == cells and tuple(p.shape) == cells
     if not (finite and shapes_ok and disp <= model.max_cells and div < 0.1):
         raise RuntimeError(f'{tag} output wrong: finite={finite} shapes_ok={shapes_ok} disp={disp} div={div}')
-    return launches
+    return launches, (v, s, p), iters
 
 
 def run_flip(tag, N, warmup=2, steps=5):
     """FlipLiquid(N, dims=3).step on the card: the launch counts of a timed
     run, the split by phase, and the gates on what comes out."""
     import torch
-    from phiflow_tpu_torch.field import divergence
+    from phiflow_tpu_torch.field import divergence_native
     from phiflow_tpu_torch.models import FlipLiquid
     from phiflow_tpu_torch.ops import _build
     model = FlipLiquid(N, dims=3, points_per_cell=8, device='cuda')
@@ -1212,7 +1226,7 @@ def run_flip(tag, N, warmup=2, steps=5):
         t3 = time.perf_counter()
         for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
             split[key].append(dt * 1e3)
-        div = divergence(grid_v, model._dx) * occupied
+        div = divergence_native(grid_v, model._dx) * occupied
         div_active = max(div_active, float(torch.nan_to_num(div, nan=0.0).abs().max()))
     print(f'{tag} split: ' + ', '.join(f'{k} {statistics.median(v):.2f} ms' for k, v in split.items())
           + ' (median of 3 steps timed phase by phase)')
@@ -1360,6 +1374,243 @@ def flip_cpu_vs_card(N=32, steps=2, tol=1e-3):
         raise RuntimeError(f'CPU and card disagree (flip): {errs}')
 
 # ---------------------------------------------------------------------------
+# the Field path: SmokePlume's per-phase step written in the public Field API
+# ---------------------------------------------------------------------------
+
+def smoke_fields(model, velocity, smoke, pressure):
+    """(velocity, smoke, pressure, inflow) Fields of a SmokePlume on raw
+    tensors — the closed box's face components are kept as they are — and the
+    model's own soft inflow mask wrapped once as a CenteredGrid."""
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import CenteredGrid, StaggeredGrid
+    from phiflow_tpu_torch.geom import Box
+    names = ','.join('xyz'[:model.dims])
+    size = model._resolution * model._dx
+    bounds = Box(**{n: size for n in names.split(',')})
+    res = {n: model._resolution for n in names.split(',')}
+    ext = math.extrapolation
+    s_ext = ext.PERIODIC if model.periodic else ext.BOUNDARY
+    v = StaggeredGrid(math.stack([math.wrap(c, math.spatial(names)) for c in velocity], math.dual(vector=names)),
+                      ext.PERIODIC if model.periodic else 0., bounds=bounds, **res)
+    s = CenteredGrid(math.wrap(smoke, math.spatial(names)), s_ext, bounds=bounds, **res)
+    p = CenteredGrid(math.wrap(pressure, math.spatial(names)), s_ext, bounds=bounds, **res)
+    inflow = s.with_values(math.wrap(model._inflow_mask_values(smoke), math.spatial(names)))
+    return v, s, p, inflow
+
+
+def field_arrays(v, s, p):
+    """The raw tensors of Fields: the velocity components, smoke, pressure."""
+    from phiflow_tpu_torch.field._field import face_components
+    names = v.resolution.names
+    return tuple(c.native(names) for c in face_components(v.values)), s.values.native(names), p.values.native(names)
+
+
+def field_stepper(model, inflow):
+    """JAX's `SmokePlume.advect_smoke` / `advect_velocity` / `project`
+    (phiflow_tpu/models/smoke.py:240-272) as a user writes them with the public
+    Field API: step(v, s, p) -> (v, s, p), the solve's SolveInfo on the tape."""
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import resample
+    from phiflow_tpu_torch.physics import advect, fluid
+
+    def step(v, s, p):
+        names = v.resolution.names
+        s = advect.mac_cormack(s, v, model.dt, max_cells=model.max_cells) + model.inflow_rate * inflow
+        adv = advect.semi_lagrangian(v, v, model.dt, max_cells=model.max_cells)
+        up = names[-1]
+        lift = resample(s * (model.buoyancy * model.dt), to=adv.vector[up])
+        v = adv.with_values(math.stack([adv.vector[d].values + lift.values if d == up else adv.vector[d].values
+                                        for d in names], math.dual(vector=','.join(names))))
+        v, p = fluid.make_incompressible(v, (), math.Solve('CG', model.cg_tol, 0., x0=p,
+                                                           max_iterations=model.max_iterations,
+                                                           suppress=(math.ConvergenceException,)))
+        return v, s, p
+    return step
+
+
+def run_field(tag, N, state, phase_launches, phase_iters, warmup=2, steps=5):
+    """Path 4-field: the Field step at N³ from path 4b's final state, 2
+    warm-up steps, then 5 timed with every launch counter set to 0 just before
+    and read just after. K6 exactly 5 launches a step; K1–K4 as many per
+    V-cycle (1 + CG iterations a step) as on 4b."""
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import divergence
+    from phiflow_tpu_torch.models import SmokePlume
+    from phiflow_tpu_torch.ops import _build
+    from phiflow_tpu_torch.physics import advect
+    model = SmokePlume(resolution=N, dims=3, cg_tol=1e-3, max_iterations=100, device='cuda')
+    v, s, p, inflow = smoke_fields(model, *state)
+    step = field_stepper(model, inflow)
+    for _ in range(warmup):
+        v, s, p = step(v, s, p)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with math.SolveTape() as tape:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            v, s, p = step(v, s, p)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES, steps=steps)
+    iters = [info.iterations for info in tape]
+    ms = elapsed / steps * 1e3
+    print(f'{tag} {N}^3: {ms:.2f} ms/step, {N ** 3 / (ms * 1e-3) / 1e6:.1f} Mcells/s over {steps} steps after '
+          f'{warmup} warm-up steps; CG iterations per step {iters}')
+    print(f'{tag} launches per step: ' + ', '.join(f'{k}={launches.get(k, 0) / steps:g}' for k in KERNELS))
+    missing = [k for k in PHASES_3D_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise RuntimeError(f'{tag}: kernels not launched on the path: {missing}')
+    wrong = {}
+    if launches.get('window_interp_3d', 0) != K6_LAUNCHES_PER_PHASE_STEP * steps:
+        wrong['window_interp_3d'] = (launches.get('window_interp_3d', 0), K6_LAUNCHES_PER_PHASE_STEP * steps)
+    cycles, phase_cycles = sum(1 + it for it in iters), sum(1 + it for it in phase_iters)
+    for k in ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add'):
+        if launches.get(k, 0) * phase_cycles != phase_launches.get(k, 0) * cycles:
+            wrong[k] = (launches.get(k, 0), f'{phase_launches.get(k, 0)} x {cycles}/{phase_cycles}')
+    if wrong:
+        raise RuntimeError(f'{tag}: launches on the path (counted, expected): {wrong}')
+    div = float(divergence(v).values.torch().abs().max())
+    disp = float(advect.max_displacement_cells(s, v, model.dt))
+    vel, smoke, pressure = field_arrays(v, s, p)
+    finite = all(bool(torch.isfinite(t).all()) for t in (*vel, smoke, pressure))
+    print(f'{tag} max |div| after projection {div:.3e}; max |displacement| {disp:.3f} cells '
+          f'(advect.max_displacement_cells; <= max_cells={model.max_cells}: {disp <= model.max_cells}); '
+          f'all finite: {finite}; max smoke {float(smoke.max()):.4f}')
+    comps, cells = model._shapes()
+    shapes_ok = [tuple(t.shape) for t in vel] == comps and tuple(smoke.shape) == cells == tuple(pressure.shape)
+    if not (finite and shapes_ok and disp <= model.max_cells and div < 0.1):
+        raise RuntimeError(f'{tag} output wrong: finite={finite} shapes_ok={shapes_ok} disp={disp} div={div}')
+    return launches
+
+
+def field_against_array(N, state, steps=2, rounds=3, steps_a_round=3):
+    """4-field against 4b on the card from one 256³ state: 2 steps each,
+    velocity, smoke and pressure within 1e-5 of each field's max |·|, equal
+    CG counts; then the host-clock ms/step of both, alternating in one
+    process (`rounds` × `steps_a_round` steps each, medians)."""
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.models import SmokePlume
+    model = SmokePlume(resolution=N, dims=3, cg_tol=1e-3, max_iterations=100, device='cuda')
+    array_step, _ = _stepper(model, True)
+    v, s, p, inflow = smoke_fields(model, *state)
+    field_step = field_stepper(model, inflow)
+    av, as_, ap = state
+    field_iters, array_iters = [], []
+    for _ in range(steps):
+        with math.SolveTape() as tape:
+            v, s, p = field_step(v, s, p)
+        field_iters.append(tape[0].iterations)
+        av, as_, ap = array_step(av, as_, ap)
+        array_iters.append(model.last_solve.iterations)
+    got = field_arrays(v, s, p)
+    names = [f'v{a}' for a in 'xyz'] + ['smoke', 'pressure']
+    errs = {}
+    for n, g, r in zip(names, (*got[0], got[1], got[2]), (*av, as_, ap)):
+        errs[n] = (float((g - r).abs().max()), float(r.abs().max()))
+    ok = all(e <= 1e-5 * max(scale, 1e-30) for e, scale in errs.values()) and field_iters == array_iters
+    bit_equal = all(e == 0 for e, _ in errs.values())
+    print(f'field vs array on the card, {N}^3, {steps} steps from one state: '
+          + ', '.join(f'{n} {e:.2e} (of {scale:.3e})' for n, (e, scale) in errs.items())
+          + f'; bit-equal: {bit_equal}; CG iterations field {field_iters} array {array_iters}; tol 1e-5 of each '
+            f'field\'s max: ' + ('ok' if ok else 'FAIL'))
+    if not ok:
+        raise RuntimeError(f'Field and array paths disagree on the card: {errs}, CG {field_iters} vs {array_iters}')
+    times = {'array': [], 'field': []}
+    fv, fs, fp = v, s, p
+    for _ in range(rounds):
+        for kind in ('array', 'field'):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps_a_round):
+                if kind == 'array':
+                    av, as_, ap = array_step(av, as_, ap)
+                else:
+                    fv, fs, fp = field_step(fv, fs, fp)
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) / steps_a_round * 1e3)
+    a, f = statistics.median(times['array']), statistics.median(times['field'])
+    print(f'field vs array host clock, {N}^3, alternating {rounds} rounds of {steps_a_round} steps: array (4b) '
+          f'{a:.2f} ms/step {[round(t, 2) for t in times["array"]]}, field (4-field) {f:.2f} ms/step '
+          f'{[round(t, 2) for t in times["field"]]}; field / array {f / a:.3f}')
+
+
+def field_cpu_vs_card(tag, dims, N, steps=2, tol=1e-3):
+    """The Field step from one numpy state on the CPU (the twins) and on the
+    card (K6 and K1–K4 in 3D, K7 in 2D), compared at `tol` abs."""
+    import numpy as np
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.models import SmokePlume, state_from_numpy
+    arrays = smooth_state(N, dims)
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        with math.default_device(dev):
+            model = SmokePlume(resolution=N, dims=dims, cg_tol=1e-3, max_iterations=100, device=dev)
+            v, s, p, inflow = smoke_fields(model, *state_from_numpy(*arrays, device=dev))
+            step = field_stepper(model, inflow)
+            for _ in range(steps):
+                v, s, p = step(v, s, p)
+            vel, smoke, _ = field_arrays(v, s, p)
+            out[dev] = [t.cpu().numpy() for t in (*vel, smoke)]
+    names = [f'v{"xyz"[d]}' for d in range(dims)] + ['smoke']
+    errs = {n: float(np.abs(a - b).max()) for n, a, b in zip(names, out['cpu'], out['cuda'])}
+    worst = max(errs.values())
+    print(f'cpu vs card through the Field API, {tag} {N}^{dims}, {steps} steps from one numpy state: '
+          + ', '.join(f'{n} {e:.2e}' for n, e in errs.items())
+          + f'; max {worst:.2e} tol {tol:.0e} {"ok" if worst <= tol else "FAIL"}')
+    if not worst <= tol:
+        raise RuntimeError(f'CPU and card disagree through the Field API ({tag}): {errs}')
+
+
+def field_obstacle_against_array(N=48, tol=1e-4):
+    """`fluid.make_incompressible(v, [Obstacle(Sphere(...))], Solve(...))` on
+    Fields at N³ against `make_incompressible_native` on the same tensors, on
+    the card (K1m in its coefficient form): the velocity within `tol`, the CG
+    counts at most 1 apart."""
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import StaggeredGrid
+    from phiflow_tpu_torch.geom import Box, Sphere
+    from phiflow_tpu_torch.ops import _build
+    from phiflow_tpu_torch.physics import fluid
+    from phiflow_tpu_torch.physics.fluid import Obstacle
+    vel = obstacle_state(N, 'cuda')[0]
+    obstacle = Obstacle(Sphere(x=0.5 * N, y=0.45 * N, z=0.55 * N, radius=N / 6), velocity=math.vec(x=0.5, y=0., z=-0.25))
+    v = StaggeredGrid(math.stack([math.wrap(c, math.spatial('x,y,z')) for c in vel], math.dual(vector='x,y,z')), 0.,
+                      bounds=Box(x=N, y=N, z=N), x=N, y=N, z=N)
+    _build.reset_launches()
+    with math.SolveTape() as tape:
+        v2, p2 = fluid.make_incompressible(v, [obstacle], math.Solve('CG', 1e-4, 0., max_iterations=500,
+                                                                     suppress=(math.ConvergenceException,)))
+    k1m = _build.LAUNCHES.get('poisson_stencil_coeffs', 0)
+    ref_v, ref_p, result = fluid.make_incompressible_native(vel, None, 1.0, rel_tol=1e-4, abs_tol=0.,
+                                                            max_iterations=500, obstacles=[obstacle])
+    from phiflow_tpu_torch.field._field import face_components
+    got_v = [c.native(('x', 'y', 'z')) for c in face_components(v2.values)]
+    errs = {f'v{a}': float((g - r).abs().max()) for a, g, r in zip('xyz', got_v, ref_v)}
+    errs['pressure'] = float((p2.values.native(('x', 'y', 'z')) - ref_p).abs().max())
+    apart = abs(tape[0].iterations - result.iterations)
+    ok = max(errs[f'v{a}'] for a in 'xyz') <= tol and apart <= 1 and k1m > 0
+    print(f'field vs array on the card, make_incompressible with an Obstacle(Sphere) at {N}^3: '
+          + ', '.join(f'{n} {e:.2e}' for n, e in errs.items())
+          + f'; CG iterations field {tape[0].iterations} array {result.iterations}; K1m (coefficient form) launches '
+            f'{k1m}; velocity tol {tol:.0e}: ' + ('ok' if ok else 'FAIL'))
+    if not ok:
+        raise RuntimeError(f'Field and array obstacle projections disagree: {errs}, CG {tape[0].iterations} vs '
+                           f'{result.iterations}, K1m launches {k1m}')
+
+
+def profile_field(tag, N, state):
+    """torch.profiler over 3 steps of path 4-field (compare with 4b's profile)."""
+    from phiflow_tpu_torch.models import SmokePlume
+    model = SmokePlume(resolution=N, dims=3, cg_tol=1e-3, max_iterations=100, device='cuda')
+    v, s, p, inflow = smoke_fields(model, *state)
+    step = field_stepper(model, inflow)
+    profile_path(tag, f'{N}^3', lambda st: step(*st), (v, s, p), rows_shown=16)
+
+
+# ---------------------------------------------------------------------------
 # the obstacle path: make_incompressible(velocity, obstacles) in 3D
 # ---------------------------------------------------------------------------
 
@@ -1389,13 +1640,13 @@ def obstacle_stepper(N, dt=OBSTACLE_DT, cg_tol=1e-4, max_iterations=500, precond
         return tuple(o.at((o.geometry.center + o.velocity * np.float32(dt)) % size) for o in obstacles)
 
     def advect_velocity(v):
-        return advect.mac_cormack(v, v, dt, 1.0, 0.0)
+        return advect.mac_cormack_native(v, v, dt, 1.0, 0.0)
 
     def project(v, p, obstacles):
         default = fluid.MASKED_PRECONDITIONER
         fluid.MASKED_PRECONDITIONER = preconditioner
         try:
-            return fluid.make_incompressible(v, p, 1.0, rel_tol=cg_tol, abs_tol=0., max_iterations=max_iterations,
+            return fluid.make_incompressible_native(v, p, 1.0, rel_tol=cg_tol, abs_tol=0., max_iterations=max_iterations,
                                              obstacles=obstacles)
         finally:
             fluid.MASKED_PRECONDITIONER = default
@@ -1412,13 +1663,13 @@ def obstacle_masks(N):
     """The obstacle path's staged coefficient arrays and accessible cells at
     N³ on the card, as `make_incompressible` stages them for its solve."""
     import torch
-    from phiflow_tpu_torch.field import cell_grid, geometry_mask, stagger
+    from phiflow_tpu_torch.field import cell_grid, geometry_mask, stagger_native
     from phiflow_tpu_torch.geom import union
     from phiflow_tpu_torch.ops import poisson as P
     from phiflow_tpu_torch.physics import fluid
     accessible = geometry_mask(~union([o.geometry for o in obstacle_setup(N)]),
                                cell_grid((N,) * 3, 1.0, 'cuda')).contiguous()
-    mA, c0 = P.stage_masks(fluid._full_face_masks(stagger(accessible, torch.minimum, 0.0), False), PATH_BC,
+    mA, c0 = P.stage_masks(fluid._full_face_masks(stagger_native(accessible, torch.minimum, 0.0), False), PATH_BC,
                            (1.0,) * 3)
     return mA, c0, accessible
 
@@ -1451,7 +1702,7 @@ def run_obstacles(tag, N, warmup=2, steps=5, preconditioner='chebyshev'):
     preconditioners: launch counts of a timed run, the split, and the gates
     on what comes out."""
     import torch
-    from phiflow_tpu_torch.field import cell_grid, divergence, geometry_mask, spatial_gradient, stagger
+    from phiflow_tpu_torch.field import cell_grid, divergence_native, geometry_mask, spatial_gradient_native, stagger_native
     from phiflow_tpu_torch.geom import union
     from phiflow_tpu_torch.ops import _build
     from phiflow_tpu_torch.physics import fluid
@@ -1511,8 +1762,8 @@ def run_obstacles(tag, N, warmup=2, steps=5, preconditioner='chebyshev'):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         accessible = geometry_mask(~union([o.geometry for o in obstacles]), cells).contiguous()
-        hard_bcs = stagger(accessible, torch.minimum, 0.0)
-        fluid.apply_boundary_conditions(v, obstacles, 1.0)
+        hard_bcs = stagger_native(accessible, torch.minimum, 0.0)
+        fluid.apply_boundary_conditions_native(v, obstacles, 1.0)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         v = advect_velocity(v)
@@ -1521,7 +1772,7 @@ def run_obstacles(tag, N, warmup=2, steps=5, preconditioner='chebyshev'):
         v, p, result = project(v, p, obstacles)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        tuple(c - g * m for c, g, m in zip(v, spatial_gradient(p, 1.0), hard_bcs))
+        tuple(c - g * m for c, g, m in zip(v, spatial_gradient_native(p, 1.0), hard_bcs))
         torch.cuda.synchronize()
         t4 = time.perf_counter()
         for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
@@ -1534,7 +1785,7 @@ def run_obstacles(tag, N, warmup=2, steps=5, preconditioner='chebyshev'):
           f'({solves[-1].iterations} iterations in the last; median of 3 steps timed phase by phase)')
     # gates on the final state
     blocked = int((accessible == 0).sum())
-    div = divergence(v, 1.0) * accessible
+    div = divergence_native(v, 1.0) * accessible
     balance = float(div.sum() / accessible.sum())
     div_dev = float(((div - balance) * accessible).abs().max())
     finite = all(bool(torch.isfinite(t).all()) for t in (*v, p))
@@ -1542,7 +1793,7 @@ def run_obstacles(tag, N, warmup=2, steps=5, preconditioner='chebyshev'):
     inside_err = 0.0
     for geometry, imposed in ((sphere.geometry, sphere.velocity), (cuboid.geometry, cuboid.velocity)):
         # a face is fully inside where both its cells' centres are
-        faces = stagger(geometry_mask(geometry, cells), torch.minimum, 0.0)
+        faces = stagger_native(geometry_mask(geometry, cells), torch.minimum, 0.0)
         for comp, m, u in zip(v, faces, imposed):
             if int(m.sum()) == 0:
                 raise RuntimeError(f'{tag}: no face inside {geometry!r}')
@@ -1737,8 +1988,14 @@ def main(argv):
         return 0
     by_path = {}
     for tag, dims, N, per_phase, required in PATHS:
-        by_path[tag] = run_slice(tag, dims, N, per_phase, required)
+        by_path[tag], state, iters = run_slice(tag, dims, N, per_phase, required)
+        if tag == 'per-phase':
+            phase_state, phase_iters = state, iters
+        del state
         torch.cuda.empty_cache()
+    by_path['per-phase-field'] = run_field('per-phase-field', PATH_N, phase_state, by_path['per-phase'], phase_iters)
+    field_against_array(PATH_N, phase_state)
+    torch.cuda.empty_cache()
     for N in FLIP_N:
         by_path[f'flip-{N}'] = run_flip(f'flip-{N}', N)
         torch.cuda.empty_cache()
@@ -1757,9 +2014,13 @@ def main(argv):
     flip_cpu_vs_card()
     obstacles_cpu_vs_card()
     obstacles_cpu_vs_card(preconditioner='vcycle')
+    field_cpu_vs_card('per-phase-field', 3, 64)
+    field_cpu_vs_card('per-phase-field-2d', 2, 256)
+    field_obstacle_against_array()
     if '--profile' in argv:
         for tag, dims, N, per_phase, _ in PATHS:
             profile_slice(tag, dims, N, per_phase)
+        profile_field('per-phase-field', PATH_N, phase_state)
         for N in FLIP_N:
             profile_flip(f'flip-{N}', N)
         profile_obstacles(f'obstacle-{OBSTACLE_N}', OBSTACLE_N)

@@ -10,7 +10,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from ..geom._grid import UniformGrid
+from ..geom._grid import UniformGrid_native
 
 __all__ = ['angular_velocity', 'angular_velocity_at_faces']
 
@@ -35,7 +35,7 @@ def angular_velocity(location: Sequence[torch.Tensor], center, strength) -> Tupl
     raise NotImplementedError(f"angular velocity in {len(dist)}D")
 
 
-def angular_velocity_at_faces(face_grids: Sequence[UniformGrid], center, strength) -> Tuple[torch.Tensor, ...]:
+def angular_velocity_at_faces(face_grids: Sequence[UniformGrid_native], center, strength) -> Tuple[torch.Tensor, ...]:
     """The staggered sample of the rotation: component a taken at the face
     centres of axis a, each component at its own points."""
     return tuple(angular_velocity(grid.center, center, strength)[a] for a, grid in enumerate(face_grids))

@@ -1,15 +1,24 @@
-"""Staggered (MAC) differential operators on raw component tensors — the part
-of `phiflow_tpu/field/_field_math.py` the pressure projection uses:
-`divergence` of a staggered velocity (`:243`) and the face `spatial_gradient`
-of a centred pressure (`:135`), for the closed box and the periodic box — and
-`finite_fill` (`:476-503`), the one-cell extension of a FLIP velocity grid
-into its unset (NaN) cells. For obstacles: `stagger` (`:208-236`), a cell
-mask combined onto the faces, and `safe_mul` (`:412-431`); for diffusion the
-order-2 `laplace` (`:81-106`).
+"""Differential operators and field arithmetic — port of
+`phiflow_tpu/field/_field_math.py`, in two layers.
 
-Closed box: component d holds the interior faces 1..N−1 along axis d (N−1
-entries); the outer faces carry the wall's zero normal velocity. Periodic:
-component d holds faces 0..N−1, face N ≡ face 0.
+The array layer (`*_native`, on raw component tensors): `divergence_native`
+of a staggered velocity (`:243`) and the face `spatial_gradient_native` of a
+centred pressure (`:135`), for the closed box and the periodic box;
+`finite_fill_native` (`:476-503`), the one-cell extension of a FLIP velocity
+grid into its unset (NaN) cells; `stagger_native` (`:208-236`), a cell mask
+combined onto the faces; `safe_mul_native` (`:412-431`); the order-2
+`laplace_native` (`:81-106`). Closed box: component d holds the interior
+faces 1..N−1 along axis d (N−1 entries); the outer faces carry the wall's zero
+normal velocity. Periodic: component d holds faces 0..N−1, face N ≡ face 0.
+
+The Field layer, with JAX's signatures: `divergence`, `spatial_gradient`,
+`stagger`, `laplace`, `where`, `is_finite`, `maximum`, `minimum`, `clip`,
+`safe_mul`, `finite_fill`, `mean`. Each unwraps to the array-level function of
+the same job, with one cell size per axis; a case that function does not cover
+(another face layout, a subset of the dims for staggered values, a boundary
+with no array-layer form, dims beyond the grid's and one channel dim) raises
+NotImplementedError. The central differences of `spatial_gradient(at='center')`
+have no array-level counterpart and are computed on the Tensors.
 """
 from __future__ import annotations
 
@@ -18,39 +27,52 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..math._nd import Extrapolation, masked_fill, pad, shift_zero
+from ..math import Tensor, TensorStack, channel, dual, stack, wrap, _ops as ops
+from ..math._extrapolation import ConstantExtrapolation, to_native
+from ..math._nd import Extrapolation, PerSide, masked_fill_native, pad, shift_zero
+from ._field import Field, as_boundary, face_components, face_values
 
-__all__ = ['divergence', 'spatial_gradient', 'finite_fill', 'stagger', 'safe_mul', 'laplace']
+__all__ = ['divergence_native', 'spatial_gradient_native', 'finite_fill_native', 'stagger_native', 'safe_mul_native',
+           'laplace_native', 'divergence', 'spatial_gradient', 'stagger', 'laplace', 'where', 'is_finite', 'maximum',
+           'minimum', 'clip', 'safe_mul', 'finite_fill', 'mean']
 
 
-def divergence(velocity: Sequence[torch.Tensor], dx: float, periodic: bool = False) -> torch.Tensor:
-    """∇·v at the cell centres: Σ_d (v_d[face c+1] − v_d[face c]) / dx."""
+def _per_axis(dx, ndim: int) -> tuple:
+    return tuple(dx) if isinstance(dx, (tuple, list)) else (dx,) * ndim
+
+
+def divergence_native(velocity: Sequence[torch.Tensor], dx, periodic: bool = False) -> torch.Tensor:
+    """∇·v at the cell centres: Σ_d (v_d[face c+1] − v_d[face c]) / dx_d
+    (`dx`: one cell size, or one per axis)."""
+    h = _per_axis(dx, len(velocity))
     result = None
     for d, comp in enumerate(velocity):
         if periodic:
-            term = (torch.roll(comp, -1, d) - comp) / dx
+            term = (torch.roll(comp, -1, d) - comp) / h[d]
         else:
             zero = torch.zeros_like(comp.narrow(d, 0, 1))
             padded = torch.cat([zero, comp, zero], dim=d)
             n = comp.shape[d] + 1
-            term = (padded.narrow(d, 1, n) - padded.narrow(d, 0, n)) / dx
+            term = (padded.narrow(d, 1, n) - padded.narrow(d, 0, n)) / h[d]
         result = term if result is None else result + term
     return result
 
 
-def spatial_gradient(p: torch.Tensor, dx: float, periodic: bool = False) -> Tuple[torch.Tensor, ...]:
-    """∇p at the faces the velocity stores: (p[c] − p[c−1]) / dx for face c."""
+def spatial_gradient_native(p: torch.Tensor, dx, periodic: bool = False) -> Tuple[torch.Tensor, ...]:
+    """∇p at the faces the velocity stores: (p[c] − p[c−1]) / dx_d for face c
+    of axis d (`dx`: one cell size, or one per axis)."""
+    h = _per_axis(dx, p.ndim)
     comps = []
     for d in range(p.ndim):
         if periodic:
-            comps.append((p - torch.roll(p, 1, d)) / dx)
+            comps.append((p - torch.roll(p, 1, d)) / h[d])
         else:
             n = p.shape[d] - 1
-            comps.append((p.narrow(d, 1, n) - p.narrow(d, 0, n)) / dx)
+            comps.append((p.narrow(d, 1, n) - p.narrow(d, 0, n)) / h[d])
     return tuple(comps)
 
 
-def finite_fill(values: torch.Tensor, distance: int = 1) -> torch.Tensor:
+def finite_fill_native(values: torch.Tensor, distance: int = 1) -> torch.Tensor:
     """Fill the non-finite cells of one grid array from their finite
     neighbours, `distance` cells deep; a staggered grid is filled component by
     component. A cell with a finite axis neighbour gets the mean of those; a
@@ -59,7 +81,7 @@ def finite_fill(values: torch.Tensor, distance: int = 1) -> torch.Tensor:
     result, diagonal zeros included."""
     valid = torch.isfinite(values)
     clean = torch.where(valid, values, torch.zeros_like(values))
-    filled, _ = masked_fill(clean, valid, distance)
+    filled, _ = masked_fill_native(clean, valid, distance)
     reach = valid.to(values.dtype)
     for _ in range(distance):
         # axis after axis on the running result: the reach grows to the whole box neighbourhood
@@ -70,7 +92,7 @@ def finite_fill(values: torch.Tensor, distance: int = 1) -> torch.Tensor:
     return torch.where(reach > 0, filled, values)
 
 
-def stagger(values: torch.Tensor, face_function: Callable, extrap: Extrapolation,
+def stagger_native(values: torch.Tensor, face_function: Callable, extrap: Extrapolation,
             periodic: bool = False) -> Tuple[torch.Tensor, ...]:
     """A centred grid at the faces a staggered field stores: each face gets
     `face_function` of its two cells (`torch.minimum` makes a face open only
@@ -86,7 +108,7 @@ def stagger(values: torch.Tensor, face_function: Callable, extrap: Extrapolation
     return tuple(comps)
 
 
-def safe_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def safe_mul_native(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a · b with 0 · NaN = 0 on either side: masking a velocity that holds
     NaN in its unset faces."""
     a_n = torch.where(b == 0, torch.zeros_like(a), a)
@@ -94,15 +116,298 @@ def safe_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a_n * b_n
 
 
-def laplace(values: torch.Tensor, dx, extrap: Extrapolation) -> torch.Tensor:
-    """The order-2 Laplacian of one grid array: per axis
-    (v[i−1] + v[i+1] − 2·v[i]) / dx² with ghost cells from `extrap`."""
-    h = tuple(dx) if isinstance(dx, (tuple, list)) else (dx,) * values.ndim
+def laplace_native(values: torch.Tensor, dx, extrap: Extrapolation, axes: Sequence[int] = None) -> torch.Tensor:
+    """The order-2 Laplacian of one grid array: per axis of `axes` (default
+    all) (v[i−1] + v[i+1] − 2·v[i]) / dx² with ghost cells from `extrap`."""
+    h = _per_axis(dx, values.ndim)
     result = None
-    for axis in range(values.ndim):
+    for axis in (range(values.ndim) if axes is None else axes):
         padded = pad(values, axis, 1, 1, extrap)
         n = values.shape[axis]
         lo, ce, up = padded.narrow(axis, 0, n), padded.narrow(axis, 1, n), padded.narrow(axis, 2, n)
-        term = (lo + up - 2 * ce) / float(np.float32(h[axis]) ** 2)
+        h_axis = np.float64(h[axis]) if values.dtype == torch.float64 else np.float32(h[axis])
+        term = (lo + up - 2 * ce) / float(h_axis ** 2)
         result = term if result is None else result + term
     return result
+
+
+# ---------------------------------------------------------------------------
+# the Field layer
+# ---------------------------------------------------------------------------
+
+def _dx_tuple(field):
+    """The cell size per axis, in the resolution's order, as floats."""
+    dx = field.dx
+    return tuple(float(dx.vector[n]) for n in field.resolution.names)
+
+
+def _isotropic_dx(field):
+    """The cell size as one float when all axes share it, else None."""
+    dx = _dx_tuple(field)
+    return dx[0] if all(x == dx[0] for x in dx) else None
+
+
+def _native_form(ext, names):
+    try:
+        return to_native(ext, names)
+    except NotImplementedError:
+        return None
+
+
+def _native_extrap(ext, names):
+    """`to_native`, naming the operation that needs it when it fails."""
+    form = _native_form(ext, names)
+    if form is None:
+        raise NotImplementedError(f"extrapolation {ext!r} has no array-layer form: a scalar constant, BOUNDARY, "
+                                  f"PERIODIC or constants by side are ported")
+    return form
+
+
+def _layout(field):
+    """'closed' when every component of a staggered grid stores its interior
+    faces only (the array layer's closed box), 'periodic' when it stores faces
+    0..N−1, else None."""
+    faces = {field.boundary.valid_outer_faces(d) for d in field.resolution.names}
+    return {frozenset({(False, False)}): 'closed', frozenset({(True, False)}): 'periodic'}.get(frozenset(faces))
+
+
+def _plain_values(values, names) -> bool:
+    return set(values.shape.names) == set(names)
+
+
+def _array_layout(field, dims):
+    """The array layer's layout of the staggered `field` ('closed' or
+    'periodic'); NotImplementedError for a dims subset or another layout."""
+    names = field.resolution.names
+    if tuple(dims) != tuple(names):
+        raise NotImplementedError(f"staggered values over dims {tuple(dims)} of {names}: all grid dims in the "
+                                  f"grid's order are ported")
+    layout = _layout(field)
+    if layout is None:
+        raise NotImplementedError(f"boundary {field.boundary!r}: staggered grids of the closed box (interior "
+                                  f"faces) or the periodic box are ported")
+    return layout
+
+
+def _normal_walls_at_rest(field) -> bool:
+    """Whether each component of the staggered `field` is 0 beyond the walls
+    across its own axis, as the array layer's closed box has it."""
+    names = field.resolution.names
+    for axis, dim in enumerate(names):
+        ext = _native_extrap(field.boundary[{'vector': dim}], names)
+        if isinstance(ext, str) or (ext[axis] if isinstance(ext, PerSide) else (ext, ext)) != (0.0, 0.0):
+            return False
+    return True
+
+
+def _grid_values(values, names, fn):
+    """`fn` (an array of the grid dims in `names`' order → an array of the
+    same rank) on `values`, once per entry of a channel dim if it has one: a
+    Tensor of the grid dims with the sizes `fn` returns."""
+    others = values.shape.without(names)
+    if not set(names) <= set(values.shape.names) or others.rank > 1 or (others and not others.channel):
+        raise NotImplementedError(f"values {values.shape}: the grid dims {names} and one channel dim at most "
+                                  f"are ported")
+    grid = values.shape.only(names, reorder=True)
+
+    def one(v):
+        out = fn(v.torch(names))
+        return Tensor(out, grid.with_sizes(tuple(out.shape)))
+    if not others:
+        return one(values)
+    return stack([one(values[{others.name: i}]) for i in range(others.size)], others)
+
+
+def _staggered(field, comps, boundary):
+    """Face arrays (x, y[, z]) as a staggered Field on `field`'s grid."""
+    values = field.values
+    grid = values.shape.only(field.resolution.names, reorder=True)
+    return Field(field.geometry, TensorStack([Tensor(c, grid.with_sizes(tuple(c.shape))) for c in comps],
+                                             dual(vector=field.resolution.names)), boundary)
+
+
+def laplace(field, axes=None, gradient=None, order=2, implicit=None, weights=None, upwind=None, correct_skew=True):
+    """Δf of a centred grid, order 2, with ghost cells from `field.boundary`
+    (`laplace_native` per channel entry); its boundary is the gradient's
+    (`spatial_gradient()` of the field's)."""
+    if order != 2 or gradient is not None or implicit is not None or upwind is not None:
+        raise NotImplementedError("laplace of order 2 only: higher orders, gradients and implicit or upwind "
+                                  "schemes come with a later slice of the port")
+    assert field.is_grid and field.is_centered, f"laplace requires a centered grid, got {field}"
+    names = field.resolution.names
+    axes = [names.index(n) for n in (axes or names) if n in names]
+    if isinstance(weights, Field):
+        weights = weights.at(field).values if weights.geometry != field.geometry else weights.values
+    extrap = _native_extrap(field.boundary, names)
+    dx = _dx_tuple(field)
+    result = _grid_values(field.values, names, lambda v: laplace_native(v, dx, extrap, axes))
+    if weights is not None:
+        result = result * weights
+    return Field(field.geometry, result, field.boundary.spatial_gradient())
+
+
+def spatial_gradient(field, boundary=None, at: str = 'center', dims=None, stack_dim=channel('vector'), order=2,
+                     implicit=None, upwind=None, scheme=None):
+    """∇f of a centred grid, order 2: central differences at the centres
+    (stacked along `stack_dim`, default `vector`), or the differences of
+    neighbours at the faces (``at='face'``: `spatial_gradient_native`, a
+    staggered grid whose components follow the gradient's boundary)."""
+    if order != 2 or implicit is not None or upwind is not None:
+        raise NotImplementedError("spatial_gradient of order 2 only: higher orders and implicit or upwind schemes "
+                                  "come with a later slice of the port")
+    assert field.is_grid and field.is_centered, f"spatial_gradient requires a centred grid, got {field}"
+    grad_ext = as_boundary(boundary, field.geometry) if boundary is not None else field.boundary.spatial_gradient()
+    names = field.resolution.names
+    dims = [n for n in (dims or names) if n in names]
+    v = field.values
+    if at == 'face':
+        probe = Field(field.geometry, TensorStack([v] * len(names), dual(vector=names)), grad_ext)
+        layout = _array_layout(probe, dims)
+        if layout == 'periodic' and _native_form(field.boundary, names) != 'periodic':
+            raise NotImplementedError(f"the face gradient of a grid with boundary {field.boundary!r} onto periodic "
+                                      f"faces: a periodic grid is ported")
+        if not _plain_values(v, names):
+            raise NotImplementedError(f"values {v.shape}: grid dims only are ported for the face gradient")
+        comps = spatial_gradient_native(v.torch(names), _dx_tuple(field), layout == 'periodic')
+        return _staggered(field, comps, grad_ext)
+    if at != 'center':
+        raise ValueError(at)
+    comps = {}
+    for dim in dims:
+        padded = ops.pad(v, {dim: (1, 1)}, field.boundary)
+        n = v.shape.get_size(dim)
+        comps[dim] = (padded[{dim: slice(2, n + 2)}] - padded[{dim: slice(0, n)}]) / (2 * field.dx.vector[dim])
+    return Field(field.geometry, stack(comps, stack_dim), grad_ext)
+
+
+def stagger(field, face_function: Callable, boundary, at='face', dims=None):
+    """A centred grid at the faces (`stagger_native`): each face gets
+    `face_function` of its two cells, the cells beyond the outer faces from
+    `field.boundary`; the faces stored follow `boundary`."""
+    if at != 'face':
+        raise NotImplementedError("stagger at='center' comes with a later slice of the port")
+    boundary = as_boundary(boundary, field.geometry)
+    names = field.resolution.names
+    assert field.is_centered and field.is_grid
+    v = field.values
+    probe = Field(field.geometry, TensorStack([v] * len(names), dual(vector=names)), boundary)
+    layout = _array_layout(probe, dims or names)
+    if not _plain_values(v, names):
+        raise NotImplementedError(f"values {v.shape}: grid dims only are ported for stagger")
+    grid = v.shape.only(names, reorder=True)
+
+    def native_fn(lower, upper):
+        return face_function(Tensor(lower, grid.with_sizes(tuple(lower.shape))),
+                             Tensor(upper, grid.with_sizes(tuple(upper.shape)))).torch(names)
+    comps = stagger_native(v.torch(names), native_fn, _native_extrap(field.boundary, names), layout == 'periodic')
+    return _staggered(field, comps, boundary)
+
+
+def divergence(field, order=2, implicit=None, upwind=None):
+    """∇·v at the cell centres: of a staggered grid the differences of each
+    component's faces (`divergence_native`), of a centred vector grid central
+    differences."""
+    if order != 2 or implicit is not None or upwind is not None:
+        raise NotImplementedError("divergence of order 2 only comes with this slice of the port")
+    names = field.resolution.names
+    if field.is_staggered:
+        layout = _array_layout(field, names)
+        if layout == 'closed' and not _normal_walls_at_rest(field):
+            raise NotImplementedError(f"boundary {field.boundary!r}: walls with a normal velocity come with a later "
+                                      f"slice of the port")
+        comps = face_components(field.values)
+        if not all(_plain_values(c, names) for c in comps):
+            raise NotImplementedError(f"values {field.values.shape}: grid dims only are ported for divergence")
+        result = divergence_native([c.torch(names) for c in comps], _dx_tuple(field), layout == 'periodic')
+        return Field(field.geometry, Tensor(result, field.resolution), field.boundary.spatial_gradient())
+    assert 'vector' in field.values.shape, "divergence requires a vector field"
+    result = None
+    for dim in names:
+        comp = Field(field.geometry, field.values[{'vector': dim}], field.boundary[{'vector': dim}])
+        term = spatial_gradient(comp, at='center', dims=[dim]).values[{'vector': 0}]
+        result = term if result is None else result + term
+    return Field(field.geometry, result, field.boundary.spatial_gradient())
+
+
+def where(mask, field_true, field_false):
+    """Pick from `field_true` where `mask` holds, else from `field_false`
+    (Fields, numbers or Tensors); the result lives on the first Field's grid."""
+    template = next(x for x in (mask, field_true, field_false) if isinstance(x, Field))
+
+    def val(x):
+        if isinstance(x, Field):
+            return x.values if x.geometry == template.geometry else x.at(template).values
+        return wrap(x)
+    values = ops.where(val(mask), val(field_true), val(field_false))
+    boundary = field_true.boundary if isinstance(field_true, Field) and isinstance(field_false, Field) \
+        else template.boundary
+    return Field(template.geometry, values, boundary)
+
+
+def is_finite(field):
+    ext = field.boundary
+    if isinstance(ext, ConstantExtrapolation):
+        ext = ConstantExtrapolation(ops.is_finite(ext.value))
+    return Field(field.geometry, ops.is_finite(field.values), ext)
+
+
+def _align_fields(f1, f2):
+    if isinstance(f1, Field) and isinstance(f2, Field):
+        return f1, (f2 if f1.geometry == f2.geometry else f2.at(f1))
+    if isinstance(f1, Field):
+        return f1, f1.with_values(f2 if isinstance(f2, Tensor) else wrap(f2))
+    f2, f1 = _align_fields(f2, f1)
+    return f1, f2
+
+
+def maximum(f1, f2):
+    f1, f2 = _align_fields(f1, f2)
+    return f1.with_values(ops.maximum(f1.values, f2.values))
+
+
+def minimum(f1, f2):
+    f1, f2 = _align_fields(f1, f2)
+    return f1.with_values(ops.minimum(f1.values, f2.values))
+
+
+def clip(field, lower=0., upper=1.):
+    return field.with_values(ops.clip(field.values, lower, upper))
+
+
+def _safe_mul_values(a, b):
+    zero_a = a == 0 if isinstance(a, Tensor) else wrap(a == 0)
+    zero_b = b == 0 if isinstance(b, Tensor) else wrap(b == 0)
+    an = ops.where(zero_b, ops.zeros_like(a) if isinstance(a, Tensor) else 0, a)
+    bn = ops.where(zero_a, ops.zeros_like(b) if isinstance(b, Tensor) else 0, b)
+    return an * bn
+
+
+def safe_mul(a, b):
+    """a · b with 0 · NaN = 0 (masking a velocity that holds NaN in unset faces)."""
+    if isinstance(a, Field) and isinstance(b, Field):
+        return a.with_values(_safe_mul_values(a.values, b.values if a.geometry == b.geometry else b.at(a).values))
+    if isinstance(a, Field):
+        return a.with_values(_safe_mul_values(a.values, b if isinstance(b, Tensor) else wrap(b)))
+    if isinstance(b, Field):
+        return b.with_values(_safe_mul_values(a if isinstance(a, Tensor) else wrap(a), b.values))
+    return _safe_mul_values(wrap(a), wrap(b))
+
+
+def finite_fill(grid, distance=1, diagonal=False):
+    """Fill the non-finite cells from their finite neighbours, `distance`
+    cells deep (`finite_fill_native`, component by component)."""
+    assert grid.is_grid
+    names = grid.resolution.names
+
+    def fill(values):
+        if not _plain_values(values, names):
+            raise NotImplementedError(f"finite_fill of {values.shape}: grid dims only are ported")
+        return Tensor(finite_fill_native(values.torch(values.shape.names), distance), values.shape)
+    if grid.is_staggered:
+        return grid.with_values(face_values([fill(c) for c in face_components(grid.values)], grid.values))
+    return grid.with_values(fill(grid.values))
+
+
+def mean(field, dim=None):
+    """The mean over the sample points."""
+    return ops.mean(field.values, field.values.shape.non_channel.non_batch if dim is None else dim)

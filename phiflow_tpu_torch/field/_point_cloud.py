@@ -1,5 +1,5 @@
 """Particles — port of `phiflow_tpu/field/_point_cloud.py::distribute_points`
-(`:45-82`) for a box inside a uniform grid.
+(`:45-82`) for a box inside a uniform grid, as `distribute_points_native`.
 
 A point cloud of the port is a (N, d) float32 position array (and, in the FLIP
 model, a (N, d) velocity array beside it); no field object wraps it.
@@ -10,10 +10,10 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ['distribute_points']
+__all__ = ['distribute_points_native']
 
 
-def distribute_points(lower: Sequence[float], upper: Sequence[float], resolution: Sequence[int],
+def distribute_points_native(lower: Sequence[float], upper: Sequence[float], resolution: Sequence[int],
                       points_per_cell: int = 8, seed: int = 0) -> np.ndarray:
     """Positions of `points_per_cell` jittered particles in every cell of the
     grid (`resolution` unit cells from the origin) whose centre lies in the

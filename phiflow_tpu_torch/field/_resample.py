@@ -38,12 +38,17 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..geom import UniformGrid
 from ..geom._geom import Geometry
-from ..geom._grid import UniformGrid
+from ..geom._grid import UniformGrid_native
+from ..math import Tensor, channel, dual, expand, extrapolation, stack, to_float, wrap
 from ..math._nd import Extrapolation, pad
 from ..ops.p2g import p2g_mean
+from ._field import Field, as_boundary
+from ._field_math import _grid_values, _native_extrap
+from ._grid import expand_staggered
 
-__all__ = ['sample_grid_at_centers', 'scatter_to_grid', 'sample_grid_at_points', 'sample_staggered_at_points',
+__all__ = ['sample_grid_at_centers', 'half_shift_native', 'scatter_to_grid', 'sample_grid_at_points', 'sample_staggered_at_points',
            'face_grid', 'cell_grid', 'staggered_cells', 'geometry_mask']
 
 
@@ -56,16 +61,28 @@ def sample_grid_at_centers(values: torch.Tensor, own_axis: Optional[int], target
     Per shifted axis, (lower, upper) padding then the 2-point average:
     faces → centres (1, 1) in the closed box, (0, 1) periodic;
     centres → faces (0, 0) in the closed box, (1, 0) periodic."""
-    v = values
+    pads = []
     for axis in range(values.ndim):
         from_faces, to_faces = own_axis == axis, target_axis == axis
         if from_faces == to_faces:
-            continue
-        if from_faces:
-            lower, upper = (0, 1) if periodic else (1, 1)
+            pads.append(None)
+        elif from_faces:
+            pads.append((0, 1) if periodic else (1, 1))
         else:
-            lower, upper = (1, 0) if periodic else (0, 0)
-        padded = pad(v, axis, lower, upper, extrap)
+            pads.append((1, 0) if periodic else (0, 0))
+    return half_shift_native(values, pads, extrap)
+
+
+def half_shift_native(values: torch.Tensor, pads: Sequence[Optional[Tuple[int, int]]],
+                      extrap: Extrapolation) -> torch.Tensor:
+    """`values` at sample points half a cell away along each axis whose entry
+    of `pads` is a (lower, upper) padding: pad with `extrap`, then average
+    neighbours. Axes with None stay."""
+    v = values
+    for axis, p in enumerate(pads):
+        if p is None:
+            continue
+        padded = pad(v, axis, p[0], p[1], extrap)
         size = padded.shape[axis]
         v = (padded.narrow(axis, 0, size - 1) + padded.narrow(axis, 1, size - 1)) * 0.5
     return v
@@ -75,27 +92,27 @@ def sample_grid_at_centers(values: torch.Tensor, own_axis: Optional[int], target
 # geometry → grid
 # ---------------------------------------------------------------------------
 
-def cell_grid(resolution: Sequence[int], dx, device=None) -> UniformGrid:
+def cell_grid(resolution: Sequence[int], dx, device=None) -> UniformGrid_native:
     """The cells of a domain of `resolution` cells of size `dx` from the
     origin, on `device` (None: the card)."""
     f32 = np.float32
     h = _per_axis(dx, len(resolution))
-    return UniformGrid(resolution, [f32(0.0)] * len(h), [f32(n) * f32(x) for n, x in zip(resolution, h)], device)
+    return UniformGrid_native(resolution, [f32(0.0)] * len(h), [f32(n) * f32(x) for n, x in zip(resolution, h)], device)
 
 
-def staggered_cells(cells: UniformGrid, periodic: bool) -> Tuple[UniformGrid, ...]:
+def staggered_cells(cells: UniformGrid_native, periodic: bool) -> Tuple[UniformGrid_native, ...]:
     """Per axis the grid of the faces a staggered field stores: the interior
     faces in the closed box, faces 0..N−1 in the periodic box."""
     return tuple(cells.stagger(axis, periodic, False) for axis in range(cells.spatial_rank))
 
 
-def geometry_mask(geometry: Geometry, target: Union[UniformGrid, Sequence[UniformGrid]], soft: bool = False,
+def geometry_mask(geometry: Geometry, target: Union[UniformGrid_native, Sequence[UniformGrid_native]], soft: bool = False,
                   balance: float = 0.5) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """`geometry` sampled on the cells of `target` as float32: 1 where the
     cell's centre lies inside, or with ``soft`` the cell's fraction inside
     (`balance`: of a cell whose centre lies on the surface). A sequence of
     grids — the face grids of `staggered_cells` — gives one mask each."""
-    if not isinstance(target, UniformGrid):
+    if not isinstance(target, UniformGrid_native):
         return tuple(geometry_mask(geometry, g, soft, balance) for g in target)
     if soft:
         mask = geometry.approximate_fraction_inside(target, balance)
@@ -208,3 +225,148 @@ def sample_staggered_at_points(velocity: Sequence[torch.Tensor], points: torch.T
         _, lower, upper = face_grid(resolution, h, a)
         comps.append(sample_grid_at_points(velocity[a], points, lower, upper, extrap))
     return torch.stack(comps, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the Field layer: `resample` and `sample` (port of `:13`, `:75`)
+# ---------------------------------------------------------------------------
+
+def resample(value, to=None, keep_boundary=False, soft=False, scatter=False,
+             outside_handling='discard', balance=0.5, **kwargs):
+    """`value` (a Field, geometry, number or Tensor) sampled at the sample
+    points of the Field `to`: a Field on `to`'s geometry. A Field keeps
+    `to`'s boundary unless ``keep_boundary``."""
+    if to is None and 'at' in kwargs:
+        to = kwargs.pop('at')
+    assert isinstance(to, Field), f"'to' must be a Field but got {type(to)}"
+    if isinstance(value, Geometry):
+        return to.with_values(sample(value, to.geometry, at=to.sampled_at, boundary=to.boundary, soft=soft,
+                                     balance=balance))
+    if isinstance(value, (int, float, bool)) or (isinstance(value, Tensor) and not value.shape.spatial
+                                                  and not value.shape.instance):
+        return to.with_values(value if isinstance(value, Tensor) else wrap(value))
+    if isinstance(value, Field):
+        extrap = value.boundary if keep_boundary else to.boundary
+        values = sample(value, to.geometry, at=to.sampled_at, boundary=extrap,
+                        dot_face_normal=to.geometry if to.is_staggered else None, **kwargs)
+        return Field(to.geometry, values, extrap)
+    if isinstance(value, Tensor):
+        return to.with_values(value)
+    raise NotImplementedError(f"resampling a {type(value).__name__} comes with a later slice of the port")
+
+
+def sample(value, geometry, at: str = 'center', boundary=None, dot_face_normal=None, soft=False, balance=0.5,
+           **kwargs):
+    """`value` sampled at the points of a grid (`geometry`: a UniformGrid or a
+    grid Field), at its cell centres or (``at='face'``) its faces: a Tensor.
+    Grid → grid between half-cell-shifted grids of one cell size (pad and
+    average), geometry → grid as a hard or ``soft`` mask, constants expanded."""
+    if isinstance(geometry, Field):
+        at = geometry.sampled_at
+        geometry = geometry.geometry
+    if not isinstance(geometry, UniformGrid):
+        raise NotImplementedError(f"sampling at a {type(geometry).__name__} comes with a later slice of the port")
+    boundary = as_boundary(boundary, geometry) if boundary is not None else None
+    if isinstance(value, Geometry):
+        if at == 'face':
+            return _sample_at_faces(lambda g: _geometry_mask(value, g, soft, balance), geometry, boundary)
+        return _geometry_mask(value, geometry, soft, balance)
+    if isinstance(value, (int, float, bool)):
+        value = wrap(value)
+    if isinstance(value, (tuple, list)):
+        value = wrap(list(value), channel(vector=geometry.shape.get_labels('vector')))
+    if isinstance(value, Tensor):
+        if at == 'face' and dot_face_normal is not None:
+            return expand_staggered(value, geometry.resolution, boundary or extrapolation.ZERO)
+        return expand(value, geometry.resolution.without(value.shape.names))
+    if isinstance(value, Field) and value.is_grid:
+        return _sample_grid_field(value, geometry, at, boundary, dot_face_normal)
+    raise NotImplementedError(f"sampling a {type(value).__name__} comes with a later slice of the port")
+
+
+def _geometry_mask(geom: Geometry, target, soft: bool, balance):
+    """`geometry_mask` on the target's cells, in the current precision."""
+    return to_float(Tensor(geometry_mask(geom, target.native(), soft, balance), target.resolution))
+
+
+def _sample_at_faces(f_on_grid, geometry, boundary):
+    """`f_on_grid(face_grid)` for the face grid of each axis, stacked over `~vector`."""
+    boundary = boundary or extrapolation.ZERO
+    names = geometry.resolution.names
+    comps = []
+    for dim in names:
+        values = f_on_grid(geometry.stagger(dim, *boundary.valid_outer_faces(dim)))
+        if 'vector' in values.shape and values.shape.get_labels('vector'):
+            values = values[{'vector': dim}]
+        comps.append(values)
+    return stack(comps, dual(vector=names))
+
+
+def _sample_grid_field(value, geometry, at: str, boundary, dot_face_normal, order: int = 2):
+    boundary = boundary if boundary is not None else value.boundary
+    if order != 2:
+        raise NotImplementedError("higher-order resampling comes with a later slice of the port")
+    if at == 'face':
+        names = list(geometry.resolution.names)
+        comps = []
+        for dim in names:
+            face_grid = geometry.stagger(dim, *boundary.valid_outer_faces(dim))
+            comp_value = value.vector[dim] if dot_face_normal is not None and 'vector' in value.shape else value
+            comps.append(_resample_grid_at_centers(comp_value, face_grid))
+        return stack(comps, dual(vector=names))
+    if value.is_centered and value.geometry == geometry:
+        return value.values
+    if value.is_staggered:
+        names = value.resolution.names
+        return stack({d: _resample_grid_at_centers(value.vector[d], geometry) for d in names}, channel('vector'))
+    return _resample_grid_at_centers(value, geometry)
+
+
+def _resample_grid_at_centers(value, target_grid):
+    """A centred (or single-component) grid Field at the cell centres of
+    `target_grid`, which is shifted by half a cell against it along some axes
+    (the order-2 branch of `_shift_resample`, `:310-347`): `half_shift_native`
+    per channel entry."""
+    if value.is_staggered:
+        return stack({d: _resample_grid_at_centers(value.vector[d], target_grid) for d in value.resolution.names},
+                     channel('vector'))
+    plan = _half_shift_alignment(value, target_grid)
+    if plan is None:
+        raise NotImplementedError("interpolation between grids that are not half a cell apart comes with a "
+                                  "later slice of the port")
+    names = value.resolution.names
+    pads = [plan[d] for d in names]
+    extrap = _native_extrap(value.boundary, names)
+    return _grid_values(value.values, names, lambda v: half_shift_native(v, pads, extrap))
+
+
+def _half_shift_alignment(value, target_grid):
+    """Per dim (lower pad, upper pad) that turns `value` into `target_grid`'s
+    samples by padding and averaging neighbours (None: aligned dim), or None
+    when the grids differ by more than half a cell."""
+    source = value.geometry
+    if not isinstance(source, UniformGrid):
+        return None
+    s_res, t_res = source.resolution, target_grid.resolution
+    if set(s_res.names) != set(t_res.names):
+        return None
+    s_dx = np.asarray(source.dx.numpy(source.dx.shape.names))
+    t_dx = np.asarray(target_grid.dx.numpy(source.dx.shape.names))
+    if s_dx.shape != t_dx.shape or not np.allclose(s_dx, t_dx, rtol=1e-5):
+        return None
+    offset = (target_grid.bounds.lower.numpy() - source.bounds.lower.numpy()) / s_dx
+    plan = {}
+    for i, dim in enumerate(s_res.names):
+        diff = t_res.get_size(dim) - s_res.get_size(dim)
+        off = offset[i]
+        if abs(off) < 1e-6 and diff == 0:
+            plan[dim] = None
+        elif abs(abs(off) - 0.5) < 1e-6 and diff in (-1, 0, 1):
+            lp = 1 if off < 0 else 0
+            up = diff + 1 - lp
+            if up < 0 or up > 1:
+                return None
+            plan[dim] = (lp, up)
+        else:
+            return None
+    return plan

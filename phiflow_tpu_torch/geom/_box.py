@@ -1,7 +1,9 @@
-"""Boxes — port of `phiflow_tpu/geom/_box.py` as far as particles and obstacles
-use it: `BaseBox.push` (`:121-135`) on raw position tensors as `box_push`, the
-axis-aligned `Box` (two corners) and the `Cuboid` (centre, half size and an
-optional rotation) with their inside tests and signed distances.
+"""Boxes — port of `phiflow_tpu/geom/_box.py` as far as particles, obstacles
+and grid bounds use it: `BaseBox.push` (`:121-135`) on raw position tensors as
+`box_push`, the axis-aligned `Box` (two corners; `Box(x=1., y=1.)` and
+`Box(lower, upper)` with Tensors as in the JAX package, `:168`) and the
+`Cuboid` (centre, half size and an optional rotation) with their inside tests
+and signed distances.
 """
 from __future__ import annotations
 
@@ -10,7 +12,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ._geom import Geometry, box_signed_distance, vec32
+from ..math import default_float
+from ._geom import Geometry, box_signed_distance, host_vec, vector_tensor
 from ._transform import rotate_vector
 
 __all__ = ['box_push', 'Box', 'Cuboid']
@@ -41,44 +44,91 @@ def box_push(positions: torch.Tensor, lower: Sequence[float], upper: Sequence[fl
 
 
 class Box(Geometry):
-    """An axis-aligned box from its lower and upper corner."""
+    """An axis-aligned box from its lower and upper corner: two sequences or
+    Tensors, or one keyword per axis — a size (lower corner 0) or a
+    (lower, upper) pair."""
 
-    def __init__(self, lower, upper):
-        self.lower = vec32(lower)
-        self.upper = vec32(upper, self.lower.shape[0])
+    def __init__(self, lower=None, upper=None, **size):
+        if size:
+            names = tuple(size)
+            lo, up = [], []
+            for v in size.values():
+                l, u = (v[0], v[1]) if isinstance(v, (tuple, list)) else (0., v)
+                lo.append(-np.inf if l is None else float(l))
+                up.append(np.inf if u is None else float(u))
+            self._lower, self._upper = np.asarray(lo, default_float()), np.asarray(up, default_float())
+            self.names = names
+            return
+        if lower is None or upper is None:
+            raise ValueError("Box takes lower and upper or one keyword per axis")
+        self._lower, names_lo = host_vec(lower)
+        self._upper, names_up = host_vec(upper, self._lower.shape[0])
+        self.names = names_lo or names_up
+
+    @classmethod
+    def _of(cls, lower: np.ndarray, upper: np.ndarray, names) -> 'Box':
+        box = cls.__new__(cls)
+        box._lower, box._upper, box.names = lower, upper, names
+        return box
 
     @property
-    def center(self) -> np.ndarray:
-        return (self.lower + self.upper) * np.float32(0.5)
+    def lower(self):
+        return vector_tensor(self._lower, self.names)
 
     @property
-    def half_size(self) -> np.ndarray:
-        return (self.upper - self.lower) * np.float32(0.5)
+    def upper(self):
+        return vector_tensor(self._upper, self.names)
+
+    @property
+    def _center(self) -> np.ndarray:
+        return (self._lower + self._upper) * self._lower.dtype.type(0.5)
+
+    @property
+    def _half_size(self) -> np.ndarray:
+        return (self._upper - self._lower) * self._lower.dtype.type(0.5)
+
+    @property
+    def half_size(self):
+        return vector_tensor(self._half_size, self.names)
+
+    @property
+    def size(self):
+        return vector_tensor(self._upper - self._lower, self.names)
 
     def lies_inside(self, location) -> torch.Tensor:
         result = None
-        for x, lo, up in zip(location, self.lower, self.upper):
+        for x, lo, up in zip(location, self._lower, self._upper):
             inside = (x >= float(lo)) & (x <= float(up))
             result = inside if result is None else result & inside
         return result
 
     def approximate_signed_distance(self, location) -> torch.Tensor:
         return box_signed_distance([torch.abs(x - float(c)) - float(h)
-                                    for x, c, h in zip(location, self.center, self.half_size)])
+                                    for x, c, h in zip(location, self._center, self._half_size)])
 
     def at(self, center) -> 'Box':
-        center, half = vec32(center, self.spatial_rank), self.half_size
-        return Box(center - half, center + half)
+        center, half = host_vec(center, self.spatial_rank)[0], self._half_size
+        return Box._of(center - half, center + half, self.names)
 
     def shifted(self, delta) -> 'Box':
-        delta = vec32(delta, self.spatial_rank)
-        return Box(self.lower + delta, self.upper + delta)
+        delta = host_vec(delta, self.spatial_rank)[0]
+        return Box._of(self._lower + delta, self._upper + delta, self.names)
 
     def rotated(self, angle) -> 'Cuboid':
-        return Cuboid(self.center, self.half_size, rotation=angle)
+        return Cuboid(self._center, self._half_size, rotation=angle)
+
+    def __eq__(self, other):
+        return isinstance(other, Box) and np.array_equal(self._lower, other._lower) \
+            and np.array_equal(self._upper, other._upper)
+
+    def __hash__(self):
+        return hash('Box')
 
     def __repr__(self):
-        return f"Box({self.lower.tolist()}, {self.upper.tolist()})"
+        if self.names:
+            return "Box(" + ', '.join(f"{n}=({float(l)},{float(u)})"
+                                      for n, l, u in zip(self.names, self._lower, self._upper)) + ")"
+        return f"Box({self._lower.tolist()}, {self._upper.tolist()})"
 
 
 class Cuboid(Geometry):
@@ -86,40 +136,49 @@ class Cuboid(Geometry):
     centre: one angle in 2D, Euler angles (or one angle about z) in 3D."""
 
     def __init__(self, center, half_size, rotation=None):
-        self.half_size = vec32(half_size)
-        self.center = vec32(center, self.half_size.shape[0])
+        self._half_size, names_h = host_vec(half_size)
+        self._center, names_c = host_vec(center, self._half_size.shape[0])
+        self.names = names_c or names_h
         self.rotation = None if rotation is None else np.asarray(rotation, np.float32)
 
     @property
-    def lower(self) -> np.ndarray:
-        return self.center - self.half_size
+    def half_size(self):
+        return vector_tensor(self._half_size, self.names)
 
     @property
-    def upper(self) -> np.ndarray:
-        return self.center + self.half_size
+    def lower(self):
+        return vector_tensor(self._center - self._half_size, self.names)
+
+    @property
+    def upper(self):
+        return vector_tensor(self._center + self._half_size, self.names)
 
     def _to_local(self, location):
         """World → body frame: relative to the centre, the rotation undone."""
-        delta = [x - float(c) for x, c in zip(location, self.center)]
+        delta = [x - float(c) for x, c in zip(location, self._center)]
         return rotate_vector(delta, self.rotation, invert=True)
 
     def lies_inside(self, location) -> torch.Tensor:
         result = None
-        for q, h in zip(self._to_local(location), self.half_size):
+        for q, h in zip(self._to_local(location), self._half_size):
             inside = torch.abs(q) <= float(h)
             result = inside if result is None else result & inside
         return result
 
     def approximate_signed_distance(self, location) -> torch.Tensor:
-        return box_signed_distance([torch.abs(q) - float(h) for q, h in zip(self._to_local(location), self.half_size)])
+        return box_signed_distance([torch.abs(q) - float(h) for q, h in zip(self._to_local(location), self._half_size)])
 
     def at(self, center) -> 'Cuboid':
-        return Cuboid(vec32(center, self.spatial_rank), self.half_size, self.rotation)
+        cub = Cuboid(host_vec(center, self.spatial_rank)[0], self._half_size, self.rotation)
+        cub.names = self.names
+        return cub
 
     def rotated(self, angle) -> 'Cuboid':
         angle = np.asarray(angle, np.float32)
-        return Cuboid(self.center, self.half_size, angle if self.rotation is None else self.rotation + angle)
+        cub = Cuboid(self._center, self._half_size, angle if self.rotation is None else self.rotation + angle)
+        cub.names = self.names
+        return cub
 
     def __repr__(self):
         rot = '' if self.rotation is None else f", rotation={self.rotation.tolist()}"
-        return f"Cuboid(center={self.center.tolist()}, half_size={self.half_size.tolist()}{rot})"
+        return f"Cuboid(center={self._center.tolist()}, half_size={self._half_size.tolist()}{rot})"

@@ -2,12 +2,18 @@
 `_geom_ops.py` that obstacles need: the inside test, the signed distance, the
 soft voxelisation, the complement `~g` and `union`.
 
-A geometry's own numbers (centre, radius, half size, rotation) are float32
-numpy arrays on the host. Its queries take a *location*: one tensor per axis,
-broadcastable against each other — the sample points of a grid are d
-one-dimensional coordinate arrays (`geom/_grid.py`), so a query allocates full
-grids only for its result. Arithmetic is float32 in JAX's order (subtract,
-square, sum, compare), which decides the cells whose centre lies on a surface.
+A geometry's own numbers (centre, radius, half size, rotation) are numpy
+arrays on the host: float32 when given as numbers or sequences (the array
+layer's calls), the Tensor's own precision when given as Tensors or keyword
+components (the Field layer's calls, `Box(x=1., y=1.)`). Its public
+attributes (`center`, `half_size`, `lower`, `upper`, `radius`) are host
+Tensors with a `vector` dim, labelled by the axis names where they are known.
+
+Its queries take a *location*: one tensor per axis, broadcastable against
+each other — the sample points of a grid are d one-dimensional coordinate
+arrays (`geom/_grid.py`), so a query allocates full grids only for its
+result. Arithmetic is float32 in JAX's order (subtract, square, sum,
+compare), which decides the cells whose centre lies on a surface.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from ..math import Tensor, channel
 
 __all__ = ['Geometry', 'InvertedGeometry', 'Union', 'union']
 
@@ -29,6 +37,36 @@ def vec32(x, ndim: int = None) -> np.ndarray:
     if a.ndim != 1 or (ndim is not None and a.shape[0] != ndim):
         raise ValueError(f"a vector of {ndim if ndim is not None else 'd'} entries expected, got shape {a.shape}")
     return a
+
+
+def host_vec(x, ndim: int = None):
+    """(`x` as a host vector, its axis names or None). A named-dim Tensor keeps
+    its precision and its `vector` labels; numbers and sequences become
+    float32 (`vec32`)."""
+    if isinstance(x, Tensor):
+        a = x.numpy(x.shape.names)
+        if a.dtype not in (np.float32, np.float64):
+            a = a.astype(np.float32)
+        if a.ndim == 0 and ndim is not None:
+            a = np.full((ndim,), a, a.dtype)
+        names = x.shape.get_labels('vector') if 'vector' in x.shape else None
+        if a.ndim != 1 or (ndim is not None and a.shape[0] != ndim):
+            raise ValueError(f"a vector of {ndim if ndim is not None else 'd'} entries expected, got {x.shape}")
+        return a, names
+    return vec32(x, ndim), None
+
+
+def host_scalar(x):
+    """`x` as a host scalar: float32 from a number, a Tensor's own precision."""
+    if isinstance(x, Tensor):
+        a = x.numpy()
+        return a.astype(np.float32) if a.dtype not in (np.float32, np.float64) else a
+    return np.float32(x)
+
+
+def vector_tensor(a: np.ndarray, names):
+    """A host vector as a named-dim Tensor with a `vector` dim."""
+    return Tensor(a, channel(vector=names) if names else channel(vector=a.shape[0]))
 
 
 def vec_squared(v: Location) -> torch.Tensor:
@@ -55,13 +93,24 @@ def box_signed_distance(q: Location) -> torch.Tensor:
 
 
 class Geometry:
-    """Interface of the geometries below; `center` is a float32 vector."""
+    """Interface of the geometries below. `_center` is the centre as a host
+    vector, `names` the axis names (None where unknown); `center` is the
+    centre as a Tensor."""
 
-    center: np.ndarray
+    _center: np.ndarray
+    names = None
+
+    @property
+    def center(self):
+        return vector_tensor(self._center, self.names)
 
     @property
     def spatial_rank(self) -> int:
-        return int(self.center.shape[0])
+        return int(self._center.shape[0])
+
+    @property
+    def shape(self):
+        return channel(vector=self.names) if self.names else channel(vector=self.spatial_rank)
 
     def lies_inside(self, location: Location) -> torch.Tensor:
         raise NotImplementedError(type(self))
@@ -70,7 +119,7 @@ class Geometry:
         raise NotImplementedError(type(self))
 
     def approximate_fraction_inside(self, cells, balance: float = 0.5) -> torch.Tensor:
-        """The fraction of each cell of `cells` (a `UniformGrid`) inside this
+        """The fraction of each cell of `cells` (a `UniformGrid_native`) inside this
         geometry, estimated from the signed distance at the cell's centre
         against the cell's bounding radius. ``balance`` is the fraction of a
         cell whose centre lies on the surface."""
@@ -81,7 +130,7 @@ class Geometry:
         raise NotImplementedError(type(self))
 
     def shifted(self, delta) -> 'Geometry':
-        return self.at(self.center + vec32(delta, self.spatial_rank))
+        return self.at(self._center + host_vec(delta, self.spatial_rank)[0])
 
     def rotated(self, angle) -> 'Geometry':
         raise NotImplementedError(type(self))
@@ -97,8 +146,12 @@ class InvertedGeometry(Geometry):
         self.geometry = geometry
 
     @property
-    def center(self):
-        return self.geometry.center
+    def _center(self):
+        return self.geometry._center
+
+    @property
+    def names(self):
+        return self.geometry.names
 
     @property
     def spatial_rank(self) -> int:
@@ -128,6 +181,14 @@ class Union(Geometry):
         self.geometries = tuple(geometries)
         if not self.geometries:
             raise ValueError("a union needs at least one geometry")
+
+    @property
+    def _center(self):
+        return self.geometries[0]._center
+
+    @property
+    def names(self):
+        return self.geometries[0].names
 
     @property
     def spatial_rank(self) -> int:

@@ -1,9 +1,15 @@
-"""The cells of a regular grid — port of the part of
-`phiflow_tpu/geom/_grid.py::UniformGrid` that sampling a geometry needs: the
-cell centres, the cells' bounding radius and `stagger`, the grid of the faces
-along one axis.
+"""The cells of a regular grid — port of `phiflow_tpu/geom/_grid.py::UniformGrid`.
 
-Bounds and cell sizes are float32 on the host, computed in JAX's order, so the
+`UniformGrid` is the Field layer's grid, with JAX's signature: a spatial
+`Shape` resolution and a `Box` of bounds, its cell size `dx` and cell centres
+`center` as Tensors, and `stagger`, the grid of the faces along one axis.
+
+`UniformGrid_native` is the array layer's: sizes, float32 corners and coordinate
+arrays on a device — what sampling a geometry needs (the cell centres as one
+coordinate array per axis, the cells' bounding radius, `stagger` by axis
+index). `UniformGrid.native` gives the one for the other.
+
+Bounds and cell sizes are host numbers computed in JAX's order, so the
 centres (and with them which cells a surface through a centre includes) are
 the same numbers in both packages.
 """
@@ -16,8 +22,13 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..math import (
+    EMPTY_SHAPE, channel, default_float, get_default_device, meshgrid, spatial, to_float, wrap,
+)
+from ._box import Box, Cuboid
+from ._geom import Geometry
 
-__all__ = ['UniformGrid']
+__all__ = ['UniformGrid', 'UniformGrid_native']
 
 
 @functools.lru_cache(maxsize=256)
@@ -29,7 +40,7 @@ def _axis_centers(n: int, lower: float, upper: float, device: str) -> torch.Tens
     return torch.from_numpy(local * (f32(upper) - f32(lower)) + f32(lower)).to(device)
 
 
-class UniformGrid:
+class UniformGrid_native:
     """`resolution` cells dividing the box [lower, upper]. Its coordinate
     arrays live on `device`: the card unless the caller passes 'cpu'."""
 
@@ -60,7 +71,7 @@ class UniformGrid:
         half = self.dx * np.float32(0.5)
         return float(np.sqrt(np.sum(half ** 2, dtype=np.float32)))
 
-    def stagger(self, axis: int, lower: bool, upper: bool) -> 'UniformGrid':
+    def stagger(self, axis: int, lower: bool, upper: bool) -> 'UniformGrid_native':
         """The grid whose cells are centred on this grid's faces along `axis`;
         `lower` / `upper` say whether the outermost face on that side is
         included."""
@@ -68,8 +79,106 @@ class UniformGrid:
         unit[axis] = self.dx[axis]
         res = list(self.resolution)
         res[axis] += int(lower) + int(upper) - 1
-        return UniformGrid(res, self.lower + unit * np.float32(-0.5 if lower else 0.5),
-                           self.upper + unit * np.float32(0.5 if upper else -0.5), self.device)
+        return UniformGrid_native(res, self.lower + unit * np.float32(-0.5 if lower else 0.5),
+                                  self.upper + unit * np.float32(0.5 if upper else -0.5), self.device)
 
     def __repr__(self):
-        return f"UniformGrid({self.resolution}, {self.lower.tolist()}..{self.upper.tolist()})"
+        return f"UniformGrid_native({self.resolution}, {self.lower.tolist()}..{self.upper.tolist()})"
+
+
+def _get_bounds(bounds, resolution) -> Box:
+    names = resolution.names
+    if bounds is None:
+        return Box._of(np.zeros(len(names), default_float()),
+                       np.asarray([float(s) for s in resolution.sizes], default_float()), names)
+    if isinstance(bounds, (int, float)):
+        return Box._of(np.zeros(len(names), default_float()), np.full(len(names), float(bounds), default_float()),
+                       names)
+    if isinstance(bounds, Box):
+        return bounds
+    if isinstance(bounds, Cuboid):
+        return Box._of(bounds._center - bounds._half_size, bounds._center + bounds._half_size, bounds.names)
+    raise ValueError(f"bounds must be a Box, a number or None, got {type(bounds)}")
+
+
+class UniformGrid(Geometry):
+    """All cells of a regular grid: a spatial `resolution` and `bounds` (a
+    Box whose vector labels are the resolution's dim names)."""
+
+    def __init__(self, resolution=None, bounds=None, **resolution_):
+        resolution = (resolution or EMPTY_SHAPE).spatial & spatial(**resolution_)
+        bounds = _get_bounds(bounds, resolution)
+        if bounds.names:
+            resolution = resolution.only(bounds.names, reorder=True)
+        else:
+            bounds = Box._of(bounds._lower, bounds._upper, resolution.names)
+        self.resolution = resolution
+        self._bounds = bounds
+        self._derived = {}  # dx and face grids, computed once: a grid is immutable
+
+    @property
+    def bounds(self) -> Box:
+        return self._bounds
+
+    @property
+    def names(self):
+        return self.resolution.names
+
+    @property
+    def _center(self) -> np.ndarray:
+        return self._bounds._center
+
+    @property
+    def spatial_rank(self) -> int:
+        return self.resolution.rank
+
+    @property
+    def shape(self):
+        return self.resolution & channel(vector=self.resolution.names)
+
+    def _sizes(self):
+        return wrap([float(s) for s in self.resolution.sizes], channel(vector=self.resolution.names))
+
+    @property
+    def dx(self):
+        """The cell size, a host Tensor with a `vector` dim."""
+        if 'dx' not in self._derived:
+            self._derived['dx'] = self._bounds.size / self._sizes()
+        return self._derived['dx']
+
+    @property
+    def center(self):
+        """The cell centres: a host Tensor of the resolution's dims and `vector`."""
+        local = meshgrid(**{d.name: d.size for d in self.resolution.dims})
+        local = (to_float(local) + 0.5) / self._sizes()
+        return local * self._bounds.size + self._bounds.lower
+
+    def stagger(self, dim: str, lower: bool, upper: bool) -> 'UniformGrid':
+        """The grid of the faces along `dim`; `lower` / `upper`: whether the
+        outermost face on that side is included."""
+        key = ('stagger', dim, lower, upper)
+        if key in self._derived:
+            return self._derived[key]
+        mask = np.array([1. if d == dim else 0. for d in self.resolution.names])
+        unit = self.dx * wrap(mask, channel(vector=self.resolution.names))
+        bounds = Box(self._bounds.lower + unit * (-0.5 if lower else 0.5),
+                     self._bounds.upper + unit * (0.5 if upper else -0.5))
+        sizes = [s + (int(lower) + int(upper) - 1 if d == dim else 0)
+                 for d, s in zip(self.resolution.names, self.resolution.sizes)]
+        self._derived[key] = UniformGrid(self.resolution.with_sizes(sizes), bounds)
+        return self._derived[key]
+
+    def native(self, device=None) -> UniformGrid_native:
+        """The array layer's grid of the same cells, its coordinates on `device`
+        (the default device when None)."""
+        return UniformGrid_native(self.resolution.sizes, self._bounds._lower, self._bounds._upper,
+                                  get_default_device() if device is None else device)
+
+    def __eq__(self, other):
+        return isinstance(other, UniformGrid) and self.resolution == other.resolution and self._bounds == other._bounds
+
+    def __hash__(self):
+        return hash(self.resolution)
+
+    def __repr__(self):
+        return f"{self.resolution}, bounds={self._bounds}"

@@ -1,5 +1,39 @@
-"""The solver pieces of the pressure projection and the window interpolation of
-the advection (mirrors `phiflow_tpu/math`)."""
+"""Named-dim tensors, extrapolations and solves, and below them the array
+layer's solver pieces and window interpolation (mirrors `phiflow_tpu/math`).
+
+Every name the JAX package's `phiflow_tpu.math` exports and this package
+exports too takes the JAX package's signature; the array-level functions on
+raw `torch.Tensor`s carry the suffix `_native` where a name is shared.
+"""
+import numpy as _np
+
+from ._shape import (
+    Shape, Dim, EMPTY_SHAPE, batch, spatial, channel, instance, dual,
+    shape_of as shape, merge_shapes, concat_shapes, parse_dim_order,
+    non_batch, non_spatial, non_channel, non_instance, non_dual, primal,
+    BATCH, SPATIAL, CHANNEL, INSTANCE, DUAL, DimFilter,
+)
+from ._magic import IncompatibleShapes, ConvergenceException, Diverged, NotConverged, BoundDim, slicing_dict
+from ._tensor import (
+    Tensor, TensorStack, wrap, tensor, NUMPY, precision, set_global_precision, get_precision, backend_dtype,
+    default_float, set_default_device, get_default_device, default_device,
+)
+from ._ops import (
+    zeros, ones, zeros_like, ones_like, linspace, arange, meshgrid,
+    stack, unstack, concat, expand, rename_dims, pack_dims, unpack_dim, transpose, squeeze,
+    abs_ as abs, sign, sqrt, exp, log, sin, cos, floor, ceil, round_ as round, is_finite, is_nan, is_inf,
+    to_float, to_int32, to_int64, to_bool, cast, maximum, minimum, clip, where, safe_div, nan_to_0,
+    sum_ as sum, mean, prod, max_ as max, min_ as min, any_ as any, all_ as all,
+    finite_mean, finite_sum, finite_max, finite_min, dot, close, always_close, assert_close, equal,
+    pad, shift, vec, vec_length, vec_squared, vec_normalize, dim_mask,
+)
+from . import _extrapolation as extrapolation
+from ._extrapolation import Extrapolation, as_extrapolation
+from ._functional import jit_compile, jit_compile_linear, LinearFunction
+from ._solve import Solve, SolveInfo, SolveTape, solve_linear, copy_solve, SolveResult, cg
 from ._multigrid import make_poisson_vcycle
-from ._nd import BOUNDARY, PERIODIC, PerSide, masked_fill, shift_window_interp
-from ._solve import SolveResult, cg
+from ._nd import BOUNDARY, PERIODIC, PerSide, masked_fill, masked_fill_native, shift_window_interp
+
+PI = _np.pi
+INF = _np.inf
+NAN = _np.nan

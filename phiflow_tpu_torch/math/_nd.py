@@ -15,8 +15,9 @@ gather costs the same for every K and both windows give the same result
 wherever both are exact, so the port takes no min/max pass and no host sync
 for that choice.
 
-`masked_fill` ports the function of that name (`:443-461`): the flood fill
-behind `field.finite_fill`, PyTorch operations on any device.
+`masked_fill_native` ports `masked_fill` (`:443-461`): the flood fill behind
+`field.finite_fill`, PyTorch operations on any device; `masked_fill` is the
+same on named-dim Tensors.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ import torch
 
 from ..ops.interp import window_interp_2d, window_interp_3d
 
-__all__ = ['BOUNDARY', 'PERIODIC', 'PerSide', 'pad', 'component_extrapolation', 'shift_window_interp', 'masked_fill', 'shift_zero']
+__all__ = ['BOUNDARY', 'PERIODIC', 'PerSide', 'pad', 'component_extrapolation', 'shift_window_interp', 'masked_fill',
+           'masked_fill_native', 'shift_zero']
 
 BOUNDARY, PERIODIC = 'boundary', 'periodic'
 
@@ -118,7 +120,7 @@ def shift_zero(x: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return lower, upper
 
 
-def masked_fill(values: torch.Tensor, valid: torch.Tensor, distance: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+def masked_fill_native(values: torch.Tensor, valid: torch.Tensor, distance: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Propagate values into invalid cells as the mean of their valid axis
     neighbours, `distance` times. Returns (filled values, new validity)."""
     valid_f = valid.to(values.dtype)
@@ -137,3 +139,14 @@ def masked_fill(values: torch.Tensor, valid: torch.Tensor, distance: int = 1) ->
         values = torch.where(valid_f != 0, values, avg)
         valid_f = torch.maximum(valid_f, torch.clamp(neighbor_count, max=1.0))
     return values, valid_f != 0
+
+
+def masked_fill(values, valid, distance=1):
+    """`masked_fill_native` on named-dim Tensors of spatial dims only:
+    (filled values, new validity)."""
+    from ._tensor import Tensor
+    if values.shape.non_spatial:
+        raise NotImplementedError(f"masked_fill of {values.shape}: spatial dims only are ported")
+    order = values.shape.names
+    filled, new_valid = masked_fill_native(values.torch(order), valid.torch(order, values.device), distance)
+    return Tensor(filled, values.shape), Tensor(new_valid, values.shape)

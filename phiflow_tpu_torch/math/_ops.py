@@ -1,0 +1,638 @@
+"""Operations on named-dim Tensors — the part of `phiflow_tpu/math/_ops.py`
+that the Field layer of the port uses (`ROADMAP.md` lists the rest).
+
+Every function works on host (numpy) and torch natives alike: host inputs
+stay on the host, computed by numpy as the JAX package computes them; torch
+inputs are computed by torch on their device.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ._shape import (
+    Shape, Dim, EMPTY_SHAPE, batch, spatial, channel, instance, merge_shapes, concat_shapes, parse_dim_order,
+    _resolve_filter, DimFilter, CHANNEL,
+)
+from ._tensor import (
+    Tensor, TensorStack, wrap, default_float, _broadcast, _align_native, _is_host, _meet, _host_to, _host,
+    _fix_host_dtype,
+)
+
+__all__ = ['zeros', 'ones', 'zeros_like', 'ones_like', 'linspace', 'arange', 'meshgrid',
+           'stack', 'unstack', 'concat', 'expand', 'rename_dims', 'pack_dims', 'unpack_dim', 'transpose', 'squeeze',
+           'abs_', 'sign', 'sqrt', 'exp', 'log', 'sin', 'cos', 'floor', 'ceil', 'round_', 'is_finite', 'is_nan',
+           'is_inf', 'to_float', 'to_int32', 'to_int64', 'to_bool', 'cast', 'maximum', 'minimum', 'clip', 'where',
+           'safe_div', 'nan_to_0', 'sum_', 'mean', 'prod', 'max_', 'min_', 'any_', 'all_', 'finite_mean',
+           'finite_sum', 'finite_max', 'finite_min', 'dot', 'close', 'always_close', 'assert_close', 'equal', 'pad',
+           'shift', 'vec', 'vec_length', 'vec_squared', 'vec_normalize', 'dim_mask']
+
+
+# ---------------------------------------------------------------------------
+# creation
+# ---------------------------------------------------------------------------
+
+def zeros(*shape: Shape, dtype=None) -> Tensor:
+    s = concat_shapes(*shape)
+    return Tensor(np.zeros(s.sizes, dtype=dtype or default_float()), s)
+
+
+def ones(*shape: Shape, dtype=None) -> Tensor:
+    s = concat_shapes(*shape)
+    return Tensor(np.ones(s.sizes, dtype=dtype or default_float()), s)
+
+
+def zeros_like(t) -> Tensor:
+    if isinstance(t, TensorStack):
+        return TensorStack([zeros_like(c) for c in t.components], t.stack_dim)
+    if isinstance(t, Tensor):
+        n = t.native()
+        return Tensor(np.zeros_like(n) if _is_host(n) else torch.zeros_like(n), t.shape)
+    return t * 0
+
+
+def ones_like(t) -> Tensor:
+    if isinstance(t, TensorStack):
+        return TensorStack([ones_like(c) for c in t.components], t.stack_dim)
+    n = t.native()
+    return Tensor(np.ones_like(n) if _is_host(n) else torch.ones_like(n), t.shape)
+
+
+def linspace(start, stop, dim: Shape) -> Tensor:
+    assert dim.rank == 1
+    return Tensor(np.linspace(start, stop, dim.size, dtype=default_float()), dim)
+
+
+def arange(dim: Shape, start=0, stop=None, step=1) -> Tensor:
+    if stop is None:
+        stop = start + dim.size * step
+    n = np.arange(start, stop, step, dtype=np.int32)
+    return Tensor(n, dim.with_size(int(n.shape[0])))
+
+
+def meshgrid(dims=spatial, stack_dim=channel('vector'), **sizes) -> Tensor:
+    """Index grid: int tensor with spatial dims + a channel 'vector' labelled by the dim names (host)."""
+    dim_fn = dims if callable(dims) else spatial
+    grid_shape = dim_fn(**{k: (v if isinstance(v, int) else len(v)) for k, v in sizes.items()})
+    arrays = [np.arange(v, dtype=np.int32) if isinstance(v, int) else np.asarray(v) for v in sizes.values()]
+    mesh = np.meshgrid(*arrays, indexing='ij')
+    sd = Shape((stack_dim.dims[0].with_size(len(arrays), tuple(sizes.keys())),))
+    return Tensor(np.stack(mesh, axis=-1), concat_shapes(grid_shape, sd))
+
+
+# ---------------------------------------------------------------------------
+# shape manipulation
+# ---------------------------------------------------------------------------
+
+def _stack_natives(natives, axis=0):
+    if all(_is_host(n) for n in natives):
+        return np.stack(natives, axis=axis)
+    ref = next(n for n in natives if not _is_host(n))
+    return torch.stack([_host_to(n, ref) if _is_host(n) else n for n in natives], axis)
+
+
+def _cat_natives(natives, axis=0):
+    if all(_is_host(n) for n in natives):
+        return np.concatenate(natives, axis=axis)
+    ref = next(n for n in natives if not _is_host(n))
+    return torch.cat([_host_to(n, ref).expand(n.shape) if _is_host(n) else n for n in natives], axis)
+
+
+def stack(values, dim: Shape, expand_values=False, **kwargs) -> Tensor:
+    """Stack tensors (or a dict label → tensor) along a new dim. Inputs of
+    different shapes make a `TensorStack`, which keeps them as they are."""
+    if isinstance(values, dict):
+        labels = tuple(values.keys())
+        dim = Shape((dim.dims[0].with_size(len(labels), labels),))
+        values = list(values.values())
+    values = [wrap(v) for v in values]
+    if expand_values:
+        common = merge_shapes(*[v.shape for v in values], allow_varying_sizes=True)
+        definite = Shape(tuple(d for d in common.dims if d.size is not None))
+        values = [v._expand(definite.without(v.shape.names)) for v in values]
+    dim = Shape((dim.dims[0].with_size(len(values), dim.dims[0].labels),))
+    names0 = values[0].shape.names
+    values = [v._transposed(names0) if (set(v.shape.names) == set(names0) and v.shape.names != names0) else v
+              for v in values]
+    shapes = [v.shape for v in values]
+    if all(s == shapes[0] for s in shapes) and not any(isinstance(v, TensorStack) for v in values):
+        return Tensor(_stack_natives([v.native() for v in values]), concat_shapes(dim, shapes[0]))
+    return TensorStack(values, dim)
+
+
+def unstack(value, dim: DimFilter) -> tuple:
+    names = _resolve_filter(dim, value.shape)
+    if len(names) > 1:
+        value = pack_dims(value, names, batch('_unstack'))
+        return value._unstack('_unstack')
+    return value._unstack(names[0])
+
+
+def concat(values: Sequence[Tensor], dim) -> Tensor:
+    values = [wrap(v) for v in values]
+    name = dim if isinstance(dim, str) else dim.name
+    common = merge_shapes(*[v.shape.without(name) for v in values])
+    natives, labels_parts, total, d0 = [], [], 0, None
+    for v in values:
+        if name not in v.shape:
+            v = v._expand(Shape((Dim(name, 1, dim.dim_type if isinstance(dim, Shape) else CHANNEL),)))
+        d = v.shape.get_dim(name)
+        d0 = d0 or d
+        labels_parts.append(d.labels)
+        total += d.size
+        an = _align_native(v._contiguous().native() if isinstance(v, TensorStack) else v.native(), v.shape,
+                           (name,) + common.names)
+        target = (d.size,) + tuple(common.sizes)
+        natives.append(np.broadcast_to(an, target) if _is_host(an) else an.expand(target))
+    labels = tuple(l for lp in labels_parts for l in lp) if all(lp is not None for lp in labels_parts) else None
+    out_dim = Dim(name, total, d0.dim_type, labels)
+    return Tensor(_cat_natives(natives), concat_shapes(Shape((out_dim,)), common))
+
+
+def expand(value, *dims: Shape) -> Tensor:
+    return wrap(value)._expand(concat_shapes(*dims))
+
+
+def rename_dims(value, dims: DimFilter, names) -> Tensor:
+    if isinstance(value, Shape):
+        old = _resolve_filter(dims, value)
+        new = names if isinstance(names, Shape) else None
+        new_names = parse_dim_order(names)
+        result = []
+        for d in value.dims:
+            if d.name in old:
+                i = old.index(d.name)
+                if new is not None:
+                    nd = new.dims[i]
+                    result.append(Dim(nd.name, d.size, nd.dim_type, nd.labels or d.labels))
+                else:
+                    result.append(Dim(new_names[i], d.size, d.dim_type, d.labels))
+            else:
+                result.append(d)
+        return Shape(tuple(result))
+    value = wrap(value)
+    if isinstance(value, TensorStack):
+        old = _resolve_filter(dims, value.shape)
+        sname = value.stack_dim.name
+        if sname in old:
+            new_list = names if isinstance(names, Shape) else parse_dim_order(names)
+            new_sd = rename_dims(value.stack_dim, sname,
+                                 names[old.index(sname)] if isinstance(names, Shape) else new_list[old.index(sname)])
+            rest_old = tuple(n for n in old if n != sname)
+            comps = value.components
+            if rest_old:
+                rest_new = [n for o, n in zip(old, parse_dim_order(names)) if o != sname]
+                comps = [rename_dims(c, rest_old, rest_new) for c in comps]
+            return TensorStack(comps, new_sd)
+        return TensorStack([rename_dims(c, dims, names) for c in value.components], value.stack_dim)
+    return Tensor(value.native(), rename_dims(value.shape, dims, names))
+
+
+def pack_dims(value: Tensor, dims: DimFilter, packed_dim: Shape, pos=None) -> Tensor:
+    value = wrap(value)
+    if isinstance(value, TensorStack):
+        value = value._contiguous()
+    names = [n for n in _resolve_filter(dims, value.shape) if n in value.shape]
+    if not names:
+        return value._expand(packed_dim.with_size(1))
+    if len(names) == 1 and packed_dim.rank == 1:
+        return rename_dims(value, names[0], packed_dim)
+    other = [n for n in value.shape.names if n not in names]
+    order = tuple(names) + tuple(other)
+    t = value._transposed(order)
+    volume = int(np.prod([t.shape.get_size(n) for n in names]))
+    native = t.native().reshape((volume,) + tuple(t.shape.sizes[len(names):]))
+    pd = packed_dim.dims[0].with_size(volume)
+    return Tensor(native, Shape((pd,) + t.shape.dims[len(names):]))
+
+
+def unpack_dim(value: Tensor, dim, *unpacked: Shape) -> Tensor:
+    value = wrap(value)
+    name = dim if isinstance(dim, str) else dim.name
+    target = concat_shapes(*unpacked)
+    i = value.shape.index(name)
+    sizes = value.shape.sizes
+    native = value.native().reshape(sizes[:i] + tuple(target.sizes) + sizes[i + 1:])
+    return Tensor(native, Shape(value.shape.dims[:i] + target.dims + value.shape.dims[i + 1:]))
+
+
+def transpose(value: Tensor, order) -> Tensor:
+    return wrap(value)._transposed(parse_dim_order(order))
+
+
+def squeeze(value: Tensor, dims: DimFilter) -> Tensor:
+    for n in _resolve_filter(dims, value.shape):
+        assert value.shape.get_size(n) == 1
+        value = value[{n: 0}]
+    return value
+
+
+# ---------------------------------------------------------------------------
+# elementwise math
+# ---------------------------------------------------------------------------
+
+def _unary(np_fn, torch_fn):
+    def op(x, *args, **kwargs):
+        return wrap(x)._op1(lambda n: np_fn(n, *args, **kwargs) if _is_host(n) else torch_fn(n, *args, **kwargs))
+    return op
+
+
+abs_ = _unary(np.abs, torch.abs)
+sign = _unary(np.sign, torch.sign)
+sqrt = _unary(np.sqrt, torch.sqrt)
+exp = _unary(np.exp, torch.exp)
+log = _unary(np.log, torch.log)
+sin = _unary(np.sin, torch.sin)
+cos = _unary(np.cos, torch.cos)
+floor = _unary(np.floor, torch.floor)
+ceil = _unary(np.ceil, torch.ceil)
+round_ = _unary(np.round, torch.round)
+is_finite = _unary(np.isfinite, torch.isfinite)
+is_nan = _unary(np.isnan, torch.isnan)
+is_inf = _unary(np.isinf, torch.isinf)
+
+
+def _torch_dtype(np_dtype):
+    from ._tensor import _TORCH_DTYPES
+    return _TORCH_DTYPES[np.dtype(np_dtype)]
+
+
+def cast(x, dtype) -> Tensor:
+    """`x` as `dtype` (a numpy or torch dtype)."""
+    def fn(n):
+        if _is_host(n):
+            from ._tensor import _TORCH_DTYPES
+            np_dtype = next((k for k, v in _TORCH_DTYPES.items() if v == dtype), dtype) \
+                if isinstance(dtype, torch.dtype) else dtype
+            return n.astype(np_dtype)
+        return n.to(dtype if isinstance(dtype, torch.dtype) else _torch_dtype(dtype))
+    return wrap(x)._op1(fn)
+
+
+def to_float(x) -> Tensor:
+    return cast(x, default_float())
+
+
+def to_int32(x) -> Tensor:
+    return cast(x, np.int32)
+
+
+def to_int64(x) -> Tensor:
+    return cast(x, np.int64)
+
+
+def to_bool(x) -> Tensor:
+    return cast(x, np.bool_)
+
+
+def _binary(np_fn, torch_fn):
+    """A function of two natives on either backend; a scalar meeting a torch
+    tensor becomes a 0-dim CPU tensor of its dtype (a scalar operand)."""
+    def fn(a, b):
+        if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
+            return np_fn(a, b)
+        a, b = _meet(a, b)
+        if not isinstance(a, torch.Tensor):
+            a = torch.tensor(a, dtype=b.dtype)
+        if not isinstance(b, torch.Tensor):
+            b = torch.tensor(b, dtype=a.dtype)
+        return torch_fn(a, b)
+    return fn
+
+
+_maximum = _binary(np.maximum, torch.maximum)
+_minimum = _binary(np.minimum, torch.minimum)
+
+
+def maximum(a, b) -> Tensor:
+    return wrap(a)._op2(b, _maximum)
+
+
+def minimum(a, b) -> Tensor:
+    return wrap(a)._op2(b, _minimum)
+
+
+def clip(x, lower=0., upper=1.) -> Tensor:
+    return minimum(maximum(wrap(x), lower), upper)
+
+
+def where(condition, value_true=1., value_false=0.) -> Tensor:
+    if any(hasattr(x, 'geometry') and hasattr(x, 'values') for x in (condition, value_true, value_false)):
+        from ..field._field_math import where as field_where
+        return field_where(condition, value_true, value_false)
+    condition, vt, vf = wrap(condition), wrap(value_true), wrap(value_false)
+    stacks = [t for t in (condition, vt, vf) if isinstance(t, TensorStack)]
+    if stacks:
+        sd = stacks[0].stack_dim
+
+        def comp(t, i):
+            return t[{sd.name: i}] if sd.name in t.shape else t
+        return TensorStack([where(comp(condition, i), comp(vt, i), comp(vf, i)) for i in range(sd.size)], sd)
+    shape = merge_shapes(condition.shape, vt.shape, vf.shape)
+    c, a, b = (_align_native(t.native(), t.shape, shape.names) for t in (condition, vt, vf))
+    if all(_is_host(x) for x in (c, a, b)):
+        return Tensor(np.broadcast_to(_fix_host_dtype(np.where(c, a, b), a, b), tuple(shape.sizes)), shape)
+    ref = next(x for x in (c, a, b) if not _is_host(x))
+    c, a, b = (_host_to(x, ref) if _is_host(x) else x for x in (c, a, b))
+    if a.dtype != b.dtype and a.ndim == 0 and b.ndim:
+        a = a.to(b.dtype)
+    elif a.dtype != b.dtype and b.ndim == 0 and a.ndim:
+        b = b.to(a.dtype)
+    return Tensor(torch.where(c.to(ref.device), a.to(ref.device), b.to(ref.device)).expand(tuple(shape.sizes)), shape)
+
+
+def safe_div(numerator, denominator) -> Tensor:
+    n, d = wrap(numerator), wrap(denominator)
+
+    def fn(a, b):
+        if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
+            with np.errstate(divide='ignore', invalid='ignore'):
+                return np.where(b == 0, np.zeros_like(a * b), a / np.where(b == 0, np.ones_like(b), b))
+        a, b = _meet(a, b)
+        like = a if isinstance(a, torch.Tensor) else b
+        a, b = (x if isinstance(x, torch.Tensor) else torch.full_like(like, x) for x in (a, b))
+        return torch.where(b == 0, torch.zeros_like(a * b), a / torch.where(b == 0, torch.ones_like(b), b))
+    return n._op2(d, fn)
+
+
+def nan_to_0(x) -> Tensor:
+    return wrap(x)._op1(lambda n: np.nan_to_num(n, nan=0.0, posinf=0.0, neginf=0.0) if _is_host(n)
+                        else torch.nan_to_num(n, nan=0.0, posinf=0.0, neginf=0.0))
+
+
+# ---------------------------------------------------------------------------
+# reductions
+# ---------------------------------------------------------------------------
+
+def _np_or_torch(np_fn, torch_fn):
+    def fn(n, axes):
+        return np_fn(n, axis=axes) if _is_host(n) else torch_fn(n, axes)
+    return fn
+
+
+def _t_sum(n, axes):
+    return torch.sum(n, dim=axes)
+
+
+def _t_mean(n, axes):
+    return torch.mean(n, dim=axes)
+
+
+def _t_prod(n, axes):
+    for ax in sorted(axes, reverse=True):
+        n = torch.prod(n, dim=ax)
+    return n
+
+
+def _t_max(n, axes):
+    return torch.amax(n, dim=axes)
+
+
+def _t_min(n, axes):
+    return torch.amin(n, dim=axes)
+
+
+def _t_any(n, axes):
+    for ax in sorted(axes, reverse=True):
+        n = torch.any(n, dim=ax)
+    return n
+
+
+def _t_all(n, axes):
+    for ax in sorted(axes, reverse=True):
+        n = torch.all(n, dim=ax)
+    return n
+
+
+def _reduce(value, dim: DimFilter, native_fn, default_filter=lambda s: s.non_batch) -> Tensor:
+    value = wrap(value)
+    if isinstance(value, TensorStack):
+        if value.is_uniform:
+            value = value._contiguous()
+        else:
+            # a staggered grid's components: reduce each, then over the stack dim
+            reduced = [_reduce(c, dim, native_fn, default_filter) for c in value.components]
+            if dim is None or value.stack_dim.name in _resolve_filter(dim, value.shape):
+                if any(r.shape for r in reduced):
+                    raise NotImplementedError("partial reduction over non-uniform stack: reduce components first")
+                return Tensor(native_fn(_stack_natives([r.native() for r in reduced]), (0,)), EMPTY_SHAPE)
+            return TensorStack(reduced, value.stack_dim)
+    if dim is None:
+        names = default_filter(value.shape).names
+    else:
+        names = [n for n in _resolve_filter(dim, value.shape) if n in value.shape]
+    if not names:
+        return value
+    axes = tuple(value.shape.index(n) for n in names)
+    native = native_fn(value.native(), axes)
+    return Tensor(_fix_host_dtype(native, value.native()), value.shape.without(names))
+
+
+_sum = _np_or_torch(np.sum, _t_sum)
+_mean = _np_or_torch(np.mean, _t_mean)
+_max = _np_or_torch(np.max, _t_max)
+_min = _np_or_torch(np.min, _t_min)
+_any = _np_or_torch(np.any, _t_any)
+_all = _np_or_torch(np.all, _t_all)
+_prod = _np_or_torch(np.prod, _t_prod)
+
+
+def sum_(value, dim: DimFilter = None) -> Tensor:
+    if isinstance(value, (tuple, list)):
+        return functools.reduce(lambda a, b: wrap(a) + b, value)
+    return _reduce(value, dim, _sum)
+
+
+def mean(value, dim: DimFilter = None, weight=None) -> Tensor:
+    if weight is not None:
+        w = wrap(weight)
+        return sum_(wrap(value) * w, dim) / sum_(w, dim)
+    return _reduce(value, dim, _mean)
+
+
+def prod(value, dim: DimFilter = None) -> Tensor:
+    return _reduce(value, dim, _prod)
+
+
+def max_(value, dim: DimFilter = None) -> Tensor:
+    if isinstance(value, (tuple, list)):
+        return functools.reduce(maximum, [wrap(v) for v in value])
+    return _reduce(value, dim, _max)
+
+
+def min_(value, dim: DimFilter = None) -> Tensor:
+    if isinstance(value, (tuple, list)):
+        return functools.reduce(minimum, [wrap(v) for v in value])
+    return _reduce(value, dim, _min)
+
+
+def any_(value, dim: DimFilter = None) -> Tensor:
+    return _reduce(value, dim, _any, default_filter=lambda s: s)
+
+
+def all_(value, dim: DimFilter = None) -> Tensor:
+    return _reduce(value, dim, _all, default_filter=lambda s: s)
+
+
+def finite_mean(value, dim: DimFilter = None) -> Tensor:
+    value = wrap(value)
+    fin = is_finite(value)
+    return safe_div(sum_(where(fin, value, 0), dim), sum_(to_float(fin), dim))
+
+
+def finite_sum(value, dim: DimFilter = None) -> Tensor:
+    value = wrap(value)
+    return sum_(where(is_finite(value), value, 0), dim)
+
+
+def finite_max(value, dim: DimFilter = None) -> Tensor:
+    value = wrap(value)
+    return max_(where(is_finite(value), value, -np.inf), dim)
+
+
+def finite_min(value, dim: DimFilter = None) -> Tensor:
+    value = wrap(value)
+    return min_(where(is_finite(value), value, np.inf), dim)
+
+
+def dot(a: Tensor, a_dims, b: Tensor, b_dims) -> Tensor:
+    """Contract `a_dims` of a with `b_dims` of b; dims of both that remain are
+    batch dims of the product."""
+    a, b = wrap(a), wrap(b)
+    a_names = _resolve_filter(a_dims, a.shape)
+    b_names = _resolve_filter(b_dims, b.shape)
+    a_rem, b_rem = a.shape.without(a_names), b.shape.without(b_names)
+    shared = [n for n in a_rem.names if n in b_rem]
+    a_only, b_only = a_rem.without(shared), b_rem.without(shared)
+    an = a.native(tuple(shared) + a_only.names + tuple(a_names))
+    bn = b.native(tuple(shared) + tuple(b_names) + b_only.names)
+    an, bn = _meet(an, bn)
+    k = int(np.prod([a.shape.get_size(n) for n in a_names]))
+    s_sizes = tuple(a.shape.get_size(n) for n in shared)
+    am = an.reshape(s_sizes + (int(np.prod(a_only.sizes)), k))
+    bm = bn.reshape(s_sizes + (k, int(np.prod(b_only.sizes))))
+    out = (np.matmul if _is_host(am) else torch.matmul)(am, bm)
+    out = out.reshape(s_sizes + tuple(a_only.sizes) + tuple(b_only.sizes))
+    return Tensor(out, concat_shapes(a.shape.only(shared, reorder=True), a_only, b_only))
+
+
+# ---------------------------------------------------------------------------
+# comparison / testing (on the host: a torch native is copied there)
+# ---------------------------------------------------------------------------
+
+def _pair_numpy(first, other):
+    f = first._contiguous() if isinstance(first, TensorStack) else first
+    o = other._contiguous() if isinstance(other, TensorStack) else other
+    an, bn, _ = _broadcast(f, o)
+    return _host(an), _host(bn)
+
+
+def close(*tensors, rel_tolerance=1e-5, abs_tolerance=0, equal_nan=False) -> bool:
+    tensors = [wrap(t) for t in tensors]
+    for other in tensors[1:]:
+        an, bn = _pair_numpy(tensors[0], other)
+        if not np.allclose(an, bn, rtol=rel_tolerance, atol=abs_tolerance, equal_nan=equal_nan):
+            return False
+    return True
+
+
+always_close = close
+
+
+def assert_close(*tensors, rel_tolerance=1e-5, abs_tolerance=0, msg="", equal_nan=False):
+    tensors = [wrap(t) for t in tensors]
+    for other in tensors[1:]:
+        an, bn = _pair_numpy(tensors[0], other)
+        np.testing.assert_allclose(an, bn, rtol=rel_tolerance, atol=abs_tolerance, err_msg=msg,
+                                   equal_nan=bool(equal_nan))
+
+
+def equal(a, b) -> bool:
+    try:
+        return close(a, b, rel_tolerance=0, abs_tolerance=0)
+    except Exception:
+        return False
+
+
+# ---------------------------------------------------------------------------
+# padding & shifting
+# ---------------------------------------------------------------------------
+
+def pad(value: Tensor, widths: dict, mode=0, **kwargs) -> Tensor:
+    """Pad along named dims. `mode` is an Extrapolation, Tensor, or number."""
+    from ._extrapolation import as_extrapolation
+    value = wrap(value)
+    if isinstance(value, TensorStack):
+        return TensorStack([pad(c, {k: v for k, v in widths.items() if k in c.shape}, mode, **kwargs)
+                            for c in value.components], value.stack_dim)
+    return as_extrapolation(mode).pad(value, widths, **kwargs)
+
+
+def shift(value: Tensor, offsets: tuple, dims: DimFilter = spatial, padding=None, stack_dim=channel('shift'),
+          extend_bounds=0):
+    """Shifted copies of `value`, one per offset: padded with `padding` if
+    given, else trimmed to the overlap."""
+    value = wrap(value)
+    names = [n for n in _resolve_filter(dims, value.shape) if n in value.shape]
+    pad_lower = max(0, -min(offsets)) + extend_bounds
+    pad_upper = max(0, max(offsets)) + extend_bounds
+    if padding is not None:
+        value = pad(value, {n: (pad_lower, pad_upper) for n in names}, padding)
+    results = []
+    for offset in offsets:
+        components = {}
+        for n in names:
+            size = value.shape.get_size(n)
+            if padding is not None:
+                start, length = pad_lower + offset, size - pad_lower - pad_upper
+            else:
+                start, length = offset - min(offsets), size - (max(offsets) - min(offsets))
+            components[n] = value[{n: slice(start, start + length)}]
+        if stack_dim is None:
+            assert len(names) == 1
+            results.append(components[names[0]])
+        else:
+            results.append(stack(components, stack_dim))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# vectors
+# ---------------------------------------------------------------------------
+
+def vec(name='vector', **components) -> Tensor:
+    return stack({k: wrap(v) for k, v in components.items()}, channel(name), expand_values=True)
+
+
+def vec_squared(v: Tensor, vec_dim: DimFilter = channel) -> Tensor:
+    v = wrap(v)
+    if isinstance(v, TensorStack):
+        return sum_([c ** 2 for c in v.components])
+    return sum_(v ** 2, vec_dim)
+
+
+def vec_length(v: Tensor, vec_dim: DimFilter = channel, eps=None) -> Tensor:
+    sq = vec_squared(wrap(v), vec_dim)
+    if eps is not None:
+        sq = maximum(sq, eps)
+    return sqrt(sq)
+
+
+def vec_normalize(v: Tensor, vec_dim: DimFilter = channel, epsilon=1e-15) -> Tensor:
+    v = wrap(v)
+    return v / vec_length(v, vec_dim, eps=epsilon)
+
+
+def dim_mask(all_dims: Shape, dims: DimFilter, mask_dim=channel('vector')) -> Tensor:
+    if all_dims.rank == 1 and all_dims.dims[0].labels:
+        all_names = all_dims.dims[0].labels
+    elif all_dims.spatial:
+        all_names = all_dims.spatial.names
+    else:
+        all_names = all_dims.names
+    names = parse_dim_order(dims) if not callable(dims) or isinstance(dims, Shape) else dims(all_dims).names
+    d = mask_dim.dims[0].with_size(len(all_names), all_names)
+    return Tensor(np.asarray([1.0 if n in names else 0.0 for n in all_names], default_float()), Shape((d,)))

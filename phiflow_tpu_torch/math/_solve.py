@@ -1,10 +1,13 @@
-"""Conjugate gradients — port of `phiflow_tpu/math/_solve.py::_cg` and the parts
-of `solve_linear` the pressure solve uses (the rank-deficiency mean
-projections and the fused-dot matvec of a homogeneous operator).
+"""Linear solves — port of `phiflow_tpu/math/_solve.py`: conjugate gradients
+on raw tensors (`cg`, the array layer's solver), and on top of it the solve
+specification of the Field layer (`Solve`, `copy_solve`), its diagnostics
+(`SolveInfo`, `SolveTape`) and `solve_linear` for the methods 'auto' and 'CG'.
 
 The loop runs eagerly: the stop test reads ⟨r, r⟩ on the host once per
 iteration (one device sync), where JAX keeps the loop on the device in a
-`lax.while_loop`.
+`lax.while_loop`. A `SolveInfo` therefore holds the concrete iteration count.
+BiCGStab, direct solves, `minimize` and `solve_nonlinear` come with a later
+slice.
 """
 from __future__ import annotations
 
@@ -12,7 +15,11 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-__all__ = ['SolveResult', 'cg', 'sub_mean']
+from ._functional import LinearFunction
+from ._magic import ConvergenceException, Diverged, NotConverged
+from ._tensor import Tensor, TensorStack
+
+__all__ = ['SolveResult', 'cg', 'sub_mean', 'Solve', 'copy_solve', 'SolveInfo', 'SolveTape', 'solve_linear']
 
 
 class SolveResult(NamedTuple):
@@ -76,3 +83,215 @@ def cg(A: Callable, b: torch.Tensor, x0: torch.Tensor, rtol: float, atol: float,
         rz = rz_new
         it += 1
     return SolveResult(x, it, bool(rr <= tol_sq))
+
+
+# ---------------------------------------------------------------------------
+# the solve specification of the Field layer
+# ---------------------------------------------------------------------------
+
+class Solve:
+    """A linear solve: method, tolerances, initial guess `x0` (a Field or
+    Tensor), iteration limit, exceptions to suppress, preprocessing of the
+    right-hand side, rank deficiency and preconditioner — the JAX package's
+    arguments."""
+
+    def __init__(self, method: str = 'auto', rel_tol: float = None, abs_tol: float = None,
+                 x0=None, max_iterations: int = 1000, suppress: tuple = (),
+                 preprocessing=None, preprocessing_args: tuple = (), rank_deficiency: int = None,
+                 preconditioner=None, gradient_solve: 'Solve' = None, implicit_diff: bool = True):
+        self.method = method
+        self.rel_tol = rel_tol
+        self.abs_tol = abs_tol
+        self.x0 = x0
+        self.max_iterations = max_iterations
+        self.suppress = tuple(suppress)
+        self.preprocessing = preprocessing
+        self.preprocessing_args = preprocessing_args
+        self.rank_deficiency = rank_deficiency
+        self.preconditioner = preconditioner
+        self._gradient_solve = gradient_solve
+        self.implicit_diff = implicit_diff
+
+    @property
+    def gradient_solve(self) -> 'Solve':
+        return self._gradient_solve if self._gradient_solve is not None else self
+
+    def with_preprocessing(self, preprocessing: Callable, *args) -> 'Solve':
+        return copy_solve(self, preprocessing=preprocessing, preprocessing_args=args)
+
+    def with_defaults(self, mode: str) -> 'Solve':
+        rel = self.rel_tol if self.rel_tol is not None else (1e-5 if mode == 'solve' else 1e-3)
+        abs_ = self.abs_tol if self.abs_tol is not None else 1e-5
+        return copy_solve(self, rel_tol=rel, abs_tol=abs_)
+
+    def __repr__(self):
+        return (f"Solve('{self.method}', rel_tol={self.rel_tol}, abs_tol={self.abs_tol}, "
+                f"max_iterations={self.max_iterations})")
+
+    def __attrs__(self):
+        return dict(method=self.method, rel_tol=self.rel_tol, abs_tol=self.abs_tol, x0=self.x0,
+                    max_iterations=self.max_iterations, suppress=self.suppress,
+                    preprocessing=self.preprocessing, preprocessing_args=self.preprocessing_args,
+                    rank_deficiency=self.rank_deficiency, preconditioner=self.preconditioner,
+                    gradient_solve=self._gradient_solve, implicit_diff=self.implicit_diff)
+
+
+def copy_solve(solve: Solve, **updates) -> Solve:
+    kw = solve.__attrs__()
+    kw.update(updates)
+    return Solve(**kw)
+
+
+class SolveInfo:
+    """Diagnostics of a solve. `iterations` is the CG iteration count; the
+    residual is not recomputed after the loop (it would cost one more matvec),
+    so `residual` is None."""
+
+    def __init__(self, solve: Solve, x, residual, iterations, function_evaluations, converged, diverged, method,
+                 msg="", runtime_stats: Optional[dict] = None):
+        self.solve = solve
+        self.x = x
+        self.residual = residual
+        self.iterations = iterations
+        self.function_evaluations = function_evaluations
+        self.converged = converged
+        self.diverged = diverged
+        self.method = method
+        self.msg = msg
+        self.runtime_stats = runtime_stats if runtime_stats is not None else {}
+
+    def __repr__(self):
+        return (f"SolveInfo({self.method}: iterations={self.iterations}, converged={self.converged}, "
+                f"diverged={self.diverged})")
+
+
+_SOLVE_TAPES: list = []
+
+
+class SolveTape:
+    """Records the `SolveInfo` of every solve within its context."""
+
+    def __init__(self, *solves: Solve, record_trajectories=False, record_runtime=False):
+        self.solves = solves
+        self.record_trajectories = record_trajectories
+        self.record_runtime = record_runtime
+        self.solve_infos: list = []
+
+    def __enter__(self):
+        _SOLVE_TAPES.append(self)
+        return self
+
+    def __exit__(self, *args):
+        _SOLVE_TAPES.remove(self)
+
+    def __getitem__(self, item) -> SolveInfo:
+        if isinstance(item, Solve):
+            for info in self.solve_infos:
+                if info.solve is item:
+                    return info
+            raise KeyError(item)
+        return self.solve_infos[item]
+
+    def __iter__(self):
+        return iter(self.solve_infos)
+
+    def __len__(self):
+        return len(self.solve_infos)
+
+
+def check_method(solve: Solve):
+    """Raise NotImplementedError for a method or preconditioner this slice does not port."""
+    if solve.method not in ('auto', 'CG', 'CG-native'):
+        raise NotImplementedError(f"solve method {solve.method!r}: only CG ('auto', 'CG') is ported; "
+                                  f"BiCGStab, direct solves and CG-adaptive come with a later slice")
+    if solve.preconditioner not in (None, 'auto', 'multigrid') and not callable(solve.preconditioner):
+        raise NotImplementedError(f"preconditioner {solve.preconditioner!r}")
+
+
+def finish_solve(solve: Solve, x, result: SolveResult) -> SolveInfo:
+    """Record the `SolveInfo` of a finished CG solve on every active
+    `SolveTape` and raise `Diverged` / `NotConverged` unless `solve` suppresses
+    them. A non-finite ⟨r, r⟩ stops the loop early, unconverged: that is a
+    divergence."""
+    diverged = not result.converged and result.iterations < solve.max_iterations
+    info = SolveInfo(solve, x, None, result.iterations, result.iterations + 1, result.converged, diverged,
+                     solve.method, msg=f"{result.iterations} CG iterations, converged={result.converged}")
+    for tape in _SOLVE_TAPES:
+        tape.solve_infos.append(info)
+    suppressed = ConvergenceException in solve.suppress
+    if diverged and Diverged not in solve.suppress and not suppressed:
+        raise Diverged(info)
+    if not result.converged and not diverged and NotConverged not in solve.suppress and not suppressed:
+        raise NotConverged(info)
+    return info
+
+
+def _values_of(state):
+    """The Tensor a solve works on: a Field's values or the Tensor itself."""
+    values = state.values if hasattr(state, 'values') and hasattr(state, 'geometry') else state
+    if isinstance(values, TensorStack):
+        raise NotImplementedError("solve_linear of a staggered (stacked) unknown comes with a later slice")
+    return values
+
+
+def _with_values(template, values):
+    return template.with_values(values) if hasattr(template, 'with_values') else values
+
+
+def solve_linear(f, y, solve: Solve, *f_args, grad_for_f=False, f_kwargs: dict = None,
+                 assume_homogeneous: bool = False, **f_kwargs_additional):
+    """Solve ``f(x, *f_args) = y`` for x by CG, on a Field or Tensor unknown.
+
+    `f` is a `LinearFunction` or a plain linear (or affine) callable; unless
+    ``assume_homogeneous``, its offset f(0) is subtracted. The preprocessing,
+    the rank deficiency (the mean removed from the right-hand side, every
+    preconditioner output and the result) and a callable preconditioner of
+    `solve` apply as in the JAX package."""
+    f_kwargs = dict(f_kwargs or {})
+    f_kwargs.update(f_kwargs_additional)
+    solve = solve.with_defaults('solve')
+    check_method(solve)
+    x0 = solve.x0 if solve.x0 is not None else (y * 0)
+    fn = f.f if isinstance(f, LinearFunction) else f
+    if not callable(fn):
+        raise NotImplementedError(f"solve_linear with a matrix ({type(f)}); pass a callable")
+
+    def op(x):
+        return fn(x, *f_args, **f_kwargs)
+
+    if solve.preprocessing is not None:
+        y = solve.preprocessing(y, *solve.preprocessing_args)
+    template = _values_of(x0)
+    order = template.shape.names
+
+    def state_of(arr):
+        return _with_values(x0, Tensor(arr, template.shape))
+
+    def native_of(state):
+        return _values_of(state).torch(order)
+
+    rhs = native_of(y)
+    x0_n = native_of(x0)
+    if not assume_homogeneous:
+        b0 = native_of(op(state_of(torch.zeros_like(x0_n))))
+        rhs = rhs - b0
+
+        def A(x):
+            return native_of(op(state_of(x))) - b0, None
+    else:
+        def A(x):
+            return native_of(op(state_of(x))), None
+
+    rank_def = solve.rank_deficiency or 0
+    if rank_def:
+        rhs = sub_mean(rhs)
+    M = None
+    if callable(solve.preconditioner):
+        def M(r):
+            z = native_of(solve.preconditioner(state_of(r)))
+            return (sub_mean(z) if rank_def else z), None
+    result = cg(A, rhs, x0_n, solve.rel_tol, solve.abs_tol, solve.max_iterations, M)
+    x = sub_mean(result.x) if rank_def else result.x
+    x_state = state_of(x)
+    finish_solve(solve, x_state, result)
+    return x_state

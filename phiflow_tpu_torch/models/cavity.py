@@ -50,9 +50,9 @@ class LidDrivenCavity:
         return (zeros(r - 1, r), zeros(r, r - 1)), zeros(r, r)
 
     def step(self, v, p):
-        v = advect.semi_lagrangian(v, v, self.dt, self._dx, self.boundary, velocity_extrap=self.boundary)
-        v = diffuse.explicit(v, self.viscosity, self.dt, self._dx, self.boundary)
-        v, p, self.last_solve = fluid.make_incompressible(
+        v = advect.semi_lagrangian_native(v, v, self.dt, self._dx, self.boundary, velocity_extrap=self.boundary)
+        v = diffuse.explicit_native(v, self.viscosity, self.dt, self._dx, self.boundary)
+        v, p, self.last_solve = fluid.make_incompressible_native(
             v, p, self._dx, rel_tol=self.cg_tol, abs_tol=0., max_iterations=self.max_iterations,
             obstacles=self.obstacles)
         return v, p

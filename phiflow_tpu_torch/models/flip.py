@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..field._field_math import finite_fill
-from ..field._point_cloud import distribute_points
+from ..field._field_math import finite_fill_native
+from ..field._point_cloud import distribute_points_native
 from ..field._resample import sample_staggered_at_points, scatter_to_grid
 from ..physics import advect, fluid
 
@@ -61,7 +61,7 @@ class FlipLiquid:
             block = (0.15, 0.55) * (dims - 1) + (0.45, 0.85)  # raised block, falls under gravity
         if len(block) != 2 * dims:
             raise ValueError(f"block needs {2 * dims} entries, got {len(block)}")
-        self.positions0 = distribute_points([block[2 * i] * resolution for i in range(dims)],
+        self.positions0 = distribute_points_native([block[2 * i] * resolution for i in range(dims)],
                                             [block[2 * i + 1] * resolution for i in range(dims)],
                                             (resolution,) * dims, points_per_cell=points_per_cell, seed=seed)
         self.last_solve = None  # fluid SolveResult of the latest projection
@@ -84,7 +84,7 @@ class FlipLiquid:
         positions, velocities = particles
         N = (self.resolution,) * self.dims
         grid_v = scatter_to_grid(positions, velocities, N, self._dx, outside_handling='clamp', base=float('nan'))
-        grid_v = tuple(finite_fill(c) for c in grid_v)
+        grid_v = tuple(finite_fill_native(c) for c in grid_v)
         occupied = scatter_to_grid(positions, torch.ones_like(positions[:, 0]), N, self._dx,
                                    outside_handling='discard', base=0.0)
         return grid_v, occupied
@@ -94,7 +94,7 @@ class FlipLiquid:
         kept in `last_solve`."""
         up = self.dims - 1
         forced = tuple(c + self.gravity * self.dt if d == up else c for d, c in enumerate(grid_v))
-        new_v, pressure, self.last_solve = fluid.make_incompressible(
+        new_v, pressure, self.last_solve = fluid.make_incompressible_native(
             forced, pressure, self._dx, rel_tol=self.cg_tol, abs_tol=0., max_iterations=self.max_iterations,
             active=occupied)
         return new_v, pressure
@@ -105,8 +105,8 @@ class FlipLiquid:
         positions, velocities = particles
         change = tuple(a - b for a, b in zip(grid_v, prev_v))
         velocities = velocities + sample_staggered_at_points(change, positions, self._dx)
-        positions = advect.points(positions, grid_v, self.dt, self._dx, advect.finite_rk4)
-        positions = fluid.boundary_push(positions, self._size)
+        positions = advect.points_native(positions, grid_v, self.dt, self._dx, advect.finite_rk4_native)
+        positions = fluid.boundary_push_native(positions, self._size)
         return positions, velocities
 
     def step(self, particles: Particles, pressure: Optional[torch.Tensor] = None):

@@ -59,8 +59,8 @@ class MovingObstacles:
 
     def step(self, v, p, *obstacles):
         obstacles = tuple(self.move_obstacle(o) for o in obstacles)
-        v = advect.mac_cormack(v, v, self.dt, self._dx, PERIODIC, periodic=True)
-        v, p, self.last_solve = fluid.make_incompressible(
+        v = advect.mac_cormack_native(v, v, self.dt, self._dx, PERIODIC, periodic=True)
+        v, p, self.last_solve = fluid.make_incompressible_native(
             v, p, self._dx, rel_tol=self.cg_tol, abs_tol=0., max_iterations=self.max_iterations, periodic=True,
             obstacles=obstacles)
         return (v, p) + obstacles

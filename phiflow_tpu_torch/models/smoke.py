@@ -163,7 +163,7 @@ class SmokePlume:
 
     def advect_smoke(self, velocity: Velocity, smoke: torch.Tensor) -> torch.Tensor:
         """Phase 1: MacCormack smoke advection + soft inflow."""
-        adv = advect.mac_cormack(smoke, velocity, self.dt, self._dx, PERIODIC if self.periodic else BOUNDARY,
+        adv = advect.mac_cormack_native(smoke, velocity, self.dt, self._dx, PERIODIC if self.periodic else BOUNDARY,
                                  self.periodic, max_cells=self.max_cells)
         return adv + self.inflow_rate * self._inflow_mask_values(smoke)
 
@@ -171,7 +171,7 @@ class SmokePlume:
         """Phase 2: semi-Lagrangian self-advection + buoyancy. Buoyancy acts
         along the last axis only, so the smoke is averaged onto that
         component's faces alone."""
-        adv = advect.semi_lagrangian(velocity, velocity, self.dt, self._dx, PERIODIC if self.periodic else 0.0,
+        adv = advect.semi_lagrangian_native(velocity, velocity, self.dt, self._dx, PERIODIC if self.periodic else 0.0,
                                      self.periodic, max_cells=self.max_cells)
         up = self.dims - 1
         lift = sample_grid_at_centers(smoke * (self.buoyancy * self.dt), None, up,
@@ -181,7 +181,7 @@ class SmokePlume:
     def project(self, velocity: Velocity, pressure: Optional[torch.Tensor]):
         """Phase 3: pressure projection (MG-preconditioned CG); the solve's
         result is kept in `last_solve`."""
-        velocity, pressure, self.last_solve = fluid.make_incompressible(
+        velocity, pressure, self.last_solve = fluid.make_incompressible_native(
             velocity, pressure, self._dx, rel_tol=self.cg_tol, abs_tol=0.,
             max_iterations=self.max_iterations, periodic=self.periodic)
         return velocity, pressure

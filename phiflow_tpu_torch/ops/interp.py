@@ -120,15 +120,16 @@ def _window_interp_plain(grid, disps, K, compute_extrema, scale, mode, const):
     sign; `mode` None takes `grid` as padded."""
     d = len(disps)
     out_shape = tuple(disps[0].shape)
-    padded = (grid if mode is None else _pad(grid, K, mode, const)).float()
+    dtype = torch.float64 if grid.dtype == torch.float64 else torch.float32  # float64 only on the CPU
+    padded = (grid if mode is None else _pad(grid, K, mode, const)).to(dtype)
     W = 2 * K + 1
-    delta = [torch.clamp(scale[i] * disps[i].float(), -float(K), float(K)) for i in range(d)]
+    delta = [torch.clamp(scale[i] * disps[i].to(dtype), -float(K), float(K)) for i in range(d)]
     dist = [[torch.abs(delta[i] - float(s)) for s in range(-K, K + 1)] for i in range(d)]
-    total = torch.zeros(out_shape, dtype=torch.float32, device=grid.device)
+    total = torch.zeros(out_shape, dtype=dtype, device=grid.device)
     if compute_extrema:
-        big = torch.tensor(_BIG, dtype=torch.float32, device=grid.device)
-        lo_acc = torch.full(out_shape, _BIG, dtype=torch.float32, device=grid.device)
-        up_acc = torch.full(out_shape, -_BIG, dtype=torch.float32, device=grid.device)
+        big = torch.tensor(_BIG, dtype=dtype, device=grid.device)
+        lo_acc = torch.full(out_shape, _BIG, dtype=dtype, device=grid.device)
+        up_acc = torch.full(out_shape, -_BIG, dtype=dtype, device=grid.device)
     for k in range(W ** d):
         kk, w, cm, index = k, None, None, []
         for i in range(d):

@@ -122,6 +122,16 @@ def _unmasked_profiles(n, lo, hi, inv, trailing, device, dtype):
     return am, ap, c0 * inv
 
 
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """The twins' arithmetic type: float32, or float64 for a float64 field (on the CPU)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _coeff(inv, dtype) -> float:
+    """A coefficient as the kernel's float32, or exact for float64 arithmetic."""
+    return float(inv) if dtype == torch.float64 else float(np.float32(inv))
+
+
 def _lap_plain(p, inv_dx2, bc, mA_list, c0):
     """A·p via torch.roll; p: (..., *spatial) with len(bc) trailing spatial axes."""
     ndim = len(bc)
@@ -136,11 +146,11 @@ def _lap_plain(p, inv_dx2, bc, mA_list, c0):
             max_ = mA.ndim - ndim + d
             term = mA * pm + torch.roll(mA, -1, max_) * pp
         else:
-            am, ap, c0_term = _unmasked_profiles(p.shape[ax], lo, hi, float(np.float32(inv)), ndim - d - 1,
+            am, ap, c0_term = _unmasked_profiles(p.shape[ax], lo, hi, _coeff(inv, p.dtype), ndim - d - 1,
                                                  p.device, p.dtype)
             term = am * pm + ap * pp
             c0_eff = c0_term if c0_eff is None else c0_eff + c0_term
-        term = term * float(np.float32(inv))
+        term = term * _coeff(inv, p.dtype)
         lap = term if lap is None else lap + term
     return lap + c0_eff * p
 
@@ -362,9 +372,10 @@ def poisson_apply(p: torch.Tensor, inv_dx2: Sequence[float], bc: Sequence[Tuple[
 def _poisson_apply_plain(p, inv_dx2, bc, mA_list=None, c0=None, active=None, b=None, mode='matvec',
                          omega_over_diag=None, with_dot=False):
     """`poisson_apply` through the twin, on any device."""
-    pf = p.float()
+    dt = _compute_dtype(p)
+    pf = p.to(dt)
     out = _apply_plain(pf, inv_dx2, bc, mA_list, c0, active,
-                       None if b is None else b.float(), mode, omega_over_diag)
+                       None if b is None else b.to(dt), mode, omega_over_diag)
     dot = torch.sum(pf * out) if with_dot else None
     out = out.to(p.dtype)
     return (out, dot) if with_dot else out

@@ -1,5 +1,22 @@
-"""Advection on raw tensors: grids by semi-Lagrangian and MacCormack lookups,
-particles by `points` with the `finite_rk4` integrator.
+"""Advection — port of `phiflow_tpu/physics/advect.py`, in two layers.
+
+The Field layer, with JAX's signatures: `semi_lagrangian` (`:338`) and
+`mac_cormack` (`:393`) of a grid Field through a velocity Field, and
+`max_displacement_cells`. With the `euler` integrator and a bounded window
+(`max_cells`), a staggered velocity unwraps into `_euler_disp_natives` and
+`_window_interp_field_native` below: the same calls of K6 (3D) or K7 (2D) as
+the array layer makes. It must lie on the field's grid in a layout the array
+layer has (the closed box or the periodic box); any other staggered velocity
+raises NotImplementedError. A centred velocity (Burgers' equation advects
+itself), which the array layer does not take, goes through the displacement
+dt·v sampled at the field's points, divided by the cell size, and the same
+window interpolation, one array per component. `substeps='auto'`, the
+gather lookups (`max_cells=None`) and the integrators other than `euler` come
+with a later slice.
+
+The array layer (`*_native`) on raw tensors: grids by semi-Lagrangian and
+MacCormack lookups, particles by `points_native` with the `finite_rk4_native`
+integrator.
 
 The grid schemes port the bounded-window fast path of `phiflow_tpu/physics/advect.py`: the `euler`
 integrator with `max_cells` set, which is what `semi_lagrangian` (`:338`,
@@ -15,13 +32,9 @@ velocity array, the others are 2-point averages per shifted axis — and the
 window kernels (K6 in 3D, K7 in 2D) apply −dt/dx, the sign and the ±max_cells
 clamp in registers.
 
-`points` (`:109-117`) and `finite_rk4` (`:50-61`) move the particles of the
-FLIP model through a closed-box staggered velocity, NaN velocities (the unset
-cells of a FLIP grid) counting as zero.
-
-Not ported yet, waiting for the named-dim core: the integrators `euler` and
-`rk4` for points and lookups, `substeps='auto'`, `differential`, and the gather
-branches (`max_cells=None`).
+`points_native` (`:109-117`) and `finite_rk4_native` (`:50-61`) move the
+particles of the FLIP model through a closed-box staggered velocity, NaN
+velocities (the unset cells of a FLIP grid) counting as zero.
 """
 from __future__ import annotations
 
@@ -29,10 +42,14 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
-from ..field._resample import sample_grid_at_centers, sample_staggered_at_points
+from ..field._field import face_components, face_values
+from ..field._field_math import _array_layout, _dx_tuple, _layout, _native_extrap, _plain_values
+from ..field._resample import sample, sample_grid_at_centers, sample_staggered_at_points
+from ..math import Tensor, dual, stack, _ops as ops
 from ..math._nd import PERIODIC, Extrapolation, component_extrapolation, shift_window_interp
 
-__all__ = ['semi_lagrangian', 'mac_cormack', 'max_displacement_cells', 'finite_rk4', 'points']
+__all__ = ['euler', 'semi_lagrangian', 'mac_cormack', 'max_displacement_cells', 'semi_lagrangian_native',
+           'mac_cormack_native', 'max_displacement_cells_native', 'finite_rk4_native', 'points_native']
 
 Grid = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -98,7 +115,7 @@ def _check(field: Grid, velocity, max_cells, substeps):
             f"axes come with the batched-smoke slice of the port")
 
 
-def semi_lagrangian(field: Grid, velocity: Sequence[torch.Tensor], dt: float, dx, extrap,
+def semi_lagrangian_native(field: Grid, velocity: Sequence[torch.Tensor], dt: float, dx, extrap,
                     periodic: bool = False, max_cells: int = 2, substeps: int = 1, velocity_extrap=None) -> Grid:
     """Backtrace + interpolate. `extrap` is the field's extrapolation (for a
     staggered field also one per component), `periodic` the velocity's box.
@@ -109,14 +126,14 @@ def semi_lagrangian(field: Grid, velocity: Sequence[torch.Tensor], dt: float, dx
     _check(field, velocity, max_cells, substeps)
     if substeps > 1:
         for _ in range(substeps):
-            field = semi_lagrangian(field, velocity, dt / substeps, dx, extrap, periodic, max_cells,
+            field = semi_lagrangian_native(field, velocity, dt / substeps, dx, extrap, periodic, max_cells,
                                     velocity_extrap=velocity_extrap)
         return field
     fast = _euler_disp_natives(_is_staggered(field), velocity, -dt, dx, periodic, velocity_extrap)
     return _window_interp_field_native(field, fast, extrap, max_cells)
 
 
-def mac_cormack(field: Grid, velocity: Sequence[torch.Tensor], dt: float, dx, extrap,
+def mac_cormack_native(field: Grid, velocity: Sequence[torch.Tensor], dt: float, dx, extrap,
                 periodic: bool = False, correction_strength: float = 1.0, max_cells: int = 2,
                 substeps: int = 1) -> Grid:
     """MacCormack advection with the monotonicity clamp: a forward pass with
@@ -126,7 +143,7 @@ def mac_cormack(field: Grid, velocity: Sequence[torch.Tensor], dt: float, dx, ex
     _check(field, velocity, max_cells, substeps)
     if substeps != 1:
         for _ in range(substeps):
-            field = mac_cormack(field, velocity, dt / substeps, dx, extrap, periodic, correction_strength,
+            field = mac_cormack_native(field, velocity, dt / substeps, dx, extrap, periodic, correction_strength,
                                 max_cells)
         return field
     fast = _euler_disp_natives(_is_staggered(field), velocity, -dt, dx, periodic)  # backward displacement
@@ -142,10 +159,10 @@ def mac_cormack(field: Grid, velocity: Sequence[torch.Tensor], dt: float, dx, ex
     return combine(field, fwd, bwd, lim_lo, lim_up)
 
 
-def max_displacement_cells(field: Grid, velocity: Sequence[torch.Tensor], dt: float, dx,
+def max_displacement_cells_native(field: Grid, velocity: Sequence[torch.Tensor], dt: float, dx,
                            periodic: bool = False) -> torch.Tensor:
     """The largest backtrace displacement, in cells, that
-    `semi_lagrangian(field, velocity, dt)` looks up: a 0-dim tensor. At most
+    `semi_lagrangian_native(field, velocity, dt)` looks up: a 0-dim tensor. At most
     max_cells certifies that the bounded window is exact."""
     disps, scales = _euler_disp_natives(_is_staggered(field), velocity, -dt, dx, periodic)
     lists = disps if _is_staggered(field) else [disps]
@@ -158,7 +175,7 @@ def _nan_to_0(x: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
 
 
-def finite_rk4(positions: torch.Tensor, velocity: Sequence[torch.Tensor], dt: float, dx) -> torch.Tensor:
+def finite_rk4_native(positions: torch.Tensor, velocity: Sequence[torch.Tensor], dt: float, dx) -> torch.Tensor:
     """4th-order Runge–Kutta end points of `positions` (N, d) in the closed-box
     staggered `velocity`, with non-finite velocity samples taken as zero."""
     def sample(pts):
@@ -171,7 +188,177 @@ def finite_rk4(positions: torch.Tensor, velocity: Sequence[torch.Tensor], dt: fl
     return positions + dt * vel_rk4
 
 
-def points(positions: torch.Tensor, velocity: Sequence[torch.Tensor], dt: float, dx,
-           integrator=finite_rk4) -> torch.Tensor:
+def points_native(positions: torch.Tensor, velocity: Sequence[torch.Tensor], dt: float, dx,
+           integrator=finite_rk4_native) -> torch.Tensor:
     """Lagrangian advection of particle positions (N, d)."""
     return integrator(positions, velocity, dt, dx)
+
+
+# ---------------------------------------------------------------------------
+# the Field layer
+# ---------------------------------------------------------------------------
+
+def _sample_velocity(velocity, field):
+    """The full velocity vector at the sample points of `field`."""
+    return sample(velocity, field.geometry, at=field.sampled_at, boundary=field.boundary)
+
+
+def euler(field, velocity, dt: float, v0=None):
+    """First-order lookup points: field.points + dt·v."""
+    if v0 is None:
+        v0 = _sample_velocity(velocity, field)
+    return field.points + dt * v0
+
+
+def _check_field_step(field, max_cells, substeps, integrator):
+    if substeps == 'auto':
+        raise NotImplementedError("substeps='auto' picks the substep count on the device; it comes with a later "
+                                  "slice of the port (pass a fixed count)")
+    if not field.is_grid:
+        raise NotImplementedError("advection of a non-grid Field (points: `points_native`) comes with a later slice")
+    if max_cells is None:
+        raise NotImplementedError("max_cells=None is the unbounded gather lookup; it comes with a later slice")
+    if integrator is not euler:
+        raise NotImplementedError("integrators other than `euler` come with a later slice of the port")
+
+
+def _field_disp_natives(field, velocity, dt_signed):
+    """`_euler_disp_natives` of the array layer for a staggered velocity
+    Field: (arrays, scales). The velocity lies on the field's grid in the
+    closed box or the periodic box, and a staggered field has its layout;
+    NotImplementedError otherwise."""
+    names = field.resolution.names
+    if velocity.geometry != field.geometry:
+        raise NotImplementedError("advection by a staggered velocity on another grid than the field's comes with "
+                                  "a later slice of the port")
+    layout = _array_layout(velocity, names)
+    if field.is_staggered and _layout(field) != layout:
+        raise NotImplementedError(f"a staggered field of boundary {field.boundary!r} in a velocity of boundary "
+                                  f"{velocity.boundary!r}: one face layout for both is ported")
+    v_ext = [_native_extrap(velocity.boundary[{'vector': d}], names) for d in names]
+    comps = face_components(velocity.values)
+    values = face_components(field.values) if field.is_staggered else (field.values,)
+    if not all(_plain_values(t, names) for t in (*comps, *values)):
+        raise NotImplementedError("advection of values with dims beyond the grid's by a staggered velocity comes "
+                                  "with a later slice of the port")
+    return _euler_disp_natives(field.is_staggered, [c.torch(names) for c in comps], dt_signed, _dx_tuple(field),
+                               layout == 'periodic', v_ext)
+
+
+def _wrap_like(field, arrays):
+    """Result arrays (one per component of a staggered field) as values of `field`'s shape."""
+    names = field.resolution.names
+    if field.is_staggered:
+        return face_values([Tensor(a, c.shape.only(names, reorder=True)) for a, c in
+                            zip(arrays, face_components(field.values))], field.values)
+    return Tensor(arrays, field.values.shape.only(names, reorder=True))
+
+
+def _field_extrap(field):
+    names = field.resolution.names
+    if field.is_staggered:
+        return [_native_extrap(field.boundary[{'vector': d}], names) for d in names]
+    return _native_extrap(field.boundary, names)
+
+
+def _window_values(field, fast, max_cells, extrema=False, negate=False):
+    """`_window_interp_field_native` on the Field's arrays; values of `field`'s
+    shape, or (values, lower, upper) with `extrema`."""
+    names = field.resolution.names
+    arrays = tuple(c.torch(names) for c in face_components(field.values)) if field.is_staggered \
+        else field.values.torch(names)
+    result = _window_interp_field_native(arrays, fast, _field_extrap(field), max_cells, extrema, negate)
+    if extrema:
+        return tuple(_wrap_like(field, r) for r in result)
+    return _wrap_like(field, result)
+
+
+def _window_interp_field(field, displacement, max_cells: int, extrema=False):
+    """Window-interpolate `field` at its own points displaced by
+    `displacement` (world units, a `vector` dim): one array per component,
+    and per entry of a centred field's channel dim."""
+    names = field.resolution.names
+    ext = _field_extrap(field)
+
+    def window(values, disp, extrap):
+        cells = disp / field.dx
+        grid_shape = values.shape.only(names, reorder=True)
+        channels = values.shape.without(names)
+        disps = [cells.vector[n].torch(names).expand(grid_shape.sizes) for n in names]
+        if channels.rank > 1 or (channels and not channels.channel):
+            raise NotImplementedError(f"advection of values {values.shape}: one channel dim at most is ported")
+        parts = [values] if not channels else [values[{channels.name: i}] for i in range(channels.size)]
+        outs = [shift_window_interp(p.torch(names), disps, extrap, max_cells, compute_extrema=extrema)
+                for p in parts]
+        outs = [o if extrema else (o,) for o in outs]
+        result = []
+        for k in range(3 if extrema else 1):
+            pieces = [Tensor(o[k], grid_shape) for o in outs]
+            result.append(pieces[0] if not channels else stack(pieces, channels))
+        return tuple(result) if extrema else result[0]
+
+    if field.is_staggered:
+        results = [window(field.values[{'~vector': d}],
+                          displacement[{'~vector': d}] if '~vector' in displacement.shape else displacement, e)
+                   for d, e in zip(names, ext)]
+        if extrema:
+            return tuple(face_values([r[k] for r in results], field.values) for k in range(3))
+        return face_values(results, field.values)
+    return window(field.values, displacement, ext)
+
+
+def semi_lagrangian(field, velocity, dt: float, integrator=euler, max_cells: int = 2, substeps=1,
+                    max_substeps: int = 4):
+    """Backtrace + interpolate, exact while the CFL number ≤ `max_cells`
+    (larger displacements are clamped); ``substeps=n`` applies n steps of dt/n."""
+    _check_field_step(field, max_cells, substeps, integrator)
+    if substeps > 1:
+        for _ in range(substeps):
+            field = semi_lagrangian(field, velocity, dt / substeps, integrator, max_cells)
+        return field
+    if velocity.is_staggered:
+        return field.with_values(_window_values(field, _field_disp_natives(field, velocity, -dt), max_cells))
+    disp = -dt * _sample_velocity(velocity, field)
+    return field.with_values(_window_interp_field(field, disp, max_cells))
+
+
+def mac_cormack(field, velocity, dt: float, correction_strength=1.0, integrator=euler, max_cells: int = 2,
+                substeps=1, max_substeps: int = 4):
+    """MacCormack advection with the monotonicity clamp: a forward pass with
+    the corner extrema, a backward pass along the negated displacement, the
+    correction and the clip to the forward pass's corner values."""
+    _check_field_step(field, max_cells, substeps, integrator)
+    if substeps != 1:
+        for _ in range(substeps):
+            field = mac_cormack(field, velocity, dt / substeps, correction_strength, integrator, max_cells)
+        return field
+    if velocity.is_staggered:
+        fast = _field_disp_natives(field, velocity, -dt)
+        fwd_vals, lim_lo, lim_up = _window_values(field, fast, max_cells, extrema=True)
+        fwd_adv = field.with_values(fwd_vals)
+        bwd_adv = fwd_adv.with_values(_window_values(fwd_adv, fast, max_cells, negate=True))
+    else:
+        v0 = _sample_velocity(velocity, field)
+        fwd_vals, lim_lo, lim_up = _window_interp_field(field, -dt * v0, max_cells, extrema=True)
+        fwd_adv = field.with_values(fwd_vals)
+        bwd_adv = fwd_adv.with_values(_window_interp_field(fwd_adv, dt * v0, max_cells))
+    new_field = fwd_adv + correction_strength * 0.5 * (field - bwd_adv)
+    if field.is_staggered:
+        names = field.resolution.names
+        comps = [ops.clip(new_field.vector[d].values, lim_lo[{'~vector': d}], lim_up[{'~vector': d}]) for d in names]
+        return field.with_values(stack(comps, dual(vector=names)))
+    return field.with_values(ops.clip(new_field.values, lim_lo, lim_up))
+
+
+def max_displacement_cells(field, velocity, dt, integrator=euler):
+    """The largest backtrace displacement, in cells, that
+    `semi_lagrangian(field, velocity, dt)` looks up: a 0-dim tensor on the
+    velocity's device. At most max_cells certifies that the window is exact."""
+    _check_field_step(field, 1, 1, integrator)
+    if velocity.is_staggered:
+        disps, scales = _field_disp_natives(field, velocity, -dt)
+        lists = disps if field.is_staggered else [disps]
+        return torch.stack([torch.max(torch.abs(arr)) * abs(scales[axis]) for per_axis in lists
+                            for axis, arr in enumerate(per_axis)]).max()
+    cells = (-dt * _sample_velocity(velocity, field)) / field.dx
+    return ops.max_(abs(cells), None).torch()

@@ -2,6 +2,16 @@
 `phiflow_tpu/physics/fluid.py::make_incompressible` (`:164-272`), with
 obstacles (`Obstacle`, `apply_boundary_conditions`) and free surfaces.
 
+`make_incompressible(velocity, obstacles, solve, active)` and
+`apply_boundary_conditions(velocity, obstacles)` take Fields with JAX's
+signatures and unwrap into the array layer's `make_incompressible_native` and
+`apply_boundary_conditions_native` on the raw face components, described
+below. The solve's tolerances, `x0` and `max_iterations` carry through; the
+pressure comes back as a Field, the solve's `SolveInfo` on every active
+`SolveTape`, and `NotConverged` / `Diverged` are raised unless the solve
+suppresses them. The divergence is balanced and the solve's rank deficiency
+handled by the array layer, once.
+
 All cells active, no obstacle: divergence → `_balance_divergence` → CG on the
 Poisson stencil (K1), preconditioned by the multigrid V-cycle (K2–K4) from
 x0 = the previous pressure → subtract the pressure gradient. Closed box or
@@ -37,36 +47,55 @@ import numpy as np
 import torch
 
 from ..field._angular_velocity import angular_velocity_at_faces
-from ..field._field_math import divergence, safe_mul, spatial_gradient, stagger
+from ..field._field import Field, face_components, face_values
+from ..field._field_math import (
+    divergence_native, safe_mul_native, spatial_gradient_native, stagger_native, _array_layout, _isotropic_dx,
+    _normal_walls_at_rest, _plain_values,
+)
 from ..field._resample import cell_grid, geometry_mask, staggered_cells
 from ..geom._box import Box, Cuboid, box_push
-from ..geom._geom import Geometry, union, vec32
+from ..geom._geom import Geometry, host_vec, union, vector_tensor
+from ..math import EMPTY_SHAPE, Tensor, extrapolation
+from ..math._extrapolation import ConstantExtrapolation
 from ..math._multigrid import make_poisson_vcycle
 from ..math._nd import BOUNDARY, PERIODIC as PERIODIC_EXTRAPOLATION, Extrapolation
-from ..math._solve import SolveResult, cg, sub_mean
+from ..math._solve import Solve, SolveResult, cg, check_method, finish_solve, sub_mean
 from ..ops.poisson import NEUMANN, PERIODIC, poisson_apply, stage_masks
 
-__all__ = ['Obstacle', 'make_incompressible', 'apply_boundary_conditions', 'boundary_push', 'MASKED_PRECONDITIONER']
+__all__ = ['Obstacle', 'make_incompressible', 'apply_boundary_conditions', 'make_incompressible_native',
+           'apply_boundary_conditions_native', 'boundary_push_native', 'MASKED_PRECONDITIONER']
 
 MASKED_PRECONDITIONER = 'chebyshev'  # 'chebyshev' | 'vcycle' | None — the masked systems' preconditioner
 
 
 class Obstacle:
-    """Boundary conditions inside a geometry that may move and rotate. Its
-    numbers are float32 on the host: `velocity` a vector, `angular_velocity` a
-    scalar in 2D and a rotation vector in 3D; 0 is at rest in both."""
+    """Boundary conditions inside a geometry that may move and rotate:
+    `velocity` a vector, `angular_velocity` a scalar in 2D and a rotation
+    vector in 3D; 0 is at rest in both. Numbers and sequences are kept as
+    float32 host vectors, Tensors in their own precision; the attributes are
+    host Tensors."""
 
     def __init__(self, geometry: Geometry, velocity=0, angular_velocity=0):
         d = geometry.spatial_rank
         self.geometry = geometry
-        self.velocity = vec32(velocity, d)
-        w = np.asarray(angular_velocity, np.float32)
+        self._velocity, _ = host_vec(velocity, d)
+        w = angular_velocity.numpy() if hasattr(angular_velocity, 'numpy') else angular_velocity
+        w = np.asarray(w, np.float64 if getattr(w, 'dtype', None) == np.float64 else np.float32)
         if d == 3 and w.ndim == 0 and w == 0:
-            w = np.zeros(3, np.float32)
+            w = np.zeros(3, w.dtype)
         if w.shape != (() if d == 2 else (3,)):
             raise ValueError(f"angular_velocity of shape {w.shape} for a {d}D obstacle: a scalar in 2D, "
                              f"a vector of 3 entries in 3D")
-        self.angular_velocity = w
+        self._angular_velocity = w
+
+    @property
+    def velocity(self):
+        return vector_tensor(self._velocity, self.geometry.names)
+
+    @property
+    def angular_velocity(self):
+        w = self._angular_velocity
+        return Tensor(w, EMPTY_SHAPE) if w.ndim == 0 else vector_tensor(w, None)
 
     @property
     def is_stationary(self) -> bool:
@@ -74,14 +103,17 @@ class Obstacle:
 
     @property
     def is_rotating(self) -> bool:
-        return bool(np.any(self.angular_velocity != 0))
+        return bool(np.any(self._angular_velocity != 0))
 
     @property
     def is_moving(self) -> bool:
-        return bool(np.any(self.velocity != 0))
+        return bool(np.any(self._velocity != 0))
 
     def with_geometry(self, geometry: Geometry) -> 'Obstacle':
-        return Obstacle(geometry, self.velocity, self.angular_velocity)
+        obstacle = Obstacle.__new__(Obstacle)
+        obstacle.geometry, obstacle._velocity, obstacle._angular_velocity = \
+            geometry, self._velocity, self._angular_velocity
+        return obstacle
 
     def shifted(self, delta) -> 'Obstacle':
         return self.with_geometry(self.geometry.shifted(delta))
@@ -122,7 +154,7 @@ def _resolution(velocity: Sequence[torch.Tensor], periodic: bool) -> Tuple[int, 
     return tuple(n + (1 if a == 0 and not periodic else 0) for a, n in enumerate(velocity[0].shape))
 
 
-def apply_boundary_conditions(velocity: Sequence[torch.Tensor], obstacles, dx,
+def apply_boundary_conditions_native(velocity: Sequence[torch.Tensor], obstacles, dx,
                               periodic: bool = False) -> Tuple[torch.Tensor, ...]:
     """Blend the obstacles' velocities into the staggered `velocity`: on the
     share of each face that an obstacle covers (the soft mask with
@@ -135,14 +167,14 @@ def apply_boundary_conditions(velocity: Sequence[torch.Tensor], obstacles, dx,
     for obstacle in obstacles:
         obs_mask = geometry_mask(obstacle.geometry, faces, soft=True, balance=1)
         if obstacle.is_stationary:
-            velocity = tuple(safe_mul(1 - m, v) for m, v in zip(obs_mask, velocity))
+            velocity = tuple(safe_mul_native(1 - m, v) for m, v in zip(obs_mask, velocity))
             continue
         if obstacle.is_rotating:
-            angular = angular_velocity_at_faces(faces, obstacle.geometry.center, obstacle.angular_velocity)
+            angular = angular_velocity_at_faces(faces, obstacle.geometry._center, obstacle._angular_velocity)
         else:
             angular = tuple(v * 0 for v in velocity)
-        velocity = tuple(safe_mul(1 - m, v) + safe_mul(m, (w + float(u)).expand(m.shape))
-                         for m, v, w, u in zip(obs_mask, velocity, angular, obstacle.velocity))
+        velocity = tuple(safe_mul_native(1 - m, v) + safe_mul_native(m, (w + float(u)).expand(m.shape))
+                         for m, v, w, u in zip(obs_mask, velocity, angular, obstacle._velocity))
     return velocity
 
 
@@ -302,13 +334,13 @@ def _project_masked(velocity, div, pressure, active, hard_bcs, singular, dx, inv
 
     result = cg(A, rhs, x0, rel_tol, abs_tol, max_iterations, M)
     p = sub_mean(result.x) if singular else result.x
-    grad = spatial_gradient(p, dx, periodic)
+    grad = spatial_gradient_native(p, dx, periodic)
     if hard_bcs is not None:
         grad = tuple(g * m for g, m in zip(grad, hard_bcs))
     return tuple(v - g for v, g in zip(velocity, grad)), p, result._replace(x=p)
 
 
-def make_incompressible(velocity: Sequence[torch.Tensor], pressure: Optional[torch.Tensor], dx: float,
+def make_incompressible_native(velocity: Sequence[torch.Tensor], pressure: Optional[torch.Tensor], dx: float,
                         rel_tol: float = 1e-5, abs_tol: float = 1e-5, max_iterations: int = 1000,
                         periodic: bool = False, active: Optional[torch.Tensor] = None, obstacles=()
                         ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor, SolveResult]:
@@ -333,10 +365,10 @@ def make_incompressible(velocity: Sequence[torch.Tensor], pressure: Optional[tor
         cells = cell_grid(resolution, dx, velocity[0].device)
         accessible = geometry_mask(~union([o.geometry for o in obstacles]), cells).contiguous()
         v_extrap = PERIODIC_EXTRAPOLATION if periodic else 0.0
-        hard_bcs = stagger(accessible, torch.minimum, _accessible_extrapolation(v_extrap), periodic)
+        hard_bcs = stagger_native(accessible, torch.minimum, _accessible_extrapolation(v_extrap), periodic)
         active = accessible if active is None else active * accessible
-        velocity = apply_boundary_conditions(velocity, obstacles, dx, periodic)
-    div = divergence(velocity, dx, periodic)
+        velocity = apply_boundary_conditions_native(velocity, obstacles, dx, periodic)
+    div = divergence_native(velocity, dx, periodic)
     if active is not None:
         # JAX's order: the product first (0 · NaN is NaN), then, for a caller's active cells, non-finite entries to 0
         div = div * active
@@ -353,12 +385,12 @@ def make_incompressible(velocity: Sequence[torch.Tensor], pressure: Optional[tor
 
     result = cg(A, rhs, x0, rel_tol, abs_tol, max_iterations, M)
     p = sub_mean(result.x)
-    grad = spatial_gradient(p, dx, periodic)
+    grad = spatial_gradient_native(p, dx, periodic)
     velocity = tuple(v - g for v, g in zip(velocity, grad))
     return velocity, p, result._replace(x=p)
 
 
-def boundary_push(positions: torch.Tensor, domain_size: Sequence[float], separation: float = 0.5,
+def boundary_push_native(positions: torch.Tensor, domain_size: Sequence[float], separation: float = 0.5,
                   obstacles=()) -> torch.Tensor:
     """Push particles out of the box obstacles (`Box`, `Cuboid`, or
     `Obstacle`s of them; the box's axes, as the JAX package pushes), then pull
@@ -369,6 +401,98 @@ def boundary_push(positions: torch.Tensor, domain_size: Sequence[float], separat
         geometry = obj.geometry if isinstance(obj, Obstacle) else obj
         if not isinstance(geometry, (Box, Cuboid)):
             raise NotImplementedError(f"boundary_push: {type(geometry).__name__} has no exact push; only boxes are ported")
-        positions = box_push(positions, geometry.lower, geometry.upper, outward=True, shift_amount=separation)
+        positions = box_push(positions, np.asarray(geometry.lower), np.asarray(geometry.upper), outward=True,
+                             shift_amount=separation)
     return box_push(positions, (0.0,) * len(domain_size), tuple(domain_size), outward=False,
                     shift_amount=separation)
+
+
+# ---------------------------------------------------------------------------
+# the Field layer
+# ---------------------------------------------------------------------------
+
+def _box_of(velocity) -> Tuple[bool, float]:
+    """(periodic, dx) of a staggered velocity Field the array layer covers:
+    a closed box with walls at rest across them or a periodic box, one cell
+    size."""
+    if not (velocity.is_grid and velocity.is_staggered):
+        raise NotImplementedError("the projection of a centred or non-grid velocity comes with a later slice")
+    names = velocity.resolution.names
+    layout = _array_layout(velocity, names)
+    if layout == 'closed' and not _normal_walls_at_rest(velocity):
+        raise NotImplementedError(f"velocity boundary {velocity.boundary!r}: walls with a normal velocity come "
+                                  f"with a later slice of the port")
+    dx = _isotropic_dx(velocity)
+    if dx is None:
+        raise NotImplementedError("cells of different sizes along the axes come with a later slice")
+    if not all(_plain_values(c, names) for c in face_components(velocity.values)):
+        raise NotImplementedError(f"velocity values {velocity.values.shape}: grid dims only are ported")
+    return layout == 'periodic', dx
+
+
+def _faces(velocity):
+    return face_components(velocity.values)
+
+
+def _pressure_extrapolation(vext):
+    """The pressure's boundary from the velocity's."""
+    if vext == extrapolation.PERIODIC:
+        return extrapolation.PERIODIC
+    if vext == extrapolation.BOUNDARY:
+        return extrapolation.ZERO
+    if isinstance(vext, ConstantExtrapolation):
+        return extrapolation.BOUNDARY
+    return extrapolation.map(_pressure_extrapolation, vext)
+
+
+def _component_values(velocity, arrays):
+    names = velocity.resolution.names
+    return face_values([Tensor(a, c.shape.only(names, reorder=True))
+                        for a, c in zip(arrays, face_components(velocity.values))], velocity.values)
+
+
+def make_incompressible(velocity, obstacles=(), solve: Solve = Solve(), active=None, order: int = 2,
+                        correct_skew=False, wide_stencil: bool = None):
+    """Project the staggered velocity Field onto its divergence-free part.
+    Returns (velocity, pressure) as Fields; the pressure is the solve's x0's
+    Field (boundary and grid) with the solution, or a new Field under the
+    pressure boundary derived from the velocity's. `correct_skew` is taken
+    and unused, as in the JAX package; a true `wide_stencil` raises."""
+    if order != 2:
+        raise NotImplementedError("the projection of order 2 only comes with this slice of the port")
+    if wide_stencil:
+        raise NotImplementedError("the wide-stencil Laplacian (the divergence of centred gradients) comes with a "
+                                  "later slice of the port: the projection solves the compact stencil")
+    periodic, dx = _box_of(velocity)
+    solve = solve.with_defaults('solve')
+    check_method(solve)
+    if callable(solve.preconditioner):
+        raise NotImplementedError("a caller's preconditioner for the projection comes with a later slice")
+    names = velocity.resolution.names
+    x0 = solve.x0
+    pressure0 = None
+    if x0 is not None:
+        x0_values = x0.values if isinstance(x0, Field) else x0
+        pressure0 = x0_values.torch(names).contiguous()
+    active_native = None
+    if active is not None:
+        active_native = (active.values if isinstance(active, Field) else active).torch(names).contiguous()
+    comps = [c.torch(names) for c in _faces(velocity)]
+    v, p, result = make_incompressible_native(comps, pressure0, dx, solve.rel_tol, solve.abs_tol,
+                                              solve.max_iterations, periodic, active_native, obstacles)
+    if isinstance(x0, Field):
+        pressure = x0.with_values(Tensor(p, x0.values.shape.only(names, reorder=True)))
+    else:
+        pressure = Field(velocity.geometry, Tensor(p, velocity.resolution), _pressure_extrapolation(velocity.boundary))
+    finish_solve(solve, pressure, result)
+    return velocity.with_values(_component_values(velocity, v)), pressure
+
+
+def apply_boundary_conditions(velocity, obstacles):
+    """Blend the obstacles' velocities into the staggered velocity Field
+    (`apply_boundary_conditions_native` on its components)."""
+    periodic, dx = _box_of(velocity)
+    names = velocity.resolution.names
+    comps = apply_boundary_conditions_native([c.torch(names) for c in _faces(velocity)], obstacles, dx,
+                                             periodic)
+    return velocity.with_values(_component_values(velocity, comps))

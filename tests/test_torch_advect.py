@@ -75,8 +75,8 @@ def test_advection_matches_jax(dims, periodic, max_cells, substeps, cfl):
     kw = dict(max_cells=max_cells, substeps=substeps)
     with warnings.catch_warnings():
         warnings.simplefilter('ignore', RuntimeWarning)  # JAX warns where the window clamps
-        for jfn, tfn in ((jadvect.semi_lagrangian, advect.semi_lagrangian),
-                         (jadvect.mac_cormack, advect.mac_cormack)):
+        for jfn, tfn in ((jadvect.semi_lagrangian, advect.semi_lagrangian_native),
+                         (jadvect.mac_cormack, advect.mac_cormack_native)):
             _assert_close(tfn(ts, tv, DT, DX, s_ext, periodic, **kw), jfn(js, jv, DT, **kw), names, False)
             _assert_close(tfn(tv, tv, DT, DX, v_ext, periodic, **kw), jfn(jv, jv, DT, **kw), names, True)
 
@@ -88,7 +88,7 @@ def test_max_displacement_cells_matches_jax(dims, periodic):
     tv = tuple(torch.from_numpy(a) for a in vel)
     for tfield, jfield in ((torch.from_numpy(smoke), js), (tv, jv)):
         ref = float(jadvect.max_displacement_cells(jfield, jv, DT))
-        got = float(advect.max_displacement_cells(tfield, tv, DT, DX, periodic))
+        got = float(advect.max_displacement_cells_native(tfield, tv, DT, DX, periodic))
         assert abs(got - ref) < TOL
         assert 0.5 < got <= 1.3 + TOL
 
@@ -97,8 +97,8 @@ def test_refused_options():
     v = (torch.zeros(7, 8), torch.zeros(8, 7))
     s = torch.zeros(8, 8)
     with pytest.raises(NotImplementedError, match='slice'):
-        advect.semi_lagrangian(s, v, DT, 1.0, BOUNDARY, max_cells=None)
+        advect.semi_lagrangian_native(s, v, DT, 1.0, BOUNDARY, max_cells=None)
     with pytest.raises(NotImplementedError, match='slice'):
-        advect.mac_cormack(s, v, DT, 1.0, BOUNDARY, substeps='auto')
+        advect.mac_cormack_native(s, v, DT, 1.0, BOUNDARY, substeps='auto')
     with pytest.raises(NotImplementedError, match='slice'):
-        advect.semi_lagrangian(torch.zeros(2, 8, 8), v, DT, 1.0, BOUNDARY)
+        advect.semi_lagrangian_native(torch.zeros(2, 8, 8), v, DT, 1.0, BOUNDARY)

@@ -18,7 +18,7 @@ from phiflow_tpu.models import FlipLiquid as JaxFlip
 from phiflow_tpu.ops import p2g as jax_p2g
 from phiflow_tpu.physics import advect as jax_advect, fluid as jax_fluid
 
-from phiflow_tpu_torch.field import distribute_points, finite_fill, scatter_to_grid
+from phiflow_tpu_torch.field import distribute_points_native, finite_fill_native, scatter_to_grid
 from phiflow_tpu_torch.field._resample import sample_staggered_at_points
 from phiflow_tpu_torch.geom import box_push
 from phiflow_tpu_torch.models import FlipLiquid
@@ -70,10 +70,10 @@ def test_distribute_points_matches_jax_exactly(case):
     box = Box(wrap(list(case['lower']), channel(vector=','.join(names))),
               wrap(list(case['upper']), channel(vector=','.join(names))))
     ref = _jax_positions(jax_distribute_points(box, points_per_cell=case['ppc'], **dict(zip(names, case['res']))))
-    got = distribute_points(case['lower'], case['upper'], case['res'], points_per_cell=case['ppc'])
+    got = distribute_points_native(case['lower'], case['upper'], case['res'], points_per_cell=case['ppc'])
     assert got.dtype == np.float32 and got.shape == ref.shape and got.shape[0] > 0
     assert np.array_equal(got, ref)
-    other = distribute_points(case['lower'], case['upper'], case['res'], points_per_cell=case['ppc'], seed=1)
+    other = distribute_points_native(case['lower'], case['upper'], case['res'], points_per_cell=case['ppc'], seed=1)
     assert not np.array_equal(other, got)
 
 
@@ -100,7 +100,7 @@ def test_staggered_scatter_and_finite_fill_match_jax(scattered):
     1e-6. The occupancy grid (base 0, particles outside dropped) exactly."""
     R, pos, vel = scattered['R'], torch.from_numpy(scattered['pos']), torch.from_numpy(scattered['vel'])
     raw = scatter_to_grid(pos, vel, (R,) * 3, 1.0, outside_handling='clamp', base=float('nan'))
-    filled = [finite_fill(c) for c in raw]
+    filled = [finite_fill_native(c) for c in raw]
     for got, ref in ((raw, scattered['jax_raw']), (filled, scattered['jax_filled'])):
         for d, r in enumerate(_jax_components(ref, 3)):
             g = got[d].numpy()
@@ -117,10 +117,10 @@ def test_staggered_scatter_and_finite_fill_match_jax(scattered):
 def test_finite_fill_two_cells_deep_matches_jax(scattered):
     ref = _jax_components(jax_finite_fill(scattered['jax_raw'], distance=2), 3)
     for d, r in enumerate(_jax_components(scattered['jax_raw'], 3)):
-        got = finite_fill(torch.from_numpy(r), distance=2).numpy()
+        got = finite_fill_native(torch.from_numpy(r), distance=2).numpy()
         assert np.array_equal(np.isnan(got), np.isnan(ref[d]))
         assert float(np.nanmax(np.abs(got - ref[d]))) <= 1e-6
-        assert np.isnan(got).sum() < np.isnan(finite_fill(torch.from_numpy(r)).numpy()).sum()
+        assert np.isnan(got).sum() < np.isnan(finite_fill_native(torch.from_numpy(r)).numpy()).sum()
 
 
 def test_sample_at_points_matches_jax(scattered):
@@ -142,7 +142,7 @@ def test_finite_rk4_matches_jax(scattered):
     ref = np.asarray(jax_advect.finite_rk4(scattered['particles'], scattered['jax_filled'], dt)
                      .native(('points', 'vector')))
     grid = [torch.from_numpy(c) for c in _jax_components(scattered['jax_filled'], 3)]
-    got = advect.finite_rk4(torch.from_numpy(scattered['pos']), grid, dt, 1.0).numpy()
+    got = advect.finite_rk4_native(torch.from_numpy(scattered['pos']), grid, dt, 1.0).numpy()
     assert np.isfinite(got).all()
     assert float(np.abs(got - ref).max()) <= 2e-6
     assert float(np.abs(got - scattered['pos']).max()) > 0.05  # the particles did move
@@ -163,7 +163,7 @@ def test_box_push_matches_jax(dims):
     moved = got_in[~was_inside]                                                         # to 0.5 inside the wall
     assert (np.minimum(np.abs(moved - 0.5), np.abs(moved - (np.broadcast_to(size, pos.shape)[~was_inside] - 0.5)))
             <= 1e-5).all()
-    assert np.array_equal(fluid.boundary_push(torch.from_numpy(pos), size).numpy(), ref_in)
+    assert np.array_equal(fluid.boundary_push_native(torch.from_numpy(pos), size).numpy(), ref_in)
     ref_out = np.asarray(box.push(_points_tensor(pos, names), shift_amount=0.25).native(('points', 'vector')))
     got_out = box_push(torch.from_numpy(pos), (0.0,) * dims, size, outward=True, shift_amount=0.25).numpy()
     assert float(np.abs(got_out - ref_out).max()) <= 1e-6
@@ -208,15 +208,15 @@ def test_active_projection_matches_jax(scattered):
         solve=jmath.Solve('CG', 1e-5, 0., max_iterations=500, suppress=(jmath.ConvergenceException,)))
     grid = [torch.from_numpy(c) for c in _jax_components(forced, 3)]
     occupied = torch.from_numpy(np.array(scattered['jax_occupied'].values.native(ORDER)))
-    v, p, result = fluid.make_incompressible(grid, None, 1.0, rel_tol=1e-5, abs_tol=0., max_iterations=500,
+    v, p, result = fluid.make_incompressible_native(grid, None, 1.0, rel_tol=1e-5, abs_tol=0., max_iterations=500,
                                              active=occupied)
     assert result.converged and 0 < result.iterations < 100
     assert float(np.abs(p.numpy() - np.asarray(ref_p.values.native(ORDER))).max()) <= 1e-4
     for d, r in enumerate(_jax_components(ref_v, 3)):
         assert np.array_equal(np.isnan(v[d].numpy()), np.isnan(r))
         assert float(np.nanmax(np.abs(v[d].numpy() - r))) <= 1e-4
-    from phiflow_tpu_torch.field import divergence
-    div = torch.nan_to_num(divergence(v, 1.0) * occupied, nan=0.0)
+    from phiflow_tpu_torch.field import divergence_native
+    div = torch.nan_to_num(divergence_native(v, 1.0) * occupied, nan=0.0)
     assert float(div.abs().max()) < 1e-4
     assert float(p[occupied == 0].abs().max()) < 1e-6  # identity rows: p = 0 outside the liquid
 

@@ -16,9 +16,9 @@ from phiflow_tpu.math import _ops as jops
 from phiflow_tpu.math import extrapolation, vec
 from phiflow_tpu.physics.fluid import _accessible_extrapolation as jax_accessible_extrapolation
 
-from phiflow_tpu_torch.field import (angular_velocity_at_faces, cell_grid, geometry_mask, safe_mul, stagger,
+from phiflow_tpu_torch.field import (angular_velocity_at_faces, cell_grid, geometry_mask, safe_mul_native, stagger_native,
                                      staggered_cells)
-from phiflow_tpu_torch.geom import Box, Cuboid, Sphere, UniformGrid, rotation_matrix, union
+from phiflow_tpu_torch.geom import Box, Cuboid, Sphere, UniformGrid_native, rotation_matrix, union
 from phiflow_tpu_torch.math import PERIODIC
 from phiflow_tpu_torch.physics.fluid import _accessible_extrapolation
 
@@ -135,7 +135,7 @@ def test_face_grids_have_jax_bounds_and_radius():
     (which the soft mask divides by) are the JAX package's numbers exactly."""
     res, size = (24, 16, 20), (36., 16., 25.)
     centred, _ = _jax_grids(res, size, False)
-    cells = UniformGrid(res, (0., 0., 0.), size, 'cpu')
+    cells = UniformGrid_native(res, (0., 0., 0.), size, 'cpu')
     for axis, name in enumerate(ORDER):
         for lower, upper in ((False, False), (True, False), (True, True)):
             ref = centred.geometry.stagger(name, lower, upper)
@@ -217,7 +217,7 @@ def test_stagger_minimum_matches_jax(dims, periodic):
     ref = jax_stagger(accessible, jops.minimum, staggered.boundary, at='face', dims=staggered.resolution.names)
     mask = geometry_mask(~geom, cell_grid(res, 1.0, 'cpu'))
     assert np.array_equal(mask.numpy(), np.asarray(accessible.values.native(names)))
-    got = stagger(mask, torch.minimum, _accessible_extrapolation(PERIODIC if periodic else 0.0), periodic)
+    got = stagger_native(mask, torch.minimum, _accessible_extrapolation(PERIODIC if periodic else 0.0), periodic)
     for g, r in zip(got, _components(ref)):
         assert np.array_equal(g.numpy(), r)
         assert 0 < g.sum() < g.numel()
@@ -242,7 +242,7 @@ def test_safe_mul_with_nan_matches_jax():
     b[3, 3] = np.nan
     shape = jmath.spatial(x=6, y=7)
     ref = np.asarray(jax_safe_mul(jmath.tensor(a, shape), jmath.tensor(b, shape)).native(('x', 'y')))
-    got = safe_mul(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    got = safe_mul_native(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     assert np.array_equal(np.isnan(got), np.isnan(ref))
     assert np.isnan(got).sum() == 1 and (got[:3, :3] == 0).all()
     assert np.array_equal(np.nan_to_num(got), np.nan_to_num(ref))

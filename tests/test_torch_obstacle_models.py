@@ -1,5 +1,5 @@
 """The port's 2D obstacle models (`models/moving_obstacle.py`, `models/cavity.py`)
-and the pieces only they use (`PerSide`, `diffuse.explicit`) against the JAX
+and the pieces only they use (`PerSide`, `diffuse.explicit_native`) against the JAX
 package on the CPU, and the obstacle inputs of `tests/golden/golden.npz`
 through both packages in float32. State crosses between the packages as numpy
 arrays and the obstacles' plain numbers."""
@@ -17,8 +17,8 @@ from phiflow_tpu.math import ConvergenceException, Solve, Tensor, dual, extrapol
 from phiflow_tpu.models import LidDrivenCavity as JaxCavity, MovingObstacles as JaxMovingObstacles
 from phiflow_tpu.physics import advect as jax_advect, diffuse as jax_diffuse, fluid as jax_fluid
 
-from phiflow_tpu_torch.field import divergence, geometry_mask, cell_grid
-from phiflow_tpu_torch.geom import Sphere, UniformGrid, union
+from phiflow_tpu_torch.field import divergence_native, geometry_mask, cell_grid
+from phiflow_tpu_torch.geom import Sphere, UniformGrid_native, union
 from phiflow_tpu_torch.math import PerSide
 from phiflow_tpu_torch.math._nd import pad
 from phiflow_tpu_torch.models import LidDrivenCavity, MovingObstacles, cavity, moving_obstacle
@@ -93,7 +93,7 @@ def test_moving_obstacles_projection_is_divergence_free_outside(moving_trajector
     """The JAX suite's check: velocities are O(5), the masked CG runs at rel_tol 1e-4."""
     model, states, _ = moving_trajectory
     v, p, o1, o2 = states[-1][1]
-    div = divergence(v, model._dx, periodic=True)
+    div = divergence_native(v, model._dx, periodic=True)
     hard = geometry_mask(union(o1.geometry, o2.geometry), cell_grid((64, 64), model._dx, 'cpu'))
     assert float((div.abs() * (1 - hard)).max()) < 2e-2
     assert 0 < hard.sum() < hard.numel()
@@ -134,7 +134,7 @@ def test_moving_obstacles_state_round_trip_and_default_device(monkeypatch):
     with pytest.raises(RuntimeError, match='CUDA'):
         cell_grid((16, 16), 1.0)
     with pytest.raises(RuntimeError, match='CUDA'):
-        UniformGrid((16, 16), (0., 0.), (16., 16.))
+        UniformGrid_native((16, 16), (0., 0.), (16., 16.))
     assert cell_grid((16, 16), 1.0, 'cpu').center[0].device.type == 'cpu'
 
 
@@ -197,8 +197,8 @@ def test_semi_lagrangian_under_the_lid_matches_jax():
     comps, jv, boundary = _lid_velocity(24, seed=1)
     ref = _components(jax_advect.semi_lagrangian(jv, jv, 0.5))
     v = [torch.from_numpy(c) for c in comps]
-    got = advect.semi_lagrangian(v, v, 0.5, 1.0, boundary, velocity_extrap=boundary)
-    plain = advect.semi_lagrangian(v, v, 0.5, 1.0, 0.0)
+    got = advect.semi_lagrangian_native(v, v, 0.5, 1.0, boundary, velocity_extrap=boundary)
+    plain = advect.semi_lagrangian_native(v, v, 0.5, 1.0, 0.0)
     for g, r in zip(got, ref):
         assert float(np.abs(g.numpy() - r).max()) <= 1e-5
     assert float((got[0] - plain[0]).abs().max()) > 1e-2  # the lid is felt
@@ -209,7 +209,7 @@ def test_explicit_diffusion_matches_jax(substeps):
     """u + ν·dt·Δu per component under its own boundary: within 1e-6."""
     comps, jv, boundary = _lid_velocity(24, seed=2)
     ref = _components(jax_diffuse.explicit(jv, 0.1, 0.5, substeps=substeps))
-    got = diffuse.explicit([torch.from_numpy(c) for c in comps], 0.1, 0.5, 1.0, boundary, substeps=substeps)
+    got = diffuse.explicit_native([torch.from_numpy(c) for c in comps], 0.1, 0.5, 1.0, boundary, substeps=substeps)
     for g, r, c in zip(got, ref, comps):
         assert float(np.abs(g.numpy() - r).max()) <= 1e-6
         assert float(np.abs(g.numpy() - c).max()) > 0.05
@@ -238,7 +238,7 @@ def test_golden_obstacle_projection_inputs_match_jax():
     jv = _golden_staggered(data['obs_ux0'], data['obs_uy0'], n)
     jv2, jp = jax_fluid.make_incompressible(jv, [JSphere(x=centre[0], y=centre[1], radius=radius)], _solve())
     v = [torch.from_numpy(np.asarray(data[k], np.float32)) for k in ('obs_ux0', 'obs_uy0')]
-    v2, p, result = fluid.make_incompressible(v, None, 1.0 / n, rel_tol=1e-5, abs_tol=0., max_iterations=2000,
+    v2, p, result = fluid.make_incompressible_native(v, None, 1.0 / n, rel_tol=1e-5, abs_tol=0., max_iterations=2000,
                                               obstacles=[Sphere(centre, radius)])
     assert result.converged
     for got, ref, stored in zip(v2, _components(jv2), (data['obs_ux'], data['obs_uy'])):
@@ -261,7 +261,7 @@ def test_golden_moving_obstacle_projection_inputs_match_jax():
         jobs = jax_fluid.Obstacle(JSphere(vec(x=c[0], y=c[1]), radius=radius), velocity=vec(x=vel[0], y=vel[1]),
                                   angular_velocity=omega)
         jv, _ = jax_fluid.make_incompressible(jv, [jobs], _solve())
-        v, _, result = fluid.make_incompressible(v, None, 1.0 / n, rel_tol=1e-5, abs_tol=0., max_iterations=2000,
+        v, _, result = fluid.make_incompressible_native(v, None, 1.0 / n, rel_tol=1e-5, abs_tol=0., max_iterations=2000,
                                                  obstacles=[Obstacle(Sphere(c, radius), velocity=vel, angular_velocity=omega)])
         assert result.converged
     for got, ref, stored in zip(v, _components(jv), (data['mv_ux'], data['mv_uy'])):

@@ -16,7 +16,7 @@ from phiflow_tpu.math import _ops as jops
 from phiflow_tpu.ops import poisson as jax_poisson
 from phiflow_tpu.physics import fluid as jax_fluid
 
-from phiflow_tpu_torch.field import cell_grid, divergence, geometry_mask, stagger
+from phiflow_tpu_torch.field import cell_grid, divergence_native, geometry_mask, stagger_native
 from phiflow_tpu_torch.geom import Box, Cuboid, Sphere, union
 from phiflow_tpu_torch.models import LidDrivenCavity
 from phiflow_tpu_torch.ops import poisson
@@ -107,7 +107,7 @@ def test_apply_boundary_conditions_matches_jax(dims, periodic, kind):
     comps = _random_velocity(N, dims, periodic)
     obs, jobs = _obstacles(N, dims, kind)
     ref = _components(jax_fluid.apply_boundary_conditions(_jax_staggered(comps, periodic), jobs))
-    got = fluid.apply_boundary_conditions([torch.from_numpy(c) for c in comps], obs, 1.0, periodic)
+    got = fluid.apply_boundary_conditions_native([torch.from_numpy(c) for c in comps], obs, 1.0, periodic)
     for g, r, c in zip(got, ref, comps):
         assert g.shape == r.shape
         assert float(np.abs(g.numpy() - r).max()) <= 1e-6
@@ -123,7 +123,7 @@ def test_apply_boundary_conditions_keeps_nan_outside_obstacles():
     comps[0][1, 14] = np.nan  # outside every obstacle
     obs, jobs = _obstacles(N, 2, 'stationary')
     ref = _components(jax_fluid.apply_boundary_conditions(_jax_staggered(comps, False), jobs))
-    got = fluid.apply_boundary_conditions([torch.from_numpy(c) for c in comps], obs, 1.0)
+    got = fluid.apply_boundary_conditions_native([torch.from_numpy(c) for c in comps], obs, 1.0)
     assert np.array_equal(np.isnan(got[0].numpy()), np.isnan(ref[0]))
     assert got[0][7, 8] == 0 and bool(torch.isnan(got[0][1, 14]))
 
@@ -154,7 +154,7 @@ def test_staged_coefficients_match_jax(dims, periodic):
     ref_mA, ref_c0 = jax_poisson.stage_masks(ref_full, bc, inv_dx2)
 
     accessible = geometry_mask(~union([fluid._get_obstacles_for(obs)[i].geometry for i in range(2)]), cell_grid((N,) * dims, 1.0, 'cpu'))
-    full = fluid._full_face_masks(stagger(accessible, torch.minimum, fluid._accessible_extrapolation(
+    full = fluid._full_face_masks(stagger_native(accessible, torch.minimum, fluid._accessible_extrapolation(
         'periodic' if periodic else 0.0), periodic), periodic)
     mA, c0 = poisson.stage_masks(full, fluid._classify_pressure_bc(periodic, dims), inv_dx2)
     for g, r in zip(full, ref_full):
@@ -183,7 +183,7 @@ def test_masked_diagonal_with_obstacles_matches_jax(dims, periodic):
 
     bcs = fluid._classify_pressure_bc(periodic, dims)
     accessible = geometry_mask(~union([o.geometry for o in fluid._get_obstacles_for(obs)]), cell_grid((N,) * dims, 1.0, 'cpu'))
-    full = fluid._full_face_masks(stagger(accessible, torch.minimum, 'periodic' if periodic else 0.0, periodic), periodic)
+    full = fluid._full_face_masks(stagger_native(accessible, torch.minimum, 'periodic' if periodic else 0.0, periodic), periodic)
     mA, c0 = poisson.stage_masks(full, bcs, (1.0,) * dims)
     apply_A = lambda p: poisson.poisson_apply(p, (1.0,) * dims, bcs, mA_list=mA, c0=c0, active=accessible)
     diag = fluid._masked_diagonal(apply_A, accessible, bcs).numpy()
@@ -220,7 +220,7 @@ def _project_both(comps, periodic, obs, jobs, preconditioner='chebyshev', active
                 v2, p2 = jax_fluid.make_incompressible(v, jobs, solve, active=jactive)
             return v2, p2, tape.solve_infos[-1].iterations
         jv2, jp, jit = jax.jit(project)(jv)
-        v2, p, result = fluid.make_incompressible(
+        v2, p, result = fluid.make_incompressible_native(
             [torch.from_numpy(c) for c in comps], x0, 1.0, rel_tol=tol, abs_tol=0., max_iterations=2000,
             periodic=periodic, obstacles=obs, active=None if active is None else torch.from_numpy(active))
     finally:
@@ -251,7 +251,7 @@ def test_make_incompressible_with_obstacles_matches_jax(dims, N, periodic, kind)
     # what the projection is for: outside the obstacles the divergence is the constant that balancing leaves
     v, _, _ = got
     accessible = geometry_mask(~union([o.geometry for o in fluid._get_obstacles_for(obs)]), cell_grid((N,) * dims, 1.0, 'cpu'))
-    div = divergence(v, 1.0, periodic) * accessible
+    div = divergence_native(v, 1.0, periodic) * accessible
     mean_active = div.sum() / accessible.sum()
     assert float(((div - mean_active) * accessible).abs().max()) < 1e-3
 
@@ -295,7 +295,7 @@ def test_make_incompressible_with_obstacles_and_active_matches_jax(dims, N):
 def test_unknown_masked_preconditioner_raises(monkeypatch):
     monkeypatch.setattr(fluid, 'MASKED_PRECONDITIONER', 'ilu')
     with pytest.raises(ValueError, match='MASKED_PRECONDITIONER'):
-        fluid.make_incompressible([torch.zeros(7, 8), torch.zeros(8, 7)], None, 1.0, obstacles=[Sphere((4., 4.), 2.)])
+        fluid.make_incompressible_native([torch.zeros(7, 8), torch.zeros(8, 7)], None, 1.0, obstacles=[Sphere((4., 4.), 2.)])
 
 
 # --- analogues of the JAX suite's obstacle tests -----------------------------
@@ -303,7 +303,7 @@ def test_unknown_masked_preconditioner_raises(monkeypatch):
 def test_moving_obstacle_imposes_its_velocity():
     v = [torch.zeros(23, 24), torch.zeros(24, 23)]
     obs = Obstacle(Cuboid((12., 12.), (3., 3.)), velocity=(1., 0.))
-    v2, _, _ = fluid.make_incompressible(v, None, 1.0, 1e-5, 1e-5, obstacles=[obs])
+    v2, _, _ = fluid.make_incompressible_native(v, None, 1.0, 1e-5, 1e-5, obstacles=[obs])
     assert abs(float(v2[0][11, 12]) - 1.0) < 0.5   # the x face at (12, 12.5), inside the cuboid
 
 
@@ -311,7 +311,7 @@ def test_rotating_obstacle_imposes_a_tangential_field():
     """v = ω × r: above the fan's centre the x-velocity is negative, below positive."""
     v = [torch.zeros(23, 24), torch.zeros(24, 23)]
     fan = Obstacle(Sphere((12., 12.), 5.), angular_velocity=1.0)
-    v2, _, result = fluid.make_incompressible(v, None, 1.0, 1e-4, 1e-4, obstacles=[fan])
+    v2, _, result = fluid.make_incompressible_native(v, None, 1.0, 1e-4, 1e-4, obstacles=[fan])
     assert result.converged
     assert float(v2[0][11, 15]) < -1.0 and float(v2[0][11, 9]) > 1.0
 
@@ -329,12 +329,12 @@ def test_boundary_push_with_box_obstacles_matches_jax():
     from phiflow_tpu.field import PointCloud
     ref = jax_fluid.boundary_push(PointCloud(jpos), [jbox, jax_fluid.Obstacle(jcub), ~domain], separation=0.5)
     ref = np.asarray(ref.geometry.center.native(('points', 'vector')))
-    got = fluid.boundary_push(torch.from_numpy(pos), (16., 16., 16.), 0.5, obstacles=[box, Obstacle(cub)]).numpy()
+    got = fluid.boundary_push_native(torch.from_numpy(pos), (16., 16., 16.), 0.5, obstacles=[box, Obstacle(cub)]).numpy()
     assert float(np.abs(got - ref).max()) <= 1e-6
     inside = box.lies_inside(tuple(torch.from_numpy(got).unbind(1))) | cub.lies_inside(tuple(torch.from_numpy(got).unbind(1)))
     assert int(inside.sum()) == 0 and float(np.abs(got - pos).max()) > 0.5
     with pytest.raises(NotImplementedError, match='Sphere'):
-        fluid.boundary_push(torch.from_numpy(pos), (16., 16., 16.), obstacles=[Sphere((8., 8., 8.), 2.)])
+        fluid.boundary_push_native(torch.from_numpy(pos), (16., 16., 16.), obstacles=[Sphere((8., 8., 8.), 2.)])
 
 
 # --- analogues of the JAX suite's masked-preconditioner tests ----------------
@@ -347,13 +347,13 @@ def cavity_state():
     v, p = model.initial_state()
     for _ in range(2):
         v, p = model.step(v, p)
-    v = advect.semi_lagrangian(v, v, model.dt, 1.0, model.boundary, velocity_extrap=model.boundary)
-    return model, diffuse.explicit(v, model.viscosity, model.dt, 1.0, model.boundary), p
+    v = advect.semi_lagrangian_native(v, v, model.dt, 1.0, model.boundary, velocity_extrap=model.boundary)
+    return model, diffuse.explicit_native(v, model.viscosity, model.dt, 1.0, model.boundary), p
 
 
 def _project_cavity(model, v, p, mode, monkeypatch, tol=1e-6):
     monkeypatch.setattr(fluid, 'MASKED_PRECONDITIONER', mode)
-    _, p2, result = fluid.make_incompressible(v, p, 1.0, rel_tol=tol, abs_tol=0., max_iterations=3000,
+    _, p2, result = fluid.make_incompressible_native(v, p, 1.0, rel_tol=tol, abs_tol=0., max_iterations=3000,
                                               obstacles=model.obstacles)
     return p2.numpy(), result.iterations
 

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from phiflow_tpu.ops import p2g as JG
-from phiflow_tpu_torch.field import distribute_points
+from phiflow_tpu_torch.field import distribute_points_native
 from phiflow_tpu_torch.field._resample import face_grid
 from phiflow_tpu_torch.ops import p2g as TG
 
@@ -102,7 +102,7 @@ def _flip_particles(seed=0):
     """FlipLiquid's particles at 24³ in the path's order (cell by cell, 8 a
     cell), the block moved to the corner and stretched past two walls so that
     some lie outside every target grid; random values."""
-    pos = distribute_points((0.15 * FLIP_N, 0.15 * FLIP_N, 0.45 * FLIP_N), (0.55 * FLIP_N, 0.55 * FLIP_N, 0.85 * FLIP_N),
+    pos = distribute_points_native((0.15 * FLIP_N, 0.15 * FLIP_N, 0.45 * FLIP_N), (0.55 * FLIP_N, 0.55 * FLIP_N, 0.85 * FLIP_N),
                             (FLIP_N,) * 3, points_per_cell=8, seed=seed)
     pos = ((pos - f32(0.15 * FLIP_N)) * f32(1.2) - f32(1.0)).astype(f32)
     return pos, np.random.default_rng(seed + 1).standard_normal(pos.shape[0]).astype(f32)

@@ -1,0 +1,62 @@
+"""Every public name that the JAX package's `phiflow_tpu.math`,
+`phiflow_tpu.field` or `phiflow_tpu.physics.{advect,diffuse,fluid}` exports
+and the port exports too takes the JAX package's signature: the same
+parameters, kinds and defaults. The port's array-level functions that held
+such a name carry the suffix `_native`."""
+import importlib
+import inspect
+
+import pytest
+
+PAIRS = [('phiflow_tpu.math', 'phiflow_tpu_torch.math', False), ('phiflow_tpu.field', 'phiflow_tpu_torch.field', False),
+         ('phiflow_tpu.physics.advect', 'phiflow_tpu_torch.physics.advect', True),
+         ('phiflow_tpu.physics.diffuse', 'phiflow_tpu_torch.physics.diffuse', True),
+         ('phiflow_tpu.physics.fluid', 'phiflow_tpu_torch.physics.fluid', True)]
+
+
+def _default(value):
+    if value is inspect.Parameter.empty:
+        return value
+    if inspect.isfunction(value) or inspect.isclass(value):
+        return value.__name__
+    return repr(value)
+
+
+def _signature(obj):
+    target = obj.__init__ if inspect.isclass(obj) else obj
+    return [(p.name, p.kind, _default(p.default)) for p in inspect.signature(target).parameters.values()
+            if p.name != 'self']
+
+
+def _shared(jax_name, port_name, by_all):
+    jax_module, port_module = importlib.import_module(jax_name), importlib.import_module(port_name)
+    names = jax_module.__all__ if by_all else [n for n in dir(jax_module) if not n.startswith('_')]
+    for name in names:
+        a, b = getattr(jax_module, name, None), getattr(port_module, name, None)
+        if b is None or inspect.ismodule(a) or not callable(a):
+            continue
+        try:
+            inspect.signature(a.__init__ if inspect.isclass(a) else a)
+        except (TypeError, ValueError):
+            continue
+        yield name, a, b
+
+
+@pytest.mark.parametrize('jax_name,port_name,by_all', PAIRS, ids=[p[1] for p in PAIRS])
+def test_shared_names_take_jax_signatures(jax_name, port_name, by_all):
+    shared = list(_shared(jax_name, port_name, by_all))
+    assert shared
+    mismatched = [name for name, a, b in shared if _signature(a) != _signature(b)]
+    assert not mismatched, mismatched
+
+
+@pytest.mark.parametrize('module,names', [
+    ('phiflow_tpu_torch.physics.advect', ['semi_lagrangian', 'mac_cormack', 'max_displacement_cells']),
+    ('phiflow_tpu_torch.physics.diffuse', ['explicit']),
+    ('phiflow_tpu_torch.physics.fluid', ['make_incompressible', 'apply_boundary_conditions']),
+    ('phiflow_tpu_torch.field', ['divergence', 'spatial_gradient', 'stagger', 'laplace', 'safe_mul', 'finite_fill']),
+], ids=['advect', 'diffuse', 'fluid', 'field'])
+def test_array_level_functions_carry_native(module, names):
+    mod = importlib.import_module(module)
+    for name in names:
+        assert callable(getattr(mod, name)) and callable(getattr(mod, name + '_native')), name
