@@ -46,31 +46,36 @@ Phases; any failure exits non-zero and prints no result:
      the x faces and the cells at 128³ and 64³, on the particles of the
      path's first step in its order, and at 128³ shuffled;
   4. seven paths on the card, each (but 4g) 2 warm-up steps, then 5 timed steps with
-     every launch counter set to 0 just before and read just after. Three of
+     every launch counter set to 0 just before and read just after. The
+     models' paths run their Field face — `initial_state()` and `step(...)`
+     on Fields, as JAX's users call them — and then, from one Field state,
+     2 steps of it and 2 of `step_native` on the same tensors: bit-equal for
+     the smoke and the 2D models, within 1e-5 of each array's max for FLIP
+     (K8's atomics), the CG counts equal (FLIP: at most 1 apart), the same
+     launches a step of every kernel (`field vs native` lines); the fused
+     and the FLIP 128³ path also print both steps' host-clock ms/step,
+     alternating in 3 rounds of 3 steps. Three of
      SmokePlume(cg_tol=1e-3, max_iterations=100): ms per step, Mcells/s, the
      advection / pressure split, CG iterations, max |div|, the displacement
      bound and finiteness:
-     4a. the fused path, `step` at 256³ (K1–K5): K5 exactly 3 launches a
-         step, K2 exactly 2 per smoothed level per V-cycle (4b too);
-     4b. the per-phase path at 256³ through `advect_smoke`, `advect_velocity`,
-         `project` (K6 exactly 5 launches a step, and K1–K4);
+     4a. the fused path, `step` at 256³ (K1–K5, K5 through the Field
+         `_fused_advect`): K5 exactly 3 launches a step, K2 exactly 2 per
+         smoothed level per V-cycle (4b too);
+     4b. the per-phase path at 256³ through the Field phases `advect_smoke`,
+         `advect_velocity`, `project` (K6 exactly 5 launches a step, and K1–K4);
      4c. the per-phase path in 2D at 4096² (K7; the 2D projection is PyTorch
          operations);
-     4-field. the per-phase step written in the public Field API, from 4b's
-         final state: `advect.mac_cormack(smoke, v, dt, max_cells=1) + rate *
-         inflow` (the model's own soft mask as a CenteredGrid),
-         `advect.semi_lagrangian(v, v, dt, max_cells=1)`, the buoyancy through
-         `resample(smoke * (buoyancy·dt), to=adv.vector['z'])`,
-         `fluid.make_incompressible(v, (), Solve('CG', 1e-3, 0., x0=p,
-         max_iterations=100, ...))` (K6 exactly 5 launches a step, K1–K4 as
-         many per V-cycle as on 4b); then 2 steps of 4-field and of 4b from
-         one state, velocity, smoke and pressure within 1e-5 of each field's
-         max |·| with equal CG counts, and both paths' host-clock ms/step,
-         alternating in 3 rounds of 3 steps;
-     and two of FlipLiquid(dims=3, points_per_cell=8), `step` through K8 and
-     its mean (exactly 4 launches a step each: the three face grids and the
+     4-field. the same Field phases from 4b's final state (K6 exactly 5
+         launches a step, K1–K4 as many per V-cycle as on 4b); then 2 steps
+         of them and of the `_native` phases from one state, velocity, smoke
+         and pressure within 1e-5 of each field's max |·| with equal CG
+         counts, and both paths' host-clock ms/step, alternating in 3 rounds
+         of 3 steps;
+     and two of FlipLiquid(dims=3, points_per_cell=8), the Field `step`
+     through K8 and its mean (`resample(particles, grid, scatter=True)`,
+     exactly 4 launches a step each: the three face grids and the
      occupancy) and K1m (6 + 4 per CG iteration): ms per step, M particles/s, the split P2G + fill /
-     projection / G2P + RK4 + push, CG iterations and `converged`, max
+     projection / G2P + RK4 + push (the array layer's phases), CG iterations and `converged`, max
      |div·active|; the particle count kept, positions finite and inside the
      box ± 0.5, the mean height falling:
      4d. 128³, 1,061,208 particles;
@@ -96,16 +101,17 @@ Phases; any failure exits non-zero and prints no result:
          whole number of launches in each of the 1 + iterations V-cycles), the same gates with
          the divergence under 8e-4 (ten times its reading of 8.237e-05);
      then the two 2D obstacle models at the JAX benchmark's size,
-     MovingObstacles(256) and LidDrivenCavity(256, obstacle=True): ms per
-     step, CG iterations, K7 launched (their masked stencil is PyTorch
-     operations, as every 2D stencil; they are small for the card); and
+     MovingObstacles(256) and LidDrivenCavity(256, obstacle=True), their
+     Field `step`: ms per step, CG iterations, K7 launched (their masked
+     stencil is PyTorch operations, as every 2D stencil; they are small for
+     the card); and
      K1m's, K6's and K8's launches a step × (device − bound) on each path
      that runs them (`gaps` lines);
   5. 2 steps from one numpy state on the CPU (the twins) and on the card (the
      kernels), compared at 1e-3 abs: fused at 64³, per-phase at 64³, 2D at
      256², FLIP at 32³ (positions); the obstacle step at 48³ under both
-     preconditioners at 1e-4 abs with the CG counts at most 1 apart; the
-     Field step at 64³ and 256² at 1e-3; and on the card a Field-level
+     preconditioners at 1e-4 abs with the CG counts at most 1 apart (these
+     through `step_native`); the Field phases at 64³ and 256² at 1e-3; and on the card a Field-level
      `make_incompressible(v, [Obstacle(Sphere(...))])` at 48³ against the
      array-level call on the same tensors, 1e-4, CG counts at most 1 apart;
   6. the `kernels` JSON line, then the last line
@@ -1088,26 +1094,119 @@ def check_interp(ch, gen, quick):
 # phases 4 and 5: the paths
 # ---------------------------------------------------------------------------
 
-def _stepper(model, per_phase):
-    """One step through the model's public methods: `step` (the fused path at
-    these sizes), or the three phases in turn — what `step` does wherever the
-    fused path does not apply."""
+def _stepper(model, per_phase, native=False):
+    """One SmokePlume step through the model's public methods: `step` (the
+    fused path at these sizes), or the three phases in turn — what `step`
+    does wherever the fused path does not apply. On Fields, JAX's face,
+    unless `native`: then the `_native` methods on the raw tensors. Returns
+    (step, advection)."""
+    suffix = '_native' if native else ''
     if not per_phase:
-        return model.step, model._fused_advect
+        return getattr(model, 'step' + suffix), getattr(model, '_fused_advect' + suffix)
+    advect_smoke, advect_velocity, project = (getattr(model, name + suffix)
+                                              for name in ('advect_smoke', 'advect_velocity', 'project'))
 
     def phases(v, s):
-        s = model.advect_smoke(v, s)
-        return model.advect_velocity(v, s), s
+        s = advect_smoke(v, s)
+        return advect_velocity(v, s), s
 
     def step(v, s, p):
         v, s = phases(v, s)
-        v, p = model.project(v, p)
+        v, p = project(v, p)
         return v, s, p
     return step, phases
 
 
-def run_slice(tag, dims, N, per_phase, required, warmup=2, steps=5):
+def _tensors(state):
+    """The torch tensors of a nested array state, in order (obstacles left out)."""
     import torch
+    if isinstance(state, torch.Tensor):
+        return [state]
+    if isinstance(state, (tuple, list)):
+        return [t for x in state for t in _tensors(x)]
+    return []
+
+
+CG_KERNELS = ('poisson_stencil', 'poisson_stencil_masked', 'poisson_stencil_coeffs', 'jacobi_sweeps',
+              'residual_restrict', 'prolong_add')
+
+
+def field_against_native(tag, model, field_step, native_step, state, steps=2, rel_tol=0.0, cg_apart=0):
+    """`steps` steps of the model's Field step and of its `step_native` from
+    one Field state on the card (`state_natives` hands the same tensors to
+    the array layer): every array bit-equal (`rel_tol` 0) or within `rel_tol`
+    of its max |·| with NaN in the same places, the CG counts at most
+    `cg_apart` apart, and the same launches of every kernel a step — of the
+    kernels the CG's iterations drive, where the counts agree."""
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.ops import _build
+    native = model.state_natives(*state)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with math.SolveTape() as tape:
+        for _ in range(steps):
+            state = field_step(*state)
+    torch.cuda.synchronize()
+    field_launches, field_iters = dict(_build.LAUNCHES), [info.iterations for info in tape]
+    _build.reset_launches()
+    native_iters = []
+    for _ in range(steps):
+        native = native_step(*native)
+        native_iters.append(model.last_solve.iterations)
+    torch.cuda.synchronize()
+    native_launches = dict(_build.LAUNCHES)
+    errs = []
+    for got, ref in zip(_tensors(model.state_natives(*state)), _tensors(native)):
+        same_nan = bool((torch.isnan(got) == torch.isnan(ref)).all()) and got.shape == ref.shape
+        finite = ~torch.isnan(ref)
+        err = float((got[finite] - ref[finite]).abs().max()) if same_nan else float('inf')
+        errs.append((err, float(ref[finite].abs().max())))
+    ok_values = all(e <= rel_tol * scale for e, scale in errs)
+    ok_cg = len(field_iters) == len(native_iters) and all(abs(a - b) <= cg_apart for a, b in zip(field_iters, native_iters))
+    compared = [k for k in KERNELS if field_iters == native_iters or k not in CG_KERNELS]
+    wrong = {k: (field_launches.get(k, 0), native_launches.get(k, 0)) for k in compared
+             if field_launches.get(k, 0) != native_launches.get(k, 0)}
+    bit_equal = all(e == 0 for e, _ in errs)
+    print(f'{tag} field vs native on the card, {steps} steps from one state: max |field - native| '
+          + ', '.join(f'{e:.2e} (of {scale:.3e})' for e, scale in errs)
+          + f'; bit-equal: {bit_equal}; CG iterations field {field_iters} native {native_iters}; launches a step '
+          + ', '.join(f'{k}={field_launches.get(k, 0) / steps:g}/{native_launches.get(k, 0) / steps:g}'
+                      for k in KERNELS if field_launches.get(k, 0) or native_launches.get(k, 0))
+          + f' (field/native); tol {"bit-equal" if rel_tol == 0 else f"{rel_tol:.0e} of each max"}, CG at most '
+          f'{cg_apart} apart: ' + ('ok' if ok_values and ok_cg and not wrong else 'FAIL'))
+    if not (ok_values and ok_cg and not wrong):
+        raise RuntimeError(f'{tag}: Field and native steps disagree on the card: {errs}, CG {field_iters} vs '
+                           f'{native_iters}, launches (field, native) {wrong}')
+
+
+def alternating_host_ms(tag, field_step, field_state, native_step, native_state, rounds=3, steps_a_round=3):
+    """Host-clock ms/step of the Field step and of `step_native`, alternating
+    in one process (`rounds` × `steps_a_round` steps each, synchronised
+    around each round; medians)."""
+    import torch
+    times = {'native': [], 'field': []}
+    states = {'native': native_state, 'field': field_state}
+    steppers = {'native': native_step, 'field': field_step}
+    for _ in range(rounds):
+        for kind in ('native', 'field'):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps_a_round):
+                states[kind] = steppers[kind](*states[kind])
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) / steps_a_round * 1e3)
+    a, f = statistics.median(times['native']), statistics.median(times['field'])
+    print(f'{tag} field vs native host clock, alternating {rounds} rounds of {steps_a_round} steps: native '
+          f'{a:.2f} ms/step {[round(t, 2) for t in times["native"]]}, field {f:.2f} ms/step '
+          f'{[round(t, 2) for t in times["field"]]}; field / native {f / a:.3f}')
+
+
+def run_slice(tag, dims, N, per_phase, required, warmup=2, steps=5):
+    """A SmokePlume path on the card through its Field face, as JAX's users
+    call it, then against `step_native` (`field_against_native`, bit-equal)."""
+    import torch
+    from phiflow_tpu_torch import math
     from phiflow_tpu_torch.field import divergence_native
     from phiflow_tpu_torch.models import SmokePlume
     from phiflow_tpu_torch.ops import _build
@@ -1119,16 +1218,16 @@ def run_slice(tag, dims, N, per_phase, required, warmup=2, steps=5):
         v, s, p = step(v, s, p)
     torch.cuda.synchronize()
     _build.reset_launches()
-    iters = []
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        v, s, p = step(v, s, p)
-        iters.append(model.last_solve.iterations)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    with math.SolveTape() as tape:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            v, s, p = step(v, s, p)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    iters = [info.iterations for info in tape]
     launches = dict(_build.LAUNCHES, steps=steps)
     ms = elapsed / steps * 1e3
-    print(f'{tag} {size}: {ms:.2f} ms/step, {N ** dims / (ms * 1e-3) / 1e6:.1f} Mcells/s over {steps} steps '
+    print(f'{tag} {size}: {ms:.2f} ms/step, {N ** dims / (ms * 1e-3) / 1e6:.1f} Mcells/s over {steps} Field steps '
           f'after {warmup} warm-up steps; CG iterations per step {iters}')
     print(f'{tag} launches per step: ' + ', '.join(f'{k}={launches.get(k, 0) / steps:g}' for k in KERNELS))
     missing = [k for k in required if launches.get(k, 0) == 0]
@@ -1159,48 +1258,57 @@ def run_slice(tag, dims, N, per_phase, required, warmup=2, steps=5):
         prs.append((time.perf_counter() - t1) * 1e3)
     print(f'{tag} split: advection {statistics.median(adv):.2f} ms, pressure {statistics.median(prs):.2f} ms '
           f'(median of 3 steps timed phase by phase)')
-    div = float(divergence_native(v, model._dx).abs().max())
-    disp = max(float(c.abs().max()) for c in v) * model.dt / model._dx
-    finite = all(bool(torch.isfinite(t).all()) for t in (*v, s, p))
+    vel, smoke, pressure = model.state_natives(v, s, p)
+    div = float(divergence_native(vel, model._dx).abs().max())
+    disp = max(float(c.abs().max()) for c in vel) * model.dt / model._dx
+    finite = all(bool(torch.isfinite(t).all()) for t in (*vel, smoke, pressure))
     print(f'{tag} max |div| after projection {div:.3e}; max |displacement| <= {disp:.3f} cells '
           f'(max|v|·dt/dx; certified <= max_cells={model.max_cells}: {disp <= model.max_cells}); '
-          f'all finite: {finite}; max smoke {float(s.max()):.4f}')
+          f'all finite: {finite}; max smoke {float(smoke.max()):.4f}')
     comps, cells = model._shapes()
-    shapes_ok = [tuple(t.shape) for t in v] == comps and tuple(s.shape) == cells and tuple(p.shape) == cells
+    shapes_ok = [tuple(t.shape) for t in vel] == comps and tuple(smoke.shape) == cells and tuple(pressure.shape) == cells
     if not (finite and shapes_ok and disp <= model.max_cells and div < 0.1):
         raise RuntimeError(f'{tag} output wrong: finite={finite} shapes_ok={shapes_ok} disp={disp} div={div}')
+    native_step, _ = _stepper(model, per_phase, native=True)
+    field_against_native(tag, model, step, native_step, (v, s, p))
+    if tag == 'fused':
+        alternating_host_ms(f'{tag} {size}', step, (v, s, p), native_step, model.state_natives(v, s, p))
     return launches, (v, s, p), iters
 
 
 def run_flip(tag, N, warmup=2, steps=5):
-    """FlipLiquid(N, dims=3).step on the card: the launch counts of a timed
-    run, the split by phase, and the gates on what comes out."""
+    """FlipLiquid(N, dims=3).step on the card through its Field face: the
+    launch counts of a timed run, the split by phase (the array layer's
+    phases), the gates on what comes out, then against `step_native`
+    (`field_against_native`: K8's atomics sum in varying order, so within
+    1e-5 of each array's max and CG counts at most 1 apart)."""
     import torch
+    from phiflow_tpu_torch import math
     from phiflow_tpu_torch.field import divergence_native
     from phiflow_tpu_torch.models import FlipLiquid
     from phiflow_tpu_torch.ops import _build
     model = FlipLiquid(N, dims=3, points_per_cell=8, device='cuda')
     particles, pressure = model.initial_state()
-    n = particles[0].shape[0]
-    z0 = float(particles[0][:, 2].mean())
+    n = int(particles.points.shape.get_size('points'))
+    height = lambda particles: float(particles.points.vector['z'].torch().mean())
+    z0 = height(particles)
     for _ in range(warmup):
         particles, pressure = model.step(particles, pressure)
     torch.cuda.synchronize()
-    z_warm = float(particles[0][:, 2].mean())
+    z_warm = height(particles)
     _build.reset_launches()
-    solves = []
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        particles, pressure = model.step(particles, pressure)
-        solves.append(model.last_solve)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    with math.SolveTape() as tape:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            particles, pressure = model.step(particles, pressure)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES, steps=steps)
     ms = elapsed / steps * 1e3
-    iters = [r.iterations for r in solves]
+    iters = [info.iterations for info in tape]
     print(f'{tag} {N}^3, {n} particles: {ms:.2f} ms/step, {n / (ms * 1e-3) / 1e6:.2f} M particles/s over {steps} '
-          f'steps after {warmup} warm-up steps; CG iterations per step {iters}, converged '
-          f'{[r.converged for r in solves]} (cg_tol {model.cg_tol}, at most {model.max_iterations})')
+          f'Field steps after {warmup} warm-up steps; CG iterations per step {iters}, converged '
+          f'{[info.converged for info in tape]} (cg_tol {model.cg_tol}, at most {model.max_iterations})')
     print(f'{tag} launches per step: ' + ', '.join(f'{k}={launches.get(k, 0) / steps:g}' for k in KERNELS))
     # K1m: two diagonal probes, A·x0 and the first preconditioner's three a solve, four an iteration
     expected = {'p2g': P2G_LAUNCHES_PER_STEP * steps, 'p2g_mean': P2G_LAUNCHES_PER_STEP * steps,
@@ -1209,19 +1317,20 @@ def run_flip(tag, N, warmup=2, steps=5):
     wrong = {k: (launches.get(k, 0), e) for k, e in expected.items() if launches.get(k, 0) != e or e == 0}
     if wrong:
         raise RuntimeError(f'{tag}: launches on the path (counted, expected): {wrong}')
-    # the split, from 3 more steps timed phase by phase
+    # the split, from 3 more steps timed phase by phase through the array layer's phases
     split = {'P2G + fill': [], 'projection': [], 'G2P + RK4 + push': []}
     div_active = 0.0
+    native, native_pressure = model.state_natives(particles, pressure)
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prev_v, occupied = model.particles_to_grid(particles)
+        prev_v, occupied = model.particles_to_grid_native(native)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        grid_v, pressure = model.project(prev_v, occupied, pressure)
+        grid_v, native_pressure = model.project_native(prev_v, occupied, native_pressure)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        particles = model.grid_to_particles(particles, grid_v, prev_v)
+        native = model.grid_to_particles_native(native, grid_v, prev_v)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
@@ -1229,17 +1338,23 @@ def run_flip(tag, N, warmup=2, steps=5):
         div = divergence_native(grid_v, model._dx) * occupied
         div_active = max(div_active, float(torch.nan_to_num(div, nan=0.0).abs().max()))
     print(f'{tag} split: ' + ', '.join(f'{k} {statistics.median(v):.2f} ms' for k, v in split.items())
-          + ' (median of 3 steps timed phase by phase)')
-    positions, velocities = particles
-    z1 = float(positions[:, 2].mean())
-    finite = bool(torch.isfinite(positions).all()) and bool(torch.isfinite(pressure).all())
+          + ' (median of 3 steps timed phase by phase, the array layer\'s phases)')
+    particles, pressure = model.state_fields(native, native_pressure)
+    positions, velocities = native
+    z1 = height(particles)
+    finite = bool(torch.isfinite(positions).all()) and bool(torch.isfinite(native_pressure).all())
     inside = bool((positions > -0.5).all()) and bool((positions < N + 0.5).all())
-    kept = tuple(positions.shape) == (n, 3) and tuple(velocities.shape) == (n, 3) and tuple(pressure.shape) == (N,) * 3
+    kept = tuple(positions.shape) == (n, 3) and tuple(velocities.shape) == (n, 3) \
+        and tuple(native_pressure.shape) == (N,) * 3
     print(f'{tag} max |div·active| after projection {div_active:.3e}; mean height {z0:.3f} at rest, {z_warm:.3f} '
           f'after the warm-up, {z1:.3f} at the end; positions finite: {finite}, inside the box ± 0.5: {inside}, '
           f'{int(torch.isnan(velocities).any(dim=1).sum())} particles with a NaN velocity')
     if not (finite and inside and kept and z1 < z_warm < z0):
         raise RuntimeError(f'{tag} output wrong: finite={finite} inside={inside} kept={kept} heights {z0} {z_warm} {z1}')
+    field_against_native(tag, model, model.step, model.step_native, (particles, pressure), rel_tol=1e-5, cg_apart=1)
+    if N == FLIP_N[0]:
+        alternating_host_ms(f'{tag} {N}^3', model.step, (particles, pressure), model.step_native,
+                            model.state_natives(particles, pressure))
     return launches
 
 
@@ -1283,20 +1398,26 @@ def profile_path(tag, size, advance, state, warmup=2, steps=3, rows_shown=12):
 
 
 def profile_flip(tag, N):
-    """A FLIP step, and its P2G + fill alone (its device kernels do not follow
-    the CG's iteration count)."""
+    """A FLIP Field step and a `step_native`, and the array layer's P2G +
+    fill alone (its device kernels do not follow the CG's iteration count)."""
     from phiflow_tpu_torch.models import FlipLiquid
     model = FlipLiquid(N, dims=3, points_per_cell=8, device='cuda')
     profile_path(tag, f'{N}^3', lambda state: model.step(*state), model.initial_state())
-    profile_path(f'{tag} P2G + fill', f'{N}^3', lambda state: (model.particles_to_grid(state[0]), state)[1],
-                 model.initial_state(), rows_shown=8)
+    profile_path(f'{tag} native', f'{N}^3', lambda state: model.step_native(*state), model.initial_state_native(),
+                 rows_shown=8)
+    profile_path(f'{tag} P2G + fill', f'{N}^3', lambda state: (model.particles_to_grid_native(state[0]), state)[1],
+                 model.initial_state_native(), rows_shown=8)
 
 
 def profile_slice(tag, dims, N, per_phase):
+    """A SmokePlume path's Field step, and its `_native` step from rest."""
     from phiflow_tpu_torch.models import SmokePlume
     model = SmokePlume(resolution=N, dims=dims, cg_tol=1e-3, max_iterations=100, device='cuda')
     step, _ = _stepper(model, per_phase)
     profile_path(tag, f'{N}^{dims}', lambda state: step(*state), model.initial_state(), rows_shown=16)
+    native_step, _ = _stepper(model, per_phase, native=True)
+    profile_path(f'{tag} native', f'{N}^{dims}', lambda state: native_step(*state), model.initial_state_native(),
+                 rows_shown=8)
 
 
 def profile_obstacles(tag, N, preconditioner='chebyshev'):
@@ -1330,7 +1451,7 @@ def cpu_vs_card(tag, dims, N, per_phase, steps=2, tol=1e-3):
     out = {}
     for dev in ('cpu', 'cuda'):
         model = SmokePlume(resolution=N, dims=dims, cg_tol=1e-3, max_iterations=100, device=dev)
-        step, _ = _stepper(model, per_phase)
+        step, _ = _stepper(model, per_phase, native=True)
         v, s, p = state_from_numpy(*arrays, device=dev)
         for _ in range(steps):
             v, s, p = step(v, s, p)
@@ -1360,7 +1481,7 @@ def flip_cpu_vs_card(N=32, steps=2, tol=1e-3):
         particles, pressure = state_from_numpy(pos, vel, np.zeros((N,) * 3), device=dev)
         iters = []
         for _ in range(steps):
-            particles, pressure = model.step(particles, pressure)
+            particles, pressure = model.step_native(particles, pressure)
             iters.append(model.last_solve.iterations)
         out[dev] = state_to_numpy((particles, pressure)) + (iters,)
     errs = {n: float(np.abs(a - b).max()) for n, a, b in zip(('positions', 'velocities', 'pressure'),
@@ -1374,65 +1495,15 @@ def flip_cpu_vs_card(N=32, steps=2, tol=1e-3):
         raise RuntimeError(f'CPU and card disagree (flip): {errs}')
 
 # ---------------------------------------------------------------------------
-# the Field path: SmokePlume's per-phase step written in the public Field API
+# the Field path: SmokePlume's per-phase step through its Field phase methods
 # ---------------------------------------------------------------------------
 
-def smoke_fields(model, velocity, smoke, pressure):
-    """(velocity, smoke, pressure, inflow) Fields of a SmokePlume on raw
-    tensors — the closed box's face components are kept as they are — and the
-    model's own soft inflow mask wrapped once as a CenteredGrid."""
-    from phiflow_tpu_torch import math
-    from phiflow_tpu_torch.field import CenteredGrid, StaggeredGrid
-    from phiflow_tpu_torch.geom import Box
-    names = ','.join('xyz'[:model.dims])
-    size = model._resolution * model._dx
-    bounds = Box(**{n: size for n in names.split(',')})
-    res = {n: model._resolution for n in names.split(',')}
-    ext = math.extrapolation
-    s_ext = ext.PERIODIC if model.periodic else ext.BOUNDARY
-    v = StaggeredGrid(math.stack([math.wrap(c, math.spatial(names)) for c in velocity], math.dual(vector=names)),
-                      ext.PERIODIC if model.periodic else 0., bounds=bounds, **res)
-    s = CenteredGrid(math.wrap(smoke, math.spatial(names)), s_ext, bounds=bounds, **res)
-    p = CenteredGrid(math.wrap(pressure, math.spatial(names)), s_ext, bounds=bounds, **res)
-    inflow = s.with_values(math.wrap(model._inflow_mask_values(smoke), math.spatial(names)))
-    return v, s, p, inflow
-
-
-def field_arrays(v, s, p):
-    """The raw tensors of Fields: the velocity components, smoke, pressure."""
-    from phiflow_tpu_torch.field._field import face_components
-    names = v.resolution.names
-    return tuple(c.native(names) for c in face_components(v.values)), s.values.native(names), p.values.native(names)
-
-
-def field_stepper(model, inflow):
-    """JAX's `SmokePlume.advect_smoke` / `advect_velocity` / `project`
-    (phiflow_tpu/models/smoke.py:240-272) as a user writes them with the public
-    Field API: step(v, s, p) -> (v, s, p), the solve's SolveInfo on the tape."""
-    from phiflow_tpu_torch import math
-    from phiflow_tpu_torch.field import resample
-    from phiflow_tpu_torch.physics import advect, fluid
-
-    def step(v, s, p):
-        names = v.resolution.names
-        s = advect.mac_cormack(s, v, model.dt, max_cells=model.max_cells) + model.inflow_rate * inflow
-        adv = advect.semi_lagrangian(v, v, model.dt, max_cells=model.max_cells)
-        up = names[-1]
-        lift = resample(s * (model.buoyancy * model.dt), to=adv.vector[up])
-        v = adv.with_values(math.stack([adv.vector[d].values + lift.values if d == up else adv.vector[d].values
-                                        for d in names], math.dual(vector=','.join(names))))
-        v, p = fluid.make_incompressible(v, (), math.Solve('CG', model.cg_tol, 0., x0=p,
-                                                           max_iterations=model.max_iterations,
-                                                           suppress=(math.ConvergenceException,)))
-        return v, s, p
-    return step
-
-
 def run_field(tag, N, state, phase_launches, phase_iters, warmup=2, steps=5):
-    """Path 4-field: the Field step at N³ from path 4b's final state, 2
-    warm-up steps, then 5 timed with every launch counter set to 0 just before
-    and read just after. K6 exactly 5 launches a step; K1–K4 as many per
-    V-cycle (1 + CG iterations a step) as on 4b."""
+    """Path 4-field: the model's own Field phase methods (`advect_smoke`,
+    `advect_velocity`, `project`: JAX's phases on Fields) at N³ from path
+    4b's final state, 2 warm-up steps, then 5 timed with every launch counter
+    set to 0 just before and read just after. K6 exactly 5 launches a step;
+    K1–K4 as many per V-cycle (1 + CG iterations a step) as on 4b."""
     import torch
     from phiflow_tpu_torch import math
     from phiflow_tpu_torch.field import divergence
@@ -1440,8 +1511,8 @@ def run_field(tag, N, state, phase_launches, phase_iters, warmup=2, steps=5):
     from phiflow_tpu_torch.ops import _build
     from phiflow_tpu_torch.physics import advect
     model = SmokePlume(resolution=N, dims=3, cg_tol=1e-3, max_iterations=100, device='cuda')
-    v, s, p, inflow = smoke_fields(model, *state)
-    step = field_stepper(model, inflow)
+    v, s, p = state
+    step, _ = _stepper(model, True)
     for _ in range(warmup):
         v, s, p = step(v, s, p)
     torch.cuda.synchronize()
@@ -1472,7 +1543,7 @@ def run_field(tag, N, state, phase_launches, phase_iters, warmup=2, steps=5):
         raise RuntimeError(f'{tag}: launches on the path (counted, expected): {wrong}')
     div = float(divergence(v).values.torch().abs().max())
     disp = float(advect.max_displacement_cells(s, v, model.dt))
-    vel, smoke, pressure = field_arrays(v, s, p)
+    vel, smoke, pressure = model.state_natives(v, s, p)
     finite = all(bool(torch.isfinite(t).all()) for t in (*vel, smoke, pressure))
     print(f'{tag} max |div| after projection {div:.3e}; max |displacement| {disp:.3f} cells '
           f'(advect.max_displacement_cells; <= max_cells={model.max_cells}: {disp <= model.max_cells}); '
@@ -1484,61 +1555,22 @@ def run_field(tag, N, state, phase_launches, phase_iters, warmup=2, steps=5):
     return launches
 
 
-def field_against_array(N, state, steps=2, rounds=3, steps_a_round=3):
-    """4-field against 4b on the card from one 256³ state: 2 steps each,
-    velocity, smoke and pressure within 1e-5 of each field's max |·|, equal
-    CG counts; then the host-clock ms/step of both, alternating in one
-    process (`rounds` × `steps_a_round` steps each, medians)."""
-    import torch
-    from phiflow_tpu_torch import math
+def field_against_array(N, state, steps=2):
+    """4-field against the array layer's phases on the card from one 256³
+    state: 2 steps each, velocity, smoke and pressure within 1e-5 of each
+    field's max |·| with equal CG counts; then the host-clock ms/step of
+    both, alternating in one process."""
     from phiflow_tpu_torch.models import SmokePlume
     model = SmokePlume(resolution=N, dims=3, cg_tol=1e-3, max_iterations=100, device='cuda')
-    array_step, _ = _stepper(model, True)
-    v, s, p, inflow = smoke_fields(model, *state)
-    field_step = field_stepper(model, inflow)
-    av, as_, ap = state
-    field_iters, array_iters = [], []
-    for _ in range(steps):
-        with math.SolveTape() as tape:
-            v, s, p = field_step(v, s, p)
-        field_iters.append(tape[0].iterations)
-        av, as_, ap = array_step(av, as_, ap)
-        array_iters.append(model.last_solve.iterations)
-    got = field_arrays(v, s, p)
-    names = [f'v{a}' for a in 'xyz'] + ['smoke', 'pressure']
-    errs = {}
-    for n, g, r in zip(names, (*got[0], got[1], got[2]), (*av, as_, ap)):
-        errs[n] = (float((g - r).abs().max()), float(r.abs().max()))
-    ok = all(e <= 1e-5 * max(scale, 1e-30) for e, scale in errs.values()) and field_iters == array_iters
-    bit_equal = all(e == 0 for e, _ in errs.values())
-    print(f'field vs array on the card, {N}^3, {steps} steps from one state: '
-          + ', '.join(f'{n} {e:.2e} (of {scale:.3e})' for n, (e, scale) in errs.items())
-          + f'; bit-equal: {bit_equal}; CG iterations field {field_iters} array {array_iters}; tol 1e-5 of each '
-            f'field\'s max: ' + ('ok' if ok else 'FAIL'))
-    if not ok:
-        raise RuntimeError(f'Field and array paths disagree on the card: {errs}, CG {field_iters} vs {array_iters}')
-    times = {'array': [], 'field': []}
-    fv, fs, fp = v, s, p
-    for _ in range(rounds):
-        for kind in ('array', 'field'):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(steps_a_round):
-                if kind == 'array':
-                    av, as_, ap = array_step(av, as_, ap)
-                else:
-                    fv, fs, fp = field_step(fv, fs, fp)
-            torch.cuda.synchronize()
-            times[kind].append((time.perf_counter() - t0) / steps_a_round * 1e3)
-    a, f = statistics.median(times['array']), statistics.median(times['field'])
-    print(f'field vs array host clock, {N}^3, alternating {rounds} rounds of {steps_a_round} steps: array (4b) '
-          f'{a:.2f} ms/step {[round(t, 2) for t in times["array"]]}, field (4-field) {f:.2f} ms/step '
-          f'{[round(t, 2) for t in times["field"]]}; field / array {f / a:.3f}')
+    field_step, _ = _stepper(model, True)
+    array_step, _ = _stepper(model, True, native=True)
+    field_against_native(f'per-phase-field {N}^3', model, field_step, array_step, state, steps, rel_tol=1e-5)
+    alternating_host_ms(f'per-phase-field {N}^3', field_step, state, array_step, model.state_natives(*state))
 
 
 def field_cpu_vs_card(tag, dims, N, steps=2, tol=1e-3):
-    """The Field step from one numpy state on the CPU (the twins) and on the
-    card (K6 and K1–K4 in 3D, K7 in 2D), compared at `tol` abs."""
+    """The Field phase methods from one numpy state on the CPU (the twins)
+    and on the card (K6 and K1–K4 in 3D, K7 in 2D), compared at `tol` abs."""
     import numpy as np
     from phiflow_tpu_torch import math
     from phiflow_tpu_torch.models import SmokePlume, state_from_numpy
@@ -1547,11 +1579,11 @@ def field_cpu_vs_card(tag, dims, N, steps=2, tol=1e-3):
     for dev in ('cpu', 'cuda'):
         with math.default_device(dev):
             model = SmokePlume(resolution=N, dims=dims, cg_tol=1e-3, max_iterations=100, device=dev)
-            v, s, p, inflow = smoke_fields(model, *state_from_numpy(*arrays, device=dev))
-            step = field_stepper(model, inflow)
+            v, s, p = model.state_fields(*state_from_numpy(*arrays, device=dev))
+            step, _ = _stepper(model, True)
             for _ in range(steps):
                 v, s, p = step(v, s, p)
-            vel, smoke, _ = field_arrays(v, s, p)
+            vel, smoke, _ = model.state_natives(v, s, p)
             out[dev] = [t.cpu().numpy() for t in (*vel, smoke)]
     names = [f'v{"xyz"[d]}' for d in range(dims)] + ['smoke']
     errs = {n: float(np.abs(a - b).max()) for n, a, b in zip(names, out['cpu'], out['cuda'])}
@@ -1602,12 +1634,14 @@ def field_obstacle_against_array(N=48, tol=1e-4):
 
 
 def profile_field(tag, N, state):
-    """torch.profiler over 3 steps of path 4-field (compare with 4b's profile)."""
+    """torch.profiler over 3 steps of path 4-field (compare with the native
+    phases' profile)."""
     from phiflow_tpu_torch.models import SmokePlume
     model = SmokePlume(resolution=N, dims=3, cg_tol=1e-3, max_iterations=100, device='cuda')
-    v, s, p, inflow = smoke_fields(model, *state)
-    step = field_stepper(model, inflow)
-    profile_path(tag, f'{N}^3', lambda st: step(*st), (v, s, p), rows_shown=16)
+    step, _ = _stepper(model, True)
+    native_step, _ = _stepper(model, True, native=True)
+    profile_path(tag, f'{N}^3', lambda st: step(*st), state, rows_shown=16)
+    profile_path(f'{tag} native', f'{N}^3', lambda st: native_step(*st), model.state_natives(*state), rows_shown=8)
 
 
 # ---------------------------------------------------------------------------
@@ -1839,31 +1873,33 @@ def obstacles_cpu_vs_card(N=48, steps=2, tol=1e-4, preconditioner='chebyshev'):
 
 
 def run_model_2d(tag, model, warmup=2, steps=5):
-    """A 2D obstacle model on the card: its `step` from rest. The advection
-    goes through K7; the masked stencil is PyTorch operations."""
+    """A 2D obstacle model on the card: its Field `step` from rest, then
+    against `step_native` (bit-equal). The advection goes through K7; the
+    masked stencil is PyTorch operations."""
     import torch
+    from phiflow_tpu_torch import math
     from phiflow_tpu_torch.ops import _build
     state = model.initial_state()
     for _ in range(warmup):
         state = model.step(*state)
     torch.cuda.synchronize()
     _build.reset_launches()
-    solves = []
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        state = model.step(*state)
-        solves.append(model.last_solve)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / steps * 1e3
+    with math.SolveTape() as tape:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state = model.step(*state)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
     launches = dict(_build.LAUNCHES)
-    v, p = state[0], state[1]
+    v, p = model.state_natives(*state)[:2]
     finite = all(bool(torch.isfinite(t).all()) for t in (*v, p))
-    print(f'{tag} {model.resolution}^2: {ms:.2f} ms/step over {steps} steps after {warmup} warm-up steps; CG iterations '
-          f'per step {[r.iterations for r in solves]}, converged {[r.converged for r in solves]}; launches per step: '
-          f'window_interp_2d={launches.get("window_interp_2d", 0) / steps:g}; max |v| '
+    print(f'{tag} {model.resolution}^2: {ms:.2f} ms/step over {steps} Field steps after {warmup} warm-up steps; CG '
+          f'iterations per step {[info.iterations for info in tape]}, converged {[info.converged for info in tape]}; '
+          f'launches per step: window_interp_2d={launches.get("window_interp_2d", 0) / steps:g}; max |v| '
           f'{max(float(c.abs().max()) for c in v):.3f}; all finite: {finite}')
     if launches.get('window_interp_2d', 0) == 0 or not finite or max(float(c.abs().max()) for c in v) == 0:
         raise RuntimeError(f'{tag}: window_interp_2d launched {launches.get("window_interp_2d", 0)} times, finite={finite}')
+    field_against_native(tag, model, model.step, model.step_native, state)
     return launches
 
 

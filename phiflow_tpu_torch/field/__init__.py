@@ -11,10 +11,10 @@ from ._grid import CenteredGrid, StaggeredGrid, Grid, unstack_staggered_tensor, 
 from ._resample import resample, sample
 from ._field_math import (
     laplace, spatial_gradient, divergence, stagger, where, maximum, minimum, clip, is_finite, safe_mul,
-    finite_fill, mean,
+    finite_fill, mean, mask,
     divergence_native, spatial_gradient_native, finite_fill_native, stagger_native, safe_mul_native, laplace_native,
 )
 from ._angular_velocity import angular_velocity, angular_velocity_at_faces
-from ._point_cloud import distribute_points_native
+from ._point_cloud import PointCloud, distribute_points, distribute_points_native
 from ._resample import (sample_grid_at_centers, sample_grid_at_points, scatter_to_grid, cell_grid, staggered_cells,
                         geometry_mask)

@@ -9,7 +9,11 @@ uniform component per axis whose size along its own axis follows
 layer and the kernels take, unchanged. Arithmetic with numbers, tuples and
 Fields works on the values and carries the boundary along.
 
-Meshes, graphs and point clouds as Fields come with a later slice.
+A point cloud is a Field on a `Point` or `Sphere` geometry whose centre is a
+Tensor of points with an instance dim (`field/_point_cloud.py`); `points` and
+`center` are that Tensor, `with_geometry` moves the points.
+
+Meshes and graphs as Fields come with a later slice.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from ..math import extrapolation as extrapolation_mod
 from ..math._extrapolation import Extrapolation, ConstantExtrapolation, domain_slice
 from ..math._magic import BoundDim, slicing_dict
 from ..math._shape import Dim, CHANNEL
-from ..geom import Box, Geometry, UniformGrid
+from ..geom import Box, Geometry, Point, Sphere, UniformGrid
 
 __all__ = ['Field', 'as_boundary', 'is_staggered', 'face_components', 'face_values']
 
@@ -144,7 +148,9 @@ class Field:
 
     @property
     def is_point_cloud(self) -> bool:
-        return False
+        if isinstance(self._geometry, UniformGrid):
+            return False
+        return isinstance(self._geometry, (Point, Sphere)) or bool(self._geometry.shape.instance)
 
     @property
     def is_staggered(self) -> bool:
@@ -170,7 +176,7 @@ class Field:
 
     @property
     def center(self) -> Tensor:
-        """The sample points of a centred grid."""
+        """The sample points of a centred grid or a point cloud."""
         assert self.is_centered, "the sample points of a staggered grid come with a later slice of the port"
         return self._geometry.center
 
@@ -252,7 +258,11 @@ class Field:
     def _op1(self, operator) -> 'Field':
         return Field(self._geometry, operator(self._values), operator(self._boundary))
 
-    def _op2(self, other, operator) -> 'Field':
+    def _op2(self, other, operator, zero_is_identity=False) -> 'Field':
+        """`operator` on the values. With `zero_is_identity` (x + 0, x − 0), a
+        vector constant's zero entries leave a staggered grid's components as
+        they are instead of adding 0 on the device: the same values (only
+        −0.0 stays −0.0) for no launch."""
         if isinstance(other, Geometry):
             raise ValueError(f"Cannot combine Field with Geometry {other}")
         if isinstance(other, Field):
@@ -286,11 +296,15 @@ class Field:
             other = wrap(other)
         if self.is_staggered and 'vector' in other.shape and 'vector' not in self._values.shape:
             other = rename_dims(other, 'vector', dual(vector=other.shape.get_labels('vector')))
+            if zero_is_identity and other.is_host and other.rank == 1:
+                comps = [c if float(e) == 0 else operator(c, e)
+                         for c, e in zip(face_components(self._values), other._unstack('~vector'))]
+                return Field(self._geometry, face_values(comps, self._values), self._boundary)
         return Field(self._geometry, operator(self._values, other), self._boundary)
 
-    def __add__(self, other): return self._op2(other, lambda a, b: a + b)
-    def __radd__(self, other): return self._op2(other, lambda a, b: b + a)
-    def __sub__(self, other): return self._op2(other, lambda a, b: a - b)
+    def __add__(self, other): return self._op2(other, lambda a, b: a + b, zero_is_identity=True)
+    def __radd__(self, other): return self._op2(other, lambda a, b: b + a, zero_is_identity=True)
+    def __sub__(self, other): return self._op2(other, lambda a, b: a - b, zero_is_identity=True)
     def __rsub__(self, other): return self._op2(other, lambda a, b: b - a)
     def __mul__(self, other): return self._op2(other, lambda a, b: a * b)
     def __rmul__(self, other): return self._op2(other, lambda a, b: b * a)

@@ -13,7 +13,7 @@ normal velocity. Periodic: component d holds faces 0..N−1, face N ≡ face 0.
 
 The Field layer, with JAX's signatures: `divergence`, `spatial_gradient`,
 `stagger`, `laplace`, `where`, `is_finite`, `maximum`, `minimum`, `clip`,
-`safe_mul`, `finite_fill`, `mean`. Each unwraps to the array-level function of
+`safe_mul`, `finite_fill`, `mean`, `mask`. Each unwraps to the array-level function of
 the same job, with one cell size per axis; a case that function does not cover
 (another face layout, a subset of the dims for staggered values, a boundary
 with no array-layer form, dims beyond the grid's and one channel dim) raises
@@ -28,13 +28,13 @@ import numpy as np
 import torch
 
 from ..math import Tensor, TensorStack, channel, dual, stack, wrap, _ops as ops
-from ..math._extrapolation import ConstantExtrapolation, to_native
+from ..math._extrapolation import ConstantExtrapolation, map as map_extrapolation, to_native
 from ..math._nd import Extrapolation, PerSide, masked_fill_native, pad, shift_zero
 from ._field import Field, as_boundary, face_components, face_values
 
 __all__ = ['divergence_native', 'spatial_gradient_native', 'finite_fill_native', 'stagger_native', 'safe_mul_native',
            'laplace_native', 'divergence', 'spatial_gradient', 'stagger', 'laplace', 'where', 'is_finite', 'maximum',
-           'minimum', 'clip', 'safe_mul', 'finite_fill', 'mean']
+           'minimum', 'clip', 'safe_mul', 'finite_fill', 'mean', 'mask']
 
 
 def _per_axis(dx, ndim: int) -> tuple:
@@ -411,3 +411,17 @@ def finite_fill(grid, distance=1, diagonal=False):
 def mean(field, dim=None):
     """The mean over the sample points."""
     return ops.mean(field.values, field.values.shape.non_channel.non_batch if dim is None else dim)
+
+
+def mask(obj):
+    """1 where `obj` is defined: at every point of a point cloud, in every
+    nonzero cell of a grid (its constant boundaries 0), inside a geometry."""
+    from ..geom import Geometry
+    if isinstance(obj, Field):
+        if obj.is_point_cloud:
+            return Field(obj.geometry, wrap(1.), 0.)
+        values = ops.to_float(obj.values != 0)
+        return Field(obj.geometry, values, map_extrapolation(
+            lambda e: ConstantExtrapolation(0.) if isinstance(e, ConstantExtrapolation) else e, obj.boundary))
+    assert isinstance(obj, Geometry), f"mask requires a Field or Geometry, got {type(obj)}"
+    return Field(obj, wrap(1.), 0.)

@@ -52,10 +52,12 @@ def CenteredGrid(values=0., boundary=0., bounds=None, resolution=None,
     else:
         resolution = _get_resolution(resolution, resolution_, bounds)
         elements = UniformGrid(resolution, _as_bounds(bounds, resolution))
+        if isinstance(values, (Number, bool)):
+            values = wrap(values)
         if isinstance(values, Tensor):
+            if not _is_float(values.dtype):  # before the expansion: a host number stays one number
+                values = ops.to_float(values)
             values = expand(values, resolution)
-        elif isinstance(values, (Number, bool)):
-            values = expand(wrap(values), resolution)
     if isinstance(values, Tensor) and not _is_float(values.dtype):
         values = ops.to_float(values)
     result = Field(elements, values, boundary)
@@ -129,10 +131,14 @@ def unstack_staggered_tensor(data: Tensor, extrapolation: Extrapolation):
 
 
 def expand_staggered(values: Tensor, resolution: Shape, extrapolation: Extrapolation):
-    """A constant or vector expanded onto the staggered components."""
-    cells = UniformGrid(resolution, Box(**{n: 1. for n in resolution.names}))
+    """A constant or vector expanded onto the staggered components: along its
+    own dim component d has N − 1 faces plus the outer ones
+    `valid_outer_faces` keeps."""
     components = [values[{'vector': i}] for i in range(resolution.rank)] if 'vector' in values.shape \
         else [values] * resolution.rank
-    tensors = [expand(c, cells.stagger(dim, *extrapolation.valid_outer_faces(dim)).resolution)
-               for dim, c in zip(resolution.names, components)]
+    tensors = []
+    for dim, c in zip(resolution.names, components):
+        lower, upper = extrapolation.valid_outer_faces(dim)
+        faces = resolution.with_dim_size(dim, resolution.get_size(dim) + int(lower) + int(upper) - 1)
+        tensors.append(expand(c, faces))
     return stack(tensors, dual(vector=resolution.names))

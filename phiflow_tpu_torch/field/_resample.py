@@ -29,6 +29,14 @@ fraction of the sample point's cell inside. `staggered_cells` gives the face
 grids in the layouts above.
 
 The domain's lower corner is the origin.
+
+The Field layer (`resample`, `sample`, JAX's signatures) unwraps into these:
+a grid between half-cell-shifted grids into `half_shift_native`; a point
+cloud onto a centred or closed-box staggered grid with ``scatter=True``
+(`:32-64`, `:361-411`) into `scatter_to_grid` — K8 once per target grid in 3D
+on the card — with the base from the point cloud's constant boundary (NaN for
+FLIP); a grid at the points of a point cloud, a `Point` or a `Sphere`
+(`:196-230`) into `sample_grid_at_points` / `sample_staggered_at_points`.
 """
 from __future__ import annotations
 
@@ -39,13 +47,14 @@ import numpy as np
 import torch
 
 from ..geom import UniformGrid
-from ..geom._geom import Geometry
+from ..geom._geom import Geometry, Point, flat_points
 from ..geom._grid import UniformGrid_native
 from ..math import Tensor, channel, dual, expand, extrapolation, stack, to_float, wrap
+from ..math._extrapolation import ConstantExtrapolation
 from ..math._nd import Extrapolation, pad
 from ..ops.p2g import p2g_mean
-from ._field import Field, as_boundary
-from ._field_math import _grid_values, _native_extrap
+from ._field import Field, as_boundary, face_components, face_values
+from ._field_math import _dx_tuple, _grid_values, _layout, _native_extrap, _plain_values
 from ._grid import expand_staggered
 
 __all__ = ['sample_grid_at_centers', 'half_shift_native', 'scatter_to_grid', 'sample_grid_at_points', 'sample_staggered_at_points',
@@ -245,6 +254,8 @@ def resample(value, to=None, keep_boundary=False, soft=False, scatter=False,
     if isinstance(value, (int, float, bool)) or (isinstance(value, Tensor) and not value.shape.spatial
                                                   and not value.shape.instance):
         return to.with_values(value if isinstance(value, Tensor) else wrap(value))
+    if isinstance(value, Field) and value.is_point_cloud and not to.is_point_cloud:
+        return to.with_values(_scatter_points(value, to, scatter, outside_handling))
     if isinstance(value, Field):
         extrap = value.boundary if keep_boundary else to.boundary
         values = sample(value, to.geometry, at=to.sampled_at, boundary=extrap,
@@ -264,8 +275,13 @@ def sample(value, geometry, at: str = 'center', boundary=None, dot_face_normal=N
     if isinstance(geometry, Field):
         at = geometry.sampled_at
         geometry = geometry.geometry
+    if isinstance(geometry, Tensor):
+        geometry = Point(geometry)
     if not isinstance(geometry, UniformGrid):
-        raise NotImplementedError(f"sampling at a {type(geometry).__name__} comes with a later slice of the port")
+        if isinstance(value, Field) and value.is_grid and isinstance(geometry.center, Tensor):
+            return _sample_grid_at_points_field(value, geometry.center)
+        raise NotImplementedError(f"sampling a {type(value).__name__} at a {type(geometry).__name__} comes with a "
+                                  f"later slice of the port")
     boundary = as_boundary(boundary, geometry) if boundary is not None else None
     if isinstance(value, Geometry):
         if at == 'face':
@@ -370,3 +386,114 @@ def _half_shift_alignment(value, target_grid):
         else:
             return None
     return plan
+
+
+# ---------------------------------------------------------------------------
+# the Field layer: particles ⇄ grids
+# ---------------------------------------------------------------------------
+
+def _origin_grid(field, what: str):
+    """NotImplementedError unless `field` is a grid whose lower corner is the
+    origin — the frame of the array layer's particle transfers."""
+    if not field.is_grid or np.any(field.bounds.lower.numpy() != 0):
+        raise NotImplementedError(f"{what}: grids whose lower corner is the origin are ported")
+
+
+def _one_constant(field):
+    """The one constant of a grid Field's boundary, over all components of a
+    staggered one: the value the array layer's lookups continue with."""
+    names = field.resolution.names
+    forms = {_native_extrap(field.boundary[{'vector': d}], names) for d in names} if field.is_staggered \
+        else {_native_extrap(field.boundary, names)}
+    if len(forms) != 1 or not isinstance(next(iter(forms)), float):
+        raise NotImplementedError(f"boundary {field.boundary!r}: lookups at points continue a grid with one "
+                                  f"constant; other boundaries come with a later slice of the port")
+    return forms.pop()
+
+
+def staggered_point_arrays(velocity):
+    """(face components, cell size per axis) of a closed-box staggered grid
+    from the origin with a zero boundary — what `sample_staggered_at_points`
+    and `finite_rk4_native` take; NotImplementedError for any other grid."""
+    _origin_grid(velocity, 'particles in a staggered grid')
+    names = velocity.resolution.names
+    if not velocity.is_staggered or _layout(velocity) != 'closed' or _one_constant(velocity) != 0:
+        raise NotImplementedError(f"particles in a grid of boundary {velocity.boundary!r}: the closed box's "
+                                  f"staggered grid with walls at rest is ported")
+    comps = face_components(velocity.values)
+    if not all(_plain_values(c, names) for c in comps):
+        raise NotImplementedError(f"values {velocity.values.shape}: grid dims only are ported")
+    return [c.torch(names) for c in comps], _dx_tuple(velocity)
+
+
+def _sample_grid_at_points_field(value, points: Tensor) -> Tensor:
+    """The grid Field `value` at `points` (a `vector` dim, any other dims):
+    multilinear, continued beyond the grid by its boundary constant. A
+    staggered grid gives a `vector` per point."""
+    names = value.resolution.names
+    if points.shape.get_labels('vector') not in (None, names):
+        raise NotImplementedError(f"points with vector {points.shape.get_labels('vector')} in a grid of {names}")
+    _origin_grid(value, 'lookups at points')
+    flat, _ = flat_points(points)
+    lead = points.shape.without('vector')
+    if value.is_staggered:
+        comps, dx = staggered_point_arrays(value)
+        out = sample_staggered_at_points(comps, flat.to(comps[0].device), dx)
+        return Tensor(out.reshape(lead.sizes + (len(names),)), lead & channel(vector=names))
+    if not _plain_values(value.values, names):
+        raise NotImplementedError(f"values {value.values.shape}: grid dims only are ported")
+    grid = value.values.torch(names, device=flat.device)
+    out = sample_grid_at_points(grid, flat, value.bounds.lower.numpy(), value.bounds.upper.numpy(),
+                                _one_constant(value))
+    return Tensor(out.reshape(lead.sizes), lead)
+
+
+def _point_values(value, n: int, device, vector: bool):
+    """The point cloud's values as a torch array (n, d) with `vector`, else
+    (n,): one per point, or the one value expanded, contiguous. A host number
+    fills its array on the device (no host→device copy)."""
+    vals = value.values
+    points = value.geometry.center
+    inst = points.shape.without('vector').names
+    if vals.is_host and vals.rank == 0:
+        dtype = torch.float64 if vals.dtype == np.float64 else torch.float32
+        return torch.full((n, points.shape.get_size('vector')) if vector else (n,), float(vals), dtype=dtype,
+                          device=device)
+    if vector and 'vector' in vals.shape:
+        if vals.shape.get_labels('vector') not in (None, points.shape.get_labels('vector')):
+            raise NotImplementedError(f"values with vector {vals.shape.get_labels('vector')} at points of "
+                                      f"{points.shape.get_labels('vector')}")
+        arr = vals.torch(inst + ('vector',), device=device).reshape(-1, vals.shape.get_size('vector'))
+        return arr.expand(n, arr.shape[1]).contiguous()
+    if set(vals.shape.names) - set(inst):
+        raise NotImplementedError(f"values {vals.shape} scattered onto a centred grid: one value a point is ported")
+    return vals.torch(inst, device=device).reshape(-1).expand(n).contiguous()
+
+
+def _scatter_points(value, to, scatter: bool, outside_handling: str):
+    """The point cloud `value` onto the grid `to` (`scatter_to_grid`): the
+    mean of the points' values per nearest sample point, the cloud's
+    boundary constant (NaN, 0) where no point lies. A staggered target takes
+    component a of a vector value onto the faces of axis a."""
+    if not scatter:
+        raise NotImplementedError("resample of points onto a grid without scatter (the overlap of the points' "
+                                  "geometry with the cells) comes with a later slice of the port")
+    _origin_grid(to, 'points onto a grid')
+    names = to.resolution.names
+    if value.geometry.center.shape.get_labels('vector') not in (None, names):
+        raise NotImplementedError(f"points of {value.geometry.center.shape.get_labels('vector')} onto a grid of {names}")
+    flat, _ = flat_points(value.geometry.center)
+    base = float(value.boundary.value) if isinstance(value.boundary, ConstantExtrapolation) else 0.0
+    res = tuple(to.resolution.sizes)
+    if to.is_staggered:
+        if _layout(to) != 'closed':
+            raise NotImplementedError(f"points onto a staggered grid of boundary {to.boundary!r}: the closed "
+                                      f"box is ported")
+        vals = _point_values(value, flat.shape[0], flat.device, vector=True)
+        if vals.ndim == 1:  # one scalar a point onto every face grid
+            vals = vals[:, None].expand(-1, len(names))
+        comps = scatter_to_grid(flat, vals, res, _dx_tuple(to), outside_handling, base)
+        return face_values([Tensor(c, t.shape.only(names, reorder=True))
+                            for c, t in zip(comps, face_components(to.values))], to.values)
+    vals = _point_values(value, flat.shape[0], flat.device, vector=False)
+    return Tensor(scatter_to_grid(flat, vals, res, _dx_tuple(to), outside_handling, base), to.resolution)

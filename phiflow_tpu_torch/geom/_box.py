@@ -2,8 +2,9 @@
 and grid bounds use it: `BaseBox.push` (`:121-135`) on raw position tensors as
 `box_push`, the axis-aligned `Box` (two corners; `Box(x=1., y=1.)` and
 `Box(lower, upper)` with Tensors as in the JAX package, `:168`) and the
-`Cuboid` (centre, half size and an optional rotation) with their inside tests
-and signed distances.
+`Cuboid` (centre, half size and an optional rotation; JAX's signature, `:283`)
+with their inside tests and signed distances, and `push` of a Tensor of points
+(`:121-135`), which unwraps into `box_push`.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 from ..math import default_float
-from ._geom import Geometry, box_signed_distance, host_vec, vector_tensor
+from ._geom import Geometry, box_signed_distance, host_vec, flat_points, vector_tensor
 from ._transform import rotate_vector
 
 __all__ = ['box_push', 'Box', 'Cuboid']
@@ -43,7 +44,18 @@ def box_push(positions: torch.Tensor, lower: Sequence[float], upper: Sequence[fl
     return positions + sign * shift
 
 
-class Box(Geometry):
+class _BoxPush:
+    """`push` of the box geometries: the axis-wise push of `box_push` on the
+    points `positions` (a Tensor with an instance dim and `vector`), between
+    the box's lower and upper corner."""
+
+    def push(self, positions, outward: bool = True, shift_amount: float = 0):
+        flat, like = flat_points(positions)
+        lower, upper = self.lower.numpy(), self.upper.numpy()
+        return like(box_push(flat, lower, upper, outward=outward, shift_amount=shift_amount))
+
+
+class Box(_BoxPush, Geometry):
     """An axis-aligned box from its lower and upper corner: two sequences or
     Tensors, or one keyword per axis — a size (lower corner 0) or a
     (lower, upper) pair."""
@@ -131,12 +143,26 @@ class Box(Geometry):
         return f"Box({self._lower.tolist()}, {self._upper.tolist()})"
 
 
-class Cuboid(Geometry):
+class Cuboid(_BoxPush, Geometry):
     """A box from its centre and half size, optionally rotated about its
-    centre: one angle in 2D, Euler angles (or one angle about z) in 3D."""
+    centre: one angle in 2D, Euler angles (or one angle about z) in 3D. The
+    half size is `half_size`, half of `size`, or one keyword per axis
+    (`Cuboid(vec(x=20., y=80.), x=20., y=20.)`); a scalar centre fills every
+    axis. Its push is the axis-aligned one of the JAX package (the rotation
+    does not take part)."""
 
-    def __init__(self, center, half_size, rotation=None):
-        self._half_size, names_h = host_vec(half_size)
+    def __init__(self, center=0, half_size=None, rotation=None, size=None, **half_size_kw):
+        names_h = None
+        if half_size_kw:
+            self._half_size = np.asarray([float(v) for v in half_size_kw.values()], default_float())
+            names_h = tuple(half_size_kw)
+        elif half_size is not None:
+            self._half_size, names_h = host_vec(half_size)
+        elif size is not None:
+            size, names_h = host_vec(size)
+            self._half_size = size * size.dtype.type(0.5)
+        else:
+            raise ValueError("Cuboid takes a half size: half_size, size or one keyword per axis")
         self._center, names_c = host_vec(center, self._half_size.shape[0])
         self.names = names_c or names_h
         self.rotation = None if rotation is None else np.asarray(rotation, np.float32)

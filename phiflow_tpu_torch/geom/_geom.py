@@ -1,6 +1,7 @@
 """Geometries as plain objects — the part of `phiflow_tpu/geom/_geom.py` and
-`_geom_ops.py` that obstacles need: the inside test, the signed distance, the
-soft voxelisation, the complement `~g` and `union`.
+`_geom_ops.py` that obstacles and particles need: the inside test, the signed
+distance, the soft voxelisation, the complement `~g`, `union`, `push` (boxes
+and their complements) and `Point`.
 
 A geometry's own numbers (centre, radius, half size, rotation) are numpy
 arrays on the host: float32 when given as numbers or sequences (the array
@@ -8,6 +9,8 @@ layer's calls), the Tensor's own precision when given as Tensors or keyword
 components (the Field layer's calls, `Box(x=1., y=1.)`). Its public
 attributes (`center`, `half_size`, `lower`, `upper`, `radius`) are host
 Tensors with a `vector` dim, labelled by the axis names where they are known.
+A particle set is the exception: `Point(points)` and `Sphere(points, radius)`
+keep a Tensor of points with an instance dim as it is, on its device.
 
 Its queries take a *location*: one tensor per axis, broadcastable against
 each other — the sample points of a grid are d one-dimensional coordinate
@@ -22,9 +25,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..math import Tensor, channel
+from ..math import Tensor, channel, instance
 
-__all__ = ['Geometry', 'InvertedGeometry', 'Union', 'union']
+__all__ = ['Geometry', 'InvertedGeometry', 'Union', 'union', 'Point']
 
 Location = Sequence[torch.Tensor]
 
@@ -67,6 +70,21 @@ def host_scalar(x):
 def vector_tensor(a: np.ndarray, names):
     """A host vector as a named-dim Tensor with a `vector` dim."""
     return Tensor(a, channel(vector=names) if names else channel(vector=a.shape[0]))
+
+
+def is_point_set(x) -> bool:
+    """Whether `x` is a Tensor of points: a `vector` dim and an instance dim."""
+    return isinstance(x, Tensor) and bool(x.shape.instance) and 'vector' in x.shape
+
+
+def flat_points(points: Tensor):
+    """A Tensor of points as a torch array (n, d) — its dims but `vector`
+    flattened, `vector` last — and the function that wraps such an array back
+    into a Tensor of `points`' shape."""
+    shape = points.shape.without('vector') & points.shape.only('vector')
+    native = points.torch(shape.names)
+    flat = native.reshape(-1, shape.get_size('vector'))
+    return flat, lambda a: Tensor(a.reshape(native.shape), shape)
 
 
 def vec_squared(v: Location) -> torch.Tensor:
@@ -135,6 +153,13 @@ class Geometry:
     def rotated(self, angle) -> 'Geometry':
         raise NotImplementedError(type(self))
 
+    def push(self, positions: Tensor, outward: bool = True, shift_amount: float = 0) -> Tensor:
+        """Shift the points `positions` out of this geometry (inside with
+        ``outward=False``) to `shift_amount` from its surface. Boxes and their
+        complements have it; the finite-difference push of other shapes
+        comes with a later slice."""
+        raise NotImplementedError(f"push of a {type(self).__name__}: boxes and their complements are ported")
+
     def __invert__(self) -> 'Geometry':
         return InvertedGeometry(self)
 
@@ -165,6 +190,9 @@ class InvertedGeometry(Geometry):
 
     def approximate_fraction_inside(self, cells, balance=0.5):
         return 1 - self.geometry.approximate_fraction_inside(cells, 1 - balance)
+
+    def push(self, positions, outward=True, shift_amount=0):
+        return self.geometry.push(positions, outward=not outward, shift_amount=shift_amount)
 
     def __invert__(self):
         return self.geometry
@@ -221,11 +249,51 @@ class Union(Geometry):
         return f"union{self.geometries!r}"
 
 
-def union(*geometries) -> Geometry:
+def union(*geometries, dim=instance('union')) -> Geometry:
     """The union of the geometries (also given as one list); a single
-    geometry is returned as it is."""
+    geometry is returned as it is. `dim` names the JAX package's stack of the
+    members; the union here keeps them in a tuple."""
     if len(geometries) == 1 and isinstance(geometries[0], (tuple, list)):
         geometries = tuple(geometries[0])
     if len(geometries) == 1:
         return geometries[0]
     return Union(geometries)
+
+
+class Point(Geometry):
+    """Zero-size geometries at the points `location` (a Tensor with a
+    `vector` dim), kept as they are: a device Tensor stays on its device."""
+
+    def __init__(self, location):
+        self._location = location if isinstance(location, Tensor) else vector_tensor(vec32(location), None)
+
+    @property
+    def center(self) -> Tensor:
+        return self._location
+
+    @property
+    def names(self):
+        return self._location.shape.get_labels('vector')
+
+    @property
+    def spatial_rank(self) -> int:
+        return self._location.shape.get_size('vector')
+
+    @property
+    def shape(self):
+        return self._location.shape
+
+    def at(self, center) -> 'Point':
+        return Point(center)
+
+    def rotated(self, angle) -> 'Point':
+        return self
+
+    def __eq__(self, other):
+        return isinstance(other, Point) and other._location is self._location
+
+    def __hash__(self):
+        return hash('Point')
+
+    def __repr__(self):
+        return f"Point({self._location.shape})"

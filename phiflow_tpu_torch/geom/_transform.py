@@ -3,7 +3,10 @@
 rotation about x, then y, then z) or a scalar (about z).
 
 The matrix is built on the host in float32, as the geometry's other numbers
-are; vectors are sequences of per-axis tensors (`geom/_geom.py`).
+are. `rotation_matrix(angle, labels)` has JAX's signature and returns it as a
+host Tensor with dims (~vector, vector); `rotation_matrix_native(angle, ndim)`
+returns the numpy array that `rotate_vector` and the obstacle masks use on
+vectors given as sequences of per-axis tensors (`geom/_geom.py`).
 """
 from __future__ import annotations
 
@@ -12,10 +15,20 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ['rotation_matrix', 'rotate_vector']
+from ..math import Tensor, channel, concat_shapes, dual
+
+__all__ = ['rotation_matrix', 'rotation_matrix_native', 'rotate_vector']
 
 
-def rotation_matrix(angle, ndim: int) -> np.ndarray:
+def rotation_matrix(angle, labels=('x', 'y')) -> Tensor:
+    """The rotation as a host Tensor R[~vector=row, vector=col] over the axes
+    `labels`, with y_row = Σ_col R[row, col]·x_col."""
+    labels = tuple(labels)
+    m = rotation_matrix_native(angle.numpy() if isinstance(angle, Tensor) else angle, len(labels))
+    return Tensor(m, concat_shapes(dual(vector=labels), channel(vector=labels)))
+
+
+def rotation_matrix_native(angle, ndim: int) -> np.ndarray:
     """The (ndim, ndim) float32 matrix R with y_row = Σ_col R[row, col]·x_col."""
     f32 = np.float32
     angle = np.asarray(angle, f32)
@@ -48,7 +61,7 @@ def rotate_vector(v: Sequence[torch.Tensor], angle, invert: bool = False) -> Tup
     if angle is None:
         return tuple(v)
     d = len(v)
-    m = rotation_matrix(angle, d)
+    m = rotation_matrix_native(angle, d)
     if invert:
         m = m.T
     out = []

@@ -9,9 +9,12 @@ masked stencil (2D: the wrappers' PyTorch route). The obstacles are part of
 the state; their numbers live on the host in float32, as the JAX package
 computes them, so the masks are rebuilt every step from the same centres.
 
-The state is ``(velocity, pressure, *obstacles)``: the two face components in
-the periodic layout (N × N each), the pressure (N × N), then the obstacles in
-the constructor's order.
+`initial_state()` and `step(v, p, *obstacles)` are JAX's, on Fields: a
+periodic StaggeredGrid and the CenteredGrid pressure, then the obstacles in
+the constructor's order. `initial_state_native()` and `step_native(...)` are
+the array layer's: the two face components in the periodic layout (N × N
+each), the pressure (N × N), then the same obstacles. `state_fields` /
+`state_natives` cross between the two.
 """
 from __future__ import annotations
 
@@ -19,10 +22,13 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..geom import Cuboid, Sphere
+from ..field import CenteredGrid, StaggeredGrid
+from ..geom import Box, Cuboid, Sphere
+from ..math import ConvergenceException, Solve, extrapolation, vec
 from ..math._nd import PERIODIC
 from ..physics import advect, fluid
-from ..physics.fluid import Obstacle
+from ..physics.fluid import Obstacle, _pressure_extrapolation
+from ._fields import cell_native, cell_values, staggered_natives, staggered_values
 
 __all__ = ['MovingObstacles', 'state_from_numpy', 'state_to_numpy']
 
@@ -38,26 +44,61 @@ class MovingObstacles:
         self.dt = dt
         self.cg_tol = cg_tol
         self.max_iterations = max_iterations
-        self.size = np.array([100., 100.], np.float32)
-        self._dx = 100. / resolution
+        r = resolution
+        self.domain = Box(x=100., y=100.)
         self.obstacles0 = (
-            Obstacle(Cuboid([20., 80.], [20., 20.]), velocity=[5., 0.]),
-            Obstacle(Sphere([20., 20.], radius=10.), velocity=[1., 4.], angular_velocity=angular_velocity),
+            Obstacle(Cuboid(vec(x=20., y=80.), x=20., y=20.), velocity=vec(x=5., y=0.)),
+            Obstacle(Sphere(x=20., y=20., radius=10.), velocity=vec(x=1., y=4.),
+                     angular_velocity=angular_velocity),
         )
+        self.v0 = StaggeredGrid(0., extrapolation.PERIODIC, bounds=self.domain, x=r, y=r)
+        self.p0 = CenteredGrid(0., _pressure_extrapolation(self.v0.boundary), bounds=self.domain, x=r, y=r)
+        self.size = np.array([100., 100.], np.float32)  # the array layer's domain
+        self._dx = 100. / resolution
         self.last_solve = None  # fluid SolveResult of the latest projection
 
+    # ------------------------------------------------------------------
+    # JAX's face: Fields
+    # ------------------------------------------------------------------
     def initial_state(self):
+        from . import to_device
+        return to_device((self.v0, self.p0) + self.obstacles0, self.device)
+
+    def move_obstacle(self, obs: Obstacle) -> Obstacle:
+        """Advance the obstacle by its own velocity, wrapping periodically:
+        float32 arithmetic on the host, so its centre stays the JAX package's
+        number."""
+        x = (obs.geometry.center + obs.velocity * self.dt) % self.domain.size
+        return obs.at(x)
+
+    def step(self, v, p, *obstacles):
+        obstacles = tuple(self.move_obstacle(o) for o in obstacles)
+        v = advect.mac_cormack(v, v, self.dt)
+        v, p = fluid.make_incompressible(
+            v, obstacles, Solve('CG', self.cg_tol, 0., x0=p, max_iterations=self.max_iterations,
+                                suppress=(ConvergenceException,)))
+        return (v, p) + obstacles
+
+    def state_fields(self, v, p, *obstacles):
+        """The array state (face components, pressure, *obstacles) as JAX's
+        Fields, the tensors kept as they are."""
+        return (self.v0.with_values(staggered_values(self.v0, v)),
+                self.p0.with_values(cell_values(self.p0, p))) + obstacles
+
+    def state_natives(self, v, p, *obstacles):
+        """The Fields' raw tensors: (face components, pressure, *obstacles)."""
+        return (staggered_natives(v), cell_native(p)) + obstacles
+
+    # ------------------------------------------------------------------
+    # the array layer
+    # ------------------------------------------------------------------
+    def initial_state_native(self):
         """(velocity, pressure, *obstacles): the fluid at rest."""
         shape = (self.resolution,) * 2
         zeros = lambda: torch.zeros(shape, dtype=torch.float32, device=self.device)
         return ((zeros(), zeros()), zeros()) + self.obstacles0
 
-    def move_obstacle(self, obs: Obstacle) -> Obstacle:
-        """Advance the obstacle by its own velocity, wrapping periodically;
-        float32 arithmetic, so its centre stays the JAX package's number."""
-        return obs.at((obs.geometry.center + obs.velocity * np.float32(self.dt)) % self.size)
-
-    def step(self, v, p, *obstacles):
+    def step_native(self, v, p, *obstacles):
         obstacles = tuple(self.move_obstacle(o) for o in obstacles)
         v = advect.mac_cormack_native(v, v, self.dt, self._dx, PERIODIC, periodic=True)
         v, p, self.last_solve = fluid.make_incompressible_native(

@@ -12,10 +12,17 @@ model chooses:
 * the per-phase path (`advect_smoke`, `advect_velocity` through
   `physics/advect.py`: K6 in 3D, K7 in 2D) for everything else.
 
-The state is JAX's raw layout: ``velocity`` is a tuple of the face components
-as ``velocity.vector[d].values.native(order)`` gives them — in the closed box
+`initial_state()`, `step(velocity, smoke, pressure)` and the phases are JAX's,
+on Fields: the velocity a StaggeredGrid, the smoke and the pressure
+CenteredGrids. They unwrap into the array layer below: `_fused_advect` into
+`_fused_advect_native` (K5), the per-phase methods into the Field functions
+of `physics/advect.py` and `physics/fluid.py`, which reach the same kernels.
+The array layer's methods end in `_native` and take JAX's raw layout:
+``velocity`` is a tuple of the face components as
+``velocity.vector[d].values.native(order)`` gives them — in the closed box
 N−1 interior faces on the own axis, in the periodic box N — and ``smoke`` and
-``pressure`` are (N,)·dims float32.
+``pressure`` are (N,)·dims float32. `state_fields` / `state_natives` cross
+between the two without a copy.
 """
 from __future__ import annotations
 
@@ -25,10 +32,14 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..field import CenteredGrid, Field, StaggeredGrid, resample
 from ..field._resample import sample_grid_at_centers
+from ..geom import Box, Sphere
+from ..math import ConvergenceException, Solve, dual, extrapolation, stack
 from ..math._nd import BOUNDARY, PERIODIC
 from ..ops.advect3d import OutSpec, Source, fused_advect_3d
 from ..physics import advect, fluid
+from ._fields import cell_native, cell_values, staggered_natives, staggered_values
 
 __all__ = ['SmokePlume', 'state_from_numpy', 'state_to_numpy']
 
@@ -63,7 +74,21 @@ class SmokePlume:
             raise NotImplementedError("max_cells=None is the unbounded gather lookup (no window "
                                       "kernel): it comes with a later slice of the port")
         self.device = resolve_device(device)
+        names = ['x', 'y', 'z'][:dims]
+        sizes = {n: resolution for n in names}
         size = float(resolution) if size is None else float(size)
+        bounds = Box(**{n: size for n in names})
+        self.buoyancy_dir = tuple(0. if i < dims - 1 else buoyancy for i in range(dims))
+        inflow_center = {n: size / 2 for n in names}
+        inflow_center[names[-1]] = size / 8
+        self.inflow = Sphere(radius=size / 10, **inflow_center)
+        v_bc = extrapolation.PERIODIC if periodic else 0.
+        s_bc = extrapolation.PERIODIC if periodic else extrapolation.BOUNDARY
+        self.velocity0 = StaggeredGrid(0., v_bc, bounds=bounds, **sizes)
+        self.smoke0 = CenteredGrid(0., s_bc, bounds=bounds, **sizes)
+        self.pressure0 = CenteredGrid(0., extrapolation.PERIODIC if periodic else extrapolation.BOUNDARY,
+                                      bounds=bounds, **sizes)
+        self._names = names
         self.dims = dims
         self.periodic = periodic
         self.dt = dt
@@ -93,7 +118,7 @@ class SmokePlume:
             comps.append(tuple(shape))
         return comps, N
 
-    def initial_state(self) -> Tuple[Velocity, torch.Tensor, torch.Tensor]:
+    def initial_state_native(self) -> Tuple[Velocity, torch.Tensor, torch.Tensor]:
         comps, N = self._shapes()
         zeros = lambda shape: torch.zeros(shape, dtype=torch.float32, device=self.device)
         return tuple(zeros(s) for s in comps), zeros(N), zeros(N)
@@ -107,13 +132,13 @@ class SmokePlume:
     # ------------------------------------------------------------------
     # the fused path: both advection phases through three calls of K5
     # ------------------------------------------------------------------
-    def _fused_advect_available(self, velocity: Velocity, smoke: torch.Tensor) -> bool:
+    def _fused_advect_available_native(self, velocity: Velocity, smoke: torch.Tensor) -> bool:
         """JAX's gate: 3D, a bounded window, and a grid the fused kernel
         supports (`_fused_advect_supported`)."""
         return (self.dims == 3 and self.max_cells is not None
                 and _fused_advect_supported((self._resolution,) * 3, self.max_cells))
 
-    def _fused_advect(self, velocity: Velocity, smoke: torch.Tensor) -> Tuple[Velocity, torch.Tensor]:
+    def _fused_advect_native(self, velocity: Velocity, smoke: torch.Tensor) -> Tuple[Velocity, torch.Tensor]:
         """Both advection phases through three fused calls. Returns (velocity', smoke')."""
         N = (self._resolution,) * 3
         K = self.max_cells
@@ -145,7 +170,7 @@ class SmokePlume:
     # ------------------------------------------------------------------
     # the per-phase path: K6 (3D) / K7 (2D) through physics/advect.py
     # ------------------------------------------------------------------
-    def _inflow_mask_values(self, smoke: torch.Tensor) -> torch.Tensor:
+    def _inflow_mask_values_native(self, smoke: torch.Tensor) -> torch.Tensor:
         """Soft inflow mask: the fraction of each cell inside the inflow
         sphere, a smooth band one cell wide; coordinates are physical,
         (i+½)·dx. Built once per model and device."""
@@ -161,24 +186,25 @@ class SmokePlume:
             self._inflow_mask = torch.clamp(0.5 + (self._inflow_radius - dist) / dx, 0., 1.)
         return self._inflow_mask
 
-    def advect_smoke(self, velocity: Velocity, smoke: torch.Tensor) -> torch.Tensor:
+    def advect_smoke_native(self, velocity: Velocity, smoke: torch.Tensor) -> torch.Tensor:
         """Phase 1: MacCormack smoke advection + soft inflow."""
         adv = advect.mac_cormack_native(smoke, velocity, self.dt, self._dx, PERIODIC if self.periodic else BOUNDARY,
-                                 self.periodic, max_cells=self.max_cells)
-        return adv + self.inflow_rate * self._inflow_mask_values(smoke)
+                                        self.periodic, max_cells=self.max_cells)
+        return adv + self.inflow_rate * self._inflow_mask_values_native(smoke)
 
-    def advect_velocity(self, velocity: Velocity, smoke: torch.Tensor) -> Velocity:
+    def advect_velocity_native(self, velocity: Velocity, smoke: torch.Tensor) -> Velocity:
         """Phase 2: semi-Lagrangian self-advection + buoyancy. Buoyancy acts
         along the last axis only, so the smoke is averaged onto that
         component's faces alone."""
-        adv = advect.semi_lagrangian_native(velocity, velocity, self.dt, self._dx, PERIODIC if self.periodic else 0.0,
-                                     self.periodic, max_cells=self.max_cells)
+        adv = advect.semi_lagrangian_native(velocity, velocity, self.dt, self._dx,
+                                            PERIODIC if self.periodic else 0.0, self.periodic,
+                                            max_cells=self.max_cells)
         up = self.dims - 1
         lift = sample_grid_at_centers(smoke * (self.buoyancy * self.dt), None, up,
                                       PERIODIC if self.periodic else BOUNDARY, self.periodic)
         return tuple(c + lift if d == up else c for d, c in enumerate(adv))
 
-    def project(self, velocity: Velocity, pressure: Optional[torch.Tensor]):
+    def project_native(self, velocity: Velocity, pressure: Optional[torch.Tensor]):
         """Phase 3: pressure projection (MG-preconditioned CG); the solve's
         result is kept in `last_solve`."""
         velocity, pressure, self.last_solve = fluid.make_incompressible_native(
@@ -186,10 +212,86 @@ class SmokePlume:
             max_iterations=self.max_iterations, periodic=self.periodic)
         return velocity, pressure
 
-    def step(self, velocity: Velocity, smoke: torch.Tensor, pressure: Optional[torch.Tensor]):
+    def step_native(self, velocity: Velocity, smoke: torch.Tensor, pressure: Optional[torch.Tensor]):
         if not self._state_matches(velocity, smoke):
             raise ValueError("state does not match this model's float32 layout "
                              f"(components {self._shapes()[0]}, cells {self._shapes()[1]})")
+        if self._fused_advect_available_native(velocity, smoke):
+            velocity, smoke = self._fused_advect_native(velocity, smoke)
+        else:
+            smoke = self.advect_smoke_native(velocity, smoke)
+            velocity = self.advect_velocity_native(velocity, smoke)
+        velocity, pressure = self.project_native(velocity, pressure)
+        return velocity, smoke, pressure
+
+    # ------------------------------------------------------------------
+    # JAX's face: Fields, unwrapping into the array layer above
+    # ------------------------------------------------------------------
+    def initial_state(self) -> Tuple[Field, Field, Field]:
+        from . import to_device
+        return to_device((self.velocity0, self.smoke0, self.pressure0), self.device)
+
+    def state_fields(self, velocity: Velocity, smoke: torch.Tensor, pressure: Optional[torch.Tensor]):
+        """The array state as JAX's Fields, the tensors kept as they are; a
+        pressure of None stays None."""
+        return (self.velocity0.with_values(staggered_values(self.velocity0, velocity)),
+                self.smoke0.with_values(cell_values(self.smoke0, smoke)),
+                None if pressure is None else self.pressure0.with_values(cell_values(self.pressure0, pressure)))
+
+    def state_natives(self, velocity: Field, smoke: Field, pressure: Optional[Field]):
+        """The Fields' raw tensors: (face components, smoke, pressure)."""
+        return staggered_natives(velocity), cell_native(smoke), None if pressure is None else cell_native(pressure)
+
+    def _inflow_mask_values(self, smoke: Field) -> Field:
+        """The soft inflow mask of `_inflow_mask_values_native` as a Field on the smoke's grid."""
+        return smoke.with_values(cell_values(smoke, self._inflow_mask_values_native(cell_native(smoke))))
+
+    def _in_model_layout(self, velocity: Field, smoke: Field) -> bool:
+        """Whether the Fields lie on this model's grid under its boundaries —
+        the layout `_fused_advect_native` takes."""
+        v_bc = extrapolation.PERIODIC if self.periodic else extrapolation.ZERO
+        s_bc = extrapolation.PERIODIC if self.periodic else extrapolation.BOUNDARY
+        return (velocity.is_grid and smoke.is_grid and velocity.is_staggered and smoke.is_centered
+                and velocity.geometry == self.velocity0.geometry == smoke.geometry
+                and velocity.boundary == v_bc and smoke.boundary == s_bc
+                and not velocity.values.shape.batch and not smoke.values.shape.batch)
+
+    def _fused_advect_available(self, velocity: Field, smoke: Field) -> bool:
+        """JAX's gate on Fields. Its `pallas_ok()` term is the kernel's
+        presence, which the port always has: on the CPU the plain twin is the
+        CUDA kernel's oracle and runs in its place."""
+        return self._in_model_layout(velocity, smoke) and self._fused_advect_available_native(
+            staggered_natives(velocity), cell_native(smoke))
+
+    def _fused_advect(self, velocity: Field, smoke: Field):
+        """Both advection phases through three fused calls of K5
+        (`_fused_advect_native` on the Fields' tensors). Returns (velocity', smoke')."""
+        new_velocity, new_smoke = self._fused_advect_native(staggered_natives(velocity), cell_native(smoke))
+        return (velocity.with_values(staggered_values(velocity, new_velocity)),
+                smoke.with_values(cell_values(smoke, new_smoke)))
+
+    def advect_smoke(self, velocity: Field, smoke: Field) -> Field:
+        """Phase 1: MacCormack smoke advection + soft inflow."""
+        return advect.mac_cormack(smoke, velocity, self.dt, max_cells=self.max_cells) + \
+            self.inflow_rate * self._inflow_mask_values(smoke)
+
+    def advect_velocity(self, velocity: Field, smoke: Field) -> Field:
+        """Phase 2: buoyancy + semi-Lagrangian self-advection. Buoyancy acts
+        along the last axis only, so only that face component takes the lift."""
+        adv = advect.semi_lagrangian(velocity, velocity, self.dt, max_cells=self.max_cells)
+        up = self._names[-1]
+        lift = resample(smoke * (self.buoyancy_dir[-1] * self.dt), to=adv.vector[up])
+        comps = [adv.vector[d].values + lift.values if d == up else adv.vector[d].values
+                 for d in self._names]
+        return adv.with_values(stack(comps, dual(vector=self._names)))
+
+    def project(self, velocity: Field, pressure: Optional[Field]):
+        """Phase 3: pressure projection (MG-preconditioned CG)."""
+        return fluid.make_incompressible(
+            velocity, (), Solve('CG', self.cg_tol, 0., x0=pressure, max_iterations=self.max_iterations,
+                                suppress=(ConvergenceException,)))
+
+    def step(self, velocity: Field, smoke: Field, pressure: Optional[Field]):
         if self._fused_advect_available(velocity, smoke):
             velocity, smoke = self._fused_advect(velocity, smoke)
         else:

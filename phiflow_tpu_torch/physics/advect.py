@@ -34,7 +34,9 @@ clamp in registers.
 
 `points_native` (`:109-117`) and `finite_rk4_native` (`:50-61`) move the
 particles of the FLIP model through a closed-box staggered velocity, NaN
-velocities (the unset cells of a FLIP grid) counting as zero.
+velocities (the unset cells of a FLIP grid) counting as zero. Their Field
+faces `points` and `finite_rk4` take a point cloud and unwrap into them; the
+`euler` integrator of a point cloud looks the velocity up at its points.
 """
 from __future__ import annotations
 
@@ -42,14 +44,18 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
-from ..field._field import face_components, face_values
+from ..field._field import Field, face_components, face_values
 from ..field._field_math import _array_layout, _dx_tuple, _layout, _native_extrap, _plain_values
-from ..field._resample import sample, sample_grid_at_centers, sample_staggered_at_points
+from ..field._point_cloud import PointCloud
+from ..field._resample import sample, sample_grid_at_centers, sample_staggered_at_points, staggered_point_arrays
+from ..geom import Geometry
+from ..geom._geom import flat_points
 from ..math import Tensor, dual, stack, _ops as ops
 from ..math._nd import PERIODIC, Extrapolation, component_extrapolation, shift_window_interp
 
-__all__ = ['euler', 'semi_lagrangian', 'mac_cormack', 'max_displacement_cells', 'semi_lagrangian_native',
-           'mac_cormack_native', 'max_displacement_cells_native', 'finite_rk4_native', 'points_native']
+__all__ = ['euler', 'finite_rk4', 'points', 'semi_lagrangian', 'mac_cormack', 'max_displacement_cells',
+           'semi_lagrangian_native', 'mac_cormack_native', 'max_displacement_cells_native', 'finite_rk4_native',
+           'points_native']
 
 Grid = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -210,12 +216,38 @@ def euler(field, velocity, dt: float, v0=None):
     return field.points + dt * v0
 
 
+def finite_rk4(field, velocity, dt: float, v0=None):
+    """4th-order Runge–Kutta end points of a point cloud's points in the
+    staggered `velocity`, non-finite velocities taken as zero
+    (`finite_rk4_native`): a Tensor of the points' shape."""
+    if v0 is not None:
+        raise NotImplementedError("finite_rk4 from a caller's v0 comes with a later slice of the port")
+    if not field.is_point_cloud:
+        raise NotImplementedError("finite_rk4 of a grid Field comes with a later slice of the port")
+    comps, dx = staggered_point_arrays(velocity)
+    flat, like = flat_points(field.points)
+    return like(finite_rk4_native(flat, comps, dt, dx))
+
+
+def points(points_, velocity, dt: float, integrator=euler):
+    """Lagrangian advection of a point cloud (or a geometry or a Tensor of
+    points): the geometry moved to the integrator's end points."""
+    field = points_ if isinstance(points_, Field) else PointCloud(points_)
+    lookup = integrator(field, velocity, dt)
+    new_elements = field.geometry.at(lookup)
+    result = field.with_geometry(new_elements)
+    if isinstance(points_, Field):
+        return result
+    return result.geometry if isinstance(points_, Geometry) else result.center
+
+
 def _check_field_step(field, max_cells, substeps, integrator):
     if substeps == 'auto':
         raise NotImplementedError("substeps='auto' picks the substep count on the device; it comes with a later "
                                   "slice of the port (pass a fixed count)")
     if not field.is_grid:
-        raise NotImplementedError("advection of a non-grid Field (points: `points_native`) comes with a later slice")
+        raise NotImplementedError("semi_lagrangian / mac_cormack of a non-grid Field: a point cloud moves with "
+                                  "`points`")
     if max_cells is None:
         raise NotImplementedError("max_cells=None is the unbounded gather lookup; it comes with a later slice")
     if integrator is not euler:

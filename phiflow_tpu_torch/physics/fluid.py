@@ -6,7 +6,8 @@ obstacles (`Obstacle`, `apply_boundary_conditions`) and free surfaces.
 `apply_boundary_conditions(velocity, obstacles)` take Fields with JAX's
 signatures and unwrap into the array layer's `make_incompressible_native` and
 `apply_boundary_conditions_native` on the raw face components, described
-below. The solve's tolerances, `x0` and `max_iterations` carry through; the
+below. `boundary_push(particles, obstacles, separation)` moves a point
+cloud's points with each geometry's `push` (`box_push` for boxes). The solve's tolerances, `x0` and `max_iterations` carry through; the
 pressure comes back as a Field, the solve's `SolveInfo` on every active
 `SolveTape`, and `NotConverged` / `Diverged` are raised unless the solve
 suppresses them. The divergence is balanced and the solve's rank deficiency
@@ -62,8 +63,9 @@ from ..math._nd import BOUNDARY, PERIODIC as PERIODIC_EXTRAPOLATION, Extrapolati
 from ..math._solve import Solve, SolveResult, cg, check_method, finish_solve, sub_mean
 from ..ops.poisson import NEUMANN, PERIODIC, poisson_apply, stage_masks
 
-__all__ = ['Obstacle', 'make_incompressible', 'apply_boundary_conditions', 'make_incompressible_native',
-           'apply_boundary_conditions_native', 'boundary_push_native', 'MASKED_PRECONDITIONER']
+__all__ = ['Obstacle', 'make_incompressible', 'apply_boundary_conditions', 'boundary_push',
+           'make_incompressible_native', 'apply_boundary_conditions_native', 'boundary_push_native',
+           'MASKED_PRECONDITIONER']
 
 MASKED_PRECONDITIONER = 'chebyshev'  # 'chebyshev' | 'vcycle' | None — the masked systems' preconditioner
 
@@ -496,3 +498,15 @@ def apply_boundary_conditions(velocity, obstacles):
     comps = apply_boundary_conditions_native([c.torch(names) for c in _faces(velocity)], obstacles, dx,
                                              periodic)
     return velocity.with_values(_component_values(velocity, comps))
+
+
+def boundary_push(particles, obstacles, separation: float = 0.5):
+    """Push a point cloud's points out of the obstacles — `~bounds` pulls them
+    back into the domain — each geometry's `push` in turn, to `separation`
+    from its surface."""
+    pos = particles.geometry.center
+    for obj in obstacles:
+        geometry = obj.geometry if isinstance(obj, Obstacle) else obj
+        assert isinstance(geometry, Geometry), f"expected Geometry, got {type(obj)}"
+        pos = geometry.push(pos, shift_amount=separation)
+    return particles.with_geometry(particles.geometry.at(pos))

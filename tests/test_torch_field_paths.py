@@ -99,7 +99,7 @@ def field_step(model: SmokePlume, v, s, p, inflow):
 
 
 def _inflow(model, s):
-    return s.with_values(math.wrap(model._inflow_mask_values(s.values.native(s.resolution.names)), s.resolution))
+    return s.with_values(math.wrap(model._inflow_mask_values_native(s.values.native(s.resolution.names)), s.resolution))
 
 
 def _arrays(v, s, p):
@@ -136,9 +136,9 @@ def test_field_step_matches_jax_and_array_layer(kwargs):
             jv, js, jp = jax_step(jv, js, jp)
             jax.block_until_ready(jp.values.native())
             assert tape[0].iterations == jtape.solve_infos[-1].runtime_stats['iterations']
-            ts = model.advect_smoke(tv, ts)
-            tv = model.advect_velocity(tv, ts)
-            tv, tp = model.project(tv, tp)
+            ts = model.advect_smoke_native(tv, ts)
+            tv = model.advect_velocity_native(tv, ts)
+            tv, tp = model.project_native(tv, tp)
             assert tape[0].iterations == model.last_solve.iterations
             got_v, got_s, got_p = _arrays(v, s, p)
             assert all(np.array_equal(g, r.numpy()) for g, r in zip(got_v, tv)), "velocity differs from the array layer"

@@ -230,7 +230,7 @@ def _run_both(R, dims, steps, ppc=8, cg_tol=1e-5, velocities=False):
     model = FlipLiquid(R, dims=dims, points_per_cell=ppc, cg_tol=cg_tol, max_iterations=500, device='cpu')
     assert np.array_equal(model.positions0, _jax_positions(jm.particles0))
     jstate = jm.initial_state()
-    state = model.initial_state()
+    state = model.initial_state_native()
     if velocities:
         vel = _smooth_velocities(model.positions0, R, amp=0.5)
         jstate = (_jax_particles(jm, model.positions0, vel), jstate[1])
@@ -239,7 +239,7 @@ def _run_both(R, dims, steps, ppc=8, cg_tol=1e-5, velocities=False):
     iterations = []
     for _ in range(steps):
         jstate = step(jstate)
-        state = model.step(*state)
+        state = model.step_native(*state)
         iterations.append(model.last_solve.iterations)
     return jstate, state, iterations
 
@@ -284,10 +284,10 @@ def test_flip_3d_step_is_sane():
     r = 12
     model = FlipLiquid(r, dims=3, block=(2 / r, 6 / r, 2 / r, 6 / r, 2 / r, 8 / r), points_per_cell=2,
                        max_iterations=500, device='cpu')
-    state = model.initial_state()
+    state = model.initial_state_native()
     z0 = float(state[0][0][:, 2].mean())
     for _ in range(2):
-        state = model.step(*state)
+        state = model.step_native(*state)
     (pos, vel), pressure = state
     assert pos.shape == vel.shape == (model.positions0.shape[0], 3) and pressure.shape == (r,) * 3
     assert bool(torch.isfinite(pos).all())
@@ -305,7 +305,7 @@ def test_flip_state_numpy_round_trip_and_checks():
     assert all(np.array_equal(a, b) for a, b in zip(arrays, state_to_numpy(state)))
     model = FlipLiquid(8, dims=3, device='cpu')
     with pytest.raises(ValueError, match='particles'):
-        model.step((pos, vel[:, :2]), pressure)
+        model.step_native((pos, vel[:, :2]), pressure)
     with pytest.raises(ValueError, match='dims'):
         FlipLiquid(8, dims=1, device='cpu')
 

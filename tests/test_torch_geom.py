@@ -18,7 +18,7 @@ from phiflow_tpu.physics.fluid import _accessible_extrapolation as jax_accessibl
 
 from phiflow_tpu_torch.field import (angular_velocity_at_faces, cell_grid, geometry_mask, safe_mul_native, stagger_native,
                                      staggered_cells)
-from phiflow_tpu_torch.geom import Box, Cuboid, Sphere, UniformGrid_native, rotation_matrix, union
+from phiflow_tpu_torch.geom import Box, Cuboid, Sphere, UniformGrid_native, rotation_matrix, rotation_matrix_native, union
 from phiflow_tpu_torch.math import PERIODIC
 from phiflow_tpu_torch.physics.fluid import _accessible_extrapolation
 
@@ -151,11 +151,15 @@ def test_face_grids_have_jax_bounds_and_radius():
 
 @pytest.mark.parametrize('angle', [0.6, (0.3, -0.5, 0.8), (0., 0., 1.1)], ids=['2d', '3d-euler', '3d-about-z'])
 def test_rotation_matrix_matches_jax(angle):
-    """Within 1e-7: cos and sin come from two libraries."""
+    """Within 1e-7: cos and sin come from two libraries. JAX's signature
+    returns a host Tensor (~vector, vector), `rotation_matrix_native` its numpy array."""
     d = 2 if np.ndim(angle) == 0 else 3
     ref = jax_rotation_matrix(angle if d == 2 else _vec(angle), ORDER[:d])
     ref = np.asarray(ref.native(('~vector', 'vector')))
-    got = rotation_matrix(angle, d)
+    tensor = rotation_matrix(angle, ORDER[:d])
+    got = tensor.native(('~vector', 'vector'))
+    assert tensor.shape.get_labels('vector') == ORDER[:d] and tensor.shape.get_labels('~vector') == ORDER[:d]
+    assert np.array_equal(got, rotation_matrix_native(angle, d))
     assert got.dtype == np.float32 and got.shape == (d, d)
     assert float(np.abs(got - ref).max()) <= 1e-7
     assert float(np.abs(got @ got.T - np.eye(d)).max()) <= 1e-6

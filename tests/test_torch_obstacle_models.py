@@ -51,11 +51,11 @@ def moving_trajectory():
     """Four steps of MovingObstacles(64) from rest in both packages."""
     jm = JaxMovingObstacles(resolution=64, dt=0.5)
     model = MovingObstacles(resolution=64, dt=0.5, device='cpu')
-    jstate, state = jm.initial_state(), model.initial_state()
+    jstate, state = jm.initial_state(), model.initial_state_native()
     step = jax.jit(lambda *s: jm.step(*s))
     states, solves = [], []
     for _ in range(4):
-        jstate, state = step(*jstate), model.step(*state)
+        jstate, state = step(*jstate), model.step_native(*state)
         states.append((jstate, state))
         solves.append(model.last_solve)
     return model, states, solves
@@ -103,7 +103,7 @@ def test_moving_obstacle_wraps_periodically():
     """20 + 5 · 0.5 · 40 = 120 → wraps to 20; the centre equals the JAX model's."""
     model = MovingObstacles(resolution=32, dt=0.5, device='cpu')
     jm = JaxMovingObstacles(resolution=32, dt=0.5)
-    o1, jo1 = model.initial_state()[2], jm.initial_state()[2]
+    o1, jo1 = model.initial_state_native()[2], jm.initial_state()[2]
     for _ in range(40):
         o1, jo1 = model.move_obstacle(o1), jm.move_obstacle(jo1)
     np.testing.assert_allclose(o1.geometry.center, [20., 80.], atol=1e-3)
@@ -122,7 +122,7 @@ def test_moving_obstacles_state_round_trip_and_default_device(monkeypatch):
     assert np.array_equal(pressure, arrays[1].astype(np.float32))
     assert centres.tolist() == [[31., 42.], [5., 6.]]
     assert state[2].velocity.tolist() == [5., 0.] and state[2].geometry.half_size.tolist() == [20., 20.]
-    out = model.step(*state)
+    out = model.step_native(*state)
     assert len(out) == 4 and all(bool(torch.isfinite(t).all()) for t in (*out[0], out[1]))
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     for make in (MovingObstacles, LidDrivenCavity):
@@ -148,10 +148,10 @@ def test_cavity_three_steps_match_jax(obstacle):
     each of 3 steps (measured: 1e-8; the lid's flow is still slow)."""
     jm = JaxCavity(resolution=48, obstacle=obstacle)
     model = LidDrivenCavity(resolution=48, obstacle=obstacle, device='cpu')
-    jstate, state = jm.initial_state(), model.initial_state()
+    jstate, state = jm.initial_state(), model.initial_state_native()
     step = jax.jit(jm.step)
     for _ in range(3):
-        jstate, state = step(*jstate), model.step(*state)
+        jstate, state = step(*jstate), model.step_native(*state)
         assert model.last_solve.converged
         for got, ref in zip(state[0], _components(jstate[0])):
             assert got.shape == ref.shape

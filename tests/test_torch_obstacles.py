@@ -344,9 +344,9 @@ def cavity_state():
     """The lid-driven cavity with its obstacle after two steps, advected and
     diffused once more: the velocity a projection starts from."""
     model = LidDrivenCavity(48, obstacle=True, device='cpu')
-    v, p = model.initial_state()
+    v, p = model.initial_state_native()
     for _ in range(2):
-        v, p = model.step(v, p)
+        v, p = model.step_native(v, p)
     v = advect.semi_lagrangian_native(v, v, model.dt, 1.0, model.boundary, velocity_extrap=model.boundary)
     return model, diffuse.explicit_native(v, model.viscosity, model.dt, 1.0, model.boundary), p
 

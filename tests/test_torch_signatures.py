@@ -1,14 +1,18 @@
 """Every public name that the JAX package's `phiflow_tpu.math`,
-`phiflow_tpu.field` or `phiflow_tpu.physics.{advect,diffuse,fluid}` exports
-and the port exports too takes the JAX package's signature: the same
-parameters, kinds and defaults. The port's array-level functions that held
-such a name carry the suffix `_native`."""
+`phiflow_tpu.field`, `phiflow_tpu.geom` or
+`phiflow_tpu.physics.{advect,diffuse,fluid}` exports and the port exports too
+takes the JAX package's signature: the same parameters, kinds and defaults.
+The models' constructors, `initial_state` and `step` take JAX's parameters
+first, then only the port's `device` (and `seed` for `FlipLiquid`). The
+port's array-level functions and model methods that held such a name carry
+the suffix `_native`."""
 import importlib
 import inspect
 
 import pytest
 
 PAIRS = [('phiflow_tpu.math', 'phiflow_tpu_torch.math', False), ('phiflow_tpu.field', 'phiflow_tpu_torch.field', False),
+         ('phiflow_tpu.geom', 'phiflow_tpu_torch.geom', False),
          ('phiflow_tpu.physics.advect', 'phiflow_tpu_torch.physics.advect', True),
          ('phiflow_tpu.physics.diffuse', 'phiflow_tpu_torch.physics.diffuse', True),
          ('phiflow_tpu.physics.fluid', 'phiflow_tpu_torch.physics.fluid', True)]
@@ -50,13 +54,49 @@ def test_shared_names_take_jax_signatures(jax_name, port_name, by_all):
     assert not mismatched, mismatched
 
 
+MODELS = [('SmokePlume', ()), ('FlipLiquid', ('device', 'seed')), ('LidDrivenCavity', ()), ('MovingObstacles', ())]
+
+
+@pytest.mark.parametrize('model,extra', MODELS, ids=[m for m, _ in MODELS])
+def test_models_take_jax_signatures(model, extra):
+    """`__init__`, `initial_state` and `step`: JAX's parameters in JAX's
+    order, kinds and defaults, then `device` (and `seed`) only."""
+    a = getattr(importlib.import_module('phiflow_tpu.models'), model)
+    b = getattr(importlib.import_module('phiflow_tpu_torch.models'), model)
+    for method, added in (('__init__', extra or ('device',)), ('initial_state', ()), ('step', ())):
+        ref, got = _signature(getattr(a, method)), _signature(getattr(b, method))
+        assert got[:len(ref)] == ref, (model, method)
+        assert [p[0] for p in got[len(ref):]] == list(added), (model, method)
+
+
+def _attribute(module, path):
+    obj = module
+    for part in path.split('.'):
+        obj = getattr(obj, part)
+    return obj
+
+
 @pytest.mark.parametrize('module,names', [
-    ('phiflow_tpu_torch.physics.advect', ['semi_lagrangian', 'mac_cormack', 'max_displacement_cells']),
+    ('phiflow_tpu_torch.physics.advect', ['semi_lagrangian', 'mac_cormack', 'max_displacement_cells', 'points',
+                                          'finite_rk4']),
     ('phiflow_tpu_torch.physics.diffuse', ['explicit']),
-    ('phiflow_tpu_torch.physics.fluid', ['make_incompressible', 'apply_boundary_conditions']),
-    ('phiflow_tpu_torch.field', ['divergence', 'spatial_gradient', 'stagger', 'laplace', 'safe_mul', 'finite_fill']),
-], ids=['advect', 'diffuse', 'fluid', 'field'])
+    ('phiflow_tpu_torch.physics.fluid', ['make_incompressible', 'apply_boundary_conditions', 'boundary_push']),
+    ('phiflow_tpu_torch.field', ['divergence', 'spatial_gradient', 'stagger', 'laplace', 'safe_mul', 'finite_fill',
+                                 'distribute_points']),
+    ('phiflow_tpu_torch.geom', ['rotation_matrix']),
+    ('phiflow_tpu_torch.models', [f'{m}.{n}' for m in ('SmokePlume', 'FlipLiquid', 'LidDrivenCavity', 'MovingObstacles')
+                                  for n in ('initial_state', 'step')]
+     + [f'SmokePlume.{n}' for n in ('advect_smoke', 'advect_velocity', 'project', '_fused_advect',
+                                    '_fused_advect_available', '_inflow_mask_values')]),
+], ids=['advect', 'diffuse', 'fluid', 'field', 'geom', 'models'])
 def test_array_level_functions_carry_native(module, names):
     mod = importlib.import_module(module)
     for name in names:
-        assert callable(getattr(mod, name)) and callable(getattr(mod, name + '_native')), name
+        assert callable(_attribute(mod, name)) and callable(_attribute(mod, name + '_native')), name
+
+
+def test_flip_phases_are_array_level():
+    """FLIP's phases have no JAX counterpart; they work on arrays and say so."""
+    from phiflow_tpu_torch.models import FlipLiquid
+    for name in ('particles_to_grid', 'project', 'grid_to_particles'):
+        assert callable(getattr(FlipLiquid, name + '_native')) and not hasattr(FlipLiquid, name), name

@@ -19,10 +19,10 @@ def test_three_steps_match_jax():
     jax_model = JaxSmoke(resolution=N, dims=3, cg_tol=1e-5, max_iterations=200)
     jv, js, jp = jax_model.initial_state()
     model = SmokePlume(resolution=N, dims=3, cg_tol=1e-5, max_iterations=200, device='cpu')
-    v, s, p = model.initial_state()
+    v, s, p = model.initial_state_native()
     for _ in range(3):
         jv, js, jp = jax_model.step(jv, js, jp)
-        v, s, p = model.step(v, s, p)
+        v, s, p = model.step_native(v, s, p)
     assert float(np.abs(s.numpy() - np.asarray(js.values.native(ORDER))).max()) < 2e-4
     for d, dim in enumerate(ORDER):
         ref = np.asarray(jv.vector[dim].values.native(ORDER))
@@ -46,7 +46,7 @@ def test_state_numpy_round_trip():
 
 def test_initial_state_layout():
     N = 8
-    (vx, vy, vz), smoke, pressure = SmokePlume(resolution=N, dims=3, device='cpu').initial_state()
+    (vx, vy, vz), smoke, pressure = SmokePlume(resolution=N, dims=3, device='cpu').initial_state_native()
     assert [tuple(t.shape) for t in (vx, vy, vz)] == [(N - 1, N, N), (N, N - 1, N), (N, N, N - 1)]
     assert tuple(smoke.shape) == tuple(pressure.shape) == (N, N, N)
 

@@ -70,9 +70,9 @@ def test_advection_phases_match_jax(kwargs):
     jv, js, _ = _jax_state(jax_model, vel, smoke)
     tv, ts, _ = state_from_numpy(*vel, smoke, smoke, device='cpu')
     js_new = jax_model.advect_smoke(jv, js)
-    ts_new = model.advect_smoke(tv, ts)
+    ts_new = model.advect_smoke_native(tv, ts)
     jv_new = jax_model.advect_velocity(jv, js_new)
-    tv_new = model.advect_velocity(tv, ts_new)
+    tv_new = model.advect_velocity_native(tv, ts_new)
     ref_v, ref_s = _jax_arrays(jv_new, js_new)
     assert _max_err(ts_new.numpy(), ref_s) < 1e-5
     for d in range(model.dims):
@@ -88,12 +88,12 @@ def test_three_steps_match_jax(kwargs):
     jax_model = JaxSmoke(**kw)
     model = SmokePlume(device='cpu', **kw)
     jv, js, jp = jax_model.initial_state()
-    v, s, p = model.initial_state()
+    v, s, p = model.initial_state_native()
     names = _names(model.dims)
     for _ in range(3):
         with SolveTape(record_runtime=True) as tape:
             jv, js, jp = jax_model.step(jv, js, jp)
-        v, s, p = model.step(v, s, p)
+        v, s, p = model.step_native(v, s, p)
         assert model.last_solve.iterations == tape.solve_infos[-1].runtime_stats['iterations']
     ref_v, ref_s = _jax_arrays(jv, js)
     *got_v, got_s, got_p = state_to_numpy((v, s, p))
@@ -116,8 +116,13 @@ def test_fused_periodic_step_matches_jax_per_phase():
     vel, smoke = _smooth_arrays(model, seed=5, amp=1.8)
     jv, js, _ = _jax_state(jax_model, vel, smoke)
     tv, ts, _ = state_from_numpy(*vel, smoke, smoke, device='cpu')
-    assert model._fused_advect_available(tv, ts)
-    tv_new, ts_new = model._fused_advect(tv, ts)
+    assert model._fused_advect_available_native(tv, ts)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # torch.sqrt in shared worker threads ran off after JAX's import (ROADMAP §3)
+    try:
+        tv_new, ts_new = model._fused_advect_native(tv, ts)
+    finally:
+        torch.set_num_threads(threads)
     js_new = jax_model.advect_smoke(jv, js)
     jv_new = jax_model.advect_velocity(jv, js_new)
     ref_v, ref_s = _jax_arrays(jv_new, js_new)
@@ -141,18 +146,18 @@ def test_step_gate(monkeypatch, kwargs, fused):
     assert fused == (kwargs['dims'] == 3 and jadvect3d.supported(N, kwargs.get('max_cells', 1)))
     model = SmokePlume(device='cpu', **kwargs)
     calls = []
-    state = model.initial_state()
+    state = model.initial_state_native()
 
     def stub(name, result):
         def fn(*args):
             calls.append(name)
             return result
         return fn
-    monkeypatch.setattr(model, '_fused_advect', stub('fused', (state[0], state[1])))
-    monkeypatch.setattr(model, 'advect_smoke', stub('smoke', state[1]))
-    monkeypatch.setattr(model, 'advect_velocity', stub('velocity', state[0]))
-    monkeypatch.setattr(model, 'project', stub('project', (state[0], state[2])))
-    model.step(*state)
+    monkeypatch.setattr(model, '_fused_advect_native', stub('fused', (state[0], state[1])))
+    monkeypatch.setattr(model, 'advect_smoke_native', stub('smoke', state[1]))
+    monkeypatch.setattr(model, 'advect_velocity_native', stub('velocity', state[0]))
+    monkeypatch.setattr(model, 'project_native', stub('project', (state[0], state[2])))
+    model.step_native(*state)
     assert calls == (['fused', 'project'] if fused else ['smoke', 'velocity', 'project'])
 
 
@@ -161,11 +166,11 @@ def test_state_layout_and_round_trip(kwargs):
     model = SmokePlume(device='cpu', **kwargs)
     jv, js, jp = JaxSmoke(**kwargs).initial_state()
     ref_v, ref_s = _jax_arrays(jv, js)
-    v, s, p = model.initial_state()
+    v, s, p = model.initial_state_native()
     assert [tuple(c.shape) for c in v] == [a.shape for a in ref_v]
     assert tuple(s.shape) == tuple(p.shape) == ref_s.shape
     vel, smoke = _smooth_arrays(model, seed=9)
     state = state_from_numpy(*vel, smoke, smoke, device='cpu')
     assert all(np.array_equal(a, b) for a, b in zip((*vel, smoke, smoke), state_to_numpy(state)))
     with pytest.raises(ValueError, match='layout'):
-        model.step(tuple(c[..., :-1] for c in state[0]), state[1], state[2])
+        model.step_native(tuple(c[..., :-1] for c in state[0]), state[1], state[2])
