@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py           # all phases, one card
     python3 chip_smoke.py --quick   # build + kernel-versus-twin checks at the small shapes only
-    python3 chip_smoke.py --profile # all phases, then torch.profiler over 3 steps of each path (4-field too),
+    python3 chip_smoke.py --profile # all phases, then torch.profiler over 3 steps of each path (4-field too,
+                                    # Burgers 128² and Kolmogorov 512² Field and native steps),
                                     # K2 and K3 at every level of the 256³ V-cycle, K1 at 256³ and
                                     # K1m at 256³ (obstacle masks) and 128³ (active) with each x-chunk
 
@@ -104,7 +105,18 @@ Phases; any failure exits non-zero and prints no result:
      MovingObstacles(256) and LidDrivenCavity(256, obstacle=True), their
      Field `step`: ms per step, CG iterations, K7 launched (their masked
      stencil is PyTorch operations, as every 2D stencil; they are small for
-     the card); and
+     the card); then the 2D grid models, the last two of the JAX benchmark:
+     K7 on Burgers' own first-step inputs (`halo='wrap'`, K = 2, the ±2 clamp
+     reached) against its twin and timed there; Burgers(128, implicit=True)
+     and Burgers(128), their Field `step` (ms per step, CG iterations a step,
+     K7 exactly 2 launches a step and nothing else of ours, finite values);
+     KolmogorovFlow(512, order=6, dt=0.002) in float32 (TF32 asserted off)
+     and float64 (`set_global_precision(64)`), 1 warm-up step and 3 / 2 timed
+     (ms per step, CG iterations a solve, max |divergence| of order 6, no
+     kernel of ours launched, finite values); Burgers 128² (both diffusions,
+     1e-3 abs) and Kolmogorov 64² order 6 (1e-4 of each field's scale, CG
+     counts at most 1 apart, each step whose solves all converged) 2 steps
+     from one numpy state on the CPU and on the card; and
      K1m's, K6's and K8's launches a step × (device − bound) on each path
      that runs them (`gaps` lines);
   5. 2 steps from one numpy state on the CPU (the twins) and on the card (the
@@ -1903,6 +1915,220 @@ def run_model_2d(tag, model, warmup=2, steps=5):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the 2D grid models: Burgers (K7, wrap, K = 2) and KolmogorovFlow (no kernel of ours)
+# ---------------------------------------------------------------------------
+
+BURGERS_N = 128          # bench.py's Burgers(128, implicit=True)
+BURGERS_K7_PER_STEP = 2  # the window of each velocity component, halo 'wrap', K = 2
+KOLMOGOROV_N = 512       # bench.py's KolmogorovFlow(512, order=6, dt=0.002), float32 and float64
+KOLMOGOROV_DT = 0.002
+
+
+def check_burgers_k7(ch, model):
+    """K7 on the Burgers path's own first-step inputs: each velocity
+    component at its displacement (−dt·v)/dx, halo 'wrap', K = 2 (the clamp
+    reached all over the grid), against its twin at check_interp's value
+    tolerance; then timed there. These launches are comparisons: the path's
+    count starts from 0 after them."""
+    import torch
+    from phiflow_tpu_torch.ops import interp as I
+    (v,) = model.initial_state()
+    comps = [c.contiguous() for c in model.state_natives(v)]
+    disps = [(-model.dt * c) / h for c, h in zip(comps, model._dx)]
+    cells = max(float(d.abs().max()) for d in disps)
+    clamped = float(sum((d.abs() > 2).float().mean() for d in disps)) / len(disps)
+    for a, c in enumerate(comps):
+        got = I.window_interp_2d(c, disps, 2, halo='wrap')
+        ref = I._window_interp_plain(c, disps, 2, False, (1.0, 1.0), 'wrap', 0.0)
+        case = f'Burgers {model.resolution}^2 first step, v_{"xy"[a]}: wrap K=2'
+        ch.compare('window_interp_2d', case, got, ref, 1e-5)
+    print(f'note  window_interp_2d Burgers {model.resolution}^2 first step: max |displacement| {cells:.2f} cells, '
+          f'{clamped:.1%} of the taps clamped to +-2')
+    c = comps[0]
+    ops = (2 ** 2 * 3 + 8 * 2) * c.numel()
+    ch.time('window_interp_2d', f'Burgers velocity component: wrap halo, {tuple(c.shape)} K=2',
+            lambda: I.window_interp_2d(c, disps, 2, halo='wrap'),
+            lambda: I._window_interp_plain(c, disps, 2, False, (1.0, 1.0), 'wrap', 0.0),
+            nbytes(c, *disps) + nbytes(c), ops, key='window_interp_2d burgers')
+    ch.attach('window_interp_2d', ['window_interp_2d burgers'])
+
+
+def run_burgers(tag, implicit, warmup=2, steps=5):
+    """Burgers(128) on the card through its Field `step`: ms a step, CG
+    iterations a step, K7 exactly 2 launches a step and no other kernel of
+    ours, finite values."""
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.models import Burgers
+    from phiflow_tpu_torch.ops import _build
+    model = Burgers(BURGERS_N, implicit=implicit, device='cuda')
+    (v,) = model.initial_state()
+    for _ in range(warmup):
+        (v,) = model.step(v)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with math.SolveTape() as tape:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            (v,) = model.step(v)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = dict(_build.LAUNCHES, steps=steps)
+    comps = model.state_natives(v)
+    finite = all(bool(torch.isfinite(c).all()) for c in comps)
+    v_max = max(float(c.abs().max()) for c in comps)
+    others = {k: n for k, n in launches.items() if k not in ('window_interp_2d', 'steps') and n}
+    print(f'{tag} {BURGERS_N}^2: {ms:.2f} ms/step over {steps} Field steps after {warmup} warm-up steps; CG '
+          f'iterations per step {[info.iterations for info in tape]}, converged {[info.converged for info in tape]}; '
+          f'launches per step: window_interp_2d={launches.get("window_interp_2d", 0) / steps:g} (expected '
+          f'{BURGERS_K7_PER_STEP}), others {others}; max |v| {v_max:.3f}; all finite: {finite}')
+    if launches.get('window_interp_2d', 0) != BURGERS_K7_PER_STEP * steps or others or not finite or v_max == 0:
+        raise RuntimeError(f'{tag}: window_interp_2d launched {launches.get("window_interp_2d", 0)} times in {steps} '
+                           f'steps, others {others}, finite={finite}')
+    return launches
+
+
+def run_kolmogorov(tag, bits, warmup=1, steps=3):
+    """KolmogorovFlow(512, order=6, dt=0.002) on the card through its Field
+    `step`, its values of `bits` (`math.set_global_precision`): ms a step,
+    CG iterations a solve, max |divergence| (order 6) after the last step, no
+    kernel of ours launched, finite values. Float32 products without TF32."""
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import divergence
+    from phiflow_tpu_torch.models import KolmogorovFlow
+    from phiflow_tpu_torch.ops import _build
+    if torch.backends.cuda.matmul.allow_tf32 is not False or torch.get_float32_matmul_precision() != 'highest':
+        raise RuntimeError('TF32 is on for float32 matrix products: the order-6 operators need full float32')
+    math.set_global_precision(bits)
+    try:
+        model = KolmogorovFlow(KOLMOGOROV_N, order=6, dt=KOLMOGOROV_DT, device='cuda')
+        v, p = model.initial_state()
+        for _ in range(warmup):
+            v, p = model.step(v, p)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with math.SolveTape() as tape:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                v, p = model.step(v, p)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / steps * 1e3
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        comps, pressure = model.state_natives(v, p)
+        div = float(divergence(v, order=6).values.native(('x', 'y')).abs().max())
+    finally:
+        math.set_global_precision(32)
+    finite = all(bool(torch.isfinite(t).all()) for t in (*comps, pressure))
+    print(f'{tag} {KOLMOGOROV_N}^2 order 6 float{bits} ({comps[0].dtype}): {ms:.2f} ms/step over {steps} Field steps '
+          f'after {warmup} warm-up step(s); CG iterations per solve {[info.iterations for info in tape]}, converged '
+          f'{[info.converged for info in tape]}; max |div| (order 6) {div:.3e}; max |v| '
+          f'{max(float(c.abs().max()) for c in comps):.3f}; kernels of ours launched: {launches or "none"}; '
+          f'all finite: {finite}')
+    if launches or not finite or comps[0].dtype != (torch.float64 if bits == 64 else torch.float32):
+        raise RuntimeError(f'{tag}: launches {launches}, finite={finite}, dtype {comps[0].dtype}')
+    return dict(steps=steps)
+
+
+def grid_models_cpu_vs_card(steps=2):
+    """Burgers 128² (both diffusions; 1e-3 abs) and Kolmogorov 64² order 6
+    (1e-4 of the field's scale, CG counts at most 1 apart, each step whose
+    solves all converged): `steps` Field steps from one numpy state on the
+    CPU and on the card."""
+    import numpy as np
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.models import Burgers, KolmogorovFlow
+    from phiflow_tpu_torch.models import burgers as burgers_mod, kolmogorov as kolmogorov_mod
+    for implicit in (False, True):
+        init = burgers_mod.state_to_numpy(Burgers(BURGERS_N, implicit=implicit, device='cpu').initial_state_native())
+        out = {}
+        for dev in ('cpu', 'cuda'):
+            model = Burgers(BURGERS_N, implicit=implicit, device=dev)
+            with math.default_device(dev), math.SolveTape() as tape:
+                (v,) = model.state_fields(burgers_mod.state_from_numpy(init, device=dev))
+                for _ in range(steps):
+                    (v,) = model.step(v)
+            out[dev] = burgers_mod.state_to_numpy(model.state_natives(v)), [info.iterations for info in tape]
+        err = max(float(np.abs(a - b).max()) for a, b in zip(out['cpu'][0], out['cuda'][0]))
+        scale = max(float(np.abs(a).max()) for a in out['cpu'][0])
+        apart = max([abs(a - b) for a, b in zip(out['cpu'][1], out['cuda'][1])] or [0])
+        ok = err <= 1e-3 and apart <= 1
+        print(f'cpu vs card, Burgers {BURGERS_N}^2 implicit={implicit}, {steps} Field steps from one numpy state: '
+              f'max |diff| {err:.2e} (field scale {scale:.2f}, {err / scale:.2e} of it); CG iterations cpu '
+              f'{out["cpu"][1]} card {out["cuda"][1]}; tol 1e-03 abs {"ok" if ok else "FAIL"}')
+        if not ok:
+            raise RuntimeError(f'CPU and card disagree (Burgers implicit={implicit}): {err}')
+    # the wide stencil's float32 solves may stall above cg_tol (both packages: roundoff in the null-space modes
+    # the mean removal leaves, ROADMAP.md §3), and an unconverged solve ends anywhere: a step is compared while
+    # every solve up to it converged on both sides
+    n = 64
+    init = kolmogorov_mod.state_to_numpy(KolmogorovFlow(n, order=6, device='cpu').initial_state_native())
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        model = KolmogorovFlow(n, order=6, dt=KOLMOGOROV_DT, device=dev)
+        out[dev] = []
+        with math.default_device(dev):
+            v, p = model.state_fields(*kolmogorov_mod.state_from_numpy(*init, device=dev))
+            for _ in range(steps):
+                with math.SolveTape() as tape:
+                    v, p = model.step(v, p)
+                out[dev].append((kolmogorov_mod.state_to_numpy(model.state_natives(v, p)),
+                                 [info.iterations for info in tape], all(info.converged for info in tape)))
+    compared = 0
+    for k, ((cpu_state, cpu_it, cpu_ok), (card_state, card_it, card_ok)) in enumerate(zip(out['cpu'], out['cuda'])):
+        if not (cpu_ok and card_ok):
+            print(f'cpu vs card, Kolmogorov {n}^2 order 6, step {k + 1}: a solve stopped unconverged at '
+                  f'max_iterations (CG iterations cpu {cpu_it} card {card_it}); not compared from here on')
+            break
+        (vc, pc), (vg, pg) = cpu_state, card_state
+        rel = {name: float(np.abs(a - b).max()) / max(float(np.abs(a).max()), 1e-30)
+               for name, a, b in (('vx', vc[0], vg[0]), ('vy', vc[1], vg[1]), ('pressure', pc, pg))}
+        apart = max(abs(a - b) for a, b in zip(cpu_it, card_it))
+        ok = max(rel.values()) <= 1e-4 and apart <= 1
+        print(f'cpu vs card, Kolmogorov {n}^2 order 6, step {k + 1} from one numpy state: max |diff| / field scale '
+              + ', '.join(f'{name} {e:.2e}' for name, e in rel.items())
+              + f'; CG iterations cpu {cpu_it} card {card_it} (at most 1 apart); tol 1e-04 ' + ('ok' if ok else 'FAIL'))
+        if not ok:
+            raise RuntimeError(f'CPU and card disagree (Kolmogorov step {k + 1}): {rel}, CG iterations {cpu_it} and '
+                               f'{card_it}')
+        compared += 1
+    if not compared:
+        raise RuntimeError('Kolmogorov CPU vs card: no step whose solves all converged')
+
+
+def run_grid_models(ch):
+    """The "2D grid models" phase: K7 on Burgers' own inputs, the two
+    Burgers configurations, Kolmogorov in float32 and float64, then CPU
+    against the card. Returns the launch counts by path."""
+    from phiflow_tpu_torch.models import Burgers
+    t0 = time.perf_counter()
+    check_burgers_k7(ch, Burgers(BURGERS_N, implicit=True, device='cuda'))
+    by_path = {'burgers-implicit': run_burgers('burgers-implicit', True),
+               'burgers-explicit': run_burgers('burgers-explicit', False),
+               'kolmogorov-f32': run_kolmogorov('kolmogorov-f32', 32),
+               'kolmogorov-f64': run_kolmogorov('kolmogorov-f64', 64, steps=2)}
+    grid_models_cpu_vs_card()
+    print(f'2D grid models: {time.perf_counter() - t0:.1f} s')
+    if ch.failed:
+        raise RuntimeError(f'kernel checks failed: {ch.failed}')
+    return by_path
+
+
+def profile_grid_models():
+    """Burgers(128, implicit=True)'s Field step, and KolmogorovFlow(512,
+    order=6)'s float32 Field step beside its `step_native`."""
+    from phiflow_tpu_torch.models import Burgers, KolmogorovFlow
+    model = Burgers(BURGERS_N, implicit=True, device='cuda')
+    profile_path('burgers-implicit', f'{BURGERS_N}^2', lambda state: model.step(*state), model.initial_state(),
+                 rows_shown=8)
+    model = KolmogorovFlow(KOLMOGOROV_N, order=6, dt=KOLMOGOROV_DT, device='cuda')
+    profile_path('kolmogorov-f32', f'{KOLMOGOROV_N}^2', lambda state: model.step(*state), model.initial_state(),
+                 warmup=1, steps=2, rows_shown=8)
+    profile_path('kolmogorov-f32 native', f'{KOLMOGOROV_N}^2', lambda state: model.step_native(*state),
+                 model.initial_state_native(), warmup=1, steps=2, rows_shown=8)
+
+
 def print_path_gaps(ch, by_path):
     """K1m's, K6's and K8's launches a step on each path that runs them ×
     (device − bound) of the row timed at that path's shape: K1m's coefficient
@@ -2043,6 +2269,7 @@ def main(argv):
     from phiflow_tpu_torch.models import LidDrivenCavity, MovingObstacles
     by_path['moving-obstacles-2d'] = run_model_2d('moving-obstacles-2d', MovingObstacles(256, device='cuda'))
     by_path['cavity-2d'] = run_model_2d('cavity-2d', LidDrivenCavity(256, obstacle=True, device='cuda'))
+    by_path.update(run_grid_models(ch))
     print_path_gaps(ch, by_path)
     cpu_vs_card('fused', 3, 64, False)
     cpu_vs_card('per-phase', 3, 64, True)
@@ -2061,6 +2288,7 @@ def main(argv):
             profile_flip(f'flip-{N}', N)
         profile_obstacles(f'obstacle-{OBSTACLE_N}', OBSTACLE_N)
         profile_obstacles(f'obstacle-{OBSTACLE_N}-vcycle', OBSTACLE_N, 'vcycle')
+        profile_grid_models()
         time_smooth_chunks(gen)
         time_march_chunks(gen)
     rows = []

@@ -1,6 +1,6 @@
 """ΦFlow-TPU's PyTorch/CUDA port (`phiflow_tpu_torch`).
 
-The JAX package `phiflow_tpu` stays the reference. This package mirrors four
+The JAX package `phiflow_tpu` stays the reference. This package mirrors six
 of its models — with JAX's Field-level faces: `initial_state()` returns
 Fields and `step(...)` takes and returns them, through the Field API of
 `math`, `geom`, `field` and `physics` — and below them the array layer
@@ -17,7 +17,12 @@ projects with the liquid's cells active (the masked stencil of
 particles are a point-cloud Field. Obstacles
 (`geom/`, `physics/fluid.py::Obstacle`) enter `make_incompressible` as masks
 staged into the same stencil's coefficient arrays; `models.MovingObstacles`
-and `models.LidDrivenCavity` are the 2D models built on it. The array
+and `models.LidDrivenCavity` are the 2D models built on it. `models.Burgers`
+advects a centred periodic velocity through the 2D window kernel and diffuses
+it explicitly or by CG; `models.KolmogorovFlow` integrates a forced periodic
+flow with RK4, order-6 compact finite differences (dense per-axis operator
+matrices, `field/_stencil1d.py`) and a wide-stencil projection in each stage,
+with no kernel of the port's on its path. The array
 layer's hot loops are hand-written CUDA kernels for Hopper (`csrc/*.cu`,
 built with `nvcc` at first use by `ops/_build.py`). Every kernel has a
 plain PyTorch twin in the same module; a wrapper takes the twin only for

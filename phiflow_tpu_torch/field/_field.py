@@ -13,6 +13,9 @@ A point cloud is a Field on a `Point` or `Sphere` geometry whose centre is a
 Tensor of points with an instance dim (`field/_point_cloud.py`); `points` and
 `center` are that Tensor, `with_geometry` moves the points.
 
+A `FieldInitializer` (such as `Noise`) or a callable of the sample points
+given as values is sampled at the grid's cells (`field/_resample.py::sample`).
+
 Meshes and graphs as Fields come with a later slice.
 """
 from __future__ import annotations
@@ -31,7 +34,15 @@ from ..math._magic import BoundDim, slicing_dict
 from ..math._shape import Dim, CHANNEL
 from ..geom import Box, Geometry, Point, Sphere, UniformGrid
 
-__all__ = ['Field', 'as_boundary', 'is_staggered', 'face_components', 'face_values']
+__all__ = ['Field', 'FieldInitializer', 'as_boundary', 'is_staggered', 'face_components', 'face_values']
+
+
+class FieldInitializer:
+    """The protocol of analytic initializers such as `Noise`: a Field built
+    from one samples it with `_sample(geometry, at, boundaries)`."""
+
+    def _sample(self, geometry: Geometry, at: str, boundaries: Extrapolation, **kwargs) -> Tensor:
+        raise NotImplementedError(type(self))
 
 
 def as_boundary(obj, geometry=None) -> Extrapolation:
@@ -352,6 +363,22 @@ class Field:
 
     def dimension(self, name):
         return BoundDim(self, name)
+
+    # --- the differential operators of `_field_math` ---
+    def gradient(self, boundary=None, at='center', dims=None, stack_dim=channel('vector'),
+                 order=2, implicit=None, scheme=None, upwind=None, gradient_extrapolation=None):
+        from ._field_math import spatial_gradient
+        return spatial_gradient(self, gradient_extrapolation if gradient_extrapolation is not None else boundary,
+                                at=at, dims=dims, stack_dim=stack_dim, order=order, implicit=implicit, upwind=upwind)
+
+    def divergence(self, order=2, implicit=None, upwind=None):
+        from ._field_math import divergence
+        return divergence(self, order=order, implicit=implicit, upwind=upwind)
+
+    def laplace(self, axes=None, gradient=None, order=2, implicit=None, weights=None, upwind=None, correct_skew=True):
+        from ._field_math import laplace
+        return laplace(self, axes=axes, gradient=gradient, order=order, implicit=implicit, weights=weights,
+                       upwind=upwind, correct_skew=correct_skew)
 
     def __getattr__(self, name):
         if name.startswith('_'):

@@ -12,13 +12,17 @@ faces 1..N−1 along axis d (N−1 entries); the outer faces carry the wall's ze
 normal velocity. Periodic: component d holds faces 0..N−1, face N ≡ face 0.
 
 The Field layer, with JAX's signatures: `divergence`, `spatial_gradient`,
-`stagger`, `laplace`, `where`, `is_finite`, `maximum`, `minimum`, `clip`,
-`safe_mul`, `finite_fill`, `mean`, `mask`. Each unwraps to the array-level function of
-the same job, with one cell size per axis; a case that function does not cover
-(another face layout, a subset of the dims for staggered values, a boundary
-with no array-layer form, dims beyond the grid's and one channel dim) raises
+`stagger`, `laplace`, `fourier_laplace`, `fourier_poisson`, `where`,
+`is_finite`, `maximum`, `minimum`, `clip`, `safe_mul`, `finite_fill`, `mean`,
+`mask`. Each unwraps to the array-level function of the same job, with one
+cell size per axis; a case that function does not cover (another face
+layout, a subset of the dims for staggered values, a boundary with no
+array-layer form, dims beyond the grid's and one channel dim) raises
 NotImplementedError. The central differences of `spatial_gradient(at='center')`
-have no array-level counterpart and are computed on the Tensors.
+(order 2, and order 4 over ghost cells on a periodic box, `:107-121`, `:66-79`
+for the Laplacian) have no array-level counterpart and are computed on the
+Tensors; orders 4 and 6 elsewhere go through the operator matrices of
+`_higher_order.py` (the divergence of a centred grid too, `:265-276`).
 """
 from __future__ import annotations
 
@@ -33,8 +37,9 @@ from ..math._nd import Extrapolation, PerSide, masked_fill_native, pad, shift_ze
 from ._field import Field, as_boundary, face_components, face_values
 
 __all__ = ['divergence_native', 'spatial_gradient_native', 'finite_fill_native', 'stagger_native', 'safe_mul_native',
-           'laplace_native', 'divergence', 'spatial_gradient', 'stagger', 'laplace', 'where', 'is_finite', 'maximum',
-           'minimum', 'clip', 'safe_mul', 'finite_fill', 'mean', 'mask']
+           'laplace_native', 'divergence', 'spatial_gradient', 'stagger', 'laplace', 'fourier_laplace',
+           'fourier_poisson', 'where', 'is_finite', 'maximum', 'minimum', 'clip', 'safe_mul', 'finite_fill', 'mean',
+           'mask']
 
 
 def _per_axis(dx, ndim: int) -> tuple:
@@ -226,21 +231,65 @@ def _staggered(field, comps, boundary):
                                              dual(vector=field.resolution.names)), boundary)
 
 
+def _dx(field, dim):
+    """The cell size along `dim`: a host Tensor."""
+    return field.dx.vector[dim]
+
+
+def _axes_periodic(field, dims) -> bool:
+    """Whether `field.boundary` is periodic on both sides of every dim of `dims`."""
+    from ._stencil1d import classify_side
+    return all(classify_side(field.boundary, d, False) == 'periodic' and
+               classify_side(field.boundary, d, True) == 'periodic' for d in dims)
+
+
+def _use_ghost_pad_order4(field, dims) -> bool:
+    """Order 4 takes the ghost-cell stencil where the boundary is periodic
+    (exact there) or has no matrix form; the other boundaries take the
+    operator matrices of `_higher_order`, one-sided at the walls."""
+    from ._higher_order import _axis_bc
+    if _axes_periodic(field, dims):
+        return True
+    return any(_axis_bc(field, d) is None for d in dims)
+
+
+def _ghost_pad_taps(field, dim):
+    """(v[i−2], v[i−1], v[i], v[i+1], v[i+2]) along `dim`, ghost cells from the field's boundary."""
+    v = field.values
+    padded = ops.pad(v, {dim: (2, 2)}, field.boundary, bounds=field.bounds)
+    n = v.shape.get_size(dim)
+    return tuple(padded[{dim: slice(k, n + k)}] for k in range(5))
+
+
 def laplace(field, axes=None, gradient=None, order=2, implicit=None, weights=None, upwind=None, correct_skew=True):
-    """Δf of a centred grid, order 2, with ghost cells from `field.boundary`
-    (`laplace_native` per channel entry); its boundary is the gradient's
-    (`spatial_gradient()` of the field's)."""
-    if order != 2 or gradient is not None or implicit is not None or upwind is not None:
-        raise NotImplementedError("laplace of order 2 only: higher orders, gradients and implicit or upwind "
-                                  "schemes come with a later slice of the port")
+    """Δf of a centred grid. Order 2: `laplace_native` per channel entry
+    with ghost cells from `field.boundary`; order 4 on a periodic box: the
+    central stencil (−1, 16, −30, 16, −1) / (12 dx²) over ghost cells; other
+    orders and boundaries: `higher_order_laplace` (the compact scheme at
+    order 6). Its boundary is the gradient's (`spatial_gradient()` of the
+    field's)."""
+    if gradient is not None or upwind is not None:
+        raise NotImplementedError("laplace with a gradient Field or an upwind scheme comes with a later slice of "
+                                  "the port")
     assert field.is_grid and field.is_centered, f"laplace requires a centered grid, got {field}"
     names = field.resolution.names
-    axes = [names.index(n) for n in (axes or names) if n in names]
+    dims = [n for n in (axes or names) if n in names]
     if isinstance(weights, Field):
         weights = weights.at(field).values if weights.geometry != field.geometry else weights.values
-    extrap = _native_extrap(field.boundary, names)
-    dx = _dx_tuple(field)
-    result = _grid_values(field.values, names, lambda v: laplace_native(v, dx, extrap, axes))
+    if order == 2:
+        extrap = _native_extrap(field.boundary, names)
+        dx = _dx_tuple(field)
+        axes = [names.index(n) for n in dims]
+        result = _grid_values(field.values, names, lambda v: laplace_native(v, dx, extrap, axes))
+    elif order == 4 and implicit is None and _use_ghost_pad_order4(field, dims):
+        result = None
+        for dim in dims:
+            m2, m1, ce, p1, p2 = _ghost_pad_taps(field, dim)
+            term = (-m2 + 16 * m1 - 30 * ce + 16 * p1 - p2) / (12 * _dx(field, dim) ** 2)
+            result = term if result is None else result + term
+    else:
+        from ._higher_order import higher_order_laplace
+        return higher_order_laplace(field, order=order, implicit=implicit)
     if weights is not None:
         result = result * weights
     return Field(field.geometry, result, field.boundary.spatial_gradient())
@@ -248,19 +297,24 @@ def laplace(field, axes=None, gradient=None, order=2, implicit=None, weights=Non
 
 def spatial_gradient(field, boundary=None, at: str = 'center', dims=None, stack_dim=channel('vector'), order=2,
                      implicit=None, upwind=None, scheme=None):
-    """∇f of a centred grid, order 2: central differences at the centres
-    (stacked along `stack_dim`, default `vector`), or the differences of
-    neighbours at the faces (``at='face'``: `spatial_gradient_native`, a
-    staggered grid whose components follow the gradient's boundary)."""
-    if order != 2 or implicit is not None or upwind is not None:
-        raise NotImplementedError("spatial_gradient of order 2 only: higher orders and implicit or upwind schemes "
-                                  "come with a later slice of the port")
+    """∇f of a centred grid: at the centres (stacked along `stack_dim`,
+    default `vector`) by central differences — order 2, or order 4 over
+    ghost cells on a periodic box — or at the faces (``at='face'``, a
+    staggered grid whose components follow the gradient's boundary) by the
+    differences of neighbours (`spatial_gradient_native`); other orders and
+    boundaries through `higher_order_gradient` (the compact scheme at order
+    6)."""
+    if upwind is not None:
+        raise NotImplementedError("spatial_gradient with an upwind scheme comes with a later slice of the port")
     assert field.is_grid and field.is_centered, f"spatial_gradient requires a centred grid, got {field}"
     grad_ext = as_boundary(boundary, field.geometry) if boundary is not None else field.boundary.spatial_gradient()
     names = field.resolution.names
     dims = [n for n in (dims or names) if n in names]
     v = field.values
     if at == 'face':
+        if order > 2:
+            from ._higher_order import higher_order_gradient
+            return higher_order_gradient(field, grad_ext, at, dims, stack_dim, order, implicit)
         probe = Field(field.geometry, TensorStack([v] * len(names), dual(vector=names)), grad_ext)
         layout = _array_layout(probe, dims)
         if layout == 'periodic' and _native_form(field.boundary, names) != 'periodic':
@@ -274,9 +328,16 @@ def spatial_gradient(field, boundary=None, at: str = 'center', dims=None, stack_
         raise ValueError(at)
     comps = {}
     for dim in dims:
-        padded = ops.pad(v, {dim: (1, 1)}, field.boundary)
-        n = v.shape.get_size(dim)
-        comps[dim] = (padded[{dim: slice(2, n + 2)}] - padded[{dim: slice(0, n)}]) / (2 * field.dx.vector[dim])
+        if order == 2:
+            padded = ops.pad(v, {dim: (1, 1)}, field.boundary)
+            n = v.shape.get_size(dim)
+            comps[dim] = (padded[{dim: slice(2, n + 2)}] - padded[{dim: slice(0, n)}]) / (2 * _dx(field, dim))
+        elif order == 4 and _use_ghost_pad_order4(field, [dim]):
+            m2, m1, _, p1, p2 = _ghost_pad_taps(field, dim)
+            comps[dim] = (m2 - 8 * m1 + 8 * p1 - p2) / (12 * _dx(field, dim))
+        else:
+            from ._higher_order import higher_order_gradient
+            return higher_order_gradient(field, grad_ext, at, dims, stack_dim, order, implicit)
     return Field(field.geometry, stack(comps, stack_dim), grad_ext)
 
 
@@ -305,12 +366,15 @@ def stagger(field, face_function: Callable, boundary, at='face', dims=None):
 
 def divergence(field, order=2, implicit=None, upwind=None):
     """∇·v at the cell centres: of a staggered grid the differences of each
-    component's faces (`divergence_native`), of a centred vector grid central
-    differences."""
-    if order != 2 or implicit is not None or upwind is not None:
-        raise NotImplementedError("divergence of order 2 only comes with this slice of the port")
+    component's faces (`divergence_native`, order 2), of a centred vector
+    grid the sum of each component's derivative along its own axis
+    (`spatial_gradient` at the centres, orders 2, 4 and 6)."""
+    if upwind is not None:
+        raise NotImplementedError("divergence with an upwind scheme comes with a later slice of the port")
     names = field.resolution.names
     if field.is_staggered:
+        if order != 2 or implicit is not None:
+            raise NotImplementedError("the divergence of a staggered grid is of order 2, as in the JAX package")
         layout = _array_layout(field, names)
         if layout == 'closed' and not _normal_walls_at_rest(field):
             raise NotImplementedError(f"boundary {field.boundary!r}: walls with a normal velocity come with a later "
@@ -324,9 +388,22 @@ def divergence(field, order=2, implicit=None, upwind=None):
     result = None
     for dim in names:
         comp = Field(field.geometry, field.values[{'vector': dim}], field.boundary[{'vector': dim}])
-        term = spatial_gradient(comp, at='center', dims=[dim]).values[{'vector': 0}]
+        grad = spatial_gradient(comp, at='center', dims=[dim], order=order, stack_dim=channel('_div'))
+        term = grad.values[{'_div': 0}]
         result = term if result is None else result + term
     return Field(field.geometry, result, field.boundary.spatial_gradient())
+
+
+def fourier_laplace(grid, times=1):
+    """The exact Laplacian of a periodic centred grid (`math.fourier_laplace`)."""
+    from ..math._nd import fourier_laplace as _fourier_laplace
+    return grid.with_values(_fourier_laplace(grid.values, grid.dx, times=times))
+
+
+def fourier_poisson(grid, times=1):
+    """The zero-mean inverse Laplacian of a periodic centred grid (`math.fourier_poisson`)."""
+    from ..math._nd import fourier_poisson as _fourier_poisson
+    return grid.with_values(_fourier_poisson(grid.values, grid.dx, times=times))
 
 
 def where(mask, field_true, field_false):

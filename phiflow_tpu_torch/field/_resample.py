@@ -53,7 +53,7 @@ from ..math import Tensor, channel, dual, expand, extrapolation, stack, to_float
 from ..math._extrapolation import ConstantExtrapolation
 from ..math._nd import Extrapolation, pad
 from ..ops.p2g import p2g_mean
-from ._field import Field, as_boundary, face_components, face_values
+from ._field import Field, FieldInitializer, as_boundary, face_components, face_values
 from ._field_math import _dx_tuple, _grid_values, _layout, _native_extrap, _plain_values
 from ._grid import expand_staggered
 
@@ -271,7 +271,8 @@ def sample(value, geometry, at: str = 'center', boundary=None, dot_face_normal=N
     """`value` sampled at the points of a grid (`geometry`: a UniformGrid or a
     grid Field), at its cell centres or (``at='face'``) its faces: a Tensor.
     Grid → grid between half-cell-shifted grids of one cell size (pad and
-    average), geometry → grid as a hard or ``soft`` mask, constants expanded."""
+    average), geometry → grid as a hard or ``soft`` mask, constants expanded,
+    a `FieldInitializer` by its `_sample`, a callable on the sample points."""
     if isinstance(geometry, Field):
         at = geometry.sampled_at
         geometry = geometry.geometry
@@ -287,6 +288,14 @@ def sample(value, geometry, at: str = 'center', boundary=None, dot_face_normal=N
         if at == 'face':
             return _sample_at_faces(lambda g: _geometry_mask(value, g, soft, balance), geometry, boundary)
         return _geometry_mask(value, geometry, soft, balance)
+    if isinstance(value, FieldInitializer):
+        if at == 'face' and dot_face_normal is not None:
+            return _sample_at_faces(lambda g: value._sample(g, 'center', boundary, **kwargs), geometry, boundary)
+        return value._sample(geometry, at, boundary, **kwargs)
+    if callable(value) and not isinstance(value, Field):
+        if at == 'face':
+            return _sample_at_faces(lambda g: _sample_function(value, g), geometry, boundary)
+        return _sample_function(value, geometry)
     if isinstance(value, (int, float, bool)):
         value = wrap(value)
     if isinstance(value, (tuple, list)):
@@ -296,8 +305,22 @@ def sample(value, geometry, at: str = 'center', boundary=None, dot_face_normal=N
             return expand_staggered(value, geometry.resolution, boundary or extrapolation.ZERO)
         return expand(value, geometry.resolution.without(value.shape.names))
     if isinstance(value, Field) and value.is_grid:
-        return _sample_grid_field(value, geometry, at, boundary, dot_face_normal)
+        return _sample_grid_field(value, geometry, at, boundary, dot_face_normal, **kwargs)
     raise NotImplementedError(f"sampling a {type(value).__name__} comes with a later slice of the port")
+
+
+def _sample_function(f, grid) -> Tensor:
+    """`f` of the grid's cell centres (a host Tensor with a `vector` dim),
+    or of their components when it takes one argument per axis: the values
+    on the host, as the JAX package computes them there."""
+    import inspect
+    points = grid.center
+    try:
+        n_params = len(inspect.signature(f).parameters)
+    except (TypeError, ValueError):
+        n_params = 1
+    result = f(points) if n_params == 1 else f(*[points.vector[i] for i in range(points.shape.get_size('vector'))])
+    return result if isinstance(result, Tensor) else wrap(result)
 
 
 def _geometry_mask(geom: Geometry, target, soft: bool, balance):
@@ -318,7 +341,8 @@ def _sample_at_faces(f_on_grid, geometry, boundary):
     return stack(comps, dual(vector=names))
 
 
-def _sample_grid_field(value, geometry, at: str, boundary, dot_face_normal, order: int = 2):
+def _sample_grid_field(value, geometry, at: str, boundary, dot_face_normal, order: int = 2, implicit=None,
+                       **_ignored):
     boundary = boundary if boundary is not None else value.boundary
     if order != 2:
         raise NotImplementedError("higher-order resampling comes with a later slice of the port")

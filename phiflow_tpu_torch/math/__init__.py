@@ -19,7 +19,7 @@ from ._tensor import (
     default_float, set_default_device, get_default_device, default_device,
 )
 from ._ops import (
-    zeros, ones, zeros_like, ones_like, linspace, arange, meshgrid,
+    zeros, ones, zeros_like, ones_like, seed, random_normal, random_uniform, linspace, arange, meshgrid,
     stack, unstack, concat, expand, rename_dims, pack_dims, unpack_dim, transpose, squeeze,
     abs_ as abs, sign, sqrt, exp, log, sin, cos, floor, ceil, round_ as round, is_finite, is_nan, is_inf,
     to_float, to_int32, to_int64, to_bool, cast, maximum, minimum, clip, where, safe_div, nan_to_0,
@@ -32,7 +32,8 @@ from ._extrapolation import Extrapolation, as_extrapolation
 from ._functional import jit_compile, jit_compile_linear, LinearFunction
 from ._solve import Solve, SolveInfo, SolveTape, solve_linear, copy_solve, SolveResult, cg
 from ._multigrid import make_poisson_vcycle
-from ._nd import BOUNDARY, PERIODIC, PerSide, masked_fill, masked_fill_native, shift_window_interp
+from ._nd import (BOUNDARY, PERIODIC, PerSide, masked_fill, masked_fill_native, shift_window_interp, fourier_laplace,
+                  fourier_poisson)
 
 PI = _np.pi
 INF = _np.inf

@@ -1,4 +1,5 @@
-"""Grid functions on raw tensors: `shift_window_interp` and `masked_fill`.
+"""Grid functions on raw tensors: `shift_window_interp` and `masked_fill`;
+and the spectral functions of periodic grids on named-dim Tensors.
 
 Window-shift interpolation of a grid at its own displaced lattice — port of
 `phiflow_tpu/math/_nd.py::shift_window_interp` (`:468-623`).
@@ -18,17 +19,25 @@ for that choice.
 `masked_fill_native` ports `masked_fill` (`:443-461`): the flood fill behind
 `field.finite_fill`, PyTorch operations on any device; `masked_fill` is the
 same on named-dim Tensors.
+
+`fourier_laplace` and `fourier_poisson` port the functions of those names
+(`:375-400`) with the helpers `_k_grids`, `_spectral_separable` and
+`_spectral_pointwise` (`:303-372`): a filter F⁻¹·diag(s(k))·F of a periodic
+grid, its spectrum built on the host in numpy as the JAX package builds it.
+The JAX package applies it as per-axis circulant or DFT matrices because its
+TPU runtime has no FFT; here `torch.fft` computes the same function.
 """
 from __future__ import annotations
 
 from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..ops.interp import window_interp_2d, window_interp_3d
 
 __all__ = ['BOUNDARY', 'PERIODIC', 'PerSide', 'pad', 'component_extrapolation', 'shift_window_interp', 'masked_fill',
-           'masked_fill_native', 'shift_zero']
+           'masked_fill_native', 'shift_zero', 'fourier_laplace', 'fourier_poisson']
 
 BOUNDARY, PERIODIC = 'boundary', 'periodic'
 
@@ -150,3 +159,90 @@ def masked_fill(values, valid, distance=1):
     order = values.shape.names
     filled, new_valid = masked_fill_native(values.torch(order), valid.torch(order, values.device), distance)
     return Tensor(filled, values.shape), Tensor(new_valid, values.shape)
+
+
+# ---------------------------------------------------------------------------
+# spectral filters of periodic grids
+# ---------------------------------------------------------------------------
+
+def _spectral_native(grid):
+    """The grid's native as a torch tensor (a host array on the default device)."""
+    from ._tensor import to_torch
+    return to_torch(grid.native())
+
+
+def _axis_spectrum(spectrum: np.ndarray, axis: int, like: torch.Tensor) -> torch.Tensor:
+    dtype = torch.float64 if like.dtype == torch.float64 else torch.float32
+    return torch.as_tensor(np.asarray(spectrum, np.float64), dtype=dtype, device=like.device).reshape(
+        [-1 if a == axis else 1 for a in range(like.ndim)])
+
+
+def _spectral_separable(grid, per_axis_spectra: dict, combine: str):
+    """F⁻¹·diag(Π_d s_d(k_d)) ·F (``combine='mul'``) or Σ_d F_d⁻¹·diag(s_d)·F_d
+    (``'sum'``) of `grid` along the dims of `per_axis_spectra`."""
+    from ._tensor import Tensor
+    native = _spectral_native(grid)
+    names = grid.shape.names
+    if combine == 'mul':
+        axes = [names.index(dim) for dim in per_axis_spectra]
+        factor = None
+        for dim, spec in per_axis_spectra.items():
+            f = _axis_spectrum(spec, names.index(dim), native)
+            factor = f if factor is None else factor * f
+        out = torch.fft.ifftn(torch.fft.fftn(native, dim=axes) * factor, dim=axes).real
+    else:
+        out = None
+        for dim, spec in per_axis_spectra.items():
+            axis = names.index(dim)
+            term = torch.fft.ifft(torch.fft.fft(native, dim=axis) * _axis_spectrum(spec, axis, native), dim=axis).real
+            out = term if out is None else out + term
+    return Tensor(out.to(native.dtype), grid.shape)
+
+
+def _spectral_pointwise(grid, factor_nd: np.ndarray, dims):
+    """F⁻¹·diag(factor)·F of `grid` over `dims`, `factor_nd` one entry per
+    wavenumber of those dims in the grid's order."""
+    from ._tensor import Tensor
+    native = _spectral_native(grid)
+    names = grid.shape.names
+    axes = [names.index(d) for d in dims]
+    fshape = [native.shape[a] if a in axes else 1 for a in range(native.ndim)]
+    dtype = torch.float64 if native.dtype == torch.float64 else torch.float32
+    factor = torch.as_tensor(np.asarray(factor_nd, np.float64), dtype=dtype, device=native.device).reshape(fshape)
+    out = torch.fft.ifftn(torch.fft.fftn(native, dim=axes) * factor, dim=axes).real
+    return Tensor(out.to(native.dtype), grid.shape)
+
+
+def _k_grids(grid, dx):
+    """Per-axis wavenumbers k_d (cycles per unit length) as numpy."""
+    dims = grid.shape.spatial.names
+    if hasattr(dx, 'native'):
+        dx_arr = np.asarray(dx.numpy(dx.shape.names), np.float64).reshape(-1)
+    else:
+        dx_arr = np.asarray(dx, np.float64).reshape(-1)
+    if dx_arr.size == 1:
+        dx_arr = np.repeat(dx_arr, len(dims))
+    return {d: np.fft.fftfreq(grid.shape.get_size(d), d=dx_arr[i]) for i, d in enumerate(dims)}
+
+
+def _k_squared(ks: dict) -> np.ndarray:
+    return sum(np.square(k).reshape([-1 if i == j else 1 for j in range(len(ks))]) for i, k in enumerate(ks.values()))
+
+
+def fourier_laplace(grid, dx, times=1):
+    """The exact Laplacian of a periodic grid, F⁻¹·(−(2πk)²)ⁿ·F: one sum of
+    per-axis filters for ``times=1``, the n-th power as one filter."""
+    ks = _k_grids(grid, dx)
+    if times == 1:
+        return _spectral_separable(grid, {d: -4 * np.pi ** 2 * k ** 2 for d, k in ks.items()}, 'sum')
+    return _spectral_pointwise(grid, (-4 * np.pi ** 2 * _k_squared(ks)) ** times, list(ks))
+
+
+def fourier_poisson(grid, dx, times=1):
+    """The zero-mean inverse Laplacian of a periodic grid: the filter
+    1 / (−(2πk)²)ⁿ with the k = 0 mode set to 0."""
+    ks = _k_grids(grid, dx)
+    lap = (-4 * np.pi ** 2 * _k_squared(ks)) ** times
+    with np.errstate(divide='ignore', invalid='ignore'):
+        inv = np.where(lap != 0, 1.0 / np.where(lap == 0, 1.0, lap), 0.0)
+    return _spectral_pointwise(grid, inv, list(ks))

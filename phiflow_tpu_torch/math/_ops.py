@@ -7,6 +7,7 @@ inputs are computed by torch on their device.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Sequence
 
@@ -18,11 +19,12 @@ from ._shape import (
     _resolve_filter, DimFilter, CHANNEL,
 )
 from ._tensor import (
-    Tensor, TensorStack, wrap, default_float, _broadcast, _align_native, _is_host, _meet, _host_to, _host,
-    _fix_host_dtype,
+    Tensor, TensorStack, wrap, default_float, get_default_device, _broadcast, _align_native, _is_host, _meet,
+    _host_to, _host, _fix_host_dtype,
 )
 
-__all__ = ['zeros', 'ones', 'zeros_like', 'ones_like', 'linspace', 'arange', 'meshgrid',
+__all__ = ['zeros', 'ones', 'zeros_like', 'ones_like', 'seed', 'random_normal', 'random_uniform', 'linspace', 'arange',
+           'meshgrid',
            'stack', 'unstack', 'concat', 'expand', 'rename_dims', 'pack_dims', 'unpack_dim', 'transpose', 'squeeze',
            'abs_', 'sign', 'sqrt', 'exp', 'log', 'sin', 'cos', 'floor', 'ceil', 'round_', 'is_finite', 'is_nan',
            'is_inf', 'to_float', 'to_int32', 'to_int64', 'to_bool', 'cast', 'maximum', 'minimum', 'clip', 'where',
@@ -59,6 +61,52 @@ def ones_like(t) -> Tensor:
         return TensorStack([ones_like(c) for c in t.components], t.stack_dim)
     n = t.native()
     return Tensor(np.ones_like(n) if _is_host(n) else torch.ones_like(n), t.shape)
+
+
+_GENERATOR = [None]
+
+
+def seed(s: int):
+    """Restart the random draws of `random_normal` / `random_uniform` from `s`."""
+    _GENERATOR[0] = torch.Generator().manual_seed(int(s))
+
+
+def _generator() -> torch.Generator:
+    if _GENERATOR[0] is None:
+        seed(0)
+    return _GENERATOR[0]
+
+
+@contextlib.contextmanager
+def using_generator(generator: torch.Generator):
+    """Draw from `generator` (a CPU `torch.Generator`) within the context:
+    a model that takes a seed draws its initial values from its own
+    generator, whatever was drawn before."""
+    old = _GENERATOR[0]
+    _GENERATOR[0] = generator
+    try:
+        yield generator
+    finally:
+        _GENERATOR[0] = old
+
+
+def _random(draw, shape: Shape, dtype) -> Tensor:
+    """`draw(generator, torch dtype)` on the CPU generator, so that a seed
+    gives the same numbers on every device, then on the default device."""
+    native = draw(_generator(), _torch_dtype(dtype or default_float()))
+    return Tensor(native.reshape(tuple(shape.sizes)).to(get_default_device()), shape)
+
+
+def random_uniform(*shape: Shape, low=0., high=1., dtype=None) -> Tensor:
+    s = concat_shapes(*shape)
+    if np.issubdtype(np.dtype(dtype or default_float()), np.integer):
+        return _random(lambda g, t: torch.randint(int(low), int(high), tuple(s.sizes), generator=g, dtype=t), s, dtype)
+    return _random(lambda g, t: torch.rand(tuple(s.sizes), generator=g, dtype=t) * (high - low) + low, s, dtype)
+
+
+def random_normal(*shape: Shape, dtype=None) -> Tensor:
+    s = concat_shapes(*shape)
+    return _random(lambda g, t: torch.randn(tuple(s.sizes), generator=g, dtype=t), s, dtype)
 
 
 def linspace(start, stop, dim: Shape) -> Tensor:

@@ -14,6 +14,9 @@ window interpolation, one array per component. `substeps='auto'`, the
 gather lookups (`max_cells=None`) and the integrators other than `euler` come
 with a later slice.
 
+`differential` (`:73-106`) is the term −(v·∇)u of a PDE's right-hand side,
+through the Field layer's `spatial_gradient` of orders 2, 4 and 6.
+
 The array layer (`*_native`) on raw tensors: grids by semi-Lagrangian and
 MacCormack lookups, particles by `points_native` with the `finite_rk4_native`
 integrator.
@@ -45,15 +48,16 @@ from typing import Sequence, Tuple, Union
 import torch
 
 from ..field._field import Field, face_components, face_values
-from ..field._field_math import _array_layout, _dx_tuple, _layout, _native_extrap, _plain_values
+from ..field._field_math import _array_layout, _dx_tuple, _layout, _native_extrap, _plain_values, spatial_gradient
 from ..field._point_cloud import PointCloud
 from ..field._resample import sample, sample_grid_at_centers, sample_staggered_at_points, staggered_point_arrays
 from ..geom import Geometry
 from ..geom._geom import flat_points
-from ..math import Tensor, dual, stack, _ops as ops
+from ..math import Tensor, channel, dual, stack, _ops as ops
 from ..math._nd import PERIODIC, Extrapolation, component_extrapolation, shift_window_interp
 
-__all__ = ['euler', 'finite_rk4', 'points', 'semi_lagrangian', 'mac_cormack', 'max_displacement_cells',
+__all__ = ['euler', 'finite_rk4', 'points', 'differential', 'finite_difference', 'semi_lagrangian', 'mac_cormack',
+           'max_displacement_cells',
            'semi_lagrangian_native', 'mac_cormack_native', 'max_displacement_cells_native', 'finite_rk4_native',
            'points_native']
 
@@ -241,6 +245,39 @@ def points(points_, velocity, dt: float, integrator=euler):
     return result.geometry if isinstance(points_, Geometry) else result.center
 
 
+def differential(u, velocity, density: float = 1., order=2, implicit=None, upwind=True):
+    """The advection term −(v·∇)u of a PDE's right-hand side on a grid: of a
+    centred `u` with the centred gradient of `order` (2, 4 or 6) and the
+    velocity at u's cells; of a staggered `u` component by component, the
+    velocity sampled at each component's faces."""
+    names = u.resolution.names
+    if u.is_grid and u.is_centered:
+        grad = spatial_gradient(u, at='center', order=order, stack_dim=channel('_gradient'))
+        vel_c = velocity.at(u, order=order, implicit=implicit) \
+            if (velocity.geometry != u.geometry or velocity.is_staggered) else velocity
+        total = None
+        for i, d in enumerate(names):
+            term = vel_c.values[{'vector': d}] * grad.values[{'_gradient': i}]
+            total = term if total is None else total + term
+        return Field(u.geometry, -total * density, u.boundary)
+    if u.is_grid and u.is_staggered:
+        comps = []
+        for dim in names:
+            comp = u.vector[dim]
+            grad = spatial_gradient(comp, at='center', order=order, stack_dim=channel('_gradient'))
+            vel_at = sample(velocity, comp.geometry, at='center', order=order, implicit=implicit)
+            total = None
+            for i, d in enumerate(names):
+                term = vel_at[{'vector': d}] * grad.values[{'_gradient': i}]
+                total = term if total is None else total + term
+            comps.append(-total * density)
+        return Field(u.geometry, stack(comps, dual(vector=names)), u.boundary)
+    raise NotImplementedError(f"advect.differential of a {type(u.geometry).__name__} Field comes with a later slice")
+
+
+finite_difference = differential
+
+
 def _check_field_step(field, max_cells, substeps, integrator):
     if substeps == 'auto':
         raise NotImplementedError("substeps='auto' picks the substep count on the device; it comes with a later "
@@ -316,11 +353,12 @@ def _window_interp_field(field, displacement, max_cells: int, extrema=False):
         cells = disp / field.dx
         grid_shape = values.shape.only(names, reorder=True)
         channels = values.shape.without(names)
-        disps = [cells.vector[n].torch(names).expand(grid_shape.sizes) for n in names]
+        # the window kernels take contiguous arrays: a component of values laid out with `vector` last is copied
+        disps = [cells.vector[n].torch(names).expand(grid_shape.sizes).contiguous() for n in names]
         if channels.rank > 1 or (channels and not channels.channel):
             raise NotImplementedError(f"advection of values {values.shape}: one channel dim at most is ported")
         parts = [values] if not channels else [values[{channels.name: i}] for i in range(channels.size)]
-        outs = [shift_window_interp(p.torch(names), disps, extrap, max_cells, compute_extrema=extrema)
+        outs = [shift_window_interp(p.torch(names).contiguous(), disps, extrap, max_cells, compute_extrema=extrema)
                 for p in parts]
         outs = [o if extrema else (o,) for o in outs]
         result = []

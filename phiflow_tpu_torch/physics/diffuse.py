@@ -1,8 +1,14 @@
-"""Diffusion — port of `phiflow_tpu/physics/diffuse.py::explicit` (`:17-54`) at
-order 2: explicit Euler, u + ν·dt·Δu. `explicit` takes a grid Field (centred,
-or staggered component by component under each component's boundary) and
-unwraps into the Field layer's `laplace`; `explicit_native` does the same on
-the raw face components of a staggered grid.
+"""Diffusion — port of `phiflow_tpu/physics/diffuse.py` (`:17-145`).
+
+`explicit`: explicit Euler, u + ν·dt·Δu, of a grid Field (centred, or
+staggered component by component under each component's boundary) through
+the Field layer's `laplace` of orders 2, 4 and 6; `explicit_native` does the
+same at order 2 on the raw face components of a staggered grid. `implicit`:
+backward Euler, (1 − ν·dt·Δ)·u' = u solved by `solve_linear` (CG on the
+centred values, one residual norm over all channel entries) from x0 = u.
+`differential`: the term ν·Δu of a PDE's right-hand side. `fourier`: the
+exact decay û·exp(−4π²k²·ν·dt) of a periodic centred grid, its spectrum
+built on the host and applied with `torch.fft`.
 """
 from __future__ import annotations
 
@@ -14,10 +20,10 @@ import torch
 
 from ..field import Field
 from ..field._field_math import laplace, laplace_native
-from ..math import dual, stack
-from ..math._nd import component_extrapolation
+from ..math import Solve, copy_solve, dual, jit_compile_linear, solve_linear, stack
+from ..math._nd import _k_grids, _spectral_separable, component_extrapolation
 
-__all__ = ['explicit', 'explicit_native']
+__all__ = ['explicit', 'implicit', 'differential', 'fourier', 'explicit_native']
 
 
 def explicit_native(u: Sequence[torch.Tensor], diffusivity: float, dt: float, dx, extrap,
@@ -36,9 +42,9 @@ def explicit_native(u: Sequence[torch.Tensor], diffusivity: float, dt: float, dx
 def explicit(u, diffusivity, dt, substeps: int = 1, order: int = 2, implicit=None, gradient=None, upwind=None,
              correct_skew=True):
     """`substeps` explicit Euler steps of u ← u + (ν·dt/substeps)·Δu on a grid
-    Field; warns when ν·dt/substeps exceeds the stability limit dx²/(2·d)."""
-    if order != 2 or implicit is not None or gradient is not None or upwind is not None:
-        raise NotImplementedError("explicit diffusion of order 2 only comes with this slice of the port")
+    Field, the Laplacian of `order`; warns when ν·dt/substeps exceeds the
+    stability limit dx²/(2·d). `implicit` is taken and unused, as in the JAX
+    package."""
     if isinstance(diffusivity, Field):
         raise NotImplementedError("a diffusivity Field comes with a later slice of the port")
     amount = diffusivity * (dt / substeps)
@@ -55,5 +61,43 @@ def explicit(u, diffusivity, dt, substeps: int = 1, order: int = 2, implicit=Non
                 comps.append(comp.values + laplace(comp, order=order).values * amount)
             u = Field(u.geometry, stack(comps, dual(vector=names)), u.boundary)
         else:
-            u = u.with_values(u.values + laplace(u, order=order).values * amount)
+            delta = laplace(u, order=order, gradient=gradient, upwind=upwind, correct_skew=correct_skew)
+            u = u.with_values(u.values + delta.values * amount)
     return u
+
+
+def implicit(u, diffusivity, dt, solve: Solve = Solve('CG'), order: int = 1, gradient=None, upwind=None,
+             correct_skew=True):
+    """Backward Euler: solve (1 − ν·dt·Δ)·u' = u for u' by `solve_linear`,
+    from x0 = u unless `solve` has one; the operator is `explicit` with −dt
+    (the Laplacian of order 2 for `order` 1 or 2)."""
+    @jit_compile_linear
+    def sharpen(x):
+        return explicit(x, diffusivity, -dt, order=order if order >= 2 else 2, gradient=gradient, upwind=upwind,
+                        correct_skew=correct_skew)
+
+    if solve.x0 is None:
+        solve = copy_solve(solve, x0=u)
+    return solve_linear(sharpen, y=u, solve=solve)
+
+
+def differential(u, diffusivity, gradient=None, order: int = 2, implicit=None, upwind=None, correct_skew=True):
+    """The diffusion term ν·Δu of a PDE's right-hand side, the Laplacian of
+    `order`; a staggered grid component by component."""
+    if isinstance(diffusivity, Field):
+        raise NotImplementedError("a diffusivity Field (the weighted Laplacian) comes with a later slice of the port")
+    if u.is_staggered:
+        comps = [laplace(u.vector[dim], order=order).values * diffusivity for dim in u.resolution.names]
+        return Field(u.geometry, stack(comps, dual(vector=u.resolution.names)), u.boundary)
+    return Field(u.geometry, laplace(u, order=order).values * diffusivity, u.boundary)
+
+
+def fourier(u, diffusivity, dt):
+    """Exact diffusion of a periodic centred grid: û·exp(−4π²k²·ν·dt), one
+    factor per axis. `diffusivity·dt` is one number."""
+    assert u.is_grid and u.is_centered, "fourier diffusion requires a centered grid"
+    amount = diffusivity * dt
+    amount = float(amount.numpy() if hasattr(amount, 'numpy') else amount)
+    ks = _k_grids(u.values, u.dx)
+    spectra = {d: np.exp(-(4 * np.pi ** 2) * k ** 2 * amount) for d, k in ks.items()}
+    return u.with_values(_spectral_separable(u.values, spectra, 'mul'))

@@ -1,6 +1,9 @@
-"""Pressure projection — port of the staggered branches of
-`phiflow_tpu/physics/fluid.py::make_incompressible` (`:164-272`), with
-obstacles (`Obstacle`, `apply_boundary_conditions`) and free surfaces.
+"""Pressure projection — port of `phiflow_tpu/physics/fluid.py::make_incompressible`
+(`:164-272`): the staggered branches, with obstacles (`Obstacle`,
+`apply_boundary_conditions`) and free surfaces, and the centred velocity's
+wide-stencil projection of orders 2, 4 and 6 with all cells active
+(`_make_incompressible_centred`); and `incompressible_rk4` (`:671-701`), RK4
+with the projection inside every stage.
 
 `make_incompressible(velocity, obstacles, solve, active)` and
 `apply_boundary_conditions(velocity, obstacles)` take Fields with JAX's
@@ -50,20 +53,20 @@ import torch
 from ..field._angular_velocity import angular_velocity_at_faces
 from ..field._field import Field, face_components, face_values
 from ..field._field_math import (
-    divergence_native, safe_mul_native, spatial_gradient_native, stagger_native, _array_layout, _isotropic_dx,
-    _normal_walls_at_rest, _plain_values,
+    divergence, divergence_native, mean as field_mean, safe_mul_native, spatial_gradient, spatial_gradient_native,
+    stagger_native, _array_layout, _isotropic_dx, _normal_walls_at_rest, _plain_values,
 )
 from ..field._resample import cell_grid, geometry_mask, staggered_cells
 from ..geom._box import Box, Cuboid, box_push
 from ..geom._geom import Geometry, host_vec, union, vector_tensor
-from ..math import EMPTY_SHAPE, Tensor, extrapolation
+from ..math import EMPTY_SHAPE, Tensor, copy_solve, extrapolation, jit_compile_linear, solve_linear, wrap
 from ..math._extrapolation import ConstantExtrapolation
 from ..math._multigrid import make_poisson_vcycle
 from ..math._nd import BOUNDARY, PERIODIC as PERIODIC_EXTRAPOLATION, Extrapolation
 from ..math._solve import Solve, SolveResult, cg, check_method, finish_solve, sub_mean
 from ..ops.poisson import NEUMANN, PERIODIC, poisson_apply, stage_masks
 
-__all__ = ['Obstacle', 'make_incompressible', 'apply_boundary_conditions', 'boundary_push',
+__all__ = ['Obstacle', 'make_incompressible', 'apply_boundary_conditions', 'boundary_push', 'incompressible_rk4',
            'make_incompressible_native', 'apply_boundary_conditions_native', 'boundary_push_native',
            'MASKED_PRECONDITIONER']
 
@@ -455,16 +458,25 @@ def _component_values(velocity, arrays):
 
 def make_incompressible(velocity, obstacles=(), solve: Solve = Solve(), active=None, order: int = 2,
                         correct_skew=False, wide_stencil: bool = None):
-    """Project the staggered velocity Field onto its divergence-free part.
-    Returns (velocity, pressure) as Fields; the pressure is the solve's x0's
-    Field (boundary and grid) with the solution, or a new Field under the
-    pressure boundary derived from the velocity's. `correct_skew` is taken
-    and unused, as in the JAX package; a true `wide_stencil` raises."""
+    """Project the velocity Field onto its divergence-free part. Returns
+    (velocity, pressure) as Fields; the pressure is the solve's x0's Field
+    (boundary and grid) with the solution, or a new Field under the pressure
+    boundary derived from the velocity's. `correct_skew` is taken and unused,
+    as in the JAX package.
+
+    A staggered velocity (order 2, the compact stencil) unwraps into
+    `make_incompressible_native`; a true `wide_stencil` raises there. A
+    centred velocity is projected with the wide stencil of `order` (2, 4 or
+    6): `_make_incompressible_centred`."""
+    if velocity.is_grid and velocity.is_centered:
+        return _make_incompressible_centred(velocity, obstacles, solve, active, order, wide_stencil)
     if order != 2:
-        raise NotImplementedError("the projection of order 2 only comes with this slice of the port")
+        raise NotImplementedError("the projection of a staggered velocity is of order 2: higher orders come with "
+                                  "a later slice of the port")
     if wide_stencil:
-        raise NotImplementedError("the wide-stencil Laplacian (the divergence of centred gradients) comes with a "
-                                  "later slice of the port: the projection solves the compact stencil")
+        raise NotImplementedError("the wide-stencil Laplacian (the divergence of centred gradients) of a staggered "
+                                  "velocity comes with a later slice of the port: its projection solves the compact "
+                                  "stencil")
     periodic, dx = _box_of(velocity)
     solve = solve.with_defaults('solve')
     check_method(solve)
@@ -488,6 +500,80 @@ def make_incompressible(velocity, obstacles=(), solve: Solve = Solve(), active=N
         pressure = Field(velocity.geometry, Tensor(p, velocity.resolution), _pressure_extrapolation(velocity.boundary))
     finish_solve(solve, pressure, result)
     return velocity.with_values(_component_values(velocity, v)), pressure
+
+
+def _balance_divergence_field(div, active):
+    """The Field form of `_balance_divergence`: the mean subtracted (over the
+    active cells with `active`)."""
+    if active is not None:
+        return div - active * (field_mean(div) / field_mean(active))
+    return div - field_mean(div)
+
+
+@jit_compile_linear
+def _wide_laplace(pressure, v_boundary, order=2):
+    """The wide-stencil Laplacian, the CG matvec of a centred projection: the
+    divergence of the pressure's centred gradient, both of `order`
+    (`phiflow_tpu/physics/fluid.py:296-299`)."""
+    grad = spatial_gradient(pressure, v_boundary, at='center', order=order)
+    grad = grad.with_boundary(extrapolation.remove_constant_offset(grad.boundary))
+    return divergence(grad, order=order)
+
+
+def _make_incompressible_centred(velocity, obstacles, solve: Solve, active, order: int, wide_stencil):
+    """The projection of a centred velocity with all cells active and no
+    obstacle (`phiflow_tpu/physics/fluid.py:203-213`): the divergence of
+    `order`, balanced and with rank deficiency 1 unless the boundary lets
+    flux out, solved by `solve_linear` over `_wide_laplace` — unpreconditioned
+    CG, as the JAX package chooses for the wide stencil, x0 = 0 under the
+    pressure boundary unless `solve` has one — and the pressure's centred
+    gradient subtracted."""
+    if _get_obstacles_for(obstacles) or active is not None:
+        raise NotImplementedError("obstacles or active cells with a centred velocity come with a later slice of the "
+                                  "port")
+    if wide_stencil is False:
+        raise NotImplementedError("the compact stencil for a centred velocity comes with a later slice of the port: "
+                                  "its projection solves the wide stencil")
+    check_method(solve)
+    div = divergence(velocity, order=order)
+    if not velocity.boundary.is_flexible:
+        solve = solve.with_preprocessing(_balance_divergence_field, None)
+        if solve.rank_deficiency is None:
+            solve = copy_solve(solve, rank_deficiency=1)
+    if solve.x0 is None:
+        solve = copy_solve(solve, x0=Field(div.geometry, wrap(0.), _pressure_extrapolation(velocity.boundary)))
+    if not callable(solve.preconditioner):
+        solve = copy_solve(solve, preconditioner=None)
+    pressure = solve_linear(_wide_laplace, div, solve, velocity.boundary, order=order, assume_homogeneous=True)
+    grad_pressure = spatial_gradient(pressure, velocity.boundary, at='center', order=order)
+    return (velocity - grad_pressure).with_boundary(velocity.boundary), pressure
+
+
+def incompressible_rk4(pde: Callable, velocity, pressure, dt, pressure_order=4, pressure_solve=Solve('CG'),
+                       **pde_aux_kwargs):
+    """RK4 with the pressure projection inside every stage: each stage
+    advances a trial velocity by the stage step along the PDE's right-hand
+    side minus the current pressure gradient and projects it; the stage
+    pressure adds the projection's pressure over the stage step (the solve
+    returns step·Δp)."""
+    at = velocity.sampled_at
+
+    def stage(stage_dt, rhs, p_prev):
+        trial = velocity + stage_dt * rhs
+        projected, correction = make_incompressible(trial, solve=pressure_solve, order=pressure_order)
+        return projected, p_prev + correction / stage_dt
+
+    def momentum(v, p):
+        return pde(v, **pde_aux_kwargs) - p.gradient(at=at, order=pressure_order)
+
+    k1 = momentum(velocity, pressure)
+    v_half, p_half = stage(dt / 2, k1, pressure)
+    k2 = momentum(v_half, p_half)
+    v_half2, p_half2 = stage(dt / 2, k2, p_half)
+    k3 = momentum(v_half2, p_half2)
+    v_full, p_full = stage(dt, k3, p_half2)
+    k4 = momentum(v_full, p_full)
+    return stage(dt, (k1 + 2 * k2 + 2 * k3 + k4) / 6, (pressure + 2 * p_half + 2 * p_half2 + p_full) / 6)
 
 
 def apply_boundary_conditions(velocity, obstacles):

@@ -14,6 +14,9 @@ OBSTACLE_MODULES = ['geom._geom', 'geom._sphere', 'geom._box', 'geom._grid', 'ge
 FIELD_MODULES = ['math._shape', 'math._magic', 'math._static', 'math._tensor', 'math._ops', 'math._extrapolation',
                  'math.extrapolation', 'math._functional', 'math._solve', 'field._field', 'field._grid',
                  'field._resample', 'field._field_math', 'physics.advect']
+GRID_MODEL_MODULES = ['field._noise', 'field._stencil1d', 'field._higher_order', 'physics.integrate', 'models.burgers',
+                      'models.kolmogorov']
+MODULES = OBSTACLE_MODULES + FIELD_MODULES + GRID_MODEL_MODULES
 
 
 def test_imports_with_jax_blocked():
@@ -24,7 +27,7 @@ def test_imports_with_jax_blocked():
             "names = [m.name for m in pkgutil.walk_packages(phiflow_tpu_torch.__path__, 'phiflow_tpu_torch.')]\n"
             "for name in names:\n"
             "    importlib.import_module(name)\n"
-            f"missing = [m for m in {OBSTACLE_MODULES + FIELD_MODULES!r} if 'phiflow_tpu_torch.' + m not in names]\n"
+            f"missing = [m for m in {MODULES!r} if 'phiflow_tpu_torch.' + m not in names]\n"
             "assert not missing, missing\n"
             "print('imported')\n")
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True, text=True, timeout=120)
@@ -37,7 +40,7 @@ def test_no_module_imports_jax():
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith('.py')]
     assert len(files) > 10
-    for module in OBSTACLE_MODULES + FIELD_MODULES:
+    for module in MODULES:
         assert os.path.join(PKG, *module.split('.')) + '.py' in files, module
     offenders = []
     for path in files:
