@@ -4,7 +4,7 @@
     python3 chip_smoke.py           # all phases, one card
     python3 chip_smoke.py --quick   # build + kernel-versus-twin checks at the small shapes only
     python3 chip_smoke.py --profile # all phases, then torch.profiler over 3 steps of each path (4-field too,
-                                    # Burgers 128² and Kolmogorov 512² Field and native steps),
+                                    # Burgers 128² and Kolmogorov 512² Field and native steps, both SPH sizes),
                                     # K2 and K3 at every level of the 256³ V-cycle, K1 at 256³ and
                                     # K1m at 256³ (obstacle masks) and 128³ (active) with each x-chunk
 
@@ -116,7 +116,20 @@ Phases; any failure exits non-zero and prints no result:
      kernel of ours launched, finite values); Burgers 128² (both diffusions,
      1e-3 abs) and Kolmogorov 64² order 6 (1e-4 of each field's scale, CG
      counts at most 1 apart, each step whose solves all converged) 2 steps
-     from one numpy state on the CPU and on the card; and
+     from one numpy state on the CPU and on the card; then SPH, the dam
+     break (`SphDamBreak`, its Field `step`; the cell list and the edge
+     arithmetic are PyTorch operations, no kernel of ours may launch):
+     sph-dam, the model's own configuration (10,000 particles, M = 189
+     candidates a particle; 2 warm-up, 5 timed steps), and sph-dam-1.28M
+     (nx=800, ny=1600, dx=0.0005, dt=1.25e-5: 1,280,000 particles, M = 153;
+     1 + 3): ms per step, M particles/s, the particles dropped from the
+     buckets at step 0 (3688 and 0) and the mean neighbours (19–21 at
+     1.28 M) from the cell list run under `set_sync_debug_mode('error')`,
+     the syncs a step (`'warn'`), `max_memory_allocated`, the state finite
+     and inside [−0.02, 1.02]; then the cell list of the default's initial
+     state bit-equal on the CPU and the card, its first step within 2e-6 in
+     positions and 2e-4 in velocities (no later step: the model diverges
+     from step 2), and nx=20 × 40 over 5 steps within 1e-6 and 2e-4; and
      K1m's, K6's and K8's launches a step × (device − bound) on each path
      that runs them (`gaps` lines);
   5. 2 steps from one numpy state on the CPU (the twins) and on the card (the
@@ -2129,6 +2142,176 @@ def profile_grid_models():
                  model.initial_state_native(), warmup=1, steps=2, rows_shown=8)
 
 
+# ---------------------------------------------------------------------------
+# SPH: the dam break (the cell list and the edge arithmetic are PyTorch operations; no kernel of ours)
+# ---------------------------------------------------------------------------
+
+SPH_SIZES = {  # tag → SphDamBreak's arguments
+    'sph-dam': {},  # the model's own configuration: 10,000 particles, M = 189, 3688 dropped at step 0
+    # 1,280,000 particles inside the box: 852² cells, capacity 17, M = 153; dt scaled with dx (the default's Courant number)
+    'sph-dam-1.28M': dict(nx=800, ny=1600, dx=0.0005, dt=1.25e-5),
+}
+SPH_DROPPED_DEFAULT = 3688  # the same particles in the JAX package (tests/test_torch_sph_neighbors.py)
+
+
+def sph_search(model, particles):
+    """(indices, mask) of the model's cell-list search on the particles'
+    positions, run with every device→host sync an error."""
+    import torch
+    from phiflow_tpu_torch.math._neighbors import cell_list_neighbors
+    pos = particles.geometry.center.native(('points', 'vector'))
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        idx, _, mask = cell_list_neighbors(pos, model.support, [0., 0.], [1., 1.])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return idx, mask
+
+
+def sph_neighbours(idx, mask):
+    """(particles dropped from the buckets, mean neighbours a particle): a
+    particle's own cell is always among its candidate cells."""
+    import torch
+    own = (idx == torch.arange(idx.shape[0], device=idx.device, dtype=idx.dtype)[:, None]).any(1)
+    return int(idx.shape[0] - int(own.sum())), float(mask.sum()) / idx.shape[0]
+
+
+def syncs_a_step(step, state):
+    """The synchronizing CUDA operations (device→host reads, blocking copies)
+    that one call of `step(state)` makes, as `set_sync_debug_mode('warn')`
+    reports them: (their count, the source lines that made them, the new
+    state)."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            state = step(state)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [w for w in caught if 'synchronizing' in str(w.message)]
+    return len(syncs), sorted({f'{w.filename.split("/")[-1]}:{w.lineno}' for w in syncs}), state
+
+
+def run_sph(tag, warmup, steps):
+    """SphDamBreak on the card through its Field `step`: ms a step, M
+    particles/s, the particles dropped from the buckets at step 0 and the
+    mean neighbours (the cell list run with syncs an error), the syncs a
+    step, the peak device memory of the timed steps, no kernel of ours
+    launched, the state finite and inside [−0.02, 1.02]."""
+    import torch
+    from phiflow_tpu_torch.models import SphDamBreak
+    from phiflow_tpu_torch.ops import _build
+    model = SphDamBreak(**SPH_SIZES[tag], device='cuda')
+    (p,) = model.initial_state()
+    idx, mask = sph_search(model, p)
+    dropped, neighbours = sph_neighbours(idx, mask)
+    candidates = idx.shape[1]
+    del idx, mask
+    for _ in range(warmup):
+        (p,) = model.step(p)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        (p,) = model.step(p)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    peak = torch.cuda.max_memory_allocated()
+    syncs, sync_lines, (p,) = syncs_a_step(lambda state: model.step(*state), (p,))
+    pos = p.geometry.center.native(('points', 'vector'))
+    vel = p.values.native(('points', 'vector'))
+    finite = bool(torch.isfinite(pos).all()) and bool(torch.isfinite(vel).all())
+    lo, hi = float(pos.min()), float(pos.max())
+    print(f'{tag} {model.n_particles} particles, M = {candidates} candidates a particle: {ms:.2f} ms/step over {steps} '
+          f'Field steps after {warmup} warm-up step(s), {model.n_particles / ms * 1e-3:.2f} M particles/s; step 0: '
+          f'{dropped} particles dropped from the buckets, {neighbours:.2f} neighbours a particle; syncs a step '
+          f'{syncs} {sync_lines or ""}; max_memory_allocated {peak / 2 ** 30:.2f} GiB; max |v| {float(vel.abs().max()):.4f}; positions '
+          f'in [{lo:.4f}, {hi:.4f}]; kernels of ours launched: {launches or "none"}; all finite: {finite}')
+    bad = []
+    if launches:
+        bad.append(f'kernels of ours launched {launches}')
+    if not finite or lo < -0.02 or hi > 1.02:
+        bad.append(f'finite={finite}, positions in [{lo}, {hi}]')
+    if tag == 'sph-dam' and dropped != SPH_DROPPED_DEFAULT:
+        bad.append(f'{dropped} particles dropped, {SPH_DROPPED_DEFAULT} expected')
+    if tag != 'sph-dam' and (dropped or not 19 <= neighbours <= 21):
+        bad.append(f'{dropped} particles dropped (none expected), {neighbours:.2f} neighbours (19-21 expected)')
+    if bad:
+        raise RuntimeError(f'{tag}: ' + '; '.join(bad))
+    return dict(steps=steps)
+
+
+def sph_cpu_vs_card():
+    """The default configuration's initial state: the cell list's indices and
+    mask bit-equal on the CPU and the card, and its first Field step within
+    2e-6 in positions and 2e-4 in velocities (the model diverges from step 2:
+    no later step is compared); SphDamBreak(nx=20, ny=40): 5 steps within
+    1e-6 and 2e-4."""
+    import numpy as np
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.models import SphDamBreak
+    for kw, steps, pos_tol in (({}, 1, 2e-6), (dict(nx=20, ny=40), 5, 1e-6)):
+        out = {}
+        for dev in ('cpu', 'cuda'):
+            with math.default_device(dev):
+                model = SphDamBreak(**kw, device=dev)
+                (p,) = model.initial_state()
+                search = [t.cpu().numpy() for t in sph_search(model, p)]
+                states = []
+                for _ in range(steps):
+                    (p,) = model.step(p)
+                    states.append([t.native(('points', 'vector')).cpu().numpy() for t in (p.geometry.center, p.values)])
+            out[dev] = search, states
+        size = f'{model.n_particles} particles'
+        equal = all(np.array_equal(a, b) for a, b in zip(out['cpu'][0], out['cuda'][0]))
+        print(f'cpu vs card, SphDamBreak({kw}) {size}: cell-list indices and mask of the initial state bit-equal: '
+              f'{equal}')
+        if not equal:
+            raise RuntimeError(f'SPH cell lists differ between the CPU and the card ({kw})')
+        for k, ((pc, vc), (pg, vg)) in enumerate(zip(out['cpu'][1], out['cuda'][1])):
+            dp, dv = float(np.abs(pc - pg).max()), float(np.abs(vc - vg).max())
+            ok = dp <= pos_tol and dv <= 2e-4
+            print(f'cpu vs card, SphDamBreak({kw}) step {k + 1}: max |diff| positions {dp:.3e} (tol {pos_tol:g}), '
+                  f'velocities {dv:.3e} (tol 2e-4; max |v| {float(np.abs(vc).max()):.4f}) {"ok" if ok else "FAIL"}')
+            if not ok:
+                raise RuntimeError(f'CPU and card disagree (SphDamBreak({kw}) step {k + 1}): {dp}, {dv}')
+        torch.cuda.empty_cache()
+
+
+def run_sph_models():
+    """The "SPH" phase: the default dam break (2 warm-up, 5 timed steps), the
+    1.28 M-particle one (1 + 3), then CPU against the card. Returns the
+    launch counts by path."""
+    import torch
+    t0 = time.perf_counter()
+    by_path = {'sph-dam': run_sph('sph-dam', warmup=2, steps=5)}
+    torch.cuda.empty_cache()
+    by_path['sph-dam-1.28M'] = run_sph('sph-dam-1.28M', warmup=1, steps=3)
+    torch.cuda.empty_cache()
+    sph_cpu_vs_card()
+    print(f'SPH: {time.perf_counter() - t0:.1f} s')
+    return by_path
+
+
+def profile_sph():
+    """3 Field steps of each SPH size under the profiler."""
+    import torch
+    from phiflow_tpu_torch.models import SphDamBreak
+    for tag, kw in SPH_SIZES.items():
+        model = SphDamBreak(**kw, device='cuda')
+        profile_path(tag, f'{model.n_particles} particles', lambda state: model.step(*state), model.initial_state(),
+                     warmup=1, steps=3, rows_shown=12)
+        del model
+        torch.cuda.empty_cache()
+
+
 def print_path_gaps(ch, by_path):
     """K1m's, K6's and K8's launches a step on each path that runs them ×
     (device − bound) of the row timed at that path's shape: K1m's coefficient
@@ -2270,6 +2453,7 @@ def main(argv):
     by_path['moving-obstacles-2d'] = run_model_2d('moving-obstacles-2d', MovingObstacles(256, device='cuda'))
     by_path['cavity-2d'] = run_model_2d('cavity-2d', LidDrivenCavity(256, obstacle=True, device='cuda'))
     by_path.update(run_grid_models(ch))
+    by_path.update(run_sph_models())
     print_path_gaps(ch, by_path)
     cpu_vs_card('fused', 3, 64, False)
     cpu_vs_card('per-phase', 3, 64, True)
@@ -2289,6 +2473,7 @@ def main(argv):
         profile_obstacles(f'obstacle-{OBSTACLE_N}', OBSTACLE_N)
         profile_obstacles(f'obstacle-{OBSTACLE_N}-vcycle', OBSTACLE_N, 'vcycle')
         profile_grid_models()
+        profile_sph()
         time_smooth_chunks(gen)
         time_march_chunks(gen)
     rows = []

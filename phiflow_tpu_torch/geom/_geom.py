@@ -286,6 +286,9 @@ class Point(Geometry):
     def at(self, center) -> 'Point':
         return Point(center)
 
+    def __getitem__(self, item) -> 'Point':
+        return Point(self._location[item])
+
     def rotated(self, angle) -> 'Point':
         return self
 

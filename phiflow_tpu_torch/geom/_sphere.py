@@ -1,5 +1,6 @@
 """Spheres — port of `phiflow_tpu/geom/_sphere.py` as far as obstacles and
-particles use it: the inside test, the signed distance and `at`.
+particles use it: the inside test, the signed distance, `at`, the volume
+and the conversions between radius and volume (`:47-68`, SPH's sizing).
 `Sphere(center, radius, volume)` takes a sequence or a Tensor as the centre,
 `Sphere(x=…, y=…, radius=R)` one keyword per axis (`:23`), and a radius or a
 volume.
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..math import EMPTY_SHAPE, Tensor, default_float
+from ..math import EMPTY_SHAPE, Tensor, default_float, sqrt, wrap
 from ._geom import Geometry, host_scalar, host_vec, is_point_set, vec_length, vec_squared
 
 __all__ = ['Sphere']
@@ -40,12 +41,28 @@ class Sphere(Geometry):
             raise ValueError("Sphere takes a radius or a volume")
         self._radius = host_scalar(radius)
 
+    @property
+    def volume(self) -> Tensor:
+        return Sphere.volume_from_radius(self.radius, self.spatial_rank)
+
     @staticmethod
-    def radius_from_volume(volume, rank: int):
+    def volume_from_radius(radius, rank: int) -> Tensor:
+        radius = wrap(radius)
+        if rank == 1:
+            return 2 * radius
+        if rank == 2:
+            return np.pi * radius ** 2
+        if rank == 3:
+            return (4 / 3 * np.pi) * radius ** 3
+        raise NotImplementedError(f"{rank}-D sphere volume")
+
+    @staticmethod
+    def radius_from_volume(volume, rank: int) -> Tensor:
+        volume = wrap(volume)
         if rank == 1:
             return volume / 2
         if rank == 2:
-            return np.sqrt(volume / np.pi)
+            return sqrt(volume / np.pi)
         if rank == 3:
             return (volume / (4 / 3 * np.pi)) ** (1 / 3)
         raise NotImplementedError(f"{rank}-D sphere radius")
@@ -89,6 +106,11 @@ class Sphere(Geometry):
 
     def rotated(self, angle) -> 'Sphere':
         return self
+
+    def __getitem__(self, item) -> 'Sphere':
+        if self._points is None:
+            raise NotImplementedError("slicing an obstacle's sphere")
+        return Sphere(self._points[item], self._radius)
 
     def __eq__(self, other):
         if not isinstance(other, Sphere) or self._radius != other._radius:

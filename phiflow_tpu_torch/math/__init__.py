@@ -25,7 +25,8 @@ from ._ops import (
     to_float, to_int32, to_int64, to_bool, cast, maximum, minimum, clip, where, safe_div, nan_to_0,
     sum_ as sum, mean, prod, max_ as max, min_ as min, any_ as any, all_ as all,
     finite_mean, finite_sum, finite_max, finite_min, dot, close, always_close, assert_close, equal,
-    pad, shift, vec, vec_length, vec_squared, vec_normalize, dim_mask,
+    pad, shift, vec, vec_length, vec_squared, vec_normalize, dim_mask, gather, scatter, boolean_mask, nonzero,
+    quantile, median, pairwise_differences, find_closest,
 )
 from . import _extrapolation as extrapolation
 from ._extrapolation import Extrapolation, as_extrapolation

@@ -1,5 +1,6 @@
 """Operations on named-dim Tensors — the part of `phiflow_tpu/math/_ops.py`
-that the Field layer of the port uses (`ROADMAP.md` lists the rest).
+that the Field layer and the particle paths of the port use (`ROADMAP.md`
+lists the rest).
 
 Every function works on host (numpy) and torch natives alike: host inputs
 stay on the host, computed by numpy as the JAX package computes them; torch
@@ -16,7 +17,7 @@ import torch
 
 from ._shape import (
     Shape, Dim, EMPTY_SHAPE, batch, spatial, channel, instance, merge_shapes, concat_shapes, parse_dim_order,
-    _resolve_filter, DimFilter, CHANNEL,
+    _resolve_filter, DimFilter, CHANNEL, DUAL, INSTANCE,
 )
 from ._tensor import (
     Tensor, TensorStack, wrap, default_float, get_default_device, _broadcast, _align_native, _is_host, _meet,
@@ -30,7 +31,8 @@ __all__ = ['zeros', 'ones', 'zeros_like', 'ones_like', 'seed', 'random_normal', 
            'is_inf', 'to_float', 'to_int32', 'to_int64', 'to_bool', 'cast', 'maximum', 'minimum', 'clip', 'where',
            'safe_div', 'nan_to_0', 'sum_', 'mean', 'prod', 'max_', 'min_', 'any_', 'all_', 'finite_mean',
            'finite_sum', 'finite_max', 'finite_min', 'dot', 'close', 'always_close', 'assert_close', 'equal', 'pad',
-           'shift', 'vec', 'vec_length', 'vec_squared', 'vec_normalize', 'dim_mask']
+           'shift', 'vec', 'vec_length', 'vec_squared', 'vec_normalize', 'dim_mask', 'gather', 'scatter',
+           'boolean_mask', 'nonzero', 'quantile', 'median', 'pairwise_differences', 'find_closest']
 
 
 # ---------------------------------------------------------------------------
@@ -384,7 +386,14 @@ def where(condition, value_true=1., value_false=0.) -> Tensor:
     if all(_is_host(x) for x in (c, a, b)):
         return Tensor(np.broadcast_to(_fix_host_dtype(np.where(c, a, b), a, b), tuple(shape.sizes)), shape)
     ref = next(x for x in (c, a, b) if not _is_host(x))
-    c, a, b = (_host_to(x, ref) if _is_host(x) else x for x in (c, a, b))
+    c = _host_to(c, ref) if _is_host(c) else c
+    # a one-element host value of the other value's dtype enters as a Python number: no copy to the device
+    if _is_host(a) != _is_host(b):
+        host, dev = (a, b) if _is_host(a) else (b, a)
+        if host.size == 1 and _torch_dtype(host.dtype) == dev.dtype:
+            a, b = (host.item(), dev) if _is_host(a) else (dev, host.item())
+            return Tensor(torch.where(c.to(dev.device), a, b).expand(tuple(shape.sizes)), shape)
+    a, b = (_host_to(x, ref) if _is_host(x) else x for x in (a, b))
     if a.dtype != b.dtype and a.ndim == 0 and b.ndim:
         a = a.to(b.dtype)
     elif a.dtype != b.dtype and b.ndim == 0 and a.ndim:
@@ -684,3 +693,287 @@ def dim_mask(all_dims: Shape, dims: DimFilter, mask_dim=channel('vector')) -> Te
     names = parse_dim_order(dims) if not callable(dims) or isinstance(dims, Shape) else dims(all_dims).names
     d = mask_dim.dims[0].with_size(len(all_names), all_names)
     return Tensor(np.asarray([1.0 if n in names else 0.0 for n in all_names], default_float()), Shape((d,)))
+
+
+# ---------------------------------------------------------------------------
+# gather / scatter / boolean mask (the particle ops)
+# ---------------------------------------------------------------------------
+
+def _index_components(indices: Tensor, dims, target: Shape):
+    """(dims, one integer Tensor per dim): the entries of a channel dim whose
+    labels name the dims, or `indices` itself for one dim."""
+    ch = indices.shape.channel
+    if dims is None:
+        if ch.rank == 1 and ch.labels[0]:
+            dims = ch.labels[0]
+            return tuple(dims), [indices[{ch.name: i}] for i in range(len(dims))]
+        dims = target.instance.names or target.spatial.names
+        assert len(dims) == 1, f"cannot infer the indexed dim of {target}"
+        return tuple(dims), [indices]
+    dims = _resolve_filter(dims, target)
+    if ch.rank == 1 and ch.size == len(dims) and len(dims) > 1:
+        return tuple(dims), [indices[{ch.name: i}] for i in range(len(dims))]
+    assert len(dims) == 1
+    return tuple(dims), [indices]
+
+
+def _linear_index(components, sizes, list_shape: Shape, clamp=False):
+    """The row-major linear index of integer components over `list_shape`,
+    and (with `clamp`) the mask of entries inside every dim, as natives."""
+    lin, valid = None, None
+    for c, n in zip(components, sizes):
+        cn = _align_native(c.native(), c.shape, list_shape.names)
+        if _is_host(cn):
+            cn = np.broadcast_to(cn.astype(np.int64), tuple(list_shape.sizes))
+        else:
+            cn = cn.to(torch.int64).expand(tuple(list_shape.sizes))
+        if clamp:
+            inside = (cn >= 0) & (cn < n)
+            valid = inside if valid is None else valid & inside
+            cn = np.clip(cn, 0, n - 1) if _is_host(cn) else torch.clamp(cn, 0, n - 1)
+        lin = cn if lin is None else lin * n + cn
+    return lin, valid
+
+
+def _same_place(a, b):
+    """Two natives on one backend: a host array meets a torch tensor on its device."""
+    if _is_host(a) and not _is_host(b):
+        return _host_to(a, b), b
+    if _is_host(b) and not _is_host(a):
+        return a, _host_to(b, a)
+    return a, b
+
+
+def gather(values: Tensor, indices: Tensor, dims: DimFilter = None) -> Tensor:
+    """Gather slices of `values` at `indices`.
+
+    `indices` either has a channel dim whose labels name the gathered dims,
+    or `dims` names the dim(s) and `indices` is integer-valued (a channel dim
+    of as many entries for several dims)."""
+    values, indices = wrap(values), wrap(indices)
+    if isinstance(values, TensorStack):
+        if not values.is_uniform:
+            raise NotImplementedError("gather on non-uniform stack")
+        values = values._contiguous()
+    dims, components = _index_components(indices, dims, values.shape)
+    batch_shape = merge_shapes(*[c.shape for c in components])
+    kept = values.shape.without(dims)
+    sizes = [values.shape.get_size(d) for d in dims]
+    flat = values._transposed(dims + kept.names).native()
+    flat = flat.reshape((int(np.prod(sizes)),) + tuple(kept.sizes))
+    lin, _ = _linear_index(components, sizes, batch_shape)
+    flat, lin = _same_place(flat, lin)
+    lin = lin.reshape(-1)
+    gathered = np.take(flat, lin, axis=0) if _is_host(flat) else torch.index_select(flat, 0, lin)
+    gathered = gathered.reshape(tuple(batch_shape.sizes) + tuple(kept.sizes))
+    return Tensor(gathered, concat_shapes(batch_shape, kept))
+
+
+def _scatter_host(out, lin, vals, mode):
+    if mode == 'update':
+        out[lin] = vals
+    elif mode in ('add', 'mean'):
+        np.add.at(out, lin, vals)
+    elif mode in ('max', 'maximum'):
+        np.maximum.at(out, lin, vals)
+    else:
+        np.minimum.at(out, lin, vals)
+    return out
+
+
+def _scatter_torch(out, lin, vals, mode):
+    if mode == 'update':
+        return out.index_put_((lin,), vals)
+    if mode in ('add', 'mean'):
+        return out.index_add_(0, lin, vals)
+    index = lin.reshape((-1,) + (1,) * (vals.ndim - 1)).expand(vals.shape)
+    return out.scatter_reduce_(0, index, vals, 'amax' if mode in ('max', 'maximum') else 'amin')
+
+
+def scatter(base_grid, indices: Tensor, values, mode: str = 'update', outside_handling: str = 'discard',
+            indices_gradient=False, default=None) -> Tensor:
+    """Scatter `values` into `base_grid` at `indices` with `mode` 'update',
+    'add', 'mean', 'max' or 'min'; indices outside the grid are dropped
+    ('discard'), moved to its edge ('clamp') or trusted ('undefined').
+    `base_grid` may be a Shape (zeros, or `default`, of it)."""
+    if mode not in ('update', 'add', 'mean', 'max', 'maximum', 'min', 'minimum'):
+        raise ValueError(f"scatter mode {mode!r}")
+    if isinstance(base_grid, Shape):
+        base = zeros(base_grid) + (0 if default is None else default)
+    else:
+        base = wrap(base_grid)
+    values, indices = wrap(values), wrap(indices)
+    if isinstance(values, TensorStack):
+        values = values._contiguous()
+    dims, components = _index_components(indices, None, base.shape)
+    list_shape = merge_shapes(*[c.shape for c in components])
+    kept = base.shape.without(dims)
+    sizes = [base.shape.get_size(d) for d in dims]
+    target = tuple(list_shape.sizes) + tuple(kept.sizes)
+    vn = _align_native(values.native(), values.shape, list_shape.names + kept.names)
+    lin, valid = _linear_index(components, sizes, list_shape, clamp=outside_handling in ('clamp', 'discard'))
+    flat_size = int(np.prod(sizes))
+    bt = base._transposed(dims + kept.names)
+    flat_base = bt.native().reshape((flat_size,) + tuple(kept.sizes))
+    if outside_handling == 'discard':
+        # invalid writes go to one extra row, dropped after
+        lin = np.where(valid, lin, flat_size) if _is_host(lin) else torch.where(valid, lin, flat_size)
+        pad_row = (1,) + tuple(kept.sizes)
+        flat_base = np.concatenate([flat_base, np.zeros(pad_row, flat_base.dtype)]) if _is_host(flat_base) else \
+            torch.cat([flat_base, flat_base.new_zeros(pad_row)])
+    if all(_is_host(x) for x in (flat_base, lin, vn)):
+        vals = np.broadcast_to(vn, target).reshape((-1,) + tuple(kept.sizes)).astype(flat_base.dtype)
+        lin = lin.reshape(-1)
+        out = _scatter_host(np.array(flat_base) if mode != 'mean' else np.zeros_like(flat_base), lin, vals, mode)
+        if mode == 'mean':
+            counts = np.zeros((flat_base.shape[0],) + (1,) * (vals.ndim - 1), flat_base.dtype)
+            np.add.at(counts, lin, np.ones((vals.shape[0],) + (1,) * (vals.ndim - 1), flat_base.dtype))
+            out = np.where(counts > 0, out / np.maximum(counts, 1), flat_base)
+    else:
+        ref = next(x for x in (flat_base, lin, vn) if not _is_host(x))
+        flat_base, lin, vn = (_host_to(x, ref) if _is_host(x) else x for x in (flat_base, lin, vn))
+        vals = vn.expand(target).reshape((-1,) + tuple(kept.sizes)).to(flat_base.dtype)
+        lin = lin.reshape(-1)
+        out = _scatter_torch(flat_base.clone() if mode != 'mean' else torch.zeros_like(flat_base), lin, vals, mode)
+        if mode == 'mean':
+            counts = torch.zeros((flat_base.shape[0],) + (1,) * (vals.ndim - 1), dtype=flat_base.dtype,
+                                 device=flat_base.device)
+            counts.index_add_(0, lin, torch.ones((vals.shape[0],) + (1,) * (vals.ndim - 1), dtype=flat_base.dtype,
+                                                 device=flat_base.device))
+            out = torch.where(counts > 0, out / torch.clamp(counts, min=1), flat_base)
+    if outside_handling == 'discard':
+        out = out[:-1]
+    out = out.reshape(tuple(bt.shape.sizes))
+    return Tensor(out, bt.shape)._transposed(base.shape.names)
+
+
+def boolean_mask(value: Tensor, dim: DimFilter, mask: Tensor) -> Tensor:
+    """The slices of `value` along `dim` where `mask` is True. The size of the
+    result depends on the data: on the card it waits for the mask."""
+    value, mask = wrap(value), wrap(mask)
+    names = _resolve_filter(dim, value.shape)
+    assert len(names) == 1, "boolean_mask supports a single dim"
+    name = names[0]
+    axis = value.shape.index(name)
+    native, m = value.native(), mask.native()
+    if _is_host(native) and _is_host(m):
+        idx = np.nonzero(np.asarray(m))[0]
+        result = np.take(native, idx, axis=axis)
+    else:
+        native, m = _same_place(native, m)
+        idx = torch.nonzero(m.reshape(-1)).reshape(-1)
+        result = torch.index_select(native, axis, idx)
+    return Tensor(result, value.shape.with_dim_size(name, int(idx.shape[0])))
+
+
+def nonzero(value: Tensor, list_dim=instance('nonzero'), index_dim=channel('vector')) -> Tensor:
+    """The int32 indices of the non-zero entries of `value`, one per entry of
+    `list_dim`, labelled by `value`'s dims along `index_dim`."""
+    value = wrap(value)
+    dims = value.shape.non_batch.non_channel
+    arr = value.native()
+    if _is_host(arr):
+        idx = np.stack(np.nonzero(arr), axis=-1).astype(np.int32)
+    else:
+        idx = torch.nonzero(arr).to(torch.int32)
+    ld = list_dim.dims[0].with_size(int(idx.shape[0]))
+    cd = index_dim.dims[0].with_size(len(dims.names), dims.names)
+    return Tensor(idx, Shape((ld, cd)))
+
+
+# ---------------------------------------------------------------------------
+# order statistics
+# ---------------------------------------------------------------------------
+
+def quantile(value: Tensor, quantiles, dims: DimFilter = None) -> Tensor:
+    """Quantiles of `value` over `dims` (default: all non-batch dims), with
+    linear interpolation; several quantiles along a channel dim 'quantiles'."""
+    value = wrap(value)
+    names = tuple(_resolve_filter(dims, value.shape)) if dims is not None else value.shape.non_batch.names
+    q_list = quantiles if isinstance(quantiles, (tuple, list)) else [quantiles]
+    keep = value.shape.without(names)
+    native = value.native(tuple(keep.names) + tuple(names))
+    flat = native.reshape(tuple(keep.sizes) + (-1,))
+    if _is_host(flat):
+        result = np.quantile(flat, np.asarray(q_list, flat.dtype), axis=-1).astype(flat.dtype)
+        result = np.moveaxis(result, 0, -1)
+    else:
+        q = torch.tensor(q_list, dtype=flat.dtype).to(flat.device)
+        result = torch.movedim(torch.quantile(flat, q, dim=-1), 0, -1)
+    out = Tensor(result, concat_shapes(keep, Shape((Dim('quantiles', len(q_list), CHANNEL, None),))))
+    return out if isinstance(quantiles, (tuple, list)) else out[{'quantiles': 0}]
+
+
+def median(value: Tensor, dims: DimFilter = None) -> Tensor:
+    """Median over `dims` (default: all non-batch dims)."""
+    return quantile(value, 0.5, dims)
+
+
+# ---------------------------------------------------------------------------
+# neighbour search
+# ---------------------------------------------------------------------------
+
+def pairwise_differences(positions: Tensor, max_distance=None, format='dense', method='auto', default=None,
+                         domain=None, periodic=False, avg_neighbors=8.):
+    """Pairwise position deltas x_j − x_i within `max_distance`.
+
+    Dense: a dual copy of the instance dim, (instance, ~instance, vector),
+    min-image where periodic, `default` (NaN) beyond `max_distance` and on
+    the diagonal. Cell list (`method='cell-list'`, or 'auto' for more than
+    4096 points with `domain` and `max_distance`): COMPACT, the dual dim
+    '~neighbors' of static width 3^d · capacity holds each point's
+    candidates (`math/_neighbors.py`), `default` (NaN) in empty slots."""
+    positions = wrap(positions)
+    inst = positions.shape.instance
+    assert inst.rank == 1
+    n_particles = inst.volume
+    use_cell_list = method == 'cell-list' or (
+        method == 'auto' and domain is not None and max_distance is not None
+        and n_particles is not None and n_particles > 4096)
+    if use_cell_list:
+        assert domain is not None and max_distance is not None, \
+            "cell-list search requires `domain` and `max_distance`"
+        from ._neighbors import cell_list_neighbors
+        labels = positions.shape.get_labels('vector')
+        pos_n = positions.torch((inst.names[0], 'vector'))
+        lo, up = (np.asarray(b.numpy() if isinstance(b, Tensor) else b).reshape(-1) for b in domain)
+        idx, deltas_n, mask_n = cell_list_neighbors(pos_n, float(max_distance), lo, up, periodic=bool(periodic))
+        fill = float('nan') if default is None else float(default)
+        deltas_n = torch.where(mask_n[..., None], deltas_n, fill)
+        out_shape = Shape((Dim(inst.names[0], pos_n.shape[0], INSTANCE, None),
+                           Dim('~neighbors', idx.shape[1], DUAL, None),
+                           Dim('vector', len(labels), CHANNEL, tuple(labels))))
+        return Tensor(deltas_n, out_shape)
+    others = rename_dims(positions, inst, Shape((inst.dims[0].as_type(DUAL),)))
+    deltas = others - positions  # (instance, dual, vector)
+    if periodic and domain is not None:
+        lo, up = domain
+        size = wrap(up) - wrap(lo)
+        deltas = (deltas + size / 2) % size - size / 2
+    if max_distance is not None:
+        dist = vec_length(deltas)
+        mask = (dist < max_distance) & (dist > 0)
+        deltas = where(mask, deltas, float('nan') if default is None else default)
+    return deltas
+
+
+def _argmin(value: Tensor, dim: str) -> Tensor:
+    axis = value.shape.index(dim)
+    n = value.native()
+    native = np.argmin(n, axis=axis).astype(np.int32) if _is_host(n) else torch.argmin(n, dim=axis).to(torch.int32)
+    return Tensor(native, value.shape.without(dim))
+
+
+def find_closest(vectors: Tensor, query: Tensor, index_dim=channel('index')) -> Tensor:
+    """The index along `vectors`' instance (or spatial) dim of the vector
+    closest to each query point."""
+    vectors, query = wrap(vectors), wrap(query)
+    inst = vectors.shape.instance or vectors.shape.spatial
+    if query.shape.instance:
+        diffs = vectors - rename_dims(query, query.shape.instance, instance('_query'))
+    else:
+        diffs = vectors - query
+    idx = _argmin(vec_squared(diffs), inst.names[0])
+    if query.shape.instance:
+        idx = rename_dims(idx, '_query', query.shape.instance)
+    return idx

@@ -49,10 +49,11 @@ def to_device(state, device=None):
     return put(state)
 
 
-from . import burgers, cavity, flip, kolmogorov, moving_obstacle, smoke
+from . import burgers, cavity, flip, kolmogorov, moving_obstacle, smoke, sph_dam
 from .burgers import Burgers
 from .cavity import LidDrivenCavity
 from .flip import FlipLiquid
 from .kolmogorov import KolmogorovFlow
 from .moving_obstacle import MovingObstacles
 from .smoke import SmokePlume, state_from_numpy, state_to_numpy
+from .sph_dam import SphDamBreak

@@ -1,2 +1,2 @@
 """Physics of the port (mirrors `phiflow_tpu/physics`)."""
-from . import advect, diffuse, fluid, integrate
+from . import advect, diffuse, fluid, integrate, sph

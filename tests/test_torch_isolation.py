@@ -16,7 +16,8 @@ FIELD_MODULES = ['math._shape', 'math._magic', 'math._static', 'math._tensor', '
                  'field._resample', 'field._field_math', 'physics.advect']
 GRID_MODEL_MODULES = ['field._noise', 'field._stencil1d', 'field._higher_order', 'physics.integrate', 'models.burgers',
                       'models.kolmogorov']
-MODULES = OBSTACLE_MODULES + FIELD_MODULES + GRID_MODEL_MODULES
+SPH_MODULES = ['math._neighbors', 'geom._graph', 'physics.sph', 'models.sph_dam']
+MODULES = OBSTACLE_MODULES + FIELD_MODULES + GRID_MODEL_MODULES + SPH_MODULES
 
 
 def test_imports_with_jax_blocked():

@@ -1,6 +1,6 @@
 """Every public name that the JAX package's `phiflow_tpu.math`,
 `phiflow_tpu.field`, `phiflow_tpu.geom` or
-`phiflow_tpu.physics.{advect,diffuse,fluid,integrate}` exports and the port exports too
+`phiflow_tpu.physics.{advect,diffuse,fluid,integrate,sph}` exports and the port exports too
 takes the JAX package's signature: the same parameters, kinds and defaults.
 The models' constructors, `initial_state` and `step` take JAX's parameters
 first, then only the port's `device` (and `seed` for `FlipLiquid`, `Burgers`
@@ -17,7 +17,8 @@ PAIRS = [('phiflow_tpu.math', 'phiflow_tpu_torch.math', False), ('phiflow_tpu.fi
          ('phiflow_tpu.physics.advect', 'phiflow_tpu_torch.physics.advect', True),
          ('phiflow_tpu.physics.diffuse', 'phiflow_tpu_torch.physics.diffuse', True),
          ('phiflow_tpu.physics.fluid', 'phiflow_tpu_torch.physics.fluid', True),
-         ('phiflow_tpu.physics.integrate', 'phiflow_tpu_torch.physics.integrate', True)]
+         ('phiflow_tpu.physics.integrate', 'phiflow_tpu_torch.physics.integrate', True),
+         ('phiflow_tpu.physics.sph', 'phiflow_tpu_torch.physics.sph', True)]
 
 
 def _default(value):
@@ -57,7 +58,7 @@ def test_shared_names_take_jax_signatures(jax_name, port_name, by_all):
 
 
 MODELS = [('SmokePlume', ()), ('FlipLiquid', ('device', 'seed')), ('LidDrivenCavity', ()), ('MovingObstacles', ()),
-          ('Burgers', ('device', 'seed')), ('KolmogorovFlow', ('device', 'seed'))]
+          ('Burgers', ('device', 'seed')), ('KolmogorovFlow', ('device', 'seed')), ('SphDamBreak', ())]
 
 
 @pytest.mark.parametrize('model,extra', MODELS, ids=[m for m, _ in MODELS])
