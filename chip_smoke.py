@@ -4,14 +4,16 @@
     python3 chip_smoke.py           # all phases, one card
     python3 chip_smoke.py --quick   # build + kernel-versus-twin checks at the small shapes only
     python3 chip_smoke.py --profile # all phases, then torch.profiler over 3 steps of each path (4-field too,
-                                    # Burgers 128² and Kolmogorov 512² Field and native steps, both SPH sizes),
+                                    # Burgers 128² and Kolmogorov 512² Field and native steps, both SPH and
+                                    # both FVM sizes),
                                     # K2 and K3 at every level of the 256³ V-cycle, K1 at 256³ and
                                     # K1m at 256³ (obstacle masks) and 128³ (active) with each x-chunk
 
 Phases; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi) and the torch / CUDA versions;
   2. the build of phiflow_tpu_torch/csrc/*.cu with nvcc, one process per source, with
-     ptxas's registers and spills of each instantiation of K1's and K6/K7's kernels and of K8's two;
+     ptxas's registers and spills of each instantiation of K1's and K6/K7's kernels and of K8's two,
+     and beside them the mesh face matcher phiflow_tpu_torch/native/meshbuild.cpp with g++;
   3. each kernel K1–K8 and the masked forms of K1 (K1m: active cells; the
      coefficient arrays of obstacles) against its plain
      PyTorch twin on the card, at a shape of its path (256³; 4096² for K7; 128³
@@ -129,7 +131,24 @@ Phases; any failure exits non-zero and prints no result:
      and inside [−0.02, 1.02]; then the cell list of the default's initial
      state bit-equal on the CPU and the card, its first step within 2e-6 in
      positions and 2e-4 in velocities (no later step: the model diverges
-     from step 2), and nx=20 × 40 over 5 steps within 1e-6 and 2e-4; and
+     from step 2), and nx=20 × 40 over 5 steps within 1e-6 and 2e-4; then
+     FVM, the cylinder wake (`CylinderWake`, its Field `step`: the unstructured
+     mesh's operators, BiCGStab and the mesh Chebyshev preconditioner are
+     PyTorch operations, no kernel of ours may launch): cylinder-wake, the
+     model's own configuration (400 × 128, 50,892 cells; 2 warm-up, 5 timed
+     steps), and cylinder-wake-1600x512 (nx=1600, ny=512, dt=0.0125: 814,160
+     cells; 1 warm-up, 1 timed step, then a third step printed and not gated:
+     its pressure solves stop at 500 iterations unconverged, and the third
+     returns the diverging BiCGStab's last iterate, as the JAX package's
+     algorithm does at 800 × 256 in its first step): the mesh's build time on
+     the host, ms per step, Mcells/s, each step's BiCGStab iterations and
+     convergence, the syncs of the last warm-up step (`'warn'`),
+     `max_memory_allocated`, max |v|, drag and lift, the state on the model's
+     mesh, finite, max |v| < 3; then the default mesh's tables on the card
+     bit-equal to the host's build, every operator of
+     `field/_mesh_math.py` on random values within 1e-5 of its scale on the
+     CPU and the card, and the JAX suite's wake (120 × 36, solve_tol 1e-5)
+     over 3 steps on both (`FVM_CPU_CARD_TOL`); and
      K1m's, K6's and K8's launches a step × (device − bound) on each path
      that runs them (`gaps` lines);
   5. 2 steps from one numpy state on the CPU (the twins) and on the card (the
@@ -147,6 +166,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
@@ -1391,7 +1411,8 @@ PORT_KERNELS = ('stencil_kernel', 'smooth_kernel', 'residual_restrict_kernel', '
 def profile_path(tag, size, advance, state, warmup=2, steps=3, rows_shown=12):
     """torch.profiler over `steps` steps of a path (`advance(state) -> state`):
     device time by kernel and the device's busy share of the wall time (the
-    profiler's own host overhead included in that wall time)."""
+    profiler's own host overhead included in that wall time), and the
+    host→device copies."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1411,10 +1432,12 @@ def profile_path(tag, size, advance, state, warmup=2, steps=3, rows_shown=12):
     device_ms = sum(r[2] for r in rows)
     ours = [r for r in rows if any(k in r[0] for k in PORT_KERNELS)]
     ours_ms = sum(r[2] for r in ours)
+    kernels = sum(r[1] for r in rows) / steps
+    htod = sum(r[1] for r in rows if 'HtoD' in r[0]) / steps
     print(f'profile {tag} {size}, {steps} steps: device busy {device_ms / steps:.2f} ms/step of '
           f'{wall_ms / steps:.2f} ms/step wall under the profiler ({100 * device_ms / wall_ms:.1f}% busy); '
           f'the port\'s kernels {ours_ms / steps:.2f} ms/step, PyTorch kernels {(device_ms - ours_ms) / steps:.2f} ms/step, '
-          f'{sum(r[1] for r in rows) / steps:.0f} device kernels a step')
+          f'{kernels:.0f} device kernels a step, {htod:g} host->device copies a step')
     for key, count, ms in rows[:rows_shown]:
         print(f'profile   {ms / steps:8.3f} ms/step {count / steps:7.1f} calls/step  {key[:110]}')
     for key, count, ms in ours:
@@ -2192,7 +2215,8 @@ def syncs_a_step(step, state):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    syncs = [w for w in caught if 'synchronizing' in str(w.message)]
+    # the mode's own switch can report one: not the step's
+    syncs = [w for w in caught if 'synchronizing' in str(w.message) and not w.filename.endswith('cuda/__init__.py')]
     return len(syncs), sorted({f'{w.filename.split("/")[-1]}:{w.lineno}' for w in syncs}), state
 
 
@@ -2312,6 +2336,240 @@ def profile_sph():
         torch.cuda.empty_cache()
 
 
+FVM_SIZES = {
+    'cylinder-wake': {},  # the model's own configuration: 400 × 128, 50,892 cells
+    # 4× finer per axis, dt scaled with dx (the default's Courant number): 819,200 cells less the cylinder's
+    'cylinder-wake-1600x512': dict(nx=1600, ny=512, dt=0.0125),
+}
+# (warm-up, timed, probe) Field steps. The refined wake's pressure solves stop at their 500 iterations
+# unconverged; its third step returns the diverging BiCGStab's last iterate (max |v| in the thousands, then NaN) —
+# the JAX package's algorithm, which diverges the same way at 800 × 256 in its first step. So it takes 1 warm-up
+# and 1 timed step, gated, and the third runs as a probe: printed, not gated.
+FVM_RUNS = {'cylinder-wake': (2, 5, 0), 'cylinder-wake-1600x512': (1, 1, 1)}
+# the JAX suite's configuration (tests/physics/test_cylinder_wake.py) at a tolerance tight enough to compare
+FVM_SUITE = dict(nx=120, ny=36, re=120., dt=0.08, diameter=0.5, upwind=False, perturb=0.2, solve_tol=1e-5,
+                 max_iterations=300)
+FVM_V_MAX = 3.0  # |v| bound of the JAX suite's wake test (U∞ = 1)
+FVM_TABLES = ('center', 'volume', 'neighbors', 'face_areas', 'face_centers', 'face_normals', 'neighbor_distances',
+              'vertices')
+# CPU against the card over FVM_SUITE's 3 steps, per step: BiCGStab at tolerance 1e-5 leaves noise of the solves'
+# size. A 1e-7 relative perturbation of the initial velocity moves JAX's own pressure by up to 6.5e-4 / 3.3e-3 /
+# 1.1e-3 of its scale at steps 1 / 2 / 3 and its pressure iterations over 63-67 / 63-73 / 48-53 (eight seeds; the
+# port's, on the CPU: 7.7e-4 / 4.3e-3 / 1.7e-3, 63-67 / 65-71 / 45-52). The velocity is held to 3e-4, the pressure
+# to 3e-3 at step 1 and 1e-2 after, the momentum iterations to 2 apart, the pressure iterations to 25% of the CPU's.
+FVM_CPU_CARD_TOL = {'velocity': (3e-4, 3e-4, 3e-4), 'pressure': (3e-3, 1e-2, 1e-2)}
+FVM_PRESSURE_ITERATIONS_REL = 0.25
+
+
+def fvm_step(model, v, p):
+    """One Field step of the wake and its two solves' (iterations, converged)."""
+    from phiflow_tpu_torch.math import SolveTape
+    with SolveTape() as tape:
+        v, p = model.step(v, p)
+    return v, p, [(info.iterations, info.converged) for info in tape]
+
+
+def run_fvm(tag, warmup, steps, probe):
+    """CylinderWake on the card through its Field `step`: the mesh's build on
+    the host (the model's constructor, the tables' one copy to the card
+    included), ms a step, Mcells/s, each step's momentum and pressure
+    iterations and convergence, the syncs of the last warm-up step,
+    `max_memory_allocated`, max |v| and drag and lift (`forces(p) / dt`); no
+    kernel of ours launched, the state on the model's mesh (no table copied),
+    finite and max |v| < 3. Then `probe` more steps, printed only. Returns
+    the launch counts."""
+    import torch
+    from phiflow_tpu_torch.models import CylinderWake
+    from phiflow_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = CylinderWake(**FVM_SIZES[tag], device='cuda')
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    v, p = model.initial_state()
+    warm = []
+    for k in range(warmup):
+        if k < warmup - 1:
+            v, p, its = fvm_step(model, v, p)
+        else:  # the last warm-up step also counts its syncs
+            syncs, sync_lines, (v, p, its) = syncs_a_step(lambda state: fvm_step(model, *state), (v, p))
+        warm.append(its)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    solves = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        v, p, its = fvm_step(model, v, p)
+        solves.append(its)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    peak = torch.cuda.max_memory_allocated()
+    vel, pres = v.values.native(('cells', 'vector')), p.values.native(('cells',))
+    finite = bool(torch.isfinite(vel).all()) and bool(torch.isfinite(pres).all())
+    v_max = float(vel.abs().max())
+    drag, lift = (model.forces(p) / model.dt).numpy(('vector',)).tolist()
+    on_mesh = v.geometry is model.mesh and p.geometry is model.mesh
+
+    def text(step_solves):
+        return '; '.join(f'momentum {m} ({"converged" if mc else "not converged"}), pressure {q} '
+                         f'({"converged" if qc else "not converged"})' for (m, mc), (q, qc) in step_solves)
+    print(f'{tag} {model.n_cells} cells: mesh built on the host in {build_s:.2f} s (tables to the card included); '
+          f'{ms:.2f} ms/step over {steps} Field step(s) after {warmup} warm-up step(s), '
+          f'{model.n_cells / ms * 1e-3:.4f} Mcells/s; BiCGStab iterations of the timed steps: {text(solves)}; '
+          f'syncs in warm-up step {warmup} {syncs} {sync_lines or ""} (its iterations: {text([warm[-1]])}); '
+          f'max_memory_allocated {peak / 2 ** 30:.3f} GiB; max |v| {v_max:.4f}; drag {drag:.5f}, lift {lift:.5f} '
+          f'(forces(p) / dt); kernels of ours launched: {launches or "none"}; the state on the model\'s mesh: '
+          f'{on_mesh}; all finite: {finite}')
+    bad = []
+    if launches:
+        bad.append(f'kernels of ours launched {launches}')
+    if not finite or not v_max < FVM_V_MAX:
+        bad.append(f'finite={finite}, max |v| {v_max} (< {FVM_V_MAX} expected)')
+    if not on_mesh:
+        bad.append("the state left the model's mesh")
+    if bad:
+        raise RuntimeError(f'{tag}: ' + '; '.join(bad))
+    for k in range(probe):
+        v, p, its = fvm_step(model, v, p)
+        vel = v.values.native(('cells', 'vector'))
+        print(f'{tag} probe step {warmup + steps + k + 1} (printed, not gated): {text([its])}; max |v| '
+              f'{float(vel.abs().max()):.4g}, finite: {bool(torch.isfinite(vel).all())}')
+    return dict(steps=steps)
+
+
+def fvm_operators(mm, fields):
+    """Every operator of `field/_mesh_math.py` on `fields` (s, v, flux, points)."""
+    s, v, flux, points = fields
+    return {
+        'centroid_to_faces linear': mm.centroid_to_faces(s),
+        'centroid_to_faces upwind': mm.centroid_to_faces(s, 'upwind', flux),
+        'centroid_to_faces component': mm.centroid_to_faces(v, component='y'),
+        'green_gauss_gradient': mm.green_gauss_gradient(s).values,
+        'least_squares_gradient': mm.least_squares_gradient(s).values,
+        'mesh_divergence': mm.mesh_divergence(v).values,
+        'mesh_laplace scalar': mm.mesh_laplace(s).values,
+        'mesh_laplace scalar correct_skew': mm.mesh_laplace(s, correct_skew=True).values,
+        'mesh_laplace vector': mm.mesh_laplace(v).values,
+        'mesh_laplace vector correct_skew': mm.mesh_laplace(v, correct_skew=True).values,
+        'mesh_laplace_diagonal correct_skew': mm.mesh_laplace_diagonal(s),
+        'mesh_laplace_diagonal': mm.mesh_laplace_diagonal(s, correct_skew=False),
+        'mesh_advection_differential upwind': mm.mesh_advection_differential(v, v).values,
+        'mesh_advection_differential linear': mm.mesh_advection_differential(v, v, upwind=False).values,
+        'sample_mesh_field scalar': mm.sample_mesh_field(s, points, 'center', None, None),
+        'sample_mesh_field vector': mm.sample_mesh_field(v, points, 'center', None, None),
+    }
+
+
+def fvm_cpu_vs_card():
+    """The default wake's mesh tables on the card bit-equal to the host's
+    build; every FVM operator on it, seeded random values, within 1e-5 of the
+    output's scale on the CPU and the card; the JAX suite's wake at solve_tol
+    1e-5 over 3 steps on both (FVM_CPU_CARD_TOL)."""
+    import numpy as np
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import Field, _mesh_math as mm
+    from phiflow_tpu_torch.geom import Point, build_mesh
+    from phiflow_tpu_torch.math import channel, dual, extrapolation, instance, vec, wrap
+    from phiflow_tpu_torch.models import CylinderWake
+    card = CylinderWake(device='cuda')
+    with math.default_device('cpu'):
+        host = build_mesh(card.domain, x=400, y=128, obstacles=card.cylinder)
+    unequal = [t for t in FVM_TABLES if not np.array_equal(getattr(host, t).numpy(getattr(host, t).shape.names),
+                                                           getattr(card.mesh, t).numpy(getattr(host, t).shape.names))]
+    same_groups = host.boundaries == card.mesh.boundaries
+    print(f'cpu vs card, CylinderWake() mesh ({host.cell_count} cells): the {len(FVM_TABLES)} tables on the card '
+          f'bit-equal to the host build: {not unequal} {unequal or ""}; boundary groups equal: {same_groups}')
+    if unequal or not same_groups:
+        raise RuntimeError(f'FVM mesh tables differ between the host build and the card: {unequal}')
+    rng = np.random.default_rng(3)
+    n = host.cell_count
+    s, v = rng.standard_normal(n).astype(np.float32), rng.standard_normal((n, 2)).astype(np.float32)
+    flux = rng.standard_normal((n, 4)).astype(np.float32)
+    pts = rng.uniform((0.2, 0.2), (7.8, 3.8), (256, 2)).astype(np.float32)
+    zg = extrapolation.ZERO_GRADIENT
+    out = {}
+    for dev, mesh in (('cpu', host), ('cuda', card.mesh)):
+        with math.default_device(dev):
+            fields = (Field(mesh, wrap(torch.from_numpy(s).to(dev), instance('cells')),
+                            {'x-': 1., 'x+': zg, 'y-': 0.5, 'y+': 0., 'boundary': 0.}),
+                      Field(mesh, wrap(torch.from_numpy(v).to(dev), instance('cells'), channel(vector='x,y')),
+                            {'x-': vec(x=1., y=0.), 'x+': zg, 'y-': vec(x=1., y=0.), 'y+': vec(x=1., y=0.),
+                             'boundary': 0.}),
+                      wrap(torch.from_numpy(flux).to(dev), instance('cells'), dual(faces=4)),
+                      Point(wrap(torch.from_numpy(pts).to(dev), instance('points'), channel(vector='x,y'))))
+            out[dev] = {k: t.numpy(sorted(t.shape.names)) for k, t in fvm_operators(mm, fields).items()}
+    bad = []
+    for name, ref in out['cpu'].items():
+        got = out['cuda'][name]
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(got - ref).max()) / scale
+        ok = err <= 1e-5 and bool(np.isfinite(got).all())
+        print(f'cpu vs card, FVM operator {name:36s} max |diff| / scale {err:.3e} (tol 1e-05, scale {scale:.4g}) '
+              f'{"ok" if ok else "FAIL"}')
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise RuntimeError(f'FVM operators disagree between the CPU and the card: {bad}')
+    del card
+    runs = {}
+    for dev in ('cpu', 'cuda'):
+        with math.default_device(dev):
+            model = CylinderWake(**FVM_SUITE, device=dev)
+            v, p = model.initial_state()
+            states = []
+            for _ in range(3):
+                v, p, its = fvm_step(model, v, p)
+                states.append((v.values.numpy(('cells', 'vector')), p.values.numpy(('cells',)), its))
+            runs[dev] = states
+    for k, ((vc, pc, ic), (vg, pg, ig)) in enumerate(zip(runs['cpu'], runs['cuda'])):
+        dv = float(np.abs(vc - vg).max()) / float(np.abs(vc).max())
+        dp = float(np.abs(pc - pg).max()) / float(np.abs(pc).max())
+        tv, tp = FVM_CPU_CARD_TOL['velocity'][k], FVM_CPU_CARD_TOL['pressure'][k]
+        (mc, mc_ok), (qc, qc_ok) = ic
+        (mg, mg_ok), (qg, qg_ok) = ig
+        ok = (dv <= tv and dp <= tp and abs(mc - mg) <= 2 and qc_ok and qg_ok and mc_ok and mg_ok
+              and abs(qc - qg) <= FVM_PRESSURE_ITERATIONS_REL * qc and np.isfinite(vg).all() and np.isfinite(pg).all())
+        print(f'cpu vs card, CylinderWake({FVM_SUITE["nx"]}x{FVM_SUITE["ny"]}, solve_tol 1e-5) step {k + 1}: max |diff| '
+              f'/ scale velocity {dv:.3e} (tol {tv:g}), pressure {dp:.3e} (tol {tp:g}); iterations momentum {mc} / {mg}, '
+              f'pressure {qc} / {qg} (cpu / card), all converged: {mc_ok and mg_ok and qc_ok and qg_ok} '
+              f'{"ok" if ok else "FAIL"}')
+        if not ok:
+            raise RuntimeError(f'CPU and card disagree (CylinderWake step {k + 1}): {dv}, {dp}, {ic}, {ig}')
+    torch.cuda.empty_cache()
+
+
+def run_fvm_models():
+    """The "FVM" phase: the default wake (2 warm-up, 5 timed steps), the
+    1600 × 512 one (1 + 1 and a probe step), then CPU against the card.
+    Returns the launch counts by path."""
+    import torch
+    t0 = time.perf_counter()
+    by_path = {}
+    for tag, (warmup, steps, probe) in FVM_RUNS.items():
+        by_path[tag] = run_fvm(tag, warmup, steps, probe)
+        torch.cuda.empty_cache()
+    fvm_cpu_vs_card()
+    print(f'FVM: {time.perf_counter() - t0:.1f} s')
+    return by_path
+
+
+def profile_fvm():
+    """Field steps of each FVM size under the profiler (2 + 2 at the default,
+    0 + 1 at 1600 × 512): device busy ms, device kernels and host→device
+    copies a step, the top operations."""
+    import torch
+    from phiflow_tpu_torch.models import CylinderWake
+    for tag, (warmup, steps) in (('cylinder-wake', (2, 2)), ('cylinder-wake-1600x512', (0, 1))):
+        model = CylinderWake(**FVM_SIZES[tag], device='cuda')
+        profile_path(tag, f'{model.n_cells} cells', lambda state: model.step(*state), model.initial_state(),
+                     warmup=warmup, steps=steps, rows_shown=12)
+        del model
+        torch.cuda.empty_cache()
+
+
 def print_path_gaps(ch, by_path):
     """K1m's, K6's and K8's launches a step on each path that runs them ×
     (device − bound) of the row timed at that path's shape: K1m's coefficient
@@ -2400,8 +2658,18 @@ def main(argv):
     print(f'card: {card}')
     print(f'torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}, '
           f'{torch.cuda.device_count()} visible device(s)')
-    t = _build.build(force=True, verbose=True)
-    print(f'build: {len(_build.SOURCES)} sources in {t:.1f} s (one nvcc each, in parallel)')
+    from phiflow_tpu_torch.native import _lib as native_lib
+    gxx = {}
+    gxx_thread = threading.Thread(target=lambda: gxx.update(s=native_lib.build(force=True)))
+    gxx_thread.start()  # the mesh face matcher, built with g++ beside the nvcc processes
+    try:
+        t = _build.build(force=True, verbose=True)
+    finally:
+        gxx_thread.join()
+    if 's' not in gxx:
+        raise RuntimeError('the mesh face matcher (native/meshbuild.cpp) did not build')
+    print(f'build: {len(_build.SOURCES)} sources in {t:.1f} s (one nvcc each, in parallel); the mesh face matcher '
+          f'native/meshbuild.cpp with g++ beside them in {gxx["s"]:.1f} s')
     for name in _build.SOURCES:
         with open(_build.ptxas_log(name)) as f:
             log = f.read()
@@ -2454,6 +2722,7 @@ def main(argv):
     by_path['cavity-2d'] = run_model_2d('cavity-2d', LidDrivenCavity(256, obstacle=True, device='cuda'))
     by_path.update(run_grid_models(ch))
     by_path.update(run_sph_models())
+    by_path.update(run_fvm_models())
     print_path_gaps(ch, by_path)
     cpu_vs_card('fused', 3, 64, False)
     cpu_vs_card('per-phase', 3, 64, True)
@@ -2474,6 +2743,7 @@ def main(argv):
         profile_obstacles(f'obstacle-{OBSTACLE_N}-vcycle', OBSTACLE_N, 'vcycle')
         profile_grid_models()
         profile_sph()
+        profile_fvm()
         time_smooth_chunks(gen)
         time_march_chunks(gen)
     rows = []

@@ -1,7 +1,7 @@
 """ΦFlow-TPU's PyTorch/CUDA port (`phiflow_tpu_torch`).
 
-The JAX package `phiflow_tpu` stays the reference. This package mirrors six
-of its models — with JAX's Field-level faces: `initial_state()` returns
+The JAX package `phiflow_tpu` stays the reference. This package mirrors all
+eight of its models — with JAX's Field-level faces: `initial_state()` returns
 Fields and `step(...)` takes and returns them, through the Field API of
 `math`, `geom`, `field` and `physics` — and below them the array layer
 (`*_native`) on raw `torch.Tensor`s, into which every Field function
@@ -22,7 +22,11 @@ advects a centred periodic velocity through the 2D window kernel and diffuses
 it explicitly or by CG; `models.KolmogorovFlow` integrates a forced periodic
 flow with RK4, order-6 compact finite differences (dense per-axis operator
 matrices, `field/_stencil1d.py`) and a wide-stencil projection in each stage,
-with no kernel of the port's on its path. The array
+with no kernel of the port's on its path. `models.SphDamBreak` runs SPH
+on a cell-list neighbour graph, and `models.CylinderWake` the finite-volume
+wake on an unstructured mesh (`geom/_mesh.py`, built by the C++ face
+matcher of `native/`, `field/_mesh_math.py`, BiCGStab in `math/_solve.py`),
+both in PyTorch operations with no kernel of the port's on their paths. The array
 layer's hot loops are hand-written CUDA kernels for Hopper (`csrc/*.cu`,
 built with `nvcc` at first use by `ops/_build.py`). Every kernel has a
 plain PyTorch twin in the same module; a wrapper takes the twin only for

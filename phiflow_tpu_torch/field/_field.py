@@ -16,7 +16,10 @@ Tensor of points with an instance dim (`field/_point_cloud.py`); `points` and
 A `FieldInitializer` (such as `Noise`) or a callable of the sample points
 given as values is sampled at the grid's cells (`field/_resample.py::sample`).
 
-Meshes and graphs as Fields come with a later slice.
+A mesh Field lies on a `Mesh` (`geom/_mesh.py`): its values have the dim
+`cells` (and channel dims, e.g. `vector`); a constant is expanded to the
+cells, and its boundary names are the mesh's boundary groups. Graphs as
+Fields come with a later slice.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from ..math import _ops as ops
 from ..math import extrapolation as extrapolation_mod
 from ..math._extrapolation import Extrapolation, ConstantExtrapolation, domain_slice
 from ..math._magic import BoundDim, slicing_dict
+from ..math._tensor import to_torch
 from ..math._shape import Dim, CHANNEL
 from ..geom import Box, Geometry, Point, Sphere, UniformGrid
 
@@ -43,6 +47,11 @@ class FieldInitializer:
 
     def _sample(self, geometry: Geometry, at: str, boundaries: Extrapolation, **kwargs) -> Tensor:
         raise NotImplementedError(type(self))
+
+
+def _is_mesh(geometry) -> bool:
+    from ..geom._mesh import Mesh
+    return isinstance(geometry, Mesh)
 
 
 def as_boundary(obj, geometry=None) -> Extrapolation:
@@ -96,6 +105,11 @@ class Field:
             missing = geometry.resolution.without(values.shape.names)
             if missing:
                 values = expand(values, missing)
+        elif isinstance(values, Tensor) and not values.shape.dual and _is_mesh(geometry):
+            cells = geometry.shape.non_channel
+            if not all(n in values.shape for n in cells.names):
+                values = expand(values, cells.without(values.shape.names))
+                values = Tensor(to_torch(values.native(), geometry.device), values.shape)
         self._geometry = geometry
         self._values = values
         self._boundary = boundary
@@ -155,7 +169,7 @@ class Field:
 
     @property
     def is_mesh(self) -> bool:
-        return False
+        return _is_mesh(self._geometry)
 
     @property
     def is_point_cloud(self) -> bool:
@@ -195,6 +209,8 @@ class Field:
 
     @property
     def boundary_names(self) -> Tuple[str, ...]:
+        if self.is_mesh:
+            return self._geometry.boundary_names
         return tuple(self.resolution.names)
 
     @property

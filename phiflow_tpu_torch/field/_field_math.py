@@ -267,7 +267,10 @@ def laplace(field, axes=None, gradient=None, order=2, implicit=None, weights=Non
     central stencil (−1, 16, −30, 16, −1) / (12 dx²) over ghost cells; other
     orders and boundaries: `higher_order_laplace` (the compact scheme at
     order 6). Its boundary is the gradient's (`spatial_gradient()` of the
-    field's)."""
+    field's). A mesh Field goes to `mesh_laplace`."""
+    if field.is_mesh:
+        from ._mesh_math import mesh_laplace
+        return mesh_laplace(field, gradient=gradient, order=order, upwind=upwind, correct_skew=correct_skew)
     if gradient is not None or upwind is not None:
         raise NotImplementedError("laplace with a gradient Field or an upwind scheme comes with a later slice of "
                                   "the port")
@@ -303,7 +306,20 @@ def spatial_gradient(field, boundary=None, at: str = 'center', dims=None, stack_
     staggered grid whose components follow the gradient's boundary) by the
     differences of neighbours (`spatial_gradient_native`); other orders and
     boundaries through `higher_order_gradient` (the compact scheme at order
-    6)."""
+    6). A mesh Field's gradient is Green-Gauss, or least squares with
+    ``scheme='least-squares'``; of a vector Field one per component, stacked
+    along `gradient` where `stack_dim` is its own channel dim."""
+    if field.is_mesh:
+        from ._mesh_math import green_gauss_gradient, least_squares_gradient
+        grad_fn = least_squares_gradient if scheme in ('least-squares', 'least_squares') else green_gauss_gradient
+        if field.shape.channel:
+            ch = field.shape.channel[0:1]
+            if stack_dim.dims[0].name == ch.name:
+                stack_dim = channel('gradient')
+            labels = field.shape.get_labels(ch.name) or tuple(range(ch.volume))
+            comps = [grad_fn(field[{ch.name: l}], stack_dim=stack_dim, boundary=boundary) for l in labels]
+            return Field(field.geometry, stack([c.values for c in comps], ch), comps[0].boundary)
+        return grad_fn(field, stack_dim=stack_dim, boundary=boundary)
     if upwind is not None:
         raise NotImplementedError("spatial_gradient with an upwind scheme comes with a later slice of the port")
     assert field.is_grid and field.is_centered, f"spatial_gradient requires a centred grid, got {field}"
@@ -368,7 +384,11 @@ def divergence(field, order=2, implicit=None, upwind=None):
     """∇·v at the cell centres: of a staggered grid the differences of each
     component's faces (`divergence_native`, order 2), of a centred vector
     grid the sum of each component's derivative along its own axis
-    (`spatial_gradient` at the centres, orders 2, 4 and 6)."""
+    (`spatial_gradient` at the centres, orders 2, 4 and 6); of a mesh Field
+    the flux sum of `mesh_divergence`."""
+    if field.is_mesh:
+        from ._mesh_math import mesh_divergence
+        return mesh_divergence(field, order=order, upwind=upwind)
     if upwind is not None:
         raise NotImplementedError("divergence with an upwind scheme comes with a later slice of the port")
     names = field.resolution.names

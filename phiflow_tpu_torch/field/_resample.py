@@ -37,6 +37,8 @@ cloud onto a centred or closed-box staggered grid with ``scatter=True``
 on the card — with the base from the point cloud's constant boundary (NaN for
 FLIP); a grid at the points of a point cloud, a `Point` or a `Sphere`
 (`:196-230`) into `sample_grid_at_points` / `sample_staggered_at_points`.
+A mesh Field at points goes to `field/_mesh_math.py::sample_mesh_field`
+(`:107-109`); constants and callables at a mesh give values at its cells.
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ import torch
 from ..geom import UniformGrid
 from ..geom._geom import Geometry, Point, flat_points
 from ..geom._grid import UniformGrid_native
+from ..geom._mesh import Mesh
 from ..math import Tensor, channel, dual, expand, extrapolation, stack, to_float, wrap
 from ..math._extrapolation import ConstantExtrapolation
 from ..math._nd import Extrapolation, pad
@@ -254,7 +257,7 @@ def resample(value, to=None, keep_boundary=False, soft=False, scatter=False,
     if isinstance(value, (int, float, bool)) or (isinstance(value, Tensor) and not value.shape.spatial
                                                   and not value.shape.instance):
         return to.with_values(value if isinstance(value, Tensor) else wrap(value))
-    if isinstance(value, Field) and value.is_point_cloud and not to.is_point_cloud:
+    if isinstance(value, Field) and value.is_point_cloud and not value.is_mesh and not to.is_point_cloud:
         return to.with_values(_scatter_points(value, to, scatter, outside_handling))
     if isinstance(value, Field):
         extrap = value.boundary if keep_boundary else to.boundary
@@ -278,6 +281,11 @@ def sample(value, geometry, at: str = 'center', boundary=None, dot_face_normal=N
         geometry = geometry.geometry
     if isinstance(geometry, Tensor):
         geometry = Point(geometry)
+    if isinstance(value, Field) and value.is_mesh:
+        from ._mesh_math import sample_mesh_field
+        return sample_mesh_field(value, geometry, at, boundary, dot_face_normal)
+    if isinstance(geometry, Mesh):
+        return _sample_at_mesh(value, geometry)
     if not isinstance(geometry, UniformGrid):
         if isinstance(value, Field) and value.is_grid and isinstance(geometry.center, Tensor):
             return _sample_grid_at_points_field(value, geometry.center)
@@ -307,6 +315,27 @@ def sample(value, geometry, at: str = 'center', boundary=None, dot_face_normal=N
     if isinstance(value, Field) and value.is_grid:
         return _sample_grid_field(value, geometry, at, boundary, dot_face_normal, **kwargs)
     raise NotImplementedError(f"sampling a {type(value).__name__} comes with a later slice of the port")
+
+
+def _sample_at_mesh(value, mesh: Mesh) -> Tensor:
+    """A constant, Tensor or callable of the points at a mesh's cell centres:
+    a callable of one parameter takes the centres, of more one component
+    each (`phiflow_tpu/geom/_geom.py::sample_function`)."""
+    if callable(value) and not isinstance(value, (Field, Tensor)):
+        import inspect
+        points = mesh.center
+        try:
+            n_params = len(inspect.signature(value).parameters)
+        except (TypeError, ValueError):
+            n_params = 1
+        value = value(points) if n_params == 1 else value(*[points.vector[i] for i in range(mesh.spatial_rank)])
+    if isinstance(value, (int, float, bool)):
+        value = wrap(value)
+    if isinstance(value, (tuple, list)):
+        value = wrap(list(value), channel(vector=mesh.shape.get_labels('vector')))
+    if isinstance(value, Tensor):
+        return expand(value, mesh.shape.non_channel.without(value.shape.names))
+    raise NotImplementedError(f"sampling a {type(value).__name__} at a mesh comes with a later slice of the port")
 
 
 def _sample_function(f, grid) -> Tensor:

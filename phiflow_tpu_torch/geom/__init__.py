@@ -5,3 +5,4 @@ from ._graph import Graph, graph
 from ._grid import UniformGrid, UniformGrid_native
 from ._sphere import Sphere
 from ._transform import rotate_vector, rotation_matrix, rotation_matrix_native
+from ._mesh import Mesh, mesh, mesh_from_numpy, build_mesh

@@ -87,6 +87,17 @@ def flat_points(points: Tensor):
     return flat, lambda a: Tensor(a.reshape(native.shape), shape)
 
 
+def point_components(points: Tensor, names=None):
+    """(one native a component along `vector` — in the order of the axis
+    `names` where both they and the labels are known —, the shape of the
+    points without `vector`): a Tensor of points as a query location."""
+    shape = points.shape.without('vector')
+    labels = points.shape.get_labels('vector')
+    native = points.native(shape.names + ('vector',))
+    order = [labels.index(n) for n in names] if names and labels else range(native.shape[-1])
+    return [native[..., i] for i in order], shape
+
+
 def vec_squared(v: Location) -> torch.Tensor:
     total = None
     for c in v:

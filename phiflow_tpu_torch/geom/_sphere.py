@@ -1,6 +1,7 @@
 """Spheres — port of `phiflow_tpu/geom/_sphere.py` as far as obstacles and
-particles use it: the inside test, the signed distance, `at`, the volume
-and the conversions between radius and volume (`:47-68`, SPH's sizing).
+particles use it: the inside test (also at a Tensor of points, as
+`build_mesh` asks it), the signed distance, `at`, the volume and the
+conversions between radius and volume (`:47-68`, SPH's sizing).
 `Sphere(center, radius, volume)` takes a sequence or a Tensor as the centre,
 `Sphere(x=…, y=…, radius=R)` one keyword per axis (`:23`), and a radius or a
 volume.
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from ..math import EMPTY_SHAPE, Tensor, default_float, sqrt, wrap
-from ._geom import Geometry, host_scalar, host_vec, is_point_set, vec_length, vec_squared
+from ._geom import Geometry, host_scalar, host_vec, is_point_set, point_components, vec_length, vec_squared
 
 __all__ = ['Sphere']
 
@@ -92,6 +93,12 @@ class Sphere(Geometry):
         return [x - float(c) for x, c in zip(location, self._center)]
 
     def lies_inside(self, location) -> torch.Tensor:
+        """Whether each location lies inside: per-axis arrays in, an array
+        out; or a Tensor of points in (as `build_mesh` asks), a Tensor of its
+        dims but `vector` out, on the points' device (numpy for host points)."""
+        if isinstance(location, Tensor):
+            comps, shape = point_components(location, self.names)
+            return Tensor(self.lies_inside(comps), shape)
         return vec_squared(self._delta(location)) <= float(self._radius ** 2)
 
     def approximate_signed_distance(self, location) -> torch.Tensor:

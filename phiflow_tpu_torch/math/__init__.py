@@ -31,7 +31,7 @@ from ._ops import (
 from . import _extrapolation as extrapolation
 from ._extrapolation import Extrapolation, as_extrapolation
 from ._functional import jit_compile, jit_compile_linear, LinearFunction
-from ._solve import Solve, SolveInfo, SolveTape, solve_linear, copy_solve, SolveResult, cg
+from ._solve import Solve, SolveInfo, SolveTape, solve_linear, copy_solve, SolveResult, cg, bicgstab
 from ._multigrid import make_poisson_vcycle
 from ._nd import (BOUNDARY, PERIODIC, PerSide, masked_fill, masked_fill_native, shift_window_interp, fourier_laplace,
                   fourier_poisson)

@@ -1,13 +1,15 @@
 """Linear solves — port of `phiflow_tpu/math/_solve.py`: conjugate gradients
-on raw tensors (`cg`, the array layer's solver), and on top of it the solve
-specification of the Field layer (`Solve`, `copy_solve`), its diagnostics
-(`SolveInfo`, `SolveTape`) and `solve_linear` for the methods 'auto' and 'CG'.
+and BiCGStab on raw tensors (`cg`, the array layer's solver, and `bicgstab`,
+JAX's `_bicgstab` `:488-537`), and on top of them the solve specification of
+the Field layer (`Solve`, `copy_solve`), its diagnostics (`SolveInfo`,
+`SolveTape`) and `solve_linear` for the methods 'auto' and 'CG' (CG) and
+'biCG-stab', 'biCG' and 'biCG-stab(1)' (BiCGStab).
 
-The loop runs eagerly: the stop test reads ⟨r, r⟩ on the host once per
+The loops run eagerly: the stop test reads ⟨r, r⟩ on the host once per
 iteration (one device sync), where JAX keeps the loop on the device in a
 `lax.while_loop`. A `SolveInfo` therefore holds the concrete iteration count.
-BiCGStab, direct solves, `minimize` and `solve_nonlinear` come with a later
-slice.
+'biCG-stab(2)', direct solves, `minimize` and `solve_nonlinear` come with a
+later slice.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from ._functional import LinearFunction
 from ._magic import ConvergenceException, Diverged, NotConverged
 from ._tensor import Tensor, TensorStack
 
-__all__ = ['SolveResult', 'cg', 'sub_mean', 'Solve', 'copy_solve', 'SolveInfo', 'SolveTape', 'solve_linear']
+__all__ = ['SolveResult', 'cg', 'bicgstab', 'sub_mean', 'Solve', 'copy_solve', 'SolveInfo', 'SolveTape', 'solve_linear']
 
 
 class SolveResult(NamedTuple):
@@ -30,6 +32,11 @@ class SolveResult(NamedTuple):
 
 def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.dot(u.reshape(-1), v.reshape(-1))
+
+
+def _dot64(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """⟨u, v⟩ accumulated in float64, in u's dtype."""
+    return torch.dot(u.reshape(-1).double(), v.reshape(-1).double()).to(u.dtype)
 
 
 def sub_mean(x: torch.Tensor) -> torch.Tensor:
@@ -81,6 +88,55 @@ def cg(A: Callable, b: torch.Tensor, x0: torch.Tensor, rtol: float, atol: float,
         beta = rz_new / safe_denom(rz)
         p = z + beta * p
         rz = rz_new
+        it += 1
+    return SolveResult(x, it, bool(rr <= tol_sq))
+
+
+def bicgstab(A: Callable, b: torch.Tensor, x0: torch.Tensor, rtol: float, atol: float, max_iter: int,
+             M: Optional[Callable] = None) -> SolveResult:
+    """BiCGStab for a general (nonsymmetric) A, right-preconditioned by M.
+
+    A(p) -> (A·p, ignored) and M(r) -> (z, ignored): the callables `cg`
+    takes. Stops when ⟨r, r⟩ ≤ tol² with tol = max(atol, rtol·‖b‖), or after
+    max_iter iterations; an iteration applies M and A twice each.
+
+    The inner products accumulate in float64 (the JAX package's in the
+    working precision): ρ = ⟨r̂, r⟩ shrinks by orders of magnitude over a
+    solve, and float32 sums broke the recurrence down on the wake's pressure
+    systems (`models/cylinder_wake.py`), where float64 sums converge."""
+    dtype = b.dtype
+    eps = torch.full((), 1e-30, dtype=dtype, device=b.device)  # a fill, no host→device copy
+
+    def safe_denom(x):
+        return torch.where(torch.abs(x) < eps, torch.where(x < 0, -eps, eps), x)
+
+    b_norm_sq = _dot64(b, b)
+    tol_sq = torch.clamp(rtol * torch.sqrt(b_norm_sq), min=atol) ** 2
+    x = x0
+    r = b - A(x)[0]
+    r_hat = r
+    rho = alpha = omega = torch.ones_like(b_norm_sq)
+    v = torch.zeros_like(r)
+    p = torch.zeros_like(r)
+    rr = _dot64(r, r)
+    it = 0
+    while it < max_iter and bool(rr > tol_sq):
+        rho_new = _dot64(r_hat, r)
+        beta = (rho_new / safe_denom(rho)) * (alpha / safe_denom(omega))
+        p = r + beta * (p - omega * v)
+        ph = M(p)[0] if M is not None else p
+        v = A(ph)[0]
+        alpha = rho_new / safe_denom(_dot64(r_hat, v))
+        s = r - alpha * v
+        sh = M(s)[0] if M is not None else s
+        t = A(sh)[0]
+        omega = _dot64(t, s) / safe_denom(_dot64(t, t))
+        # freeze a converged system (kept from the batched original)
+        active = (rr > tol_sq).to(dtype)
+        x = x + active * (alpha * ph + omega * sh)
+        r = s - omega * t
+        rr = _dot64(r, r)
+        rho = rho_new
         it += 1
     return SolveResult(x, it, bool(rr <= tol_sq))
 
@@ -199,23 +255,29 @@ class SolveTape:
         return len(self.solve_infos)
 
 
+CG_METHODS = ('auto', 'CG', 'CG-native')
+BICGSTAB_METHODS = ('biCG-stab', 'biCG', 'biCG-stab(1)')
+
+
 def check_method(solve: Solve):
     """Raise NotImplementedError for a method or preconditioner this slice does not port."""
-    if solve.method not in ('auto', 'CG', 'CG-native'):
-        raise NotImplementedError(f"solve method {solve.method!r}: only CG ('auto', 'CG') is ported; "
-                                  f"BiCGStab, direct solves and CG-adaptive come with a later slice")
-    if solve.preconditioner not in (None, 'auto', 'multigrid') and not callable(solve.preconditioner):
+    if solve.method not in CG_METHODS + BICGSTAB_METHODS:
+        raise NotImplementedError(f"solve method {solve.method!r}: CG ('auto', 'CG') and BiCGStab ('biCG-stab', "
+                                  f"'biCG', 'biCG-stab(1)') are ported; 'biCG-stab(2)', direct solves and "
+                                  f"CG-adaptive come with a later slice")
+    if solve.preconditioner not in (None, False, 'auto', 'multigrid') and not callable(solve.preconditioner):
         raise NotImplementedError(f"preconditioner {solve.preconditioner!r}")
 
 
 def finish_solve(solve: Solve, x, result: SolveResult) -> SolveInfo:
-    """Record the `SolveInfo` of a finished CG solve on every active
-    `SolveTape` and raise `Diverged` / `NotConverged` unless `solve` suppresses
-    them. A non-finite ⟨r, r⟩ stops the loop early, unconverged: that is a
-    divergence."""
+    """Record the `SolveInfo` of a finished CG or BiCGStab solve on every
+    active `SolveTape` and raise `Diverged` / `NotConverged` unless `solve`
+    suppresses them. A non-finite ⟨r, r⟩ stops the loop early, unconverged:
+    that is a divergence."""
     diverged = not result.converged and result.iterations < solve.max_iterations
-    info = SolveInfo(solve, x, None, result.iterations, result.iterations + 1, result.converged, diverged,
-                     solve.method, msg=f"{result.iterations} CG iterations, converged={result.converged}")
+    kind, matvecs = ('BiCGStab', 2) if solve.method in BICGSTAB_METHODS else ('CG', 1)
+    info = SolveInfo(solve, x, None, result.iterations, matvecs * result.iterations + 1, result.converged, diverged,
+                     solve.method, msg=f"{result.iterations} {kind} iterations, converged={result.converged}")
     for tape in _SOLVE_TAPES:
         tape.solve_infos.append(info)
     suppressed = ConvergenceException in solve.suppress
@@ -240,7 +302,8 @@ def _with_values(template, values):
 
 def solve_linear(f, y, solve: Solve, *f_args, grad_for_f=False, f_kwargs: dict = None,
                  assume_homogeneous: bool = False, **f_kwargs_additional):
-    """Solve ``f(x, *f_args) = y`` for x by CG, on a Field or Tensor unknown.
+    """Solve ``f(x, *f_args) = y`` for x by CG or BiCGStab (by the solve's
+    method), on a Field or Tensor unknown.
 
     `f` is a `LinearFunction` or a plain linear (or affine) callable; unless
     ``assume_homogeneous``, its offset f(0) is subtracted. The preprocessing,
@@ -290,7 +353,8 @@ def solve_linear(f, y, solve: Solve, *f_args, grad_for_f=False, f_kwargs: dict =
         def M(r):
             z = native_of(solve.preconditioner(state_of(r)))
             return (sub_mean(z) if rank_def else z), None
-    result = cg(A, rhs, x0_n, solve.rel_tol, solve.abs_tol, solve.max_iterations, M)
+    krylov = bicgstab if solve.method in BICGSTAB_METHODS else cg
+    result = krylov(A, rhs, x0_n, solve.rel_tol, solve.abs_tol, solve.max_iterations, M)
     x = sub_mean(result.x) if rank_def else result.x
     x_state = state_of(x)
     finish_solve(solve, x_state, result)

@@ -29,9 +29,9 @@ def _put(tensor: Tensor, device: torch.device) -> Tensor:
 
 def to_device(state, device=None):
     """Every Field of `state` (one Field or a tuple of objects) with its
-    values — and a point cloud's points — as torch tensors on `device` (the
-    default device when None); other objects, such as obstacles, pass as they
-    are. The models call it at the end of `initial_state`, as the JAX package
+    values — and a point cloud's points, a mesh's tables — as torch tensors
+    on `device` (the default device when None); other objects, such as
+    obstacles, pass as they are. The models call it at the end of `initial_state`, as the JAX package
     does, so that the first step starts from device arrays like every later
     one."""
     device = get_default_device() if device is None else torch.device(device)
@@ -39,7 +39,9 @@ def to_device(state, device=None):
     def put(obj):
         if isinstance(obj, Field):
             geometry = obj.geometry
-            if not obj.is_grid and is_point_set(geometry.center):
+            if obj.is_mesh:
+                geometry = geometry.to(device)
+            elif not obj.is_grid and is_point_set(geometry.center):
                 geometry = geometry.at(_put(geometry.center, device))
             values = obj.values if obj.values is None else _put(obj.values, device)
             return Field(geometry, values, obj.boundary)
@@ -49,9 +51,10 @@ def to_device(state, device=None):
     return put(state)
 
 
-from . import burgers, cavity, flip, kolmogorov, moving_obstacle, smoke, sph_dam
+from . import burgers, cavity, cylinder_wake, flip, kolmogorov, moving_obstacle, smoke, sph_dam
 from .burgers import Burgers
 from .cavity import LidDrivenCavity
+from .cylinder_wake import CylinderWake
 from .flip import FlipLiquid
 from .kolmogorov import KolmogorovFlow
 from .moving_obstacle import MovingObstacles

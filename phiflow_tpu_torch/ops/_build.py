@@ -27,8 +27,8 @@ import threading
 import time
 from typing import Dict, Iterable, Sequence
 
-__all__ = ['SOURCES', 'LAUNCHES', 'SMEM_LIMIT', 'reset_launches', 'build', 'ptxas_log', 'library', 'check',
-           'block_x', 'stream_of', 'SRC_MODE', 'src_struct']
+__all__ = ['SOURCES', 'LAUNCHES', 'SMEM_LIMIT', 'BUILD_DIR', 'reset_launches', 'stale', 'build', 'ptxas_log', 'library',
+           'check', 'block_x', 'stream_of', 'SRC_MODE', 'src_struct']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
@@ -67,13 +67,17 @@ def ptxas_log(name: str) -> str:
     return os.path.join(BUILD_DIR, f'ptxas_{name}.log')
 
 
-def _stale(name: str) -> bool:
-    so = _so_path(name)
-    if not os.path.exists(so):
+def stale(target: str, deps: Iterable[str]) -> bool:
+    """Whether `target` is missing or older than any of its sources `deps`."""
+    if not os.path.exists(target):
         return True
+    return any(os.path.getmtime(d) > os.path.getmtime(target) for d in deps)
+
+
+def _stale(name: str) -> bool:
     deps = [os.path.join(CSRC, f'{name}.cu')] + [
         os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith('.cuh')]
-    return any(os.path.getmtime(d) > os.path.getmtime(so) for d in deps)
+    return stale(_so_path(name), deps)
 
 
 def build(names: Iterable[str] = SOURCES, force: bool = False, verbose: bool = False) -> float:

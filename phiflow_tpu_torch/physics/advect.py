@@ -15,7 +15,8 @@ gather lookups (`max_cells=None`) and the integrators other than `euler` come
 with a later slice.
 
 `differential` (`:73-106`) is the term −(v·∇)u of a PDE's right-hand side,
-through the Field layer's `spatial_gradient` of orders 2, 4 and 6.
+through the Field layer's `spatial_gradient` of orders 2, 4 and 6 on a grid,
+and the FVM flux sum on a mesh (`:100-102`).
 
 The array layer (`*_native`) on raw tensors: grids by semi-Lagrangian and
 MacCormack lookups, particles by `points_native` with the `finite_rk4_native`
@@ -249,7 +250,12 @@ def differential(u, velocity, density: float = 1., order=2, implicit=None, upwin
     """The advection term −(v·∇)u of a PDE's right-hand side on a grid: of a
     centred `u` with the centred gradient of `order` (2, 4 or 6) and the
     velocity at u's cells; of a staggered `u` component by component, the
-    velocity sampled at each component's faces."""
+    velocity sampled at each component's faces; of a mesh Field the
+    conservative FVM term −∇·(v ⊗ u) with linear or upwind face values
+    (`field/_mesh_math.py::mesh_advection_differential`)."""
+    if u.is_mesh:
+        from ..field._mesh_math import mesh_advection_differential
+        return mesh_advection_differential(u, velocity, density=density, order=order, upwind=upwind)
     names = u.resolution.names
     if u.is_grid and u.is_centered:
         grad = spatial_gradient(u, at='center', order=order, stack_dim=channel('_gradient'))

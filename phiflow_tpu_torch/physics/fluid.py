@@ -2,8 +2,12 @@
 (`:164-272`): the staggered branches, with obstacles (`Obstacle`,
 `apply_boundary_conditions`) and free surfaces, and the centred velocity's
 wide-stencil projection of orders 2, 4 and 6 with all cells active
-(`_make_incompressible_centred`); and `incompressible_rk4` (`:671-701`), RK4
-with the projection inside every stage.
+(`_make_incompressible_centred`); the projection of a velocity on an
+unstructured mesh (`_make_incompressible_mesh`: BiCGStab on the FVM
+Laplacian, `masked_laplace`, preconditioned by Chebyshev(Jacobi) on its
+analytic diagonal, `_mesh_chebyshev_preconditioner`, all PyTorch
+operations); and `incompressible_rk4` (`:671-701`), RK4 with the projection
+inside every stage.
 
 `make_incompressible(velocity, obstacles, solve, active)` and
 `apply_boundary_conditions(velocity, obstacles)` take Fields with JAX's
@@ -53,20 +57,25 @@ import torch
 from ..field._angular_velocity import angular_velocity_at_faces
 from ..field._field import Field, face_components, face_values
 from ..field._field_math import (
-    divergence, divergence_native, mean as field_mean, safe_mul_native, spatial_gradient, spatial_gradient_native,
-    stagger_native, _array_layout, _isotropic_dx, _normal_walls_at_rest, _plain_values,
+    divergence, divergence_native, laplace, mean as field_mean, safe_mul_native, spatial_gradient,
+    spatial_gradient_native, stagger_native, _array_layout, _isotropic_dx, _normal_walls_at_rest, _plain_values,
 )
 from ..field._resample import cell_grid, geometry_mask, staggered_cells
 from ..geom._box import Box, Cuboid, box_push
 from ..geom._geom import Geometry, host_vec, union, vector_tensor
 from ..math import EMPTY_SHAPE, Tensor, copy_solve, extrapolation, jit_compile_linear, solve_linear, wrap
-from ..math._extrapolation import ConstantExtrapolation
+from ..math import _ops as ops
+from ..math._extrapolation import (
+    ConstantExtrapolation, _AntiReflectExtrapolation, _AntiSymmetricExtrapolation, _BoundaryExtrapolation,
+    _MixedExtrapolation, _PeriodicExtrapolation, _ReflectExtrapolation, _SymmetricExtrapolation,
+)
 from ..math._multigrid import make_poisson_vcycle
 from ..math._nd import BOUNDARY, PERIODIC as PERIODIC_EXTRAPOLATION, Extrapolation
-from ..math._solve import Solve, SolveResult, cg, check_method, finish_solve, sub_mean
+from ..math._solve import CG_METHODS, Solve, SolveResult, cg, check_method, finish_solve, sub_mean
 from ..ops.poisson import NEUMANN, PERIODIC, poisson_apply, stage_masks
 
-__all__ = ['Obstacle', 'make_incompressible', 'apply_boundary_conditions', 'boundary_push', 'incompressible_rk4',
+__all__ = ['Obstacle', 'make_incompressible', 'masked_laplace', 'apply_boundary_conditions', 'boundary_push',
+           'incompressible_rk4',
            'make_incompressible_native', 'apply_boundary_conditions_native', 'boundary_push_native',
            'MASKED_PRECONDITIONER']
 
@@ -467,7 +476,10 @@ def make_incompressible(velocity, obstacles=(), solve: Solve = Solve(), active=N
     A staggered velocity (order 2, the compact stencil) unwraps into
     `make_incompressible_native`; a true `wide_stencil` raises there. A
     centred velocity is projected with the wide stencil of `order` (2, 4 or
-    6): `_make_incompressible_centred`."""
+    6): `_make_incompressible_centred`; a velocity on a mesh by
+    `_make_incompressible_mesh`."""
+    if velocity.is_mesh:
+        return _make_incompressible_mesh(velocity, obstacles, solve, active, order)
     if velocity.is_grid and velocity.is_centered:
         return _make_incompressible_centred(velocity, obstacles, solve, active, order, wide_stencil)
     if order != 2:
@@ -480,6 +492,9 @@ def make_incompressible(velocity, obstacles=(), solve: Solve = Solve(), active=N
     periodic, dx = _box_of(velocity)
     solve = solve.with_defaults('solve')
     check_method(solve)
+    if solve.method not in CG_METHODS:
+        raise NotImplementedError(f"solve method {solve.method!r} for the projection of a staggered velocity: its "
+                                  f"array layer solves by CG; BiCGStab there comes with a later slice of the port")
     if callable(solve.preconditioner):
         raise NotImplementedError("a caller's preconditioner for the projection comes with a later slice")
     names = velocity.resolution.names
@@ -546,6 +561,93 @@ def _make_incompressible_centred(velocity, obstacles, solve: Solve, active, orde
         solve = copy_solve(solve, preconditioner=None)
     pressure = solve_linear(_wide_laplace, div, solve, velocity.boundary, order=order, assume_homogeneous=True)
     grad_pressure = spatial_gradient(pressure, velocity.boundary, at='center', order=order)
+    return (velocity - grad_pressure).with_boundary(velocity.boundary), pressure
+
+
+@jit_compile_linear(auxiliary_args='wide_stencil,order', forget_traces=True)
+def masked_laplace(pressure, v_boundary, hard_bcs, active, wide_stencil=False, order=2):
+    """The Laplacian of the pressure, the matvec of a projection at the Field
+    level: on a mesh its FVM Laplacian (`mesh_laplace`, skew-corrected). A
+    grid's stencils are the array layer's (`make_incompressible_native`) and
+    `_wide_laplace`."""
+    if not pressure.is_mesh:
+        raise NotImplementedError("masked_laplace of a grid: the projection of a grid velocity solves the array "
+                                  "layer's stencils (make_incompressible_native, _wide_laplace)")
+    return laplace(pressure, order=order)
+
+
+def _is_homogeneous_pressure_bc(ext) -> bool:
+    """Whether padding a zero field with `ext` gives zeros, so that
+    masked_laplace(0) = 0 and no offset f(0) need be subtracted."""
+    if ext is None or isinstance(ext, (_PeriodicExtrapolation, _BoundaryExtrapolation, _SymmetricExtrapolation,
+                                       _ReflectExtrapolation, _AntiSymmetricExtrapolation,
+                                       _AntiReflectExtrapolation)):
+        return True
+    if isinstance(ext, ConstantExtrapolation):
+        return ops.always_close(ext.value, 0)
+    if isinstance(ext, _MixedExtrapolation):
+        return all(_is_homogeneous_pressure_bc(e) for pair in ext.ext.values() for e in pair)
+    return False
+
+
+def _mesh_chebyshev_preconditioner(x0, order: int = 2, degree: int = 4, eig_ratio: float = 30.):
+    """Chebyshev(Jacobi) preconditioner of a mesh pressure system
+    (`phiflow_tpu/physics/fluid.py:428-461`): z ≈ A⁻¹r by a polynomial of
+    `degree` in B = D⁻¹A, D the analytic diagonal (`mesh_laplace_diagonal`),
+    on the fixed interval [2 / eig_ratio, 2] — degree − 1 Laplacians an
+    application, nothing at setup."""
+    from ..field._mesh_math import mesh_laplace_diagonal
+    inv_diag = 1. / mesh_laplace_diagonal(x0)
+    lmax = 2.0
+    a, b = lmax / eig_ratio, lmax
+    theta, delta = (b + a) / 2., (b - a) / 2.
+    sigma1 = theta / delta
+
+    def preconditioner(r):
+        rs = r.values * inv_diag
+        z = rs / theta
+        d = z
+        rho = 1. / sigma1
+        for _ in range(degree - 1):
+            Bz = laplace(r.with_values(z), order=order).values * inv_diag
+            rho_new = 1. / (2. * sigma1 - rho)
+            d = rho_new * rho * d + (2. * rho_new / delta) * (rs - Bz)
+            z = z + d
+            rho = rho_new
+        return r.with_values(z)
+
+    return preconditioner
+
+
+def _make_incompressible_mesh(velocity, obstacles, solve: Solve, active, order: int):
+    """The projection of a velocity on a mesh (`phiflow_tpu/physics/fluid.py`
+    `:228-272`, its mesh branch `:243-250`): the FVM divergence, balanced with
+    rank deficiency 1 unless the boundary lets flux out; x0 = 0 under the
+    pressure boundary derived from the velocity's unless `solve` has one;
+    with no preconditioner or 'auto' the mesh Chebyshev preconditioner, and
+    'auto' becomes BiCGStab (A = V⁻¹L is nonsymmetric); `masked_laplace`
+    solved without the offset f(0) where the pressure boundary is
+    homogeneous; the Green-Gauss gradient of the pressure subtracted."""
+    if _get_obstacles_for(obstacles) or active is not None:
+        raise NotImplementedError("obstacles or active cells with a velocity on a mesh come with a later slice of "
+                                  "the port")
+    div = divergence(velocity, order=order)
+    if not velocity.boundary.is_flexible:
+        solve = solve.with_preprocessing(_balance_divergence_field, None)
+        if solve.rank_deficiency is None:
+            solve = copy_solve(solve, rank_deficiency=1)
+    if solve.x0 is None:
+        solve = copy_solve(solve, x0=Field(div.geometry, wrap(0.), _pressure_extrapolation(velocity.boundary)))
+    if solve.preconditioner in (None, 'auto'):
+        solve = copy_solve(solve, preconditioner=_mesh_chebyshev_preconditioner(solve.x0, order=order))
+        if solve.method == 'auto':
+            solve = copy_solve(solve, method='biCG-stab')
+    elif not callable(solve.preconditioner):
+        solve = copy_solve(solve, preconditioner=None)
+    homogeneous = _is_homogeneous_pressure_bc(solve.x0.boundary if isinstance(solve.x0, Field) else None)
+    pressure = solve_linear(masked_laplace, div, solve, velocity.boundary, None, None, wide_stencil=False,
+                            order=order, assume_homogeneous=homogeneous)
+    grad_pressure = spatial_gradient(pressure, velocity.boundary, at=velocity.sampled_at, order=order)
     return (velocity - grad_pressure).with_boundary(velocity.boundary), pressure
 
 

@@ -17,7 +17,8 @@ FIELD_MODULES = ['math._shape', 'math._magic', 'math._static', 'math._tensor', '
 GRID_MODEL_MODULES = ['field._noise', 'field._stencil1d', 'field._higher_order', 'physics.integrate', 'models.burgers',
                       'models.kolmogorov']
 SPH_MODULES = ['math._neighbors', 'geom._graph', 'physics.sph', 'models.sph_dam']
-MODULES = OBSTACLE_MODULES + FIELD_MODULES + GRID_MODEL_MODULES + SPH_MODULES
+FVM_MODULES = ['native._lib', 'geom._mesh', 'field._mesh_math', 'models.cylinder_wake']
+MODULES = OBSTACLE_MODULES + FIELD_MODULES + GRID_MODEL_MODULES + SPH_MODULES + FVM_MODULES
 
 
 def test_imports_with_jax_blocked():

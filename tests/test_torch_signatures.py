@@ -58,7 +58,8 @@ def test_shared_names_take_jax_signatures(jax_name, port_name, by_all):
 
 
 MODELS = [('SmokePlume', ()), ('FlipLiquid', ('device', 'seed')), ('LidDrivenCavity', ()), ('MovingObstacles', ()),
-          ('Burgers', ('device', 'seed')), ('KolmogorovFlow', ('device', 'seed')), ('SphDamBreak', ())]
+          ('Burgers', ('device', 'seed')), ('KolmogorovFlow', ('device', 'seed')), ('SphDamBreak', ()),
+          ('CylinderWake', ())]
 
 
 @pytest.mark.parametrize('model,extra', MODELS, ids=[m for m, _ in MODELS])
@@ -71,6 +72,20 @@ def test_models_take_jax_signatures(model, extra):
         ref, got = _signature(getattr(a, method)), _signature(getattr(b, method))
         assert got[:len(ref)] == ref, (model, method)
         assert [p[0] for p in got[len(ref):]] == list(added), (model, method)
+
+
+@pytest.mark.parametrize('jax_name,port_name,names', [
+    ('phiflow_tpu.geom', 'phiflow_tpu_torch.geom', ['Mesh', 'mesh', 'mesh_from_numpy', 'build_mesh']),
+    ('phiflow_tpu.physics.fluid', 'phiflow_tpu_torch.physics.fluid', ['masked_laplace']),
+], ids=['geom-mesh', 'fluid-mesh'])
+def test_mesh_names_are_shared(jax_name, port_name, names):
+    """The mesh's entry points are among the shared names the test above
+    holds to JAX's signatures."""
+    shared = {name: (a, b) for name, a, b in _shared(jax_name, port_name, jax_name.endswith('fluid'))}
+    for name in names:
+        assert name in shared, name
+        a, b = shared[name]
+        assert _signature(a) == _signature(b), name
 
 
 def _attribute(module, path):
