@@ -201,6 +201,10 @@ KERNELS = {  # launch-counter name → (source, the Pallas kernel it replaces)
     'p2g_mean': ('phiflow_tpu_torch/csrc/p2g.cu', 'phiflow_tpu/ops/p2g.py:142'),
     # K1m with the coefficient arrays mA, c0 of obstacles (also counted in the two above)
     'poisson_stencil_coeffs': ('phiflow_tpu_torch/csrc/poisson.cu', 'phiflow_tpu/ops/poisson.py:284'),
+    # K6T / K7T: the backward of K6 / K7 (the JAX package differentiates its window sum with XLA's AD instead,
+    # phiflow_tpu/math/_nd.py:584-622)
+    'window_interp_3d_grad': ('phiflow_tpu_torch/csrc/interp.cu', 'phiflow_tpu/ops/interp.py:111'),
+    'window_interp_2d_grad': ('phiflow_tpu_torch/csrc/interp.cu', 'phiflow_tpu/ops/interp.py:323'),
 }
 FUSED_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'fused_advect')
 PHASES_3D_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'window_interp_3d')
@@ -1473,14 +1477,15 @@ def profile_obstacles(tag, N, preconditioner='chebyshev'):
     profile_path(tag, f'{N}^3', lambda state: step(*state)[0], obstacle_state(N, 'cuda'))
 
 
-def smooth_state(N, dims=3, seed=0):
-    """A smooth random closed-box state: low-mode sinusoids, |v|·dt/dx ≤ 0.6
-    cells. Returns the velocity components, smoke and pressure."""
+def smooth_state(N, dims=3, seed=0, period=None):
+    """A smooth random closed-box state: low-mode sinusoids of 1–3 waves a
+    `period` cells (N by default), |v|·dt/dx ≤ 0.6 cells. Returns the
+    velocity components, smoke and pressure."""
     import numpy as np
     rng = np.random.default_rng(seed)
 
     def field(shape, amp):
-        grids = np.meshgrid(*[np.arange(n) / N for n in shape], indexing='ij')
+        grids = np.meshgrid(*[np.arange(n) / (period or N) for n in shape], indexing='ij')
         out = np.zeros(shape)
         for _ in range(4):
             k = rng.integers(1, 4, dims)
@@ -2570,6 +2575,441 @@ def profile_fvm():
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 6: gradients
+# ---------------------------------------------------------------------------
+
+GRAD_NAMES = {3: 'window_interp_3d_grad', 2: 'window_interp_2d_grad'}
+GRAD_TOL = 1e-5  # of each gradient's largest entry: the kernel sums the grid's gradient with atomics, in no fixed order
+GRAD_CG_TOL = 1e-5  # the differentiated paths' solves (forward and adjoint)
+# at 4096² the float32 residual b − Ax of the 2D projection stops near 1e-4 of |b|: CG reaches 1e-5 only on its
+# recurrence's drift away from the true residual
+GRAD_CG_TOL_4096 = 1e-4
+
+
+def _grad_call(d, grid, disps, K, extrema, scale, mode, const, ups, plain):
+    """K6ᵀ / K7ᵀ (`plain` False) or the twin's VJP (True): (d_grid, [d_disp])."""
+    from phiflow_tpu_torch.ops import interp as I
+    args = (grid, list(disps), K, extrema, tuple(I._f32(x) for x in scale), mode, I._f32(const), ups, True, True)
+    if plain:
+        return I._window_interp_vjp_plain(*args)
+    return I._window_interp_grad_cuda(f'window_interp_{d}d', *args)
+
+
+def _grad_compare(ch, d, case, got, ref):
+    (g_grid, g_disp), (r_grid, r_disp) = got, ref
+    for what, g, r in [('d_grid', g_grid, r_grid)] + [(f'd_disp[{i}]', a, b) for i, (a, b) in
+                                                      enumerate(zip(g_disp, r_disp))]:
+        ch.compare(GRAD_NAMES[d], f'{case} {what}', g, r, GRAD_TOL * max(float(r.abs().max()), 1e-30))
+
+
+def _grid_sample_backward(grid, disps, K, scale, padding_mode, g):
+    """The gradient of `F.grid_sample` (forward and backward, one autograd
+    call) for the same lookup, with respect to the grid and the sample
+    coordinates: the library yardstick of K6ᵀ / K7ᵀ."""
+    import torch
+    d = grid.ndim
+    coords = []
+    for ax in range(d):
+        n = grid.shape[ax]
+        idx = torch.arange(n, device=grid.device, dtype=torch.float32).reshape((-1,) + (1,) * (d - ax - 1))
+        pos = idx + torch.clamp(scale[ax] * disps[ax], -float(K), float(K))
+        coords.append(pos * (2.0 / (n - 1)) - 1.0)
+    coord_grid = torch.stack(coords[::-1], dim=-1)[None].detach().requires_grad_()
+    inp = grid[None, None].detach().requires_grad_()
+    up = g[None, None]
+    F = torch.nn.functional
+    return lambda: torch.autograd.grad(F.grid_sample(inp, coord_grid, mode='bilinear', padding_mode=padding_mode,
+                                                     align_corners=True), (inp, coord_grid), up)
+
+
+def check_interp_grad(ch, gen, quick):
+    """K6ᵀ / K7ᵀ against the twin's VJP (autograd of the window sum in the JAX
+    package's AD conventions) on the card, both gradients within 1e-5 of each
+    one's largest entry: every halo form, K = 1 and 2, with and without the
+    extrema's upstream gradients, fractional, clipped and integer
+    displacements; then (not with --quick) at the paths' shapes, timed."""
+    import torch
+    dev = 'cuda'
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    for d, shape in ((3, SMALL), (3, K6_RAGGED), (2, SMALL[1:]), (2, (37, 45))):
+        scale = (0.8, -1.1, 0.6)[:d]
+        for K in (1, 2):
+            for mode in (None, 'const', 'edge', 'wrap'):
+                gshape = tuple(n + 2 * K for n in shape) if mode is None else shape
+                grid = rnd(gshape)
+                disps = list((torch.rand((d,) + shape, generator=gen, device=dev) * 2 - 1) * ((K + 1) / 0.6))
+                for extrema in (False, True):
+                    ups = [rnd(shape) for _ in range(3 if extrema else 1)]
+                    case = f'{shape} K={K} {mode or "padded"}{" extrema" if extrema else ""}'
+                    _grad_compare(ch, d, case, _grad_call(d, grid, disps, K, extrema, scale, mode, 0.25, ups, False),
+                                  _grad_call(d, grid, disps, K, extrema, scale, mode, 0.25, ups, True))
+        K = 2
+        grid = torch.round(rnd(tuple(n + 2 * K for n in shape)) * 2) / 2  # ties in the extrema chain
+        ints = list(torch.randint(-1, 2, (d,) + shape, generator=gen, device=dev).float() * K)  # −K, 0, +K
+        ints[0] = torch.zeros_like(ints[0])  # from rest along axis 0: the taps beside it carry half a slope
+        ups = [rnd(shape) for _ in range(3)]
+        _grad_compare(ch, d, f'{shape} K={K} padded, integer displacements 0 and ±K, tied values',
+                      _grad_call(d, grid, ints, K, True, (1.0,) * d, None, 0.0, ups, False),
+                      _grad_call(d, grid, ints, K, True, (1.0,) * d, None, 0.0, ups, True))
+    if quick:
+        return
+    # --- the paths' shapes: a velocity component (constant halo) and the smoke's forward pass (edge halo,
+    #     extrema), 256³ (K6ᵀ) and 4096² (K7ᵀ); Burgers' 128² (wrap, K = 2) ---
+    for d, shape in ((3, (PATH_N,) * 3), (2, (PATH_N_2D,) * 2), (2, (128, 128))):
+        name = GRAD_NAMES[d]
+        burgers = shape == (128, 128)
+        K, scale = (2, (-1.0, -1.0)) if burgers else (1, (-0.5,) * d)
+        grid = torch.rand(shape, generator=gen, device=dev)
+        disps = [torch.rand(shape, generator=gen, device=dev) * 5.0 - 2.5 for _ in range(d)]  # clips at ±K
+        g = [rnd(shape) for _ in range(3)]
+        forms = [('wrap', False)] if burgers else [('const', False), ('edge', True)]
+        for mode, extrema in forms:
+            ups = g if extrema else g[:1]
+            case = f'{shape} K={K} {mode}{" extrema" if extrema else ""}{" (Burgers)" if burgers else ""}'
+            _grad_compare(ch, d, case, _grad_call(d, grid, disps, K, extrema, scale, mode, 0.0, ups, False),
+                          _grad_call(d, grid, disps, K, extrema, scale, mode, 0.0, ups, True))
+        torch.cuda.empty_cache()
+        if burgers:
+            continue
+        n = grid.numel()
+        # per output: 2^d corners of a weight product, d slopes of d − 1 products, d sums and an atomic; 4 taps an
+        # axis of tent arithmetic
+        ops = (2 ** d * (d * d + d + 1) + 32 * d) * n
+        for mode, extrema in forms:
+            ups = g if extrema else g[:1]
+            what = (f'{"smoke forward: edge halo + extrema" if extrema else "velocity component: const halo"}, '
+                    f'{shape} K=1')
+            lib = _grid_sample_backward(grid, disps, K, scale, 'border' if extrema else 'zeros', g[0])
+            ch.time(name, what,
+                    lambda: _grad_call(d, grid, disps, K, extrema, scale, mode, 0.0, ups, False),
+                    lambda: _grad_call(d, grid, disps, K, extrema, scale, mode, 0.0, ups, True),
+                    nbytes(grid, *disps, *ups) + nbytes(grid, *disps), ops + (2 ** (d + 2) * n if extrema else 0),
+                    lib, key=None if not extrema else name + ' +extrema')
+            del lib
+        ch.attach(name, [name + ' +extrema'])
+        del grid, disps, g
+        torch.cuda.empty_cache()
+
+
+def check_p2g_grad(ch):
+    """K8's values-gradient (`_P2GMean.backward`, a gather by indexing) on
+    the card against the CPU, on FLIP's first-step inputs at 64³ onto the
+    cells and the x faces: within 1e-6 of the largest entry."""
+    import torch
+    from phiflow_tpu_torch.ops import p2g as G
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(3)
+    pos, vals = _flip_particles(64, gen, 'cuda')
+    for grid in ('cells', 'x faces'):
+        res, lower = _flip_grid(64, None if grid == 'cells' else 0)
+        g = torch.randn(res, generator=gen, device='cuda')
+        out = {}
+        for dev in ('cuda', 'cpu'):
+            v = vals.to(dev).requires_grad_()
+            mean = G.p2g_mean(pos.to(dev), v, res, lower, (1.0,) * 3, False, float('nan'))
+            out[dev], = torch.autograd.grad(torch.nan_to_num(mean, nan=0.0), v, g.to(dev))
+        ref = out['cpu'].cuda()
+        ch.compare('p2g_mean', f'values gradient card vs CPU, FLIP 64^3 first step onto the {grid}',
+                   out['cuda'], ref, 1e-6 * max(float(ref.abs().max()), 1e-30))
+
+
+def _smooth_weight(N, dims, period=None):
+    """The loss's weight: a smooth seeded field of mean about 0. The
+    MacCormack clamp's bounds change where a displacement crosses a whole
+    cell, so L jumps there by a little; under a smooth weight those jumps
+    cancel out of a finite difference, under a random one they do not."""
+    import torch
+    return torch.from_numpy(smooth_state(N, dims, seed=11, period=period)[dims] - 0.5)
+
+
+def _loss_of(state, w64):
+    """Σ w·smoke + Σ w[1:]·v_x in float64 (the x faces of the closed box
+    are the cells' less one row): the final velocity enters too, so that
+    every step's advection and projection lie on the gradient's path."""
+    vel, smoke, _ = state
+    return (smoke.double() * w64).sum() + (vel[0].double() * w64[1:]).sum()
+
+
+def _smoke_grad(model, state, w, steps, record=None):
+    """math.gradient of L = `_loss_of` after `steps` steps of the model's Field
+    `step` from `state` (velocity components, smoke) with respect to the
+    initial velocity and smoke: (L, dL/dv components, dL/ds). With `record`,
+    the forward's end is synchronised and marked there, with its launches."""
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.ops import _build
+    w64 = w.double()
+
+    def loss(v, s):
+        p = None
+        for _ in range(steps):
+            v, s, p = model.step(v, s, p)
+        out = _loss_of(model.state_natives(v, s, None), w64)
+        if record is not None:
+            torch.cuda.synchronize()
+            record['forward_end'] = time.perf_counter()
+            record['forward'] = dict(_build.LAUNCHES)
+            record['memory_forward'] = torch.cuda.max_memory_allocated()
+            _build.reset_launches()
+        return out
+
+    v, s, _ = model.state_fields(*state, None)
+    value, gv, gs = math.gradient(loss, wrt=[0, 1], get_output=True)(v, s)
+    gvel, gsmoke, _ = model.state_natives(gv, gs, None)
+    return float(value), list(gvel), gsmoke
+
+
+def _forward_loss(model, state, w, steps):
+    """L of `_smoke_grad` on the differentiated path (inputs that require grad
+    under grad mode: the per-phase advection), without the backward."""
+    import torch
+    leaves = [t.detach().requires_grad_() for t in (*state[0], state[1])]
+    with torch.enable_grad():
+        v, s, _ = model.state_fields(tuple(leaves[:-1]), leaves[-1], None)
+        p = None
+        for _ in range(steps):
+            v, s, p = model.step(v, s, p)
+        return float(_loss_of(model.state_natives(v, s, None), w.double()).detach())
+
+
+def run_gradient_path(tag, dims, N, steps, period=None, cg_tol=GRAD_CG_TOL):
+    """The differentiated smoke rollout on the card: SmokePlume(N, dims) from
+    `smooth_state(N)`, `steps` steps of the Field `step` under grad, L = Σ
+    w·smoke + Σ w·v_x with w a smooth seeded weight (`_smooth_weight`),
+    `math.gradient` with respect to the
+    initial velocity and smoke. Prints the launches of the forward (K6 / K7,
+    K1–K4) and of the backward (K6ᵀ / K7ᵀ, K1–K4 of the adjoint solves; K5
+    must be 0), ms/step of the forward under grad and of forward + backward,
+    `max_memory_allocated`, the adjoint CG iterations. Gates: a finite,
+    non-zero gradient; K6ᵀ (K7ᵀ) launched once for each K6 (K7) launch of
+    the forward; a directional finite difference, (L(v+εd) − L(v−εd))/2ε
+    against ⟨∇L, d⟩ within 5% (d a smooth seeded direction); 3
+    gradient-descent iterations on the initial velocity lowering L each.
+    `period`: the state's, weight's and direction's waves repeat every so
+    many cells (`smooth_state`). At 4096² a wave across the whole grid gives
+    a pressure N² times its divergence, beyond what float32 CG resolves to
+    cg_tol (300 iterations unconverged); waves of 256 cells keep the 256³
+    path's ratio."""
+    import numpy as np
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.models import SmokePlume, state_from_numpy
+    from phiflow_tpu_torch.ops import _build
+    model = SmokePlume(resolution=N, dims=dims, cg_tol=cg_tol, max_iterations=300, device='cuda')
+    vel, smoke, _ = state_from_numpy(*smooth_state(N, dims, period=period), device='cuda')
+    w = _smooth_weight(N, dims, period).cuda()
+    _smoke_grad(model, (vel, smoke), w, steps)  # warm-up: the kernels' first launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    record = {}
+    _build.reset_launches()
+    with math.SolveTape() as tape:
+        t0 = time.perf_counter()
+        value, gvel, gsmoke = _smoke_grad(model, (vel, smoke), w, steps, record)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    backward = dict(_build.LAUNCHES)
+    forward = record['forward']
+    memory = torch.cuda.max_memory_allocated()
+    fwd_iters = [i.iterations for i in tape if not i.msg.startswith('adjoint')]
+    adj_iters = [i.iterations for i in tape if i.msg.startswith('adjoint')]
+    fwd_ms = (record['forward_end'] - t0) / steps * 1e3
+    total_ms = (t1 - t0) / steps * 1e3
+    k6 = f'window_interp_{dims}d'
+    print(f'{tag} {N}^{dims}: {steps} steps of the Field step under grad, math.gradient of sum(w * smoke) + '
+          f'sum(w[1:] * v_x) w.r.t. '
+          f'the initial velocity and smoke: forward {fwd_ms:.2f} ms/step, forward + backward {total_ms:.2f} '
+          f'ms/step; max_memory_allocated {memory / 2 ** 30:.2f} GiB (after the forward '
+          f'{record["memory_forward"] / 2 ** 30:.2f} GiB); CG iterations forward {fwd_iters}, adjoint {adj_iters}')
+    print(f'{tag} launches, forward: ' + ', '.join(f'{k}={forward.get(k, 0)}' for k in KERNELS))
+    print(f'{tag} launches, backward (adjoint solves and K6T/K7T): '
+          + ', '.join(f'{k}={backward.get(k, 0)}' for k in KERNELS))
+    grads = gvel + [gsmoke]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    scale = max(float(g.abs().max()) for g in grads)
+    cg = ['poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add'] if dims == 3 else []
+    missing = ([f'{k} (forward)' for k in [k6] + cg if not forward.get(k, 0)]
+               + [f'{k} (backward)' for k in [k6 + '_grad'] + cg if not backward.get(k, 0)])
+    wrong = {}
+    if backward.get(k6 + '_grad', 0) != forward.get(k6, 0):
+        wrong[k6 + '_grad'] = (backward.get(k6 + '_grad', 0), forward.get(k6, 0))
+    if forward.get('fused_advect', 0) + backward.get('fused_advect', 0):
+        wrong['fused_advect'] = (forward.get('fused_advect', 0) + backward.get('fused_advect', 0), 0)
+    if not (finite and scale > 0) or wrong or missing or len(adj_iters) != steps:
+        raise RuntimeError(f'{tag}: gradient finite={finite} scale={scale}, launches (counted, expected) {wrong}, '
+                           f'not launched {missing}, adjoint solves {adj_iters}')
+    # the directional finite difference along a smooth seeded direction
+    direction = [torch.from_numpy(a).cuda() for a in smooth_state(N, dims, seed=5, period=period)[:dims]]
+    eps = 1e-2
+    plus = _forward_loss(model, ([v + eps * d for v, d in zip(vel, direction)], smoke), w, steps)
+    minus = _forward_loss(model, ([v - eps * d for v, d in zip(vel, direction)], smoke), w, steps)
+    fd = (plus - minus) / (2 * eps)
+    dot = float(sum((g.double() * d.double()).sum() for g, d in zip(gvel, direction)))
+    fd_ok = abs(fd - dot) <= 0.05 * abs(dot)
+    print(f'{tag} directional check, eps {eps}: (L(v+eps d) - L(v-eps d)) / 2 eps = {fd:.6e}, <grad L, d> = '
+          f'{dot:.6e}, relative difference {abs(fd - dot) / abs(dot):.2e} (tol 5e-02): {"ok" if fd_ok else "FAIL"}')
+    # gradient descent on the initial velocity
+    losses, v_k, g_k = [value], list(vel), gvel
+    eta = 0.02 * max(float(v.abs().max()) for v in vel)
+    for _ in range(3):
+        g_max = max(float(g.abs().max()) for g in g_k)
+        v_k = [v - (eta / g_max) * g for v, g in zip(v_k, g_k)]
+        value, g_k, _ = _smoke_grad(model, (v_k, smoke), w, steps)
+        losses.append(value)
+    falling = all(b < a for a, b in zip(losses, losses[1:]))
+    print(f'{tag} gradient descent on the initial velocity, 3 iterations of step {eta:.3f} / max|grad|: L '
+          + ' -> '.join(f'{x:.6e}' for x in losses) + f': {"falling" if falling else "NOT falling (FAIL)"}')
+    if not (fd_ok and falling):
+        raise RuntimeError(f'{tag}: finite-difference check {fd} vs {dot}, losses {losses}')
+    counts = {k: forward.get(k, 0) + backward.get(k, 0) for k in KERNELS}
+    return dict(counts, steps=steps)
+
+
+def gradient_cpu_vs_card(dims, N, steps=2, tol=1e-3):
+    """The same rollout gradient from one numpy state on the CPU (the twins
+    and their VJPs) and on the card (the kernels and K6ᵀ / K7ᵀ): within 1e-3
+    of the gradient's largest entry."""
+    import numpy as np
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.models import SmokePlume, state_from_numpy
+    arrays = smooth_state(N, dims)
+    w = _smooth_weight(N, dims)
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        with math.default_device(dev):
+            model = SmokePlume(resolution=N, dims=dims, cg_tol=GRAD_CG_TOL, max_iterations=300, device=dev)
+            vel, smoke, _ = state_from_numpy(*arrays, device=dev)
+            _, gvel, gsmoke = _smoke_grad(model, (vel, smoke), w.to(dev), steps)
+            out[dev] = [g.detach().cpu().numpy() for g in (*gvel, gsmoke)]
+    scale = max(float(np.abs(g).max()) for g in out['cpu'])
+    errs = [float(np.abs(a - b).max()) for a, b in zip(out['cpu'], out['cuda'])]
+    ok = max(errs) <= tol * scale
+    print(f'cpu vs card, gradient of {steps} steps at {N}^{dims}: max |cpu - card| '
+          + ', '.join(f'{e:.2e}' for e in errs) + f' of scale {scale:.3e}, tol {tol:.0e} of scale: '
+          + ('ok' if ok else 'FAIL'))
+    if not ok:
+        raise RuntimeError(f'gradients on the CPU and the card disagree at {N}^{dims}: {errs}, scale {scale}')
+
+
+def run_network_training(N=64, steps=5):
+    """nn.conv_net(3, 3, [16, 16], in_spatial=3) at N³ predicts a velocity
+    correction from three smooth fields; the corrected velocity goes through
+    `fluid.make_incompressible` (K1–K4, and their adjoint in the backward);
+    the loss is its mean squared distance to a divergence-free target. Gate:
+    `steps` `nn.update_weights` Adam steps lower the loss."""
+    import numpy as np
+    import torch
+    from phiflow_tpu_torch import math, nn
+    from phiflow_tpu_torch.ops import _build
+    from phiflow_tpu_torch.physics import fluid
+    from phiflow_tpu_torch.field import CenteredGrid, StaggeredGrid
+    from phiflow_tpu_torch.geom import Box
+    arrays = smooth_state(N, 3, seed=21)
+    target_arrays = smooth_state(N, 3, seed=22)
+    names = ('x', 'y', 'z')
+    bounds = Box(x=float(N), y=float(N), z=float(N))
+
+    def staggered(comps):
+        return StaggeredGrid(math.stack([math.wrap(c, math.spatial(*names)) for c in comps], math.dual(vector=names)),
+                             0., bounds=bounds, x=N, y=N, z=N)
+
+    solve = math.Solve('CG', GRAD_CG_TOL, 0., max_iterations=300)
+    target, _ = fluid.make_incompressible(staggered([torch.from_numpy(a).cuda() for a in target_arrays[:3]]), (),
+                                          solve)
+    target = [c.torch(names) for c in _faces_of(target)]
+    v0 = [torch.from_numpy(a).cuda() for a in arrays[:3]]
+    features = torch.from_numpy(np.stack([smooth_state(N, 3, seed=k)[3] for k in (23, 24, 25)], -1)[None]).cuda()
+    torch.manual_seed(0)
+    with math.default_device('cuda'):
+        net = nn.conv_net(3, 3, [16, 16], in_spatial=3)
+    opt = nn.adam(net, 1e-3)
+
+    def loss():
+        out = net(features)[0]
+        corr = [out[:N - 1, :, :, 0], out[:, :N - 1, :, 1], out[:, :, :N - 1, 2]]
+        v, _ = fluid.make_incompressible(staggered([a + b for a, b in zip(v0, corr)]), (), solve)
+        return sum(((c.torch(names) - t) ** 2).mean() for c, t in zip(_faces_of(v), target))
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    losses = [float(nn.update_weights(net, opt, loss)) for _ in range(steps)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = dict(_build.LAUNCHES)
+    falling = losses[-1] < losses[0]
+    print(f'network {N}^3: conv_net(3, 3, [16, 16]), {nn.parameter_count(net)} parameters, {steps} Adam steps '
+          f'through make_incompressible, {ms:.1f} ms a step: loss ' + ' -> '.join(f'{x:.6e}' for x in losses)
+          + f'; launches ' + ', '.join(f'{k}={launches.get(k, 0)}' for k in CG_KERNELS if launches.get(k, 0))
+          + f': {"falling" if falling else "NOT falling (FAIL)"}')
+    if not falling or not launches.get('poisson_stencil', 0):
+        raise RuntimeError(f'network through the projection: losses {losses}, launches {launches}')
+
+
+def _faces_of(velocity):
+    from phiflow_tpu_torch.field._field import face_components
+    return face_components(velocity.values)
+
+
+def check_guards(N=64):
+    """K5 has no backward: on the card `fused_advect_3d` raises on an input
+    that requires grad under grad mode; the same step under `no_grad`
+    launches K5 three times, and under grad takes the per-phase path (K6
+    five times, K5 never)."""
+    import torch
+    from phiflow_tpu_torch.models import SmokePlume, state_from_numpy
+    from phiflow_tpu_torch.ops import _build
+    model = SmokePlume(resolution=N, dims=3, cg_tol=1e-3, max_iterations=100, device='cuda')
+    vel, smoke, pressure = state_from_numpy(*smooth_state(N), device='cuda')
+    leaves = tuple(v.clone().requires_grad_() for v in vel)
+    try:
+        model._fused_advect_native(leaves, smoke)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    _build.reset_launches()
+    with torch.no_grad():
+        model.step_native(leaves, smoke, pressure)
+    torch.cuda.synchronize()
+    no_grad = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    model.step_native(leaves, smoke, pressure)
+    torch.cuda.synchronize()
+    with_grad = dict(_build.LAUNCHES)
+    ok = (raised is not None and 'no backward' in raised and no_grad.get('fused_advect', 0) == FUSED_CALLS_PER_STEP
+          and not no_grad.get('window_interp_3d', 0) and not with_grad.get('fused_advect', 0)
+          and with_grad.get('window_interp_3d', 0) == K6_LAUNCHES_PER_PHASE_STEP)
+    print(f'guards {N}^3: fused_advect_3d on a requires-grad input under grad mode raised: {raised is not None} '
+          f'({(raised or "")[:60]}...); the step under no_grad: fused_advect={no_grad.get("fused_advect", 0)}, '
+          f'window_interp_3d={no_grad.get("window_interp_3d", 0)}; under grad: fused_advect='
+          f'{with_grad.get("fused_advect", 0)}, window_interp_3d={with_grad.get("window_interp_3d", 0)}: '
+          + ('ok' if ok else 'FAIL'))
+    if not ok:
+        raise RuntimeError(f'guards: raised={raised}, no_grad {no_grad}, grad {with_grad}')
+
+
+def run_gradients():
+    """Phase 6's paths: the differentiated rollouts at full width (256³, 3
+    steps; 4096², 2 steps), CPU against card at 64³ and 256², the network
+    trained through the projection, the guards."""
+    import torch
+    by_path = {'grad-256': run_gradient_path('grad-256', 3, PATH_N, 3)}
+    torch.cuda.empty_cache()
+    by_path['grad-4096-2d'] = run_gradient_path('grad-4096-2d', 2, PATH_N_2D, 2, period=PATH_N,
+                                                cg_tol=GRAD_CG_TOL_4096)
+    torch.cuda.empty_cache()
+    gradient_cpu_vs_card(3, 64)
+    gradient_cpu_vs_card(2, 256)
+    run_network_training()
+    check_guards()
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def print_path_gaps(ch, by_path):
     """K1m's, K6's and K8's launches a step on each path that runs them ×
     (device − bound) of the row timed at that path's shape: K1m's coefficient
@@ -2639,7 +3079,8 @@ def card_line():
 # the path whose run gives a kernel's `launches` in the `kernels` line: the one that brought it
 COUNTED_ON = {**{k: 'fused' for k in FUSED_KERNELS}, 'window_interp_3d': 'per-phase',
               'window_interp_2d': 'per-phase-2d', 'poisson_stencil_masked': f'flip-{FLIP_N[0]}',
-              'p2g': f'flip-{FLIP_N[0]}', 'p2g_mean': f'flip-{FLIP_N[0]}', 'poisson_stencil_coeffs': f'obstacle-{OBSTACLE_N}'}
+              'p2g': f'flip-{FLIP_N[0]}', 'p2g_mean': f'flip-{FLIP_N[0]}', 'poisson_stencil_coeffs': f'obstacle-{OBSTACLE_N}',
+              'window_interp_3d_grad': 'grad-256', 'window_interp_2d_grad': 'grad-4096-2d'}
 PATHS = [  # (tag, dims, N, per-phase?, the kernels it must launch)
     ('fused', 3, PATH_N, False, FUSED_KERNELS),
     ('per-phase', 3, PATH_N, True, PHASES_3D_KERNELS),
@@ -2678,7 +3119,7 @@ def main(argv):
         print(f'build: {name}.cu: {len(regs)} kernel instantiations, at most {max(regs)} registers '
               f'a thread, {spills} bytes of spill stores in all (ptxas -v)')
         for entry, n_regs, n_spill in ptxas_entries(log):
-            if 'march::stencil_kernel' in entry or 'window_interp_kernel' in entry or 'p2g' in entry:
+            if 'march::stencil_kernel' in entry or 'window_interp' in entry or 'p2g' in entry:
                 print(f'build: {name}.cu {entry}: {n_regs} registers, {n_spill} bytes of spill stores')
     ch = Checks()
     gen = torch.Generator(device='cuda')
@@ -2690,9 +3131,11 @@ def main(argv):
     check_transfer(ch, gen, quick)
     check_advect(ch, gen, quick)
     check_interp(ch, gen, quick)
+    check_interp_grad(ch, gen, quick)
     if not quick:
         time_vcycle_levels(ch, gen)
         time_p2g(ch, gen)
+        check_p2g_grad(ch)
     torch.cuda.synchronize()
     print(f'checks: {time.perf_counter() - t0:.1f} s, {sum(ch.passed.values())} passed, {len(ch.failed)} failed')
     if ch.failed:
@@ -2733,6 +3176,7 @@ def main(argv):
     field_cpu_vs_card('per-phase-field', 3, 64)
     field_cpu_vs_card('per-phase-field-2d', 2, 256)
     field_obstacle_against_array()
+    by_path.update(run_gradients())
     if '--profile' in argv:
         for tag, dims, N, per_phase, _ in PATHS:
             profile_slice(tag, dims, N, per_phase)

@@ -39,6 +39,28 @@
 // or 16-byte) was measured slower on the H100: the gathered corners of
 // neighbouring outputs already come from L1, and the staging's load-wait-
 // compute phases left the memory idle (PERF.md, section 6).
+//
+// K6T / K7T window_interp_grad — the vector-Jacobian product of the same
+// function, the backward of `ops/interp.py::_WindowInterp`. The TPU kernels
+// have none: the JAX package differentiates the window sum of
+// phiflow_tpu/math/_nd.py:584-622 with XLA's AD, and this kernel computes that
+// derivative, with JAX's rules at the kinks: |x|' = +1 at 0, the derivative of
+// max(0, 1 - |d - s|) halved where 1 - |d - s| = 0, the clip's derivative 0.5
+// at exactly +-K and 0 beyond, and a tie of the min / max chain split in half
+// at each step in the window sum's tap order (axis 0 fastest). So at an
+// integer d the taps s = d - 1 and s = d + 1, which carry no weight, still
+// carry half a slope; only taps inside [-K, K] exist. One thread an output
+// cell: it recomputes d and, per axis, the up to three taps with a weight or
+// a slope (four candidates floor(d) - 1 .. floor(d) + 2 cover float rounding),
+//   d_grid[tap] += g * w(tap)              (atomicAdd; the halo resolved as the
+//                                            forward does: a constant halo drops
+//                                            it, edge / wrap / padded go to the
+//                                            cell read)
+//   d_disp_a    = g * scale_a * clip'_a * sum_taps grid(tap) * dw_a(tap) * prod_{e!=a} w_e(tap)
+// and the upstream gradients of lo / up go to the taps that carry the min / max.
+// Bound: the same streamed bytes as the forward plus the gradients; the
+// atomics make d_grid's sums depend on their order at float32 rounding. A
+// simple kernel: a gather form without atomics is later work.
 #include "window.cuh"
 
 struct InterpArgs {
@@ -195,6 +217,155 @@ static int launch_d(const InterpArgs &a, int vec, cudaStream_t s) {
     else if (vec) launch<D, false, true>(a, small, grid, s);
     else launch<D, false, false>(a, small, grid, s);
     return (int)cudaGetLastError();
+}
+
+struct InterpGradArgs {
+    Src grid;  // the forward's grid (a padded one has shift = -K)
+    const float *disp[3];
+    float scale[3];
+    const float *g_out, *g_lo, *g_up;  // upstream gradients, output-shaped; null where absent
+    float *d_grid;                      // the grid's gradient, its raw shape, zeroed by the caller; or null
+    float *d_disp[3];                   // the displacements' gradients; null where not asked
+    int o[3];
+    int K;
+};
+
+#define WG_THREADS 256
+
+// d(max(a, b))/da under JAX's rule: 1 above, 1/2 at a tie, 0 below
+__device__ __forceinline__ float above(float a, float b) { return a > b ? 1.f : (a == b ? 0.5f : 0.f); }
+
+template <int D, bool EXTREMA>
+__global__ void __launch_bounds__(WG_THREADS) window_interp_grad_kernel(const InterpGradArgs a) {
+    long long n_out = 1;
+#pragma unroll
+    for (int e = 0; e < D; ++e) n_out *= a.o[e];
+    const long long q = (long long)blockIdx.x * WG_THREADS + threadIdx.x;
+    if (q >= n_out) return;
+    int o[D];
+    long long rest = q;
+#pragma unroll
+    for (int e = D - 1; e >= 0; --e) {
+        o[e] = (int)(rest % a.o[e]);
+        rest /= a.o[e];
+    }
+    const Src &g = a.grid;
+    const float kf = (float)a.K;
+    const float go = a.g_out ? a.g_out[q] : 0.f;
+    // per axis: the taps with a weight or a slope, ascending; their weights, slopes and logical indices
+    float w[D][3], dw[D][3], dclip[D];
+    int tap[D][3], nt[D];
+#pragma unroll
+    for (int e = 0; e < D; ++e) {
+        const float x = a.scale[e] * __ldg(a.disp[e] + q);
+        const float m = fmaxf(x, -kf);
+        const float d = fminf(m, kf);  // the forward's clip_cells, in the same two steps
+        dclip[e] = above(x, -kf) * above(kf, m);
+        nt[e] = 0;
+        if (d != d) continue;  // NaN: no tap
+        const int f = (int)floorf(d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int s = f - 1 + j;
+            const float t = d - (float)s;
+            const float dist = t >= 0.f ? t : -t;
+            const float one_m = 1.f - dist;
+            if (s < -a.K || s > a.K || one_m < 0.f) continue;
+            if (nt[e] < 3) {
+                w[e][nt[e]] = fmaxf(0.f, one_m);
+                dw[e][nt[e]] = -(one_m > 0.f ? 1.f : 0.5f) * (t >= 0.f ? 1.f : -1.f);
+                tap[e][nt[e]] = o[e] + s;
+                ++nt[e];
+            }
+        }
+    }
+    float gd[D];
+#pragma unroll
+    for (int e = 0; e < D; ++e) gd[e] = 0.f;
+    float hv[1 << D];  // the taps with weight (|d - s| < 1 on every axis), in the window sum's order
+    long long hoff[1 << D];
+    bool hout[1 << D];
+    int nh = 0;
+    constexpr int N3 = D == 3 ? 27 : 9;
+    for (int c = 0; c < N3; ++c) {  // mixed radix 3, axis 0 fastest: the TPU window sum's tap order
+        int j[D];
+        bool skip = false;
+        int cc = c;
+#pragma unroll
+        for (int e = 0; e < D; ++e) {
+            j[e] = cc % 3;
+            cc /= 3;
+            skip = skip || j[e] >= nt[e];
+        }
+        if (skip) continue;
+        float W = 1.f, dfac[D];
+        bool need = false;
+#pragma unroll
+        for (int e = 0; e < D; ++e) W *= w[e][j[e]];
+#pragma unroll
+        for (int e = 0; e < D; ++e) {
+            float p = dw[e][j[e]];
+#pragma unroll
+            for (int f = 0; f < D; ++f)
+                if (f != e) p *= w[f][j[f]];
+            dfac[e] = p;
+            need = need || p != 0.f;
+        }
+        if (!need && W == 0.f) continue;
+        bool outside = false;
+        long long off = 0;
+#pragma unroll
+        for (int e = 0; e < D; ++e) off = off * g.n[e] + resolve(tap[e][j[e]] - g.shift[e], g.n[e], g.mode, outside);
+        const float v = outside ? g.c : __ldg(g.p + off);
+        if (W != 0.f) {
+            if (a.d_grid && !outside && go != 0.f) atomicAdd(a.d_grid + off, go * W);
+            if (EXTREMA && nh < (1 << D)) {
+                hv[nh] = v, hoff[nh] = off, hout[nh] = outside;
+                ++nh;
+            }
+        }
+#pragma unroll
+        for (int e = 0; e < D; ++e) gd[e] += v * dfac[e];
+    }
+#pragma unroll
+    for (int e = 0; e < D; ++e)
+        if (a.d_disp[e]) a.d_disp[e][q] = go * a.scale[e] * dclip[e] * gd[e];
+    if (EXTREMA && a.d_grid && nh > 0) {
+        // lo = min(... min(min(BIG, v_0), v_1) ..., v_{nh-1}) and up alike: walk the chain back from the last
+        // tap; a tap below (above) the running min (max) before it takes the rest, a tie half of it
+        float pre_lo[1 << D], pre_up[1 << D], m_lo = 3.4e38f, m_up = -3.4e38f;
+        for (int i = 0; i < nh; ++i) {
+            pre_lo[i] = m_lo, pre_up[i] = m_up;
+            m_lo = fminf(m_lo, hv[i]);
+            m_up = fmaxf(m_up, hv[i]);
+        }
+        float G_lo = a.g_lo ? a.g_lo[q] : 0.f, G_up = a.g_up ? a.g_up[q] : 0.f;
+        for (int i = nh - 1; i >= 0; --i) {
+            const float s_lo = G_lo * above(pre_lo[i], hv[i]), s_up = G_up * above(hv[i], pre_up[i]);
+            G_lo -= s_lo;
+            G_up -= s_up;
+            if (!hout[i] && s_lo + s_up != 0.f) atomicAdd(a.d_grid + hoff[i], s_lo + s_up);
+        }
+    }
+}
+
+template <int D>
+static int launch_grad(const InterpGradArgs &a, int extrema, cudaStream_t s) {
+    long long n_out = 1;
+    for (int e = 0; e < D; ++e) n_out *= a.o[e];
+    if (n_out == 0) return 0;
+    const unsigned blocks = (unsigned)((n_out + WG_THREADS - 1) / WG_THREADS);
+    if (extrema) window_interp_grad_kernel<D, true><<<blocks, WG_THREADS, 0, s>>>(a);
+    else window_interp_grad_kernel<D, false><<<blocks, WG_THREADS, 0, s>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// K6T (dims 3) and K7T (dims 2); extrema: lo / up were computed and their upstream gradients may be given
+extern "C" int window_interp_grad(const InterpGradArgs *a, int dims, int extrema, void *stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (dims == 3) return launch_grad<3>(*a, extrema, s);
+    if (dims == 2) return launch_grad<2>(*a, extrema, s);
+    return (int)cudaErrorInvalidValue;
 }
 
 // K6 (dims 3) and K7 (dims 2). vec: the rows hold a multiple of 4 outputs and every displacement and output array

@@ -12,7 +12,7 @@ from ._resample import resample, sample
 from ._field_math import (
     laplace, spatial_gradient, divergence, stagger, fourier_laplace, fourier_poisson, where, maximum, minimum, clip,
     is_finite, safe_mul,
-    finite_fill, mean, mask,
+    finite_fill, mean, mask, native_call,
     divergence_native, spatial_gradient_native, finite_fill_native, stagger_native, safe_mul_native, laplace_native,
 )
 from ._noise import Noise

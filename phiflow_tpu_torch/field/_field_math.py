@@ -39,7 +39,7 @@ from ._field import Field, as_boundary, face_components, face_values
 __all__ = ['divergence_native', 'spatial_gradient_native', 'finite_fill_native', 'stagger_native', 'safe_mul_native',
            'laplace_native', 'divergence', 'spatial_gradient', 'stagger', 'laplace', 'fourier_laplace',
            'fourier_poisson', 'where', 'is_finite', 'maximum', 'minimum', 'clip', 'safe_mul', 'finite_fill', 'mean',
-           'mask']
+           'mask', 'native_call']
 
 
 def _per_axis(dx, ndim: int) -> tuple:
@@ -522,3 +522,17 @@ def mask(obj):
             lambda e: ConstantExtrapolation(0.) if isinstance(e, ConstantExtrapolation) else e, obj.boundary))
     assert isinstance(obj, Geometry), f"mask requires a Field or Geometry, got {type(obj)}"
     return Field(obj, wrap(1.), 0.)
+
+
+def native_call(f, *inputs, channels_last=None, channel_dim='vector', extrapolation=None, **kwargs):
+    """Call a native function (a network of `nn`) on grid values: channels
+    last unless ``channels_last=False``; the result is a Field on the first
+    input's geometry under its boundary, or `extrapolation`. Tensors go
+    through `math.native_call`."""
+    if isinstance(inputs[0], Field):
+        template = inputs[0]
+        tensors = [i.values if isinstance(i, Field) else i for i in inputs]
+        values = ops.native_call(f, *tensors, channels_last=True if channels_last is None else channels_last,
+                                 channel_dim=channel_dim)
+        return Field(template.geometry, values, extrapolation if extrapolation is not None else template.boundary)
+    return ops.native_call(f, *inputs, channels_last=bool(channels_last), channel_dim=channel_dim)

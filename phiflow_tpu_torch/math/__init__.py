@@ -26,11 +26,15 @@ from ._ops import (
     sum_ as sum, mean, prod, max_ as max, min_ as min, any_ as any, all_ as all,
     finite_mean, finite_sum, finite_max, finite_min, dot, close, always_close, assert_close, equal,
     pad, shift, vec, vec_length, vec_squared, vec_normalize, dim_mask, gather, scatter, boolean_mask, nonzero,
-    quantile, median, pairwise_differences, find_closest,
+    quantile, median, pairwise_differences, find_closest, stop_gradient, native_call,
 )
 from . import _extrapolation as extrapolation
 from ._extrapolation import Extrapolation, as_extrapolation
-from ._functional import jit_compile, jit_compile_linear, LinearFunction
+from ._functional import (
+    jit_compile, jit_compile_linear, LinearFunction, gradient, functional_gradient, jacobian, custom_gradient,
+    iterate, map_s2b, map_d2c, map_c2d, broadcast, get_function_parameters, trace_check, when_available,
+    perf_counter,
+)
 from ._solve import Solve, SolveInfo, SolveTape, solve_linear, copy_solve, SolveResult, cg, bicgstab
 from ._multigrid import make_poisson_vcycle
 from ._nd import (BOUNDARY, PERIODIC, PerSide, masked_fill, masked_fill_native, shift_window_interp, fourier_laplace,
@@ -39,3 +43,21 @@ from ._nd import (BOUNDARY, PERIODIC, PerSide, masked_fill, masked_fill_native, 
 PI = _np.pi
 INF = _np.inf
 NAN = _np.nan
+
+
+def l2_loss(x, reduce=None) -> Tensor:
+    """½·Σ x² over all non-batch dims (a TensorStack: the sum over its components)."""
+    from . import _ops
+    if isinstance(x, TensorStack):
+        return sum(l2_loss(c) for c in x.components)
+    x = wrap(x)
+    return _ops.sum_(x ** 2, reduce if reduce is not None else x.shape.non_batch) * 0.5
+
+
+def l1_loss(x, reduce=None) -> Tensor:
+    """Σ |x| over all non-batch dims (a TensorStack: the sum over its components)."""
+    from . import _ops
+    if isinstance(x, TensorStack):
+        return sum(l1_loss(c) for c in x.components)
+    x = wrap(x)
+    return _ops.sum_(_ops.abs_(x), reduce if reduce is not None else x.shape.non_batch)

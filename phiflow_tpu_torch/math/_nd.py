@@ -94,7 +94,9 @@ def shift_window_interp(grid: torch.Tensor, displacement_cells: Sequence[torch.T
     ``compute_extrema`` — the MacCormack clamp values.
 
     A CUDA grid goes through K6 (3D) or K7 (2D), a CPU grid through their plain
-    twin (`ops/interp.py`)."""
+    twin (`ops/interp.py`). Every route is differentiable in the grid and the
+    displacements (K6ᵀ / K7ᵀ on CUDA); a PerSide halo is padded here by
+    PyTorch operations, which autograd follows."""
     d = len(displacement_cells)
     if grid.ndim != d:
         raise NotImplementedError(
@@ -112,6 +114,9 @@ def shift_window_interp(grid: torch.Tensor, displacement_cells: Sequence[torch.T
         halo = dict(halo='edge')
     elif extrap == PERIODIC:
         halo = dict(halo='wrap')
+    elif isinstance(extrap, torch.Tensor):
+        raise TypeError("a constant halo is a number: no gradient reaches it, as the JAX package's 3D kernel takes "
+                        "it as a Python float; pad the grid with the tensor instead")
     elif isinstance(extrap, (int, float)):
         halo = dict(const_pad=float(extrap))
     else:

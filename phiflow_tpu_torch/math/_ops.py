@@ -32,7 +32,8 @@ __all__ = ['zeros', 'ones', 'zeros_like', 'ones_like', 'seed', 'random_normal', 
            'safe_div', 'nan_to_0', 'sum_', 'mean', 'prod', 'max_', 'min_', 'any_', 'all_', 'finite_mean',
            'finite_sum', 'finite_max', 'finite_min', 'dot', 'close', 'always_close', 'assert_close', 'equal', 'pad',
            'shift', 'vec', 'vec_length', 'vec_squared', 'vec_normalize', 'dim_mask', 'gather', 'scatter',
-           'boolean_mask', 'nonzero', 'quantile', 'median', 'pairwise_differences', 'find_closest']
+           'boolean_mask', 'nonzero', 'quantile', 'median', 'pairwise_differences', 'find_closest', 'stop_gradient',
+           'native_call']
 
 
 # ---------------------------------------------------------------------------
@@ -977,3 +978,44 @@ def find_closest(vectors: Tensor, query: Tensor, index_dim=channel('index')) -> 
     if query.shape.instance:
         idx = rename_dims(idx, '_query', query.shape.instance)
     return idx
+
+
+# ---------------------------------------------------------------------------
+# gradients and native functions
+# ---------------------------------------------------------------------------
+
+def stop_gradient(x):
+    """`x` with every torch native detached: no gradient flows through it
+    (Tensors, Fields, sequences and dicts of them, torch tensors)."""
+    from ._functional import _detached
+    return _detached(x)
+
+
+def native_call(f, *inputs, channels_last=True, channel_dim='vector', spatial_dim=None):
+    """Call a function of native arrays (a network) on named tensors: each
+    input as (batch, *spatial, channels) with ``channels_last`` or (batch,
+    channels, *spatial), the batch dims merged into one and a scalar input
+    given a channel axis of 1; the result back with the first input's
+    spatial dims and `channel_dim` of the result's channel count."""
+    inputs = [wrap(i) for i in inputs]
+    b = merge_shapes(*[i.shape.batch for i in inputs])
+    natives = []
+    for i in inputs:
+        sp, ch = i.shape.spatial, i.shape.channel
+        order = b.names + (sp.names + ch.names if channels_last else ch.names + sp.names)
+        n = i.torch(order)
+        n = n.reshape((b.volume if b else 1,) + tuple(n.shape[len(b.names):]))
+        if not ch:  # a scalar field gets a channel axis of 1
+            n = n.unsqueeze(-1) if channels_last else n.unsqueeze(1)
+        natives.append(n)
+    result = f(*natives)
+    sp = inputs[0].shape.spatial
+    if channels_last:
+        ch_size = result.shape[-1]
+        out_shape = concat_shapes(b, sp, channel(**{channel_dim: ch_size}))
+        native = result.reshape(tuple(b.sizes) + tuple(sp.sizes) + (ch_size,))
+    else:
+        ch_size = result.shape[1]
+        out_shape = concat_shapes(b, channel(**{channel_dim: ch_size}), sp)
+        native = result.reshape(tuple(b.sizes) + (ch_size,) + tuple(sp.sizes))
+    return Tensor(native, out_shape)

@@ -10,6 +10,18 @@ iteration (one device sync), where JAX keeps the loop on the device in a
 `lax.while_loop`. A `SolveInfo` therefore holds the concrete iteration count.
 'biCG-stab(2)', direct solves, `minimize` and `solve_nonlinear` come with a
 later slice.
+
+Gradients: `implicit_solve` differentiates a solve implicitly, as JAX's
+`jax.lax.custom_linear_solve` does (`phiflow_tpu/math/_solve.py:802-816`).
+Its `torch.autograd.Function` runs the Krylov loop under `no_grad`, keeps x
+alone, and its backward solves the adjoint system Aᵀλ = ḡ once (CG: Aᵀ = A;
+BiCGStab: Aᵀ applied as the VJP of the linear map), ḡ projected onto A's
+range and λ without its mean for a rank-deficient system; the right-hand
+side gets λ, tensors the operator
+depends on get −VJP_θ(A(x; θ))[λ], and x0 nothing. The graph holds O(1)
+tensors whatever the iteration count. `Solve(implicit_diff=False)` is
+forward-only: differentiating through it raises. `solve_linear` and the
+array-level projections (`physics/fluid.py`) solve through it.
 """
 from __future__ import annotations
 
@@ -21,7 +33,8 @@ from ._functional import LinearFunction
 from ._magic import ConvergenceException, Diverged, NotConverged
 from ._tensor import Tensor, TensorStack
 
-__all__ = ['SolveResult', 'cg', 'bicgstab', 'sub_mean', 'Solve', 'copy_solve', 'SolveInfo', 'SolveTape', 'solve_linear']
+__all__ = ['SolveResult', 'cg', 'bicgstab', 'sub_mean', 'implicit_solve', 'Solve', 'copy_solve', 'SolveInfo', 'SolveTape',
+           'solve_linear']
 
 
 class SolveResult(NamedTuple):
@@ -139,6 +152,148 @@ def bicgstab(A: Callable, b: torch.Tensor, x0: torch.Tensor, rtol: float, atol: 
         rho = rho_new
         it += 1
     return SolveResult(x, it, bool(rr <= tol_sq))
+
+
+# ---------------------------------------------------------------------------
+# implicit differentiation
+# ---------------------------------------------------------------------------
+
+class _Spec(NamedTuple):
+    krylov: Callable
+    A: Callable
+    M: Optional[Callable]
+    x0: torch.Tensor
+    tolerances: tuple          # (rel_tol, abs_tol, max_iter) of the forward solve
+    adjoint_tolerances: tuple  # the same of the adjoint solve
+    rank_deficient: bool
+    null_space: Optional[torch.Tensor]  # of a rank-deficient A; None: the constants
+    active: Optional[torch.Tensor]      # 0 on identity rows that no result depends on
+    params: tuple              # the tensors A depends on that require grad
+    param_matvec: Callable
+    implicit_diff: bool
+    on_adjoint: Optional[Callable]
+    box: dict                  # receives the forward's SolveResult
+
+
+def _transpose(A: Callable) -> Callable:
+    """Aᵀ of a linear A(x) -> (A·x, ·) as its VJP, one graph a product."""
+    def AT(v):
+        with torch.enable_grad():
+            x = torch.zeros_like(v, requires_grad=True)
+            return torch.autograd.grad(A(x)[0], x, v)[0], None
+    return AT
+
+
+class _ImplicitSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, spec: _Spec, b, *params):
+        result = spec.krylov(spec.A, b, spec.x0, *spec.tolerances, spec.M)
+        x = sub_mean(result.x) if spec.rank_deficient else result.x
+        spec.box['result'] = result._replace(x=x)
+        ctx.spec = spec
+        ctx.save_for_backward(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        spec: _Spec = ctx.spec
+        if not spec.implicit_diff:
+            raise RuntimeError("this solve ran with Solve(implicit_diff=False): it is forward-only and has no "
+                               "gradient, as in the JAX package")
+        x, = ctx.saved_tensors
+        g = g.contiguous()
+        if spec.active is not None:  # Aᵀ's identity rows differ from A's; only the active block reaches b
+            g = g * spec.active
+        if spec.rank_deficient:  # ḡ onto A's range: its null-space component meets no x
+            n = spec.null_space
+            g = sub_mean(g) if n is None else g - n * (_dot64(n, g) / _dot64(n, n))
+        A_adj = spec.A if spec.krylov is cg else _transpose(spec.A)
+        adjoint = spec.krylov(A_adj, g, torch.zeros_like(g), *spec.adjoint_tolerances, spec.M)
+        lam = sub_mean(adjoint.x) if spec.rank_deficient else adjoint.x
+        if spec.on_adjoint is not None:
+            spec.on_adjoint(adjoint._replace(x=lam))
+        needs = ctx.needs_input_grad[2:]
+        grads = [None] * len(needs)
+        if any(needs):
+            theta = [t for t, need in zip(spec.params, needs) if need]
+            with torch.enable_grad():  # θ̄ = −VJP_θ(A(x; θ))[λ]
+                g_theta = iter(torch.autograd.grad(spec.param_matvec(x.detach()), theta, -lam, allow_unused=True))
+            grads = [next(g_theta) if need else None for need in needs]
+        return (None, lam, *grads)
+
+
+def implicit_solve(krylov: Callable, A: Callable, b: torch.Tensor, x0: torch.Tensor, rel_tol: float, abs_tol: float,
+                   max_iter: int, M: Optional[Callable] = None, rank_deficient: bool = False,
+                   null_space: Optional[torch.Tensor] = None, active: Optional[torch.Tensor] = None, params=(),
+                   param_matvec: Optional[Callable] = None, adjoint_tolerances: Optional[tuple] = None,
+                   implicit_diff: bool = True, on_adjoint: Optional[Callable] = None) -> SolveResult:
+    """`krylov` (`cg` or `bicgstab`) on A·x = b, differentiable implicitly
+    in b and in `params`, the tensors A depends on.
+
+    With `rank_deficient` the result (and the adjoint λ) lose their mean,
+    and the adjoint's right-hand side is projected onto A's range: the
+    constants removed, or the component along `null_space` (a masked
+    system's active cells). A masked system's `active` (0 on its identity
+    rows, whose right-hand side is 0 and whose solution feeds nothing): Aᵀ
+    couples those rows to the active block where A does not, and the active
+    block of λ, the only part a gradient needs, solves A's own active block
+    once ḡ is zeroed there. `param_matvec(x)` is the part of A·x that
+    depends on `params`, evaluated under grad in the backward (default:
+    A(x)[0]). `adjoint_tolerances`
+    (rel_tol, abs_tol, max_iter) of the adjoint solve default to the
+    forward's; `on_adjoint(result)` receives its SolveResult. Returns the
+    forward's SolveResult with x on the autograd graph where b or a param
+    requires grad."""
+    params = [t for t in params if isinstance(t, torch.Tensor) and t.requires_grad]
+    x0 = x0.detach()
+    tolerances = (rel_tol, abs_tol, max_iter)
+    if not (torch.is_grad_enabled() and (b.requires_grad or params)):
+        result = krylov(A, b, x0, *tolerances, M)
+        return result._replace(x=sub_mean(result.x)) if rank_deficient else result
+    spec = _Spec(krylov, A, M, x0, tolerances, adjoint_tolerances or tolerances, rank_deficient, null_space, active,
+                 tuple(params), param_matvec or (lambda x: A(x)[0]), implicit_diff, on_adjoint, {})
+    x = _ImplicitSolve.apply(spec, b, *params)
+    return spec.box['result']._replace(x=x)
+
+
+def grad_tensors(*objects) -> list:
+    """The torch tensors that require grad inside `objects`: tensors, this
+    package's Tensors, Fields, geometries and extrapolations, sequences and
+    dicts of them, and the closure of a function or a `LinearFunction`."""
+    found, seen = [], set()
+
+    def walk(obj, depth):
+        if depth > 8 or id(obj) in seen:
+            return
+        seen.add(id(obj))
+        if isinstance(obj, torch.Tensor):
+            if obj.requires_grad:
+                found.append(obj)
+        elif isinstance(obj, (list, tuple, set)):
+            for o in obj:
+                walk(o, depth + 1)
+        elif isinstance(obj, dict):
+            for o in obj.values():
+                walk(o, depth + 1)
+        elif isinstance(obj, TensorStack):
+            walk(obj.components, depth + 1)
+        elif isinstance(obj, Tensor):
+            walk(obj.native(), depth + 1)
+        elif callable(obj) and hasattr(obj, '__code__'):
+            for cell in obj.__closure__ or ():
+                try:
+                    walk(cell.cell_contents, depth + 1)
+                except ValueError:  # an empty cell
+                    pass
+        elif hasattr(obj, '__self__') and hasattr(obj, '__func__'):
+            walk(obj.__self__, depth + 1)
+        elif type(obj).__module__.startswith(__name__.split('.')[0]) and hasattr(obj, '__dict__'):
+            for o in vars(obj).values():
+                walk(o, depth + 1)
+
+    for o in objects:
+        walk(o, 0)
+    return found
 
 
 # ---------------------------------------------------------------------------
@@ -288,6 +443,19 @@ def finish_solve(solve: Solve, x, result: SolveResult) -> SolveInfo:
     return info
 
 
+def record_adjoint(solve: Solve, result: SolveResult) -> SolveInfo:
+    """Record the adjoint solve of a backward on every active `SolveTape`
+    (a SolveInfo whose `msg` starts with 'adjoint'); never raises: a
+    backward that did not converge returns its last iterate, as JAX's does."""
+    kind, matvecs = ('BiCGStab', 2) if solve.method in BICGSTAB_METHODS else ('CG', 1)
+    info = SolveInfo(solve, result.x, None, result.iterations, matvecs * result.iterations + 1, result.converged,
+                     False, solve.method,
+                     msg=f"adjoint: {result.iterations} {kind} iterations, converged={result.converged}")
+    for tape in _SOLVE_TAPES:
+        tape.solve_infos.append(info)
+    return info
+
+
 def _values_of(state):
     """The Tensor a solve works on: a Field's values or the Tensor itself."""
     values = state.values if hasattr(state, 'values') and hasattr(state, 'geometry') else state
@@ -309,7 +477,10 @@ def solve_linear(f, y, solve: Solve, *f_args, grad_for_f=False, f_kwargs: dict =
     ``assume_homogeneous``, its offset f(0) is subtracted. The preprocessing,
     the rank deficiency (the mean removed from the right-hand side, every
     preconditioner output and the result) and a callable preconditioner of
-    `solve` apply as in the JAX package."""
+    `solve` apply as in the JAX package. The solve is differentiable
+    implicitly (`implicit_solve`) in `y` and in the tensors that `f`'s
+    arguments and closure hold; its adjoint takes `solve.gradient_solve`'s
+    tolerances."""
     f_kwargs = dict(f_kwargs or {})
     f_kwargs.update(f_kwargs_additional)
     solve = solve.with_defaults('solve')
@@ -353,9 +524,18 @@ def solve_linear(f, y, solve: Solve, *f_args, grad_for_f=False, f_kwargs: dict =
         def M(r):
             z = native_of(solve.preconditioner(state_of(r)))
             return (sub_mean(z) if rank_def else z), None
+
+    def param_matvec(x):  # the θ-dependent A·x of the backward: f(x) − f(0)
+        fx = native_of(op(state_of(x)))
+        return fx if assume_homogeneous else fx - native_of(op(state_of(torch.zeros_like(x))))
+
     krylov = bicgstab if solve.method in BICGSTAB_METHODS else cg
-    result = krylov(A, rhs, x0_n, solve.rel_tol, solve.abs_tol, solve.max_iterations, M)
-    x = sub_mean(result.x) if rank_def else result.x
-    x_state = state_of(x)
+    grad_solve = solve.gradient_solve.with_defaults('solve')
+    result = implicit_solve(krylov, A, rhs, x0_n, solve.rel_tol, solve.abs_tol, solve.max_iterations, M,
+                            rank_deficient=bool(rank_def), params=grad_tensors(fn, f_args, f_kwargs),
+                            param_matvec=param_matvec,
+                            adjoint_tolerances=(grad_solve.rel_tol, grad_solve.abs_tol, grad_solve.max_iterations),
+                            implicit_diff=solve.implicit_diff, on_adjoint=lambda r: record_adjoint(grad_solve, r))
+    x_state = state_of(result.x)
     finish_solve(solve, x_state, result)
     return x_state

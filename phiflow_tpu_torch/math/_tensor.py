@@ -146,7 +146,7 @@ def to_torch(native, device=None) -> torch.Tensor:
     if arr.ndim and 0 in arr.strides and arr.size:
         compact = arr[tuple(slice(0, 1) if s == 0 else slice(None) for s in arr.strides)]
         return to_torch(np.array(compact), device).expand(arr.shape)
-    arr = np.ascontiguousarray(arr)
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)  # ascontiguousarray makes a 0-dim array 1-dim
     return torch.from_numpy(arr if arr.flags.writeable else arr.copy()).to(device)
 
 

@@ -8,7 +8,7 @@ multigrid V-cycle). The advection takes one of two paths, chosen as the JAX
 model chooses:
 
 * the fused path (`_fused_advect`: three calls of K5) for a 3D grid the fused
-  kernel supports;
+  kernel supports, unless the step is differentiated (K5 has no backward);
 * the per-phase path (`advect_smoke`, `advect_velocity` through
   `physics/advect.py`: K6 in 3D, K7 in 2D) for everything else.
 
@@ -134,7 +134,13 @@ class SmokePlume:
     # ------------------------------------------------------------------
     def _fused_advect_available_native(self, velocity: Velocity, smoke: torch.Tensor) -> bool:
         """JAX's gate: 3D, a bounded window, and a grid the fused kernel
-        supports (`_fused_advect_supported`)."""
+        supports (`_fused_advect_supported`); and no gradient asked of the
+        step: K5 is forward-only, so a step under grad whose state requires
+        grad takes the per-phase path (K6 and K6ᵀ), as the JAX model does
+        wherever it does not run its Pallas kernel. Decided by grad mode
+        alone."""
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (*velocity, smoke)):
+            return False
         return (self.dims == 3 and self.max_cells is not None
                 and _fused_advect_supported((self._resolution,) * 3, self.max_cells))
 

@@ -15,6 +15,11 @@ without CUDA.
 `LAUNCHES` counts kernel launches by kernel name. Each wrapper adds one where
 it launches its kernel and nowhere else, so a caller can show that a run went
 through the kernels.
+
+`refuse_grad` is the guard of a kernel that has no backward: its wrapper
+raises, before the launch, where autograd would record the call and an input
+requires grad, instead of returning an output that silently drops the
+gradient.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ import time
 from typing import Dict, Iterable, Sequence
 
 __all__ = ['SOURCES', 'LAUNCHES', 'SMEM_LIMIT', 'BUILD_DIR', 'reset_launches', 'stale', 'build', 'ptxas_log', 'library',
-           'check', 'block_x', 'stream_of', 'SRC_MODE', 'src_struct']
+           'check', 'refuse_grad', 'block_x', 'stream_of', 'SRC_MODE', 'src_struct']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
@@ -136,6 +141,16 @@ def check(lib, err: int, what: str):
     if err != 0:
         msg = lib.ptt_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def refuse_grad(what: str, *tensors):
+    """Raise when grad mode is on and one of `tensors` (None entries are
+    skipped) requires grad: the kernel `what` has no backward."""
+    import torch
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward, and an input requires grad; call it under "
+                           f"torch.no_grad() or detach the input (a differentiable path takes the kernels that "
+                           f"have one: the implicit-diff solves, the window interpolation)")
 
 
 def block_x(n: int) -> int:

@@ -28,6 +28,11 @@ Outputs have their exact shapes: N³ for a centred output; a staggered output
 d has its source's extent on axis d, and its row a is face a+1 (the closed
 box's interior faces 1..N−1; for a periodic component faces 1..N, which the
 caller rolls by one).
+
+K5 is forward-only, as the TPU kernel is: on CUDA the wrapper raises when
+grad mode is on and an input requires grad (`_build.refuse_grad`), and a
+differentiated smoke step takes the per-phase path instead
+(`models/smoke.py`).
 """
 from __future__ import annotations
 
@@ -330,6 +335,7 @@ def _check_f32(name, t):
 
 
 def _advect_cuda(sources, N, K, outs, scales, blocked_extras):
+    _build.refuse_grad('fused_advect', *(s.values for s in sources), *blocked_extras)
     import ctypes
     Src, Blk, Staged, AdvectArgs = _ctypes_args()
     for i, s in enumerate(sources):

@@ -28,7 +28,18 @@ input), or raw with its halo described: ``const_pad=c`` (a constant, as the
 TPU 3D kernel takes it) or ``halo='edge'`` / ``'wrap'`` (zero gradient /
 periodic), which the kernel resolves by index without a padding pass.
 
-No gradient is defined, as for the TPU kernels.
+Both are differentiable in the grid and the displacements (`_WindowInterp`,
+a `torch.autograd.Function`): the forward is the route above, the backward
+is K6ᵀ / K7ᵀ (`csrc/interp.cu::window_interp_grad_kernel`) on CUDA and the
+twin's VJP (autograd of `_window_interp_plain`, recomputed) on the CPU. The
+TPU kernels have no VJP; the JAX package's gradient of the same function is
+XLA's AD of its window sum, and the twin is written so that autograd follows
+JAX's rules where the weights have kinks: |x| as ``where(x >= 0, x, −x)``
+(slope +1 at 0), the tent as ``maximum(0, 1 − a)`` and the clip as
+``minimum(maximum(x, −K), K)`` (ties split in half), the extrema chain in
+JAX's tap order. At an integer displacement (0 from rest) the taps beside it
+carry no weight but half a slope each. Forward values are those of
+``abs`` / ``clamp``, bit for bit.
 """
 from __future__ import annotations
 
@@ -98,10 +109,44 @@ def _window_interp(d, grid, disps, K, compute_extrema, negate, const_pad, disp_s
     scale = tuple(_f32(sgn * float(s)) for s in (disp_scale or (1.0,) * d))
     if len(scale) != d:
         raise ValueError(f"disp_scale needs {d} entries, got {disp_scale}")
+    if isinstance(const_pad, torch.Tensor):
+        raise TypeError(f"{name}: const_pad is a number (no gradient reaches a constant halo), got a tensor")
     const = 0.0 if const_pad is None else _f32(const_pad)
+    args = (name, K, compute_extrema, scale, mode, const)
+    if torch.is_grad_enabled() and (grid.requires_grad or any(dd.requires_grad for dd in disps)):
+        return _WindowInterp.apply(args, grid, *disps)
+    return _forward(grid, disps, *args)
+
+
+def _forward(grid, disps, name, K, compute_extrema, scale, mode, const):
     if grid.is_cuda:
         return _window_interp_cuda(name, grid, disps, K, compute_extrema, scale, mode, const)
     return _window_interp_plain(grid, disps, K, compute_extrema, scale, mode, const)
+
+
+class _WindowInterp(torch.autograd.Function):
+    """K6 / K7 with their backward: K6ᵀ / K7ᵀ on CUDA, the twin's VJP on
+    the CPU. Saves the inputs only; the backward recomputes the taps."""
+
+    @staticmethod
+    def forward(ctx, args, grid, *disps):
+        ctx.args = args
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(grid, *disps)
+        return _forward(grid.detach(), [dd.detach() for dd in disps], *args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grid, *disps = ctx.saved_tensors
+        name, K, compute_extrema, scale, mode, const = ctx.args
+        need_grid, need_disp = ctx.needs_input_grad[1], any(ctx.needs_input_grad[2:])
+        if grid.is_cuda:
+            d_grid, d_disps = _window_interp_grad_cuda(name, grid, disps, K, compute_extrema, scale, mode, const,
+                                                       grads, need_grid, need_disp)
+        else:
+            d_grid, d_disps = _window_interp_vjp_plain(grid, disps, K, compute_extrema, scale, mode, const,
+                                                       grads, need_grid, need_disp)
+        return (None, d_grid, *d_disps)
 
 
 # ---------------------------------------------------------------------------
@@ -123,8 +168,10 @@ def _window_interp_plain(grid, disps, K, compute_extrema, scale, mode, const):
     dtype = torch.float64 if grid.dtype == torch.float64 else torch.float32  # float64 only on the CPU
     padded = (grid if mode is None else _pad(grid, K, mode, const)).to(dtype)
     W = 2 * K + 1
-    delta = [torch.clamp(scale[i] * disps[i].to(dtype), -float(K), float(K)) for i in range(d)]
-    dist = [[torch.abs(delta[i] - float(s)) for s in range(-K, K + 1)] for i in range(d)]
+    # JAX's AD conventions at the kinks (module docstring); the values are those of clamp / abs
+    lo_k, hi_k, zero = (torch.full((), v, dtype=dtype, device=grid.device) for v in (-float(K), float(K), 0.0))
+    delta = [torch.minimum(torch.maximum(scale[i] * disps[i].to(dtype), lo_k), hi_k) for i in range(d)]
+    dist = [[_abs(delta[i] - float(s)) for s in range(-K, K + 1)] for i in range(d)]
     total = torch.zeros(out_shape, dtype=dtype, device=grid.device)
     if compute_extrema:
         big = torch.tensor(_BIG, dtype=dtype, device=grid.device)
@@ -136,7 +183,7 @@ def _window_interp_plain(grid, disps, K, compute_extrema, scale, mode, const):
             j = kk % W  # tap s = j − K along axis i, axis 0 fastest
             kk //= W
             index.append(slice(j, j + out_shape[i]))
-            wi = torch.clamp(1.0 - dist[i][j], min=0.0)  # hat function = linear-interpolation weight
+            wi = torch.maximum(zero, 1.0 - dist[i][j])  # hat function = linear-interpolation weight
             w = wi if w is None else w * wi
             if compute_extrema:
                 ci = dist[i][j] < 1.0
@@ -147,6 +194,33 @@ def _window_interp_plain(grid, disps, K, compute_extrema, scale, mode, const):
             lo_acc = torch.minimum(lo_acc, torch.where(cm, window, big))
             up_acc = torch.maximum(up_acc, torch.where(cm, window, -big))
     return (total, lo_acc, up_acc) if compute_extrema else total
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with slope +1 at 0, as `jnp.abs` under `jax.grad`."""
+    return torch.where(x >= 0, x, -x)
+
+
+def _window_interp_vjp_plain(grid, disps, K, compute_extrema, scale, mode, const, grads, need_grid, need_disp):
+    """The twin's VJP: (d_grid or None, [d_disp or None] * d) of the
+    upstream `grads` (out[, lo, up]; None entries are zero), by autograd of
+    `_window_interp_plain` recomputed; the oracle of K6ᵀ / K7ᵀ."""
+    d = len(disps)
+    with torch.enable_grad():
+        g_in = grid.detach().requires_grad_(need_grid)
+        d_in = [dd.detach().requires_grad_(need_disp) for dd in disps]
+        outs = _window_interp_plain(g_in, d_in, K, compute_extrema, scale, mode, const)
+        outs = outs if compute_extrema else (outs,)
+        pairs = [(o, g.to(o.dtype)) for o, g in zip(outs, grads) if g is not None]
+        inputs = [t for t in (g_in, *d_in) if t.requires_grad]
+        if not pairs or not inputs:
+            return None, [None] * d
+        res = list(torch.autograd.grad([o for o, _ in pairs], inputs, [g for _, g in pairs], allow_unused=True))
+    d_grid = res.pop(0) if need_grid else None
+    d_disps = [res.pop(0) for _ in range(d)] if need_disp else [None] * d
+    fill = lambda r, like: torch.zeros_like(like) if r is None else r.to(like.dtype)
+    return (fill(d_grid, grid) if need_grid else None), [fill(r, dd) if need_disp else None
+                                                        for r, dd in zip(d_disps, disps)]
 
 
 # ---------------------------------------------------------------------------
@@ -164,10 +238,22 @@ def _ctypes_args():
     return InterpArgs
 
 
+@functools.lru_cache(maxsize=1)
+def _ctypes_grad_args():
+    import ctypes
+    I, F_, P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+
+    class InterpGradArgs(ctypes.Structure):
+        _fields_ = [('grid', _build.src_struct()), ('disp', P * 3), ('scale', F_ * 3),
+                    ('g_out', P), ('g_lo', P), ('g_up', P), ('d_grid', P), ('d_disp', P * 3),
+                    ('o', I * 3), ('K', I)]
+    return InterpGradArgs
+
+
 def _lib():
     import ctypes
     P, I = ctypes.c_void_p, ctypes.c_int
-    return _build.library('interp', {'window_interp': [P, I, I, P]})
+    return _build.library('interp', {'window_interp': [P, I, I, P], 'window_interp_grad': [P, I, I, P]})
 
 
 def vector_route(out_shape: Sequence[int], arrays) -> bool:
@@ -185,30 +271,39 @@ def _check_f32(name, t):
                          f"{'' if t.is_contiguous() else ', not contiguous'}")
 
 
-def _window_interp_cuda(name, grid, disps, K, compute_extrema, scale, mode, const):
-    import ctypes
-    d = len(disps)
+def _check_inputs(grid, disps):
     _check_f32('grid', grid)
     for i, dd in enumerate(disps):
         _check_f32(f'disp[{i}]', dd)
         if dd.device != grid.device:
             raise ValueError(f"disp[{i}] is on {dd.device}, the grid on {grid.device}")
+
+
+def _fill_src(src, grid, K, mode, const):
+    for ax in range(grid.ndim):
+        src.n[ax] = grid.shape[ax]
+        # a padded array holds logical index l at raw index l + K; its edge
+        # mode only resolves the zero-weight upper tap of δ = +K
+        src.shift[ax] = -K if mode is None else 0
+    src.p = grid.data_ptr()
+    src.mode = _build.SRC_MODE['edge' if mode is None else mode]
+    src.c = const
+
+
+def _window_interp_cuda(name, grid, disps, K, compute_extrema, scale, mode, const):
+    import ctypes
+    d = len(disps)
+    _check_inputs(grid, disps)
     lib = _lib()
     out_shape = tuple(disps[0].shape)
     planes = [torch.empty(out_shape, dtype=torch.float32, device=grid.device)
               for _ in range(3 if compute_extrema else 1)]
     a = _ctypes_args()()
-    a.grid.p = grid.data_ptr()
     for ax in range(d):
-        a.grid.n[ax] = grid.shape[ax]
-        # a padded array holds logical index l at raw index l + K; its edge
-        # mode only resolves the zero-weight upper tap of δ = +K
-        a.grid.shift[ax] = -K if mode is None else 0
         a.disp[ax] = disps[ax].data_ptr()
         a.scale[ax] = scale[ax]
         a.o[ax] = out_shape[ax]
-    a.grid.mode = _build.SRC_MODE['edge' if mode is None else mode]
-    a.grid.c = const
+    _fill_src(a.grid, grid, K, mode, const)
     a.out = planes[0].data_ptr()
     if compute_extrema:
         a.out_lo, a.out_up = planes[1].data_ptr(), planes[2].data_ptr()
@@ -219,3 +314,37 @@ def _window_interp_cuda(name, grid, disps, K, compute_extrema, scale, mode, cons
     _build.check(lib, err, name)
     _build.LAUNCHES[name] += 1
     return tuple(planes) if compute_extrema else planes[0]
+
+
+def _window_interp_grad_cuda(name, grid, disps, K, compute_extrema, scale, mode, const, grads, need_grid,
+                             need_disp):
+    """K6ᵀ / K7ᵀ: (d_grid or None, [d_disp or None] * d) of the upstream
+    `grads` (out[, lo, up]; None entries are zero) in one launch; the grid's
+    gradient is summed with atomics into a zeroed array of its raw shape."""
+    import ctypes
+    d = len(disps)
+    _check_inputs(grid, disps)
+    lib = _lib()
+    out_shape = tuple(disps[0].shape)
+    ups = [None if g is None else g.to(torch.float32).contiguous() for g in grads]
+    ups += [None] * (3 - len(ups))
+    for g in ups:
+        if g is not None and (tuple(g.shape) != out_shape or g.device != grid.device):
+            raise ValueError(f"{name}: an upstream gradient of shape {tuple(g.shape)} on {g.device}, "
+                             f"outputs {out_shape} on {grid.device}")
+    d_grid = torch.zeros_like(grid) if need_grid else None
+    d_disps = [torch.empty_like(dd) if need_disp else None for dd in disps]
+    a = _ctypes_grad_args()()
+    _fill_src(a.grid, grid, K, mode, const)
+    for ax in range(d):
+        a.disp[ax] = disps[ax].data_ptr()
+        a.scale[ax] = scale[ax]
+        a.o[ax] = out_shape[ax]
+        a.d_disp[ax] = d_disps[ax].data_ptr() if need_disp else None
+    a.g_out, a.g_lo, a.g_up = (None if g is None else g.data_ptr() for g in ups)
+    a.d_grid = d_grid.data_ptr() if need_grid else None
+    a.K = K
+    err = lib.window_interp_grad(ctypes.byref(a), d, int(compute_extrema), _build.stream_of(grid))
+    _build.check(lib, err, name + '_grad')
+    _build.LAUNCHES[name + '_grad'] += 1
+    return d_grid, d_disps

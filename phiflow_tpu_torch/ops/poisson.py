@@ -32,6 +32,11 @@ stencil through XLA on the TPU too (`_apply_xla`). So each wrapper decides on
 dimensionality alone, before anything else: with two spatial axes
 (``len(bc) == 2``) it computes with the PyTorch functions below on whatever
 device the tensor lies, and with three it takes the kernel route above.
+
+None of the three kernels has a backward. Their wrappers raise on CUDA when
+grad mode is on and an input requires grad (`_build.refuse_grad`); a solve
+is differentiated implicitly instead (`math/_solve.py::implicit_solve`: its
+forward and its adjoint run these kernels under `no_grad`).
 """
 from __future__ import annotations
 
@@ -392,6 +397,7 @@ def _mask_field(name, m, like):
 
 
 def _stencil_cuda(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag, with_dot, chunk=None):
+    _build.refuse_grad('poisson_stencil', p, b, c0, active, *(mA_list or ()))
     _check_bc(bc)
     _check_field('p', p)
     masks = [None] * 5
@@ -546,6 +552,7 @@ def smooth_plan(shape: Sequence[int], sweeps: int, zero_init: bool, dtypes, chun
 
 
 def _smooth_cuda(u, b, inv_dx2, bc, omega_over_diag, sweeps, zero_init, out_dtype, emit_dot, chunk=None):
+    _build.refuse_grad('jacobi_sweeps', u, b)
     _check_bc(bc)
     _check_field('b', b)
     if not zero_init:
@@ -592,6 +599,7 @@ def residual_restrict(u: torch.Tensor, b: torch.Tensor, inv_dx2: Sequence[float]
 
 
 def _residual_restrict_cuda(u, b, inv_dx2, bc, chunk=None):
+    _build.refuse_grad('residual_restrict', u, b)
     _check_bc(bc)
     _check_field('u', u)
     _check_field('b', b, u.shape)

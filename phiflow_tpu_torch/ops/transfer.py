@@ -8,7 +8,9 @@
   `_prolong_xla`) on the CPU. Arithmetic is float32, stored in u's dtype.
   The kernel is 3D, as the TPU kernel is; with ``ndim=2`` the wrappers
   compute with `_prolong_plain` on any device, as the JAX package computes
-  through XLA there. That choice is made on `ndim` alone.
+  through XLA there. That choice is made on `ndim` alone. K4 has no
+  backward: on CUDA the wrapper raises when grad mode is on and an input
+  requires grad (`_build.refuse_grad`).
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ def _lib():
 
 
 def _prolong_cuda(c: torch.Tensor, u: Optional[torch.Tensor]) -> torch.Tensor:
+    _build.refuse_grad('prolong_add', c, u)
     if not c.is_cuda or c.dtype not in _DTYPE_CODE or c.ndim != 3 or not c.is_contiguous():
         raise ValueError(f"prolong kernel takes one contiguous 3D float32/bfloat16 CUDA field, got "
                          f"{c.dtype} {tuple(c.shape)} on {c.device}")

@@ -46,6 +46,13 @@ chooses the masked systems' preconditioner.
 
 2D or 3D: the kernels are 3D; a 2D solve runs the same code through the
 wrappers' PyTorch route (`ops/poisson.py`).
+
+Every projection is differentiable in the velocity: its CG (and the mesh's
+BiCGStab, through `solve_linear`) is differentiated implicitly
+(`math/_solve.py::implicit_solve`), so a backward runs one adjoint solve on
+the same kernels (K1, K1m, K2–K4) under `no_grad`, and the gradient reaches
+the velocity through the divergence and the pressure-gradient subtraction,
+which autograd follows. The previous pressure (x0) gets no gradient.
 """
 from __future__ import annotations
 
@@ -71,7 +78,8 @@ from ..math._extrapolation import (
 )
 from ..math._multigrid import make_poisson_vcycle
 from ..math._nd import BOUNDARY, PERIODIC as PERIODIC_EXTRAPOLATION, Extrapolation
-from ..math._solve import CG_METHODS, Solve, SolveResult, cg, check_method, finish_solve, sub_mean
+from ..math._solve import (CG_METHODS, Solve, SolveResult, cg, check_method, finish_solve, implicit_solve,
+                           record_adjoint, sub_mean)
 from ..ops.poisson import NEUMANN, PERIODIC, poisson_apply, stage_masks
 
 __all__ = ['Obstacle', 'make_incompressible', 'masked_laplace', 'apply_boundary_conditions', 'boundary_push',
@@ -217,11 +225,15 @@ def _grid_multigrid_preconditioner(resolution, dx: float, bcs, device):
     vcycle = make_poisson_vcycle(tuple(resolution), (dx,) * len(resolution), bcs, device)
 
     def preconditioner(r: torch.Tensor):
-        # On CUDA ⟨z, r⟩ comes from the V-cycle's last smoother kernel, before
-        # the mean projection of z (the order of JAX on the chip); on the CPU
-        # CG takes it after the projection, as JAX does there. The two differ
-        # by mean(z)·Σr, at roundoff level since r has zero mean.
-        z, rz = vcycle(r, emit_dot=r.is_cuda)
+        # On CUDA in 3D ⟨z, r⟩ comes from the V-cycle's last smoother kernel
+        # (K2), before the mean projection of z (the order of JAX on the chip);
+        # elsewhere CG takes it after the projection, as JAX does there. The
+        # two differ by mean(z)·Σr, at roundoff level since r has zero mean,
+        # until the residual reaches its float32 floor: there the 2D
+        # projection's CG on the card diverged with the early dot (at 1024²
+        # and 4096², cg_tol 1e-4 and 1e-5), and in 2D the dot is a PyTorch
+        # reduction either way.
+        z, rz = vcycle(r, emit_dot=r.is_cuda and r.ndim == 3)
         return sub_mean(z), rz
 
     return preconditioner
@@ -346,12 +358,23 @@ def _project_masked(velocity, div, pressure, active, hard_bcs, singular, dx, inv
         def M(r):
             return sub_mean(inner(r)[0]), None
 
-    result = cg(A, rhs, x0, rel_tol, abs_tol, max_iterations, M)
-    p = sub_mean(result.x) if singular else result.x
+    # the singular masked operator's null space: the constants on the active cells (identity rows elsewhere)
+    result = _solve(A, rhs, x0, rel_tol, abs_tol, max_iterations, M, singular, active if singular else None, active)
+    p = result.x
     grad = spatial_gradient_native(p, dx, periodic)
     if hard_bcs is not None:
         grad = tuple(g * m for g, m in zip(grad, hard_bcs))
-    return tuple(v - g for v, g in zip(velocity, grad)), p, result._replace(x=p)
+    return tuple(v - g for v, g in zip(velocity, grad)), p, result
+
+
+def _solve(A, rhs, x0, rel_tol, abs_tol, max_iterations, M, rank_deficient, null_space=None,
+           active=None) -> SolveResult:
+    """CG on a pressure system, differentiable implicitly (`implicit_solve`):
+    the adjoint solve takes the same operator, preconditioner and tolerances,
+    and records a SolveInfo on the active `SolveTape`s."""
+    solve = Solve('CG', rel_tol, abs_tol, max_iterations=max_iterations)
+    return implicit_solve(cg, A, rhs, x0, rel_tol, abs_tol, max_iterations, M, rank_deficient=rank_deficient,
+                          null_space=null_space, active=active, on_adjoint=lambda r: record_adjoint(solve, r))
 
 
 def make_incompressible_native(velocity: Sequence[torch.Tensor], pressure: Optional[torch.Tensor], dx: float,
@@ -397,11 +420,11 @@ def make_incompressible_native(velocity: Sequence[torch.Tensor], pressure: Optio
     def A(p):
         return poisson_apply(p, inv_dx2, bcs, with_dot=True)
 
-    result = cg(A, rhs, x0, rel_tol, abs_tol, max_iterations, M)
-    p = sub_mean(result.x)
+    result = _solve(A, rhs, x0, rel_tol, abs_tol, max_iterations, M, True)
+    p = result.x
     grad = spatial_gradient_native(p, dx, periodic)
     velocity = tuple(v - g for v, g in zip(velocity, grad))
-    return velocity, p, result._replace(x=p)
+    return velocity, p, result
 
 
 def boundary_push_native(positions: torch.Tensor, domain_size: Sequence[float], separation: float = 0.5,

@@ -1,5 +1,6 @@
-"""The port stands alone: `phiflow_tpu_torch` imports with JAX and the JAX
-package blocked, and none of its modules (nor `chip_smoke.py`) imports them."""
+"""The port stands alone: `phiflow_tpu_torch` imports with JAX, flax,
+optax and the JAX package blocked, and none of its modules (nor
+`chip_smoke.py`) imports them."""
 import os
 import re
 import subprocess
@@ -7,7 +8,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, 'phiflow_tpu_torch')
-FORBIDDEN = re.compile(r'^\s*(import|from)\s+(jax|phiflow_tpu)\b', re.MULTILINE)
+FORBIDDEN = re.compile(r'^\s*(import|from)\s+(jax|flax|optax|phiflow_tpu)\b', re.MULTILINE)
 OBSTACLE_MODULES = ['geom._geom', 'geom._sphere', 'geom._box', 'geom._grid', 'geom._transform',
                     'field._angular_velocity', 'physics.diffuse', 'physics.fluid', 'models.moving_obstacle',
                     'models.cavity']
@@ -18,12 +19,15 @@ GRID_MODEL_MODULES = ['field._noise', 'field._stencil1d', 'field._higher_order',
                       'models.kolmogorov']
 SPH_MODULES = ['math._neighbors', 'geom._graph', 'physics.sph', 'models.sph_dam']
 FVM_MODULES = ['native._lib', 'geom._mesh', 'field._mesh_math', 'models.cylinder_wake']
-MODULES = OBSTACLE_MODULES + FIELD_MODULES + GRID_MODEL_MODULES + SPH_MODULES + FVM_MODULES
+GRADIENT_MODULES = ['math._functional', 'math._solve', 'math._nd', 'ops.interp', 'nn._nets', 'nn._optim']
+MODULES = OBSTACLE_MODULES + FIELD_MODULES + GRID_MODEL_MODULES + SPH_MODULES + FVM_MODULES + GRADIENT_MODULES
 
 
 def test_imports_with_jax_blocked():
     code = ("import sys, importlib, pkgutil\n"
             "sys.modules['jax'] = None\n"
+            "sys.modules['flax'] = None\n"
+            "sys.modules['optax'] = None\n"
             "sys.modules['phiflow_tpu'] = None\n"
             "import phiflow_tpu_torch\n"
             "names = [m.name for m in pkgutil.walk_packages(phiflow_tpu_torch.__path__, 'phiflow_tpu_torch.')]\n"

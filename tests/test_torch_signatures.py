@@ -1,5 +1,5 @@
 """Every public name that the JAX package's `phiflow_tpu.math`,
-`phiflow_tpu.field`, `phiflow_tpu.geom` or
+`phiflow_tpu.field`, `phiflow_tpu.geom`, `phiflow_tpu.nn` or
 `phiflow_tpu.physics.{advect,diffuse,fluid,integrate,sph}` exports and the port exports too
 takes the JAX package's signature: the same parameters, kinds and defaults.
 The models' constructors, `initial_state` and `step` take JAX's parameters
@@ -18,7 +18,8 @@ PAIRS = [('phiflow_tpu.math', 'phiflow_tpu_torch.math', False), ('phiflow_tpu.fi
          ('phiflow_tpu.physics.diffuse', 'phiflow_tpu_torch.physics.diffuse', True),
          ('phiflow_tpu.physics.fluid', 'phiflow_tpu_torch.physics.fluid', True),
          ('phiflow_tpu.physics.integrate', 'phiflow_tpu_torch.physics.integrate', True),
-         ('phiflow_tpu.physics.sph', 'phiflow_tpu_torch.physics.sph', True)]
+         ('phiflow_tpu.physics.sph', 'phiflow_tpu_torch.physics.sph', True),
+         ('phiflow_tpu.nn', 'phiflow_tpu_torch.nn', False)]
 
 
 def _default(value):
@@ -119,3 +120,24 @@ def test_flip_phases_are_array_level():
     from phiflow_tpu_torch.models import FlipLiquid
     for name in ('particles_to_grid', 'project', 'grid_to_particles'):
         assert callable(getattr(FlipLiquid, name + '_native')) and not hasattr(FlipLiquid, name), name
+
+
+@pytest.mark.parametrize('jax_name,port_name,names', [
+    ('phiflow_tpu.math', 'phiflow_tpu_torch.math',
+     ['gradient', 'functional_gradient', 'jacobian', 'custom_gradient', 'iterate', 'map_s2b', 'map_d2c', 'map_c2d',
+      'broadcast', 'get_function_parameters', 'trace_check', 'when_available', 'perf_counter', 'native_call',
+      'stop_gradient', 'l2_loss', 'l1_loss']),
+    ('phiflow_tpu.field', 'phiflow_tpu_torch.field', ['native_call']),
+    ('phiflow_tpu.nn', 'phiflow_tpu_torch.nn',
+     ['Network', 'dense_net', 'mlp', 'u_net', 'conv_net', 'res_net', 'conv_classifier', 'invertible_net',
+      'parameter_count', 'get_parameters', 'save_state', 'load_state', 'Optimizer', 'adam', 'sgd', 'rmsprop',
+      'adagrad', 'update_weights', 'train', 'set_learning_rate', 'get_learning_rate']),
+], ids=['math-functional', 'field-native-call', 'nn'])
+def test_gradient_and_nn_names_are_shared(jax_name, port_name, names):
+    """The functional layer's and `nn`'s entry points are among the shared
+    names held to JAX's signatures above."""
+    shared = {name: (a, b) for name, a, b in _shared(jax_name, port_name, False)}
+    for name in names:
+        assert name in shared, name
+        a, b = shared[name]
+        assert _signature(a) == _signature(b), name
