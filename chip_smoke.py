@@ -2776,6 +2776,79 @@ def _forward_loss(model, state, w, steps):
         return float(_loss_of(model.state_natives(v, s, None), w.double()).detach())
 
 
+def cg_dot_probe(N=PATH_N, steps=3, rounds=2, solves=5):
+    """Why the projection's CG takes ⟨r, z⟩ after z's mean projection, and
+    what that costs. Over the solves of grad-256's forward (`steps` steps of
+    SmokePlume(N) from `smooth_state(N)` under grad, GRAD_CG_TOL): the gap
+    between K2's emitted dot (taken before the projection) and the
+    projected dot, relative to the latter, at each preconditioner call.
+    Then ms a solve at the forward paths' cg_tol 1e-3 with the projected dot
+    (the port's preconditioner) and with K2's, CUDA events over `solves`
+    solves, early / projected / projected / early in each of `rounds`
+    rounds. Printed, not gated."""
+    import statistics
+    import torch
+    from phiflow_tpu_torch.math._multigrid import make_poisson_vcycle
+    from phiflow_tpu_torch.math._solve import _dot, cg, sub_mean
+    from phiflow_tpu_torch.models import SmokePlume, state_from_numpy
+    from phiflow_tpu_torch.physics import fluid
+    gaps = []
+
+    def recording(resolution, dx, bcs, device):
+        vcycle = make_poisson_vcycle(tuple(resolution), (dx,) * len(resolution), bcs, device)
+        gaps.append([])
+
+        def M(r):
+            z, early = vcycle(r, emit_dot=True)
+            z = sub_mean(z)
+            late = _dot(r, z)
+            gaps[-1].append(torch.abs(early - late) / torch.abs(late))
+            return z, None
+        return M
+
+    model = SmokePlume(resolution=N, dims=3, cg_tol=GRAD_CG_TOL, max_iterations=300, device='cuda')
+    vel, smoke, _ = state_from_numpy(*smooth_state(N), device='cuda')
+    port_preconditioner = fluid._grid_multigrid_preconditioner
+    fluid._grid_multigrid_preconditioner = recording
+    try:
+        _forward_loss(model, (vel, smoke), _smooth_weight(N, 3).cuda(), steps)
+    finally:
+        fluid._grid_multigrid_preconditioner = port_preconditioner
+    for k, solve in enumerate(gaps):
+        print(f'cg dot {N}^3: grad-256 forward solve {k + 1} (cg_tol {GRAD_CG_TOL:.0e}): |K2 dot before the mean '
+              f'projection - dot after| / |dot after| per preconditioner call '
+              + ' '.join(f'{float(g):.2e}' for g in solve))
+    vel = [torch.from_numpy(a).cuda() for a in smooth_state(N)[:3]]
+    bcs = fluid._classify_pressure_bc(False, 3)
+    rhs = sub_mean(fluid._balance_divergence(fluid.divergence_native(vel, 1.0, False)))
+    zeros = torch.zeros_like(rhs)
+    vcycle = make_poisson_vcycle((N,) * 3, (1.0,) * 3, bcs, 'cuda')
+
+    def A(p):
+        return fluid.poisson_apply(p, (1.0,) * 3, bcs, with_dot=True)
+
+    def early_dot(r):
+        z, early = vcycle(r, emit_dot=True)
+        return sub_mean(z), early
+
+    preconditioners = {'early': early_dot, 'projected': fluid._grid_multigrid_preconditioner((N,) * 3, 1.0, bcs,
+                                                                                           rhs.device)}
+    times = {name: [] for name in preconditioners}
+    iterations = {name: cg(A, rhs, zeros, 1e-3, 1e-3, 100, M).iterations for name, M in preconditioners.items()}
+    for _ in range(rounds):
+        for name in ('early', 'projected', 'projected', 'early'):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(solves):
+                cg(A, rhs, zeros, 1e-3, 1e-3, 100, preconditioners[name])
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / solves)
+    print(f'cg dot {N}^3: ms a solve at cg_tol 1e-3 (CUDA events, {solves} solves a run): '
+          + '; '.join(f'{name} dot {statistics.median(t):.4f} median of ' + ', '.join(f'{x:.4f}' for x in t)
+                      + f' ({iterations[name]} iterations)' for name, t in times.items()))
+
+
 def run_gradient_path(tag, dims, N, steps, period=None, cg_tol=GRAD_CG_TOL):
     """The differentiated smoke rollout on the card: SmokePlume(N, dims) from
     `smooth_state(N)`, `steps` steps of the Field `step` under grad, L = Σ
@@ -2995,7 +3068,8 @@ def check_guards(N=64):
 def run_gradients():
     """Phase 6's paths: the differentiated rollouts at full width (256³, 3
     steps; 4096², 2 steps), CPU against card at 64³ and 256², the network
-    trained through the projection, the guards."""
+    trained through the projection, the guards, then the CG dot probe
+    (last: its model's memory stays out of the paths' peaks)."""
     import torch
     by_path = {'grad-256': run_gradient_path('grad-256', 3, PATH_N, 3)}
     torch.cuda.empty_cache()
@@ -3006,6 +3080,7 @@ def run_gradients():
     gradient_cpu_vs_card(2, 256)
     run_network_training()
     check_guards()
+    cg_dot_probe()
     torch.cuda.empty_cache()
     return by_path
 

@@ -217,24 +217,23 @@ def _balance_divergence(div: torch.Tensor, active: Optional[torch.Tensor] = None
 
 
 def _grid_multigrid_preconditioner(resolution, dx: float, bcs, device):
-    """The V-cycle preconditioner M(r) -> (z, ⟨r, z⟩ or None) with z projected
-    onto zero mean (rank deficiency 1), or None below 16 cells per axis, where
+    """The V-cycle preconditioner M(r) -> (z, None) with z projected onto
+    zero mean (rank deficiency 1), or None below 16 cells per axis, where
     plain CG converges in a handful of iterations."""
     if max(resolution) < 16:
         return None
     vcycle = make_poisson_vcycle(tuple(resolution), (dx,) * len(resolution), bcs, device)
 
     def preconditioner(r: torch.Tensor):
-        # On CUDA in 3D ⟨z, r⟩ comes from the V-cycle's last smoother kernel
-        # (K2), before the mean projection of z (the order of JAX on the chip);
-        # elsewhere CG takes it after the projection, as JAX does there. The
-        # two differ by mean(z)·Σr, at roundoff level since r has zero mean,
-        # until the residual reaches its float32 floor: there the 2D
-        # projection's CG on the card diverged with the early dot (at 1024²
-        # and 4096², cg_tol 1e-4 and 1e-5), and in 2D the dot is a PyTorch
-        # reduction either way.
-        z, rz = vcycle(r, emit_dot=r.is_cuda and r.ndim == 3)
-        return sub_mean(z), rz
+        # CG takes ⟨r, z⟩ after the mean projection of z, on every device. K2
+        # can emit the dot before it (the order of JAX on the chip), but the
+        # two differ by mean(z)·Σr: Σr is the float32 roundoff of the first
+        # residuals and does not shrink with r, so near tolerance the early
+        # dot was off by 12× its value at 256³ (`chip_smoke.py::cg_dot_probe`)
+        # and α grew without bound: the card's CG diverged (2D at 1024² and
+        # 4096², 3D at 256³).
+        z, _ = vcycle(r)
+        return sub_mean(z), None
 
     return preconditioner
 
