@@ -158,6 +158,26 @@ Phases; any failure exits non-zero and prints no result:
      through `step_native`); the Field phases at 64³ and 256² at 1e-3; and on the card a Field-level
      `make_incompressible(v, [Obstacle(Sphere(...))])` at 48³ against the
      array-level call on the same tensors, 1e-4, CG counts at most 1 apart;
+     then the gradients (`run_gradients`, phase 6) and the optimisation
+     (`run_optimisation`, phase 7): `math.minimize` on the card —
+     examples/piv.py's configuration (64², Box(x=20, y=20), 1024 markers,
+     `advect.points` with `rk4`, dt 0.1; the coarse L-BFGS fit on
+     `downsample(4)`, then the full one, 100 iterations each, abs_tol 1e-6;
+     the velocity and markers from a numpy seed), gated on the example's
+     assert (error < 0.5 × the field's) and on its first 3 L-BFGS
+     iterations (the coarse fit's) card against CPU from one numpy state
+     (1e-4 of scale; the full fit's first 3 printed beside, with each
+     iteration's loss and step), with ms, loss evaluations and host syncs an iteration and
+     `max_memory_allocated`; inverse-smoke-256: L-BFGS over the initial smoke
+     of SmokePlume(256, dims=3), the target the smoke 2 Field steps from
+     `smooth_state(256)`'s, 3 iterations, each printed with its launches (K6,
+     K6ᵀ, K1–K4), forward and adjoint CG iterations, ms and memory, gated on
+     the loss falling every iteration and those kernels launched (K5 not);
+     examples/close_packing.py (64 spheres, 500 iterations), gated on its
+     assert; and `grid_sample` (per-corner at 2^20 points, the slab route
+     forced at 2^16 and at 2^20), `fft` → `ifft`, `convolve` (3³) and
+     `histogram` (2^24 values) at 256³ card against CPU within 1e-5 (FFT
+     1e-4) of scale;
   6. the `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -3085,6 +3105,402 @@ def run_gradients():
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 7: optimisation (math.minimize through the differentiable paths) and the new grid names
+# ---------------------------------------------------------------------------
+
+PIV_N, PIV_MARKERS, PIV_BOX = 64, 1024, 20.  # examples/piv.py's configuration
+PIV_ITERATIONS = 100
+OPT_CHECK_ITERATIONS = 3   # L-BFGS iterations held card against CPU from one numpy state
+OPT_TOL = 1e-4             # of each quantity's scale: float32 line searches on two devices
+PIV_WITNESS_TOL = 1e-6     # the same iterations in float64
+PIV_NUDGE = 1e-7           # a relative change of the full fit's start, about one float32 rounding
+INVERSE_STEPS, INVERSE_ITERATIONS = 2, 3
+GRID_NAMES_TOL, FFT_TOL = 1e-5, 1e-4
+# JAX's rule takes its slab route at 256³ for no point count (the table of 258³ · 4 entries exceeds its 64 Mi):
+# the slab route is forced, CPU against card at 2^16 points, against the per-corner route on the card at 2^20
+SAMPLE_POINTS, SLAB_POINTS = 2 ** 20, 2 ** 16
+HISTOGRAM_VALUES = 2 ** 24
+
+
+def _scale_err(got, ref):
+    """max |got − ref| / max |ref| of two tensors, on the host."""
+    got, ref = got.detach().cpu().double(), ref.detach().cpu().double()
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def _piv_state(seed=2):
+    """examples/piv.py's velocity and markers from a numpy seed: smooth
+    noise on the 64² closed box (white noise under a Gaussian filter of 8
+    cells), projected to zero divergence on the CPU, and 1024 markers
+    uniform in the box. Returns the projected face arrays and the markers."""
+    import numpy as np
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import StaggeredGrid
+    from phiflow_tpu_torch.geom import Box
+    from phiflow_tpu_torch.physics import fluid
+    rng = np.random.default_rng(seed)
+    n = PIV_N
+    k = np.fft.fftfreq(n + 1)
+    filt = np.exp(-0.5 * (k[:, None] ** 2 + k[None, :] ** 2) * (8 * 2 * np.pi) ** 2)
+    comps = []
+    for shape in ((n - 1, n), (n, n - 1)):
+        smooth = np.real(np.fft.ifft2(np.fft.fft2(rng.standard_normal((n + 1, n + 1))) * filt))[:shape[0], :shape[1]]
+        comps.append((smooth / np.abs(smooth).max()).astype(np.float32))
+    with math.default_device('cpu'):
+        v0 = StaggeredGrid(math.stack([math.wrap(torch.from_numpy(c), math.spatial('x,y')) for c in comps],
+                                      math.dual(vector='x,y')), 0, Box(x=PIV_BOX, y=PIV_BOX), x=n, y=n)
+        v0, _ = fluid.make_incompressible(v0)
+        comps = [v0.values[{'~vector': d}].numpy(('x', 'y')) for d in 'xy']
+    return comps, rng.uniform(0, PIV_BOX, (PIV_MARKERS, 2)).astype(np.float32)
+
+
+def _piv_fits(device, comps, markers_np, iterations, record=None, fit1_comps=None, bits=32):
+    """examples/piv.py on `device` from the numpy state: the coarse L-BFGS
+    fit on `0 * v0.downsample(4)`, then the full-resolution fit, each of at
+    most `iterations` (abs_tol 1e-6); `fit1_comps` (numpy face arrays at
+    64²) replaces the coarse fit's result before the second. `bits` is the
+    float width of the state and of every value made (`math.precision`).
+    Returns (v0, fit1 at 64², fit2, the final markers, the marker loss of
+    the estimate). With `record` (a dict), the fits' iterations,
+    evaluations, wall ms and syncs go there."""
+    import warnings
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import StaggeredGrid, resample
+    from phiflow_tpu_torch.geom import Box
+    from phiflow_tpu_torch.math import Solve, channel, instance
+    from phiflow_tpu_torch.math._optimize import optimizer_trace
+    from phiflow_tpu_torch.physics import advect
+    dtype = torch.float64 if bits == 64 else torch.float32
+
+    def faces(arrays):
+        return math.stack([math.wrap(torch.from_numpy(c).to(device, dtype), math.spatial('x,y')) for c in arrays],
+                          math.dual(vector='x,y'))
+    with math.default_device(device), math.precision(bits):
+        n = PIV_N
+        v0 = StaggeredGrid(faces(comps), 0, Box(x=PIV_BOX, y=PIV_BOX), x=n, y=n)
+        markers = math.wrap(torch.from_numpy(markers_np).to(device, dtype), instance('markers'), channel(vector='x,y'))
+
+        @math.jit_compile
+        def simulate(v):
+            return advect.points(markers, v, dt=.1, integrator=advect.rk4)
+
+        final = simulate(v0)
+
+        def fit(loss, x0, name):
+            solve = Solve('L-BFGS-B', abs_tol=1e-6, x0=x0, max_iterations=iterations)
+            if record is None:
+                return math.minimize(loss, solve)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with optimizer_trace() as trace, warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter('always')
+                torch.cuda.set_sync_debug_mode('warn')
+                try:
+                    x = math.minimize(loss, solve)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            syncs = [w for w in caught if 'synchronizing' in str(w.message) and not w.filename.endswith('cuda/__init__.py')]
+            record[name] = dict(iterations=len(trace), ms=(time.perf_counter() - t0) * 1e3, syncs=len(syncs),
+                                evaluations=sum(e['evaluations'] for e in trace) + 1, loss=[e['loss'] for e in trace])
+            return x
+
+        fit1 = resample(fit(lambda x: math.l2_loss(final - simulate(resample(x, to=v0))), 0 * v0.downsample(4), 'fit1'),
+                        to=v0)
+        base = fit1 if fit1_comps is None else v0.with_values(faces(fit1_comps))
+        fit2 = fit(lambda x: math.l2_loss(final - simulate(x + base)), 0 * v0, 'fit2')
+        return v0, fit1, fit2, final, float(math.l2_loss(final - simulate(base + fit2)))
+
+
+def _piv_card_vs_cpu(comps, markers, bits):
+    """The first OPT_CHECK_ITERATIONS L-BFGS iterations of both fits at
+    `bits`, on the CPU and on the card from one numpy state, the card's
+    full fit from the CPU's coarse result. Returns the scale errors of
+    fit1, the final markers, fit2 and the marker loss, and each device's
+    (loss, step) an iteration."""
+    import numpy as np
+    from phiflow_tpu_torch.math._optimize import optimizer_trace
+    dtype = np.float64 if bits == 64 else np.float32
+    comps, markers = [c.astype(dtype) for c in comps], markers.astype(dtype)
+    short, traces = {}, {}
+    for dev in ('cpu', 'cuda'):
+        fit1_comps = None if dev == 'cpu' else [short['cpu'][1].values[{'~vector': d}].numpy(('x', 'y'))
+                                               for d in 'xy']
+        with optimizer_trace() as traces[dev]:
+            short[dev] = _piv_fits(dev, comps, markers, OPT_CHECK_ITERATIONS, fit1_comps=fit1_comps, bits=bits)
+    errs = {
+        'fit1 (at 64^2)': max(_scale_err(c.torch(), r.torch()) for c, r in zip(short['cuda'][1].values.components,
+                                                                              short['cpu'][1].values.components)),
+        'final markers': _scale_err(short['cuda'][3].torch(), short['cpu'][3].torch()),
+        'fit2': max(_scale_err(c.torch(), r.torch()) for c, r in zip(short['cuda'][2].values.components,
+                                                                    short['cpu'][2].values.components)),
+        'marker loss': abs(short['cuda'][4] - short['cpu'][4]) / abs(short['cpu'][4])}
+    return errs, {dev: [(e['loss'], e['step']) for e in trace] for dev, trace in traces.items()}
+
+
+def run_piv():
+    """examples/piv.py on the card. Card against CPU from one numpy state,
+    the first 3 L-BFGS iterations of each fit (the full fit from the CPU's
+    coarse result): in float32 the coarse fit and the markers gated at
+    OPT_TOL, the full fit printed (its loss of ≈ 2e-3 leaves the float32
+    line searches' comparisons within rounding of each other, and the
+    iterates further apart than OPT_TOL); in float64 all four gated at
+    PIV_WITNESS_TOL, the witness that the float32 gap is rounding; on the
+    CPU alone, how far a PIV_NUDGE change of its start moves the float32
+    full fit (printed). Then
+    both fits of 100 iterations in float32 on the card, gated on the
+    example's own assert."""
+    import torch
+    from phiflow_tpu_torch import math
+    comps, markers = _piv_state()
+    checks = {bits: _piv_card_vs_cpu(comps, markers, bits) for bits in (32, 64)}
+    errs32, errs64 = checks[32][0], checks[64][0]
+    gated = {f'float32 {k}': errs32[k] for k in ('fit1 (at 64^2)', 'final markers')}
+    witness = {f'float64 {k}': v for k, v in errs64.items()}
+    print(f'piv {PIV_N}^2, {PIV_MARKERS} markers: card vs CPU, the first {OPT_CHECK_ITERATIONS} L-BFGS iterations '
+          f'of each fit from one numpy state: gated at {OPT_TOL:.0e} of scale: '
+          + ', '.join(f'{k} {v:.2e}' for k, v in gated.items())
+          + '; printed: ' + ', '.join(f'float32 {k} {errs32[k]:.2e}' for k in ('fit2', 'marker loss'))
+          + f'; gated at {PIV_WITNESS_TOL:.0e}: ' + ', '.join(f'{k} {v:.2e}' for k, v in witness.items()))
+    start = _piv_fits('cpu', comps, markers, OPT_CHECK_ITERATIONS)
+    fit1 = [start[1].values[{'~vector': d}].numpy(('x', 'y')) for d in 'xy']
+    nudged = _piv_fits('cpu', comps, markers, OPT_CHECK_ITERATIONS,
+                       fit1_comps=[(c * (1 + PIV_NUDGE)).astype(c.dtype) for c in fit1])
+    moved = max(_scale_err(c.torch(), r.torch()) for c, r in zip(nudged[2].values.components,
+                                                                 start[2].values.components))
+    print(f'piv {PIV_N}^2 float32 on the CPU alone: the full fit\'s first {OPT_CHECK_ITERATIONS} iterations moved by '
+          f'{moved:.2e} of scale when their start is scaled by 1 + {PIV_NUDGE:.0e} (printed)')
+    for bits, (_, traces) in checks.items():
+        for dev, trace in traces.items():
+            print(f'piv {PIV_N}^2 float{bits} on {dev}: (loss, step) an iteration, coarse then full: '
+                  + ', '.join(f'({loss:.9e}, {step:.6g})' for loss, step in trace))
+    if not (all(v <= OPT_TOL for v in gated.values()) and all(v <= PIV_WITNESS_TOL for v in witness.values())):
+        raise RuntimeError(f'piv card vs CPU: {gated}, {witness}')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    record = {}
+    v0, fit1, fit2, final, marker_loss = _piv_fits('cuda', comps, markers, PIV_ITERATIONS, record)
+    memory = torch.cuda.max_memory_allocated() - base
+    with math.default_device('cuda'):
+        err0 = float(math.l2_loss(v0))
+        err = float(math.l2_loss(fit1 + fit2 - v0))
+    for name, r in record.items():
+        it = max(r['iterations'], 1)
+        print(f'piv {PIV_N}^2 {name}: {r["iterations"]} L-BFGS iterations, {r["ms"] / it:.2f} ms an iteration, '
+              f'{r["evaluations"] / it:.2f} loss evaluations an iteration, {r["syncs"] / it:.1f} host syncs an '
+              f'iteration (set_sync_debug_mode), loss {r["loss"][0]:.6e} -> {r["loss"][-1]:.6e}')
+    ok = err < 0.5 * err0
+    print(f'piv {PIV_N}^2: velocity error {err:.5f} of field magnitude {err0:.3f} (the example asserts < 0.5 x), '
+          f'marker residual {marker_loss:.3e}; max_memory_allocated {memory / 2 ** 20:.1f} MiB above the '
+          f'{base / 2 ** 20:.1f} MiB allocated at the start: '
+          f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        raise RuntimeError(f'piv: error {err} vs {err0}')
+
+
+def run_inverse_smoke(N=PATH_N, steps=INVERSE_STEPS, iterations=INVERSE_ITERATIONS):
+    """math.minimize with L-BFGS over the initial smoke CenteredGrid of
+    SmokePlume(N, dims=3): the target is the smoke after `steps` Field steps
+    from `smooth_state(N)`'s smoke, the start a constant 0.5, the loss
+    l2_loss of the difference. Under grad the step takes the per-phase path
+    (K6, K6ᵀ in the backward) and each projection and its adjoint K1–K4. Per
+    iteration: the loss, the launches, the forward and adjoint CG
+    iterations, ms, `max_memory_allocated` (the SolveTape kept whole, as a
+    user's: it holds each solve's x). Gates: the loss falls every
+    iteration, finite; K6, K6ᵀ and K1–K4 launched."""
+    import numpy as np
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.math._optimize import optimizer_trace
+    from phiflow_tpu_torch.models import SmokePlume, state_from_numpy
+    from phiflow_tpu_torch.ops import _build
+    model = SmokePlume(resolution=N, dims=3, cg_tol=GRAD_CG_TOL, max_iterations=300, device='cuda')
+    vel, smoke, _ = state_from_numpy(*smooth_state(N), device='cuda')
+    with math.default_device('cuda'):
+        v, s_true, _ = model.state_fields(vel, smoke, None)
+        with torch.no_grad():
+            vt, target, p = v, s_true, None
+            for _ in range(steps):
+                vt, target, p = model.step(vt, target, p)
+        evaluations = []
+
+        def loss(s):
+            vk, sk, pk = v, s, None
+            for _ in range(steps):
+                vk, sk, pk = model.step(vk, sk, pk)
+            value = math.l2_loss(sk - target)
+            evaluations.append(math.stop_gradient(value))  # the loss alone: a kept graph would hold its tensors
+            return value
+
+        x0 = s_true * 0 + 0.5
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows, mark = [], {}
+
+        def on_iteration(entry):
+            torch.cuda.synchronize()
+            now, launches = time.perf_counter(), dict(_build.LAUNCHES)
+            solves = tape.solve_infos[mark['solves']:]
+            rows.append(dict(entry, ms=(now - mark['t']) * 1e3, memory=torch.cuda.max_memory_allocated() - base,
+                             launches={k: launches.get(k, 0) - mark['launches'].get(k, 0) for k in KERNELS},
+                             forward=[i.iterations for i in solves if not i.msg.startswith('adjoint')],
+                             adjoint=[i.iterations for i in solves if i.msg.startswith('adjoint')]))
+            mark.update(t=now, launches=launches, solves=len(tape.solve_infos))
+
+        base = torch.cuda.memory_allocated()
+        _build.reset_launches()
+        with math.SolveTape() as tape, optimizer_trace(on_iteration):
+            mark.update(t=time.perf_counter(), launches={}, solves=0)
+            math.minimize(loss, math.Solve('L-BFGS-B', abs_tol=1e-12, x0=x0, max_iterations=iterations))
+        counts = dict(_build.LAUNCHES)
+    l0 = float(evaluations[0])
+    losses = [l0] + [r['loss'] for r in rows]
+    for k, r in enumerate(rows):
+        print(f'inverse-smoke-{N} iteration {k + 1}: loss {r["loss"]:.6e} (step {r["step"]:.3g}, {r["evaluations"]} '
+              f'loss evaluations), {r["ms"]:.1f} ms, max_memory_allocated {r["memory"] / 2 ** 30:.2f} GiB above the '
+              f'{base / 2 ** 30:.2f} GiB allocated at the start, CG '
+              f'iterations forward {r["forward"]} adjoint {r["adjoint"]}; launches '
+              + ', '.join(f'{k}={r["launches"][k]}' for k in ('window_interp_3d', 'window_interp_3d_grad')
+                          + PHASES_3D_KERNELS[:4]))
+    falling = all(b < a for a, b in zip(losses, losses[1:])) and all(np.isfinite(losses))
+    needed = ('window_interp_3d', 'window_interp_3d_grad') + PHASES_3D_KERNELS[:4]
+    missing = [k for k in needed if not counts.get(k, 0)]
+    print(f'inverse-smoke-{N}: L-BFGS over the initial smoke, {steps} Field steps a loss, the loss '
+          + ' -> '.join(f'{x:.6e}' for x in losses) + f': {"falling" if falling else "NOT falling (FAIL)"}; '
+          f'K5 launches {counts.get("fused_advect", 0)}; not launched: {missing or "none"}')
+    if not falling or missing or counts.get('fused_advect', 0) or len(rows) != iterations:
+        raise RuntimeError(f'inverse-smoke-{N}: losses {losses}, not launched {missing}, {len(rows)} iterations')
+    return dict(counts, steps=len(evaluations))
+
+
+def run_close_packing(device='cuda', iterations=500):
+    """examples/close_packing.py as it stands, on `device`: 32 spheres of
+    radius 1 and 32 of 0.5 in a periodic box, the pairwise overlap penalty
+    minimised by L-BFGS from numpy's RandomState(0); gated on its assert."""
+    import numpy as np
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.math import Solve, channel, instance, wrap
+    with math.default_device(device):
+        radii = np.concatenate([np.ones(32, np.float32), np.full(32, 0.5, np.float32)])
+        R = wrap(radii, instance('spheres'))
+        size = float(np.sqrt(np.sum(np.pi * radii ** 2) * 1.05))
+        rng = np.random.RandomState(0)
+        x0 = wrap(rng.uniform(0, size, (len(radii), 2)).astype(np.float32), instance('spheres'),
+                  channel(vector='x,y'))
+
+        def loss(x):
+            dx = x - math.rename_dims(x, 'spheres', 'o')
+            dx = (dx + size / 2) % size - size / 2
+            dr = math.vec_length(dx, eps=1e-8) / (R + math.rename_dims(R, 'spheres', 'o'))
+            return math.l2_loss(math.where((dr < 2e-4) | (dr > 1), wrap(0.), 1 - dr))
+
+        initial = float(loss(x0))
+        t0 = time.perf_counter()
+        with math.SolveTape() as tape:
+            x_packed = math.minimize(loss, Solve('L-BFGS-B', abs_tol=1e-6, x0=x0, max_iterations=iterations)) % size
+        seconds = time.perf_counter() - t0
+        final = float(loss(x_packed))
+    ok = final < initial * 0.05
+    print(f'close-packing on {device}: overlap loss {initial:.4f} -> {final:.6f} in {tape[0].iterations} L-BFGS '
+          f'iterations, {seconds * 1e3 / max(tape[0].iterations, 1):.2f} ms an iteration (the example asserts < '
+          f'0.05 x): {"ok" if ok else "FAIL"}')
+    if not ok:
+        raise RuntimeError(f'close-packing: {initial} -> {final}')
+
+
+def grid_names_cpu_vs_card(N=PATH_N):
+    """The new grid names at full width, CPU against card on the same numpy
+    inputs: `grid_sample` on 256³ (boundary halo) at 2^20 points by the
+    per-corner route and at 2^16 points by the slab route, forced (the JAX
+    package's rule never takes it at 256³; on the card also the slab route
+    at 2^20 against the per-corner one), an `fft` → `ifft` round trip, `convolve` with a 3³
+    kernel, `histogram` of 2^24 values. Each within GRID_NAMES_TOL of its
+    scale (FFT_TOL for the transforms); card ms by CUDA events."""
+    import numpy as np
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.math import _nd, channel, instance, spatial
+    from phiflow_tpu_torch.math._extrapolation import BOUNDARY
+    rng = np.random.default_rng(17)
+    grid_np = rng.standard_normal((N,) * 3).astype(np.float32)
+    points_np = rng.uniform(-1.5, N + 0.5, (SAMPLE_POINTS, 3)).astype(np.float32)
+    kernel_np = rng.standard_normal((3, 3, 3)).astype(np.float32)
+    values_np = rng.standard_normal(HISTOGRAM_VALUES).astype(np.float32)
+
+    def tensors(dev):
+        grid = math.wrap(torch.from_numpy(grid_np).to(dev), spatial('x,y,z'))
+        return grid, lambda n: math.wrap(torch.from_numpy(points_np[:n]).to(dev), instance('p'),
+                                         channel(vector='x,y,z'))
+
+    def route(sample, n):
+        return lambda g, pts: sample(_nd._lookup_setup(g, pts(n), BOUNDARY))
+
+    cases = {
+        'grid_sample per-corner 2^20': route(_nd._corner_sample, SAMPLE_POINTS),
+        'grid_sample slab 2^16': route(_nd._slab_sample, SLAB_POINTS),
+        'fft': lambda g, pts: math.fft(g).native(),
+        'fft -> ifft': lambda g, pts: math.real(math.ifft(math.fft(g))).native(),
+        'convolve 3^3': lambda g, pts: math.convolve(g, math.wrap(torch.from_numpy(kernel_np).to(g.device),
+                                                                  spatial('x,y,z'))).native(),
+        'histogram counts': lambda g, pts: math.histogram(math.wrap(torch.from_numpy(values_np).to(g.device),
+                                                                    instance('v')), bins=64)[0].native(),
+        'histogram edges': lambda g, pts: math.histogram(math.wrap(torch.from_numpy(values_np).to(g.device),
+                                                                   instance('v')), bins=64)[1].native(),
+    }
+    with math.default_device('cpu'):
+        g, pts = tensors('cpu')
+        ref = {name: fn(g, pts) for name, fn in cases.items()}
+    with math.default_device('cuda'):
+        g, pts = tensors('cuda')
+        rule = _nd.slab_route(_nd._lookup_setup(g, pts(SLAB_POINTS), BOUNDARY))
+        print(f'grid names {N}^3: the JAX package\'s rule takes the slab route at 2^16 points: {rule}')
+        failed = []
+        for name, fn in cases.items():
+            got = fn(g, pts)
+            ms = median_ms(lambda: fn(g, pts), reps=3, warmup=1)
+            if got.is_complex():
+                err = max(_scale_err(got.real, ref[name].real), _scale_err(got.imag, ref[name].imag))
+            else:
+                err = _scale_err(got, ref[name])
+            tol = FFT_TOL if name.startswith('fft') else GRID_NAMES_TOL
+            failed += [name] if not err <= tol else []
+            print(f'grid names {N}^3 card vs CPU: {name}: max error {err:.2e} of scale (tol {tol:.0e}), card '
+                  f'{ms:.3f} ms')
+        slab_at = route(_nd._slab_sample, SAMPLE_POINTS)
+        slab = slab_at(g, pts)
+        err = _scale_err(slab, cases['grid_sample per-corner 2^20'](g, pts))
+        failed += ['slab forced 2^20'] if not err <= GRID_NAMES_TOL else []
+        print(f'grid names {N}^3 on the card: grid_sample slab route forced at 2^20 points against the per-corner '
+              f'route: max error {err:.2e} of scale (tol {GRID_NAMES_TOL:.0e}), slab '
+              f'{median_ms(lambda: slab_at(g, pts), reps=3, warmup=1):.3f} ms')
+        del slab
+    torch.cuda.empty_cache()
+    if failed:
+        raise RuntimeError(f'grid names CPU vs card: {failed}')
+
+
+def run_optimisation():
+    """Phase 7: PIV, the inverse smoke problem at 256³, close packing, and
+    the new grid names CPU against card. Returns the inverse problem's
+    launches for `launches_by_path`."""
+    import torch
+    card = card_line()
+    print(f'phase 7 (optimisation) on {card}')
+    t0 = time.perf_counter()
+    run_piv()
+    torch.cuda.empty_cache()
+    by_path = {f'inverse-smoke-{PATH_N}': run_inverse_smoke()}
+    torch.cuda.empty_cache()
+    run_close_packing()
+    grid_names_cpu_vs_card()
+    print(f'phase 7 (optimisation): {time.perf_counter() - t0:.1f} s on {card}')
+    return by_path
+
+
 def print_path_gaps(ch, by_path):
     """K1m's, K6's and K8's launches a step on each path that runs them ×
     (device − bound) of the row timed at that path's shape: K1m's coefficient
@@ -3252,6 +3668,7 @@ def main(argv):
     field_cpu_vs_card('per-phase-field-2d', 2, 256)
     field_obstacle_against_array()
     by_path.update(run_gradients())
+    by_path.update(run_optimisation())
     if '--profile' in argv:
         for tag, dims, N, per_phase, _ in PATHS:
             profile_slice(tag, dims, N, per_phase)

@@ -396,6 +396,19 @@ class Field:
         return laplace(self, axes=axes, gradient=gradient, order=order, implicit=implicit, weights=weights,
                        upwind=upwind, correct_skew=correct_skew)
 
+    def curl(self, at='corner'):
+        from ._field_math import curl
+        return curl(self, at=at)
+
+    def downsample(self, factor: int) -> 'Field':
+        """`downsample2x` applied while `factor` ≥ 2, halving it each time."""
+        from ._field_math import downsample2x
+        result = self
+        while factor >= 2:
+            result = downsample2x(result)
+            factor /= 2
+        return result
+
     def __getattr__(self, name):
         if name.startswith('_'):
             raise AttributeError(name)

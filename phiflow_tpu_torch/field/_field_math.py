@@ -14,7 +14,14 @@ normal velocity. Periodic: component d holds faces 0..N−1, face N ≡ face 0.
 The Field layer, with JAX's signatures: `divergence`, `spatial_gradient`,
 `stagger`, `laplace`, `fourier_laplace`, `fourier_poisson`, `where`,
 `is_finite`, `maximum`, `minimum`, `clip`, `safe_mul`, `finite_fill`, `mean`,
-`mask`. Each unwraps to the array-level function of the same job, with one
+`mask`; and on the named-dim Tensors of the values, as the JAX package
+computes them, `curl` (2D), the elementwise functions, `normalize`,
+`center_of_mass`, `vec_length`, `vec_squared`, `discretize`, `integrate`,
+`pack_dims`, `support`, `data_bounds`, `assert_close`, the losses,
+`pad_field`, `downsample2x` (of staggered grids too), `upsample2x`,
+`concat_fields`, `stack_fields` (`field.pad`, `field.concat` and
+`field.stack`: named so here beside the array layer's `pad` and math's
+`stack`) and `bake_extrapolation`. Each unwraps to the array-level function of the same job, with one
 cell size per axis; a case that function does not cover (another face
 layout, a subset of the dims for staggered values, a boundary with no
 array-layer form, dims beyond the grid's and one channel dim) raises
@@ -31,7 +38,7 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..math import Tensor, TensorStack, channel, dual, stack, wrap, _ops as ops
+from ..math import Tensor, TensorStack, channel, dual, instance, stack, wrap, _ops as ops
 from ..math._extrapolation import ConstantExtrapolation, map as map_extrapolation, to_native
 from ..math._nd import Extrapolation, PerSide, masked_fill_native, pad, shift_zero
 from ._field import Field, as_boundary, face_components, face_values
@@ -39,7 +46,11 @@ from ._field import Field, as_boundary, face_components, face_values
 __all__ = ['divergence_native', 'spatial_gradient_native', 'finite_fill_native', 'stagger_native', 'safe_mul_native',
            'laplace_native', 'divergence', 'spatial_gradient', 'stagger', 'laplace', 'fourier_laplace',
            'fourier_poisson', 'where', 'is_finite', 'maximum', 'minimum', 'clip', 'safe_mul', 'finite_fill', 'mean',
-           'mask', 'native_call']
+           'mask', 'native_call', 'curl', 'abs_', 'sign', 'round_', 'ceil', 'floor', 'sqrt', 'exp', 'sin', 'cos', 'real',
+           'imag', 'sigmoid', 'stop_gradient', 'normalize', 'center_of_mass', 'vec_length', 'vec_abs', 'vec_squared',
+           'discretize', 'integrate', 'pack_dims', 'support', 'data_bounds', 'assert_close', 'l2_loss', 'l1_loss',
+           'frequency_loss', 'pad_field', 'downsample2x', 'upsample2x', 'concat_fields', 'stack_fields',
+           'bake_extrapolation']
 
 
 def _per_axis(dx, ndim: int) -> tuple:
@@ -536,3 +547,300 @@ def native_call(f, *inputs, channels_last=None, channel_dim='vector', extrapolat
                                  channel_dim=channel_dim)
         return Field(template.geometry, values, extrapolation if extrapolation is not None else template.boundary)
     return ops.native_call(f, *inputs, channels_last=bool(channels_last), channel_dim=channel_dim)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the Field functions (port of `:41-57`, `:278-310`, `:356-720`)
+# ---------------------------------------------------------------------------
+
+def _unary_field(fn):
+    def f(field):
+        return field._op1(lambda v: fn(v) if isinstance(v, Tensor) else v)
+    return f
+
+
+abs_ = _unary_field(ops.abs_)
+sign = _unary_field(ops.sign)
+round_ = _unary_field(ops.round_)
+ceil = _unary_field(ops.ceil)
+floor = _unary_field(ops.floor)
+sqrt = _unary_field(ops.sqrt)
+exp = _unary_field(ops.exp)
+sin = _unary_field(ops.sin)
+cos = _unary_field(ops.cos)
+sigmoid = _unary_field(ops.sigmoid)
+real = _unary_field(ops.real)
+imag = _unary_field(ops.imag)
+stop_gradient = _unary_field(ops.stop_gradient)
+
+
+def _padded_grid(grid, widths: dict):
+    """The UniformGrid of `grid` grown by (lower, upper) cells along each dim of `widths`."""
+    from ..geom import Box, UniformGrid
+    names = grid.resolution.names
+    dx = np.asarray(grid.dx.numpy(grid.dx.shape.names))
+    lower, upper = grid.bounds._lower.copy(), grid.bounds._upper.copy()
+    sizes = list(grid.resolution.sizes)
+    for i, n in enumerate(names):
+        lo, up = widths.get(n, (0, 0))
+        lower[i] -= lo * dx[i]
+        upper[i] += up * dx[i]
+        sizes[i] += lo + up
+    return UniformGrid(grid.resolution.with_sizes(sizes), Box._of(lower, upper, names))
+
+
+def bake_extrapolation(grid):
+    """The grid with its boundary written into the values: one ghost cell
+    each side of a centred grid (its geometry grown by it), the missing outer
+    faces of a staggered one; the boundary becomes NONE."""
+    from ..math._extrapolation import NONE
+    if grid.boundary == NONE:
+        return grid
+    names = grid.resolution.names
+    if grid.is_staggered:
+        comps = []
+        for dim in names:
+            lo, up = grid.boundary.valid_outer_faces(dim)
+            comps.append(ops.pad(grid.vector[dim].values, {dim: (int(not lo), int(not up))},
+                                 grid.boundary[{'vector': dim}]))
+        return Field(grid.geometry, stack(comps, dual(vector=names)), NONE)
+    widths = {d: (1, 1) for d in names}
+    return Field(_padded_grid(grid.geometry, widths), ops.pad(grid.values, widths, grid.boundary), NONE)
+
+
+def curl(field, at='corner'):
+    """The 2D curl ∂v_y/∂x − ∂v_x/∂y of a centred vector grid: at the cell
+    centres (central differences) or at the cell corners, one more sample
+    along each axis; a staggered grid is taken at its centres first."""
+    from ..geom import Box, UniformGrid
+    from ..math import extrapolation as extrapolation_mod
+    assert field.is_grid
+    if field.is_centered and field.spatial_rank == 2 and 'vector' in field.values.shape:
+        x, y = field.resolution.names
+        v, ext = field.values, field.boundary
+        if at == 'center':
+            vx = Field(field.geometry, v[{'vector': x}], ext[{'vector': x}])
+            vy = Field(field.geometry, v[{'vector': y}], ext[{'vector': y}])
+            dvy_dx = spatial_gradient(vy, at='center', dims=[x], stack_dim=channel('_c')).values[{'_c': 0}]
+            dvx_dy = spatial_gradient(vx, at='center', dims=[y], stack_dim=channel('_c')).values[{'_c': 0}]
+            return Field(field.geometry, dvy_dx - dvx_dy, ext.spatial_gradient())
+        vx_pad = ops.pad(v[{'vector': x}], {y: (1, 1)}, ext[{'vector': x}])
+        vy_pad = ops.pad(v[{'vector': y}], {x: (1, 1)}, ext[{'vector': y}])
+        nx, ny = field.resolution.get_size(x), field.resolution.get_size(y)
+        dvy_dx = (vy_pad[{x: slice(1, nx + 2)}] - vy_pad[{x: slice(0, nx + 1)}]) / _dx(field, x)
+        dvx_dy = (vx_pad[{y: slice(1, ny + 2)}] - vx_pad[{y: slice(0, ny + 1)}]) / _dx(field, y)
+        pad_y = ops.pad(dvy_dx, {y: (1, 1)}, ext[{'vector': y}])
+        pad_x = ops.pad(dvx_dy, {x: (1, 1)}, ext[{'vector': x}])
+        dvy_dx = 0.5 * (pad_y[{y: slice(0, ny + 1)}] + pad_y[{y: slice(1, ny + 2)}])
+        dvx_dy = 0.5 * (pad_x[{x: slice(0, nx + 1)}] + pad_x[{x: slice(1, nx + 2)}])
+        corners = UniformGrid(field.resolution.with_sizes([s + 1 for s in field.resolution.sizes]),
+                              Box(field.bounds.lower - field.dx / 2, field.bounds.upper + field.dx / 2))
+        return Field(corners, dvy_dx - dvx_dy, extrapolation_mod.BOUNDARY)
+    if field.is_staggered and field.spatial_rank == 2:
+        return curl(field.at_centers(), at=at)
+    raise NotImplementedError(f"curl of {field}: 2D grids are ported")
+
+
+def normalize(field, norm=None, epsilon=1e-15):
+    """`field` divided by the sum of `norm`'s values (its own by default) over the non-batch dims."""
+    source = norm if norm is not None else field
+    return field.with_values(ops.safe_div(field.values, ops.sum_(source.values, source.values.shape.non_batch)))
+
+
+def center_of_mass(density):
+    """Σ x·ρ / Σ ρ over the sample points."""
+    total = ops.sum_(density.values, density.values.shape.non_batch)
+    return ops.sum_(density.center * density.values, density.values.shape.non_batch) / total
+
+
+def vec_length(field):
+    """|v| of a vector Field (a staggered grid at its centres); a vector
+    constant boundary becomes its length, any other its absolute value."""
+    if field.is_staggered:
+        field = field.at_centers()
+    return Field(field.geometry, ops.vec_length(field.values), map_extrapolation(
+        lambda e: ConstantExtrapolation(ops.vec_length(e.value)) if isinstance(e, ConstantExtrapolation)
+        and 'vector' in e.value.shape else abs(e), field.boundary))
+
+
+vec_abs = vec_length
+
+
+def vec_squared(field):
+    """|v|² of a vector Field (a staggered grid at its centres)."""
+    if field.is_staggered:
+        field = field.at_centers()
+    return field.with_values(ops.vec_squared(field.values))
+
+
+def discretize(grid, filled_fraction=0.25):
+    """1 in the `filled_fraction` of the cells with the largest values, 0 elsewhere."""
+    v = np.sort(grid.values.numpy().flatten())
+    threshold = v[int((1 - filled_fraction) * len(v))]
+    filled = ops.where(grid.values > float(threshold), ops.ones_like(grid.values), ops.zeros_like(grid.values))
+    return grid.with_values(filled)
+
+
+def integrate(field, region=None, **kwargs):
+    """∫ f dV over the grid, or over the part of it inside `region` (each
+    cell weighted by its fraction inside, `approximate_fraction_inside`)."""
+    volume = float(np.prod(field.dx.numpy()))
+    dims = field.values.shape.non_channel.non_batch
+    if region is None:
+        return ops.sum_(field.values * volume, dims)
+    device = field.values.device or ops.get_default_device()
+    weight = Tensor(region.approximate_fraction_inside(field.geometry.native(device), **kwargs), field.resolution)
+    return ops.sum_(field.values * weight * volume, dims)
+
+
+def pack_dims(field, dims, packed_dim, **kwargs):
+    """The values' `dims` packed into `packed_dim` (batch dims: the geometry stays)."""
+    return Field(field.geometry, ops.pack_dims(field.values, dims, packed_dim), field.boundary)
+
+
+def support(field, list_dim=instance('nonzero')):
+    """The sample points of the nonzero values, along `list_dim`."""
+    return ops.gather(field.center, ops.nonzero(field.values, list_dim=list_dim))
+
+
+def data_bounds(loc):
+    """The bounding Box of a point Tensor (or of a Field's sample points)."""
+    from ..geom import Box
+    if isinstance(loc, Field):
+        loc = loc.center
+    dims = loc.shape.non_batch.without('vector')
+    return Box(ops.min_(loc, dims), ops.max_(loc, dims))
+
+
+def assert_close(*fields, rel_tolerance=1e-5, abs_tolerance=0, msg="", verbose=True):
+    """`math.assert_close` of the values, each Field first resampled to the first one's geometry."""
+    if isinstance(fields[0], Field):
+        f0 = fields[0]
+        inner = [f.at(f0).values if isinstance(f, Field) and f.geometry != f0.geometry
+                 else (f.values if isinstance(f, Field) else wrap(f)) for f in fields]
+    else:
+        inner = [f.values if isinstance(f, Field) else wrap(f) for f in fields]
+    ops.assert_close(*inner, rel_tolerance=rel_tolerance, abs_tolerance=abs_tolerance, msg=msg)
+
+
+def l2_loss(field):
+    """½ Σ v² over the non-batch dims (a staggered grid: over all components)."""
+    if isinstance(field, Field):
+        field = field.values
+    if isinstance(field, TensorStack):
+        return sum(l2_loss(c) for c in field.components)
+    return ops.sum_(field ** 2, field.shape.non_batch) * 0.5
+
+
+def l1_loss(field):
+    """Σ |v| over the non-batch dims (a staggered grid: over all components)."""
+    if isinstance(field, Field):
+        field = field.values
+    if isinstance(field, TensorStack):
+        return sum(l1_loss(c) for c in field.components)
+    return ops.sum_(abs(field), field.shape.non_batch)
+
+
+def frequency_loss(field, frequency_falloff=100, threshold=1e-5, ignore_mean=False):
+    """½ Σ |û(k)|²·exp(−½ (k·falloff)²) over the spatial frequencies (k in
+    cycles per sample), per batch entry: low frequencies weigh most."""
+    values = field.values if isinstance(field, Field) else field
+    if isinstance(values, TensorStack):
+        return sum(frequency_loss(c, frequency_falloff, threshold, ignore_mean) for c in values.components)
+    if ignore_mean:
+        values = values - ops.mean(values, values.shape.non_batch)
+    native = values.torch(values.shape.names)
+    names, dims = values.shape.names, values.shape.spatial.names
+    axes = [names.index(d) for d in dims]
+    spectrum = torch.fft.fftn(native, dim=axes)
+    k2 = None
+    for i, ax in enumerate(axes):
+        k = (np.fft.fftfreq(native.shape[ax]) ** 2).reshape([-1 if j == i else 1 for j in range(len(axes))])
+        k2 = k if k2 is None else k2 + k
+    w = torch.as_tensor(np.exp(-0.5 * k2 * frequency_falloff ** 2).astype(np.float32), device=native.device)
+    w = w.reshape([native.shape[a] if a in axes else 1 for a in range(native.ndim)])
+    sq = (spectrum.real ** 2 + spectrum.imag ** 2) * w
+    batch_axes = [i for i, n in enumerate(names) if values.shape.get_dim(n).dim_type == 'batch']
+    total = torch.sum(sq, dim=[a for a in range(native.ndim) if a not in batch_axes]) * 0.5
+    return Tensor(total, values.shape.batch)
+
+
+def pad_field(grid, widths):
+    """The grid grown by `widths` cells (an int, one (lower, upper) or int
+    per dim, or a dict), filled from its boundary; its bounds grow with it."""
+    names = grid.resolution.names
+    if isinstance(widths, int):
+        widths = {d: (widths, widths) for d in names}
+    elif isinstance(widths, (tuple, list)):
+        widths = {d: (w[0], w[1]) if isinstance(w, (tuple, list)) else (w, w) for d, w in zip(names, widths)}
+    assert grid.is_grid
+    if grid.is_staggered:
+        values = stack([ops.pad(grid.vector[dim].values, dict(widths), grid.boundary[{'vector': dim}])
+                        for dim in names], dual(vector=names))
+    else:
+        values = ops.pad(grid.values, widths, grid.boundary)
+    return Field(_padded_grid(grid.geometry, widths), values, grid.boundary)
+
+
+def downsample2x(grid):
+    """Half the resolution: a centred grid averages pairs of cells
+    (`math.downsample2x`); a staggered grid keeps every second face of each
+    component along its own axis and averages pairs along the others (the
+    JAX package's function takes centred grids only)."""
+    from ..geom import UniformGrid
+    from ..math._nd import downsample2x as downsample_values
+    assert grid.is_grid
+    names = grid.resolution.names
+    geometry = UniformGrid(grid.resolution.with_sizes([(s + 1) // 2 for s in grid.resolution.sizes]), grid.bounds)
+    if grid.is_centered:
+        return Field(geometry, downsample_values(grid.values, grid.boundary), grid.boundary)
+    comps = []
+    for dim, comp in zip(names, face_components(grid.values)):
+        lower_face, _ = grid.boundary.valid_outer_faces(dim)
+        kept = comp[{dim: slice(0 if lower_face else 1, None, 2)}]
+        comps.append(downsample_values(kept, grid.boundary[{'vector': dim}], dims=[d for d in names if d != dim]))
+    return Field(geometry, stack(comps, dual(vector=names)), grid.boundary)
+
+
+def upsample2x(grid):
+    """Twice the resolution of a centred grid (`math.upsample2x`)."""
+    from ..geom import UniformGrid
+    from ..math._nd import upsample2x as upsample_values
+    assert grid.is_grid and grid.is_centered
+    geometry = UniformGrid(grid.resolution.with_sizes([s * 2 for s in grid.resolution.sizes]), grid.bounds)
+    return Field(geometry, upsample_values(grid.values, grid.boundary), grid.boundary)
+
+
+def concat_fields(fields, dim):
+    """Fields joined along a non-grid dim; point clouds join their points too."""
+    assert len(fields) > 0
+    f0 = fields[0]
+    name = dim if isinstance(dim, str) else dim.name
+    values = ops.concat([f.values for f in fields], dim if not isinstance(dim, str) else f0.values.shape[name])
+    if f0.is_grid and name in f0.resolution:
+        raise NotImplementedError("spatial concat of grids with bounds fusion")
+    if f0.is_point_cloud:
+        centers = ops.concat([f.geometry.center for f in fields], dim if not isinstance(dim, str)
+                             else f0.geometry.center.shape[name])
+        return Field(f0.geometry.at(centers), values, f0.boundary)
+    return Field(f0.geometry, values, f0.boundary)
+
+
+def stack_fields(fields, dim, dim_bounds=None):
+    """Fields stacked along a new non-spatial dim: one geometry when all share
+    it, the stacked points of point clouds."""
+    from ..geom import Point
+    from ..math import stack as math_stack
+    fields = list(fields)
+    f0 = fields[0]
+    values = math_stack([f.values for f in fields], dim)
+    if dim.dims[0].dim_type == 'spatial':
+        raise NotImplementedError("spatial stacking of grids (dim_bounds)")
+    geoms = [f.geometry for f in fields]
+    if all(g == geoms[0] for g in geoms):
+        geometry = geoms[0]
+    elif all(isinstance(g, Point) for g in geoms):
+        geometry = Point(math_stack([g.center for g in geoms], dim))
+    else:
+        raise NotImplementedError("stacking Fields of different geometries (GeometryStack) comes with a later slice")
+    return Field(geometry, values, f0.boundary)

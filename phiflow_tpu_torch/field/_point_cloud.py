@@ -25,7 +25,7 @@ from ..geom import Geometry, Point, Sphere
 from ..math import Tensor, channel, expand, instance, wrap
 from ._field import Field, as_boundary
 
-__all__ = ['PointCloud', 'distribute_points', 'distribute_points_native']
+__all__ = ['PointCloud', 'nonzero', 'distribute_points', 'distribute_points_native']
 
 
 def _cell_points(occupied: np.ndarray, points_per_cell: int, seed: int, center: bool = False) -> np.ndarray:
@@ -78,6 +78,13 @@ def PointCloud(elements, values=1., extrapolation=0., bounds=None, **kwargs) -> 
     elif isinstance(values, (tuple, list)):
         values = wrap(list(values), channel(vector=elements.shape.get_labels('vector')))
     return Field(elements, values, as_boundary(extrapolation, elements))
+
+
+def nonzero(field) -> Field:
+    """A point cloud (values 1, boundary 0) at the sample points of the nonzero values of a grid."""
+    from ..math import _ops as ops
+    points = ops.gather(field.center, ops.nonzero(field.values, list_dim=instance('points')))
+    return PointCloud(Point(points), 1., 0.)
 
 
 def distribute_points(geometries, dim=instance('points'), points_per_cell: int = 8, center: bool = False,

@@ -30,8 +30,11 @@ grids in the layouts above.
 
 The domain's lower corner is the origin.
 
-The Field layer (`resample`, `sample`, JAX's signatures) unwraps into these:
-a grid between half-cell-shifted grids into `half_shift_native`; a point
+The Field layer (`resample`, `sample`, `reduce_sample`, `grid_scatter`,
+JAX's signatures) unwraps into these: a grid between half-cell-shifted grids
+into `half_shift_native`, between any other grids into `math.grid_sample` at
+the target's cell centres (`sample_field_at_points`, JAX's
+`sample_grid_at_points`); a point
 cloud onto a centred or closed-box staggered grid with ``scatter=True``
 (`:32-64`, `:361-411`) into `scatter_to_grid` — K8 once per target grid in 3D
 on the card — with the base from the point cloud's constant boundary (NaN for
@@ -61,7 +64,8 @@ from ._field_math import _dx_tuple, _grid_values, _layout, _native_extrap, _plai
 from ._grid import expand_staggered
 
 __all__ = ['sample_grid_at_centers', 'half_shift_native', 'scatter_to_grid', 'sample_grid_at_points', 'sample_staggered_at_points',
-           'face_grid', 'cell_grid', 'staggered_cells', 'geometry_mask']
+           'face_grid', 'cell_grid', 'staggered_cells', 'geometry_mask', 'resample', 'sample', 'reduce_sample',
+           'grid_scatter', 'sample_field_at_points']
 
 
 def sample_grid_at_centers(values: torch.Tensor, own_axis: Optional[int], target_axis: Optional[int],
@@ -400,13 +404,54 @@ def _resample_grid_at_centers(value, target_grid):
         return stack({d: _resample_grid_at_centers(value.vector[d], target_grid) for d in value.resolution.names},
                      channel('vector'))
     plan = _half_shift_alignment(value, target_grid)
-    if plan is None:
-        raise NotImplementedError("interpolation between grids that are not half a cell apart comes with a "
-                                  "later slice of the port")
+    if plan is None:  # the JAX package's general route: `math.grid_sample` at the target's cell centres
+        return sample_field_at_points(value, target_grid.center)
     names = value.resolution.names
     pads = [plan[d] for d in names]
     extrap = _native_extrap(value.boundary, names)
     return _grid_values(value.values, names, lambda v: half_shift_native(v, pads, extrap))
+
+
+def sample_field_at_points(value, points: Tensor) -> Tensor:
+    """A grid Field (one staggered component, or a centred grid) at world
+    points by `math.grid_sample` (the JAX package's `sample_grid_at_points`,
+    `:251-262`): the points in the grid's fractional indices, beyond it the
+    Field's boundary; a staggered grid gives one `vector` entry a component."""
+    from ..math import grid_sample
+    if value.is_staggered:
+        return stack({d: sample_field_at_points(value.vector[d], points) for d in value.resolution.names},
+                     channel('vector'))
+    resolution = value.values.shape.spatial
+    bounds = value.bounds
+    local = (points - bounds.lower) / bounds.size
+    coords = local * wrap([float(s) for s in resolution.sizes], channel(vector=resolution.names)) - 0.5
+    return grid_sample(value.values, coords, value.boundary)
+
+
+def reduce_sample(value, points, dim=None) -> Tensor:
+    """A Field at `points`; a staggered grid at points that carry its
+    `~vector` dim samples each component at its own points."""
+    if isinstance(points, Geometry):
+        points = points.center
+    if not isinstance(value, Field):
+        raise ValueError(type(value))
+    if value.is_staggered and isinstance(points, Tensor) and points.shape.dual:
+        names = value.resolution.names
+        return stack([sample_field_at_points(value.vector[d], points[{'~vector': d}]) for d in names],
+                     dual(vector=names))
+    return sample(value, Point(points) if isinstance(points, Tensor) else points)
+
+
+def grid_scatter(data: Field, bounds, resolution, outside_handling: str = 'discard', mode='mean') -> Tensor:
+    """The values of the point cloud `data` scattered (`math.scatter`, `mode`)
+    into the cells of a grid of `resolution` over `bounds` that hold its points."""
+    from ..math import _ops as ops
+    grid = UniformGrid(resolution, bounds)
+    index = ops.to_int32(ops.floor((data.points - grid.bounds.lower) / grid.dx))
+    if outside_handling == 'clamp':
+        upper = wrap([s - 1 for s in grid.resolution.sizes], channel(vector=grid.resolution.names))
+        index = ops.minimum(ops.maximum(index, 0), upper)
+    return ops.scatter(ops.zeros(grid.resolution), index, data.values, mode=mode, outside_handling=outside_handling)
 
 
 def _half_shift_alignment(value, target_grid):

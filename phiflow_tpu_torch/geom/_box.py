@@ -3,8 +3,8 @@ and grid bounds use it: `BaseBox.push` (`:121-135`) on raw position tensors as
 `box_push`, the axis-aligned `Box` (two corners; `Box(x=1., y=1.)` and
 `Box(lower, upper)` with Tensors as in the JAX package, `:168`) and the
 `Cuboid` (centre, half size and an optional rotation; JAX's signature, `:283`)
-with their inside tests and signed distances, and `push` of a Tensor of points
-(`:121-135`), which unwraps into `box_push`.
+with their inside tests and signed distances, `sample_uniform` (`:137`) and
+`push` of a Tensor of points (`:121-135`), which unwraps into `box_push`.
 """
 from __future__ import annotations
 
@@ -42,6 +42,12 @@ def box_push(positions: torch.Tensor, lower: Sequence[float], upper: Sequence[fl
         shift = torch.where(torch.abs(shift) > torch.abs(loc_to_center), torch.abs(loc_to_center), shift)
     sign = torch.where(loc_to_center < 0, torch.ones_like(shift), -torch.ones_like(shift))
     return positions + sign * shift
+
+
+def _uniform_in_box(lower, size, names, shape):
+    """Points uniform in the box [lower, lower + size), from the port's random generator."""
+    from ..math import channel, random_uniform
+    return lower + random_uniform(*shape, channel(vector=names)) * size
 
 
 class _BoxPush:
@@ -106,6 +112,10 @@ class Box(_BoxPush, Geometry):
     @property
     def size(self):
         return vector_tensor(self._upper - self._lower, self.names)
+
+    def sample_uniform(self, *shape):
+        """Points drawn uniformly inside the box (`math.random_uniform`), of the dims `shape` and `vector`."""
+        return _uniform_in_box(self.lower, self.size, self.names, shape)
 
     def lies_inside(self, location) -> torch.Tensor:
         result = None
@@ -178,6 +188,11 @@ class Cuboid(_BoxPush, Geometry):
     @property
     def upper(self):
         return vector_tensor(self._center + self._half_size, self.names)
+
+    def sample_uniform(self, *shape):
+        """Points drawn uniformly inside the axis-aligned box of the same
+        corners, as the JAX package draws them (its rotation does not take part)."""
+        return _uniform_in_box(self.lower, self.half_size * 2, self.names, shape)
 
     def _to_local(self, location):
         """World → body frame: relative to the centre, the rotation undone."""

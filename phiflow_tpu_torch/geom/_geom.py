@@ -147,6 +147,10 @@ class Geometry:
     def approximate_signed_distance(self, location: Location) -> torch.Tensor:
         raise NotImplementedError(type(self))
 
+    def sample_uniform(self, *shape) -> Tensor:
+        """Points drawn uniformly inside the geometry, of the dims `shape` and `vector`."""
+        raise NotImplementedError(type(self))
+
     def approximate_fraction_inside(self, cells, balance: float = 0.5) -> torch.Tensor:
         """The fraction of each cell of `cells` (a `UniformGrid_native`) inside this
         geometry, estimated from the signed distance at the cell's centre
@@ -296,6 +300,10 @@ class Point(Geometry):
 
     def at(self, center) -> 'Point':
         return Point(center)
+
+    def sample_uniform(self, *shape) -> Tensor:
+        from ..math import expand
+        return expand(self._location, *shape)
 
     def __getitem__(self, item) -> 'Point':
         return Point(self._location[item])

@@ -1,7 +1,8 @@
 """Spheres — port of `phiflow_tpu/geom/_sphere.py` as far as obstacles and
 particles use it: the inside test (also at a Tensor of points, as
 `build_mesh` asks it), the signed distance, `at`, the volume and the
-conversions between radius and volume (`:47-68`, SPH's sizing).
+conversions between radius and volume (`:47-68`, SPH's sizing) and
+`sample_uniform` (`:91`).
 `Sphere(center, radius, volume)` takes a sequence or a Tensor as the centre,
 `Sphere(x=…, y=…, radius=R)` one keyword per axis (`:23`), and a radius or a
 volume.
@@ -103,6 +104,14 @@ class Sphere(Geometry):
 
     def approximate_signed_distance(self, location) -> torch.Tensor:
         return vec_length(self._delta(location), eps=1e-12) - float(self._radius)
+
+    def sample_uniform(self, *shape):
+        """Points drawn uniformly inside the sphere: a normalised normal
+        direction times radius · u^(1/d), u uniform (`math.random_normal`,
+        `math.random_uniform`)."""
+        from ..math import channel, random_normal, random_uniform, vec_normalize
+        v = vec_normalize(random_normal(*shape, channel(vector=self.names or self.spatial_rank)))
+        return self.center + v * (self.radius * random_uniform(*shape) ** (1 / self.spatial_rank))
 
     def at(self, center) -> 'Sphere':
         if is_point_set(center):

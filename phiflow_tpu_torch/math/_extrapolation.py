@@ -168,6 +168,9 @@ class ConstantExtrapolation(Extrapolation):
         bn = block.native(target.names)
         if _is_host(bn) and _is_host(value.native()):
             bn = np.broadcast_to(bn, tuple(target.sizes)).astype(value.dtype)
+        elif const.rank == 0 and const.is_host:  # a number: a fill on the device, no host→device copy
+            like = value.native()
+            bn = torch.full(tuple(target.sizes), const.native().item(), dtype=like.dtype, device=like.device)
         else:
             like = value.native()
             bn = to_torch(bn, like.device).to(like.dtype).expand(tuple(target.sizes))

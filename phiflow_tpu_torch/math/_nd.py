@@ -26,9 +26,17 @@ same on named-dim Tensors.
 grid, its spectrum built on the host in numpy as the JAX package builds it.
 The JAX package applies it as per-axis circulant or DFT matrices because its
 TPU runtime has no FFT; here `torch.fft` computes the same function.
+
+On named-dim Tensors too: `grid_sample_tensor` and
+`closest_grid_values_tensor` (`math.grid_sample`, `math.closest_grid_values`;
+`_grid_sample_xla` `:32-176` with its slab route, `_closest_grid_values`
+`:185-245`) gather with PyTorch indexing, differentiably; the Tensor-level
+`spatial_gradient_t`, `laplace_t`, `downsample2x` and `upsample2x`
+(`:257-441`) shift and pad with the named-dim extrapolations.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Sequence, Tuple, Union
 
 import numpy as np
@@ -37,7 +45,8 @@ import torch
 from ..ops.interp import window_interp_2d, window_interp_3d
 
 __all__ = ['BOUNDARY', 'PERIODIC', 'PerSide', 'pad', 'component_extrapolation', 'shift_window_interp', 'masked_fill',
-           'masked_fill_native', 'shift_zero', 'fourier_laplace', 'fourier_poisson']
+           'masked_fill_native', 'shift_zero', 'fourier_laplace', 'fourier_poisson', 'grid_sample_tensor',
+           'closest_grid_values_tensor', 'slab_route', 'spatial_gradient_t', 'laplace_t', 'downsample2x', 'upsample2x']
 
 BOUNDARY, PERIODIC = 'boundary', 'periodic'
 
@@ -251,3 +260,267 @@ def fourier_poisson(grid, dx, times=1):
     with np.errstate(divide='ignore', invalid='ignore'):
         inv = np.where(lap != 0, 1.0 / np.where(lap == 0, 1.0, lap), 0.0)
     return _spectral_pointwise(grid, inv, list(ks))
+
+
+# ---------------------------------------------------------------------------
+# interpolation of named-dim grids (port of `_grid_sample_xla`, `:32-176`,
+# and `_closest_grid_values`, `:185-245`)
+# ---------------------------------------------------------------------------
+
+def _periodic_along(extrap, dim) -> bool:
+    """Whether `extrap` is periodic at the lower side of `dim`."""
+    from ._extrapolation import PERIODIC as PERIODIC_EXTRAPOLATION
+    if extrap is None:
+        return False
+    if extrap == PERIODIC_EXTRAPOLATION:
+        return True
+    try:
+        return extrap._get(dim, False) == PERIODIC_EXTRAPOLATION
+    except Exception:
+        return False
+
+
+def _lookup_setup(grid, coordinates, extrap):
+    """The padded grid flattened to (rows, *kept), the query coordinates as a
+    torch array (..., d) on its device, and the layout of both."""
+    from ._tensor import TensorStack, to_torch
+    if isinstance(grid, TensorStack):
+        grid = grid._contiguous()
+    ch = coordinates.shape.channel
+    assert ch.rank == 1, f"coordinates must have one channel dim, got {coordinates.shape}"
+    dims = ch.labels[0] or grid.shape.spatial.names
+    d = len(dims)
+    periodic = [_periodic_along(extrap, n) for n in dims]
+    if extrap is not None and not all(periodic):
+        grid_p = extrap.pad(grid, {n: ((0, 0) if p else (1, 1)) for n, p in zip(dims, periodic)})
+        offsets = [0 if p else 1 for p in periodic]
+    else:
+        grid_p, offsets = grid, [0] * d
+    if isinstance(grid_p, TensorStack):
+        grid_p = grid_p._contiguous()
+    p_sizes = [grid_p.shape.get_size(n) for n in dims]
+    kept = grid_p.shape.without(dims)
+    out_dims = coordinates.shape.without(ch.name)
+    shared = [n for n in kept.names if n in out_dims]
+    kept_rest = kept.without(shared)
+    shared_sizes = [kept.get_size(n) for n in shared]
+    spatial_vol = int(np.prod(p_sizes))
+    coords = coordinates.native(out_dims.names + (ch.name,))
+    device = coords.device if isinstance(coords, torch.Tensor) else grid_p.device
+    coords = to_torch(coords, device)
+    flat = to_torch(grid_p._transposed(tuple(shared) + tuple(dims) + kept_rest.names).native(), coords.device)
+    flat = flat.reshape((int(np.prod(shared_sizes)) * spatial_vol if shared else spatial_vol,) + tuple(kept_rest.sizes))
+    labels = ch.labels[0]
+    if labels and tuple(labels) != tuple(dims):
+        coords = coords[..., [labels.index(n) for n in dims]]
+    out_sizes = tuple(out_dims.sizes)
+    shared_lin = None
+    for n, size in zip(shared, shared_sizes):
+        axis = out_dims.index(n)
+        iota = torch.arange(out_dims.get_size(n), device=coords.device).reshape(
+            [-1 if a == axis else 1 for a in range(len(out_sizes))]).expand(out_sizes)
+        shared_lin = iota if shared_lin is None else shared_lin * size + iota
+    return dict(flat=flat, coords=coords, dims=dims, periodic=periodic, offsets=offsets, p_sizes=p_sizes,
+                kept_rest=kept_rest, out_dims=out_dims, out_sizes=out_sizes, shared_lin=shared_lin,
+                spatial_vol=spatial_vol)
+
+
+def _corner_index(lo, corner, s, k):
+    ik = lo[..., k] + corner[k] + s['offsets'][k]
+    n = s['p_sizes'][k]
+    return torch.remainder(ik, n) if s['periodic'][k] else torch.clamp(ik, 0, n - 1)
+
+
+def _take(flat, idx, kept_rest):
+    vals = torch.index_select(flat, 0, idx.reshape(-1))
+    return vals.reshape(tuple(idx.shape) + tuple(kept_rest.sizes))
+
+
+def _slab_sample(s):
+    """The JAX package's slab route: one row of 2^(d−1)·Z values for each
+    (x, y) corner pair, the weights of all taps in that row layout, and
+    zero-weight taps masked out, so that a NaN in the row (a grid's NaN
+    ghost cells) reaches no query whose weights miss it."""
+    d, p_sizes, coords, offsets = len(s['dims']), s['p_sizes'], s['coords'], s['offsets']
+    g = s['flat'].reshape(tuple(p_sizes))
+    pos = [torch.clamp(coords[..., k] + offsets[k], 0., p_sizes[k] - 1.) for k in range(d)]
+    zp = p_sizes[-1]
+    zf = torch.clamp(pos[-1].reshape(-1), 0., zp - 1.)
+    if d == 3:
+        xp, yp = p_sizes[0], p_sizes[1]
+        ix = torch.clamp(torch.floor(pos[0]), 0, xp - 2).to(torch.int64)
+        iy = torch.clamp(torch.floor(pos[1]), 0, yp - 2).to(torch.int64)
+        fx = (pos[0] - ix).to(g.dtype).reshape(-1, 1)
+        fy = (pos[1] - iy).to(g.dtype).reshape(-1, 1)
+        table = torch.stack([g[:-1, :-1], g[:-1, 1:], g[1:, :-1], g[1:, 1:]], dim=2).reshape((xp - 1) * (yp - 1), 4 * zp)
+        rows = torch.index_select(table, 0, (ix * (yp - 1) + iy).reshape(-1))
+        j = torch.arange(4 * zp, device=g.device).reshape(1, -1)
+        zlane = (j % zp).to(g.dtype)
+        c = j // zp
+        wzl = torch.clamp(1. - torch.abs(zlane - zf[:, None].to(g.dtype)), min=0.)
+        w = torch.where(c >= 2, fx, 1. - fx) * torch.where(c % 2 == 1, fy, 1. - fy) * wzl
+    else:
+        xp = p_sizes[0]
+        ix = torch.clamp(torch.floor(pos[0]), 0, xp - 2).to(torch.int64)
+        fx = (pos[0] - ix).to(g.dtype).reshape(-1, 1)
+        table = torch.stack([g[:-1], g[1:]], dim=1).reshape(xp - 1, 2 * zp)
+        rows = torch.index_select(table, 0, ix.reshape(-1))
+        j = torch.arange(2 * zp, device=g.device).reshape(1, -1)
+        zlane = (j % zp).to(g.dtype)
+        wzl = torch.clamp(1. - torch.abs(zlane - zf[:, None].to(g.dtype)), min=0.)
+        w = torch.where(j // zp == 1, fx, 1. - fx) * wzl
+    w = w.to(g.dtype)
+    result = torch.sum(torch.where(w > 0, rows * w, torch.zeros((), dtype=g.dtype, device=g.device)), dim=-1)
+    return result.reshape(s['out_sizes'])
+
+
+def slab_route(s) -> bool:
+    """The JAX package's rule for its slab route: 2D or 3D, no periodic dim,
+    no dims beyond the grid's, at least 2048 queries, and the table and the
+    rows within 64 Mi and 128 Mi entries."""
+    d, n_query = len(s['dims']), int(np.prod(s['out_sizes'])) if s['out_sizes'] else 1
+    corners = 4 if d == 3 else 2
+    return (d in (2, 3) and not any(s['periodic']) and s['kept_rest'].rank == 0 and s['shared_lin'] is None
+            and n_query >= 2048 and s['spatial_vol'] * corners <= 64 * 1024 * 1024
+            and n_query * s['p_sizes'][-1] * corners <= 128 * 1024 * 1024)
+
+
+def _corner_sample(s):
+    """The JAX package's generic route: one gather of all 2^d corners, whose
+    weights multiply the values (a NaN corner of weight 0 gives NaN there,
+    as in JAX)."""
+    coords, flat, kept_rest = s['coords'], s['flat'], s['kept_rest']
+    lo_f = torch.floor(coords)
+    frac = coords - lo_f
+    lo = lo_f.to(torch.int64)
+    d = len(s['dims'])
+    result = None
+    for corner in itertools.product((0, 1), repeat=d):
+        idx, w = None, None
+        for k in range(d):
+            ik = _corner_index(lo, corner, s, k)
+            idx = ik if idx is None else idx * s['p_sizes'][k] + ik
+            wk = frac[..., k] if corner[k] else 1.0 - frac[..., k]
+            w = wk if w is None else w * wk
+        if s['shared_lin'] is not None:
+            idx = idx.expand(s['out_sizes']) + s['shared_lin'] * s['spatial_vol']
+        vals = _take(flat, idx, kept_rest)
+        contrib = vals * w.reshape(tuple(w.shape) + (1,) * kept_rest.rank).to(vals.dtype)
+        result = contrib if result is None else result + contrib
+    return result
+
+
+def grid_sample_tensor(grid, coordinates, extrap):
+    """`math.grid_sample`: multilinear interpolation of a named-dim grid at
+    fractional indices, as the JAX package's `_grid_sample_xla`: the grid
+    padded by one cell of `extrap` along its non-periodic dims, then its
+    slab route where `slab_route` takes it, else the per-corner route.
+    Differentiable in the grid and the coordinates."""
+    from ._shape import concat_shapes
+    from ._tensor import Tensor
+    s = _lookup_setup(grid, coordinates, extrap)
+    result = _slab_sample(s) if slab_route(s) else _corner_sample(s)
+    return Tensor(result, concat_shapes(s['out_dims'], s['kept_rest']))
+
+
+def closest_grid_values_tensor(grid, coordinates, extrap, stack_dim_prefix='closest_'):
+    """`math.closest_grid_values`: the 2^d values around each coordinate,
+    stacked along channel dims `<prefix><dim>` of size 2 (lower, upper)."""
+    from ._ops import stack
+    from ._shape import channel, concat_shapes
+    from ._tensor import Tensor
+    s = _lookup_setup(grid, coordinates, extrap)
+    lo = torch.floor(s['coords']).to(torch.int64)
+    d = len(s['dims'])
+    corners = {}
+    for corner in itertools.product((0, 1), repeat=d):
+        idx = None
+        for k in range(d):
+            ik = _corner_index(lo, corner, s, k)
+            idx = ik if idx is None else idx * s['p_sizes'][k] + ik
+        if s['shared_lin'] is not None:
+            idx = idx.expand(s['out_sizes']) + s['shared_lin'] * s['spatial_vol']
+        corners[corner] = Tensor(_take(s['flat'], idx, s['kept_rest']), concat_shapes(s['out_dims'], s['kept_rest']))
+
+    def build(prefix):
+        if len(prefix) == d:
+            return corners[prefix]
+        return stack([build(prefix + (0,)), build(prefix + (1,))],
+                     channel(**{f"{stack_dim_prefix}{s['dims'][len(prefix)]}": 2}))
+    return build(())
+
+
+# ---------------------------------------------------------------------------
+# stencils of named-dim tensors (port of `:257-441`)
+# ---------------------------------------------------------------------------
+
+from ._extrapolation import BOUNDARY as _ZERO_GRADIENT  # noqa: E402 — the named-dim extrapolations import nothing of this module
+from ._shape import channel as _channel  # noqa: E402
+
+
+def _extrapolation_of(padding):
+    from ._extrapolation import as_extrapolation
+    return as_extrapolation(padding)
+
+
+def spatial_gradient_t(grid, dx=1, difference='central', padding=_ZERO_GRADIENT, dims=None,
+                       stack_dim=_channel('gradient')):
+    """`math.spatial_gradient`: finite differences of a Tensor along its
+    spatial dims ('central', 'forward' or 'backward'), stacked along
+    `stack_dim`."""
+    from ._ops import shift
+    from ._tensor import wrap
+    dims = grid.shape.spatial.names if dims is None else dims
+    offsets = {'central': (-1, 1), 'forward': (0, 1), 'backward': (-1, 0)}
+    if difference not in offsets:
+        raise ValueError(difference)
+    lo, up = shift(grid, offsets[difference], dims, _extrapolation_of(padding), stack_dim=stack_dim)
+    return (up - lo) / ((2 if difference == 'central' else 1) * wrap(dx))
+
+
+def laplace_t(x, dx=1, padding=_ZERO_GRADIENT, dims=None, weights=None):
+    """`math.laplace`: the second-order Laplacian of a Tensor over its spatial dims."""
+    from ._ops import rename_dims, shift, sum_
+    from ._shape import channel
+    from ._tensor import wrap
+    dims = x.shape.spatial.names if dims is None else dims
+    dx_t = wrap(dx)
+    lo, ce, up = shift(x, (-1, 0, 1), dims, _extrapolation_of(padding), stack_dim=channel('_lap'))
+    result = (lo + up - 2 * ce) * weights if weights is not None else lo + up - 2 * ce
+    if dx_t.shape.channel:
+        result = result / rename_dims(dx_t * dx_t, dx_t.shape.channel, channel('_lap'))
+    else:
+        result = result / (dx_t * dx_t)
+    return sum_(result, '_lap')
+
+
+def downsample2x(grid, padding=_ZERO_GRADIENT, dims=None):
+    """Half the resolution along `dims`: the mean of each pair of cells (an
+    odd size padded by one cell of `padding` first)."""
+    padding = _extrapolation_of(padding)
+    for dim in (grid.shape.spatial.names if dims is None else dims):
+        size = grid.shape.get_size(dim)
+        if size % 2:
+            grid = padding.pad(grid, {dim: (0, 1)})
+            size += 1
+        grid = (grid[{dim: slice(0, size, 2)}] + grid[{dim: slice(1, size, 2)}]) * 0.5
+    return grid
+
+
+def upsample2x(grid, padding=_ZERO_GRADIENT, dims=None):
+    """Twice the resolution along `dims`: each cell splits into two, ¾ of
+    it and ¼ of its neighbour on that side (`padding` beyond the ends)."""
+    from ._tensor import Tensor, _is_host
+    padding = _extrapolation_of(padding)
+    for dim in (grid.shape.spatial.names if dims is None else dims):
+        padded = padding.pad(grid, {dim: (1, 1)})
+        size = grid.shape.get_size(dim)
+        left, center, right = (padded[{dim: slice(k, size + k)}] for k in range(3))
+        a, b = 0.25 * left + 0.75 * center, 0.75 * center + 0.25 * right
+        an, bn = a.native(), b._transposed(a.shape.names).native()
+        axis = a.shape.index(dim)
+        stacked = np.stack([an, bn], axis=axis + 1) if _is_host(an) else torch.stack([an, bn], dim=axis + 1)
+        new_sizes = list(a.shape.sizes)
+        new_sizes[axis] = size * 2
+        grid = Tensor(stacked.reshape(new_sizes), a.shape.with_dim_size(dim, size * 2))
+    return grid

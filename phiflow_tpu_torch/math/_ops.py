@@ -1,6 +1,4 @@
-"""Operations on named-dim Tensors — the part of `phiflow_tpu/math/_ops.py`
-that the Field layer and the particle paths of the port use (`ROADMAP.md`
-lists the rest).
+"""Operations on named-dim Tensors — port of `phiflow_tpu/math/_ops.py`.
 
 Every function works on host (numpy) and torch natives alike: host inputs
 stay on the host, computed by numpy as the JAX package computes them; torch
@@ -21,7 +19,7 @@ from ._shape import (
 )
 from ._tensor import (
     Tensor, TensorStack, wrap, default_float, get_default_device, _broadcast, _align_native, _is_host, _meet,
-    _host_to, _host, _fix_host_dtype,
+    _host_to, _host, _fix_host_dtype, to_torch,
 )
 
 __all__ = ['zeros', 'ones', 'zeros_like', 'ones_like', 'seed', 'random_normal', 'random_uniform', 'linspace', 'arange',
@@ -33,7 +31,12 @@ __all__ = ['zeros', 'ones', 'zeros_like', 'ones_like', 'seed', 'random_normal', 
            'finite_sum', 'finite_max', 'finite_min', 'dot', 'close', 'always_close', 'assert_close', 'equal', 'pad',
            'shift', 'vec', 'vec_length', 'vec_squared', 'vec_normalize', 'dim_mask', 'gather', 'scatter',
            'boolean_mask', 'nonzero', 'quantile', 'median', 'pairwise_differences', 'find_closest', 'stop_gradient',
-           'native_call']
+           'native_call', 'range_tensor', 'flatten', 'log2', 'log10', 'tan', 'arcsin', 'arccos', 'arctan', 'arctan2',
+           'sinh', 'cosh', 'tanh', 'real', 'imag', 'conjugate', 'sigmoid', 'erf', 'factorial', 'degrees_to_radians',
+           'radians_to_degrees', 'std', 'at_max', 'argmax', 'argmin', 'cumulative_sum', 'histogram', 'neighbor_mean',
+           'sample_subgrid', 'grid_sample', 'closest_grid_values', 'fft', 'ifft', 'fftfreq', 'norm', 'length',
+           'squared_norm', 'normalize', 'cross', 'cross_product', 'convolve', 'reshaped_native', 'reshaped_tensor',
+           'assert_finite', 'print_', 'map_']
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +125,9 @@ def arange(dim: Shape, start=0, stop=None, step=1) -> Tensor:
         stop = start + dim.size * step
     n = np.arange(start, stop, step, dtype=np.int32)
     return Tensor(n, dim.with_size(int(n.shape[0])))
+
+
+range_tensor = arange
 
 
 def meshgrid(dims=spatial, stack_dim=channel('vector'), **sizes) -> Tensor:
@@ -260,6 +266,11 @@ def pack_dims(value: Tensor, dims: DimFilter, packed_dim: Shape, pos=None) -> Te
     return Tensor(native, Shape((pd,) + t.shape.dims[len(names):]))
 
 
+def flatten(value, flat_dim: Shape = instance('flat')) -> Tensor:
+    """All dims of `value` packed into `flat_dim`, in the value's order."""
+    return pack_dims(value, lambda s: s, flat_dim)
+
+
 def unpack_dim(value: Tensor, dim, *unpacked: Shape) -> Tensor:
     value = wrap(value)
     name = dim if isinstance(dim, str) else dim.name
@@ -286,24 +297,84 @@ def squeeze(value: Tensor, dims: DimFilter) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def _unary(np_fn, torch_fn):
+    def host(n, *args, **kwargs):
+        with np.errstate(invalid='ignore', divide='ignore', over='ignore'):  # NaN and ±inf as results, as in JAX
+            return np_fn(n, *args, **kwargs)
+
     def op(x, *args, **kwargs):
-        return wrap(x)._op1(lambda n: np_fn(n, *args, **kwargs) if _is_host(n) else torch_fn(n, *args, **kwargs))
+        return wrap(x)._op1(lambda n: host(n, *args, **kwargs) if _is_host(n) else torch_fn(n, *args, **kwargs))
     return op
 
 
+def _on_cpu(torch_fn):
+    """A host array through `torch_fn` on the CPU, back as numpy: for the
+    functions numpy lacks (erf, the gamma function)."""
+    return lambda n: torch_fn(torch.from_numpy(np.ascontiguousarray(n))).numpy()
+
+
+def _torch_sign(n):
+    """sign with NaN kept, as `jnp.sign` has it (`torch.sign(nan)` is 0)."""
+    return torch.where(torch.isnan(n), n, torch.sign(n)) if n.is_floating_point() else torch.sign(n)
+
+
+def _torch_imag(n):
+    """The imaginary part; 0 for real input, as `jnp.imag` gives it."""
+    return torch.imag(n) if n.is_complex() else torch.zeros_like(n)
+
+
+def _torch_factorial(n):
+    """n! as Γ(n + 1), 0 for negative n (`jax.scipy.special.factorial`)."""
+    x = n if n.is_floating_point() else n.to(_torch_dtype(default_float()))
+    return torch.where(x < 0, torch.zeros_like(x), torch.exp(torch.lgamma(x + 1)))
+
+
+def _torch_sigmoid(n):
+    return torch.sigmoid(n if n.is_floating_point() else n.to(_torch_dtype(default_float())))
+
+
 abs_ = _unary(np.abs, torch.abs)
-sign = _unary(np.sign, torch.sign)
+sign = _unary(np.sign, _torch_sign)
 sqrt = _unary(np.sqrt, torch.sqrt)
 exp = _unary(np.exp, torch.exp)
 log = _unary(np.log, torch.log)
+log2 = _unary(np.log2, torch.log2)
+log10 = _unary(np.log10, torch.log10)
 sin = _unary(np.sin, torch.sin)
 cos = _unary(np.cos, torch.cos)
+tan = _unary(np.tan, torch.tan)
+arcsin = _unary(np.arcsin, torch.arcsin)
+arccos = _unary(np.arccos, torch.arccos)
+_arctan1 = _unary(np.arctan, torch.arctan)
+sinh = _unary(np.sinh, torch.sinh)
+cosh = _unary(np.cosh, torch.cosh)
+tanh = _unary(np.tanh, torch.tanh)
 floor = _unary(np.floor, torch.floor)
 ceil = _unary(np.ceil, torch.ceil)
 round_ = _unary(np.round, torch.round)
 is_finite = _unary(np.isfinite, torch.isfinite)
 is_nan = _unary(np.isnan, torch.isnan)
 is_inf = _unary(np.isinf, torch.isinf)
+real = _unary(np.real, torch.real)
+imag = _unary(np.imag, _torch_imag)
+conjugate = _unary(np.conj, lambda n: torch.conj(n).resolve_conj())
+sigmoid = _unary(lambda n: 1 / (1 + np.exp(-n)), _torch_sigmoid)
+erf = _unary(_on_cpu(torch.erf), torch.erf)
+factorial = _unary(_on_cpu(_torch_factorial), _torch_factorial)
+
+
+def arctan(x, divide_by=None) -> Tensor:
+    """arctan(x), or the full-quadrant arctan2(x, divide_by) when `divide_by` is given."""
+    if divide_by is None:
+        return _arctan1(x)
+    return arctan2(x, divide_by)
+
+
+def degrees_to_radians(x):
+    return wrap(x) * (np.pi / 180)
+
+
+def radians_to_degrees(x):
+    return wrap(x) * (180 / np.pi)
 
 
 def _torch_dtype(np_dtype):
@@ -356,6 +427,11 @@ def _binary(np_fn, torch_fn):
 
 _maximum = _binary(np.maximum, torch.maximum)
 _minimum = _binary(np.minimum, torch.minimum)
+_arctan2 = _binary(np.arctan2, torch.atan2)
+
+
+def arctan2(y, x) -> Tensor:
+    return wrap(y)._op2(wrap(x), _arctan2)
 
 
 def maximum(a, b) -> Tensor:
@@ -431,18 +507,38 @@ def _np_or_torch(np_fn, torch_fn):
     return fn
 
 
+def _int_result(n: torch.Tensor):
+    """The dtype of an integer or boolean sum or product as the JAX package
+    gives it: int64 stays int64, narrower integers and booleans give int32
+    (torch promotes them all to int64)."""
+    if n.is_floating_point() or n.is_complex():
+        return None
+    return torch.int64 if n.dtype == torch.int64 else torch.int32
+
+
 def _t_sum(n, axes):
-    return torch.sum(n, dim=axes)
+    return torch.sum(n, dim=axes, dtype=_int_result(n))
 
 
 def _t_mean(n, axes):
+    """The mean; of an integer or boolean tensor in the default float, as in JAX."""
+    if not (n.is_floating_point() or n.is_complex()):
+        n = n.to(_torch_dtype(default_float()))
     return torch.mean(n, dim=axes)
 
 
 def _t_prod(n, axes):
+    dtype = _int_result(n)
     for ax in sorted(axes, reverse=True):
-        n = torch.prod(n, dim=ax)
+        n = torch.prod(n, dim=ax, dtype=dtype)
     return n
+
+
+def _t_std(n, axes):
+    """The population standard deviation (`jnp.std`, no correction)."""
+    if not (n.is_floating_point() or n.is_complex()):
+        n = n.to(_torch_dtype(default_float()))
+    return torch.std(n, dim=axes, correction=0)
 
 
 def _t_max(n, axes):
@@ -496,6 +592,7 @@ _min = _np_or_torch(np.min, _t_min)
 _any = _np_or_torch(np.any, _t_any)
 _all = _np_or_torch(np.all, _t_all)
 _prod = _np_or_torch(np.prod, _t_prod)
+_std = _np_or_torch(np.std, _t_std)
 
 
 def sum_(value, dim: DimFilter = None) -> Tensor:
@@ -527,6 +624,11 @@ def min_(value, dim: DimFilter = None) -> Tensor:
     return _reduce(value, dim, _min)
 
 
+def std(value, dim: DimFilter = None) -> Tensor:
+    """The standard deviation over `dim` (default: the non-batch dims), without correction."""
+    return _reduce(value, dim, _std)
+
+
 def any_(value, dim: DimFilter = None) -> Tensor:
     return _reduce(value, dim, _any, default_filter=lambda s: s)
 
@@ -554,6 +656,47 @@ def finite_max(value, dim: DimFilter = None) -> Tensor:
 def finite_min(value, dim: DimFilter = None) -> Tensor:
     value = wrap(value)
     return min_(where(is_finite(value), value, np.inf), dim)
+
+
+def at_max(value, key, dim: DimFilter):
+    """`value` where `key` is largest along `dim`."""
+    key = wrap(key)
+    names = [n for n in _resolve_filter(dim, key.shape) if n in key.shape]
+    packed = len(names) > 1
+    idx = argmax(pack_dims(key, names, instance('_amax')) if packed else key, '_amax' if packed else names[0])
+    value = wrap(value)
+    value = pack_dims(value, names, instance('_amax')) if packed else value
+    return gather(value, idx, dims='_amax' if packed else names[0])
+
+
+def _arg_extremum(value, dim, np_fn, torch_fn) -> Tensor:
+    value = wrap(value)
+    names = _resolve_filter(dim, value.shape)
+    assert len(names) == 1, f"one dim expected, got {names}"
+    axis = value.shape.index(names[0])
+    n = value.native()
+    native = np_fn(n, axis=axis).astype(np.int32) if _is_host(n) else torch_fn(n, dim=axis).to(torch.int32)
+    return Tensor(native, value.shape.without(names[0]))
+
+
+def argmax(value: Tensor, dim: DimFilter) -> Tensor:
+    """The int32 index of the largest entry along `dim` (the first NaN, if any)."""
+    return _arg_extremum(value, dim, np.argmax, torch.argmax)
+
+
+def argmin(value: Tensor, dim: DimFilter) -> Tensor:
+    """The int32 index of the smallest entry along `dim` (the first NaN, if any)."""
+    return _arg_extremum(value, dim, np.argmin, torch.argmin)
+
+
+def cumulative_sum(value: Tensor, dim: DimFilter) -> Tensor:
+    """The running sum along `dim`; integers and booleans as `sum` gives them."""
+    value = wrap(value)
+    names = _resolve_filter(dim, value.shape)
+    axis = value.shape.index(names[0])
+    n = value.native()
+    native = np.cumsum(n, axis=axis) if _is_host(n) else torch.cumsum(n, dim=axis, dtype=_int_result(n))
+    return Tensor(_fix_host_dtype(native, n), value.shape)
 
 
 def dot(a: Tensor, a_dims, b: Tensor, b_dims) -> Tensor:
@@ -682,6 +825,30 @@ def vec_length(v: Tensor, vec_dim: DimFilter = channel, eps=None) -> Tensor:
 def vec_normalize(v: Tensor, vec_dim: DimFilter = channel, epsilon=1e-15) -> Tensor:
     v = wrap(v)
     return v / vec_length(v, vec_dim, eps=epsilon)
+
+
+norm = vec_length
+length = vec_length
+squared_norm = vec_squared
+normalize = vec_normalize
+
+
+def cross(a: Tensor, b: Tensor) -> Tensor:
+    """The cross product of two vectors: a scalar for 2D, a vector for 3D."""
+    a, b = wrap(a), wrap(b)
+    ch = a.shape.channel.only('vector') if 'vector' in a.shape else a.shape.channel[0:1]
+    n = ch.size if ch else b.shape.channel.size
+    if n == 2:
+        return a.vector[0] * b.vector[1] - a.vector[1] * b.vector[0]
+    assert n == 3
+    labels = a.shape.get_labels('vector') or ('x', 'y', 'z')
+    av, bv = [a.vector[i] for i in range(3)], [b.vector[i] for i in range(3)]
+    return stack({labels[0]: av[1] * bv[2] - av[2] * bv[1],
+                  labels[1]: av[2] * bv[0] - av[0] * bv[2],
+                  labels[2]: av[0] * bv[1] - av[1] * bv[0]}, channel('vector'), expand_values=True)
+
+
+cross_product = cross
 
 
 def dim_mask(all_dims: Shape, dims: DimFilter, mask_dim=channel('vector')) -> Tensor:
@@ -910,6 +1077,111 @@ def median(value: Tensor, dims: DimFilter = None) -> Tensor:
     return quantile(value, 0.5, dims)
 
 
+def histogram(values: Tensor, bins=20, weights=None, same_bins: DimFilter = None):
+    """(counts, bin edges) of all entries of `values`: `bins` equal bins from
+    the smallest to the largest entry (or the given edges), counts along a
+    spatial dim `bins`. As `jnp.histogram`: a value goes to the bin whose
+    lower edge it reaches, the largest edge into the last bin, values
+    outside the edges nowhere; the counts have the weights' dtype."""
+    values = wrap(values)
+    native = values.native().reshape(-1)
+    w = None if weights is None else wrap(weights).native().reshape(-1)
+    if isinstance(bins, Tensor):
+        bins = bins.native()
+    if _is_host(native) and (w is None or _is_host(w)) and (isinstance(bins, int) or _is_host(np.asarray(bins))):
+        edges = np.linspace(native.min(), native.max(), bins + 1).astype(native.dtype) if isinstance(bins, int) \
+            else np.asarray(bins)
+        w = np.ones_like(native) if w is None else w
+        idx = np.searchsorted(edges, native, side='right')
+        idx = np.where(native == edges[-1], len(edges) - 1, idx)
+        counts = np.zeros(len(edges) + 1, w.dtype)
+        np.add.at(counts, idx, w)
+        counts = counts[1:len(edges)]
+    else:
+        native = to_torch(native)
+        if isinstance(bins, int):
+            edges = torch.linspace(0, 1, bins + 1, dtype=native.dtype, device=native.device)
+            lo, hi = torch.min(native), torch.max(native)
+            edges = lo + (hi - lo) * edges
+            edges[-1] = hi
+        else:
+            edges = to_torch(bins, native.device).to(native.dtype)
+        w = torch.ones_like(native) if w is None else to_torch(w, native.device)
+        idx = torch.searchsorted(edges, native, right=True)
+        idx = torch.where(native == edges[-1], len(edges) - 1, idx)
+        counts = torch.zeros(len(edges) + 1, dtype=w.dtype, device=native.device).index_add_(0, idx, w)
+        counts = counts[1:len(edges)]
+    n_bins = int(counts.shape[0])
+    return Tensor(counts, spatial(bins=n_bins)), Tensor(edges, spatial(bins=n_bins + 1))
+
+
+def neighbor_mean(grid: Tensor, dims: DimFilter = spatial, padding=None) -> Tensor:
+    """The mean of neighbouring values along each of `dims`; without
+    `padding` each of those dims loses one entry (values at the midpoints)."""
+    grid = wrap(grid)
+    for n in [n for n in _resolve_filter(dims, grid.shape) if n in grid.shape]:
+        lo, up = shift(grid, (0, 1), n, padding, stack_dim=None)
+        grid = (lo + up) * 0.5
+    return grid
+
+
+def sample_subgrid(grid: Tensor, start: Tensor, size: Shape) -> Tensor:
+    """A window of `size` cells of `grid`, linearly interpolated, whose first
+    cell sits at the fractional index `start` (a `vector` dim labelled by the
+    sampled dims); reads beyond the grid clamp to its border."""
+    grid, start = wrap(grid), wrap(start)
+    for dim in start.shape.get_labels('vector') or size.names:
+        n_out, n_in = size.get_size(dim), grid.shape.get_size(dim)
+        s = start[{'vector': dim}]
+        i0 = floor(s)
+        frac = s - i0
+        idx_lo = clip(wrap(np.arange(n_out, dtype=np.int32), spatial(**{dim: n_out})) + cast(i0, np.int32), 0,
+                      n_in - 1)
+        idx_hi = clip(idx_lo + 1, 0, n_in - 1)
+        grid = gather(grid, idx_lo, dims=dim) * (1 - frac) + gather(grid, idx_hi, dims=dim) * frac
+    return grid
+
+
+def grid_sample(grid: Tensor, coordinates: Tensor, extrap, **kwargs) -> Tensor:
+    """Multilinear interpolation of `grid` at the fractional indices
+    `coordinates` (a channel `vector` labelled by the grid's dims; 0 is the
+    first cell's centre), beyond the grid by `extrap` (`math/_nd.py`)."""
+    from ._extrapolation import as_extrapolation
+    from ._nd import grid_sample_tensor
+    return grid_sample_tensor(grid, coordinates, as_extrapolation(extrap) if extrap is not None else None)
+
+
+def closest_grid_values(grid: Tensor, coordinates: Tensor, extrap, stack_dim_prefix='closest_', **kwargs) -> Tensor:
+    """The 2^d grid values around each coordinate, along dims `closest_<dim>` of size 2."""
+    from ._extrapolation import as_extrapolation
+    from ._nd import closest_grid_values_tensor
+    return closest_grid_values_tensor(grid, coordinates, as_extrapolation(extrap), stack_dim_prefix)
+
+
+def _fourier(x, dims, np_fn, torch_fn) -> Tensor:
+    x = wrap(x)
+    axes = tuple(x.shape.index(n) for n in _resolve_filter(dims, x.shape))
+    n = x.native()
+    return Tensor(np_fn(n, axes=axes) if _is_host(n) else torch_fn(n, dim=axes), x.shape)
+
+
+def fft(x: Tensor, dims: DimFilter = spatial) -> Tensor:
+    """The n-dimensional discrete Fourier transform over `dims` (complex)."""
+    return _fourier(x, dims, np.fft.fftn, torch.fft.fftn)
+
+
+def ifft(k: Tensor, dims: DimFilter = spatial) -> Tensor:
+    """The inverse of `fft` over `dims` (complex)."""
+    return _fourier(k, dims, np.fft.ifftn, torch.fft.ifftn)
+
+
+def fftfreq(resolution: Shape, dx=1, dtype=None) -> Tensor:
+    """The Fourier frequencies of each spatial dim of `resolution`, stacked along `vector`."""
+    comps = {d.name: Tensor(np.fft.fftfreq(d.size, d=1.0).astype(dtype or default_float()), Shape((d,)))
+             for d in resolution.spatial.dims}
+    return stack(comps, channel('vector'), expand_values=True) / wrap(dx)
+
+
 # ---------------------------------------------------------------------------
 # neighbour search
 # ---------------------------------------------------------------------------
@@ -1019,3 +1291,96 @@ def native_call(f, *inputs, channels_last=True, channel_dim='vector', spatial_di
         out_shape = concat_shapes(b, channel(**{channel_dim: ch_size}), sp)
         native = result.reshape(tuple(b.sizes) + (ch_size,) + tuple(sp.sizes))
     return Tensor(native, out_shape)
+
+
+# ---------------------------------------------------------------------------
+# convolution, native reshapes, printing, mapping
+# ---------------------------------------------------------------------------
+
+def convolve(value: Tensor, kernel: Tensor, extrapolation=None) -> Tensor:
+    """The cross-correlation of `value` with `kernel` over their shared
+    spatial dims (`lax.conv_general_dilated`, 'VALID'): each output dim
+    shrinks by the kernel's size − 1, unless `extrapolation` pads `value`
+    first (k // 2 below, (k − 1) // 2 above). In the default float."""
+    from ._extrapolation import as_extrapolation
+    value, kernel = wrap(value), wrap(kernel)
+    sp = value.shape.spatial.only(kernel.shape.spatial)
+    if extrapolation is not None:
+        widths = {d: (kernel.shape.get_size(d) // 2, (kernel.shape.get_size(d) - 1) // 2) for d in sp.names}
+        value = pad(value, widths, as_extrapolation(extrapolation))
+    rest = value.shape.without(sp.names)
+    v_sizes = tuple(value.shape.get_size(n) for n in sp.names)
+    k_sizes = tuple(kernel.shape.get_size(n) for n in sp.names)
+    vn, kn = value._transposed(rest.names + sp.names).native(), kernel._transposed(
+        kernel.shape.without(sp.names).names + sp.names).native()
+    host = _is_host(vn) and _is_host(kn)
+    device = vn.device if not _is_host(vn) else kn.device if not _is_host(kn) else torch.device('cpu')
+    dtype = _torch_dtype(default_float())
+    vn = to_torch(vn, device).to(dtype).reshape((-1, 1) + v_sizes)
+    kn = to_torch(kn, device).to(dtype).reshape((-1, 1) + k_sizes)
+    assert kn.shape[0] == 1, "batched kernels not supported yet"
+    conv = {1: torch.nn.functional.conv1d, 2: torch.nn.functional.conv2d, 3: torch.nn.functional.conv3d}[sp.rank]
+    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled, allow_tf32=False):  # float32 products
+        out = conv(vn, kn)
+    out_sizes = tuple(out.shape[2:])
+    out = out.reshape(tuple(rest.sizes) + out_sizes)
+    shape = Shape(tuple(rest.dims) + tuple(Dim(n, s, sp.get_dim(n).dim_type, None) for n, s in zip(sp.names, out_sizes)))
+    return Tensor(out.numpy() if host else out, shape)._transposed(value.shape.names)
+
+
+def reshaped_native(value: Tensor, groups, force_expand=True):
+    """The native with the dims of each entry of `groups` (a Shape, or a dim
+    name) packed into one axis, in that order."""
+    value = wrap(value)
+    if isinstance(value, TensorStack):
+        value = value._contiguous()
+    sizes, order = [], []
+    for g in groups:
+        if isinstance(g, Shape):
+            names = [n for n in g.names if n in value.shape]
+            order.extend(names)
+            sizes.append(int(np.prod([value.shape.get_size(n) for n in names])) if names else 1)
+        else:
+            order.append(g)
+            sizes.append(value.shape.get_size(g))
+    return value.native(tuple(order)).reshape(sizes)
+
+
+def reshaped_tensor(native, groups, convert=True):
+    """A native as a Tensor of the dims of `groups` (Shapes), reshaped to them;
+    a host array moves to the default device with `convert`."""
+    dims = []
+    for g in groups:
+        if not isinstance(g, Shape):
+            raise TypeError(g)
+        dims.extend(g.dims)
+    target = Shape(tuple(dims))
+    if convert or isinstance(native, torch.Tensor):
+        return Tensor(to_torch(native).reshape(tuple(target.sizes)), target)
+    return Tensor(np.reshape(np.asarray(native), tuple(target.sizes)), target)
+
+
+def assert_finite(t: Tensor):
+    assert bool(all_(is_finite(t))), "tensor contains non-finite values"
+
+
+def print_(value=None, name=""):
+    if name:
+        print(name)
+    print(value)
+
+
+def map_(fn, *values, dims=None, **kwargs):
+    """`fn` on each entry of `dims` (all dims by default) of `values`, the
+    results stacked along those dims."""
+    values = [wrap(v) for v in values]
+    loop_shape = merge_shapes(*[v.shape if dims is None else v.shape.only(dims) for v in values])
+    results = []
+    for idx in loop_shape.meshgrid():
+        results.append(fn(*[v[{k: i for k, i in idx.items() if k in v.shape}] for v in values], **kwargs))
+    if not results:
+        return None
+    out = results
+    for d in reversed(loop_shape.dims):
+        out = [stack(out[i:i + d.size], Shape((d,))) for i in range(0, len(out), d.size)]
+    return out[0]

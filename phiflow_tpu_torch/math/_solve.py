@@ -3,13 +3,16 @@ and BiCGStab on raw tensors (`cg`, the array layer's solver, and `bicgstab`,
 JAX's `_bicgstab` `:488-537`), and on top of them the solve specification of
 the Field layer (`Solve`, `copy_solve`), its diagnostics (`SolveInfo`,
 `SolveTape`) and `solve_linear` for the methods 'auto' and 'CG' (CG) and
-'biCG-stab', 'biCG' and 'biCG-stab(1)' (BiCGStab).
+'biCG-stab', 'biCG' and 'biCG-stab(1)' (BiCGStab). `solve_linear` flattens
+its unknown and right-hand side with `_VecFormat` (JAX's `:198-312`: a
+Field, Tensor, staggered TensorStack or tuple as one vector, leaves
+concatenated), so a staggered unknown solves like a centred one.
+`minimize` and `solve_nonlinear` are in `_optimize.py`.
 
 The loops run eagerly: the stop test reads ⟨r, r⟩ on the host once per
 iteration (one device sync), where JAX keeps the loop on the device in a
 `lax.while_loop`. A `SolveInfo` therefore holds the concrete iteration count.
-'biCG-stab(2)', direct solves, `minimize` and `solve_nonlinear` come with a
-later slice.
+'biCG-stab(2)', CG-adaptive and direct solves come with a later slice.
 
 Gradients: `implicit_solve` differentiates a solve implicitly, as JAX's
 `jax.lax.custom_linear_solve` does (`phiflow_tpu/math/_solve.py:802-816`).
@@ -34,7 +37,7 @@ from ._magic import ConvergenceException, Diverged, NotConverged
 from ._tensor import Tensor, TensorStack
 
 __all__ = ['SolveResult', 'cg', 'bicgstab', 'sub_mean', 'implicit_solve', 'Solve', 'copy_solve', 'SolveInfo', 'SolveTape',
-           'solve_linear']
+           'solve_linear', 'record']
 
 
 class SolveResult(NamedTuple):
@@ -410,6 +413,12 @@ class SolveTape:
         return len(self.solve_infos)
 
 
+def record(info: SolveInfo):
+    """Append `info` to every active `SolveTape`."""
+    for tape in _SOLVE_TAPES:
+        tape.solve_infos.append(info)
+
+
 CG_METHODS = ('auto', 'CG', 'CG-native')
 BICGSTAB_METHODS = ('biCG-stab', 'biCG', 'biCG-stab(1)')
 
@@ -424,17 +433,31 @@ def check_method(solve: Solve):
         raise NotImplementedError(f"preconditioner {solve.preconditioner!r}")
 
 
+def _taped_solve(solve: Solve) -> Solve:
+    """`solve` as a `SolveInfo` keeps it: a copy with x0 detached where x0
+    carries an autograd graph (a differentiated step's previous pressure),
+    which a tape would otherwise keep alive with all its tensors; else
+    `solve` itself, which `SolveTape[solve]` finds."""
+    from ._functional import _detached, _flatten
+    natives, _ = _flatten(solve.x0)
+    if any(isinstance(n, torch.Tensor) and n.requires_grad for n in natives):
+        return copy_solve(solve, x0=_detached(solve.x0))
+    return solve
+
+
 def finish_solve(solve: Solve, x, result: SolveResult) -> SolveInfo:
     """Record the `SolveInfo` of a finished CG or BiCGStab solve on every
     active `SolveTape` and raise `Diverged` / `NotConverged` unless `solve`
     suppresses them. A non-finite ⟨r, r⟩ stops the loop early, unconverged:
-    that is a divergence."""
+    that is a divergence. The info holds x and the solve's x0 detached: a
+    differentiated solve's would keep its autograd graph alive as long as
+    the tape."""
+    from ._functional import _detached
     diverged = not result.converged and result.iterations < solve.max_iterations
     kind, matvecs = ('BiCGStab', 2) if solve.method in BICGSTAB_METHODS else ('CG', 1)
-    info = SolveInfo(solve, x, None, result.iterations, matvecs * result.iterations + 1, result.converged, diverged,
-                     solve.method, msg=f"{result.iterations} {kind} iterations, converged={result.converged}")
-    for tape in _SOLVE_TAPES:
-        tape.solve_infos.append(info)
+    info = SolveInfo(_taped_solve(solve), _detached(x), None, result.iterations, matvecs * result.iterations + 1, result.converged,
+                     diverged, solve.method, msg=f"{result.iterations} {kind} iterations, converged={result.converged}")
+    record(info)
     suppressed = ConvergenceException in solve.suppress
     if diverged and Diverged not in solve.suppress and not suppressed:
         raise Diverged(info)
@@ -448,24 +471,115 @@ def record_adjoint(solve: Solve, result: SolveResult) -> SolveInfo:
     (a SolveInfo whose `msg` starts with 'adjoint'); never raises: a
     backward that did not converge returns its last iterate, as JAX's does."""
     kind, matvecs = ('BiCGStab', 2) if solve.method in BICGSTAB_METHODS else ('CG', 1)
-    info = SolveInfo(solve, result.x, None, result.iterations, matvecs * result.iterations + 1, result.converged,
-                     False, solve.method,
+    info = SolveInfo(_taped_solve(solve), result.x, None, result.iterations, matvecs * result.iterations + 1,
+                     result.converged, False, solve.method,
                      msg=f"adjoint: {result.iterations} {kind} iterations, converged={result.converged}")
-    for tape in _SOLVE_TAPES:
-        tape.solve_infos.append(info)
+    record(info)
     return info
 
 
-def _values_of(state):
-    """The Tensor a solve works on: a Field's values or the Tensor itself."""
-    values = state.values if hasattr(state, 'values') and hasattr(state, 'geometry') else state
-    if isinstance(values, TensorStack):
-        raise NotImplementedError("solve_linear of a staggered (stacked) unknown comes with a later slice")
-    return values
+# ---------------------------------------------------------------------------
+# flattening: Field / Tensor / tuple ⇄ one (batch, N) torch array
+# ---------------------------------------------------------------------------
+
+def _is_field(x) -> bool:
+    return hasattr(x, 'values') and hasattr(x, 'geometry')
 
 
-def _with_values(template, values):
-    return template.with_values(values) if hasattr(template, 'with_values') else values
+def _tensor_leaves(state) -> list:
+    """The Tensors of `state` in the JAX package's order: a TensorStack's
+    components, a Field's values, the entries of tuples, lists and dicts;
+    None is skipped, anything else wrapped."""
+    from ._tensor import wrap
+    result = []
+
+    def visit(x):
+        if isinstance(x, TensorStack):
+            result.extend(x.components)
+        elif isinstance(x, Tensor):
+            result.append(x)
+        elif _is_field(x):
+            visit(x.values)
+        elif isinstance(x, (tuple, list)):
+            for i in x:
+                visit(i)
+        elif isinstance(x, dict):
+            for i in x.values():
+                visit(i)
+        elif x is not None:
+            result.append(wrap(x))
+    visit(state)
+    return result
+
+
+def _rebuild_from_tensors(template, tensors: list):
+    """`template` with its leaves (`_tensor_leaves`) replaced by `tensors`, in order."""
+    tensors = list(tensors)
+
+    def rebuild(x):
+        if isinstance(x, TensorStack):
+            return TensorStack([tensors.pop(0) for _ in x.components], x.stack_dim)
+        if isinstance(x, Tensor):
+            return tensors.pop(0)
+        if _is_field(x):
+            return x.with_values(rebuild(x.values))
+        if isinstance(x, tuple):
+            return tuple(rebuild(i) for i in x)
+        if isinstance(x, list):
+            return [rebuild(i) for i in x]
+        if isinstance(x, dict):
+            return {k: rebuild(v) for k, v in x.items()}
+        return None if x is None else tensors.pop(0)
+    return rebuild(template)
+
+
+def _batch_shape_of(state):
+    from ._shape import EMPTY_SHAPE, merge_shapes
+    shapes = [t.shape.batch for t in _tensor_leaves(state)]
+    return merge_shapes(*shapes) if shapes else EMPTY_SHAPE
+
+
+class _VecFormat:
+    """The layout of the JAX package's `_VecFormat` (`:198-312`): a state
+    (Field, Tensor, TensorStack, tuple) as one (batch volume, N) array, its
+    leaves in `_tensor_leaves` order, each leaf's non-batch entries in the
+    template leaf's dim order, concatenated. A staggered grid's components
+    follow one another; the L-BFGS history and the Krylov vectors live in
+    this layout. Host leaves move to the default device."""
+
+    def __init__(self, template, batch_shape=None):
+        self.template = template
+        self.leaves = _tensor_leaves(template)
+        self.batch_shape = batch_shape if batch_shape is not None else _batch_shape_of(template)
+
+    def flatten(self, state) -> torch.Tensor:
+        """The state as a (batch volume, N) torch array."""
+        from ._tensor import to_torch
+        b = self.batch_shape
+        leaves = _tensor_leaves(state)
+        templates = self.leaves if len(self.leaves) == len(leaves) else leaves
+        parts = []
+        for t, like in zip(leaves, templates):
+            order = b.names + like.shape.without(b.names).names
+            n = to_torch(t.native(order))
+            n = n.expand(tuple(b.sizes) + tuple(n.shape[len(b.names):]))
+            parts.append(n.reshape((max(b.volume, 1) if b else 1, -1)))
+        if not parts:
+            raise ValueError(f"no tensors in {type(state).__name__}")
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+    def unflatten(self, vec: torch.Tensor):
+        """A (batch volume, N) array as a state of the template's structure."""
+        from ._shape import concat_shapes
+        b = self.batch_shape
+        out, offset = [], 0
+        for t in self.leaves:
+            rest = t.shape.without(b.names)
+            size = rest.volume if rest else 1
+            native = vec[:, offset:offset + size].reshape(tuple(b.sizes) + tuple(rest.sizes))
+            offset += size
+            out.append(Tensor(native, concat_shapes(b, rest)))
+        return _rebuild_from_tensors(self.template, out)
 
 
 def solve_linear(f, y, solve: Solve, *f_args, grad_for_f=False, f_kwargs: dict = None,
@@ -495,17 +609,19 @@ def solve_linear(f, y, solve: Solve, *f_args, grad_for_f=False, f_kwargs: dict =
 
     if solve.preprocessing is not None:
         y = solve.preprocessing(y, *solve.preprocessing_args)
-    template = _values_of(x0)
-    order = template.shape.names
+    x_format = _VecFormat(x0)
+    # y in x's dims order where their leaves pair up (a square system's vectors share one layout)
+    y_format = x_format if len(_tensor_leaves(y)) == len(x_format.leaves) else _VecFormat(y)
+    x0_flat = x_format.flatten(x0)
 
     def state_of(arr):
-        return _with_values(x0, Tensor(arr, template.shape))
+        return x_format.unflatten(arr.reshape(x0_flat.shape))
 
     def native_of(state):
-        return _values_of(state).torch(order)
+        return y_format.flatten(state).reshape(-1)
 
     rhs = native_of(y)
-    x0_n = native_of(x0)
+    x0_n = x0_flat.reshape(-1)
     if not assume_homogeneous:
         b0 = native_of(op(state_of(torch.zeros_like(x0_n))))
         rhs = rhs - b0
@@ -522,7 +638,7 @@ def solve_linear(f, y, solve: Solve, *f_args, grad_for_f=False, f_kwargs: dict =
     M = None
     if callable(solve.preconditioner):
         def M(r):
-            z = native_of(solve.preconditioner(state_of(r)))
+            z = x_format.flatten(solve.preconditioner(state_of(r))).reshape(-1)
             return (sub_mean(z) if rank_def else z), None
 
     def param_matvec(x):  # the θ-dependent A·x of the backward: f(x) − f(0)

@@ -40,7 +40,9 @@ clamp in registers.
 particles of the FLIP model through a closed-box staggered velocity, NaN
 velocities (the unset cells of a FLIP grid) counting as zero. Their Field
 faces `points` and `finite_rk4` take a point cloud and unwrap into them; the
-`euler` integrator of a point cloud looks the velocity up at its points.
+`euler` and `rk4` integrators of a point cloud look the velocity up at its
+points (`sample`, differentiable in the velocity and the points); `advect`
+dispatches a point cloud to `points` and a grid to `semi_lagrangian`.
 """
 from __future__ import annotations
 
@@ -52,12 +54,12 @@ from ..field._field import Field, face_components, face_values
 from ..field._field_math import _array_layout, _dx_tuple, _layout, _native_extrap, _plain_values, spatial_gradient
 from ..field._point_cloud import PointCloud
 from ..field._resample import sample, sample_grid_at_centers, sample_staggered_at_points, staggered_point_arrays
-from ..geom import Geometry
+from ..geom import Geometry, Point
 from ..geom._geom import flat_points
 from ..math import Tensor, channel, dual, stack, _ops as ops
 from ..math._nd import PERIODIC, Extrapolation, component_extrapolation, shift_window_interp
 
-__all__ = ['euler', 'finite_rk4', 'points', 'differential', 'finite_difference', 'semi_lagrangian', 'mac_cormack',
+__all__ = ['euler', 'rk4', 'finite_rk4', 'advect', 'points', 'differential', 'finite_difference', 'semi_lagrangian', 'mac_cormack',
            'max_displacement_cells',
            'semi_lagrangian_native', 'mac_cormack_native', 'max_displacement_cells_native', 'finite_rk4_native',
            'points_native']
@@ -221,6 +223,19 @@ def euler(field, velocity, dt: float, v0=None):
     return field.points + dt * v0
 
 
+def rk4(field, velocity, dt: float, v0=None):
+    """4th-order Runge–Kutta end points of `field`'s sample points (JAX's
+    `rk4`, `:27`): the velocity looked up at the points and at three
+    intermediate points, through `sample`."""
+    if v0 is None:
+        v0 = _sample_velocity(velocity, field)
+    pts = field.points
+    vel_half = sample(velocity, Point(pts + 0.5 * dt * v0))
+    vel_half2 = sample(velocity, Point(pts + 0.5 * dt * vel_half))
+    vel_full = sample(velocity, Point(pts + dt * vel_half2))
+    return pts + dt * ((1 / 6.) * (v0 + 2 * (vel_half + vel_half2) + vel_full))
+
+
 def finite_rk4(field, velocity, dt: float, v0=None):
     """4th-order Runge–Kutta end points of a point cloud's points in the
     staggered `velocity`, non-finite velocities taken as zero
@@ -244,6 +259,15 @@ def points(points_, velocity, dt: float, integrator=euler):
     if isinstance(points_, Field):
         return result
     return result.geometry if isinstance(points_, Geometry) else result.center
+
+
+def advect(field, velocity, dt, integrator=euler, **kwargs):
+    """A point cloud by `points`, a grid by `semi_lagrangian`."""
+    if field.is_point_cloud:
+        return points(field, velocity, dt=dt, integrator=integrator)
+    if field.is_grid:
+        return semi_lagrangian(field, velocity, dt=dt, integrator=integrator, **kwargs)
+    raise NotImplementedError(f"advection of {field}")
 
 
 def differential(u, velocity, density: float = 1., order=2, implicit=None, upwind=True):

@@ -189,3 +189,43 @@ def test_default_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA'):
             tm.set_default_device(None)
+
+
+@pytest.mark.parametrize('kind', NATIVE)
+def test_sign_of_nan_is_nan(kind):
+    """Fault 3.2: `math.sign` keeps NaN, as `jnp.sign` does."""
+    t, j = _pair(np.asarray([np.nan, -2., 0., 3.], np.float32), kind, lambda m: m.spatial('x'))
+    got, want = tm.sign(t), jm.sign(j)
+    assert got.numpy().dtype == np.asarray(want.numpy()).dtype
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want.numpy()))  # NaN where NaN
+
+
+@pytest.mark.parametrize('kind', NATIVE)
+def test_integer_and_boolean_sum_prod_keep_jax_dtypes(kind):
+    """Fault 3.3: integer and boolean sums and products are int32, as in JAX."""
+    t, j = _pair(_rng(7).uniform(-3, 3, (3, 4)).astype(np.float32), kind, _yx)
+    _check(tm.sum(tm.to_int32(t)), jm.sum(jm.to_int32(j)))
+    _check(tm.prod(tm.to_int32(t), 'x'), jm.prod(jm.to_int32(j), 'x'))
+    _check(tm.sum(t > 0), jm.sum(j > 0))
+    _check(tm.sum(t > 0, 'y'), jm.sum(j > 0, 'y'))
+
+
+@pytest.mark.parametrize('kind', NATIVE)
+def test_mean_of_integers_and_booleans(kind):
+    """Fault 3.4: the mean of an int or bool Tensor is float32, as in JAX."""
+    t, j = _pair(_rng(8).uniform(-3, 3, (3, 4)).astype(np.float32), kind, _yx)
+    _check(tm.mean(tm.to_int32(t)), jm.mean(jm.to_int32(j)), summed=True)
+    _check(tm.mean(t > 0), jm.mean(j > 0), summed=True)
+    _check(tm.mean(t > 0, 'x'), jm.mean(j > 0, 'x'), summed=True)
+
+
+@pytest.mark.parametrize('kind', NATIVE)
+def test_losses_of_a_staggered_stack(kind):
+    """`math.l2_loss` / `l1_loss` of a non-uniform TensorStack (a staggered
+    grid's values) sum over the components, as in JAX (they raised TypeError:
+    the builtin `sum` was shadowed by `math.sum`)."""
+    a, ja = _pair(_rng(9).standard_normal((3, 4)).astype(np.float32), kind, lambda m: m.spatial('x,y'))
+    b, jb = _pair(_rng(10).standard_normal((4, 3)).astype(np.float32), kind, lambda m: m.spatial('x,y'))
+    st, jst = tm.stack([a, b], tm.dual(vector='x,y')), jm.stack([ja, jb], jm.dual(vector='x,y'))
+    _check(tm.l2_loss(st), jm.l2_loss(jst), summed=True)
+    _check(tm.l1_loss(st), jm.l1_loss(jst), summed=True)
