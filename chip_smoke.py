@@ -177,7 +177,26 @@ Phases; any failure exits non-zero and prints no result:
      assert; and `grid_sample` (per-corner at 2^20 points, the slab route
      forced at 2^16 and at 2^20), `fft` → `ifft`, `convolve` (3³) and
      `histogram` (2^24 values) at 256³ card against CPU within 1e-5 (FFT
-     1e-4) of scale;
+     1e-4) of scale; then the solvers and projections (`run_solvers`,
+     phase 8): 8a methods-256, the 256³ closed box with `smooth_state`'s
+     velocity projected from x0 = 0 at 1e-4 / 1e-4 (at most 500
+     iterations) by 'CG', 'CG-adaptive' (the V-cycle, JAX's rule) and
+     'biCG-stab', 'biCG-stab(2)' (unpreconditioned), 1 warm-up and 3 timed
+     solves each: iterations, converged, ms, max |div|, K1 exactly its
+     launches a solve and K2–K4 a V-cycle's, the CG family converged, every
+     residual below ‖b‖ and finite; 8b obstacle-256-adaptive, 4f's step
+     solved by 'CG-adaptive' (K1m 7 + 4 an iteration, the divergence under
+     2e-4); 8c tunnel-512x256x256, Box(x=4, y=1, z=1) with flow through the x
+     walls at unit speed around a sphere, projected through the Field API
+     under 'auto' and 'CG-adaptive' (K1m exactly, finite, the divergence
+     under TUNNEL_DIV_BOUND), then the open box (ZERO_GRADIENT: K1 with
+     ghost0 sides and the V-cycle, exactly, converged); 8d
+     examples/fluid_logo.py's 12 steps at 64² (its asserts as gates, its
+     launches) and 2 steps card vs CPU at 1e-4 of scale; 8e the direct
+     solve at 128² = 16384 unknowns in float64 against CG at 1e-10 (1e-6)
+     with its ms, the reroute warning at 20000 unknowns, the Poiseuille
+     march by 'biCG-stab(2)' in float64, `matrix_from_function` of the 64²
+     periodic Laplacian and the nested domain, card vs CPU;
   6. the `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -1733,9 +1752,9 @@ def obstacle_setup(N):
                      angular_velocity=(0.0, 0.02, 0.05)))
 
 
-def obstacle_stepper(N, dt=OBSTACLE_DT, cg_tol=1e-4, max_iterations=500, preconditioner='chebyshev'):
+def obstacle_stepper(N, dt=OBSTACLE_DT, cg_tol=1e-4, max_iterations=500, preconditioner='chebyshev', method='CG'):
     """The body of `MovingObstacles.step` in 3D in the closed box, written
-    with the port's public functions; the projection runs with
+    with the port's public functions; the projection solves by `method` with
     `fluid.MASKED_PRECONDITIONER` set to `preconditioner`. Returns
     step(v, p, *obstacles) -> ((v, p, *obstacles), solve result) and its
     three phases."""
@@ -1754,7 +1773,7 @@ def obstacle_stepper(N, dt=OBSTACLE_DT, cg_tol=1e-4, max_iterations=500, precond
         fluid.MASKED_PRECONDITIONER = preconditioner
         try:
             return fluid.make_incompressible_native(v, p, 1.0, rel_tol=cg_tol, abs_tol=0., max_iterations=max_iterations,
-                                             obstacles=obstacles)
+                                                    obstacles=obstacles, method=method)
         finally:
             fluid.MASKED_PRECONDITIONER = default
 
@@ -1776,8 +1795,7 @@ def obstacle_masks(N):
     from phiflow_tpu_torch.physics import fluid
     accessible = geometry_mask(~union([o.geometry for o in obstacle_setup(N)]),
                                cell_grid((N,) * 3, 1.0, 'cuda')).contiguous()
-    mA, c0 = P.stage_masks(fluid._full_face_masks(stagger_native(accessible, torch.minimum, 0.0), False), PATH_BC,
-                           (1.0,) * 3)
+    mA, c0 = P.stage_masks(fluid._full_face_masks(stagger_native(accessible, torch.minimum, 0.0)), PATH_BC, (1.0,) * 3)
     return mA, c0, accessible
 
 
@@ -1804,16 +1822,17 @@ def smoothed_levels(N):
 OBSTACLE_DIV_BOUND = {'chebyshev': 2e-4, 'vcycle': 8e-4}
 
 
-def run_obstacles(tag, N, warmup=2, steps=5, preconditioner='chebyshev'):
+def run_obstacles(tag, N, warmup=2, steps=5, preconditioner='chebyshev', method='CG'):
     """The obstacle step at N³ on the card under one of the masked systems'
-    preconditioners: launch counts of a timed run, the split, and the gates
+    preconditioners, its projection solved by `method` ('CG' or
+    'CG-adaptive'): launch counts of a timed run, the split, and the gates
     on what comes out."""
     import torch
     from phiflow_tpu_torch.field import cell_grid, divergence_native, geometry_mask, spatial_gradient_native, stagger_native
     from phiflow_tpu_torch.geom import union
     from phiflow_tpu_torch.ops import _build
     from phiflow_tpu_torch.physics import fluid
-    step, move, advect_velocity, project = obstacle_stepper(N, preconditioner=preconditioner)
+    step, move, advect_velocity, project = obstacle_stepper(N, preconditioner=preconditioner, method=method)
     state = obstacle_state(N, 'cuda')
     for _ in range(warmup):
         state, _ = step(*state)
@@ -1831,12 +1850,12 @@ def run_obstacles(tag, N, warmup=2, steps=5, preconditioner='chebyshev'):
     iters = [r.iterations for r in solves]
     print(f'{tag} {N}^3: {ms:.2f} ms/step, {N ** 3 / (ms * 1e-3) / 1e6:.1f} Mcells/s over {steps} steps after '
           f'{warmup} warm-up steps; CG iterations per step {iters}, converged {[r.converged for r in solves]} '
-          f'(cg_tol 1e-4, at most 500, MASKED_PRECONDITIONER {preconditioner!r})')
+          f'(cg_tol 1e-4, at most 500, MASKED_PRECONDITIONER {preconditioner!r}, method {method!r})')
     print(f'{tag} launches per step: ' + ', '.join(f'{k}={launches.get(k, 0) / steps:g}' for k in KERNELS))
     if preconditioner == 'chebyshev':
-        # K1m: two diagonal probes, A·x0 and the first preconditioner's three a solve, four an iteration — all of
-        # them with the coefficient arrays and the accessible cells
-        k1m = sum(6 + 4 * it for it in iters)
+        # K1m: two diagonal probes, A·x0 and the first preconditioner's three a solve (CG-adaptive: and A·d0), four
+        # an iteration — all of them with the coefficient arrays and the accessible cells
+        k1m = sum((7 if method == 'CG-adaptive' else 6) + 4 * it for it in iters)
         v_cycles = 0
     else:
         # the projected V-cycle: A·x0 and one matvec an iteration through K1m; one V-cycle (K2–K4, no K1) a solve
@@ -2808,14 +2827,16 @@ def cg_dot_probe(N=PATH_N, steps=3, rounds=2, solves=5):
     rounds. Printed, not gated."""
     import statistics
     import torch
+    from phiflow_tpu_torch.field import face_layout
     from phiflow_tpu_torch.math._multigrid import make_poisson_vcycle
     from phiflow_tpu_torch.math._solve import _dot, cg, sub_mean
     from phiflow_tpu_torch.models import SmokePlume, state_from_numpy
     from phiflow_tpu_torch.physics import fluid
     gaps = []
 
-    def recording(resolution, dx, bcs, device):
-        vcycle = make_poisson_vcycle(tuple(resolution), (dx,) * len(resolution), bcs, device)
+    def recording(resolution, dx, bcs, device, singular=True):
+        vcycle = make_poisson_vcycle(tuple(resolution), tuple(dx) if isinstance(dx, (tuple, list))
+                                     else (dx,) * len(resolution), bcs, device)
         gaps.append([])
 
         def M(r):
@@ -2839,8 +2860,8 @@ def cg_dot_probe(N=PATH_N, steps=3, rounds=2, solves=5):
               f'projection - dot after| / |dot after| per preconditioner call '
               + ' '.join(f'{float(g):.2e}' for g in solve))
     vel = [torch.from_numpy(a).cuda() for a in smooth_state(N)[:3]]
-    bcs = fluid._classify_pressure_bc(False, 3)
-    rhs = sub_mean(fluid._balance_divergence(fluid.divergence_native(vel, 1.0, False)))
+    bcs = fluid.pressure_modes(face_layout(False, 3))
+    rhs = sub_mean(fluid._balance_divergence(fluid.divergence_native(vel, 1.0)))
     zeros = torch.zeros_like(rhs)
     vcycle = make_poisson_vcycle((N,) * 3, (1.0,) * 3, bcs, 'cuda')
 
@@ -3501,6 +3522,517 @@ def run_optimisation():
     return by_path
 
 
+SOLVER_METHODS = ('CG', 'CG-adaptive', 'biCG-stab', 'biCG-stab(2)')
+TUNNEL_RES = (512, 256, 256)  # Box(x=4, y=1, z=1): cells twice as long along x
+TUNNEL_SOLVES = ('auto', 'CG-adaptive')
+# max |div·active − its mean| after the tunnel's projections at 1e-4: ten times the larger first reading on an H100
+# (9.022e-02 under 'auto', 8.804e-02 under 'CG-adaptive'; the cells are 1/128 × 1/256 × 1/256, so the divergence is
+# in units 256 times those of the unit-cell paths)
+TUNNEL_DIV_BOUND = 0.9
+
+
+def pow2(x):
+    """The power of two nearest x > 0: dividing by it is exact, bfloat16 ulps included."""
+    import numpy as np
+    return float(2.0 ** np.round(np.log2(x))) if x > 0 else 1.0
+
+
+class Recorder:
+    """Wraps functions of modules while a block runs; `keep(name, args, kwargs, kept)` returns entries {key: value}
+    to keep from a call (the first value of each key stays), so that a kernel can be held against its twin on the
+    inputs the path gave it."""
+
+    def __init__(self, keep, **targets):
+        self.keep, self.targets, self.kept = keep, targets, {}
+
+    def __enter__(self):
+        self.saved = {}
+        for name, module in self.targets.items():
+            fn = self.saved[name] = getattr(module, name)
+
+            def wrapper(*args, _name=name, _fn=fn, **kwargs):
+                for key, value in self.keep(_name, args, kwargs, self.kept).items():
+                    self.kept.setdefault(key, value)
+                return _fn(*args, **kwargs)
+            setattr(module, name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for name, module in self.targets.items():
+            setattr(module, name, self.saved[name])
+
+
+def check_tunnel_stencil(ch, kernel, case, p, inv_dx2, bcs, kw):
+    """K1 / K1m against its twin on the tunnel's pressure `p` with the operator's own inv_dx2, sides and staged
+    arrays: phase 3's 2e-5 (and 1e-5 of the dot) on p's system scaled to phase 3's (unit cells, p of unit standard
+    deviation) by a power of two, s = std(p) · Σ inv_dx2 / 3."""
+    from phiflow_tpu_torch.ops import poisson as P
+    s = pow2(float(p.std()) * sum(inv_dx2) / 3)
+    got, dot = P.poisson_apply(p, inv_dx2, bcs, with_dot=True, **kw)
+    ref, rdot = P._poisson_apply_plain(p, inv_dx2, bcs, with_dot=True, **kw)
+    ch.compare(kernel, f'{case} (÷ {s:g})', got / s, ref / s, 2e-5)
+    ch.compare_dot(kernel, f'{case} (÷ {s:g})', dot, rdot, 1e-5)
+
+
+def check_tunnel_vcycle(ch, case, kept, inv_dx2, bcs):
+    """K2, K3 and K4 against their twins on the inputs the open tunnel's first V-cycle gave them at its finest
+    level (`kept`): phase 3's tolerances (K2 2e-5, K3 1e-5, K4 exact) on the level scaled to phase 3's unit one by a
+    power of two, s = std of the reference result (K2), max(std(b), std(u) · Σ inv_dx2 / 3) (K3)."""
+    from phiflow_tpu_torch.ops import poisson as P
+    from phiflow_tpu_torch.ops import transfer as T
+    for key in ('zero-init', 'warm'):
+        u, b, w, sweeps, out_dtype = kept[key]
+        zero_init = key == 'zero-init'
+        ref = P._poisson_smooth_plain(u, b, inv_dx2, bcs, w, sweeps, zero_init, out_dtype, False)
+        s = pow2(float(ref.float().std()))
+        got = P.poisson_smooth(u, b, inv_dx2, bcs, w, sweeps, zero_init=zero_init, out_dtype=out_dtype)
+        ch.compare('jacobi_sweeps', f'{case} {key} sweeps={sweeps} {str(b.dtype)[6:]}->{str(out_dtype)[6:]} '
+                   f'(÷ {s:g})', got / s, ref / s, 2e-5)
+    u, b = kept['residual_restrict']
+    s = pow2(max(float(b.float().std()), float(u.float().std()) * sum(inv_dx2) / 3))
+    ch.compare('residual_restrict', f'{case} u {str(u.dtype)[6:]}, b {str(b.dtype)[6:]} (÷ {s:g})',
+               P.residual_restrict(u, b, inv_dx2, bcs) / s, P._residual_restrict_plain(u, b, inv_dx2, bcs) / s, 1e-5)
+    e, u = kept['prolong_add']
+    ch.compare('prolong_add', f'{case} c {tuple(e.shape)} + u {tuple(u.shape)} {str(u.dtype)[6:]}',
+               T.prolong_add(e, u), T._prolong_add_plain(e, u), 0.0)
+
+
+def _keep_finest(shape):
+    """`Recorder`'s keep for the solve's matvec and the V-cycle's kernels: the first matvec with its dot (its
+    arguments), and the first call of each V-cycle kernel (K2 zero-init and warm) at the finest level `shape`, its
+    tensors copied."""
+    def keep(name, args, kwargs, kept):
+        if name == 'poisson_apply':
+            return {name: (args, kwargs)} if kwargs.get('with_dot') else {}
+        if name == 'poisson_smooth':
+            u, b, inv_dx2, bcs, w, sweeps = args
+            key = 'zero-init' if kwargs.get('zero_init', False) else 'warm'
+            if tuple(b.shape) != shape or key in kept:
+                return {}
+            return {key: (None if key == 'zero-init' else u.clone(), b.clone(), w, sweeps, kwargs.get('out_dtype'))}
+        fine = args[0] if name == 'residual_restrict' else args[1]
+        if tuple(fine.shape) != shape or name in kept:
+            return {}
+        return {name: (args[0].clone(), args[1].clone())}
+    return keep
+
+
+def levels_smoothed(shape):
+    """The V-cycle's smoothed levels for a grid of `shape` under math/_multigrid.py's
+    defaults (halving until an odd size or 4 cells, a direct solve up to 512 unknowns)."""
+    import numpy as np
+    levels, res = 1, tuple(shape)
+    while not (any(n % 2 for n in res) or min(res) <= 4):
+        res = tuple(n // 2 for n in res)
+        levels += 1
+    return levels - 1 if int(np.prod(res)) <= 512 else levels
+
+
+def k1_per_solve(method, iterations, masked=False):
+    """K1's (or K1m's) launches in one projection solve: A·x0, then CG one matvec an iteration, CG-adaptive A·d0
+    besides, BiCGStab and BiCGStab(2) two (their `iterations` count matvecs / 2); under Chebyshev (masked) its two
+    diagonal probes, three matvecs an application, one a solve and one an iteration."""
+    if masked:
+        return (7 if method == 'CG-adaptive' else 6) + 4 * iterations
+    return {'CG': 1, 'auto': 1, 'CG-adaptive': 2}.get(method, 1) + (iterations if method in ('CG', 'auto', 'CG-adaptive')
+                                                                     else 2 * iterations)
+
+
+def check_launches(tag, launches, k1, v_cycles, shape, masked=False):
+    """Raise unless the counted launches are K1 (masked: K1m in both its counters) exactly `k1`, K2 exactly its
+    launches in `v_cycles` V-cycles on `shape`, K3 and K4 a whole positive number a V-cycle (0 without one)."""
+    expected = {'poisson_stencil': k1, 'poisson_stencil_masked': k1 if masked else 0,
+                'poisson_stencil_coeffs': k1 if masked else 0,
+                'jacobi_sweeps': K2_LAUNCHES_PER_LEVEL * levels_smoothed(shape) * v_cycles}
+    wrong = {k: (launches.get(k, 0), e) for k, e in expected.items() if launches.get(k, 0) != e}
+    for k in ('residual_restrict', 'prolong_add'):
+        count = launches.get(k, 0)
+        if (count == 0 or count % v_cycles) if v_cycles else count:
+            wrong[k] = (count, f'a positive multiple of {v_cycles} V-cycles' if v_cycles else 0)
+    if k1 == 0 or wrong:
+        raise RuntimeError(f'{tag}: launches (counted, expected): {wrong}')
+
+
+def run_solver_methods(N=PATH_N, runs=3):
+    """8a: the 256³ closed box with 4f's smooth divergent velocity and no obstacle, projected from x0 = 0 at
+    1e-4 / 1e-4 (at most 500 iterations) by each of SOLVER_METHODS, 1 warm-up and `runs` timed solves: iterations,
+    converged, ms, max |div|, ‖r‖ against ‖b‖. Gates: K1's exact launches a solve (K1m none); K2 exactly, K3 / K4
+    a whole number a V-cycle for the CG family (preconditioned by the V-cycle, JAX's rule), none for the
+    BiCGStab family (unpreconditioned); the CG family converged; every solve's residual below ‖b‖ and finite."""
+    import torch
+    from phiflow_tpu_torch.field import divergence_native
+    from phiflow_tpu_torch.ops import _build
+    from phiflow_tpu_torch.physics import fluid
+    *vel, _, _ = smooth_state(N, 3)
+    vel = tuple(torch.from_numpy(c).to('cuda') for c in vel)
+    div0 = divergence_native(vel, 1.0)
+    b_norm = float(torch.linalg.vector_norm((div0 - div0.mean()).double()))
+    by_path = {}
+    for method in SOLVER_METHODS:
+        def solve():
+            return fluid.make_incompressible_native(vel, None, 1.0, rel_tol=1e-4, abs_tol=1e-4, max_iterations=500,
+                                                    method=method)
+        solve()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        times, results = [], []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            v, p, result = solve()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            results.append(result)
+        launches = dict(_build.LAUNCHES, solves=runs)
+        iters = [r.iterations for r in results]
+        cg_family = method in ('CG', 'CG-adaptive')
+        residuals = [float(r.residual) for r in results]
+        div = float(divergence_native(v, 1.0).abs().max())
+        finite = all(bool(torch.isfinite(t).all()) for t in (*v, p))
+        print(f'8a methods-{N} {method}: iterations {iters}, converged {[r.converged for r in results]}, '
+              f'{statistics.median(times):.2f} ms a solve (median of {runs}: {", ".join(f"{t:.2f}" for t in times)}), '
+              f'max |div| {div:.3e}, |r| {residuals[-1]:.3e} of |b| {b_norm:.3e}, all finite: {finite}; launches a '
+              f'solve: ' + ', '.join(f'{k}={launches.get(k, 0) / runs:g}' for k in CG_KERNELS))
+        check_launches(f'methods-{N} {method}', launches, sum(k1_per_solve(method, it) for it in iters),
+                       sum(1 + it for it in iters) if cg_family else 0, (N,) * 3)
+        if not (finite and all(r < b_norm for r in residuals) and (all(r.converged for r in results) or not cg_family)):
+            raise RuntimeError(f'methods-{N} {method}: finite={finite} residuals={residuals} of {b_norm} '
+                               f'converged={[r.converged for r in results]}')
+        by_path[f'methods-{N}-{method}'] = launches
+        del v, p
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def _tunnel_velocity(boundary):
+    """A staggered velocity on TUNNEL_RES cells of Box(x=4, y=1, z=1) under `boundary`: 1 along x plus a
+    smooth wave of 0.1 on every component, made on the card."""
+    import numpy as np
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import StaggeredGrid
+    from phiflow_tpu_torch.geom import Box
+    names = ('x', 'y', 'z')
+    template = StaggeredGrid(0., boundary, bounds=Box(x=4, y=1, z=1), **dict(zip(names, TUNNEL_RES)))
+    comps = []
+    for a, d in enumerate(names):
+        shape = tuple(template.vector[d].values.shape.only(names, reorder=True).sizes)
+        g = torch.meshgrid(*[torch.arange(n, device='cuda', dtype=torch.float32) / n for n in shape], indexing='ij')
+        wave = torch.sin(2 * np.pi * (g[0] + 2 * g[1] + 3 * g[2]) + a) * torch.cos(2 * np.pi * g[(a + 1) % 3])
+        comps.append((1.0 if d == 'x' else 0.0) + 0.1 * wave)
+    return template.with_values(math.stack([math.wrap(c, math.spatial(*names)) for c in comps],
+                                           math.dual(vector=names)))
+
+
+def run_tunnel(ch):
+    """8c: the tunnel, TUNNEL_RES cells of Box(x=4, y=1, z=1) (twice as long along x), flow through the x walls
+    at unit speed (boundary {'x': 1, 'y': 0, 'z': 0}) around a sphere of radius 0.25 at (1, 0.5, 0.5), projected
+    through the Field API once per Solve of TUNNEL_SOLVES at 1e-4; gates: K1m's exact launches (Chebyshev),
+    finite, max |div·active − its mean| under TUNNEL_DIV_BOUND, and K1m against its twin on the resulting
+    pressure with the solve's own staged mA / c0 / active and unequal inv_dx2 (`check_tunnel_stencil`). Then the
+    open box (ZERO_GRADIENT: both outer faces stored, the pressure 0 beyond them) without the sphere: K1 with
+    ghost0 sides and the V-cycle (JAX's rule for 'auto'), exact launches, converged, finite, and K1, K2, K3 and
+    K4 against their twins on the inputs the solve gave them (`check_tunnel_vcycle`). The inputs are recorded in
+    the warm-up solve; the comparisons run after the counted one."""
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import divergence, resample
+    from phiflow_tpu_torch.geom import Sphere
+    from phiflow_tpu_torch.math import Solve, SolveTape, extrapolation
+    from phiflow_tpu_torch.math import _multigrid
+    from phiflow_tpu_torch.ops import _build
+    from phiflow_tpu_torch.physics import fluid
+    failed = len(ch.failed)
+    by_path = {}
+    size = 'x'.join(str(n) for n in TUNNEL_RES)
+    with math.default_device('cuda'):
+        sphere = Sphere(x=1., y=0.5, z=0.5, radius=0.25)
+        v0 = _tunnel_velocity({'x': 1, 'y': 0, 'z': 0})
+        for method in TUNNEL_SOLVES:
+            solve = Solve(method, 1e-4, 1e-4, max_iterations=500)
+            with Recorder(_keep_finest(TUNNEL_RES), poisson_apply=fluid) as rec:
+                fluid.make_incompressible(v0, [sphere], solve)  # warm-up
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            with SolveTape() as tape:
+                t0 = time.perf_counter()
+                v, p = fluid.make_incompressible(v0, [sphere], solve)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(_build.LAUNCHES)
+            it = tape[0].iterations
+            div = divergence(v)
+            active = 1 - resample(sphere, div, soft=False).values.torch(('x', 'y', 'z'))
+            d = div.values.torch(('x', 'y', 'z')) * active
+            dev = float(((d - d.sum() / active.sum()) * active).abs().max())
+            comps = [v.vector[n].values.torch(('x', 'y', 'z')) for n in 'xyz']
+            finite = all(bool(torch.isfinite(t).all()) for t in (*comps, p.values.torch(('x', 'y', 'z'))))
+            print(f'8c tunnel-{size} {method!r}: {ms:.2f} ms, {it} iterations, converged {tape[0].converged}, '
+                  f'max |div·active − its mean| {dev:.3e} (bound {TUNNEL_DIV_BOUND}), blocked cells '
+                  f'{int((active == 0).sum())}, all finite: {finite}, x faces {tuple(comps[0].shape)}; launches: '
+                  + ', '.join(f'{k}={launches.get(k, 0)}' for k in CG_KERNELS))
+            check_launches(f'tunnel {method}', launches, k1_per_solve(method, it, masked=True), 0, TUNNEL_RES, True)
+            if not (finite and dev < TUNNEL_DIV_BOUND):
+                raise RuntimeError(f'tunnel {method}: finite={finite} dev={dev}')
+            by_path[f'tunnel-{size}-{method}'] = launches
+            (_, inv_dx2, bcs), kw = rec.kept['poisson_apply']
+            check_tunnel_stencil(ch, 'poisson_stencil_coeffs', f'tunnel {method!r} {size} mA+c0+active {bcs}',
+                                 p.values.torch(('x', 'y', 'z')).contiguous(), inv_dx2, bcs,
+                                 {k: kw[k] for k in ('mA_list', 'c0', 'active')})
+            del v, p, div, d, active, comps, rec
+            torch.cuda.empty_cache()
+        v0 = _tunnel_velocity(extrapolation.ZERO_GRADIENT)
+        solve = Solve('auto', 1e-4, 1e-4, max_iterations=500)
+        with Recorder(_keep_finest(TUNNEL_RES), poisson_apply=fluid, poisson_smooth=_multigrid,
+                      residual_restrict=_multigrid, prolong_add=_multigrid) as rec:
+            fluid.make_incompressible(v0, (), solve)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with SolveTape() as tape:
+            t0 = time.perf_counter()
+            v, p = fluid.make_incompressible(v0, (), solve)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.LAUNCHES)
+        it = tape[0].iterations
+        comps = [v.vector[n].values.torch(('x', 'y', 'z')) for n in 'xyz']
+        div = float(divergence(v).values.torch(('x', 'y', 'z')).abs().max())
+        finite = all(bool(torch.isfinite(t).all()) for t in (*comps, p.values.torch(('x', 'y', 'z'))))
+        print(f'8c tunnel-{size}-open: {ms:.2f} ms, {it} iterations, converged {tape[0].converged}, max |div| '
+              f'{div:.3e}, all finite: {finite}, x faces {tuple(comps[0].shape)}; launches: '
+              + ', '.join(f'{k}={launches.get(k, 0)}' for k in CG_KERNELS))
+        check_launches('tunnel open', launches, k1_per_solve('auto', it), 1 + it, TUNNEL_RES)
+        if not (finite and tape[0].converged and tuple(comps[0].shape) == (TUNNEL_RES[0] + 1,) + TUNNEL_RES[1:]):
+            raise RuntimeError(f'tunnel open: finite={finite} converged={tape[0].converged} {tuple(comps[0].shape)}')
+        by_path[f'tunnel-{size}-open'] = launches
+        (_, inv_dx2, bcs), kw = rec.kept['poisson_apply']
+        check_tunnel_stencil(ch, 'poisson_stencil', f'tunnel open {size} {bcs}',
+                             p.values.torch(('x', 'y', 'z')).contiguous(), inv_dx2, bcs, {})
+        check_tunnel_vcycle(ch, f'tunnel open {size}', rec.kept, inv_dx2, bcs)
+    if len(ch.failed) > failed:
+        raise RuntimeError(f'tunnel: kernels against their twins failed: {ch.failed[failed:]}')
+    return by_path
+
+
+def fluid_logo(device, steps):
+    """`examples/fluid_logo.py` at its 64² through the port's public functions: `steps` steps on `device`;
+    returns (smoke, velocity, pressure, the logo geometry)."""
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import CenteredGrid, StaggeredGrid, resample
+    from phiflow_tpu_torch.geom import Box, union
+    from phiflow_tpu_torch.math import ConvergenceException, Solve, extrapolation
+    from phiflow_tpu_torch.physics import advect, fluid
+    with math.default_device(device):
+        domain = dict(x=64, y=64, bounds=Box(x=100, y=100))
+        geometry = union([Box(x=(15 + x * 7, 15 + (x + 1) * 7), y=(41, 83)) for x in range(1, 10, 2)] +
+                         [Box(x=(43, 50), y=(41, 48)), Box(x=(15, 43), y=(83, 90)), Box(x=(50, 85), y=(83, 90))])
+        zg = extrapolation.ZERO_GRADIENT
+        inflow = CenteredGrid(Box(x=(14, 21), y=(6, 10)), zg, **domain) + \
+            CenteredGrid(Box(x=(81, 88), y=(6, 10)), zg, **domain) * 0.9 + \
+            CenteredGrid(Box(x=(44, 47), y=(49, 51)), zg, **domain) * 0.4
+        v = StaggeredGrid(0, boundary=0, **domain)
+        smoke = CenteredGrid(0, boundary=zg, **domain)
+        p = CenteredGrid(0., fluid._pressure_extrapolation(v.boundary), **domain)
+        for _ in range(steps):
+            smoke = advect.semi_lagrangian(smoke, v, 1) + inflow
+            v = advect.semi_lagrangian(v, v, 1) + resample(smoke * (0, 0.1), to=v)
+            v, p = fluid.make_incompressible(v, geometry, Solve('CG-adaptive', 1e-5, 1e-5, x0=p,
+                                                                suppress=(ConvergenceException,)))
+        return smoke, v, p, geometry
+
+
+def run_fluid_logo(steps=12):
+    """8d: `examples/fluid_logo.py` on the card, its 12 steps, its three asserts as gates (finite, total smoke >
+    10, max |div| outside the logo < 1e-2), launches (K7 by the 2D semi-Lagrangian lookups, if any); then 2 steps
+    on the CPU and on the card from the example's initial state, within 1e-4 of each field's scale."""
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import divergence, resample
+    from phiflow_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    smoke, v, p, geometry = fluid_logo('cuda', steps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = dict(_build.LAUNCHES, steps=steps)
+    with math.default_device('cuda'):
+        total = float(math.sum(smoke.values))
+        vmax = float(math.max(abs(v.values)))
+        div = divergence(v)
+        div_out = float(math.max(abs(div.values) * (1 - resample(geometry, div, soft=False).values)))
+    print(f'8d fluid-logo 64^2: {steps} steps, {ms:.2f} ms/step; total smoke {total:.2f}, max |v| {vmax:.3f}, max '
+          f'|div| outside the logo {div_out:.2e}; launches: ' + ', '.join(f'{k}={c}' for k, c in launches.items()))
+    import math as pymath
+    if not (pymath.isfinite(total) and pymath.isfinite(vmax) and total > 10 and div_out < 1e-2):
+        raise RuntimeError(f'fluid-logo: total={total} vmax={vmax} div_out={div_out}')
+    card, cpu = fluid_logo('cuda', 2)[:3], fluid_logo('cpu', 2)[:3]
+    errs = []
+    for got, ref in zip(card, cpu):
+        if got.is_staggered:
+            errs += [_scale_err(got.vector[d].values.torch(('x', 'y')), ref.vector[d].values.torch(('x', 'y')))
+                     for d in 'xy']
+        else:
+            errs.append(_scale_err(got.values.torch(('x', 'y')), ref.values.torch(('x', 'y'))))
+    print(f'8d fluid-logo 64^2, 2 steps card vs CPU: scaled errors (smoke, v_x, v_y, p) '
+          + ', '.join(f'{e:.2e}' for e in errs) + ' (tol 1e-4)')
+    if max(errs) > 1e-4:
+        raise RuntimeError(f'fluid-logo card vs CPU: {errs}')
+    return {'fluid-logo-64': launches}
+
+
+def _nested_domain(device):
+    """`tests/physics/test_fluid.py::test_embedded_pressure_boundary_solve` on `device`: max |div| outside the
+    sphere after the projection with and without it (the test's bound 1e-3), and the velocities."""
+    import numpy as np
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import CenteredGrid, StaggeredGrid, divergence, resample
+    from phiflow_tpu_torch.geom import Box, Sphere
+    from phiflow_tpu_torch.math import Solve, extrapolation
+    from phiflow_tpu_torch.physics import fluid
+    rng = np.random.default_rng(3)
+    p_large, vx, vy = (rng.standard_normal(s).astype(np.float32) * 0.1 for s in ((32, 32), (49, 48), (48, 49)))
+    with math.default_device(device):
+        large, small = Box(x=100, y=100), Box(x=(30, 70), y=(40, 80))
+        pl = CenteredGrid(math.wrap(torch.from_numpy(p_large).to(device), math.spatial('x,y')), extrapolation.BOUNDARY,
+                          large, x=32, y=32)
+        v = StaggeredGrid(0, extrapolation.ZERO_GRADIENT, bounds=small, x=48, y=48)
+        v = v.with_values(math.stack([math.wrap(torch.from_numpy(a).to(device), math.spatial('x,y')) for a in (vx, vy)],
+                                     math.dual(vector='x,y')))
+        x0 = CenteredGrid(0, pl, bounds=small, resolution=v.resolution)
+        out, divs = [], []
+        for obstacles in ([Sphere(x=50, y=60, radius=5)], []):
+            v2, p2 = fluid.make_incompressible(v, obstacles, Solve('CG', 1e-5, 1e-5, x0=x0, max_iterations=4000))
+            div = divergence(v2)
+            dd = math.abs(div.values)
+            if obstacles:
+                dd = dd * (1 - resample(obstacles[0], div, soft=False).values)
+            divs.append(float(math.max(dd)))
+            out += [v2.vector[d].values.torch(('x', 'y')) for d in 'xy']
+        return divs, out
+
+
+def run_small_solvers():
+    """8e, card against CPU where both run: the direct solve of a Dirichlet Poisson system at 128² = 16384
+    unknowns in float64 against CG at 1e-10 (1e-6 of scale) and its ms; the reroute warning at 20000
+    unknowns; the Poiseuille march of `tests/physics/test_higher_order.py` with 'biCG-stab(2)' in float64
+    (error under 2e-4 of the analytic scale, card vs CPU 1e-8); `matrix_from_function` of the 64² periodic
+    Laplacian (5 entries a row, matrix @ v + bias == f(v)); the nested domain (max |div| under 1e-3 with and
+    without the sphere, card vs CPU 1e-4 of scale). No kernel of ours is on these paths."""
+    import warnings
+    import numpy as np
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import CenteredGrid
+    from phiflow_tpu_torch.geom import Box
+    from phiflow_tpu_torch.math import Solve, extrapolation, spatial
+    from phiflow_tpu_torch.physics import diffuse
+
+    def poisson(x):
+        lo_x, up_x = math.shift(x, (-1, 1), 'x', extrapolation.ZERO, stack_dim=None)
+        lo_y, up_y = math.shift(x, (-1, 1), 'y', extrapolation.ZERO, stack_dim=None)
+        return 4 * x - lo_x - up_x - lo_y - up_y
+
+    rng = np.random.default_rng(21)
+    with math.precision(64), math.default_device('cuda'):
+        rhs = math.tensor(torch.from_numpy(rng.standard_normal((128, 128))).to('cuda'), spatial('x,y'))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_direct = math.solve_linear(poisson, rhs, Solve('direct', 1e-6, 1e-6))
+        torch.cuda.synchronize()
+        direct_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        x_direct = math.solve_linear(poisson, rhs, Solve('direct', 1e-6, 1e-6))
+        torch.cuda.synchronize()
+        direct_ms2 = (time.perf_counter() - t0) * 1e3
+        x_cg = math.solve_linear(poisson, rhs, Solve('CG', 1e-10, 1e-10, max_iterations=20000))
+        err = _scale_err(x_direct.torch(('x', 'y')), x_cg.torch(('x', 'y')))
+        print(f'8e direct 128^2 (16384 unknowns, float64): {direct_ms:.2f} ms first, {direct_ms2:.2f} ms second '
+              f'(the matrix built from the identity\'s columns as one batch, then torch.linalg.solve); against CG at '
+              f'1e-10: {err:.2e} of scale (tol 1e-6); peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+        if err > 1e-6:
+            raise RuntimeError(f'direct 128^2: {err}')
+        del x_direct, x_cg
+        torch.cuda.empty_cache()
+        big = math.tensor(torch.from_numpy(rng.standard_normal(20000)).to('cuda'), spatial('x'))
+        with warnings.catch_warnings(record=True) as record:
+            warnings.simplefilter('always')
+            x = math.solve_linear(lambda u: 3 * u - sum(math.shift(u, (-1, 1), 'x', extrapolation.ZERO, stack_dim=None)),
+                                  big, Solve('scipy-direct', 1e-5, 1e-5))
+        messages = [str(w.message) for w in record]
+        print(f'8e direct at 20000 unknowns: warnings {messages}')
+        if not any('BiCGStab' in m for m in messages) or not bool(math.all(math.is_finite(x))):
+            raise RuntimeError(f'direct reroute: {messages}')
+
+    def poiseuille(device):
+        with math.precision(64), math.default_device(device):
+            n, nu, G = 48, 0.1, 1.0
+            u = CenteredGrid(0., extrapolation.ZERO, y=n, bounds=Box(y=1.))
+            force = CenteredGrid(lambda pos: G * math.sin(np.pi * pos.vector['y']), extrapolation.ZERO, y=n,
+                                 bounds=Box(y=1.))
+            for _ in range(25):
+                u = diffuse.implicit(u + 2.0 * force, nu, 2.0, order=6,
+                                     solve=Solve('biCG-stab(2)', 1e-10, 1e-10, max_iterations=500))
+            return u.values.torch('y')
+    scale = 1.0 / (0.1 * np.pi ** 2)
+    card, cpu = poiseuille('cuda'), poiseuille('cpu')
+    analytic = torch.from_numpy(scale * np.sin(np.pi * (np.arange(48) + 0.5) / 48))
+    err, apart = float((card.cpu() - analytic).abs().max()) / scale, _scale_err(card, cpu)
+    print(f'8e Poiseuille (order 6, biCG-stab(2), float64): error {err:.3e} of the analytic scale (tol 2e-4); card '
+          f'vs CPU {apart:.2e} (tol 1e-8)')
+    if err > 2e-4 or apart > 1e-8:
+        raise RuntimeError(f'Poiseuille: {err} {apart}')
+
+    def matrix(device):
+        with math.default_device(device):
+            def f(x):  # the 5-point periodic Laplacian by shifts (JAX's and the port's `math.laplace` refuse 2D)
+                lo_x, up_x = math.shift(x, (-1, 1), 'x', extrapolation.PERIODIC, stack_dim=None)
+                lo_y, up_y = math.shift(x, (-1, 1), 'y', extrapolation.PERIODIC, stack_dim=None)
+                return lo_x + up_x + lo_y + up_y - 4 * x
+            m, bias = math.matrix_from_function(f, math.zeros(spatial(x=64, y=64)))
+            v = math.tensor(torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32)).to(device),
+                            spatial('x,y'))
+            return m.entries, _scale_err((m @ v + bias).torch(('x', 'y')), f(v).torch(('x', 'y'))), m
+    entries, err, m_card = matrix('cuda')
+    entries_cpu, _, m_cpu = matrix('cpu')
+    with math.default_device('cuda'):
+        same = bool(torch.equal(math.dense(m_card).torch(('x', 'y', '~x', '~y')).cpu(),
+                                math.dense(m_cpu).torch(('x', 'y', '~x', '~y')).cpu()))
+    print(f'8e matrix_from_function 64^2 periodic Laplacian: {entries} entries (expected {5 * 64 * 64}; CPU '
+          f'{entries_cpu}), matrix @ v + bias vs f(v) {err:.2e} of scale (tol 1e-5), the card\'s matrix equal to the '
+          f'CPU\'s: {same}')
+    if entries != 5 * 64 * 64 or entries_cpu != entries or err > 1e-5 or not same:
+        raise RuntimeError('matrix_from_function')
+    del m_card, m_cpu
+    divs, card = _nested_domain('cuda')
+    divs_cpu, cpu = _nested_domain('cpu')
+    errs = [_scale_err(a, b) for a, b in zip(card, cpu)]
+    print(f'8e nested domain 48^2: max |div| with / without the sphere {divs[0]:.2e} / {divs[1]:.2e} (tol 1e-3; '
+          f'CPU {divs_cpu[0]:.2e} / {divs_cpu[1]:.2e}); card vs CPU velocities {max(errs):.2e} of scale (tol 1e-4)')
+    if max(divs) > 1e-3 or max(errs) > 1e-4:
+        raise RuntimeError(f'nested domain: {divs} {errs}')
+
+
+def run_solvers(ch):
+    """Phase 8, solvers and projections: 8a–8e. Returns the paths' launches for `launches_by_path`."""
+    import torch
+    card = card_line()
+    print(f'phase 8 (solvers and projections) on {card}')
+    t0 = time.perf_counter()
+    by_path = run_solver_methods()
+    torch.cuda.empty_cache()
+    by_path[f'obstacle-{OBSTACLE_N}-adaptive'] = run_obstacles(f'obstacle-{OBSTACLE_N}-adaptive', OBSTACLE_N, warmup=1,
+                                                               steps=2, method='CG-adaptive')
+    torch.cuda.empty_cache()
+    by_path.update(run_tunnel(ch))
+    torch.cuda.empty_cache()
+    by_path.update(run_fluid_logo())
+    run_small_solvers()
+    torch.cuda.empty_cache()
+    print(f'phase 8 (solvers and projections): {time.perf_counter() - t0:.1f} s on {card}')
+    return by_path
+
+
 def print_path_gaps(ch, by_path):
     """K1m's, K6's and K8's launches a step on each path that runs them ×
     (device − bound) of the row timed at that path's shape: K1m's coefficient
@@ -3669,6 +4201,7 @@ def main(argv):
     field_obstacle_against_array()
     by_path.update(run_gradients())
     by_path.update(run_optimisation())
+    by_path.update(run_solvers(ch))
     if '--profile' in argv:
         for tag, dims, N, per_phase, _ in PATHS:
             profile_slice(tag, dims, N, per_phase)

@@ -17,9 +17,12 @@ from ._field_math import (
     downsample2x, upsample2x, concat_fields as concat, stack_fields as stack, stop_gradient, l2_loss, l1_loss,
     frequency_loss,
     divergence_native, spatial_gradient_native, finite_fill_native, stagger_native, safe_mul_native, laplace_native,
+    face_layout,
 )
 from ._field_math import is_finite as isfinite
 from ._noise import Noise
+from ._embed import FieldEmbedding
+from ._mask import GeometryMask, HardGeometryMask, SoftGeometryMask
 from ._angular_velocity import angular_velocity, angular_velocity_at_faces
 from ._point_cloud import PointCloud, nonzero, distribute_points, distribute_points_native
 from ._resample import (sample_grid_at_centers, sample_grid_at_points, scatter_to_grid, cell_grid, staggered_cells,

@@ -60,7 +60,8 @@ def as_boundary(obj, geometry=None) -> Extrapolation:
     if isinstance(obj, Extrapolation):
         return obj
     if isinstance(obj, Field):
-        raise NotImplementedError("a Field as a boundary (field/_embed.py) comes with a later slice of the port")
+        from ._embed import FieldEmbedding
+        return FieldEmbedding(obj)
     if isinstance(obj, dict):
         return extrapolation_mod.combine_sides(**{k: as_boundary(v) for k, v in obj.items()})
     if isinstance(obj, (int, float, complex, Tensor)):
@@ -408,6 +409,11 @@ class Field:
             result = downsample2x(result)
             factor /= 2
         return result
+
+    def as_boundary(self) -> Extrapolation:
+        """This Field as the boundary of another: a `FieldEmbedding`."""
+        from ._embed import FieldEmbedding
+        return FieldEmbedding(self)
 
     def __getattr__(self, name):
         if name.startswith('_'):

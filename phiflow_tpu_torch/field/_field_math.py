@@ -3,13 +3,17 @@
 
 The array layer (`*_native`, on raw component tensors): `divergence_native`
 of a staggered velocity (`:243`) and the face `spatial_gradient_native` of a
-centred pressure (`:135`), for the closed box and the periodic box;
-`finite_fill_native` (`:476-503`), the one-cell extension of a FLIP velocity
-grid into its unset (NaN) cells; `stagger_native` (`:208-236`), a cell mask
-combined onto the faces; `safe_mul_native` (`:412-431`); the order-2
-`laplace_native` (`:81-106`). Closed box: component d holds the interior
-faces 1..N−1 along axis d (N−1 entries); the outer faces carry the wall's zero
-normal velocity. Periodic: component d holds faces 0..N−1, face N ≡ face 0.
+centred pressure (`:135`); `finite_fill_native` (`:476-503`), the one-cell
+extension of a FLIP velocity grid into its unset (NaN) cells;
+`stagger_native` (`:208-236`), a cell mask combined onto the faces;
+`safe_mul_native` (`:412-431`); the order-2 `laplace_native` (`:81-106`).
+The faces a component stores follow `face_layout`, per axis: periodic
+(faces 0..N−1, face N ≡ face 0), or per side a wall (the outer face not
+stored; it carries the wall's normal velocity, 0 at rest: the closed box,
+interior faces 1..N−1) or an open side (the outer face stored, as a
+zero-gradient velocity has it). Ghost cells beyond a stored face come from
+the pressure's extrapolation, by side (`math._nd.PerSide`, which also takes
+the ghost cells a Field embedding samples).
 
 The Field layer, with JAX's signatures: `divergence`, `spatial_gradient`,
 `stagger`, `laplace`, `fourier_laplace`, `fourier_poisson`, `where`,
@@ -21,10 +25,12 @@ computes them, `curl` (2D), the elementwise functions, `normalize`,
 `pad_field`, `downsample2x` (of staggered grids too), `upsample2x`,
 `concat_fields`, `stack_fields` (`field.pad`, `field.concat` and
 `field.stack`: named so here beside the array layer's `pad` and math's
-`stack`) and `bake_extrapolation`. Each unwraps to the array-level function of the same job, with one
-cell size per axis; a case that function does not cover (another face
-layout, a subset of the dims for staggered values, a boundary with no
-array-layer form, dims beyond the grid's and one channel dim) raises
+`stack`) and `bake_extrapolation`. Each unwraps to the array-level
+function of the same job, with one cell size per axis and the faces and
+ghost cells its boundary gives (`_face_layout`, `_native_sides`); a case
+that function does not cover (a subset of the dims for staggered values, a
+boundary with no array-layer form — SYMMETRIC, REFLECT, a non-constant
+wall —, dims beyond the grid's and one channel dim) raises
 NotImplementedError. The central differences of `spatial_gradient(at='center')`
 (order 2, and order 4 over ghost cells on a periodic box, `:107-121`, `:66-79`
 for the Laplacian) have no array-level counterpart and are computed on the
@@ -39,11 +45,12 @@ import numpy as np
 import torch
 
 from ..math import Tensor, TensorStack, channel, dual, instance, stack, wrap, _ops as ops
-from ..math._extrapolation import ConstantExtrapolation, map as map_extrapolation, to_native
-from ..math._nd import Extrapolation, PerSide, masked_fill_native, pad, shift_zero
+from ..math._extrapolation import (ConstantExtrapolation, _BoundaryExtrapolation, _MixedExtrapolation,
+                                   _PeriodicExtrapolation, get_normal, map as map_extrapolation, to_native)
+from ..math._nd import BOUNDARY, PERIODIC, Extrapolation, PerSide, masked_fill_native, pad, shift_zero
 from ._field import Field, as_boundary, face_components, face_values
 
-__all__ = ['divergence_native', 'spatial_gradient_native', 'finite_fill_native', 'stagger_native', 'safe_mul_native',
+__all__ = ['face_layout', 'stored_faces', 'divergence_native', 'spatial_gradient_native', 'finite_fill_native', 'stagger_native', 'safe_mul_native',
            'laplace_native', 'divergence', 'spatial_gradient', 'stagger', 'laplace', 'fourier_laplace',
            'fourier_poisson', 'where', 'is_finite', 'maximum', 'minimum', 'clip', 'safe_mul', 'finite_fill', 'mean',
            'mask', 'native_call', 'curl', 'abs_', 'sign', 'round_', 'ceil', 'floor', 'sqrt', 'exp', 'sin', 'cos', 'real',
@@ -57,34 +64,67 @@ def _per_axis(dx, ndim: int) -> tuple:
     return tuple(dx) if isinstance(dx, (tuple, list)) else (dx,) * ndim
 
 
-def divergence_native(velocity: Sequence[torch.Tensor], dx, periodic: bool = False) -> torch.Tensor:
+def face_layout(periodic: bool, ndim: int) -> tuple:
+    """The `faces` of the periodic box or of the closed box with its walls at
+    rest. A face layout gives the faces a staggered field stores, per axis:
+    `'periodic'` (faces 0..N−1, face N ≡ face 0) or a (lower, upper) pair,
+    each side None where the outer face is stored (an open side,
+    zero-gradient velocity) or the wall's normal velocity (a number) where it
+    is not."""
+    return ('periodic',) * ndim if periodic else ((0.0, 0.0),) * ndim
+
+
+def _faces(faces, ndim: int) -> tuple:
+    """`faces`, or the closed box at rest where None."""
+    return face_layout(False, ndim) if faces is None else tuple(faces)
+
+
+def stored_faces(axis_faces) -> Tuple[bool, bool]:
+    """(lower, upper) outer faces stored along an axis of `face_layout`."""
+    if axis_faces == 'periodic':
+        return True, False
+    return axis_faces[0] is None, axis_faces[1] is None
+
+
+def divergence_native(velocity: Sequence[torch.Tensor], dx, faces=None) -> torch.Tensor:
     """∇·v at the cell centres: Σ_d (v_d[face c+1] − v_d[face c]) / dx_d
-    (`dx`: one cell size, or one per axis)."""
+    (`dx`: one cell size, or one per axis; `faces`: the face layout, the
+    closed box at rest by default; an outer face not stored carries its
+    wall's normal velocity)."""
     h = _per_axis(dx, len(velocity))
+    layout = _faces(faces, len(velocity))
     result = None
     for d, comp in enumerate(velocity):
-        if periodic:
+        if layout[d] == 'periodic':
             term = (torch.roll(comp, -1, d) - comp) / h[d]
         else:
-            zero = torch.zeros_like(comp.narrow(d, 0, 1))
-            padded = torch.cat([zero, comp, zero], dim=d)
-            n = comp.shape[d] + 1
+            walls = [None if w is None else torch.full_like(comp.narrow(d, 0, 1), w) for w in layout[d]]
+            padded = torch.cat(([walls[0]] if walls[0] is not None else []) + [comp] +
+                               ([walls[1]] if walls[1] is not None else []), dim=d)
+            n = padded.shape[d] - 1
             term = (padded.narrow(d, 1, n) - padded.narrow(d, 0, n)) / h[d]
         result = term if result is None else result + term
     return result
 
 
-def spatial_gradient_native(p: torch.Tensor, dx, periodic: bool = False) -> Tuple[torch.Tensor, ...]:
-    """∇p at the faces the velocity stores: (p[c] − p[c−1]) / dx_d for face c
-    of axis d (`dx`: one cell size, or one per axis)."""
+def spatial_gradient_native(p: torch.Tensor, dx, faces=None,
+                            extrap: Extrapolation = 0.0) -> Tuple[torch.Tensor, ...]:
+    """∇p at the faces the velocity stores (`faces`, the face layout; the
+    closed box by default): (p[c] − p[c−1]) /
+    dx_d for face c of axis d (`dx`: one cell size, or one per axis); beyond
+    a stored outer face the ghost cell comes from `extrap`, p's extrapolation
+    (0: ghost cells of 0; `BOUNDARY`: no flux)."""
     h = _per_axis(dx, p.ndim)
+    layout = _faces(faces, p.ndim)
     comps = []
     for d in range(p.ndim):
-        if periodic:
+        if layout[d] == 'periodic':
             comps.append((p - torch.roll(p, 1, d)) / h[d])
         else:
-            n = p.shape[d] - 1
-            comps.append((p.narrow(d, 1, n) - p.narrow(d, 0, n)) / h[d])
+            lo, up = stored_faces(layout[d])
+            q = pad(p, d, int(lo), int(up), extrap)
+            n = q.shape[d] - 1
+            comps.append((q.narrow(d, 1, n) - q.narrow(d, 0, n)) / h[d])
     return tuple(comps)
 
 
@@ -109,18 +149,20 @@ def finite_fill_native(values: torch.Tensor, distance: int = 1) -> torch.Tensor:
 
 
 def stagger_native(values: torch.Tensor, face_function: Callable, extrap: Extrapolation,
-            periodic: bool = False) -> Tuple[torch.Tensor, ...]:
+                   faces=None) -> Tuple[torch.Tensor, ...]:
     """A centred grid at the faces a staggered field stores: each face gets
     `face_function` of its two cells (`torch.minimum` makes a face open only
     where both cells are). `extrap` is the centred grid's extrapolation, which
-    gives the cells beyond the outer faces; `periodic` is the staggered
-    field's box and decides which outer faces it stores."""
+    gives the cells beyond the outer faces; `faces` is the staggered field's
+    face layout (the closed box by default) and decides which faces it stores."""
+    layout = _faces(faces, values.ndim)
     comps = []
     for axis in range(values.ndim):
         padded = pad(values, axis, 1, 1, extrap)
         n = values.shape[axis]
-        faces = face_function(padded.narrow(axis, 0, n + 1), padded.narrow(axis, 1, n + 1))
-        comps.append(faces.narrow(axis, 0, n) if periodic else faces.narrow(axis, 1, n - 1))
+        faces_all = face_function(padded.narrow(axis, 0, n + 1), padded.narrow(axis, 1, n + 1))
+        lo, up = stored_faces(layout[axis])
+        comps.append(faces_all.narrow(axis, int(not lo), n + 1 - int(not lo) - int(not up)))
     return tuple(comps)
 
 
@@ -157,12 +199,6 @@ def _dx_tuple(field):
     return tuple(float(dx.vector[n]) for n in field.resolution.names)
 
 
-def _isotropic_dx(field):
-    """The cell size as one float when all axes share it, else None."""
-    dx = _dx_tuple(field)
-    return dx[0] if all(x == dx[0] for x in dx) else None
-
-
 def _native_form(ext, names):
     try:
         return to_native(ext, names)
@@ -179,12 +215,93 @@ def _native_extrap(ext, names):
     return form
 
 
+def _side_ext(ext, dim: str, upper: bool):
+    """The extrapolation of one side of `dim` (a mixed one resolved)."""
+    while isinstance(ext, _MixedExtrapolation):
+        ext = ext._get(dim, upper)
+    return ext
+
+
+def _native_sides(field):
+    """`field.boundary` as the array layer's extrapolation: `to_native`'s form
+    where it has one, else a `PerSide` of constants, BOUNDARY, PERIODIC and
+    the ghost cells a Field embedding samples (`ghost_cells`)."""
+    names = field.resolution.names
+    form = _native_form(field.boundary, names)
+    if form is not None:
+        return form
+    sides = []
+    for dim in names:
+        pair = []
+        for upper in (False, True):
+            e = _side_ext(field.boundary, dim, upper)
+            if isinstance(e, ConstantExtrapolation) and e.value.rank == 0:
+                pair.append(float(e.value))
+            elif isinstance(e, _BoundaryExtrapolation):
+                pair.append(BOUNDARY)
+            elif isinstance(e, _PeriodicExtrapolation):
+                pair.append(PERIODIC)
+            elif hasattr(e, 'ghost_cells'):
+                pair.append(e.ghost_cells(field.geometry, dim, upper))
+            else:
+                raise NotImplementedError(f"extrapolation {e!r} has no array-layer form: constants, BOUNDARY, "
+                                          f"PERIODIC and Field embeddings are ported, by side")
+        sides.append(tuple(pair))
+    return PerSide(*sides)
+
+
+def _face_layout(boundary, names, walls: bool = True) -> tuple:
+    """The `face_layout` of a staggered grid under `boundary`: per axis
+    'periodic', else per side None where the outer face is stored, else the
+    wall's normal velocity (a scalar constant; with ``walls=False`` any
+    extrapolation, read as 0)."""
+    layout = []
+    for dim in names:
+        stored = boundary.valid_outer_faces(dim)
+        normal = get_normal(boundary[{'vector': dim}])
+        sides = []
+        for upper in (False, True):
+            e = _side_ext(normal, dim, upper)
+            if isinstance(e, _PeriodicExtrapolation):
+                sides.append('periodic')
+            elif stored[int(upper)]:
+                sides.append(None)
+            elif isinstance(e, ConstantExtrapolation) and e.value.rank == 0:
+                sides.append(float(e.value))
+            elif not walls:
+                sides.append(0.0)
+            else:
+                raise NotImplementedError(f"boundary {boundary!r}: the walls' normal velocity along {dim} is not a "
+                                          f"scalar constant")
+        if 'periodic' in sides:
+            if sides != ['periodic', 'periodic']:
+                raise NotImplementedError(f"boundary {boundary!r}: periodic on one side of {dim} only")
+            layout.append('periodic')
+        else:
+            layout.append(tuple(sides))
+    return tuple(layout)
+
+
+def _check_staggered_shapes(field, layout):
+    """NotImplementedError unless each face component has the length its layout gives along its own axis."""
+    names = field.resolution.names
+    for axis, (dim, comp) in enumerate(zip(names, face_components(field.values))):
+        lo, up = stored_faces(layout[axis])
+        if comp.shape.get_size(dim) != field.resolution.get_size(dim) + int(lo) + int(up) - 1:
+            raise NotImplementedError(f"staggered component {dim} of {comp.shape} does not store the faces its "
+                                      f"boundary {field.boundary!r} gives")
+
+
 def _layout(field):
-    """'closed' when every component of a staggered grid stores its interior
-    faces only (the array layer's closed box), 'periodic' when it stores faces
-    0..N−1, else None."""
-    faces = {field.boundary.valid_outer_faces(d) for d in field.resolution.names}
-    return {frozenset({(False, False)}): 'closed', frozenset({(True, False)}): 'periodic'}.get(frozenset(faces))
+    """'closed' when every axis of a staggered grid has a wall on both sides
+    (its interior faces stored: the array layer's closed box), 'periodic'
+    when every axis is periodic, else None: `_face_layout`'s classes."""
+    layout = _face_layout(field.boundary, field.resolution.names, walls=False)
+    if all(f == 'periodic' for f in layout):
+        return 'periodic'
+    if all(f != 'periodic' and None not in f for f in layout):
+        return 'closed'
+    return None
 
 
 def _plain_values(values, names) -> bool:
@@ -203,17 +320,6 @@ def _array_layout(field, dims):
         raise NotImplementedError(f"boundary {field.boundary!r}: staggered grids of the closed box (interior "
                                   f"faces) or the periodic box are ported")
     return layout
-
-
-def _normal_walls_at_rest(field) -> bool:
-    """Whether each component of the staggered `field` is 0 beyond the walls
-    across its own axis, as the array layer's closed box has it."""
-    names = field.resolution.names
-    for axis, dim in enumerate(names):
-        ext = _native_extrap(field.boundary[{'vector': dim}], names)
-        if isinstance(ext, str) or (ext[axis] if isinstance(ext, PerSide) else (ext, ext)) != (0.0, 0.0):
-            return False
-    return True
 
 
 def _grid_values(values, names, fn):
@@ -291,7 +397,7 @@ def laplace(field, axes=None, gradient=None, order=2, implicit=None, weights=Non
     if isinstance(weights, Field):
         weights = weights.at(field).values if weights.geometry != field.geometry else weights.values
     if order == 2:
-        extrap = _native_extrap(field.boundary, names)
+        extrap = _native_sides(field)
         dx = _dx_tuple(field)
         axes = [names.index(n) for n in dims]
         result = _grid_values(field.values, names, lambda v: laplace_native(v, dx, extrap, axes))
@@ -342,14 +448,19 @@ def spatial_gradient(field, boundary=None, at: str = 'center', dims=None, stack_
         if order > 2:
             from ._higher_order import higher_order_gradient
             return higher_order_gradient(field, grad_ext, at, dims, stack_dim, order, implicit)
-        probe = Field(field.geometry, TensorStack([v] * len(names), dual(vector=names)), grad_ext)
-        layout = _array_layout(probe, dims)
-        if layout == 'periodic' and _native_form(field.boundary, names) != 'periodic':
-            raise NotImplementedError(f"the face gradient of a grid with boundary {field.boundary!r} onto periodic "
-                                      f"faces: a periodic grid is ported")
+        if tuple(dims) != tuple(names):
+            raise NotImplementedError(f"the face gradient over dims {tuple(dims)} of {names}: all grid dims in the "
+                                      f"grid's order are ported")
+        layout = _face_layout(grad_ext, names, walls=False)
+        extrap = _native_sides(field)
+        for axis, axis_faces in enumerate(layout):
+            if axis_faces == 'periodic' and (extrap[axis] if isinstance(extrap, PerSide) else (extrap,) * 2) != \
+                    (PERIODIC, PERIODIC):
+                raise NotImplementedError(f"the face gradient of a grid with boundary {field.boundary!r} onto "
+                                          f"periodic faces: a periodic grid is ported")
         if not _plain_values(v, names):
             raise NotImplementedError(f"values {v.shape}: grid dims only are ported for the face gradient")
-        comps = spatial_gradient_native(v.torch(names), _dx_tuple(field), layout == 'periodic')
+        comps = spatial_gradient_native(v.torch(names), _dx_tuple(field), faces=layout, extrap=extrap)
         return _staggered(field, comps, grad_ext)
     if at != 'center':
         raise ValueError(at)
@@ -378,8 +489,10 @@ def stagger(field, face_function: Callable, boundary, at='face', dims=None):
     names = field.resolution.names
     assert field.is_centered and field.is_grid
     v = field.values
-    probe = Field(field.geometry, TensorStack([v] * len(names), dual(vector=names)), boundary)
-    layout = _array_layout(probe, dims or names)
+    if tuple(dims or names) != tuple(names):
+        raise NotImplementedError(f"stagger over dims {tuple(dims)} of {names}: all grid dims in the grid's order "
+                                  f"are ported")
+    layout = _face_layout(boundary, names, walls=False)
     if not _plain_values(v, names):
         raise NotImplementedError(f"values {v.shape}: grid dims only are ported for stagger")
     grid = v.shape.only(names, reorder=True)
@@ -387,7 +500,7 @@ def stagger(field, face_function: Callable, boundary, at='face', dims=None):
     def native_fn(lower, upper):
         return face_function(Tensor(lower, grid.with_sizes(tuple(lower.shape))),
                              Tensor(upper, grid.with_sizes(tuple(upper.shape)))).torch(names)
-    comps = stagger_native(v.torch(names), native_fn, _native_extrap(field.boundary, names), layout == 'periodic')
+    comps = stagger_native(v.torch(names), native_fn, _native_sides(field), faces=layout)
     return _staggered(field, comps, boundary)
 
 
@@ -406,14 +519,12 @@ def divergence(field, order=2, implicit=None, upwind=None):
     if field.is_staggered:
         if order != 2 or implicit is not None:
             raise NotImplementedError("the divergence of a staggered grid is of order 2, as in the JAX package")
-        layout = _array_layout(field, names)
-        if layout == 'closed' and not _normal_walls_at_rest(field):
-            raise NotImplementedError(f"boundary {field.boundary!r}: walls with a normal velocity come with a later "
-                                      f"slice of the port")
+        layout = _face_layout(field.boundary, names)
+        _check_staggered_shapes(field, layout)
         comps = face_components(field.values)
         if not all(_plain_values(c, names) for c in comps):
             raise NotImplementedError(f"values {field.values.shape}: grid dims only are ported for divergence")
-        result = divergence_native([c.torch(names) for c in comps], _dx_tuple(field), layout == 'periodic')
+        result = divergence_native([c.torch(names) for c in comps], _dx_tuple(field), faces=layout)
         return Field(field.geometry, Tensor(result, field.resolution), field.boundary.spatial_gradient())
     assert 'vector' in field.values.shape, "divergence requires a vector field"
     result = None

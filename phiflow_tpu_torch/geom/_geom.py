@@ -185,6 +185,9 @@ class InvertedGeometry(Geometry):
     def __init__(self, geometry: Geometry):
         self.geometry = geometry
 
+    def shifted(self, delta) -> 'InvertedGeometry':
+        return InvertedGeometry(self.geometry.shifted(delta))
+
     @property
     def _center(self):
         return self.geometry._center
@@ -224,6 +227,9 @@ class Union(Geometry):
         self.geometries = tuple(geometries)
         if not self.geometries:
             raise ValueError("a union needs at least one geometry")
+
+    def shifted(self, delta) -> 'Union':
+        return Union([g.shifted(delta) for g in self.geometries])
 
     @property
     def _center(self):

@@ -41,7 +41,11 @@ from ._functional import (
     iterate, map_s2b, map_d2c, map_c2d, broadcast, get_function_parameters, trace_check, when_available,
     perf_counter,
 )
-from ._solve import Solve, SolveInfo, SolveTape, solve_linear, copy_solve, SolveResult, cg, bicgstab
+from ._solve import (Solve, SolveInfo, SolveTape, solve_linear, copy_solve, SolveResult, cg, cg_adaptive, bicgstab,
+                     bicgstab2)
+from ._layout import Layout, layout
+from ._sparse import (SparseCooTensor, sparse_tensor, is_sparse, dense, to_format, stored_indices, stored_values,
+                      matrix_from_function)
 from ._optimize import minimize, solve_nonlinear
 from ._multigrid import make_poisson_vcycle
 from ._nd import (BOUNDARY, PERIODIC, PerSide, masked_fill, masked_fill_native, shift_window_interp, fourier_laplace,

@@ -702,7 +702,8 @@ def as_extrapolation(obj) -> Extrapolation:
     if isinstance(obj, dict):
         return combine_sides(**{k: as_extrapolation(v) for k, v in obj.items()})
     if hasattr(obj, 'geometry') and hasattr(obj, 'values'):
-        raise NotImplementedError("a Field as a boundary (field/_embed.py) comes with a later slice of the port")
+        from ..field._embed import FieldEmbedding
+        return FieldEmbedding(obj)
     raise ValueError(f"cannot create extrapolation from {obj!r}")
 
 

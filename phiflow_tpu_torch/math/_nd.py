@@ -52,15 +52,21 @@ BOUNDARY, PERIODIC = 'boundary', 'periodic'
 
 
 class PerSide(tuple):
-    """A constant extrapolation with its own value on every side: one
-    (lower, upper) pair of floats per axis — `combine_sides` of the JAX
-    package for constants."""
+    """An extrapolation with its own rule on every side: one (lower, upper)
+    pair per axis — `combine_sides` of the JAX package. A side is a number
+    (a constant), `BOUNDARY`, `PERIODIC` (both sides of its axis), or a torch
+    tensor of the ghost cells themselves (one plane across the axis, as a
+    Field embedding samples them)."""
 
     def __new__(cls, *sides):
-        return super().__new__(cls, tuple((float(lo), float(up)) for lo, up in sides))
+        return super().__new__(cls, tuple((_side(lo), _side(up)) for lo, up in sides))
 
 
-Extrapolation = Union[float, str, PerSide]  # a constant value, BOUNDARY, PERIODIC, or constants per side
+def _side(e):
+    return e if isinstance(e, (str, torch.Tensor)) else float(e)
+
+
+Extrapolation = Union[float, str, PerSide]  # a constant value, BOUNDARY, PERIODIC, or a rule per side
 
 
 def component_extrapolation(extrap, component: int) -> Extrapolation:
@@ -71,24 +77,27 @@ def component_extrapolation(extrap, component: int) -> Extrapolation:
     return extrap
 
 
+def _ghosts(v: torch.Tensor, axis: int, width: int, upper: bool, e) -> torch.Tensor:
+    """`width` ghost entries of `v` beyond its lower or upper end along `axis` by the side rule `e`."""
+    n = v.shape[axis]
+    if isinstance(e, str) and e == PERIODIC:
+        return v.narrow(axis, 0, width) if upper else v.narrow(axis, n - width, width)
+    if isinstance(e, str) and e == BOUNDARY:
+        return v.narrow(axis, n - 1 if upper else 0, 1).expand(*[width if a == axis else -1 for a in range(v.ndim)])
+    shape = list(v.shape)
+    shape[axis] = width
+    if isinstance(e, torch.Tensor):
+        return e.to(v.dtype).expand(shape)
+    return torch.full(shape, float(e), dtype=v.dtype, device=v.device)
+
+
 def pad(v: torch.Tensor, axis: int, lower: int, upper: int, extrap: Extrapolation) -> torch.Tensor:
     """`v` extended by `lower` / `upper` entries along `axis`."""
     if not lower and not upper:
         return v
-    n = v.shape[axis]
-    if extrap == PERIODIC:
-        lo, hi = v.narrow(axis, n - lower, lower), v.narrow(axis, 0, upper)
-    elif extrap == BOUNDARY:
-        lo = v.narrow(axis, 0, 1).expand(*[lower if a == axis else -1 for a in range(v.ndim)])
-        hi = v.narrow(axis, n - 1, 1).expand(*[upper if a == axis else -1 for a in range(v.ndim)])
-    else:
-        c_lo, c_hi = extrap[axis] if isinstance(extrap, PerSide) else (extrap, extrap)
-        shape = list(v.shape)
-        shape[axis] = lower
-        lo = torch.full(shape, float(c_lo), dtype=v.dtype, device=v.device)
-        shape[axis] = upper
-        hi = torch.full(shape, float(c_hi), dtype=v.dtype, device=v.device)
-    return torch.cat(([lo] if lower else []) + [v] + ([hi] if upper else []), dim=axis)
+    lo_e, up_e = extrap[axis] if isinstance(extrap, PerSide) else (extrap, extrap)
+    return torch.cat(([_ghosts(v, axis, lower, False, lo_e)] if lower else []) + [v] +
+                     ([_ghosts(v, axis, upper, True, up_e)] if upper else []), dim=axis)
 
 
 def shift_window_interp(grid: torch.Tensor, displacement_cells: Sequence[torch.Tensor],
@@ -130,8 +139,9 @@ def shift_window_interp(grid: torch.Tensor, displacement_cells: Sequence[torch.T
         halo = dict(const_pad=float(extrap))
     else:
         raise ValueError(f"extrapolation {extrap!r}: a constant value, BOUNDARY, PERIODIC or PerSide expected")
-    return fn(grid, list(displacement_cells), max_cells, compute_extrema=compute_extrema, negate=negate,
-              disp_scale=disp_scale, **halo)
+    # the kernels take contiguous arrays: a Field's constant values arrive as broadcast views
+    return fn(grid.contiguous(), [c.contiguous() for c in displacement_cells], max_cells,
+              compute_extrema=compute_extrema, negate=negate, disp_scale=disp_scale, **halo)
 
 
 def shift_zero(x: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -464,6 +464,8 @@ def where(condition, value_true=1., value_false=0.) -> Tensor:
         return Tensor(np.broadcast_to(_fix_host_dtype(np.where(c, a, b), a, b), tuple(shape.sizes)), shape)
     ref = next(x for x in (c, a, b) if not _is_host(x))
     c = _host_to(c, ref) if _is_host(c) else c
+    if c.dtype != torch.bool:  # a numeric condition holds where it is nonzero, as in numpy and JAX
+        c = c != 0
     # a one-element host value of the other value's dtype enters as a Python number: no copy to the device
     if _is_host(a) != _is_host(b):
         host, dev = (a, b) if _is_host(a) else (b, a)

@@ -1,24 +1,33 @@
-"""Linear solves — port of `phiflow_tpu/math/_solve.py`: conjugate gradients
-and BiCGStab on raw tensors (`cg`, the array layer's solver, and `bicgstab`,
-JAX's `_bicgstab` `:488-537`), and on top of them the solve specification of
-the Field layer (`Solve`, `copy_solve`), its diagnostics (`SolveInfo`,
-`SolveTape`) and `solve_linear` for the methods 'auto' and 'CG' (CG) and
-'biCG-stab', 'biCG' and 'biCG-stab(1)' (BiCGStab). `solve_linear` flattens
-its unknown and right-hand side with `_VecFormat` (JAX's `:198-312`: a
-Field, Tensor, staggered TensorStack or tuple as one vector, leaves
-concatenated), so a staggered unknown solves like a centred one.
-`minimize` and `solve_nonlinear` are in `_optimize.py`.
+"""Linear solves — port of `phiflow_tpu/math/_solve.py`: the Krylov
+solvers on raw tensors (`cg`, the array layer's solver; `cg_adaptive`,
+JAX's `_cg_adaptive` `:435-486`; `bicgstab`, `_bicgstab` `:488-537`;
+`bicgstab2`, the Sleijpen–Fokkema BiCGStab(2) of `_bicgstab2` `:540-647`) and
+the dense `Direct` solve (`_direct` `:649-664`), and on top of them the solve
+specification of the Field layer (`Solve`, `copy_solve`), its diagnostics
+(`SolveInfo`, `SolveTape`) and `solve_linear`, which dispatches by the
+solve's method in JAX's order (`:730-757`): 'auto' / 'CG' / 'CG-native' CG,
+'CG-adaptive', 'biCG' / 'biCG-stab' / 'biCG-stab(1)' BiCGStab,
+'biCG-stab(2)', 'direct' / 'scipy-direct' (BiCGStab at tolerances of at
+most 1e-6, with a warning, above `DIRECT_MAX_UNKNOWNS`), and CG with a
+warning for any other name. A preconditioner that is not callable is
+ignored, as JAX ignores it. `solve_linear` flattens its unknown and
+right-hand side with `_VecFormat` (JAX's `:198-312`: a Field, Tensor,
+staggered TensorStack or tuple as one vector, leaves concatenated), so a
+staggered unknown solves like a centred one. Systems along batch dims are
+solved one by one, as JAX splits them off (`nb`, `:313-347`): each has its
+own tolerance, rank-deficiency mean and stop, and `SolveInfo.residual` holds
+one ‖r‖ per system. `minimize` and `solve_nonlinear` are in `_optimize.py`.
 
 The loops run eagerly: the stop test reads ⟨r, r⟩ on the host once per
 iteration (one device sync), where JAX keeps the loop on the device in a
 `lax.while_loop`. A `SolveInfo` therefore holds the concrete iteration count.
-'biCG-stab(2)', CG-adaptive and direct solves come with a later slice.
 
 Gradients: `implicit_solve` differentiates a solve implicitly, as JAX's
 `jax.lax.custom_linear_solve` does (`phiflow_tpu/math/_solve.py:802-816`).
 Its `torch.autograd.Function` runs the Krylov loop under `no_grad`, keeps x
-alone, and its backward solves the adjoint system Aᵀλ = ḡ once (CG: Aᵀ = A;
-BiCGStab: Aᵀ applied as the VJP of the linear map), ḡ projected onto A's
+alone, and its backward solves the adjoint system Aᵀλ = ḡ once (CG,
+CG-adaptive: Aᵀ = A; BiCGStab and BiCGStab(2): Aᵀ applied as the VJP of the
+linear map; direct: the matrix's transpose), ḡ projected onto A's
 range and λ without its mean for a rank-deficient system; the right-hand
 side gets λ, tensors the operator
 depends on get −VJP_θ(A(x; θ))[λ], and x0 nothing. The graph holds O(1)
@@ -28,6 +37,7 @@ array-level projections (`physics/fluid.py`) solve through it.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -36,47 +46,77 @@ from ._functional import LinearFunction
 from ._magic import ConvergenceException, Diverged, NotConverged
 from ._tensor import Tensor, TensorStack
 
-__all__ = ['SolveResult', 'cg', 'bicgstab', 'sub_mean', 'implicit_solve', 'Solve', 'copy_solve', 'SolveInfo', 'SolveTape',
-           'solve_linear', 'record']
+__all__ = ['SolveResult', 'cg', 'cg_adaptive', 'bicgstab', 'bicgstab2', 'Direct', 'sub_mean', 'implicit_solve',
+           'Solve', 'copy_solve', 'SolveInfo', 'SolveTape', 'solve_linear', 'record', 'krylov_of',
+           'DIRECT_MAX_UNKNOWNS']
+
+# 'direct' / 'scipy-direct' build the dense matrix up to this many unknowns (the JAX package's limit, `:40-43`);
+# larger systems run BiCGStab at tolerances of at most 1e-6
+DIRECT_MAX_UNKNOWNS = 16384
 
 
 class SolveResult(NamedTuple):
     x: torch.Tensor
     iterations: int
     converged: bool
+    residual: Optional[torch.Tensor] = None  # ‖r‖ of the last iterate, one per system
 
 
-def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return torch.dot(u.reshape(-1), v.reshape(-1))
+def _dot(u: torch.Tensor, v: torch.Tensor, nb: int = 0) -> torch.Tensor:
+    """⟨u, v⟩, one per system of the `nb` leading axes."""
+    if nb == 0:
+        return torch.dot(u.reshape(-1), v.reshape(-1))
+    return torch.sum((u * v).reshape(u.shape[:nb] + (-1,)), -1)
 
 
-def _dot64(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _dot64(u: torch.Tensor, v: torch.Tensor, nb: int = 0) -> torch.Tensor:
     """⟨u, v⟩ accumulated in float64, in u's dtype."""
-    return torch.dot(u.reshape(-1).double(), v.reshape(-1).double()).to(u.dtype)
+    return _dot(u.double(), v.double(), nb).to(u.dtype)
 
 
-def sub_mean(x: torch.Tensor) -> torch.Tensor:
-    """x − mean(x): the projection onto the range of a rank-1-deficient
-    (Neumann / periodic) Poisson operator."""
-    return x - torch.mean(x)
+def _bc(s: torch.Tensor, like: torch.Tensor, nb: int) -> torch.Tensor:
+    """A per-system scalar broadcast against a (*batch, *rest) vector."""
+    return s if nb == 0 else s.reshape(s.shape + (1,) * (like.ndim - nb))
+
+
+def sub_mean(x: torch.Tensor, nb: int = 0) -> torch.Tensor:
+    """x − mean(x), per system of the `nb` leading axes: the projection onto
+    the range of a rank-1-deficient (Neumann / periodic) Poisson operator."""
+    if nb == 0:
+        return x - torch.mean(x)
+    return x - _bc(torch.mean(x.reshape(x.shape[:nb] + (-1,)), -1), x, nb)
+
+
+def _safe_denom_fn(dtype, device):
+    eps = torch.full((), 1e-30, dtype=dtype, device=device)  # a fill, no host→device copy
+
+    def safe_denom(x):
+        return torch.where(torch.abs(x) < eps, torch.where(x < 0, -eps, eps), x)
+    return safe_denom
+
+
+def _tol_sq(b_norm_sq, rtol, atol):
+    return torch.clamp(rtol * torch.sqrt(b_norm_sq), min=atol) ** 2
+
+
+def _result(x, it, rr, tol_sq) -> SolveResult:
+    return SolveResult(x, it, bool(torch.all(rr <= tol_sq)), torch.sqrt(rr))
 
 
 def cg(A: Callable, b: torch.Tensor, x0: torch.Tensor, rtol: float, atol: float, max_iter: int,
-       M: Optional[Callable] = None) -> SolveResult:
+       M: Optional[Callable] = None, nb: int = 0) -> SolveResult:
     """Conjugate gradients for a symmetric (positive- or negative-definite) A.
 
     A(p) -> (A·p, ⟨p, A·p⟩ or None): the matvec, with its fused dot when the
     operator is homogeneous. M(r) -> (z, ⟨r, z⟩ or None): the preconditioner,
     with the dot of its last kernel where it has one. Stops when
-    ⟨r, r⟩ ≤ tol² with tol = max(atol, rtol·‖b‖), or after max_iter iterations."""
+    ⟨r, r⟩ ≤ tol² with tol = max(atol, rtol·‖b‖), or after max_iter
+    iterations; with `nb` leading batch axes, per system (a converged system
+    is frozen while the others go on)."""
     dtype = b.dtype
-    eps = torch.tensor(1e-30, dtype=dtype, device=b.device)
-
-    def safe_denom(x):
-        return torch.where(torch.abs(x) < eps, torch.where(x < 0, -eps, eps), x)
-
-    b_norm_sq = _dot(b, b)
-    tol_sq = torch.clamp(rtol * torch.sqrt(b_norm_sq), min=atol) ** 2
+    safe_denom = _safe_denom_fn(dtype, b.device)
+    b_norm_sq = _dot(b, b, nb)
+    tol_sq = _tol_sq(b_norm_sq, rtol, atol)
     x = x0
     Ax, _ = A(x)
     r = b - Ax
@@ -85,76 +125,225 @@ def cg(A: Callable, b: torch.Tensor, x0: torch.Tensor, rtol: float, atol: float,
     else:
         z, rz0 = r, None
     p = z
-    rz = rz0 if rz0 is not None else _dot(r, z)
-    rr = _dot(r, r)
+    rz = rz0 if rz0 is not None else _dot(r, z, nb)
+    rr = _dot(r, r, nb)
     it = 0
-    while it < max_iter and bool(rr > tol_sq):
+    while it < max_iter and bool(torch.any(rr > tol_sq)):
         Ap, pap = A(p)
-        alpha = rz / safe_denom(pap if pap is not None else _dot(p, Ap))
-        # freeze a converged system: alpha → 0 (kept from the batched original)
+        alpha = rz / safe_denom(pap if pap is not None else _dot(p, Ap, nb))
+        # freeze a converged system: alpha → 0
         alpha = alpha * (rr > tol_sq).to(dtype)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        rr = _dot(r, r)
+        x = x + _bc(alpha, p, nb) * p
+        r = r - _bc(alpha, Ap, nb) * Ap
+        rr = _dot(r, r, nb)
         if M is not None:
             z, rz_f = M(r)
         else:
             z, rz_f = r, None
-        rz_new = rz_f if rz_f is not None else _dot(r, z)
+        rz_new = rz_f if rz_f is not None else _dot(r, z, nb)
         beta = rz_new / safe_denom(rz)
-        p = z + beta * p
+        p = z + _bc(beta, p, nb) * p
         rz = rz_new
         it += 1
-    return SolveResult(x, it, bool(rr <= tol_sq))
+    return _result(x, it, rr, tol_sq)
+
+
+def cg_adaptive(A: Callable, b: torch.Tensor, x0: torch.Tensor, rtol: float, atol: float, max_iter: int,
+                M: Optional[Callable] = None, nb: int = 0) -> SolveResult:
+    """CG with the step taken from the current residual (JAX's
+    `_cg_adaptive`, phiml's 'CG-adaptive'): α = ⟨d, r⟩ / ⟨d, A·d⟩ and each new
+    direction re-conjugated against A·d, d ← M·r − β·d with
+    β = ⟨M·r, A·d⟩ / ⟨d, A·d⟩. One matvec an iteration, as CG, and no
+    recurrence of ⟨r, z⟩ to drift in float32. The callables are `cg`'s: the
+    matvec's fused ⟨d, A·d⟩ is taken where it has one (K1's epilogue), the
+    preconditioner's dot is not used. Stops as `cg` does."""
+    dtype = b.dtype
+    safe_denom = _safe_denom_fn(dtype, b.device)
+    b_norm_sq = _dot(b, b, nb)
+    tol_sq = _tol_sq(b_norm_sq, rtol, atol)
+    x = x0
+    r = b - A(x)[0]
+    d = M(r)[0] if M is not None else r
+    Ad, dAd = A(d)
+    if dAd is None:
+        dAd = _dot(d, Ad, nb)
+    rr = _dot(r, r, nb)
+    it = 0
+    while it < max_iter and bool(torch.any(rr > tol_sq)):
+        alpha = _dot(d, r, nb) / safe_denom(dAd)
+        alpha = alpha * (rr > tol_sq).to(dtype)
+        x = x + _bc(alpha, d, nb) * d
+        r = r - _bc(alpha, Ad, nb) * Ad
+        rr = _dot(r, r, nb)
+        z = M(r)[0] if M is not None else r
+        beta = _dot(z, Ad, nb) / safe_denom(dAd)
+        d = z - _bc(beta, d, nb) * d
+        Ad, dAd = A(d)
+        if dAd is None:
+            dAd = _dot(d, Ad, nb)
+        it += 1
+    return _result(x, it, rr, tol_sq)
 
 
 def bicgstab(A: Callable, b: torch.Tensor, x0: torch.Tensor, rtol: float, atol: float, max_iter: int,
-             M: Optional[Callable] = None) -> SolveResult:
+             M: Optional[Callable] = None, nb: int = 0) -> SolveResult:
     """BiCGStab for a general (nonsymmetric) A, right-preconditioned by M.
 
     A(p) -> (A·p, ignored) and M(r) -> (z, ignored): the callables `cg`
     takes. Stops when ⟨r, r⟩ ≤ tol² with tol = max(atol, rtol·‖b‖), or after
-    max_iter iterations; an iteration applies M and A twice each.
+    max_iter iterations, per system; an iteration applies M and A twice each.
 
     The inner products accumulate in float64 (the JAX package's in the
     working precision): ρ = ⟨r̂, r⟩ shrinks by orders of magnitude over a
     solve, and float32 sums broke the recurrence down on the wake's pressure
     systems (`models/cylinder_wake.py`), where float64 sums converge."""
     dtype = b.dtype
-    eps = torch.full((), 1e-30, dtype=dtype, device=b.device)  # a fill, no host→device copy
-
-    def safe_denom(x):
-        return torch.where(torch.abs(x) < eps, torch.where(x < 0, -eps, eps), x)
-
-    b_norm_sq = _dot64(b, b)
-    tol_sq = torch.clamp(rtol * torch.sqrt(b_norm_sq), min=atol) ** 2
+    safe_denom = _safe_denom_fn(dtype, b.device)
+    b_norm_sq = _dot64(b, b, nb)
+    tol_sq = _tol_sq(b_norm_sq, rtol, atol)
     x = x0
     r = b - A(x)[0]
     r_hat = r
     rho = alpha = omega = torch.ones_like(b_norm_sq)
     v = torch.zeros_like(r)
     p = torch.zeros_like(r)
-    rr = _dot64(r, r)
+    rr = _dot64(r, r, nb)
     it = 0
-    while it < max_iter and bool(rr > tol_sq):
-        rho_new = _dot64(r_hat, r)
+    while it < max_iter and bool(torch.any(rr > tol_sq)):
+        rho_new = _dot64(r_hat, r, nb)
         beta = (rho_new / safe_denom(rho)) * (alpha / safe_denom(omega))
-        p = r + beta * (p - omega * v)
+        p = r + _bc(beta, r, nb) * (p - _bc(omega, r, nb) * v)
         ph = M(p)[0] if M is not None else p
         v = A(ph)[0]
-        alpha = rho_new / safe_denom(_dot64(r_hat, v))
-        s = r - alpha * v
+        alpha = rho_new / safe_denom(_dot64(r_hat, v, nb))
+        s = r - _bc(alpha, v, nb) * v
         sh = M(s)[0] if M is not None else s
         t = A(sh)[0]
-        omega = _dot64(t, s) / safe_denom(_dot64(t, t))
-        # freeze a converged system (kept from the batched original)
+        omega = _dot64(t, s, nb) / safe_denom(_dot64(t, t, nb))
+        # freeze a converged system
         active = (rr > tol_sq).to(dtype)
-        x = x + active * (alpha * ph + omega * sh)
-        r = s - omega * t
-        rr = _dot64(r, r)
+        x = x + _bc(active, x, nb) * (_bc(alpha, ph, nb) * ph + _bc(omega, sh, nb) * sh)
+        r = s - _bc(omega, t, nb) * t
+        rr = _dot64(r, r, nb)
         rho = rho_new
         it += 1
-    return SolveResult(x, it, bool(rr <= tol_sq))
+    return _result(x, it, rr, tol_sq)
+
+
+def bicgstab2(A: Callable, b: torch.Tensor, x0: torch.Tensor, rtol: float, atol: float, max_iter: int,
+              M: Optional[Callable] = None, nb: int = 0) -> SolveResult:
+    """BiCGStab(2), the Sleijpen–Fokkema ℓ = 2 method of JAX's `_bicgstab2`:
+    each outer iteration takes two BiCG steps, then minimises
+    ‖r₀ − γ₁r₁ − γ₂r₂‖ over a 2-D polynomial (the 2×2 normal equations), so
+    stiff or indefinite systems where BiCGStab's linear ω-polynomial stalls
+    converge. 4 matvecs and 4 applications of M an outer iteration: M is
+    applied on the right, and the companions M·u and M·r are carried through
+    the same (linear) recurrences. `iterations` counts matvecs / 2, as JAX's
+    does, so it compares with a one-matvec-a-step count.
+
+    Its inner products accumulate in float64, as `bicgstab`'s do: in float64
+    arithmetic that changes nothing, and in float32 ρ and the MR system's
+    entries lose their digits over a solve as BiCGStab's ρ does."""
+    dtype = b.dtype
+    safe_denom = _safe_denom_fn(dtype, b.device)
+
+    def Mfn(v):
+        return M(v)[0] if M is not None else v
+
+    def comb(x, a, y):
+        return x + _bc(a, y, nb) * y
+    b_norm_sq = _dot64(b, b, nb)
+    tol_sq = _tol_sq(b_norm_sq, rtol, atol)
+    x = x0
+    r0 = b - A(x)[0]
+    r_hat = r0
+    ones = torch.ones_like(b_norm_sq)
+    rho, alpha, omega = -ones, torch.zeros_like(ones), ones  # ρ₀ pre-negated: the loop starts with ρ ← −ω·ρ
+    u0 = torch.zeros_like(r0)
+    mr0 = Mfn(r0)
+    mu0 = torch.zeros_like(r0)
+    rr = _dot64(r0, r0, nb)
+    it = 0
+    while it < max_iter and bool(torch.any(rr > tol_sq)):
+        active = (rr > tol_sq).to(dtype)
+        rho = -omega * rho
+        # the even BiCG step
+        rho1 = _dot64(r0, r_hat, nb)
+        beta = alpha * rho1 / safe_denom(rho)
+        rho = rho1
+        u0 = comb(r0, -beta, u0)
+        mu0 = comb(mr0, -beta, mu0)
+        u1 = A(mu0)[0]
+        mu1 = Mfn(u1)
+        alpha = rho / safe_denom(_dot64(u1, r_hat, nb)) * active
+        r0 = comb(r0, -alpha, u1)
+        mr0 = comb(mr0, -alpha, mu1)
+        r1 = A(mr0)[0]
+        mr1 = Mfn(r1)
+        x = comb(x, alpha, mu0)
+        # the odd BiCG step
+        rho1 = _dot64(r1, r_hat, nb)
+        beta = alpha * rho1 / safe_denom(rho)
+        rho = rho1
+        u0 = comb(r0, -beta, u0)
+        mu0 = comb(mr0, -beta, mu0)
+        u1 = comb(r1, -beta, u1)
+        mu1 = comb(mr1, -beta, mu1)
+        u2 = A(mu1)[0]
+        mu2 = Mfn(u2)
+        alpha = rho / safe_denom(_dot64(u2, r_hat, nb)) * active
+        r0 = comb(r0, -alpha, u1)
+        mr0 = comb(mr0, -alpha, mu1)
+        r1 = comb(r1, -alpha, u2)
+        mr1 = comb(mr1, -alpha, mu2)
+        r2 = A(mr1)[0]
+        mr2 = Mfn(r2)
+        x = comb(x, alpha, mu0)
+        # the minimal-residual part
+        s11, s12, s22 = _dot64(r1, r1, nb), _dot64(r1, r2, nb), _dot64(r2, r2, nb)
+        t1, t2 = _dot64(r1, r0, nb), _dot64(r2, r0, nb)
+        det = safe_denom(s11 * s22 - s12 * s12)
+        g1 = (s22 * t1 - s12 * t2) / det * active
+        g2 = (s11 * t2 - s12 * t1) / det * active
+        x = comb(comb(x, g1, mr0), g2, mr1)
+        r0 = comb(comb(r0, -g1, r1), -g2, r2)
+        mr0 = comb(comb(mr0, -g1, mr1), -g2, mr2)
+        u0 = comb(comb(u0, -g1, u1), -g2, u2)
+        mu0 = comb(comb(mu0, -g1, mu1), -g2, mu2)
+        omega = g2
+        rr = _dot64(r0, r0, nb)
+        it += 2
+    return _result(x, it, rr, tol_sq)
+
+
+class Direct:
+    """The dense direct solve of JAX's `_direct`: the matrix of A built by
+    `matrix(A, b, nb)` — (N, N), or (B, N, N) with one batch axis — with the
+    outer product ones/n added for a rank-deficient system (the constants'
+    null space regularised), then `torch.linalg.solve`. JAX solves with
+    `jnp.linalg.solve`, outside any Pallas kernel. Takes the Krylov
+    solvers' arguments and ignores tolerances and preconditioner;
+    `iterations` is N, as in JAX. `transposed` solves with Aᵀ: the adjoint."""
+
+    def __init__(self, matrix: Callable, rank_deficient: bool = False, transposed: bool = False):
+        self.matrix = matrix
+        self.rank_deficient = rank_deficient
+        self.transposed = transposed
+
+    @property
+    def adjoint(self) -> 'Direct':
+        return Direct(self.matrix, self.rank_deficient, not self.transposed)
+
+    def __call__(self, A, b, x0, rtol, atol, max_iter, M=None, nb=0) -> SolveResult:
+        mat = self.matrix(A, b, nb)
+        if self.transposed:
+            mat = mat.transpose(-1, -2)
+        n = mat.shape[-1]
+        if self.rank_deficient:
+            mat = mat + torch.full((n, n), 1. / (n * n), dtype=mat.dtype, device=mat.device)
+        rhs = b.reshape(b.shape[:nb] + (-1, 1))
+        x = torch.linalg.solve(mat, rhs).reshape(b.shape)
+        return SolveResult(x, n, True, torch.zeros(b.shape[:nb], dtype=b.dtype, device=b.device))
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +365,10 @@ class _Spec(NamedTuple):
     implicit_diff: bool
     on_adjoint: Optional[Callable]
     box: dict                  # receives the forward's SolveResult
+    nb: int                    # leading batch axes: systems solved one by one
+
+
+SELF_ADJOINT = (cg, cg_adaptive)  # solvers of symmetric systems: the adjoint solve takes A itself
 
 
 def _transpose(A: Callable) -> Callable:
@@ -190,8 +383,8 @@ def _transpose(A: Callable) -> Callable:
 class _ImplicitSolve(torch.autograd.Function):
     @staticmethod
     def forward(ctx, spec: _Spec, b, *params):
-        result = spec.krylov(spec.A, b, spec.x0, *spec.tolerances, spec.M)
-        x = sub_mean(result.x) if spec.rank_deficient else result.x
+        result = spec.krylov(spec.A, b, spec.x0, *spec.tolerances, spec.M, nb=spec.nb)
+        x = sub_mean(result.x, spec.nb) if spec.rank_deficient else result.x
         spec.box['result'] = result._replace(x=x)
         ctx.spec = spec
         ctx.save_for_backward(x)
@@ -209,10 +402,14 @@ class _ImplicitSolve(torch.autograd.Function):
             g = g * spec.active
         if spec.rank_deficient:  # ḡ onto A's range: its null-space component meets no x
             n = spec.null_space
-            g = sub_mean(g) if n is None else g - n * (_dot64(n, g) / _dot64(n, n))
-        A_adj = spec.A if spec.krylov is cg else _transpose(spec.A)
-        adjoint = spec.krylov(A_adj, g, torch.zeros_like(g), *spec.adjoint_tolerances, spec.M)
-        lam = sub_mean(adjoint.x) if spec.rank_deficient else adjoint.x
+            g = sub_mean(g, spec.nb) if n is None else g - n * (_dot64(n, g) / _dot64(n, n))
+        krylov, A_adj = spec.krylov, spec.A
+        if isinstance(krylov, Direct):
+            krylov = krylov.adjoint
+        elif krylov not in SELF_ADJOINT:
+            A_adj = _transpose(spec.A)
+        adjoint = krylov(A_adj, g, torch.zeros_like(g), *spec.adjoint_tolerances, spec.M, nb=spec.nb)
+        lam = sub_mean(adjoint.x, spec.nb) if spec.rank_deficient else adjoint.x
         if spec.on_adjoint is not None:
             spec.on_adjoint(adjoint._replace(x=lam))
         needs = ctx.needs_input_grad[2:]
@@ -229,9 +426,10 @@ def implicit_solve(krylov: Callable, A: Callable, b: torch.Tensor, x0: torch.Ten
                    max_iter: int, M: Optional[Callable] = None, rank_deficient: bool = False,
                    null_space: Optional[torch.Tensor] = None, active: Optional[torch.Tensor] = None, params=(),
                    param_matvec: Optional[Callable] = None, adjoint_tolerances: Optional[tuple] = None,
-                   implicit_diff: bool = True, on_adjoint: Optional[Callable] = None) -> SolveResult:
-    """`krylov` (`cg` or `bicgstab`) on A·x = b, differentiable implicitly
-    in b and in `params`, the tensors A depends on.
+                   implicit_diff: bool = True, on_adjoint: Optional[Callable] = None, nb: int = 0) -> SolveResult:
+    """`krylov` (a solver of this module or a `Direct`) on A·x = b,
+    differentiable implicitly in b and in `params`, the tensors A depends
+    on; `nb` leading batch axes hold independent systems.
 
     With `rank_deficient` the result (and the adjoint λ) lose their mean,
     and the adjoint's right-hand side is projected onto A's range: the
@@ -251,10 +449,10 @@ def implicit_solve(krylov: Callable, A: Callable, b: torch.Tensor, x0: torch.Ten
     x0 = x0.detach()
     tolerances = (rel_tol, abs_tol, max_iter)
     if not (torch.is_grad_enabled() and (b.requires_grad or params)):
-        result = krylov(A, b, x0, *tolerances, M)
-        return result._replace(x=sub_mean(result.x)) if rank_deficient else result
+        result = krylov(A, b, x0, *tolerances, M, nb=nb)
+        return result._replace(x=sub_mean(result.x, nb)) if rank_deficient else result
     spec = _Spec(krylov, A, M, x0, tolerances, adjoint_tolerances or tolerances, rank_deficient, null_space, active,
-                 tuple(params), param_matvec or (lambda x: A(x)[0]), implicit_diff, on_adjoint, {})
+                 tuple(params), param_matvec or (lambda x: A(x)[0]), implicit_diff, on_adjoint, {}, nb)
     x = _ImplicitSolve.apply(spec, b, *params)
     return spec.box['result']._replace(x=x)
 
@@ -357,9 +555,9 @@ def copy_solve(solve: Solve, **updates) -> Solve:
 
 
 class SolveInfo:
-    """Diagnostics of a solve. `iterations` is the CG iteration count; the
-    residual is not recomputed after the loop (it would cost one more matvec),
-    so `residual` is None."""
+    """Diagnostics of a solve. `iterations` is the solver's iteration count;
+    `residual` is ‖r‖ of the recurrence's last residual, one per system (not
+    recomputed after the loop: that would cost one more matvec)."""
 
     def __init__(self, solve: Solve, x, residual, iterations, function_evaluations, converged, diverged, method,
                  msg="", runtime_stats: Optional[dict] = None):
@@ -421,16 +619,38 @@ def record(info: SolveInfo):
 
 CG_METHODS = ('auto', 'CG', 'CG-native')
 BICGSTAB_METHODS = ('biCG-stab', 'biCG', 'biCG-stab(1)')
+DIRECT_METHODS = ('direct', 'scipy-direct')
+PRECONDITIONED_METHODS = CG_METHODS + ('CG-adaptive',)  # the methods a projection preconditions by default
 
 
-def check_method(solve: Solve):
-    """Raise NotImplementedError for a method or preconditioner this slice does not port."""
-    if solve.method not in CG_METHODS + BICGSTAB_METHODS:
-        raise NotImplementedError(f"solve method {solve.method!r}: CG ('auto', 'CG') and BiCGStab ('biCG-stab', "
-                                  f"'biCG', 'biCG-stab(1)') are ported; 'biCG-stab(2)', direct solves and "
-                                  f"CG-adaptive come with a later slice")
-    if solve.preconditioner not in (None, False, 'auto', 'multigrid') and not callable(solve.preconditioner):
-        raise NotImplementedError(f"preconditioner {solve.preconditioner!r}")
+def krylov_of(method: str) -> Optional[Callable]:
+    """The solver of `method`, in the JAX package's dispatch (`:730-757`):
+    None for a direct solve; CG, with JAX's warning, for a name it does not
+    know."""
+    if method in CG_METHODS:
+        return cg
+    if method == 'CG-adaptive':
+        return cg_adaptive
+    if method in BICGSTAB_METHODS:
+        return bicgstab
+    if method == 'biCG-stab(2)':
+        return bicgstab2
+    if method in DIRECT_METHODS:
+        return None
+    warnings.warn(f"unknown solve method {method!r}; falling back to CG")
+    return cg
+
+
+def reroute_direct(solve: Solve, n_unknowns: int) -> Optional[Solve]:
+    """A direct solve above `DIRECT_MAX_UNKNOWNS` unknowns as JAX reroutes
+    it: BiCGStab at tolerances of at most 1e-6, with a warning; None when
+    the dense matrix is built."""
+    if n_unknowns <= DIRECT_MAX_UNKNOWNS:
+        return None
+    warnings.warn(f"'{solve.method}' with {n_unknowns} unknowns would materialize a dense "
+                  f"{n_unknowns}x{n_unknowns} matrix; using BiCGStab instead")
+    return copy_solve(solve, method='biCG-stab', rel_tol=min(solve.rel_tol or 1e-5, 1e-6),
+                      abs_tol=min(solve.abs_tol or 1e-5, 1e-6))
 
 
 def _taped_solve(solve: Solve) -> Solve:
@@ -445,18 +665,33 @@ def _taped_solve(solve: Solve) -> Solve:
     return solve
 
 
-def finish_solve(solve: Solve, x, result: SolveResult) -> SolveInfo:
-    """Record the `SolveInfo` of a finished CG or BiCGStab solve on every
-    active `SolveTape` and raise `Diverged` / `NotConverged` unless `solve`
+def _kind(method: str) -> tuple:
+    """(name, matvecs an iteration) of the solver that runs `method`."""
+    if method in BICGSTAB_METHODS:
+        return 'BiCGStab', 2
+    if method == 'biCG-stab(2)':
+        return 'BiCGStab(2)', 2
+    if method == 'CG-adaptive':
+        return 'CG-adaptive', 1
+    if method in DIRECT_METHODS:
+        return 'direct', 1
+    return 'CG', 1
+
+
+def finish_solve(solve: Solve, x, result: SolveResult, residual=None) -> SolveInfo:
+    """Record the `SolveInfo` of a finished solve on every active
+    `SolveTape` and raise `Diverged` / `NotConverged` unless `solve`
     suppresses them. A non-finite ⟨r, r⟩ stops the loop early, unconverged:
     that is a divergence. The info holds x and the solve's x0 detached: a
     differentiated solve's would keep its autograd graph alive as long as
-    the tape."""
+    the tape. `residual`: ‖r‖ as the info shows it (default: the result's)."""
     from ._functional import _detached
     diverged = not result.converged and result.iterations < solve.max_iterations
-    kind, matvecs = ('BiCGStab', 2) if solve.method in BICGSTAB_METHODS else ('CG', 1)
-    info = SolveInfo(_taped_solve(solve), _detached(x), None, result.iterations, matvecs * result.iterations + 1, result.converged,
-                     diverged, solve.method, msg=f"{result.iterations} {kind} iterations, converged={result.converged}")
+    kind, matvecs = _kind(solve.method)
+    residual = residual if residual is not None else result.residual
+    info = SolveInfo(_taped_solve(solve), _detached(x), residual, result.iterations, matvecs * result.iterations + 1,
+                     result.converged, diverged, solve.method,
+                     msg=f"{result.iterations} {kind} iterations, converged={result.converged}")
     record(info)
     suppressed = ConvergenceException in solve.suppress
     if diverged and Diverged not in solve.suppress and not suppressed:
@@ -470,9 +705,9 @@ def record_adjoint(solve: Solve, result: SolveResult) -> SolveInfo:
     """Record the adjoint solve of a backward on every active `SolveTape`
     (a SolveInfo whose `msg` starts with 'adjoint'); never raises: a
     backward that did not converge returns its last iterate, as JAX's does."""
-    kind, matvecs = ('BiCGStab', 2) if solve.method in BICGSTAB_METHODS else ('CG', 1)
-    info = SolveInfo(_taped_solve(solve), result.x, None, result.iterations, matvecs * result.iterations + 1,
-                     result.converged, False, solve.method,
+    kind, matvecs = _kind(solve.method)
+    info = SolveInfo(_taped_solve(solve), result.x, result.residual, result.iterations,
+                     matvecs * result.iterations + 1, result.converged, False, solve.method,
                      msg=f"adjoint: {result.iterations} {kind} iterations, converged={result.converged}")
     record(info)
     return info
@@ -584,21 +819,22 @@ class _VecFormat:
 
 def solve_linear(f, y, solve: Solve, *f_args, grad_for_f=False, f_kwargs: dict = None,
                  assume_homogeneous: bool = False, **f_kwargs_additional):
-    """Solve ``f(x, *f_args) = y`` for x by CG or BiCGStab (by the solve's
-    method), on a Field or Tensor unknown.
+    """Solve ``f(x, *f_args) = y`` for x by the solve's method (`krylov_of`),
+    on a Field or Tensor unknown.
 
     `f` is a `LinearFunction` or a plain linear (or affine) callable; unless
     ``assume_homogeneous``, its offset f(0) is subtracted. The preprocessing,
     the rank deficiency (the mean removed from the right-hand side, every
     preconditioner output and the result) and a callable preconditioner of
-    `solve` apply as in the JAX package. The solve is differentiable
-    implicitly (`implicit_solve`) in `y` and in the tensors that `f`'s
-    arguments and closure hold; its adjoint takes `solve.gradient_solve`'s
-    tolerances."""
+    `solve` apply as in the JAX package; any other preconditioner is
+    ignored. The systems along the batch dims of x0 and y are solved one by
+    one. The solve is differentiable implicitly (`implicit_solve`) in `y`
+    and in the tensors that `f`'s arguments and closure hold; its adjoint
+    takes `solve.gradient_solve`'s tolerances."""
+    from ._shape import batch, merge_shapes
     f_kwargs = dict(f_kwargs or {})
     f_kwargs.update(f_kwargs_additional)
     solve = solve.with_defaults('solve')
-    check_method(solve)
     x0 = solve.x0 if solve.x0 is not None else (y * 0)
     fn = f.f if isinstance(f, LinearFunction) else f
     if not callable(fn):
@@ -609,49 +845,80 @@ def solve_linear(f, y, solve: Solve, *f_args, grad_for_f=False, f_kwargs: dict =
 
     if solve.preprocessing is not None:
         y = solve.preprocessing(y, *solve.preprocessing_args)
-    x_format = _VecFormat(x0)
+    shared_batch = merge_shapes(_batch_shape_of(x0), _batch_shape_of(y))
+    x_format = _VecFormat(x0, shared_batch)
     # y in x's dims order where their leaves pair up (a square system's vectors share one layout)
-    y_format = x_format if len(_tensor_leaves(y)) == len(x_format.leaves) else _VecFormat(y)
+    y_format = x_format if len(_tensor_leaves(y)) == len(x_format.leaves) else _VecFormat(y, shared_batch)
     x0_flat = x_format.flatten(x0)
+    n_systems = x0_flat.shape[0]
+    nb = 1 if n_systems > 1 else 0  # one system: a flat vector, as before batching existed
 
-    def state_of(arr):
-        return x_format.unflatten(arr.reshape(x0_flat.shape))
+    def formats(columns: int):
+        """x's and y's formats with `columns` more systems along a batch dim of their own (the direct solve)."""
+        if not columns:
+            return x_format, y_format
+        cols = batch(_direct_column=columns)
+        fx = _VecFormat(x0, cols & shared_batch)
+        return fx, (fx if y_format is x_format else _VecFormat(y, cols & shared_batch))
 
-    def native_of(state):
-        return y_format.flatten(state).reshape(-1)
+    def matvec(columns: int = 0):
+        fx, fy = formats(columns)
+        shape = ((columns,) if columns else ()) + tuple(x0_flat.shape)
 
-    rhs = native_of(y)
-    x0_n = x0_flat.reshape(-1)
-    if not assume_homogeneous:
-        b0 = native_of(op(state_of(torch.zeros_like(x0_n))))
+        def apply(x):
+            return fy.flatten(op(fx.unflatten(x.reshape((-1, x0_flat.shape[-1]))))).reshape(shape[:-1] + (-1,))
+        return apply
+
+    def to_solver(v):  # (systems, N) → the solver's layout
+        return v if nb else v.reshape(-1)
+
+    plain = matvec()
+    rhs = to_solver(y_format.flatten(y))
+    x0_n = to_solver(x0_flat)
+    b0 = None if assume_homogeneous else to_solver(plain(torch.zeros_like(x0_flat)))
+    if b0 is not None:
         rhs = rhs - b0
 
-        def A(x):
-            return native_of(op(state_of(x))) - b0, None
-    else:
-        def A(x):
-            return native_of(op(state_of(x))), None
+    def A(x):
+        fx = to_solver(plain(x.reshape(x0_flat.shape)))
+        return (fx if b0 is None else fx - b0), None
 
     rank_def = solve.rank_deficiency or 0
     if rank_def:
-        rhs = sub_mean(rhs)
+        rhs = sub_mean(rhs, nb)
     M = None
     if callable(solve.preconditioner):
         def M(r):
-            z = x_format.flatten(solve.preconditioner(state_of(r))).reshape(-1)
-            return (sub_mean(z) if rank_def else z), None
+            z = to_solver(x_format.flatten(solve.preconditioner(x_format.unflatten(r.reshape(x0_flat.shape)))))
+            return (sub_mean(z, nb) if rank_def else z), None
 
     def param_matvec(x):  # the θ-dependent A·x of the backward: f(x) − f(0)
-        fx = native_of(op(state_of(x)))
-        return fx if assume_homogeneous else fx - native_of(op(state_of(torch.zeros_like(x))))
+        fx = to_solver(plain(x.reshape(x0_flat.shape)))
+        return fx if assume_homogeneous else fx - to_solver(plain(torch.zeros_like(x0_flat)))
 
-    krylov = bicgstab if solve.method in BICGSTAB_METHODS else cg
+    krylov = krylov_of(solve.method)
+    if krylov is None:
+        rerouted = reroute_direct(solve, x0_flat.shape[-1])
+        if rerouted is not None:
+            solve, krylov = rerouted, bicgstab
+        else:
+            def matrix(A_, b, nb_):  # A applied to the identity's columns as one batch of systems
+                n = x0_flat.shape[-1]
+                eye = torch.eye(n, dtype=b.dtype, device=b.device)
+                cols = matvec(n)(eye.unsqueeze(1).expand(n, n_systems, n).contiguous())  # (column, system, N)
+                if b0 is not None:
+                    cols = cols - b0.reshape(1, n_systems, -1)
+                cols = cols.permute(1, 2, 0)  # (system, row, column)
+                return cols if nb_ else cols[0]
+            krylov = Direct(matrix, bool(rank_def))
     grad_solve = solve.gradient_solve.with_defaults('solve')
     result = implicit_solve(krylov, A, rhs, x0_n, solve.rel_tol, solve.abs_tol, solve.max_iterations, M,
                             rank_deficient=bool(rank_def), params=grad_tensors(fn, f_args, f_kwargs),
                             param_matvec=param_matvec,
                             adjoint_tolerances=(grad_solve.rel_tol, grad_solve.abs_tol, grad_solve.max_iterations),
-                            implicit_diff=solve.implicit_diff, on_adjoint=lambda r: record_adjoint(grad_solve, r))
-    x_state = state_of(result.x)
-    finish_solve(solve, x_state, result)
+                            implicit_diff=solve.implicit_diff, on_adjoint=lambda r: record_adjoint(grad_solve, r),
+                            nb=nb)
+    x_state = x_format.unflatten(result.x.reshape(x0_flat.shape))
+    residual = Tensor(result.residual.reshape(tuple(shared_batch.sizes)), shared_batch)
+    finish_solve(solve, x_state, result, residual)
     return x_state

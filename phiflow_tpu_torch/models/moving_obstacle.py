@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..field import CenteredGrid, StaggeredGrid
+from ..field import CenteredGrid, StaggeredGrid, face_layout
 from ..geom import Box, Cuboid, Sphere
 from ..math import ConvergenceException, Solve, extrapolation, vec
 from ..math._nd import PERIODIC
@@ -102,8 +102,8 @@ class MovingObstacles:
         obstacles = tuple(self.move_obstacle(o) for o in obstacles)
         v = advect.mac_cormack_native(v, v, self.dt, self._dx, PERIODIC, periodic=True)
         v, p, self.last_solve = fluid.make_incompressible_native(
-            v, p, self._dx, rel_tol=self.cg_tol, abs_tol=0., max_iterations=self.max_iterations, periodic=True,
-            obstacles=obstacles)
+            v, p, self._dx, rel_tol=self.cg_tol, abs_tol=0., max_iterations=self.max_iterations,
+            faces=face_layout(True, 2), obstacles=obstacles)
         return (v, p) + obstacles
 
 

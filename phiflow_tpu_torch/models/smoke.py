@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..field import CenteredGrid, Field, StaggeredGrid, resample
+from ..field import CenteredGrid, Field, StaggeredGrid, face_layout, resample
 from ..field._resample import sample_grid_at_centers
 from ..geom import Box, Sphere
 from ..math import ConvergenceException, Solve, dual, extrapolation, stack
@@ -215,7 +215,7 @@ class SmokePlume:
         result is kept in `last_solve`."""
         velocity, pressure, self.last_solve = fluid.make_incompressible_native(
             velocity, pressure, self._dx, rel_tol=self.cg_tol, abs_tol=0.,
-            max_iterations=self.max_iterations, periodic=self.periodic)
+            max_iterations=self.max_iterations, faces=face_layout(self.periodic, self.dims))
         return velocity, pressure
 
     def step_native(self, velocity: Velocity, smoke: torch.Tensor, pressure: Optional[torch.Tensor]):

@@ -20,6 +20,7 @@ import torch
 
 from ..field import Field
 from ..field._field_math import laplace, laplace_native
+from .. import math
 from ..math import Solve, copy_solve, dual, jit_compile_linear, solve_linear, stack
 from ..math._nd import _k_grids, _spectral_separable, component_extrapolation
 
@@ -42,27 +43,32 @@ def explicit_native(u: Sequence[torch.Tensor], diffusivity: float, dt: float, dx
 def explicit(u, diffusivity, dt, substeps: int = 1, order: int = 2, implicit=None, gradient=None, upwind=None,
              correct_skew=True):
     """`substeps` explicit Euler steps of u ← u + (ν·dt/substeps)·Δu on a grid
-    Field, the Laplacian of `order`; warns when ν·dt/substeps exceeds the
-    stability limit dx²/(2·d). `implicit` is taken and unused, as in the JAX
-    package."""
-    if isinstance(diffusivity, Field):
-        raise NotImplementedError("a diffusivity Field comes with a later slice of the port")
+    Field, the Laplacian of `order`; a diffusivity Field is sampled at u's
+    points and multiplies Δu there. Warns when the largest ν·dt/substeps
+    exceeds the stability limit dx²/(2·d). `implicit` is taken and unused, as
+    in the JAX package."""
     amount = diffusivity * (dt / substeps)
+    if isinstance(amount, Field):
+        amount = amount.at(u)
+        a_max = float(math.max(abs(amount.values)))
+    else:
+        a_max = abs(float(amount))
     limit = 0.5 * float(np.min(u.dx.numpy())) ** 2 / len(u.resolution)
-    if abs(float(amount)) > limit:
-        warnings.warn(f"diffuse.explicit: amount {amount} exceeds CFL limit {limit}; increase substeps for "
+    if a_max > limit:
+        warnings.warn(f"diffuse.explicit: amount {a_max} exceeds CFL limit {limit}; increase substeps for "
                       f"stability", stacklevel=2)
+    factor = amount.values if isinstance(amount, Field) else amount
     for _ in range(substeps):
         if u.is_staggered:
             names = u.resolution.names
             comps = []
             for dim in names:
                 comp = u.vector[dim]
-                comps.append(comp.values + laplace(comp, order=order).values * amount)
+                comps.append(comp.values + laplace(comp, order=order).values * factor)
             u = Field(u.geometry, stack(comps, dual(vector=names)), u.boundary)
         else:
             delta = laplace(u, order=order, gradient=gradient, upwind=upwind, correct_skew=correct_skew)
-            u = u.with_values(u.values + delta.values * amount)
+            u = u.with_values(u.values + delta.values * factor)
     return u
 
 
@@ -84,8 +90,8 @@ def implicit(u, diffusivity, dt, solve: Solve = Solve('CG'), order: int = 1, gra
 def differential(u, diffusivity, gradient=None, order: int = 2, implicit=None, upwind=None, correct_skew=True):
     """The diffusion term ν·Δu of a PDE's right-hand side, the Laplacian of
     `order`; a staggered grid component by component."""
-    if isinstance(diffusivity, Field):
-        raise NotImplementedError("a diffusivity Field (the weighted Laplacian) comes with a later slice of the port")
+    if isinstance(diffusivity, Field):  # the weighted Laplacian, the diffusivity at u's points
+        return laplace(u, order=order, weights=diffusivity)
     if u.is_staggered:
         comps = [laplace(u.vector[dim], order=order).values * diffusivity for dim in u.resolution.names]
         return Field(u.geometry, stack(comps, dual(vector=u.resolution.names)), u.boundary)

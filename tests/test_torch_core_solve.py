@@ -62,5 +62,5 @@ def test_solve_linear_raises_unless_suppressed():
     x = tm.solve_linear(laplace, y, tm.Solve('CG', 1e-9, 1e-9, x0=y * 0, max_iterations=2,
                                               suppress=(tm.ConvergenceException,)))
     assert x.values.shape == y.values.shape
-    with pytest.raises(NotImplementedError, match=r'biCG-stab\(2\)'):
-        tm.solve_linear(laplace, y, tm.Solve('biCG-stab(2)', x0=y * 0))
+    with pytest.raises(NotImplementedError, match='matrix'):  # as in the JAX package
+        tm.solve_linear(y.values, y, tm.Solve('biCG-stab(2)', x0=y * 0))

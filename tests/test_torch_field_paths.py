@@ -214,8 +214,8 @@ def test_field_api_raises_for_later_slices():
         advect.semi_lagrangian(s, v, 0.5, substeps='auto')
     with pytest.raises(NotImplementedError, match='gather'):
         advect.mac_cormack(s, v, 0.5, max_cells=None)
-    with pytest.raises(NotImplementedError, match='BiCGStab'):
-        fluid.make_incompressible(v, (), Solve('biCG-stab'))
+    with pytest.raises(NotImplementedError, match='order'):
+        fluid.make_incompressible(v, (), Solve('biCG-stab'), order=4)
 
 
 def test_apply_boundary_conditions_matches_jax():

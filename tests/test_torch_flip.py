@@ -18,7 +18,7 @@ from phiflow_tpu.models import FlipLiquid as JaxFlip
 from phiflow_tpu.ops import p2g as jax_p2g
 from phiflow_tpu.physics import advect as jax_advect, fluid as jax_fluid
 
-from phiflow_tpu_torch.field import distribute_points_native, finite_fill_native, scatter_to_grid
+from phiflow_tpu_torch.field import distribute_points_native, face_layout, finite_fill_native, scatter_to_grid
 from phiflow_tpu_torch.field._resample import sample_staggered_at_points
 from phiflow_tpu_torch.geom import box_push
 from phiflow_tpu_torch.models import FlipLiquid
@@ -185,7 +185,7 @@ def test_masked_diagonal_and_chebyshev_match_jax():
     M = jax_fluid._masked_chebyshev_preconditioner(x0, extrapolation.ZERO, None, active)
     ref_z = np.asarray(M(x0.with_values(jmath.tensor(r, shape))).values.native(ORDER))
 
-    bcs = fluid._classify_pressure_bc(False, 3)
+    bcs = fluid.pressure_modes(face_layout(False, 3))
     active_t = torch.from_numpy(act)
     apply_A = lambda p: poisson_apply(p, (1.0,) * 3, bcs, active=active_t)
     diag = fluid._masked_diagonal(apply_A, active_t, bcs).numpy()

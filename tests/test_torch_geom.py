@@ -16,8 +16,8 @@ from phiflow_tpu.math import _ops as jops
 from phiflow_tpu.math import extrapolation, vec
 from phiflow_tpu.physics.fluid import _accessible_extrapolation as jax_accessible_extrapolation
 
-from phiflow_tpu_torch.field import (angular_velocity_at_faces, cell_grid, geometry_mask, safe_mul_native, stagger_native,
-                                     staggered_cells)
+from phiflow_tpu_torch.field import (angular_velocity_at_faces, cell_grid, face_layout, geometry_mask, safe_mul_native,
+                                     stagger_native, staggered_cells)
 from phiflow_tpu_torch.geom import Box, Cuboid, Sphere, UniformGrid_native, rotation_matrix, rotation_matrix_native, union
 from phiflow_tpu_torch.math import PERIODIC
 from phiflow_tpu_torch.physics.fluid import _accessible_extrapolation
@@ -221,7 +221,8 @@ def test_stagger_minimum_matches_jax(dims, periodic):
     ref = jax_stagger(accessible, jops.minimum, staggered.boundary, at='face', dims=staggered.resolution.names)
     mask = geometry_mask(~geom, cell_grid(res, 1.0, 'cpu'))
     assert np.array_equal(mask.numpy(), np.asarray(accessible.values.native(names)))
-    got = stagger_native(mask, torch.minimum, _accessible_extrapolation(PERIODIC if periodic else 0.0), periodic)
+    got = stagger_native(mask, torch.minimum, _accessible_extrapolation(PERIODIC if periodic else 0.0),
+                         face_layout(periodic, len(res)))
     for g, r in zip(got, _components(ref)):
         assert np.array_equal(g.numpy(), r)
         assert 0 < g.sum() < g.numel()

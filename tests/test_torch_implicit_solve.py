@@ -28,7 +28,7 @@ from phiflow_tpu.math import Tensor as JTensor
 from phiflow_tpu.physics import fluid as jax_fluid
 import phiflow_tpu_torch.math as tm
 from phiflow_tpu_torch.math import Solve, SolveTape
-from phiflow_tpu_torch.field import cell_grid, geometry_mask
+from phiflow_tpu_torch.field import cell_grid, face_layout, geometry_mask
 from phiflow_tpu_torch.geom import union
 from phiflow_tpu_torch.physics import fluid
 
@@ -241,7 +241,7 @@ def _projection_grads(comps, periodic, obs=(), jobs=(), preconditioner='chebyshe
         ref = jax.jit(jax.grad(jloss))([jnp.asarray(c) for c in comps])
         cs = [torch.tensor(c, requires_grad=True) for c in comps]
         v2, p, result = fluid.make_incompressible_native(
-            cs, None, 1.0, rel_tol=tol, abs_tol=0., max_iterations=2000, periodic=periodic, obstacles=obs,
+            cs, None, 1.0, rel_tol=tol, abs_tol=0., max_iterations=2000, faces=face_layout(periodic, len(cs)), obstacles=obs,
             active=None if active is None else torch.from_numpy(active))
         loss = (sum((o * torch.from_numpy(w)).sum() for o, w in zip(v2, ws)) + 0.5 * (v2[0] ** 2 * torch.from_numpy(sq)).sum()
                 + (p * torch.from_numpy(wp)).sum())

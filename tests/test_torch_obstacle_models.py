@@ -17,7 +17,7 @@ from phiflow_tpu.math import ConvergenceException, Solve, Tensor, dual, extrapol
 from phiflow_tpu.models import LidDrivenCavity as JaxCavity, MovingObstacles as JaxMovingObstacles
 from phiflow_tpu.physics import advect as jax_advect, diffuse as jax_diffuse, fluid as jax_fluid
 
-from phiflow_tpu_torch.field import divergence_native, geometry_mask, cell_grid
+from phiflow_tpu_torch.field import divergence_native, face_layout, geometry_mask, cell_grid
 from phiflow_tpu_torch.geom import Sphere, UniformGrid_native, union
 from phiflow_tpu_torch.math import PerSide
 from phiflow_tpu_torch.math._nd import pad
@@ -93,7 +93,7 @@ def test_moving_obstacles_projection_is_divergence_free_outside(moving_trajector
     """The JAX suite's check: velocities are O(5), the masked CG runs at rel_tol 1e-4."""
     model, states, _ = moving_trajectory
     v, p, o1, o2 = states[-1][1]
-    div = divergence_native(v, model._dx, periodic=True)
+    div = divergence_native(v, model._dx, face_layout(True, 2))
     hard = geometry_mask(union(o1.geometry, o2.geometry), cell_grid((64, 64), model._dx, 'cpu'))
     assert float((div.abs() * (1 - hard)).max()) < 2e-2
     assert 0 < hard.sum() < hard.numel()

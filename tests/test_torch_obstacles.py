@@ -16,7 +16,7 @@ from phiflow_tpu.math import _ops as jops
 from phiflow_tpu.ops import poisson as jax_poisson
 from phiflow_tpu.physics import fluid as jax_fluid
 
-from phiflow_tpu_torch.field import cell_grid, divergence_native, geometry_mask, stagger_native
+from phiflow_tpu_torch.field import cell_grid, divergence_native, face_layout, geometry_mask, stagger_native
 from phiflow_tpu_torch.geom import Box, Cuboid, Sphere, union
 from phiflow_tpu_torch.models import LidDrivenCavity
 from phiflow_tpu_torch.ops import poisson
@@ -107,7 +107,7 @@ def test_apply_boundary_conditions_matches_jax(dims, periodic, kind):
     comps = _random_velocity(N, dims, periodic)
     obs, jobs = _obstacles(N, dims, kind)
     ref = _components(jax_fluid.apply_boundary_conditions(_jax_staggered(comps, periodic), jobs))
-    got = fluid.apply_boundary_conditions_native([torch.from_numpy(c) for c in comps], obs, 1.0, periodic)
+    got = fluid.apply_boundary_conditions_native([torch.from_numpy(c) for c in comps], obs, 1.0, face_layout(periodic, dims))
     for g, r, c in zip(got, ref, comps):
         assert g.shape == r.shape
         assert float(np.abs(g.numpy() - r).max()) <= 1e-6
@@ -154,9 +154,10 @@ def test_staged_coefficients_match_jax(dims, periodic):
     ref_mA, ref_c0 = jax_poisson.stage_masks(ref_full, bc, inv_dx2)
 
     accessible = geometry_mask(~union([fluid._get_obstacles_for(obs)[i].geometry for i in range(2)]), cell_grid((N,) * dims, 1.0, 'cpu'))
+    faces = face_layout(periodic, dims)
     full = fluid._full_face_masks(stagger_native(accessible, torch.minimum, fluid._accessible_extrapolation(
-        'periodic' if periodic else 0.0), periodic), periodic)
-    mA, c0 = poisson.stage_masks(full, fluid._classify_pressure_bc(periodic, dims), inv_dx2)
+        'periodic' if periodic else 0.0), faces), faces)
+    mA, c0 = poisson.stage_masks(full, fluid.pressure_modes(faces), inv_dx2)
     for g, r in zip(full, ref_full):
         assert np.array_equal(g.numpy(), np.asarray(r))
     for g, r in zip(mA, ref_mA):
@@ -181,9 +182,10 @@ def test_masked_diagonal_with_obstacles_matches_jax(dims, periodic):
     x0 = CenteredGrid(0., jax_fluid._pressure_extrapolation(jv.boundary), bounds=jv.bounds, **{n: N for n in names})
     ref = np.asarray(jax_fluid._masked_diagonal(x0, jv.boundary, hard_bcs, active).native(names))
 
-    bcs = fluid._classify_pressure_bc(periodic, dims)
+    faces = face_layout(periodic, dims)
+    bcs = fluid.pressure_modes(faces)
     accessible = geometry_mask(~union([o.geometry for o in fluid._get_obstacles_for(obs)]), cell_grid((N,) * dims, 1.0, 'cpu'))
-    full = fluid._full_face_masks(stagger_native(accessible, torch.minimum, 'periodic' if periodic else 0.0, periodic), periodic)
+    full = fluid._full_face_masks(stagger_native(accessible, torch.minimum, 'periodic' if periodic else 0.0, faces), faces)
     mA, c0 = poisson.stage_masks(full, bcs, (1.0,) * dims)
     apply_A = lambda p: poisson.poisson_apply(p, (1.0,) * dims, bcs, mA_list=mA, c0=c0, active=accessible)
     diag = fluid._masked_diagonal(apply_A, accessible, bcs).numpy()
@@ -222,7 +224,8 @@ def _project_both(comps, periodic, obs, jobs, preconditioner='chebyshev', active
         jv2, jp, jit = jax.jit(project)(jv)
         v2, p, result = fluid.make_incompressible_native(
             [torch.from_numpy(c) for c in comps], x0, 1.0, rel_tol=tol, abs_tol=0., max_iterations=2000,
-            periodic=periodic, obstacles=obs, active=None if active is None else torch.from_numpy(active))
+            faces=face_layout(periodic, len(comps)), obstacles=obs,
+            active=None if active is None else torch.from_numpy(active))
     finally:
         jax_fluid.MASKED_PRECONDITIONER, fluid.MASKED_PRECONDITIONER = old
     return (_components(jv2), np.asarray(jp.values.native(names)), int(np.asarray(jit))), (v2, p, result)
@@ -251,7 +254,7 @@ def test_make_incompressible_with_obstacles_matches_jax(dims, N, periodic, kind)
     # what the projection is for: outside the obstacles the divergence is the constant that balancing leaves
     v, _, _ = got
     accessible = geometry_mask(~union([o.geometry for o in fluid._get_obstacles_for(obs)]), cell_grid((N,) * dims, 1.0, 'cpu'))
-    div = divergence_native(v, 1.0, periodic) * accessible
+    div = divergence_native(v, 1.0, face_layout(periodic, dims)) * accessible
     mean_active = div.sum() / accessible.sum()
     assert float(((div - mean_active) * accessible).abs().max()) < 1e-3
 

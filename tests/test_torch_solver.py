@@ -86,6 +86,7 @@ def test_project_periodic_matches_jax():
     stencil modes) against JAX's periodic `SmokePlume.project`."""
     from phiflow_tpu.math import SolveTape, Tensor, dual, stack
     from phiflow_tpu.models import SmokePlume as JaxSmoke
+    from phiflow_tpu_torch.field import face_layout
     from phiflow_tpu_torch.physics.fluid import make_incompressible_native
     N = 32
     rng = np.random.default_rng(24)
@@ -98,7 +99,7 @@ def test_project_periodic_matches_jax():
     with SolveTape(record_runtime=True) as tape:
         jv, jp = jax_model.project(v, p0)
     tv, tp, result = make_incompressible_native(tuple(torch.from_numpy(a) for a in vel), None, 1.0,
-                                         rel_tol=1e-5, abs_tol=0., periodic=True)
+                                         rel_tol=1e-5, abs_tol=0., faces=face_layout(True, len(vel)))
     assert result.iterations == tape.solve_infos[-1].runtime_stats['iterations']
     assert float(np.abs(tp.numpy() - np.asarray(jp.values.native(ORDER))).max()) < 1e-4
     for d, dim in enumerate(ORDER):
