@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port (`phiflow_tpu_torch`) on one NVIDIA card and check it.
 
     python3 chip_smoke.py           # all phases, one card
-    python3 chip_smoke.py --quick   # build + kernel-versus-twin checks at the small shapes only
+    python3 chip_smoke.py --quick   # build + kernel-versus-twin checks at the small shapes only (and 9a)
     python3 chip_smoke.py --profile # all phases, then torch.profiler over 3 steps of each path (4-field too,
                                     # Burgers 128² and Kolmogorov 512² Field and native steps, both SPH and
                                     # both FVM sizes),
@@ -197,7 +197,31 @@ Phases; any failure exits non-zero and prints no result:
      with its ms, the reroute warning at 20000 unknowns, the Poiseuille
      march by 'biCG-stab(2)' in float64, `matrix_from_function` of the 64²
      periodic Laplacian and the nested domain, card vs CPU;
-  6. the `kernels` JSON line, then the last line
+  9. batched simulation (`check_batched_kernels` with phase 3, `run_batched` after phase 8):
+     9a K1 (each epilogue, with its dot), K2 (the zero-init pre-smooth f32 → bf16 and the post-smooth
+     with its dot), K3 and K4 at B = 4 × 128³ and B = 3 × RAGGED, K6 at B = 4 × 128³ with a
+     batched and a shared displacement (edge + extrema, const), K7 at B = 4 × 1024², K6ᵀ / K7ᵀ at the
+     same shapes: each against its twin at phase 3's tolerances, entry by entry against the
+     unbatched launch on that entry (outputs bit-equal, dots within 1e-6 relative; K6ᵀ / K7ᵀ's
+     d_grid, summed by atomics, within phase 3's tolerance), exactly one launch a batched call;
+     then (not with --quick) each batched form timed at B = 4 beside its unbatched launch on one
+     entry (the row's `entry` part); 9b batched-smoke-256x4: SmokePlume(256, dims=3,
+     batch_shape=batch(b=4)) from `smooth_state` seeds 0–3 through the Field `step` (per-phase):
+     its first CG matvec (K1 with the per-entry dot) and K6 lookups (smoke and velocity components)
+     against their twins on the inputs the step gave them, phase 3's tolerances; 2 warm-up and 5
+     timed steps: ms/step, Mcells/s over all entries, CG iterations, launches a step (K6 exactly 5,
+     K2 2 per smoothed level per V-cycle), `max_memory_allocated`, the busy share and device kernels
+     a step under torch.profiler; then 2 steps batched against each entry's unbatched Field step
+     (within 1e-5 of each array's max; the batched CG count the entries' largest; launches those of
+     the unbatched path at the same CG counts); entry 0's unbatched step timed and profiled beside
+     it; the same for batched-smoke-128x16 (B = 16 at 128³); 9c batched-smoke-2d:
+     examples/batched_smoke.py's recipe at 64² with four inflow rates, 30 steps, card and CPU (K7
+     exactly 4 a step; the example's monotone assert; 1e-3 of the smoke's max), and the CPU run with
+     the rates one float32 ulp up against the CPU run (what rounding alone moves); 9d the batched 3D plume at 32³, b = 3, 2 steps, CPU vs card 1e-3;
+     9e batched-grad-64 and batched-grad-256-2d: `math.gradient` of a batched rollout (b = 2),
+     K6ᵀ / K7ᵀ once for each forward K6 / K7 launch, each entry within 1e-4 of its own gradient;
+  10. the `kernels` JSON line (every row above and the batched forms, `<kernel>_batched`, whose
+     launches are counted on phase 9's paths), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import json
@@ -245,6 +269,10 @@ KERNELS = {  # launch-counter name → (source, the Pallas kernel it replaces)
     'window_interp_3d_grad': ('phiflow_tpu_torch/csrc/interp.cu', 'phiflow_tpu/ops/interp.py:111'),
     'window_interp_2d_grad': ('phiflow_tpu_torch/csrc/interp.cu', 'phiflow_tpu/ops/interp.py:323'),
 }
+# the batched forms (phase 9): the same kernels over a leading batch axis, one launch a call
+BATCHED_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'window_interp_3d',
+                   'window_interp_2d', 'window_interp_3d_grad', 'window_interp_2d_grad')
+ROWS = {**KERNELS, **{f'{k}_batched': KERNELS[k] for k in BATCHED_KERNELS}}  # the `kernels` line's rows
 FUSED_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'fused_advect')
 PHASES_3D_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'window_interp_3d')
 PHASES_2D_KERNELS = ('window_interp_2d',)
@@ -261,11 +289,11 @@ K2_LAUNCHES_PER_LEVEL = 2
 
 
 class Checks:
-    """Kernel-versus-twin comparisons and timings, by kernel."""
+    """Kernel-versus-twin comparisons and timings, by row of the `kernels` line."""
 
     def __init__(self):
-        self.max_err = {k: 0.0 for k in KERNELS}
-        self.passed = {k: 0 for k in KERNELS}
+        self.max_err = {k: 0.0 for k in ROWS}
+        self.passed = {k: 0 for k in ROWS}
         self.timing = {}
         self.failed = []
 
@@ -1071,22 +1099,32 @@ def check_advect(ch, gen, quick):
         torch.cuda.empty_cache()
 
 
-def _grid_sample_lookup(grid, disps, K, scale, padding_mode):
-    """`torch.nn.functional.grid_sample` for the same lookup: a closure over
-    the prebuilt normalised coordinate grid (align_corners=True), so that only
-    the library call itself is timed."""
+def _sample_coords(grid, disps, K, scale):
+    """The normalised sample coordinates (align_corners=True) of the window
+    lookup for `F.grid_sample`: (N, *grid, d), the last axis first, N the
+    entries of a leading batch axis of grid and displacements (1 without)."""
     import torch
-    d = grid.ndim
+    d = len(disps)
     coords = []
     for ax in range(d):
-        n = grid.shape[ax]
+        n = grid.shape[grid.ndim - d + ax]
         idx = torch.arange(n, device=grid.device, dtype=torch.float32).reshape((-1,) + (1,) * (d - ax - 1))
         pos = idx + torch.clamp(scale[ax] * disps[ax], -float(K), float(K))
         coords.append(pos * (2.0 / (n - 1)) - 1.0)
-    coord_grid = torch.stack(coords[::-1], dim=-1)[None]  # last entry first: (x, y[, z]) = (W, H[, D])
-    F = torch.nn.functional
-    return lambda: F.grid_sample(grid[None, None], coord_grid, mode='bilinear', padding_mode=padding_mode,
-                                 align_corners=True)[0, 0]
+    coord_grid = torch.stack(coords[::-1], dim=-1)  # last entry first: (x, y[, z]) = (W, H[, D])
+    return coord_grid if coord_grid.ndim == d + 2 else coord_grid[None]
+
+
+def _grid_sample_lookup(grid, disps, K, scale, padding_mode):
+    """`torch.nn.functional.grid_sample` for the same lookup: a closure over
+    the prebuilt normalised coordinate grid (align_corners=True), so that only
+    the library call itself is timed. A leading batch axis (grid and
+    displacements) is grid_sample's N."""
+    coord_grid = _sample_coords(grid, disps, K, scale)
+    inp = grid.reshape((-1, 1) + tuple(grid.shape[grid.ndim - len(disps):]))
+    F = __import__('torch').nn.functional
+    return lambda: F.grid_sample(inp, coord_grid, mode='bilinear', padding_mode=padding_mode,
+                                 align_corners=True)[:, 0].reshape(grid.shape)
 
 
 def check_interp(ch, gen, quick):
@@ -2645,18 +2683,14 @@ def _grad_compare(ch, d, case, got, ref):
 def _grid_sample_backward(grid, disps, K, scale, padding_mode, g):
     """The gradient of `F.grid_sample` (forward and backward, one autograd
     call) for the same lookup, with respect to the grid and the sample
-    coordinates: the library yardstick of K6ᵀ / K7ᵀ."""
+    coordinates: the library yardstick of K6ᵀ / K7ᵀ (a leading batch axis
+    as grid_sample's N)."""
     import torch
-    d = grid.ndim
-    coords = []
-    for ax in range(d):
-        n = grid.shape[ax]
-        idx = torch.arange(n, device=grid.device, dtype=torch.float32).reshape((-1,) + (1,) * (d - ax - 1))
-        pos = idx + torch.clamp(scale[ax] * disps[ax], -float(K), float(K))
-        coords.append(pos * (2.0 / (n - 1)) - 1.0)
-    coord_grid = torch.stack(coords[::-1], dim=-1)[None].detach().requires_grad_()
-    inp = grid[None, None].detach().requires_grad_()
-    up = g[None, None]
+    d = len(disps)
+    coord_grid = _sample_coords(grid, disps, K, scale).detach().requires_grad_()
+    spatial = tuple(grid.shape[grid.ndim - d:])
+    inp = grid.reshape((-1, 1) + spatial).detach().requires_grad_()
+    up = g.reshape((-1, 1) + spatial)
     F = torch.nn.functional
     return lambda: torch.autograd.grad(F.grid_sample(inp, coord_grid, mode='bilinear', padding_mode=padding_mode,
                                                      align_corners=True), (inp, coord_grid), up)
@@ -2834,7 +2868,7 @@ def cg_dot_probe(N=PATH_N, steps=3, rounds=2, solves=5):
     from phiflow_tpu_torch.physics import fluid
     gaps = []
 
-    def recording(resolution, dx, bcs, device, singular=True):
+    def recording(resolution, dx, bcs, device, singular=True, nb=0):  # the probe is unbatched: nb is 0
         vcycle = make_poisson_vcycle(tuple(resolution), tuple(dx) if isinstance(dx, (tuple, list))
                                      else (dx,) * len(resolution), bcs, device)
         gaps.append([])
@@ -4093,6 +4127,575 @@ def ptxas_entries(log):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 9: batched simulation
+# ---------------------------------------------------------------------------
+
+BATCH_B = 4
+BATCH_N = 128  # 9a: the 3D kernels at B = 4 × 128³
+BATCH_ODD = (3, RAGGED)  # and at B = 3 × a shape of no power of two (the march kernels' scalar route)
+BATCH_N_2D = 1024  # 9a: K7 and K7ᵀ at B = 4 × 1024²
+BATCH_SMOKE_N = 256  # 9b: batched-smoke-256x4
+BATCH_WIDE_N, BATCH_WIDE_B = 128, 16  # and batched-smoke-128x16: the per-entry reductions' cost at a larger batch
+BATCH_RECIPE_N, BATCH_RECIPE_STEPS = 64, 30  # 9c: examples/batched_smoke.py's own size and steps
+BATCH_RATES = (0.2, 0.5, 1.0, 2.0)  # its four inflow rates
+# the batched forms in the `kernels` line: row name → the launch counter its launches go under (one per call)
+BATCHED_ROWS = {f'{k}_batched': k for k in BATCHED_KERNELS}
+ENTRY_DOT_RTOL = 1e-6  # a batched launch's dot of an entry against that entry's own launch: the blocks' partials
+# are the same, summed in another order
+
+
+def _launch_once(ch, row, case, fn):
+    """`fn()` with the launches of `row`'s counter counted: exactly one. Returns fn's result."""
+    from phiflow_tpu_torch.ops import _build
+    counter = BATCHED_ROWS[row]
+    before = _build.LAUNCHES[counter]
+    out = fn()
+    n = _build.LAUNCHES[counter] - before
+    ok = n == 1
+    print(f'check {row:17s} {case:58s} launches {n} (one for the batch) {"ok" if ok else "FAIL"}')
+    if not ok:
+        ch.failed.append(f'{row} {case} launches {n}')
+    ch.passed[row] += ok
+    return out
+
+
+def _entries_equal(ch, row, case, got, per_entry):
+    """Each entry of a batched launch's output bit-equal to its own launch."""
+    for e, ref in enumerate(per_entry):
+        ch.compare(row, f'{case} entry {e} = its own launch', got[e], ref, 0.0)
+
+
+def check_batched_kernels(ch, gen, quick):
+    """9a: K1 (matvec and its epilogues, with the dot), K2 (the zero-init pre-smooth and the post-smooth with its
+    dot), K3 and K4 at B = 4 × 128³ and B = 3 × RAGGED; K6 at B = 4 × 128³ with a batched and a shared
+    displacement, K7 at B = 4 × 1024²; K6ᵀ / K7ᵀ at the same shapes. Each against its twin at phase 3's
+    tolerances, entry by entry against the unbatched launch on that entry (outputs bit-equal, dots within
+    1e-6 relative; K6ᵀ / K7ᵀ: d_disp bit-equal, d_grid within phase 3's tolerance — its atomics sum in no fixed
+    order), and to exactly one launch a batched call. Then (not with --quick) each batched form timed at
+    B = 4 beside its unbatched launch on one entry (`entry` part of its row: 4 × that is the unbatched cost)."""
+    import torch
+    from phiflow_tpu_torch.ops import interp as I
+    from phiflow_tpu_torch.ops import poisson as P
+    from phiflow_tpu_torch.ops import transfer as T
+    dev = 'cuda'
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rnd(shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    cases = [(BATCH_B, (BATCH_N,) * 3, PATH_BC, (1.0, 1.0, 1.0)), (*BATCH_ODD, BC_SETS[2], (1.0, 0.7, 1.3))]
+    for B, shape, bcs, inv in cases:
+        tag = f'B={B} x {shape}'
+        w = 0.9 / (-2.0 * sum(inv))
+        p, b = rnd((B,) + shape), rnd((B,) + shape)
+        row = 'poisson_stencil_batched'
+        for mode in ('matvec', 'residual', 'jacobi'):
+            case = f'{mode} +dot {tag}'
+            kw = dict(b=b, mode=mode, omega_over_diag=0.15, with_dot=True)
+            got, dot = _launch_once(ch, row, case, lambda: P.poisson_apply(p, inv, bcs, **kw))
+            ref, rdot = P._poisson_apply_plain(p, inv, bcs, **kw)
+            ch.compare(row, case + ' vs twin', got, ref, 2e-5)
+            for e in range(B):
+                ch.compare_dot(row, f'{case} entry {e} vs twin', dot[e], rdot[e], 1e-5)
+                g1, d1 = P.poisson_apply(p[e], inv, bcs, b=b[e], mode=mode, omega_over_diag=0.15, with_dot=True)
+                ch.compare(row, f'{case} entry {e} = its own launch', got[e], g1, 0.0)
+                ch.compare_dot(row, f'{case} entry {e} dot vs its own launch', dot[e], d1, ENTRY_DOT_RTOL)
+        row = 'jacobi_sweeps_batched'
+        pre = _launch_once(ch, row, f'pre-smooth zero-init x3 f32->bf16 {tag}',
+                           lambda: P.poisson_smooth(None, b, inv, bcs, w, 3, zero_init=True, out_dtype=bf16))
+        ch.compare(row, f'pre-smooth {tag} vs twin', pre, P._poisson_smooth_plain(None, b, inv, bcs, w, 3, True,
+                                                                                bf16, False), 2e-5)
+        _entries_equal(ch, row, f'pre-smooth {tag}', pre, [P.poisson_smooth(None, b[e], inv, bcs, w, 3, zero_init=True,
+                                                                           out_dtype=bf16) for e in range(B)])
+        post, dot = _launch_once(ch, row, f'post-smooth x3 bf16->f32 +dot {tag}',
+                                 lambda: P.poisson_smooth(pre, b, inv, bcs, w, 3, out_dtype=f32, emit_dot=True))
+        ref, rdot = P._poisson_smooth_plain(pre, b, inv, bcs, w, 3, False, f32, True)
+        ch.compare(row, f'post-smooth {tag} vs twin', post, ref, 2e-5)
+        for e in range(B):
+            ch.compare_dot(row, f'post-smooth {tag} entry {e} vs twin', dot[e], rdot[e], 1e-5)
+            g1, d1 = P.poisson_smooth(pre[e], b[e], inv, bcs, w, 3, out_dtype=f32, emit_dot=True)
+            ch.compare(row, f'post-smooth {tag} entry {e} = its own launch', post[e], g1, 0.0)
+            ch.compare_dot(row, f'post-smooth {tag} entry {e} dot vs its own launch', dot[e], d1, ENTRY_DOT_RTOL)
+        row = 'residual_restrict_batched'
+        got = _launch_once(ch, row, f'u bf16, b f32 {tag}', lambda: P.residual_restrict(pre, b, inv, bcs))
+        ch.compare(row, f'u bf16, b f32 {tag} vs twin', got, P._residual_restrict_plain(pre, b, inv, bcs), 1e-5)
+        _entries_equal(ch, row, f'u bf16, b f32 {tag}', got,
+                       [P.residual_restrict(pre[e], b[e], inv, bcs) for e in range(B)])
+        row = 'prolong_add_batched'
+        c = rnd((B,) + tuple(n // 2 for n in shape), bf16)
+        got = _launch_once(ch, row, f'bf16 {tag}', lambda: T.prolong_add(c, pre))
+        ch.compare(row, f'bf16 {tag} vs twin', got, T._prolong_add_plain(c, pre), 0.0)
+        _entries_equal(ch, row, f'bf16 {tag}', got, [T.prolong_add(c[e], pre[e]) for e in range(B)])
+        del p, b, pre, post, c, got
+    fns = {3: I.window_interp_3d, 2: I.window_interp_2d}
+    for d, shape in ((3, (BATCH_N,) * 3), (2, (BATCH_N_2D,) * 2)):
+        row, grow = f'window_interp_{d}d_batched', f'window_interp_{d}d_grad_batched'
+        scale = (-0.5,) * d
+        grid = torch.rand((BATCH_B,) + shape, generator=gen, device=dev)
+        batched = [torch.rand((BATCH_B,) + shape, generator=gen, device=dev) * 5.0 - 2.5 for _ in range(d)]
+        shared = [x[1].contiguous() for x in batched]
+        for disp_kind, disps in (('batched', batched), ('shared', shared)):
+            for mode, extrema in (('edge', True), ('const', False)):
+                case = f'B={BATCH_B} x {shape} K=1 {mode}{" extrema" if extrema else ""}, {disp_kind} displacement'
+                halo = dict(halo='edge') if mode == 'edge' else dict(const_pad=0.0)
+                got = _launch_once(ch, row, case, lambda: fns[d](grid, disps, 1, compute_extrema=extrema,
+                                                               disp_scale=scale, **halo))
+                ref = I._window_interp_plain(grid, disps, 1, extrema, tuple(I._f32(x) for x in scale), mode, 0.0)
+                got, ref = (got, ref) if extrema else ((got,), (ref,))
+                ch.compare(row, case + ' value vs twin', got[0], ref[0], 1e-5)
+                for what, g, r in zip(('lo', 'up'), got[1:], ref[1:]):
+                    ch.compare(row, f'{case} {what} vs twin (exact)', g, r, 0.0)
+                for e in range(BATCH_B):
+                    one = fns[d](grid[e], [x if disp_kind == 'shared' else x[e] for x in disps], 1,
+                                 compute_extrema=extrema, disp_scale=scale, **halo)
+                    one = one if extrema else (one,)
+                    for k, (g, r) in enumerate(zip(got, one)):
+                        ch.compare(row, f'{case} out {k} entry {e} = its own launch', g[e], r, 0.0)
+                ups = [torch.randn((BATCH_B,) + shape, generator=gen, device=dev) for _ in range(3 if extrema else 1)]
+                gg = _launch_once(ch, grow, case, lambda: _grad_call(d, grid, disps, 1, extrema, scale, mode, 0.0, ups,
+                                                                    False))
+                _grad_compare_row(ch, grow, case + ' vs twin VJP', gg,
+                                  _grad_call(d, grid, disps, 1, extrema, scale, mode, 0.0, ups, True))
+                for e in range(BATCH_B):
+                    ge = _grad_call(d, grid[e], [x if disp_kind == 'shared' else x[e] for x in disps], 1, extrema,
+                                    scale, mode, 0.0, [u[e] for u in ups], False)
+                    ch.compare(grow, f'{case} d_grid entry {e} vs its own launch (atomics)', gg[0][e], ge[0],
+                               GRAD_TOL * max(float(ge[0].abs().max()), 1e-30))
+                    if disp_kind == 'batched':
+                        for i in range(d):
+                            ch.compare(grow, f'{case} d_disp[{i}] entry {e} = its own launch', gg[1][i][e], ge[1][i],
+                                       0.0)
+        del grid, batched, shared, got, ref
+        torch.cuda.empty_cache()
+    if quick:
+        return
+    time_batched_kernels(ch, gen)
+
+
+def _grad_compare_row(ch, row, case, got, ref):
+    (g_grid, g_disp), (r_grid, r_disp) = got, ref
+    for what, g, r in [('d_grid', g_grid, r_grid)] + [(f'd_disp[{i}]', a, b) for i, (a, b) in
+                                                      enumerate(zip(g_disp, r_disp))]:
+        ch.compare(row, f'{case} {what}', g, r, GRAD_TOL * max(float(r.abs().max()), 1e-30))
+
+
+def time_batched_kernels(ch, gen):
+    """Each batched form at B = 4 (4 × 128³; K7 4 × 1024²) as the batched step calls it, beside its unbatched
+    launch on one entry (the row's `entry` part: device_ms of one entry; 4 × that is the unbatched cost)."""
+    import torch
+    from phiflow_tpu_torch.ops import poisson as P
+    from phiflow_tpu_torch.ops import transfer as T
+    dev = 'cuda'
+    B, N3, one = BATCH_B, (BATCH_N,) * 3, (1.0, 1.0, 1.0)
+    f32, bf16 = torch.float32, torch.bfloat16
+    w = 0.9 / -6.0
+    p = torch.randn((B,) + N3, generator=gen, device=dev)
+    b = torch.randn((B,) + N3, generator=gen, device=dev)
+    weight = torch.zeros((1, 1, 3, 3, 3), device=dev)
+    weight[0, 0, 1, 1, 1] = -6.0
+    for c in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0), (1, 1, 2)):
+        weight[(0, 0) + c] = 1.0
+    F = torch.nn.functional
+
+    def timed(row, what, batched, plain, entry, entry_plain, n_bytes, n_ops, library=None, entry_library=None):
+        ch.time(row, f'{what}, B={B}', batched, plain, n_bytes, n_ops, library)
+        ch.time(row, f'{what}, one entry (unbatched launch)', entry, entry_plain, n_bytes / B, n_ops / B,
+                entry_library, key=row + ' entry')
+        ch.attach(row, [row + ' entry'])
+        print(f'note  {row:17s} B={B}: device {ch.timing[row]["device_ms"]:.4f} ms vs {B} x unbatched '
+              f'{B * ch.timing[row]["parts"][row + " entry"]["device_ms"]:.4f} ms')
+
+    timed('poisson_stencil_batched', f'matvec + dot {N3} f32', lambda: P.poisson_apply(p, one, PATH_BC, with_dot=True),
+          lambda: P._poisson_apply_plain(p, one, PATH_BC, with_dot=True),
+          lambda: P.poisson_apply(p[0], one, PATH_BC, with_dot=True),
+          lambda: P._poisson_apply_plain(p[0], one, PATH_BC, with_dot=True), nbytes(p, p), 22 * p.numel(),
+          lambda: F.conv3d(F.pad(p[:, None], (1,) * 6, mode='replicate'), weight),
+          lambda: F.conv3d(F.pad(p[0][None, None], (1,) * 6, mode='replicate'), weight))
+    pre = P.poisson_smooth(None, b, one, PATH_BC, w, 3, zero_init=True, out_dtype=bf16)
+    timed('jacobi_sweeps_batched', f'post-smooth x3 bf16->f32 +dot {N3}',
+          lambda: P.poisson_smooth(pre, b, one, PATH_BC, w, 3, out_dtype=f32, emit_dot=True),
+          lambda: P._poisson_smooth_plain(pre, b, one, PATH_BC, w, 3, False, f32, True),
+          lambda: P.poisson_smooth(pre[0], b[0], one, PATH_BC, w, 3, out_dtype=f32, emit_dot=True),
+          lambda: P._poisson_smooth_plain(pre[0], b[0], one, PATH_BC, w, 3, False, f32, True),
+          nbytes(pre, b, b), 3 * 24 * b.numel())
+    out = P.residual_restrict(pre, b, one, PATH_BC)
+    timed('residual_restrict_batched', f'u bf16, b f32 {N3} -> bf16', lambda: P.residual_restrict(pre, b, one, PATH_BC),
+          lambda: P._residual_restrict_plain(pre, b, one, PATH_BC),
+          lambda: P.residual_restrict(pre[0], b[0], one, PATH_BC),
+          lambda: P._residual_restrict_plain(pre[0], b[0], one, PATH_BC), nbytes(pre, b, out), 23 * pre.numel())
+    c = out
+    got = T.prolong_add(c, pre)
+    timed('prolong_add_batched', f'c {tuple(c.shape[1:])} + u {N3} bf16', lambda: T.prolong_add(c, pre),
+          lambda: T._prolong_add_plain(c, pre), lambda: T.prolong_add(c[0], pre[0]),
+          lambda: T._prolong_add_plain(c[0], pre[0]), nbytes(c, pre, got),
+          pre.numel(), lambda: F.interpolate(c[:, None], scale_factor=2, mode='nearest'),
+          lambda: F.interpolate(c[0][None, None], scale_factor=2, mode='nearest'))
+    del p, b, pre, out, c, got
+    torch.cuda.empty_cache()
+    from phiflow_tpu_torch.ops import interp as I
+    fns = {3: I.window_interp_3d, 2: I.window_interp_2d}
+    for d, shape in ((3, N3), (2, (BATCH_N_2D,) * 2)):
+        scale = (-0.5,) * d
+        grid = torch.rand((B,) + shape, generator=gen, device=dev)
+        disps = [torch.rand((B,) + shape, generator=gen, device=dev) * 5.0 - 2.5 for _ in range(d)]
+        n = grid.numel()
+        ops = (2 ** d * (d + 1) + 8 * d) * n + 2 ** (d + 1) * n
+        fn = fns[d]
+        row = f'window_interp_{d}d_batched'
+        timed(row, f'smoke forward: edge halo + extrema {shape} K=1',
+              lambda: fn(grid, disps, 1, compute_extrema=True, disp_scale=scale, halo='edge'),
+              lambda: I._window_interp_plain(grid, disps, 1, True, scale, 'edge', 0.0),
+              lambda: fn(grid[0], [x[0] for x in disps], 1, compute_extrema=True, disp_scale=scale, halo='edge'),
+              lambda: I._window_interp_plain(grid[0], [x[0] for x in disps], 1, True, scale, 'edge', 0.0),
+              nbytes(grid, *disps) + 3 * nbytes(grid), ops, _grid_sample_lookup(grid, disps, 1, scale, 'border'),
+              _grid_sample_lookup(grid[0], [x[0] for x in disps], 1, scale, 'border'))
+        ups = [torch.randn((B,) + shape, generator=gen, device=dev)]
+        gops = (2 ** d * (d * d + d + 1) + 32 * d) * n
+        timed(f'window_interp_{d}d_grad_batched', f'velocity component: const halo {shape} K=1',
+              lambda: _grad_call(d, grid, disps, 1, False, scale, 'const', 0.0, ups, False),
+              lambda: _grad_call(d, grid, disps, 1, False, scale, 'const', 0.0, ups, True),
+              lambda: _grad_call(d, grid[0], [x[0] for x in disps], 1, False, scale, 'const', 0.0, [ups[0][0]], False),
+              lambda: _grad_call(d, grid[0], [x[0] for x in disps], 1, False, scale, 'const', 0.0, [ups[0][0]], True),
+              nbytes(grid, *disps, *ups) + nbytes(grid, *disps), gops,
+              _grid_sample_backward(grid, disps, 1, scale, 'zeros', ups[0]),
+              _grid_sample_backward(grid[0], [x[0] for x in disps], 1, scale, 'zeros', ups[0][0]))
+        del grid, disps, ups
+        torch.cuda.empty_cache()
+
+
+def _stack_states(states):
+    """Numpy states (velocity components, smoke, pressure) stacked along a leading batch axis, as CUDA arrays."""
+    import numpy as np
+    from phiflow_tpu_torch.models import state_from_numpy
+    return state_from_numpy(*[np.stack(parts) for parts in zip(*states)], device='cuda')
+
+
+def _unbatched_launches(model, state, steps):
+    """`steps` Field steps of `model` from one entry's array state: (final natives, CG counts, launches)."""
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.ops import _build
+    step, _ = _stepper(model, True)
+    v, s, p = model.state_fields(*state)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with math.SolveTape() as tape:
+        for _ in range(steps):
+            v, s, p = step(v, s, p)
+    torch.cuda.synchronize()
+    return model.state_natives(v, s, p), [i.iterations for i in tape], dict(_build.LAUNCHES)
+
+
+def _keep_batched_calls(name, args, kwargs, kept):
+    """`Recorder`'s keep for a batched step: the first matvec with its dot on a nonzero direction (K1's
+    arguments) and the first K6 lookup of each grid shape, with or without extrema (its arguments)."""
+    if name == 'poisson_apply':
+        return {name: (args, kwargs)} if kwargs.get('with_dot') and name not in kept and bool(args[0].any()) else {}
+    return {(name, tuple(args[0].shape), bool(kwargs.get('compute_extrema'))): (args, kwargs)}
+
+
+def check_batched_path_kernels(ch, tag, kept):
+    """Batched K1 and K6 against their twins on the inputs a batched step gave them (`_keep_batched_calls`):
+    phase 3's tolerances — K1 2e-5 on the system scaled by a power of two as `check_tunnel_stencil` scales it,
+    each entry's dot 1e-5; K6 values 1e-5, lo / up exactly."""
+    from phiflow_tpu_torch.ops import interp as I
+    from phiflow_tpu_torch.ops import poisson as P
+    (p, inv_dx2, bcs), kw = kept.pop('poisson_apply')
+    s = pow2(float(p.std()) * sum(inv_dx2) / 3)
+    row, case = 'poisson_stencil_batched', f'{tag} CG matvec +dot {tuple(p.shape)}'
+    got, dot = P.poisson_apply(p, inv_dx2, bcs, **kw)
+    ref, rdot = P._poisson_apply_plain(p, inv_dx2, bcs, **kw)
+    ch.compare(row, f'{case} vs twin (÷ {s:g})', got / s, ref / s, 2e-5)
+    for e in range(p.shape[0]):
+        ch.compare_dot(row, f'{case} entry {e} dot vs twin', dot[e], rdot[e], 1e-5)
+    del got, ref
+    row = 'window_interp_3d_batched'
+    for (_, shape, extrema), ((grid, disps, K), kw) in kept.items():
+        mode = 'const' if kw.get('const_pad') is not None else kw.get('halo')
+        sgn = -1.0 if kw.get('negate') else 1.0
+        scale = tuple(I._f32(sgn * x) for x in (kw.get('disp_scale') or (1.0,) * 3))
+        case = (f'{tag} lookup {shape} {mode or "padded"}{" extrema" if extrema else ""}, displacement '
+                f'{tuple(disps[0].shape)}')
+        got = I.window_interp_3d(grid, disps, K, **kw)
+        ref = I._window_interp_plain(grid, list(disps), K, extrema, scale, mode, I._f32(kw.get('const_pad') or 0.0))
+        got, ref = (got, ref) if extrema else ((got,), (ref,))
+        ch.compare(row, case + ' value vs twin', got[0], ref[0], 1e-5)
+        for what, g, r in zip(('lo', 'up'), got[1:], ref[1:]):
+            ch.compare(row, f'{case} {what} vs twin (exact)', g, r, 0.0)
+        del got, ref
+
+
+def run_batched_smoke(ch, tag=f'batched-smoke-{BATCH_SMOKE_N}x{BATCH_B}', N=BATCH_SMOKE_N, B=BATCH_B, warmup=2,
+                      steps=5, check_steps=2, tol=1e-5):
+    """9b: SmokePlume(N, dims=3, batch_shape=batch(b=B)) from B distinct smooth states (`smooth_state`, seeds
+    0..B−1), its Field `step` (per-phase: JAX's gate refuses batch dims). Its first warm-up step records the
+    inputs of its first CG matvec and K6 lookups, and the batched K1 and K6 are held to their twins on them
+    (`check_batched_path_kernels`). Then `warmup` + `steps` timed with the
+    counters set to 0 just before and read just after: ms/step, Mcells/s over all entries, CG iterations,
+    launches a step by kernel (K6 exactly 5 a step, one a lookup for the batch), `max_memory_allocated`; the
+    device's busy share from torch.profiler over 3 more steps. Then from the states again, `check_steps` steps
+    batched against each entry's own unbatched Field step: within `tol` of each array's max, the batched CG
+    count the largest of the entries' at every step, and the batched launches a step those of the unbatched
+    per-phase path at the batched run's CG counts (per V-cycle and per CG iteration as unbatched, never B
+    times them). Last, entry 0's unbatched Field step timed and profiled as the batched one was (B × its
+    ms/step is the cost of running the entries one after another)."""
+    import numpy as np
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.math import batch
+    from phiflow_tpu_torch.math import _nd
+    from phiflow_tpu_torch.models import SmokePlume
+    from phiflow_tpu_torch.ops import _build
+    from phiflow_tpu_torch.physics import fluid
+    states = [smooth_state(N, 3, seed=k) for k in range(B)]
+    model = SmokePlume(resolution=N, dims=3, cg_tol=1e-3, max_iterations=100, batch_shape=batch(b=B), device='cuda')
+    step, _ = _stepper(model, True)
+    v, s, p = model.state_fields(*_stack_states(states))
+    assert not model._fused_advect_available(v, s)
+    with Recorder(_keep_batched_calls, poisson_apply=fluid, window_interp_3d=_nd) as rec:
+        v, s, p = step(v, s, p)
+    check_batched_path_kernels(ch, tag, rec.kept)
+    del rec
+    torch.cuda.empty_cache()
+    for _ in range(warmup - 1):
+        v, s, p = step(v, s, p)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with math.SolveTape() as tape:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            v, s, p = step(v, s, p)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES, steps=steps)
+    iters = [info.iterations for info in tape]
+    memory = torch.cuda.max_memory_allocated()
+    ms = elapsed / steps * 1e3
+    print(f'{tag} {B} x {N}^3: {ms:.2f} ms/step, {B * N ** 3 / (ms * 1e-3) / 1e6:.1f} Mcells/s over all entries, '
+          f'{steps} Field steps after {warmup} warm-up steps; CG iterations per step {iters}; '
+          f'max_memory_allocated {memory / 2 ** 30:.2f} GiB')
+    print(f'{tag} launches per step: ' + ', '.join(f'{k}={launches.get(k, 0) / steps:g}' for k in KERNELS))
+    missing = [k for k in PHASES_3D_KERNELS if launches.get(k, 0) == 0]
+    wrong = {}
+    if launches.get('window_interp_3d', 0) != K6_LAUNCHES_PER_PHASE_STEP * steps:
+        wrong['window_interp_3d'] = (launches.get('window_interp_3d', 0), K6_LAUNCHES_PER_PHASE_STEP * steps)
+    if launches.get('jacobi_sweeps', 0) != K2_LAUNCHES_PER_LEVEL * smoothed_levels(N) * sum(1 + it for it in iters):
+        wrong['jacobi_sweeps'] = (launches.get('jacobi_sweeps', 0),
+                                  K2_LAUNCHES_PER_LEVEL * smoothed_levels(N) * sum(1 + it for it in iters))
+    vel, smoke, pressure = model.state_natives(v, s, p)
+    finite = all(bool(torch.isfinite(t).all()) for t in (*vel, smoke, pressure))
+    shapes_ok = tuple(smoke.shape) == (B,) + (N,) * 3 == tuple(pressure.shape)
+    if missing or wrong or not finite or not shapes_ok:
+        raise RuntimeError(f'{tag}: not launched {missing}, launches (counted, expected) {wrong}, finite {finite}, '
+                           f'shapes {tuple(smoke.shape)} {tuple(pressure.shape)}')
+    profile_path(tag, f'{B} x {N}^3', lambda st: step(*st), (v, s, p), warmup=0, steps=3)
+    del v, s, p, vel, smoke, pressure
+    torch.cuda.empty_cache()
+    # each entry against its own unbatched step
+    vb, sb, pb = model.state_fields(*_stack_states(states))
+    _build.reset_launches()
+    with math.SolveTape() as tape:
+        for _ in range(check_steps):
+            vb, sb, pb = step(vb, sb, pb)
+    torch.cuda.synchronize()
+    batched_launches, batched_iters = dict(_build.LAUNCHES), [i.iterations for i in tape]
+    batched = model.state_natives(vb, sb, pb)
+    del vb, sb, pb
+    single = SmokePlume(resolution=N, dims=3, cg_tol=1e-3, max_iterations=100, device='cuda')
+    from phiflow_tpu_torch.models import state_from_numpy
+    worst, entry_iters, per_cycle = 0.0, [], None
+    for e, st in enumerate(states):
+        out, its, lnch = _unbatched_launches(single, state_from_numpy(*st, device='cuda'), check_steps)
+        entry_iters.append(its)
+        cycles = sum(1 + it for it in its)
+        rates = {k: lnch.get(k, 0) / cycles for k in ('jacobi_sweeps', 'residual_restrict', 'prolong_add')}
+        rates['poisson_stencil'] = lnch.get('poisson_stencil', 0) / cycles  # A·x0 and one an iteration
+        rates['window_interp_3d'] = lnch.get('window_interp_3d', 0) / check_steps
+        per_cycle = per_cycle or rates
+        if rates != per_cycle:
+            raise RuntimeError(f'{tag}: unbatched launches a V-cycle differ between entries: {rates} vs {per_cycle}')
+        errs = []
+        for got, ref in zip(_tensors(batched), _tensors(out)):
+            errs.append(float((got[e] - ref).abs().max()) / max(float(ref.abs().max()), 1e-30))
+        print(f'{tag} entry {e} (seed {e}) vs its unbatched Field step, {check_steps} steps: max |diff| / max |ref| '
+              + ', '.join(f'{x:.2e}' for x in errs) + f'; CG iterations {its}')
+        worst = max(worst, max(errs))
+        del out
+    max_iters = [max(its[k] for its in entry_iters) for k in range(check_steps)]
+    cycles = sum(1 + it for it in batched_iters)
+    expected = {k: r * (cycles if k != 'window_interp_3d' else check_steps) for k, r in per_cycle.items()}
+    wrong = {k: (batched_launches.get(k, 0), e) for k, e in expected.items() if batched_launches.get(k, 0) != e}
+    ok = worst <= tol and batched_iters == max_iters and not wrong
+    print(f'{tag} batched vs unbatched: max relative diff {worst:.2e} (tol {tol:.0e}; bit-equal: {worst == 0.0}); '
+          f'batched CG {batched_iters}, '
+          f'largest of the entries {max_iters}; launches over {check_steps} steps (batched, unbatched path at the '
+          f'same CG counts): ' + ', '.join(f'{k}={batched_launches.get(k, 0)}/{e:g}' for k, e in expected.items())
+          + f': {"ok" if ok else "FAIL"}')
+    if not ok:
+        raise RuntimeError(f'{tag}: batched step disagrees with the unbatched ones: {worst}, CG {batched_iters} vs '
+                           f'{max_iters}, launches (batched, expected) {wrong}')
+    single_step, _ = _stepper(single, True)
+    st = single.state_fields(*state_from_numpy(*states[0], device='cuda'))
+    for _ in range(warmup):
+        st = single_step(*st)
+    torch.cuda.synchronize()
+    with math.SolveTape() as tape:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            st = single_step(*st)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) / steps * 1e3
+    print(f'{tag} entry 0 alone (unbatched Field step, 1 x {N}^3): {one_ms:.2f} ms/step, CG iterations per step '
+          f'{[i.iterations for i in tape]}; {B} entries one after another {B * one_ms:.2f} ms/step, batched '
+          f'{ms:.2f} ms/step ({B * one_ms / ms:.2f}x)')
+    profile_path(f'{tag} entry 0 alone', f'1 x {N}^3', lambda x: single_step(*x), st, warmup=0, steps=3)
+    del st
+    torch.cuda.empty_cache()
+    return launches
+
+
+def batched_smoke_recipe(device, N=BATCH_RECIPE_N, steps=BATCH_RECIPE_STEPS, rates=BATCH_RATES):
+    """examples/batched_smoke.py's recipe in the port: a batch dim of inflow rates through MacCormack, buoyancy,
+    semi-Lagrangian self-advection and the projection (CG 1e-3), `steps` steps on `device`. Returns the smoke
+    (inflow_rate, x, y) as numpy and the total smoke of each entry."""
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import CenteredGrid, StaggeredGrid, resample
+    from phiflow_tpu_torch.geom import Box, Sphere
+    from phiflow_tpu_torch.math import ConvergenceException, Solve, batch, extrapolation, wrap
+    from phiflow_tpu_torch.physics import advect, fluid
+    with math.default_device(device):
+        bounds = Box(x=float(N), y=float(N))
+        rate = wrap(list(rates), batch('inflow_rate'))
+        velocity = StaggeredGrid(0.0, extrapolation.ZERO, x=N, y=N, bounds=bounds)
+        smoke = CenteredGrid(0.0, extrapolation.ZERO_GRADIENT, x=N, y=N, bounds=bounds)
+        inflow = resample(Sphere(x=N / 2, y=6, radius=4), to=smoke, soft=True) * rate
+        dt = 1.0
+        for _ in range(steps):
+            smoke = advect.mac_cormack(smoke, velocity, dt) + dt * inflow
+            buoyancy = resample(smoke * (0.0, 0.1), to=velocity)
+            velocity = advect.semi_lagrangian(velocity, velocity, dt) + dt * buoyancy
+            velocity, _ = fluid.make_incompressible(velocity, (), Solve('CG', 1e-3, 0.,
+                                                                         suppress=(ConvergenceException,)))
+        values = smoke.values.numpy(('inflow_rate', 'x', 'y'))
+    return values, values.sum(axis=(1, 2))
+
+
+def run_batched_recipe(tag='batched-smoke-2d', tol=1e-3):
+    """9c: examples/batched_smoke.py's recipe at its own 64² with four inflow rates, 30 steps, on the card (K7,
+    the 2D projection in PyTorch; K7 exactly 4 launches a step, one a lookup for the batch) and on the CPU: the
+    example's assert (stronger inflow holds more smoke) on both, card against CPU within `tol` of the smoke's
+    largest value (the recipe's smoke grows to tens, where the other CPU-vs-card gates hold fields of order 1
+    at 1e-3 absolute). Beside it, how far rounding alone moves the recipe: the CPU run again with each inflow
+    rate one float32 ulp up, against the CPU run."""
+    import numpy as np
+    import torch
+    from phiflow_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    card, totals = batched_smoke_recipe('cuda')
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / BATCH_RECIPE_STEPS * 1e3
+    launches = dict(_build.LAUNCHES, steps=BATCH_RECIPE_STEPS)
+    cpu, cpu_totals = batched_smoke_recipe('cpu')
+    ulp_up = tuple(float(np.nextafter(np.float32(r), np.float32(np.inf))) for r in BATCH_RATES)
+    rounding = float(np.abs(batched_smoke_recipe('cpu', rates=ulp_up)[0] - cpu).max())
+    err = float(np.abs(card - cpu).max())
+    scale = float(np.abs(cpu).max())
+    monotone = all(a < b for a, b in zip(totals, totals[1:])) and all(a < b for a, b in zip(cpu_totals,
+                                                                                             cpu_totals[1:]))
+    k7 = launches.get('window_interp_2d', 0)
+    ours = {k: v for k, v in launches.items() if k in KERNELS and v}
+    ok = monotone and err <= tol * scale and k7 == 4 * BATCH_RECIPE_STEPS and set(ours) == {'window_interp_2d'}
+    print(f'{tag} {len(BATCH_RATES)} x {BATCH_RECIPE_N}^2, {BATCH_RECIPE_STEPS} steps: {ms:.2f} ms/step (first run, '
+          f'host clock); total smoke per entry {[round(float(t), 1) for t in totals]} (CPU '
+          f'{[round(float(t), 1) for t in cpu_totals]}): stronger inflow holds more: {monotone}; card vs CPU max '
+          f'|diff| {err:.2e} of a largest value {scale:.3e}: {err / scale:.2e} (tol {tol:.0e}); CPU with the rates one '
+          f'float32 ulp up vs CPU max |diff| {rounding:.2e}; launches {ours}: {"ok" if ok else "FAIL"}')
+    if not ok:
+        raise RuntimeError(f'{tag}: monotone {monotone}, card vs CPU {err}, launches {ours}')
+    return launches
+
+
+def batched_cpu_vs_card(N=32, B=3, steps=2, tol=1e-3):
+    """9d: SmokePlume(N, dims=3, batch_shape=batch(b=B)) from B distinct smooth states, `steps` Field steps on
+    the CPU (the twins) and on the card (the kernels), within `tol`."""
+    import numpy as np
+    from phiflow_tpu_torch.math import batch
+    from phiflow_tpu_torch.models import SmokePlume, state_from_numpy
+    states = [smooth_state(N, 3, seed=k) for k in range(B)]
+    arrays = [np.stack(parts) for parts in zip(*states)]
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        model = SmokePlume(resolution=N, dims=3, cg_tol=1e-3, max_iterations=100, batch_shape=batch(b=B), device=dev)
+        step, _ = _stepper(model, True)
+        v, s, p = model.state_fields(*state_from_numpy(*arrays, device=dev))
+        for _ in range(steps):
+            v, s, p = step(v, s, p)
+        out[dev] = [t.detach().cpu().numpy() for t in _tensors(model.state_natives(v, s, p))]
+    errs = [float(np.abs(a - b).max()) for a, b in zip(out['cpu'], out['cuda'])]
+    worst = max(errs)
+    print(f'cpu vs card, batched-smoke {B} x {N}^3, {steps} steps from {B} numpy states: '
+          + ', '.join(f'{e:.2e}' for e in errs) + f'; max {worst:.2e} tol {tol:.0e} {"ok" if worst <= tol else "FAIL"}')
+    if not worst <= tol:
+        raise RuntimeError(f'CPU and card disagree (batched smoke): {errs}')
+
+
+def run_batched_gradient(tag, dims, N, B=2, steps=1, tol=1e-4):
+    """9e: the gradient of a batched rollout (`_smoke_grad`, L summed over the entries) with respect to the
+    batched initial velocity and smoke, on the card: K6ᵀ (K7ᵀ) once for each K6 (K7) launch of the forward, one
+    a lookup for the batch; each entry's gradient within `tol` of its scale of that entry's own unbatched
+    gradient."""
+    import torch
+    from phiflow_tpu_torch.math import batch
+    from phiflow_tpu_torch.models import SmokePlume, state_from_numpy
+    from phiflow_tpu_torch.ops import _build
+    states = [smooth_state(N, dims, seed=k) for k in range(B)]
+    vb, sb, _ = _stack_states(states)
+    w = _smooth_weight(N, dims).cuda()
+    model = SmokePlume(resolution=N, dims=dims, cg_tol=GRAD_CG_TOL, max_iterations=300, batch_shape=batch(b=B),
+                       device='cuda')
+    record = {}
+    _build.reset_launches()
+    _, gvel, gsmoke = _smoke_grad(model, (vb, sb), w, steps, record)
+    torch.cuda.synchronize()
+    forward, backward = record['forward'], dict(_build.LAUNCHES)
+    k6 = f'window_interp_{dims}d'
+    single = SmokePlume(resolution=N, dims=dims, cg_tol=GRAD_CG_TOL, max_iterations=300, device='cuda')
+    worst = 0.0
+    for e, st in enumerate(states):
+        ve, se, _ = state_from_numpy(*st, device='cuda')
+        _, gv1, gs1 = _smoke_grad(single, (ve, se), w, steps)
+        for got, ref in zip(gvel + [gsmoke], gv1 + [gs1]):
+            worst = max(worst, float((got[e] - ref).abs().max()) / max(float(ref.abs().max()), 1e-30))
+    ok = (backward.get(k6 + '_grad', 0) == forward.get(k6, 0) > 0 and worst <= tol
+          and all(g.shape[0] == B for g in gvel + [gsmoke]))
+    print(f'{tag} {B} x {N}^{dims}, {steps} step: math.gradient of the summed loss; launches forward '
+          f'{k6}={forward.get(k6, 0)}, backward {k6}_grad={backward.get(k6 + "_grad", 0)}; each entry vs its own '
+          f'unbatched gradient: max |diff| / max |ref| {worst:.2e} (tol {tol:.0e}): {"ok" if ok else "FAIL"}')
+    if not ok:
+        raise RuntimeError(f'{tag}: launches forward {forward}, backward {backward}, entries {worst}')
+    return dict({k: forward.get(k, 0) + backward.get(k, 0) for k in KERNELS}, steps=steps)
+
+
+def run_batched(ch, gen):
+    """Phase 9: batched simulation. 9a runs with the kernel checks (phase 3); 9b–9e here."""
+    import torch
+    by_path = {f'batched-smoke-{BATCH_SMOKE_N}x{BATCH_B}': run_batched_smoke(ch)}
+    torch.cuda.empty_cache()
+    by_path[f'batched-smoke-{BATCH_WIDE_N}x{BATCH_WIDE_B}'] = run_batched_smoke(
+        ch, f'batched-smoke-{BATCH_WIDE_N}x{BATCH_WIDE_B}', BATCH_WIDE_N, BATCH_WIDE_B)
+    torch.cuda.empty_cache()
+    by_path['batched-smoke-2d'] = run_batched_recipe()
+    batched_cpu_vs_card()
+    by_path['batched-grad-64'] = run_batched_gradient('batched-grad-64', 3, 64)
+    by_path['batched-grad-256-2d'] = run_batched_gradient('batched-grad-256-2d', 2, 256)
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def card_line():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, timeout=60, check=True)
@@ -4103,7 +4706,10 @@ def card_line():
 COUNTED_ON = {**{k: 'fused' for k in FUSED_KERNELS}, 'window_interp_3d': 'per-phase',
               'window_interp_2d': 'per-phase-2d', 'poisson_stencil_masked': f'flip-{FLIP_N[0]}',
               'p2g': f'flip-{FLIP_N[0]}', 'p2g_mean': f'flip-{FLIP_N[0]}', 'poisson_stencil_coeffs': f'obstacle-{OBSTACLE_N}',
-              'window_interp_3d_grad': 'grad-256', 'window_interp_2d_grad': 'grad-4096-2d'}
+              'window_interp_3d_grad': 'grad-256', 'window_interp_2d_grad': 'grad-4096-2d',
+              **{f'{k}_batched': f'batched-smoke-{BATCH_SMOKE_N}x{BATCH_B}' for k in BATCHED_KERNELS[:5]},
+              'window_interp_2d_batched': 'batched-smoke-2d', 'window_interp_3d_grad_batched': 'batched-grad-64',
+              'window_interp_2d_grad_batched': 'batched-grad-256-2d'}
 PATHS = [  # (tag, dims, N, per-phase?, the kernels it must launch)
     ('fused', 3, PATH_N, False, FUSED_KERNELS),
     ('per-phase', 3, PATH_N, True, PHASES_3D_KERNELS),
@@ -4155,6 +4761,7 @@ def main(argv):
     check_advect(ch, gen, quick)
     check_interp(ch, gen, quick)
     check_interp_grad(ch, gen, quick)
+    check_batched_kernels(ch, gen, quick)
     if not quick:
         time_vcycle_levels(ch, gen)
         time_p2g(ch, gen)
@@ -4202,6 +4809,7 @@ def main(argv):
     by_path.update(run_gradients())
     by_path.update(run_optimisation())
     by_path.update(run_solvers(ch))
+    by_path.update(run_batched(ch, gen))
     if '--profile' in argv:
         for tag, dims, N, per_phase, _ in PATHS:
             profile_slice(tag, dims, N, per_phase)
@@ -4216,10 +4824,11 @@ def main(argv):
         time_smooth_chunks(gen)
         time_march_chunks(gen)
     rows = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces) in ROWS.items():
+        counter = BATCHED_ROWS.get(name, name)
         rows.append(dict(name=name, route='cuda', source=source, replaces=replaces,
-                         launches=int(by_path[COUNTED_ON[name]].get(name, 0)), launches_path=COUNTED_ON[name],
-                         launches_by_path={tag: int(c.get(name, 0)) for tag, c in by_path.items()},
+                         launches=int(by_path[COUNTED_ON[name]].get(counter, 0)), launches_path=COUNTED_ON[name],
+                         launches_by_path={tag: int(c.get(counter, 0)) for tag, c in by_path.items()},
                          max_abs_err=ch.max_err[name], checks_passed=ch.passed[name], **ch.timing[name]))
     print(f'card: {card}')
     print(json.dumps({'kernels': rows}))

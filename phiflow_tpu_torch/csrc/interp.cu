@@ -61,6 +61,18 @@
 // Bound: the same streamed bytes as the forward plus the gradients; the
 // atomics make d_grid's sums depend on their order at float32 rounding. A
 // simple kernel: a gather form without atomics is later work.
+//
+// Batches: both kernels take nb entries in one launch, the outputs (and the
+// upstream gradients) one after the other, each input at its own entry stride:
+// the grid's and the displacements' (0 for an input shared by every entry,
+// which is read in place, never expanded). The forward folds the entry into
+// the grid's z axis (K6: each entry's planes in turn), the backward into its
+// one axis of output cells; a thread offsets its pointers by its entry's first
+// element (64-bit) and computes as in an unbatched launch, so an entry's
+// outputs are those of its own launch, bit for bit. K6T / K7T's atomics land in
+// the entry's own d_grid (at the grid's stride: a shared grid sums over the
+// entries); each entry writes its own d_disp, which the wrapper sums over the
+// batch for a shared displacement.
 #include "window.cuh"
 
 struct InterpArgs {
@@ -71,6 +83,9 @@ struct InterpArgs {
     int o[3];  // output shape (entries 0..D-1)
     int K;     // displacement clip in cells
     int extrema;
+    int nb;                        // entries of the batch (1: one grid)
+    long long grid_stride;         // elements from one entry's grid to the next (0: shared)
+    long long disp_stride;         // elements from one entry's displacements to the next (0: shared)
 };
 
 #define WI_THREADS 256
@@ -82,12 +97,28 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_kernel(const InterpA
     const int K = a.K, lane = threadIdx.x & 31;
     const int r0 = blockIdx.y * WI_TY, c0 = blockIdx.x * WI_TX;
     int o[D];  // the thread's first output
-    if constexpr (D == 3) o[0] = blockIdx.z;
+    long long entry;
+    if constexpr (D == 3) {
+        entry = blockIdx.z / a.o[0];
+        o[0] = blockIdx.z - (int)entry * a.o[0];
+    } else {
+        entry = blockIdx.z;
+    }
     o[D - 2] = r0 + (threadIdx.x >> 5);
     o[D - 1] = c0 + 4 * lane;
     const int n_out = a.o[D - 1];
     if (o[D - 2] >= a.o[D - 2] || o[D - 1] >= n_out) return;
-    const Src &g = a.grid;
+    Src g = a.grid;
+    g.p += entry * a.grid_stride;
+    long long entry_out = entry;  // the entry's first output
+#pragma unroll
+    for (int e = 0; e < D; ++e) entry_out *= a.o[e];
+    const float *disp[D];
+#pragma unroll
+    for (int e = 0; e < D; ++e) disp[e] = a.disp[e] + entry * a.disp_stride;
+    float *const out = a.out + entry_out;
+    float *const out_lo = EXTREMA ? a.out_lo + entry_out : nullptr;
+    float *const out_up = EXTREMA ? a.out_up + entry_out : nullptr;
     // every tap of the block: rows r0 - K .. r0 + WI_TY + K, columns c0 - K .. c0 + WI_TX + K (3D: planes
     // o0 - K .. o0 + 1 + K), logical
     bool interior = r0 - K - g.shift[D - 2] >= 0 && r0 + WI_TY + K - g.shift[D - 2] < g.n[D - 2] &&
@@ -103,11 +134,11 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_kernel(const InterpA
 #pragma unroll
     for (int e = 0; e < D; ++e) {
         if (VEC) {
-            const float4 v = __ldg(reinterpret_cast<const float4 *>(a.disp[e] + q));
+            const float4 v = __ldg(reinterpret_cast<const float4 *>(disp[e] + q));
             d[e][0] = v.x, d[e][1] = v.y, d[e][2] = v.z, d[e][3] = v.w;
         } else {
 #pragma unroll
-            for (int k = 0; k < 4; ++k) d[e][k] = o[D - 1] + k < n_out ? __ldg(a.disp[e] + q + k) : 0.f;
+            for (int k = 0; k < 4; ++k) d[e][k] = o[D - 1] + k < n_out ? __ldg(disp[e] + q + k) : 0.f;
         }
     }
     float val[4], lo[4], up[4];
@@ -177,19 +208,19 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_kernel(const InterpA
         }
     }
     if (VEC) {
-        *reinterpret_cast<float4 *>(a.out + q) = make_float4(val[0], val[1], val[2], val[3]);
+        *reinterpret_cast<float4 *>(out + q) = make_float4(val[0], val[1], val[2], val[3]);
         if (EXTREMA) {
-            *reinterpret_cast<float4 *>(a.out_lo + q) = make_float4(lo[0], lo[1], lo[2], lo[3]);
-            *reinterpret_cast<float4 *>(a.out_up + q) = make_float4(up[0], up[1], up[2], up[3]);
+            *reinterpret_cast<float4 *>(out_lo + q) = make_float4(lo[0], lo[1], lo[2], lo[3]);
+            *reinterpret_cast<float4 *>(out_up + q) = make_float4(up[0], up[1], up[2], up[3]);
         }
     } else {
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
             if (o[D - 1] + k >= n_out) break;
-            a.out[q + k] = val[k];
+            out[q + k] = val[k];
             if (EXTREMA) {
-                a.out_lo[q + k] = lo[k];
-                a.out_up[q + k] = up[k];
+                out_lo[q + k] = lo[k];
+                out_up[q + k] = up[k];
             }
         }
     }
@@ -203,9 +234,11 @@ static void launch(const InterpArgs &a, bool small, dim3 grid, cudaStream_t s) {
 
 template <int D>
 static int launch_d(const InterpArgs &a, int vec, cudaStream_t s) {
-    const dim3 grid((a.o[D - 1] + WI_TX - 1) / WI_TX, (a.o[D - 2] + WI_TY - 1) / WI_TY, D == 3 ? a.o[0] : 1);
-    // 32-bit element offsets where both the grid and the output have fewer than 2^31 elements (64-bit integer
-    // multiplies cost several instructions each)
+    const long long planes = (long long)a.nb * (D == 3 ? a.o[0] : 1);
+    if (a.nb < 1 || planes > 65535) return (int)cudaErrorInvalidValue;
+    const dim3 grid((a.o[D - 1] + WI_TX - 1) / WI_TX, (a.o[D - 2] + WI_TY - 1) / WI_TY, (unsigned)planes);
+    // 32-bit element offsets within an entry where both its grid and its output have fewer than 2^31 elements
+    // (64-bit integer multiplies cost several instructions each); the entry's offset is added once, in 64 bits
     long long n_grid = 1, n_out = 1;
     for (int e = 0; e < D; ++e) {
         n_grid *= a.grid.n[e];
@@ -225,9 +258,12 @@ struct InterpGradArgs {
     float scale[3];
     const float *g_out, *g_lo, *g_up;  // upstream gradients, output-shaped; null where absent
     float *d_grid;                      // the grid's gradient, its raw shape, zeroed by the caller; or null
-    float *d_disp[3];                   // the displacements' gradients; null where not asked
+    float *d_disp[3];                   // the displacements' gradients, one per entry; null where not asked
     int o[3];
     int K;
+    int nb;                 // entries of the batch
+    long long grid_stride;  // elements from one entry's grid (and d_grid) to the next (0: shared)
+    long long disp_stride;  // elements from one entry's displacements to the next (0: shared)
 };
 
 #define WG_THREADS 256
@@ -240,8 +276,15 @@ __global__ void __launch_bounds__(WG_THREADS) window_interp_grad_kernel(const In
     long long n_out = 1;
 #pragma unroll
     for (int e = 0; e < D; ++e) n_out *= a.o[e];
-    const long long q = (long long)blockIdx.x * WG_THREADS + threadIdx.x;
-    if (q >= n_out) return;
+    const long long qb = (long long)blockIdx.x * WG_THREADS + threadIdx.x;  // over the batch's outputs
+    if (qb >= n_out * a.nb) return;
+    const long long entry = qb / n_out, q = qb - entry * n_out, eo = entry * n_out;
+    Src g = a.grid;
+    g.p += entry * a.grid_stride;
+    float *const d_grid = a.d_grid ? a.d_grid + entry * a.grid_stride : nullptr;
+    const float *disp[D];
+#pragma unroll
+    for (int e = 0; e < D; ++e) disp[e] = a.disp[e] + entry * a.disp_stride;
     int o[D];
     long long rest = q;
 #pragma unroll
@@ -249,15 +292,14 @@ __global__ void __launch_bounds__(WG_THREADS) window_interp_grad_kernel(const In
         o[e] = (int)(rest % a.o[e]);
         rest /= a.o[e];
     }
-    const Src &g = a.grid;
     const float kf = (float)a.K;
-    const float go = a.g_out ? a.g_out[q] : 0.f;
+    const float go = a.g_out ? a.g_out[eo + q] : 0.f;
     // per axis: the taps with a weight or a slope, ascending; their weights, slopes and logical indices
     float w[D][3], dw[D][3], dclip[D];
     int tap[D][3], nt[D];
 #pragma unroll
     for (int e = 0; e < D; ++e) {
-        const float x = a.scale[e] * __ldg(a.disp[e] + q);
+        const float x = a.scale[e] * __ldg(disp[e] + q);
         const float m = fmaxf(x, -kf);
         const float d = fminf(m, kf);  // the forward's clip_cells, in the same two steps
         dclip[e] = above(x, -kf) * above(kf, m);
@@ -318,7 +360,7 @@ __global__ void __launch_bounds__(WG_THREADS) window_interp_grad_kernel(const In
         for (int e = 0; e < D; ++e) off = off * g.n[e] + resolve(tap[e][j[e]] - g.shift[e], g.n[e], g.mode, outside);
         const float v = outside ? g.c : __ldg(g.p + off);
         if (W != 0.f) {
-            if (a.d_grid && !outside && go != 0.f) atomicAdd(a.d_grid + off, go * W);
+            if (d_grid && !outside && go != 0.f) atomicAdd(d_grid + off, go * W);
             if (EXTREMA && nh < (1 << D)) {
                 hv[nh] = v, hoff[nh] = off, hout[nh] = outside;
                 ++nh;
@@ -329,8 +371,8 @@ __global__ void __launch_bounds__(WG_THREADS) window_interp_grad_kernel(const In
     }
 #pragma unroll
     for (int e = 0; e < D; ++e)
-        if (a.d_disp[e]) a.d_disp[e][q] = go * a.scale[e] * dclip[e] * gd[e];
-    if (EXTREMA && a.d_grid && nh > 0) {
+        if (a.d_disp[e]) a.d_disp[e][eo + q] = go * a.scale[e] * dclip[e] * gd[e];
+    if (EXTREMA && d_grid && nh > 0) {
         // lo = min(... min(min(BIG, v_0), v_1) ..., v_{nh-1}) and up alike: walk the chain back from the last
         // tap; a tap below (above) the running min (max) before it takes the rest, a tie half of it
         float pre_lo[1 << D], pre_up[1 << D], m_lo = 3.4e38f, m_up = -3.4e38f;
@@ -339,20 +381,21 @@ __global__ void __launch_bounds__(WG_THREADS) window_interp_grad_kernel(const In
             m_lo = fminf(m_lo, hv[i]);
             m_up = fmaxf(m_up, hv[i]);
         }
-        float G_lo = a.g_lo ? a.g_lo[q] : 0.f, G_up = a.g_up ? a.g_up[q] : 0.f;
+        float G_lo = a.g_lo ? a.g_lo[eo + q] : 0.f, G_up = a.g_up ? a.g_up[eo + q] : 0.f;
         for (int i = nh - 1; i >= 0; --i) {
             const float s_lo = G_lo * above(pre_lo[i], hv[i]), s_up = G_up * above(hv[i], pre_up[i]);
             G_lo -= s_lo;
             G_up -= s_up;
-            if (!hout[i] && s_lo + s_up != 0.f) atomicAdd(a.d_grid + hoff[i], s_lo + s_up);
+            if (!hout[i] && s_lo + s_up != 0.f) atomicAdd(d_grid + hoff[i], s_lo + s_up);
         }
     }
 }
 
 template <int D>
 static int launch_grad(const InterpGradArgs &a, int extrema, cudaStream_t s) {
-    long long n_out = 1;
+    long long n_out = a.nb;
     for (int e = 0; e < D; ++e) n_out *= a.o[e];
+    if (a.nb < 1) return (int)cudaErrorInvalidValue;
     if (n_out == 0) return 0;
     const unsigned blocks = (unsigned)((n_out + WG_THREADS - 1) / WG_THREADS);
     if (extrema) window_interp_grad_kernel<D, true><<<blocks, WG_THREADS, 0, s>>>(a);

@@ -45,6 +45,14 @@
 // memory instead: the smooth reads u and b once (plus a halo) and writes its
 // result once, whatever its sweep count (see its kernel below). Storage is
 // float32 or bfloat16; arithmetic is float32 in registers.
+//
+// Batches: every kernel here takes g.nb independent fields of the grid's shape,
+// stored one after the other (a leading batch axis), in one launch. The entry
+// is folded into the grid's slowest axis (blockIdx.z: the entry's x chunks, or
+// K4's coarse planes, one entry after the other), so no block straddles two
+// entries: a block offsets its pointers by its entry's first element (64-bit)
+// and then runs as in an unbatched launch, and the per-block partials of a dot
+// come out entry by entry, contiguous, for the wrapper to sum per entry.
 #include "common.cuh"
 
 #define MODE_PERIODIC 0
@@ -60,7 +68,17 @@ struct Grid {
     float inv[3];  // 1 / dx^2 per axis
     int lo[3];     // boundary mode of the lower side of each axis
     int hi[3];     // boundary mode of the upper side of each axis
+    int nb;        // entries of the batch (1: one field)
 };
+
+// The entry of this block, where blockIdx.z runs over gridDim.z / nb slabs of each entry in turn, and the block's
+// slab within its entry.
+__device__ __forceinline__ int block_entry(int nb, int &slab) {
+    const int per = gridDim.z / nb;
+    const int e = blockIdx.z / per;
+    slab = blockIdx.z - e * per;
+    return e;
+}
 
 __device__ __forceinline__ int block_index() { return (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x; }
 
@@ -220,8 +238,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) smooth_kernel(const TU *_
                                                                      Grid g, float w, int zero_init, int cx) {
     using G = Geom<S, TZ>;
     extern __shared__ float smem[];
-    const int z0 = blockIdx.x * TZ, y0 = blockIdx.y * TY, x0 = blockIdx.z * cx;
+    int slab;
+    const int entry = block_entry(g.nb, slab);
+    const int z0 = blockIdx.x * TZ, y0 = blockIdx.y * TY, x0 = slab * cx;
     const int X = g.n[0], YZ = g.n[1] * g.n[2];
+    const long long eoff = (long long)entry * X * YZ;  // the entry's first element
+    if (!zero_init) u += eoff;
+    b += eoff;
+    out += eoff;
     Quads<G::QUADS> cl;
 #pragma unroll
     for (int i = 0; i < G::QUADS; ++i) {
@@ -472,6 +496,11 @@ __global__ void __launch_bounds__(MAX_THREADS) stencil_kernel(const TP *__restri
     constexpr int V = run_cells<FORM, TP>();
     const int X = g.n[0], Y = g.n[1], Z = g.n[2];
     const long long YZ = (long long)Y * Z;
+    int slab;
+    const long long eoff = block_entry(g.nb, slab) * (X * YZ);  // the entry's first element; masks: nb is 1
+    p += eoff;
+    b += eoff;
+    out += eoff;
     const int k = (blockIdx.x * blockDim.x + threadIdx.x) * V, j = blockIdx.y * blockDim.y + threadIdx.y;
     const bool live = j < Y && k < Z;
     const int jj = live ? j : 0, k0 = live ? k : 0;
@@ -485,7 +514,7 @@ __global__ void __launch_bounds__(MAX_THREADS) stencil_kernel(const TP *__restri
     float cyz[V];
 #pragma unroll
     for (int e = 0; e < V; ++e) cyz[e] = cy + g.inv[2] * smooth::center_coef(k0 + e, Z, g.lo[2], g.hi[2]);
-    const int x0 = blockIdx.z * cx, x1 = min(x0 + cx, X);
+    const int x0 = slab * cx, x1 = min(x0 + cx, X);
     float pm[V], pc[V], pn[V];
     float ax[V], axn[V];  // COEFFS: mA_x at planes i and i + 1, a-_x and a+_x of plane i
     const long long plm = offset_or_none(x0 - 1, X, g.lo[0], g.hi[0], YZ);
@@ -558,6 +587,11 @@ __global__ void __launch_bounds__(MAX_THREADS) residual_restrict_kernel(const TU
     constexpr int F = 16 / sizeof(TU), RC = F / 2;
     const int X = g.n[0], Y = g.n[1], Z = g.n[2], Yc = Y / 2, Zc = Z / 2;
     const long long YZ = (long long)Y * Z;
+    int slab;
+    const long long entry = block_entry(g.nb, slab);
+    u += entry * (X * YZ);
+    b += entry * (X * YZ);
+    out += entry * (X * YZ / 8);  // the coarse entry
     const int kc = (blockIdx.x * blockDim.x + threadIdx.x) * RC, jc = blockIdx.y * blockDim.y + threadIdx.y;
     const bool live = jc < Yc && kc < Zc;
     const int jcc = live ? jc : 0, kc0 = live ? kc : 0, k0 = 2 * kc0;
@@ -572,7 +606,7 @@ __global__ void __launch_bounds__(MAX_THREADS) residual_restrict_kernel(const TU
     float cz[F];
 #pragma unroll
     for (int e = 0; e < F; ++e) cz[e] = g.inv[2] * smooth::center_coef(k0 + e, Z, g.lo[2], g.hi[2]);
-    const int f0 = 2 * blockIdx.z * cx, f1 = min(f0 + 2 * cx, X);
+    const int f0 = 2 * slab * cx, f1 = min(f0 + 2 * cx, X);
     float qm[2][F], qc[2][F], qn[2][F];
     const long long plm = offset_or_none(f0 - 1, X, g.lo[0], g.hi[0], YZ);
 #pragma unroll
@@ -634,15 +668,21 @@ __global__ void __launch_bounds__(MAX_THREADS) residual_restrict_kernel(const TU
 // and refuses one that disagrees.
 // ---------------------------------------------------------------------------
 
+// The grid's z extent for nb entries of `slabs` slabs each (0 past the launch limit of 65535).
+static unsigned batched_z(int nb, long long slabs) {
+    const long long z = (long long)nb * slabs;
+    return nb >= 1 && z <= 65535 ? (unsigned)z : 0u;
+}
+
 // The march kernels' launch geometry: blocks of bx (a power of two <= 32) by `by` threads, a whole number of warps
-// and at most march::MAX_THREADS, `runs` runs a row along z, `rows` rows, `planes` planes in chunks of cx; the
-// plan's block count must be the grid's. Returns the grid, or dim3(0) where the plan disagrees.
-static dim3 march_grid(int runs, int rows, int planes, int bx, int by, int cx, int blocks) {
+// and at most march::MAX_THREADS, `runs` runs a row along z, `rows` rows, `planes` planes in chunks of cx, for each
+// of nb entries; the plan's block count must be the grid's. Returns the grid, or dim3(0) where the plan disagrees.
+static dim3 march_grid(int runs, int rows, int planes, int bx, int by, int cx, int nb, long long blocks) {
     const int threads = bx * by;
     if (bx < 1 || bx > 32 || (bx & (bx - 1)) || by < 1 || threads % 32 || threads > march::MAX_THREADS || cx < 1)
         return dim3(0);
-    const dim3 grid((runs + bx - 1) / bx, (rows + by - 1) / by, (planes + cx - 1) / cx);
-    if ((long long)grid.x * grid.y * grid.z != blocks) return dim3(0);
+    const dim3 grid((runs + bx - 1) / bx, (rows + by - 1) / by, batched_z(nb, (planes + cx - 1) / cx));
+    if (grid.z == 0 || (long long)grid.x * grid.y * grid.z != blocks) return dim3(0);
     return grid;
 }
 
@@ -656,7 +696,7 @@ static int launch_stencil(const TP *p, const TB *b, TP *out, float *partials, co
                           const Masks &m, int vector, int bx, int by, int cx, int blocks, cudaStream_t s) {
     constexpr int V = march::run_cells<FORM, TP>();
     const int Z = g.n[2];
-    const dim3 grid = march_grid((Z + V - 1) / V, g.n[1], g.n[0], bx, by, cx, blocks);
+    const dim3 grid = march_grid((Z + V - 1) / V, g.n[1], g.n[0], bx, by, cx, g.nb, blocks);
     if (grid.x == 0) return (int)cudaErrorInvalidValue;
     // every array's rows whole runs (V values: 8, 16 or 32 bytes) from a 16-byte aligned start
     bool aligned = Z % V == 0 && (uintptr_t)p % 16 == 0 && (uintptr_t)out % 16 == 0 &&
@@ -689,7 +729,7 @@ static int launch_form(int epilogue, const void *p, const void *b, void *out, fl
 
 // K1 in every form. mA_x, mA_y, mA_z and c0 come together (the coefficient arrays) or are all null (the boundary
 // profiles); active may be null. `vector`, `bx`, `by`, `cx` and `blocks` (the partials' count) are the wrapper's
-// plan.
+// plan. The masked forms take one field (g.nb == 1): their arrays have the field's shape.
 extern "C" int stencil(const void *p, int p_dt, const void *b, int b_dt, const float *mA_x, const float *mA_y,
                        const float *mA_z, const float *c0, const float *active, void *out, float *partials,
                        const Grid *g, int epilogue, float w, int vector, int bx, int by, int cx, int blocks,
@@ -697,6 +737,7 @@ extern "C" int stencil(const void *p, int p_dt, const void *b, int b_dt, const f
     const bool any_coeff = mA_x != nullptr || mA_y != nullptr || mA_z != nullptr || c0 != nullptr;
     const bool all_coeff = mA_x != nullptr && mA_y != nullptr && mA_z != nullptr && c0 != nullptr;
     if (any_coeff != all_coeff) return (int)cudaErrorInvalidValue;
+    if ((any_coeff || active != nullptr) && g->nb != 1) return (int)cudaErrorInvalidValue;
     const int form = (all_coeff ? march::FORM_COEFFS : 0) | (active != nullptr ? march::FORM_ACTIVE : 0);
     const Masks m = {{mA_x, mA_y, mA_z}, c0, active};
     cudaStream_t s = (cudaStream_t)stream;
@@ -728,7 +769,8 @@ static int launch_smooth(const void *u, const void *b, void *out, float *partial
         if (e != cudaSuccess) return (int)e;
         opted_in = true;
     }
-    const dim3 grid((g.n[2] + TZ - 1) / TZ, (g.n[1] + TY - 1) / TY, (g.n[0] + cx - 1) / cx);
+    const dim3 grid((g.n[2] + TZ - 1) / TZ, (g.n[1] + TY - 1) / TY, batched_z(g.nb, (g.n[0] + cx - 1) / cx));
+    if (grid.z == 0) return (int)cudaErrorInvalidValue;
     kernel<<<grid, THREADS, smem, s>>>((const TU *)u, (const TB *)b, (TO *)out, partials, g, w, zero_init, cx);
     return (int)cudaGetLastError();
 }
@@ -762,8 +804,8 @@ extern "C" int jacobi_smooth(const void *u, int u_dt, const void *b, int b_dt, v
     return (int)cudaErrorInvalidValue;
 }
 
-// K3. (X, Y, Z) in g: the fine shape, all even. `vector`, `bx`, `by`, `cx` (coarse planes a block) and `blocks`
-// are the wrapper's plan.
+// K3. (X, Y, Z) in g: the fine shape, all even, of each of g.nb entries. `vector`, `bx`, `by`, `cx` (coarse planes
+// a block) and `blocks` are the wrapper's plan.
 extern "C" int residual_restrict(const void *u, int u_dt, const void *b, int b_dt, void *out, const Grid *g,
                                  int vector, int bx, int by, int cx, int blocks, void *stream) {
     const int X = g->n[0], Y = g->n[1], Z = g->n[2];
@@ -771,7 +813,7 @@ extern "C" int residual_restrict(const void *u, int u_dt, const void *b, int b_d
     cudaStream_t s = (cudaStream_t)stream;
     PTT_DT(u_dt, TU, PTT_DT(b_dt, TB, {
         constexpr int RC = 8 / sizeof(TU);  // coarse cells a run: 16 bytes of a fine row of u
-        const dim3 grid = march_grid((Z / 2 + RC - 1) / RC, Y / 2, X / 2, bx, by, cx, blocks);
+        const dim3 grid = march_grid((Z / 2 + RC - 1) / RC, Y / 2, X / 2, bx, by, cx, g->nb, blocks);
         if (grid.x == 0) return (int)cudaErrorInvalidValue;
         const bool aligned = rows_aligned(Z, sizeof(TU), u) && rows_aligned(Z, sizeof(TB), b) &&
                              (uintptr_t)out % 8 == 0;

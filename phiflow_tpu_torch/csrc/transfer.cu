@@ -12,7 +12,9 @@
 // Where a fine row is not a whole number of 16-byte groups (or a pointer is not
 // aligned to them), the same threads take their values one at a time and mask
 // the ragged tail. The TPU kernel's MXU pairing matmul (an interleave along
-// its lane axis) has no reason to exist here.
+// its lane axis) has no reason to exist here. A batch of nb fields (a leading
+// axis) is one launch: blockIdx.z runs over the coarse planes of each entry in
+// turn, and a block offsets its pointers by its entry's first element.
 #include "common.cuh"
 
 template <typename T, bool VEC>
@@ -20,8 +22,12 @@ __global__ void prolong_add_kernel(const T *__restrict__ c, const T *__restrict_
                                    int Y, int Z) {
     constexpr int N = 16 / sizeof(T);  // fine values a run: 16 bytes of a row
     const int run = blockIdx.x * blockDim.x + threadIdx.x;
-    const int jc = blockIdx.y * blockDim.y + threadIdx.y, ic = blockIdx.z;
-    const int Yc = Y >> 1, Zc = Z >> 1;
+    const int Xc = X >> 1, Yc = Y >> 1, Zc = Z >> 1;
+    const long long entry = blockIdx.z / Xc;
+    const int jc = blockIdx.y * blockDim.y + threadIdx.y, ic = blockIdx.z - (int)entry * Xc;
+    c += entry * ((long long)Xc * Yc * Zc);
+    out += entry * ((long long)X * Y * Z);
+    if (u != nullptr) u += entry * ((long long)X * Y * Z);
     const int k0 = run * N;  // the run's first fine z
     if (jc >= Yc || k0 >= Z) return;
     const long long qc = ((long long)ic * Yc + jc) * Zc + (k0 >> 1);
@@ -62,13 +68,15 @@ __global__ void prolong_add_kernel(const T *__restrict__ c, const T *__restrict_
 }
 
 template <typename T>
-static int launch_prolong(const void *c, const void *u, void *out, int X, int Y, int Z, cudaStream_t s) {
+static int launch_prolong(const void *c, const void *u, void *out, int nb, int X, int Y, int Z, cudaStream_t s) {
     constexpr int N = 16 / sizeof(T);
     const int runs = (Z + N - 1) / N;
     int bx = 1;
     while (bx < runs && bx < 32) bx <<= 1;
     const int by = 128 / bx;
-    const dim3 block(bx, by), grid((runs + bx - 1) / bx, (Y / 2 + by - 1) / by, X / 2);
+    const long long planes = (long long)nb * (X / 2);
+    if (nb < 1 || planes > 65535) return (int)cudaErrorInvalidValue;
+    const dim3 block(bx, by), grid((runs + bx - 1) / bx, (Y / 2 + by - 1) / by, (unsigned)planes);
     const bool aligned = Z % N == 0 && ((uintptr_t)c % 8 | (uintptr_t)u % 16 | (uintptr_t)out % 16) == 0;
     if (aligned)
         prolong_add_kernel<T, true><<<grid, block, 0, s>>>((const T *)c, (const T *)u, (T *)out, X, Y, Z);
@@ -77,9 +85,10 @@ static int launch_prolong(const void *c, const void *u, void *out, int X, int Y,
     return (int)cudaGetLastError();
 }
 
-// X, Y, Z: the fine shape (all even). u may be null.
-extern "C" int prolong_add(const void *c, const void *u, void *out, int dt, int X, int Y, int Z, void *stream) {
+// X, Y, Z: the fine shape (all even) of each of nb entries. u may be null.
+extern "C" int prolong_add(const void *c, const void *u, void *out, int dt, int nb, int X, int Y, int Z,
+                           void *stream) {
     if ((X | Y | Z) & 1) return (int)cudaErrorInvalidValue;
-    PTT_DT(dt, T, return launch_prolong<T>(c, u, out, X, Y, Z, (cudaStream_t)stream));
+    PTT_DT(dt, T, return launch_prolong<T>(c, u, out, nb, X, Y, Z, (cudaStream_t)stream));
     return (int)cudaErrorInvalidValue;
 }

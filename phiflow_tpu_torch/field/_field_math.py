@@ -13,7 +13,11 @@ stored; it carries the wall's normal velocity, 0 at rest: the closed box,
 interior faces 1..N−1) or an open side (the outer face stored, as a
 zero-gradient velocity has it). Ghost cells beyond a stored face come from
 the pressure's extrapolation, by side (`math._nd.PerSide`, which also takes
-the ghost cells a Field embedding samples).
+the ghost cells a Field embedding samples). Every array-layer function takes
+leading batch axes, each entry a field of its own: the grid is the trailing
+`ndim` axes of an array (`ndim` None: all of its axes), or, for a function
+of one array per axis (`divergence_native`'s velocity components), as many
+axes as there are arrays. A `faces` layout has one entry per grid axis.
 
 The Field layer, with JAX's signatures: `divergence`, `spatial_gradient`,
 `stagger`, `laplace`, `fourier_laplace`, `fourier_poisson`, `where`,
@@ -30,8 +34,9 @@ function of the same job, with one cell size per axis and the faces and
 ghost cells its boundary gives (`_face_layout`, `_native_sides`); a case
 that function does not cover (a subset of the dims for staggered values, a
 boundary with no array-layer form — SYMMETRIC, REFLECT, a non-constant
-wall —, dims beyond the grid's and one channel dim) raises
-NotImplementedError. The central differences of `spatial_gradient(at='center')`
+wall —, dims other than the grid's, batch dims and one channel dim) raises
+NotImplementedError. Batch dims ride along as the array layer's leading
+axes, so an operation runs once for the whole batch. The central differences of `spatial_gradient(at='center')`
 (order 2, and order 4 over ghost cells on a periodic box, `:107-121`, `:66-79`
 for the Laplacian) have no array-level counterpart and are computed on the
 Tensors; orders 4 and 6 elsewhere go through the operator matrices of
@@ -91,57 +96,73 @@ def divergence_native(velocity: Sequence[torch.Tensor], dx, faces=None) -> torch
     (`dx`: one cell size, or one per axis; `faces`: the face layout, the
     closed box at rest by default; an outer face not stored carries its
     wall's normal velocity)."""
-    h = _per_axis(dx, len(velocity))
-    layout = _faces(faces, len(velocity))
+    nd = len(velocity)
+    h = _per_axis(dx, nd)
+    layout = _faces(faces, nd)
     result = None
     for d, comp in enumerate(velocity):
+        ax = d - nd  # the grid's axes are the trailing ones: leading batch axes ride along
         if layout[d] == 'periodic':
-            term = (torch.roll(comp, -1, d) - comp) / h[d]
+            term = (torch.roll(comp, -1, ax) - comp) / h[d]
         else:
-            walls = [None if w is None else torch.full_like(comp.narrow(d, 0, 1), w) for w in layout[d]]
+            walls = [None if w is None else torch.full_like(comp.narrow(ax, 0, 1), w) for w in layout[d]]
             padded = torch.cat(([walls[0]] if walls[0] is not None else []) + [comp] +
-                               ([walls[1]] if walls[1] is not None else []), dim=d)
-            n = padded.shape[d] - 1
-            term = (padded.narrow(d, 1, n) - padded.narrow(d, 0, n)) / h[d]
+                               ([walls[1]] if walls[1] is not None else []), dim=ax)
+            n = padded.shape[ax] - 1
+            term = (padded.narrow(ax, 1, n) - padded.narrow(ax, 0, n)) / h[d]
         result = term if result is None else result + term
     return result
 
 
 def spatial_gradient_native(p: torch.Tensor, dx, faces=None,
-                            extrap: Extrapolation = 0.0) -> Tuple[torch.Tensor, ...]:
+                            extrap: Extrapolation = 0.0, ndim: int = None) -> Tuple[torch.Tensor, ...]:
     """∇p at the faces the velocity stores (`faces`, the face layout; the
-    closed box by default): (p[c] − p[c−1]) /
+    closed box of p's rank by default): (p[c] − p[c−1]) /
     dx_d for face c of axis d (`dx`: one cell size, or one per axis); beyond
     a stored outer face the ghost cell comes from `extrap`, p's extrapolation
-    (0: ghost cells of 0; `BOUNDARY`: no flux)."""
-    h = _per_axis(dx, p.ndim)
-    layout = _faces(faces, p.ndim)
+    (0: ghost cells of 0; `BOUNDARY`: no flux). `ndim`: the grid's axes,
+    the trailing ones (default all; leading axes are a batch)."""
+    nd = _grid_rank(p, ndim, faces)
+    h = _per_axis(dx, nd)
+    layout = _faces(faces, nd)
     comps = []
-    for d in range(p.ndim):
+    for d in range(nd):
+        ax = d - nd
         if layout[d] == 'periodic':
-            comps.append((p - torch.roll(p, 1, d)) / h[d])
+            comps.append((p - torch.roll(p, 1, ax)) / h[d])
         else:
             lo, up = stored_faces(layout[d])
-            q = pad(p, d, int(lo), int(up), extrap)
-            n = q.shape[d] - 1
-            comps.append((q.narrow(d, 1, n) - q.narrow(d, 0, n)) / h[d])
+            q = pad(p, ax, int(lo), int(up), extrap)
+            n = q.shape[ax] - 1
+            comps.append((q.narrow(ax, 1, n) - q.narrow(ax, 0, n)) / h[d])
     return tuple(comps)
 
 
-def finite_fill_native(values: torch.Tensor, distance: int = 1) -> torch.Tensor:
+def _grid_rank(values: torch.Tensor, ndim, faces=None) -> int:
+    """The grid's axes of `values`: `ndim`, or all of its axes; a `faces` layout must have one entry each."""
+    nd = values.ndim if ndim is None else ndim
+    if faces is not None and len(faces) != nd:
+        raise ValueError(f"a face layout of {len(faces)} axes for a grid of {nd} (values {tuple(values.shape)}, "
+                         f"ndim {ndim})")
+    return nd
+
+
+def finite_fill_native(values: torch.Tensor, distance: int = 1, ndim: int = None) -> torch.Tensor:
     """Fill the non-finite cells of one grid array from their finite
     neighbours, `distance` cells deep; a staggered grid is filled component by
     component. A cell with a finite axis neighbour gets the mean of those; a
     cell reached only across a diagonal gets 0 (it has no axis neighbour to
     average); cells further away keep their NaN. That is the JAX package's
-    result, diagonal zeros included."""
+    result, diagonal zeros included. `ndim`: the grid's axes, the trailing
+    ones (default all)."""
+    nd = _grid_rank(values, ndim)
     valid = torch.isfinite(values)
     clean = torch.where(valid, values, torch.zeros_like(values))
-    filled, _ = masked_fill_native(clean, valid, distance)
+    filled, _ = masked_fill_native(clean, valid, distance, nd)
     reach = valid.to(values.dtype)
     for _ in range(distance):
         # axis after axis on the running result: the reach grows to the whole box neighbourhood
-        for axis in range(values.ndim):
+        for axis in range(-nd, 0):
             lo, up = shift_zero(reach, axis)
             reach = torch.maximum(reach, torch.maximum(lo, up))
         reach = (reach > 0).to(values.dtype)
@@ -149,19 +170,23 @@ def finite_fill_native(values: torch.Tensor, distance: int = 1) -> torch.Tensor:
 
 
 def stagger_native(values: torch.Tensor, face_function: Callable, extrap: Extrapolation,
-                   faces=None) -> Tuple[torch.Tensor, ...]:
+                   faces=None, ndim: int = None) -> Tuple[torch.Tensor, ...]:
     """A centred grid at the faces a staggered field stores: each face gets
     `face_function` of its two cells (`torch.minimum` makes a face open only
     where both cells are). `extrap` is the centred grid's extrapolation, which
     gives the cells beyond the outer faces; `faces` is the staggered field's
-    face layout (the closed box by default) and decides which faces it stores."""
-    layout = _faces(faces, values.ndim)
+    face layout (the closed box of the values' rank by default) and decides
+    which faces it stores. `ndim`: the grid's axes, the trailing ones
+    (default all; leading axes are a batch)."""
+    nd = _grid_rank(values, ndim, faces)
+    layout = _faces(faces, nd)
     comps = []
-    for axis in range(values.ndim):
+    for d in range(nd):
+        axis = d - nd
         padded = pad(values, axis, 1, 1, extrap)
         n = values.shape[axis]
         faces_all = face_function(padded.narrow(axis, 0, n + 1), padded.narrow(axis, 1, n + 1))
-        lo, up = stored_faces(layout[axis])
+        lo, up = stored_faces(layout[d])
         comps.append(faces_all.narrow(axis, int(not lo), n + 1 - int(not lo) - int(not up)))
     return tuple(comps)
 
@@ -174,16 +199,21 @@ def safe_mul_native(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a_n * b_n
 
 
-def laplace_native(values: torch.Tensor, dx, extrap: Extrapolation, axes: Sequence[int] = None) -> torch.Tensor:
+def laplace_native(values: torch.Tensor, dx, extrap: Extrapolation, axes: Sequence[int] = None,
+                   ndim: int = None) -> torch.Tensor:
     """The order-2 Laplacian of one grid array: per axis of `axes` (default
-    all) (v[i−1] + v[i+1] − 2·v[i]) / dx² with ghost cells from `extrap`."""
-    h = _per_axis(dx, values.ndim)
+    all) (v[i−1] + v[i+1] − 2·v[i]) / dx² with ghost cells from `extrap`.
+    `ndim`: the grid's axes, the trailing ones (default all; `axes` count
+    among them)."""
+    nd = _grid_rank(values, ndim)
+    h = _per_axis(dx, nd)
     result = None
-    for axis in (range(values.ndim) if axes is None else axes):
+    for d in (range(nd) if axes is None else axes):
+        axis = d - nd
         padded = pad(values, axis, 1, 1, extrap)
         n = values.shape[axis]
         lo, ce, up = padded.narrow(axis, 0, n), padded.narrow(axis, 1, n), padded.narrow(axis, 2, n)
-        h_axis = np.float64(h[axis]) if values.dtype == torch.float64 else np.float32(h[axis])
+        h_axis = np.float64(h[d]) if values.dtype == torch.float64 else np.float32(h[d])
         term = (lo + up - 2 * ce) / float(h_axis ** 2)
         result = term if result is None else result + term
     return result
@@ -308,6 +338,30 @@ def _plain_values(values, names) -> bool:
     return set(values.shape.names) == set(names)
 
 
+def _batch_dims(tensors, names, what: str):
+    """The batch dims of `tensors` (the values of one Field: a centred grid's,
+    or the face components of a staggered one) besides the grid dims
+    `names`, merged; NotImplementedError where any has another kind of dim."""
+    from ..math._shape import merge_shapes
+    others = merge_shapes(*[t.shape.without(names) for t in tensors])
+    if others.rank != others.batch.rank:
+        raise NotImplementedError(f"{what} of values {', '.join(str(t.shape) for t in tensors)}: the grid dims "
+                                  f"{tuple(names)} and batch dims are ported")
+    return others
+
+
+def _batch_native(t, batch, names):
+    """`t` as a torch array (*batch, *grid), the batch dims it lacks broadcast (a view)."""
+    arr = t.torch(batch.names + tuple(names))
+    return arr.expand(tuple(batch.sizes) + tuple(arr.shape[batch.rank:])) if batch else arr
+
+
+def _batch_tensor(arr, batch, grid):
+    """A torch array (*batch, *grid) as a Tensor of `batch` and the grid dims of `grid` at the array's sizes."""
+    from ..math._shape import concat_shapes
+    return Tensor(arr, concat_shapes(batch, grid.with_sizes(tuple(arr.shape[batch.rank:]))))
+
+
 def _array_layout(field, dims):
     """The array layer's layout of the staggered `field` ('closed' or
     'periodic'); NotImplementedError for a dims subset or another layout."""
@@ -323,28 +377,30 @@ def _array_layout(field, dims):
 
 
 def _grid_values(values, names, fn):
-    """`fn` (an array of the grid dims in `names`' order → an array of the
-    same rank) on `values`, once per entry of a channel dim if it has one: a
-    Tensor of the grid dims with the sizes `fn` returns."""
+    """`fn` (an array (*batch, *grid) with the grid dims in `names`' order
+    last → an array of the same rank) on `values`, once per entry of a
+    channel dim if it has one: a Tensor of the batch dims and the grid dims
+    with the sizes `fn` returns. The batch dims are leading axes of one call."""
     others = values.shape.without(names)
-    if not set(names) <= set(values.shape.names) or others.rank > 1 or (others and not others.channel):
-        raise NotImplementedError(f"values {values.shape}: the grid dims {names} and one channel dim at most "
-                                  f"are ported")
+    batch, rest = others.batch, others.without(others.batch)
+    if not set(names) <= set(values.shape.names) or rest.rank > 1 or (rest and not rest.channel):
+        raise NotImplementedError(f"values {values.shape}: the grid dims {names}, batch dims and one channel dim "
+                                  f"at most are ported")
     grid = values.shape.only(names, reorder=True)
 
     def one(v):
-        out = fn(v.torch(names))
-        return Tensor(out, grid.with_sizes(tuple(out.shape)))
-    if not others:
+        return _batch_tensor(fn(v.torch(batch.names + tuple(names))), batch, grid)
+    if not rest:
         return one(values)
-    return stack([one(values[{others.name: i}]) for i in range(others.size)], others)
+    return stack([one(values[{rest.name: i}]) for i in range(rest.size)], rest)
 
 
-def _staggered(field, comps, boundary):
-    """Face arrays (x, y[, z]) as a staggered Field on `field`'s grid."""
-    values = field.values
-    grid = values.shape.only(field.resolution.names, reorder=True)
-    return Field(field.geometry, TensorStack([Tensor(c, grid.with_sizes(tuple(c.shape))) for c in comps],
+def _staggered(field, comps, boundary, batch=None):
+    """Face arrays ((*batch,) x, y[, z]) as a staggered Field on `field`'s grid."""
+    from ..math._shape import EMPTY_SHAPE
+    batch = EMPTY_SHAPE if batch is None else batch
+    grid = field.values.shape.only(field.resolution.names, reorder=True)
+    return Field(field.geometry, TensorStack([_batch_tensor(c, batch, grid) for c in comps],
                                              dual(vector=field.resolution.names)), boundary)
 
 
@@ -400,7 +456,7 @@ def laplace(field, axes=None, gradient=None, order=2, implicit=None, weights=Non
         extrap = _native_sides(field)
         dx = _dx_tuple(field)
         axes = [names.index(n) for n in dims]
-        result = _grid_values(field.values, names, lambda v: laplace_native(v, dx, extrap, axes))
+        result = _grid_values(field.values, names, lambda v: laplace_native(v, dx, extrap, axes, len(names)))
     elif order == 4 and implicit is None and _use_ghost_pad_order4(field, dims):
         result = None
         for dim in dims:
@@ -458,10 +514,10 @@ def spatial_gradient(field, boundary=None, at: str = 'center', dims=None, stack_
                     (PERIODIC, PERIODIC):
                 raise NotImplementedError(f"the face gradient of a grid with boundary {field.boundary!r} onto "
                                           f"periodic faces: a periodic grid is ported")
-        if not _plain_values(v, names):
-            raise NotImplementedError(f"values {v.shape}: grid dims only are ported for the face gradient")
-        comps = spatial_gradient_native(v.torch(names), _dx_tuple(field), faces=layout, extrap=extrap)
-        return _staggered(field, comps, grad_ext)
+        batch = _batch_dims([v], names, 'the face gradient')
+        comps = spatial_gradient_native(_batch_native(v, batch, names), _dx_tuple(field), faces=layout, extrap=extrap,
+                                        ndim=len(names))
+        return _staggered(field, comps, grad_ext, batch)
     if at != 'center':
         raise ValueError(at)
     comps = {}
@@ -493,15 +549,15 @@ def stagger(field, face_function: Callable, boundary, at='face', dims=None):
         raise NotImplementedError(f"stagger over dims {tuple(dims)} of {names}: all grid dims in the grid's order "
                                   f"are ported")
     layout = _face_layout(boundary, names, walls=False)
-    if not _plain_values(v, names):
-        raise NotImplementedError(f"values {v.shape}: grid dims only are ported for stagger")
+    batch = _batch_dims([v], names, 'stagger')
     grid = v.shape.only(names, reorder=True)
 
     def native_fn(lower, upper):
-        return face_function(Tensor(lower, grid.with_sizes(tuple(lower.shape))),
-                             Tensor(upper, grid.with_sizes(tuple(upper.shape)))).torch(names)
-    comps = stagger_native(v.torch(names), native_fn, _native_sides(field), faces=layout)
-    return _staggered(field, comps, boundary)
+        return _batch_native(face_function(_batch_tensor(lower, batch, grid), _batch_tensor(upper, batch, grid)),
+                             batch, names)
+    comps = stagger_native(_batch_native(v, batch, names), native_fn, _native_sides(field), faces=layout,
+                           ndim=len(names))
+    return _staggered(field, comps, boundary, batch)
 
 
 def divergence(field, order=2, implicit=None, upwind=None):
@@ -522,10 +578,9 @@ def divergence(field, order=2, implicit=None, upwind=None):
         layout = _face_layout(field.boundary, names)
         _check_staggered_shapes(field, layout)
         comps = face_components(field.values)
-        if not all(_plain_values(c, names) for c in comps):
-            raise NotImplementedError(f"values {field.values.shape}: grid dims only are ported for divergence")
-        result = divergence_native([c.torch(names) for c in comps], _dx_tuple(field), faces=layout)
-        return Field(field.geometry, Tensor(result, field.resolution), field.boundary.spatial_gradient())
+        batch = _batch_dims(comps, names, 'divergence')
+        result = divergence_native([_batch_native(c, batch, names) for c in comps], _dx_tuple(field), faces=layout)
+        return Field(field.geometry, _batch_tensor(result, batch, field.resolution), field.boundary.spatial_gradient())
     assert 'vector' in field.values.shape, "divergence requires a vector field"
     result = None
     for dim in names:
@@ -619,9 +674,10 @@ def finite_fill(grid, distance=1, diagonal=False):
     names = grid.resolution.names
 
     def fill(values):
-        if not _plain_values(values, names):
-            raise NotImplementedError(f"finite_fill of {values.shape}: grid dims only are ported")
-        return Tensor(finite_fill_native(values.torch(values.shape.names), distance), values.shape)
+        batch = _batch_dims([values], names, 'finite_fill')
+        order = batch.names + tuple(n for n in values.shape.names if n in names)
+        return Tensor(finite_fill_native(values.torch(order), distance, len(names)),
+                      values.shape.only(order, reorder=True))
     if grid.is_staggered:
         return grid.with_values(face_values([fill(c) for c in face_components(grid.values)], grid.values))
     return grid.with_values(fill(grid.values))

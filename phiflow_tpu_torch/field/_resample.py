@@ -56,11 +56,13 @@ from ..geom._geom import Geometry, Point, flat_points
 from ..geom._grid import UniformGrid_native
 from ..geom._mesh import Mesh
 from ..math import Tensor, channel, dual, expand, extrapolation, stack, to_float, wrap
+from ..math._shape import concat_shapes
 from ..math._extrapolation import ConstantExtrapolation
 from ..math._nd import Extrapolation, pad
 from ..ops.p2g import p2g_mean
 from ._field import Field, FieldInitializer, as_boundary, face_components, face_values
-from ._field_math import _dx_tuple, _grid_values, _layout, _native_extrap, _plain_values
+from ._field_math import (_batch_dims, _batch_native, _dx_tuple, _grid_values, _layout, _native_extrap,
+                          _plain_values)
 from ._grid import expand_staggered
 
 __all__ = ['sample_grid_at_centers', 'half_shift_native', 'scatter_to_grid', 'sample_grid_at_points', 'sample_staggered_at_points',
@@ -69,16 +71,18 @@ __all__ = ['sample_grid_at_centers', 'half_shift_native', 'scatter_to_grid', 'sa
 
 
 def sample_grid_at_centers(values: torch.Tensor, own_axis: Optional[int], target_axis: Optional[int],
-                           extrap: Extrapolation, periodic: bool) -> torch.Tensor:
+                           extrap: Extrapolation, periodic: bool, ndim: Optional[int] = None) -> torch.Tensor:
     """`values`, staggered along `own_axis` (None: centred), at the sample
     points of a grid staggered along `target_axis`. `extrap` is the source's
     extrapolation; `periodic` says which layout the staggered grids have.
+    `ndim`: the grid's axes, the trailing ones (default all; leading axes are
+    a batch).
 
     Per shifted axis, (lower, upper) padding then the 2-point average:
     faces → centres (1, 1) in the closed box, (0, 1) periodic;
     centres → faces (0, 0) in the closed box, (1, 0) periodic."""
     pads = []
-    for axis in range(values.ndim):
+    for axis in range(values.ndim if ndim is None else ndim):
         from_faces, to_faces = own_axis == axis, target_axis == axis
         if from_faces == to_faces:
             pads.append(None)
@@ -93,11 +97,13 @@ def half_shift_native(values: torch.Tensor, pads: Sequence[Optional[Tuple[int, i
                       extrap: Extrapolation) -> torch.Tensor:
     """`values` at sample points half a cell away along each axis whose entry
     of `pads` is a (lower, upper) padding: pad with `extrap`, then average
-    neighbours. Axes with None stay."""
+    neighbours. Axes with None stay. `pads` has one entry per grid axis, the
+    trailing axes of `values`; leading axes are a batch."""
     v = values
-    for axis, p in enumerate(pads):
+    for d, p in enumerate(pads):
         if p is None:
             continue
+        axis = d - len(pads)
         padded = pad(v, axis, p[0], p[1], extrap)
         size = padded.shape[axis]
         v = (padded.narrow(axis, 0, size - 1) + padded.narrow(axis, 1, size - 1)) * 0.5
@@ -195,23 +201,26 @@ def sample_grid_at_points(values: torch.Tensor, points: torch.Tensor, lower: Seq
     """Multilinear interpolation of a grid at `points` (N, d). The grid's
     sample points are the centres of values.shape cells dividing the box
     [lower, upper]; beyond them the grid continues with the constant `extrap`.
+    Leading axes of `values` beyond the d of `lower` are a batch: the result
+    is (*batch, N).
 
     A corner of weight 0 is left out of the sum instead of multiplied, so a
     NaN there (the unset cells of a FLIP grid) does not reach the result — the
     behaviour of the JAX package's lookup for particle sets."""
     if not isinstance(extrap, (int, float)):
         raise NotImplementedError(f"extrapolation {extrap!r}: only a constant is ported for lookups at points")
-    d = values.ndim
+    d = len(lower)
+    lead = tuple(values.shape[:-d])
     padded = torch.nn.functional.pad(values, (1, 1) * d, value=float(extrap))
-    sizes = padded.shape
-    flat = padded.reshape(-1)
+    sizes = padded.shape[-d:]
+    flat = padded.reshape(lead + (-1,))
     strides = [int(np.prod(sizes[a + 1:])) for a in range(d)]
     base = None     # flat index of each point's lower corner in the padded array
     weights = []    # per axis (weight of the lower corner, of the upper corner)
     for a in range(d):
         box = float(np.float32(upper[a]) - np.float32(lower[a]))
         local = (points[:, a] - float(np.float32(lower[a]))) / box
-        coord = local * float(values.shape[a]) - 0.5
+        coord = local * float(values.shape[a - d]) - 0.5
         pos = torch.clamp(coord + 1.0, 0.0, sizes[a] - 1.0)  # index in the padded array
         i = torch.clamp(torch.floor(pos), 0, sizes[a] - 2)
         frac = pos - i
@@ -223,7 +232,7 @@ def sample_grid_at_points(values: torch.Tensor, points: torch.Tensor, lower: Seq
         w = weights[0][corner[0]]
         for a in range(1, d):
             w = w * weights[a][corner[a]]
-        v = flat[base + sum(c * st for c, st in zip(corner, strides))]
+        v = flat[..., base + sum(c * st for c, st in zip(corner, strides))]
         term = torch.where(w > 0, v * w, 0.0)
         result = term if result is None else result + term
     return result
@@ -235,12 +244,13 @@ def sample_staggered_at_points(velocity: Sequence[torch.Tensor], points: torch.T
     face component interpolated on its own face grid."""
     d = len(velocity)
     h = _per_axis(dx, d)
-    resolution = [velocity[a].shape[a] + 1 for a in range(d)]  # component a holds the N−1 interior faces of axis a
+    # component a holds the N−1 interior faces of axis a (its grid axes are the trailing d)
+    resolution = [velocity[a].shape[a - d] + 1 for a in range(d)]
     comps = []
     for a in range(d):
         _, lower, upper = face_grid(resolution, h, a)
         comps.append(sample_grid_at_points(velocity[a], points, lower, upper, extrap))
-    return torch.stack(comps, dim=1)
+    return torch.stack(comps, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -509,15 +519,20 @@ def _one_constant(field):
     return forms.pop()
 
 
+def _closed_staggered(velocity):
+    """NotImplementedError unless `velocity` is a closed-box staggered grid from the origin with walls at rest."""
+    _origin_grid(velocity, 'particles in a staggered grid')
+    if not velocity.is_staggered or _layout(velocity) != 'closed' or _one_constant(velocity) != 0:
+        raise NotImplementedError(f"particles in a grid of boundary {velocity.boundary!r}: the closed box's "
+                                  f"staggered grid with walls at rest is ported")
+
+
 def staggered_point_arrays(velocity):
     """(face components, cell size per axis) of a closed-box staggered grid
     from the origin with a zero boundary — what `sample_staggered_at_points`
     and `finite_rk4_native` take; NotImplementedError for any other grid."""
-    _origin_grid(velocity, 'particles in a staggered grid')
+    _closed_staggered(velocity)
     names = velocity.resolution.names
-    if not velocity.is_staggered or _layout(velocity) != 'closed' or _one_constant(velocity) != 0:
-        raise NotImplementedError(f"particles in a grid of boundary {velocity.boundary!r}: the closed box's "
-                                  f"staggered grid with walls at rest is ported")
     comps = face_components(velocity.values)
     if not all(_plain_values(c, names) for c in comps):
         raise NotImplementedError(f"values {velocity.values.shape}: grid dims only are ported")
@@ -527,23 +542,28 @@ def staggered_point_arrays(velocity):
 def _sample_grid_at_points_field(value, points: Tensor) -> Tensor:
     """The grid Field `value` at `points` (a `vector` dim, any other dims):
     multilinear, continued beyond the grid by its boundary constant. A
-    staggered grid gives a `vector` per point."""
+    staggered grid gives a `vector` per point. Batch dims of the values
+    (not of the points) lead the result, from one lookup."""
     names = value.resolution.names
     if points.shape.get_labels('vector') not in (None, names):
         raise NotImplementedError(f"points with vector {points.shape.get_labels('vector')} in a grid of {names}")
     _origin_grid(value, 'lookups at points')
     flat, _ = flat_points(points)
     lead = points.shape.without('vector')
+    tensors = face_components(value.values) if value.is_staggered else [value.values]
+    batch = _batch_dims(tensors, names, 'lookups at points')
+    if set(batch.names) & set(lead.names):
+        raise NotImplementedError(f"values {value.values.shape} at points {points.shape}: the points of one batch "
+                                  f"entry each come with a later slice of the port")
+    arrays = [_batch_native(t, batch, names) for t in tensors]
     if value.is_staggered:
-        comps, dx = staggered_point_arrays(value)
-        out = sample_staggered_at_points(comps, flat.to(comps[0].device), dx)
-        return Tensor(out.reshape(lead.sizes + (len(names),)), lead & channel(vector=names))
-    if not _plain_values(value.values, names):
-        raise NotImplementedError(f"values {value.values.shape}: grid dims only are ported")
-    grid = value.values.torch(names, device=flat.device)
-    out = sample_grid_at_points(grid, flat, value.bounds.lower.numpy(), value.bounds.upper.numpy(),
+        _closed_staggered(value)
+        out = sample_staggered_at_points(arrays, flat.to(arrays[0].device), _dx_tuple(value))
+        return Tensor(out.reshape(batch.sizes + lead.sizes + (len(names),)),
+                      concat_shapes(batch, lead, channel(vector=names)))
+    out = sample_grid_at_points(arrays[0].to(flat.device), flat, value.bounds.lower.numpy(), value.bounds.upper.numpy(),
                                 _one_constant(value))
-    return Tensor(out.reshape(lead.sizes), lead)
+    return Tensor(out.reshape(batch.sizes + lead.sizes), concat_shapes(batch, lead))
 
 
 def _point_values(value, n: int, device, vector: bool):

@@ -6,7 +6,11 @@ Damped-Jacobi pre/post smoothing with equal sweep counts (K2), the fused
 residual + mean-pool restriction (K3), the piecewise-constant prolongation
 + add (K4) and an exact coarse solve through a host-built pseudo-inverse make
 the V-cycle operator symmetric, as CG needs. Boundary modes are the
-{periodic, neumann, ghost0} of the CG matvec.
+{periodic, neumann, ghost0} of the CG matvec. A batch of right-hand sides
+(leading axes) runs through one V-cycle: each kernel launches once for the
+batch. The coarse solve (the JAX package's one `einsum('ij,bj->bi')`) is one
+product an entry (`per_entry`), so that an entry gets its own V-cycle's
+result bit for bit (a product of the batch at once rounds differently).
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-from ..ops.poisson import _unmasked_coeffs_1d, poisson_smooth, residual_restrict
+from ..ops.poisson import _unmasked_coeffs_1d, per_entry, poisson_smooth, residual_restrict
 from ..ops.transfer import prolong_add
 
 __all__ = ['make_poisson_vcycle']
@@ -51,7 +55,8 @@ def make_poisson_vcycle(resolution: Tuple[int, ...], dx: Tuple[float, ...], bcs,
                         min_size: int = 4, max_direct: int = 512,
                         dtype='auto') -> Callable:
     """Build ``vcycle(b, emit_dot=False) -> (u, dot)`` with u ≈ A⁻¹ b for the
-    Poisson operator on a uniform cell-centred 2D or 3D grid; b, u: (X, Y[, Z]).
+    Poisson operator on a uniform cell-centred 2D or 3D grid; b, u: (X, Y[, Z])
+    or (*batch, X, Y[, Z]), each entry its own system (``dot`` one per entry).
     A 3D grid on CUDA goes through K2–K4, a 2D grid through the same wrappers'
     PyTorch route.
 
@@ -99,7 +104,8 @@ def make_poisson_vcycle(resolution: Tuple[int, ...], dx: Tuple[float, ...], bcs,
         res_l, inv_dx2 = levels[level]
         if level + 1 == len(levels):
             if coarse_inv is not None:
-                e = torch.matmul(coarse_inv, b.reshape(-1).float()).reshape(b.shape)
+                e = per_entry(lambda r: torch.matmul(coarse_inv, r.reshape(-1)), b.ndim - len(res_l), b.float())
+                e = e.reshape(b.shape)
                 return e.to(out_dtype), None
             return smooth(None, b, inv_dx2, 24, zero_init=True, out_dtype=out_dtype), None
         u = smooth(None, b, inv_dx2, nu, zero_init=True, out_dtype=dtype)

@@ -8,7 +8,9 @@ The grid's extrapolation describes its halo to the kernel, which resolves it by
 index: a constant (a float: the closed box's velocity, 0 at the walls),
 `BOUNDARY` (zero gradient: the smoke) or `PERIODIC`. No padded copy is made.
 `PerSide` is a constant that differs by side (a moving lid); such a grid is
-padded here, side by side, and the kernel takes the padded array.
+padded here, side by side, and the kernel takes the padded array. The grid
+and the displacements may carry leading batch axes (one launch for the
+batch; an input without them is shared by every entry).
 
 One kernel per call, whatever K: the TPU route picks between a K=1 and a K
 window at run time (`:554-578`) because its cost grows with (2K+1)^d. A corner
@@ -79,6 +81,7 @@ def component_extrapolation(extrap, component: int) -> Extrapolation:
 
 def _ghosts(v: torch.Tensor, axis: int, width: int, upper: bool, e) -> torch.Tensor:
     """`width` ghost entries of `v` beyond its lower or upper end along `axis` by the side rule `e`."""
+    axis %= v.ndim
     n = v.shape[axis]
     if isinstance(e, str) and e == PERIODIC:
         return v.narrow(axis, 0, width) if upper else v.narrow(axis, n - width, width)
@@ -92,7 +95,9 @@ def _ghosts(v: torch.Tensor, axis: int, width: int, upper: bool, e) -> torch.Ten
 
 
 def pad(v: torch.Tensor, axis: int, lower: int, upper: int, extrap: Extrapolation) -> torch.Tensor:
-    """`v` extended by `lower` / `upper` entries along `axis`."""
+    """`v` extended by `lower` / `upper` entries along `axis`. A `PerSide`
+    rule is looked up by `axis` among its axes: an array with leading batch
+    axes gives a negative axis, counted from its last."""
     if not lower and not upper:
         return v
     lo_e, up_e = extrap[axis] if isinstance(extrap, PerSide) else (extrap, extrap)
@@ -114,18 +119,19 @@ def shift_window_interp(grid: torch.Tensor, displacement_cells: Sequence[torch.T
     A CUDA grid goes through K6 (3D) or K7 (2D), a CPU grid through their plain
     twin (`ops/interp.py`). Every route is differentiable in the grid and the
     displacements (K6ᵀ / K7ᵀ on CUDA); a PerSide halo is padded here by
-    PyTorch operations, which autograd follows."""
+    PyTorch operations, which autograd follows. Leading batch axes of the
+    grid or of the displacements (the last d axes are the grid's) broadcast:
+    the result has the batch, from one launch."""
     d = len(displacement_cells)
-    if grid.ndim != d:
-        raise NotImplementedError(
-            f"grid of rank {grid.ndim} with {d} displacement axes: leading batch axes come with the "
-            f"batched-smoke slice of the port")
+    if grid.ndim < d or any(c.ndim < d for c in displacement_cells):
+        raise ValueError(f"grid of rank {grid.ndim} with {d} displacement axes of ranks "
+                         f"{[c.ndim for c in displacement_cells]}")
     if d not in (2, 3):
         raise NotImplementedError(f"{d}D grids come with a later slice of the port (2D and 3D are ported)")
     fn = window_interp_3d if d == 3 else window_interp_2d
     if isinstance(extrap, PerSide):
         # axis after axis, so a corner of the halo holds the later axis' value
-        for axis in range(d):
+        for axis in range(-d, 0):
             grid = pad(grid, axis, max_cells, max_cells, extrap)
         halo = {}
     elif extrap == BOUNDARY:
@@ -140,6 +146,8 @@ def shift_window_interp(grid: torch.Tensor, displacement_cells: Sequence[torch.T
     else:
         raise ValueError(f"extrapolation {extrap!r}: a constant value, BOUNDARY, PERIODIC or PerSide expected")
     # the kernels take contiguous arrays: a Field's constant values arrive as broadcast views
+    lead = torch.broadcast_shapes(*[c.shape[:-d] for c in displacement_cells])
+    displacement_cells = [c.expand(lead + c.shape[-d:]) for c in displacement_cells]
     return fn(grid.contiguous(), [c.contiguous() for c in displacement_cells], max_cells,
               compute_extrema=compute_extrema, negate=negate, disp_scale=disp_scale, **halo)
 
@@ -153,15 +161,19 @@ def shift_zero(x: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return lower, upper
 
 
-def masked_fill_native(values: torch.Tensor, valid: torch.Tensor, distance: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+def masked_fill_native(values: torch.Tensor, valid: torch.Tensor, distance: int = 1,
+                       ndim: int = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Propagate values into invalid cells as the mean of their valid axis
-    neighbours, `distance` times. Returns (filled values, new validity)."""
+    neighbours, `distance` times. Returns (filled values, new validity).
+    `ndim`: the grid's axes, the trailing ones (default all; leading axes
+    are a batch)."""
+    nd = values.ndim if ndim is None else ndim
     valid_f = valid.to(values.dtype)
     for _ in range(distance):
         values_v = values * valid_f
         neighbor_sum = torch.zeros_like(values_v)
         neighbor_count = torch.zeros_like(valid_f)
-        for axis in range(values.ndim):
+        for axis in range(-nd, 0):
             lo, up = shift_zero(values_v, axis)
             vlo, vup = shift_zero(valid_f, axis)
             neighbor_sum = neighbor_sum + (lo + up)
@@ -175,14 +187,18 @@ def masked_fill_native(values: torch.Tensor, valid: torch.Tensor, distance: int 
 
 
 def masked_fill(values, valid, distance=1):
-    """`masked_fill_native` on named-dim Tensors of spatial dims only:
-    (filled values, new validity)."""
+    """`masked_fill_native` on named-dim Tensors of spatial and batch dims:
+    (filled values, new validity); the batch dims lead, each entry filled on
+    its own."""
     from ._tensor import Tensor
-    if values.shape.non_spatial:
-        raise NotImplementedError(f"masked_fill of {values.shape}: spatial dims only are ported")
-    order = values.shape.names
-    filled, new_valid = masked_fill_native(values.torch(order), valid.torch(order, values.device), distance)
-    return Tensor(filled, values.shape), Tensor(new_valid, values.shape)
+    if values.shape.non_spatial.non_batch:
+        raise NotImplementedError(f"masked_fill of {values.shape}: spatial and batch dims are ported")
+    order = values.shape.batch.names + values.shape.spatial.names
+    v = values.torch(order)
+    filled, new_valid = masked_fill_native(v, valid.torch(order, values.device).expand(v.shape), distance,
+                                           values.shape.spatial.rank)
+    shape = values.shape.only(order, reorder=True)
+    return Tensor(filled, shape), Tensor(new_valid, shape)
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,14 @@ warning for any other name. A preconditioner that is not callable is
 ignored, as JAX ignores it. `solve_linear` flattens its unknown and
 right-hand side with `_VecFormat` (JAX's `:198-312`: a Field, Tensor,
 staggered TensorStack or tuple as one vector, leaves concatenated), so a
-staggered unknown solves like a centred one. Systems along batch dims are
-solved one by one, as JAX splits them off (`nb`, `:313-347`): each has its
-own tolerance, rank-deficiency mean and stop, and `SolveInfo.residual` holds
-one ‖r‖ per system. `minimize` and `solve_nonlinear` are in `_optimize.py`.
+staggered unknown solves like a centred one. Systems along batch dims
+(`nb` leading axes, as JAX splits them off, `:313-347`) run through one loop,
+as JAX's `_cg` runs them: each has its own tolerance, rank-deficiency mean
+and stop, a converged system is frozen (its step α × 0) while the others go
+on, the loop ends when all have converged, and `SolveInfo.residual` holds
+one ‖r‖ per system. Each system's inner products and means are reduced as
+an unbatched system's, so an entry of a batch gets its own solve's numbers.
+`minimize` and `solve_nonlinear` are in `_optimize.py`.
 
 The loops run eagerly: the stop test reads ⟨r, r⟩ on the host once per
 iteration (one device sync), where JAX keeps the loop on the device in a
@@ -45,6 +49,7 @@ import torch
 from ._functional import LinearFunction
 from ._magic import ConvergenceException, Diverged, NotConverged
 from ._tensor import Tensor, TensorStack
+from ..ops.poisson import per_entry
 
 __all__ = ['SolveResult', 'cg', 'cg_adaptive', 'bicgstab', 'bicgstab2', 'Direct', 'sub_mean', 'implicit_solve',
            'Solve', 'copy_solve', 'SolveInfo', 'SolveTape', 'solve_linear', 'record', 'krylov_of',
@@ -63,10 +68,8 @@ class SolveResult(NamedTuple):
 
 
 def _dot(u: torch.Tensor, v: torch.Tensor, nb: int = 0) -> torch.Tensor:
-    """⟨u, v⟩, one per system of the `nb` leading axes."""
-    if nb == 0:
-        return torch.dot(u.reshape(-1), v.reshape(-1))
-    return torch.sum((u * v).reshape(u.shape[:nb] + (-1,)), -1)
+    """⟨u, v⟩, one per system of the `nb` leading axes (`per_entry`)."""
+    return per_entry(lambda a, b: torch.dot(a.reshape(-1), b.reshape(-1)), nb, u, v)
 
 
 def _dot64(u: torch.Tensor, v: torch.Tensor, nb: int = 0) -> torch.Tensor:
@@ -80,11 +83,10 @@ def _bc(s: torch.Tensor, like: torch.Tensor, nb: int) -> torch.Tensor:
 
 
 def sub_mean(x: torch.Tensor, nb: int = 0) -> torch.Tensor:
-    """x − mean(x), per system of the `nb` leading axes: the projection onto
-    the range of a rank-1-deficient (Neumann / periodic) Poisson operator."""
-    if nb == 0:
-        return x - torch.mean(x)
-    return x - _bc(torch.mean(x.reshape(x.shape[:nb] + (-1,)), -1), x, nb)
+    """x − mean(x), per system of the `nb` leading axes (each mean taken as
+    an unbatched one is): the projection onto the range of a
+    rank-1-deficient (Neumann / periodic) Poisson operator."""
+    return x - _bc(per_entry(torch.mean, nb, x), x, nb)
 
 
 def _safe_denom_fn(dtype, device):
@@ -365,7 +367,7 @@ class _Spec(NamedTuple):
     implicit_diff: bool
     on_adjoint: Optional[Callable]
     box: dict                  # receives the forward's SolveResult
-    nb: int                    # leading batch axes: systems solved one by one
+    nb: int                    # leading batch axes: systems solved in one loop, each with its own stop
 
 
 SELF_ADJOINT = (cg, cg_adaptive)  # solvers of symmetric systems: the adjoint solve takes A itself

@@ -10,7 +10,17 @@ model chooses:
 * the fused path (`_fused_advect`: three calls of K5) for a 3D grid the fused
   kernel supports, unless the step is differentiated (K5 has no backward);
 * the per-phase path (`advect_smoke`, `advect_velocity` through
-  `physics/advect.py`: K6 in 3D, K7 in 2D) for everything else.
+  `physics/advect.py`: K6 in 3D, K7 in 2D) for everything else, a batched
+  state among them (JAX's gate refuses batch dims).
+
+`batch_shape` (a batch Shape, as JAX's `expand(smoke0.values, batch_shape)`
+takes it) gives the initial smoke those batch dims; the velocity and the
+pressure start without them and take them from the smoke through the
+buoyancy. Every phase runs once for the whole batch: one launch of each
+kernel a lookup, a smooth, a transfer or a matvec, one CG loop for all
+entries (`physics/fluid.py`). In the array layer the batch is the leading
+axes of every array (one axis for `initial_state_native`, the batch's
+entries flattened), an array without them shared by every entry.
 
 `initial_state()`, `step(velocity, smoke, pressure)` and the phases are JAX's,
 on Fields: the velocity a StaggeredGrid, the smoke and the pressure
@@ -35,7 +45,7 @@ from .. import resolve_device
 from ..field import CenteredGrid, Field, StaggeredGrid, face_layout, resample
 from ..field._resample import sample_grid_at_centers
 from ..geom import Box, Sphere
-from ..math import ConvergenceException, Solve, dual, extrapolation, stack
+from ..math import EMPTY_SHAPE, ConvergenceException, Solve, dual, expand, extrapolation, stack
 from ..math._nd import BOUNDARY, PERIODIC
 from ..ops.advect3d import OutSpec, Source, fused_advect_3d
 from ..physics import advect, fluid
@@ -57,9 +67,9 @@ class SmokePlume:
     advection + semi-Lagrangian self-advection + pressure projection (CG,
     tolerance cg_tol).
 
-    The constructor takes JAX's arguments. Unbatched float32 with `max_cells`
-    ≥ 1 runs; `batch_shape` and `max_cells=None` raise NotImplementedError
-    naming the later slice that brings them."""
+    The constructor takes JAX's arguments. Float32 with `max_cells` ≥ 1
+    runs, batched or not; `max_cells=None` raises NotImplementedError naming
+    the later slice that brings it."""
 
     def __init__(self, resolution: int = 64, dims: int = 2, buoyancy: float = 0.1,
                  inflow_rate: float = 0.2, dt: float = 0.5, cg_tol: float = 1e-3,
@@ -67,9 +77,6 @@ class SmokePlume:
                  size: float = None, periodic: bool = False, device=None):
         if dims not in (2, 3):
             raise ValueError(f"dims must be 2 or 3, got {dims}")
-        if batch_shape is not None:
-            raise NotImplementedError("batched smoke needs the batched CG, V-cycle and projection and "
-                                      "window interpolation with leading batch axes: a later slice")
         if max_cells is None:
             raise NotImplementedError("max_cells=None is the unbounded gather lookup (no window "
                                       "kernel): it comes with a later slice of the port")
@@ -85,7 +92,11 @@ class SmokePlume:
         v_bc = extrapolation.PERIODIC if periodic else 0.
         s_bc = extrapolation.PERIODIC if periodic else extrapolation.BOUNDARY
         self.velocity0 = StaggeredGrid(0., v_bc, bounds=bounds, **sizes)
-        self.smoke0 = CenteredGrid(0., s_bc, bounds=bounds, **sizes)
+        smoke0 = CenteredGrid(0., s_bc, bounds=bounds, **sizes)
+        if batch_shape is not None:
+            smoke0 = smoke0.with_values(expand(smoke0.values, batch_shape))
+        self.smoke0 = smoke0
+        self.batch_shape = EMPTY_SHAPE if batch_shape is None else smoke0.values.shape.batch
         self.pressure0 = CenteredGrid(0., extrapolation.PERIODIC if periodic else extrapolation.BOUNDARY,
                                       bounds=bounds, **sizes)
         self._names = names
@@ -119,15 +130,34 @@ class SmokePlume:
         return comps, N
 
     def initial_state_native(self) -> Tuple[Velocity, torch.Tensor, torch.Tensor]:
+        """Zeros: the smoke with one leading axis of the batch's entries when
+        the model is batched, the velocity and the pressure without."""
         comps, N = self._shapes()
-        zeros = lambda shape: torch.zeros(shape, dtype=torch.float32, device=self.device)
-        return tuple(zeros(s) for s in comps), zeros(N), zeros(N)
+        zeros = lambda shape: torch.zeros(shape, dtype=torch.float32, device=self.device)  # noqa: E731
+        lead = (self.batch_shape.volume,) if self.batch_shape else ()
+        return tuple(zeros(s) for s in comps), zeros(lead + N), zeros(N)
 
     def _state_matches(self, velocity: Velocity, smoke: torch.Tensor) -> bool:
+        """Float32 arrays of this model's layout, each with leading batch axes or without."""
         comps, N = self._shapes()
-        return (len(velocity) == self.dims and all(tuple(v.shape) == s for v, s in zip(velocity, comps))
-                and tuple(smoke.shape) == N
+        d = self.dims
+        return (len(velocity) == d and all(tuple(v.shape[-d:]) == s for v, s in zip(velocity, comps))
+                and tuple(smoke.shape[-d:]) == N and all(t.ndim >= d for t in (*velocity, smoke))
                 and all(t.dtype == torch.float32 for t in (*velocity, smoke)))
+
+    def _batched_native(self, *arrays) -> bool:
+        return any(t is not None and t.ndim > self.dims for t in arrays)
+
+    def _batch_of(self, *arrays):
+        """The batch dims of arrays with leading batch axes: the model's
+        `batch_shape` where its rank matches, else one dim `batch`."""
+        from ..math import batch as batch_dims
+        lead = next(t.shape[:-self.dims] for t in arrays if t is not None and t.ndim > self.dims)
+        if self.batch_shape.rank == len(lead):
+            return self.batch_shape.with_sizes(tuple(lead))
+        if len(lead) != 1:
+            raise ValueError(f"arrays with leading axes {tuple(lead)}: give the model a batch_shape of that rank")
+        return batch_dims(batch=lead[0])
 
     # ------------------------------------------------------------------
     # the fused path: both advection phases through three calls of K5
@@ -141,6 +171,8 @@ class SmokePlume:
         alone."""
         if torch.is_grad_enabled() and any(t.requires_grad for t in (*velocity, smoke)):
             return False
+        if self._batched_native(*velocity, smoke):
+            return False  # JAX's gate refuses batch dims (`phiflow_tpu/models/smoke.py:109`)
         return (self.dims == 3 and self.max_cells is not None
                 and _fused_advect_supported((self._resolution,) * 3, self.max_cells))
 
@@ -207,7 +239,7 @@ class SmokePlume:
                                             max_cells=self.max_cells)
         up = self.dims - 1
         lift = sample_grid_at_centers(smoke * (self.buoyancy * self.dt), None, up,
-                                      PERIODIC if self.periodic else BOUNDARY, self.periodic)
+                                      PERIODIC if self.periodic else BOUNDARY, self.periodic, self.dims)
         return tuple(c + lift if d == up else c for d, c in enumerate(adv))
 
     def project_native(self, velocity: Velocity, pressure: Optional[torch.Tensor]):
@@ -239,10 +271,13 @@ class SmokePlume:
 
     def state_fields(self, velocity: Velocity, smoke: torch.Tensor, pressure: Optional[torch.Tensor]):
         """The array state as JAX's Fields, the tensors kept as they are; a
-        pressure of None stays None."""
-        return (self.velocity0.with_values(staggered_values(self.velocity0, velocity)),
-                self.smoke0.with_values(cell_values(self.smoke0, smoke)),
-                None if pressure is None else self.pressure0.with_values(cell_values(self.pressure0, pressure)))
+        pressure of None stays None. Leading batch axes become the model's
+        batch dims (`_batch_of`)."""
+        b = self._batch_of(*velocity, smoke, pressure) if self._batched_native(*velocity, smoke, pressure) \
+            else EMPTY_SHAPE
+        return (self.velocity0.with_values(staggered_values(self.velocity0, velocity, b)),
+                self.smoke0.with_values(cell_values(self.smoke0, smoke, b)),
+                None if pressure is None else self.pressure0.with_values(cell_values(self.pressure0, pressure, b)))
 
     def state_natives(self, velocity: Field, smoke: Field, pressure: Optional[Field]):
         """The Fields' raw tensors: (face components, smoke, pressure)."""

@@ -23,6 +23,14 @@ inside the grid skip the halo's resolution. Their plain twin
 wrapper takes the twin only for tensors on the CPU; for CUDA tensors it
 launches its kernel or raises.
 
+Batches: the grid and the displacements may carry leading batch axes,
+(*batch, *grid); the result has the batch both broadcast to. On CUDA one
+launch covers the batch: an input without the batch axes (or with axes of
+size 1) is shared by every entry, read at an entry stride of 0 and never
+expanded into a copy; K6ᵀ / K7ᵀ sum a shared input's gradient over the
+batch. The twins take the batch by broadcasting, as the JAX package's window
+sum does.
+
 The grid comes either padded, K halo cells on every side (the TPU kernels'
 input), or raw with its halo described: ``const_pad=c`` (a constant, as the
 TPU 3D kernel takes it) or ``halo='edge'`` / ``'wrap'`` (zero gradient /
@@ -63,9 +71,10 @@ def window_interp_3d(grid: torch.Tensor, disp3, K: int, compute_extrema: bool = 
                      disp_scale: Optional[Sequence[float]] = None, halo: Optional[str] = None):
     """K6. grid: (X+2K, Y+2K, Z+2K) padded, or the raw (X, Y, Z) grid with
     ``const_pad`` or ``halo``; disp3: (3, X, Y, Z) stacked or three (X, Y, Z)
-    arrays. ``negate`` flips the displacement sign, ``disp_scale`` converts the
+    arrays. Either may carry leading batch axes (module docstring).
+    ``negate`` flips the displacement sign, ``disp_scale`` converts the
     displacement to cells per axis. Returns out, or (out, lo, up) with
-    ``compute_extrema``; all (X, Y, Z) float32."""
+    ``compute_extrema``; all (*batch, X, Y, Z) float32."""
     return _window_interp(3, grid, disp3, K, compute_extrema, negate, const_pad, disp_scale, halo)
 
 
@@ -92,17 +101,20 @@ def _window_interp(d, grid, disps, K, compute_extrema, negate, const_pad, disp_s
     if halo is not None and halo not in _PAD_MODE:
         raise ValueError(f"halo {halo!r} not in {tuple(_PAD_MODE)}")
     mode = 'const' if const_pad is not None else halo  # None: the grid is padded
-    out_shape = tuple(disps[0].shape)
-    if grid.ndim != d or len(out_shape) != d:
-        raise NotImplementedError(
-            f"{name} takes one {d}D grid, got shapes {tuple(grid.shape)} / {out_shape}; leading batch "
-            f"axes come with the batched-smoke slice of the port")
-    if any(tuple(dd.shape) != out_shape for dd in disps):
+    if grid.ndim < d or disps[0].ndim < d:
+        raise ValueError(f"{name} takes {d}D grids, got shapes {tuple(grid.shape)} / {tuple(disps[0].shape)}")
+    if any(dd.shape != disps[0].shape for dd in disps):
         raise ValueError(f"displacement shapes differ: {[tuple(dd.shape) for dd in disps]}")
+    out_shape = tuple(disps[0].shape[-d:])
     expected = out_shape if mode is not None else tuple(n + 2 * K for n in out_shape)
-    if tuple(grid.shape) != expected:
+    if tuple(grid.shape[-d:]) != expected:
         raise ValueError(f"grid shape {tuple(grid.shape)} != {expected} for displacements {out_shape}, K={K}"
                          f"{'' if mode is not None else ' (padded)'}")
+    try:
+        torch.broadcast_shapes(grid.shape[:-d], disps[0].shape[:-d])
+    except RuntimeError:
+        raise ValueError(f"{name}: the batch axes of the grid {tuple(grid.shape[:-d])} and of the displacements "
+                         f"{tuple(disps[0].shape[:-d])} do not broadcast") from None
     if mode == 'wrap' and min(out_shape) < K:
         raise ValueError(f"a wrapped grid needs at least K={K} cells per axis, got {out_shape}")
     sgn = -1.0 if negate else 1.0
@@ -153,20 +165,25 @@ class _WindowInterp(torch.autograd.Function):
 # plain PyTorch twin (CPU path; the kernels' oracle on the card)
 # ---------------------------------------------------------------------------
 
-def _pad(grid: torch.Tensor, K: int, mode: str, const: float) -> torch.Tensor:
-    widths = (K, K) * grid.ndim
+def _pad(grid: torch.Tensor, K: int, mode: str, const: float, d: int) -> torch.Tensor:
+    """The `d` trailing axes of `grid` padded by K cells on every side."""
+    widths = (K, K) * d
     if mode == 'const':
         return F.pad(grid, widths, value=const)
-    return F.pad(grid[None, None], widths, mode=_PAD_MODE[mode])[0, 0]
+    lead, spatial = grid.shape[:-d], grid.shape[-d:]
+    padded = F.pad(grid.reshape((-1, 1) + tuple(spatial)), widths, mode=_PAD_MODE[mode])
+    return padded.reshape(tuple(lead) + tuple(padded.shape[2:]))
 
 
 def _window_interp_plain(grid, disps, K, compute_extrema, scale, mode, const):
     """The window sum over all (2K+1)^d taps, on any device. `scale` holds the
-    sign; `mode` None takes `grid` as padded."""
+    sign; `mode` None takes `grid` as padded. Leading batch axes of the grid
+    and the displacements broadcast."""
     d = len(disps)
-    out_shape = tuple(disps[0].shape)
+    spatial = tuple(disps[0].shape[-d:])
+    out_shape = tuple(torch.broadcast_shapes(grid.shape[:-d], disps[0].shape[:-d])) + spatial
     dtype = torch.float64 if grid.dtype == torch.float64 else torch.float32  # float64 only on the CPU
-    padded = (grid if mode is None else _pad(grid, K, mode, const)).to(dtype)
+    padded = (grid if mode is None else _pad(grid, K, mode, const, d)).to(dtype)
     W = 2 * K + 1
     # JAX's AD conventions at the kinks (module docstring); the values are those of clamp / abs
     lo_k, hi_k, zero = (torch.full((), v, dtype=dtype, device=grid.device) for v in (-float(K), float(K), 0.0))
@@ -182,13 +199,13 @@ def _window_interp_plain(grid, disps, K, compute_extrema, scale, mode, const):
         for i in range(d):
             j = kk % W  # tap s = j − K along axis i, axis 0 fastest
             kk //= W
-            index.append(slice(j, j + out_shape[i]))
+            index.append(slice(j, j + spatial[i]))
             wi = torch.maximum(zero, 1.0 - dist[i][j])  # hat function = linear-interpolation weight
             w = wi if w is None else w * wi
             if compute_extrema:
                 ci = dist[i][j] < 1.0
                 cm = ci if cm is None else cm & ci
-        window = padded[tuple(index)]
+        window = padded[(Ellipsis, *index)]
         total = total + window * w
         if compute_extrema:
             lo_acc = torch.minimum(lo_acc, torch.where(cm, window, big))
@@ -234,7 +251,8 @@ def _ctypes_args():
 
     class InterpArgs(ctypes.Structure):
         _fields_ = [('grid', _build.src_struct()), ('disp', P * 3), ('scale', F_ * 3),
-                    ('out', P), ('out_lo', P), ('out_up', P), ('o', I * 3), ('K', I), ('extrema', I)]
+                    ('out', P), ('out_lo', P), ('out_up', P), ('o', I * 3), ('K', I), ('extrema', I),
+                    ('nb', I), ('grid_stride', ctypes.c_longlong), ('disp_stride', ctypes.c_longlong)]
     return InterpArgs
 
 
@@ -246,7 +264,8 @@ def _ctypes_grad_args():
     class InterpGradArgs(ctypes.Structure):
         _fields_ = [('grid', _build.src_struct()), ('disp', P * 3), ('scale', F_ * 3),
                     ('g_out', P), ('g_lo', P), ('g_up', P), ('d_grid', P), ('d_disp', P * 3),
-                    ('o', I * 3), ('K', I)]
+                    ('o', I * 3), ('K', I), ('nb', I), ('grid_stride', ctypes.c_longlong),
+                    ('disp_stride', ctypes.c_longlong)]
     return InterpGradArgs
 
 
@@ -279,9 +298,29 @@ def _check_inputs(grid, disps):
             raise ValueError(f"disp[{i}] is on {dd.device}, the grid on {grid.device}")
 
 
-def _fill_src(src, grid, K, mode, const):
-    for ax in range(grid.ndim):
-        src.n[ax] = grid.shape[ax]
+def _batch(grid, disps, d):
+    """The batch of a call: (lead, nb, grid, grid's entry stride, displacements, their entry stride). An input
+    with one entry is shared (stride 0) and read in place; one whose batch axes are neither one entry nor the
+    whole batch is expanded to the batch."""
+    lead = tuple(torch.broadcast_shapes(grid.shape[:-d], disps[0].shape[:-d]))
+    nb = int(np.prod(lead, dtype=np.int64))
+
+    def strided(t):
+        own = tuple(t.shape[:-d])
+        if int(np.prod(own, dtype=np.int64)) == 1:
+            return t.reshape(t.shape[-d:]), 0
+        if own != lead:
+            t = t.expand(lead + tuple(t.shape[-d:])).contiguous()
+        return t, int(np.prod(t.shape[-d:], dtype=np.int64))
+    grid, g_stride = strided(grid)
+    strided_disps = [strided(dd) for dd in disps]
+    return lead, nb, grid, g_stride, [t for t, _ in strided_disps], strided_disps[0][1]
+
+
+def _fill_src(src, grid, K, mode, const, d):
+    """`Src` of the grid's `d` trailing axes (one entry's shape; the kernel adds the entry's offset)."""
+    for ax in range(d):
+        src.n[ax] = grid.shape[grid.ndim - d + ax]
         # a padded array holds logical index l at raw index l + K; its edge
         # mode only resolves the zero-weight upper tap of δ = +K
         src.shift[ax] = -K if mode is None else 0
@@ -295,21 +334,23 @@ def _window_interp_cuda(name, grid, disps, K, compute_extrema, scale, mode, cons
     d = len(disps)
     _check_inputs(grid, disps)
     lib = _lib()
-    out_shape = tuple(disps[0].shape)
-    planes = [torch.empty(out_shape, dtype=torch.float32, device=grid.device)
+    lead, nb, grid, g_stride, disps, d_stride = _batch(grid, disps, d)
+    spatial = tuple(disps[0].shape[-d:])
+    planes = [torch.empty(lead + spatial, dtype=torch.float32, device=grid.device)
               for _ in range(3 if compute_extrema else 1)]
     a = _ctypes_args()()
     for ax in range(d):
         a.disp[ax] = disps[ax].data_ptr()
         a.scale[ax] = scale[ax]
-        a.o[ax] = out_shape[ax]
-    _fill_src(a.grid, grid, K, mode, const)
+        a.o[ax] = spatial[ax]
+    a.nb, a.grid_stride, a.disp_stride = nb, g_stride, d_stride
+    _fill_src(a.grid, grid, K, mode, const, d)
     a.out = planes[0].data_ptr()
     if compute_extrema:
         a.out_lo, a.out_up = planes[1].data_ptr(), planes[2].data_ptr()
         a.extrema = 1
     a.K = K
-    err = lib.window_interp(ctypes.byref(a), d, int(vector_route(out_shape, (*disps, *planes))),
+    err = lib.window_interp(ctypes.byref(a), d, int(vector_route(spatial, (*disps, *planes))),
                             _build.stream_of(grid))
     _build.check(lib, err, name)
     _build.LAUNCHES[name] += 1
@@ -319,13 +360,19 @@ def _window_interp_cuda(name, grid, disps, K, compute_extrema, scale, mode, cons
 def _window_interp_grad_cuda(name, grid, disps, K, compute_extrema, scale, mode, const, grads, need_grid,
                              need_disp):
     """K6ᵀ / K7ᵀ: (d_grid or None, [d_disp or None] * d) of the upstream
-    `grads` (out[, lo, up]; None entries are zero) in one launch; the grid's
-    gradient is summed with atomics into a zeroed array of its raw shape."""
+    `grads` (out[, lo, up]; None entries are zero) in one launch for the
+    batch; the grid's gradient is summed with atomics into a zeroed array of
+    its raw shape (of one entry where it is shared: the batch sums there),
+    the displacements' written per entry and summed over the batch where they
+    are shared."""
     import ctypes
     d = len(disps)
     _check_inputs(grid, disps)
     lib = _lib()
-    out_shape = tuple(disps[0].shape)
+    grid_in, disps_in = grid, disps
+    lead, nb, grid, g_stride, disps, d_stride = _batch(grid, disps, d)
+    spatial = tuple(disps[0].shape[-d:])
+    out_shape = lead + spatial
     ups = [None if g is None else g.to(torch.float32).contiguous() for g in grads]
     ups += [None] * (3 - len(ups))
     for g in ups:
@@ -333,13 +380,15 @@ def _window_interp_grad_cuda(name, grid, disps, K, compute_extrema, scale, mode,
             raise ValueError(f"{name}: an upstream gradient of shape {tuple(g.shape)} on {g.device}, "
                              f"outputs {out_shape} on {grid.device}")
     d_grid = torch.zeros_like(grid) if need_grid else None
-    d_disps = [torch.empty_like(dd) if need_disp else None for dd in disps]
+    d_disps = [torch.empty(out_shape, dtype=torch.float32, device=grid.device) if need_disp else None
+               for _ in disps]
     a = _ctypes_grad_args()()
-    _fill_src(a.grid, grid, K, mode, const)
+    _fill_src(a.grid, grid, K, mode, const, d)
+    a.nb, a.grid_stride, a.disp_stride = nb, g_stride, d_stride
     for ax in range(d):
         a.disp[ax] = disps[ax].data_ptr()
         a.scale[ax] = scale[ax]
-        a.o[ax] = out_shape[ax]
+        a.o[ax] = spatial[ax]
         a.d_disp[ax] = d_disps[ax].data_ptr() if need_disp else None
     a.g_out, a.g_lo, a.g_up = (None if g is None else g.data_ptr() for g in ups)
     a.d_grid = d_grid.data_ptr() if need_grid else None
@@ -347,4 +396,8 @@ def _window_interp_grad_cuda(name, grid, disps, K, compute_extrema, scale, mode,
     err = lib.window_interp_grad(ctypes.byref(a), d, int(compute_extrema), _build.stream_of(grid))
     _build.check(lib, err, name + '_grad')
     _build.LAUNCHES[name + '_grad'] += 1
+    if d_grid is not None:
+        d_grid = d_grid.reshape(grid_in.shape) if g_stride == 0 else d_grid.sum_to_size(grid_in.shape)
+    if need_disp:
+        d_disps = [g.sum_to_size(dd.shape) for g, dd in zip(d_disps, disps_in)]
     return d_grid, d_disps

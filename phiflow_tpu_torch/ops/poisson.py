@@ -27,6 +27,12 @@ included). A wrapper takes the twin only for tensors on the CPU; for 3D CUDA
 tensors it launches its kernel or raises. Storage is float32 or bfloat16,
 arithmetic float32 — the twins cast the same way; masks are float32.
 
+Batches: a field may carry leading batch axes, (*batch, X, Y, Z), each entry
+an independent system; on CUDA the wrappers of K1–K3 launch once for the
+whole batch (the kernels fold the entry into their grid), a dot comes out one
+per entry, of the batch's shape, and the twins compute the same over the
+leading axes. K1's masked forms take one field.
+
 The kernels are 3D, as the TPU kernels are: the JAX package computes a 2D
 stencil through XLA on the TPU too (`_apply_xla`). So each wrapper decides on
 dimensionality alone, before anything else: with two spatial axes
@@ -185,7 +191,7 @@ def _ctypes_grid():
 
     class Grid(ctypes.Structure):
         _fields_ = [('n', ctypes.c_int * 3), ('inv', ctypes.c_float * 3),
-                    ('lo', ctypes.c_int * 3), ('hi', ctypes.c_int * 3)]
+                    ('lo', ctypes.c_int * 3), ('hi', ctypes.c_int * 3), ('nb', ctypes.c_int)]
     return Grid
 
 
@@ -199,9 +205,11 @@ def _lib():
     })
 
 
-def _grid(shape, inv_dx2, bc):
+def _grid(shape, inv_dx2, bc, nb=1):
+    """The kernels' `Grid`: the spatial `shape` of each of `nb` entries."""
     Grid = _ctypes_grid()
     g = Grid()
+    g.nb = int(nb)
     for ax in range(3):
         g.n[ax] = int(shape[ax])
         g.inv[ax] = float(np.float32(inv_dx2[ax]))
@@ -215,8 +223,8 @@ def _check_field(name, t, shape=None):
         raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
     if t.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got {t.dtype}")
-    if t.ndim != 3:
-        raise ValueError(f"{name}: the kernel takes one 3D field, got shape {tuple(t.shape)}")
+    if t.ndim < 3:
+        raise ValueError(f"{name}: the kernel takes 3D fields with leading batch axes, got shape {tuple(t.shape)}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
     if not t.is_contiguous():
@@ -226,6 +234,39 @@ def _check_field(name, t, shape=None):
 def _check_bc(bc):
     if len(bc) != 3 or any(lo not in _MODE_CODE or hi not in _MODE_CODE for lo, hi in bc):
         raise ValueError(f"bc: three (lower, upper) pairs of {tuple(_MODE_CODE)} expected, got {bc}")
+
+
+def _n_entries(t: torch.Tensor) -> int:
+    """The entries of a field's leading batch axes (1 without any)."""
+    return int(np.prod(t.shape[:-3], dtype=np.int64))
+
+
+def per_entry(fn, nb: int, *xs: torch.Tensor) -> torch.Tensor:
+    """`fn` of each system of the `nb` leading axes of `xs`, stacked: shape
+    ``xs[0].shape[:nb] + fn's``. A system of a batch is computed from its own
+    tensors, as an unbatched one is, so that it gets its own solve's numbers
+    bit for bit (a reduction of the batch at once sums in another order).
+    The one place where a solve's per-system reductions and the V-cycle's
+    coarse product take a batch; ``nb == 0`` is ``fn(*xs)``."""
+    if nb == 0:
+        return fn(*xs)
+    lead = tuple(xs[0].shape[:nb])
+    out = torch.stack([fn(*e) for e in zip(*(x.reshape((-1,) + tuple(x.shape[nb:])).unbind(0) for x in xs))])
+    return out.reshape(lead + tuple(out.shape[1:]))
+
+
+def _dots(partials: torch.Tensor, lead) -> torch.Tensor:
+    """A dot from a launch's per-block partials, one per entry of the batch `lead`: an entry's partials are
+    contiguous and as many as its unbatched launch has, and are summed from a buffer of their own (a view at an
+    offset may sum in another order)."""
+    if not lead:
+        return partials.sum()
+    return per_entry(lambda e: e.clone().sum(), len(lead), partials.view(tuple(lead) + (-1,)))
+
+
+def _batch_dot(a: torch.Tensor, b: torch.Tensor, ndim: int) -> torch.Tensor:
+    """⟨a, b⟩ over the `ndim` trailing spatial axes, one per entry of the leading axes."""
+    return per_entry(lambda x, y: torch.sum(x * y), a.ndim - ndim, a, b)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -252,11 +293,14 @@ MASKED_RUN = 4  # K1m's cells a run: 16 bytes of each float32 mask, in either dt
 _CHUNKS = (64, 32, 16, 8, 4, 2, 1)
 
 
-def _march_plan(runs: int, rows: int, planes: int, steps, threads_per_sm: int, chunk: Optional[int]) -> dict:
+def _march_plan(runs: int, rows: int, planes: int, steps, threads_per_sm: int, chunk: Optional[int],
+                batch: int = 1) -> dict:
     """A march kernel's blocks: bx threads along z (a power of two up to a
     warp, so that a warp holds whole rows) by `by` rows, a whole number of
     warps and at most `MARCH_THREADS`, with no more rows than the field
-    needs; each block marches over `chunk` planes. The chunk minimises the
+    needs; each block marches over `chunk` planes of one of `batch` entries
+    (the grid's z axis holds each entry's chunks in turn: an entry's blocks
+    are those of its unbatched launch). The chunk minimises the
     estimated plane steps in series — a block's own, `steps(c)` (its halo
     planes included), times the waves of blocks the SMs run, a wave being
     the blocks they hold at once (a last wave that is partly empty takes a
@@ -277,7 +321,7 @@ def _march_plan(runs: int, rows: int, planes: int, steps, threads_per_sm: int, c
         chunk = min((c for c in _CHUNKS if c <= max(planes, 1)), key=cost)
     elif chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    grid = (-(-runs // bx), -(-rows // by), -(-planes // chunk))
+    grid = (-(-runs // bx), -(-rows // by), batch * -(-planes // chunk))
     return dict(block=(bx, by), chunk=chunk, grid=grid, blocks=grid[0] * grid[1] * grid[2])
 
 
@@ -287,7 +331,7 @@ def _rows_aligned(Z: int, dtypes) -> bool:
 
 @functools.lru_cache(maxsize=256)
 def stencil_plan(shape: Sequence[int], p_dtype: torch.dtype, b_dtype: Optional[torch.dtype] = None,
-                 aligned: bool = True, chunk: Optional[int] = None, form: str = 'plain') -> dict:
+                 aligned: bool = True, chunk: Optional[int] = None, form: str = 'plain', batch: int = 1) -> dict:
     """K1's launch for a 3D field of `shape` stored as ``p_dtype``
     (``b_dtype``: b's, where the epilogue reads it) in one of its ``form``s:
     'plain' (the boundary profiles), or K1m's 'active' (the active cells
@@ -302,8 +346,9 @@ def stencil_plan(shape: Sequence[int], p_dtype: torch.dtype, b_dtype: Optional[t
     (unmasked: Z·itemsize of p and b a multiple of 16; masked: Z a multiple
     of the run; the tensors ``aligned``), else 'scalar' (the same threads,
     one value at a time, the ragged tail masked). Returns the route, the run,
-    the block (bx, by), the chunk, the grid (z runs, y rows, x chunks), the
-    number of blocks and of the dot's partials (one a block). Cached (a few
+    the block (bx, by), the chunk, the grid (z runs, y rows, x chunks of each
+    of `batch` entries), the number of blocks and of the dot's partials (one
+    a block, an entry's contiguous). Cached (a few
     launches a CG iteration ask for the same few plans): `shape` is a tuple
     or a `torch.Size`, and the returned dict is shared, not to be modified."""
     X, Y, Z = (int(n) for n in shape)
@@ -315,14 +360,14 @@ def stencil_plan(shape: Sequence[int], p_dtype: torch.dtype, b_dtype: Optional[t
     else:
         run = MASKED_RUN
         vector = aligned and Z % run == 0
-    plan = _march_plan(-(-Z // run), Y, X, lambda c: c + 2, _STENCIL_THREADS_PER_SM[form], chunk)
+    plan = _march_plan(-(-Z // run), Y, X, lambda c: c + 2, _STENCIL_THREADS_PER_SM[form], chunk, batch)
     return dict(route='vector' if vector else 'scalar', run=run, partials=plan['blocks'], **plan)
 
 
 @functools.lru_cache(maxsize=256)
 def restrict_plan(shape: Sequence[int], u_dtype: torch.dtype, b_dtype: torch.dtype, aligned: bool = True,
-                  chunk: Optional[int] = None) -> dict:
-    """K3's launch for a fine field of `shape` (all even), u stored as
+                  chunk: Optional[int] = None, batch: int = 1) -> dict:
+    """K3's launch for `batch` fine fields of `shape` (all even), u stored as
     ``u_dtype`` and b as ``b_dtype``.
 
     A thread owns a run of coarse cells along z (``run``: 2 float32 or 4
@@ -337,7 +382,8 @@ def restrict_plan(shape: Sequence[int], u_dtype: torch.dtype, b_dtype: torch.dty
         raise ValueError(f"residual_restrict needs even sizes, got {tuple(shape)}")
     run = 8 // u_dtype.itemsize
     vector = aligned and _rows_aligned(Z, (u_dtype, b_dtype))
-    plan = _march_plan(-(-(Z // 2) // run), Y // 2, X // 2, lambda c: 2 * c + 2, _RESTRICT_THREADS_PER_SM, chunk)
+    plan = _march_plan(-(-(Z // 2) // run), Y // 2, X // 2, lambda c: 2 * c + 2, _RESTRICT_THREADS_PER_SM, chunk,
+                       batch)
     return dict(route='vector' if vector else 'scalar', run=run, **plan)
 
 
@@ -362,7 +408,9 @@ def poisson_apply(p: torch.Tensor, inv_dx2: Sequence[float], bc: Sequence[Tuple[
     `stage_masks`; where ``active`` is 0 the result is p itself.
 
     Two spatial axes: PyTorch operations on any device (module docstring). On
-    CUDA in 3D: one field, masks of its shape or broadcastable to it."""
+    CUDA in 3D: one launch for p and its leading batch axes (the dot one per
+    entry); the masked forms take one field, masks of its shape or
+    broadcastable to it."""
     if mode not in _EPILOGUE:
         raise ValueError(mode)
     if len(bc) == 2:
@@ -381,7 +429,7 @@ def _poisson_apply_plain(p, inv_dx2, bc, mA_list=None, c0=None, active=None, b=N
     pf = p.to(dt)
     out = _apply_plain(pf, inv_dx2, bc, mA_list, c0, active,
                        None if b is None else b.to(dt), mode, omega_over_diag)
-    dot = torch.sum(pf * out) if with_dot else None
+    dot = _batch_dot(pf, out, len(bc)) if with_dot else None
     out = out.to(p.dtype)
     return (out, dot) if with_dot else out
 
@@ -400,6 +448,10 @@ def _stencil_cuda(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag,
     _build.refuse_grad('poisson_stencil', p, b, c0, active, *(mA_list or ()))
     _check_bc(bc)
     _check_field('p', p)
+    lead, nb = tuple(p.shape[:-3]), _n_entries(p)
+    if nb != 1 and (mA_list is not None or active is not None):
+        raise NotImplementedError("a batch of masked systems (obstacles, active cells) comes with a later slice of "
+                                  "the port: K1's masked forms take one field")
     masks = [None] * 5
     if mA_list is not None:
         if len(mA_list) != 3:
@@ -416,13 +468,13 @@ def _stencil_cuda(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag,
     import ctypes
     lib = _lib()
     out = torch.empty_like(p)
-    g = _grid(p.shape, inv_dx2, bc)
+    g = _grid(p.shape[-3:], inv_dx2, bc, nb)
     b_read = b if mode != 'matvec' else None
     b_dt = _DTYPE_CODE[b_read.dtype] if b_read is not None else 0
     w = float(np.float32(omega_over_diag or 0.0))
     form = 'coeffs' if mA_list is not None else 'active' if active is not None else 'plain'
-    plan = stencil_plan(p.shape, p.dtype, None if b_read is None else b_read.dtype, _aligned(p, out, b_read, *masks),
-                        chunk, form)
+    plan = stencil_plan(p.shape[-3:], p.dtype, None if b_read is None else b_read.dtype,
+                        _aligned(p, out, b_read, *masks), chunk, form, nb)
     partials = torch.empty(plan['partials'], dtype=torch.float32, device=p.device) if with_dot else None
     err = lib.stencil(p.data_ptr(), _DTYPE_CODE[p.dtype], _ptr(b_read), b_dt, *(_ptr(m) for m in masks),
                       out.data_ptr(), _ptr(partials), ctypes.byref(g), _EPILOGUE[mode], w,
@@ -435,7 +487,7 @@ def _stencil_cuda(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag,
     if mA_list is not None:
         _build.LAUNCHES['poisson_stencil_coeffs'] += 1  # of those, the launches with coefficient arrays (obstacles)
     if with_dot:
-        return out, partials.sum()
+        return out, _dots(partials, lead)
     return out
 
 
@@ -455,8 +507,9 @@ def poisson_smooth(u: Optional[torch.Tensor], b: torch.Tensor,
     the V-cycle's last fine post-smooth.
 
     Two spatial axes: PyTorch operations on any device. On CUDA in 3D one
-    kernel launch for up to three sweeps, the zero-init sweep among them; a
-    longer smooth chains launches of three (`smooth_plan`)."""
+    kernel launch for up to three sweeps of b and its leading batch axes, the
+    zero-init sweep among them (the dot one per entry); a longer smooth chains
+    launches of three (`smooth_plan`)."""
     if sweeps < 1:
         raise ValueError(f"sweeps must be >= 1, got {sweeps}")
     if u is None and not zero_init:
@@ -477,7 +530,7 @@ def _poisson_smooth_plain(u, b, inv_dx2, bc, omega_over_diag, sweeps, zero_init,
         uf, remaining = u.float(), sweeps
     for _ in range(remaining):
         uf = _apply_plain(uf, inv_dx2, bc, None, None, None, bf, 'jacobi', omega_over_diag)
-    dot = torch.sum(uf * bf) if emit_dot else None
+    dot = _batch_dot(uf, bf, len(bc)) if emit_dot else None
     out = uf.to(out_dtype)
     return (out, dot) if emit_dot else out
 
@@ -500,8 +553,11 @@ def _smooth_smem(stencil_sweeps: int, tile) -> int:
     return 4 * (3 * S + S + 1) * (ty + 2 * S) * (-(-(tz + 2 * S) // 4) * 4)
 
 
-def smooth_plan(shape: Sequence[int], sweeps: int, zero_init: bool, dtypes, chunk: Optional[int] = None) -> dict:
-    """K2's launches for one `poisson_smooth` of a 3D field of `shape`.
+def smooth_plan(shape: Sequence[int], sweeps: int, zero_init: bool, dtypes, chunk: Optional[int] = None,
+                batch: int = 1) -> dict:
+    """K2's launches for one `poisson_smooth` of `batch` 3D fields of `shape`
+    (the grid's z axis holds each entry's x chunks in turn, an entry's
+    blocks those of its unbatched launch).
 
     ``dtypes`` = (u's dtype or None, b's dtype, the result's dtype). The smooth
     is a chain of launches of at most 3 sweeps: the first takes u (or forms
@@ -546,7 +602,7 @@ def smooth_plan(shape: Sequence[int], sweeps: int, zero_init: bool, dtypes, chun
         chunk = min((c for c in (64, 32, 16, 8, 4, 2, 1) if c <= max(X, 1)), key=cost)
     elif chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    grid = (-(-Z // tz), -(-Y // ty), -(-X // chunk))
+    grid = (-(-Z // tz), -(-Y // ty), batch * -(-X // chunk))
     return dict(tile=tile, chunk=chunk, grid=grid, blocks=grid[0] * grid[1] * grid[2], smem=smem,
                 launches=launches)
 
@@ -555,14 +611,16 @@ def _smooth_cuda(u, b, inv_dx2, bc, omega_over_diag, sweeps, zero_init, out_dtyp
     _build.refuse_grad('jacobi_sweeps', u, b)
     _check_bc(bc)
     _check_field('b', b)
+    lead, nb = tuple(b.shape[:-3]), _n_entries(b)
     if not zero_init:
         _check_field('u', u, b.shape)
     if out_dtype not in _DTYPE_CODE:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     import ctypes
     lib = _lib()
-    plan = smooth_plan(b.shape, sweeps, zero_init, (None if zero_init else u.dtype, b.dtype, out_dtype), chunk)
-    g = _grid(b.shape, inv_dx2, bc)
+    plan = smooth_plan(b.shape[-3:], sweeps, zero_init, (None if zero_init else u.dtype, b.dtype, out_dtype), chunk,
+                       nb)
+    g = _grid(b.shape[-3:], inv_dx2, bc, nb)
     w = float(np.float32(omega_over_diag))
     stream = _build.stream_of(b)
     cur = u
@@ -580,7 +638,7 @@ def _smooth_cuda(u, b, inv_dx2, bc, omega_over_diag, sweeps, zero_init, out_dtyp
         _build.LAUNCHES['jacobi_sweeps'] += 1
         cur = out
     if emit_dot:
-        return cur, partials.sum()
+        return cur, _dots(partials, lead)
     return cur
 
 
@@ -591,8 +649,8 @@ def _smooth_cuda(u, b, inv_dx2, bc, omega_over_diag, sweeps, zero_init, out_dtyp
 def residual_restrict(u: torch.Tensor, b: torch.Tensor, inv_dx2: Sequence[float],
                       bc: Sequence[Tuple[str, str]]) -> torch.Tensor:
     """restrict_mean(b − A·u) over the spatial axes, in u's dtype. u, b:
-    (X, Y, Z) or (X, Y) with even sizes; the 2D form is PyTorch operations on
-    any device."""
+    (*batch, X, Y, Z) or (*batch, X, Y) with even sizes (one launch for the
+    batch on CUDA); the 2D form is PyTorch operations on any device."""
     if u.is_cuda and len(bc) != 2:
         return _residual_restrict_cuda(u, b, inv_dx2, bc)
     return _residual_restrict_plain(u, b, inv_dx2, bc)
@@ -605,9 +663,10 @@ def _residual_restrict_cuda(u, b, inv_dx2, bc, chunk=None):
     _check_field('b', b, u.shape)
     import ctypes
     lib = _lib()
-    out = torch.empty(tuple(n // 2 for n in u.shape), dtype=u.dtype, device=u.device)
-    plan = restrict_plan(u.shape, u.dtype, b.dtype, _aligned(u, b, out), chunk)
-    g = _grid(u.shape, inv_dx2, bc)
+    nb = _n_entries(u)
+    out = torch.empty(tuple(u.shape[:-3]) + tuple(n // 2 for n in u.shape[-3:]), dtype=u.dtype, device=u.device)
+    plan = restrict_plan(u.shape[-3:], u.dtype, b.dtype, _aligned(u, b, out), chunk, nb)
+    g = _grid(u.shape[-3:], inv_dx2, bc, nb)
     err = lib.residual_restrict(u.data_ptr(), _DTYPE_CODE[u.dtype], b.data_ptr(), _DTYPE_CODE[b.dtype],
                                 out.data_ptr(), ctypes.byref(g), int(plan['route'] == 'vector'), *plan['block'],
                                 plan['chunk'], plan['blocks'], _build.stream_of(u))

@@ -8,7 +8,8 @@
   `_prolong_xla`) on the CPU. Arithmetic is float32, stored in u's dtype.
   The kernel is 3D, as the TPU kernel is; with ``ndim=2`` the wrappers
   compute with `_prolong_plain` on any device, as the JAX package computes
-  through XLA there. That choice is made on `ndim` alone. K4 has no
+  through XLA there. That choice is made on `ndim` alone. Leading batch
+  axes are independent fields: on CUDA one launch covers them all. K4 has no
   backward: on CUDA the wrapper raises when grad mode is on and an input
   requires grad (`_build.refuse_grad`).
 """
@@ -43,23 +44,27 @@ def _prolong_plain(c: torch.Tensor, ndim: int) -> torch.Tensor:
 def _lib():
     import ctypes
     P, I = ctypes.c_void_p, ctypes.c_int
-    return _build.library('transfer', {'prolong_add': [P, P, P, I, I, I, I, P]})
+    return _build.library('transfer', {'prolong_add': [P, P, P, I, I, I, I, I, P]})
 
 
 def _prolong_cuda(c: torch.Tensor, u: Optional[torch.Tensor]) -> torch.Tensor:
     _build.refuse_grad('prolong_add', c, u)
-    if not c.is_cuda or c.dtype not in _DTYPE_CODE or c.ndim != 3 or not c.is_contiguous():
-        raise ValueError(f"prolong kernel takes one contiguous 3D float32/bfloat16 CUDA field, got "
-                         f"{c.dtype} {tuple(c.shape)} on {c.device}")
-    fine = tuple(2 * n for n in c.shape)
+    if not c.is_cuda or c.dtype not in _DTYPE_CODE or c.ndim < 3 or not c.is_contiguous():
+        raise ValueError(f"prolong kernel takes a contiguous 3D float32/bfloat16 CUDA field (leading batch axes "
+                         f"allowed), got {c.dtype} {tuple(c.shape)} on {c.device}")
+    lead = tuple(c.shape[:-3])
+    fine = lead + tuple(2 * n for n in c.shape[-3:])
     if u is not None:
         if not u.is_cuda or u.dtype != c.dtype or tuple(u.shape) != fine or not u.is_contiguous():
             raise ValueError(f"u must be a contiguous CUDA {c.dtype} tensor of shape {fine}, got "
                              f"{u.dtype} {tuple(u.shape)} on {u.device}")
     lib = _lib()
     out = torch.empty(fine, dtype=c.dtype, device=c.device)
+    nb = 1
+    for n in lead:
+        nb *= n
     err = lib.prolong_add(c.data_ptr(), None if u is None else u.data_ptr(), out.data_ptr(),
-                          _DTYPE_CODE[c.dtype], *fine, _build.stream_of(c))
+                          _DTYPE_CODE[c.dtype], nb, *fine[-3:], _build.stream_of(c))
     _build.check(lib, err, 'prolong_add')
     _build.LAUNCHES['prolong_add'] += 1
     return out

@@ -10,9 +10,12 @@ layer has (the closed box or the periodic box); any other staggered velocity
 raises NotImplementedError. A centred velocity (Burgers' equation advects
 itself), which the array layer does not take, goes through the displacement
 dt·v sampled at the field's points, divided by the cell size, and the same
-window interpolation, one array per component. `substeps='auto'`, the
-gather lookups (`max_cells=None`) and the integrators other than `euler` come
-with a later slice.
+window interpolation, one array per component. Batch dims of the field,
+the velocity or both become leading axes of those calls, each input with
+the batch dims it has (size 1 for the others): one launch a lookup for
+the whole batch, an input without a batch shared by every entry.
+`substeps='auto'`, the gather lookups (`max_cells=None`) and the
+integrators other than `euler` come with a later slice.
 
 `differential` (`:73-106`) is the term −(v·∇)u of a PDE's right-hand side,
 through the Field layer's `spatial_gradient` of orders 2, 4 and 6 on a grid,
@@ -29,7 +32,9 @@ uniform grid advected by a staggered velocity of the same resolution.
 
 A field is a tensor (centred) or a sequence of face-component tensors
 (staggered, in the layout of `field/_resample.py`); the velocity is always
-staggered. A staggered grid's extrapolation may be a sequence, one entry per
+staggered. Either may carry leading batch axes, which broadcast (the
+grid's axes are the trailing ones, as many as the velocity has
+components). A staggered grid's extrapolation may be a sequence, one entry per
 component (the lid of a cavity moves one component's wall value only). The backtrace displacements are built per axis from the velocity
 arrays, unscaled — the own component of a staggered target aliases its
 velocity array, the others are 2-point averages per shifted axis — and the
@@ -51,13 +56,15 @@ from typing import Sequence, Tuple, Union
 import torch
 
 from ..field._field import Field, face_components, face_values
-from ..field._field_math import _array_layout, _dx_tuple, _layout, _native_extrap, _plain_values, spatial_gradient
+from ..field._field_math import (_array_layout, _batch_dims, _batch_tensor, _dx_tuple, _layout, _native_extrap,
+                                 spatial_gradient)
 from ..field._point_cloud import PointCloud
 from ..field._resample import sample, sample_grid_at_centers, sample_staggered_at_points, staggered_point_arrays
 from ..geom import Geometry, Point
 from ..geom._geom import flat_points
 from ..math import Tensor, channel, dual, stack, _ops as ops
 from ..math._nd import PERIODIC, Extrapolation, component_extrapolation, shift_window_interp
+from ..math._shape import merge_shapes
 
 __all__ = ['euler', 'rk4', 'finite_rk4', 'advect', 'points', 'differential', 'finite_difference', 'semi_lagrangian', 'mac_cormack',
            'max_displacement_cells',
@@ -88,7 +95,8 @@ def _euler_disp_natives(staggered: bool, velocity: Sequence[torch.Tensor], dt_si
 
     def disp_at(t):
         return [velocity[s] if s == t else
-                sample_grid_at_centers(velocity[s], s, t, component_extrapolation(velocity_extrap, s), periodic)
+                sample_grid_at_centers(velocity[s], s, t, component_extrapolation(velocity_extrap, s), periodic,
+                                       ndim)
                 for s in range(ndim)]
 
     if staggered:
@@ -122,10 +130,9 @@ def _check(field: Grid, velocity, max_cells, substeps):
                                   f"('auto' comes with a later slice)")
     ndim = len(velocity)
     comps = list(field) if _is_staggered(field) else [field]
-    if (_is_staggered(field) and len(comps) != ndim) or any(c.ndim != ndim for c in comps):
-        raise NotImplementedError(
-            f"field of shape(s) {[tuple(c.shape) for c in comps]} with a {ndim}D velocity: leading batch "
-            f"axes come with the batched-smoke slice of the port")
+    if (_is_staggered(field) and len(comps) != ndim) or any(c.ndim < ndim for c in (*comps, *velocity)):
+        raise ValueError(f"field of shape(s) {[tuple(c.shape) for c in comps]} with a {ndim}D velocity of "
+                         f"shape(s) {[tuple(v.shape) for v in velocity]}")
 
 
 def semi_lagrangian_native(field: Grid, velocity: Sequence[torch.Tensor], dt: float, dx, extrap,
@@ -321,11 +328,22 @@ def _check_field_step(field, max_cells, substeps, integrator):
         raise NotImplementedError("integrators other than `euler` come with a later slice of the port")
 
 
-def _field_disp_natives(field, velocity, dt_signed):
+def _advect_batch(field, velocity):
+    """The batch dims of an advection of `field` by `velocity`: both Fields'
+    batch dims, merged (NotImplementedError for values with dims other than
+    the grid's and batch dims)."""
+    names = field.resolution.names
+    tensors = lambda f: face_components(f.values) if f.is_staggered else [f.values]  # noqa: E731
+    return merge_shapes(_batch_dims(tensors(field), names, 'advection'),
+                        _batch_dims(tensors(velocity), names, 'advection'))
+
+
+def _field_disp_natives(field, velocity, dt_signed, batch):
     """`_euler_disp_natives` of the array layer for a staggered velocity
-    Field: (arrays, scales). The velocity lies on the field's grid in the
-    closed box or the periodic box, and a staggered field has its layout;
-    NotImplementedError otherwise."""
+    Field: (arrays, scales), the arrays (*batch, *grid) with the velocity's
+    own batch dims of `batch` (size 1 for the others). The velocity lies on
+    the field's grid in the closed box or the periodic box, and a staggered
+    field has its layout; NotImplementedError otherwise."""
     names = field.resolution.names
     if velocity.geometry != field.geometry:
         raise NotImplementedError("advection by a staggered velocity on another grid than the field's comes with "
@@ -336,21 +354,18 @@ def _field_disp_natives(field, velocity, dt_signed):
                                   f"{velocity.boundary!r}: one face layout for both is ported")
     v_ext = [_native_extrap(velocity.boundary[{'vector': d}], names) for d in names]
     comps = face_components(velocity.values)
-    values = face_components(field.values) if field.is_staggered else (field.values,)
-    if not all(_plain_values(t, names) for t in (*comps, *values)):
-        raise NotImplementedError("advection of values with dims beyond the grid's by a staggered velocity comes "
-                                  "with a later slice of the port")
-    return _euler_disp_natives(field.is_staggered, [c.torch(names) for c in comps], dt_signed, _dx_tuple(field),
+    order = batch.names + tuple(names)
+    return _euler_disp_natives(field.is_staggered, [c.torch(order) for c in comps], dt_signed, _dx_tuple(field),
                                layout == 'periodic', v_ext)
 
 
-def _wrap_like(field, arrays):
-    """Result arrays (one per component of a staggered field) as values of `field`'s shape."""
+def _wrap_like(field, arrays, batch):
+    """Result arrays (*batch, *grid) (one per component of a staggered field) as values of `field`'s grid."""
     names = field.resolution.names
     if field.is_staggered:
-        return face_values([Tensor(a, c.shape.only(names, reorder=True)) for a, c in
+        return face_values([_batch_tensor(a, batch, c.shape.only(names, reorder=True)) for a, c in
                             zip(arrays, face_components(field.values))], field.values)
-    return Tensor(arrays, field.values.shape.only(names, reorder=True))
+    return _batch_tensor(arrays, batch, field.values.shape.only(names, reorder=True))
 
 
 def _field_extrap(field):
@@ -360,16 +375,17 @@ def _field_extrap(field):
     return _native_extrap(field.boundary, names)
 
 
-def _window_values(field, fast, max_cells, extrema=False, negate=False):
-    """`_window_interp_field_native` on the Field's arrays; values of `field`'s
-    shape, or (values, lower, upper) with `extrema`."""
-    names = field.resolution.names
-    arrays = tuple(c.torch(names) for c in face_components(field.values)) if field.is_staggered \
-        else field.values.torch(names)
+def _window_values(field, fast, batch, max_cells, extrema=False, negate=False):
+    """`_window_interp_field_native` on the Field's arrays (*batch, *grid);
+    values of `field`'s grid and `batch`, or (values, lower, upper) with
+    `extrema`."""
+    order = batch.names + tuple(field.resolution.names)
+    arrays = tuple(c.torch(order) for c in face_components(field.values)) if field.is_staggered \
+        else field.values.torch(order)
     result = _window_interp_field_native(arrays, fast, _field_extrap(field), max_cells, extrema, negate)
     if extrema:
-        return tuple(_wrap_like(field, r) for r in result)
-    return _wrap_like(field, result)
+        return tuple(_wrap_like(field, r, batch) for r in result)
+    return _wrap_like(field, result, batch)
 
 
 def _window_interp_field(field, displacement, max_cells: int, extrema=False):
@@ -382,18 +398,24 @@ def _window_interp_field(field, displacement, max_cells: int, extrema=False):
     def window(values, disp, extrap):
         cells = disp / field.dx
         grid_shape = values.shape.only(names, reorder=True)
-        channels = values.shape.without(names)
+        channels = values.shape.without(names).without(values.shape.batch)
+        batch = merge_shapes(values.shape.batch, cells.shape.batch)
+        order = batch.names + tuple(names)
         # the window kernels take contiguous arrays: a component of values laid out with `vector` last is copied
-        disps = [cells.vector[n].torch(names).expand(grid_shape.sizes).contiguous() for n in names]
+        disps = []
+        for n in names:
+            c = cells.vector[n].torch(order)
+            disps.append(c.expand(tuple(c.shape[:batch.rank]) + tuple(grid_shape.sizes)).contiguous())
         if channels.rank > 1 or (channels and not channels.channel):
-            raise NotImplementedError(f"advection of values {values.shape}: one channel dim at most is ported")
+            raise NotImplementedError(f"advection of values {values.shape}: batch dims and one channel dim at most "
+                                      f"are ported")
         parts = [values] if not channels else [values[{channels.name: i}] for i in range(channels.size)]
-        outs = [shift_window_interp(p.torch(names).contiguous(), disps, extrap, max_cells, compute_extrema=extrema)
+        outs = [shift_window_interp(p.torch(order).contiguous(), disps, extrap, max_cells, compute_extrema=extrema)
                 for p in parts]
         outs = [o if extrema else (o,) for o in outs]
         result = []
         for k in range(3 if extrema else 1):
-            pieces = [Tensor(o[k], grid_shape) for o in outs]
+            pieces = [_batch_tensor(o[k], batch, grid_shape) for o in outs]
             result.append(pieces[0] if not channels else stack(pieces, channels))
         return tuple(result) if extrema else result[0]
 
@@ -417,7 +439,9 @@ def semi_lagrangian(field, velocity, dt: float, integrator=euler, max_cells: int
             field = semi_lagrangian(field, velocity, dt / substeps, integrator, max_cells)
         return field
     if velocity.is_staggered:
-        return field.with_values(_window_values(field, _field_disp_natives(field, velocity, -dt), max_cells))
+        batch = _advect_batch(field, velocity)
+        return field.with_values(_window_values(field, _field_disp_natives(field, velocity, -dt, batch), batch,
+                                                max_cells))
     disp = -dt * _sample_velocity(velocity, field)
     return field.with_values(_window_interp_field(field, disp, max_cells))
 
@@ -433,10 +457,11 @@ def mac_cormack(field, velocity, dt: float, correction_strength=1.0, integrator=
             field = mac_cormack(field, velocity, dt / substeps, correction_strength, integrator, max_cells)
         return field
     if velocity.is_staggered:
-        fast = _field_disp_natives(field, velocity, -dt)
-        fwd_vals, lim_lo, lim_up = _window_values(field, fast, max_cells, extrema=True)
+        batch = _advect_batch(field, velocity)
+        fast = _field_disp_natives(field, velocity, -dt, batch)
+        fwd_vals, lim_lo, lim_up = _window_values(field, fast, batch, max_cells, extrema=True)
         fwd_adv = field.with_values(fwd_vals)
-        bwd_adv = fwd_adv.with_values(_window_values(fwd_adv, fast, max_cells, negate=True))
+        bwd_adv = fwd_adv.with_values(_window_values(fwd_adv, fast, batch, max_cells, negate=True))
     else:
         v0 = _sample_velocity(velocity, field)
         fwd_vals, lim_lo, lim_up = _window_interp_field(field, -dt * v0, max_cells, extrema=True)
@@ -456,7 +481,7 @@ def max_displacement_cells(field, velocity, dt, integrator=euler):
     velocity's device. At most max_cells certifies that the window is exact."""
     _check_field_step(field, 1, 1, integrator)
     if velocity.is_staggered:
-        disps, scales = _field_disp_natives(field, velocity, -dt)
+        disps, scales = _field_disp_natives(field, velocity, -dt, _advect_batch(field, velocity))
         lists = disps if field.is_staggered else [disps]
         return torch.stack([torch.max(torch.abs(arr)) * abs(scales[axis]) for per_axis in lists
                             for axis, arr in enumerate(per_axis)]).max()

@@ -63,6 +63,15 @@ grid's lower corner: the Field layer shifts the obstacles there.
 2D or 3D: the kernels are 3D; a 2D solve runs the same code through the
 wrappers' PyTorch route (`ops/poisson.py`).
 
+Batches: the velocity's components (and the previous pressure) may carry
+leading batch axes, the JAX package's batch dims, each entry its own system.
+All entries run through one CG loop (`math._solve.cg` with nb axes: a
+converged system frozen while the others go on, the loop ending when all
+have converged), each with its own balanced divergence, tolerance and mean
+removed from every preconditioner output; every kernel launch (K1–K4) covers
+the whole batch. A batch of masked systems (obstacles, `active`) raises
+NotImplementedError: it comes with a later slice.
+
 Every projection is differentiable in the velocity: its solve is
 differentiated implicitly (`math/_solve.py::implicit_solve`), so a backward
 runs one adjoint solve on the same kernels (K1, K1m, K2–K4) under
@@ -80,14 +89,16 @@ import torch
 from ..field._angular_velocity import angular_velocity_at_faces
 from ..field._field import Field, face_components, face_values
 from ..field._field_math import (
-    _dx_tuple, _face_layout, _faces, _per_axis, _plain_values, _side_ext, divergence, divergence_native, laplace,
+    _batch_dims, _batch_native, _batch_tensor, _dx_tuple, _face_layout, _faces, _per_axis, _side_ext, divergence,
+    divergence_native, laplace,
     mean as field_mean, safe_mul_native, spatial_gradient, spatial_gradient_native,
     stagger, stagger_native, stored_faces, where as field_where, is_finite as field_is_finite,
 )
 from ..field._resample import cell_grid, geometry_mask
 from ..geom._box import Box, Cuboid, box_push
 from ..geom._geom import Geometry, host_vec, union, vector_tensor
-from ..math import EMPTY_SHAPE, Tensor, copy_solve, extrapolation, jit_compile_linear, solve_linear, wrap
+from ..math import EMPTY_SHAPE, Shape, Tensor, copy_solve, extrapolation, jit_compile_linear, solve_linear, wrap
+from ..math._shape import merge_shapes
 from ..math import _ops as ops
 from ..math._extrapolation import (
     ConstantExtrapolation, _AntiReflectExtrapolation, _AntiSymmetricExtrapolation, _BoundaryExtrapolation,
@@ -202,9 +213,11 @@ def _accessible_sides(layout) -> Extrapolation:
 
 def _resolution(velocity: Sequence[torch.Tensor], faces) -> Tuple[int, ...]:
     """The cells of a staggered velocity's domain: component 0 stores
-    N + (outer faces stored) − 1 faces along its own axis."""
-    lo, up = stored_faces(_faces(faces, len(velocity))[0])
-    return tuple(n + (1 - int(lo) - int(up) if a == 0 else 0) for a, n in enumerate(velocity[0].shape))
+    N + (outer faces stored) − 1 faces along its own axis (the grid's axes
+    are the trailing ones)."""
+    nd = len(velocity)
+    lo, up = stored_faces(_faces(faces, nd)[0])
+    return tuple(n + (1 - int(lo) - int(up) if a == 0 else 0) for a, n in enumerate(velocity[0].shape[-nd:]))
 
 
 def apply_boundary_conditions_native(velocity: Sequence[torch.Tensor], obstacles, dx,
@@ -250,19 +263,20 @@ def _pressure_ghosts(bcs):
                      tuple(0.0 if m == GHOST0 else BOUNDARY for m in (lo, hi)) for lo, hi in bcs])
 
 
-def _balance_divergence(div: torch.Tensor, active: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Subtract the mean so the singular Poisson system is solvable; with
-    `active`, spread it over the active cells only."""
+def _balance_divergence(div: torch.Tensor, active: Optional[torch.Tensor] = None, nb: int = 0) -> torch.Tensor:
+    """Subtract the mean so the singular Poisson system is solvable, per
+    system of the `nb` leading axes; with `active`, spread it over the active
+    cells only."""
     if active is not None:
         return div - active * (torch.mean(div) / torch.mean(active))
-    return div - torch.mean(div)
+    return sub_mean(div, nb)
 
 
-def _grid_multigrid_preconditioner(resolution, dx, bcs, device, singular: bool = True):
+def _grid_multigrid_preconditioner(resolution, dx, bcs, device, singular: bool = True, nb: int = 0):
     """The V-cycle preconditioner M(r) -> (z, None) (`dx`: one cell size, or
-    one per axis), z projected onto zero mean for a `singular` system (rank
-    deficiency 1), or None below 16 cells per axis, where plain CG converges
-    in a handful of iterations."""
+    one per axis), z projected onto zero mean (per system of the `nb` leading
+    axes) for a `singular` system (rank deficiency 1), or None below 16 cells
+    per axis, where plain CG converges in a handful of iterations."""
     if max(resolution) < 16:
         return None
     vcycle = make_poisson_vcycle(tuple(resolution), _per_axis(dx, len(resolution)), bcs, device)
@@ -276,7 +290,7 @@ def _grid_multigrid_preconditioner(resolution, dx, bcs, device, singular: bool =
         # and α grew without bound: the card's CG diverged (2D at 1024² and
         # 4096², 3D at 256³).
         z, _ = vcycle(r)
-        return (sub_mean(z) if singular else z), None
+        return (sub_mean(z, nb) if singular else z), None
 
     return preconditioner
 
@@ -305,16 +319,18 @@ def _stencil_matrix(bcs):
     3, or along a periodic axis the smallest divisor ≥ 3 of its size), each
     row's entries read off the probes of its neighbours' colours. Exact, as
     the JAX package's A of the identity's columns, in Π k_d matvecs (9 in
-    2D, 27 in 3D) through the operator's own kernel."""
+    2D, 27 in 3D) through the operator's own kernel. With `nb` leading batch
+    axes the one matrix serves every system: the unmasked operator is the
+    same for all."""
     def matrix(A, b, nb):
-        shape, dev = tuple(b.shape), b.device
+        shape, dev = tuple(b.shape[nb:]), b.device
         ks = [next(k for k in range(min(3, n), n + 1) if bc[0] != PERIODIC or n % k == 0) for n, bc in zip(shape, bcs)]
         grids = torch.meshgrid(*[torch.arange(n, device=dev) for n in shape], indexing='ij')
         color = torch.zeros(shape, dtype=torch.int64, device=dev)
         for g, k in zip(grids, ks):
             color = color * k + g % k
-        probes = torch.stack([A((color == c).to(b.dtype))[0] for c in range(int(np.prod(ks)))]).reshape(-1, b.numel())
-        n = b.numel()
+        n = int(np.prod(shape))
+        probes = torch.stack([A((color == c).to(b.dtype))[0] for c in range(int(np.prod(ks)))]).reshape(-1, n)
         rows = torch.arange(n, device=dev)
         mat = torch.zeros((n, n), dtype=b.dtype, device=dev)
         offsets = [None] + [(d, s) for d in range(len(shape)) for s in (-1, 1)]
@@ -459,39 +475,41 @@ def _project_masked(velocity, div, pressure, active, hard_bcs, singular, dx, inv
     return tuple(v - g for v, g in zip(velocity, grad)), p, result
 
 
-def _preconditioner(method: str, preconditioner, singular: bool, default: Callable):
+def _preconditioner(method: str, preconditioner, singular: bool, default: Callable, nb: int = 0):
     """JAX's rule (`phiflow_tpu/physics/fluid.py:220-254`): the projection's
     own preconditioner (`default()`) for None / 'auto' / 'multigrid' under
-    the CG family; a callable M(r) -> z as given (its output without its mean
-    for a `singular` system); no preconditioner otherwise ('ilu' included)."""
+    the CG family; a callable M(r) -> z as given (its output without its mean,
+    per system of the `nb` leading axes, for a `singular` system); no
+    preconditioner otherwise ('ilu' included)."""
     if preconditioner in (None, 'auto', 'multigrid') and method in PRECONDITIONED_METHODS:
         return default()
     if callable(preconditioner):
         def M(r):
             z = preconditioner(r)
-            return (sub_mean(z) if singular else z), None
+            return (sub_mean(z, nb) if singular else z), None
         return M
     return None
 
 
 def _solve(A, rhs, x0, rel_tol, abs_tol, max_iterations, M, rank_deficient, null_space=None,
-           active=None, method: str = 'CG', bcs=None) -> SolveResult:
+           active=None, method: str = 'CG', bcs=None, nb: int = 0) -> SolveResult:
     """The solve's `method` on a pressure system (JAX's dispatch,
     `math._solve.krylov_of`; a direct solve through `_stencil_matrix`),
     differentiable implicitly (`implicit_solve`): the adjoint solve takes the
     same operator, preconditioner and tolerances, and records a SolveInfo on
-    the active `SolveTape`s."""
+    the active `SolveTape`s. `nb` leading batch axes hold independent
+    systems, solved in one loop."""
     solve = Solve(method, rel_tol, abs_tol, max_iterations=max_iterations)
     krylov = krylov_of(method)
     if krylov is None:
-        rerouted = reroute_direct(solve, rhs.numel())
+        rerouted = reroute_direct(solve, int(np.prod(rhs.shape[nb:])))
         if rerouted is not None:
             solve, krylov = rerouted, bicgstab
         else:
             krylov = Direct(_stencil_matrix(bcs), rank_deficient)
     return implicit_solve(krylov, A, rhs, x0, solve.rel_tol, solve.abs_tol, max_iterations, M,
                           rank_deficient=rank_deficient, null_space=null_space, active=active,
-                          on_adjoint=lambda r: record_adjoint(solve, r))
+                          on_adjoint=lambda r: record_adjoint(solve, r), nb=nb)
 
 
 def make_incompressible_native(velocity: Sequence[torch.Tensor], pressure: Optional[torch.Tensor], dx,
@@ -517,11 +535,25 @@ def make_incompressible_native(velocity: Sequence[torch.Tensor], pressure: Optio
     divergence is balanced and the constant removed. `method`: the solve's (JAX's dispatch); `preconditioner`
     by JAX's rule (`_preconditioner`): the V-cycle (K2–K4), or with masks
     `MASKED_PRECONDITIONER`'s, for the CG family; a callable on arrays.
+    Leading batch axes of the components and the pressure broadcast: one
+    system an entry, one CG loop (module docstring); the solve result's
+    `residual` has the batch's shape.
     Returns (velocity, pressure, solve result); not converging within
     max_iterations is not an error, as for the models' solves."""
     obstacles = _get_obstacles_for(obstacles)
-    layout = _faces(faces, len(velocity))
+    nd = len(velocity)
+    layout = _faces(faces, nd)
     resolution = _resolution(velocity, layout)
+    lead = tuple(torch.broadcast_shapes(*[v.shape[:-nd] for v in velocity],
+                                        *([] if pressure is None else [pressure.shape[:-nd]])))
+    nb = len(lead)
+    if nb:
+        if obstacles or active is not None:
+            raise NotImplementedError("a batch of masked systems (obstacles, active cells) comes with a later slice "
+                                      "of the port")
+        velocity = tuple(v.expand(lead + tuple(v.shape[-nd:])) for v in velocity)
+        if pressure is not None:
+            pressure = pressure.expand(lead + resolution).contiguous()
     bcs = pressure_modes(layout) if bcs is None else tuple(tuple(b) for b in bcs)
     h = _per_axis(dx, len(resolution))
     inv_dx2 = tuple(1.0 / (x * x) for x in h)
@@ -544,17 +576,18 @@ def make_incompressible_native(velocity: Sequence[torch.Tensor], pressure: Optio
             div = torch.where(torch.isfinite(div), div, torch.zeros_like(div))
         return _project_masked(velocity, div, pressure, active, hard_bcs, all_active and singular, dx, inv_dx2, bcs,
                                layout, rel_tol, abs_tol, max_iterations, method, preconditioner)
-    rhs = sub_mean(_balance_divergence(div)) if singular else div  # rank deficiency 1: project onto range(A)
+    # rank deficiency 1: project onto range(A)
+    rhs = sub_mean(_balance_divergence(div, nb=nb), nb) if singular else div
     x0 = torch.zeros_like(div) if pressure is None else pressure
     M = _preconditioner(method, preconditioner, singular,
-                        lambda: _grid_multigrid_preconditioner(resolution, h, bcs, div.device, singular))
+                        lambda: _grid_multigrid_preconditioner(resolution, h, bcs, div.device, singular, nb), nb)
 
     def A(p):
         return poisson_apply(p, inv_dx2, bcs, with_dot=True)
 
-    result = _solve(A, rhs, x0, rel_tol, abs_tol, max_iterations, M, singular, method=method, bcs=bcs)
+    result = _solve(A, rhs, x0, rel_tol, abs_tol, max_iterations, M, singular, method=method, bcs=bcs, nb=nb)
     p = result.x
-    grad = spatial_gradient_native(p, dx, faces=layout, extrap=_pressure_ghosts(bcs))
+    grad = spatial_gradient_native(p, dx, faces=layout, extrap=_pressure_ghosts(bcs), ndim=len(layout))
     velocity = tuple(v - g for v, g in zip(velocity, grad))
     return velocity, p, result
 
@@ -580,18 +613,16 @@ def boundary_push_native(positions: torch.Tensor, domain_size: Sequence[float], 
 # the Field layer
 # ---------------------------------------------------------------------------
 
-def _box_of(velocity) -> Tuple[tuple, tuple]:
-    """(`face_layout`, dx per axis) of a staggered velocity Field the array
-    layer covers: per axis periodic, or per side a wall (a scalar constant,
-    its normal velocity) or an open side (a stored outer face); values over
-    the grid dims."""
+def _box_of(velocity) -> Tuple[tuple, tuple, Shape]:
+    """(`face_layout`, dx per axis, batch dims) of a staggered velocity Field
+    the array layer covers: per axis periodic, or per side a wall (a scalar
+    constant, its normal velocity) or an open side (a stored outer face);
+    values over the grid dims and batch dims."""
     if not (velocity.is_grid and velocity.is_staggered):
         raise NotImplementedError("the array layer projects a staggered velocity on a grid")
     names = velocity.resolution.names
-    if not all(_plain_values(c, names) for c in face_components(velocity.values)):
-        raise NotImplementedError(f"velocity values {velocity.values.shape}: grid dims only are ported; batched "
-                                  f"projections come with a later slice of the port")
-    return _face_layout(velocity.boundary, names), _dx_tuple(velocity)
+    batch = _batch_dims(face_components(velocity.values), names, 'the projection')
+    return _face_layout(velocity.boundary, names), _dx_tuple(velocity), batch
 
 
 def _pressure_extrapolation(vext):
@@ -629,9 +660,10 @@ def _native_frame(obstacles, grid):
     return [o.shifted(-lower) for o in obstacles]
 
 
-def _component_values(velocity, arrays):
+def _component_values(velocity, arrays, batch=EMPTY_SHAPE):
+    """Face arrays ((*batch,) *grid) as the values of `velocity`'s grid."""
     names = velocity.resolution.names
-    return face_values([Tensor(a, c.shape.only(names, reorder=True))
+    return face_values([_batch_tensor(a, batch, c.shape.only(names, reorder=True))
                         for a, c in zip(arrays, face_components(velocity.values))], velocity.values)
 
 
@@ -704,7 +736,12 @@ def make_incompressible(velocity, obstacles=(), solve: Solve = Solve(), active=N
     the compact stencil on Fields; a velocity on a mesh by
     `_make_incompressible_mesh`. The cases the JAX package fails on raise:
     a staggered velocity at order > 2 or with the wide stencil, a centred
-    one with obstacles or `active`."""
+    one with obstacles or `active`. Batch dims: a staggered velocity's are
+    projected as one batch of systems (module docstring); with obstacles or
+    `active` (a batch of masked systems), and for a centred velocity or one
+    on a mesh, they raise NotImplementedError: later slices bring them."""
+    if velocity.values.shape.batch:
+        _refuse_batch(velocity, obstacles, active)
     if velocity.is_mesh:
         return _make_incompressible_mesh(velocity, obstacles, solve, active, order)
     if velocity.is_grid and velocity.is_centered:
@@ -720,7 +757,7 @@ def make_incompressible(velocity, obstacles=(), solve: Solve = Solve(), active=N
     if wide_stencil:
         raise NotImplementedError("the wide-stencil Laplacian of a staggered velocity: the JAX package's projection "
                                   "diverges there; the compact stencil is ported")
-    layout, dx = _box_of(velocity)
+    layout, dx, batch = _box_of(velocity)
     solve = solve.with_defaults('solve')
     names = velocity.resolution.names
     x0 = solve.x0
@@ -731,7 +768,8 @@ def make_incompressible(velocity, obstacles=(), solve: Solve = Solve(), active=N
     pressure0 = None
     if x0 is not None:
         x0_values = x0.values if isinstance(x0, Field) else x0
-        pressure0 = x0_values.torch(names).contiguous()
+        batch = merge_shapes(batch, _batch_dims([x0_values], names, 'the projection'))
+        pressure0 = x0_values.torch(batch.names + names).contiguous()
     active_native = None
     if active is not None:
         active_native = (active.values if isinstance(active, Field) else active).torch(names).contiguous()
@@ -742,18 +780,29 @@ def make_incompressible(velocity, obstacles=(), solve: Solve = Solve(), active=N
         def preconditioner(r):  # the caller's M on the pressure Field
             template = x0 if isinstance(x0, Field) else Field(velocity.geometry, wrap(0.), p_ext)
             shape = template.values.shape.only(names, reorder=True)
-            return field_preconditioner(template.with_values(Tensor(r, shape))).values.torch(names)
-    comps = [c.torch(names) for c in face_components(velocity.values)]
+            z = field_preconditioner(template.with_values(_batch_tensor(r, batch, shape))).values
+            return _batch_native(z, batch, names)
+    comps = [c.torch(batch.names + names) for c in face_components(velocity.values)]
     v, p, result = make_incompressible_native(comps, pressure0, dx, solve.rel_tol, solve.abs_tol,
                                               solve.max_iterations, layout, active_native,
                                               _native_frame(obstacles, velocity), solve.method, preconditioner,
                                               bcs)
     if isinstance(x0, Field):
-        pressure = x0.with_values(Tensor(p, x0.values.shape.only(names, reorder=True)))
+        pressure = x0.with_values(_batch_tensor(p, batch, x0.values.shape.only(names, reorder=True)))
     else:
-        pressure = Field(velocity.geometry, Tensor(p, velocity.resolution), p_ext)
+        pressure = Field(velocity.geometry, _batch_tensor(p, batch, velocity.resolution), p_ext)
     finish_solve(solve, pressure, result)
-    return velocity.with_values(_component_values(velocity, v)), pressure
+    return velocity.with_values(_component_values(velocity, v, batch)), pressure
+
+
+def _refuse_batch(velocity, obstacles, active):
+    """NotImplementedError for the batched projections this slice does not bring."""
+    if _get_obstacles_for(obstacles) or active is not None:
+        raise NotImplementedError("a batch of masked systems (obstacles, active cells) comes with a later slice "
+                                  "of the port")
+    if velocity.is_mesh or not (velocity.is_grid and velocity.is_staggered):
+        raise NotImplementedError("the batched projection of a centred velocity or of one on a mesh comes with a "
+                                  "later slice of the port: a staggered velocity's is ported")
 
 
 def _balance_divergence_field(div, active):
@@ -765,12 +814,14 @@ def _balance_divergence_field(div, active):
 
 
 def _field_preconditioner(x0, native_M):
-    """A preconditioner of arrays M(r) -> (z, ·) as one of pressure Fields."""
+    """A preconditioner of arrays M(r) -> (z, ·) as one of pressure Fields;
+    batch dims of r are the arrays' leading axes."""
     names = x0.resolution.names
 
     def preconditioner(r):
-        z = native_M(r.values.torch(names))[0]
-        return r.with_values(Tensor(z, r.values.shape.only(names, reorder=True)))
+        batch = _batch_dims([r.values], names, 'a preconditioner')
+        z = native_M(_batch_native(r.values, batch, names).contiguous())[0]
+        return r.with_values(_batch_tensor(z, batch, r.values.shape.only(names, reorder=True)))
     return preconditioner
 
 
@@ -846,7 +897,7 @@ def _solve_pressure(div, v_boundary, solve: Solve, hard_bcs=None, active=None, b
         names = x0_lin.resolution.names
         if native is not None and hard_bcs is None and active is None:
             M = _grid_multigrid_preconditioner(tuple(x0_lin.resolution.sizes), _dx_tuple(x0_lin), native[0],
-                                               div.values.torch(names).device, singular=False)
+                                               div.values.torch(div.values.shape.names).device, singular=False)
         elif native is not None:
             bcs, inv_dx2, mA, c0, act = native
 
@@ -910,15 +961,18 @@ def _fused_masked_laplace(pressure, v_boundary, hard_bcs, active):
     if not isinstance(pressure.geometry, UniformGrid) or not pressure.is_centered:
         return None
     names = pressure.resolution.names
-    if not _plain_values(pressure.values, names):
+    batch = pressure.values.shape.without(names)
+    if batch.rank != batch.batch.rank or (batch and (hard_bcs is not None or active is not None)):
         return None
     native = _native_masks(pressure, v_boundary, hard_bcs, active)
     if native is None:
         return None
     bcs, inv_dx2, mA, c0, act = native
-    result = poisson_apply(pressure.values.torch(names), inv_dx2, bcs, mA_list=mA, c0=c0, active=act)
+    result = poisson_apply(pressure.values.torch(batch.names + names).contiguous(), inv_dx2, bcs, mA_list=mA, c0=c0,
+                           active=act)
     bout = extrapolation.remove_constant_offset(v_boundary).spatial_gradient()
-    return Field(pressure.geometry, Tensor(result, pressure.values.shape.only(names, reorder=True)), bout)
+    return Field(pressure.geometry, _batch_tensor(result, batch, pressure.values.shape.only(names, reorder=True)),
+                 bout)
 
 
 @jit_compile_linear(auxiliary_args='wide_stencil,order', forget_traces=True)
@@ -1047,12 +1101,13 @@ def incompressible_rk4(pde: Callable, velocity, pressure, dt, pressure_order=4, 
 
 def apply_boundary_conditions(velocity, obstacles):
     """Blend the obstacles' velocities into the staggered velocity Field
-    (`apply_boundary_conditions_native` on its components)."""
-    layout, dx = _box_of(velocity)
+    (`apply_boundary_conditions_native` on its components; batch dims lead,
+    the obstacles the same for every entry)."""
+    layout, dx, batch = _box_of(velocity)
     names = velocity.resolution.names
-    comps = apply_boundary_conditions_native([c.torch(names) for c in face_components(velocity.values)],
+    comps = apply_boundary_conditions_native([_batch_native(c, batch, names) for c in face_components(velocity.values)],
                                              _native_frame(obstacles, velocity), dx, faces=layout)
-    return velocity.with_values(_component_values(velocity, comps))
+    return velocity.with_values(_component_values(velocity, comps, batch))
 
 
 def boundary_push(particles, obstacles, separation: float = 0.5):

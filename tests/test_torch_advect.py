@@ -100,5 +100,7 @@ def test_refused_options():
         advect.semi_lagrangian_native(s, v, DT, 1.0, BOUNDARY, max_cells=None)
     with pytest.raises(NotImplementedError, match='slice'):
         advect.mac_cormack_native(s, v, DT, 1.0, BOUNDARY, substeps='auto')
-    with pytest.raises(NotImplementedError, match='slice'):
-        advect.semi_lagrangian_native(torch.zeros(2, 8, 8), v, DT, 1.0, BOUNDARY)
+    # a leading batch axis is no longer refused: each entry advects as on its own
+    batched = torch.rand(2, 8, 8, generator=torch.Generator().manual_seed(0))
+    out = advect.semi_lagrangian_native(batched, v, DT, 1.0, BOUNDARY)
+    assert all(torch.equal(out[e], advect.semi_lagrangian_native(batched[e], v, DT, 1.0, BOUNDARY)) for e in range(2))

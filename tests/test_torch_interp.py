@@ -118,13 +118,17 @@ def test_shift_window_interp_matches_fori_loop(shape, extrap):
 
 
 def test_refuses_batch_axes_and_bad_input():
+    """Leading batch axes are taken (a displacement without them is shared
+    by every entry); batch axes that do not broadcast, and bad input, raise."""
     from phiflow_tpu_torch.math import shift_window_interp
-    grid = torch.zeros(2, 8, 8)
-    disp = [torch.zeros(8, 8)] * 2
-    with pytest.raises(NotImplementedError, match='slice'):
-        shift_window_interp(grid, disp, 0.0, 1)
-    with pytest.raises(NotImplementedError, match='slice'):
-        TI.window_interp_2d(grid, disp, 1, const_pad=0.0)
+    gen = torch.Generator().manual_seed(0)
+    grid = torch.rand(2, 8, 8, generator=gen)
+    disp = [torch.rand(8, 8, generator=gen) - 0.5] * 2
+    out = shift_window_interp(grid, disp, 0.0, 1)
+    assert out.shape == (2, 8, 8)
+    assert all(torch.equal(out[e], shift_window_interp(grid[e], disp, 0.0, 1)) for e in range(2))
+    with pytest.raises(ValueError, match='broadcast'):
+        TI.window_interp_2d(grid, [torch.zeros(3, 8, 8)] * 2, 1, const_pad=0.0)
     with pytest.raises(ValueError, match='shape'):
         TI.window_interp_2d(torch.zeros(9, 10), disp, 1)  # neither padded nor raw
     with pytest.raises(ValueError, match='not both'):

@@ -61,8 +61,24 @@ def test_default_device_raises_without_cuda(monkeypatch):
         state_from_numpy(*(np.zeros((2, 2, 2), np.float32),) * 5)
 
 
-@pytest.mark.parametrize('kwargs', [dict(dims=3, batch_shape=(2,)), dict(dims=3, max_cells=None)],
+def _batched_obstacle_projection():
+    """A batch of masked systems: the projection of a batched velocity around an obstacle."""
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import StaggeredGrid
+    from phiflow_tpu_torch.geom import Sphere
+    from phiflow_tpu_torch.physics import fluid
+    values = math.wrap(torch.zeros(2, 2, 16, 16), math.batch('b'), math.channel(vector='x,y'), math.spatial('x,y'))
+    with math.default_device('cpu'):
+        v = StaggeredGrid(values, math.extrapolation.ZERO, x=16, y=16)
+        fluid.make_incompressible(v, [Sphere(x=8, y=8, radius=3)])
+
+
+@pytest.mark.parametrize('make', [_batched_obstacle_projection,
+                                  lambda: SmokePlume(resolution=16, dims=3, max_cells=None, device='cpu')],
                          ids=['batched', 'adaptive-window'])
-def test_refused_configurations(kwargs):
+def test_refused_configurations(make):
+    """What the port still refuses, naming the slice that brings it: a batch
+    of masked systems (batched smoke itself runs since the batched-smoke
+    slice) and the unbounded gather lookup."""
     with pytest.raises(NotImplementedError, match='slice'):
-        SmokePlume(resolution=16, device='cpu', **kwargs)
+        make()

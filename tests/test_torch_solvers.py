@@ -1,6 +1,7 @@
 """The rest of the solver layer against the JAX package's, on the CPU:
 'CG-adaptive', 'biCG-stab(2)', 'direct' / 'scipy-direct' (and its reroute
-to BiCGStab above 16384 unknowns), batched systems solved one by one, and
+to BiCGStab above 16384 unknowns), batched systems solved in one loop (each
+with its own tolerance and stop, a converged one frozen), and
 two faults: a preconditioner string ('ilu') and an unknown method raised in
 the port where JAX ignores the one and warns and runs CG for the other.
 
