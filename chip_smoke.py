@@ -135,7 +135,7 @@ Phases; any failure exits non-zero and prints no result:
      FVM, the cylinder wake (`CylinderWake`, its Field `step`: the unstructured
      mesh's operators, BiCGStab and the mesh Chebyshev preconditioner are
      PyTorch operations, no kernel of ours may launch): cylinder-wake, the
-     model's own configuration (400 × 128, 50,892 cells; 2 warm-up, 5 timed
+     model's own configuration (400 × 128, 50,892 cells; 1 warm-up, 3 timed
      steps), and cylinder-wake-1600x512 (nx=1600, ny=512, dt=0.0125: 814,160
      cells; 1 warm-up, 1 timed step, then a third step printed and not gated:
      its pressure solves stop at 500 iterations unconverged, and the third
@@ -220,10 +220,40 @@ Phases; any failure exits non-zero and prints no result:
      the rates one float32 ulp up against the CPU run (what rounding alone moves); 9d the batched 3D plume at 32³, b = 3, 2 steps, CPU vs card 1e-3;
      9e batched-grad-64 and batched-grad-256-2d: `math.gradient` of a batched rollout (b = 2),
      K6ᵀ / K7ᵀ once for each forward K6 / K7 launch, each entry within 1e-4 of its own gradient;
-  10. the `kernels` JSON line (every row above and the batched forms, `<kernel>_batched`, whose
-     launches are counted on phase 9's paths), then the last line
-     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+  10. open and mixed boundaries (`run_open_boundaries`, after phase 9): 10a open-plume-256:
+     SmokePlume(256, dims=3)'s inflow sphere, buoyancy, dt and cg_tol 1e-3 through the Field API
+     with the velocity under combine_sides(x=0, y=0, z=(0, ZERO_GRADIENT)) (an open top), the smoke
+     ZERO_GRADIENT and the pressure the derived extrapolation, from `smooth_state`; its last
+     warm-up step records the inputs of its first CG matvec and window lookups, and K1 and K6 (its
+     padded grids, mode None, and the smoke's edge halo) are held to their twins on them at phase
+     3's tolerances; then 2 warm-up and 3 timed steps: ms/step, Mcells/s, CG iterations, launches a
+     step (K6 exactly 5, K1 one a solve and one an iteration, K2 two per smoothed level a V-cycle,
+     K3 / K4 a whole number a V-cycle, nothing else of ours), `max_memory_allocated`, finite, and
+     the busy share and device kernels a step under torch.profiler; 10b tunnel-step-512x256x256:
+     8c's Box(x=4, y=1, z=1) with no obstacle, the inflow vec(x=1, y=0, z=0) at x−, ZERO_GRADIENT at
+     x+, walls at rest in y and z, smoke injected in the inflow's slab: the same readings and gates;
+     then 2 steps of each (48³; 64 × 32 × 32) card against CPU at 1e-3 of each field's scale with
+     the solves at 1e-5; 10c the 2D recipes: K7 against its twin on examples/wake_flow.py's first
+     step, its 120 steps at 128 × 64 (its assert, wake deficit > 0.05, as a gate) and
+     examples/variable_boundaries.py's 12 steps (its assert), K7 exactly 2 a step and nothing else
+     of ours, then 2 steps of each card against CPU (1e-3 of each field's scale, the solves at
+     1e-5); 10d the Field cases at 64³ and 256², card against CPU within 1e-4 of each result's
+     scale (1e-3 for advection): SYMMETRIC, REFLECT, ANTISYMMETRIC, ANTIREFLECT and
+     SYMMETRIC_GRADIENT in `laplace`, `resample`, the face gradient and `mac_cormack`; slicing a
+     centred and a staggered grid; `stagger` at the centres and over (z, x); `resample(order=4)`;
+     the gather (`max_cells=None`), `rk4` on a grid, `mac_cormack` of an open box's velocity, lookups
+     at points of it; `substeps='auto'` at a CFL of 2.9 with max_cells=1 (3 substeps: the window
+     kernel launched exactly 3 times, at most 2 device syncs a call, the lines printed); and
+     `math.gradient` of one open-box 2D step (K7ᵀ once for each forward K7 launch, finite, card
+     against CPU within 1e-4);
+  11. the `kernels` JSON line (every row above and the batched forms, `<kernel>_batched`, whose
+     launches are counted on phase 9's paths; `launches_by_path` has phase 10's paths too), then
+     the last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Each phase prints its seconds on the host clock as it ends (`phase …: … s`, the larger ones their
+parts too, `part of phase …`), and the line before the card's carries them all.
 """
+import functools
 import json
 import re
 import statistics
@@ -1099,32 +1129,36 @@ def check_advect(ch, gen, quick):
         torch.cuda.empty_cache()
 
 
-def _sample_coords(grid, disps, K, scale):
+def _sample_coords(grid, disps, K, scale, pad=0):
     """The normalised sample coordinates (align_corners=True) of the window
-    lookup for `F.grid_sample`: (N, *grid, d), the last axis first, N the
-    entries of a leading batch axis of grid and displacements (1 without)."""
+    lookup for `F.grid_sample`: (N, *disps, d), the last axis first, N the
+    entries of a leading batch axis of grid and displacements (1 without);
+    `pad`: the cells `grid` is padded by on every side beyond the lattice."""
     import torch
     d = len(disps)
     coords = []
     for ax in range(d):
         n = grid.shape[grid.ndim - d + ax]
-        idx = torch.arange(n, device=grid.device, dtype=torch.float32).reshape((-1,) + (1,) * (d - ax - 1))
+        idx = pad + torch.arange(disps[ax].shape[disps[ax].ndim - d + ax], device=grid.device,
+                                 dtype=torch.float32).reshape((-1,) + (1,) * (d - ax - 1))
         pos = idx + torch.clamp(scale[ax] * disps[ax], -float(K), float(K))
         coords.append(pos * (2.0 / (n - 1)) - 1.0)
     coord_grid = torch.stack(coords[::-1], dim=-1)  # last entry first: (x, y[, z]) = (W, H[, D])
     return coord_grid if coord_grid.ndim == d + 2 else coord_grid[None]
 
 
-def _grid_sample_lookup(grid, disps, K, scale, padding_mode):
+def _grid_sample_lookup(grid, disps, K, scale, padding_mode, pad=0):
     """`torch.nn.functional.grid_sample` for the same lookup: a closure over
     the prebuilt normalised coordinate grid (align_corners=True), so that only
     the library call itself is timed. A leading batch axis (grid and
-    displacements) is grid_sample's N."""
-    coord_grid = _sample_coords(grid, disps, K, scale)
-    inp = grid.reshape((-1, 1) + tuple(grid.shape[grid.ndim - len(disps):]))
+    displacements) is grid_sample's N; `pad` as in `_sample_coords`."""
+    coord_grid = _sample_coords(grid, disps, K, scale, pad)
+    d = len(disps)
+    inp = grid.reshape((-1, 1) + tuple(grid.shape[grid.ndim - d:]))
+    out = tuple(grid.shape[:grid.ndim - d]) + tuple(disps[0].shape[disps[0].ndim - d:])
     F = __import__('torch').nn.functional
     return lambda: F.grid_sample(inp, coord_grid, mode='bilinear', padding_mode=padding_mode,
-                                 align_corners=True)[:, 0].reshape(grid.shape)
+                                 align_corners=True)[:, 0].reshape(out)
 
 
 def check_interp(ch, gen, quick):
@@ -1211,8 +1245,22 @@ def check_interp(ch, gen, quick):
                 lambda: twin(grid, disps, K, True, False, scale, 'edge'),
                 nbytes(grid, *disps) + 3 * out_bytes, ops + 2 ** (d + 1) * grid.numel(), lib,
                 key=name + ' +extrema')
-        ch.attach(name, [name + ' +extrema'])
-        del lib, grid, disps, got, ref
+        # the padded route (mode None): the grid padded by K cells, as the mixed and mirror boundaries hand it
+        # over (an open box's velocity component); the library call samples the same padded grid
+        padded = torch.nn.functional.pad(grid[(None,) * (5 - d)] if d == 3 else grid[None, None],
+                                         (K,) * (2 * d), mode='replicate').reshape(tuple(n + 2 * K for n in shape))
+        got = kernel(d, padded, disps, K, False, False, scale, None)
+        ref = twin(padded, disps, K, False, False, scale, None)
+        compare(d, f'{shape} K={K} padded', got, ref, False)
+        lib = _grid_sample_lookup(padded, disps, K, scale, 'border', pad=K)
+        print(f'note  {name:17s} grid_sample of the padded grid vs twin, padded route: '
+              f'max |diff| {float((lib() - ref).abs().max()):.2e}')
+        ch.time(name, f'velocity component: padded (mixed sides), no extrema, {shape} K=1',
+                lambda: kernel(d, padded, disps, K, False, False, scale, None),
+                lambda: twin(padded, disps, K, False, False, scale, None),
+                nbytes(padded, *disps) + out_bytes, ops, lib, key=name + ' padded')
+        ch.attach(name, [name + ' +extrema', name + ' padded'])
+        del lib, grid, disps, got, ref, padded
         torch.cuda.empty_cache()
 
 
@@ -1557,17 +1605,29 @@ def profile_obstacles(tag, N, preconditioner='chebyshev'):
 def smooth_state(N, dims=3, seed=0, period=None):
     """A smooth random closed-box state: low-mode sinusoids of 1–3 waves a
     `period` cells (N by default), |v|·dt/dx ≤ 0.6 cells. Returns the
-    velocity components, smoke and pressure."""
+    velocity components, smoke and pressure: fresh copies of arrays made
+    once for each argument set (several phases start from the same state)."""
+    return tuple(a.copy() for a in _smooth_state(N, dims, seed, period))
+
+
+@functools.lru_cache(maxsize=6)
+def _smooth_state(N, dims, seed, period):
     import numpy as np
     rng = np.random.default_rng(seed)
 
     def field(shape, amp):
-        grids = np.meshgrid(*[np.arange(n) / (period or N) for n in shape], indexing='ij')
+        # each mode a product of one sine an axis: the sines of the axis coordinates broadcast into the product
+        # (in the axes' order, the same float64 numbers as on the whole mesh, N times fewer sines)
+        axes = [np.arange(n) / (period or N) for n in shape]
         out = np.zeros(shape)
         for _ in range(4):
             k = rng.integers(1, 4, dims)
             ph = rng.uniform(0, 2 * np.pi, dims)
-            out += np.prod([np.sin(2 * np.pi * k[a] * grids[a] + ph[a]) for a in range(dims)], axis=0)
+            term = None
+            for a in range(dims):
+                wave = np.sin(2 * np.pi * k[a] * axes[a] + ph[a]).reshape([-1 if b == a else 1 for b in range(dims)])
+                term = wave if term is None else term * wave
+            out += term
         return (amp * out / np.abs(out).max()).astype(np.float32)
     vel = [field(tuple(N - (a == d) for a in range(dims)), 1.2) for d in range(dims)]
     smoke = (0.5 + field((N,) * dims, 0.5)).astype(np.float32)
@@ -2427,7 +2487,7 @@ FVM_SIZES = {
 # unconverged; its third step returns the diverging BiCGStab's last iterate (max |v| in the thousands, then NaN) —
 # the JAX package's algorithm, which diverges the same way at 800 × 256 in its first step. So it takes 1 warm-up
 # and 1 timed step, gated, and the third runs as a probe: printed, not gated.
-FVM_RUNS = {'cylinder-wake': (2, 5, 0), 'cylinder-wake-1600x512': (1, 1, 1)}
+FVM_RUNS = {'cylinder-wake': (1, 3, 0), 'cylinder-wake-1600x512': (1, 1, 1)}
 # the JAX suite's configuration (tests/physics/test_cylinder_wake.py) at a tolerance tight enough to compare
 FVM_SUITE = dict(nx=120, ny=36, re=120., dt=0.08, diameter=0.5, upwind=False, perturb=0.2, solve_tol=1e-5,
                  max_iterations=300)
@@ -2624,7 +2684,7 @@ def fvm_cpu_vs_card():
 
 
 def run_fvm_models():
-    """The "FVM" phase: the default wake (2 warm-up, 5 timed steps), the
+    """The "FVM" phase: the default wake (1 warm-up, 3 timed steps), the
     1600 × 512 one (1 + 1 and a probe step), then CPU against the card.
     Returns the launch counts by path."""
     import torch
@@ -3146,17 +3206,22 @@ def run_gradients():
     trained through the projection, the guards, then the CG dot probe
     (last: its model's memory stays out of the paths' peaks)."""
     import torch
+    part = PhaseClock('part of phase')
     by_path = {'grad-256': run_gradient_path('grad-256', 3, PATH_N, 3)}
     torch.cuda.empty_cache()
     by_path['grad-4096-2d'] = run_gradient_path('grad-4096-2d', 2, PATH_N_2D, 2, period=PATH_N,
                                                 cg_tol=GRAD_CG_TOL_4096)
     torch.cuda.empty_cache()
+    part.done('6 grad-256 and grad-4096-2d')
     gradient_cpu_vs_card(3, 64)
     gradient_cpu_vs_card(2, 256)
+    part.done('6 CPU against card')
     run_network_training()
     check_guards()
+    part.done('6 network and guards')
     cg_dot_probe()
     torch.cuda.empty_cache()
+    part.done('6 CG dot probe')
     return by_path
 
 
@@ -3546,12 +3611,16 @@ def run_optimisation():
     card = card_line()
     print(f'phase 7 (optimisation) on {card}')
     t0 = time.perf_counter()
+    part = PhaseClock('part of phase')
     run_piv()
     torch.cuda.empty_cache()
+    part.done('7 PIV')
     by_path = {f'inverse-smoke-{PATH_N}': run_inverse_smoke()}
     torch.cuda.empty_cache()
+    part.done('7 inverse smoke')
     run_close_packing()
     grid_names_cpu_vs_card()
+    part.done('7 close packing and the grid names')
     print(f'phase 7 (optimisation): {time.perf_counter() - t0:.1f} s on {card}')
     return by_path
 
@@ -4053,15 +4122,20 @@ def run_solvers(ch):
     card = card_line()
     print(f'phase 8 (solvers and projections) on {card}')
     t0 = time.perf_counter()
+    part = PhaseClock('part of phase')
     by_path = run_solver_methods()
     torch.cuda.empty_cache()
+    part.done('8a methods')
     by_path[f'obstacle-{OBSTACLE_N}-adaptive'] = run_obstacles(f'obstacle-{OBSTACLE_N}-adaptive', OBSTACLE_N, warmup=1,
                                                                steps=2, method='CG-adaptive')
     torch.cuda.empty_cache()
+    part.done('8b obstacle adaptive')
     by_path.update(run_tunnel(ch))
     torch.cuda.empty_cache()
+    part.done('8c tunnel')
     by_path.update(run_fluid_logo())
     run_small_solvers()
+    part.done('8d-8e fluid logo and the small solvers')
     torch.cuda.empty_cache()
     print(f'phase 8 (solvers and projections): {time.perf_counter() - t0:.1f} s on {card}')
     return by_path
@@ -4683,17 +4757,625 @@ def run_batched_gradient(tag, dims, N, B=2, steps=1, tol=1e-4):
 def run_batched(ch, gen):
     """Phase 9: batched simulation. 9a runs with the kernel checks (phase 3); 9b–9e here."""
     import torch
+    part = PhaseClock('part of phase')
     by_path = {f'batched-smoke-{BATCH_SMOKE_N}x{BATCH_B}': run_batched_smoke(ch)}
     torch.cuda.empty_cache()
+    part.done(f'9b batched-smoke-{BATCH_SMOKE_N}x{BATCH_B}')
     by_path[f'batched-smoke-{BATCH_WIDE_N}x{BATCH_WIDE_B}'] = run_batched_smoke(
         ch, f'batched-smoke-{BATCH_WIDE_N}x{BATCH_WIDE_B}', BATCH_WIDE_N, BATCH_WIDE_B)
     torch.cuda.empty_cache()
+    part.done(f'9b batched-smoke-{BATCH_WIDE_N}x{BATCH_WIDE_B}')
     by_path['batched-smoke-2d'] = run_batched_recipe()
     batched_cpu_vs_card()
+    part.done('9c-9d')
     by_path['batched-grad-64'] = run_batched_gradient('batched-grad-64', 3, 64)
     by_path['batched-grad-256-2d'] = run_batched_gradient('batched-grad-256-2d', 2, 256)
     torch.cuda.empty_cache()
+    part.done('9e')
     return by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 10: open and mixed boundaries
+OPEN_N = 256             # 10a open-plume-256: SmokePlume(256, dims=3)'s configuration with an open top
+OPEN_WARMUP, OPEN_STEPS = 2, 3
+OPEN_TUNNEL_DT = 1 / 256  # 10b: half a cell along x at the inflow speed 1 (cells 1/128 long)
+WAKE_RES, WAKE_STEPS = (128, 64), 120  # examples/wake_flow.py
+VARIABLE_STEPS = 12      # examples/variable_boundaries.py
+OPEN_CASES_N = {3: 64, 2: 256}  # 10d: the Field cases on the card against the CPU
+OPEN_CASE_TOL, OPEN_STEP_TOL = 1e-4, 1e-3
+OPEN_SIDE_RULES = ('SYMMETRIC', 'REFLECT', 'ANTISYMMETRIC', 'ANTIREFLECT', 'SYMMETRIC_GRADIENT')
+
+
+def _open_step(model, inflow, solve):
+    """One smoke step through the Field API, as `SmokePlume.step` writes it per phase: MacCormack smoke plus
+    the inflow, the velocity's semi-Lagrangian self-advection, buoyancy on the top component (none where
+    `model.buoyancy` is 0), `make_incompressible` with `solve` (x0 the last pressure)."""
+    from phiflow_tpu_torch.field import resample
+    from phiflow_tpu_torch.math import Solve, dual, stack
+    from phiflow_tpu_torch.physics import advect, fluid
+
+    def step(v, s, p):
+        names = v.resolution.names
+        s = advect.mac_cormack(s, v, model.dt, max_cells=model.max_cells) + inflow
+        v = advect.semi_lagrangian(v, v, model.dt, max_cells=model.max_cells)
+        if model.buoyancy:
+            up = names[-1]
+            lift = resample(s * (model.buoyancy * model.dt), to=v.vector[up])
+            v = v.with_values(stack([v.vector[d].values + lift.values if d == up else v.vector[d].values
+                                     for d in names], dual(vector=names)))
+        v, p = fluid.make_incompressible(v, (), Solve(solve.method, solve.rel_tol, solve.abs_tol, x0=p,
+                                                      max_iterations=solve.max_iterations,
+                                                      suppress=solve.suppress))
+        return v, s, p
+    return step
+
+
+def _open_values(template, arrays):
+    """`template` (a staggered grid) with the face arrays `arrays` (closed-box interior faces, torch) grown to
+    the faces its boundary stores by repeating the outermost ones."""
+    import torch
+    from phiflow_tpu_torch import math
+    names = template.resolution.names
+    comps = []
+    for a, (d, arr) in enumerate(zip(names, arrays)):
+        n = template.vector[d].values.shape.get_size(d)
+        lo, up = template.boundary.valid_outer_faces(d)
+        parts = ([arr.narrow(a, 0, 1)] if lo else []) + [arr] + ([arr.narrow(a, arr.shape[a] - 1, 1)] if up else [])
+        grown = torch.cat(parts, dim=a)
+        assert grown.shape[a] == n, (d, tuple(grown.shape), n)
+        comps.append(math.wrap(grown.contiguous(), math.spatial(*names)))
+    return template.with_values(math.stack(comps, math.dual(vector=names)))
+
+
+def _keep_open_calls(name, args, kwargs, kept):
+    """`Recorder`'s keep for an open-boundary step: the first CG matvec with its dot on a nonzero direction
+    (K1's arguments) and the first window lookup of each grid shape, with or without extrema (its arguments)."""
+    if name == 'poisson_apply':
+        return {name: (args, kwargs)} if kwargs.get('with_dot') and name not in kept and bool(args[0].any()) else {}
+    return {(name, tuple(args[0].shape), bool(kwargs.get('compute_extrema'))): (args, kwargs)}
+
+
+def check_open_path_kernels(ch, tag, kept):
+    """K1 and K6 / K7 against their twins on the inputs an open-boundary step gave them (`_keep_open_calls`):
+    phase 3's tolerances — K1 2e-5 on the system scaled by a power of two as `check_tunnel_stencil` scales it,
+    its dot 1e-5; the window lookups 1e-5, lo / up exactly (the padded grids of the mixed boundaries, mode
+    None, the const and edge halos)."""
+    from phiflow_tpu_torch.ops import interp as I
+    from phiflow_tpu_torch.ops import poisson as P
+    if 'poisson_apply' in kept:
+        (p, inv_dx2, bcs), kw = kept.pop('poisson_apply')
+        s = pow2(float(p.std()) * sum(inv_dx2) / 3)
+        case = f'{tag} CG matvec +dot {tuple(p.shape)} {bcs}'
+        got, dot = P.poisson_apply(p, inv_dx2, bcs, **kw)
+        ref, rdot = P._poisson_apply_plain(p, inv_dx2, bcs, **kw)
+        ch.compare('poisson_stencil', f'{case} (÷ {s:g})', got / s, ref / s, 2e-5)
+        ch.compare_dot('poisson_stencil', f'{case} dot', dot, rdot, 1e-5)
+        del got, ref
+    modes = []
+    for (row, shape, extrema), ((grid, disps, K), kw) in kept.items():
+        mode = 'const' if kw.get('const_pad') is not None else kw.get('halo')
+        modes.append(mode or 'padded')
+        sgn = -1.0 if kw.get('negate') else 1.0
+        d = len(disps)
+        scale = tuple(I._f32(sgn * x) for x in (kw.get('disp_scale') or (1.0,) * d))
+        case = f'{tag} lookup {shape} {mode or "padded"}{" extrema" if extrema else ""}'
+        got = getattr(I, row)(grid, disps, K, **kw)
+        ref = I._window_interp_plain(grid, list(disps), K, extrema, scale, mode, I._f32(kw.get('const_pad') or 0.0))
+        got, ref = (got, ref) if extrema else ((got,), (ref,))
+        ch.compare(row, case + ' value vs twin', got[0], ref[0], 1e-5)
+        for what, g, r in zip(('lo', 'up'), got[1:], ref[1:]):
+            ch.compare(row, f'{case} {what} vs twin (exact)', g, r, 0.0)
+        del got, ref
+    return modes
+
+
+def _open_launch_gates(tag, launches, iters, steps, shape, k6_row):
+    """The exact launches of `steps` open-boundary steps: the window lookups 5 a step (the smoke's MacCormack
+    pair and one per velocity component), K1 one a CG iteration and one a solve, K2 two per smoothed level a
+    V-cycle, K3 and K4 a whole number a V-cycle (the projection's V-cycle preconditions a solve a V-cycle an
+    iteration from 16 cells along an axis), nothing else of ours."""
+    k1 = sum(1 + it for it in iters)
+    check_launches(tag, launches, k1, k1 if max(shape) >= 16 else 0, shape)
+    if launches.get(k6_row, 0) != K6_LAUNCHES_PER_PHASE_STEP * steps:
+        raise RuntimeError(f'{tag}: {k6_row} {launches.get(k6_row, 0)}, expected {K6_LAUNCHES_PER_PHASE_STEP * steps}')
+    others = {k: c for k, c in launches.items() if k in KERNELS and c and k not in PHASES_3D_KERNELS}
+    if others:
+        raise RuntimeError(f'{tag}: other kernels launched: {others}')
+
+
+def run_open_path(ch, tag, model, fields, inflow, solve, size, cells, warmup=OPEN_WARMUP, steps=OPEN_STEPS):
+    """10a / 10b: `warmup` + `steps` steps of `_open_step` from `fields` (v, s, p): the last warm-up step
+    records the inputs of its first CG matvec and window lookups (the tunnel's smoke is 0 before its first
+    step) and K1 / K6 are held to their twins on them (`check_open_path_kernels`); then ms/step, Mcells/s,
+    CG iterations, launches a step (exact:
+    `_open_launch_gates`), `max_memory_allocated`, finite values, and the busy share and device kernels a step
+    under torch.profiler."""
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.math import _nd
+    from phiflow_tpu_torch.ops import _build
+    from phiflow_tpu_torch.physics import fluid
+    step = _open_step(model, inflow, solve)
+    v, s, p = fields
+    for _ in range(warmup - 1):
+        v, s, p = step(v, s, p)
+    failed = len(ch.failed)
+    with Recorder(_keep_open_calls, poisson_apply=fluid, window_interp_3d=_nd) as rec:
+        v, s, p = step(v, s, p)
+    modes = check_open_path_kernels(ch, tag, rec.kept)
+    del rec
+    if len(ch.failed) > failed or 'padded' not in modes:
+        raise RuntimeError(f'{tag}: kernels against their twins {ch.failed[failed:]}, lookup modes {modes}')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with math.SolveTape() as tape:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            v, s, p = step(v, s, p)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES, steps=steps)
+    iters = [info.iterations for info in tape]
+    memory = torch.cuda.max_memory_allocated()
+    ms = elapsed / steps * 1e3
+    names = v.resolution.names
+    arrays = [v.vector[d].values.torch(names) for d in names] + [s.values.torch(names), p.values.torch(names)]
+    finite = all(bool(torch.isfinite(a).all()) for a in arrays)
+    print(f'10 {tag} {size}: {ms:.2f} ms/step, {cells / (ms * 1e-3) / 1e6:.1f} Mcells/s, {steps} Field steps after '
+          f'{warmup} warm-up steps; CG iterations per step {iters}; max_memory_allocated {memory / 2 ** 30:.2f} GiB; '
+          f'face counts {[tuple(a.shape) for a in arrays[:len(names)]]}; lookups {sorted(set(modes))}; all finite: '
+          f'{finite}')
+    print(f'10 {tag} launches per step: ' + ', '.join(f'{k}={launches.get(k, 0) / steps:g}' for k in KERNELS))
+    _open_launch_gates(tag, launches, iters, steps, tuple(v.resolution.sizes), 'window_interp_3d')
+    if not finite:
+        raise RuntimeError(f'{tag}: non-finite values')
+    profile_path(tag, size, lambda st: step(*st), (v, s, p), warmup=0, steps=3)
+    del v, s, p, arrays
+    torch.cuda.empty_cache()
+    return launches
+
+
+def open_plume(N=OPEN_N, device='cuda'):
+    """10a's model and fields: SmokePlume(N, dims=3)'s inflow sphere, buoyancy, dt and cg_tol 1e-3, the velocity
+    under combine_sides(x=0, y=0, z=(0, ZERO_GRADIENT)) (walls, an open top) from `smooth_state`'s velocity, the
+    smoke ZERO_GRADIENT from its smoke, the pressure 0 under the derived extrapolation."""
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import CenteredGrid, StaggeredGrid
+    from phiflow_tpu_torch.math import ConvergenceException, Solve, extrapolation
+    from phiflow_tpu_torch.models import SmokePlume
+    from phiflow_tpu_torch.physics import fluid
+    model = SmokePlume(resolution=N, dims=3, cg_tol=1e-3, max_iterations=100, device=device)
+    *vel, smoke, _ = smooth_state(N, 3)
+    bounds = model.smoke0.bounds
+    res = dict(x=N, y=N, z=N)
+    zg = extrapolation.ZERO_GRADIENT
+    with math.default_device(device):
+        v = _open_values(StaggeredGrid(0., extrapolation.combine_sides(x=0, y=0, z=(0, zg)), bounds=bounds, **res),
+                         [torch.from_numpy(a).to(device) for a in vel])
+        s = CenteredGrid(math.wrap(torch.from_numpy(smoke).to(device), math.spatial('x,y,z')), zg, bounds=bounds,
+                         **res)
+        p = CenteredGrid(0., fluid._pressure_extrapolation(v.boundary), bounds=bounds, **res)
+        inflow = s.with_values(math.wrap(model._inflow_mask_values_native(s.values.torch(('x', 'y', 'z')))
+                                         * model.inflow_rate, math.spatial('x,y,z')))
+    solve = Solve('CG', model.cg_tol, 0., max_iterations=model.max_iterations, suppress=(ConvergenceException,))
+    return model, (v, s, p), inflow, solve
+
+
+def open_tunnel(device='cuda', res=TUNNEL_RES):
+    """10b's model and fields: 8c's Box(x=4, y=1, z=1) at `res` cells with no obstacle, the inflow vec(x=1, y=0,
+    z=0) at x−, ZERO_GRADIENT at x+, walls at rest in y and z; `_tunnel_velocity`'s flow, the smoke 0
+    (ZERO_GRADIENT) with a source of 0.2 a step in the inflow's slab x < 0.25, 0.25 < y, z < 0.75; dt
+    OPEN_TUNNEL_DT, no buoyancy, CG at 1e-3."""
+    import types
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import CenteredGrid
+    from phiflow_tpu_torch.geom import Box
+    from phiflow_tpu_torch.math import ConvergenceException, Solve, extrapolation
+    from phiflow_tpu_torch.physics import fluid
+    zg = extrapolation.ZERO_GRADIENT
+    boundary = extrapolation.combine_sides(x=(math.vec(x=1., y=0., z=0.), zg), y=0, z=0)
+    with math.default_device(device):
+        v = _tunnel_velocity(boundary) if res == TUNNEL_RES else _open_tunnel_velocity(boundary, res, device)
+        dom = dict(bounds=Box(x=4, y=1, z=1), **dict(zip(('x', 'y', 'z'), res)))
+        s = CenteredGrid(0., zg, **dom)
+        inflow = CenteredGrid(Box(x=(0, 0.25), y=(0.25, 0.75), z=(0.25, 0.75)), 0., **dom) * 0.2
+        p = CenteredGrid(0., fluid._pressure_extrapolation(v.boundary), **dom)
+    model = types.SimpleNamespace(dt=OPEN_TUNNEL_DT, max_cells=1, buoyancy=0.)
+    solve = Solve('CG', 1e-3, 0., max_iterations=100, suppress=(ConvergenceException,))
+    return model, (v, s, p), inflow, solve
+
+
+def _open_tunnel_velocity(boundary, res, device):
+    """`_tunnel_velocity` at other cells than TUNNEL_RES (the CPU comparison's)."""
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import StaggeredGrid
+    from phiflow_tpu_torch.geom import Box
+    names = ('x', 'y', 'z')
+    template = StaggeredGrid(0., boundary, bounds=Box(x=4, y=1, z=1), **dict(zip(names, res)))
+    comps = []
+    for a, d in enumerate(names):
+        shape = tuple(template.vector[d].values.shape.only(names, reorder=True).sizes)
+        g = torch.meshgrid(*[torch.arange(n, dtype=torch.float32) / n for n in shape], indexing='ij')
+        wave = torch.sin(2 * 3.141592653589793 * (g[0] + 2 * g[1] + 3 * g[2]) + a) * \
+            torch.cos(2 * 3.141592653589793 * g[(a + 1) % 3])
+        comps.append(((1.0 if d == 'x' else 0.0) + 0.1 * wave).to(device))
+    return template.with_values(math.stack([math.wrap(c, math.spatial(*names)) for c in comps],
+                                           math.dual(vector=names)))
+
+
+def open_cpu_vs_card(tag, make, steps=2, tol=OPEN_STEP_TOL):
+    """`steps` steps of `_open_step` from `make(device)`'s fields on the CPU and on the card, CG at 1e-5 (at the
+    paths' 1e-3 two devices' roundings stop CG at different iterates, which the pressure shows): each field
+    within `tol` of its scale, the CG counts printed."""
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.math import Solve, SolveTape
+    outs, counts = [], []
+    for dev in ('cuda', 'cpu'):
+        model, fields, inflow, solve = make(dev)
+        step = _open_step(model, inflow, Solve(solve.method, 1e-5, 1e-5, max_iterations=300,
+                                               suppress=solve.suppress))
+        v, s, p = fields
+        with math.default_device(dev), SolveTape() as tape:
+            for _ in range(steps):
+                v, s, p = step(v, s, p)
+        counts.append([(i.iterations, i.converged) for i in tape])
+        names = v.resolution.names
+        outs.append([v.vector[d].values.torch(names) for d in names] + [s.values.torch(names), p.values.torch(names)])
+    errs = [_scale_err(a, b) for a, b in zip(*outs)]
+    print(f'10 {tag} card vs CPU, {steps} steps: scaled errors (velocity components, smoke, pressure) '
+          + ', '.join(f'{e:.2e}' for e in errs) + f' (tol {tol:.0e}); CG (iterations, converged) card {counts[0]}, '
+          f'CPU {counts[1]}')
+    if max(errs) > tol:
+        raise RuntimeError(f'{tag} card vs CPU: {errs}')
+
+
+def wake_flow(device, steps, res=WAKE_RES, cg_tol=1e-3):
+    """`examples/wake_flow.py` through the port's public functions: inflow vec(x=1, y=0) at x−, open outflow at
+    x+, ZERO_GRADIENT in y, a sphere obstacle; `steps` steps of its body (semi-Lagrangian self-advection, CG
+    at `cg_tol`, the example's 1e-3, around the cylinder). Returns (velocity, pressure, the example's wake
+    deficit)."""
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import StaggeredGrid
+    from phiflow_tpu_torch.geom import Box, Sphere
+    from phiflow_tpu_torch.math import ConvergenceException, Solve, extrapolation
+    from phiflow_tpu_torch.physics import advect, fluid
+    nx, ny = res
+    with math.default_device(device):
+        boundary = extrapolation.combine_sides(x=(math.vec(x=1.0, y=0.0), extrapolation.ZERO_GRADIENT),
+                                               y=extrapolation.ZERO_GRADIENT)
+        velocity = StaggeredGrid((1.0, 0.0), boundary, x=nx, y=ny, bounds=Box(x=float(nx), y=float(ny)))
+        cylinder = fluid.Obstacle(Sphere(x=24, y=ny / 2 + 1, radius=6))
+        pressure = None
+        for _ in range(steps):
+            velocity = advect.semi_lagrangian(velocity, velocity, 1.0)
+            velocity, pressure = fluid.make_incompressible(velocity, (cylinder,), Solve(
+                'CG', cg_tol, 0., x0=pressure, suppress=(ConvergenceException,)))
+        u = velocity.at_centers().values[{'vector': 'x'}]
+        wake = u.x[30:60].y[ny // 2 - 4:ny // 2 + 4]
+        free = u.x[30:60].y[4:12]
+        deficit = float(math.mean(free) - math.mean(wake))
+    return velocity, pressure, deficit
+
+
+def variable_boundaries(device, steps, cg_tol=1e-4):
+    """`examples/variable_boundaries.py` through the port's public functions: a 64 × 32 channel whose inflow
+    speed at x− oscillates, 1 + 0.5 sin(i / 2), set anew each step, CG at `cg_tol` (the example's 1e-4);
+    returns (velocity, mean u_x)."""
+    import numpy as np
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import StaggeredGrid
+    from phiflow_tpu_torch.geom import Box
+    from phiflow_tpu_torch.math import ConvergenceException, Solve, extrapolation
+    from phiflow_tpu_torch.physics import advect, fluid
+    domain = dict(x=64, y=32, bounds=Box(x=64, y=32))
+
+    def make_velocity(speed):
+        bc = {'x-': math.vec(x=speed, y=0.), 'x+': extrapolation.ZERO_GRADIENT, 'y': 0.}
+        return StaggeredGrid(math.vec(x=speed, y=0.), bc, **domain)
+    with math.default_device(device):
+        values = make_velocity(1.0).values
+        for i in range(steps):
+            speed = float(np.float32(1.0 + 0.5 * np.sin(i * 0.5)))
+            velocity = make_velocity(speed).with_values(values)
+            velocity = advect.semi_lagrangian(velocity, velocity, 0.5)
+            velocity, _ = fluid.make_incompressible(velocity, (), Solve('CG', cg_tol, cg_tol,
+                                                                        suppress=(ConvergenceException,)))
+            values = velocity.values
+        vel = make_velocity(1.0).with_values(values)
+        mean_ux = float(math.mean(vel.values[{'vector': 'x'}]))
+    return vel, mean_ux
+
+
+def _staggered_arrays(v):
+    names = v.resolution.names
+    return [v.vector[d].values.torch(names) for d in names]
+
+
+def run_open_recipes(ch):
+    """10c: examples/wake_flow.py's step at 128 × 64 for its 120 steps, its assert (wake deficit > 0.05) a gate,
+    and examples/variable_boundaries.py's 12 steps, its assert (0.3 < mean u_x < 2, finite) a gate: ms/step,
+    K7 launches a step (exactly 2: the velocity's two components) and nothing else of ours; K7 against its twin
+    on the wake's first-step lookups (its padded inflow grids); 2 steps of each card against CPU within 1e-3
+    of each field's scale, their solves at 1e-5 (converged: at the examples' tolerances the two devices'
+    roundings stop CG at different iterates)."""
+    import math as pymath
+    import torch
+    from phiflow_tpu_torch.math import _nd
+    from phiflow_tpu_torch.ops import _build
+    by_path = {}
+    failed = len(ch.failed)
+    with Recorder(_keep_open_calls, window_interp_2d=_nd) as rec:
+        wake_flow('cuda', 1)
+    modes = check_open_path_kernels(ch, 'wake-flow first step', rec.kept)
+    if len(ch.failed) > failed or 'padded' not in modes:
+        raise RuntimeError(f'wake-flow: K7 against its twin {ch.failed[failed:]}, lookup modes {modes}')
+    for tag, run, steps in (('wake-flow-128x64', lambda: wake_flow('cuda', WAKE_STEPS), WAKE_STEPS),
+                            ('variable-boundaries-64x32', lambda: variable_boundaries('cuda', VARIABLE_STEPS),
+                             VARIABLE_STEPS)):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        launches = dict(_build.LAUNCHES, steps=steps)
+        ours = {k: c for k, c in launches.items() if k in KERNELS and c}
+        v = out[0]
+        finite = all(bool(torch.isfinite(a).all()) for a in _staggered_arrays(v))
+        gate = out[2] > 0.05 if tag.startswith('wake') else (pymath.isfinite(out[1]) and 0.3 < out[1] < 2.0)
+        value = f'wake deficit {out[2]:.3f} (> 0.05)' if tag.startswith('wake') else f'mean u_x {out[1]:.3f} (0.3–2)'
+        ok = gate and finite and ours == {'window_interp_2d': 2 * steps}
+        print(f'10c {tag}: {steps} steps, {ms:.2f} ms/step (host clock, first run); {value}; all finite: {finite}; '
+              f'K7 {launches.get("window_interp_2d", 0) / steps:g} a step; launches {ours}: {"ok" if ok else "FAIL"}')
+        if not ok:
+            raise RuntimeError(f'{tag}: gate {gate}, finite {finite}, launches {ours}')
+        by_path[tag] = launches
+    for tag, run in (('wake-flow', lambda dev: wake_flow(dev, 2, cg_tol=1e-5)[:2]),
+                     ('variable-boundaries', lambda dev: (variable_boundaries(dev, 2, cg_tol=1e-5)[0],))):
+        card, cpu = run('cuda'), run('cpu')
+        errs = []
+        for got, ref in zip(card, cpu):
+            if got.is_staggered:  # each component against the velocity's scale (v_y of the channel is about 0)
+                scale = max(float(b.abs().max()) for b in _staggered_arrays(ref))
+                errs += [float((a.cpu() - b).abs().max()) / scale for a, b in zip(_staggered_arrays(got),
+                                                                                 _staggered_arrays(ref))]
+            else:
+                errs.append(_scale_err(got.values.torch(('x', 'y')), ref.values.torch(('x', 'y'))))
+        print(f'10c {tag} 2 steps card vs CPU: errors of the velocity components and the pressure over their '
+              f'field\'s scale ' + ', '.join(f'{e:.2e}' for e in errs) + f' (tol {OPEN_STEP_TOL:.0e})')
+        if max(errs) > OPEN_STEP_TOL:
+            raise RuntimeError(f'{tag} card vs CPU: {errs}')
+    return by_path
+
+
+def _open_case_fields(dims, device, rule=None):
+    """10d's inputs on `device` from one numpy seed: a centred grid of OPEN_CASES_N[dims] cells under `rule`
+    (an extrapolation's name; BOUNDARY without one), a closed-box staggered velocity of at most 0.8 cells a
+    unit time, and a staggered velocity in an open box with an inflow wall."""
+    import numpy as np
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import CenteredGrid, StaggeredGrid
+    from phiflow_tpu_torch.math import extrapolation
+    N = OPEN_CASES_N[dims]
+    names = ('x', 'y', 'z')[:dims]
+    res = {n: N for n in names}
+    rng = np.random.default_rng(dims)
+    *vel, smoke, _ = smooth_state(N, dims, seed=3)
+    with math.default_device(device):
+        c = CenteredGrid(math.wrap(torch.from_numpy(smoke + 0.1 * rng.standard_normal(smoke.shape).astype(
+            np.float32)).to(device), math.spatial(*names)), getattr(extrapolation, rule or 'BOUNDARY'), **res)
+        closed = _open_values(StaggeredGrid(0., 0., **res), [torch.from_numpy(a * 0.66).to(device) for a in vel])
+        inflow = extrapolation.combine_sides(**{names[0]: (math.vec(**{n: 1. if n == names[0] else 0.
+                                                                         for n in names}),
+                                                           extrapolation.ZERO_GRADIENT)},
+                                             **{n: 0 for n in names[1:]})
+        open_v = _open_values(StaggeredGrid(0., inflow, **res), [torch.from_numpy(a * 0.66).to(device) for a in vel])
+    return c, closed, open_v
+
+
+def _case_arrays(result):
+    """The torch arrays of a Field, a Tensor or a tuple of them."""
+    from phiflow_tpu_torch.field import Field
+    if isinstance(result, tuple):
+        return [a for r in result for a in _case_arrays(r)]
+    if isinstance(result, Field):
+        if result.is_staggered:
+            labels = result.values.shape.get_labels('~vector')
+            return [result.values[{'~vector': d}].torch(result.values[{'~vector': d}].shape.names) for d in labels]
+        return [result.values.torch(result.values.shape.names)]
+    return [result.torch(result.shape.names)]
+
+
+def _case_on(device, fn, dims, rule):
+    """`fn` of `_open_case_fields(dims, device, rule)` under `device` as the default device: its arrays."""
+    from phiflow_tpu_torch import math
+    with math.default_device(device):
+        return _case_arrays(fn(*_open_case_fields(dims, device, rule)))
+
+
+def run_open_cases(ch):
+    """10d: the Field cases of the open-boundary slice on the card against the CPU at 64³ and 256², within
+    1e-4 of each result's scale (1e-3 for advection steps): `laplace`, `resample` onto the closed box's faces,
+    the face `spatial_gradient` and `mac_cormack` of a centred grid under each of OPEN_SIDE_RULES; slicing a
+    centred and a staggered grid; `stagger(at='center')` and over a subset of the dims; `resample(order=4)`;
+    `semi_lagrangian(substeps='auto')` at a CFL of about 3 with max_cells=1 (its substep count, the window
+    lookups it launched and its device syncs); the gather lookups (`max_cells=None`); `rk4` on a grid; lookups
+    at points of a staggered open box; and `math.gradient` of one open-box 2D step: K7ᵀ once for each forward
+    K7 launch."""
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import StaggeredGrid, laplace, resample, spatial_gradient, stagger
+    from phiflow_tpu_torch.geom import Point
+    from phiflow_tpu_torch.math import extrapolation
+    from phiflow_tpu_torch.ops import _build
+    from phiflow_tpu_torch.physics import advect
+    cases = {}
+    for dims in (3, 2):
+        N = OPEN_CASES_N[dims]
+        names = ('x', 'y', 'z')[:dims]
+        for rule in OPEN_SIDE_RULES:
+            for op, fn in (('laplace', lambda c, v, o: laplace(c)),
+                           ('resample', lambda c, v, o: resample(c, to=StaggeredGrid(0., 0., c.bounds, c.resolution))),
+                           ('face gradient', lambda c, v, o: spatial_gradient(c, at='face')),
+                           ('mac_cormack', lambda c, v, o: advect.mac_cormack(c, v, 1.0))):
+                cases[f'{dims}D {rule} {op}'] = (dims, rule, fn, OPEN_STEP_TOL if op == 'mac_cormack' else
+                                                 OPEN_CASE_TOL)
+        half = N // 2
+        cases[f'{dims}D slice centred'] = (dims, None, lambda c, v, o, h=half: c.x[2:h].y[-h:], OPEN_CASE_TOL)
+        cases[f'{dims}D slice staggered'] = (dims, None, lambda c, v, o, h=half: o.x[2:h], OPEN_CASE_TOL)
+        cases[f'{dims}D stagger centres'] = (dims, None, lambda c, v, o: stagger(c, math.minimum, 0., at='center'),
+                                             OPEN_CASE_TOL)
+        cases[f'{dims}D stagger subset'] = (dims, None, lambda c, v, o, n=names: stagger(
+            c, math.maximum, extrapolation.BOUNDARY, dims=[n[-1], n[0]]), OPEN_CASE_TOL)
+        cases[f'{dims}D resample order 4'] = (dims, None, lambda c, v, o: resample(
+            c, to=StaggeredGrid(0., 0., c.bounds, c.resolution), order=4), OPEN_CASE_TOL)
+        cases[f'{dims}D semi_lagrangian gather'] = (dims, None, lambda c, v, o: advect.semi_lagrangian(
+            c, o, 1.0, max_cells=None), OPEN_STEP_TOL)
+        cases[f'{dims}D semi_lagrangian rk4'] = (dims, None, lambda c, v, o: advect.semi_lagrangian(
+            c, o, 1.0, integrator=advect.rk4), OPEN_STEP_TOL)
+        cases[f'{dims}D mac_cormack open box'] = (dims, None, lambda c, v, o: advect.mac_cormack(o, o, 1.0),
+                                                  OPEN_STEP_TOL)
+        cases[f'{dims}D points in the open box'] = (dims, None, lambda c, v, o, n=N: o.sample(Point(math.wrap(
+            torch.linspace(-1., n + 1., 4096, device=o.values.device)[:, None].expand(-1, len(o.resolution.names))
+            .contiguous() * torch.tensor([1.0, 0.37, 0.71][:len(o.resolution.names)], device=o.values.device),
+            math.instance('p'), math.channel(vector=o.resolution.names)))), OPEN_CASE_TOL)
+    for name, (dims, rule, fn, tol) in cases.items():
+        card, cpu = [_case_on(dev, fn, dims, rule) for dev in ('cuda', 'cpu')]
+        errs = [_scale_err(a, b) for a, b in zip(card, cpu)]
+        shapes = len(card) == len(cpu) and all(a.shape == b.shape for a, b in zip(card, cpu))
+        ok = shapes and max(errs) <= tol
+        print(f'10d {name}: card vs CPU scaled error {max(errs):.2e} (tol {tol:.0e}), shapes '
+              f'{[tuple(a.shape) for a in card]}: {"ok" if ok else "FAIL"}')
+        if not ok:
+            raise RuntimeError(f'10d {name}: {errs}, shapes equal {shapes}')
+    by_path = {}
+    for dims in (3, 2):
+        c, closed, _ = _open_case_fields(dims, 'cuda')
+        fast = closed * (2.9 / float(advect.max_displacement_cells(c, closed, 1.0)))  # a CFL of 2.9
+        with math.default_device('cuda'):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            syncs, lines, _ = syncs_a_step(lambda st: advect.semi_lagrangian(st, fast, 1.0, max_cells=1,
+                                                                             substeps='auto'), c)
+            launches = dict(_build.LAUNCHES)
+            m = float(advect.max_displacement_cells(c, fast, 1.0))
+            auto = advect.semi_lagrangian(c, fast, 1.0, max_cells=1, substeps='auto')
+        n = min(max(int(-(-m // 1)), 1), 4)
+        row = f'window_interp_{dims}d'
+        cpu_c, cpu_closed, _ = _open_case_fields(dims, 'cpu')
+        with math.default_device('cpu'):
+            cpu_fast = cpu_closed * (2.9 / float(advect.max_displacement_cells(cpu_c, cpu_closed, 1.0)))
+            ref = advect.semi_lagrangian(cpu_c, cpu_fast, 1.0, max_cells=1, substeps='auto')
+        err = _scale_err(auto.values.torch(auto.values.shape.names), ref.values.torch(ref.values.shape.names))
+        ok = launches.get(row, 0) == n and syncs <= 2 and err <= OPEN_STEP_TOL
+        print(f'10d {dims}D substeps=auto, max |disp| {m:.3f} cells (max_cells 1): {n} substeps, {row} launched '
+              f'{launches.get(row, 0)}, {syncs} device syncs a call ({", ".join(lines)}); card vs CPU {err:.2e} '
+              f'(tol {OPEN_STEP_TOL:.0e}): {"ok" if ok else "FAIL"}')
+        if not ok:
+            raise RuntimeError(f'10d auto substeps {dims}D: launches {launches}, syncs {syncs}, error {err}')
+        by_path[f'open-auto-{dims}d'] = launches
+    by_path['open-grad-2d'] = run_open_gradient()
+    return by_path
+
+
+def run_open_gradient():
+    """10d: `math.gradient` of one step of an open-box 2D flow (the inflow channel of `_open_case_fields`: the
+    smoke's MacCormack, the velocity's semi-Lagrangian self-advection, `make_incompressible` at 1e-5) of
+    L = Σ w·s + Σ w·v_x (w the smooth weight of phase 6, `_smooth_weight`) with respect to the initial
+    velocity and smoke, on the card: K7ᵀ once for each forward K7 launch, finite gradients, and the card's
+    gradient within 1e-4 of its scale of the CPU's (with L = Σ v_x² instead, whose adjoint right-hand side
+    is the whole inflow, the devices' float32 solves left 7.3e-4 at 1e-6 and 8.4e-4 at 1e-5 between them,
+    the advection's parts 4e-7; with w, 5.3e-6)."""
+    import torch
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.math import ConvergenceException, Solve
+    from phiflow_tpu_torch.ops import _build
+    from phiflow_tpu_torch.physics import advect, fluid
+    N = OPEN_CASES_N[2]
+
+    def grads(device, record=None):
+        c, _, v = _open_case_fields(2, device)
+        w = _smooth_weight(N, 2).to(device).double()
+
+        def loss(v, s):
+            s = advect.mac_cormack(s, v, 1.0)
+            v = advect.semi_lagrangian(v, v, 1.0)
+            v, _ = fluid.make_incompressible(v, (), Solve('CG', 1e-5, 1e-5, max_iterations=300,
+                                                          suppress=(ConvergenceException,)))
+            out = (s.values.torch(('x', 'y')).double() * w).sum() + \
+                (v.vector['x'].values.torch(('x', 'y')).double() * w).sum()
+            if record is not None:
+                torch.cuda.synchronize()
+                record['forward'] = dict(_build.LAUNCHES)
+                _build.reset_launches()
+            return out
+        _build.reset_launches()
+        with math.default_device(device):
+            _, gv, gs = math.gradient(loss, wrt=[0, 1])(v, c)
+        return [a.detach() for a in _staggered_arrays(gv)] + [gs.values.torch(('x', 'y')).detach()]
+    record = {}
+    card = grads('cuda', record)
+    torch.cuda.synchronize()
+    backward = dict(_build.LAUNCHES)
+    cpu = grads('cpu')
+    errs = [_scale_err(a, b) for a, b in zip(card, cpu)]
+    finite = all(bool(torch.isfinite(a).all()) for a in card)
+    k7 = record['forward'].get('window_interp_2d', 0)
+    ok = k7 > 0 and backward.get('window_interp_2d_grad', 0) == k7 and finite and max(errs) <= OPEN_CASE_TOL
+    print(f'10d open-grad-2d {N}^2, 1 step: math.gradient of the loss; launches forward window_interp_2d={k7}, '
+          f'backward window_interp_2d_grad={backward.get("window_interp_2d_grad", 0)}; card vs CPU scaled errors '
+          + ', '.join(f'{e:.2e}' for e in errs) + f' (tol {OPEN_CASE_TOL:.0e}); finite {finite}: '
+          f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        raise RuntimeError(f'open-grad-2d: forward {record["forward"]}, backward {backward}, errors {errs}')
+    return {k: record['forward'].get(k, 0) + backward.get(k, 0) for k in KERNELS}
+
+
+def run_open_boundaries(ch):
+    """Phase 10: open and mixed boundaries (10a–10d)."""
+    import torch
+    part = PhaseClock('part of phase')
+    by_path = {}
+    model, fields, inflow, solve = open_plume()
+    by_path[f'open-plume-{OPEN_N}'] = run_open_path(ch, f'open-plume-{OPEN_N}', model, fields, inflow, solve,
+                                                    f'{OPEN_N}^3', OPEN_N ** 3)
+    del model, fields, inflow
+    torch.cuda.empty_cache()
+    part.done(f'10a open-plume-{OPEN_N}')
+    size = 'x'.join(str(n) for n in TUNNEL_RES)
+    model, fields, inflow, solve = open_tunnel()
+    by_path[f'tunnel-step-{size}'] = run_open_path(ch, f'tunnel-step-{size}', model, fields, inflow, solve, size,
+                                                   TUNNEL_RES[0] * TUNNEL_RES[1] * TUNNEL_RES[2])
+    del model, fields, inflow
+    torch.cuda.empty_cache()
+    part.done(f'10b tunnel-step-{size}')
+    open_cpu_vs_card('open-plume-48', lambda dev: open_plume(48, dev))
+    open_cpu_vs_card('tunnel-step-64x32x32', lambda dev: open_tunnel(dev, (64, 32, 32)))
+    part.done('10a-10b CPU against card')
+    by_path.update(run_open_recipes(ch))
+    part.done('10c the 2D recipes')
+    by_path.update(run_open_cases(ch))
+    torch.cuda.empty_cache()
+    part.done('10d the Field cases')
+    return by_path
+
+
+class PhaseClock:
+    """Seconds of each phase (or part of one) on the host clock, printed on a line of its own as it ends."""
+
+    def __init__(self, what='phase'):
+        self.what, self.t, self.seconds = what, time.perf_counter(), {}
+
+    def done(self, phase):
+        now = time.perf_counter()
+        self.seconds[phase] = now - self.t
+        print(f'{self.what} {phase}: {self.seconds[phase]:.1f} s')
+        self.t = now
 
 
 def card_line():
@@ -4724,6 +5406,7 @@ def main(argv):
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 1
     from phiflow_tpu_torch.ops import _build
+    clock = PhaseClock()
     card = card_line()
     print(f'card: {card}')
     print(f'torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}, '
@@ -4750,6 +5433,7 @@ def main(argv):
         for entry, n_regs, n_spill in ptxas_entries(log):
             if 'march::stencil_kernel' in entry or 'window_interp' in entry or 'p2g' in entry:
                 print(f'build: {name}.cu {entry}: {n_regs} registers, {n_spill} bytes of spill stores')
+    clock.done('1-2 card and build')
     ch = Checks()
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
@@ -4770,9 +5454,11 @@ def main(argv):
     print(f'checks: {time.perf_counter() - t0:.1f} s, {sum(ch.passed.values())} passed, {len(ch.failed)} failed')
     if ch.failed:
         raise RuntimeError(f'kernel checks failed: {ch.failed}')
+    clock.done('3 kernels against their twins (and 9a)')
     if quick:
         return 0
     by_path = {}
+    part = PhaseClock('part of phase')
     for tag, dims, N, per_phase, required in PATHS:
         by_path[tag], state, iters = run_slice(tag, dims, N, per_phase, required)
         if tag == 'per-phase':
@@ -4782,9 +5468,11 @@ def main(argv):
     by_path['per-phase-field'] = run_field('per-phase-field', PATH_N, phase_state, by_path['per-phase'], phase_iters)
     field_against_array(PATH_N, phase_state)
     torch.cuda.empty_cache()
+    part.done('4a-4c smoke paths and 4-field')
     for N in FLIP_N:
         by_path[f'flip-{N}'] = run_flip(f'flip-{N}', N)
         torch.cuda.empty_cache()
+    part.done('4d-4e FLIP')
     by_path[f'obstacle-{OBSTACLE_N}'] = run_obstacles(f'obstacle-{OBSTACLE_N}', OBSTACLE_N)
     torch.cuda.empty_cache()
     by_path[f'obstacle-{OBSTACLE_N}-vcycle'] = run_obstacles(f'obstacle-{OBSTACLE_N}-vcycle', OBSTACLE_N, warmup=1,
@@ -4793,23 +5481,39 @@ def main(argv):
     from phiflow_tpu_torch.models import LidDrivenCavity, MovingObstacles
     by_path['moving-obstacles-2d'] = run_model_2d('moving-obstacles-2d', MovingObstacles(256, device='cuda'))
     by_path['cavity-2d'] = run_model_2d('cavity-2d', LidDrivenCavity(256, obstacle=True, device='cuda'))
+    part.done('4f-4g obstacles and the 2D obstacle models')
     by_path.update(run_grid_models(ch))
+    part.done('4 2D grid models')
     by_path.update(run_sph_models())
+    part.done('4 SPH')
     by_path.update(run_fvm_models())
+    part.done('4 FVM')
     print_path_gaps(ch, by_path)
+    clock.done('4 paths')
     cpu_vs_card('fused', 3, 64, False)
     cpu_vs_card('per-phase', 3, 64, True)
     cpu_vs_card('per-phase-2d', 2, 256, True)
+    part.done('5 smoke paths')
     flip_cpu_vs_card()
+    part.done('5 FLIP')
     obstacles_cpu_vs_card()
     obstacles_cpu_vs_card(preconditioner='vcycle')
+    part.done('5 obstacles')
     field_cpu_vs_card('per-phase-field', 3, 64)
     field_cpu_vs_card('per-phase-field-2d', 2, 256)
     field_obstacle_against_array()
+    part.done('5 Field paths')
+    clock.done('5 CPU against card')
     by_path.update(run_gradients())
+    clock.done('6 gradients')
     by_path.update(run_optimisation())
+    clock.done('7 optimisation')
     by_path.update(run_solvers(ch))
+    clock.done('8 solvers and projections')
     by_path.update(run_batched(ch, gen))
+    clock.done('9 batched simulation')
+    by_path.update(run_open_boundaries(ch))
+    clock.done('10 open boundaries')
     if '--profile' in argv:
         for tag, dims, N, per_phase, _ in PATHS:
             profile_slice(tag, dims, N, per_phase)
@@ -4830,6 +5534,8 @@ def main(argv):
                          launches=int(by_path[COUNTED_ON[name]].get(counter, 0)), launches_path=COUNTED_ON[name],
                          launches_by_path={tag: int(c.get(counter, 0)) for tag, c in by_path.items()},
                          max_abs_err=ch.max_err[name], checks_passed=ch.passed[name], **ch.timing[name]))
+    print(f'phases: ' + ', '.join(f'{k} {v:.1f} s' for k, v in clock.seconds.items())
+          + f'; {sum(clock.seconds.values()):.1f} s in all')
     print(f'card: {card}')
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -202,8 +202,14 @@ class Field:
 
     @property
     def center(self) -> Tensor:
-        """The sample points of a centred grid or a point cloud."""
-        assert self.is_centered, "the sample points of a staggered grid come with a later slice of the port"
+        """The sample points: of a centred grid or a point cloud its
+        geometry's centres, of a staggered grid the centres of each
+        component's face grid, stacked along `~vector` (JAX's
+        `sampled_elements`)."""
+        if self.is_staggered and self.is_grid:
+            names = self.resolution.names
+            return TensorStack([self._geometry.stagger(d, *self._boundary.valid_outer_faces(d)).center
+                                for d in names], dual(vector=names))
         return self._geometry.center
 
     points = center
@@ -263,6 +269,11 @@ class Field:
             return self
         from ._resample import sample
         return Field(self._geometry, sample(self, self._geometry, at='center', boundary=self._boundary), self._boundary)
+
+    def sample(self, where, at: str = 'center', **kwargs) -> Tensor:
+        """This Field at the sample points of `where` (`field.sample`)."""
+        from ._resample import sample
+        return sample(self, where, at=at, **kwargs)
 
     def staggered_tensor(self) -> Tensor:
         """All components padded to resolution+1 and stacked into one uniform tensor."""
@@ -358,9 +369,11 @@ class Field:
         if not item:
             return self
         boundary = domain_slice(self._boundary, item, self.boundary_names)
-        if any(k != 'vector' for k in item):
-            raise NotImplementedError("slicing a Field along its grid dims comes with a later slice of the port")
-        geometry = self._geometry
+        item_without_vec = {dim: sel for dim, sel in item.items() if dim != 'vector'}
+        if item_without_vec and not self.is_grid:
+            raise NotImplementedError("slicing a point cloud or a mesh Field along its dims comes with a later slice "
+                                      "of the port")
+        geometry = self._geometry[item_without_vec] if item_without_vec else self._geometry
         if self.is_staggered and 'vector' in item:
             sel = item['vector']
             labels = self.resolution.names
@@ -372,7 +385,9 @@ class Field:
                 names = [labels[i] if isinstance(i, int) else i for i in sel]
             else:
                 names = list(labels)
-            item = {'~vector': names[0] if len(names) == 1 else ','.join(names)}
+            item = dict(item)
+            del item['vector']
+            item['~vector'] = names[0] if len(names) == 1 else ','.join(names)
             if len(names) == 1:
                 geometry = geometry.stagger(names[0], *self._boundary.valid_outer_faces(names[0]))
         values = self._values[{k: v for k, v in item.items() if k in self._values.shape or k == '~vector'}]

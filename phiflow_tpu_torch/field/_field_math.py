@@ -31,11 +31,13 @@ computes them, `curl` (2D), the elementwise functions, `normalize`,
 `field.stack`: named so here beside the array layer's `pad` and math's
 `stack`) and `bake_extrapolation`. Each unwraps to the array-level
 function of the same job, with one cell size per axis and the faces and
-ghost cells its boundary gives (`_face_layout`, `_native_sides`); a case
-that function does not cover (a subset of the dims for staggered values, a
-boundary with no array-layer form — SYMMETRIC, REFLECT, a non-constant
-wall —, dims other than the grid's, batch dims and one channel dim) raises
-NotImplementedError. Batch dims ride along as the array layer's leading
+ghost cells its boundary gives (`_face_layout`, `_native_sides`: constants,
+BOUNDARY, PERIODIC and the mirrors SYMMETRIC, REFLECT, ANTISYMMETRIC,
+ANTIREFLECT and SYMMETRIC_GRADIENT, by side too); `stagger` and the face
+gradient over a subset of the dims give those components. A case that
+function does not cover (a wall of a staggered grid whose normal velocity
+is no scalar constant, dims other than the grid's, batch dims and one
+channel dim) raises NotImplementedError. Batch dims ride along as the array layer's leading
 axes, so an operation runs once for the whole batch. The central differences of `spatial_gradient(at='center')`
 (order 2, and order 4 over ghost cells on a periodic box, `:107-121`, `:66-79`
 for the Laplacian) have no array-level counterpart and are computed on the
@@ -50,9 +52,9 @@ import numpy as np
 import torch
 
 from ..math import Tensor, TensorStack, channel, dual, instance, stack, wrap, _ops as ops
-from ..math._extrapolation import (ConstantExtrapolation, _BoundaryExtrapolation, _MixedExtrapolation,
-                                   _PeriodicExtrapolation, get_normal, map as map_extrapolation, to_native)
-from ..math._nd import BOUNDARY, PERIODIC, Extrapolation, PerSide, masked_fill_native, pad, shift_zero
+from ..math._extrapolation import (ConstantExtrapolation, _PeriodicExtrapolation, _side_of as _side_ext,
+                                   _side_to_native, get_normal, map as map_extrapolation, to_native)
+from ..math._nd import PERIODIC, Extrapolation, PerSide, masked_fill_native, pad, shift_zero
 from ._field import Field, as_boundary, face_components, face_values
 
 __all__ = ['face_layout', 'stored_faces', 'divergence_native', 'spatial_gradient_native', 'finite_fill_native', 'stagger_native', 'safe_mul_native',
@@ -115,20 +117,24 @@ def divergence_native(velocity: Sequence[torch.Tensor], dx, faces=None) -> torch
 
 
 def spatial_gradient_native(p: torch.Tensor, dx, faces=None,
-                            extrap: Extrapolation = 0.0, ndim: int = None) -> Tuple[torch.Tensor, ...]:
+                            extrap: Extrapolation = 0.0, ndim: int = None, axes: Sequence[int] = None
+                            ) -> Tuple[torch.Tensor, ...]:
     """∇p at the faces the velocity stores (`faces`, the face layout; the
     closed box of p's rank by default): (p[c] − p[c−1]) /
     dx_d for face c of axis d (`dx`: one cell size, or one per axis); beyond
     a stored outer face the ghost cell comes from `extrap`, p's extrapolation
-    (0: ghost cells of 0; `BOUNDARY`: no flux). `ndim`: the grid's axes,
-    the trailing ones (default all; leading axes are a batch)."""
+    (0: ghost cells of 0; `BOUNDARY`: no flux; along a periodic axis of the
+    faces, p's own rule gives face 0). `ndim`: the grid's axes, the trailing
+    ones (default all; leading axes are a batch). `axes`: the components to
+    compute, in their order (default all)."""
     nd = _grid_rank(p, ndim, faces)
     h = _per_axis(dx, nd)
     layout = _faces(faces, nd)
     comps = []
-    for d in range(nd):
+    for d in (range(nd) if axes is None else axes):
         ax = d - nd
-        if layout[d] == 'periodic':
+        rule = extrap[ax] if isinstance(extrap, PerSide) else (extrap, extrap)
+        if layout[d] == 'periodic' and rule == (PERIODIC, PERIODIC):
             comps.append((p - torch.roll(p, 1, ax)) / h[d])
         else:
             lo, up = stored_faces(layout[d])
@@ -170,24 +176,42 @@ def finite_fill_native(values: torch.Tensor, distance: int = 1, ndim: int = None
 
 
 def stagger_native(values: torch.Tensor, face_function: Callable, extrap: Extrapolation,
-                   faces=None, ndim: int = None) -> Tuple[torch.Tensor, ...]:
+                   faces=None, ndim: int = None, axes: Sequence[int] = None) -> Tuple[torch.Tensor, ...]:
     """A centred grid at the faces a staggered field stores: each face gets
     `face_function` of its two cells (`torch.minimum` makes a face open only
     where both cells are). `extrap` is the centred grid's extrapolation, which
     gives the cells beyond the outer faces; `faces` is the staggered field's
     face layout (the closed box of the values' rank by default) and decides
     which faces it stores. `ndim`: the grid's axes, the trailing ones
-    (default all; leading axes are a batch)."""
+    (default all; leading axes are a batch). `axes`: the components to
+    compute, in their order (default all)."""
     nd = _grid_rank(values, ndim, faces)
     layout = _faces(faces, nd)
     comps = []
-    for d in range(nd):
+    for d in (range(nd) if axes is None else axes):
         axis = d - nd
         padded = pad(values, axis, 1, 1, extrap)
         n = values.shape[axis]
         faces_all = face_function(padded.narrow(axis, 0, n + 1), padded.narrow(axis, 1, n + 1))
         lo, up = stored_faces(layout[d])
         comps.append(faces_all.narrow(axis, int(not lo), n + 1 - int(not lo) - int(not up)))
+    return tuple(comps)
+
+
+def stagger_centres_native(values: torch.Tensor, face_function: Callable, extrap: Extrapolation,
+                           ndim: int = None, axes: Sequence[int] = None) -> Tuple[torch.Tensor, ...]:
+    """`stagger` at the cell centres (JAX's `at='center'`, `:215-224`): per
+    axis the face function of the two faces of each cell, each face the face
+    function of its two cells, the cells beyond the grid from `extrap`."""
+    nd = _grid_rank(values, ndim)
+    comps = []
+    for d in (range(nd) if axes is None else axes):
+        axis = d - nd
+        padded = pad(values, axis, 1, 1, extrap)
+        n = values.shape[axis]
+        lower = face_function(padded.narrow(axis, 0, n), padded.narrow(axis, 1, n))
+        upper = face_function(padded.narrow(axis, 1, n), padded.narrow(axis, 2, n))
+        comps.append(face_function(lower, upper))
     return tuple(comps)
 
 
@@ -238,24 +262,13 @@ def _native_form(ext, names):
 
 def _native_extrap(ext, names):
     """`to_native`, naming the operation that needs it when it fails."""
-    form = _native_form(ext, names)
-    if form is None:
-        raise NotImplementedError(f"extrapolation {ext!r} has no array-layer form: a scalar constant, BOUNDARY, "
-                                  f"PERIODIC or constants by side are ported")
-    return form
-
-
-def _side_ext(ext, dim: str, upper: bool):
-    """The extrapolation of one side of `dim` (a mixed one resolved)."""
-    while isinstance(ext, _MixedExtrapolation):
-        ext = ext._get(dim, upper)
-    return ext
+    return to_native(ext, names)
 
 
 def _native_sides(field):
     """`field.boundary` as the array layer's extrapolation: `to_native`'s form
-    where it has one, else a `PerSide` of constants, BOUNDARY, PERIODIC and
-    the ghost cells a Field embedding samples (`ghost_cells`)."""
+    where it has one, else a `PerSide` of its side rules and the ghost cells
+    a Field embedding samples (`ghost_cells`)."""
     names = field.resolution.names
     form = _native_form(field.boundary, names)
     if form is not None:
@@ -265,17 +278,14 @@ def _native_sides(field):
         pair = []
         for upper in (False, True):
             e = _side_ext(field.boundary, dim, upper)
-            if isinstance(e, ConstantExtrapolation) and e.value.rank == 0:
-                pair.append(float(e.value))
-            elif isinstance(e, _BoundaryExtrapolation):
-                pair.append(BOUNDARY)
-            elif isinstance(e, _PeriodicExtrapolation):
-                pair.append(PERIODIC)
+            rule = _side_to_native(e)
+            if rule is not None:
+                pair.append(rule)
             elif hasattr(e, 'ghost_cells'):
                 pair.append(e.ghost_cells(field.geometry, dim, upper))
             else:
                 raise NotImplementedError(f"extrapolation {e!r} has no array-layer form: constants, BOUNDARY, "
-                                          f"PERIODIC and Field embeddings are ported, by side")
+                                          f"PERIODIC, the mirrors and Field embeddings are ported, by side")
         sides.append(tuple(pair))
     return PerSide(*sides)
 
@@ -322,18 +332,6 @@ def _check_staggered_shapes(field, layout):
                                       f"boundary {field.boundary!r} gives")
 
 
-def _layout(field):
-    """'closed' when every axis of a staggered grid has a wall on both sides
-    (its interior faces stored: the array layer's closed box), 'periodic'
-    when every axis is periodic, else None: `_face_layout`'s classes."""
-    layout = _face_layout(field.boundary, field.resolution.names, walls=False)
-    if all(f == 'periodic' for f in layout):
-        return 'periodic'
-    if all(f != 'periodic' and None not in f for f in layout):
-        return 'closed'
-    return None
-
-
 def _plain_values(values, names) -> bool:
     return set(values.shape.names) == set(names)
 
@@ -362,17 +360,17 @@ def _batch_tensor(arr, batch, grid):
     return Tensor(arr, concat_shapes(batch, grid.with_sizes(tuple(arr.shape[batch.rank:]))))
 
 
-def _array_layout(field, dims):
-    """The array layer's layout of the staggered `field` ('closed' or
-    'periodic'); NotImplementedError for a dims subset or another layout."""
+def _array_layout(field, dims=None):
+    """The array layer's face layout of the staggered `field` (`_face_layout`,
+    any wall read as a wall: the extrapolation of each component pads it),
+    its components checked to store those faces; NotImplementedError for
+    a dims subset."""
     names = field.resolution.names
-    if tuple(dims) != tuple(names):
+    if dims is not None and tuple(dims) != tuple(names):
         raise NotImplementedError(f"staggered values over dims {tuple(dims)} of {names}: all grid dims in the "
                                   f"grid's order are ported")
-    layout = _layout(field)
-    if layout is None:
-        raise NotImplementedError(f"boundary {field.boundary!r}: staggered grids of the closed box (interior "
-                                  f"faces) or the periodic box are ported")
+    layout = _face_layout(field.boundary, names, walls=False)
+    _check_staggered_shapes(field, layout)
     return layout
 
 
@@ -395,13 +393,14 @@ def _grid_values(values, names, fn):
     return stack([one(values[{rest.name: i}]) for i in range(rest.size)], rest)
 
 
-def _staggered(field, comps, boundary, batch=None):
-    """Face arrays ((*batch,) x, y[, z]) as a staggered Field on `field`'s grid."""
+def _staggered(field, comps, boundary, batch=None, dims=None):
+    """Face arrays ((*batch,) x, y[, z]) as a staggered Field on `field`'s
+    grid: one component per dim of `dims` (default all grid dims)."""
     from ..math._shape import EMPTY_SHAPE
     batch = EMPTY_SHAPE if batch is None else batch
     grid = field.values.shape.only(field.resolution.names, reorder=True)
     return Field(field.geometry, TensorStack([_batch_tensor(c, batch, grid) for c in comps],
-                                             dual(vector=field.resolution.names)), boundary)
+                                             dual(vector=list(dims or field.resolution.names))), boundary)
 
 
 def _dx(field, dim):
@@ -504,20 +503,12 @@ def spatial_gradient(field, boundary=None, at: str = 'center', dims=None, stack_
         if order > 2:
             from ._higher_order import higher_order_gradient
             return higher_order_gradient(field, grad_ext, at, dims, stack_dim, order, implicit)
-        if tuple(dims) != tuple(names):
-            raise NotImplementedError(f"the face gradient over dims {tuple(dims)} of {names}: all grid dims in the "
-                                      f"grid's order are ported")
         layout = _face_layout(grad_ext, names, walls=False)
-        extrap = _native_sides(field)
-        for axis, axis_faces in enumerate(layout):
-            if axis_faces == 'periodic' and (extrap[axis] if isinstance(extrap, PerSide) else (extrap,) * 2) != \
-                    (PERIODIC, PERIODIC):
-                raise NotImplementedError(f"the face gradient of a grid with boundary {field.boundary!r} onto "
-                                          f"periodic faces: a periodic grid is ported")
         batch = _batch_dims([v], names, 'the face gradient')
-        comps = spatial_gradient_native(_batch_native(v, batch, names), _dx_tuple(field), faces=layout, extrap=extrap,
-                                        ndim=len(names))
-        return _staggered(field, comps, grad_ext, batch)
+        comps = spatial_gradient_native(_batch_native(v, batch, names), _dx_tuple(field), faces=layout,
+                                        extrap=_native_sides(field), ndim=len(names),
+                                        axes=[names.index(d) for d in dims])
+        return _staggered(field, comps, grad_ext, batch, dims)
     if at != 'center':
         raise ValueError(at)
     comps = {}
@@ -538,26 +529,33 @@ def spatial_gradient(field, boundary=None, at: str = 'center', dims=None, stack_
 def stagger(field, face_function: Callable, boundary, at='face', dims=None):
     """A centred grid at the faces (`stagger_native`): each face gets
     `face_function` of its two cells, the cells beyond the outer faces from
-    `field.boundary`; the faces stored follow `boundary`."""
-    if at != 'face':
-        raise NotImplementedError("stagger at='center' comes with a later slice of the port")
+    `field.boundary`; the faces stored follow `boundary`. Over `dims` (all
+    grid dims by default) in their order: a staggered grid of those
+    components. ``at='center'`` gives each cell the face function of its two
+    faces' values (`stagger_centres_native`), stacked along `vector`."""
     boundary = as_boundary(boundary, field.geometry)
     names = field.resolution.names
     assert field.is_centered and field.is_grid
+    dims = list(dims or names)
     v = field.values
-    if tuple(dims or names) != tuple(names):
-        raise NotImplementedError(f"stagger over dims {tuple(dims)} of {names}: all grid dims in the grid's order "
-                                  f"are ported")
-    layout = _face_layout(boundary, names, walls=False)
     batch = _batch_dims([v], names, 'stagger')
     grid = v.shape.only(names, reorder=True)
+    axes = [names.index(d) for d in dims]
 
     def native_fn(lower, upper):
         return _batch_native(face_function(_batch_tensor(lower, batch, grid), _batch_tensor(upper, batch, grid)),
                              batch, names)
+    if at == 'center':
+        comps = stagger_centres_native(_batch_native(v, batch, names), native_fn, _native_sides(field),
+                                       ndim=len(names), axes=axes)
+        return Field(field.geometry, stack({d: _batch_tensor(c, batch, grid) for d, c in zip(dims, comps)},
+                                           channel('vector')), boundary)
+    if at != 'face':
+        raise ValueError(at)
+    layout = _face_layout(boundary, names, walls=False)
     comps = stagger_native(_batch_native(v, batch, names), native_fn, _native_sides(field), faces=layout,
-                           ndim=len(names))
-    return _staggered(field, comps, boundary, batch)
+                           ndim=len(names), axes=axes)
+    return _staggered(field, comps, boundary, batch, dims)
 
 
 def divergence(field, order=2, implicit=None, upwind=None):

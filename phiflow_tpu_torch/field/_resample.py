@@ -11,9 +11,11 @@ component → faces of another, and centres → faces (the buoyancy lift) are al
 this one operation.
 
 A grid's staggering is its own axis: None for a centred grid, d for the face
-component d. Layouts: in the closed box component d holds the interior faces
-1..N−1 along axis d (N−1 entries, the walls are the extrapolation); in the
-periodic box faces 0..N−1 (N entries).
+component d. Its faces follow a face layout (`_field_math.face_layout`): in
+the closed box component d holds the interior faces 1..N−1 along axis d
+(N−1 entries, the walls are the extrapolation); in the periodic box faces
+0..N−1 (N entries); an open side stores its outer face too (N + 1 entries
+with both).
 
 `scatter_to_grid` ports `scatter_to_grid` / `_scatter_to_centered` with
 ``scatter=True`` (`:361-411`) for the closed box: the mean of the particles'
@@ -21,27 +23,34 @@ values per nearest sample point, through K8 (`ops/p2g.py`) once per target
 grid. The face grid of component d is the cell grid shifted by half a cell
 along d, one entry shorter there. `sample_grid_at_points` ports the function
 of that name (`:251-262`): multilinear interpolation at particle positions, a
-gather written with PyTorch indexing (the JAX package has no kernel for it).
+gather written with PyTorch indexing (the JAX package has no kernel for it),
+the grid continued by any rule of `math._nd` one cell deep, as JAX's
+`grid_sample` pads it.
 
 `geometry_mask` ports `_geometry_mask` (`:151-158`) and the `at='face'` route
 of `sample` (`:77-80`): hard, 1 where a sample point lies inside; soft, the
 fraction of the sample point's cell inside. `staggered_cells` gives the face
 grids in the layouts above.
 
-The domain's lower corner is the origin.
+The array layer's particle functions (`scatter_to_grid`,
+`sample_staggered_at_points`) take a domain whose lower corner is the
+origin; the Field layer passes any grid's own corners.
 
 The Field layer (`resample`, `sample`, `reduce_sample`, `grid_scatter`,
 JAX's signatures) unwraps into these: a grid between half-cell-shifted grids
 into `half_shift_native`, between any other grids into `math.grid_sample` at
 the target's cell centres (`sample_field_at_points`, JAX's
 `sample_grid_at_points`); a point
-cloud onto a centred or closed-box staggered grid with ``scatter=True``
-(`:32-64`, `:361-411`) into `scatter_to_grid` — K8 once per target grid in 3D
-on the card — with the base from the point cloud's constant boundary (NaN for
-FLIP); a grid at the points of a point cloud, a `Point` or a `Sphere`
-(`:196-230`) into `sample_grid_at_points` / `sample_staggered_at_points`.
+cloud onto a centred or a staggered grid in any face layout with
+``scatter=True`` (`:32-64`, `:361-411`) into `p2g_mean` — K8 once per
+target grid in 3D on the card — with the base from the point cloud's
+constant boundary (NaN for FLIP); a grid at the points of a point cloud, a
+`Point` or a `Sphere` (`:196-230`) into `sample_grid_at_points`, each face
+component on its own face grid.
 A mesh Field at points goes to `field/_mesh_math.py::sample_mesh_field`
 (`:107-109`); constants and callables at a mesh give values at its cells.
+Between half-shifted grids `order` 4 or 6 applies `_stencil1d.interp_matrix`
+along each axis whose sides classify (JAX's `_shift_resample`, `:310`).
 """
 from __future__ import annotations
 
@@ -58,11 +67,11 @@ from ..geom._mesh import Mesh
 from ..math import Tensor, channel, dual, expand, extrapolation, stack, to_float, wrap
 from ..math._shape import concat_shapes
 from ..math._extrapolation import ConstantExtrapolation
-from ..math._nd import Extrapolation, pad
+from ..math._nd import PERIODIC, Extrapolation, PerSide, pad
 from ..ops.p2g import p2g_mean
 from ._field import Field, FieldInitializer, as_boundary, face_components, face_values
-from ._field_math import (_batch_dims, _batch_native, _dx_tuple, _grid_values, _layout, _native_extrap,
-                          _plain_values)
+from ._field_math import (_batch_dims, _batch_native, _dx_tuple, _face_layout, _grid_values, _native_extrap,
+                          _plain_values, face_layout, stored_faces)
 from ._grid import expand_staggered
 
 __all__ = ['sample_grid_at_centers', 'half_shift_native', 'scatter_to_grid', 'sample_grid_at_points', 'sample_staggered_at_points',
@@ -71,26 +80,53 @@ __all__ = ['sample_grid_at_centers', 'half_shift_native', 'scatter_to_grid', 'sa
 
 
 def sample_grid_at_centers(values: torch.Tensor, own_axis: Optional[int], target_axis: Optional[int],
-                           extrap: Extrapolation, periodic: bool, ndim: Optional[int] = None) -> torch.Tensor:
+                           extrap: Extrapolation, faces, ndim: Optional[int] = None, target_faces=None) -> torch.Tensor:
     """`values`, staggered along `own_axis` (None: centred), at the sample
     points of a grid staggered along `target_axis`. `extrap` is the source's
-    extrapolation; `periodic` says which layout the staggered grids have.
-    `ndim`: the grid's axes, the trailing ones (default all; leading axes are
-    a batch).
+    extrapolation; `faces` is the face layout of the source (`face_layout`;
+    True / False: the periodic / closed box), `target_faces` the target's
+    where it differs. `ndim`: the grid's axes, the trailing ones (default
+    all; leading axes are a batch).
 
-    Per shifted axis, (lower, upper) padding then the 2-point average:
-    faces → centres (1, 1) in the closed box, (0, 1) periodic;
-    centres → faces (0, 0) in the closed box, (1, 0) periodic."""
+    Per shifted axis, (lower, upper) padding then the 2-point average: faces
+    → centres pad the outer faces the source does not store (closed box (1,
+    1), open box (0, 0), periodic (0, 1)), centres → faces the outer faces
+    the target stores (closed (0, 0), open (1, 1), periodic (1, 0)). Faces
+    → faces of one axis in two layouts pad or cut the outer faces (the JAX
+    package looks these up by `grid_sample`, `:234-248`: the same values)."""
+    nd = values.ndim if ndim is None else ndim
+    source = _face_layout_of(faces, nd)
+    target = source if target_faces is None else _face_layout_of(target_faces, nd)
     pads = []
-    for axis in range(values.ndim if ndim is None else ndim):
+    for axis in range(nd):
         from_faces, to_faces = own_axis == axis, target_axis == axis
-        if from_faces == to_faces:
+        if from_faces and to_faces:
+            values = _relayout(values, axis - nd, stored_faces(source[axis]), stored_faces(target[axis]), extrap)
             pads.append(None)
         elif from_faces:
-            pads.append((0, 1) if periodic else (1, 1))
+            lo, up = stored_faces(source[axis])
+            pads.append((int(not lo), int(not up)))
+        elif to_faces:
+            lo, up = stored_faces(target[axis])
+            pads.append((int(lo), int(up)))
         else:
-            pads.append((1, 0) if periodic else (0, 0))
+            pads.append(None)
     return half_shift_native(values, pads, extrap)
+
+
+def _face_layout_of(faces, ndim: int) -> tuple:
+    return face_layout(faces, ndim) if isinstance(faces, bool) else tuple(faces)
+
+
+def _relayout(values: torch.Tensor, axis: int, source: Tuple[bool, bool], target: Tuple[bool, bool],
+              extrap: Extrapolation) -> torch.Tensor:
+    """The faces of one axis stored as `source` says ((lower, upper) outer
+    faces), as `target` stores them: outer faces cut, or padded by `extrap`."""
+    lower, upper = int(target[0]) - int(source[0]), int(target[1]) - int(source[1])
+    if lower < 0 or upper < 0:
+        start = max(-lower, 0)
+        values = values.narrow(axis, start, values.shape[axis] - start - max(-upper, 0))
+    return pad(values, axis, max(lower, 0), max(upper, 0), extrap)
 
 
 def half_shift_native(values: torch.Tensor, pads: Sequence[Optional[Tuple[int, int]]],
@@ -200,28 +236,40 @@ def sample_grid_at_points(values: torch.Tensor, points: torch.Tensor, lower: Seq
                           upper: Sequence[float], extrap: Extrapolation = 0.0) -> torch.Tensor:
     """Multilinear interpolation of a grid at `points` (N, d). The grid's
     sample points are the centres of values.shape cells dividing the box
-    [lower, upper]; beyond them the grid continues with the constant `extrap`.
-    Leading axes of `values` beyond the d of `lower` are a batch: the result
-    is (*batch, N).
+    [lower, upper]; beyond them the grid continues by `extrap`, any rule of
+    `math._nd` (a constant, BOUNDARY, a mirror, PerSide), one cell deep as
+    the JAX package's `grid_sample` pads it; along a PERIODIC axis the
+    points wrap. Leading axes of `values` beyond the d of `lower` are a
+    batch: the result is (*batch, N); `points` (*batch, N, d) gives each
+    entry its own points.
 
     A corner of weight 0 is left out of the sum instead of multiplied, so a
     NaN there (the unset cells of a FLIP grid) does not reach the result — the
     behaviour of the JAX package's lookup for particle sets."""
-    if not isinstance(extrap, (int, float)):
-        raise NotImplementedError(f"extrapolation {extrap!r}: only a constant is ported for lookups at points")
     d = len(lower)
     lead = tuple(values.shape[:-d])
-    padded = torch.nn.functional.pad(values, (1, 1) * d, value=float(extrap))
+    if points.ndim > 2 and tuple(points.shape[:-2]) != lead:
+        raise ValueError(f"points {tuple(points.shape)} for values {tuple(values.shape)}: (N, {d}) or the values' "
+                         f"leading axes before (N, {d}) expected")
+    padded = values
+    for a in range(d):
+        rule = extrap[a - d] if isinstance(extrap, PerSide) else (extrap, extrap)
+        padded = pad(padded, a - d, 0 if _periodic(rule[0]) else 1, 1, extrap)
     sizes = padded.shape[-d:]
     flat = padded.reshape(lead + (-1,))
     strides = [int(np.prod(sizes[a + 1:])) for a in range(d)]
     base = None     # flat index of each point's lower corner in the padded array
     weights = []    # per axis (weight of the lower corner, of the upper corner)
     for a in range(d):
+        n = values.shape[a - d]
         box = float(np.float32(upper[a]) - np.float32(lower[a]))
-        local = (points[:, a] - float(np.float32(lower[a]))) / box
-        coord = local * float(values.shape[a - d]) - 0.5
-        pos = torch.clamp(coord + 1.0, 0.0, sizes[a] - 1.0)  # index in the padded array
+        local = (points[..., a] - float(np.float32(lower[a]))) / box
+        coord = local * float(n) - 0.5
+        rule = extrap[a - d] if isinstance(extrap, PerSide) else (extrap, extrap)
+        if _periodic(rule[0]):
+            pos = torch.remainder(coord, float(n))   # index in the array padded by one wrapped cell above
+        else:
+            pos = torch.clamp(coord + 1.0, 0.0, sizes[a] - 1.0)  # index in the padded array
         i = torch.clamp(torch.floor(pos), 0, sizes[a] - 2)
         frac = pos - i
         weights.append((1.0 - frac, frac))
@@ -232,10 +280,15 @@ def sample_grid_at_points(values: torch.Tensor, points: torch.Tensor, lower: Seq
         w = weights[0][corner[0]]
         for a in range(1, d):
             w = w * weights[a][corner[a]]
-        v = flat[..., base + sum(c * st for c, st in zip(corner, strides))]
+        idx = base + sum(c * st for c, st in zip(corner, strides))
+        v = torch.gather(flat, -1, idx) if points.ndim > 2 else flat[..., idx]
         term = torch.where(w > 0, v * w, 0.0)
         result = term if result is None else result + term
     return result
+
+
+def _periodic(rule) -> bool:
+    return isinstance(rule, str) and rule == PERIODIC
 
 
 def sample_staggered_at_points(velocity: Sequence[torch.Tensor], points: torch.Tensor, dx,
@@ -387,39 +440,60 @@ def _sample_at_faces(f_on_grid, geometry, boundary):
 def _sample_grid_field(value, geometry, at: str, boundary, dot_face_normal, order: int = 2, implicit=None,
                        **_ignored):
     boundary = boundary if boundary is not None else value.boundary
-    if order != 2:
-        raise NotImplementedError("higher-order resampling comes with a later slice of the port")
     if at == 'face':
         names = list(geometry.resolution.names)
         comps = []
         for dim in names:
             face_grid = geometry.stagger(dim, *boundary.valid_outer_faces(dim))
             comp_value = value.vector[dim] if dot_face_normal is not None and 'vector' in value.shape else value
-            comps.append(_resample_grid_at_centers(comp_value, face_grid))
+            comps.append(_resample_grid_at_centers(comp_value, face_grid, order))
         return stack(comps, dual(vector=names))
     if value.is_centered and value.geometry == geometry:
         return value.values
     if value.is_staggered:
         names = value.resolution.names
-        return stack({d: _resample_grid_at_centers(value.vector[d], geometry) for d in names}, channel('vector'))
-    return _resample_grid_at_centers(value, geometry)
+        return stack({d: _resample_grid_at_centers(value.vector[d], geometry, order) for d in names},
+                     channel('vector'))
+    return _resample_grid_at_centers(value, geometry, order)
 
 
-def _resample_grid_at_centers(value, target_grid):
+def _resample_grid_at_centers(value, target_grid, order: int = 2):
     """A centred (or single-component) grid Field at the cell centres of
     `target_grid`, which is shifted by half a cell against it along some axes
-    (the order-2 branch of `_shift_resample`, `:310-347`): `half_shift_native`
-    per channel entry."""
+    (`_shift_resample`, `:310-347`): per channel entry, along each shifted
+    axis the `interp_matrix` of `order` > 2 where both sides of the boundary
+    classify (`_stencil1d.classify_side`), else the pad and 2-point average
+    of `half_shift_native`. Grids not half a cell apart go through
+    `math.grid_sample` at the target's centres, at order 2 whatever `order`
+    (the JAX package's route)."""
     if value.is_staggered:
-        return stack({d: _resample_grid_at_centers(value.vector[d], target_grid) for d in value.resolution.names},
-                     channel('vector'))
+        return stack({d: _resample_grid_at_centers(value.vector[d], target_grid, order)
+                      for d in value.resolution.names}, channel('vector'))
     plan = _half_shift_alignment(value, target_grid)
     if plan is None:  # the JAX package's general route: `math.grid_sample` at the target's cell centres
         return sample_field_at_points(value, target_grid.center)
     names = value.resolution.names
-    pads = [plan[d] for d in names]
     extrap = _native_extrap(value.boundary, names)
-    return _grid_values(value.values, names, lambda v: half_shift_native(v, pads, extrap))
+    if order <= 2:
+        pads = [plan[d] for d in names]
+        return _grid_values(value.values, names, lambda v: half_shift_native(v, pads, extrap))
+    from ._stencil1d import apply_axis_matrix, classify_side, interp_matrix
+
+    def shift(v):
+        for axis, dim in enumerate(names):
+            if plan[dim] is None:
+                continue
+            lp, up = plan[dim]
+            lo, hi = classify_side(value.boundary, dim, False), classify_side(value.boundary, dim, True)
+            if lo is not None and hi is not None and ('periodic' not in (lo, hi) or lo == hi):
+                n = v.shape[axis - len(names)]
+                M, affine = interp_matrix(n, order, -0.5 if lp == 1 else 0.5, n + lp + up - 1, lo, hi,
+                                          implicit_order=2 if order >= 6 else 0)
+                v = apply_axis_matrix(v, v.ndim - len(names) + axis, M, affine)
+            else:
+                v = half_shift_native(v, [plan[dim] if d == dim else None for d in names], extrap)
+        return v
+    return _grid_values(value.values, names, shift)
 
 
 def sample_field_at_points(value, points: Tensor) -> Tensor:
@@ -500,70 +574,75 @@ def _half_shift_alignment(value, target_grid):
 # the Field layer: particles ⇄ grids
 # ---------------------------------------------------------------------------
 
-def _origin_grid(field, what: str):
-    """NotImplementedError unless `field` is a grid whose lower corner is the
-    origin — the frame of the array layer's particle transfers."""
-    if not field.is_grid or np.any(field.bounds.lower.numpy() != 0):
-        raise NotImplementedError(f"{what}: grids whose lower corner is the origin are ported")
-
-
-def _one_constant(field):
-    """The one constant of a grid Field's boundary, over all components of a
-    staggered one: the value the array layer's lookups continue with."""
-    names = field.resolution.names
-    forms = {_native_extrap(field.boundary[{'vector': d}], names) for d in names} if field.is_staggered \
-        else {_native_extrap(field.boundary, names)}
-    if len(forms) != 1 or not isinstance(next(iter(forms)), float):
-        raise NotImplementedError(f"boundary {field.boundary!r}: lookups at points continue a grid with one "
-                                  f"constant; other boundaries come with a later slice of the port")
-    return forms.pop()
-
-
-def _closed_staggered(velocity):
-    """NotImplementedError unless `velocity` is a closed-box staggered grid from the origin with walls at rest."""
-    _origin_grid(velocity, 'particles in a staggered grid')
-    if not velocity.is_staggered or _layout(velocity) != 'closed' or _one_constant(velocity) != 0:
-        raise NotImplementedError(f"particles in a grid of boundary {velocity.boundary!r}: the closed box's "
-                                  f"staggered grid with walls at rest is ported")
+def _closed_staggered(velocity) -> bool:
+    """Whether `velocity` is a closed-box staggered grid from the origin with
+    walls at rest and grid dims only: the grid of the array layer's particle
+    functions (`sample_staggered_at_points`, `finite_rk4_native`)."""
+    if not velocity.is_grid or not velocity.is_staggered or np.any(velocity.bounds.lower.numpy() != 0):
+        return False
+    names = velocity.resolution.names
+    if _face_layout(velocity.boundary, names, walls=False) != face_layout(False, len(names)):
+        return False
+    forms = {_native_extrap(velocity.boundary[{'vector': d}], names) for d in names}
+    return forms == {0.0} and all(_plain_values(c, names) for c in face_components(velocity.values))
 
 
 def staggered_point_arrays(velocity):
     """(face components, cell size per axis) of a closed-box staggered grid
     from the origin with a zero boundary — what `sample_staggered_at_points`
     and `finite_rk4_native` take; NotImplementedError for any other grid."""
-    _closed_staggered(velocity)
+    if not _closed_staggered(velocity):
+        raise NotImplementedError(f"particles in a grid of boundary {velocity.boundary!r}: the array layer takes "
+                                  f"the closed box's staggered grid from the origin with walls at rest")
     names = velocity.resolution.names
-    comps = face_components(velocity.values)
-    if not all(_plain_values(c, names) for c in comps):
-        raise NotImplementedError(f"values {velocity.values.shape}: grid dims only are ported")
-    return [c.torch(names) for c in comps], _dx_tuple(velocity)
+    return [c.torch(names) for c in face_components(velocity.values)], _dx_tuple(velocity)
 
 
 def _sample_grid_at_points_field(value, points: Tensor) -> Tensor:
     """The grid Field `value` at `points` (a `vector` dim, any other dims):
-    multilinear, continued beyond the grid by its boundary constant. A
-    staggered grid gives a `vector` per point. Batch dims of the values
-    (not of the points) lead the result, from one lookup."""
+    multilinear, continued beyond the grid by its boundary (`sample_grid_at_points`
+    on each component's face grid, or each entry of a centred grid's channel
+    dim, with that one's extrapolation). A staggered grid gives a `vector`
+    per point. The values' batch dims lead the result, from one lookup;
+    points that carry some of them give each entry its own points."""
     names = value.resolution.names
     if points.shape.get_labels('vector') not in (None, names):
         raise NotImplementedError(f"points with vector {points.shape.get_labels('vector')} in a grid of {names}")
-    _origin_grid(value, 'lookups at points')
-    flat, _ = flat_points(points)
     lead = points.shape.without('vector')
-    tensors = face_components(value.values) if value.is_staggered else [value.values]
-    batch = _batch_dims(tensors, names, 'lookups at points')
-    if set(batch.names) & set(lead.names):
-        raise NotImplementedError(f"values {value.values.shape} at points {points.shape}: the points of one batch "
-                                  f"entry each come with a later slice of the port")
-    arrays = [_batch_native(t, batch, names) for t in tensors]
     if value.is_staggered:
-        _closed_staggered(value)
-        out = sample_staggered_at_points(arrays, flat.to(arrays[0].device), _dx_tuple(value))
-        return Tensor(out.reshape(batch.sizes + lead.sizes + (len(names),)),
-                      concat_shapes(batch, lead, channel(vector=names)))
-    out = sample_grid_at_points(arrays[0].to(flat.device), flat, value.bounds.lower.numpy(), value.bounds.upper.numpy(),
-                                _one_constant(value))
-    return Tensor(out.reshape(batch.sizes + lead.sizes), concat_shapes(batch, lead))
+        comps = face_components(value.values)
+        batch = _batch_dims(comps, names, 'lookups at points')
+        parts = [(c, value.vector[d].bounds, _native_extrap(value.boundary[{'vector': d}], names))
+                 for d, c in zip(names, comps)]
+        channels = None
+    else:
+        others = value.values.shape.without(names)
+        batch, channels = others.batch, others.without(others.batch)
+        if channels.rank > 1 or (channels and not channels.channel):
+            raise NotImplementedError(f"values {value.values.shape} at points: the grid dims, batch dims and one "
+                                      f"channel dim at most are ported")
+        entries = [{}] if not channels else [{channels.name: i} for i in range(channels.size)]
+        labels = channels.get_labels(channels.name) if channels else None
+        parts = [(value.values[e], value.bounds,
+                  _native_extrap(value.boundary[{channels.name: labels[e[channels.name]] if labels else
+                                                 e[channels.name]}] if e else value.boundary, names))
+                 for e in entries]
+    shared = batch.only(lead.names)
+    rest = lead.without(batch.names)
+    device = parts[0][0].device or points.device
+    if shared:
+        pts = points.torch(batch.names + rest.names + ('vector',), device)
+        pts = pts.expand(tuple(batch.sizes) + tuple(pts.shape[batch.rank:])).reshape(tuple(batch.sizes) + (-1, len(names)))
+    else:
+        pts = points.torch(rest.names + ('vector',), device).reshape(-1, len(names))
+    outs = []
+    for t, bounds, extrap in parts:
+        arr = _batch_native(t, batch, names)
+        out = sample_grid_at_points(arr.to(pts.device), pts, bounds.lower.numpy(), bounds.upper.numpy(), extrap)
+        outs.append(Tensor(out.reshape(tuple(batch.sizes) + tuple(rest.sizes)), concat_shapes(batch, rest)))
+    if value.is_staggered:
+        return stack(outs, channel(vector=names))
+    return outs[0] if not channels else stack(outs, channels)
 
 
 def _point_values(value, n: int, device, vector: bool):
@@ -589,29 +668,34 @@ def _point_values(value, n: int, device, vector: bool):
 
 
 def _scatter_points(value, to, scatter: bool, outside_handling: str):
-    """The point cloud `value` onto the grid `to` (`scatter_to_grid`): the
-    mean of the points' values per nearest sample point, the cloud's
-    boundary constant (NaN, 0) where no point lies. A staggered target takes
-    component a of a vector value onto the faces of axis a."""
+    """The point cloud `value` onto the grid `to`: the mean of the points'
+    values per nearest sample point (`p2g_mean`, K8 in 3D on the card, once
+    per target grid), the cloud's boundary constant (NaN, 0) where no point
+    lies. A staggered target, in any face layout, takes component a of a
+    vector value onto the face grid of axis a (JAX's `sampled_elements`)."""
     if not scatter:
         raise NotImplementedError("resample of points onto a grid without scatter (the overlap of the points' "
                                   "geometry with the cells) comes with a later slice of the port")
-    _origin_grid(to, 'points onto a grid')
     names = to.resolution.names
     if value.geometry.center.shape.get_labels('vector') not in (None, names):
         raise NotImplementedError(f"points of {value.geometry.center.shape.get_labels('vector')} onto a grid of {names}")
     flat, _ = flat_points(value.geometry.center)
     base = float(value.boundary.value) if isinstance(value.boundary, ConstantExtrapolation) else 0.0
-    res = tuple(to.resolution.sizes)
+    clamp = outside_handling == 'clamp'
+    if outside_handling not in ('discard', 'clamp'):
+        raise ValueError(f"outside_handling {outside_handling!r}: 'discard' or 'clamp' expected")
+    inv_dx = tuple(1.0 / float(np.float32(h)) for h in _dx_tuple(to))
+
+    def scatter_onto(vals, grid):
+        return p2g_mean(flat, vals, tuple(grid.resolution.sizes),
+                        tuple(float(x) for x in grid.bounds.lower.numpy()), inv_dx, clamp, base)
     if to.is_staggered:
-        if _layout(to) != 'closed':
-            raise NotImplementedError(f"points onto a staggered grid of boundary {to.boundary!r}: the closed "
-                                      f"box is ported")
         vals = _point_values(value, flat.shape[0], flat.device, vector=True)
         if vals.ndim == 1:  # one scalar a point onto every face grid
             vals = vals[:, None].expand(-1, len(names))
-        comps = scatter_to_grid(flat, vals, res, _dx_tuple(to), outside_handling, base)
+        comps = [scatter_onto(vals[:, a].contiguous(), to.geometry.stagger(d, *to.boundary.valid_outer_faces(d)))
+                 for a, d in enumerate(names)]
         return face_values([Tensor(c, t.shape.only(names, reorder=True))
                             for c, t in zip(comps, face_components(to.values))], to.values)
     vals = _point_values(value, flat.shape[0], flat.device, vector=False)
-    return Tensor(scatter_to_grid(flat, vals, res, _dx_tuple(to), outside_handling, base), to.resolution)
+    return Tensor(scatter_onto(vals, to.geometry), to.resolution)

@@ -168,6 +168,28 @@ class UniformGrid(Geometry):
         self._derived[key] = UniformGrid(self.resolution.with_sizes(sizes), bounds)
         return self._derived[key]
 
+    def __getitem__(self, item):
+        """The cells of slices along grid dims (JAX's `UniformGrid.__getitem__`,
+        `:210-245`): the bounds cut by whole cells, in JAX's float order."""
+        from ..math._magic import slicing_dict
+        item = slicing_dict(self, item)
+        resolution, lower, upper = self.resolution, self._bounds._lower, self._bounds._upper
+        dx = (upper - lower) / np.asarray(self.resolution.sizes, lower.dtype)
+        for dim, sel in item.items():
+            if dim not in resolution:
+                continue
+            if not isinstance(sel, slice) or sel.step not in (None, 1):
+                raise ValueError(f"grid dims can only be sliced with slices of step 1, got {dim}: {sel}")
+            size = self.resolution.get_size(dim)
+            start = sel.start or 0
+            stop = sel.stop if sel.stop is not None else size
+            start, stop = start + size if start < 0 else start, stop + size if stop < 0 else stop
+            mask = np.asarray([1. if n == dim else 0. for n in self.resolution.names], lower.dtype)
+            lower = lower + lower.dtype.type(start) * mask * dx
+            upper = upper + lower.dtype.type(stop - size) * mask * dx
+            resolution = resolution.with_dim_size(dim, stop - start)
+        return UniformGrid(resolution, Box._of(lower, upper, self._bounds.names))
+
     def native(self, device=None) -> UniformGrid_native:
         """The array layer's grid of the same cells, its coordinates on `device`
         (the default device when None)."""

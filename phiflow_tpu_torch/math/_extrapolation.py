@@ -808,22 +808,43 @@ def _pad_native(native, pad_spec, mode: str):
     return x
 
 
+def _side_of(ext: Extrapolation, dim: str, upper: bool) -> Extrapolation:
+    """The extrapolation of one side of `dim` (mixed ones resolved)."""
+    while isinstance(ext, _MixedExtrapolation):
+        ext = ext._get(dim, upper)
+    return ext
+
+
+def _side_to_native(ext: Extrapolation):
+    """The array layer's rule for one side (`math/_nd.py`): a float, BOUNDARY,
+    PERIODIC or a mirror; None where it has none."""
+    from . import _nd
+    while isinstance(ext, Undefined):
+        ext = ext.derived_from
+    if isinstance(ext, ConstantExtrapolation):
+        return float(ext.value) if ext.value.rank == 0 else None
+    return {_PeriodicExtrapolation: _nd.PERIODIC, _BoundaryExtrapolation: _nd.BOUNDARY,
+            _SymmetricExtrapolation: _nd.SYMMETRIC, _ReflectExtrapolation: _nd.REFLECT,
+            _AntiSymmetricExtrapolation: _nd.ANTISYMMETRIC, _AntiReflectExtrapolation: _nd.ANTIREFLECT,
+            _SymmetricGradientExtrapolation: _nd.SYMMETRIC_GRADIENT}.get(type(ext))
+
+
 def to_native(ext: Extrapolation, dims=None):
     """The array layer's descriptor of `ext` (`math/_nd.py`): a float for a
-    constant, `'boundary'`, `'periodic'`, or `PerSide` for constants that
-    differ by side (`dims`: the axis order). Raises NotImplementedError for
-    any other extrapolation."""
-    from ._nd import BOUNDARY as NATIVE_BOUNDARY, PERIODIC as NATIVE_PERIODIC, PerSide
-    if isinstance(ext, ConstantExtrapolation) and ext.value.rank == 0:
-        return float(ext.value)
-    if isinstance(ext, _PeriodicExtrapolation):
-        return NATIVE_PERIODIC
-    if isinstance(ext, _BoundaryExtrapolation):
-        return NATIVE_BOUNDARY
+    scalar constant, `'boundary'`, `'periodic'`, one of the mirrors
+    (`'symmetric'`, `'reflect'`, `'antisymmetric'`, `'antireflect'`,
+    `'symmetric-gradient'`), or a `PerSide` of those by side for a mixed
+    extrapolation (`dims`: the axis order). A vector-valued constant has a
+    form per component: index it first (``ext[{'vector': dim}]``). Raises
+    NotImplementedError for any other extrapolation."""
+    from ._nd import PerSide
+    form = _side_to_native(ext)
+    if form is not None:
+        return form
     if isinstance(ext, _MixedExtrapolation) and dims is not None:
-        sides = [tuple(ext._get(d, upper) for upper in (False, True)) for d in dims]
-        flat = [e for pair in sides for e in pair]
-        if all(isinstance(e, ConstantExtrapolation) and e.value.rank == 0 for e in flat):
-            return PerSide(*[(float(lo.value), float(up.value)) for lo, up in sides])
-    raise NotImplementedError(f"extrapolation {ext!r} has no array-layer form: a scalar constant, BOUNDARY, "
-                              f"PERIODIC or constants by side are ported")
+        sides = [tuple(_side_to_native(_side_of(ext, d, upper)) for upper in (False, True)) for d in dims]
+        if all(e is not None for pair in sides for e in pair):
+            return PerSide(*sides)
+    raise NotImplementedError(f"extrapolation {ext!r} has no array-layer form: scalar constants, BOUNDARY, "
+                              f"PERIODIC, the mirrors (SYMMETRIC, REFLECT, ANTISYMMETRIC, ANTIREFLECT, "
+                              f"SYMMETRIC_GRADIENT) and these by side are ported")

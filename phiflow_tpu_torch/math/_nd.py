@@ -7,9 +7,12 @@ Window-shift interpolation of a grid at its own displaced lattice — port of
 The grid's extrapolation describes its halo to the kernel, which resolves it by
 index: a constant (a float: the closed box's velocity, 0 at the walls),
 `BOUNDARY` (zero gradient: the smoke) or `PERIODIC`. No padded copy is made.
-`PerSide` is a constant that differs by side (a moving lid); such a grid is
-padded here, side by side, and the kernel takes the padded array. The grid
-and the displacements may carry leading batch axes (one launch for the
+Every other rule — the mirrors (`SYMMETRIC`, `REFLECT`, `ANTISYMMETRIC`,
+`ANTIREFLECT`, `SYMMETRIC_GRADIENT`) and `PerSide`, a rule by side (a moving
+lid, an inflow wall beside an open outflow, an open top) — is the JAX
+package's own route (`make_padded`, `:505-528`): the grid is padded here by
+max_cells cells, axis after axis, and the kernel takes the padded array. The
+grid and the displacements may carry leading batch axes (one launch for the
 batch; an input without them is shared by every entry).
 
 One kernel per call, whatever K: the TPU route picks between a K=1 and a K
@@ -46,19 +49,26 @@ import torch
 
 from ..ops.interp import window_interp_2d, window_interp_3d
 
-__all__ = ['BOUNDARY', 'PERIODIC', 'PerSide', 'pad', 'component_extrapolation', 'shift_window_interp', 'masked_fill',
+__all__ = ['BOUNDARY', 'PERIODIC', 'SYMMETRIC', 'REFLECT', 'ANTISYMMETRIC', 'ANTIREFLECT', 'SYMMETRIC_GRADIENT',
+           'MIRRORS', 'PerSide', 'pad', 'component_extrapolation', 'shift_window_interp', 'masked_fill',
            'masked_fill_native', 'shift_zero', 'fourier_laplace', 'fourier_poisson', 'grid_sample_tensor',
            'closest_grid_values_tensor', 'slab_route', 'spatial_gradient_t', 'laplace_t', 'downsample2x', 'upsample2x']
 
 BOUNDARY, PERIODIC = 'boundary', 'periodic'
+# the mirror rules of the JAX package's extrapolations of these names (`math/_extrapolation.py:299-400`):
+# symmetric (… b a | a b …), reflect (… c b | b c …, the edge not repeated), antisymmetric (the symmetric
+# ghosts negated), antireflect and symmetric-gradient (both 2·edge − the reflected ghosts)
+SYMMETRIC, REFLECT, ANTISYMMETRIC = 'symmetric', 'reflect', 'antisymmetric'
+ANTIREFLECT, SYMMETRIC_GRADIENT = 'antireflect', 'symmetric-gradient'
+MIRRORS = (SYMMETRIC, REFLECT, ANTISYMMETRIC, ANTIREFLECT, SYMMETRIC_GRADIENT)
 
 
 class PerSide(tuple):
     """An extrapolation with its own rule on every side: one (lower, upper)
     pair per axis — `combine_sides` of the JAX package. A side is a number
-    (a constant), `BOUNDARY`, `PERIODIC` (both sides of its axis), or a torch
-    tensor of the ghost cells themselves (one plane across the axis, as a
-    Field embedding samples them)."""
+    (a constant), `BOUNDARY`, `PERIODIC` (both sides of its axis), one of
+    the `MIRRORS`, or a torch tensor of the ghost cells themselves (one plane
+    across the axis, as a Field embedding samples them)."""
 
     def __new__(cls, *sides):
         return super().__new__(cls, tuple((_side(lo), _side(up)) for lo, up in sides))
@@ -68,7 +78,7 @@ def _side(e):
     return e if isinstance(e, (str, torch.Tensor)) else float(e)
 
 
-Extrapolation = Union[float, str, PerSide]  # a constant value, BOUNDARY, PERIODIC, or a rule per side
+Extrapolation = Union[float, str, PerSide]  # a constant value, BOUNDARY, PERIODIC, a mirror, or a rule per side
 
 
 def component_extrapolation(extrap, component: int) -> Extrapolation:
@@ -87,6 +97,19 @@ def _ghosts(v: torch.Tensor, axis: int, width: int, upper: bool, e) -> torch.Ten
         return v.narrow(axis, 0, width) if upper else v.narrow(axis, n - width, width)
     if isinstance(e, str) and e == BOUNDARY:
         return v.narrow(axis, n - 1 if upper else 0, 1).expand(*[width if a == axis else -1 for a in range(v.ndim)])
+    if isinstance(e, str) and e in MIRRORS:
+        # numpy's index pattern of its 'symmetric' / 'reflect' pad of one side, as `jnp.pad` takes it
+        mode = SYMMETRIC if e in (SYMMETRIC, ANTISYMMETRIC) else REFLECT
+        idx = np.pad(np.arange(n), (0, width) if upper else (width, 0), mode=mode)
+        idx = idx[n:] if upper else idx[:width]
+        mirrored = torch.index_select(v, axis, torch.from_numpy(idx).to(v.device))
+        if e == ANTISYMMETRIC:
+            return -mirrored
+        if e in (ANTIREFLECT, SYMMETRIC_GRADIENT):
+            return 2 * v.narrow(axis, n - 1 if upper else 0, 1) - mirrored
+        return mirrored
+    if isinstance(e, str):
+        raise ValueError(f"side rule {e!r}: a number, BOUNDARY, PERIODIC, {', '.join(MIRRORS)} or a tensor expected")
     shape = list(v.shape)
     shape[axis] = width
     if isinstance(e, torch.Tensor):
@@ -97,12 +120,20 @@ def _ghosts(v: torch.Tensor, axis: int, width: int, upper: bool, e) -> torch.Ten
 def pad(v: torch.Tensor, axis: int, lower: int, upper: int, extrap: Extrapolation) -> torch.Tensor:
     """`v` extended by `lower` / `upper` entries along `axis`. A `PerSide`
     rule is looked up by `axis` among its axes: an array with leading batch
-    axes gives a negative axis, counted from its last."""
+    axes gives a negative axis, counted from its last. A `PerSide` pads the
+    lower side first and takes the upper ghosts from that padded array, as
+    the JAX package's `combine_sides` pads (`_MixedExtrapolation.pad`): a
+    PERIODIC side by side wraps its upper ghosts from the lower ghosts
+    (ROADMAP §3, 3.11); a PERIODIC rule of its own wraps both from `v`."""
     if not lower and not upper:
         return v
-    lo_e, up_e = extrap[axis] if isinstance(extrap, PerSide) else (extrap, extrap)
-    return torch.cat(([_ghosts(v, axis, lower, False, lo_e)] if lower else []) + [v] +
-                     ([_ghosts(v, axis, upper, True, up_e)] if upper else []), dim=axis)
+    if isinstance(extrap, PerSide):
+        lo_e, up_e = extrap[axis]
+        if lower:
+            v = torch.cat([_ghosts(v, axis, lower, False, lo_e), v], dim=axis)
+        return torch.cat([v, _ghosts(v, axis, upper, True, up_e)], dim=axis) if upper else v
+    return torch.cat(([_ghosts(v, axis, lower, False, extrap)] if lower else []) + [v] +
+                     ([_ghosts(v, axis, upper, True, extrap)] if upper else []), dim=axis)
 
 
 def shift_window_interp(grid: torch.Tensor, displacement_cells: Sequence[torch.Tensor],
@@ -118,8 +149,8 @@ def shift_window_interp(grid: torch.Tensor, displacement_cells: Sequence[torch.T
 
     A CUDA grid goes through K6 (3D) or K7 (2D), a CPU grid through their plain
     twin (`ops/interp.py`). Every route is differentiable in the grid and the
-    displacements (K6ᵀ / K7ᵀ on CUDA); a PerSide halo is padded here by
-    PyTorch operations, which autograd follows. Leading batch axes of the
+    displacements (K6ᵀ / K7ᵀ on CUDA); a mirror or PerSide halo is padded
+    here by PyTorch operations, which autograd follows. Leading batch axes of the
     grid or of the displacements (the last d axes are the grid's) broadcast:
     the result has the batch, from one launch."""
     d = len(displacement_cells)
@@ -129,7 +160,7 @@ def shift_window_interp(grid: torch.Tensor, displacement_cells: Sequence[torch.T
     if d not in (2, 3):
         raise NotImplementedError(f"{d}D grids come with a later slice of the port (2D and 3D are ported)")
     fn = window_interp_3d if d == 3 else window_interp_2d
-    if isinstance(extrap, PerSide):
+    if isinstance(extrap, PerSide) or (isinstance(extrap, str) and extrap in MIRRORS):
         # axis after axis, so a corner of the halo holds the later axis' value
         for axis in range(-d, 0):
             grid = pad(grid, axis, max_cells, max_cells, extrap)
@@ -144,7 +175,8 @@ def shift_window_interp(grid: torch.Tensor, displacement_cells: Sequence[torch.T
     elif isinstance(extrap, (int, float)):
         halo = dict(const_pad=float(extrap))
     else:
-        raise ValueError(f"extrapolation {extrap!r}: a constant value, BOUNDARY, PERIODIC or PerSide expected")
+        raise ValueError(f"extrapolation {extrap!r}: a constant value, BOUNDARY, PERIODIC, a mirror or PerSide "
+                         f"expected")
     # the kernels take contiguous arrays: a Field's constant values arrive as broadcast views
     lead = torch.broadcast_shapes(*[c.shape[:-d] for c in displacement_cells])
     displacement_cells = [c.expand(lead + c.shape[-d:]) for c in displacement_cells]

@@ -109,10 +109,23 @@ def test_normal_tangential():
 
 
 def test_to_native():
-    from phiflow_tpu_torch.math import BOUNDARY, PERIODIC, PerSide
+    """Every value-independent extrapolation and scalar constant has an
+    array-layer rule, by side too; the array layer's ghost cells of each
+    equal JAX's pad (float32, host values)."""
+    from phiflow_tpu_torch.math import BOUNDARY, PERIODIC, PerSide, _nd
     assert te.to_native(te.ZERO) == 0.0 and te.to_native(te.ConstantExtrapolation(2.)) == 2.0
     assert te.to_native(te.PERIODIC) == PERIODIC and te.to_native(te.BOUNDARY) == BOUNDARY
     lid = te.combine_sides(x=0., y=(0., 1.))
     assert te.to_native(lid, ('x', 'y')) == PerSide((0., 0.), (0., 1.))
+    assert te.to_native(te.combine_sides(x=te.PERIODIC, y=(te.REFLECT, 2.)), ('x', 'y')) == \
+        PerSide((PERIODIC, PERIODIC), (_nd.REFLECT, 2.))
+    values = np.asarray([3., -1., 4., 1.5, -5.], np.float32)
+    for name in ('SYMMETRIC', 'REFLECT', 'ANTISYMMETRIC', 'ANTIREFLECT', 'SYMMETRIC_GRADIENT'):
+        rule = te.to_native(getattr(te, name))
+        got = _nd.pad(torch.from_numpy(values), 0, 2, 3, rule).numpy()
+        ref = getattr(je, name).pad(jm.wrap(values, jm.spatial('x')), {'x': (2, 3)}).numpy('x')
+        np.testing.assert_array_equal(got, np.asarray(ref), err_msg=name)
     with pytest.raises(NotImplementedError):
-        te.to_native(te.SYMMETRIC)
+        te.to_native(te.NONE)
+    with pytest.raises(NotImplementedError):
+        te.to_native(te.ConstantExtrapolation(tm.vec(x=1., y=0.)))

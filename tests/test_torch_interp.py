@@ -134,7 +134,11 @@ def test_refuses_batch_axes_and_bad_input():
     with pytest.raises(ValueError, match='not both'):
         TI.window_interp_2d(torch.zeros(8, 8), disp, 1, const_pad=0.0, halo='edge')
     with pytest.raises(ValueError, match='extrapolation'):
-        shift_window_interp(torch.zeros(8, 8), disp, 'reflect', 1)
+        shift_window_interp(torch.zeros(8, 8), disp, 'mirror', 1)
+    # a mirror rule is taken since the open-boundary slice: the grid padded by it, the kernel's padded route
+    from phiflow_tpu_torch.math import _nd
+    padded = _nd.pad(_nd.pad(grid[0], -2, 1, 1, 'reflect'), -1, 1, 1, 'reflect')
+    assert torch.equal(shift_window_interp(grid[0], disp, 'reflect', 1), TI.window_interp_2d(padded, disp, 1))
 
 
 # ---------------------------------------------------------------------------
