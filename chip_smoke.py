@@ -5,7 +5,7 @@
     python3 chip_smoke.py --quick   # build + kernel-versus-twin checks at the small shapes only (and 9a)
     python3 chip_smoke.py --profile # all phases, then torch.profiler over 3 steps of each path (4-field too,
                                     # Burgers 128² and Kolmogorov 512² Field and native steps, both SPH and
-                                    # both FVM sizes),
+                                    # both FVM sizes, a call of grad-256's and grad-4096-2d's gradient),
                                     # K2 and K3 at every level of the 256³ V-cycle, K1 at 256³ and
                                     # K1m at 256³ (obstacle masks) and 128³ (active) with each x-chunk
 
@@ -13,6 +13,8 @@ Phases; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi) and the torch / CUDA versions;
   2. the build of phiflow_tpu_torch/csrc/*.cu with nvcc, one process per source, with
      ptxas's registers and spills of each instantiation of K1's and K6/K7's kernels and of K8's two,
+     each of K6ᵀ / K7ᵀ's two (d_disp's and d_grid's) with its stack frame — 0 bytes and no spills,
+     or the phase fails —,
      and beside them the mesh face matcher phiflow_tpu_torch/native/meshbuild.cpp with g++;
   3. each kernel K1–K8 and the masked forms of K1 (K1m: active cells; the
      coefficient arrays of obstacles) against its plain
@@ -32,7 +34,11 @@ Phases; any failure exits non-zero and prints no result:
      NaN and infinite values on dropped particles and NaN values on kept ones;
      at a particle count that is no multiple of a warp; on the FLIP sets in
      the path's order and shuffled, onto the four target grids; the mean of a
-     call bit-equal to the twin's formula on that call's sums and counts); the
+     call bit-equal to the twin's formula on that call's sums and counts;
+     K6ᵀ / K7ᵀ against the twin's VJP in every halo form at K = 1 and 2 with
+     and without the extrema, and at the K of the one-slot-plane route (6 in
+     3D, 24 in 2D), on wrapped axes of at most 2K cells and with NaN
+     displacements (no taps), every form launched twice and bit-equal); the
      median CUDA-event time of the
      kernel, of the twin and, where one PyTorch call computes the same
      function, of that call (library_ms — the port never calls it), beside the
@@ -203,7 +209,8 @@ Phases; any failure exits non-zero and prints no result:
      batched and a shared displacement (edge + extrema, const), K7 at B = 4 × 1024², K6ᵀ / K7ᵀ at the
      same shapes: each against its twin at phase 3's tolerances, entry by entry against the
      unbatched launch on that entry (outputs bit-equal, dots within 1e-6 relative; K6ᵀ / K7ᵀ's
-     d_grid, summed by atomics, within phase 3's tolerance), exactly one launch a batched call;
+     d_grid and d_disp bit-equal; a shared grid's d_grid bit-equal to the entries' own launches
+     summed in order), exactly one launch a batched call;
      then (not with --quick) each batched form timed at B = 4 beside its unbatched launch on one
      entry (the row's `entry` part); 9b batched-smoke-256x4: SmokePlume(256, dims=3,
      batch_shape=batch(b=4)) from `smooth_state` seeds 0–3 through the Field `step` (per-phase):
@@ -1533,8 +1540,8 @@ def run_flip(tag, N, warmup=2, steps=5):
 
 
 PORT_KERNELS = ('stencil_kernel', 'smooth_kernel', 'residual_restrict_kernel', 'prolong_add_kernel',
-                'fused_advect_kernel', 'advect_lift_kernel', 'window_interp_kernel', 'p2g_scatter_kernel',
-                'p2g_mean_kernel')
+                'fused_advect_kernel', 'advect_lift_kernel', 'window_interp_kernel', 'window_interp_disp_grad_kernel',
+                'window_interp_grid_grad_kernel', 'p2g_scatter_kernel', 'p2g_mean_kernel')
 
 
 def profile_path(tag, size, advance, state, warmup=2, steps=3, rows_shown=12):
@@ -2717,7 +2724,7 @@ def profile_fvm():
 # ---------------------------------------------------------------------------
 
 GRAD_NAMES = {3: 'window_interp_3d_grad', 2: 'window_interp_2d_grad'}
-GRAD_TOL = 1e-5  # of each gradient's largest entry: the kernel sums the grid's gradient with atomics, in no fixed order
+GRAD_TOL = 1e-5  # of each gradient's largest entry: the kernel and the twin sum the taps in different orders
 GRAD_CG_TOL = 1e-5  # the differentiated paths' solves (forward and adjoint)
 # at 4096² the float32 residual b − Ax of the 2D projection stops near 1e-4 of |b|: CG reaches 1e-5 only on its
 # recurrence's drift away from the true residual
@@ -2738,6 +2745,13 @@ def _grad_compare(ch, d, case, got, ref):
     for what, g, r in [('d_grid', g_grid, r_grid)] + [(f'd_disp[{i}]', a, b) for i, (a, b) in
                                                       enumerate(zip(g_disp, r_disp))]:
         ch.compare(GRAD_NAMES[d], f'{case} {what}', g, r, GRAD_TOL * max(float(r.abs().max()), 1e-30))
+
+
+def _grad_repeat(ch, d, case, got, again):
+    """Two launches on the same inputs: both gradients bit-equal (the grid's is a gather in a fixed order)."""
+    for what, g, r in [('d_grid', got[0], again[0])] + [(f'd_disp[{i}]', a, b) for i, (a, b) in
+                                                        enumerate(zip(got[1], again[1]))]:
+        ch.compare(GRAD_NAMES[d], f'{case} {what} repeat launch (bit-equal)', g, r, 0.0)
 
 
 def _grid_sample_backward(grid, disps, K, scale, padding_mode, g):
@@ -2761,7 +2775,11 @@ def check_interp_grad(ch, gen, quick):
     package's AD conventions) on the card, both gradients within 1e-5 of each
     one's largest entry: every halo form, K = 1 and 2, with and without the
     extrema's upstream gradients, fractional, clipped and integer
-    displacements; then (not with --quick) at the paths' shapes, timed."""
+    displacements; the one-slot-plane route (3D K = 6, 2D K = 24), wrapped
+    axes of at most 2K cells, NaN displacements (no taps: against the twin
+    on those outputs' displacements 0 and upstream gradients 0, their d_disp
+    exactly 0); each form launched twice, bit-equal; then (not with --quick)
+    at the paths' shapes, timed."""
     import torch
     dev = 'cuda'
 
@@ -2778,16 +2796,49 @@ def check_interp_grad(ch, gen, quick):
                 for extrema in (False, True):
                     ups = [rnd(shape) for _ in range(3 if extrema else 1)]
                     case = f'{shape} K={K} {mode or "padded"}{" extrema" if extrema else ""}'
-                    _grad_compare(ch, d, case, _grad_call(d, grid, disps, K, extrema, scale, mode, 0.25, ups, False),
-                                  _grad_call(d, grid, disps, K, extrema, scale, mode, 0.25, ups, True))
+                    got = _grad_call(d, grid, disps, K, extrema, scale, mode, 0.25, ups, False)
+                    _grad_compare(ch, d, case, got, _grad_call(d, grid, disps, K, extrema, scale, mode, 0.25, ups,
+                                                               True))
+                    _grad_repeat(ch, d, case, got, _grad_call(d, grid, disps, K, extrema, scale, mode, 0.25, ups,
+                                                              False))
         K = 2
         grid = torch.round(rnd(tuple(n + 2 * K for n in shape)) * 2) / 2  # ties in the extrema chain
         ints = list(torch.randint(-1, 2, (d,) + shape, generator=gen, device=dev).float() * K)  # −K, 0, +K
         ints[0] = torch.zeros_like(ints[0])  # from rest along axis 0: the taps beside it carry half a slope
         ups = [rnd(shape) for _ in range(3)]
-        _grad_compare(ch, d, f'{shape} K={K} padded, integer displacements 0 and ±K, tied values',
-                      _grad_call(d, grid, ints, K, True, (1.0,) * d, None, 0.0, ups, False),
-                      _grad_call(d, grid, ints, K, True, (1.0,) * d, None, 0.0, ups, True))
+        case = f'{shape} K={K} padded, integer displacements 0 and ±K, tied values'
+        got = _grad_call(d, grid, ints, K, True, (1.0,) * d, None, 0.0, ups, False)
+        _grad_compare(ch, d, case, got, _grad_call(d, grid, ints, K, True, (1.0,) * d, None, 0.0, ups, True))
+        _grad_repeat(ch, d, case, got, _grad_call(d, grid, ints, K, True, (1.0,) * d, None, 0.0, ups, False))
+    # the one-slot-plane route (the ring of 2K + 2 planes past 227 KB), wrapped axes of at most 2K cells
+    for d, shape, K, mode in ((3, (10, 20, 40), 6, 'const'), (2, (40, 300), 24, 'edge'), (3, (4, 3, 37), 2, 'wrap'),
+                              (2, (3, 50), 2, 'wrap'), (3, (2, 2, 40), 1, 'wrap')):
+        scale = (0.8, -1.1, 0.6)[:d]
+        grid = rnd(shape)
+        disps = list((torch.rand((d,) + shape, generator=gen, device=dev) * 2 - 1) * ((K + 1) / 0.6))
+        ups = [rnd(shape) for _ in range(3)]
+        case = f'{shape} K={K} {mode} extrema'
+        got = _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, False)
+        _grad_compare(ch, d, case, got, _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, True))
+        _grad_repeat(ch, d, case, got, _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, False))
+    # NaN displacements: no taps
+    for d, shape in ((3, SMALL), (2, (37, 45))):
+        scale = (0.8, -1.1, 0.6)[:d]
+        for mode in ('edge', None):
+            grid = rnd(shape if mode else tuple(n + 2 for n in shape))
+            disps = list((torch.rand((d,) + shape, generator=gen, device=dev) * 2 - 1) * (2 / 0.6))
+            hole = torch.rand(shape, generator=gen, device=dev) < 0.1
+            holed = [torch.where(hole, float('nan'), x) if i == d - 1 else x for i, x in enumerate(disps)]
+            ups = [rnd(shape) for _ in range(3)]
+            case = f'{shape} K=1 {mode or "padded"} extrema, NaN displacements'
+            got = _grad_call(d, grid, holed, 1, True, scale, mode, 0.25, ups, False)
+            _grad_compare(ch, d, case, got, _grad_call(d, grid, [torch.where(hole, 0.0, x) for x in disps], 1, True,
+                                                       scale, mode, 0.25, [torch.where(hole, 0.0, u) for u in ups],
+                                                       True))
+            for i, g in enumerate(got[1]):
+                ch.compare(GRAD_NAMES[d], f'{case} d_disp[{i}] at NaN (exactly 0)', g[hole], torch.zeros_like(g[hole]),
+                           0.0)
+            _grad_repeat(ch, d, case, got, _grad_call(d, grid, holed, 1, True, scale, mode, 0.25, ups, False))
     if quick:
         return
     # --- the paths' shapes: a velocity component (constant halo) and the smoke's forward pass (edge halo,
@@ -2809,8 +2860,8 @@ def check_interp_grad(ch, gen, quick):
         if burgers:
             continue
         n = grid.numel()
-        # per output: 2^d corners of a weight product, d slopes of d − 1 products, d sums and an atomic; 4 taps an
-        # axis of tent arithmetic
+        # per output: 2^d corners of a weight product, d slopes of d − 1 products, d sums and the cell's sum; 4
+        # taps an axis of tent arithmetic
         ops = (2 ** d * (d * d + d + 1) + 32 * d) * n
         for mode, extrema in forms:
             ups = g if extrema else g[:1]
@@ -2997,6 +3048,8 @@ def run_gradient_path(tag, dims, N, steps, period=None, cg_tol=GRAD_CG_TOL):
     the forward; a directional finite difference, (L(v+εd) − L(v−εd))/2ε
     against ⟨∇L, d⟩ within 5% (d a smooth seeded direction); 3
     gradient-descent iterations on the initial velocity lowering L each.
+    Printed, not gated: whether the gradient repeats bit for bit from the
+    same state.
     `period`: the state's, weight's and direction's waves repeat every so
     many cells (`smooth_state`). At 4096² a wave across the whole grid gives
     a pressure N² times its divergence, beyond what float32 CG resolves to
@@ -3050,6 +3103,14 @@ def run_gradient_path(tag, dims, N, steps, period=None, cg_tol=GRAD_CG_TOL):
     if not (finite and scale > 0) or wrong or missing or len(adj_iters) != steps:
         raise RuntimeError(f'{tag}: gradient finite={finite} scale={scale}, launches (counted, expected) {wrong}, '
                            f'not launched {missing}, adjoint solves {adj_iters}')
+    # the same gradient again from the same state: whether it repeats bit for bit (printed, not gated)
+    again_value, again_vel, again_smoke = _smoke_grad(model, (vel, smoke), w, steps)
+    names = [f'd/dv[{i}]' for i in range(dims)] + ['d/dsmoke']
+    same = [bool(torch.equal(a, b)) for a, b in zip(grads, again_vel + [again_smoke])]
+    print(f'{tag} repeat from the same state: L {"bit-equal" if again_value == value else f"{value!r} vs {again_value!r}"}'
+          f', gradients ' + ', '.join(f'{n} {"bit-equal" if s else f"max |diff| {float((a - b).abs().max()):.3e}"}'
+                                      for n, s, a, b in zip(names, same, grads, again_vel + [again_smoke])))
+    del again_vel, again_smoke
     # the directional finite difference along a smooth seeded direction
     direction = [torch.from_numpy(a).cuda() for a in smooth_state(N, dims, seed=5, period=period)[:dims]]
     eps = 1e-2
@@ -3075,6 +3136,19 @@ def run_gradient_path(tag, dims, N, steps, period=None, cg_tol=GRAD_CG_TOL):
         raise RuntimeError(f'{tag}: finite-difference check {fd} vs {dot}, losses {losses}')
     counts = {k: forward.get(k, 0) + backward.get(k, 0) for k in KERNELS}
     return dict(counts, steps=steps)
+
+
+def profile_gradient(tag, dims, N, steps, period=None, cg_tol=GRAD_CG_TOL):
+    """`run_gradient_path`'s `math.gradient` of `steps` Field steps under
+    torch.profiler, a call at a time (1 warm-up, 2 profiled): device time by
+    kernel a call, the busy share."""
+    from phiflow_tpu_torch.models import SmokePlume, state_from_numpy
+    model = SmokePlume(resolution=N, dims=dims, cg_tol=cg_tol, max_iterations=300, device='cuda')
+    vel, smoke, _ = state_from_numpy(*smooth_state(N, dims, period=period), device='cuda')
+    w = _smooth_weight(N, dims, period).cuda()
+    profile_path(f'{tag} forward + backward ({steps} steps a call: "step" below is a call)', f'{N}^{dims}',
+                 lambda state: (_smoke_grad(model, state, w, steps), state)[1], (vel, smoke), warmup=1, steps=2,
+                 rows_shown=14)
 
 
 def gradient_cpu_vs_card(dims, N, steps=2, tol=1e-3):
@@ -4178,20 +4252,21 @@ def print_path_gaps(ch, by_path):
 
 
 def ptxas_entries(log):
-    """(kernel, registers, spill-store bytes) of each entry function in a
-    `ptxas -v` log, the names demangled by `c++filt` where it is installed."""
+    """(kernel, registers, spill-store bytes, spill-load bytes, stack-frame
+    bytes) of each entry function in a `ptxas -v` log, the names demangled
+    by `c++filt` where it is installed."""
     import shutil
-    entries, name, spill = [], None, 0
+    entries, name, spill, load, stack = [], None, 0, 0, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name, spill = m.group(1), 0
-        m = re.search(r'(\d+) bytes spill stores', line)
+            name, spill, load, stack = m.group(1), 0, 0, 0
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads', line)
         if m:
-            spill = int(m.group(1))
+            stack, spill, load = (int(x) for x in m.groups())
         m = re.search(r'Used (\d+) registers', line)
         if m and name is not None:
-            entries.append([name, int(m.group(1)), spill])
+            entries.append([name, int(m.group(1)), spill, load, stack])
             name = None
     if shutil.which('c++filt') and entries:
         out = subprocess.run(['c++filt'], input='\n'.join(e[0] for e in entries), capture_output=True, text=True,
@@ -4243,10 +4318,10 @@ def _entries_equal(ch, row, case, got, per_entry):
 def check_batched_kernels(ch, gen, quick):
     """9a: K1 (matvec and its epilogues, with the dot), K2 (the zero-init pre-smooth and the post-smooth with its
     dot), K3 and K4 at B = 4 × 128³ and B = 3 × RAGGED; K6 at B = 4 × 128³ with a batched and a shared
-    displacement, K7 at B = 4 × 1024²; K6ᵀ / K7ᵀ at the same shapes. Each against its twin at phase 3's
-    tolerances, entry by entry against the unbatched launch on that entry (outputs bit-equal, dots within
-    1e-6 relative; K6ᵀ / K7ᵀ: d_disp bit-equal, d_grid within phase 3's tolerance — its atomics sum in no fixed
-    order), and to exactly one launch a batched call. Then (not with --quick) each batched form timed at
+    displacement, K7 at B = 4 × 1024²; K6ᵀ / K7ᵀ at the same shapes, and with a shared grid. Each against its
+    twin at phase 3's tolerances, entry by entry against the unbatched launch on that entry (outputs bit-equal,
+    dots within 1e-6 relative; K6ᵀ / K7ᵀ: d_grid and d_disp bit-equal; a shared grid's d_grid bit-equal to the
+    entries' own d_grid summed in entry order), and to exactly one launch a batched call. Then (not with --quick) each batched form timed at
     B = 4 beside its unbatched launch on one entry (`entry` part of its row: 4 × that is the unbatched cost)."""
     import torch
     from phiflow_tpu_torch.ops import interp as I
@@ -4334,13 +4409,27 @@ def check_batched_kernels(ch, gen, quick):
                 for e in range(BATCH_B):
                     ge = _grad_call(d, grid[e], [x if disp_kind == 'shared' else x[e] for x in disps], 1, extrema,
                                     scale, mode, 0.0, [u[e] for u in ups], False)
-                    ch.compare(grow, f'{case} d_grid entry {e} vs its own launch (atomics)', gg[0][e], ge[0],
-                               GRAD_TOL * max(float(ge[0].abs().max()), 1e-30))
+                    ch.compare(grow, f'{case} d_grid entry {e} = its own launch', gg[0][e], ge[0], 0.0)
                     if disp_kind == 'batched':
                         for i in range(d):
                             ch.compare(grow, f'{case} d_disp[{i}] entry {e} = its own launch', gg[1][i][e], ge[1][i],
                                        0.0)
-        del grid, batched, shared, got, ref
+        # a shared grid: one d_grid, its cells adding the entries in order
+        case = f'B={BATCH_B} x {shape} K=1 edge extrema, shared grid'
+        ups = [torch.randn((BATCH_B,) + shape, generator=gen, device=dev) for _ in range(3)]
+        gg = _launch_once(ch, grow, case, lambda: _grad_call(d, grid[0], batched, 1, True, scale, 'edge', 0.0, ups,
+                                                             False))
+        _grad_compare_row(ch, grow, case + ' vs twin VJP', gg,
+                          _grad_call(d, grid[0], batched, 1, True, scale, 'edge', 0.0, ups, True))
+        total = None
+        for e in range(BATCH_B):
+            ge = _grad_call(d, grid[0], [x[e] for x in batched], 1, True, scale, 'edge', 0.0, [u[e] for u in ups],
+                            False)
+            total = ge[0] if total is None else total + ge[0]
+            for i in range(d):
+                ch.compare(grow, f'{case} d_disp[{i}] entry {e} = its own launch', gg[1][i][e], ge[1][i], 0.0)
+        ch.compare(grow, f'{case} d_grid = the entries\' own, summed in order', gg[0], total, 0.0)
+        del grid, batched, shared, got, ref, gg, total
         torch.cuda.empty_cache()
     if quick:
         return
@@ -5430,9 +5519,13 @@ def main(argv):
         spills = sum(int(x) for x in re.findall(r'(\d+) bytes spill stores', log))
         print(f'build: {name}.cu: {len(regs)} kernel instantiations, at most {max(regs)} registers '
               f'a thread, {spills} bytes of spill stores in all (ptxas -v)')
-        for entry, n_regs, n_spill in ptxas_entries(log):
+        for entry, n_regs, n_spill, n_load, stack in ptxas_entries(log):
             if 'march::stencil_kernel' in entry or 'window_interp' in entry or 'p2g' in entry:
-                print(f'build: {name}.cu {entry}: {n_regs} registers, {n_spill} bytes of spill stores')
+                print(f'build: {name}.cu {entry}: {n_regs} registers, {stack} bytes stack frame, {n_spill} bytes '
+                      f'spill stores, {n_load} bytes spill loads')
+            if 'window_interp' in entry and '_grad_kernel' in entry and stack + n_spill + n_load:
+                raise RuntimeError(f'{entry}: a stack frame of {stack} bytes or spills ({n_spill} / {n_load} bytes); '
+                                   f'K6T / K7T keep everything in registers and shared memory')
     clock.done('1-2 card and build')
     ch = Checks()
     gen = torch.Generator(device='cuda')
@@ -5525,6 +5618,8 @@ def main(argv):
         profile_grid_models()
         profile_sph()
         profile_fvm()
+        profile_gradient('grad-256', 3, PATH_N, 3)
+        profile_gradient('grad-4096-2d', 2, PATH_N_2D, 2, period=PATH_N, cg_tol=GRAD_CG_TOL_4096)
         time_smooth_chunks(gen)
         time_march_chunks(gen)
     rows = []

@@ -49,30 +49,56 @@
 // at exactly +-K and 0 beyond, and a tie of the min / max chain split in half
 // at each step in the window sum's tap order (axis 0 fastest). So at an
 // integer d the taps s = d - 1 and s = d + 1, which carry no weight, still
-// carry half a slope; only taps inside [-K, K] exist. One thread an output
-// cell: it recomputes d and, per axis, the up to three taps with a weight or
-// a slope (four candidates floor(d) - 1 .. floor(d) + 2 cover float rounding),
-//   d_grid[tap] += g * w(tap)              (atomicAdd; the halo resolved as the
-//                                            forward does: a constant halo drops
-//                                            it, edge / wrap / padded go to the
-//                                            cell read)
-//   d_disp_a    = g * scale_a * clip'_a * sum_taps grid(tap) * dw_a(tap) * prod_{e!=a} w_e(tap)
-// and the upstream gradients of lo / up go to the taps that carry the min / max.
-// Bound: the same streamed bytes as the forward plus the gradients; the
-// atomics make d_grid's sums depend on their order at float32 rounding. A
-// simple kernel: a gather form without atomics is later work.
+// carry half a slope; only taps inside [-K, K] exist. Per output, from its d:
+//   d_disp_a = g * scale_a * clip'_a * sum_taps grid(tap) * dw_a(tap) * prod_{e!=a} w_e(tap)
+//   d_grid[cell] = sum over the (output, corner) pairs whose tap resolves to
+//                  the cell of g * W(corner) + the corner's share of lo / up's
+//                  upstream gradients (a constant halo drops a tap outside,
+//                  edge / wrap / padded send it to the cell read)
+// A displacement that is NaN has no taps: it adds nothing to d_grid and its
+// d_disp is 0.
+//
+// Bound: the bytes — the grid, the displacements and the upstream gradients
+// read once, d_grid and d_disp written once. Scattering d_grid with a float
+// atomic per corner would make its sums depend on the atomics' order; here
+// two kernels a call, neither with an atomic, write each result once, so the
+// same inputs give bit-equal gradients from launch to launch; no memset.
+//   d_disp: a gather per output with the forward's tiling (a warp a row of
+//   128 outputs, four a lane), its corners and at most one extra half-slope
+//   tap an axis unrolled at compile time.
+//   d_grid: owner-computes. A block owns a tile of cells (in 3D 32 columns, 16
+//   past K = 5, by as many rows as a 512-thread slot window holds with its
+//   K-wide halo; in 2D 256 - 2K of a row) over `chunk` planes of axis 0 and
+//   marches along them. At each plane every thread computes one slot — the
+//   output at its window position, halo included: its floors packed a byte an
+//   axis and its 2^D corner coefficients, g W plus the corner's share of lo /
+//   up's gradients — into a ring of 2K + 2 slot planes in shared memory (one
+//   barrier a plane; the next plane's inputs load during this one). Then each
+//   owned cell sums the slots within K of it, planes, rows and columns
+//   ascending: a slot counts where one byte-wise subtraction shows cell =
+//   slot + floor + corner bit on every axis (every slot read, a miss adding
+//   0); a cell on a clamped edge side also takes the taps clamped onto it. A
+//   wrapped axis needs no case: the window's slots are the outputs of the
+//   periodic extension, so each (output, corner) pair lands once. K = 1
+//   unrolls at compile time. Where the ring does not fit in 227 KB (3D K > 4,
+//   2D K > 17) the block keeps one slot plane and recomputes it for every
+//   plane it serves, in the same order. The plan (`ops/interp.py::grad_plan`:
+//   chunk, ring, shared bytes, grid) is checked here and a disagreeing one
+//   refused. What holds it (PERF.md, section 6): in 3D the 27 candidates a
+//   cell checks and the ~250 instructions of an output's d_disp.
 //
 // Batches: both kernels take nb entries in one launch, the outputs (and the
 // upstream gradients) one after the other, each input at its own entry stride:
 // the grid's and the displacements' (0 for an input shared by every entry,
-// which is read in place, never expanded). The forward folds the entry into
-// the grid's z axis (K6: each entry's planes in turn), the backward into its
-// one axis of output cells; a thread offsets its pointers by its entry's first
-// element (64-bit) and computes as in an unbatched launch, so an entry's
-// outputs are those of its own launch, bit for bit. K6T / K7T's atomics land in
-// the entry's own d_grid (at the grid's stride: a shared grid sums over the
-// entries); each entry writes its own d_disp, which the wrapper sums over the
-// batch for a shared displacement.
+// which is read in place, never expanded). The forward and the d_disp kernel
+// fold the entry into the grid's z axis (3D: each entry's planes in turn), the
+// d_grid kernel into the z axis of its blocks (each entry's chunks in turn); a
+// thread offsets its pointers by its entry's first element (64-bit) and
+// computes as in an unbatched launch, so an entry's outputs are those of its
+// own launch, bit for bit. A shared grid (stride 0) has one d_grid: its blocks
+// walk the entries in order, each cell's owner adding entry after entry. Each
+// entry writes its own d_disp, which the wrapper sums over the batch for a
+// shared displacement.
 #include "window.cuh"
 
 struct InterpArgs {
@@ -257,150 +283,561 @@ struct InterpGradArgs {
     const float *disp[3];
     float scale[3];
     const float *g_out, *g_lo, *g_up;  // upstream gradients, output-shaped; null where absent
-    float *d_grid;                      // the grid's gradient, its raw shape, zeroed by the caller; or null
+    float *d_grid;                      // the grid's gradient, its raw shape (one entry where shared); or null
     float *d_disp[3];                   // the displacements' gradients, one per entry; null where not asked
     int o[3];
     int K;
     int nb;                 // entries of the batch
     long long grid_stride;  // elements from one entry's grid (and d_grid) to the next (0: shared)
     long long disp_stride;  // elements from one entry's displacements to the next (0: shared)
+    // the plan (ops/interp.py::grad_plan), checked against the kernel's layout by the C entry
+    int chunk;         // owned planes a block along axis 0
+    int ring;          // slot planes held in shared memory: 2K + 2, or 1 (each recomputed for every plane it serves)
+    int smem;          // dynamic shared-memory bytes
+    long long blocks;  // the launch's blocks
 };
 
-#define WG_THREADS 256
+// A plane of slots, a thread a slot: in 3D a tile of 32 columns (16 for K > 5) with its K-wide halo, by as many
+// rows as 512 threads hold (threads past the window idle); in 2D one row of 256.
+#define WG_THREADS 512
+__host__ __device__ inline int wg_cols(int D, int K) { return D == 3 ? (K <= 5 ? 32 : 16) + 2 * K : 256; }
+__host__ __device__ inline int wg_threads(int D, int K) { return D == 3 ? WG_THREADS : 256; }
+__host__ __device__ inline int wg_rows(int D, int K) { return D == 3 ? WG_THREADS / wg_cols(3, K) : 1; }
+#define WG_NONE 0xffffffffu  // the floors of a slot with no output or no taps: matches no cell
 
 // d(max(a, b))/da under JAX's rule: 1 above, 1/2 at a tie, 0 below
 __device__ __forceinline__ float above(float a, float b) { return a > b ? 1.f : (a == b ? 0.5f : 0.f); }
 
-template <int D, bool EXTREMA>
-__global__ void __launch_bounds__(WG_THREADS) window_interp_grad_kernel(const InterpGradArgs a) {
-    long long n_out = 1;
-#pragma unroll
-    for (int e = 0; e < D; ++e) n_out *= a.o[e];
-    const long long qb = (long long)blockIdx.x * WG_THREADS + threadIdx.x;  // over the batch's outputs
-    if (qb >= n_out * a.nb) return;
-    const long long entry = qb / n_out, q = qb - entry * n_out, eo = entry * n_out;
-    Src g = a.grid;
-    g.p += entry * a.grid_stride;
-    float *const d_grid = a.d_grid ? a.d_grid + entry * a.grid_stride : nullptr;
-    const float *disp[D];
-#pragma unroll
-    for (int e = 0; e < D; ++e) disp[e] = a.disp[e] + entry * a.disp_stride;
-    int o[D];
-    long long rest = q;
-#pragma unroll
-    for (int e = D - 1; e >= 0; --e) {
-        o[e] = (int)(rest % a.o[e]);
-        rest /= a.o[e];
-    }
-    const float kf = (float)a.K;
-    const float go = a.g_out ? a.g_out[eo + q] : 0.f;
-    // per axis: the taps with a weight or a slope, ascending; their weights, slopes and logical indices
-    float w[D][3], dw[D][3], dclip[D];
-    int tap[D][3], nt[D];
+// One output's window along one axis: the corners s = f and f + 1 (f = floor(d)) with their weights and slopes,
+// and at most one more tap with a slope and no weight (s = f - 1 or f + 2 where |d - s| = 1 in float32: an integer
+// d, or rounding next to one); only s in [-K, K] exist. JAX's rules at the kinks: |x|' = +1 at 0, the tent's slope
+// halved where 1 - |d - s| = 0, the clip's derivative 1/2 at exactly +-K and 0 beyond. Each tap's tent is the
+// window sum's own arithmetic: t = d - s, |t|, 1 - |t|.
+struct AxisWindow {
+    int f;
+    float w[2], dw[2];  // the corners' weights and slopes (0 where s = f + 1 lies past K)
+    float dwx;          // the extra tap's slope (0: none)
+    int sx;             // its offset from f: -1 or +2
+    float dclip;        // the clip's derivative
+};
+
+// false where the displacement is NaN: an output without taps
+__device__ __forceinline__ bool axis_window(float x, int K, AxisWindow &a) {
+    const float kf = (float)K;
+    const float m = fmaxf(x, -kf);
+    const float d = fminf(m, kf);  // the forward's clip_cells, in the same two steps
+    a.dclip = above(x, -kf) * above(kf, m);
+    const float ff = floorf(d);
+    const int f = (int)ff;
+    a.f = f;
+    // s = f: t = d - f >= 0, always a tap (|f| <= K)
+    const float one0 = 1.f - (d - ff);
+    a.w[0] = fmaxf(0.f, one0);
+    a.dw[0] = one0 > 0.f ? -1.f : -0.5f;
+    // s = f + 1: t < 0, a tap where f < K
+    const float one1 = 1.f - (ff + 1.f - d);
+    const bool up = f < K && one1 >= 0.f;
+    a.w[1] = up ? fmaxf(0.f, one1) : 0.f;
+    a.dw[1] = up ? (one1 > 0.f ? 1.f : 0.5f) : 0.f;
+    // s = f - 1 (t >= 1) or f + 2 (t <= -1): a tap only where |t| rounds to 1
+    const bool lo = f > -K && 1.f - (d - (ff - 1.f)) == 0.f;
+    const bool hi = f + 2 <= K && 1.f - (ff + 2.f - d) == 0.f;
+    a.dwx = lo ? -0.5f : (hi ? 0.5f : 0.f);
+    a.sx = lo ? -1 : 2;
+    return x == x;
+}
+
+// The grid's value at raw indices r (resolved already: `out` past a constant halo).
+template <int D, typename Idx>
+__device__ __forceinline__ float grid_value(const Src &g, const int (&r)[D], const bool (&out)[D]) {
+    Idx off = 0;
+    bool outside = false;
 #pragma unroll
     for (int e = 0; e < D; ++e) {
-        const float x = a.scale[e] * __ldg(disp[e] + q);
-        const float m = fmaxf(x, -kf);
-        const float d = fminf(m, kf);  // the forward's clip_cells, in the same two steps
-        dclip[e] = above(x, -kf) * above(kf, m);
-        nt[e] = 0;
-        if (d != d) continue;  // NaN: no tap
-        const int f = (int)floorf(d);
+        off = off * g.n[e] + r[e];
+        outside = outside || out[e];
+    }
+    return outside ? g.c : __ldg(g.p + off);
+}
+
+// K6T / K7T, d_disp: a gather per output with the forward's tiling (a warp a row of WI_TX outputs, four a lane:
+// lane, lane + 32, lane + 64, lane + 96, each loaded and stored on its own, so that one output's values are live
+// at a time), no shared memory and no barrier. Each output's corners and, per axis, its extra tap at the other
+// axes' corners are unrolled at compile time; in 2D an output whose taps all lie inside the grid addresses them
+// directly (in 3D the second path's registers cost more than the resolution saves).
+template <int D, typename Idx>
+__global__ void __launch_bounds__(WI_THREADS) window_interp_disp_grad_kernel(const InterpGradArgs a) {
+    const int K = a.K, lane = threadIdx.x & 31;
+    const int r0 = blockIdx.y * WI_TY, c0 = blockIdx.x * WI_TX;
+    int o[D];  // the thread's first output
+    long long entry;
+    if constexpr (D == 3) {
+        entry = blockIdx.z / a.o[0];
+        o[0] = blockIdx.z - (int)entry * a.o[0];
+    } else {
+        entry = blockIdx.z;
+    }
+    o[D - 2] = r0 + (threadIdx.x >> 5);
+    o[D - 1] = c0 + lane;
+    const int n_out = a.o[D - 1];
+    if (o[D - 2] >= a.o[D - 2] || o[D - 1] >= n_out) return;
+    Src g = a.grid;
+    g.p += entry * a.grid_stride;
+    long long entry_out = entry;  // the entry's first output
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int s = f - 1 + j;
-            const float t = d - (float)s;
-            const float dist = t >= 0.f ? t : -t;
-            const float one_m = 1.f - dist;
-            if (s < -a.K || s > a.K || one_m < 0.f) continue;
-            if (nt[e] < 3) {
-                w[e][nt[e]] = fmaxf(0.f, one_m);
-                dw[e][nt[e]] = -(one_m > 0.f ? 1.f : 0.5f) * (t >= 0.f ? 1.f : -1.f);
-                tap[e][nt[e]] = o[e] + s;
-                ++nt[e];
+    for (int e = 0; e < D; ++e) entry_out *= a.o[e];
+    Idx q = 0, stride[D];  // the first output's offset; the raw grid's strides
+#pragma unroll
+    for (int e = 0; e < D; ++e) q = q * a.o[e] + o[e];
+    stride[D - 1] = 1;
+#pragma unroll
+    for (int e = D - 2; e >= 0; --e) stride[e] = stride[e + 1] * g.n[e + 1];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        if (o[D - 1] + 32 * k >= n_out) break;
+        const Idx qk = q + 32 * k;
+        AxisWindow w[D];
+        bool taps = true;
+#pragma unroll
+        for (int e = 0; e < D; ++e)
+            taps = axis_window(a.scale[e] * __ldg(a.disp[e] + entry * a.disp_stride + qk), K, w[e]) && taps;
+        float gd[D];
+#pragma unroll
+        for (int e = 0; e < D; ++e) gd[e] = 0.f;
+        {  // a NaN displacement reads at -K (fmaxf) like the forward; its result is dropped below
+            // the values of the corners (0 where one lies past K) and, per axis e and corner b with bit e clear,
+            // of the extra tap of axis e at b's other taps (0 where there is none)
+            float v[1 << D], vx[D][1 << D];
+            bool extra = false;  // an integer displacement (0 from rest) or one rounding next to it, in the warp
+#pragma unroll
+            for (int e = 0; e < D; ++e) extra = extra || w[e].dwx != 0.f;
+            extra = __any_sync(__activemask(), extra);
+            bool inside = D == 2;  // every tap s = f - 1 .. f + 2 of every axis inside the raw grid (2D only)
+            int base[D];
+#pragma unroll
+            for (int e = 0; e < D; ++e) {
+                base[e] = o[e] + (e == D - 1 ? 32 * k : 0) + w[e].f - g.shift[e];
+                inside = inside && base[e] >= 1 && base[e] + 2 < g.n[e];
+            }
+            if (inside) {  // addressed directly
+                Idx at = 0;
+#pragma unroll
+                for (int e = 0; e < D; ++e) at += (Idx)base[e] * stride[e];
+#pragma unroll
+                for (int b = 0; b < (1 << D); ++b) {
+                    Idx co = at;
+                    bool exists = true;  // every tap of the corner lies in [-K, K]
+#pragma unroll
+                    for (int e = 0; e < D; ++e) {
+                        if ((b >> e) & 1) co += stride[e], exists = exists && w[e].dw[1] != 0.f;
+                    }
+                    v[b] = exists ? __ldg(g.p + co) : 0.f;
+                    if (extra) {
+#pragma unroll
+                        for (int e = 0; e < D; ++e)
+                            if (!((b >> e) & 1))
+                                vx[e][b] = w[e].dwx != 0.f ? __ldg(g.p + co + w[e].sx * stride[e]) : 0.f;
+                    }
+                }
+            } else {  // each axis' three taps resolved once: a tap past a constant halo reads the constant
+                Idx off[D][3];
+                bool out[D][3];
+#pragma unroll
+                for (int e = 0; e < D; ++e) {
+#pragma unroll
+                    for (int i = 0; i < 3; ++i) {
+                        out[e][i] = false;
+                        const int raw = base[e] + (i < 2 ? i : w[e].sx);
+                        off[e][i] = (Idx)resolve(raw, g.n[e], g.mode, out[e][i]) * stride[e];
+                    }
+                }
+                auto value = [&](const int (&c)[D]) {
+                    Idx at = 0;
+                    bool outside = false;
+#pragma unroll
+                    for (int e = 0; e < D; ++e) at += off[e][c[e]], outside = outside || out[e][c[e]];
+                    return outside ? g.c : __ldg(g.p + at);
+                };
+#pragma unroll
+                for (int b = 0; b < (1 << D); ++b) {
+                    bool exists = true;
+                    int c[D];
+#pragma unroll
+                    for (int e = 0; e < D; ++e) {
+                        c[e] = (b >> e) & 1;
+                        exists = exists && (c[e] == 0 || w[e].dw[1] != 0.f);
+                    }
+                    v[b] = exists ? value(c) : 0.f;
+                    if (extra) {
+#pragma unroll
+                        for (int e = 0; e < D; ++e) {
+                            if ((b >> e) & 1) continue;
+                            int cx[D];
+#pragma unroll
+                            for (int m = 0; m < D; ++m) cx[m] = m == e ? 2 : c[m];
+                            vx[e][b] = w[e].dwx != 0.f ? value(cx) : 0.f;
+                        }
+                    }
+                }
+            }
+            // gd_e = sum over the corners of dw_e * prod_{k != e} w_k * v: per axis e, the pairs of corners that
+            // differ in bit e alone, their slopes' sum weighted by the other axes, with the axis' extra tap
+#pragma unroll
+            for (int e = 0; e < D; ++e) {
+#pragma unroll
+                for (int b = 0; b < (1 << D); ++b) {
+                    if ((b >> e) & 1) continue;
+                    float others = 1.f;
+#pragma unroll
+                    for (int m = 0; m < D; ++m)
+                        if (m != e) others *= w[m].w[(b >> m) & 1];
+                    const float pair = w[e].dw[0] * v[b] + w[e].dw[1] * v[b | 1 << e];
+                    gd[e] += others * (extra ? pair + w[e].dwx * vx[e][b] : pair);
+                }
             }
         }
-    }
-    float gd[D];
+        const float go = a.g_out ? __ldg(a.g_out + entry_out + qk) : 0.f;
 #pragma unroll
-    for (int e = 0; e < D; ++e) gd[e] = 0.f;
-    float hv[1 << D];  // the taps with weight (|d - s| < 1 on every axis), in the window sum's order
-    long long hoff[1 << D];
-    bool hout[1 << D];
-    int nh = 0;
-    constexpr int N3 = D == 3 ? 27 : 9;
-    for (int c = 0; c < N3; ++c) {  // mixed radix 3, axis 0 fastest: the TPU window sum's tap order
-        int j[D];
-        bool skip = false;
-        int cc = c;
-#pragma unroll
-        for (int e = 0; e < D; ++e) {
-            j[e] = cc % 3;
-            cc /= 3;
-            skip = skip || j[e] >= nt[e];
-        }
-        if (skip) continue;
-        float W = 1.f, dfac[D];
-        bool need = false;
-#pragma unroll
-        for (int e = 0; e < D; ++e) W *= w[e][j[e]];
-#pragma unroll
-        for (int e = 0; e < D; ++e) {
-            float p = dw[e][j[e]];
-#pragma unroll
-            for (int f = 0; f < D; ++f)
-                if (f != e) p *= w[f][j[f]];
-            dfac[e] = p;
-            need = need || p != 0.f;
-        }
-        if (!need && W == 0.f) continue;
-        bool outside = false;
-        long long off = 0;
-#pragma unroll
-        for (int e = 0; e < D; ++e) off = off * g.n[e] + resolve(tap[e][j[e]] - g.shift[e], g.n[e], g.mode, outside);
-        const float v = outside ? g.c : __ldg(g.p + off);
-        if (W != 0.f) {
-            if (d_grid && !outside && go != 0.f) atomicAdd(d_grid + off, go * W);
-            if (EXTREMA && nh < (1 << D)) {
-                hv[nh] = v, hoff[nh] = off, hout[nh] = outside;
-                ++nh;
-            }
-        }
-#pragma unroll
-        for (int e = 0; e < D; ++e) gd[e] += v * dfac[e];
-    }
-#pragma unroll
-    for (int e = 0; e < D; ++e)
-        if (a.d_disp[e]) a.d_disp[e][eo + q] = go * a.scale[e] * dclip[e] * gd[e];
-    if (EXTREMA && d_grid && nh > 0) {
-        // lo = min(... min(min(BIG, v_0), v_1) ..., v_{nh-1}) and up alike: walk the chain back from the last
-        // tap; a tap below (above) the running min (max) before it takes the rest, a tie half of it
-        float pre_lo[1 << D], pre_up[1 << D], m_lo = 3.4e38f, m_up = -3.4e38f;
-        for (int i = 0; i < nh; ++i) {
-            pre_lo[i] = m_lo, pre_up[i] = m_up;
-            m_lo = fminf(m_lo, hv[i]);
-            m_up = fmaxf(m_up, hv[i]);
-        }
-        float G_lo = a.g_lo ? a.g_lo[eo + q] : 0.f, G_up = a.g_up ? a.g_up[eo + q] : 0.f;
-        for (int i = nh - 1; i >= 0; --i) {
-            const float s_lo = G_lo * above(pre_lo[i], hv[i]), s_up = G_up * above(hv[i], pre_up[i]);
-            G_lo -= s_lo;
-            G_up -= s_up;
-            if (!hout[i] && s_lo + s_up != 0.f) atomicAdd(d_grid + hoff[i], s_lo + s_up);
-        }
+        for (int e = 0; e < D; ++e) a.d_disp[e][entry_out + qk] = go * a.scale[e] * w[e].dclip * (taps ? gd[e] : 0.f);
     }
 }
 
+// K6T / K7T, d_grid: owner-computes through shared memory (the comment at the top of this file), two blocks of 512
+// threads an SM (64 registers at most). KT: the window's K at compile time (1, the paths' K), or 0 for any K (a.K;
+// its loops are not unrolled).
+template <int D, bool EXTREMA, int KT, typename Idx>
+__global__ void __launch_bounds__(WG_THREADS, 2) window_interp_grid_grad_kernel(const InterpGradArgs a) {
+    constexpr int NC = 1 << D;  // corners an output
+    const int K = KT ? KT : a.K, R = a.ring, tid = threadIdx.x;
+    const int SY = wg_rows(D, K), SZ = wg_cols(D, K);  // slot rows (axis 1 in 3D) and columns a plane
+    const int NS = wg_threads(D, K);                   // slots a plane in shared memory: the block's threads
+    const bool active = tid < SY * SZ;                 // a thread with a slot
+    extern __shared__ uint2 wg_smem[];
+    uint2 *const s_floor = wg_smem;  // [ring][NS]: the floors, packed, and the slot's corner 0 offset less its floors'
+    float *const s_coef = reinterpret_cast<float *>(wg_smem + a.ring * NS);  // [ring][corner][NS]
+    const Src g0 = a.grid;
+    const int n0 = g0.n[0];
+    const bool wrap = g0.mode == SRC_WRAP;
+    // the block: owned raw planes [x0, x1) of axis 0; in-plane its tile, the slot window less K a side
+    const int chunks = (n0 + a.chunk - 1) / a.chunk;
+    const bool shared_grid = a.grid_stride == 0;
+    const int e_first = shared_grid ? 0 : blockIdx.z / chunks;
+    const int e_last = shared_grid ? a.nb : e_first + 1;
+    const int xc = blockIdx.z - (shared_grid ? 0 : e_first * chunks);
+    const int x0 = xc * a.chunk, x1 = min(x0 + a.chunk, n0);
+    const int P0 = x0 + g0.shift[0], P1 = x1 + g0.shift[0];  // the owned planes' logical indices
+    int loc[D], org[D], L[D], C[D];  // in-plane (e >= 1): slot position in the window, tile origin (raw), slot
+                                     // logical index, its output's index
+    bool cvalid = active, owner = active, at_lo[D], at_hi[D];
+    if constexpr (D == 3) {
+        loc[1] = tid / SZ, loc[2] = tid - loc[1] * SZ;
+        org[1] = blockIdx.y * (SY - 2 * K), org[2] = blockIdx.x * (SZ - 2 * K);
+    } else {
+        loc[1] = tid;
+        org[1] = blockIdx.x * (SZ - 2 * K);
+    }
+    const bool edge = g0.mode == SRC_EDGE && g0.shift[0] == 0;  // clamped taps (not a padded grid)
+    bool interior = P0 - 2 * K - g0.shift[0] >= 0 && P1 - 1 + 2 * K - g0.shift[0] < n0;  // every tap read lies inside
+#pragma unroll
+    for (int e = 1; e < D; ++e) {
+        const int S = e == D - 1 ? SZ : SY;
+        L[e] = org[e] + g0.shift[e] - K + loc[e];
+        C[e] = wrap ? ((L[e] % a.o[e]) + a.o[e]) % a.o[e] : L[e];
+        cvalid = cvalid && (wrap || (L[e] >= 0 && L[e] < a.o[e]));
+        const int raw = L[e] - g0.shift[e];
+        owner = owner && loc[e] >= K && loc[e] < S - K && raw < g0.n[e];
+        at_lo[e] = edge && raw == 0, at_hi[e] = edge && raw == g0.n[e] - 1;
+        const int first = org[e] + g0.shift[e] - K, last = first + S - 1;  // the window's logical slots
+        interior = interior && first - K - g0.shift[e] >= 0 && last + K - g0.shift[e] < g0.n[e];
+    }
+    long long n_out = 1;
+#pragma unroll
+    for (int e = 0; e < D; ++e) n_out *= a.o[e];
+    const unsigned MASK = D == 3 ? 0xfefefeu : 0xfefeu, PAT = D == 3 ? 0x404040u : 0x4040u;
+    const int self = tid;  // the thread's slot (and cell) in a plane: row-major, loc[1] * SZ + loc[2] in 3D
+
+    for (int entry = e_first; entry < e_last; ++entry) {
+        Src g = g0;
+        g.p += entry * a.grid_stride;
+        const float *disp[D];
+#pragma unroll
+        for (int e = 0; e < D; ++e) disp[e] = a.disp[e] + entry * a.disp_stride;
+        const float *const g_out = a.g_out ? a.g_out + entry * n_out : nullptr;
+        const float *const g_lo = EXTREMA && a.g_lo ? a.g_lo + entry * n_out : nullptr;
+        const float *const g_up = EXTREMA && a.g_up ? a.g_up + entry * n_out : nullptr;
+
+        // The streamed inputs of the thread's output at slot plane p, loaded a plane ahead of their use.
+        struct Streamed {
+            bool valid;
+            float x[D], go, glo, gup;
+        };
+        auto fetch = [&](int p, Streamed &in) {
+            int c0 = p;
+            in.valid = cvalid;
+            if (wrap) c0 = ((p % a.o[0]) + a.o[0]) % a.o[0];
+            else in.valid = in.valid && p >= 0 && p < a.o[0];
+            if (!in.valid) {
+#pragma unroll
+                for (int e = 0; e < D; ++e) in.x[e] = 0.f;
+                return;
+            }
+            Idx q = c0;
+#pragma unroll
+            for (int e = 1; e < D; ++e) q = q * a.o[e] + C[e];
+#pragma unroll
+            for (int e = 0; e < D; ++e) in.x[e] = __ldg(disp[e] + q);
+            in.go = g_out ? __ldg(g_out + q) : 0.f;
+            in.glo = g_lo ? __ldg(g_lo + q) : 0.f;
+            in.gup = g_up ? __ldg(g_up + q) : 0.f;
+        };
+
+        // Slot plane p (logical, axis 0) into ring entry ri: the thread's output's floors and, per corner, the
+        // coefficient it gives the cell its tap resolves to: g W plus the corner's share of lo / up's gradients.
+        auto slot = [&](int p, int ri, const Streamed &in) {
+            unsigned F;
+            float coef[NC];
+            AxisWindow w[D];
+            bool taps = in.valid;
+#pragma unroll
+            for (int e = 0; e < D; ++e) taps = axis_window(a.scale[e] * in.x[e], K, w[e]) && taps;
+            {  // computed whatever `taps`: without taps the floors match no cell and the coefficients go unread
+                F = 0;
+#pragma unroll
+                for (int e = 0; e < D; ++e) F |= (unsigned)(w[e].f + 64) << (8 * e);
+                float W[NC];
+#pragma unroll
+                for (int b = 0; b < NC; ++b) {
+                    W[b] = 1.f;
+#pragma unroll
+                    for (int e = 0; e < D; ++e) W[b] *= w[e].w[(b >> e) & 1];
+                    coef[b] = in.go * W[b];
+                }
+                if (EXTREMA) {
+                    // the corners' values (those with weight), each axis' two taps resolved once
+                    int r[D][2];
+                    bool out[D][2];
+#pragma unroll
+                    for (int e = 0; e < D; ++e) {
+                        const int base = (e == 0 ? p : L[e]) + w[e].f - g.shift[e];
+#pragma unroll
+                        for (int i = 0; i < 2; ++i) {
+                            out[e][i] = false;
+                            r[e][i] = interior ? base + i : resolve(base + i, g.n[e], g.mode, out[e][i]);
+                        }
+                    }
+                    float v[NC];
+#pragma unroll
+                    for (int b = 0; b < NC; ++b) {
+                        int rb[D];
+                        bool ob[D];
+#pragma unroll
+                        for (int e = 0; e < D; ++e) rb[e] = r[e][(b >> e) & 1], ob[e] = out[e][(b >> e) & 1];
+                        v[b] = taps && W[b] != 0.f ? grid_value<D, Idx>(g, rb, ob) : 0.f;
+                    }
+                    // lo = min(... min(min(BIG, v_0), v_1) ...) over the corners with weight, in the window sum's
+                    // order (axis 0 fastest), and up alike: walk the chain back from the last; a corner below
+                    // (above) the running min (max) before it takes the rest, a tie half of it
+                    float pre_lo[NC], pre_up[NC], m_lo = 3.4e38f, m_up = -3.4e38f;
+#pragma unroll
+                    for (int b = 0; b < NC; ++b) {
+                        pre_lo[b] = m_lo, pre_up[b] = m_up;
+                        m_lo = W[b] != 0.f ? fminf(m_lo, v[b]) : m_lo;
+                        m_up = W[b] != 0.f ? fmaxf(m_up, v[b]) : m_up;
+                    }
+                    float G_lo = in.glo, G_up = in.gup;
+#pragma unroll
+                    for (int b = NC - 1; b >= 0; --b) {
+                        const bool hit = W[b] != 0.f;
+                        const float s_lo = hit ? G_lo * above(pre_lo[b], v[b]) : 0.f;
+                        const float s_up = hit ? G_up * above(v[b], pre_up[b]) : 0.f;
+                        G_lo -= s_lo;
+                        G_up -= s_up;
+                        coef[b] = hit ? coef[b] + (s_lo + s_up) : coef[b];
+                    }
+                }
+                if (!taps) F = WG_NONE;
+            }
+            // corner (t - f) of this slot lies at corner index sum_e (t_e - f_e) 2^e: its offset, less the
+            // candidate's own share sum_e t_e 2^e NS, is (ri NC - sum_e f_e 2^e) NS + tid
+            int fl = 0;
+#pragma unroll
+            for (int e = 0; e < D; ++e) fl += w[e].f << e;
+            s_floor[ri * NS + tid] = make_uint2(F, (unsigned)((ri * NC - fl) * NS + tid));
+#pragma unroll
+            for (int b = 0; b < NC; ++b) s_coef[(ri * NC + b) * NS + tid] = coef[b];
+        };
+
+        // The contributions of slot plane p (ring entry ri) to the thread's cell at logical plane x: every slot
+        // within K of the cell whose output has a corner resolving to it, in a fixed order (dy, dz ascending). A
+        // byte an axis: (cell - slot) + 128 against floor + 64, so that cell = slot + floor + corner bit leaves 64
+        // or 65 in every byte (no borrow for |offsets| <= 32).
+        auto gather = [&](int x, int ri, int p, float &acc) {
+            const uint2 *const fl = s_floor + ri * NS;
+            const float *const cf = s_coef + ri * NC * NS;
+            const unsigned T0 = (unsigned)(x - p + 128);
+            bool side = false;  // the cell lies on a clamped side
+#pragma unroll
+            for (int e = 0; e < D; ++e) side = side || at_lo[e] || at_hi[e];
+            if (!side) {  // branch-free: every slot's coefficient read, a miss adding 0
+#pragma unroll
+                for (int dy = D == 3 ? -K : 0; dy <= (D == 3 ? K : 0); ++dy) {
+#pragma unroll
+                    for (int dz = -K; dz <= K; ++dz) {
+                        const int s = self + dy * SZ + dz;
+                        const unsigned T = D == 3 ? T0 | (unsigned)(128 - dy) << 8 | (unsigned)(128 - dz) << 16
+                                                  : T0 | (unsigned)(128 - dz) << 8;
+                        const uint2 F = fl[s];
+                        const unsigned diff = T - F.x;
+                        const bool hit = (diff & MASK) == PAT;
+                        // the corner t - f of slot s: the slot's stored offset plus t's share sum_e t_e 2^e NS (a
+                        // miss reads the thread's own coefficient instead, in bounds, and adds 0)
+                        const int tl = (x - p) + (D == 3 ? 2 * -dy + 4 * -dz : 2 * -dz);
+                        const float c = s_coef[hit ? (int)F.y + tl * NS : tid];
+                        acc += hit ? c : 0.f;
+                    }
+                }
+                return;
+            }
+            // a cell on a clamped side: every tap at or past the side lands on it
+            for (int dy = D == 3 ? -K : 0; dy <= (D == 3 ? K : 0); ++dy) {
+                for (int dz = -K; dz <= K; ++dz) {
+                    const int s = self + dy * SZ + dz;
+                    const unsigned T = D == 3 ? T0 | (unsigned)(128 - dy) << 8 | (unsigned)(128 - dz) << 16
+                                              : T0 | (unsigned)(128 - dz) << 8;
+                    const unsigned F = fl[s].x;
+                    if (F == WG_NONE) continue;
+                    const unsigned diff = T - F;
+                    bool ok[D][2];
+#pragma unroll
+                    for (int e = 0; e < D; ++e) {
+                        const int u = (int)((diff >> (8 * e)) & 0xffu) - 64;  // the corner bit the cell needs
+#pragma unroll
+                        for (int c = 0; c < 2; ++c) ok[e][c] = (at_lo[e] || c >= u) && (at_hi[e] || c <= u);
+                    }
+#pragma unroll
+                    for (int b = 0; b < NC; ++b) {
+                        bool hit = true;
+#pragma unroll
+                        for (int e = 0; e < D; ++e) hit = hit && ok[e][(b >> e) & 1];
+                        if (hit) acc += cf[b * NS + s];
+                    }
+                }
+            }
+        };
+
+        auto store = [&](int x, float acc) {
+            if (!owner) return;
+            const int raw0 = x - g.shift[0];
+            Idx off = raw0;
+#pragma unroll
+            for (int e = 1; e < D; ++e) off = off * g.n[e] + (L[e] - g.shift[e]);
+            float *const dst = a.d_grid + entry * a.grid_stride + off;
+            *dst = entry == e_first ? acc : *dst + acc;  // a shared grid: the entries in order
+        };
+
+        // Ring of 2K + 2: step i computes slot plane P0 - K + i, then (from the 2K-th step on) the cells of plane
+        // x = P0 - K + i - K gather planes x - K .. x + K; the plane overwritten next was last read two steps ago,
+        // so one barrier a step. Ring of 1: 2K + 1 steps a cell plane x, each computing and gathering plane
+        // x - K + j, a barrier on either side. The same sums in the same order either way. The streamed inputs of
+        // a step's slot are loaded during the step before.
+        const int span = 2 * K + 1;
+        const int steps = R > 1 ? P1 - P0 + 2 * K : (P1 - P0) * span;
+        auto plane_of = [&](int i) { return R > 1 ? P0 - K + i : P0 + i / span - K + i % span; };
+        Streamed next;
+        fetch(plane_of(0), next);
+        float acc = 0.f;
+        for (int i = 0; i < steps; ++i) {
+            const int j = R > 1 ? 0 : i % span;
+            const int x = R > 1 ? P0 - 2 * K + i : P0 + i / span;
+            const int p = R > 1 ? x + K : x - K + j;
+            const Streamed in = next;
+            if (i + 1 < steps) fetch(plane_of(i + 1), next);
+            if (R == 1) __syncthreads();
+            slot(p, R > 1 ? (p - P0 + K) % R : 0, in);
+            __syncthreads();
+            if (x >= P0 && owner) {
+                if (j == 0) acc = 0.f;
+                at_lo[0] = edge && x == 0, at_hi[0] = edge && x == n0 - 1;
+                if (R > 1) {
+                    int ri = (x - P0) % R;  // plane x - K's ring entry
+#pragma unroll
+                    for (int t = -K; t <= K; ++t) {
+                        gather(x, ri, x + t, acc);
+                        ri = ri + 1 == R ? 0 : ri + 1;
+                    }
+                } else {
+                    gather(x, 0, p, acc);
+                }
+                if (R > 1 || j == span - 1) store(x, acc);
+            }
+        }
+        __syncthreads();  // the next entry reuses the ring
+    }
+}
+
+// The plan's layout (ops/interp.py::grad_plan): its ring, shared bytes and grid, or a zero grid where it disagrees.
+template <int D>
+static dim3 grad_grid(const InterpGradArgs &a) {
+    const int K = a.K;
+    if (a.nb < 1 || K < 1 || K > 32 || a.chunk < 1) return dim3(0);
+    const int SY = wg_rows(D, K), SZ = wg_cols(D, K), NS = wg_threads(D, K);
+    if (2 * K >= SZ || (D == 3 && 2 * K >= SY)) return dim3(0);
+    const int plane = NS * 4 * (2 + (1 << D));  // bytes of a slot plane: floors, corner offset, coefficients
+    const int ring = (2 * K + 2) * plane <= 232448 ? 2 * K + 2 : 1;
+    if (a.ring != ring || a.smem != ring * plane) return dim3(0);
+    const long long gx = (a.grid.n[D - 1] + SZ - 2 * K - 1) / (SZ - 2 * K);
+    const long long gy = D == 3 ? (a.grid.n[1] + SY - 2 * K - 1) / (SY - 2 * K) : 1;
+    const long long gz = (long long)(a.grid_stride ? a.nb : 1) * ((a.grid.n[0] + a.chunk - 1) / a.chunk);
+    if (gy > 65535 || gz > 65535 || gx > 2147483647LL || gx * gy * gz != a.blocks) return dim3(0);
+    return dim3((unsigned)gx, (unsigned)gy, (unsigned)gz);
+}
+
+template <int D, bool EXTREMA, int KT, typename Idx>
+static int launch_grid_grad(const InterpGradArgs &a, dim3 grid, cudaStream_t s) {
+    auto kernel = window_interp_grid_grad_kernel<D, EXTREMA, KT, Idx>;
+    static bool opted_in = false;  // above 48 KB a kernel must opt in to its dynamic shared memory, once
+    if (!opted_in) {
+        const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+        if (e != cudaSuccess) return (int)e;
+        opted_in = true;
+    }
+    kernel<<<grid, wg_threads(D, a.K), a.smem, s>>>(a);
+    return (int)cudaGetLastError();
+}
+
+template <int D, bool EXTREMA, typename Idx>
+static int launch_grid_grad_k(const InterpGradArgs &a, dim3 grid, cudaStream_t s) {
+    if (a.K == 1) return launch_grid_grad<D, EXTREMA, 1, Idx>(a, grid, s);
+    return launch_grid_grad<D, EXTREMA, 0, Idx>(a, grid, s);
+}
+
+// The two kernels of one K6T / K7T call: d_disp's (where asked) and d_grid's (where asked).
 template <int D>
 static int launch_grad(const InterpGradArgs &a, int extrema, cudaStream_t s) {
-    long long n_out = a.nb;
-    for (int e = 0; e < D; ++e) n_out *= a.o[e];
-    if (a.nb < 1) return (int)cudaErrorInvalidValue;
-    if (n_out == 0) return 0;
-    const unsigned blocks = (unsigned)((n_out + WG_THREADS - 1) / WG_THREADS);
-    if (extrema) window_interp_grad_kernel<D, true><<<blocks, WG_THREADS, 0, s>>>(a);
-    else window_interp_grad_kernel<D, false><<<blocks, WG_THREADS, 0, s>>>(a);
-    return (int)cudaGetLastError();
+    const dim3 grid = grad_grid<D>(a);
+    if (grid.x == 0) return (int)cudaErrorInvalidValue;
+    long long n_grid = 1, n_out = 1;
+    for (int e = 0; e < D; ++e) {
+        n_grid *= a.grid.n[e];
+        n_out *= a.o[e];
+    }
+    if (n_grid == 0 || n_out == 0) return 0;
+    // 32-bit element offsets within an entry where its grid and its outputs have fewer than 2^31 elements
+    const bool small = n_grid < (1LL << 31) && n_out < (1LL << 31);
+    if (a.d_disp[0]) {
+        const long long planes = (long long)a.nb * (D == 3 ? a.o[0] : 1);
+        if (planes > 65535) return (int)cudaErrorInvalidValue;
+        const dim3 g((a.o[D - 1] + WI_TX - 1) / WI_TX, (a.o[D - 2] + WI_TY - 1) / WI_TY, (unsigned)planes);
+        if (small) window_interp_disp_grad_kernel<D, int><<<g, WI_THREADS, 0, s>>>(a);
+        else window_interp_disp_grad_kernel<D, long long><<<g, WI_THREADS, 0, s>>>(a);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    if (!a.d_grid) return 0;
+    if (extrema)
+        return small ? launch_grid_grad_k<D, true, int>(a, grid, s)
+                     : launch_grid_grad_k<D, true, long long>(a, grid, s);
+    return small ? launch_grid_grad_k<D, false, int>(a, grid, s) : launch_grid_grad_k<D, false, long long>(a, grid, s);
 }
 
 // K6T (dims 3) and K7T (dims 2); extrema: lo / up were computed and their upstream gradients may be given

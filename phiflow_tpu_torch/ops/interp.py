@@ -38,7 +38,8 @@ periodic), which the kernel resolves by index without a padding pass.
 
 Both are differentiable in the grid and the displacements (`_WindowInterp`,
 a `torch.autograd.Function`): the forward is the route above, the backward
-is K6ᵀ / K7ᵀ (`csrc/interp.cu::window_interp_grad_kernel`) on CUDA and the
+is K6ᵀ / K7ᵀ (`csrc/interp.cu`: `window_interp_disp_grad_kernel` and
+`window_interp_grid_grad_kernel`, one launch a call) on CUDA and the
 twin's VJP (autograd of `_window_interp_plain`, recomputed) on the CPU. The
 TPU kernels have no VJP; the JAX package's gradient of the same function is
 XLA's AD of its window sum, and the twin is written so that autograd follows
@@ -265,7 +266,8 @@ def _ctypes_grad_args():
         _fields_ = [('grid', _build.src_struct()), ('disp', P * 3), ('scale', F_ * 3),
                     ('g_out', P), ('g_lo', P), ('g_up', P), ('d_grid', P), ('d_disp', P * 3),
                     ('o', I * 3), ('K', I), ('nb', I), ('grid_stride', ctypes.c_longlong),
-                    ('disp_stride', ctypes.c_longlong)]
+                    ('disp_stride', ctypes.c_longlong), ('chunk', I), ('ring', I), ('smem', I),
+                    ('blocks', ctypes.c_longlong)]
     return InterpGradArgs
 
 
@@ -281,6 +283,72 @@ def vector_route(out_shape: Sequence[int], arrays) -> bool:
     displacement and output array starts on a 16-byte boundary. Otherwise
     it loads and stores one value at a time and masks a row's ragged tail."""
     return out_shape[-1] % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in arrays)
+
+
+# K6ᵀ / K7ᵀ's slot window (`csrc/interp.cu`: wg_rows, wg_cols, wg_threads): in 3D a tile of 32 columns (16 for
+# K > 5) with its K-wide halo by as many rows as 512 threads hold, in 2D one row of 256; a thread a slot
+
+
+def _grad_window(dims: int, K: int):
+    """(rows, columns, threads) of K6ᵀ / K7ᵀ's slot window."""
+    if dims == 2:
+        return 1, 256, 256
+    cols = (32 if K <= 5 else 16) + 2 * K
+    return 512 // cols, cols, 512
+
+
+_GRAD_CHUNKS = (1, 2, 4, 8, 16, 32, 64, 128)
+_SMS = 132                     # the H100's SMs
+_SMEM_PER_SM = 233472          # shared memory an SM holds (228 KB), 1 KB of it reserved a block
+_GRAD_THREADS_PER_SM = 1024    # the threads an SM keeps resident at the kernel's registers
+
+
+@functools.lru_cache(maxsize=256)
+def grad_plan(dims: int, K: int, shape: Sequence[int], nb: int = 1, shared_grid: bool = False,
+              chunk: Optional[int] = None) -> dict:
+    """K6ᵀ / K7ᵀ's launch for `nb` entries of a raw grid of `shape` (its
+    `dims` trailing axes; a padded grid's padded shape) and window K;
+    `shared_grid`: one grid for every entry, whose blocks walk the entries.
+
+    A thread computes one slot of a plane's window (``window``: rows ×
+    columns; ``threads`` a block, those past the window idle) and owns the
+    cell at its position unless it lies in the window's K-wide halo: a block
+    owns ``tile`` cells in-plane (the window less 2K an axis: 32 columns in
+    3D, 16 past K = 5) over ``chunk`` planes of axis 0. ``ring`` slot planes
+    stay in shared memory: 2K + 2 (each computed once) where they fit in
+    `_build.SMEM_LIMIT`, else 1 (each recomputed for every plane it serves).
+    ``smem``: their bytes, a slot 4 bytes of floors, 4 of its corner offset
+    and 4 a corner. The chunk minimises the estimated plane steps in series,
+    as `poisson._march_plan`'s does, unless ``chunk`` fixes it. ``grid``:
+    (column tiles, row tiles (1 in 2D), chunks × entries (× 1 for a shared
+    grid)). Cached; the returned dict is shared, not to be modified."""
+    sy, sz, threads = _grad_window(dims, K) if K >= 1 else (0, 0, 0)
+    if K < 1 or 2 * K >= sz or (dims == 3 and 2 * K >= sy) or K > 32:
+        raise ValueError(f"window_interp_{dims}d's backward takes K = 1 … {7 if dims == 3 else 32} in {dims}D, "
+                         f"got K={K}")
+    shape = tuple(int(n) for n in shape)
+    plane = threads * 4 * (2 + 2 ** dims)
+    ring = 2 * K + 2 if (2 * K + 2) * plane <= _build.SMEM_LIMIT else 1
+    smem = ring * plane
+    tile = ((sy - 2 * K,) if dims == 3 else ()) + (sz - 2 * K,)
+    gx = -(-shape[-1] // tile[-1])
+    gy = -(-shape[1] // tile[0]) if dims == 3 else 1
+    entries = 1 if shared_grid else nb
+    walks = nb if shared_grid else 1  # entries a block walks
+    per_sm = max(1, min(_SMEM_PER_SM // (smem + 1024), _GRAD_THREADS_PER_SM // threads))
+
+    def cost(c):
+        steps = c + 2 * K if ring > 1 else c * (2 * K + 1)
+        return -(-gx * gy * entries * -(-shape[0] // c) // (_SMS * per_sm)) * steps * walks
+    if chunk is None:
+        chunk = min((c for c in _GRAD_CHUNKS if c <= max(shape[0], 1)), key=cost)
+    elif chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    grid = (gx, gy, entries * -(-shape[0] // chunk))
+    if grid[1] > 65535 or grid[2] > 65535:
+        raise ValueError(f"window_interp_{dims}d's backward: a grid {grid} past the launch limit of 65535")
+    return dict(window=(sy, sz), tile=tile, chunk=chunk, ring=ring, smem=smem, threads=threads, grid=grid,
+                blocks=grid[0] * grid[1] * grid[2])
 
 
 def _check_f32(name, t):
@@ -360,11 +428,13 @@ def _window_interp_cuda(name, grid, disps, K, compute_extrema, scale, mode, cons
 def _window_interp_grad_cuda(name, grid, disps, K, compute_extrema, scale, mode, const, grads, need_grid,
                              need_disp):
     """K6ᵀ / K7ᵀ: (d_grid or None, [d_disp or None] * d) of the upstream
-    `grads` (out[, lo, up]; None entries are zero) in one launch for the
-    batch; the grid's gradient is summed with atomics into a zeroed array of
-    its raw shape (of one entry where it is shared: the batch sums there),
-    the displacements' written per entry and summed over the batch where they
-    are shared."""
+    `grads` (out[, lo, up]; None entries are zero) in one call for the batch
+    (d_disp's kernel and d_grid's, planned by `grad_plan`; one launch counted).
+    The grid's gradient has its raw shape (of one entry where it is shared:
+    the entries summed in order) and is gathered, each cell written once by
+    the thread that owns it, in a fixed order: no atomics and no zero fill,
+    the same gradients from launch to launch. The displacements' are written
+    per entry and summed over the batch where they are shared."""
     import ctypes
     d = len(disps)
     _check_inputs(grid, disps)
@@ -379,7 +449,7 @@ def _window_interp_grad_cuda(name, grid, disps, K, compute_extrema, scale, mode,
         if g is not None and (tuple(g.shape) != out_shape or g.device != grid.device):
             raise ValueError(f"{name}: an upstream gradient of shape {tuple(g.shape)} on {g.device}, "
                              f"outputs {out_shape} on {grid.device}")
-    d_grid = torch.zeros_like(grid) if need_grid else None
+    d_grid = torch.empty_like(grid) if need_grid else None  # every cell written once
     d_disps = [torch.empty(out_shape, dtype=torch.float32, device=grid.device) if need_disp else None
                for _ in disps]
     a = _ctypes_grad_args()()
@@ -393,6 +463,8 @@ def _window_interp_grad_cuda(name, grid, disps, K, compute_extrema, scale, mode,
     a.g_out, a.g_lo, a.g_up = (None if g is None else g.data_ptr() for g in ups)
     a.d_grid = d_grid.data_ptr() if need_grid else None
     a.K = K
+    plan = grad_plan(d, K, tuple(grid.shape[-d:]), nb, g_stride == 0)
+    a.chunk, a.ring, a.smem, a.blocks = plan['chunk'], plan['ring'], plan['smem'], plan['blocks']
     err = lib.window_interp_grad(ctypes.byref(a), d, int(compute_extrema), _build.stream_of(grid))
     _build.check(lib, err, name + '_grad')
     _build.LAUNCHES[name + '_grad'] += 1

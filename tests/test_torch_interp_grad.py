@@ -2,10 +2,13 @@
 backward, `ops/interp.py::_WindowInterp`) against `jax.grad` of the JAX
 package's window sum (`phiflow_tpu/math/_nd.py::shift_window_interp`, its
 `fori_loop` route on the CPU). On the CPU the backward is the twin's VJP;
-`_grad_kernel_model` below is a line-by-line numpy model of the CUDA
-backward kernel (`csrc/interp.cu::window_interp_grad_kernel`: its tap
-selection, JAX's slopes at the kinks, the extrema chain's tie shares and
-the halo's resolution of the atomic sums), held against the twin here.
+`_grad_kernel_model` below is a numpy model of the CUDA backward
+(`csrc/interp.cu`: `window_interp_grid_grad_kernel` and, for d_disp,
+`window_interp_disp_grad_kernel`: its tap selection, JAX's
+slopes at the kinks, the extrema chain's tie shares, and the gather that
+writes each grid cell once — the blocks of `grad_plan`, their slot windows
+with the halo, the clamped edge sides, the wrapped axes and the batch),
+held against the twin here.
 
 Displacements mix fractional values, integers (from rest), exactly ±K and
 beyond (the clip), so every kink of JAX's AD rules is met. Tolerance 1e-5 of
@@ -204,94 +207,264 @@ def _resolve(l, n, mode):
     return l, not 0 <= l < n
 
 
-def _grad_kernel_model(grid, disps, K, extrema, scale, mode, const, g_out, g_lo, g_up):
-    """`window_interp_grad_kernel` cell by cell in float32: per axis the
-    candidate taps floor(δ) − 1 … floor(δ) + 2 inside [−K, K] with a weight
-    or a slope; corners in mixed radix 3, axis 0 fastest; atomic sums into
-    the grid's raw shape (`mode` None: padded, shift −K, edge)."""
+def _axis_window(x, K):
+    """`axis_window`: (floor, corner weights, corner slopes, the extra tap's
+    slope and offset, the clip's derivative, whether there are taps)."""
     f32 = np.float32
-    d = len(disps)
-    out_shape = disps[0].shape
-    shift = -K if mode is None else 0
-    rmode = 'edge' if mode is None else mode
-    d_grid = np.zeros_like(grid)
-    d_disp = [np.zeros(out_shape, f32) for _ in range(d)]
     kf = f32(K)
-    for o in itertools.product(*[range(n) for n in out_shape]):
-        taps = []
-        dclip = []
-        for e in range(d):
-            x = f32(f32(scale[e]) * disps[e][o])
-            m = max(x, -kf)
-            delta = min(m, kf)
-            dclip.append(_above(x, -kf) * _above(kf, m))
-            f = int(np.floor(delta))
-            axis_taps = []
-            for j in range(4):
-                s = f - 1 + j
-                t = f32(delta - f32(s))
-                dist = t if t >= 0 else -t
-                one_m = f32(1) - dist
-                if s < -K or s > K or one_m < 0:
-                    continue
-                axis_taps.append((f32(max(0.0, one_m)), -(1.0 if one_m > 0 else 0.5) * (1.0 if t >= 0 else -1.0),
-                                  o[e] + s))
-            taps.append(axis_taps)
-        gd = [0.0] * d
-        hits = []
-        for c in range(3 ** d):
-            j = [(c // 3 ** e) % 3 for e in range(d)]
-            if any(j[e] >= len(taps[e]) for e in range(d)):
-                continue
-            w = [taps[e][j[e]][0] for e in range(d)]
-            W = f32(np.prod(w, dtype=f32))
-            dfac = [taps[a][j[a]][1] * np.prod([w[e] for e in range(d) if e != a]) for a in range(d)]
-            if W == 0 and all(df == 0 for df in dfac):
-                continue
-            idx, outside = [], False
+    m = x if x > -kf else -kf  # fmaxf: NaN gives -K
+    d = m if m < kf else kf
+    f = int(np.floor(d))
+    w4, dw4 = [], []
+    for j in range(4):
+        s = f - 1 + j
+        t = f32(d - f32(s))
+        one_m = f32(1) - (t if t >= 0 else -t)
+        tap = -K <= s <= K and one_m >= 0
+        w4.append(f32(max(f32(0), one_m)) if tap else f32(0))
+        dw4.append(f32(-(1.0 if one_m > 0 else 0.5) * (1.0 if t >= 0 else -1.0)) if tap else f32(0))
+    dwx, sx = (dw4[0], -1) if dw4[0] != 0 else (dw4[3], 2)
+    return f, w4[1:3], dw4[1:3], dwx, sx, f32(_above(x, -kf) * _above(kf, m)), x == x
+
+
+def _slot(grid, disps, ups, K, extrema, scale, mode, shift, const, c, L, own):
+    """`slot` of the kernel for the output at index c (its window position,
+    logical, L): its floors (None: no taps), its 2^d corner coefficients (bit
+    e of a corner = axis e) and, with `own`, its d_disp (None otherwise)."""
+    f32 = np.float32
+    d = len(c)
+    nc = 1 << d
+    rmode = 'edge' if mode is None else mode
+    wins = [_axis_window(f32(f32(scale[e]) * disps[e][c]), K) for e in range(d)]
+    go = ups[0][c] if ups[0] is not None else f32(0)
+    gd = [f32(0)] * d
+    floors, coef = None, [f32(0)] * nc
+    if all(w[6] for w in wins):
+        floors = tuple(w[0] for w in wins)
+        r = [[_resolve(L[e] + wins[e][0] + (i if i < 2 else wins[e][4]) - shift, grid.shape[e], rmode)
+              for i in range(3)] for e in range(d)]
+
+        def value(taps):
+            idx = [r[e][taps[e]] for e in range(d)]
+            return const if any(o for _, o in idx) else grid[tuple(i for i, _ in idx)]
+        bits = [[(b >> e) & 1 for e in range(d)] for b in range(nc)]
+        W = [f32(np.prod([wins[e][1][bb[e]] for e in range(d)], dtype=f32)) for bb in bits]
+        exists = [all(bb[e] == 0 or wins[e][2][1] != 0 for e in range(d)) for bb in bits]
+        v = [value(bb) if (exists[b] if own else (extrema and W[b] != 0)) else f32(0) for b, bb in enumerate(bits)]
+        if own:
+            for b, bb in enumerate(bits):
+                for e in range(d):
+                    fac = f32(wins[e][2][bb[e]] * np.prod([wins[k][1][bb[k]] for k in range(d) if k != e], dtype=f32))
+                    gd[e] = f32(gd[e] + v[b] * fac)
             for e in range(d):
-                r, out = _resolve(taps[e][j[e]][2] - shift, grid.shape[e], rmode)
-                idx.append(r)
-                outside = outside or out
-            v = const if outside else grid[tuple(idx)]
-            if W != 0:
-                if not outside:
-                    d_grid[tuple(idx)] += g_out[o] * W
-                hits.append((v, tuple(idx), outside))
-            for a in range(d):
-                gd[a] += v * dfac[a]
-        for a in range(d):
-            d_disp[a][o] = g_out[o] * scale[a] * dclip[a] * gd[a]
-        if extrema and hits:
-            pre_lo, pre_up, m_lo, m_up = [], [], 3.4e38, -3.4e38
-            for v, _, _ in hits:
+                for bb in bits:
+                    if wins[e][3] == 0 or bb[e]:
+                        continue
+                    fac = f32(wins[e][3] * np.prod([wins[k][1][bb[k]] for k in range(d) if k != e], dtype=f32))
+                    if fac != 0:
+                        gd[e] = f32(gd[e] + value([2 if k == e else bb[k] for k in range(d)]) * fac)
+        coef = [f32(go * Wb) for Wb in W]
+        if extrema:
+            pre_lo, pre_up, m_lo, m_up = [], [], f32(3.4e38), f32(-3.4e38)
+            for b in range(nc):
                 pre_lo.append(m_lo)
                 pre_up.append(m_up)
-                m_lo, m_up = min(m_lo, v), max(m_up, v)
-            G_lo, G_up = g_lo[o], g_up[o]
-            for i in reversed(range(len(hits))):
-                s_lo, s_up = G_lo * _above(pre_lo[i], hits[i][0]), G_up * _above(hits[i][0], pre_up[i])
-                G_lo, G_up = G_lo - s_lo, G_up - s_up
-                if not hits[i][2]:
-                    d_grid[hits[i][1]] += s_lo + s_up
+                if W[b] != 0:
+                    m_lo, m_up = min(m_lo, v[b]), max(m_up, v[b])
+            G_lo = ups[1][c] if ups[1] is not None else f32(0)
+            G_up = ups[2][c] if ups[2] is not None else f32(0)
+            for b in reversed(range(nc)):
+                if W[b] == 0:
+                    continue
+                s_lo, s_up = f32(G_lo * _above(pre_lo[b], v[b])), f32(G_up * _above(v[b], pre_up[b]))
+                G_lo, G_up = f32(G_lo - s_lo), f32(G_up - s_up)
+                coef[b] = f32(coef[b] + f32(s_lo + s_up))
+    d_disp = [f32(f32(f32(go * f32(scale[e])) * wins[e][5]) * gd[e]) for e in range(d)] if own else None
+    return floors, coef, d_disp
+
+
+def _grad_kernel_model(grid, disps, K, extrema, scale, mode, const, ups, chunk=None):
+    """`window_interp_grid_grad_kernel` in float32 over the blocks of `grad_plan`.
+    grid: (nb, *raw) or (*raw) shared; disps: d arrays (nb, *out) or (*out)
+    shared; ups: out[, lo, up] as (nb, *out) (None entries zero). Each
+    block computes its slot window plane by plane (halo included; the owner
+    of an output also its d_disp), and each owned cell sums the slots within K
+    of it, planes, rows and columns ascending, taking a corner where cell =
+    slot + floor + corner bit on every axis — or, on a clamped edge side, at
+    or past it; a shared grid's cells add the entries in order. Asserts that
+    every cell and every output is written exactly once an entry. Returns
+    (d_grid in the grid's shape, [d_disp (nb, *out)])."""
+    f32 = np.float32
+    d = len(disps)
+    out_shape = ups[0].shape[1:]
+    nb = ups[0].shape[0]
+    grid_shared, disp_shared = grid.ndim == d, disps[0].ndim == d
+    gshape = grid.shape[-d:]
+    shift = -K if mode is None else 0
+    plan = TI.grad_plan(d, K, gshape, nb, grid_shared, chunk)
+    sy, sz = plan['window']
+    window = ((sy, sz) if d == 3 else (sz,))
+    tile, chunk = plan['tile'], plan['chunk']
+    n0 = gshape[0]
+    chunks = -(-n0 // chunk)
+    edge = mode == 'edge'
+    d_grid = np.zeros(grid.shape, f32)
+    grid_writes = np.zeros(grid.shape, np.int64)
+    d_disp = [np.zeros((nb,) + out_shape, f32) for _ in range(d)]
+    disp_writes = np.zeros((nb,) + out_shape, np.int64)
+    cache = {}
+    for bz, by, bx in itertools.product(*[range(n) for n in plan['grid'][::-1]]):
+        entries = range(nb) if grid_shared else [bz // chunks]
+        xc = bz if grid_shared else bz % chunks
+        x0, x1 = xc * chunk, min(xc * chunk + chunk, n0)
+        org = (by * tile[0], bx * tile[1]) if d == 3 else (bx * tile[0],)
+        for entry in entries:
+            g_e = grid if grid_shared else grid[entry]
+            dsp = [x if disp_shared else x[entry] for x in disps]
+            up = [None if u is None else u[entry] for u in ups]
+            slots = {}
+            for p in range(x0 + shift - K, x1 + shift + K):
+                for loc in itertools.product(*[range(n) for n in window]):
+                    L = (p,) + tuple(org[i] + shift - K + loc[i] for i in range(d - 1))
+                    if mode == 'wrap':
+                        c = tuple(l % n for l, n in zip(L, out_shape))
+                    elif all(0 <= l < n for l, n in zip(L, out_shape)):
+                        c = L
+                    else:
+                        slots[(p,) + loc] = (None, None)
+                        continue
+                    raw = [L[i + 1] - shift for i in range(d - 1)]
+                    own = (x0 + shift <= p < x1 + shift and
+                           all(K <= loc[i] < window[i] - K and raw[i] < gshape[i + 1] for i in range(d - 1)))
+                    key = (entry, c, L, own)
+                    if key not in cache:
+                        cache[key] = _slot(g_e, dsp, up, K, extrema, scale, mode, shift, const, c, L, own)
+                    floors, coef, dd = cache[key]
+                    slots[(p,) + loc] = (floors, coef)
+                    if own:
+                        disp_writes[(entry,) + c] += 1
+                        for e in range(d):
+                            d_disp[e][(entry,) + c] = dd[e]
+            for x in range(x0, x1):
+                for loc in itertools.product(*[range(K, n - K) for n in window]):
+                    cell = (x,) + tuple(org[i] + loc[i] - K for i in range(d - 1))
+                    if any(cell[i] >= gshape[i] for i in range(d)):
+                        continue
+                    at_lo = [edge and cell[e] == 0 for e in range(d)]
+                    at_hi = [edge and cell[e] == gshape[e] - 1 for e in range(d)]
+                    acc = f32(0)
+                    for off in itertools.product(*[range(-K, K + 1)] * d):
+                        floors, coef = slots[(x + shift + off[0],) + tuple(loc[i] + off[i + 1] for i in range(d - 1))]
+                        if floors is None:
+                            continue
+                        u = [-off[e] - floors[e] for e in range(d)]  # the corner bit the cell needs
+                        ok = [[(at_lo[e] or b >= u[e]) and (at_hi[e] or b <= u[e]) for b in (0, 1)] for e in range(d)]
+                        for b in range(1 << d):
+                            if all(ok[e][(b >> e) & 1] for e in range(d)):
+                                acc = f32(acc + coef[b])
+                    idx = cell if grid_shared else (entry,) + cell
+                    d_grid[idx] = acc if entry == entries[0] else f32(d_grid[idx] + acc)
+                    grid_writes[idx] += 1
+    assert (grid_writes == (nb if grid_shared else 1)).all(), 'a grid cell written other than once an entry'
+    assert (disp_writes == 1).all(), 'an output d_disp written other than once'
     return d_grid, d_disp
+
+
+def _model_against_twin(d, K, mode, extrema, shape, rng, nb=None, shared=None, nan=False, chunk=None):
+    """The model and the twin's VJP on one set of inputs (ties in the
+    extrema chain, every kink of the displacements): `nb` entries with the
+    grid or the displacements `shared`; `nan`: a tenth of the outputs with a
+    NaN displacement, held against the twin on those outputs' upstream
+    gradients zeroed and displacements 0 (no taps: no d_grid, d_disp 0)."""
+    gshape = tuple(n + 2 * K for n in shape) if mode is None else shape
+    scale = (1.0, -1.0, 0.5)[:d]
+    lead = () if nb is None else (nb,)
+    grid = np.round(rng.standard_normal((lead if shared != 'grid' else ()) + gshape) * 2).astype(np.float32) / 2
+    disps = [np.stack(x) if lead and shared != 'disp' else x[0]
+             for x in zip(*[_displacements(rng, shape, K, scale) for _ in range(nb if lead and shared != 'disp' else 1)])]
+    ups = [rng.standard_normal((nb or 1,) + shape).astype(np.float32) for _ in range(3)]
+    ref_disps = disps
+    if nan:
+        hole = rng.random((nb or 1,) + shape) < 0.1
+        disps = [np.where(hole.reshape(x.shape) if x.ndim > d else hole[0], np.float32(np.nan), x) for x in disps]
+        ref_disps = [np.where(np.isnan(x), np.float32(0), x) for x in disps]
+        ups = [np.where(hole, np.float32(0), u) for u in ups]
+    const = 0.25
+    t_ups = [torch.tensor(u if lead else u[0]) for u in (ups if extrema else ups[:1])]
+    ref_grid, ref_disp = TI._window_interp_vjp_plain(
+        torch.tensor(grid), [torch.tensor(x) for x in ref_disps], K, extrema, tuple(TI._f32(s) for s in scale), mode,
+        const, t_ups, True, True)
+    got_grid, got_disp = _grad_kernel_model(grid, disps, K, extrema, scale, mode, np.float32(const),
+                                            ups if extrema else [ups[0], None, None], chunk)
+    got_disp = [x.sum(0) if x.shape[0] > 1 and disps[0].ndim == d else (x if lead else x[0]) for x in got_disp]
+    if nan:
+        assert all((x[hole.reshape(x.shape) if x.ndim > d else hole[0]] == 0).all() for x in got_disp if x.ndim > d or not lead)
+    for got, ref in zip([got_grid, *got_disp], [ref_grid, *ref_disp]):
+        ref = ref.numpy()
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() <= TOL * max(np.abs(ref).max(), 1e-6), (np.abs(got - ref).max(), np.abs(ref).max())
 
 
 @pytest.mark.parametrize('d,K,mode,extrema', [(2, 1, 'const', True), (2, 2, 'wrap', True), (2, 2, None, False),
                                                (3, 1, 'edge', True), (3, 2, 'const', False), (3, 1, None, True)])
 def test_backward_kernel_model_matches_twin(d, K, mode, extrema):
-    rng = np.random.default_rng(20 + 5 * d + K)
     shape = (4, 5, 3)[:d] if d == 3 else (5, 6)
-    gshape = tuple(n + 2 * K for n in shape) if mode is None else shape
-    grid = np.round(rng.standard_normal(gshape) * 2).astype(np.float32) / 2  # ties in the extrema chain
-    scale = (1.0, -1.0, 0.5)[:d]
-    disps = _displacements(rng, shape, K, scale)
-    ups = [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
-    const = 0.25
-    ref_grid, ref_disp = TI._window_interp_vjp_plain(
-        torch.tensor(grid), [torch.tensor(x) for x in disps], K, extrema, tuple(TI._f32(s) for s in scale), mode,
-        const, [torch.tensor(u) for u in (ups if extrema else ups[:1])], True, True)
-    got_grid, got_disp = _grad_kernel_model(grid, disps, K, extrema, scale, mode, np.float32(const), *ups)
-    for got, ref in zip([got_grid, *got_disp], [ref_grid, *ref_disp]):
-        ref = ref.numpy()
-        assert np.abs(got - ref).max() <= TOL * max(np.abs(ref).max(), 1e-6)
+    _model_against_twin(d, K, mode, extrema, shape, np.random.default_rng(20 + 5 * d + K))
+
+
+@pytest.mark.parametrize('case,d,K,mode,extrema,shape,kw', [
+    ('wrap, extents <= 2K', 2, 2, 'wrap', True, (3, 4), {}),
+    ('wrap, extents <= 2K', 3, 1, 'wrap', True, (2, 2, 5), {}),
+    ('edge, K = 2', 2, 2, 'edge', True, (5, 7), {}),
+    ('edge, K = 2', 3, 2, 'edge', True, (4, 5, 6), {}),
+    ('ragged: two column tiles', 2, 1, 'const', True, (5, 300), {}),
+    ('ragged: tiles, chunks of 2', 3, 1, 'edge', True, (3, 17, 33), dict(chunk=2)),
+    ('NaN displacements', 2, 1, 'const', True, (6, 7), dict(nan=True)),
+    ('NaN displacements', 3, 1, 'wrap', True, (4, 5, 3), dict(nan=True)),
+    ('batch, shared grid', 2, 1, 'edge', True, (5, 6), dict(nb=3, shared='grid')),
+    ('batch, shared grid', 3, 1, None, True, (3, 4, 5), dict(nb=2, shared='grid')),
+    ('batch, shared displacement', 2, 2, 'wrap', True, (5, 6), dict(nb=3, shared='disp')),
+    ('batch, shared displacement', 3, 1, 'const', False, (3, 4, 5), dict(nb=2, shared='disp')),
+])
+def test_backward_kernel_model_cases(case, d, K, mode, extrema, shape, kw):
+    """The cases the kernel's indexing has to get right beyond the basic six:
+    a wrapped axis of at most 2K cells (one output's taps on one cell twice),
+    clamped edge sides at K = 2, tiles and chunks that do not divide the
+    grid, outputs without taps, and batches with a shared input."""
+    _model_against_twin(d, K, mode, extrema, shape, np.random.default_rng(len(case) + 10 * d + K), **kw)
+
+
+@pytest.mark.parametrize('d,shape,nb', [(3, (256, 256, 256), 1), (3, (512, 256, 256), 1), (2, (4096, 4096), 1),
+                                        (3, (128, 128, 128), 4), (2, (1024, 1024), 4)])
+@pytest.mark.parametrize('K', [1, 2])
+def test_grad_plan_covers_each_cell_once(d, shape, nb, K):
+    """`grad_plan` at the paths' shapes (and a padded grid, K more a side):
+    every cell owned by exactly one block an entry (a shared grid: one
+    block), shared memory within 227 KB, the launch within its limits."""
+    for padded, shared in ((False, False), (True, nb > 1)):
+        gshape = tuple(n + 2 * K for n in shape) if padded else shape
+        plan = TI.grad_plan(d, K, gshape, nb, shared)
+        assert plan['smem'] <= 232448 and plan['ring'] == 2 * K + 2
+        assert plan['grid'][1] <= 65535 and plan['grid'][2] <= 65535 and plan['threads'] <= 1024
+        chunks = -(-gshape[0] // plan['chunk'])
+        assert plan['grid'][2] == chunks * (1 if shared else nb)
+        owned = np.zeros((1 if shared else nb,) + gshape, np.int8)
+        tile = plan['tile']
+        for bz in range(plan['grid'][2]):
+            x0 = (bz % chunks) * plan['chunk']
+            for by in range(plan['grid'][1]):
+                for bx in range(plan['grid'][0]):
+                    box = (bz // chunks, slice(x0, x0 + plan['chunk']))
+                    box += (slice(by * tile[0], (by + 1) * tile[0]),) if d == 3 else ()
+                    owned[box + (slice(bx * tile[-1], (bx + 1) * tile[-1]),)] += 1
+        assert (owned == 1).all()
+
+
+def test_grad_plan_ring_and_limits():
+    """The ring of 2K + 2 slot planes where it fits, one plane past that;
+    K beyond the window refused."""
+    assert [TI.grad_plan(3, K, (64, 64, 64))['ring'] for K in range(1, 8)] == [4, 6, 8, 10, 1, 1, 1]
+    assert TI.grad_plan(2, 17, (64, 64))['ring'] == 36 and TI.grad_plan(2, 18, (64, 64))['ring'] == 1
+    for d, K in ((3, 8), (2, 33)):
+        with pytest.raises(ValueError):
+            TI.grad_plan(d, K, (64,) * d)
