@@ -82,10 +82,17 @@
 //   periodic extension, so each (output, corner) pair lands once. K = 1
 //   unrolls at compile time. Where the ring does not fit in 227 KB (3D K > 4,
 //   2D K > 17) the block keeps one slot plane and recomputes it for every
-//   plane it serves, in the same order. The plan (`ops/interp.py::grad_plan`:
-//   chunk, ring, shared bytes, grid) is checked here and a disagreeing one
-//   refused. What holds it (PERF.md, section 6): in 3D the 27 candidates a
-//   cell checks and the ~250 instructions of an output's d_disp.
+//   plane it serves, in the same order. `ops/interp.py::grad_plan` picks the
+//   chunk; the C entry derives the ring, the shared bytes and the grid from
+//   it, K and the shape (the plan mirrors them). What holds it (PERF.md,
+//   section 6): in 3D the 27 candidates a cell checks and the ~250
+//   instructions of an output's d_disp.
+//   Past the window (3D K > 7, where 2K reaches its rows; 2D K > 32, past the
+//   byte-packed offsets) d_grid takes the wide kernel: a thread a cell, which
+//   reads the (2K + 1)^D outputs within K of it from global memory in a fixed
+//   order, an output's floors tested an axis at a time; its cost grows with
+//   (2K + 1)^D, the slot window's does not, and every K the forward takes has
+//   a gradient. Empty outputs launch nothing.
 //
 // Batches: both kernels take nb entries in one launch, the outputs (and the
 // upstream gradients) one after the other, each input at its own entry stride:
@@ -290,11 +297,9 @@ struct InterpGradArgs {
     int nb;                 // entries of the batch
     long long grid_stride;  // elements from one entry's grid (and d_grid) to the next (0: shared)
     long long disp_stride;  // elements from one entry's displacements to the next (0: shared)
-    // the plan (ops/interp.py::grad_plan), checked against the kernel's layout by the C entry
-    int chunk;         // owned planes a block along axis 0
-    int ring;          // slot planes held in shared memory: 2K + 2, or 1 (each recomputed for every plane it serves)
-    int smem;          // dynamic shared-memory bytes
-    long long blocks;  // the launch's blocks
+    int chunk;  // owned planes a block along axis 0 (ops/interp.py::grad_plan's pick)
+    int ring;   // set by the C entry: slot planes held in shared memory, 2K + 2 or 1 (each recomputed for every
+                // plane it serves)
 };
 
 // A plane of slots, a thread a slot: in 3D a tile of 32 columns (16 for K > 5) with its K-wide halo, by as many
@@ -502,6 +507,66 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_disp_grad_kernel(con
     }
 }
 
+// An output's coefficients on its 2^D corners (bit e of a corner: axis e): g W plus, with the extrema, the corner's
+// share of lo / up's upstream gradients. pos: the output's logical position, its corners at pos + f + bit; interior:
+// every tap lies inside the raw grid (none resolved); taps false (a NaN displacement): no grid value read.
+template <int D, bool EXTREMA, typename Idx>
+__device__ __forceinline__ void corner_coefs(const Src &g, const AxisWindow (&w)[D], const int (&pos)[D],
+                                             bool interior, bool taps, float go, float glo, float gup,
+                                             float (&coef)[1 << D]) {
+    constexpr int NC = 1 << D;
+    float W[NC];
+#pragma unroll
+    for (int b = 0; b < NC; ++b) {
+        W[b] = 1.f;
+#pragma unroll
+        for (int e = 0; e < D; ++e) W[b] *= w[e].w[(b >> e) & 1];
+        coef[b] = go * W[b];
+    }
+    if (!EXTREMA) return;
+    // the corners' values (those with weight), each axis' two taps resolved once
+    int r[D][2];
+    bool out[D][2];
+#pragma unroll
+    for (int e = 0; e < D; ++e) {
+        const int base = pos[e] + w[e].f - g.shift[e];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            out[e][i] = false;
+            r[e][i] = interior ? base + i : resolve(base + i, g.n[e], g.mode, out[e][i]);
+        }
+    }
+    float v[NC];
+#pragma unroll
+    for (int b = 0; b < NC; ++b) {
+        int rb[D];
+        bool ob[D];
+#pragma unroll
+        for (int e = 0; e < D; ++e) rb[e] = r[e][(b >> e) & 1], ob[e] = out[e][(b >> e) & 1];
+        v[b] = taps && W[b] != 0.f ? grid_value<D, Idx>(g, rb, ob) : 0.f;
+    }
+    // lo = min(... min(min(BIG, v_0), v_1) ...) over the corners with weight, in the window sum's order (axis 0
+    // fastest), and up alike: walk the chain back from the last; a corner below (above) the running min (max)
+    // before it takes the rest, a tie half of it
+    float pre_lo[NC], pre_up[NC], m_lo = 3.4e38f, m_up = -3.4e38f;
+#pragma unroll
+    for (int b = 0; b < NC; ++b) {
+        pre_lo[b] = m_lo, pre_up[b] = m_up;
+        m_lo = W[b] != 0.f ? fminf(m_lo, v[b]) : m_lo;
+        m_up = W[b] != 0.f ? fmaxf(m_up, v[b]) : m_up;
+    }
+    float G_lo = glo, G_up = gup;
+#pragma unroll
+    for (int b = NC - 1; b >= 0; --b) {
+        const bool hit = W[b] != 0.f;
+        const float s_lo = hit ? G_lo * above(pre_lo[b], v[b]) : 0.f;
+        const float s_up = hit ? G_up * above(v[b], pre_up[b]) : 0.f;
+        G_lo -= s_lo;
+        G_up -= s_up;
+        coef[b] = hit ? coef[b] + (s_lo + s_up) : coef[b];
+    }
+}
+
 // K6T / K7T, d_grid: owner-computes through shared memory (the comment at the top of this file), two blocks of 512
 // threads an SM (64 registers at most). KT: the window's K at compile time (1, the paths' K), or 0 for any K (a.K;
 // its loops are not unrolled).
@@ -604,57 +669,11 @@ __global__ void __launch_bounds__(WG_THREADS, 2) window_interp_grid_grad_kernel(
                 F = 0;
 #pragma unroll
                 for (int e = 0; e < D; ++e) F |= (unsigned)(w[e].f + 64) << (8 * e);
-                float W[NC];
+                int pos[D];
+                pos[0] = p;
 #pragma unroll
-                for (int b = 0; b < NC; ++b) {
-                    W[b] = 1.f;
-#pragma unroll
-                    for (int e = 0; e < D; ++e) W[b] *= w[e].w[(b >> e) & 1];
-                    coef[b] = in.go * W[b];
-                }
-                if (EXTREMA) {
-                    // the corners' values (those with weight), each axis' two taps resolved once
-                    int r[D][2];
-                    bool out[D][2];
-#pragma unroll
-                    for (int e = 0; e < D; ++e) {
-                        const int base = (e == 0 ? p : L[e]) + w[e].f - g.shift[e];
-#pragma unroll
-                        for (int i = 0; i < 2; ++i) {
-                            out[e][i] = false;
-                            r[e][i] = interior ? base + i : resolve(base + i, g.n[e], g.mode, out[e][i]);
-                        }
-                    }
-                    float v[NC];
-#pragma unroll
-                    for (int b = 0; b < NC; ++b) {
-                        int rb[D];
-                        bool ob[D];
-#pragma unroll
-                        for (int e = 0; e < D; ++e) rb[e] = r[e][(b >> e) & 1], ob[e] = out[e][(b >> e) & 1];
-                        v[b] = taps && W[b] != 0.f ? grid_value<D, Idx>(g, rb, ob) : 0.f;
-                    }
-                    // lo = min(... min(min(BIG, v_0), v_1) ...) over the corners with weight, in the window sum's
-                    // order (axis 0 fastest), and up alike: walk the chain back from the last; a corner below
-                    // (above) the running min (max) before it takes the rest, a tie half of it
-                    float pre_lo[NC], pre_up[NC], m_lo = 3.4e38f, m_up = -3.4e38f;
-#pragma unroll
-                    for (int b = 0; b < NC; ++b) {
-                        pre_lo[b] = m_lo, pre_up[b] = m_up;
-                        m_lo = W[b] != 0.f ? fminf(m_lo, v[b]) : m_lo;
-                        m_up = W[b] != 0.f ? fmaxf(m_up, v[b]) : m_up;
-                    }
-                    float G_lo = in.glo, G_up = in.gup;
-#pragma unroll
-                    for (int b = NC - 1; b >= 0; --b) {
-                        const bool hit = W[b] != 0.f;
-                        const float s_lo = hit ? G_lo * above(pre_lo[b], v[b]) : 0.f;
-                        const float s_up = hit ? G_up * above(v[b], pre_up[b]) : 0.f;
-                        G_lo -= s_lo;
-                        G_up -= s_up;
-                        coef[b] = hit ? coef[b] + (s_lo + s_up) : coef[b];
-                    }
-                }
+                for (int e = 1; e < D; ++e) pos[e] = L[e];
+                corner_coefs<D, EXTREMA, Idx>(g, w, pos, interior, taps, in.go, in.glo, in.gup, coef);
                 if (!taps) F = WG_NONE;
             }
             // corner (t - f) of this slot lies at corner index sum_e (t_e - f_e) 2^e: its offset, less the
@@ -775,47 +794,154 @@ __global__ void __launch_bounds__(WG_THREADS, 2) window_interp_grid_grad_kernel(
     }
 }
 
-// The plan's layout (ops/interp.py::grad_plan): its ring, shared bytes and grid, or a zero grid where it disagrees.
-template <int D>
-static dim3 grad_grid(const InterpGradArgs &a) {
+// K6T / K7T, d_grid past the slot window (3D K > 7, 2D K > 32): a thread a cell, a block 8 rows of 32 cells, no
+// shared memory and no barrier. The cell reads from global memory the outputs within K of it, ascending (axis 0
+// slowest): an output's floors are tested an axis at a time, its first miss ending it, and an output with a corner
+// on the cell computes its coefficients and adds those of its corners on the cell in corner order (on a clamped
+// edge side, every corner at or past the side). A shared grid's cells add the entries in order.
+#define WW_TX 32
+#define WW_TY 8
+template <int D, bool EXTREMA, typename Idx>
+__global__ void __launch_bounds__(WI_THREADS) window_interp_wide_grid_grad_kernel(const InterpGradArgs a) {
+    constexpr int NC = 1 << D;
     const int K = a.K;
-    if (a.nb < 1 || K < 1 || K > 32 || a.chunk < 1) return dim3(0);
-    const int SY = wg_rows(D, K), SZ = wg_cols(D, K), NS = wg_threads(D, K);
-    if (2 * K >= SZ || (D == 3 && 2 * K >= SY)) return dim3(0);
-    const int plane = NS * 4 * (2 + (1 << D));  // bytes of a slot plane: floors, corner offset, coefficients
-    const int ring = (2 * K + 2) * plane <= 232448 ? 2 * K + 2 : 1;
-    if (a.ring != ring || a.smem != ring * plane) return dim3(0);
-    const long long gx = (a.grid.n[D - 1] + SZ - 2 * K - 1) / (SZ - 2 * K);
-    const long long gy = D == 3 ? (a.grid.n[1] + SY - 2 * K - 1) / (SY - 2 * K) : 1;
-    const long long gz = (long long)(a.grid_stride ? a.nb : 1) * ((a.grid.n[0] + a.chunk - 1) / a.chunk);
-    if (gy > 65535 || gz > 65535 || gx > 2147483647LL || gx * gy * gz != a.blocks) return dim3(0);
-    return dim3((unsigned)gx, (unsigned)gy, (unsigned)gz);
+    const Src g0 = a.grid;
+    int r[D];  // the cell's raw indices
+    int entry;
+    if constexpr (D == 3) {
+        entry = blockIdx.z / g0.n[0];
+        r[0] = blockIdx.z - entry * g0.n[0];
+    } else {
+        entry = blockIdx.z;
+    }
+    r[D - 2] = blockIdx.y * WW_TY + (threadIdx.x >> 5);
+    r[D - 1] = blockIdx.x * WW_TX + (threadIdx.x & 31);
+    if (r[D - 2] >= g0.n[D - 2] || r[D - 1] >= g0.n[D - 1]) return;
+    const bool wrap = g0.mode == SRC_WRAP, edge = g0.mode == SRC_EDGE && g0.shift[0] == 0;
+    int l[D];  // logical
+    bool at_lo[D], at_hi[D];
+    Idx cell = 0;
+    long long n_out = 1;
+#pragma unroll
+    for (int e = 0; e < D; ++e) {
+        l[e] = r[e] + g0.shift[e];
+        at_lo[e] = edge && r[e] == 0, at_hi[e] = edge && r[e] == g0.n[e] - 1;
+        cell = cell * g0.n[e] + r[e];
+        n_out *= a.o[e];
+    }
+    const int e_first = a.grid_stride == 0 ? 0 : entry, e_last = a.grid_stride == 0 ? a.nb : entry + 1;
+    for (int en = e_first; en < e_last; ++en) {
+        Src g = g0;
+        g.p += en * a.grid_stride;
+        const long long d_off = en * a.disp_stride, o_off = en * n_out;
+        float acc = 0.f;
+        int j[D];  // the candidate output's logical indices, an odometer over l - K .. l + K (axis 0 slowest)
+#pragma unroll
+        for (int e = 0; e < D; ++e) j[e] = l[e] - K;
+        int total = 1;
+#pragma unroll
+        for (int e = 0; e < D; ++e) total *= 2 * K + 1;
+        for (int t = 0; t < total; ++t) {
+            Idx q = 0;
+            bool go = true;  // the output exists, has taps, and its floors put a corner on the cell so far
+#pragma unroll
+            for (int e = 0; e < D; ++e) {
+                int c = j[e];
+                if (wrap) c = ((c % a.o[e]) + a.o[e]) % a.o[e];
+                else go = go && c >= 0 && c < a.o[e];
+                q = q * a.o[e] + c;
+            }
+            AxisWindow w[D];
+            bool ok[D][2];
+#pragma unroll
+            for (int e = 0; e < D; ++e) {
+                if (go) {  // NaN: no taps
+                    go = axis_window(a.scale[e] * __ldg(a.disp[e] + d_off + q), K, w[e]);
+                    const int u = l[e] - j[e] - w[e].f;  // the corner bit the cell needs
+#pragma unroll
+                    for (int c = 0; c < 2; ++c) ok[e][c] = (at_lo[e] || c >= u) && (at_hi[e] || c <= u);
+                    go = go && (ok[e][0] || ok[e][1]);
+                }
+            }
+            if (go) {
+                float coef[NC];
+                corner_coefs<D, EXTREMA, Idx>(g, w, j, false, true, a.g_out ? __ldg(a.g_out + o_off + q) : 0.f,
+                                              EXTREMA && a.g_lo ? __ldg(a.g_lo + o_off + q) : 0.f,
+                                              EXTREMA && a.g_up ? __ldg(a.g_up + o_off + q) : 0.f, coef);
+#pragma unroll
+                for (int b = 0; b < NC; ++b) {
+                    bool hit = true;
+#pragma unroll
+                    for (int e = 0; e < D; ++e) hit = hit && ok[e][(b >> e) & 1];
+                    if (hit) acc += coef[b];
+                }
+            }
+#pragma unroll
+            for (int e = D - 1; e >= 0; --e) {  // the next candidate
+                if (++j[e] <= l[e] + K) break;
+                j[e] = l[e] - K;
+            }
+        }
+        float *const dst = a.d_grid + en * a.grid_stride + cell;
+        *dst = en == e_first ? acc : *dst + acc;  // a shared grid: the entries in order
+    }
+}
+
+// The slot window's limits: the ring's bytes within the shared memory a block may take on Hopper (227 KB), and the
+// K it holds (its byte-packed offsets take |K| <= 32)
+#define WG_SMEM_LIMIT 232448
+
+template <int D>
+static bool tiled_route(int K) {
+    return K >= 1 && K <= 32 && 2 * K < wg_cols(D, K) && (D == 2 || 2 * K < wg_rows(D, K));
 }
 
 template <int D, bool EXTREMA, int KT, typename Idx>
-static int launch_grid_grad(const InterpGradArgs &a, dim3 grid, cudaStream_t s) {
+static int launch_grid_grad(const InterpGradArgs &a, dim3 grid, int smem, cudaStream_t s) {
     auto kernel = window_interp_grid_grad_kernel<D, EXTREMA, KT, Idx>;
     static bool opted_in = false;  // above 48 KB a kernel must opt in to its dynamic shared memory, once
     if (!opted_in) {
-        const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+        const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM_LIMIT);
         if (e != cudaSuccess) return (int)e;
         opted_in = true;
     }
-    kernel<<<grid, wg_threads(D, a.K), a.smem, s>>>(a);
+    kernel<<<grid, wg_threads(D, a.K), smem, s>>>(a);
     return (int)cudaGetLastError();
 }
 
+// d_grid's kernel: the slot window's (its ring, shared bytes and grid from K, the grid's shape and the chunk that
+// ops/interp.py::grad_plan picked) or, past its K, the wide one
 template <int D, bool EXTREMA, typename Idx>
-static int launch_grid_grad_k(const InterpGradArgs &a, dim3 grid, cudaStream_t s) {
-    if (a.K == 1) return launch_grid_grad<D, EXTREMA, 1, Idx>(a, grid, s);
-    return launch_grid_grad<D, EXTREMA, 0, Idx>(a, grid, s);
+static int launch_grid_grad_k(const InterpGradArgs &a, cudaStream_t s) {
+    const int K = a.K;
+    const int entries = a.grid_stride ? a.nb : 1;
+    if (!tiled_route<D>(K)) {
+        const long long gz = (long long)entries * (D == 3 ? a.grid.n[0] : 1);
+        const long long gy = (a.grid.n[D - 2] + WW_TY - 1) / WW_TY;
+        if (gy > 65535 || gz > 65535) return (int)cudaErrorInvalidValue;
+        const dim3 grid((a.grid.n[D - 1] + WW_TX - 1) / WW_TX, (unsigned)gy, (unsigned)gz);
+        window_interp_wide_grid_grad_kernel<D, EXTREMA, Idx><<<grid, WI_THREADS, 0, s>>>(a);
+        return (int)cudaGetLastError();
+    }
+    if (a.chunk < 1) return (int)cudaErrorInvalidValue;
+    const int SY = wg_rows(D, K), SZ = wg_cols(D, K), NS = wg_threads(D, K);
+    const int plane = NS * 4 * (2 + (1 << D));  // bytes of a slot plane: floors, corner offset, coefficients
+    InterpGradArgs b = a;
+    b.ring = (2 * K + 2) * plane <= WG_SMEM_LIMIT ? 2 * K + 2 : 1;
+    const long long gx = (a.grid.n[D - 1] + SZ - 2 * K - 1) / (SZ - 2 * K);
+    const long long gy = D == 3 ? (a.grid.n[1] + SY - 2 * K - 1) / (SY - 2 * K) : 1;
+    const long long gz = (long long)entries * ((a.grid.n[0] + a.chunk - 1) / a.chunk);
+    if (gy > 65535 || gz > 65535 || gx > 2147483647LL) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz);
+    if (K == 1) return launch_grid_grad<D, EXTREMA, 1, Idx>(b, grid, b.ring * plane, s);
+    return launch_grid_grad<D, EXTREMA, 0, Idx>(b, grid, b.ring * plane, s);
 }
 
-// The two kernels of one K6T / K7T call: d_disp's (where asked) and d_grid's (where asked).
+// The two kernels of one K6T / K7T call: d_disp's (where asked) and d_grid's (where asked). Empty outputs launch
+// nothing (the wrapper fills the gradients).
 template <int D>
 static int launch_grad(const InterpGradArgs &a, int extrema, cudaStream_t s) {
-    const dim3 grid = grad_grid<D>(a);
-    if (grid.x == 0) return (int)cudaErrorInvalidValue;
+    if (a.nb < 1 || a.K < 1) return (int)cudaErrorInvalidValue;
     long long n_grid = 1, n_out = 1;
     for (int e = 0; e < D; ++e) {
         n_grid *= a.grid.n[e];
@@ -834,10 +960,8 @@ static int launch_grad(const InterpGradArgs &a, int extrema, cudaStream_t s) {
         if (e != cudaSuccess) return (int)e;
     }
     if (!a.d_grid) return 0;
-    if (extrema)
-        return small ? launch_grid_grad_k<D, true, int>(a, grid, s)
-                     : launch_grid_grad_k<D, true, long long>(a, grid, s);
-    return small ? launch_grid_grad_k<D, false, int>(a, grid, s) : launch_grid_grad_k<D, false, long long>(a, grid, s);
+    if (extrema) return small ? launch_grid_grad_k<D, true, int>(a, s) : launch_grid_grad_k<D, true, long long>(a, s);
+    return small ? launch_grid_grad_k<D, false, int>(a, s) : launch_grid_grad_k<D, false, long long>(a, s);
 }
 
 // K6T (dims 3) and K7T (dims 2); extrema: lo / up were computed and their upstream gradients may be given

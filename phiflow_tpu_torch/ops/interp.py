@@ -266,8 +266,7 @@ def _ctypes_grad_args():
         _fields_ = [('grid', _build.src_struct()), ('disp', P * 3), ('scale', F_ * 3),
                     ('g_out', P), ('g_lo', P), ('g_up', P), ('d_grid', P), ('d_disp', P * 3),
                     ('o', I * 3), ('K', I), ('nb', I), ('grid_stride', ctypes.c_longlong),
-                    ('disp_stride', ctypes.c_longlong), ('chunk', I), ('ring', I), ('smem', I),
-                    ('blocks', ctypes.c_longlong)]
+                    ('disp_stride', ctypes.c_longlong), ('chunk', I), ('ring', I)]
     return InterpGradArgs
 
 
@@ -297,58 +296,87 @@ def _grad_window(dims: int, K: int):
     return 512 // cols, cols, 512
 
 
+def tiled_route(dims: int, K: int) -> bool:
+    """Whether K6ᵀ / K7ᵀ's d_grid takes the slot window (`csrc/interp.cu`
+    tiled_route): its window holds K on both in-plane axes and its byte-packed
+    offsets K ≤ 32 (3D K ≤ 7, 2D K ≤ 32). Past it, the wide kernel: a thread a
+    cell, reading the outputs within K of it from global memory."""
+    rows, cols, _ = _grad_window(dims, K)
+    return 1 <= K <= 32 and 2 * K < cols and (dims == 2 or 2 * K < rows)
+
+
 _GRAD_CHUNKS = (1, 2, 4, 8, 16, 32, 64, 128)
-_SMS = 132                     # the H100's SMs
-_SMEM_PER_SM = 233472          # shared memory an SM holds (228 KB), 1 KB of it reserved a block
-_GRAD_THREADS_PER_SM = 1024    # the threads an SM keeps resident at the kernel's registers
+_GRAD_BLOCKS_PER_SM = 2  # the slot kernel's launch bounds: two blocks of 512 threads an SM (64 registers)
+_WIDE_TILE = (8, 32)     # the wide kernel's block: 8 rows of 32 cells (`csrc/interp.cu` WW_TY, WW_TX)
+
+
+@functools.lru_cache(maxsize=16)
+def sm_budget(index: int):
+    """(SMs, shared-memory bytes an SM) of CUDA device `index`, which K6ᵀ /
+    K7ᵀ's plan fills; a PyTorch without the latter property gives Hopper's
+    228 KB."""
+    p = torch.cuda.get_device_properties(index)
+    return p.multi_processor_count, int(getattr(p, 'shared_memory_per_multiprocessor', 233472))
 
 
 @functools.lru_cache(maxsize=256)
-def grad_plan(dims: int, K: int, shape: Sequence[int], nb: int = 1, shared_grid: bool = False,
-              chunk: Optional[int] = None) -> dict:
-    """K6ᵀ / K7ᵀ's launch for `nb` entries of a raw grid of `shape` (its
-    `dims` trailing axes; a padded grid's padded shape) and window K;
-    `shared_grid`: one grid for every entry, whose blocks walk the entries.
+def grad_plan(dims: int, K: int, shape: Sequence[int], nb: int = 1, shared_grid: bool = False, *,
+              sms: int, smem_per_sm: int) -> dict:
+    """K6ᵀ / K7ᵀ's d_grid launch for `nb` entries of a raw grid of `shape`
+    (its `dims` trailing axes; a padded grid's padded shape) and window K;
+    `shared_grid`: one grid for every entry, whose blocks walk the entries;
+    `sms`, `smem_per_sm`: the card's (`sm_budget`). The C entry derives the
+    same ring and grid from K, the shape and the chunk; the chunk is the
+    plan's one choice, and the rest describes the kernel's layout.
 
-    A thread computes one slot of a plane's window (``window``: rows ×
-    columns; ``threads`` a block, those past the window idle) and owns the
-    cell at its position unless it lies in the window's K-wide halo: a block
-    owns ``tile`` cells in-plane (the window less 2K an axis: 32 columns in
-    3D, 16 past K = 5) over ``chunk`` planes of axis 0. ``ring`` slot planes
-    stay in shared memory: 2K + 2 (each computed once) where they fit in
-    `_build.SMEM_LIMIT`, else 1 (each recomputed for every plane it serves).
-    ``smem``: their bytes, a slot 4 bytes of floors, 4 of its corner offset
-    and 4 a corner. The chunk minimises the estimated plane steps in series,
-    as `poisson._march_plan`'s does, unless ``chunk`` fixes it. ``grid``:
-    (column tiles, row tiles (1 in 2D), chunks × entries (× 1 for a shared
-    grid)). Cached; the returned dict is shared, not to be modified."""
-    sy, sz, threads = _grad_window(dims, K) if K >= 1 else (0, 0, 0)
-    if K < 1 or 2 * K >= sz or (dims == 3 and 2 * K >= sy) or K > 32:
-        raise ValueError(f"window_interp_{dims}d's backward takes K = 1 … {7 if dims == 3 else 32} in {dims}D, "
-                         f"got K={K}")
+    ``route`` 'tiled' (`tiled_route`): a thread computes one slot of a
+    plane's window (``window``: rows × columns; ``threads`` a block, those
+    past the window idle) and owns the cell at its position unless it lies
+    in the window's K-wide halo: a block owns ``tile`` cells in-plane (the
+    window less 2K an axis: 32 columns in 3D, 16 past K = 5) over ``chunk``
+    planes of axis 0. ``ring`` slot planes stay in shared memory: 2K + 2
+    (each computed once) where they fit in `_build.SMEM_LIMIT`, else 1 (each
+    recomputed for every plane it serves). ``smem``: their bytes, a slot 4
+    bytes of floors, 4 of its corner offset and 4 a corner. The chunk
+    minimises the estimated plane steps in series, as
+    `poisson._march_plan`'s does. ``grid``: (column tiles, row tiles (1 in
+    2D), chunks × entries (× 1 for a shared grid)).
+
+    ``route`` 'wide': a thread a cell, a block ``tile`` cells (8 rows of 32)
+    of one plane; ``grid``: (column tiles, row tiles, planes (1 in 2D) ×
+    entries (× 1 for a shared grid)); no shared memory.
+
+    Cached; the returned dict is shared, not to be modified."""
+    if K < 1:
+        raise ValueError(f"window_interp_{dims}d's backward takes K >= 1, got K={K}")
     shape = tuple(int(n) for n in shape)
+    entries = 1 if shared_grid else nb
+    if not tiled_route(dims, K):
+        ty, tx = _WIDE_TILE
+        grid = (-(-shape[-1] // tx), -(-shape[-2] // ty), entries * (shape[0] if dims == 3 else 1))
+        if grid[1] > 65535 or grid[2] > 65535:
+            raise ValueError(f"window_interp_{dims}d's backward: a grid {grid} past the launch limit of 65535")
+        return dict(route='wide', window=None, tile=_WIDE_TILE, chunk=1, ring=0, smem=0, threads=ty * tx,
+                    grid=grid, blocks=grid[0] * grid[1] * grid[2])
+    sy, sz, threads = _grad_window(dims, K)
     plane = threads * 4 * (2 + 2 ** dims)
     ring = 2 * K + 2 if (2 * K + 2) * plane <= _build.SMEM_LIMIT else 1
     smem = ring * plane
     tile = ((sy - 2 * K,) if dims == 3 else ()) + (sz - 2 * K,)
     gx = -(-shape[-1] // tile[-1])
     gy = -(-shape[1] // tile[0]) if dims == 3 else 1
-    entries = 1 if shared_grid else nb
     walks = nb if shared_grid else 1  # entries a block walks
-    per_sm = max(1, min(_SMEM_PER_SM // (smem + 1024), _GRAD_THREADS_PER_SM // threads))
+    per_sm = max(1, min(smem_per_sm // (smem + 1024), _GRAD_BLOCKS_PER_SM))  # 1 KB reserved a block
 
     def cost(c):
         steps = c + 2 * K if ring > 1 else c * (2 * K + 1)
-        return -(-gx * gy * entries * -(-shape[0] // c) // (_SMS * per_sm)) * steps * walks
-    if chunk is None:
-        chunk = min((c for c in _GRAD_CHUNKS if c <= max(shape[0], 1)), key=cost)
-    elif chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
+        return -(-gx * gy * entries * -(-shape[0] // c) // (sms * per_sm)) * steps * walks
+    chunk = min((c for c in _GRAD_CHUNKS if c <= max(shape[0], 1)), key=cost)
     grid = (gx, gy, entries * -(-shape[0] // chunk))
     if grid[1] > 65535 or grid[2] > 65535:
         raise ValueError(f"window_interp_{dims}d's backward: a grid {grid} past the launch limit of 65535")
-    return dict(window=(sy, sz), tile=tile, chunk=chunk, ring=ring, smem=smem, threads=threads, grid=grid,
-                blocks=grid[0] * grid[1] * grid[2])
+    return dict(route='tiled', window=(sy, sz), tile=tile, chunk=chunk, ring=ring, smem=smem, threads=threads,
+                grid=grid, blocks=grid[0] * grid[1] * grid[2])
 
 
 def _check_f32(name, t):
@@ -433,8 +461,9 @@ def _window_interp_grad_cuda(name, grid, disps, K, compute_extrema, scale, mode,
     The grid's gradient has its raw shape (of one entry where it is shared:
     the entries summed in order) and is gathered, each cell written once by
     the thread that owns it, in a fixed order: no atomics and no zero fill,
-    the same gradients from launch to launch. The displacements' are written
-    per entry and summed over the batch where they are shared."""
+    the same gradients from launch to launch, for every K the forward takes.
+    The displacements' are written per entry and summed over the batch where
+    they are shared. Empty outputs launch nothing: the gradients are zeros."""
     import ctypes
     d = len(disps)
     _check_inputs(grid, disps)
@@ -449,6 +478,9 @@ def _window_interp_grad_cuda(name, grid, disps, K, compute_extrema, scale, mode,
         if g is not None and (tuple(g.shape) != out_shape or g.device != grid.device):
             raise ValueError(f"{name}: an upstream gradient of shape {tuple(g.shape)} on {g.device}, "
                              f"outputs {out_shape} on {grid.device}")
+    if not np.prod(out_shape, dtype=np.int64):  # no output: no tap, nothing launched
+        return ((torch.zeros_like(grid_in) if need_grid else None),
+                [torch.zeros_like(dd) if need_disp else None for dd in disps_in])
     d_grid = torch.empty_like(grid) if need_grid else None  # every cell written once
     d_disps = [torch.empty(out_shape, dtype=torch.float32, device=grid.device) if need_disp else None
                for _ in disps]
@@ -463,8 +495,9 @@ def _window_interp_grad_cuda(name, grid, disps, K, compute_extrema, scale, mode,
     a.g_out, a.g_lo, a.g_up = (None if g is None else g.data_ptr() for g in ups)
     a.d_grid = d_grid.data_ptr() if need_grid else None
     a.K = K
-    plan = grad_plan(d, K, tuple(grid.shape[-d:]), nb, g_stride == 0)
-    a.chunk, a.ring, a.smem, a.blocks = plan['chunk'], plan['ring'], plan['smem'], plan['blocks']
+    if need_grid:
+        a.chunk = grad_plan(d, K, tuple(grid.shape[-d:]), nb, g_stride == 0,
+                            **dict(zip(('sms', 'smem_per_sm'), sm_budget(grid.device.index))))['chunk']
     err = lib.window_interp_grad(ctypes.byref(a), d, int(compute_extrema), _build.stream_of(grid))
     _build.check(lib, err, name + '_grad')
     _build.LAUNCHES[name + '_grad'] += 1

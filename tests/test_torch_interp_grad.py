@@ -283,8 +283,60 @@ def _slot(grid, disps, ups, K, extrema, scale, mode, shift, const, c, L, own):
     return floors, coef, d_disp
 
 
-def _grad_kernel_model(grid, disps, K, extrema, scale, mode, const, ups, chunk=None):
-    """`window_interp_grid_grad_kernel` in float32 over the blocks of `grad_plan`.
+H100 = dict(sms=132, smem_per_sm=233472)  # `grad_plan`'s budget on the H100 (`sm_budget` there)
+
+
+def _wide_model(grid, disps, K, extrema, scale, mode, const, ups, gshape, out_shape, shift):
+    """`window_interp_wide_grid_grad_kernel` in float32: each cell sums the
+    outputs within K of it, ascending (axis 0 slowest), taking a corner
+    where cell = output + floor + corner bit on every axis (on a clamped edge
+    side, at or past it); a shared grid's cells add the entries in order.
+    d_disp from `slot` of each output (`window_interp_disp_grad_kernel`)."""
+    f32 = np.float32
+    d = len(disps)
+    nb = ups[0].shape[0]
+    grid_shared, disp_shared = grid.ndim == d, disps[0].ndim == d
+    d_grid = np.zeros(grid.shape, f32)
+    d_disp = [np.zeros((nb,) + out_shape, f32) for _ in range(d)]
+    cache = {}
+    for entry in range(nb):
+        g_e = grid if grid_shared else grid[entry]
+        dsp = [x if disp_shared else x[entry] for x in disps]
+        up = [None if u is None else u[entry] for u in ups]
+        for c in itertools.product(*[range(n) for n in out_shape]):
+            _, _, dd = _slot(g_e, dsp, up, K, extrema, scale, mode, shift, const, c, c, True)
+            for e in range(d):
+                d_disp[e][(entry,) + c] = dd[e]
+        for cell in itertools.product(*[range(n) for n in gshape]):
+            l = [r + shift for r in cell]
+            at_lo = [mode == 'edge' and r == 0 for r in cell]
+            at_hi = [mode == 'edge' and r == n - 1 for r, n in zip(cell, gshape)]
+            # the kernel skips an output past a non-wrapped side: its range clipped to the outputs
+            ranges = [range(li - K, li + K + 1) if mode == 'wrap' else range(max(li - K, 0), min(li + K, n - 1) + 1)
+                      for li, n in zip(l, out_shape)]
+            acc = f32(0)
+            for j in itertools.product(*ranges):
+                c = tuple(x % n for x, n in zip(j, out_shape))
+                key = (entry, c, j)
+                if key not in cache:
+                    cache[key] = _slot(g_e, dsp, up, K, extrema, scale, mode, shift, const, c, j, False)[:2]
+                floors, coef = cache[key]
+                if floors is None:
+                    continue
+                u = [l[e] - j[e] - floors[e] for e in range(d)]
+                ok = [[(at_lo[e] or b >= u[e]) and (at_hi[e] or b <= u[e]) for b in (0, 1)] for e in range(d)]
+                for b in range(1 << d):
+                    if all(ok[e][(b >> e) & 1] for e in range(d)):
+                        acc = f32(acc + coef[b])
+            idx = cell if grid_shared else (entry,) + cell
+            d_grid[idx] = acc if entry == 0 or not grid_shared else f32(d_grid[idx] + acc)
+    return d_grid, d_disp
+
+
+def _grad_kernel_model(grid, disps, K, extrema, scale, mode, const, ups, sms=H100['sms']):
+    """`window_interp_grid_grad_kernel` in float32 over the blocks of `grad_plan`
+    (planned for `sms` SMs of the H100's), or past its K the wide kernel's
+    (`_wide_model`).
     grid: (nb, *raw) or (*raw) shared; disps: d arrays (nb, *out) or (*out)
     shared; ups: out[, lo, up] as (nb, *out) (None entries zero). Each
     block computes its slot window plane by plane (halo included; the owner
@@ -301,7 +353,9 @@ def _grad_kernel_model(grid, disps, K, extrema, scale, mode, const, ups, chunk=N
     grid_shared, disp_shared = grid.ndim == d, disps[0].ndim == d
     gshape = grid.shape[-d:]
     shift = -K if mode is None else 0
-    plan = TI.grad_plan(d, K, gshape, nb, grid_shared, chunk)
+    plan = TI.grad_plan(d, K, gshape, nb, grid_shared, sms=sms, smem_per_sm=H100['smem_per_sm'])
+    if plan['route'] == 'wide':
+        return _wide_model(grid, disps, K, extrema, scale, mode, const, ups, gshape, out_shape, shift)
     sy, sz = plan['window']
     window = ((sy, sz) if d == 3 else (sz,))
     tile, chunk = plan['tile'], plan['chunk']
@@ -370,7 +424,7 @@ def _grad_kernel_model(grid, disps, K, extrema, scale, mode, const, ups, chunk=N
     return d_grid, d_disp
 
 
-def _model_against_twin(d, K, mode, extrema, shape, rng, nb=None, shared=None, nan=False, chunk=None):
+def _model_against_twin(d, K, mode, extrema, shape, rng, nb=None, shared=None, nan=False, sms=H100['sms']):
     """The model and the twin's VJP on one set of inputs (ties in the
     extrema chain, every kink of the displacements): `nb` entries with the
     grid or the displacements `shared`; `nan`: a tenth of the outputs with a
@@ -395,7 +449,7 @@ def _model_against_twin(d, K, mode, extrema, shape, rng, nb=None, shared=None, n
         torch.tensor(grid), [torch.tensor(x) for x in ref_disps], K, extrema, tuple(TI._f32(s) for s in scale), mode,
         const, t_ups, True, True)
     got_grid, got_disp = _grad_kernel_model(grid, disps, K, extrema, scale, mode, np.float32(const),
-                                            ups if extrema else [ups[0], None, None], chunk)
+                                            ups if extrema else [ups[0], None, None], sms)
     got_disp = [x.sum(0) if x.shape[0] > 1 and disps[0].ndim == d else (x if lead else x[0]) for x in got_disp]
     if nan:
         assert all((x[hole.reshape(x.shape) if x.ndim > d else hole[0]] == 0).all() for x in got_disp if x.ndim > d or not lead)
@@ -418,19 +472,26 @@ def test_backward_kernel_model_matches_twin(d, K, mode, extrema):
     ('edge, K = 2', 2, 2, 'edge', True, (5, 7), {}),
     ('edge, K = 2', 3, 2, 'edge', True, (4, 5, 6), {}),
     ('ragged: two column tiles', 2, 1, 'const', True, (5, 300), {}),
-    ('ragged: tiles, chunks of 2', 3, 1, 'edge', True, (3, 17, 33), dict(chunk=2)),
+    ('ragged: tiles, chunks of 2', 3, 1, 'edge', True, (3, 17, 33), dict(sms=1)),
     ('NaN displacements', 2, 1, 'const', True, (6, 7), dict(nan=True)),
     ('NaN displacements', 3, 1, 'wrap', True, (4, 5, 3), dict(nan=True)),
     ('batch, shared grid', 2, 1, 'edge', True, (5, 6), dict(nb=3, shared='grid')),
     ('batch, shared grid', 3, 1, None, True, (3, 4, 5), dict(nb=2, shared='grid')),
     ('batch, shared displacement', 2, 2, 'wrap', True, (5, 6), dict(nb=3, shared='disp')),
     ('batch, shared displacement', 3, 1, 'const', False, (3, 4, 5), dict(nb=2, shared='disp')),
+    ('wide: 3D K = 8', 3, 8, 'const', True, (3, 4, 5), {}),
+    ('wide: 3D K = 8', 3, 8, 'edge', True, (4, 3, 5), dict(nan=True)),
+    ('wide: 3D K = 8', 3, 8, None, False, (2, 3, 4), dict(nb=2, shared='grid')),
+    ('wide: 2D K = 33', 2, 33, 'edge', True, (5, 40), {}),
+    ('wide: 2D K = 33', 2, 33, None, True, (3, 5), dict(nb=2, shared='disp')),
 ])
 def test_backward_kernel_model_cases(case, d, K, mode, extrema, shape, kw):
     """The cases the kernel's indexing has to get right beyond the basic six:
     a wrapped axis of at most 2K cells (one output's taps on one cell twice),
     clamped edge sides at K = 2, tiles and chunks that do not divide the
-    grid, outputs without taps, and batches with a shared input."""
+    grid (chunks of 2 where the plan has one SM), outputs without taps,
+    batches with a shared input, and K past the slot window (the wide
+    kernel)."""
     _model_against_twin(d, K, mode, extrema, shape, np.random.default_rng(len(case) + 10 * d + K), **kw)
 
 
@@ -443,8 +504,8 @@ def test_grad_plan_covers_each_cell_once(d, shape, nb, K):
     block), shared memory within 227 KB, the launch within its limits."""
     for padded, shared in ((False, False), (True, nb > 1)):
         gshape = tuple(n + 2 * K for n in shape) if padded else shape
-        plan = TI.grad_plan(d, K, gshape, nb, shared)
-        assert plan['smem'] <= 232448 and plan['ring'] == 2 * K + 2
+        plan = TI.grad_plan(d, K, gshape, nb, shared, **H100)
+        assert plan['route'] == 'tiled' and plan['smem'] <= 232448 and plan['ring'] == 2 * K + 2
         assert plan['grid'][1] <= 65535 and plan['grid'][2] <= 65535 and plan['threads'] <= 1024
         chunks = -(-gshape[0] // plan['chunk'])
         assert plan['grid'][2] == chunks * (1 if shared else nb)
@@ -462,9 +523,14 @@ def test_grad_plan_covers_each_cell_once(d, shape, nb, K):
 
 def test_grad_plan_ring_and_limits():
     """The ring of 2K + 2 slot planes where it fits, one plane past that;
-    K beyond the window refused."""
-    assert [TI.grad_plan(3, K, (64, 64, 64))['ring'] for K in range(1, 8)] == [4, 6, 8, 10, 1, 1, 1]
-    assert TI.grad_plan(2, 17, (64, 64))['ring'] == 36 and TI.grad_plan(2, 18, (64, 64))['ring'] == 1
-    for d, K in ((3, 8), (2, 33)):
-        with pytest.raises(ValueError):
-            TI.grad_plan(d, K, (64,) * d)
+    K beyond the window (3D K > 7, 2D K > 32) on the wide kernel, which
+    plans a thread a cell; K < 1 refused."""
+    plan = lambda d, K, shape, nb=1, shared=False: TI.grad_plan(d, K, shape, nb, shared, **H100)
+    assert [plan(3, K, (64, 64, 64))['ring'] for K in range(1, 8)] == [4, 6, 8, 10, 1, 1, 1]
+    assert plan(2, 17, (64, 64))['ring'] == 36 and plan(2, 18, (64, 64))['ring'] == 1
+    assert [plan(3, K, (64,) * 3)['route'] for K in (7, 8, 40)] == ['tiled', 'wide', 'wide']
+    assert [plan(2, K, (64,) * 2)['route'] for K in (32, 33, 200)] == ['tiled', 'wide', 'wide']
+    assert plan(3, 8, (80, 65, 70))['grid'] == (3, 9, 80) and plan(3, 8, (80, 65, 70), 3)['grid'] == (3, 9, 240)
+    assert plan(3, 8, (80, 65, 70), 3, True)['grid'] == (3, 9, 80) and plan(2, 33, (100, 65))['grid'] == (3, 13, 1)
+    with pytest.raises(ValueError):
+        plan(3, 0, (64,) * 3)
