@@ -77,7 +77,9 @@
 //   owned cell sums the slots within K of it, planes, rows and columns
 //   ascending: a slot counts where one byte-wise subtraction shows cell =
 //   slot + floor + corner bit on every axis (every slot read, a miss adding
-//   0); a cell on a clamped edge side also takes the taps clamped onto it. A
+//   0); a cell on a clamped edge side also takes the taps clamped onto it
+//   (at K = 1, on one side, in a second pass after the exact taps, so that
+//   its warp runs the fast pass with the others). A
 //   wrapped axis needs no case: the window's slots are the outputs of the
 //   periodic extension, so each (output, corner) pair lands once. K = 1
 //   unrolls at compile time. Where the ring does not fit in 227 KB (3D K > 4,
@@ -694,10 +696,18 @@ __global__ void __launch_bounds__(WG_THREADS, 2) window_interp_grid_grad_kernel(
             const uint2 *const fl = s_floor + ri * NS;
             const float *const cf = s_coef + ri * NC * NS;
             const unsigned T0 = (unsigned)(x - p + 128);
-            bool side = false;  // the cell lies on a clamped side
+            // the clamped sides the cell lies on (an axis of one cell counts twice); es, lo_s: the axis and
+            // the side of a single one
+            int nside = 0, es = 0;
+            bool lo_s = false;
 #pragma unroll
-            for (int e = 0; e < D; ++e) side = side || at_lo[e] || at_hi[e];
-            if (!side) {  // branch-free: every slot's coefficient read, a miss adding 0
+            for (int e = 0; e < D; ++e) {
+                nside += (int)at_lo[e] + (int)at_hi[e];
+                if (at_lo[e] || at_hi[e]) es = e, lo_s = at_lo[e];
+            }
+            // K = 1 (the paths' K): a cell on one side takes the exact taps with the cells on none, then those
+            // past its side; at run-time K that pass would spill, and a cell on any side takes the path below
+            if (nside == 0 || (KT == 1 && nside == 1)) {  // the exact taps: branch-free, a miss adding 0
 #pragma unroll
                 for (int dy = D == 3 ? -K : 0; dy <= (D == 3 ? K : 0); ++dy) {
 #pragma unroll
@@ -715,9 +725,31 @@ __global__ void __launch_bounds__(WG_THREADS, 2) window_interp_grid_grad_kernel(
                         acc += hit ? c : 0.f;
                     }
                 }
+                if (nside == 0) return;
+                // one clamped side: then the taps past it, exact on every other axis; on axis es the corner bits
+                // c < u at the low side, c > u at the high one (u: the bit an exact tap needs)
+                const unsigned MASK_S = MASK & ~(0xffu << (8 * es)), PAT_S = PAT & ~(0xffu << (8 * es));
+                const int wes = NS << es;  // a corner bit of axis es in coefficient indices
+#pragma unroll 1
+                for (int dy = D == 3 ? -K : 0; dy <= (D == 3 ? K : 0); ++dy) {
+#pragma unroll 1
+                    for (int dz = -K; dz <= K; ++dz) {
+                        const int s = self + dy * SZ + dz;
+                        const unsigned T = D == 3 ? T0 | (unsigned)(128 - dy) << 8 | (unsigned)(128 - dz) << 16
+                                                  : T0 | (unsigned)(128 - dz) << 8;
+                        const uint2 F = fl[s];
+                        const unsigned diff = T - F.x;
+                        if (F.x == WG_NONE || (diff & MASK_S) != PAT_S) continue;
+                        const int u = (int)((diff >> (8 * es)) & 0xffu) - 64;
+                        const int tl = (x - p) + (D == 3 ? 2 * -dy + 4 * -dz : 2 * -dz);
+                        const int at = (int)F.y + tl * NS - u * wes;  // corner c of axis es at at + c wes
+                        if (lo_s ? 0 < u : 0 > u) acc += s_coef[at];
+                        if (lo_s ? 1 < u : 1 > u) acc += s_coef[at + wes];
+                    }
+                }
                 return;
             }
-            // a cell on a clamped side: every tap at or past the side lands on it
+            // a cell on clamped sides (K = 1: on two or more): every tap at or past them lands on it
             for (int dy = D == 3 ? -K : 0; dy <= (D == 3 ? K : 0); ++dy) {
                 for (int dz = -K; dz <= K; ++dz) {
                     const int s = self + dy * SZ + dz;

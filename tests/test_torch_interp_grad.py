@@ -342,8 +342,10 @@ def _grad_kernel_model(grid, disps, K, extrema, scale, mode, const, ups, sms=H10
     block computes its slot window plane by plane (halo included; the owner
     of an output also its d_disp), and each owned cell sums the slots within K
     of it, planes, rows and columns ascending, taking a corner where cell =
-    slot + floor + corner bit on every axis — or, on a clamped edge side, at
-    or past it; a shared grid's cells add the entries in order. Asserts that
+    slot + floor + corner bit on every axis; at K = 1 a cell on one clamped
+    edge side then, plane by plane, the taps past it (exact on the other
+    axes), and any other cell on a side every tap at or past its sides, slot
+    by slot; a shared grid's cells add the entries in order. Asserts that
     every cell and every output is written exactly once an entry. Returns
     (d_grid in the grid's shape, [d_disp (nb, *out)])."""
     f32 = np.float32
@@ -407,15 +409,29 @@ def _grad_kernel_model(grid, disps, K, extrema, scale, mode, const, ups, sms=H10
                     at_lo = [edge and cell[e] == 0 for e in range(d)]
                     at_hi = [edge and cell[e] == gshape[e] - 1 for e in range(d)]
                     acc = f32(0)
-                    for off in itertools.product(*[range(-K, K + 1)] * d):
-                        floors, coef = slots[(x + shift + off[0],) + tuple(loc[i] + off[i + 1] for i in range(d - 1))]
-                        if floors is None:
-                            continue
-                        u = [-off[e] - floors[e] for e in range(d)]  # the corner bit the cell needs
-                        ok = [[(at_lo[e] or b >= u[e]) and (at_hi[e] or b <= u[e]) for b in (0, 1)] for e in range(d)]
-                        for b in range(1 << d):
-                            if all(ok[e][(b >> e) & 1] for e in range(d)):
-                                acc = f32(acc + coef[b])
+                    sides = sum(at_lo) + sum(at_hi)
+                    # no clamped side, or at K = 1 one: per slot plane the exact taps, then those past the side;
+                    # otherwise every tap at or past the sides, slot by slot
+                    one = sides == 0 or (K == 1 and sides == 1)
+                    passes = [(False, True)] + ([(True, False)] if sides == 1 else []) if one else [(True, True)]
+                    for p0 in range(-K, K + 1):
+                        for past, exact in passes:
+                            for off in itertools.product(*[range(-K, K + 1)] * (d - 1)):
+                                off = (p0,) + off
+                                floors, coef = slots[(x + shift + p0,) + tuple(loc[i] + off[i + 1]
+                                                                                for i in range(d - 1))]
+                                if floors is None:
+                                    continue
+                                u = [-off[e] - floors[e] for e in range(d)]  # the corner bit the cell needs
+                                ok = [[(exact and b == u[e]) or (past and ((at_lo[e] and b < u[e])
+                                                                            or (at_hi[e] and b > u[e])))
+                                       for b in (0, 1)] for e in range(d)]
+                                if past and not exact:  # exact on every other axis, past the side on its own
+                                    ok = [[b == u[e] for b in (0, 1)] if not (at_lo[e] or at_hi[e]) else ok[e]
+                                          for e in range(d)]
+                                for b in range(1 << d):
+                                    if all(ok[e][(b >> e) & 1] for e in range(d)):
+                                        acc = f32(acc + coef[b])
                     idx = cell if grid_shared else (entry,) + cell
                     d_grid[idx] = acc if entry == entries[0] else f32(d_grid[idx] + acc)
                     grid_writes[idx] += 1
