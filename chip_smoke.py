@@ -39,7 +39,8 @@ Phases; any failure exits non-zero and prints no result:
      and without the extrema, and at the K of the one-slot-plane route (6 in
      3D, 24 in 2D) and past the slot window (the wide kernel: 8 in 3D, 33
      in 2D), on wrapped axes of at most 2K cells and with NaN displacements
-     (no taps), every form launched twice and bit-equal; empty outputs give
+     (fault 3.12: JAX's rule, the twin's NaN pattern, as for K5, K6 and K7),
+     every form launched twice and bit-equal; empty outputs give
      zeros with no launch counted); the
      median CUDA-event time of the
      kernel, of the twin and, where one PyTorch call computes the same
@@ -207,7 +208,9 @@ Phases; any failure exits non-zero and prints no result:
      periodic Laplacian and the nested domain, card vs CPU;
   9. batched simulation (`check_batched_kernels` with phase 3, `run_batched` after phase 8):
      9a K1 (each epilogue, with its dot), K2 (the zero-init pre-smooth f32 → bf16 and the post-smooth
-     with its dot), K3 and K4 at B = 4 × 128³ and B = 3 × RAGGED, K6 at B = 4 × 128³ with a
+     with its dot), K3 and K4 at B = 4 × 128³ and B = 3 × RAGGED, K1m there (coefficient arrays and
+     active cells, each epilogue with its dot) with masks shared by the batch and with masks per
+     entry, K6 at B = 4 × 128³ with a
      batched and a shared displacement (edge + extrema, const), K7 at B = 4 × 1024², K6ᵀ / K7ᵀ at the
      same shapes: each against its twin at phase 3's tolerances, entry by entry against the
      unbatched launch on that entry (outputs bit-equal, dots within 1e-6 relative; K6ᵀ / K7ᵀ's
@@ -229,6 +232,14 @@ Phases; any failure exits non-zero and prints no result:
      the rates one float32 ulp up against the CPU run (what rounding alone moves); 9d the batched 3D plume at 32³, b = 3, 2 steps, CPU vs card 1e-3;
      9e batched-grad-64 and batched-grad-256-2d: `math.gradient` of a batched rollout (b = 2),
      K6ᵀ / K7ᵀ once for each forward K6 / K7 launch, each entry within 1e-4 of its own gradient;
+     9f batched-obstacle-256x4: 4f's obstacle step (its three moving obstacles shared by the batch,
+     Chebyshev, cg_tol 1e-4) on four `smooth_state` velocities (seeds 0–3) at once, 2 warm-up and 3
+     timed steps: ms/step, Mcells/s over all entries, CG iterations by entry, launches a step,
+     `max_memory_allocated` above what was allocated before, one step under torch.profiler (device
+     ms, kernels, busy share); gates: each entry bit-equal to its own unbatched obstacle steps, K1m
+     (one launch for the batch) as often as the entry that iterates longest, max |div·active −
+     mean| of each entry within OBSTACLE_DIV_BOUND, finite; then batched-obstacle-128x2-vcycle, the
+     same at 2 × 128³ under the projected V-cycle;
   10. open and mixed boundaries (`run_open_boundaries`, after phase 9): 10a open-plume-256:
      SmokePlume(256, dims=3)'s inflow sphere, buoyancy, dt and cg_tol 1e-3 through the Field API
      with the velocity under combine_sides(x=0, y=0, z=(0, ZERO_GRADIENT)) (an open top), the smoke
@@ -256,7 +267,8 @@ Phases; any failure exits non-zero and prints no result:
      `math.gradient` of one open-box 2D step (K7ᵀ once for each forward K7 launch, finite, card
      against CPU within 1e-4);
   11. the `kernels` JSON line (every row above and the batched forms, `<kernel>_batched`, whose
-     launches are counted on phase 9's paths; `launches_by_path` has phase 10's paths too), then
+     launches are counted on phase 9's paths — K1m's on batched-obstacle-256x4; `launches_by_path`
+     has phase 10's paths too), then
      the last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each phase prints its seconds on the host clock as it ends (`phase …: … s`, the larger ones their
@@ -310,7 +322,7 @@ KERNELS = {  # launch-counter name → (source, the Pallas kernel it replaces)
 }
 # the batched forms (phase 9): the same kernels over a leading batch axis, one launch a call
 BATCHED_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'window_interp_3d',
-                   'window_interp_2d', 'window_interp_3d_grad', 'window_interp_2d_grad')
+                   'window_interp_2d', 'window_interp_3d_grad', 'window_interp_2d_grad', 'poisson_stencil_masked')
 ROWS = {**KERNELS, **{f'{k}_batched': KERNELS[k] for k in BATCHED_KERNELS}}  # the `kernels` line's rows
 FUSED_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'fused_advect')
 PHASES_3D_KERNELS = ('poisson_stencil', 'jacobi_sweeps', 'residual_restrict', 'prolong_add', 'window_interp_3d')
@@ -1092,10 +1104,35 @@ def _advect_calls(N, K, vel_t, smoke, periodic):
                     ('five sources, four outputs', vel + mixed[0], mixed[1], [smoke])]
 
 
+def _advect_nan_calls(N, K, vel_t, smoke, periodic, gen):
+    """Fault 3.12 in K5: NaN on a few faces of each velocity component, the advected arrays finite. A call 1
+    (the smoke's forward pass with its extrema), a call 2 (the backward pass, combine, clip, ball and lift, its
+    slab the finite forward values, lo / up ±3.4e38 where call 1 met a NaN) and the three staggered outputs of an
+    advected scalar (the cross averages of the displacements). Returns (scales, calls) as `_advect_calls`."""
+    import torch
+    from phiflow_tpu_torch.ops.advect3d import OutSpec, Source, _fused_advect_plain
+    vel_t = [v.clone() for v in vel_t]
+    for v in vel_t:
+        flat = v.view(-1)
+        flat[torch.randint(0, flat.numel(), (max(1, flat.numel() // 2000),), generator=gen, device=v.device)] = \
+            float('nan')
+    scales, calls = _advect_calls(N, K, vel_t, smoke, periodic)
+    (what1, s1, o1, _), (what2, s2, o2, x2) = calls[:2]
+    v_mode = 'wrap' if periodic else 'const'
+    vel = [Source(vel_t[d], own_axis=d, mode=v_mode) for d in range(3)]
+    [(fwd, lo, up)] = _fused_advect_plain(s1, N, K, o1, scales, [])
+    s2 = vel + [Source(torch.nan_to_num(fwd), mode=s2[3].mode)]
+    staggered = [OutSpec(slab=3, d_own=d, extrema=True, negate=d == 1) for d in range(3)]
+    return scales, [(what1, s1, o1, []), (what2, s2, o2, [smoke, lo, up]),
+                    ('three staggered outputs of a scalar', s1, staggered, [])]
+
+
 def check_advect(ch, gen, quick):
     """K5 against its twin: the three calls of a step and a call of four
     outputs, closed and periodic, K = 1, 2, 3; values within 2e-5, lo / up
-    exactly. The step's three calls timed at 256³, K = 1."""
+    exactly. At NaN velocities (fault 3.12; finite advected arrays) the same
+    NaN pattern as the twin's, lo / up ±3.4e38 there. The step's three calls
+    timed at 256³, K = 1."""
     import torch
     from phiflow_tpu_torch.ops.advect3d import fused_advect_3d, _fused_advect_plain
     dev = 'cuda'
@@ -1116,6 +1153,20 @@ def check_advect(ch, gen, quick):
                     ch.compare('fused_advect', f'{what} out{i}.{j}{" (exact)" if exact else ""} {N} K={K}'
                                f'{" periodic" if periodic else ""}', gg, rr, 0.0 if exact else 2e-5)
             del got, ref
+        if N == SMALL:
+            nan_scales, nan_calls = _advect_nan_calls(N, K, vel_t, smoke, periodic, gen)
+            for what, srcs, outs, extras in nan_calls:
+                got = fused_advect_3d(srcs, N, K, outs, nan_scales, extras)
+                ref = _fused_advect_plain(srcs, N, K, outs, nan_scales, extras)
+                for i, (g, r) in enumerate(zip(got, ref)):
+                    g = g if isinstance(g, tuple) else (g,)
+                    r = r if isinstance(r, tuple) else (r,)
+                    for j, (gg, rr) in enumerate(zip(g, r)):
+                        exact = outs[i].extrema and j in (1, 2)
+                        ch.compare_with_nan('fused_advect', f'{what} out{i}.{j}{" (exact)" if exact else ""} {N} '
+                                            f'K={K}{" periodic" if periodic else ""}, NaN velocities', gg, rr,
+                                            0.0 if exact else 2e-5)
+                del got, ref
         if N != SMALL and K == 1 and not periodic:
             # each input read once, each output written once: call 2's lift plane included
             (_, s1, o1, _), (_, s2, o2, x2), (_, s3, o3, x3) = calls[:3]
@@ -1170,8 +1221,22 @@ def _grid_sample_lookup(grid, disps, K, scale, padding_mode, pad=0):
                                  align_corners=True)[:, 0].reshape(out)
 
 
+def _with_nan(disps, gen):
+    """The displacements with NaN, as JAX's window sum meets it (fault 3.12): a tenth of the outputs on the last
+    axis alone, a twentieth on every axis. Returns (displacements, the outputs NaN on the last axis alone)."""
+    import torch
+    shape, dev = disps[0].shape, disps[0].device
+    lone = torch.rand(shape, generator=gen, device=dev) < 0.1
+    every = torch.rand(shape, generator=gen, device=dev) < 0.05
+    holed = [torch.where(every | (lone if i == len(disps) - 1 else torch.zeros_like(lone)), float('nan'), x)
+             for i, x in enumerate(disps)]
+    return holed, lone & ~every
+
+
 def check_interp(ch, gen, quick):
-    """K6 / K7 against their twin: values within 1e-5, lo / up exactly."""
+    """K6 / K7 against their twin: values within 1e-5, lo / up exactly; at NaN
+    displacements (JAX's rule: a NaN value, lo / up ±3.4e38) the same NaN
+    pattern as the twin's."""
     import torch
     from phiflow_tpu_torch.ops import interp as I
     dev = 'cuda'
@@ -1219,6 +1284,24 @@ def check_interp(ch, gen, quick):
         ref = twin(grid, ints, K, True, False, (1.0,) * d, None)
         compare(d, f'{shape} K={K} padded, integer displacements 0 and ±K', got, ref, True)
         ch.compare(fns[d][1], f'{shape} integer displacements: lo == up == value', got[1], got[2], 0.0)
+    # --- NaN displacements (fault 3.12): the value NaN where any axis' displacement is, lo / up ±3.4e38 there;
+    #     against the twin, NaN patterns equal, every halo form, K = 1 and 2, both row routes of K6 ---
+    for d, shape in ((3, SMALL), (3, K6_RAGGED), (2, (37, 45))):
+        scale = (0.8, -1.1, 0.6)[:d]
+        for K in (1, 2):
+            for mode in (None, 'const', 'edge', 'wrap'):
+                gshape = tuple(n + 2 * K for n in shape) if mode is None else shape
+                grid = torch.randn(gshape, generator=gen, device=dev)
+                disps, _ = _with_nan(list((torch.rand((d,) + shape, generator=gen, device=dev) * 2 - 1)
+                                          * ((K + 1) / 0.6)), gen)
+                for extrema in (False, True):
+                    case = f'{shape} K={K} {mode or "padded"}{" extrema" if extrema else ""}, NaN displacements'
+                    got = kernel(d, grid, disps, K, extrema, False, scale, mode, 0.25)
+                    ref = twin(grid, disps, K, extrema, False, scale, mode, 0.25)
+                    got, ref = (got, ref) if extrema else ((got,), (ref,))
+                    ch.compare_with_nan(fns[d][1], case + ' value', got[0], ref[0], 1e-5)
+                    for what, g, r in zip(('lo', 'up'), got[1:], ref[1:]):
+                        ch.compare(fns[d][1], f'{case} {what} (exact)', g, r, 0.0)
     if quick:
         return
     # --- the paths' shapes: a velocity component (constant halo, no extrema)
@@ -1906,9 +1989,15 @@ def obstacle_masks(N):
     return mA, c0, accessible
 
 
-def obstacle_state(N, dev):
+def obstacle_state(N, dev, seeds=None):
+    """The obstacle path's state: the velocity and pressure of `smooth_state(N)`, or with `seeds` one entry a seed
+    along a leading batch axis (a sweep over one geometry), and the three obstacles, shared."""
+    import numpy as np
     import torch
-    *vel, _, pressure = smooth_state(N, 3)
+    if seeds is None:
+        *vel, _, pressure = smooth_state(N, 3)
+    else:
+        *vel, _, pressure = (np.stack(parts) for parts in zip(*[smooth_state(N, 3, seed=s) for s in seeds]))
     return (tuple(torch.from_numpy(c).to(dev) for c in vel), torch.from_numpy(pressure).to(dev)) + obstacle_setup(N)
 
 
@@ -2749,6 +2838,17 @@ def _grad_compare(ch, d, case, got, ref):
         ch.compare(GRAD_NAMES[d], f'{case} {what}', g, r, GRAD_TOL * max(float(r.abs().max()), 1e-30))
 
 
+def _grad_compare_nan(ch, d, case, got, ref):
+    """`_grad_compare` for gradients in which NaN is data: the NaN patterns equal, the rest within GRAD_TOL of
+    each gradient's largest finite entry."""
+    import torch
+    (g_grid, g_disp), (r_grid, r_disp) = got, ref
+    for what, g, r in [('d_grid', g_grid, r_grid)] + [(f'd_disp[{i}]', a, b) for i, (a, b) in
+                                                      enumerate(zip(g_disp, r_disp))]:
+        ch.compare_with_nan(GRAD_NAMES[d], f'{case} {what}', g, r,
+                            GRAD_TOL * max(float(torch.nan_to_num(r, nan=0.0).abs().max()), 1e-30))
+
+
 def _grad_repeat(ch, d, case, got, again):
     """Two launches on the same inputs: both gradients bit-equal (the grid's is a gather in a fixed order)."""
     for what, g, r in [('d_grid', got[0], again[0])] + [(f'd_disp[{i}]', a, b) for i, (a, b) in
@@ -2781,11 +2881,13 @@ def check_interp_grad(ch, gen, quick):
     axes of at most 2K cells, the wide kernel past the slot window (3D K = 8,
     2D K = 33: in 3D every halo form and a batch on a shared grid, in 2D
     the clamped sides), empty outputs
-    (zero gradients, no launch counted), NaN displacements (no taps: against
-    the twin on those outputs' displacements 0 and upstream gradients 0,
-    their d_disp exactly 0); each form launched twice, bit-equal; then (not
-    with --quick) at the paths' shapes, timed, and the wide kernel timed at
-    48³ K = 8."""
+    (zero gradients, no launch counted), NaN displacements (fault 3.12,
+    JAX's rule: against the twin on the same inputs, the same NaN pattern —
+    d_grid NaN at every tap of a NaN output, d_disp NaN on its finite axes and
+    exactly 0 on a lone NaN axis; none with lo / up's cotangents alone — in
+    every halo form, the one-slot-plane route and the wide kernel); each form
+    launched twice, bit-equal; then (not with --quick) at the paths' shapes,
+    timed, and the wide kernel timed at 48³ K = 8."""
     import torch
     dev = 'cuda'
 
@@ -2860,24 +2962,35 @@ def check_interp_grad(ch, gen, quick):
             ch.failed.append(f'{GRAD_NAMES[d]} {case}')
             continue
         ch.compare(GRAD_NAMES[d], f'{case} d_grid {tuple(grid.shape)} (zeros)', got[0], torch.zeros_like(grid), 0.0)
-    # NaN displacements: no taps
-    for d, shape in ((3, SMALL), (2, (37, 45))):
+    # NaN displacements (fault 3.12), JAX's rule against the twin's VJP on the same inputs: with the output's
+    # upstream gradient, d_grid NaN at each of a NaN output's (2K + 1)^D taps (edge: the edge cell; wrap: the
+    # wrapped one; a constant halo drops them), d_disp NaN on its finite axes and exactly 0 on a lone NaN axis;
+    # with lo / up's alone, no NaN anywhere and d_disp 0 there. Every halo form, K = 1 and 2, the one-slot-plane
+    # route and the wide kernel; each launched twice, bit-equal (NaN patterns too)
+    for d, shape, K, mode in ((3, SMALL, 1, 'edge'), (3, SMALL, 1, None), (3, SMALL, 2, 'const'),
+                              (3, (4, 3, 37), 2, 'wrap'), (2, (37, 45), 1, 'edge'), (2, (37, 45), 2, None),
+                              (2, (3, 50), 1, 'wrap'), (3, (10, 20, 40), 6, 'const'), (3, (6, 10, 24), 8, 'edge'),
+                              (2, (40, 70), 33, 'const')):
         scale = (0.8, -1.1, 0.6)[:d]
-        for mode in ('edge', None):
-            grid = rnd(shape if mode else tuple(n + 2 for n in shape))
-            disps = list((torch.rand((d,) + shape, generator=gen, device=dev) * 2 - 1) * (2 / 0.6))
-            hole = torch.rand(shape, generator=gen, device=dev) < 0.1
-            holed = [torch.where(hole, float('nan'), x) if i == d - 1 else x for i, x in enumerate(disps)]
+        grid = rnd(tuple(n + 2 * K for n in shape) if mode is None else shape)
+        disps, lone = _with_nan(list((torch.rand((d,) + shape, generator=gen, device=dev) * 2 - 1)
+                                     * ((K + 1) / 0.6)), gen)
+        for cotangents in ('out + lo + up', 'lo + up only'):
             ups = [rnd(shape) for _ in range(3)]
-            case = f'{shape} K=1 {mode or "padded"} extrema, NaN displacements'
-            got = _grad_call(d, grid, holed, 1, True, scale, mode, 0.25, ups, False)
-            _grad_compare(ch, d, case, got, _grad_call(d, grid, [torch.where(hole, 0.0, x) for x in disps], 1, True,
-                                                       scale, mode, 0.25, [torch.where(hole, 0.0, u) for u in ups],
-                                                       True))
-            for i, g in enumerate(got[1]):
-                ch.compare(GRAD_NAMES[d], f'{case} d_disp[{i}] at NaN (exactly 0)', g[hole], torch.zeros_like(g[hole]),
-                           0.0)
-            _grad_repeat(ch, d, case, got, _grad_call(d, grid, holed, 1, True, scale, mode, 0.25, ups, False))
+            if cotangents == 'lo + up only':
+                ups[0] = None
+            case = f'{shape} K={K} {mode or "padded"} extrema, NaN displacements, {cotangents}'
+            got = _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, False)
+            _grad_compare_nan(ch, d, case, got, _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, True))
+            if ups[0] is not None:
+                ch.compare(GRAD_NAMES[d], f'{case} d_disp[{d - 1}] on a lone NaN axis (exactly 0)', got[1][-1][lone],
+                           torch.zeros_like(got[1][-1][lone]), 0.0)
+            else:
+                ch.compare(GRAD_NAMES[d], f'{case} d_grid (no NaN, finite)', got[0], got[0], 0.0)
+            again = _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, False)
+            for what, g, r in [('d_grid', got[0], again[0])] + [(f'd_disp[{i}]', a, b) for i, (a, b) in
+                                                                enumerate(zip(got[1], again[1]))]:
+                ch.compare_with_nan(GRAD_NAMES[d], f'{case} {what} repeat launch (bit-equal)', g, r, 0.0)
     if quick:
         return
     # --- the paths' shapes: a velocity component (constant halo) and the smoke's forward pass (edge halo,
@@ -3124,6 +3237,7 @@ def run_gradient_path(tag, dims, N, steps, period=None, cg_tol=GRAD_CG_TOL, ch=N
     _smoke_grad(model, (vel, smoke), w, steps)  # warm-up: the kernels' first launches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases and the state hold: not this call's peak
     record = {}
     _build.reset_launches()
     with math.SolveTape() as tape:
@@ -3133,7 +3247,7 @@ def run_gradient_path(tag, dims, N, steps, period=None, cg_tol=GRAD_CG_TOL, ch=N
         t1 = time.perf_counter()
     backward = dict(_build.LAUNCHES)
     forward = record['forward']
-    memory = torch.cuda.max_memory_allocated()
+    memory = torch.cuda.max_memory_allocated() - base
     fwd_iters = [i.iterations for i in tape if not i.msg.startswith('adjoint')]
     adj_iters = [i.iterations for i in tape if i.msg.startswith('adjoint')]
     fwd_ms = (record['forward_end'] - t0) / steps * 1e3
@@ -3142,8 +3256,9 @@ def run_gradient_path(tag, dims, N, steps, period=None, cg_tol=GRAD_CG_TOL, ch=N
     print(f'{tag} {N}^{dims}: {steps} steps of the Field step under grad, math.gradient of sum(w * smoke) + '
           f'sum(w[1:] * v_x) w.r.t. '
           f'the initial velocity and smoke: forward {fwd_ms:.2f} ms/step, forward + backward {total_ms:.2f} '
-          f'ms/step; max_memory_allocated {memory / 2 ** 30:.2f} GiB (after the forward '
-          f'{record["memory_forward"] / 2 ** 30:.2f} GiB); CG iterations forward {fwd_iters}, adjoint {adj_iters}')
+          f'ms/step; max_memory_allocated {memory / 2 ** 30:.2f} GiB above the {base / 2 ** 30:.2f} GiB allocated '
+          f'before (after the forward {(record["memory_forward"] - base) / 2 ** 30:.2f} GiB); CG iterations forward '
+          f'{fwd_iters}, adjoint {adj_iters}')
     print(f'{tag} launches, forward: ' + ', '.join(f'{k}={forward.get(k, 0)}' for k in KERNELS))
     print(f'{tag} launches, backward (adjoint solves and K6T/K7T): '
           + ', '.join(f'{k}={backward.get(k, 0)}' for k in KERNELS))
@@ -4478,7 +4593,8 @@ def _entries_equal(ch, row, case, got, per_entry):
 
 def check_batched_kernels(ch, gen, quick):
     """9a: K1 (matvec and its epilogues, with the dot), K2 (the zero-init pre-smooth and the post-smooth with its
-    dot), K3 and K4 at B = 4 × 128³ and B = 3 × RAGGED; K6 at B = 4 × 128³ with a batched and a shared
+    dot), K3 and K4 at B = 4 × 128³ and B = 3 × RAGGED, K1m there with masks shared by the batch and with masks
+    per entry (coefficient arrays and active cells); K6 at B = 4 × 128³ with a batched and a shared
     displacement, K7 at B = 4 × 1024²; K6ᵀ / K7ᵀ at the same shapes, and with a shared grid. Each against its
     twin at phase 3's tolerances, entry by entry against the unbatched launch on that entry (outputs bit-equal,
     dots within 1e-6 relative; K6ᵀ / K7ᵀ: d_grid and d_disp bit-equal; a shared grid's d_grid bit-equal to the
@@ -4537,7 +4653,29 @@ def check_batched_kernels(ch, gen, quick):
         got = _launch_once(ch, row, f'bf16 {tag}', lambda: T.prolong_add(c, pre))
         ch.compare(row, f'bf16 {tag} vs twin', got, T._prolong_add_plain(c, pre), 0.0)
         _entries_equal(ch, row, f'bf16 {tag}', got, [T.prolong_add(c[e], pre[e]) for e in range(B)])
-        del p, b, pre, post, c, got
+        # K1m over the batch: one set of masks shared by the entries (read in place at an entry stride of 0) and a
+        # set an entry (the JAX package's `poisson_apply` takes either), the coefficient arrays and the active cells
+        row = 'poisson_stencil_masked_batched'
+        sets = []
+        for _ in range(B):
+            mA, c0 = P.stage_masks(_random_face_masks(shape, bcs, gen, dev), bcs, inv)
+            sets.append(mA + [c0, (torch.rand(shape, generator=gen, device=dev) < 0.7).float()])
+        for kind, masks in (('shared masks', sets[0]), ('masks per entry', [torch.stack(m) for m in zip(*sets)])):
+            kw = dict(mA_list=masks[:3], c0=masks[3], active=masks[4])
+            for mode in ('matvec', 'residual', 'jacobi'):
+                case = f'mA+c0+active {mode} +dot {tag}, {kind}'
+                args = dict(b=b, mode=mode, omega_over_diag=0.15, with_dot=True, **kw)
+                got, dot = _launch_once(ch, row, case, lambda: P.poisson_apply(p, inv, bcs, **args))
+                ref, rdot = P._poisson_apply_plain(p, inv, bcs, **args)
+                ch.compare(row, case + ' vs twin', got, ref, 2e-5)
+                for e in range(B):
+                    ch.compare_dot(row, f'{case} entry {e} vs twin', dot[e], rdot[e], 1e-5)
+                    own = [m if kind == 'shared masks' else m[e] for m in masks]
+                    g1, d1 = P.poisson_apply(p[e], inv, bcs, mA_list=own[:3], c0=own[3], active=own[4], b=b[e],
+                                             mode=mode, omega_over_diag=0.15, with_dot=True)
+                    ch.compare(row, f'{case} entry {e} = its own launch', got[e], g1, 0.0)
+                    ch.compare_dot(row, f'{case} entry {e} dot vs its own launch', dot[e], d1, ENTRY_DOT_RTOL)
+        del p, b, pre, post, c, got, sets
     fns = {3: I.window_interp_3d, 2: I.window_interp_2d}
     for d, shape in ((3, (BATCH_N,) * 3), (2, (BATCH_N_2D,) * 2)):
         row, grow = f'window_interp_{d}d_batched', f'window_interp_{d}d_grad_batched'
@@ -4630,6 +4768,20 @@ def time_batched_kernels(ch, gen):
         print(f'note  {row:17s} B={B}: device {ch.timing[row]["device_ms"]:.4f} ms vs {B} x unbatched '
               f'{B * ch.timing[row]["parts"][row + " entry"]["device_ms"]:.4f} ms')
 
+    # K1m over the batch with the obstacle path's masks (shared): the bound counts them once; each entry re-reading
+    # them would add (B − 1) × 5 masks' bytes, printed beside it
+    mA, c0, accessible = obstacle_masks(BATCH_N)
+    kw = dict(mA_list=mA, c0=c0, active=accessible, with_dot=True)
+    out = P.poisson_apply(p, one, PATH_BC, **kw)[0]
+    masks_bytes = nbytes(*mA, c0, accessible)
+    timed('poisson_stencil_masked_batched', f'matvec + dot {N3} f32, shared obstacle masks mA + c0 + active',
+          lambda: P.poisson_apply(p, one, PATH_BC, **kw), lambda: P._poisson_apply_plain(p, one, PATH_BC, **kw),
+          lambda: P.poisson_apply(p[0], one, PATH_BC, **kw), lambda: P._poisson_apply_plain(p[0], one, PATH_BC, **kw),
+          nbytes(p, out) + masks_bytes, 22 * p.numel())
+    print(f'note  poisson_stencil_masked_batched bound with the masks read by every entry: '
+          f'{(nbytes(p, out) + B * masks_bytes) / HBM_BYTES_PER_S * 1e3:.4f} ms; masks once '
+          f'{ch.timing["poisson_stencil_masked_batched"]["bound_ms"]:.4f} ms')
+    del mA, c0, accessible, kw, out
     timed('poisson_stencil_batched', f'matvec + dot {N3} f32', lambda: P.poisson_apply(p, one, PATH_BC, with_dot=True),
           lambda: P._poisson_apply_plain(p, one, PATH_BC, with_dot=True),
           lambda: P.poisson_apply(p[0], one, PATH_BC, with_dot=True),
@@ -5004,8 +5156,95 @@ def run_batched_gradient(tag, dims, N, B=2, steps=1, tol=1e-4):
     return dict({k: forward.get(k, 0) + backward.get(k, 0) for k in KERNELS}, steps=steps)
 
 
+BATCH_OBSTACLE_N, BATCH_OBSTACLE_B = 256, 4  # 9f batched-obstacle-256x4: four states around one geometry
+BATCH_OBSTACLE_VCYCLE = (128, 2)             # and batched-obstacle-128x2-vcycle under the projected V-cycle
+
+
+def run_batched_obstacles(tag, N, B, preconditioner='chebyshev', warmup=2, steps=3):
+    """9f: the obstacle step of 4f (`obstacle_stepper`: obstacle-256's three obstacles, moving, shared by the
+    batch; cg_tol 1e-4, at most 500 iterations) on B velocity states at once, from `smooth_state(N)` with seeds
+    0..B−1, `warmup` + `steps` steps, the counters set to 0 just before the timed ones and read just after.
+    Prints ms/step, Mcells/s over all entries, the CG iterations of each entry (from its own unbatched steps),
+    launches a step, `max_memory_allocated` above what was allocated before, and a profiled step (device ms,
+    kernels, busy share). Gates: each entry's velocity and pressure bit-equal to its own unbatched obstacle steps
+    from the same state; K1m launched in the timed steps as often as the entry that iterates longest launches it
+    in each (one launch for the batch); max |div·active − mean| of each entry within `OBSTACLE_DIV_BOUND`;
+    finite state."""
+    import torch
+    from phiflow_tpu_torch.field import cell_grid, divergence_native, geometry_mask
+    from phiflow_tpu_torch.geom import union
+    from phiflow_tpu_torch.ops import _build
+    step = obstacle_stepper(N, preconditioner=preconditioner)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = obstacle_state(N, 'cuda', seeds=range(B))
+    start = state
+    for _ in range(warmup):
+        state, _ = step(*state)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    results = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, result = step(*state)
+        results.append(result)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = dict(_build.LAUNCHES, steps=steps)
+    peak = torch.cuda.max_memory_allocated() - base
+    # each entry on its own, from the same state: its iterations and launches a step, and its final state
+    counter = 'poisson_stencil_masked'
+    iters, k1m = [], []
+    for e in range(B):
+        own = (tuple(c[e].clone() for c in start[0]), start[1][e].clone(), *start[2:])
+        for _ in range(warmup):
+            own, _ = step(*own)
+        its, counts = [], []
+        for _ in range(steps):
+            before = _build.LAUNCHES[counter]
+            own, r = step(*own)
+            its.append(r.iterations)
+            counts.append(_build.LAUNCHES[counter] - before)
+        iters.append(its)
+        k1m.append(counts)
+        same = all(torch.equal(a[e], b) for a, b in zip((*state[0], state[1]), (*own[0], own[1])))
+        if not same:
+            raise RuntimeError(f'{tag}: entry {e} differs from its own unbatched steps')
+        del own
+    longest = sum(max(k1m[e][i] for e in range(B)) for i in range(steps))
+    print(f'{tag} {B} x {N}^3: {ms:.2f} ms/step, {B * N ** 3 / (ms * 1e-3) / 1e6:.1f} Mcells/s over all entries, '
+          f'{steps} steps after {warmup} warm-up; CG iterations of the batched solve a step '
+          f'{[r.iterations for r in results]}, each entry\'s own {iters} (MASKED_PRECONDITIONER {preconditioner!r}, '
+          f'cg_tol 1e-4); max_memory_allocated {peak / 2 ** 30:.2f} GiB above the {base / 2 ** 30:.2f} GiB allocated '
+          f'before; each entry bit-equal to its own unbatched steps: ok')
+    print(f'{tag} launches per step: ' + ', '.join(f'{k}={launches.get(k, 0) / steps:g}' for k in KERNELS)
+          + f'; {counter} in the timed steps {launches.get(counter, 0)}, the longest entry\'s {longest} '
+          f'(entries {[sum(c) for c in k1m]})')
+    if launches.get(counter, 0) != longest or launches.get('window_interp_3d', 0) != K6_LAUNCHES_PER_OBSTACLE_STEP * steps:
+        raise RuntimeError(f'{tag}: {counter} {launches.get(counter, 0)} launches against the longest entry\'s '
+                           f'{longest}; window_interp_3d {launches.get("window_interp_3d", 0)}')
+    v, p, *obstacles = state
+    accessible = geometry_mask(~union([o.geometry for o in obstacles]), cell_grid((N,) * 3, 1.0, 'cuda'))
+    div = divergence_native(v, 1.0) * accessible
+    dev = []
+    for e in range(B):
+        balance = div[e].sum() / accessible.sum()
+        dev.append(float(((div[e] - balance) * accessible).abs().max()))
+    finite = all(bool(torch.isfinite(t).all()) for t in (*v, p))
+    bound = OBSTACLE_DIV_BOUND[preconditioner]
+    print(f'{tag} after projection max |div·active − its mean| by entry {[f"{x:.3e}" for x in dev]} (bound '
+          f'{bound:.0e}); all finite: {finite}; max |v| {max(float(c.abs().max()) for c in v):.3f}')
+    if not (finite and max(dev) < bound):
+        raise RuntimeError(f'{tag} output wrong: finite={finite} div={dev}')
+    del start, v, p, div
+    profile_path(tag, f'{B} x {N}^3', lambda st: step(*st)[0], state, warmup=0, steps=1, rows_shown=6)
+    del state
+    return launches
+
+
 def run_batched(ch, gen):
-    """Phase 9: batched simulation. 9a runs with the kernel checks (phase 3); 9b–9e here."""
+    """Phase 9: batched simulation. 9a runs with the kernel checks (phase 3); 9b–9f here."""
     import torch
     part = PhaseClock('part of phase')
     by_path = {f'batched-smoke-{BATCH_SMOKE_N}x{BATCH_B}': run_batched_smoke(ch)}
@@ -5022,6 +5261,15 @@ def run_batched(ch, gen):
     by_path['batched-grad-256-2d'] = run_batched_gradient('batched-grad-256-2d', 2, 256)
     torch.cuda.empty_cache()
     part.done('9e')
+    tag = f'batched-obstacle-{BATCH_OBSTACLE_N}x{BATCH_OBSTACLE_B}'
+    by_path[tag] = run_batched_obstacles(tag, BATCH_OBSTACLE_N, BATCH_OBSTACLE_B)
+    torch.cuda.empty_cache()
+    part.done(f'9f {tag}')
+    n, b = BATCH_OBSTACLE_VCYCLE
+    tag = f'batched-obstacle-{n}x{b}-vcycle'
+    by_path[tag] = run_batched_obstacles(tag, n, b, preconditioner='vcycle')
+    torch.cuda.empty_cache()
+    part.done(f'9f {tag}')
     return by_path
 
 
@@ -5641,7 +5889,8 @@ COUNTED_ON = {**{k: 'fused' for k in FUSED_KERNELS}, 'window_interp_3d': 'per-ph
               'window_interp_3d_grad': 'grad-256', 'window_interp_2d_grad': 'grad-4096-2d',
               **{f'{k}_batched': f'batched-smoke-{BATCH_SMOKE_N}x{BATCH_B}' for k in BATCHED_KERNELS[:5]},
               'window_interp_2d_batched': 'batched-smoke-2d', 'window_interp_3d_grad_batched': 'batched-grad-64',
-              'window_interp_2d_grad_batched': 'batched-grad-256-2d'}
+              'window_interp_2d_grad_batched': 'batched-grad-256-2d',
+              'poisson_stencil_masked_batched': f'batched-obstacle-{BATCH_OBSTACLE_N}x{BATCH_OBSTACLE_B}'}
 PATHS = [  # (tag, dims, N, per-phase?, the kernels it must launch)
     ('fused', 3, PATH_N, False, FUSED_KERNELS),
     ('per-phase', 3, PATH_N, True, PHASES_3D_KERNELS),

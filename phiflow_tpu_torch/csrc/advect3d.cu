@@ -217,7 +217,7 @@ __device__ __forceinline__ void advect_tile(const AdvectArgs &a, const OutArgs &
         if (A.combine) {
             const float center = fld[(l[0] + F.lo[0]) * fs0 + (l[1] + F.lo[1]) * fs1 + (l[2] + F.lo[2])];
             const float corrected = center + A.c_half_strength * (blk(A.c_field, o[0], o[1], o[2]) - val);
-            val = fminf(fmaxf(corrected, blk(A.c_lo, o[0], o[1], o[2])), blk(A.c_up, o[0], o[1], o[2]));
+            val = clip_nan(corrected, blk(A.c_lo, o[0], o[1], o[2]), blk(A.c_up, o[0], o[1], o[2]));
         }
         if (A.add_blocked) val += A.add_scale * blk(A.add, o[0], o[1], o[2]);
         if (A.add_ball) {

@@ -23,6 +23,9 @@
 // mode (constant, edge, wrap) and resolved by index; either way the
 // zero-weight upper corner of d_a = +K is resolved, never read out of bounds.
 //
+// A NaN displacement gives a NaN result and lo / up of +-3.4e38, as the
+// window sum's NaN weights and failed corner tests do (window.cuh).
+//
 // Bound: ~10 flops per corner against D + 1 streamed arrays in and 1 or 3
 // out; the gathered corners of neighbouring cells overlap and come from the
 // caches. The distinct bytes set the floor: bound by device-memory bytes.
@@ -55,8 +58,16 @@
 //                  the cell of g * W(corner) + the corner's share of lo / up's
 //                  upstream gradients (a constant halo drops a tap outside,
 //                  edge / wrap / padded send it to the cell read)
-// A displacement that is NaN has no taps: it adds nothing to d_grid and its
-// d_disp is 0.
+// A displacement that is NaN (on any axis) makes every tent weight of its
+// output NaN in the window sum, whose gradient JAX then takes: wherever the
+// output's upstream gradient is given, d_grid is NaN at each of its (2K + 1)^D
+// taps (folded back as the pad's VJP folds a tap: onto the edge cell, the
+// wrapped cell, or dropped past a constant halo), its d_disp NaN on each axis
+// whose displacement is finite and 0 on a NaN axis unless another axis is NaN
+// too; without an upstream gradient of the output (lo / up only), both are 0
+// there. The d_grid kernel gives such an output no taps, and the d_disp
+// kernel, launched after it, stores the NaN into its taps: NaN absorbs every
+// sum, so the bits do not depend on the order.
 //
 // Bound: the bytes — the grid, the displacements and the upstream gradients
 // read once, d_grid and d_disp written once. Scattering d_grid with a float
@@ -367,6 +378,32 @@ __device__ __forceinline__ float grid_value(const Src &g, const int (&r)[D], con
     return outside ? g.c : __ldg(g.p + off);
 }
 
+// d_grid at an output with a NaN displacement: NaN stored into every one of its (2K + 1)^D taps, each resolved
+// as the forward resolves it (a tap past a constant halo dropped). Several outputs may store into one cell: the
+// same NaN, in any order.
+template <int D, typename Idx>
+__device__ __forceinline__ void nan_taps(const Src &g, float *d_grid, const int (&o)[D], int K) {
+    const int W = 2 * K + 1;
+    int total = 1;
+#pragma unroll
+    for (int e = 0; e < D; ++e) total *= W;
+#pragma unroll 1
+    for (int t = 0; t < total; ++t) {
+        int s[D], rest = t;
+#pragma unroll
+        for (int e = D - 1; e >= 0; --e) {
+            s[e] = rest % W - K;
+            rest /= W;
+        }
+        Idx off = 0;
+        bool outside = false;
+#pragma unroll
+        for (int e = 0; e < D; ++e)
+            off = off * g.n[e] + (Idx)resolve(o[e] + s[e] - g.shift[e], g.n[e], g.mode, outside);
+        if (!outside) d_grid[off] = __int_as_float(0x7fffffff);
+    }
+}
+
 // K6T / K7T, d_disp: a gather per output with the forward's tiling (a warp a row of WI_TX outputs, four a lane:
 // lane, lane + 32, lane + 64, lane + 96, each loaded and stored on its own, so that one output's values are live
 // at a time), no shared memory and no barrier. Each output's corners and, per axis, its extra tap at the other
@@ -399,113 +436,132 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_disp_grad_kernel(con
     stride[D - 1] = 1;
 #pragma unroll
     for (int e = D - 2; e >= 0; --e) stride[e] = stride[e + 1] * g.n[e + 1];
+    unsigned nan_outputs = 0;  // bit k: output k has a NaN displacement (its taps marked in d_grid after the loop)
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
         if (o[D - 1] + 32 * k >= n_out) break;
         const Idx qk = q + 32 * k;
         AxisWindow w[D];
-        bool taps = true;
+        unsigned nan_axes = 0;  // bit e: axis e's displacement is NaN
 #pragma unroll
         for (int e = 0; e < D; ++e)
-            taps = axis_window(a.scale[e] * __ldg(a.disp[e] + entry * a.disp_stride + qk), K, w[e]) && taps;
-        float gd[D];
+            if (!axis_window(a.scale[e] * __ldg(a.disp[e] + entry * a.disp_stride + qk), K, w[e]))
+                nan_axes |= 1u << e;
+        const bool taps = nan_axes == 0;
+        nan_outputs |= (unsigned)!taps << k;
+        if (a.d_disp[0]) {  // (uniform) else the launch only marks the taps of NaN outputs in d_grid, below
+            float gd[D];
 #pragma unroll
-        for (int e = 0; e < D; ++e) gd[e] = 0.f;
-        {  // a NaN displacement reads at -K (fmaxf) like the forward; its result is dropped below
-            // the values of the corners (0 where one lies past K) and, per axis e and corner b with bit e clear,
-            // of the extra tap of axis e at b's other taps (0 where there is none)
-            float v[1 << D], vx[D][1 << D];
-            bool extra = false;  // an integer displacement (0 from rest) or one rounding next to it, in the warp
+            for (int e = 0; e < D; ++e) gd[e] = 0.f;
+            {  // a NaN displacement reads at -K (axis_window's fmaxf); its result is replaced below
+                // the values of the corners (0 where one lies past K) and, per axis e and corner b with bit e clear,
+                // of the extra tap of axis e at b's other taps (0 where there is none)
+                float v[1 << D], vx[D][1 << D];
+                bool extra = false;  // an integer displacement (0 from rest) or one rounding next to it, in the warp
 #pragma unroll
-            for (int e = 0; e < D; ++e) extra = extra || w[e].dwx != 0.f;
-            extra = __any_sync(__activemask(), extra);
-            bool inside = D == 2;  // every tap s = f - 1 .. f + 2 of every axis inside the raw grid (2D only)
-            int base[D];
-#pragma unroll
-            for (int e = 0; e < D; ++e) {
-                base[e] = o[e] + (e == D - 1 ? 32 * k : 0) + w[e].f - g.shift[e];
-                inside = inside && base[e] >= 1 && base[e] + 2 < g.n[e];
-            }
-            if (inside) {  // addressed directly
-                Idx at = 0;
-#pragma unroll
-                for (int e = 0; e < D; ++e) at += (Idx)base[e] * stride[e];
-#pragma unroll
-                for (int b = 0; b < (1 << D); ++b) {
-                    Idx co = at;
-                    bool exists = true;  // every tap of the corner lies in [-K, K]
-#pragma unroll
-                    for (int e = 0; e < D; ++e) {
-                        if ((b >> e) & 1) co += stride[e], exists = exists && w[e].dw[1] != 0.f;
-                    }
-                    v[b] = exists ? __ldg(g.p + co) : 0.f;
-                    if (extra) {
-#pragma unroll
-                        for (int e = 0; e < D; ++e)
-                            if (!((b >> e) & 1))
-                                vx[e][b] = w[e].dwx != 0.f ? __ldg(g.p + co + w[e].sx * stride[e]) : 0.f;
-                    }
-                }
-            } else {  // each axis' three taps resolved once: a tap past a constant halo reads the constant
-                Idx off[D][3];
-                bool out[D][3];
+                for (int e = 0; e < D; ++e) extra = extra || w[e].dwx != 0.f;
+                extra = __any_sync(__activemask(), extra);
+                bool inside = D == 2;  // every tap s = f - 1 .. f + 2 of every axis inside the raw grid (2D only)
+                int base[D];
 #pragma unroll
                 for (int e = 0; e < D; ++e) {
-#pragma unroll
-                    for (int i = 0; i < 3; ++i) {
-                        out[e][i] = false;
-                        const int raw = base[e] + (i < 2 ? i : w[e].sx);
-                        off[e][i] = (Idx)resolve(raw, g.n[e], g.mode, out[e][i]) * stride[e];
-                    }
+                    base[e] = o[e] + (e == D - 1 ? 32 * k : 0) + w[e].f - g.shift[e];
+                    inside = inside && base[e] >= 1 && base[e] + 2 < g.n[e];
                 }
-                auto value = [&](const int (&c)[D]) {
+                if (inside) {  // addressed directly
                     Idx at = 0;
-                    bool outside = false;
 #pragma unroll
-                    for (int e = 0; e < D; ++e) at += off[e][c[e]], outside = outside || out[e][c[e]];
-                    return outside ? g.c : __ldg(g.p + at);
-                };
+                    for (int e = 0; e < D; ++e) at += (Idx)base[e] * stride[e];
 #pragma unroll
-                for (int b = 0; b < (1 << D); ++b) {
-                    bool exists = true;
-                    int c[D];
-#pragma unroll
-                    for (int e = 0; e < D; ++e) {
-                        c[e] = (b >> e) & 1;
-                        exists = exists && (c[e] == 0 || w[e].dw[1] != 0.f);
-                    }
-                    v[b] = exists ? value(c) : 0.f;
-                    if (extra) {
+                    for (int b = 0; b < (1 << D); ++b) {
+                        Idx co = at;
+                        bool exists = true;  // every tap of the corner lies in [-K, K]
 #pragma unroll
                         for (int e = 0; e < D; ++e) {
-                            if ((b >> e) & 1) continue;
-                            int cx[D];
+                            if ((b >> e) & 1) co += stride[e], exists = exists && w[e].dw[1] != 0.f;
+                        }
+                        v[b] = exists ? __ldg(g.p + co) : 0.f;
+                        if (extra) {
 #pragma unroll
-                            for (int m = 0; m < D; ++m) cx[m] = m == e ? 2 : c[m];
-                            vx[e][b] = w[e].dwx != 0.f ? value(cx) : 0.f;
+                            for (int e = 0; e < D; ++e)
+                                if (!((b >> e) & 1))
+                                    vx[e][b] = w[e].dwx != 0.f ? __ldg(g.p + co + w[e].sx * stride[e]) : 0.f;
+                        }
+                    }
+                } else {  // each axis' three taps resolved once: a tap past a constant halo reads the constant
+                    Idx off[D][3];
+                    bool out[D][3];
+#pragma unroll
+                    for (int e = 0; e < D; ++e) {
+#pragma unroll
+                        for (int i = 0; i < 3; ++i) {
+                            out[e][i] = false;
+                            const int raw = base[e] + (i < 2 ? i : w[e].sx);
+                            off[e][i] = (Idx)resolve(raw, g.n[e], g.mode, out[e][i]) * stride[e];
+                        }
+                    }
+                    auto value = [&](const int (&c)[D]) {
+                        Idx at = 0;
+                        bool outside = false;
+#pragma unroll
+                        for (int e = 0; e < D; ++e) at += off[e][c[e]], outside = outside || out[e][c[e]];
+                        return outside ? g.c : __ldg(g.p + at);
+                    };
+#pragma unroll
+                    for (int b = 0; b < (1 << D); ++b) {
+                        bool exists = true;
+                        int c[D];
+#pragma unroll
+                        for (int e = 0; e < D; ++e) {
+                            c[e] = (b >> e) & 1;
+                            exists = exists && (c[e] == 0 || w[e].dw[1] != 0.f);
+                        }
+                        v[b] = exists ? value(c) : 0.f;
+                        if (extra) {
+#pragma unroll
+                            for (int e = 0; e < D; ++e) {
+                                if ((b >> e) & 1) continue;
+                                int cx[D];
+#pragma unroll
+                                for (int m = 0; m < D; ++m) cx[m] = m == e ? 2 : c[m];
+                                vx[e][b] = w[e].dwx != 0.f ? value(cx) : 0.f;
+                            }
                         }
                     }
                 }
-            }
-            // gd_e = sum over the corners of dw_e * prod_{k != e} w_k * v: per axis e, the pairs of corners that
-            // differ in bit e alone, their slopes' sum weighted by the other axes, with the axis' extra tap
+                // gd_e = sum over the corners of dw_e * prod_{k != e} w_k * v: per axis e, the pairs of corners that
+                // differ in bit e alone, their slopes' sum weighted by the other axes, with the axis' extra tap
 #pragma unroll
-            for (int e = 0; e < D; ++e) {
+                for (int e = 0; e < D; ++e) {
 #pragma unroll
-                for (int b = 0; b < (1 << D); ++b) {
-                    if ((b >> e) & 1) continue;
-                    float others = 1.f;
+                    for (int b = 0; b < (1 << D); ++b) {
+                        if ((b >> e) & 1) continue;
+                        float others = 1.f;
 #pragma unroll
-                    for (int m = 0; m < D; ++m)
-                        if (m != e) others *= w[m].w[(b >> m) & 1];
-                    const float pair = w[e].dw[0] * v[b] + w[e].dw[1] * v[b | 1 << e];
-                    gd[e] += others * (extra ? pair + w[e].dwx * vx[e][b] : pair);
+                        for (int m = 0; m < D; ++m)
+                            if (m != e) others *= w[m].w[(b >> m) & 1];
+                        const float pair = w[e].dw[0] * v[b] + w[e].dw[1] * v[b | 1 << e];
+                        gd[e] += others * (extra ? pair + w[e].dwx * vx[e][b] : pair);
+                    }
                 }
             }
-        }
-        const float go = a.g_out ? __ldg(a.g_out + entry_out + qk) : 0.f;
+            const float go = a.g_out ? __ldg(a.g_out + entry_out + qk) : 0.f;
 #pragma unroll
-        for (int e = 0; e < D; ++e) a.d_disp[e][entry_out + qk] = go * a.scale[e] * w[e].dclip * (taps ? gd[e] : 0.f);
+            for (int e = 0; e < D; ++e)
+                a.d_disp[e][entry_out + qk] = taps ? go * a.scale[e] * w[e].dclip * gd[e]
+                                                   : (a.g_out && (nan_axes & ~(1u << e)) ? __int_as_float(0x7fffffff)
+                                                                                         : 0.f);
+        }
+    }
+    if (nan_outputs && a.d_grid && a.g_out) {  // rare: outside the loop above, so that it costs that loop no registers
+#pragma unroll 1
+        for (int k = 0; k < 4; ++k) {
+            if (!((nan_outputs >> k) & 1)) continue;
+            int oc[D];
+#pragma unroll
+            for (int e = 0; e < D; ++e) oc[e] = o[e] + (e == D - 1 ? 32 * k : 0);
+            nan_taps<D, Idx>(g, a.d_grid + entry * a.grid_stride, oc, K);
+        }
     }
 }
 
@@ -969,8 +1025,8 @@ static int launch_grid_grad_k(const InterpGradArgs &a, cudaStream_t s) {
     return launch_grid_grad<D, EXTREMA, 0, Idx>(b, grid, b.ring * plane, s);
 }
 
-// The two kernels of one K6T / K7T call: d_disp's (where asked) and d_grid's (where asked). Empty outputs launch
-// nothing (the wrapper fills the gradients).
+// The two kernels of one K6T / K7T call: d_grid's (where asked), then d_disp's (where asked, or to mark the NaN
+// outputs' taps in d_grid). Empty outputs launch nothing (the wrapper fills the gradients).
 template <int D>
 static int launch_grad(const InterpGradArgs &a, int extrema, cudaStream_t s) {
     if (a.nb < 1 || a.K < 1) return (int)cudaErrorInvalidValue;
@@ -982,18 +1038,21 @@ static int launch_grad(const InterpGradArgs &a, int extrema, cudaStream_t s) {
     if (n_grid == 0 || n_out == 0) return 0;
     // 32-bit element offsets within an entry where its grid and its outputs have fewer than 2^31 elements
     const bool small = n_grid < (1LL << 31) && n_out < (1LL << 31);
-    if (a.d_disp[0]) {
-        const long long planes = (long long)a.nb * (D == 3 ? a.o[0] : 1);
-        if (planes > 65535) return (int)cudaErrorInvalidValue;
-        const dim3 g((a.o[D - 1] + WI_TX - 1) / WI_TX, (a.o[D - 2] + WI_TY - 1) / WI_TY, (unsigned)planes);
-        if (small) window_interp_disp_grad_kernel<D, int><<<g, WI_THREADS, 0, s>>>(a);
-        else window_interp_disp_grad_kernel<D, long long><<<g, WI_THREADS, 0, s>>>(a);
-        const cudaError_t e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
+    const long long planes = (long long)a.nb * (D == 3 ? a.o[0] : 1);
+    if (planes > 65535) return (int)cudaErrorInvalidValue;
+    if (a.d_grid) {
+        const int e = extrema ? (small ? launch_grid_grad_k<D, true, int>(a, s)
+                                       : launch_grid_grad_k<D, true, long long>(a, s))
+                              : (small ? launch_grid_grad_k<D, false, int>(a, s)
+                                       : launch_grid_grad_k<D, false, long long>(a, s));
+        if (e != 0) return e;
     }
-    if (!a.d_grid) return 0;
-    if (extrema) return small ? launch_grid_grad_k<D, true, int>(a, s) : launch_grid_grad_k<D, true, long long>(a, s);
-    return small ? launch_grid_grad_k<D, false, int>(a, s) : launch_grid_grad_k<D, false, long long>(a, s);
+    // after d_grid's: d_disp, and the NaN of outputs with a NaN displacement stored into their taps in d_grid
+    if (!a.d_disp[0] && !(a.d_grid && a.g_out)) return 0;
+    const dim3 g((a.o[D - 1] + WI_TX - 1) / WI_TX, (a.o[D - 2] + WI_TY - 1) / WI_TY, (unsigned)planes);
+    if (small) window_interp_disp_grad_kernel<D, int><<<g, WI_THREADS, 0, s>>>(a);
+    else window_interp_disp_grad_kernel<D, long long><<<g, WI_THREADS, 0, s>>>(a);
+    return (int)cudaGetLastError();
 }
 
 // K6T (dims 3) and K7T (dims 2); extrema: lo / up were computed and their upstream gradients may be given

@@ -52,7 +52,12 @@
 // K4's coarse planes, one entry after the other), so no block straddles two
 // entries: a block offsets its pointers by its entry's first element (64-bit)
 // and then runs as in an unbatched launch, and the per-block partials of a dot
-// come out entry by entry, contiguous, for the wrapper to sum per entry.
+// come out entry by entry, contiguous, for the wrapper to sum per entry. K1m's
+// masks come at an entry stride of their own: 0 where one set of masks is
+// shared by the batch (an obstacle geometry or free surface of every entry,
+// read in place by each, never expanded), X Y Z where they carry the batch
+// (JAX's poisson_apply takes either), so an entry computes exactly what its
+// own unbatched launch computes.
 #include "common.cuh"
 
 #define MODE_PERIODIC 0
@@ -82,12 +87,13 @@ __device__ __forceinline__ int block_entry(int nb, int &slab) {
 
 __device__ __forceinline__ int block_index() { return (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x; }
 
-// The masked form's coefficient arrays (float32, the field's shape); mA[0] is
+// The masked form's coefficient arrays (float32, an entry's shape); mA[0] is
 // null for the boundary-profile coefficients, active null where every cell is.
 struct Masks {
     const float *mA[3];
     const float *c0;
     const float *active;
+    long long stride;  // elements from one entry's masks to the next (0: shared by the batch)
 };
 
 // ---------------------------------------------------------------------------
@@ -497,10 +503,18 @@ __global__ void __launch_bounds__(MAX_THREADS) stencil_kernel(const TP *__restri
     const int X = g.n[0], Y = g.n[1], Z = g.n[2];
     const long long YZ = (long long)Y * Z;
     int slab;
-    const long long eoff = block_entry(g.nb, slab) * (X * YZ);  // the entry's first element; masks: nb is 1
+    const long long entry = block_entry(g.nb, slab);
+    const long long eoff = entry * (X * YZ);  // the entry's first element
     p += eoff;
     b += eoff;
     out += eoff;
+    Masks mk = m;  // the entry's masks
+    if constexpr (COEFFS) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) mk.mA[d] += entry * m.stride;
+        mk.c0 += entry * m.stride;
+    }
+    if constexpr (ACTIVE) mk.active += entry * m.stride;
     const int k = (blockIdx.x * blockDim.x + threadIdx.x) * V, j = blockIdx.y * blockDim.y + threadIdx.y;
     const bool live = j < Y && k < Z;
     const int jj = live ? j : 0, k0 = live ? k : 0;
@@ -520,7 +534,7 @@ __global__ void __launch_bounds__(MAX_THREADS) stencil_kernel(const TP *__restri
     const long long plm = offset_or_none(x0 - 1, X, g.lo[0], g.hi[0], YZ);
     load_run<TP, V, VEC>(p, plm < 0 ? -1 : plm + row, k0, Z, wrap_z, pm);
     load_run<TP, V, VEC>(p, (long long)x0 * YZ + row, k0, Z, wrap_z, pc);
-    if constexpr (COEFFS) load_run<float, V, VEC>(m.mA[0], (long long)x0 * YZ + row, k0, Z, false, ax);
+    if constexpr (COEFFS) load_run<float, V, VEC>(mk.mA[0], (long long)x0 * YZ + row, k0, Z, false, ax);
     float contrib = 0.f;
     for (int i = x0; i < x1; ++i) {
         const long long pl = (long long)i * YZ, pln = offset_or_none(i + 1, X, g.lo[0], g.hi[0], YZ);
@@ -530,16 +544,16 @@ __global__ void __launch_bounds__(MAX_THREADS) stencil_kernel(const TP *__restri
         load_run<TP, V, VEC>(p, ryp < 0 ? -1 : pl + ryp, k0, Z, wrap_z, yp);
         if (EPI != EPI_MATVEC) load_run<TB, V, VEC>(b, pl + row, k0, Z, false, bv);
         if constexpr (COEFFS) {
-            load_run<float, V, VEC>(m.mA[0], pln < 0 ? -1 : pln + row, k0, Z, false, axn);
-            load_run<float, V, VEC>(m.mA[1], pl + row, k0, Z, false, ay);
-            load_run<float, V, VEC>(m.mA[1], ryp < 0 ? -1 : pl + ryp, k0, Z, false, ayp);
-            load_run<float, V, VEC>(m.mA[2], pl + row, k0, Z, wrap_z, az);
-            load_run<float, V, VEC>(m.c0, pl + row, k0, Z, false, c0);
+            load_run<float, V, VEC>(mk.mA[0], pln < 0 ? -1 : pln + row, k0, Z, false, axn);
+            load_run<float, V, VEC>(mk.mA[1], pl + row, k0, Z, false, ay);
+            load_run<float, V, VEC>(mk.mA[1], ryp < 0 ? -1 : pl + ryp, k0, Z, false, ayp);
+            load_run<float, V, VEC>(mk.mA[2], pl + row, k0, Z, wrap_z, az);
+            load_run<float, V, VEC>(mk.c0, pl + row, k0, Z, false, c0);
         }
-        if constexpr (ACTIVE) load_run<float, V, VEC>(m.active, pl + row, k0, Z, false, act);
+        if constexpr (ACTIVE) load_run<float, V, VEC>(mk.active, pl + row, k0, Z, false, act);
         float zl, zr, azr = 0.f;  // azr: a+_z of the run's last cell, mA_z one cell past the run
         z_neighbours(p, pl, ze, pc[0], pc[V - 1], zl, zr);
-        if constexpr (COEFFS) azr = z_right(m.mA[2], pl, ze, az[0]);
+        if constexpr (COEFFS) azr = z_right(mk.mA[2], pl, ze, az[0]);
         const float cx0 = g.inv[0] * smooth::center_coef(i, X, g.lo[0], g.hi[0]);
         float o[V];
 #pragma unroll
@@ -729,17 +743,20 @@ static int launch_form(int epilogue, const void *p, const void *b, void *out, fl
 
 // K1 in every form. mA_x, mA_y, mA_z and c0 come together (the coefficient arrays) or are all null (the boundary
 // profiles); active may be null. `vector`, `bx`, `by`, `cx` and `blocks` (the partials' count) are the wrapper's
-// plan. The masked forms take one field (g.nb == 1): their arrays have the field's shape.
+// plan. The masks have an entry's shape, at `mask_stride` elements from one entry's to the next: 0 (one set shared
+// by the g.nb entries) or the entry's cell count.
 extern "C" int stencil(const void *p, int p_dt, const void *b, int b_dt, const float *mA_x, const float *mA_y,
-                       const float *mA_z, const float *c0, const float *active, void *out, float *partials,
-                       const Grid *g, int epilogue, float w, int vector, int bx, int by, int cx, int blocks,
-                       void *stream) {
+                       const float *mA_z, const float *c0, const float *active, long long mask_stride, void *out,
+                       float *partials, const Grid *g, int epilogue, float w, int vector, int bx, int by, int cx,
+                       int blocks, void *stream) {
     const bool any_coeff = mA_x != nullptr || mA_y != nullptr || mA_z != nullptr || c0 != nullptr;
     const bool all_coeff = mA_x != nullptr && mA_y != nullptr && mA_z != nullptr && c0 != nullptr;
     if (any_coeff != all_coeff) return (int)cudaErrorInvalidValue;
-    if ((any_coeff || active != nullptr) && g->nb != 1) return (int)cudaErrorInvalidValue;
+    const long long cells = (long long)g->n[0] * g->n[1] * g->n[2];
+    if (mask_stride != 0 && (mask_stride != cells || !(any_coeff || active != nullptr)))
+        return (int)cudaErrorInvalidValue;
     const int form = (all_coeff ? march::FORM_COEFFS : 0) | (active != nullptr ? march::FORM_ACTIVE : 0);
-    const Masks m = {{mA_x, mA_y, mA_z}, c0, active};
+    const Masks m = {{mA_x, mA_y, mA_z}, c0, active, mask_stride};
     cudaStream_t s = (cudaStream_t)stream;
     if (epilogue == EPI_MATVEC) b_dt = p_dt;  // b is not read
     PTT_DT(p_dt, TP, PTT_DT(b_dt, TB, {

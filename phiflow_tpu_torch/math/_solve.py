@@ -404,7 +404,8 @@ class _ImplicitSolve(torch.autograd.Function):
             g = g * spec.active
         if spec.rank_deficient:  # ḡ onto A's range: its null-space component meets no x
             n = spec.null_space
-            g = sub_mean(g, spec.nb) if n is None else g - n * (_dot64(n, g) / _dot64(n, n))
+            g = sub_mean(g, spec.nb) if n is None else g - n * _bc(_dot64(n.expand_as(g), g, spec.nb) / _dot64(n, n),
+                                                                    g, spec.nb)
         krylov, A_adj = spec.krylov, spec.A
         if isinstance(krylov, Direct):
             krylov = krylov.adjoint

@@ -67,9 +67,10 @@ class SmokePlume:
     advection + semi-Lagrangian self-advection + pressure projection (CG,
     tolerance cg_tol).
 
-    The constructor takes JAX's arguments. Float32 with `max_cells` ≥ 1
-    runs, batched or not; `max_cells=None` raises NotImplementedError naming
-    the later slice that brings it."""
+    The constructor takes JAX's arguments. Float32 runs, batched or not;
+    `max_cells=None` is JAX's unbounded lookup: both advection phases gather
+    at the back-traced points (`physics/advect.py`, no window kernel), and
+    the fused path is gated off, as JAX's `_fused_advect_available` does."""
 
     def __init__(self, resolution: int = 64, dims: int = 2, buoyancy: float = 0.1,
                  inflow_rate: float = 0.2, dt: float = 0.5, cg_tol: float = 1e-3,
@@ -77,9 +78,6 @@ class SmokePlume:
                  size: float = None, periodic: bool = False, device=None):
         if dims not in (2, 3):
             raise ValueError(f"dims must be 2 or 3, got {dims}")
-        if max_cells is None:
-            raise NotImplementedError("max_cells=None is the unbounded gather lookup (no window "
-                                      "kernel): it comes with a later slice of the port")
         self.device = resolve_device(device)
         names = ['x', 'y', 'z'][:dims]
         sizes = {n: resolution for n in names}

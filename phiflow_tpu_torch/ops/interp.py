@@ -40,7 +40,8 @@ Both are differentiable in the grid and the displacements (`_WindowInterp`,
 a `torch.autograd.Function`): the forward is the route above, the backward
 is K6ᵀ / K7ᵀ (`csrc/interp.cu`: `window_interp_disp_grad_kernel` and
 `window_interp_grid_grad_kernel`, one launch a call) on CUDA and the
-twin's VJP (autograd of `_window_interp_plain`, recomputed) on the CPU. The
+twin's VJP (autograd of `_window_interp_plain`, recomputed, with JAX's d_disp
+at a NaN displacement, `_nan_disp_grads`) on the CPU. The
 TPU kernels have no VJP; the JAX package's gradient of the same function is
 XLA's AD of its window sum, and the twin is written so that autograd follows
 JAX's rules where the weights have kinks: |x| as ``where(x >= 0, x, −x)``
@@ -237,8 +238,26 @@ def _window_interp_vjp_plain(grid, disps, K, compute_extrema, scale, mode, const
     d_grid = res.pop(0) if need_grid else None
     d_disps = [res.pop(0) for _ in range(d)] if need_disp else [None] * d
     fill = lambda r, like: torch.zeros_like(like) if r is None else r.to(like.dtype)
-    return (fill(d_grid, grid) if need_grid else None), [fill(r, dd) if need_disp else None
-                                                        for r, dd in zip(d_disps, disps)]
+    d_disps = [fill(r, dd) if need_disp else None for r, dd in zip(d_disps, disps)]
+    if need_disp and grads[0] is not None:
+        d_disps = _nan_disp_grads(d_disps, disps, scale)
+    return (fill(d_grid, grid) if need_grid else None), d_disps
+
+
+def _nan_disp_grads(d_disps, disps, scale):
+    """JAX's d_disp at an output with a NaN displacement, where autograd's
+    `maximum` rule lets a slope through: NaN on an axis whose displacement
+    is finite, 0 on a NaN axis unless another axis is NaN too (its weights
+    are NaN and `jnp.clip`'s derivative 0 there)."""
+    nan = [torch.isnan(s * x) for s, x in zip(scale, disps)]
+    if not any(bool(m.any()) for m in nan):
+        return d_disps
+    out = []
+    for e, g in enumerate(d_disps):
+        others = functools.reduce(torch.logical_or, [m for i, m in enumerate(nan) if i != e])
+        rule = torch.where(others, torch.full_like(g, float('nan')), torch.zeros_like(g))
+        out.append(torch.where(others | nan[e], rule, g))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,8 @@ Batches: a field may carry leading batch axes, (*batch, X, Y, Z), each entry
 an independent system; on CUDA the wrappers of K1–K3 launch once for the
 whole batch (the kernels fold the entry into their grid), a dot comes out one
 per entry, of the batch's shape, and the twins compute the same over the
-leading axes. K1's masked forms take one field.
+leading axes. K1m's masks are shared by the batch (read in place by every
+entry) or carry it.
 
 The kernels are 3D, as the TPU kernels are: the JAX package computes a 2D
 stencil through XLA on the TPU too (`_apply_xla`). So each wrapper decides on
@@ -199,7 +200,7 @@ def _lib():
     import ctypes
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.library('poisson', {
-        'stencil': [P, I, P, I, P, P, P, P, P, P, P, P, I, F, I, I, I, I, I, P],
+        'stencil': [P, I, P, I, P, P, P, P, P, ctypes.c_longlong, P, P, P, I, F, I, I, I, I, I, P],
         'jacobi_smooth': [P, I, P, I, P, I, P, P, F, I, I, I, I, I, P],
         'residual_restrict': [P, I, P, I, P, P, I, I, I, I, I, P],
     })
@@ -405,12 +406,15 @@ def poisson_apply(p: torch.Tensor, inv_dx2: Sequence[float], bc: Sequence[Tuple[
     ``with_dot`` returns (result, ⟨p, result⟩) — the CG denominator ⟨p, A·p⟩.
 
     ``mA_list`` and ``c0`` (both or neither) are the coefficient arrays of
-    `stage_masks`; where ``active`` is 0 the result is p itself.
+    `stage_masks`; where ``active`` is 0 the result is p itself. Masks
+    broadcast to p: without batch axes (one set for every system, as the JAX
+    package's `poisson_apply` maps one kernel over the batch) or with p's.
 
     Two spatial axes: PyTorch operations on any device (module docstring). On
     CUDA in 3D: one launch for p and its leading batch axes (the dot one per
-    entry); the masked forms take one field, masks of its shape or
-    broadcastable to it."""
+    entry), the masks read at an entry stride (0 where they are shared, never
+    expanded to the batch), so that each entry is its own launch's, bit for
+    bit."""
     if mode not in _EPILOGUE:
         raise ValueError(mode)
     if len(bc) == 2:
@@ -434,14 +438,33 @@ def _poisson_apply_plain(p, inv_dx2, bc, mA_list=None, c0=None, active=None, b=N
     return (out, dot) if with_dot else out
 
 
-def _mask_field(name, m, like):
-    """A mask as a contiguous float32 tensor of the field's shape."""
+def _mask_field(name, m, like, shape=None):
+    """A mask as a contiguous float32 tensor of `shape` (the field's by
+    default): the mask itself where it is one already."""
     if m.device != like.device:
         raise ValueError(f"{name}: on {m.device}, the field on {like.device}")
     try:
-        return m.to(torch.float32).expand(like.shape).contiguous()
+        return m.to(torch.float32).expand(tuple(like.shape) if shape is None else shape).contiguous()
     except RuntimeError:
         raise ValueError(f"{name}: shape {tuple(m.shape)} does not broadcast to {tuple(like.shape)}") from None
+
+
+def _mask_fields(named, like):
+    """K1m's masks (name, tensor or None) as contiguous float32 tensors and
+    their entry stride: each of one entry's shape, stride 0, where none has
+    more than one entry in its leading axes (one set shared by the batch, read
+    in place by every entry and never expanded to it); else each of the
+    field's whole shape, stride the entry's cell count."""
+    shared = all(m is None or int(np.prod(m.shape[:-3], dtype=np.int64)) == 1 for _, m in named)
+    shape = tuple(like.shape[-3:]) if shared else tuple(like.shape)
+    fields = []
+    for name, m in named:
+        if m is not None and m.ndim > like.ndim:
+            raise ValueError(f"{name}: shape {tuple(m.shape)} does not broadcast to {tuple(like.shape)}")
+        if m is not None and shared and m.ndim > 3:
+            m = m.reshape(m.shape[-3:])
+        fields.append(None if m is None else _mask_field(name, m, like, shape))
+    return fields, 0 if shared else int(np.prod(shape[-3:], dtype=np.int64))
 
 
 def _stencil_cuda(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag, with_dot, chunk=None):
@@ -449,16 +472,10 @@ def _stencil_cuda(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag,
     _check_bc(bc)
     _check_field('p', p)
     lead, nb = tuple(p.shape[:-3]), _n_entries(p)
-    if nb != 1 and (mA_list is not None or active is not None):
-        raise NotImplementedError("a batch of masked systems (obstacles, active cells) comes with a later slice of "
-                                  "the port: K1's masked forms take one field")
-    masks = [None] * 5
-    if mA_list is not None:
-        if len(mA_list) != 3:
-            raise ValueError(f"mA_list: three arrays expected, got {len(mA_list)}")
-        masks[:4] = [_mask_field(f'mA_list[{d}]', m, p) for d, m in enumerate(mA_list)] + [_mask_field('c0', c0, p)]
-    if active is not None:
-        masks[4] = _mask_field('active', active, p)
+    if mA_list is not None and len(mA_list) != 3:
+        raise ValueError(f"mA_list: three arrays expected, got {len(mA_list)}")
+    masks, mask_stride = _mask_fields(list(zip(('mA_list[0]', 'mA_list[1]', 'mA_list[2]', 'c0', 'active'),
+                                               (*(mA_list or (None,) * 3), c0, active))), p)
     if mode != 'matvec':
         if b is None:
             raise ValueError(f"mode {mode!r} needs b")
@@ -477,7 +494,7 @@ def _stencil_cuda(p, inv_dx2, bc, mA_list, c0, active, b, mode, omega_over_diag,
                         _aligned(p, out, b_read, *masks), chunk, form, nb)
     partials = torch.empty(plan['partials'], dtype=torch.float32, device=p.device) if with_dot else None
     err = lib.stencil(p.data_ptr(), _DTYPE_CODE[p.dtype], _ptr(b_read), b_dt, *(_ptr(m) for m in masks),
-                      out.data_ptr(), _ptr(partials), ctypes.byref(g), _EPILOGUE[mode], w,
+                      mask_stride, out.data_ptr(), _ptr(partials), ctypes.byref(g), _EPILOGUE[mode], w,
                       int(plan['route'] == 'vector'), *plan['block'], plan['chunk'], plan['blocks'],
                       _build.stream_of(p))
     _build.check(lib, err, 'poisson_stencil')

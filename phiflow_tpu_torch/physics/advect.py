@@ -25,8 +25,10 @@ through the Field layer's `spatial_gradient` of orders 2, 4 and 6 on a grid,
 and the FVM flux sum on a mesh (`:100-102`).
 
 The array layer (`*_native`) on raw tensors: grids by semi-Lagrangian and
-MacCormack lookups, particles by `points_native` with the `finite_rk4_native`
-integrator.
+MacCormack lookups (the window of `max_cells`, or with ``max_cells=None``
+JAX's gather route: `sample_grid_at_points` at the displaced indices and, for
+MacCormack's clamp, the 2^d values around each backward point), particles by
+`points_native` with the `finite_rk4_native` integrator.
 
 The grid schemes port the bounded-window fast path of `phiflow_tpu/physics/advect.py`: the `euler`
 integrator with `max_cells` set, which is what `semi_lagrangian` (`:338`,
@@ -56,6 +58,7 @@ dispatches a point cloud to `points` and a grid to `semi_lagrangian`.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Sequence, Tuple, Union
 
@@ -67,11 +70,11 @@ from ..field._field_math import (_array_layout, _batch_dims, _batch_tensor, _dx_
                                  spatial_gradient)
 from ..field._point_cloud import PointCloud
 from ..field._resample import (_closed_staggered, reduce_sample, sample, sample_grid_at_centers,
-                               sample_staggered_at_points, staggered_point_arrays)
+                               sample_grid_at_points, sample_staggered_at_points, staggered_point_arrays)
 from ..geom import Geometry, Point
 from ..geom._geom import flat_points
 from ..math import channel, dual, stack, wrap, _ops as ops
-from ..math._nd import PERIODIC, Extrapolation, component_extrapolation, shift_window_interp
+from ..math._nd import PERIODIC, Extrapolation, PerSide, component_extrapolation, pad, shift_window_interp
 from ..math._shape import merge_shapes
 
 __all__ = ['euler', 'rk4', 'finite_rk4', 'advect', 'points', 'differential', 'finite_difference', 'semi_lagrangian', 'mac_cormack',
@@ -133,10 +136,82 @@ def _window_interp_field_native(field: Grid, disp_and_scale, extrap: Extrapolati
                                disp_scale=scales)
 
 
-def _check(field: Grid, velocity, max_cells, substeps):
+def _gather_points(values: torch.Tensor, coords: Sequence[torch.Tensor], extrap) -> torch.Tensor:
+    """`values` (*batch, *S) multilinear at the fractional indices `coords`
+    (one array an axis, (*batch, *S) or (*S)), beyond the grid by `extrap`
+    one cell deep: `math.grid_sample`'s rule, through the particles' lookup
+    `sample_grid_at_points` in cell units. Returns (*batch, *S)."""
+    d = len(coords)
+    spatial = tuple(values.shape[-d:])
+    lead = tuple(torch.broadcast_shapes(values.shape[:-d], *[c.shape[:-d] for c in coords]))
+    pts = torch.stack([torch.broadcast_to(c, lead + spatial) for c in coords], -1).reshape(lead + (-1, d)) + 0.5
+    out = sample_grid_at_points(values.expand(lead + spatial), pts if lead else pts.reshape(-1, d), (0.,) * d,
+                                tuple(float(n) for n in spatial), extrap)
+    return out.reshape(lead + spatial)
+
+
+def _closest_extrema(values: torch.Tensor, coords: Sequence[torch.Tensor], extrap):
+    """(min, max) of the 2^d values of `values` around each fractional index
+    of `coords` (`math.closest_grid_values`: the grid padded one cell by
+    `extrap` along its non-periodic axes, corners clamped into it, wrapped
+    along periodic ones) — the clamp of JAX's unbounded MacCormack."""
+    d = len(coords)
+    lead = tuple(torch.broadcast_shapes(values.shape[:-d], *[c.shape[:-d] for c in coords]))
+    padded, offsets, periodic = values, [], []
+    for a in range(d):
+        rule = extrap[a - d] if isinstance(extrap, PerSide) else (extrap, extrap)
+        periodic.append(isinstance(rule[0], str) and rule[0] == PERIODIC)
+        offsets.append(0 if periodic[a] else 1)
+        if not periodic[a]:
+            padded = pad(padded, a - d, 1, 1, extrap)
+    sizes = tuple(padded.shape[-d:])
+    flat = padded.expand(lead + sizes).reshape(lead + (-1,))
+    lo = [torch.floor(c).to(torch.int64) for c in coords]
+    lo_v = up_v = None
+    for corner in itertools.product((0, 1), repeat=d):
+        idx = None
+        for a in range(d):
+            ik = lo[a] + corner[a] + offsets[a]
+            ik = torch.remainder(ik, sizes[a]) if periodic[a] else torch.clamp(ik, 0, sizes[a] - 1)
+            idx = ik if idx is None else idx * sizes[a] + ik
+        idx = torch.broadcast_to(idx, lead + tuple(coords[0].shape[-d:]))
+        v = torch.gather(flat, -1, idx.reshape(lead + (-1,))).reshape(idx.shape)
+        lo_v = v if lo_v is None else torch.minimum(lo_v, v)
+        up_v = v if up_v is None else torch.maximum(up_v, v)
+    return lo_v, up_v
+
+
+def _gather_field_native(field: Grid, disp_and_scale, extrap, sign: float = 1.0, extrema: bool = False):
+    """The unbounded lookup (`max_cells=None`, JAX's gather route): each
+    value of `field` (per component for a staggered one) at its own index
+    displaced by sign × scale × the arrays of `_euler_disp_natives`, in cells,
+    with no window and no clip; with `extrema` also the min / max of the 2^d
+    values around that point. No kernel of the port's: PyTorch gathers."""
+    disps, scales = disp_and_scale
+
+    def one(values, disp, ext):
+        d = len(disp)
+        coords = [torch.arange(n, dtype=values.dtype, device=values.device).reshape((-1,) + (1,) * (d - 1 - a))
+                  + (sign * scales[a]) * disp[a] for a, n in enumerate(values.shape[-d:])]
+        out = _gather_points(values, coords, ext)
+        return (out, *_closest_extrema(values, coords, ext)) if extrema else out
+
+    if _is_staggered(field):
+        results = [one(comp, disps[t], component_extrapolation(extrap, t)) for t, comp in enumerate(field)]
+        if extrema:
+            return tuple(tuple(r[i] for r in results) for i in range(3))
+        return tuple(results)
+    return one(field, disps, extrap)
+
+
+def _lookup(field: Grid, fast, extrap, max_cells, extrema: bool = False, negate: bool = False):
+    """The window lookup of `max_cells` (K6 / K7), or with None the gather."""
     if max_cells is None:
-        raise NotImplementedError("max_cells=None is the unbounded gather lookup; it comes with a later "
-                                  "slice of the port")
+        return _gather_field_native(field, fast, extrap, -1.0 if negate else 1.0, extrema)
+    return _window_interp_field_native(field, fast, extrap, max_cells, extrema=extrema, negate=negate)
+
+
+def _check(field: Grid, velocity, max_cells, substeps):
     if not isinstance(substeps, int) or substeps < 1:
         raise NotImplementedError(f"substeps={substeps!r}: only a fixed count is ported "
                                   f"('auto' comes with a later slice)")
@@ -157,6 +232,8 @@ def semi_lagrangian_native(field: Grid, velocity: Sequence[torch.Tensor], dt: fl
     PERIODIC in the periodic box, else the constant 0 of closed walls, unless
     `velocity_extrap` says otherwise (one per component allowed). Exact
     whenever the CFL number ≤ max_cells; larger displacements are clamped.
+    ``max_cells=None`` looks the field up at the displaced points with no
+    window and no clamp (`_gather_field_native`).
     ``substeps=n`` applies n steps of dt/n."""
     _check(field, velocity, max_cells, substeps)
     if substeps > 1:
@@ -165,7 +242,7 @@ def semi_lagrangian_native(field: Grid, velocity: Sequence[torch.Tensor], dt: fl
                                            velocity_extrap=velocity_extrap, field_faces=field_faces)
         return field
     fast = _euler_disp_natives(_is_staggered(field), velocity, -dt, dx, periodic, velocity_extrap, field_faces)
-    return _window_interp_field_native(field, fast, extrap, max_cells)
+    return _lookup(field, fast, extrap, max_cells)
 
 
 def mac_cormack_native(field: Grid, velocity: Sequence[torch.Tensor], dt: float, dx, extrap,
@@ -184,8 +261,8 @@ def mac_cormack_native(field: Grid, velocity: Sequence[torch.Tensor], dt: float,
         return field
     fast = _euler_disp_natives(_is_staggered(field), velocity, -dt, dx, periodic, velocity_extrap,
                                field_faces)  # backward displacement
-    fwd, lim_lo, lim_up = _window_interp_field_native(field, fast, extrap, max_cells, extrema=True)
-    bwd = _window_interp_field_native(fwd, fast, extrap, max_cells, negate=True)
+    fwd, lim_lo, lim_up = _lookup(field, fast, extrap, max_cells, extrema=True)
+    bwd = _lookup(fwd, fast, extrap, max_cells, negate=True)
     half = correction_strength * 0.5
 
     def combine(f, fw, bw, lo, up):

@@ -68,9 +68,12 @@ leading batch axes, the JAX package's batch dims, each entry its own system.
 All entries run through one CG loop (`math._solve.cg` with nb axes: a
 converged system frozen while the others go on, the loop ending when all
 have converged), each with its own balanced divergence, tolerance and mean
-removed from every preconditioner output; every kernel launch (K1–K4) covers
-the whole batch. A batch of masked systems (obstacles, `active`) raises
-NotImplementedError: it comes with a later slice.
+removed from every preconditioner output; every kernel launch (K1–K4, K1m)
+covers the whole batch. Obstacles and `active` are shared by the batch (K1m
+reads one set of masks for every entry, the Chebyshev preconditioner one
+diagonal); masks with batch dims of their own raise ValueError, as the JAX
+package fails on them. A centred velocity's batch and a mesh velocity's go
+through `solve_linear`, one system an entry.
 
 Every projection is differentiable in the velocity: its solve is
 differentiated implicitly (`math/_solve.py::implicit_solve`), so a backward
@@ -106,9 +109,9 @@ from ..math._extrapolation import (
 )
 from ..math._multigrid import make_poisson_vcycle
 from ..math._nd import BOUNDARY, PERIODIC as PERIODIC_EXTRAPOLATION, Extrapolation, PerSide
-from ..math._solve import (PRECONDITIONED_METHODS, Direct, Solve, SolveResult, bicgstab, finish_solve, implicit_solve,
-                           krylov_of, record_adjoint, reroute_direct, sub_mean)
-from ..ops.poisson import GHOST0, NEUMANN, PERIODIC, poisson_apply, stage_masks
+from ..math._solve import (PRECONDITIONED_METHODS, Direct, Solve, SolveResult, _bc, bicgstab, finish_solve,
+                           implicit_solve, krylov_of, record_adjoint, reroute_direct, sub_mean)
+from ..ops.poisson import GHOST0, NEUMANN, PERIODIC, per_entry, poisson_apply, stage_masks
 
 __all__ = ['Obstacle', 'make_incompressible', 'masked_laplace', 'apply_boundary_conditions', 'boundary_push',
            'incompressible_rk4',
@@ -116,6 +119,10 @@ __all__ = ['Obstacle', 'make_incompressible', 'masked_laplace', 'apply_boundary_
            'boundary_push_native', 'MASKED_PRECONDITIONER']
 
 MASKED_PRECONDITIONER = 'chebyshev'  # 'chebyshev' | 'vcycle' | None — the masked systems' preconditioner
+# masks that differ between a batch's systems: the JAX package's projection fails on them
+BATCHED_MASKS = (": masks with batch dims (an obstacle or active cells per entry) are not projected: the JAX "
+                 "package's `make_incompressible` fails there (an AssertionError in its `_fused_masked_laplace`, "
+                 "phiflow_tpu/math/_tensor.py:547)")
 
 
 class Obstacle:
@@ -242,7 +249,8 @@ def apply_boundary_conditions_native(velocity: Sequence[torch.Tensor], obstacles
             angular = angular_velocity_at_faces(face_grids, obstacle.geometry._center, obstacle._angular_velocity)
         else:
             angular = tuple(v * 0 for v in velocity)
-        velocity = tuple(safe_mul_native(1 - m, v) + safe_mul_native(m, (w + float(u)).expand(m.shape))
+        velocity = tuple(safe_mul_native(1 - m, v) +
+                         safe_mul_native(m, (w + float(u)).expand(torch.broadcast_shapes(w.shape, m.shape)))
                          for m, v, w, u in zip(obs_mask, velocity, angular, obstacle._velocity))
     return velocity
 
@@ -265,10 +273,12 @@ def _pressure_ghosts(bcs):
 
 def _balance_divergence(div: torch.Tensor, active: Optional[torch.Tensor] = None, nb: int = 0) -> torch.Tensor:
     """Subtract the mean so the singular Poisson system is solvable, per
-    system of the `nb` leading axes; with `active`, spread it over the active
+    system of the `nb` leading axes (each mean taken as an unbatched one
+    is); with `active` (shared by the systems), spread it over the active
     cells only."""
     if active is not None:
-        return div - active * (torch.mean(div) / torch.mean(active))
+        mean = per_entry(torch.mean, nb, div)
+        return div - active * _bc(mean / torch.mean(active), div, nb)
     return sub_mean(div, nb)
 
 
@@ -301,7 +311,7 @@ def _masked_diagonal(apply_A: Callable, template: torch.Tensor, bcs) -> Optional
     have the other parity, so A·e_c is the diagonal wherever the cell has
     parity c. Two matvecs give all of it, identity rows and boundary rows
     included. None where parity is ill-defined (a periodic axis of odd size)."""
-    sizes = tuple(template.shape)
+    sizes = tuple(template.shape[template.ndim - len(bcs):])  # the grid's: one diagonal for a batch's systems
     if any(lo == PERIODIC and n % 2 for (lo, _), n in zip(bcs, sizes)):
         return None
     idx = sum(torch.arange(n, device=template.device).reshape([n if j == i else 1 for j in range(len(sizes))])
@@ -364,7 +374,9 @@ def _masked_chebyshev_preconditioner(apply_A: Callable, template: torch.Tensor, 
     diagonal. Identity rows have eigenvalue 1 and active rows are diagonally
     dominant, so B's spectrum lies in (0, 2] and fixed bounds need no power
     iteration. Two matvecs to build, three an application. None where the
-    diagonal cannot be probed."""
+    diagonal cannot be probed. A batch of systems sharing their masks shares
+    the diagonal (probed on the grid alone, as the JAX package probes it on
+    its unbatched x0) and applies the polynomial to r's leading axes."""
     diag = _masked_diagonal(apply_A, template, bcs)
     if diag is None:
         return None
@@ -396,7 +408,9 @@ def _masked_vcycle_preconditioner(resolution, dx, bcs, active: torch.Tensor):
     """Projected multigrid for masked systems: z = P·V(P·r) + (I − P)·r with P
     the active-cell projection and V the unmasked Poisson V-cycle (K2–K4).
     Identity rows are exact; next to an obstacle V only approximates, which
-    slows CG down and does not break it. None below 16 cells per axis."""
+    slows CG down and does not break it. None below 16 cells per axis. r may
+    carry leading batch axes (one V-cycle launch a level for the batch, P
+    shared)."""
     if max(resolution) < 16:
         return None
     vcycle = make_poisson_vcycle(tuple(resolution), _per_axis(dx, len(resolution)), bcs, active.device)
@@ -426,9 +440,10 @@ def _full_face_masks(hard_bcs: Sequence[torch.Tensor], faces=None):
 
 
 def _masked_preconditioner(apply_A, div, dx, bcs, active):
-    """`MASKED_PRECONDITIONER`'s preconditioner of a masked system."""
+    """`MASKED_PRECONDITIONER`'s preconditioner of a masked system (`div`: a
+    template, its trailing axes the grid's)."""
     if MASKED_PRECONDITIONER == 'vcycle':
-        return _masked_vcycle_preconditioner(tuple(div.shape), dx, bcs, active)
+        return _masked_vcycle_preconditioner(tuple(div.shape[div.ndim - len(bcs):]), dx, bcs, active)
     if MASKED_PRECONDITIONER == 'chebyshev':
         return _masked_chebyshev_preconditioner(apply_A, div, bcs)
     if MASKED_PRECONDITIONER is not None:
@@ -437,11 +452,14 @@ def _masked_preconditioner(apply_A, div, dx, bcs, active):
 
 
 def _project_masked(velocity, div, pressure, active, hard_bcs, singular, dx, inv_dx2, bcs, layout, rel_tol,
-                    abs_tol, max_iterations, method, preconditioner):
+                    abs_tol, max_iterations, method, preconditioner, nb: int = 0):
     """The masked branches of `make_incompressible`: a free surface
     (`active`), obstacles (`hard_bcs` and `active`), or both. `singular`: the
     box is closed or periodic with every cell the caller's, so the constant
-    is in the operator's null space as the JAX package sees it."""
+    is in the operator's null space as the JAX package sees it. `nb` leading
+    batch axes of the velocity, `div` and `pressure` hold one system an
+    entry, all sharing the masks: each balanced and projected on its own
+    means (`per_entry`), one CG loop, every K1m launch for the batch."""
     mA_list = c0 = None
     if hard_bcs is not None:
         # staged once per solve: contiguous float32 arrays of the cells' shape, which the kernel's wrapper
@@ -449,7 +467,7 @@ def _project_masked(velocity, div, pressure, active, hard_bcs, singular, dx, inv
         mA_list, c0 = stage_masks(_full_face_masks(hard_bcs, layout), bcs, inv_dx2)
     rhs = div
     if singular:
-        rhs = sub_mean(_balance_divergence(div, active))
+        rhs = sub_mean(_balance_divergence(div, active, nb), nb)
     x0 = torch.zeros_like(div) if pressure is None else pressure
 
     def apply_A(p):
@@ -462,14 +480,14 @@ def _project_masked(velocity, div, pressure, active, hard_bcs, singular, dx, inv
         M = _masked_preconditioner(apply_A, div, dx, bcs, active)
         if not singular or M is None:
             return M
-        return lambda r: (sub_mean(M(r)[0]), None)
+        return lambda r: (sub_mean(M(r)[0], nb), None)
 
-    M = _preconditioner(method, preconditioner, singular, default)
+    M = _preconditioner(method, preconditioner, singular, default, nb)
     # the singular masked operator's null space: the constants on the active cells (identity rows elsewhere)
     result = _solve(A, rhs, x0, rel_tol, abs_tol, max_iterations, M, singular, active if singular else None, active,
-                    method, bcs)
+                    method, bcs, nb)
     p = result.x
-    grad = spatial_gradient_native(p, dx, faces=layout, extrap=_pressure_ghosts(bcs))
+    grad = spatial_gradient_native(p, dx, faces=layout, extrap=_pressure_ghosts(bcs), ndim=len(layout))
     if hard_bcs is not None:
         grad = tuple(g * m for g, m in zip(grad, hard_bcs))
     return tuple(v - g for v, g in zip(velocity, grad)), p, result
@@ -537,7 +555,9 @@ def make_incompressible_native(velocity: Sequence[torch.Tensor], pressure: Optio
     `MASKED_PRECONDITIONER`'s, for the CG family; a callable on arrays.
     Leading batch axes of the components and the pressure broadcast: one
     system an entry, one CG loop (module docstring); the solve result's
-    `residual` has the batch's shape.
+    `residual` has the batch's shape. `active` and the obstacles are shared
+    by the batch; an `active` with batch axes raises ValueError, as the JAX
+    package fails there (an AssertionError).
     Returns (velocity, pressure, solve result); not converging within
     max_iterations is not an error, as for the models' solves."""
     obstacles = _get_obstacles_for(obstacles)
@@ -548,9 +568,6 @@ def make_incompressible_native(velocity: Sequence[torch.Tensor], pressure: Optio
                                         *([] if pressure is None else [pressure.shape[:-nd]])))
     nb = len(lead)
     if nb:
-        if obstacles or active is not None:
-            raise NotImplementedError("a batch of masked systems (obstacles, active cells) comes with a later slice "
-                                      "of the port")
         velocity = tuple(v.expand(lead + tuple(v.shape[-nd:])) for v in velocity)
         if pressure is not None:
             pressure = pressure.expand(lead + resolution).contiguous()
@@ -559,12 +576,15 @@ def make_incompressible_native(velocity: Sequence[torch.Tensor], pressure: Optio
     inv_dx2 = tuple(1.0 / (x * x) for x in h)
     singular = not any(f != 'periodic' and None in f for f in layout)  # the JAX package's `not is_flexible`
     if active is not None and tuple(active.shape) != resolution:
-        raise ValueError(f"active: shape {tuple(active.shape)} != the cells' {resolution}")
+        raise ValueError(f"active: shape {tuple(active.shape)} != the cells' {resolution}"
+                         f"{BATCHED_MASKS if active.ndim > nd else ''}")
     all_active = active is None
     hard_bcs = None
     if obstacles:
         cells = cell_grid(resolution, dx, velocity[0].device)
         accessible = geometry_mask(~union([o.geometry for o in obstacles]), cells).contiguous()
+        if tuple(accessible.shape) != resolution:
+            raise ValueError(f"obstacles of mask shape {tuple(accessible.shape)}, cells {resolution}{BATCHED_MASKS}")
         hard_bcs = stagger_native(accessible, torch.minimum, _accessible_sides(layout), faces=layout)
         active = accessible if active is None else active * accessible
         velocity = apply_boundary_conditions_native(velocity, obstacles, dx, layout)
@@ -575,7 +595,7 @@ def make_incompressible_native(velocity: Sequence[torch.Tensor], pressure: Optio
         if not all_active:
             div = torch.where(torch.isfinite(div), div, torch.zeros_like(div))
         return _project_masked(velocity, div, pressure, active, hard_bcs, all_active and singular, dx, inv_dx2, bcs,
-                               layout, rel_tol, abs_tol, max_iterations, method, preconditioner)
+                               layout, rel_tol, abs_tol, max_iterations, method, preconditioner, nb)
     # rank deficiency 1: project onto range(A)
     rhs = sub_mean(_balance_divergence(div, nb=nb), nb) if singular else div
     x0 = torch.zeros_like(div) if pressure is None else pressure
@@ -736,12 +756,11 @@ def make_incompressible(velocity, obstacles=(), solve: Solve = Solve(), active=N
     the compact stencil on Fields; a velocity on a mesh by
     `_make_incompressible_mesh`. The cases the JAX package fails on raise:
     a staggered velocity at order > 2 or with the wide stencil, a centred
-    one with obstacles or `active`. Batch dims: a staggered velocity's are
-    projected as one batch of systems (module docstring); with obstacles or
-    `active` (a batch of masked systems), and for a centred velocity or one
-    on a mesh, they raise NotImplementedError: later slices bring them."""
-    if velocity.values.shape.batch:
-        _refuse_batch(velocity, obstacles, active)
+    one with obstacles or `active`. Batch dims are projected as one batch of
+    systems (module docstring), a staggered velocity's with obstacles and
+    `active` shared by the batch; obstacles or `active` with batch dims of
+    their own raise ValueError, as the JAX package fails on them."""
+    _check_batch(obstacles, active)
     if velocity.is_mesh:
         return _make_incompressible_mesh(velocity, obstacles, solve, active, order)
     if velocity.is_grid and velocity.is_centered:
@@ -795,14 +814,16 @@ def make_incompressible(velocity, obstacles=(), solve: Solve = Solve(), active=N
     return velocity.with_values(_component_values(velocity, v, batch)), pressure
 
 
-def _refuse_batch(velocity, obstacles, active):
-    """NotImplementedError for the batched projections this slice does not bring."""
-    if _get_obstacles_for(obstacles) or active is not None:
-        raise NotImplementedError("a batch of masked systems (obstacles, active cells) comes with a later slice "
-                                  "of the port")
-    if velocity.is_mesh or not (velocity.is_grid and velocity.is_staggered):
-        raise NotImplementedError("the batched projection of a centred velocity or of one on a mesh comes with a "
-                                  "later slice of the port: a staggered velocity's is ported")
+def _check_batch(obstacles, active):
+    """ValueError for masks with batch dims (an obstacle geometry or an
+    `active` Field per entry): the JAX package's projection does not compute
+    them."""
+    for o in _get_obstacles_for(obstacles):
+        if o.geometry.shape.batch:
+            raise ValueError(f"an obstacle of shape {o.geometry.shape}{BATCHED_MASKS}")
+    values = active.values if isinstance(active, Field) else active
+    if isinstance(values, Tensor) and values.shape.batch:
+        raise ValueError(f"active cells of shape {values.shape}{BATCHED_MASKS}")
 
 
 def _balance_divergence_field(div, active):
@@ -903,7 +924,8 @@ def _solve_pressure(div, v_boundary, solve: Solve, hard_bcs=None, active=None, b
 
             def apply_A(p):
                 return poisson_apply(p, inv_dx2, bcs, mA_list=mA, c0=c0, active=act)
-            M = _masked_preconditioner(apply_A, div.values.torch(names), _dx_tuple(x0_lin), bcs, act)
+            template = div.values.torch(div.values.shape.without(names).names + tuple(names))  # batch leading
+            M = _masked_preconditioner(apply_A, template, _dx_tuple(x0_lin), bcs, act)
     solve = copy_solve(solve, preconditioner=_field_preconditioner(solve.x0, M) if M is not None else
                        (solve.preconditioner if callable(solve.preconditioner) else None))
     homogeneous = _is_homogeneous_pressure_bc(solve.x0.boundary if isinstance(solve.x0, Field) else None)
@@ -962,7 +984,7 @@ def _fused_masked_laplace(pressure, v_boundary, hard_bcs, active):
         return None
     names = pressure.resolution.names
     batch = pressure.values.shape.without(names)
-    if batch.rank != batch.batch.rank or (batch and (hard_bcs is not None or active is not None)):
+    if batch.rank != batch.batch.rank:
         return None
     native = _native_masks(pressure, v_boundary, hard_bcs, active)
     if native is None:

@@ -279,8 +279,34 @@ def _slot(grid, disps, ups, K, extrema, scale, mode, shift, const, c, L, own):
                 s_lo, s_up = f32(G_lo * _above(pre_lo[b], v[b])), f32(G_up * _above(v[b], pre_up[b]))
                 G_lo, G_up = f32(G_lo - s_lo), f32(G_up - s_up)
                 coef[b] = f32(coef[b] + f32(s_lo + s_up))
-    d_disp = [f32(f32(f32(go * f32(scale[e])) * wins[e][5]) * gd[e]) for e in range(d)] if own else None
+    d_disp = None
+    if own and floors is None:  # a NaN displacement: NaN on an axis beside another NaN one (with g_out), else 0
+        nan_axes = [not w[6] for w in wins]
+        d_disp = [f32(np.nan) if ups[0] is not None and any(n for i, n in enumerate(nan_axes) if i != e) else f32(0)
+                  for e in range(d)]
+    elif own:
+        d_disp = [f32(f32(f32(go * f32(scale[e])) * wins[e][5]) * gd[e]) for e in range(d)]
     return floors, coef, d_disp
+
+
+def _nan_taps(d_grid, grid_shared, grid_shape, disps, ups, K, scale, mode, shift, out_shape, nb):
+    """The d_disp kernel's second duty (after d_grid's): NaN into every tap of
+    an output with a NaN displacement and an upstream gradient, each tap
+    resolved as the forward does (past a constant halo: dropped)."""
+    if ups[0] is None:
+        return
+    d = len(out_shape)
+    rmode = 'edge' if mode is None else mode
+    disp_shared = disps[0].ndim == d
+    for entry in range(nb):
+        dsp = [x if disp_shared else x[entry] for x in disps]
+        for c in itertools.product(*[range(n) for n in out_shape]):
+            if not any(np.isnan(np.float32(np.float32(scale[e]) * dsp[e][c])) for e in range(d)):
+                continue
+            for s in itertools.product(range(-K, K + 1), repeat=d):
+                r = [_resolve(c[e] + s[e] - shift, grid_shape[e], rmode) for e in range(d)]
+                if not any(o for _, o in r):
+                    d_grid[tuple(([] if grid_shared else [entry]) + [i for i, _ in r])] = np.nan
 
 
 H100 = dict(sms=132, smem_per_sm=233472)  # `grad_plan`'s budget on the H100 (`sm_budget` there)
@@ -330,6 +356,7 @@ def _wide_model(grid, disps, K, extrema, scale, mode, const, ups, gshape, out_sh
                         acc = f32(acc + coef[b])
             idx = cell if grid_shared else (entry,) + cell
             d_grid[idx] = acc if entry == 0 or not grid_shared else f32(d_grid[idx] + acc)
+    _nan_taps(d_grid, grid_shared, gshape, disps, ups, K, scale, mode, shift, out_shape, nb)
     return d_grid, d_disp
 
 
@@ -437,6 +464,7 @@ def _grad_kernel_model(grid, disps, K, extrema, scale, mode, const, ups, sms=H10
                     grid_writes[idx] += 1
     assert (grid_writes == (nb if grid_shared else 1)).all(), 'a grid cell written other than once an entry'
     assert (disp_writes == 1).all(), 'an output d_disp written other than once'
+    _nan_taps(d_grid, grid_shared, gshape, disps, ups, K, scale, mode, shift, out_shape, nb)
     return d_grid, d_disp
 
 
@@ -444,8 +472,9 @@ def _model_against_twin(d, K, mode, extrema, shape, rng, nb=None, shared=None, n
     """The model and the twin's VJP on one set of inputs (ties in the
     extrema chain, every kink of the displacements): `nb` entries with the
     grid or the displacements `shared`; `nan`: a tenth of the outputs with a
-    NaN displacement, held against the twin on those outputs' upstream
-    gradients zeroed and displacements 0 (no taps: no d_grid, d_disp 0)."""
+    NaN displacement on one axis and a twentieth on every axis, held against
+    the twin on the same inputs (JAX's rule: the same NaN pattern in d_grid
+    and d_disp, d_disp exactly 0 on the NaN axis of an output with one)."""
     gshape = tuple(n + 2 * K for n in shape) if mode is None else shape
     scale = (1.0, -1.0, 0.5)[:d]
     lead = () if nb is None else (nb,)
@@ -453,25 +482,28 @@ def _model_against_twin(d, K, mode, extrema, shape, rng, nb=None, shared=None, n
     disps = [np.stack(x) if lead and shared != 'disp' else x[0]
              for x in zip(*[_displacements(rng, shape, K, scale) for _ in range(nb if lead and shared != 'disp' else 1)])]
     ups = [rng.standard_normal((nb or 1,) + shape).astype(np.float32) for _ in range(3)]
-    ref_disps = disps
     if nan:
-        hole = rng.random((nb or 1,) + shape) < 0.1
-        disps = [np.where(hole.reshape(x.shape) if x.ndim > d else hole[0], np.float32(np.nan), x) for x in disps]
-        ref_disps = [np.where(np.isnan(x), np.float32(0), x) for x in disps]
-        ups = [np.where(hole, np.float32(0), u) for u in ups]
+        lead_d = lead if shared != 'disp' else ()
+        hole = rng.random(lead_d + shape) < 0.1
+        every = rng.random(lead_d + shape) < 0.05
+        disps = [np.where(every | (hole if e == d - 1 else False), np.float32(np.nan), x) for e, x in enumerate(disps)]
     const = 0.25
     t_ups = [torch.tensor(u if lead else u[0]) for u in (ups if extrema else ups[:1])]
     ref_grid, ref_disp = TI._window_interp_vjp_plain(
-        torch.tensor(grid), [torch.tensor(x) for x in ref_disps], K, extrema, tuple(TI._f32(s) for s in scale), mode,
+        torch.tensor(grid), [torch.tensor(x) for x in disps], K, extrema, tuple(TI._f32(s) for s in scale), mode,
         const, t_ups, True, True)
     got_grid, got_disp = _grad_kernel_model(grid, disps, K, extrema, scale, mode, np.float32(const),
                                             ups if extrema else [ups[0], None, None], sms)
     got_disp = [x.sum(0) if x.shape[0] > 1 and disps[0].ndim == d else (x if lead else x[0]) for x in got_disp]
     if nan:
-        assert all((x[hole.reshape(x.shape) if x.ndim > d else hole[0]] == 0).all() for x in got_disp if x.ndim > d or not lead)
+        only = hole & ~every  # the last axis NaN alone: its d_disp exactly 0
+        assert (got_disp[-1][only] == 0).all() and np.isnan(got_disp[0][only]).all()
+        assert np.isnan(got_grid).any()
     for got, ref in zip([got_grid, *got_disp], [ref_grid, *ref_disp]):
         ref = ref.numpy()
         assert got.shape == ref.shape
+        assert (np.isnan(got) == np.isnan(ref)).all(), 'NaN patterns differ'
+        got, ref = np.nan_to_num(got), np.nan_to_num(ref)
         assert np.abs(got - ref).max() <= TOL * max(np.abs(ref).max(), 1e-6), (np.abs(got - ref).max(), np.abs(ref).max())
 
 

@@ -62,23 +62,40 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def _batched_obstacle_projection():
-    """A batch of masked systems: the projection of a batched velocity around an obstacle."""
+    """A batch of masked systems: the projection of a batched velocity
+    around an obstacle shared by the batch; each entry equals its own
+    projection bit for bit."""
     from phiflow_tpu_torch import math
     from phiflow_tpu_torch.field import StaggeredGrid
     from phiflow_tpu_torch.geom import Sphere
     from phiflow_tpu_torch.physics import fluid
-    values = math.wrap(torch.zeros(2, 2, 16, 16), math.batch('b'), math.channel(vector='x,y'), math.spatial('x,y'))
+    gen = torch.Generator().manual_seed(4)
+    comps = [torch.rand(2, 15, 16, generator=gen) - 0.5, torch.rand(2, 16, 15, generator=gen) - 0.5]
     with math.default_device('cpu'):
-        v = StaggeredGrid(values, math.extrapolation.ZERO, x=16, y=16)
-        fluid.make_incompressible(v, [Sphere(x=8, y=8, radius=3)])
+        def project(arrays, lead):
+            values = math.stack([math.wrap(a, *lead, math.spatial(x=a.shape[-2], y=a.shape[-1])) for a in arrays],
+                                math.dual(vector='x,y'))
+            v = StaggeredGrid(values, math.extrapolation.ZERO, x=16, y=16)
+            return fluid.make_incompressible(v, [Sphere(x=8, y=8, radius=3)], math.Solve('CG', 1e-5, 1e-5))[1]
+        p = project(comps, (math.batch('b'),)).values.torch(('b', 'x', 'y'))
+        return all(torch.equal(p[e], project([c[e] for c in comps], ()).values.torch(('x', 'y'))) for e in range(2))
 
 
-@pytest.mark.parametrize('make', [_batched_obstacle_projection,
-                                  lambda: SmokePlume(resolution=16, dims=3, max_cells=None, device='cpu')],
+def _unbounded_smoke_step():
+    """`SmokePlume(max_cells=None)`: a step from rest through the gather
+    lookups (no window kernel), finite."""
+    model = SmokePlume(resolution=16, dims=3, max_cells=None, device='cpu')
+    from phiflow_tpu_torch import math
+    with math.default_device('cpu'):
+        velocity, smoke, _ = model.step(*model.initial_state())
+    values = smoke.values.torch(('x', 'y', 'z'))
+    return bool(torch.isfinite(values).all()) and float(values.max()) > 0
+
+
+@pytest.mark.parametrize('make', [_batched_obstacle_projection, _unbounded_smoke_step],
                          ids=['batched', 'adaptive-window'])
 def test_refused_configurations(make):
-    """What the port still refuses, naming the slice that brings it: a batch
-    of masked systems (batched smoke itself runs since the batched-smoke
-    slice) and the unbounded gather lookup."""
-    with pytest.raises(NotImplementedError, match='slice'):
-        make()
+    """The configurations the port refused until the batched-masked slice
+    brought them, which now run: a batch of masked systems (each entry its
+    own system) and the unbounded gather lookup."""
+    assert make()

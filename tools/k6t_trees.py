@@ -2,7 +2,7 @@
 trees (a parent unpacked with `git archive`, and this one) can be compared
 in one call, each run in turn from its own root:
 
-    cd <tree> && python3 <this repo>/tools/k6t_trees.py NAME [--checks] [--paths]
+    cd <tree> && python3 <this repo>/tools/k6t_trees.py NAME [--checks] [--paths] [--times]
 
 --checks: build interp.cu with ptxas's report of the backward kernels, then
   `chip_smoke.py`'s `check_interp_grad` (checks and timed rows) and
@@ -10,6 +10,9 @@ in one call, each run in turn from its own root:
 --paths: K6ᵀ / K7ᵀ checked and timed on the inputs grad-256 and grad-4096-2d
   give them (`time_grad_path_inputs`), and both paths' device profile
   (`profile_gradient`).
+--times: the window kernels forward and backward and K5 checked and timed at
+  the paths' shapes (`check_advect`, `check_interp`, `check_interp_grad`,
+  without --quick): the `time` lines of two trees side by side.
 
 The tree's own `chip_smoke.py` and `phiflow_tpu_torch` are used; a function
 that tree's script lacks is taken from this repository's `chip_smoke.py`.
@@ -73,7 +76,13 @@ def main(argv):
     if '--checks' in argv:
         checks(ch)
     else:
-        _build.build(['interp'], force=True)
+        _build.build(['interp', 'advect3d'], force=True)
+    if '--times' in argv:
+        gen = torch.Generator(device='cuda')
+        gen.manual_seed(0)
+        for check in (cs.check_advect, cs.check_interp, cs.check_interp_grad):
+            check(ch, gen, False)
+            torch.cuda.empty_cache()
     if '--paths' in argv:
         paths(ch)
     print('failed', ch.failed)
