@@ -39,7 +39,7 @@ Phases; any failure exits non-zero and prints no result:
      and without the extrema, and at the K of the one-slot-plane route (6 in
      3D, 24 in 2D) and past the slot window (the wide kernel: 8 in 3D, 33
      in 2D), on wrapped axes of at most 2K cells and with NaN displacements
-     (fault 3.12: JAX's rule, the twin's NaN pattern, as for K5, K6 and K7),
+     (JAX's rule there: the twin's NaN pattern, as for K5, K6 and K7),
      every form launched twice and bit-equal; empty outputs give
      zeros with no launch counted); the
      median CUDA-event time of the
@@ -1105,7 +1105,7 @@ def _advect_calls(N, K, vel_t, smoke, periodic):
 
 
 def _advect_nan_calls(N, K, vel_t, smoke, periodic, gen):
-    """Fault 3.12 in K5: NaN on a few faces of each velocity component, the advected arrays finite. A call 1
+    """K5 at NaN velocities: NaN on a few faces of each velocity component, the advected arrays finite. A call 1
     (the smoke's forward pass with its extrema), a call 2 (the backward pass, combine, clip, ball and lift, its
     slab the finite forward values, lo / up ±3.4e38 where call 1 met a NaN) and the three staggered outputs of an
     advected scalar (the cross averages of the displacements). Returns (scales, calls) as `_advect_calls`."""
@@ -1130,7 +1130,7 @@ def _advect_nan_calls(N, K, vel_t, smoke, periodic, gen):
 def check_advect(ch, gen, quick):
     """K5 against its twin: the three calls of a step and a call of four
     outputs, closed and periodic, K = 1, 2, 3; values within 2e-5, lo / up
-    exactly. At NaN velocities (fault 3.12; finite advected arrays) the same
+    exactly. At NaN velocities (finite advected arrays) the same
     NaN pattern as the twin's, lo / up ±3.4e38 there. The step's three calls
     timed at 256³, K = 1."""
     import torch
@@ -1222,7 +1222,7 @@ def _grid_sample_lookup(grid, disps, K, scale, padding_mode, pad=0):
 
 
 def _with_nan(disps, gen):
-    """The displacements with NaN, as JAX's window sum meets it (fault 3.12): a tenth of the outputs on the last
+    """The displacements with NaN, where JAX's window sum gives NaN: a tenth of the outputs on the last
     axis alone, a twentieth on every axis. Returns (displacements, the outputs NaN on the last axis alone)."""
     import torch
     shape, dev = disps[0].shape, disps[0].device
@@ -1284,7 +1284,7 @@ def check_interp(ch, gen, quick):
         ref = twin(grid, ints, K, True, False, (1.0,) * d, None)
         compare(d, f'{shape} K={K} padded, integer displacements 0 and ±K', got, ref, True)
         ch.compare(fns[d][1], f'{shape} integer displacements: lo == up == value', got[1], got[2], 0.0)
-    # --- NaN displacements (fault 3.12): the value NaN where any axis' displacement is, lo / up ±3.4e38 there;
+    # --- NaN displacements: the value NaN where any axis' displacement is, lo / up ±3.4e38 there, as JAX gives;
     #     against the twin, NaN patterns equal, every halo form, K = 1 and 2, both row routes of K6 ---
     for d, shape in ((3, SMALL), (3, K6_RAGGED), (2, (37, 45))):
         scale = (0.8, -1.1, 0.6)[:d]
@@ -2881,11 +2881,11 @@ def check_interp_grad(ch, gen, quick):
     axes of at most 2K cells, the wide kernel past the slot window (3D K = 8,
     2D K = 33: in 3D every halo form and a batch on a shared grid, in 2D
     the clamped sides), empty outputs
-    (zero gradients, no launch counted), NaN displacements (fault 3.12,
-    JAX's rule: against the twin on the same inputs, the same NaN pattern —
-    d_grid NaN at every tap of a NaN output, d_disp NaN on its finite axes and
-    exactly 0 on a lone NaN axis; none with lo / up's cotangents alone — in
-    every halo form, the one-slot-plane route and the wide kernel); each form
+    (zero gradients, no launch counted), NaN displacements (JAX's rule:
+    against the twin on the same inputs, the same NaN pattern — d_grid NaN
+    at every tap of a NaN output, d_disp NaN on its finite axes and exactly
+    0 on a lone NaN axis; none with lo / up's cotangents alone — in every
+    halo form, the one-slot-plane route and the wide kernel); each form
     launched twice, bit-equal; then (not with --quick) at the paths' shapes,
     timed, and the wide kernel timed at 48³ K = 8."""
     import torch
@@ -2962,7 +2962,7 @@ def check_interp_grad(ch, gen, quick):
             ch.failed.append(f'{GRAD_NAMES[d]} {case}')
             continue
         ch.compare(GRAD_NAMES[d], f'{case} d_grid {tuple(grid.shape)} (zeros)', got[0], torch.zeros_like(grid), 0.0)
-    # NaN displacements (fault 3.12), JAX's rule against the twin's VJP on the same inputs: with the output's
+    # NaN displacements, JAX's rule against the twin's VJP on the same inputs: with the output's
     # upstream gradient, d_grid NaN at each of a NaN output's (2K + 1)^D taps (edge: the edge cell; wrap: the
     # wrapped one; a constant halo drops them), d_disp NaN on its finite axes and exactly 0 on a lone NaN axis;
     # with lo / up's alone, no NaN anywhere and d_disp 0 there. Every halo form, K = 1 and 2, the one-slot-plane

@@ -215,11 +215,11 @@ def _corner_gather(grid, disps, K, const):
 
 
 def test_grid_nan_reaches_fewer_outputs_in_the_kernels():
-    """Fault 3.13, measured (ROADMAP §3): the grid, not a displacement, NaN
-    at (2, 3) of fault 3.12's inputs. JAX's window sum (and the twin) give
-    NaN at the 9 outputs whose window holds it; the kernels' corner gather
-    (`_corner_gather`) only at the 3 where it carries weight, and finite
-    values at the 6 others."""
+    """A NaN in the grid, not in a displacement: the 6 × 7 inputs of
+    `test_fault_inputs_match_jax` with the grid NaN at (2, 3). JAX's window
+    sum (and the twin) give NaN at the 9 outputs whose window holds it; the
+    kernels' corner gather (`_corner_gather`) only at the 3 where it carries
+    weight, and finite values at the 6 others."""
     rng = np.random.default_rng(0)
     grid = rng.standard_normal((6, 7)).astype(np.float32)
     disps = [(rng.random((6, 7)) - 0.5).astype(np.float32) for _ in range(2)]
@@ -231,7 +231,7 @@ def test_grid_nan_reaches_fewer_outputs_in_the_kernels():
     assert (np.isnan(twin) == np.isnan(ref[0])).all() and np.isnan(ref[0]).sum() == 9
     assert np.isnan(model).sum() == 3
     only_jax = np.isnan(ref[0]) & ~np.isnan(model)
-    print('fault 3.13: NaN in JAX, finite in the corner gather at', np.argwhere(only_jax).tolist(), model[only_jax])
+    print('NaN in JAX, finite in the corner gather at', np.argwhere(only_jax).tolist(), model[only_jax])
     assert only_jax.sum() == 6
     finite = ~np.isnan(ref[0])
     assert np.abs(model[finite] - ref[0][finite]).max() < 1e-5
