@@ -41,7 +41,11 @@ Phases; any failure exits non-zero and prints no result:
      in 2D), on wrapped axes of at most 2K cells and with NaN displacements
      (JAX's rule there: the twin's NaN pattern, as for K5, K6 and K7),
      every form launched twice and bit-equal; empty outputs give
-     zeros with no launch counted); the
+     zeros with no launch counted); K5, K6, K7, K6ᵀ, K7ᵀ and the wide kernel
+     on grids holding NaN, +inf and -inf (`check_grid_nonfinite`: the NaN
+     and ±inf patterns of the twins, which follow JAX's window sum, every
+     halo form, a padded grid's halo, a NaN constant halo, and a finite call
+     after the non-finite ones: the kernels' flag lowered again); the
      median CUDA-event time of the
      kernel, of the twin and, where one PyTorch call computes the same
      function, of that call (library_ms — the port never calls it), beside the
@@ -57,7 +61,7 @@ Phases; any failure exits non-zero and prints no result:
      `index_add_`) and its whole mean (beside one `index_reduce_` mean) onto
      the x faces and the cells at 128³ and 64³, on the particles of the
      path's first step in its order, and at 128³ shuffled;
-  4. seven paths on the card, each (but 4g) 2 warm-up steps, then 5 timed steps with
+  4. eight paths on the card, each (but 4g) 2 warm-up steps, then 5 timed steps with
      every launch counter set to 0 just before and read just after. The
      models' paths run their Field face — `initial_state()` and `step(...)`
      on Fields, as JAX's users call them — and then, from one Field state,
@@ -112,6 +116,22 @@ Phases; any failure exits non-zero and prints no result:
          exactly 1 + 1 per CG iteration, K2 exactly 12 and K3, K4 the same
          whole number of launches in each of the 1 + iterations V-cycles), the same gates with
          the divergence under 8e-4 (ten times its reading of 8.237e-05);
+     4h. terrain-flip-128: a 3D version of examples/terrain_flip.py at 128³,
+         1,310,720 particles of a liquid block over a heightmap terrain
+         (`run_terrain_flip`: P2G, finite_fill, the projection with the
+         terrain as an obstacle and the occupied cells active, the FLIP
+         update, finite_rk4, boundary_push out of the terrain): 20 steps for
+         the block to fall onto the terrain, 2 warm-up and 5 timed steps, ms
+         a step on the host clock and the device's busy time under
+         torch.profiler, K8 and K1m launched every step and no other kernel
+         (every stencil launch the masked form), CG iterations > 0, max |div|
+         over the occupied cells the terrain does not cut, ≥ 97% of the particles at or above the
+         terrain less one cell and > 1% within one cell above it, one step at
+         32³ from a state on the terrain (10 CPU steps), CPU against the card
+         within FLIP's 5e-4, CG > 0 on both; then each geometry at 10⁶ points against the CPU
+         (`check_geometry_on_card`) and an obstacle of each new shape in a
+         16³ projection, K1m launched, against the CPU
+         (`check_obstacles_on_card`);
      then the two 2D obstacle models at the JAX benchmark's size,
      MovingObstacles(256) and LidDrivenCavity(256, obstacle=True), their
      Field `step`: ms per step, CG iterations, K7 launched (their masked
@@ -144,12 +164,12 @@ Phases; any failure exits non-zero and prints no result:
      FVM, the cylinder wake (`CylinderWake`, its Field `step`: the unstructured
      mesh's operators, BiCGStab and the mesh Chebyshev preconditioner are
      PyTorch operations, no kernel of ours may launch): cylinder-wake, the
-     model's own configuration (400 × 128, 50,892 cells; 1 warm-up, 3 timed
-     steps), and cylinder-wake-1600x512 (nx=1600, ny=512, dt=0.0125: 814,160
-     cells; 1 warm-up, 1 timed step, then a third step printed and not gated:
-     its pressure solves stop at 500 iterations unconverged, and the third
-     returns the diverging BiCGStab's last iterate, as the JAX package's
-     algorithm does at 800 × 256 in its first step): the mesh's build time on
+     model's own configuration (400 × 128, 50,892 cells; 1 warm-up, 1 timed
+     step), and cylinder-wake-1600x512 (nx=1600, ny=512, dt=0.0125: 814,160
+     cells; 1 warm-up, 1 timed step: its pressure solves stop at 500
+     iterations unconverged, and a third step would return the diverging
+     BiCGStab's last iterate, as the JAX package's algorithm does at 800 ×
+     256 in its first step): the mesh's build time on
      the host, ms per step, Mcells/s, each step's BiCGStab iterations and
      convergence, the syncs of the last warm-up step (`'warn'`),
      `max_memory_allocated`, max |v|, drag and lift, the state on the model's
@@ -233,7 +253,7 @@ Phases; any failure exits non-zero and prints no result:
      9e batched-grad-64 and batched-grad-256-2d: `math.gradient` of a batched rollout (b = 2),
      K6ᵀ / K7ᵀ once for each forward K6 / K7 launch, each entry within 1e-4 of its own gradient;
      9f batched-obstacle-256x4: 4f's obstacle step (its three moving obstacles shared by the batch,
-     Chebyshev, cg_tol 1e-4) on four `smooth_state` velocities (seeds 0–3) at once, 2 warm-up and 3
+     Chebyshev, cg_tol 1e-4) on four `smooth_state` velocities (seeds 0–3) at once, 1 warm-up and 2
      timed steps: ms/step, Mcells/s over all entries, CG iterations by entry, launches a step,
      `max_memory_allocated` above what was allocated before, one step under torch.profiler (device
      ms, kernels, busy share); gates: each entry bit-equal to its own unbatched obstacle steps, K1m
@@ -382,6 +402,19 @@ class Checks:
             return
         self.compare(kernel, case, torch.nan_to_num(got, nan=0.0), torch.nan_to_num(ref, nan=0.0), tol)
 
+    def compare_nonfinite(self, kernel, case, got, ref, tol):
+        """`compare` for results that hold NaN and +-inf: the patterns of NaN,
+        +inf and -inf must be equal, the finite entries within tol."""
+        import torch
+        same = got.shape == ref.shape and all(bool((f(got) == f(ref)).all())
+                                              for f in (torch.isnan, torch.isposinf, torch.isneginf))
+        if not same:
+            print(f'check {kernel:17s} {case:58s} NaN / inf patterns differ FAIL')
+            self.failed.append(f'{kernel} {case} NaN / inf pattern')
+            return
+        fin = torch.isfinite(ref)
+        self.compare(kernel, case, torch.where(fin, got, 0.0), torch.where(fin, ref, 0.0), tol)
+
     def compare_dot(self, kernel, case, got, ref, rtol):
         err = abs(float(got) - float(ref))
         ok = err <= rtol * max(abs(float(ref)), 1.0)
@@ -391,15 +424,16 @@ class Checks:
             self.failed.append(f'{kernel} {case} dot')
         self.passed[kernel] += ok
 
-    def time(self, kernel, what, fn_kernel, fn_plain, n_bytes, n_ops, fn_library=None, key=None):
+    def time(self, kernel, what, fn_kernel, fn_plain, n_bytes, n_ops, fn_library=None, key=None, plain_reps=None):
         """Times are kept under `key` (default: the kernel's name, whose entry
         goes into the `kernels` line; any other key is printed only, or
         attached to its kernel's row by `attach`). Besides the eager `ms`, the
         wrapper's call (and the library's) is captured in a CUDA graph and
         replayed: `device_ms`, its time on the device without the host's
-        share (Python, ctypes, allocation), which at small sizes is most of `ms`."""
+        share (Python, ctypes, allocation), which at small sizes is most of `ms`. `plain_reps`: the plain
+        version timed that many times with no warm-up (a twin that takes seconds a call, called once before)."""
         ms = median_ms(fn_kernel)
-        plain_ms = median_ms(fn_plain)
+        plain_ms = median_ms(fn_plain) if plain_reps is None else median_ms(fn_plain, reps=plain_reps, warmup=0)
         library_ms = median_ms(fn_library) if fn_library is not None else None
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / F32_OPS_PER_S * 1e3
@@ -440,7 +474,9 @@ def replay_ms(fn, reps=20):
     """Device time of one call of `fn`: its launches captured in a CUDA graph
     and replayed back to back, so the host's share of an eager call (Python,
     allocation, launch overhead) is left out. The arrays stay in the L2 cache
-    between replays where they fit."""
+    between replays where they fit. The warm-up call runs on the capture
+    stream, where it also makes the window kernels' flag of that stream
+    (`_build.nonfinite_flag`) outside the graph."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -449,7 +485,7 @@ def replay_ms(fn, reps=20):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -1629,11 +1665,247 @@ PORT_KERNELS = ('stencil_kernel', 'smooth_kernel', 'residual_restrict_kernel', '
                 'window_interp_grid_grad_kernel', 'p2g_scatter_kernel', 'p2g_mean_kernel')
 
 
+TERRAIN_N = 128  # terrain-flip-128: a 3D version of examples/terrain_flip.py at FLIP's full width
+TWO_PI = 6.283185307179586
+
+
+def terrain_setup(N, device):
+    """terrain-flip's state at N³ unit cells in a closed box: the heightmap h = 24 + 16 sin(2πx/128) + 8
+    cos(2πy/128) at 128³ (scaled by N / 128; max_dist 4) and the liquid block Box['x,y,z', 16:80, 16:80, 56:96]
+    above its highest point, 8 particles a cell at rest (1,310,720 at 128³). Returns (domain, terrain,
+    particles)."""
+    from phiflow_tpu_torch import field, geom, math
+    s = N / 128
+    with math.default_device(device):
+        domain = geom.Box(x=N, y=N, z=N)
+        xs = math.linspace(0., N, math.spatial(x=N + 1))
+        ys = math.linspace(0., N, math.spatial(y=N + 1))
+        heights = 24 * s + 16 * s * math.sin(xs / N * TWO_PI) + 8 * s * math.cos(ys / N * TWO_PI)
+        terrain = geom.Heightmap(heights, domain, max_dist=4.)
+        block = geom.Box['x,y,z', 16 * s:80 * s, 16 * s:80 * s, 56 * s:96 * s]
+        particles = field.distribute_points(block, x=N, y=N, z=N) * (0, 0, 0)
+    return domain, terrain, particles
+
+
+def terrain_step(N, domain, terrain, particles, dt=0.1):
+    """One step of examples/terrain_flip.py in 3D through the port's Field functions: P2G (K8) with
+    outside_handling='clamp', finite_fill, the occupied cells, make_incompressible with the terrain as an
+    Obstacle and `active` the occupied cells (CG at 1e-4, the Chebyshev masked preconditioner: K1m with mA + c0
+    + active), the FLIP update, advect.points with finite_rk4, boundary_push out of the terrain and into the
+    domain. Returns (particles, the projected velocity, the occupied cells, the solve's iterations)."""
+    from phiflow_tpu_torch import field, math
+    from phiflow_tpu_torch.physics import advect, fluid
+    grid_v = prev_v = field.finite_fill(field.resample(particles, field.StaggeredGrid(0, 0, domain, x=N, y=N, z=N),
+                                                       scatter=True, outside_handling='clamp'))
+    occupied = field.resample(field.mask(particles), field.CenteredGrid(0, grid_v.boundary.spatial_gradient(), domain,
+                                                                        x=N, y=N, z=N), scatter=True)
+    with math.SolveTape() as tape:
+        grid_v, _ = fluid.make_incompressible(grid_v + (0, 0, -9.81 * dt), [fluid.Obstacle(terrain)], active=occupied,
+                                              solve=math.Solve('CG', 1e-4, suppress=(math.ConvergenceException,)))
+    particles = particles + field.resample(grid_v - prev_v, particles)
+    particles = advect.points(particles, grid_v, dt, advect.finite_rk4)
+    particles = fluid.boundary_push(particles, [terrain, ~domain])
+    return particles, grid_v, occupied, [int(info.iterations) for info in tape]
+
+
+def _terrain_gaps(particles, N):
+    """Each particle's height above the terrain (examples/terrain_flip.py's heightmap), in cells."""
+    import torch
+    p = particles.points.native(('points', 'vector')).float()
+    s = N / 128
+    h = 24 * s + 16 * s * torch.sin(p[:, 0] / N * TWO_PI) + 8 * s * torch.cos(p[:, 1] / N * TWO_PI)
+    return p[:, 2] - h
+
+
+def run_terrain_flip(tag, N=TERRAIN_N, settle=20, warmup=2, steps=5, cpu_n=32, cpu_settle=10):
+    """terrain-flip-128 (`terrain_step`): `settle` steps from rest (the block's lower face, 8 cells above the
+    terrain's top, reaches it after about 13 steps of dt = 0.1, so that the liquid lies on the terrain: the
+    projection works around it and the push moves particles out of it), then `warmup` + `steps` steps on the
+    card, the counters set to 0 just before the timed steps and read just after, then 2 steps under
+    torch.profiler. Prints ms/step on the host clock and the device's kernel time a step (the profiler's), K8 and
+    K1m launches a step (> 0; no other kernel launched: every stencil launch the masked form), the CG iterations
+    (> 0), the largest |div| over the occupied cells the terrain does not cut (< 1), the share of particles at or
+    above the terrain less one cell (≥ 97%, as the example asserts) and the share within one cell above it (> 1%: the liquid lies on the
+    terrain). Then `cpu_settle` steps at `cpu_n`³ on the CPU and one more step on the CPU and on the card from
+    that state: positions and velocities within FLIP's 5e-4 of their scale, CG counts > 0 and at most 1 apart."""
+    import torch
+    from phiflow_tpu_torch import field, math as tmath
+    from phiflow_tpu_torch.models import to_device
+    from phiflow_tpu_torch.ops import _build
+    domain, terrain, particles = terrain_setup(N, 'cuda')
+    n = int(particles.points.shape.get_size('points'))
+    for _ in range(settle + warmup):
+        particles, *_ = terrain_step(N, domain, terrain, particles)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    iters = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        particles, grid_v, occupied, its = terrain_step(N, domain, terrain, particles)
+        iters.append(its)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = dict(_build.LAUNCHES, steps=steps)
+    active = occupied.values.native(('x', 'y', 'z')) > 0
+    d = field.divergence(grid_v).values.native(('x', 'y', 'z'))
+    # cells the terrain cuts hold the divergence of the open face fractions' flux, not of the velocity: the
+    # gate reads the occupied cells whose centre lies more than 2.5 cells above the terrain (its slope is at most
+    # 0.8, so none of their faces is cut)
+    c = (torch.arange(N, device=d.device, dtype=torch.float32) + 0.5) * (N / d.shape[0])
+    h = 24 * N / 128 + 16 * N / 128 * torch.sin(c / N * TWO_PI)[:, None] + 8 * N / 128 * torch.cos(c / N * TWO_PI)[None]
+    clear = active & (c[None, None, :] - h[:, :, None] > 2.5)
+    div = float(torch.where(clear, d, torch.zeros_like(d)).abs().max())
+    div_all = float(torch.where(active, d, torch.zeros_like(d)).abs().max())
+    gaps = _terrain_gaps(particles, N)
+    above, contact = float((gaps >= -1.0).float().mean()), float((gaps < 1.0).float().mean())
+    finite = bool(torch.isfinite(particles.points.native(('points', 'vector'))).all())
+    del grid_v, occupied, d, active, clear, gaps
+    device_ms, wall_ms = profile_path(tag, f'{N}^3', lambda p: terrain_step(N, domain, terrain, p)[0], particles,
+                                      warmup=0, steps=2, rows_shown=6)
+    print(f'{tag} {N}^3, {n} particles: {ms:.2f} ms/step host clock over {steps} steps after {settle} settling and '
+          f'{warmup} warm-up, {device_ms:.2f} ms/step device busy (torch.profiler over 2 more steps, {wall_ms:.2f} '
+          f'ms/step wall under it); CG iterations per step {iters} (CG 1e-4, Chebyshev masked preconditioner)')
+    print(f'{tag} launches per step: ' + ', '.join(f'{k}={launches.get(k, 0) / steps:g}' for k in KERNELS))
+    print(f'{tag} max |div| over the occupied cells more than 2.5 cells above the terrain {div:.3e} (over all the '
+          f'occupied cells {div_all:.3e}: the terrain cuts some); {above * 100:.2f}% of the particles at or above the '
+          f'terrain less one cell, {contact * 100:.2f}% within one cell above it; finite: {finite}')
+    path = ('p2g', 'p2g_mean', 'poisson_stencil_masked')
+    # the masked stencil also counts under the stencil's and the coefficient form's names (K1m itself): every
+    # stencil launch must be the masked form with the terrain's coefficients
+    others = {k: v for k, v in launches.items()
+              if k not in path + ('poisson_stencil', 'poisson_stencil_coeffs', 'steps') and v}
+    if (any(launches.get(k, 0) == 0 for k in path) or others
+            or not launches['poisson_stencil'] == launches['poisson_stencil_masked']
+            == launches.get('poisson_stencil_coeffs', 0)):
+        raise RuntimeError(f'{tag}: K8 / K1m not launched, an unmasked K1 or other kernels launched: {launches}')
+    if not (finite and above >= 0.97 and contact > 0.01 and div < 1.0 and min(sum(i) for i in iters) > 0):
+        raise RuntimeError(f'{tag} output wrong: finite={finite} above={above} contact={contact} div={div} '
+                           f'CG {iters}')
+    del particles
+    # CPU against the card at cpu_n³: one step from a state in which the liquid lies on the terrain
+    with tmath.default_device('cpu'):
+        dom, ter, parts = terrain_setup(cpu_n, 'cpu')
+        for _ in range(cpu_settle):
+            parts, *_ = terrain_step(cpu_n, dom, ter, parts)
+    contact = float((_terrain_gaps(parts, cpu_n) < 1.0).float().mean())
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        with tmath.default_device(dev):
+            dom, ter, _ = terrain_setup(cpu_n, dev)
+            p, _, _, its = terrain_step(cpu_n, dom, ter, to_device(parts, dev))
+            out[dev] = (p.points.native(('points', 'vector')).cpu(), p.values.native(('points', 'vector')).cpu(), its)
+    errs = [float((out['cuda'][i] - out['cpu'][i]).abs().max() / out['cpu'][i].abs().max().clamp(min=1e-6))
+            for i in (0, 1)]
+    print(f'{tag} CPU against the card at {cpu_n}^3, one step after {cpu_settle} on the CPU ({contact * 100:.2f}% of '
+          f'the particles within one cell above the terrain): positions / velocities {errs[0]:.2e} / {errs[1]:.2e} '
+          f'of their scale (tolerance 5e-4), CG {out["cpu"][2]} / {out["cuda"][2]}')
+    if (max(errs) > 5e-4 or contact <= 0.01 or min(sum(out[k][2]) for k in out) == 0
+            or any(abs(a - b) > 1 for a, b in zip(out['cpu'][2], out['cuda'][2]))):
+        raise RuntimeError(f'{tag}: CPU and card differ, or the state is not on the terrain: {errs}, contact '
+                           f'{contact}, CG {out["cpu"][2]} / {out["cuda"][2]}')
+    return launches
+
+
+def check_geometry_on_card(n=1_000_000):
+    """Each geometry of the port's geometry layer at `n` random points on the card against the same points on
+    the CPU: lies_inside equal but within 1e-4 of the surface, the signed distance within 1e-4 of its scale,
+    push (along the finite-difference normal) within 1e-3 of the domain."""
+    import torch
+    from phiflow_tpu_torch import geom, math as tmath
+    shapes = {
+        'Box': lambda: geom.Box(x=(2, 5), y=(1, 6), z=(0, 4)),
+        'Cuboid': lambda: geom.Cuboid(tmath.vec(x=4., y=4., z=4.), half_size=tmath.vec(x=2., y=1., z=1.5),
+                                      rotation=tmath.vec(x=0.3, y=0.2, z=0.5)),
+        'Sphere': lambda: geom.Sphere(x=4, y=4, z=4, radius=2.5),
+        'Cylinder': lambda: geom.cylinder(x=4, y=4, z=4, radius=2., depth=3., axis='z').rotated(
+            tmath.vec(x=0.4, y=0.2, z=0.)),
+        'Heightmap': lambda: geom.Heightmap(2 + tmath.sin(tmath.linspace(0., 8., tmath.spatial(x=33)))
+                                            * tmath.cos(tmath.linspace(0., 8., tmath.spatial(y=33))),
+                                            geom.Box(x=8, y=8, z=8), max_dist=4.),
+        'SDF': lambda: geom.SDF(lambda p: tmath.vec_length(p - tmath.vec(x=4., y=4., z=4.)) - 2.,
+                                geom.Box(x=(2, 6), y=(2, 6), z=(2, 6))),
+        'SDFGrid': lambda: geom.sample_sdf(geom.Sphere(x=4, y=4, z=4, radius=2.5), geom.Box(x=8, y=8, z=8),
+                                           x=32, y=32, z=32),
+        'union': lambda: geom.union(geom.Box(x=(1, 3), y=(1, 7), z=(0, 3)), geom.Sphere(x=6, y=5, z=5, radius=1.5)),
+        'intersection': lambda: geom.intersection(geom.Box(x=(1, 7), y=(1, 7), z=(0, 5)),
+                                                  geom.Sphere(x=4, y=4, z=2, radius=3.)),
+        'infinite_cylinder': lambda: geom.infinite_cylinder(x=4, y=4, radius=2., inf_dim='z'),
+    }
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(3)
+    pts = torch.rand((n, 3), generator=gen, device='cuda') * 8
+    for name, make in shapes.items():
+        res = {}
+        for dev in ('cuda', 'cpu'):
+            with tmath.default_device(dev):
+                shape = make()
+                loc = tmath.tensor(pts.to(dev), tmath.instance('p'), tmath.channel(vector='x,y,z'))
+                res[dev] = [shape.lies_inside(loc).native('p'), shape.approximate_signed_distance(loc).native('p'),
+                            shape.push(loc, shift_amount=0.1).native(('p', 'vector'))]
+        (gi, gd, gp), (ci, cd, cp) = [[t.cpu() for t in res[k]] for k in ('cuda', 'cpu')]
+        near = cd.abs() < 1e-4
+        inside_ok = bool(((gi == ci) | near).all())
+        d_err = float((gd - cd).abs().max() / cd.abs().max())
+        p_err = float((gp - cp).abs().max() / 8)
+        ok = inside_ok and d_err < 1e-4 and p_err < 1e-3
+        print(f'check geometry         {name:17s} at {n} points: inside equal {inside_ok}, signed distance '
+              f'{d_err:.2e} of its scale, push {p_err:.2e} of the domain {"ok" if ok else "FAIL"}')
+        if not ok:
+            raise RuntimeError(f'geometry {name}: card and CPU differ')
+
+
+def check_obstacles_on_card(N=16):
+    """An obstacle of each geometry the layer gained (cylinder, heightmap, SDF, sampled SDF, union,
+    intersection) in the Field `make_incompressible` at N³ on the card: K1m (its mA / c0 masks from the shape's
+    signed distance) launched, the projected velocity within 1e-4 of its scale of the CPU's and the CG counts at
+    most 1 apart."""
+    import torch
+    from phiflow_tpu_torch import field, geom, math as tmath
+    from phiflow_tpu_torch.physics import fluid
+    from phiflow_tpu_torch.ops import _build
+    c = N / 2
+    shapes = {
+        'cylinder': lambda: geom.cylinder(x=c, y=c, z=c * 0.8, radius=N / 5, depth=N / 3, axis='z'),
+        'heightmap': lambda: geom.Heightmap(N / 5 + N / 12 * tmath.sin(tmath.linspace(0., 6., tmath.spatial(x=N + 1)))
+                                            * tmath.cos(tmath.linspace(0., 4., tmath.spatial(y=N + 1))),
+                                            geom.Box(x=N, y=N, z=N), max_dist=4.),
+        'sdf': lambda: geom.SDF(lambda p: tmath.vec_length(p - tmath.vec(x=c, y=c, z=c)) - N / 4,
+                                geom.Box(x=(c / 2, 1.5 * c), y=(c / 2, 1.5 * c), z=(c / 2, 1.5 * c))),
+        'sdf-grid': lambda: geom.sample_sdf(geom.Sphere(x=c, y=c, z=c, radius=N / 4), geom.Box(x=N, y=N, z=N),
+                                            x=N, y=N, z=N),
+        'union': lambda: geom.union(geom.Box(x=(N / 6, N / 3), y=(N / 6, 5 * N / 6), z=(0, N / 3)),
+                                    geom.Sphere(x=2 * N / 3, y=c, z=c, radius=N / 6)),
+        'intersection': lambda: geom.intersection(geom.Box(x=(N / 6, 5 * N / 6), y=(N / 6, 5 * N / 6), z=(0, c)),
+                                                  geom.Sphere(x=c, y=c, z=N / 4, radius=N / 3)),
+    }
+    flow = lambda p: tmath.stack({'x': tmath.sin(p.vector['y'] / 4) + 0.3, 'y': tmath.cos(p.vector['z'] / 5),
+                                  'z': tmath.sin(p.vector['x'] / 4) - 0.5}, tmath.channel(vector='x,y,z'))
+    for name, make in shapes.items():
+        out = {}
+        for dev in ('cpu', 'cuda'):
+            with tmath.default_device(dev):
+                v = field.StaggeredGrid(flow, 0, geom.Box(x=N, y=N, z=N), x=N, y=N, z=N)
+                _build.reset_launches()
+                with tmath.SolveTape() as tape:
+                    v, _ = fluid.make_incompressible(v, [fluid.Obstacle(make())],
+                                                     solve=tmath.Solve('CG', 1e-5, 1e-5, max_iterations=1000))
+                out[dev] = ([v.values.vector[d].native('x,y,z') for d in 'xyz'], int(tape[0].iterations),
+                            _build.LAUNCHES.get('poisson_stencil_masked', 0))
+        (cv, ci, _), (gv, gi, k1m) = out['cpu'], out['cuda']
+        err = max(float((g.cpu() - c_).abs().max() / c_.abs().max()) for g, c_ in zip(gv, cv))
+        ok = err < 1e-4 and abs(ci - gi) <= 1 and k1m > 0
+        print(f'check obstacle         {name:17s} {N}^3 projection: card vs CPU {err:.2e} of scale, CG {gi} / {ci}, '
+              f'K1m launched {k1m} times {"ok" if ok else "FAIL"}')
+        if not ok:
+            raise RuntimeError(f'obstacle {name}: card and CPU differ or K1m not launched')
+
+
 def profile_path(tag, size, advance, state, warmup=2, steps=3, rows_shown=12):
     """torch.profiler over `steps` steps of a path (`advance(state) -> state`):
     device time by kernel and the device's busy share of the wall time (the
     profiler's own host overhead included in that wall time), and the
-    host→device copies."""
+    host→device copies. Returns the device's kernel time and the wall time, in
+    ms a step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1664,6 +1936,7 @@ def profile_path(tag, size, advance, state, warmup=2, steps=3, rows_shown=12):
     for key, count, ms in ours:
         print(f'profile   the port\'s {key.split("(")[0][:70]}: {1e3 * ms / count:.2f} us a launch, '
               f'{count / steps:.1f} launches a step')
+    return device_ms / steps, wall_ms / steps
 
 
 def profile_flip(tag, N):
@@ -2581,11 +2854,10 @@ FVM_SIZES = {
     # 4× finer per axis, dt scaled with dx (the default's Courant number): 819,200 cells less the cylinder's
     'cylinder-wake-1600x512': dict(nx=1600, ny=512, dt=0.0125),
 }
-# (warm-up, timed, probe) Field steps. The refined wake's pressure solves stop at their 500 iterations
-# unconverged; its third step returns the diverging BiCGStab's last iterate (max |v| in the thousands, then NaN) —
-# the JAX package's algorithm, which diverges the same way at 800 × 256 in its first step. So it takes 1 warm-up
-# and 1 timed step, gated, and the third runs as a probe: printed, not gated.
-FVM_RUNS = {'cylinder-wake': (1, 3, 0), 'cylinder-wake-1600x512': (1, 1, 1)}
+# (warm-up, timed) Field steps. The refined wake's pressure solves stop at their 500 iterations unconverged; its
+# third step returns the diverging BiCGStab's last iterate (max |v| in the thousands, then NaN) — the JAX package's
+# algorithm, which diverges the same way at 800 × 256 in its first step. So it takes 1 warm-up and 1 timed step.
+FVM_RUNS = {'cylinder-wake': (1, 1), 'cylinder-wake-1600x512': (1, 1)}
 # the JAX suite's configuration (tests/physics/test_cylinder_wake.py) at a tolerance tight enough to compare
 FVM_SUITE = dict(nx=120, ny=36, re=120., dt=0.08, diameter=0.5, upwind=False, perturb=0.2, solve_tol=1e-5,
                  max_iterations=300)
@@ -2609,15 +2881,14 @@ def fvm_step(model, v, p):
     return v, p, [(info.iterations, info.converged) for info in tape]
 
 
-def run_fvm(tag, warmup, steps, probe):
+def run_fvm(tag, warmup, steps):
     """CylinderWake on the card through its Field `step`: the mesh's build on
     the host (the model's constructor, the tables' one copy to the card
     included), ms a step, Mcells/s, each step's momentum and pressure
     iterations and convergence, the syncs of the last warm-up step,
     `max_memory_allocated`, max |v| and drag and lift (`forces(p) / dt`); no
     kernel of ours launched, the state on the model's mesh (no table copied),
-    finite and max |v| < 3. Then `probe` more steps, printed only. Returns
-    the launch counts."""
+    finite and max |v| < 3. Returns the launch counts."""
     import torch
     from phiflow_tpu_torch.models import CylinderWake
     from phiflow_tpu_torch.ops import _build
@@ -2671,11 +2942,6 @@ def run_fvm(tag, warmup, steps, probe):
         bad.append("the state left the model's mesh")
     if bad:
         raise RuntimeError(f'{tag}: ' + '; '.join(bad))
-    for k in range(probe):
-        v, p, its = fvm_step(model, v, p)
-        vel = v.values.native(('cells', 'vector'))
-        print(f'{tag} probe step {warmup + steps + k + 1} (printed, not gated): {text([its])}; max |v| '
-              f'{float(vel.abs().max()):.4g}, finite: {bool(torch.isfinite(vel).all())}')
     return dict(steps=steps)
 
 
@@ -2782,14 +3048,14 @@ def fvm_cpu_vs_card():
 
 
 def run_fvm_models():
-    """The "FVM" phase: the default wake (1 warm-up, 3 timed steps), the
-    1600 × 512 one (1 + 1 and a probe step), then CPU against the card.
+    """The "FVM" phase: the default wake (1 warm-up, 1 timed step), the
+    1600 × 512 one (1 + 1), then CPU against the card.
     Returns the launch counts by path."""
     import torch
     t0 = time.perf_counter()
     by_path = {}
-    for tag, (warmup, steps, probe) in FVM_RUNS.items():
-        by_path[tag] = run_fvm(tag, warmup, steps, probe)
+    for tag, (warmup, steps) in FVM_RUNS.items():
+        by_path[tag] = run_fvm(tag, warmup, steps)
         torch.cuda.empty_cache()
     fvm_cpu_vs_card()
     print(f'FVM: {time.perf_counter() - t0:.1f} s')
@@ -2870,6 +3136,129 @@ def _grid_sample_backward(grid, disps, K, scale, padding_mode, g):
     F = torch.nn.functional
     return lambda: torch.autograd.grad(F.grid_sample(inp, coord_grid, mode='bilinear', padding_mode=padding_mode,
                                                      align_corners=True), (inp, coord_grid), up)
+
+
+def _poison(t, gen, bad, shell=0):
+    """`t` with about one cell in 400 (at least 3) NaN, +inf or -inf ('nan', 'inf', 'mixed': the three in turn);
+    with `shell` > 0 also one cell of its outer `shell` layers (a padded grid's halo, which no output's own
+    position reaches)."""
+    import torch
+    t = t.clone()
+    flat = t.view(-1)
+    n = max(3, flat.numel() // 400)
+    idx = torch.randint(0, flat.numel(), (n,), generator=gen, device=t.device)
+    vals = {'nan': [float('nan')], 'inf': [float('inf')], 'mixed': [float('nan'), float('inf'), float('-inf')]}[bad]
+    flat[idx] = torch.tensor(vals, device=t.device).repeat(-(-n // len(vals)))[:n]
+    if shell:
+        t[(0,) * t.ndim] = vals[-1]
+        t[tuple(n - 1 for n in t.shape[:-1]) + (t.shape[-1] // 2,)] = vals[0]
+    return t
+
+
+def check_grid_nonfinite(ch, gen):
+    """Fault 3.13: a NaN or an infinity in the grid of a window lookup. K6 / K7 (value; lo / up exactly), K6ᵀ /
+    K7ᵀ (the slot kernel in every halo form, the wide kernel at 3D K = 8 and 2D K = 33; both gradients, with and
+    without the
+    output's own cotangent, each launched twice: bit-equal) and K5 (its calls with a non-finite smoke or
+    velocity) against their twins, which follow JAX's window sum: the NaN and +-inf patterns equal, the finite
+    entries within the usual tolerances. Every halo form, K = 1 and 2, padded grids with a non-finite cell in
+    their halo, a constant halo that is NaN. After each non-finite call a finite one: the flag was lowered."""
+    import torch
+    from phiflow_tpu_torch.ops import interp as I
+    from phiflow_tpu_torch.ops.advect3d import fused_advect_3d, _fused_advect_plain
+    dev = 'cuda'
+    fns = {3: (I.window_interp_3d, 'window_interp_3d'), 2: (I.window_interp_2d, 'window_interp_2d')}
+
+    def lookup(d, grid, disps, K, extrema, scale, mode, const, plain):
+        if plain:
+            return I._window_interp_plain(grid, list(disps), K, extrema, tuple(I._f32(x) for x in scale), mode,
+                                          I._f32(const))
+        halo = {None: {}, 'const': dict(const_pad=const), 'edge': dict(halo='edge'), 'wrap': dict(halo='wrap')}[mode]
+        return fns[d][0](grid, disps, K, compute_extrema=extrema, disp_scale=scale, **halo)
+
+    for d, shape in ((3, SMALL), (2, (37, 45))):
+        scale = (0.8, -1.1, 0.6)[:d]
+        name = fns[d][1]
+        for K in (1, 2):
+            disps = (torch.rand((d,) + shape, generator=gen, device=dev) * 2 - 1) * ((K + 1) / 0.6)
+            for mode in (None, 'const', 'edge', 'wrap'):
+                gshape = tuple(n + 2 * K for n in shape) if mode is None else shape
+                clean = torch.randn(gshape, generator=gen, device=dev)
+                for bad in ('nan', 'mixed'):
+                    grid = _poison(clean, gen, bad, shell=K if mode is None else 0)
+                    for extrema in (False, True):
+                        case = f'{shape} K={K} {mode or "padded"}{" extrema" if extrema else ""}, grid {bad}'
+                        got = lookup(d, grid, disps, K, extrema, scale, mode, 0.25, False)
+                        ref = lookup(d, grid, disps, K, extrema, scale, mode, 0.25, True)
+                        got, ref = (got, ref) if extrema else ((got,), (ref,))
+                        ch.compare_nonfinite(name, case + ' value', got[0], ref[0], 1e-5)
+                        for what, g, r in zip(('lo', 'up'), got[1:], ref[1:]):
+                            ch.compare_nonfinite(name, f'{case} {what} (exact)', g, r, 0.0)
+                got = lookup(d, clean, disps, K, True, scale, mode, 0.25, False)
+                ref = lookup(d, clean, disps, K, True, scale, mode, 0.25, True)
+                ch.compare(name, f'{shape} K={K} {mode or "padded"}, a finite grid after them value', got[0], ref[0],
+                           1e-5)
+            raw = torch.randn(shape, generator=gen, device=dev)
+            got = lookup(d, raw, disps, K, False, scale, 'const', float('nan'), False)
+            ref = lookup(d, raw, disps, K, False, scale, 'const', float('nan'), True)
+            ch.compare_nonfinite(name, f'{shape} K={K} a NaN constant halo value', got, ref, 1e-5)
+    # K6ᵀ / K7ᵀ: the slot kernel in every halo form, the wide kernel (3D K = 8, 2D K = 33; their twins' (2K + 1)^D
+    # taps cost seconds a call)
+    for d, shape, K, mode in ((3, SMALL, 1, 'edge'), (3, SMALL, 1, 'const'), (3, SMALL, 1, None),
+                              (3, (4, 3, 37), 2, 'wrap'), (2, (37, 45), 1, 'const'), (2, (37, 45), 1, 'edge'),
+                              (2, (37, 45), 2, 'wrap'), (2, (37, 45), 2, None), (3, (6, 10, 24), 8, 'edge'),
+                              (2, (24, 40), 33, 'const')):
+        scale = (0.8, -1.1, 0.6)[:d]
+        clean = torch.randn(tuple(n + 2 * K for n in shape) if mode is None else shape, generator=gen, device=dev)
+        disps = list((torch.rand((d,) + shape, generator=gen, device=dev) * 2 - 1) * ((K + 1) / 0.6))
+        for bad in ('mixed',):
+            grid = _poison(clean, gen, bad, shell=K if mode is None else 0)
+            for cotangents in ('out + lo + up', 'lo + up only'):
+                ups = [torch.randn(shape, generator=gen, device=dev) for _ in range(3)]
+                if cotangents == 'lo + up only':
+                    ups[0] = None
+                case = f'{shape} K={K} {mode or "padded"} extrema, grid {bad}, {cotangents}'
+                got = _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, False)
+                ref = _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, True)
+                again = _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, False)
+                for what, g, r, a in ([('d_grid', got[0], ref[0], again[0])] +
+                                      [(f'd_disp[{i}]', x, y, z) for i, (x, y, z) in
+                                       enumerate(zip(got[1], ref[1], again[1]))]):
+                    fin = torch.isfinite(r)
+                    tol = GRAD_TOL * max(float(torch.where(fin, r, 0.0).abs().max()), 1e-30)
+                    ch.compare_nonfinite(GRAD_NAMES[d], f'{case} {what}', g, r, tol)
+                    ch.compare_nonfinite(GRAD_NAMES[d], f'{case} {what} repeat launch (bit-equal)', g, a, 0.0)
+        got = _grad_call(d, clean, disps, K, True, scale, mode, 0.25, ups, False)
+        _grad_compare(ch, d, f'{shape} K={K} {mode or "padded"} extrema, a finite grid after them', got,
+                      _grad_call(d, clean, disps, K, True, scale, mode, 0.25, ups, True))
+    # K5: a non-finite smoke in calls 1 and 2 and the staggered outputs of a scalar, a non-finite velocity in call 3
+    for K in (1, 2):
+        for periodic in (False, True):
+            vel_t, smoke = _advect_inputs(SMALL, gen, dev, K, periodic)
+            for bad in ('mixed',):
+                s_bad = _poison(smoke, gen, bad)
+                v_bad = [_poison(v, gen, bad) for v in vel_t]
+                scales, calls = _advect_calls(SMALL, K, vel_t, s_bad, periodic)
+                _, nan_calls = _advect_nan_calls(SMALL, K, vel_t, s_bad, periodic, gen)
+                _, v_calls = _advect_calls(SMALL, K, v_bad, smoke, periodic)
+                runs = [calls[0], calls[1], nan_calls[2], v_calls[2]]
+                for what, srcs, outs, extras in runs:
+                    got = fused_advect_3d(srcs, SMALL, K, outs, scales, extras)
+                    ref = _fused_advect_plain(srcs, SMALL, K, outs, scales, extras)
+                    for i, (g, r) in enumerate(zip(got, ref)):
+                        g = g if isinstance(g, tuple) else (g,)
+                        r = r if isinstance(r, tuple) else (r,)
+                        for j, (gg, rr) in enumerate(zip(g, r)):
+                            exact = outs[i].extrema and j in (1, 2)
+                            ch.compare_nonfinite('fused_advect', f'{what} out{i}.{j}{" (exact)" if exact else ""} K={K}'
+                                                 f'{" periodic" if periodic else ""}, {bad} grid', gg, rr,
+                                                 0.0 if exact else 2e-5)
+            scales, calls = _advect_calls(SMALL, K, vel_t, smoke, periodic)
+            what, srcs, outs, extras = calls[0]
+            got, ref = fused_advect_3d(srcs, SMALL, K, outs, scales, extras), _fused_advect_plain(
+                srcs, SMALL, K, outs, scales, extras)
+            ch.compare('fused_advect', f'{what} K={K}{" periodic" if periodic else ""}, finite after them',
+                       got[0][0], ref[0][0], 2e-5)
 
 
 def check_interp_grad(ch, gen, quick):
@@ -3029,9 +3418,9 @@ def check_interp_grad(ch, gen, quick):
         ch.attach(name, [name + ' +extrema'])
         del grid, disps, g
         torch.cuda.empty_cache()
-    # the wide kernel (3D K = 8) on a velocity component with a constant halo: its d_grid reads the (2K + 1)^D
-    # outputs within K of a cell; the bound counts the function's work, as the K = 1 rows do
-    for d, shape, K in ((3, (48, 48, 48), 8),):
+    # the wide kernel (3D K = 8, 2D K = 33) on a velocity component with a constant halo: its d_grid reads the
+    # (2K + 1)^D outputs within K of a cell; the bound counts the function's work, as the K = 1 rows do
+    for d, shape, K in ((3, (48, 48, 48), 8), (2, (128, 128), 33)):
         name, scale = GRAD_NAMES[d], (-1.0,) * d
         grid = torch.rand(shape, generator=gen, device=dev)
         disps = [(torch.rand(shape, generator=gen, device=dev) * 2 - 1) * (K + 1) for _ in range(d)]  # clips at ±K
@@ -3043,7 +3432,7 @@ def check_interp_grad(ch, gen, quick):
         ch.time(name, case, lambda: _grad_call(d, grid, disps, K, False, scale, 'const', 0.0, ups, False),
                 lambda: _grad_call(d, grid, disps, K, False, scale, 'const', 0.0, ups, True),
                 nbytes(grid, *disps, *ups) + nbytes(grid, *disps), (2 ** d * (d * d + d + 1) + 32 * d) * grid.numel(),
-                lib, key=name + ' wide')
+                lib, key=name + ' wide', plain_reps=1)
         ch.attach(name, [name + ' wide'])
         del grid, disps, ups, lib
         torch.cuda.empty_cache()
@@ -3562,7 +3951,7 @@ def run_gradients(ch):
                                                 cg_tol=GRAD_CG_TOL_4096, ch=ch)
     torch.cuda.empty_cache()
     part.done('6 grad-256 and grad-4096-2d')
-    gradient_cpu_vs_card(3, 64)
+    gradient_cpu_vs_card(3, 64, steps=1)
     gradient_cpu_vs_card(2, 256)
     gradient_kernel_vs_twin(3, 32, max_cells=8)
     part.done('6 CPU against card')
@@ -5262,7 +5651,7 @@ def run_batched(ch, gen):
     torch.cuda.empty_cache()
     part.done('9e')
     tag = f'batched-obstacle-{BATCH_OBSTACLE_N}x{BATCH_OBSTACLE_B}'
-    by_path[tag] = run_batched_obstacles(tag, BATCH_OBSTACLE_N, BATCH_OBSTACLE_B)
+    by_path[tag] = run_batched_obstacles(tag, BATCH_OBSTACLE_N, BATCH_OBSTACLE_B, warmup=1, steps=2)
     torch.cuda.empty_cache()
     part.done(f'9f {tag}')
     n, b = BATCH_OBSTACLE_VCYCLE
@@ -5943,18 +6332,20 @@ def main(argv):
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
     t0 = time.perf_counter()
-    check_poisson(ch, gen, quick)
-    check_poisson_masked(ch, gen, quick)
-    check_p2g(ch, gen, quick)
-    check_transfer(ch, gen, quick)
-    check_advect(ch, gen, quick)
-    check_interp(ch, gen, quick)
-    check_interp_grad(ch, gen, quick)
+    part = PhaseClock('part of phase 3')
+    for check in (check_poisson, check_poisson_masked, check_p2g, check_transfer, check_advect, check_interp,
+                  check_interp_grad):
+        check(ch, gen, quick)
+        part.done(check.__name__)
+    check_grid_nonfinite(ch, gen)
+    part.done('check_grid_nonfinite')
     check_batched_kernels(ch, gen, quick)
+    part.done('check_batched_kernels')
     if not quick:
         time_vcycle_levels(ch, gen)
         time_p2g(ch, gen)
         check_p2g_grad(ch)
+        part.done('time_vcycle_levels, time_p2g, check_p2g_grad')
     torch.cuda.synchronize()
     print(f'checks: {time.perf_counter() - t0:.1f} s, {sum(ch.passed.values())} passed, {len(ch.failed)} failed')
     if ch.failed:
@@ -5978,6 +6369,11 @@ def main(argv):
         by_path[f'flip-{N}'] = run_flip(f'flip-{N}', N)
         torch.cuda.empty_cache()
     part.done('4d-4e FLIP')
+    by_path[f'terrain-flip-{TERRAIN_N}'] = run_terrain_flip(f'terrain-flip-{TERRAIN_N}')
+    check_geometry_on_card()
+    check_obstacles_on_card()
+    torch.cuda.empty_cache()
+    part.done(f'4h terrain-flip-{TERRAIN_N} and the geometry on the card')
     by_path[f'obstacle-{OBSTACLE_N}'] = run_obstacles(f'obstacle-{OBSTACLE_N}', OBSTACLE_N)
     torch.cuda.empty_cache()
     by_path[f'obstacle-{OBSTACLE_N}-vcycle'] = run_obstacles(f'obstacle-{OBSTACLE_N}-vcycle', OBSTACLE_N, warmup=1,

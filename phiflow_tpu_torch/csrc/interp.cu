@@ -119,6 +119,8 @@
 // walk the entries in order, each cell's owner adding entry after entry. Each
 // entry writes its own d_disp, which the wrapper sums over the batch for a
 // shared displacement.
+#include <algorithm>
+
 #include "window.cuh"
 
 struct InterpArgs {
@@ -132,9 +134,55 @@ struct InterpArgs {
     int nb;                        // entries of the batch (1: one grid)
     long long grid_stride;         // elements from one entry's grid to the next (0: shared)
     long long disp_stride;         // elements from one entry's displacements to the next (0: shared)
+    int *flag;  // two ints on the device, both 0 between calls: [0] raised by a non-finite grid cell, [1] the fix
+                // kernel's count of finished blocks
 };
 
 #define WI_THREADS 256
+
+// The non-finite test of a call's grid (fault 3.13: the window sum reads every tap, so a NaN or an infinity at a
+// tap of weight 0 still reaches the output, where the corner gather would not read it). Every cell is tested
+// once by the first kernel of a call: the cells at a thread's own output positions where its corner gathers bring
+// them into the caches, and (test_shell) a padded grid's halo shell, which no output's position reaches, spread
+// over all the launch's threads. A hit raises flag[0]; the call's second kernel then recomputes the outputs whose
+// window holds such a cell, and lowers the flag.
+template <int D>
+__device__ __forceinline__ void test_shell(const Src &g, const int (&o)[3], int K, long long entries,
+                                           long long stride, int *flag) {
+    if (g.shift[0] == 0) return;  // a raw grid: every cell is some output's own
+    long long cnt[3] = {0, 0, 0}, per = 0;
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+        long long c = 2 * K;
+#pragma unroll
+        for (int e = 0; e < D; ++e)
+            if (e != a) c *= e < a ? o[e] : g.n[e];
+        cnt[a] = c, per += c;
+    }
+    const long long T = (long long)gridDim.x * gridDim.y * gridDim.z * blockDim.x;
+    const long long t0 = ((long long)(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * blockDim.x +
+                         threadIdx.x;
+    unsigned bad = 0;  // exponent_bits' maximum
+    for (long long r = t0; r < per * entries; r += T) {
+        const long long en = r / per;
+        long long j = r - en * per;
+        int a = 0;  // the slab: axes before a in the core, axis a in the halo, axes after it whole
+        if (j >= cnt[0]) j -= cnt[0], a = 1;
+        if (a == 1 && D == 3 && j >= cnt[1]) j -= cnt[1], a = 2;
+        long long off = 0, mul = 1;
+#pragma unroll
+        for (int e = D - 1; e >= 0; --e) {
+            const int ext = e < a ? o[e] : (e == a ? 2 * K : g.n[e]);
+            const int v = (int)(j % ext);
+            j /= ext;
+            const int idx = e < a ? v + K : (e == a ? (v < K ? v : o[e] + v) : v);
+            off += idx * mul;
+            mul *= g.n[e];
+        }
+        bad = max(bad, exponent_bits(__ldg(g.p + en * stride + off)));
+    }
+    if (bad == 0x7f800000u) *flag = 1;
+}
 #define WI_TX 128  // a warp's row of outputs along the last axis: four a lane
 #define WI_TY 8    // a block's rows (the axis before the last): one a warp
 
@@ -153,6 +201,7 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_kernel(const InterpA
     o[D - 2] = r0 + (threadIdx.x >> 5);
     o[D - 1] = c0 + 4 * lane;
     const int n_out = a.o[D - 1];
+    test_shell<D>(a.grid, a.o, K, a.grid_stride ? a.nb : 1, a.grid_stride, a.flag);
     if (o[D - 2] >= a.o[D - 2] || o[D - 1] >= n_out) return;
     Src g = a.grid;
     g.p += entry * a.grid_stride;
@@ -176,6 +225,16 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_kernel(const InterpA
     stride[D - 1] = 1;
 #pragma unroll
     for (int e = D - 2; e >= 0; --e) stride[e] = stride[e + 1] * g.n[e + 1];
+    {  // the grid cells at the four outputs' own positions (test_shell's comment)
+        Idx own = 0;
+#pragma unroll
+        for (int e = 0; e < D; ++e) own += (Idx)(o[e] - g.shift[e]) * stride[e];
+        unsigned bad = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+            if (o[D - 1] + k < n_out) bad = max(bad, exponent_bits(__ldg(g.p + own + k)));
+        if (bad == 0x7f800000u) *a.flag = 1;
+    }
     float d[D][4];
 #pragma unroll
     for (int e = 0; e < D; ++e) {
@@ -248,11 +307,12 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_kernel(const InterpA
             }
             val[k] += w * v[corner];
             if (EXTREMA && h) {
-                lo[k] = fminf(lo[k], v[corner]);
-                up[k] = fmaxf(up[k], v[corner]);
+                lo[k] = min_nan(lo[k], v[corner]);
+                up[k] = max_nan(up[k], v[corner]);
             }
         }
     }
+
     if (VEC) {
         *reinterpret_cast<float4 *>(out + q) = make_float4(val[0], val[1], val[2], val[3]);
         if (EXTREMA) {
@@ -270,6 +330,102 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_kernel(const InterpA
             }
         }
     }
+}
+
+// Output n of a call (batch entries one after the other, each in row-major order): its entry and position.
+template <int D>
+__device__ __forceinline__ long long output_at(long long n, const int (&shape)[3], int (&o)[D]) {
+    long long per = 1;
+#pragma unroll
+    for (int e = 0; e < D; ++e) per *= shape[e];
+    const long long entry = n / per;
+    long long rest = n - entry * per;
+#pragma unroll
+    for (int e = D - 1; e >= 0; --e) {
+        o[e] = (int)(rest % shape[e]);
+        rest /= shape[e];
+    }
+    return entry;
+}
+
+// The grid at logical position l, resolved as the window sum's pad resolves it.
+template <int D>
+__device__ __forceinline__ float tap_value(const Src &g, const int (&l)[D]) {
+    long long off = 0;
+    bool outside = false;
+#pragma unroll
+    for (int e = 0; e < D; ++e) off = off * g.n[e] + resolve(l[e] - g.shift[e], g.n[e], g.mode, outside);
+    return outside ? g.c : __ldg(g.p + off);
+}
+
+#define FIX_THREADS 256
+
+// K6 / K7's second kernel, launched after every forward: it returns at once unless the grid held a NaN or an
+// infinity (test_shell's comment). Then every output recomputes its value as the window sum does, every tap of
+// [-K, K]^D (axis 0 fastest) added as total + tap value * the product of the axes' tent weights (unfused, in that
+// order): NaN where the window holds a NaN or an infinity at a tap of weight 0, +-inf or NaN as the weighted
+// infinities sum. Every output, not only those whose window holds such a cell: at d = +K the corner gather also
+// multiplies the cell past the window (s = K + 1) by its weight 0, which is NaN there where that cell is not
+// finite. lo / up are the first kernel's: only corners with weight take part in them. A fixed grid of blocks
+// strides over the outputs.
+template <int D>
+__global__ void __launch_bounds__(FIX_THREADS) window_interp_fix_kernel(const InterpArgs a) {
+    if (!fix_raised(a.flag, a.grid.mode == SRC_CONST && nonfinite(a.grid.c))) return;
+    const int K = a.K, W = 2 * K + 1;
+    int taps = 1;
+#pragma unroll
+    for (int e = 0; e < D; ++e) taps *= W;
+    long long total = a.nb;
+#pragma unroll
+    for (int e = 0; e < D; ++e) total *= a.o[e];
+    const long long per = total / a.nb;
+    for (long long n = (long long)blockIdx.x * FIX_THREADS + threadIdx.x; n < total;
+         n += (long long)gridDim.x * FIX_THREADS) {
+        int o[D];
+        const long long entry = output_at<D>(n, a.o, o);
+        const long long q = n - entry * per;
+        Src g = a.grid;
+        g.p += entry * a.grid_stride;
+        float d[D];
+#pragma unroll
+        for (int e = 0; e < D; ++e) d[e] = clip_cells(a.scale[e], __ldg(a.disp[e] + entry * a.disp_stride + q), K);
+        float acc = 0.f;
+#pragma unroll 1
+        for (int t = 0; t < taps; ++t) {
+            int l[D], rest = t;
+            float w = 1.f;
+#pragma unroll
+            for (int e = 0; e < D; ++e) {
+                const int s = rest % W - K;
+                rest /= W;
+                l[e] = o[e] + s;
+                const float we = fmaxf(0.f, 1.f - fabsf(d[e] - (float)s));
+                w = e == 0 ? (d[e] != d[e] ? d[e] : we) : __fmul_rn(w, d[e] != d[e] ? d[e] : we);
+            }
+            acc = __fadd_rn(acc, __fmul_rn(tap_value<D>(g, l), w));
+        }
+        a.out[n] = acc;
+    }
+    fix_done(a.flag);
+}
+
+// A fix kernel's launch: a block an SM at most, so that the launch that finds nothing to do (every finite call)
+// costs the least, a call that needs it striding over its outputs; a programmatic dependent of the kernel before
+// it in the stream (fix_raised).
+template <typename Args>
+static void launch_fix(void (*kernel)(const Args), const Args &a, long long work, cudaStream_t s) {
+    static int sms = 0;
+    if (!sms && cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0) != cudaSuccess) sms = 132;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)std::max(1LL, std::min((long long)sms, (work + FIX_THREADS - 1) / FIX_THREADS)));
+    cfg.blockDim = dim3(FIX_THREADS);
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
 template <int D, bool EXTREMA, bool VEC>
@@ -291,10 +447,12 @@ static int launch_d(const InterpArgs &a, int vec, cudaStream_t s) {
         n_out *= a.o[e];
     }
     const bool small = n_grid < (1LL << 31) && n_out < (1LL << 31);
+    if (!a.flag) return (int)cudaErrorInvalidValue;
     if (a.extrema && vec) launch<D, true, true>(a, small, grid, s);
     else if (a.extrema) launch<D, true, false>(a, small, grid, s);
     else if (vec) launch<D, false, true>(a, small, grid, s);
     else launch<D, false, false>(a, small, grid, s);
+    launch_fix(window_interp_fix_kernel<D>, a, n_out * a.nb, s);
     return (int)cudaGetLastError();
 }
 
@@ -313,6 +471,7 @@ struct InterpGradArgs {
     int chunk;  // owned planes a block along axis 0 (ops/interp.py::grad_plan's pick)
     int ring;   // set by the C entry: slot planes held in shared memory, 2K + 2 or 1 (each recomputed for every
                 // plane it serves)
+    int *flag;  // as InterpArgs::flag, for d_disp's fix kernel
 };
 
 // A plane of slots, a thread a slot: in 3D a tile of 32 columns (16 for K > 5) with its K-wide halo, by as many
@@ -404,6 +563,20 @@ __device__ __forceinline__ void nan_taps(const Src &g, float *d_grid, const int 
     }
 }
 
+// d_disp's test of the grid cells at its outputs' own positions o + 32 k (k < 4) along the last axis.
+template <int D, typename Idx>
+__device__ __forceinline__ void own_cells(const Src &g, const int (&o)[D], const Idx (&stride)[D], int n_out,
+                                          int *flag) {
+    Idx own = 0;
+#pragma unroll
+    for (int e = 0; e < D; ++e) own += (Idx)(o[e] - g.shift[e]) * stride[e];
+    unsigned bad = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+        if (o[D - 1] + 32 * k < n_out) bad = max(bad, exponent_bits(__ldg(g.p + own + 32 * k)));
+    if (bad == 0x7f800000u) *flag = 1;
+}
+
 // K6T / K7T, d_disp: a gather per output with the forward's tiling (a warp a row of WI_TX outputs, four a lane:
 // lane, lane + 32, lane + 64, lane + 96, each loaded and stored on its own, so that one output's values are live
 // at a time), no shared memory and no barrier. Each output's corners and, per axis, its extra tap at the other
@@ -424,6 +597,7 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_disp_grad_kernel(con
     o[D - 2] = r0 + (threadIdx.x >> 5);
     o[D - 1] = c0 + lane;
     const int n_out = a.o[D - 1];
+    if (a.d_disp[0]) test_shell<D>(a.grid, a.o, K, a.grid_stride ? a.nb : 1, a.grid_stride, a.flag);
     if (o[D - 2] >= a.o[D - 2] || o[D - 1] >= n_out) return;
     Src g = a.grid;
     g.p += entry * a.grid_stride;
@@ -436,6 +610,7 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_disp_grad_kernel(con
     stride[D - 1] = 1;
 #pragma unroll
     for (int e = D - 2; e >= 0; --e) stride[e] = stride[e + 1] * g.n[e + 1];
+    if (D == 2 && a.d_disp[0]) own_cells(g, o, stride, n_out, a.flag);
     unsigned nan_outputs = 0;  // bit k: output k has a NaN displacement (its taps marked in d_grid after the loop)
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -553,6 +728,10 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_disp_grad_kernel(con
                                                                                          : 0.f);
         }
     }
+
+    // the grid cells at the outputs' own positions (test_shell's comment): in 3D after the loop, where they cost it
+    // no registers (before it, the loop spills), in 2D before it (above), where its corner gathers find them cached
+    if (D == 3 && a.d_disp[0]) own_cells(g, o, stride, n_out, a.flag);
     if (nan_outputs && a.d_grid && a.g_out) {  // rare: outside the loop above, so that it costs that loop no registers
 #pragma unroll 1
         for (int k = 0; k < 4; ++k) {
@@ -563,6 +742,75 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_disp_grad_kernel(con
             nan_taps<D, Idx>(g, a.d_grid + entry * a.grid_stride, oc, K);
         }
     }
+}
+
+// d(max(a, b))/da as JAX's AD multiplies it in: 1 above, 1/2 at a tie, 0 below or at a NaN
+__device__ __forceinline__ float slope_max(float a, float b) { return a > b ? 1.f : (a == b ? 0.5f : 0.f); }
+
+// K6T / K7T's d_disp fix kernel, launched after the d_disp kernel: it returns at once unless the grid held a NaN or
+// an infinity (test_shell's comment). Then every output takes the derivative JAX's AD gives the window sum, every
+// tap of [-K, K]^D with the products that AD forms: per tap and axis a, g v times the other axes' tent weights
+// times the tent's slope (1, 1/2 at its kink, 0 past it: multiplied, so 0 * inf and 0 * NaN are NaN), signed by
+// d - s; the sum times the clip's derivative (multiplied too) and the scale. So an output whose window holds such
+// a value has d_disp NaN or +-inf on every axis; the others get the gradient the first kernel gives, up to
+// rounding. Without the outputs' upstream gradient (lo / up only) d_disp is 0. Every output, as the forward's fix
+// kernel does: the first kernel's result is not used where the grid is not finite.
+template <int D>
+__global__ void __launch_bounds__(FIX_THREADS) window_interp_disp_fix_kernel(const InterpGradArgs a) {
+    if (!fix_raised(a.flag, a.grid.mode == SRC_CONST && nonfinite(a.grid.c))) return;
+    const int K = a.K, W = 2 * K + 1;
+    const float kf = (float)K;
+    int taps = 1;
+#pragma unroll
+    for (int e = 0; e < D; ++e) taps *= W;
+    long long total = a.nb;
+#pragma unroll
+    for (int e = 0; e < D; ++e) total *= a.o[e];
+    const long long per = total / a.nb;
+    for (long long n = (long long)blockIdx.x * FIX_THREADS + threadIdx.x; n < total;
+         n += (long long)gridDim.x * FIX_THREADS) {
+        int o[D];
+        const long long entry = output_at<D>(n, a.o, o);
+        const long long q = n - entry * per;
+        Src g = a.grid;
+        g.p += entry * a.grid_stride;
+        float x[D], d[D], dclip[D], acc[D];
+#pragma unroll
+        for (int e = 0; e < D; ++e) {
+            x[e] = a.scale[e] * __ldg(a.disp[e] + entry * a.disp_stride + q);
+            const float m = max_nan(x[e], -kf);
+            d[e] = min_nan(m, kf);
+            dclip[e] = slope_max(kf, m) * slope_max(x[e], -kf);
+            acc[e] = 0.f;
+        }
+        const float go = a.g_out ? __ldg(a.g_out + n) : 0.f;
+#pragma unroll 1
+        for (int t = 0; t < taps; ++t) {
+            int l[D], rest = t;
+            float w[D], slope[D];
+#pragma unroll
+            for (int e = 0; e < D; ++e) {
+                const int s = rest % W - K;
+                rest /= W;
+                l[e] = o[e] + s;
+                const float u = 1.f - fabsf(d[e] - (float)s);
+                w[e] = max_nan(0.f, u);
+                slope[e] = (u > 0.f ? 1.f : (u == 0.f ? 0.5f : 0.f)) * (d[e] - (float)s >= 0.f ? -1.f : 1.f);
+            }
+            const float gv = __fmul_rn(go, tap_value<D>(g, l));
+#pragma unroll
+            for (int e = 0; e < D; ++e) {
+                float term = gv;
+#pragma unroll
+                for (int f = D - 1; f >= 0; --f)
+                    if (f != e) term = __fmul_rn(term, w[f]);
+                acc[e] = __fadd_rn(acc[e], __fmul_rn(term, slope[e]));
+            }
+        }
+#pragma unroll
+        for (int e = 0; e < D; ++e) a.d_disp[e][n] = a.g_out ? __fmul_rn(__fmul_rn(acc[e], dclip[e]), a.scale[e]) : 0.f;
+    }
+    fix_done(a.flag);
 }
 
 // An output's coefficients on its 2^D corners (bit e of a corner: axis e): g W plus, with the extrema, the corner's
@@ -610,10 +858,12 @@ __device__ __forceinline__ void corner_coefs(const Src &g, const AxisWindow (&w)
 #pragma unroll
     for (int b = 0; b < NC; ++b) {
         pre_lo[b] = m_lo, pre_up[b] = m_up;
-        m_lo = W[b] != 0.f ? fminf(m_lo, v[b]) : m_lo;
-        m_up = W[b] != 0.f ? fmaxf(m_up, v[b]) : m_up;
+        m_lo = W[b] != 0.f ? min_nan(m_lo, v[b]) : m_lo;
+        m_up = W[b] != 0.f ? max_nan(m_up, v[b]) : m_up;
     }
-    float G_lo = glo, G_up = gup;
+    // a NaN corner with weight makes lo and up NaN, and then JAX's min / max pass no gradient at all (their tie
+    // test fails against NaN at every step of the chain): neither share reaches any corner
+    float G_lo = m_lo != m_lo ? 0.f : glo, G_up = m_up != m_up ? 0.f : gup;
 #pragma unroll
     for (int b = NC - 1; b >= 0; --b) {
         const bool hit = W[b] != 0.f;
@@ -1049,9 +1299,12 @@ static int launch_grad(const InterpGradArgs &a, int extrema, cudaStream_t s) {
     }
     // after d_grid's: d_disp, and the NaN of outputs with a NaN displacement stored into their taps in d_grid
     if (!a.d_disp[0] && !(a.d_grid && a.g_out)) return 0;
+    if (a.d_disp[0] && !a.flag) return (int)cudaErrorInvalidValue;
     const dim3 g((a.o[D - 1] + WI_TX - 1) / WI_TX, (a.o[D - 2] + WI_TY - 1) / WI_TY, (unsigned)planes);
     if (small) window_interp_disp_grad_kernel<D, int><<<g, WI_THREADS, 0, s>>>(a);
     else window_interp_disp_grad_kernel<D, long long><<<g, WI_THREADS, 0, s>>>(a);
+    // then, for d_disp, the outputs whose window holds a NaN or an infinity of the grid (the fix kernel's comment)
+    if (a.d_disp[0]) launch_fix(window_interp_disp_fix_kernel<D>, a, n_out * a.nb, s);
     return (int)cudaGetLastError();
 }
 

@@ -67,6 +67,48 @@ __device__ __forceinline__ int window_taps(float d, float (&wt)[2], bool (&hit)[
     return (int)f;
 }
 
+// min / max that keep a NaN of either operand, as jnp.minimum / jnp.maximum
+// (and the twins' torch.minimum / torch.maximum) do; fminf / fmaxf drop it.
+// One PTX instruction each on sm_80 and later.
+__device__ __forceinline__ float min_nan(float a, float b) {
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+}
+
+// NaN or +-inf: every exponent bit set
+__device__ __forceinline__ bool nonfinite(float v) { return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u; }
+
+// The exponent bits of v, to be max-reduced over many values without a branch: the maximum is 0x7f800000 exactly
+// where one of them is NaN or +-inf (`nonfinite`).
+__device__ __forceinline__ unsigned exponent_bits(float v) { return __float_as_uint(v) & 0x7f800000u; }
+
+// The fix protocol of fault 3.13 (a NaN or an infinity in the grid of a window lookup; interp.cu's test_shell,
+// advect3d.cu's fused_advect_kernel). The window sum reads every tap, the corner gather only the corners with
+// weight, so a call's first kernel tests every cell of its grid once and raises flag[0] at a non-finite one; a fix
+// kernel, launched after it as a programmatic dependent (so that its launch overlaps that kernel's run), returns
+// at once unless the flag is raised (or `always`: a constant halo that is not finite), else recomputes the call's
+// outputs from the whole window and lowers the flag. `griddepcontrol.wait` holds it until the kernel before it
+// has finished and its writes are visible.
+__device__ __forceinline__ bool fix_raised(const int *flag, bool always) {
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    return __syncthreads_or(threadIdx.x == 0 && (always || *(volatile const int *)flag));
+}
+
+// The last block of a fix kernel to finish lowers the flag for the next call (every block read it at its start).
+__device__ __forceinline__ void fix_done(int *flag) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        __threadfence();
+        if (atomicAdd(flag + 1, 1) == (int)(gridDim.x - 1)) flag[0] = 0, flag[1] = 0;
+    }
+}
+
 // clip(x, lo, up) as the twins' torch.minimum(torch.maximum(x, lo), up) (and
 // jnp.clip) take it: NaN if any of the three is NaN.
 __device__ __forceinline__ float clip_nan(float x, float lo, float up) {

@@ -218,7 +218,7 @@ class Field:
     def boundary_names(self) -> Tuple[str, ...]:
         if self.is_mesh:
             return self._geometry.boundary_names
-        return tuple(self.resolution.names)
+        return tuple(self.resolution.names) if self.is_grid else ()
 
     @property
     def dtype(self):
@@ -370,9 +370,6 @@ class Field:
             return self
         boundary = domain_slice(self._boundary, item, self.boundary_names)
         item_without_vec = {dim: sel for dim, sel in item.items() if dim != 'vector'}
-        if item_without_vec and not self.is_grid:
-            raise NotImplementedError("slicing a point cloud or a mesh Field along its dims comes with a later slice "
-                                      "of the port")
         geometry = self._geometry[item_without_vec] if item_without_vec else self._geometry
         if self.is_staggered and 'vector' in item:
             sel = item['vector']

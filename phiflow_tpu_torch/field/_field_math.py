@@ -377,13 +377,16 @@ def _array_layout(field, dims=None):
 def _grid_values(values, names, fn):
     """`fn` (an array (*batch, *grid) with the grid dims in `names`' order
     last → an array of the same rank) on `values`, once per entry of a
-    channel dim if it has one: a Tensor of the batch dims and the grid dims
-    with the sizes `fn` returns. The batch dims are leading axes of one call."""
+    channel dim if it has one: a Tensor of the other dims and the grid dims
+    with the sizes `fn` returns. The other dims (batch, instance or dual, as
+    the JAX package maps its operators over them) are leading axes of one
+    call."""
     others = values.shape.without(names)
-    batch, rest = others.batch, others.without(others.batch)
-    if not set(names) <= set(values.shape.names) or rest.rank > 1 or (rest and not rest.channel):
-        raise NotImplementedError(f"values {values.shape}: the grid dims {names}, batch dims and one channel dim "
-                                  f"at most are ported")
+    rest = others.channel
+    batch = others.without(rest)
+    if not set(names) <= set(values.shape.names) or rest.rank > 1:
+        raise NotImplementedError(f"values {values.shape}: the grid dims {names} and one channel dim at most are "
+                                  f"ported")
     grid = values.shape.only(names, reorder=True)
 
     def one(v):
@@ -439,13 +442,11 @@ def laplace(field, axes=None, gradient=None, order=2, implicit=None, weights=Non
     central stencil (−1, 16, −30, 16, −1) / (12 dx²) over ghost cells; other
     orders and boundaries: `higher_order_laplace` (the compact scheme at
     order 6). Its boundary is the gradient's (`spatial_gradient()` of the
-    field's). A mesh Field goes to `mesh_laplace`."""
+    field's). A mesh Field goes to `mesh_laplace`; a grid, as in the JAX
+    package, takes `gradient` and `upwind` and ignores them."""
     if field.is_mesh:
         from ._mesh_math import mesh_laplace
         return mesh_laplace(field, gradient=gradient, order=order, upwind=upwind, correct_skew=correct_skew)
-    if gradient is not None or upwind is not None:
-        raise NotImplementedError("laplace with a gradient Field or an upwind scheme comes with a later slice of "
-                                  "the port")
     assert field.is_grid and field.is_centered, f"laplace requires a centered grid, got {field}"
     names = field.resolution.names
     dims = [n for n in (axes or names) if n in names]
@@ -480,7 +481,8 @@ def spatial_gradient(field, boundary=None, at: str = 'center', dims=None, stack_
     boundaries through `higher_order_gradient` (the compact scheme at order
     6). A mesh Field's gradient is Green-Gauss, or least squares with
     ``scheme='least-squares'``; of a vector Field one per component, stacked
-    along `gradient` where `stack_dim` is its own channel dim."""
+    along `gradient` where `stack_dim` is its own channel dim. A grid takes
+    `upwind` and ignores it, as the JAX package does."""
     if field.is_mesh:
         from ._mesh_math import green_gauss_gradient, least_squares_gradient
         grad_fn = least_squares_gradient if scheme in ('least-squares', 'least_squares') else green_gauss_gradient
@@ -492,8 +494,6 @@ def spatial_gradient(field, boundary=None, at: str = 'center', dims=None, stack_
             comps = [grad_fn(field[{ch.name: l}], stack_dim=stack_dim, boundary=boundary) for l in labels]
             return Field(field.geometry, stack([c.values for c in comps], ch), comps[0].boundary)
         return grad_fn(field, stack_dim=stack_dim, boundary=boundary)
-    if upwind is not None:
-        raise NotImplementedError("spatial_gradient with an upwind scheme comes with a later slice of the port")
     assert field.is_grid and field.is_centered, f"spatial_gradient requires a centred grid, got {field}"
     grad_ext = as_boundary(boundary, field.geometry) if boundary is not None else field.boundary.spatial_gradient()
     names = field.resolution.names
@@ -563,12 +563,11 @@ def divergence(field, order=2, implicit=None, upwind=None):
     component's faces (`divergence_native`, order 2), of a centred vector
     grid the sum of each component's derivative along its own axis
     (`spatial_gradient` at the centres, orders 2, 4 and 6); of a mesh Field
-    the flux sum of `mesh_divergence`."""
+    the flux sum of `mesh_divergence`. A grid takes `upwind` and ignores it,
+    as the JAX package does."""
     if field.is_mesh:
         from ._mesh_math import mesh_divergence
         return mesh_divergence(field, order=order, upwind=upwind)
-    if upwind is not None:
-        raise NotImplementedError("divergence with an upwind scheme comes with a later slice of the port")
     names = field.resolution.names
     if field.is_staggered:
         if order != 2 or implicit is not None:
@@ -993,8 +992,9 @@ def concat_fields(fields, dim):
 
 def stack_fields(fields, dim, dim_bounds=None):
     """Fields stacked along a new non-spatial dim: one geometry when all share
-    it, the stacked points of point clouds."""
-    from ..geom import Point
+    it, one of their type where it stacks (`__field_stack__`: points,
+    cylinders), else a `GeometryStack` of them (JAX's rule)."""
+    from ..geom import GeometryStack
     from ..math import stack as math_stack
     fields = list(fields)
     f0 = fields[0]
@@ -1004,8 +1004,8 @@ def stack_fields(fields, dim, dim_bounds=None):
     geoms = [f.geometry for f in fields]
     if all(g == geoms[0] for g in geoms):
         geometry = geoms[0]
-    elif all(isinstance(g, Point) for g in geoms):
-        geometry = Point(math_stack([g.center for g in geoms], dim))
+    elif all(type(g) == type(geoms[0]) for g in geoms) and hasattr(geoms[0], '__field_stack__'):
+        geometry = geoms[0].__field_stack__(geoms, dim)
     else:
-        raise NotImplementedError("stacking Fields of different geometries (GeometryStack) comes with a later slice")
+        geometry = GeometryStack(tuple(geoms), dim)
     return Field(geometry, values, f0.boundary)

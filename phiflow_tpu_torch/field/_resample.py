@@ -356,6 +356,8 @@ def sample(value, geometry, at: str = 'center', boundary=None, dot_face_normal=N
     if not isinstance(geometry, UniformGrid):
         if isinstance(value, Field) and value.is_grid and isinstance(geometry.center, Tensor):
             return _sample_grid_at_points_field(value, geometry.center)
+        if isinstance(value, Field) and value.is_point_cloud and at != 'face':
+            return _sample_points_at_points(value, geometry)
         raise NotImplementedError(f"sampling a {type(value).__name__} at a {type(geometry).__name__} comes with a "
                                   f"later slice of the port")
     boundary = as_boundary(boundary, geometry) if boundary is not None else None
@@ -382,6 +384,20 @@ def sample(value, geometry, at: str = 'center', boundary=None, dot_face_normal=N
     if isinstance(value, Field) and value.is_grid:
         return _sample_grid_field(value, geometry, at, boundary, dot_face_normal, **kwargs)
     raise NotImplementedError(f"sampling a {type(value).__name__} comes with a later slice of the port")
+
+
+def _sample_points_at_points(value: Field, target) -> Tensor:
+    """A point cloud's values at the points of another geometry (JAX:
+    `_sample_points_at_points`): as they are where both hold as many points
+    (the instance dim renamed to the target's), else the value of the nearest
+    source point."""
+    from ..math import find_closest, gather, rename_dims
+    src_pts, tgt_pts = value.geometry.center, target.center
+    src_inst = src_pts.shape.instance
+    if src_inst and tgt_pts.shape.instance and src_inst.volume == tgt_pts.shape.instance.volume:
+        return rename_dims(value.values, src_inst, tgt_pts.shape.instance) \
+            if src_inst.names != tgt_pts.shape.instance.names else value.values
+    return gather(value.values, find_closest(src_pts, tgt_pts), dims=src_inst)
 
 
 def _sample_at_mesh(value, mesh: Mesh) -> Tensor:

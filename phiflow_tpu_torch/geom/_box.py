@@ -5,6 +5,10 @@ and grid bounds use it: `BaseBox.push` (`:121-135`) on raw position tensors as
 `Cuboid` (centre, half size and an optional rotation; JAX's signature, `:283`)
 with their inside tests and signed distances, `sample_uniform` (`:137`) and
 `push` of a Tensor of points (`:121-135`), which unwraps into `box_push`.
+`BaseBox` holds what both share with the JAX package's: the volume, local
+coordinates, the closest surface, bounds and the corner / centre forms;
+`Box['x,y', 0:1, 0:1]` builds a box from slices; `bounding_box` and
+`box_from_limits` are the module functions.
 """
 from __future__ import annotations
 
@@ -13,11 +17,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..math import default_float
+from ..math import Tensor, channel, default_float
 from ._geom import Geometry, box_signed_distance, host_vec, flat_points, vector_tensor
 from ._transform import rotate_vector
 
-__all__ = ['box_push', 'Box', 'Cuboid']
+__all__ = ['box_push', 'Box', 'Cuboid', 'BaseBox', 'bounding_box', 'box_from_limits']
 
 
 def box_push(positions: torch.Tensor, lower: Sequence[float], upper: Sequence[float], outward: bool = True,
@@ -46,7 +50,7 @@ def box_push(positions: torch.Tensor, lower: Sequence[float], upper: Sequence[fl
 
 def _uniform_in_box(lower, size, names, shape):
     """Points uniform in the box [lower, lower + size), from the port's random generator."""
-    from ..math import channel, random_uniform
+    from ..math._ops import channel, random_uniform
     return lower + random_uniform(*shape, channel(vector=names)) * size
 
 
@@ -61,7 +65,77 @@ class _BoxPush:
         return like(box_push(flat, lower, upper, outward=outward, shift_amount=shift_amount))
 
 
-class Box(_BoxPush, Geometry):
+class BaseBox(_BoxPush, Geometry):
+    """What `Box` and `Cuboid` share (JAX: `BaseBox`)."""
+
+    @property
+    def volume(self) -> Tensor:
+        from ..math._ops import prod
+        return prod(self.half_size * 2, 'vector')
+
+    @property
+    def size(self):
+        return self.half_size * 2
+
+    def global_to_local(self, global_position: Tensor, scale=True, origin='lower') -> Tensor:
+        """World coordinates relative to the box's `origin` ('lower', 'center'
+        or 'upper'), in units of its size with `scale`."""
+        pos = global_position - {'lower': self.lower, 'center': self.center}.get(origin, self.upper)
+        return pos / self.size if scale else pos
+
+    def local_to_global(self, local_position: Tensor, scale=True, origin='lower') -> Tensor:
+        if scale:
+            local_position = local_position * self.size
+        return local_position + {'lower': self.lower, 'center': self.center}.get(origin, self.upper)
+
+    def approximate_closest_surface(self, location):
+        """(signed distance, delta to the surface, the outward normal of the
+        face whose distance is largest, None, None) at a Tensor of points."""
+        from ..math._ops import max_, sign, stack, to_float, vec_normalize
+        q = location - self.center
+        aq = abs(q) - self.half_size
+        sgn_dist = self.approximate_signed_distance(location)
+        max_aq = max_(aq, 'vector')
+        normal = {n: to_float(aq.vector[n] >= max_aq - 1e-6) * sign(q.vector[n]) for n in q.shape.get_labels('vector')}
+        normal = vec_normalize(stack(normal, channel('vector')), epsilon=1e-12)
+        return sgn_dist, -sgn_dist * normal, normal, None, None
+
+    def bounding_radius(self) -> Tensor:
+        from ..math._ops import vec_length
+        return vec_length(self.half_size)
+
+    def bounding_half_extent(self) -> Tensor:
+        return self.half_size
+
+    def bounding_box(self) -> 'Box':
+        return Box(self.lower, self.upper)
+
+    def corner_representation(self) -> 'Box':
+        return Box(self.lower, self.upper)
+
+    def center_representation(self) -> 'Cuboid':
+        return Cuboid(self.center, self.half_size)
+
+    def contains(self, other: 'BaseBox') -> Tensor:
+        from ..math._ops import all_
+        return all_((other.lower >= self.lower) & (other.upper <= self.upper), 'vector')
+
+
+class _BoxType(type):
+    """`Box['x,y', 0:1, 0:1]`: a box from axis names and one slice an axis (None: unbounded)."""
+
+    def __getitem__(cls, item):
+        if not isinstance(item, tuple):
+            item = (item,)
+        if not isinstance(item[0], str):
+            raise ValueError("Box[...] takes the axis names first, e.g. Box['x,y', 0:1, 0:1]")
+        names = tuple(n.strip() for n in item[0].split(','))
+        if len(item) - 1 != len(names) or not all(isinstance(x, slice) for x in item[1:]):
+            raise ValueError(f"Box[...] takes one slice an axis of {names}, got {item[1:]}")
+        return cls(**{n: (x.start, x.stop) for n, x in zip(names, item[1:])})
+
+
+class Box(BaseBox, metaclass=_BoxType):
     """An axis-aligned box from its lower and upper corner: two sequences or
     Tensors, or one keyword per axis — a size (lower corner 0) or a
     (lower, upper) pair."""
@@ -117,14 +191,14 @@ class Box(_BoxPush, Geometry):
         """Points drawn uniformly inside the box (`math.random_uniform`), of the dims `shape` and `vector`."""
         return _uniform_in_box(self.lower, self.size, self.names, shape)
 
-    def lies_inside(self, location) -> torch.Tensor:
+    def _lies_inside(self, location) -> torch.Tensor:
         result = None
         for x, lo, up in zip(location, self._lower, self._upper):
             inside = (x >= float(lo)) & (x <= float(up))
             result = inside if result is None else result & inside
         return result
 
-    def approximate_signed_distance(self, location) -> torch.Tensor:
+    def _signed_distance(self, location) -> torch.Tensor:
         return box_signed_distance([torch.abs(x - float(c)) - float(h)
                                     for x, c, h in zip(location, self._center, self._half_size)])
 
@@ -137,7 +211,32 @@ class Box(_BoxPush, Geometry):
         return Box._of(self._lower + delta, self._upper + delta, self.names)
 
     def rotated(self, angle) -> 'Cuboid':
-        return Cuboid(self._center, self._half_size, rotation=angle)
+        cub = Cuboid(self._center, self._half_size, rotation=angle)
+        cub.names = self.names
+        return cub
+
+    def scaled(self, factor) -> 'Box':
+        center, half = self._center, self._half_size * np.asarray(factor, self._lower.dtype)
+        return Box._of(center - half, center + half, self.names)
+
+    def __getitem__(self, item):
+        """The box over some axes: `box['x']`, `box['x,y']` or `box.vector[...]`-style item dicts."""
+        from ..math._magic import slicing_dict
+        item = slicing_dict(self, item)
+        sel = item.get('vector', slice(None))
+        names = self.names or tuple(range(self.spatial_rank))
+        if isinstance(sel, str):
+            sel = [n.strip() for n in sel.split(',')]
+        idx = list(range(len(names)))[sel] if isinstance(sel, slice) else \
+            [names.index(n) if isinstance(n, str) else n for n in (sel if isinstance(sel, (list, tuple)) else [sel])]
+        return Box._of(self._lower[idx], self._upper[idx], tuple(names[i] for i in idx) if self.names else None)
+
+    def __mul__(self, other):
+        """The product of boxes over different axes: Box(x=1) * Box(y=2)."""
+        if not isinstance(other, Box):
+            return NotImplemented
+        return Box._of(np.concatenate([self._lower, other._lower]), np.concatenate([self._upper, other._upper]),
+                       (self.names or ()) + (other.names or ()))
 
     def __eq__(self, other):
         return isinstance(other, Box) and np.array_equal(self._lower, other._lower) \
@@ -153,7 +252,7 @@ class Box(_BoxPush, Geometry):
         return f"Box({self._lower.tolist()}, {self._upper.tolist()})"
 
 
-class Cuboid(_BoxPush, Geometry):
+class Cuboid(BaseBox):
     """A box from its centre and half size, optionally rotated about its
     centre: one angle in 2D, Euler angles (or one angle about z) in 3D. The
     half size is `half_size`, half of `size`, or one keyword per axis
@@ -199,15 +298,43 @@ class Cuboid(_BoxPush, Geometry):
         delta = [x - float(c) for x, c in zip(location, self._center)]
         return rotate_vector(delta, self.rotation, invert=True)
 
-    def lies_inside(self, location) -> torch.Tensor:
+    @property
+    def rotation_matrix(self):
+        from ._transform import rotation_matrix
+        return None if self.rotation is None else rotation_matrix(self.rotation, self.names or ('x', 'y', 'z')[
+            :self.spatial_rank])
+
+    def _lies_inside(self, location) -> torch.Tensor:
         result = None
         for q, h in zip(self._to_local(location), self._half_size):
             inside = torch.abs(q) <= float(h)
             result = inside if result is None else result & inside
         return result
 
-    def approximate_signed_distance(self, location) -> torch.Tensor:
+    def _signed_distance(self, location) -> torch.Tensor:
         return box_signed_distance([torch.abs(q) - float(h) for q, h in zip(self._to_local(location), self._half_size)])
+
+    def bounding_half_extent(self) -> Tensor:
+        """The half size of the axis-aligned box around the rotated cuboid."""
+        if self.rotation is None:
+            return self.half_size
+        from ._transform import rotation_matrix_native
+        m = np.abs(rotation_matrix_native(self.rotation, self.spatial_rank))
+        return vector_tensor((m @ self._half_size).astype(self._half_size.dtype), self.names)
+
+    def scaled(self, factor) -> 'Cuboid':
+        cub = Cuboid(self._center, self._half_size * np.asarray(factor, self._half_size.dtype), self.rotation)
+        cub.names = self.names
+        return cub
+
+    def __eq__(self, other):
+        return isinstance(other, Cuboid) and np.array_equal(self._center, other._center) \
+            and np.array_equal(self._half_size, other._half_size) \
+            and (self.rotation is None) == (other.rotation is None) \
+            and (self.rotation is None or np.array_equal(self.rotation, other.rotation))
+
+    def __hash__(self):
+        return hash('Cuboid')
 
     def at(self, center) -> 'Cuboid':
         cub = Cuboid(host_vec(center, self.spatial_rank)[0], self._half_size, self.rotation)
@@ -223,3 +350,18 @@ class Cuboid(_BoxPush, Geometry):
     def __repr__(self):
         rot = '' if self.rotation is None else f", rotation={self.rotation.tolist()}"
         return f"Cuboid(center={self._center.tolist()}, half_size={self._half_size.tolist()}{rot})"
+
+
+def bounding_box(geometry_or_tensor) -> Box:
+    """The smallest axis-aligned box around a geometry, or around the points
+    of a Tensor (its non-batch dims but `vector` reduced)."""
+    if isinstance(geometry_or_tensor, Tensor):
+        from ..math._ops import max_, min_
+        t = geometry_or_tensor
+        reduce = t.shape.non_batch.without('vector')
+        return Box(min_(t, reduce), max_(t, reduce))
+    return geometry_or_tensor.bounding_box()
+
+
+def box_from_limits(lower, upper) -> Box:
+    return Box(lower, upper)

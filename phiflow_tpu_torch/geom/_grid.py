@@ -23,12 +23,12 @@ import torch
 
 from .. import resolve_device
 from ..math import (
-    EMPTY_SHAPE, channel, default_float, get_default_device, meshgrid, spatial, to_float, wrap,
+    EMPTY_SHAPE, Tensor, channel, default_float, get_default_device, meshgrid, spatial, to_float, wrap,
 )
 from ._box import Box, Cuboid
 from ._geom import Geometry
 
-__all__ = ['UniformGrid', 'UniformGrid_native']
+__all__ = ['UniformGrid', 'UniformGrid_native', 'enclosing_grid']
 
 
 @functools.lru_cache(maxsize=256)
@@ -153,6 +153,82 @@ class UniformGrid(Geometry):
         local = (to_float(local) + 0.5) / self._sizes()
         return local * self._bounds.size + self._bounds.lower
 
+    size = dx
+
+    @property
+    def grid_size(self):
+        return self._bounds.size
+
+    @property
+    def half_size(self):
+        return self.dx * 0.5
+
+    @property
+    def lower(self):
+        """Each cell's lower corner."""
+        return self.center - self.half_size
+
+    @property
+    def upper(self):
+        return self.center + self.half_size
+
+    @property
+    def volume(self) -> Tensor:
+        from ..math._ops import prod
+        return prod(self.dx, 'vector')
+
+    def position_of(self, voxel_index: Tensor) -> Tensor:
+        return self._bounds.lower + (to_float(voxel_index) + 0.5) * self.dx
+
+    def voxel_at(self, location: Tensor, clamp=True) -> Tensor:
+        from ..math._ops import floor, maximum, minimum, to_int32
+        index = to_int32(floor((location - self._bounds.lower) / self.dx))
+        if clamp:
+            upper = wrap([s - 1 for s in self.resolution.sizes], channel(vector=self.resolution.names))
+            index = minimum(maximum(index, 0), upper)
+        return index
+
+    def padded(self, widths: dict) -> 'UniformGrid':
+        """The grid grown by (lower, upper) cells along each dim of `widths`."""
+        from ..math._ops import dim_mask
+        resolution, bounds = self.resolution, self._bounds
+        for dim, (lower, upper) in widths.items():
+            masked_dx = self.dx * dim_mask(self.resolution, dim)
+            resolution = resolution.with_dim_size(dim, resolution.get_size(dim) + lower + upper)
+            bounds = Box(bounds.lower - masked_dx * lower, bounds.upper + masked_dx * upper)
+        return UniformGrid(resolution, bounds)
+
+    def with_scaled_resolution(self, scale) -> 'UniformGrid':
+        return UniformGrid(self.resolution.with_sizes([int(s * scale) for s in self.resolution.sizes]), self._bounds)
+
+    def lies_inside(self, location):
+        return self._bounds.lies_inside(location)
+
+    def approximate_signed_distance(self, location):
+        return self._bounds.approximate_signed_distance(location)
+
+    def bounding_radius(self) -> Tensor:
+        from ..math._ops import vec_length
+        return vec_length(self.half_size)
+
+    def bounding_half_extent(self) -> Tensor:
+        return self.half_size
+
+    def bounding_box(self) -> Box:
+        return self._bounds
+
+    def at(self, center) -> Geometry:
+        return UniformGrid(self.resolution, self._bounds.at(center))
+
+    def shifted(self, delta) -> Geometry:
+        return UniformGrid(self.resolution, self._bounds.shifted(delta))
+
+    def rotated(self, angle) -> Geometry:
+        raise NotImplementedError("a grid cannot be rotated; rotate its center_representation()")
+
+    def scaled(self, factor) -> 'UniformGrid':
+        return UniformGrid(self.resolution, self._bounds.scaled(factor))
+
     def stagger(self, dim: str, lower: bool, upper: bool) -> 'UniformGrid':
         """The grid of the faces along `dim`; `lower` / `upper`: whether the
         outermost face on that side is included."""
@@ -204,3 +280,19 @@ class UniformGrid(Geometry):
 
     def __repr__(self):
         return f"{self.resolution}, bounds={self._bounds}"
+
+
+def enclosing_grid(*geometries: Geometry, voxel_count: int, rel_margin=0., abs_margin=0.) -> UniformGrid:
+    """The uniform grid of about `voxel_count` cubic cells over the bounding
+    box of `geometries`, widened by `rel_margin` of its half size plus `abs_margin`."""
+    from ..math._ops import max_, min_, stack, instance
+    boxes = [g.bounding_box() for g in geometries]
+    lower = min_(stack([b.lower for b in boxes], instance('_g'), expand_values=True), '_g')
+    upper = max_(stack([b.upper for b in boxes], instance('_g'), expand_values=True), '_g')
+    center, half = (lower + upper) / 2, (upper - lower) / 2
+    half = half * (1 + rel_margin) + abs_margin
+    bounds = Box(center - half, center + half)
+    size = np.asarray(bounds.size.numpy('vector'), np.float64)
+    cell_size = (float(np.prod(size)) / voxel_count) ** (1 / len(size))
+    names = bounds.size.shape.get_labels('vector')
+    return UniformGrid(spatial(**{n: max(1, int(round(float(s) / cell_size))) for n, s in zip(names, size)}), bounds)

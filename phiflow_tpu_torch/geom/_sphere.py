@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..math import EMPTY_SHAPE, Tensor, default_float, sqrt, wrap
-from ._geom import Geometry, host_scalar, host_vec, is_point_set, point_components, vec_length, vec_squared
+from ._geom import Geometry, host_scalar, host_vec, is_point_set, vec_length, vec_squared
 
 __all__ = ['Sphere']
 
@@ -93,23 +93,39 @@ class Sphere(Geometry):
             raise ValueError(f"a {self.spatial_rank}D sphere queried at a {len(location)}D location")
         return [x - float(c) for x, c in zip(location, self._center)]
 
-    def lies_inside(self, location) -> torch.Tensor:
-        """Whether each location lies inside: per-axis arrays in, an array
-        out; or a Tensor of points in (as `build_mesh` asks), a Tensor of its
-        dims but `vector` out, on the points' device (numpy for host points)."""
-        if isinstance(location, Tensor):
-            comps, shape = point_components(location, self.names)
-            return Tensor(self.lies_inside(comps), shape)
+    def _lies_inside(self, location) -> torch.Tensor:
         return vec_squared(self._delta(location)) <= float(self._radius ** 2)
 
-    def approximate_signed_distance(self, location) -> torch.Tensor:
+    def _signed_distance(self, location) -> torch.Tensor:
         return vec_length(self._delta(location), eps=1e-12) - float(self._radius)
+
+    def approximate_closest_surface(self, location):
+        """(signed distance, delta to the surface, outward normal, None, None) at a Tensor of points."""
+        from ..math._ops import maximum, vec_length as t_length
+        delta_c = location - self.center
+        dist = t_length(delta_c, eps=1e-12)
+        sgn_dist = dist - self.radius
+        normal = delta_c / maximum(dist, 1e-12)
+        return sgn_dist, -sgn_dist * normal, normal, None, None
+
+    def bounding_radius(self) -> Tensor:
+        return self.radius
+
+    def bounding_half_extent(self) -> Tensor:
+        from ..math._ops import expand
+        return expand(self.radius, self.shape.only('vector'))
+
+    def scaled(self, factor) -> 'Sphere':
+        sphere = Sphere(self._points if self._points is not None else self._center,
+                        self._radius * np.asarray(factor, np.asarray(self._radius).dtype))
+        sphere.names = self.names
+        return sphere
 
     def sample_uniform(self, *shape):
         """Points drawn uniformly inside the sphere: a normalised normal
         direction times radius · u^(1/d), u uniform (`math.random_normal`,
         `math.random_uniform`)."""
-        from ..math import channel, random_normal, random_uniform, vec_normalize
+        from ..math._ops import channel, random_normal, random_uniform, vec_normalize
         v = vec_normalize(random_normal(*shape, channel(vector=self.names or self.spatial_rank)))
         return self.center + v * (self.radius * random_uniform(*shape) ** (1 / self.spatial_rank))
 

@@ -33,7 +33,7 @@ import time
 from typing import Dict, Iterable, Sequence
 
 __all__ = ['SOURCES', 'LAUNCHES', 'SMEM_LIMIT', 'BUILD_DIR', 'reset_launches', 'stale', 'build', 'ptxas_log', 'library',
-           'check', 'refuse_grad', 'block_x', 'stream_of', 'SRC_MODE', 'src_struct']
+           'check', 'refuse_grad', 'block_x', 'stream_of', 'nonfinite_flag', 'SRC_MODE', 'src_struct']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
@@ -162,6 +162,31 @@ def block_x(n: int) -> int:
 def stream_of(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_FLAGS: Dict[tuple, object] = {}
+
+
+def nonfinite_flag(t) -> int:
+    """The device pointer of the two ints that the window kernels' first
+    launch of a call raises at a NaN or an infinity of its grid and the call's
+    fix kernel lowers again (`csrc/window.cuh`, fix_raised): one pair for each
+    stream of `t`'s device, since a pair is safe only for calls that run one
+    after the other. A stream's pair is zeroed once, by its first call, so
+    that no call adds a fill; that first call must not be under CUDA-graph
+    capture, where the fill would run only inside the graph: make one call on
+    a stream before capturing on it."""
+    import torch
+    stream = torch.cuda.current_stream(t.device)
+    key = (stream.device_index, stream.cuda_stream)
+    flag = _FLAGS.get(key)
+    if flag is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the window kernels' first call on a stream is under CUDA-graph capture: make one "
+                               "call on that stream before capturing on it, so that its non-finite flag is zeroed "
+                               "outside the graph")
+        flag = _FLAGS[key] = torch.zeros(2, dtype=torch.int32, device=t.device)
+    return flag.data_ptr()
 
 
 # what an array read by the advection kernels holds past its raw extent

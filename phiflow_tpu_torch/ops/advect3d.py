@@ -20,7 +20,8 @@ the CUDA kernel resolves boundaries by index and reads the raw arrays.
 
 `fused_advect_3d` computes every `OutSpec` of a call: on CUDA in one launch
 of K5 (`csrc/advect3d.cu`, tiled by `advect_plan`; a lift plane is one more
-small pass), on the CPU by `_fused_advect_plain` — the TPU kernel's window
+small pass, and a fix kernel that returns at once unless an advected source
+holds a NaN or an infinity follows every launch), on the CPU by `_fused_advect_plain` — the TPU kernel's window
 sum (tent weights over the (2K+1)³ window, extrema over the taps with
 |δ−s| < 1) written with tensor slices.
 
@@ -313,9 +314,14 @@ def _ctypes_args():
                     ('add_blocked', I), ('add', Blk), ('add_scale', F),
                     ('add_ball', I), ('ball', F * 5)]
 
-    class AdvectArgs(ctypes.Structure):
+    class Shell(ctypes.Structure):
+        _fields_ = [('c', I * 3), ('w', I * 3), ('cnt0', ctypes.c_longlong), ('cnt1', ctypes.c_longlong),
+                    ('total', ctypes.c_longlong)]
+
+    class AdvectArgs(ctypes.Structure):  # flag: _build.nonfinite_flag; tiles, fix_always, shell: set by the C entry
         _fields_ = [('src', Src * MAX_SOURCES), ('st', Staged * MAX_SOURCES), ('out', OutArgs * MAX_OUTS),
-                    ('n_src', I), ('n_out', I), ('K', I), ('t', I * 2), ('log2_t1', I)]
+                    ('n_src', I), ('n_out', I), ('K', I), ('t', I * 2), ('log2_t1', I),
+                    ('flag', P), ('tiles', I * 3), ('fix_always', I), ('shell', Shell * MAX_OUTS)]
     return Src, Blk, Staged, AdvectArgs
 
 
@@ -358,6 +364,7 @@ def _advect_cuda(sources, N, K, outs, scales, blocked_extras):
     a.n_src, a.n_out, a.K = len(sources), len(outs), K
     a.t[0], a.t[1] = plan['tile'][:2]
     a.log2_t1 = plan['tile'][1].bit_length() - 1
+    a.flag = _build.nonfinite_flag(sources[0].values)
     for i, s in enumerate(sources):
         a.src[i] = Src(s.values.data_ptr(), (ctypes.c_int * 3)(*s.values.shape),
                        (ctypes.c_int * 3)(*(_shift(s, N, ax) for ax in range(3))),

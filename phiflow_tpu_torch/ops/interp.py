@@ -225,11 +225,21 @@ def _window_interp_vjp_plain(grid, disps, K, compute_extrema, scale, mode, const
     upstream `grads` (out[, lo, up]; None entries are zero), by autograd of
     `_window_interp_plain` recomputed; the oracle of K6ᵀ / K7ᵀ."""
     d = len(disps)
+    # a NaN or an infinity in the grid: d_disp of the outputs whose window holds one is JAX's (_nonfinite_disp_grads),
+    # computed per output, so the displacements are expanded to the outputs first
+    nonfinite = need_disp and grads[0] is not None and not (
+        bool(torch.isfinite(grid).all()) and (mode != 'const' or np.isfinite(const)))
+    out_shape = tuple(torch.broadcast_shapes(grid.shape[:-d], disps[0].shape[:-d])) + tuple(disps[0].shape[-d:])
     with torch.enable_grad():
         g_in = grid.detach().requires_grad_(need_grid)
-        d_in = [dd.detach().requires_grad_(need_disp) for dd in disps]
+        d_in = [(dd.detach().expand(out_shape).contiguous() if nonfinite else dd.detach()).requires_grad_(need_disp)
+                for dd in disps]
         outs = _window_interp_plain(g_in, d_in, K, compute_extrema, scale, mode, const)
         outs = outs if compute_extrema else (outs,)
+        # lo / up NaN (a NaN corner with weight): JAX's min / max chain passes them no gradient at all, where
+        # autograd's rule lets it through
+        grads = [g if i == 0 or g is None else torch.where(torch.isnan(o), torch.zeros_like(g), g)
+                 for i, (o, g) in enumerate(zip(outs, grads))]
         pairs = [(o, g.to(o.dtype)) for o, g in zip(outs, grads) if g is not None]
         inputs = [t for t in (g_in, *d_in) if t.requires_grad]
         if not pairs or not inputs:
@@ -238,10 +248,57 @@ def _window_interp_vjp_plain(grid, disps, K, compute_extrema, scale, mode, const
     d_grid = res.pop(0) if need_grid else None
     d_disps = [res.pop(0) for _ in range(d)] if need_disp else [None] * d
     fill = lambda r, like: torch.zeros_like(like) if r is None else r.to(like.dtype)
-    d_disps = [fill(r, dd) if need_disp else None for r, dd in zip(d_disps, disps)]
+    d_disps = [fill(r, dd) if need_disp else None for r, dd in zip(d_disps, d_in)]
     if need_disp and grads[0] is not None:
-        d_disps = _nan_disp_grads(d_disps, disps, scale)
+        d_disps = _nan_disp_grads(d_disps, d_in, scale)
+    if nonfinite:
+        d_disps = _nonfinite_disp_grads(d_disps, grid, d_in, K, scale, mode, const, grads[0])
+        d_disps = [r.sum_to_size(dd.shape) for r, dd in zip(d_disps, disps)]
     return (fill(d_grid, grid) if need_grid else None), d_disps
+
+
+def _nonfinite_disp_grads(d_disps, grid, disps, K, scale, mode, const, g):
+    """JAX's d_disp at the outputs whose window holds a NaN or an infinity of
+    the grid, where autograd's `maximum` rule drops the 0 · NaN of a tap of
+    weight 0: AD of the window sum multiplies each tap's g · value by the
+    other axes' tent weights and by the tent's slope (1, 1/2 at the kink, 0
+    past it), signed by δ − s, and the sum by the clip's derivative and the
+    scale, so 0 · inf and 0 · NaN are NaN. Per output (`disps` expanded to
+    the outputs); other outputs keep `d_disps`."""
+    d = len(disps)
+    spatial = tuple(disps[0].shape[-d:])
+    dtype = d_disps[0].dtype
+    padded = (grid if mode is None else _pad(grid, K, mode, const, d)).to(dtype)
+    kf = float(K)
+    x = [scale[i] * dd.detach().to(dtype) for i, dd in enumerate(disps)]
+    m = [torch.maximum(xi, torch.full_like(xi, -kf)) for xi in x]
+    delta = [torch.minimum(mi, torch.full_like(mi, kf)) for mi in m]
+    slope_max = lambda a, b: torch.where(a > b, 1.0, torch.where(a == b, 0.5, 0.0)).to(dtype)
+    dclip = [slope_max(torch.full_like(mi, kf), mi) * slope_max(xi, torch.full_like(xi, -kf)) for xi, mi in zip(x, m)]
+    g = g.to(dtype)
+    acc = [torch.zeros_like(xi) for xi in x]
+    bad = torch.zeros(x[0].shape, dtype=torch.bool, device=x[0].device)
+    W = 2 * K + 1
+    for k in range(W ** d):
+        kk, index, w, slope = k, [], [], []
+        for i in range(d):
+            j = kk % W
+            kk //= W
+            s = float(j - K)
+            index.append(slice(j, j + spatial[i]))
+            u = 1.0 - torch.abs(delta[i] - s)
+            w.append(torch.maximum(torch.zeros_like(u), u))
+            slope.append(slope_max(u, torch.zeros_like(u)) * torch.where(delta[i] - s >= 0, -1.0, 1.0).to(dtype))
+        window = padded[(Ellipsis, *index)]
+        bad = bad | ~torch.isfinite(window)
+        gv = g * window
+        for i in range(d):
+            term = gv
+            for f in range(d - 1, -1, -1):
+                if f != i:
+                    term = term * w[f]
+            acc[i] = acc[i] + term * slope[i]
+    return [torch.where(bad, a * c * scale[i], r) for i, (a, c, r) in enumerate(zip(acc, dclip, d_disps))]
 
 
 def _nan_disp_grads(d_disps, disps, scale):
@@ -272,7 +329,8 @@ def _ctypes_args():
     class InterpArgs(ctypes.Structure):
         _fields_ = [('grid', _build.src_struct()), ('disp', P * 3), ('scale', F_ * 3),
                     ('out', P), ('out_lo', P), ('out_up', P), ('o', I * 3), ('K', I), ('extrema', I),
-                    ('nb', I), ('grid_stride', ctypes.c_longlong), ('disp_stride', ctypes.c_longlong)]
+                    ('nb', I), ('grid_stride', ctypes.c_longlong), ('disp_stride', ctypes.c_longlong),
+                    ('flag', P)]
     return InterpArgs
 
 
@@ -285,7 +343,7 @@ def _ctypes_grad_args():
         _fields_ = [('grid', _build.src_struct()), ('disp', P * 3), ('scale', F_ * 3),
                     ('g_out', P), ('g_lo', P), ('g_up', P), ('d_grid', P), ('d_disp', P * 3),
                     ('o', I * 3), ('K', I), ('nb', I), ('grid_stride', ctypes.c_longlong),
-                    ('disp_stride', ctypes.c_longlong), ('chunk', I), ('ring', I)]
+                    ('disp_stride', ctypes.c_longlong), ('chunk', I), ('ring', I), ('flag', P)]
     return InterpGradArgs
 
 
@@ -465,6 +523,7 @@ def _window_interp_cuda(name, grid, disps, K, compute_extrema, scale, mode, cons
         a.out_lo, a.out_up = planes[1].data_ptr(), planes[2].data_ptr()
         a.extrema = 1
     a.K = K
+    a.flag = _build.nonfinite_flag(grid)
     err = lib.window_interp(ctypes.byref(a), d, int(vector_route(spatial, (*disps, *planes))),
                             _build.stream_of(grid))
     _build.check(lib, err, name)
@@ -514,6 +573,7 @@ def _window_interp_grad_cuda(name, grid, disps, K, compute_extrema, scale, mode,
     a.g_out, a.g_lo, a.g_up = (None if g is None else g.data_ptr() for g in ups)
     a.d_grid = d_grid.data_ptr() if need_grid else None
     a.K = K
+    a.flag = _build.nonfinite_flag(grid)
     if need_grid:
         a.chunk = grad_plan(d, K, tuple(grid.shape[-d:]), nb, g_stride == 0,
                             **dict(zip(('sms', 'smem_per_sm'), sm_budget(grid.device.index))))['chunk']

@@ -99,8 +99,10 @@ from ..field._field_math import (
 )
 from ..field._resample import cell_grid, geometry_mask
 from ..geom._box import Box, Cuboid, box_push
-from ..geom._geom import Geometry, host_vec, union, vector_tensor
-from ..math import EMPTY_SHAPE, Shape, Tensor, copy_solve, extrapolation, jit_compile_linear, solve_linear, wrap
+from ..geom._geom import Geometry, host_vec, vector_tensor
+from ..geom._geom_ops import union
+from ..math import (EMPTY_SHAPE, Shape, Tensor, channel, copy_solve, extrapolation, instance, jit_compile_linear,
+                    solve_linear, wrap)
 from ..math._shape import merge_shapes
 from ..math import _ops as ops
 from ..math._extrapolation import (
@@ -614,17 +616,21 @@ def make_incompressible_native(velocity: Sequence[torch.Tensor], pressure: Optio
 
 def boundary_push_native(positions: torch.Tensor, domain_size: Sequence[float], separation: float = 0.5,
                   obstacles=()) -> torch.Tensor:
-    """Push particles out of the box obstacles (`Box`, `Cuboid`, or
-    `Obstacle`s of them; the box's axes, as the JAX package pushes), then pull
-    those that left the domain [0, domain_size] back inside; both to
+    """Push particles (N, d) out of the obstacles (geometries or `Obstacle`s),
+    then pull those that left the domain [0, domain_size] back inside; both to
     `separation` from the surface — `boundary_push(particles, [*obstacles,
-    ~bounds])` of the JAX package. Other geometries have no exact push."""
+    ~bounds])` of the JAX package. Boxes take their exact axis-wise push
+    (`box_push`), any other geometry its `push` along the finite-difference
+    normal of its signed distance (`Geometry.push`)."""
     for obj in obstacles:
         geometry = obj.geometry if isinstance(obj, Obstacle) else obj
-        if not isinstance(geometry, (Box, Cuboid)):
-            raise NotImplementedError(f"boundary_push: {type(geometry).__name__} has no exact push; only boxes are ported")
-        positions = box_push(positions, np.asarray(geometry.lower), np.asarray(geometry.upper), outward=True,
-                             shift_amount=separation)
+        if isinstance(geometry, (Box, Cuboid)):
+            positions = box_push(positions, np.asarray(geometry.lower), np.asarray(geometry.upper), outward=True,
+                                 shift_amount=separation)
+            continue
+        labels = tuple(geometry.names or ('x', 'y', 'z')[:positions.shape[-1]])
+        points = Tensor(positions, instance(points=positions.shape[0]) & channel(vector=labels))
+        positions = geometry.push(points, shift_amount=separation).native(('points', 'vector'))
     return box_push(positions, (0.0,) * len(domain_size), tuple(domain_size), outward=False,
                     shift_amount=separation)
 

@@ -196,42 +196,26 @@ def _same_abs(got, ref, what, tol=2e-5):
     assert np.abs(np.nan_to_num(got) - np.nan_to_num(ref)).max() < tol, what
 
 
-def _corner_gather(grid, disps, K, const):
-    """A numpy model of what K5, K6 and K7 compute (`csrc/window.cuh`): the
-    2^D corners floor(δ) and floor(δ) + 1 of each axis with their tent
-    weights, nothing else of the window read (a constant halo)."""
-    d = grid.ndim
-    padded = np.pad(grid, K + 1, constant_values=const)
-    out = np.zeros(grid.shape, np.float32)
-    for c in np.ndindex(grid.shape):
-        delta = [np.clip(x[c], -K, K) for x in disps]
-        acc = np.float32(0)
-        for corner in np.ndindex(*(2,) * d):
-            s = [int(np.floor(delta[a])) + corner[a] for a in range(d)]
-            w = np.prod([max(0., 1. - abs(delta[a] - s[a])) for a in range(d)])
-            acc += np.float32(w) * padded[tuple(c[a] + K + 1 + s[a] for a in range(d))]
-        out[c] = acc
-    return out
-
-
 def test_grid_nan_reaches_fewer_outputs_in_the_kernels():
-    """A NaN in the grid, not in a displacement: the 6 × 7 inputs of
-    `test_fault_inputs_match_jax` with the grid NaN at (2, 3). JAX's window
-    sum (and the twin) give NaN at the 9 outputs whose window holds it; the
-    kernels' corner gather (`_corner_gather`) only at the 3 where it carries
-    weight, and finite values at the 6 others."""
+    """Fault 3.13's own inputs (the 6 × 7 grid of `default_rng(0)`, x and y
+    displacements of the same generator's `random() − 0.5`, the grid NaN at
+    (2, 3), a constant halo of 0.25). Before the repair the kernels' corner
+    gather reached 3 of the 9 outputs JAX makes NaN. The repaired kernels
+    (`_repaired_kernels`) give JAX's NaN pattern in the value (the 9 outputs),
+    lo and up, and in d_disp, and agree elsewhere within 1e-5."""
     rng = np.random.default_rng(0)
     grid = rng.standard_normal((6, 7)).astype(np.float32)
     disps = [(rng.random((6, 7)) - 0.5).astype(np.float32) for _ in range(2)]
     grid[2, 3] = np.nan
-    ones = [np.ones((6, 7), np.float32)]
-    (ref,), _ = _jax_side(grid, disps, 1, (1.0, 1.0), ('const',), [ones], False)
-    twin = TI.window_interp_2d(torch.tensor(grid), [torch.tensor(x) for x in disps], 1, const_pad=0.25).numpy()
-    model = _corner_gather(grid, disps, 1, np.float32(0.25))
-    assert (np.isnan(twin) == np.isnan(ref[0])).all() and np.isnan(ref[0]).sum() == 9
-    assert np.isnan(model).sum() == 3
-    only_jax = np.isnan(ref[0]) & ~np.isnan(model)
-    print('NaN in JAX, finite in the corner gather at', np.argwhere(only_jax).tolist(), model[only_jax])
-    assert only_jax.sum() == 6
-    finite = ~np.isnan(ref[0])
-    assert np.abs(model[finite] - ref[0][finite]).max() < 1e-5
+    g_out = np.random.default_rng(4).standard_normal((6, 7)).astype(np.float32)
+    ws = [g_out, np.ones((6, 7), np.float32), np.ones((6, 7), np.float32)]
+    (ref,), ref_grads = _jax_side(grid, disps, 1, (1.0, 1.0), ('const',), [ws], True)
+    from test_torch_grid_nonfinite import _repaired_kernels
+    val, lo, up, dd = _repaired_kernels(grid, disps, 1, np.float32(0.25), g_out)
+    assert np.isnan(ref[0]).sum() == 9
+    _same(val, ref[0], 'value')
+    _same(lo, ref[1], 'lo')
+    _same(up, ref[2], 'up')
+    for a in range(2):  # the fix kernel's outputs: the 9 whose window holds the NaN
+        hit = np.isnan(ref[0])
+        assert (np.isnan(dd[a][hit]) == np.isnan(ref_grads[1 + a][hit])).all() and np.isnan(dd[a][hit]).all()
