@@ -45,7 +45,9 @@ Phases; any failure exits non-zero and prints no result:
      on grids holding NaN, +inf and -inf (`check_grid_nonfinite`: the NaN
      and ±inf patterns of the twins, which follow JAX's window sum, every
      halo form, a padded grid's halo, a NaN constant halo, and a finite call
-     after the non-finite ones: the kernels' flag lowered again); the
+     after the non-finite ones: the kernels' flag lowered again; K6ᵀ / K7ᵀ
+     also with the forward's verdict, as autograd runs them, and on a grid
+     whose one bad cell only d_disp's own-cell test used to find); the
      median CUDA-event time of the
      kernel, of the twin and, where one PyTorch call computes the same
      function, of that call (library_ms — the port never calls it), beside the
@@ -286,9 +288,26 @@ Phases; any failure exits non-zero and prints no result:
      kernel launched exactly 3 times, at most 2 device syncs a call, the lines printed); and
      `math.gradient` of one open-box 2D step (K7ᵀ once for each forward K7 launch, finite, card
      against CPU within 1e-4);
-  11. the `kernels` JSON line (every row above and the batched forms, `<kernel>_batched`, whose
+  11. the 3D mesh slice, I/O and utilities (`run_mesh_and_io`, after phase 10): 11a mesh-channel-3d,
+     unit hexahedra over [0, 96] × [0, 32] × [0, 32] without the cube x ∈ [16, 24), y, z ∈ [12, 20)
+     (97,792 cells; groups inlet, outlet, walls, cube), built by `geom.mesh` on the host, written
+     as SU2 and read back by `load_su2` (its tables equal to the built ones), then CylinderWake's step
+     in 3D (BiCGStab momentum on `_momentum_eq`, `make_incompressible` with 'auto'; velocity
+     {inlet: (1, 0, 0), outlet: ZERO_GRADIENT, walls: (1, 0, 0), cube: 0}, ν = 8 / 150, dt 0.5,
+     solve_tol 1e-4, 500 iterations at most, a transverse kick upstream of the cube), 1 warm-up and 2
+     timed steps: the host build seconds, ms a step, BiCGStab iterations a solve, syncs of the warm-up
+     step, `max_memory_allocated`, device busy ms and kernels a step (torch.profiler, one more step);
+     gates: finite velocity and pressure, |div| after each projection below its value before, no
+     kernel of ours launched; then 2 steps at 12 × 6 × 6 with a 2³ cube, CPU against card within 1e-4
+     of scale with equal BiCGStab counts; 11b a 256³ smoke state from the card through `field.write`
+     / `read`, a `Scene` and a checkpoint (`utils.save_checkpoint` / `load_checkpoint(device='cuda')`),
+     each back on the card bit-equal; 11c the Field cases that raised before, card against CPU at 64³
+     within 1e-5 (the divergence under ANTISYMMETRIC walls, a cloud of spheres resampled onto a grid
+     without scatter, hard, soft and staggered, a grid Field and the cloud sampled at a mesh); 11d
+     `_entry.entry()` on the card, 2 steps, finite, K6 and K1 launched;
+  12. the `kernels` JSON line (every row above and the batched forms, `<kernel>_batched`, whose
      launches are counted on phase 9's paths — K1m's on batched-obstacle-256x4; `launches_by_path`
-     has phase 10's paths too), then
+     has phase 10's and 11's paths too), then
      the last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each phase prints its seconds on the host clock as it ends (`phase …: … s`, the larger ones their
@@ -447,6 +466,13 @@ class Checks:
               f'library_ms={lib} library_device_ms={lib_dev} bound_ms={bound_ms:.4f} ({bound_by}; '
               f'{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP) device/bound={row["device_ms"] / bound_ms:.2f}')
         self.timing[key or kernel] = row
+
+    def side(self, kernel, what, fn, key):
+        """A side reading kept under `key` (to be attached to `kernel`'s row): `ms` and `device_ms` of `fn` alone,
+        a form the paths do not launch."""
+        row = dict(timed=what, ms=median_ms(fn), device_ms=replay_ms(fn))
+        print(f'time  {kernel:17s} {what:58s} ms={row["ms"]:.4f} device_ms={row["device_ms"]:.4f} (side reading)')
+        self.timing[key] = row
 
     def attach(self, kernel, keys):
         """Put the rows timed under `keys` into `kernel`'s row as its `parts`."""
@@ -3088,13 +3114,45 @@ GRAD_CG_TOL = 1e-5  # the differentiated paths' solves (forward and adjoint)
 GRAD_CG_TOL_4096 = 1e-4
 
 
-def _grad_call(d, grid, disps, K, extrema, scale, mode, const, ups, plain):
-    """K6ᵀ / K7ᵀ (`plain` False) or the twin's VJP (True): (d_grid, [d_disp])."""
+def _grad_call(d, grid, disps, K, extrema, scale, mode, const, ups, plain, word=False):
+    """K6ᵀ / K7ᵀ (`plain` False) or the twin's VJP (True): (d_grid, [d_disp]). `word`: True, the backward as
+    autograd runs it, after a forward of the same grid (K6 / K7) that leaves its verdict on the grid for the
+    backward to read in place of its own test; a word such a forward wrote (`_forward_word`), the backward alone
+    as autograd runs it; False, the bare backward, which tests the grid itself."""
     from phiflow_tpu_torch.ops import interp as I
+    name = f'window_interp_{d}d'
     args = (grid, list(disps), K, extrema, tuple(I._f32(x) for x in scale), mode, I._f32(const), ups, True, True)
     if plain:
         return I._window_interp_vjp_plain(*args)
-    return I._window_interp_grad_cuda(f'window_interp_{d}d', *args)
+    if word is True:
+        word = _forward_word(d, grid, disps, K, extrema, scale, mode, const)
+    return I._window_interp_grad_cuda(name, *args, verdict=None if word is False else word)
+
+
+def _forward_word(d, grid, disps, K, extrema, scale, mode, const):
+    """The verdict on `grid` that a forward call of K6 / K7 writes for its backward (`_WindowInterp`)."""
+    import torch
+    from phiflow_tpu_torch.ops import interp as I
+    word = torch.empty(1, dtype=torch.int32, device=grid.device)
+    I._window_interp_cuda(f'window_interp_{d}d', grid, list(disps), K, extrema, tuple(I._f32(x) for x in scale),
+                          mode, I._f32(const), verdict=word)
+    return word
+
+
+def _autograd_call(d, grid, disps, K, extrema, scale, mode, const, ups):
+    """K6ᵀ / K7ᵀ through `torch.autograd.grad` of the public lookup (`_WindowInterp`, the forward's verdict carried
+    in its context): (d_grid, [d_disp]) for the cotangents `ups` (out[, lo, up]; None entries absent)."""
+    import torch
+    from phiflow_tpu_torch.ops import interp as I
+    fn = I.window_interp_3d if d == 3 else I.window_interp_2d
+    halo = {None: {}, 'const': dict(const_pad=const), 'edge': dict(halo='edge'), 'wrap': dict(halo='wrap')}[mode]
+    g_in = grid.detach().requires_grad_()
+    d_in = [dd.detach().requires_grad_() for dd in disps]
+    outs = fn(g_in, d_in, K, compute_extrema=extrema, disp_scale=scale, **halo)
+    outs = outs if extrema else (outs,)
+    pairs = [(o, u) for o, u in zip(outs, ups) if u is not None]
+    res = torch.autograd.grad([o for o, _ in pairs], [g_in, *d_in], [u for _, u in pairs])
+    return res[0], list(res[1:])
 
 
 def _grad_compare(ch, d, case, got, ref):
@@ -3162,7 +3220,11 @@ def check_grid_nonfinite(ch, gen):
     output's own cotangent, each launched twice: bit-equal) and K5 (its calls with a non-finite smoke or
     velocity) against their twins, which follow JAX's window sum: the NaN and +-inf patterns equal, the finite
     entries within the usual tolerances. Every halo form, K = 1 and 2, padded grids with a non-finite cell in
-    their halo, a constant halo that is NaN. After each non-finite call a finite one: the flag was lowered."""
+    their halo, a constant halo that is NaN. After each non-finite call a finite one: the flag was lowered.
+    Fault 3.14: K6ᵀ / K7ᵀ also as autograd runs them, after a forward of the grid that leaves its verdict for the
+    backward (bit-equal to the bare call, which tests the grid itself), and on grids whose one bad cell is a core
+    cell that only d_disp's own-cell test used to find: bare, with the forward's word, and through
+    `torch.autograd.grad` of the public lookup."""
     import torch
     from phiflow_tpu_torch.ops import interp as I
     from phiflow_tpu_torch.ops.advect3d import fused_advect_3d, _fused_advect_plain
@@ -3213,7 +3275,8 @@ def check_grid_nonfinite(ch, gen):
         disps = list((torch.rand((d,) + shape, generator=gen, device=dev) * 2 - 1) * ((K + 1) / 0.6))
         for bad in ('mixed',):
             grid = _poison(clean, gen, bad, shell=K if mode is None else 0)
-            for cotangents in ('out + lo + up', 'lo + up only'):
+            # the wide kernel's twin takes seconds a call: lo / up's cotangents alone at the slot kernel's K only
+            for cotangents in ('out + lo + up',) if K > 7 else ('out + lo + up', 'lo + up only'):
                 ups = [torch.randn(shape, generator=gen, device=dev) for _ in range(3)]
                 if cotangents == 'lo + up only':
                     ups[0] = None
@@ -3221,16 +3284,51 @@ def check_grid_nonfinite(ch, gen):
                 got = _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, False)
                 ref = _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, True)
                 again = _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, False)
-                for what, g, r, a in ([('d_grid', got[0], ref[0], again[0])] +
-                                      [(f'd_disp[{i}]', x, y, z) for i, (x, y, z) in
-                                       enumerate(zip(got[1], ref[1], again[1]))]):
+                # as autograd runs it: the forward's verdict in place of d_disp's test, the same launches after it
+                word = _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, False, word=True)
+                for what, g, r, a, w in ([('d_grid', got[0], ref[0], again[0], word[0])] +
+                                         [(f'd_disp[{i}]', x, y, z, v) for i, (x, y, z, v) in
+                                          enumerate(zip(got[1], ref[1], again[1], word[1]))]):
                     fin = torch.isfinite(r)
                     tol = GRAD_TOL * max(float(torch.where(fin, r, 0.0).abs().max()), 1e-30)
                     ch.compare_nonfinite(GRAD_NAMES[d], f'{case} {what}', g, r, tol)
                     ch.compare_nonfinite(GRAD_NAMES[d], f'{case} {what} repeat launch (bit-equal)', g, a, 0.0)
+                    ch.compare_nonfinite(GRAD_NAMES[d], f'{case} {what} with the forward\'s word', w, r, tol)
+                    ch.compare_nonfinite(GRAD_NAMES[d], f'{case} {what} with the forward\'s word = bare (bit-equal)',
+                                         w, g, 0.0)
+        if K > 7:  # the flag's lowering after the wide calls is held by the finite calls that follow
+            continue
         got = _grad_call(d, clean, disps, K, True, scale, mode, 0.25, ups, False)
         _grad_compare(ch, d, f'{shape} K={K} {mode or "padded"} extrema, a finite grid after them', got,
                       _grad_call(d, clean, disps, K, True, scale, mode, 0.25, ups, True))
+        got = _grad_call(d, clean, disps, K, True, scale, mode, 0.25, ups, False, word=True)
+        _grad_compare(ch, d, f'{shape} K={K} {mode or "padded"} extrema, a finite grid after them, with the '
+                             f'forward\'s word', got, _grad_call(d, clean, disps, K, True, scale, mode, 0.25, ups, True))
+    # fault 3.14: one bad cell that only d_disp's own-cell test finds (a cell of the grid's core, which no shell
+    # test reads): bare (d_disp's test), with the forward's word, and through torch.autograd.grad (_WindowInterp)
+    for d, shape, K, mode in ((3, SMALL, 1, 'edge'), (3, SMALL, 1, 'const'), (3, SMALL, 1, None),
+                              (3, (4, 3, 37), 2, 'wrap'), (2, (37, 45), 1, 'const'), (2, (37, 45), 1, 'edge'),
+                              (2, (37, 45), 2, 'wrap'), (2, (37, 45), 2, None)):
+        scale = (0.8, -1.1, 0.6)[:d]
+        grid = torch.randn(tuple(n + 2 * K for n in shape) if mode is None else shape, generator=gen, device=dev)
+        disps = list((torch.rand((d,) + shape, generator=gen, device=dev) * 2 - 1) * ((K + 1) / 0.6))
+        ups = [torch.randn(shape, generator=gen, device=dev) for _ in range(3)]
+        for bad in (float('nan'), float('inf')) if mode == 'edge' else (float('nan'),):  # an infinity in one per rank
+            lone = grid.clone()
+            lone[tuple(n // 2 for n in lone.shape)] = bad
+            case = f'{shape} K={K} {mode or "padded"} extrema, one {bad} core cell'
+            ref = _grad_call(d, lone, disps, K, True, scale, mode, 0.25, ups, True)
+            for form, got in (('bare', _grad_call(d, lone, disps, K, True, scale, mode, 0.25, ups, False)),
+                              ('forward\'s word', _grad_call(d, lone, disps, K, True, scale, mode, 0.25, ups, False,
+                                                             word=True)),
+                              ('autograd', _autograd_call(d, lone, disps, K, True, scale, mode, 0.25, ups))):
+                for what, g, r in [('d_grid', got[0], ref[0])] + [(f'd_disp[{i}]', x, y) for i, (x, y) in
+                                                                 enumerate(zip(got[1], ref[1]))]:
+                    tol = GRAD_TOL * max(float(torch.where(torch.isfinite(r), r, 0.0).abs().max()), 1e-30)
+                    ch.compare_nonfinite(GRAD_NAMES[d], f'{case}, {form} {what}', g, r, tol)
+        got = _autograd_call(d, grid, disps, K, True, scale, mode, 0.25, ups)
+        _grad_compare(ch, d, f'{shape} K={K} {mode or "padded"} extrema, autograd on a finite grid after them', got,
+                      _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, True))
     # K5: a non-finite smoke in calls 1 and 2 and the staggered outputs of a scalar, a non-finite velocity in call 3
     for K in (1, 2):
         for periodic in (False, True):
@@ -3268,13 +3366,14 @@ def check_interp_grad(ch, gen, quick):
     extrema's upstream gradients, fractional, clipped and integer
     displacements; the one-slot-plane route (3D K = 6, 2D K = 24), wrapped
     axes of at most 2K cells, the wide kernel past the slot window (3D K = 8,
-    2D K = 33: in 3D every halo form and a batch on a shared grid, in 2D
-    the clamped sides), empty outputs
+    2D K = 33: in 3D padded, wrapped and a batch on a shared grid, in 2D
+    a shared grid's clamped sides), empty outputs
     (zero gradients, no launch counted), NaN displacements (JAX's rule:
     against the twin on the same inputs, the same NaN pattern — d_grid NaN
     at every tap of a NaN output, d_disp NaN on its finite axes and exactly
     0 on a lone NaN axis; none with lo / up's cotangents alone — in every
-    halo form, the one-slot-plane route and the wide kernel); each form
+    halo form and the one-slot-plane route, and the wide kernel with the
+    output's cotangent); each form
     launched twice, bit-equal; then (not with --quick) at the paths' shapes,
     timed, and the wide kernel timed at 48³ K = 8."""
     import torch
@@ -3318,10 +3417,11 @@ def check_interp_grad(ch, gen, quick):
         got = _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, False)
         _grad_compare(ch, d, case, got, _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, True))
         _grad_repeat(ch, d, case, got, _grad_call(d, grid, disps, K, True, scale, mode, 0.25, ups, False))
-    # past the slot window (3D K > 7, 2D K > 32): the wide kernel, every halo form and a batch on a shared grid in
-    # 3D, the clamped sides in 2D (the twin's (2K + 1)^D taps cost ≈ 3 s a call)
-    every = ((None, ()), ('const', ()), ('edge', ()), ('wrap', ()), ('edge', (2,)))
-    for d, shape, K, forms in ((3, (10, 20, 40), 8, every), (2, (40, 70), 33, every[2:3] + every[4:])):
+    # past the slot window (3D K > 7, 2D K > 32): the wide kernel, padded, wrapped and a batch on a shared grid
+    # (edge) in 3D, the clamped sides of a shared grid in 2D (the twin's (2K + 1)^D taps cost ≈ 3 s a call: the
+    # constant halo is held at the timed shapes below, a single edge grid by the NaN and non-finite checks)
+    every = ((None, ()), ('wrap', ()), ('edge', (2,)))
+    for d, shape, K, forms in ((3, (10, 20, 40), 8, every), (2, (40, 70), 33, every[2:])):
         scale = (0.8, -1.1, 0.6)[:d]
         for mode, lead in forms:
             grid = rnd(tuple(n + 2 * K for n in shape) if mode is None else shape)
@@ -3364,7 +3464,8 @@ def check_interp_grad(ch, gen, quick):
         grid = rnd(tuple(n + 2 * K for n in shape) if mode is None else shape)
         disps, lone = _with_nan(list((torch.rand((d,) + shape, generator=gen, device=dev) * 2 - 1)
                                      * ((K + 1) / 0.6)), gen)
-        for cotangents in ('out + lo + up', 'lo + up only'):
+        # the wide kernel's twin takes seconds a call: lo / up's cotangents alone are held at the slot kernel's K
+        for cotangents in ('out + lo + up',) if K > 7 else ('out + lo + up', 'lo + up only'):
             ups = [rnd(shape) for _ in range(3)]
             if cotangents == 'lo + up only':
                 ups[0] = None
@@ -3392,11 +3493,17 @@ def check_interp_grad(ch, gen, quick):
         disps = [torch.rand(shape, generator=gen, device=dev) * 5.0 - 2.5 for _ in range(d)]  # clips at ±K
         g = [rnd(shape) for _ in range(3)]
         forms = [('wrap', False)] if burgers else [('const', False), ('edge', True)]
+        # each form as autograd runs it (the forward's word: the instantiation the paths launch) and bare
+        words = {mode: _forward_word(d, grid, disps, K, extrema, scale, mode, 0.0) for mode, extrema in forms}
         for mode, extrema in forms:
             ups = g if extrema else g[:1]
             case = f'{shape} K={K} {mode}{" extrema" if extrema else ""}{" (Burgers)" if burgers else ""}'
-            _grad_compare(ch, d, case, _grad_call(d, grid, disps, K, extrema, scale, mode, 0.0, ups, False),
-                          _grad_call(d, grid, disps, K, extrema, scale, mode, 0.0, ups, True))
+            ref = _grad_call(d, grid, disps, K, extrema, scale, mode, 0.0, ups, True)
+            _grad_compare(ch, d, f'{case}, with the forward\'s word',
+                          _grad_call(d, grid, disps, K, extrema, scale, mode, 0.0, ups, False, word=words[mode]), ref)
+            _grad_compare(ch, d, f'{case}, bare', _grad_call(d, grid, disps, K, extrema, scale, mode, 0.0, ups, False),
+                          ref)
+            del ref
         torch.cuda.empty_cache()
         if burgers:
             continue
@@ -3410,13 +3517,17 @@ def check_interp_grad(ch, gen, quick):
                     f'{shape} K=1')
             lib = _grid_sample_backward(grid, disps, K, scale, 'border' if extrema else 'zeros', g[0])
             ch.time(name, what,
-                    lambda: _grad_call(d, grid, disps, K, extrema, scale, mode, 0.0, ups, False),
+                    lambda: _grad_call(d, grid, disps, K, extrema, scale, mode, 0.0, ups, False, word=words[mode]),
                     lambda: _grad_call(d, grid, disps, K, extrema, scale, mode, 0.0, ups, True),
                     nbytes(grid, *disps, *ups) + nbytes(grid, *disps), ops + (2 ** (d + 2) * n if extrema else 0),
                     lib, key=None if not extrema else name + ' +extrema')
             del lib
-        ch.attach(name, [name + ' +extrema'])
-        del grid, disps, g
+        # a side reading: the bare backward (a call without a forward's word, which tests the grid itself) of the
+        # smoke's form, which the paths do not launch
+        ch.side(name, f'smoke forward: edge halo + extrema, {shape} K=1, bare',
+                lambda: _grad_call(d, grid, disps, K, True, scale, 'edge', 0.0, g, False), key=name + ' bare')
+        ch.attach(name, [name + ' +extrema', name + ' bare'])
+        del grid, disps, g, words
         torch.cuda.empty_cache()
     # the wide kernel (3D K = 8, 2D K = 33) on a velocity component with a constant halo: its d_grid reads the
     # (2K + 1)^D outputs within K of a cell; the bound counts the function's work, as the K = 1 rows do
@@ -3426,15 +3537,20 @@ def check_interp_grad(ch, gen, quick):
         disps = [(torch.rand(shape, generator=gen, device=dev) * 2 - 1) * (K + 1) for _ in range(d)]  # clips at ±K
         ups = [rnd(shape)]
         case = f'wide kernel: const halo, {shape} K={K}'
-        _grad_compare(ch, d, case, _grad_call(d, grid, disps, K, False, scale, 'const', 0.0, ups, False),
-                      _grad_call(d, grid, disps, K, False, scale, 'const', 0.0, ups, True))
+        word = _forward_word(d, grid, disps, K, False, scale, 'const', 0.0)
+        ref = _grad_call(d, grid, disps, K, False, scale, 'const', 0.0, ups, True)
+        _grad_compare(ch, d, f'{case}, with the forward\'s word',
+                      _grad_call(d, grid, disps, K, False, scale, 'const', 0.0, ups, False, word=word), ref)
+        _grad_compare(ch, d, f'{case}, bare', _grad_call(d, grid, disps, K, False, scale, 'const', 0.0, ups, False),
+                      ref)
+        del ref
         lib = _grid_sample_backward(grid, disps, K, scale, 'zeros', ups[0])
-        ch.time(name, case, lambda: _grad_call(d, grid, disps, K, False, scale, 'const', 0.0, ups, False),
+        ch.time(name, case, lambda: _grad_call(d, grid, disps, K, False, scale, 'const', 0.0, ups, False, word=word),
                 lambda: _grad_call(d, grid, disps, K, False, scale, 'const', 0.0, ups, True),
                 nbytes(grid, *disps, *ups) + nbytes(grid, *disps), (2 ** d * (d * d + d + 1) + 32 * d) * grid.numel(),
                 lib, key=name + ' wide', plain_reps=1)
         ch.attach(name, [name + ' wide'])
-        del grid, disps, ups, lib
+        del grid, disps, ups, lib, word
         torch.cuda.empty_cache()
 
 
@@ -3704,21 +3820,26 @@ def run_gradient_path(tag, dims, N, steps, period=None, cg_tol=GRAD_CG_TOL, ch=N
 
 def _keep_grad_calls(name, args, kwargs, kept):
     """`Recorder`'s keep for a differentiated step: the first K6ᵀ / K7ᵀ call of each halo form with and without
-    the extrema (its arguments, the tensors copied)."""
+    the extrema (its arguments and the forward's word it was given, the tensors copied)."""
     grid, disps, K, extrema, scale, mode, const, grads, need_grid, need_disp = args[1:]
     if (mode, bool(extrema)) in kept:
         return {}
-    return {(mode, bool(extrema)): (grid.clone(), [x.clone() for x in disps], K, extrema, scale, mode, const,
-                                     [None if g is None else g.clone() for g in grads], need_grid, need_disp)}
+    word = kwargs.get('verdict')
+    return {(mode, bool(extrema)): ((grid.clone(), [x.clone() for x in disps], K, extrema, scale, mode, const,
+                                     [None if g is None else g.clone() for g in grads], need_grid, need_disp),
+                                    None if word is None else word.clone())}
 
 
 def time_grad_path_inputs(ch, tag, dims, model, state, w):
     """K6ᵀ / K7ᵀ on the inputs one more differentiated step of `tag` gives
     them (`Recorder` with `_keep_grad_calls`): the first call of each halo
-    form with and without the extrema, against the twin's VJP, then timed
-    as phase 3's rows are (the library's `grid_sample` where the grid is
-    raw and its halo constant 0 or clamped), kept in the kernel's row as its
-    parts. d_grid within GRAD_TOL of its largest entry; d_disp within
+    form with and without the extrema, with the forward's word the step
+    gave it (the instantiation autograd launches; a call given none is
+    replayed bare), against the twin's VJP, then timed as phase 3's rows
+    are (the library's `grid_sample` where the grid is raw and its halo
+    constant 0 or clamped), kept in the kernel's row as its parts. The
+    gate: each form was given the forward's word. d_grid within GRAD_TOL of
+    its largest entry; d_disp within
     GRAD_TOL of its largest term, max |g| · |scale| · max |grid| (the
     d_disp of a unit step): on smooth fields d_disp is a difference of
     neighbouring grid values, which the twin forms by summing the window's
@@ -3730,12 +3851,16 @@ def time_grad_path_inputs(ch, tag, dims, model, state, w):
     with Recorder(_keep_grad_calls, _window_interp_grad_cuda=I) as rec:
         _smoke_grad(model, state, w, 1)
     keys = []
-    for (mode, extrema), args in rec.kept.items():
+    for (mode, extrema), (args, word) in rec.kept.items():
         grid, disps, K, _, scale, _, const, grads, need_grid, need_disp = args
         ups = [g for g in grads if g is not None]
         what = (f'{tag} path inputs, {tuple(disps[0].shape)} K={K} {mode or "padded"}{" extrema" if extrema else ""}'
-                f'{"" if need_grid else ", d_disp only"}')
-        got = I._window_interp_grad_cuda(f'window_interp_{dims}d', *args)
+                f'{"" if need_grid else ", d_disp only"}{", bare" if word is None else ""}')
+        if word is None:
+            print(f'check {name:17s} {what}: the step gave K6T / K7T no forward\'s word FAIL')
+            ch.failed.append(f'{name} {what}: no forward\'s word')
+        kw = {} if word is None else dict(verdict=word)
+        got = I._window_interp_grad_cuda(f'window_interp_{dims}d', *args, **kw)
         ref = I._window_interp_vjp_plain(*args)
         if got[0] is not None:
             ch.compare(name, f'{what} d_grid', got[0], ref[0], GRAD_TOL * max(float(ref[0].abs().max()), 1e-30))
@@ -3754,7 +3879,7 @@ def time_grad_path_inputs(ch, tag, dims, model, state, w):
         lib = (_grid_sample_backward(grid, disps, K, scale, 'border' if mode == 'edge' else 'zeros', ups[0])
                if raw and ups else None)
         key = f'{name} {tag} {mode or "padded"}{" +extrema" if extrema else ""}'
-        ch.time(name, what, lambda: I._window_interp_grad_cuda(f'window_interp_{dims}d', *args),
+        ch.time(name, what, lambda: I._window_interp_grad_cuda(f'window_interp_{dims}d', *args, **kw),
                 lambda: I._window_interp_vjp_plain(*args), nbytes(grid, *disps, *ups) + nbytes(*outs), ops, lib,
                 key=key)
         keys.append(key)
@@ -3825,7 +3950,7 @@ def gradient_kernel_vs_twin(dims, N, steps=1, tol=1e-3, max_cells=8):
         vel, smoke, _ = state_from_numpy(*arrays, device='cuda')
         if route == 'twin':
             launched = _build.LAUNCHES[k6t] - before
-            I._window_interp_grad_cuda = lambda name, *args: I._window_interp_vjp_plain(*args)
+            I._window_interp_grad_cuda = lambda name, *args, verdict=None: I._window_interp_vjp_plain(*args)
         try:
             _, gvel, gsmoke = _smoke_grad(model, (vel, smoke), w, steps)
         finally:
@@ -3940,7 +4065,7 @@ def check_guards(N=64):
 def run_gradients(ch):
     """Phase 6's paths: the differentiated rollouts at full width (256³, 3
     steps; 4096², 2 steps) with K6ᵀ / K7ᵀ timed on their inputs, CPU against
-    card at 64³ and 256², max_cells=8 at 32³ against the twin, the network trained
+    card at 32³ and 128², max_cells=8 at 32³ against the twin, the network trained
     through the projection, the guards, then the CG dot probe (last: its
     model's memory stays out of the paths' peaks)."""
     import torch
@@ -3951,8 +4076,8 @@ def run_gradients(ch):
                                                 cg_tol=GRAD_CG_TOL_4096, ch=ch)
     torch.cuda.empty_cache()
     part.done('6 grad-256 and grad-4096-2d')
-    gradient_cpu_vs_card(3, 64, steps=1)
-    gradient_cpu_vs_card(2, 256)
+    gradient_cpu_vs_card(3, 32, steps=1)
+    gradient_cpu_vs_card(2, 128)
     gradient_kernel_vs_twin(3, 32, max_cells=8)
     part.done('6 CPU against card')
     run_network_training()
@@ -6252,6 +6377,406 @@ def run_open_boundaries(ch):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the 3D mesh slice (mesh-channel-3d), I/O and utilities, the Field cases that raised, entry()
+# ---------------------------------------------------------------------------
+
+# mesh-channel-3d: unit hexahedra over [0, 96] × [0, 32] × [0, 32] without the cube x ∈ [16, 24), y, z ∈ [12, 20):
+# 96·32·32 − 512 = 97,792 cells; CylinderWake's step in 3D at Re 150 on the cube's side (ν = 8 / 150), dt 0.5
+CHANNEL = dict(nx=96, ny=32, nz=32, cube=((16, 24), (12, 20), (12, 20)))
+CHANNEL_SMALL = dict(nx=12, ny=6, nz=6, cube=((2, 4), (2, 4), (2, 4)))  # CPU against card
+CHANNEL_STEP = dict(dt=0.5, viscosity=8 / 150, tol=1e-4, max_iterations=500)
+CHANNEL_RUNS = (1, 2)  # warm-up, timed steps
+CHANNEL_CPU_TOL = 1e-4  # of each field's scale, with equal BiCGStab counts
+# `projection_readings`' gates: the pressure solve's residual in L2, 10× its tol 1e-4 (BiCGStab's recurrence residual
+# drifts from the true one), and the subtraction of G p (float32 rounding of O(1) values; 2.7e-07 at 12 × 6 × 6)
+CHANNEL_RESIDUAL_TOL = 1e-3
+CHANNEL_GRADIENT_TOL = 1e-4
+IO_N = 256     # the smoke state written, read, put in a scene and a checkpoint
+CASES_N = 64   # the Field cases card against CPU
+CASES_POINTS = 64
+
+
+def channel_arrays(nx, ny, nz, cube):
+    """(points, hexes, groups) of the channel: unit hexahedra over [0, nx] ×
+    [0, ny] × [0, nz] without the cells of `cube` ((lo, hi) cells an axis),
+    SU2 / VTK vertex order; the groups inlet (x = 0), outlet (x = nx), walls
+    (y, z on the box) and cube, each an (n, 4) array of the hexes' boundary
+    quads."""
+    import numpy as np
+    vid = np.arange((nx + 1) * (ny + 1) * (nz + 1)).reshape(nx + 1, ny + 1, nz + 1)
+    pts = np.stack(np.meshgrid(np.arange(nx + 1), np.arange(ny + 1), np.arange(nz + 1), indexing='ij'), -1)
+    pts = pts.reshape(-1, 3).astype(np.float32)
+    keep = np.ones((nx, ny, nz), bool)
+    keep[tuple(slice(lo, hi) for lo, hi in cube)] = False
+    i, j, k = np.nonzero(keep)
+    hexes = np.stack([vid[i, j, k], vid[i + 1, j, k], vid[i + 1, j + 1, k], vid[i, j + 1, k],
+                      vid[i, j, k + 1], vid[i + 1, j, k + 1], vid[i + 1, j + 1, k + 1], vid[i, j + 1, k + 1]], 1)
+    padded = np.zeros((nx + 2, ny + 2, nz + 2), bool)
+    padded[1:-1, 1:-1, 1:-1] = keep
+    groups = {'inlet': [], 'outlet': [], 'walls': [], 'cube': []}
+    # a hexahedron's faces (the mesh's own order) and the neighbour each faces: z-, z+, y-, x+, y+, x-
+    for tpl, (dx, dy, dz) in (((0, 3, 2, 1), (0, 0, -1)), ((4, 5, 6, 7), (0, 0, 1)), ((0, 1, 5, 4), (0, -1, 0)),
+                              ((1, 2, 6, 5), (1, 0, 0)), ((2, 3, 7, 6), (0, 1, 0)), ((3, 0, 4, 7), (-1, 0, 0))):
+        faces = hexes[~padded[i + 1 + dx, j + 1 + dy, k + 1 + dz]][:, list(tpl)]
+        c = pts[faces].mean(1)
+        inlet, outlet = c[:, 0] == 0, c[:, 0] == nx
+        walls = ~inlet & ~outlet & ((c[:, 1] == 0) | (c[:, 1] == ny) | (c[:, 2] == 0) | (c[:, 2] == nz))
+        for name, sel in (('inlet', inlet), ('outlet', outlet), ('walls', walls), ('cube', ~(inlet | outlet | walls))):
+            groups[name].append(faces[sel])
+    return pts, hexes, {name: np.concatenate(f) for name, f in groups.items()}
+
+
+def write_su2(path, pts, hexes, groups):
+    """The channel as an SU2 ASCII file: hexahedra (VTK 12), points, one quad (VTK 9) marker a group."""
+    with open(path, 'w') as f:
+        f.write(f'NDIME= 3\nNELEM= {len(hexes)}\n')
+        f.writelines(f'12 {" ".join(map(str, h))} {e}\n' for e, h in enumerate(hexes.tolist()))
+        f.write(f'NPOIN= {len(pts)}\n')
+        f.writelines(f'{x:g} {y:g} {z:g} {n}\n' for n, (x, y, z) in enumerate(pts.tolist()))
+        f.write(f'NMARK= {len(groups)}\n')
+        for name, faces in groups.items():
+            f.write(f'MARKER_TAG= {name}\nMARKER_ELEMS= {len(faces)}\n')
+            f.writelines(f'9 {" ".join(map(str, q))}\n' for q in faces.tolist())
+
+
+def channel_state(mesh, cube):
+    """The uniform stream (1, 0, 0) with CylinderWake's transverse kick upstream of the cube, and p = 0."""
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import Field
+    from phiflow_tpu_torch.physics import fluid
+    one = math.vec(x=1., y=0., z=0.)
+    bc = {'inlet': one, 'outlet': math.extrapolation.ZERO_GRADIENT, 'walls': one, 'cube': 0.}
+    cx = mesh.center[{'vector': 'x'}]
+    kick = 0.05 * math.exp(-(cx - (cube[0][0] + cube[0][1]) / 2) ** 2)
+    v = Field(mesh, math.stack({'x': math.ones_like(cx), 'y': kick, 'z': math.zeros_like(cx)},
+                               math.channel(vector='x,y,z')), bc)
+    return v, Field(mesh, math.zeros_like(cx), fluid._pressure_extrapolation(v.boundary))
+
+
+def channel_step(v, p, dt, viscosity, tol, max_iterations):
+    """CylinderWake's step (`models/cylinder_wake.py`) on the channel: implicit
+    momentum by BiCGStab on `_momentum_eq`, then `make_incompressible` with
+    'auto' (BiCGStab, the mesh Chebyshev preconditioner). Returns v, p, max |div|
+    before and after the projection (device scalars), the solves' iterations and
+    the projection's Fields for `projection_readings` (the divergences before and
+    after it, the velocity's boundary)."""
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import divergence
+    from phiflow_tpu_torch.models.cylinder_wake import _momentum_eq
+    from phiflow_tpu_torch.physics import fluid
+    with math.SolveTape() as tape:
+        mom = math.Solve('biCG-stab', tol, tol, x0=v, max_iterations=max_iterations,
+                         suppress=(math.ConvergenceException,))
+        v = math.solve_linear(_momentum_eq, v, mom, v, dt, viscosity, False)
+        div = divergence(v)
+        before = div.values.native(('cells',)).abs().max()
+        prs = math.Solve('auto', tol, tol, x0=p, max_iterations=max_iterations, suppress=(math.ConvergenceException,))
+        boundary = v.boundary
+        v, p = fluid.make_incompressible(v, (), prs)
+    div_after = divergence(v)
+    after = div_after.values.native(('cells',)).abs().max()
+    return v, p, before, after, [info.iterations for info in tape], (div, div_after, boundary)
+
+
+def projection_readings(p, fields):
+    """What a projection of the channel left, from its pressure `p` and `channel_step`'s Fields: (a) the pressure
+    solve's residual, |L p − div| over |div| in L2 (L the compact mesh Laplacian that `make_incompressible` solves,
+    `masked_laplace`); (b) max |div after − (div − D G p)| over max |div| (G the Green-Gauss gradient it subtracts, D
+    the divergence under the velocity boundary's linear part): whether the step subtracted G p; (c) max |div after −
+    (L p − D G p)| over max |div|. The collocated scheme leaves L p − D G p in the divergence: D G p is the wide
+    Laplacian (a cell's neighbours' neighbours), which the compact L solved does not cancel, so a converged
+    projection reduces |div| by about half on this mesh (the JAX package's too). (a) and (b) small say the solve
+    converged and its gradient was subtracted; (c) says the rest of |div| is that mismatch and nothing else.
+    Returns (a, b, c, max |L p − D G p|) as floats."""
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.field import divergence, spatial_gradient
+    from phiflow_tpu_torch.physics import fluid
+    div, div_after, boundary = fields
+    lap = fluid.masked_laplace(p, boundary, None, None, wide_stencil=False, order=2)
+    grad = spatial_gradient(p, boundary, at='center', order=2)
+    wide = divergence(grad.with_boundary(math.extrapolation.remove_constant_offset(boundary)))
+    b, a, L, W = (f.values.native(('cells',)).double() for f in (div, div_after, lap, wide))
+    scale = float(b.abs().max())
+    return (float((L - b).norm() / b.norm()), float((a - (b - W)).abs().max()) / scale,
+            float((a - (L - W)).abs().max()) / scale, float((L - W).abs().max()))
+
+
+def run_mesh_channel(tag='mesh-channel-3d', warmup=CHANNEL_RUNS[0], steps=CHANNEL_RUNS[1]):
+    """mesh-channel-3d on the card: the mesh's build on the host (`geom.mesh` of the arrays, the tables' copy to the
+    card included), written as SU2 and read back by `load_su2` (its tables equal the built ones), then CylinderWake's
+    step in 3D: ms a step on the host clock, BiCGStab iterations a solve, syncs of the warm-up step,
+    max_memory_allocated, device busy ms and kernels a step (torch.profiler, one more step). Gates: 97,792 cells,
+    finite velocity and pressure, |div| after each projection below its value before, each projection's pressure
+    residual and subtracted gradient (`projection_readings`), no kernel of ours launched.
+    Returns the launch counts of the timed steps."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from phiflow_tpu_torch import geom
+    from phiflow_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    pts, hexes, groups = channel_arrays(**CHANNEL)
+    mesh = geom.mesh(pts, hexes, groups)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'channel.su2')
+        t0 = time.perf_counter()
+        write_su2(path, pts, hexes, groups)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = geom.load_su2(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    unequal = [name for name in FVM_TABLES if not torch.equal(_mesh_table(loaded, name), _mesh_table(mesh, name))]
+    if unequal or loaded.boundaries != mesh.boundaries:
+        raise RuntimeError(f'{tag}: load_su2 tables differ from mesh(...) of the same arrays: {unequal}, '
+                           f'{loaded.boundaries} / {mesh.boundaries}')
+    cells = loaded.cell_count
+    expected = CHANNEL['nx'] * CHANNEL['ny'] * CHANNEL['nz'] - int(np.prod([hi - lo for lo, hi in CHANNEL['cube']]))
+    if cells != expected:
+        raise RuntimeError(f'{tag}: {cells} cells, {expected} expected')
+    v, p = channel_state(loaded, CHANNEL['cube'])
+    divs, kept = [], []
+    for k in range(warmup):
+        syncs, sync_lines, (v, p, before, after, warm_its, fields) = syncs_a_step(
+            lambda state: channel_step(*state, **CHANNEL_STEP), (v, p))
+        divs.append((float(before), float(after)))
+        kept.append((p, fields))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    its = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        v, p, before, after, step_its, fields = channel_step(v, p, **CHANNEL_STEP)
+        its.append(step_its)
+        divs.append((before, after))
+        kept.append((p, fields))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    peak = torch.cuda.max_memory_allocated()
+    divs = [(float(b), float(a)) for b, a in divs]
+    readings = [projection_readings(*k) for k in kept]
+    del kept
+    vel, pres = v.values.native(('cells', 'vector')), p.values.native(('cells',))
+    finite = bool(torch.isfinite(vel).all()) and bool(torch.isfinite(pres).all())
+    device_ms, wall_ms = profile_path(tag, f'{cells} cells', lambda state: channel_step(*state, **CHANNEL_STEP)[:2],
+                                      (v, p), warmup=0, steps=1)
+    print(f'{tag} {cells} cells ({len(hexes)} hexahedra, {", ".join(f"{k} {len(f)}" for k, f in groups.items())} '
+          f'boundary quads): mesh built on the host in {build_s:.2f} s (tables to the card included), SU2 written in '
+          f'{write_s:.2f} s and loaded in {load_s:.2f} s (tables equal); {ms:.2f} ms/step over {steps} step(s) after '
+          f'{warmup} warm-up, {cells / ms * 1e-3:.4f} Mcells/s; BiCGStab iterations (momentum, pressure) a step '
+          f'{its} (warm-up {warm_its}); syncs in the warm-up step {syncs} {sync_lines or ""}; max_memory_allocated '
+          f'{peak / 2 ** 30:.3f} GiB; device busy {device_ms:.2f} ms/step under the profiler ({wall_ms:.2f} ms wall); '
+          f'max |div| before / after each projection {", ".join(f"{b:.3e} / {a:.3e}" for b, a in divs)}; max |v| '
+          f'{float(vel.abs().max()):.4f}, max |p| {float(pres.abs().max()):.4f}; kernels of ours launched: '
+          f'{launches or "none"}; all finite: {finite}')
+    print(f'{tag} each projection (`projection_readings`): pressure residual |L p - div| / |div| (L2; tol '
+          f'{CHANNEL_RESIDUAL_TOL:g}), max |div after - (div - D G p)| / max |div| (tol {CHANNEL_GRADIENT_TOL:g}), '
+          f'max |div after - (L p - D G p)| / max |div| (tol {CHANNEL_RESIDUAL_TOL:g}), max |L p - D G p|: '
+          + ', '.join(f'{r:.3e} / {g:.3e} / {m:.3e} / {w:.3e}' for r, g, m, w in readings))
+    bad = []
+    if launches:
+        bad.append(f'kernels of ours launched {launches}')
+    if not finite:
+        bad.append('velocity or pressure not finite')
+    if not all(a < b for b, a in divs):
+        bad.append(f'|div| not reduced by a projection: {divs}')
+    if not all(r <= CHANNEL_RESIDUAL_TOL and g <= CHANNEL_GRADIENT_TOL and m <= CHANNEL_RESIDUAL_TOL
+               for r, g, m, _ in readings):
+        bad.append(f'a projection did not solve L p = div or subtract G p: {readings}')
+    if bad:
+        raise RuntimeError(f'{tag}: ' + '; '.join(bad))
+    return dict(steps=steps)
+
+
+def _mesh_table(mesh, name):
+    order = {'center': ('cells', 'vector'), 'volume': ('cells',), 'vertices': ('vertices', 'vector'),
+             'face_centers': ('cells', '~faces', 'vector'), 'face_normals': ('cells', '~faces', 'vector')}
+    return getattr(mesh, name).native(order.get(name, ('cells', '~faces')))
+
+
+def channel_cpu_vs_card(steps=2, tol=CHANNEL_CPU_TOL):
+    """The mesh-channel-3d recipe at 12 × 6 × 6 with a 2³ cube on the CPU and the card: velocity and pressure within
+    `tol` of scale each step, equal BiCGStab counts."""
+    import numpy as np
+    from phiflow_tpu_torch import geom, math
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        with math.default_device(dev):
+            mesh = geom.mesh_from_numpy(*channel_arrays(**CHANNEL_SMALL))
+            v, p = channel_state(mesh, CHANNEL_SMALL['cube'])
+            rows = []
+            for _ in range(steps):
+                v, p, _, _, its, _ = channel_step(v, p, **CHANNEL_STEP)
+                rows.append((v.values.native(('cells', 'vector')).cpu().numpy(),
+                             p.values.native(('cells',)).cpu().numpy(), its))
+            out[dev] = rows
+    for k, ((vc, pc, ic), (vg, pg, ig)) in enumerate(zip(out['cpu'], out['cuda'])):
+        ev = float(np.abs(vc - vg).max()) / float(np.abs(vc).max())
+        ep = float(np.abs(pc - pg).max()) / max(float(np.abs(pc).max()), 1e-30)
+        ok = ev <= tol and ep <= tol and ic == ig
+        print(f'cpu vs card, mesh-channel-3d at 12x6x6 step {k + 1}: velocity {ev:.2e}, pressure {ep:.2e} of scale '
+              f'(tol {tol:g}); BiCGStab iterations cpu {ic}, card {ig} {"ok" if ok else "FAIL"}')
+        if not ok:
+            raise RuntimeError(f'mesh-channel-3d: CPU and card disagree at step {k + 1}: {ev}, {ep}, {ic} / {ig}')
+
+
+def run_io_round_trips(N=IO_N):
+    """A 256³ smoke state (staggered velocity, smoke, pressure) from the card: `field.write` / `field.read`, a
+    `Scene` (write, read, properties, frames) and a checkpoint restored onto the card, each back on the card and
+    bit-equal; seconds of each."""
+    import os
+    import tempfile
+    import torch
+    from phiflow_tpu_torch import field, utils
+    from phiflow_tpu_torch.models import SmokePlume, state_from_numpy
+    *vel, smoke, _ = smooth_state(N, 3)
+    model = SmokePlume(resolution=N, dims=3, device='cuda')
+    state = model.state_fields(*state_from_numpy(*vel, smoke, smoke * 0.3 - 0.1, device='cuda'))
+    names = ('velocity', 'smoke', 'pressure')
+    mb = sum(t.numel() * 4 for f in state for t in _field_tensors(f)) / 2 ** 20
+
+    def same(got):
+        return all(a.is_cuda and torch.equal(a, b) for g, f in zip(got, state)
+                   for a, b in zip(_field_tensors(g), _field_tensors(f)))
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for name, f in zip(names, state):
+            field.write(f, os.path.join(tmp, name))
+        seconds['write'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = [field.read(os.path.join(tmp, name)) for name in names]
+        torch.cuda.synchronize()
+        seconds['read'] = time.perf_counter() - t0
+        ok = {'write / read': same(back) and all(b.boundary == f.boundary for b, f in zip(back, state))}
+        t0 = time.perf_counter()
+        scene = field.Scene.create(os.path.join(tmp, 'scenes'), copy_calling_script=True, N=N)
+        scene.write(dict(zip(names, state)), frame=3)
+        back = scene.read(*names, frame=3)
+        torch.cuda.synchronize()
+        seconds['scene'] = time.perf_counter() - t0
+        ok['scene'] = same(back) and scene.frames == (3,) and scene.properties == {'N': N} and \
+            os.path.isfile(os.path.join(scene.path, 'src', os.path.basename(__file__)))
+        t0 = time.perf_counter()
+        path = utils.save_checkpoint(os.path.join(tmp, 'ckpt'), state)
+        back = utils.load_checkpoint(path, device='cuda')
+        torch.cuda.synchronize()
+        seconds['checkpoint'] = time.perf_counter() - t0
+        ok['checkpoint'] = same(back)
+    print(f'io {N}^3 smoke state ({mb:.0f} MiB on the card): ' + ', '.join(f'{k} {v:.2f} s' for k, v in seconds.items())
+          + '; back on the card bit-equal: ' + ', '.join(f'{k} {v}' for k, v in ok.items()))
+    if not all(ok.values()):
+        raise RuntimeError(f'io round trips not bit-equal: {ok}')
+
+
+def _field_tensors(f):
+    """A grid Field's torch tensors, the axes in x, y, z order: its face components x, y, z, or its values (a read
+    Field may hold its dims in another order)."""
+    names = tuple(sorted(f.resolution.names))
+    if f.is_staggered:
+        return [f.vector[d].values.native(names) for d in names]
+    return [f.values.native(names)]
+
+
+def field_cases_cpu_vs_card(N=CASES_N, points=CASES_POINTS, tol=1e-5):
+    """The Field cases that raised before, on the card against the CPU at 64³ from the same numpy inputs: the
+    divergence of a staggered velocity under ANTISYMMETRIC walls, a cloud of spheres resampled onto a centred grid
+    without scatter (hard and soft) and onto a staggered one, and a grid Field and the cloud sampled at the
+    mesh-channel-3d recipe's 12 × 6 × 6 mesh. Each result a torch tensor on the card, within `tol` of scale of
+    the CPU's."""
+    import numpy as np
+    from phiflow_tpu_torch import field, geom, math
+    from phiflow_tpu_torch.models import to_device
+    rng = np.random.default_rng(23)
+    res = dict(x=N, y=N, z=N)
+    values = rng.standard_normal((N, N, N, 3)).astype(np.float32)
+    centres = rng.uniform(0, N, (points, 3)).astype(np.float32)
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        with math.default_device(dev):
+            vel = to_device(field.CenteredGrid(math.tensor(values, math.spatial('x,y,z'), math.channel(vector='x,y,z')),
+                                               0., **res), dev)
+            pts = math.tensor(centres, math.instance('points'), math.channel(vector='x,y,z'))
+            cloud = to_device(field.PointCloud(geom.Sphere(pts, radius=2.5), pts * 0.1), dev)
+            mesh = geom.mesh_from_numpy(*channel_arrays(**CHANNEL_SMALL))
+            target = field.CenteredGrid(0, 0, **res)
+            results = {
+                'divergence, ANTISYMMETRIC walls':
+                    field.divergence(field.StaggeredGrid(vel, math.extrapolation.ANTISYMMETRIC, **res)).values,
+                'points onto a centred grid, hard': field.resample(cloud, target).values,
+                'points onto a centred grid, soft': field.resample(cloud, target, soft=True).values,
+                'points onto a staggered grid': field.resample(cloud, field.StaggeredGrid(0, 0, **res)).values,
+                'a grid Field at a mesh': field.sample(vel, mesh),
+                'points at a mesh': field.sample(cloud, mesh),
+            }
+            out[dev] = {k: _case_numpy(t, dev) for k, t in results.items()}
+    for case, (ref, _) in out['cpu'].items():
+        got, on_card = out['cuda'][case]
+        err = max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30) for a, b in zip(got, ref))
+        ok = on_card and err <= tol
+        print(f'cpu vs card, Field case at {N}^3: {case}: {err:.2e} of scale (tol {tol:g}), on the card: {on_card} '
+              f'{"ok" if ok else "FAIL"}')
+        if not ok:
+            raise RuntimeError(f'Field case {case!r}: card against CPU {err}, on the card {on_card}')
+
+
+def _case_numpy(t, dev):
+    """(arrays of a result's components, whether each native lies on `dev`)."""
+    import torch
+    parts = [t[{'~vector': l}] for l in t.shape.get_labels('~vector')] if '~vector' in t.shape.names else [t]
+    natives = [p.native(tuple(sorted(p.shape.names))) for p in parts]
+    on = all(isinstance(n, torch.Tensor) and n.device.type == torch.device(dev).type for n in natives)
+    return [n.detach().cpu().numpy() if isinstance(n, torch.Tensor) else n for n in natives], on
+
+
+def run_entry(steps=2):
+    """`phiflow_tpu_torch._entry.entry()` on the card: its SmokePlume 16³ step twice, finite, with K6 and the
+    projection's kernels launched."""
+    import torch
+    from phiflow_tpu_torch._entry import entry
+    from phiflow_tpu_torch.ops import _build
+    fn, state = entry()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = fn(*state)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    finite = all(bool(torch.isfinite(t).all()) for f in state for t in _field_tensors(f))
+    smoke = float(_field_tensors(state[1])[0].max())
+    print(f'entry(): SmokePlume(16, dims=3) {ms:.2f} ms/step over {steps} steps (the first included), max smoke '
+          f'{smoke:.4f}, all finite: {finite}; kernels of ours launched: {launches}')
+    if not finite or smoke <= 0 or not launches.get('window_interp_3d') or not launches.get('poisson_stencil'):
+        raise RuntimeError(f'entry(): finite={finite}, max smoke {smoke}, launches {launches}')
+    return launches
+
+
+def run_mesh_and_io():
+    """Phase 11: mesh-channel-3d, its CPU against the card, the I/O round trips, the Field cases, entry()."""
+    import torch
+    part = PhaseClock('part of phase')
+    by_path = {'mesh-channel-3d': run_mesh_channel()}
+    torch.cuda.empty_cache()
+    channel_cpu_vs_card()
+    part.done('11 mesh-channel-3d and its CPU against card')
+    run_io_round_trips()
+    torch.cuda.empty_cache()
+    part.done('11 I/O round trips')
+    field_cases_cpu_vs_card()
+    torch.cuda.empty_cache()
+    part.done('11 Field cases')
+    by_path['entry'] = run_entry()
+    part.done('11 entry()')
+    return by_path
+
+
 class PhaseClock:
     """Seconds of each phase (or part of one) on the host clock, printed on a line of its own as it ends."""
 
@@ -6415,6 +6940,8 @@ def main(argv):
     clock.done('9 batched simulation')
     by_path.update(run_open_boundaries(ch))
     clock.done('10 open boundaries')
+    by_path.update(run_mesh_and_io())
+    clock.done('11 mesh slice, I/O and utilities')
     if '--profile' in argv:
         for tag, dims, N, per_phase, _ in PATHS:
             profile_slice(tag, dims, N, per_phase)

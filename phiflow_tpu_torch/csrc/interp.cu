@@ -136,6 +136,9 @@ struct InterpArgs {
     long long disp_stride;         // elements from one entry's displacements to the next (0: shared)
     int *flag;  // two ints on the device, both 0 between calls: [0] raised by a non-finite grid cell, [1] the fix
                 // kernel's count of finished blocks
+    int *verdict;  // or null: the call's word, which its fix kernel sets to 1 where the grid held a NaN or an
+                   // infinity (or the constant halo is not finite), else to 0; the backward of the same grid reads
+                   // it in place of a test of its own (InterpGradArgs::verdict)
 };
 
 #define WI_THREADS 256
@@ -370,7 +373,9 @@ __device__ __forceinline__ float tap_value(const Src &g, const int (&l)[D]) {
 // strides over the outputs.
 template <int D>
 __global__ void __launch_bounds__(FIX_THREADS) window_interp_fix_kernel(const InterpArgs a) {
-    if (!fix_raised(a.flag, a.grid.mode == SRC_CONST && nonfinite(a.grid.c))) return;
+    const bool raised = fix_raised(a.flag, a.grid.mode == SRC_CONST && nonfinite(a.grid.c));
+    if (a.verdict && blockIdx.x == 0 && threadIdx.x == 0) *a.verdict = raised;
+    if (!raised) return;
     const int K = a.K, W = 2 * K + 1;
     int taps = 1;
 #pragma unroll
@@ -472,6 +477,10 @@ struct InterpGradArgs {
     int ring;   // set by the C entry: slot planes held in shared memory, 2K + 2 or 1 (each recomputed for every
                 // plane it serves)
     int *flag;  // as InterpArgs::flag, for d_disp's fix kernel
+    const int *verdict;  // or null: the verdict of the forward call that read this grid (InterpArgs::verdict). Where
+                         // it is given, d_disp's kernel is built without the grid's test and its fix kernel reads
+                         // the word in place of the flag; where it is null (a call without that forward), d_disp
+                         // tests every cell as the forward does
 };
 
 // A plane of slots, a thread a slot: in 3D a tile of 32 columns (16 for K > 5) with its K-wide halo, by as many
@@ -582,7 +591,7 @@ __device__ __forceinline__ void own_cells(const Src &g, const int (&o)[D], const
 // at a time), no shared memory and no barrier. Each output's corners and, per axis, its extra tap at the other
 // axes' corners are unrolled at compile time; in 2D an output whose taps all lie inside the grid addresses them
 // directly (in 3D the second path's registers cost more than the resolution saves).
-template <int D, typename Idx>
+template <int D, typename Idx, bool TEST>
 __global__ void __launch_bounds__(WI_THREADS) window_interp_disp_grad_kernel(const InterpGradArgs a) {
     const int K = a.K, lane = threadIdx.x & 31;
     const int r0 = blockIdx.y * WI_TY, c0 = blockIdx.x * WI_TX;
@@ -597,7 +606,8 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_disp_grad_kernel(con
     o[D - 2] = r0 + (threadIdx.x >> 5);
     o[D - 1] = c0 + lane;
     const int n_out = a.o[D - 1];
-    if (a.d_disp[0]) test_shell<D>(a.grid, a.o, K, a.grid_stride ? a.nb : 1, a.grid_stride, a.flag);
+    const bool test = TEST && a.d_disp[0];  // the grid's cells (TEST: the call has no forward's verdict)
+    if (test) test_shell<D>(a.grid, a.o, K, a.grid_stride ? a.nb : 1, a.grid_stride, a.flag);
     if (o[D - 2] >= a.o[D - 2] || o[D - 1] >= n_out) return;
     Src g = a.grid;
     g.p += entry * a.grid_stride;
@@ -610,7 +620,7 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_disp_grad_kernel(con
     stride[D - 1] = 1;
 #pragma unroll
     for (int e = D - 2; e >= 0; --e) stride[e] = stride[e + 1] * g.n[e + 1];
-    if (D == 2 && a.d_disp[0]) own_cells(g, o, stride, n_out, a.flag);
+    if (D == 2 && test) own_cells(g, o, stride, n_out, a.flag);
     unsigned nan_outputs = 0;  // bit k: output k has a NaN displacement (its taps marked in d_grid after the loop)
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -731,7 +741,7 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_disp_grad_kernel(con
 
     // the grid cells at the outputs' own positions (test_shell's comment): in 3D after the loop, where they cost it
     // no registers (before it, the loop spills), in 2D before it (above), where its corner gathers find them cached
-    if (D == 3 && a.d_disp[0]) own_cells(g, o, stride, n_out, a.flag);
+    if (D == 3 && test) own_cells(g, o, stride, n_out, a.flag);
     if (nan_outputs && a.d_grid && a.g_out) {  // rare: outside the loop above, so that it costs that loop no registers
 #pragma unroll 1
         for (int k = 0; k < 4; ++k) {
@@ -748,16 +758,17 @@ __global__ void __launch_bounds__(WI_THREADS) window_interp_disp_grad_kernel(con
 __device__ __forceinline__ float slope_max(float a, float b) { return a > b ? 1.f : (a == b ? 0.5f : 0.f); }
 
 // K6T / K7T's d_disp fix kernel, launched after the d_disp kernel: it returns at once unless the grid held a NaN or
-// an infinity (test_shell's comment). Then every output takes the derivative JAX's AD gives the window sum, every
-// tap of [-K, K]^D with the products that AD forms: per tap and axis a, g v times the other axes' tent weights
-// times the tent's slope (1, 1/2 at its kink, 0 past it: multiplied, so 0 * inf and 0 * NaN are NaN), signed by
-// d - s; the sum times the clip's derivative (multiplied too) and the scale. So an output whose window holds such
-// a value has d_disp NaN or +-inf on every axis; the others get the gradient the first kernel gives, up to
-// rounding. Without the outputs' upstream gradient (lo / up only) d_disp is 0. Every output, as the forward's fix
-// kernel does: the first kernel's result is not used where the grid is not finite.
+// an infinity (the forward's verdict where the call has one, else the d_disp kernel's flag: test_shell's comment).
+// Then every output takes the derivative JAX's AD gives the window sum, every tap of [-K, K]^D with the products
+// that AD forms: per tap and axis a, g v times the other axes' tent weights times the tent's slope (1, 1/2 at its
+// kink, 0 past it: multiplied, so 0 * inf and 0 * NaN are NaN), signed by d - s; the sum times the clip's
+// derivative (multiplied too) and the scale. So an output whose window holds such a value has d_disp NaN or +-inf
+// on every axis; the others get the gradient the first kernel gives, up to rounding. Without the outputs' upstream
+// gradient (lo / up only) d_disp is 0. Every output, as the forward's fix kernel does: the first kernel's result is
+// not used where the grid is not finite.
 template <int D>
 __global__ void __launch_bounds__(FIX_THREADS) window_interp_disp_fix_kernel(const InterpGradArgs a) {
-    if (!fix_raised(a.flag, a.grid.mode == SRC_CONST && nonfinite(a.grid.c))) return;
+    if (!fix_raised(a.verdict ? a.verdict : a.flag, a.grid.mode == SRC_CONST && nonfinite(a.grid.c))) return;
     const int K = a.K, W = 2 * K + 1;
     const float kf = (float)K;
     int taps = 1;
@@ -1301,8 +1312,14 @@ static int launch_grad(const InterpGradArgs &a, int extrema, cudaStream_t s) {
     if (!a.d_disp[0] && !(a.d_grid && a.g_out)) return 0;
     if (a.d_disp[0] && !a.flag) return (int)cudaErrorInvalidValue;
     const dim3 g((a.o[D - 1] + WI_TX - 1) / WI_TX, (a.o[D - 2] + WI_TY - 1) / WI_TY, (unsigned)planes);
-    if (small) window_interp_disp_grad_kernel<D, int><<<g, WI_THREADS, 0, s>>>(a);
-    else window_interp_disp_grad_kernel<D, long long><<<g, WI_THREADS, 0, s>>>(a);
+    // with the forward's verdict, an instantiation without the grid's test, which then costs it no registers
+    if (a.verdict) {
+        if (small) window_interp_disp_grad_kernel<D, int, false><<<g, WI_THREADS, 0, s>>>(a);
+        else window_interp_disp_grad_kernel<D, long long, false><<<g, WI_THREADS, 0, s>>>(a);
+    } else {
+        if (small) window_interp_disp_grad_kernel<D, int, true><<<g, WI_THREADS, 0, s>>>(a);
+        else window_interp_disp_grad_kernel<D, long long, true><<<g, WI_THREADS, 0, s>>>(a);
+    }
     // then, for d_disp, the outputs whose window holds a NaN or an infinity of the grid (the fix kernel's comment)
     if (a.d_disp[0]) launch_fix(window_interp_disp_fix_kernel<D>, a, n_out * a.nb, s);
     return (int)cudaGetLastError();

@@ -22,6 +22,8 @@ from ._field_math import (
 from ._field_math import is_finite as isfinite
 from ._noise import Noise
 from ._embed import FieldEmbedding
+from ._field_io import write, read
+from ._scene import Scene, SceneBatch
 from ._mask import GeometryMask, HardGeometryMask, SoftGeometryMask
 from ._angular_velocity import angular_velocity, angular_velocity_at_faces
 from ._point_cloud import PointCloud, nonzero, distribute_points, distribute_points_native

@@ -46,7 +46,7 @@ Tensors; orders 4 and 6 elsewhere go through the operator matrices of
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -290,11 +290,12 @@ def _native_sides(field):
     return PerSide(*sides)
 
 
-def _face_layout(boundary, names, walls: bool = True) -> tuple:
+def _face_layout(boundary, names, walls: bool = True, or_none: bool = False) -> Optional[tuple]:
     """The `face_layout` of a staggered grid under `boundary`: per axis
     'periodic', else per side None where the outer face is stored, else the
     wall's normal velocity (a scalar constant; with ``walls=False`` any
-    extrapolation, read as 0)."""
+    extrapolation, read as 0). Where a wall's normal velocity is no scalar
+    constant it raises, or with ``or_none`` returns None."""
     layout = []
     for dim in names:
         stored = boundary.valid_outer_faces(dim)
@@ -310,6 +311,8 @@ def _face_layout(boundary, names, walls: bool = True) -> tuple:
                 sides.append(float(e.value))
             elif not walls:
                 sides.append(0.0)
+            elif or_none:
+                return None
             else:
                 raise NotImplementedError(f"boundary {boundary!r}: the walls' normal velocity along {dim} is not a "
                                           f"scalar constant")
@@ -558,6 +561,23 @@ def stagger(field, face_function: Callable, boundary, at='face', dims=None):
     return _staggered(field, comps, boundary, batch, dims)
 
 
+def _divergence_padded(field):
+    """The divergence of a staggered grid as JAX computes it: each face
+    component padded by one face on each side whose outer face is not stored,
+    with its own extrapolation (a mirror, a vector constant, a Field), then
+    differenced. The path of the boundaries whose walls' normal velocity is
+    no scalar constant, where the face layout has no entry."""
+    from ..math import pad
+    result = None
+    for dim, comp in zip(field.resolution.names, face_components(field.values)):
+        lo, up = field.boundary.valid_outer_faces(dim)
+        padded = pad(comp, {dim: (int(not lo), int(not up))}, field.boundary[{'vector': dim}])
+        n = field.resolution.get_size(dim)
+        term = (padded[{dim: slice(1, n + 1)}] - padded[{dim: slice(0, n)}]) / _dx(field, dim)
+        result = term if result is None else result + term
+    return Field(field.geometry, result, field.boundary.spatial_gradient())
+
+
 def divergence(field, order=2, implicit=None, upwind=None):
     """∇·v at the cell centres: of a staggered grid the differences of each
     component's faces (`divergence_native`, order 2), of a centred vector
@@ -572,7 +592,9 @@ def divergence(field, order=2, implicit=None, upwind=None):
     if field.is_staggered:
         if order != 2 or implicit is not None:
             raise NotImplementedError("the divergence of a staggered grid is of order 2, as in the JAX package")
-        layout = _face_layout(field.boundary, names)
+        layout = _face_layout(field.boundary, names, or_none=True)
+        if layout is None:  # walls whose normal velocity is no scalar constant: JAX's body, on Tensors
+            return _divergence_padded(field)
         _check_staggered_shapes(field, layout)
         comps = face_components(field.values)
         batch = _batch_dims(comps, names, 'divergence')

@@ -64,7 +64,7 @@ from ..geom import UniformGrid
 from ..geom._geom import Geometry, Point, flat_points
 from ..geom._grid import UniformGrid_native
 from ..geom._mesh import Mesh
-from ..math import Tensor, channel, dual, expand, extrapolation, stack, to_float, wrap
+from ..math import Tensor, channel, dual, expand, extrapolation, mean, stack, to_float, wrap
 from ..math._shape import concat_shapes
 from ..math._extrapolation import ConstantExtrapolation
 from ..math._nd import PERIODIC, Extrapolation, PerSide, pad
@@ -325,7 +325,7 @@ def resample(value, to=None, keep_boundary=False, soft=False, scatter=False,
                                                   and not value.shape.instance):
         return to.with_values(value if isinstance(value, Tensor) else wrap(value))
     if isinstance(value, Field) and value.is_point_cloud and not value.is_mesh and not to.is_point_cloud:
-        return to.with_values(_scatter_points(value, to, scatter, outside_handling))
+        return to.with_values(_scatter_points(value, to, scatter, outside_handling, soft, balance))
     if isinstance(value, Field):
         extrap = value.boundary if keep_boundary else to.boundary
         values = sample(value, to.geometry, at=to.sampled_at, boundary=extrap,
@@ -383,6 +383,10 @@ def sample(value, geometry, at: str = 'center', boundary=None, dot_face_normal=N
         return expand(value, geometry.resolution.without(value.shape.names))
     if isinstance(value, Field) and value.is_grid:
         return _sample_grid_field(value, geometry, at, boundary, dot_face_normal, **kwargs)
+    if isinstance(value, Field) and value.is_point_cloud:  # JAX's overlap of the points' geometry with the cells
+        if at == 'face':
+            return _sample_at_faces(lambda g: _overlap(value, g, False, 0.5), geometry, boundary)
+        return _overlap(value, geometry, False, 0.5)
     raise NotImplementedError(f"sampling a {type(value).__name__} comes with a later slice of the port")
 
 
@@ -401,9 +405,16 @@ def _sample_points_at_points(value: Field, target) -> Tensor:
 
 
 def _sample_at_mesh(value, mesh: Mesh) -> Tensor:
-    """A constant, Tensor or callable of the points at a mesh's cell centres:
-    a callable of one parameter takes the centres, of more one component
-    each (`phiflow_tpu/geom/_geom.py::sample_function`)."""
+    """A constant, Tensor, callable of the points, grid Field or point cloud
+    at a mesh's cell centres: a callable of one parameter takes the centres,
+    of more one component each (`phiflow_tpu/geom/_geom.py::sample_function`);
+    a grid Field is looked up at the centres (a staggered one gives a
+    `vector`), a point cloud gives its nearest point's value, as JAX's
+    `_sample_grid_field` / `_sample_points_at_points` do."""
+    if isinstance(value, Field) and value.is_grid:
+        return _sample_grid_at_points_field(value, mesh.center)
+    if isinstance(value, Field) and value.is_point_cloud:
+        return _sample_points_at_points(value, mesh)
     if callable(value) and not isinstance(value, (Field, Tensor)):
         import inspect
         points = mesh.center
@@ -683,15 +694,41 @@ def _point_values(value, n: int, device, vector: bool):
     return vals.torch(inst, device=device).reshape(-1).expand(n).contiguous()
 
 
-def _scatter_points(value, to, scatter: bool, outside_handling: str):
+def _overlap(value, grid, soft: bool, balance):
+    """JAX's resample of a point cloud onto the grid `grid` without scatter
+    (`_scatter_to_centered`'s overlap branch): per cell whether its centre
+    lies inside the points' geometry (any point), or with `soft` the
+    geometry's `approximate_fraction_inside` of the cell; times the mean of
+    the values over the points where the cloud has a channel dim, else the
+    indicator or fraction alone, as there."""
+    if soft:
+        result = value.geometry.approximate_fraction_inside(grid, balance)
+    else:
+        result = to_float(value.geometry.lies_inside(grid.center))
+    if value.shape.channel:
+        inst = value.values.shape.instance
+        result = result * (mean(value.values, inst) if inst else value.values)
+    return result
+
+
+def _scatter_points(value, to, scatter: bool, outside_handling: str, soft: bool = False, balance=0.5):
     """The point cloud `value` onto the grid `to`: the mean of the points'
     values per nearest sample point (`p2g_mean`, K8 in 3D on the card, once
     per target grid), the cloud's boundary constant (NaN, 0) where no point
     lies. A staggered target, in any face layout, takes component a of a
-    vector value onto the face grid of axis a (JAX's `sampled_elements`)."""
+    vector value onto the face grid of axis a (JAX's `sampled_elements`).
+    Without `scatter`, the overlap of the points' geometry with the cells
+    (`_overlap`; a staggered target's face grids take component a's values,
+    which carry no channel dim, as JAX's do)."""
     if not scatter:
-        raise NotImplementedError("resample of points onto a grid without scatter (the overlap of the points' "
-                                  "geometry with the cells) comes with a later slice of the port")
+        if not to.is_staggered:
+            return _overlap(value, to.geometry, soft, balance)
+        comps = []
+        for d in to.resolution.names:
+            comp = Field(value.geometry, value.values.vector[d] if 'vector' in value.values.shape else value.values,
+                         value.boundary)
+            comps.append(_overlap(comp, to.geometry.stagger(d, *to.boundary.valid_outer_faces(d)), soft, balance))
+        return stack(comps, dual(vector=to.resolution.names))
     names = to.resolution.names
     if value.geometry.center.shape.get_labels('vector') not in (None, names):
         raise NotImplementedError(f"points of {value.geometry.center.shape.get_labels('vector')} onto a grid of {names}")

@@ -1,5 +1,4 @@
-"""Geometry — port of `phiflow_tpu/geom`: its names but the marching-cubes
-conversion, the splines, the mesh builder and the mesh loaders."""
+"""Geometry — port of `phiflow_tpu/geom`: its names but the splines."""
 from ._geom import (Geometry, InvertedGeometry, Point, NoGeometry, GeometryException, assert_same_rank, invert, rotate,
                     scale, sample_function)
 from ._box import Box, BaseBox, Cuboid, box_push, bounding_box, box_from_limits
@@ -18,4 +17,6 @@ from ._functions import (cross, clip_length, normal_from_slope, plane_sgn_dist, 
                          closest_points_on_lines, distance_line_point)
 from ._geom_functions import line_trace, length, squared_length, normalize, farthest_points
 from ._graph import Graph, graph
-from ._mesh import Mesh, mesh, mesh_from_numpy, build_mesh
+from ._mesh import Mesh, mesh, mesh_from_numpy, build_mesh, load_su2, load_gmsh, load_stl
+from ._mesh_builder import MeshBuilder, join_meshes, decimate_tri_mesh
+from ._convert import as_sdf, surface_mesh, marching_tetrahedra

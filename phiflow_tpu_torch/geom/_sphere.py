@@ -9,12 +9,12 @@ volume.
 
 An obstacle's sphere keeps its centre on the host. A particle set's —
 a Tensor of points with an instance dim (`distribute_points`) — keeps the
-Tensor as it is, on its device, for `at` and `center`; it is no obstacle, and
-its inside test and signed distance raise."""
+Tensor as it is, on its device, for `at` and `center`; its inside test and
+signed distance, at a Tensor of points, are the union over its spheres (any
+inside, the nearest's distance), as in the JAX package."""
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..math import EMPTY_SHAPE, Tensor, default_float, sqrt, wrap
 from ._geom import Geometry, host_scalar, host_vec, is_point_set, vec_length, vec_squared
@@ -85,18 +85,33 @@ class Sphere(Geometry):
     def radius(self):
         return Tensor(np.asarray(self._radius), EMPTY_SHAPE)
 
+    @property
+    def query_form(self):
+        """'axes' for a sphere, 'tensor' for a set of spheres at points."""
+        return 'tensor' if self._points is not None else 'axes'
+
     def _delta(self, location):
-        if self._points is not None:
-            raise NotImplementedError("a sphere at a set of points (particles) is no obstacle: its inside test and "
-                                      "signed distance come with a later slice of the port")
         if len(location) != self.spatial_rank:
             raise ValueError(f"a {self.spatial_rank}D sphere queried at a {len(location)}D location")
         return [x - float(c) for x, c in zip(location, self._center)]
 
-    def _lies_inside(self, location) -> torch.Tensor:
+    def _reduce_points(self, result: Tensor, location: Tensor, reduce_fn) -> Tensor:
+        """The union over the spheres of a point set: `reduce_fn` over the
+        instance dims of the points that the location does not share."""
+        dims = self._points.shape.instance.without(location.shape.instance.names)
+        return reduce_fn(result, dims) if dims else result
+
+    def _lies_inside(self, location):
+        if self._points is not None:  # inside any of the spheres
+            from ..math._ops import any_, vec_squared as t_squared
+            return self._reduce_points(t_squared(location - self._points) <= float(self._radius) ** 2, location, any_)
         return vec_squared(self._delta(location)) <= float(self._radius ** 2)
 
-    def _signed_distance(self, location) -> torch.Tensor:
+    def _signed_distance(self, location):
+        if self._points is not None:  # the nearest sphere's
+            from ..math._ops import min_, vec_length as t_length
+            return self._reduce_points(t_length(location - self._points, eps=1e-12) - float(self._radius), location,
+                                       min_)
         return vec_length(self._delta(location), eps=1e-12) - float(self._radius)
 
     def approximate_closest_surface(self, location):

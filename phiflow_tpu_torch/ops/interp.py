@@ -132,22 +132,28 @@ def _window_interp(d, grid, disps, K, compute_extrema, negate, const_pad, disp_s
     return _forward(grid, disps, *args)
 
 
-def _forward(grid, disps, name, K, compute_extrema, scale, mode, const):
+def _forward(grid, disps, name, K, compute_extrema, scale, mode, const, verdict=None):
     if grid.is_cuda:
-        return _window_interp_cuda(name, grid, disps, K, compute_extrema, scale, mode, const)
+        return _window_interp_cuda(name, grid, disps, K, compute_extrema, scale, mode, const, verdict)
     return _window_interp_plain(grid, disps, K, compute_extrema, scale, mode, const)
 
 
 class _WindowInterp(torch.autograd.Function):
     """K6 / K7 with their backward: K6ᵀ / K7ᵀ on CUDA, the twin's VJP on
-    the CPU. Saves the inputs only; the backward recomputes the taps."""
+    the CPU. Saves the inputs and, on CUDA, the forward's verdict on the grid
+    (one int: whether it held a NaN or an infinity), so that the backward
+    does not test the grid again; the backward recomputes the taps. The
+    saved grid is the one the forward read (autograd's version counter
+    refuses a backward after it changed in place)."""
 
     @staticmethod
     def forward(ctx, args, grid, *disps):
         ctx.args = args
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(grid, *disps)
-        return _forward(grid.detach(), [dd.detach() for dd in disps], *args)
+        # written by the forward's fix kernel, so nothing is filled
+        ctx.verdict = torch.empty(1, dtype=torch.int32, device=grid.device) if grid.is_cuda else None
+        return _forward(grid.detach(), [dd.detach() for dd in disps], *args, verdict=ctx.verdict)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -156,7 +162,7 @@ class _WindowInterp(torch.autograd.Function):
         need_grid, need_disp = ctx.needs_input_grad[1], any(ctx.needs_input_grad[2:])
         if grid.is_cuda:
             d_grid, d_disps = _window_interp_grad_cuda(name, grid, disps, K, compute_extrema, scale, mode, const,
-                                                       grads, need_grid, need_disp)
+                                                       grads, need_grid, need_disp, verdict=ctx.verdict)
         else:
             d_grid, d_disps = _window_interp_vjp_plain(grid, disps, K, compute_extrema, scale, mode, const,
                                                        grads, need_grid, need_disp)
@@ -330,7 +336,7 @@ def _ctypes_args():
         _fields_ = [('grid', _build.src_struct()), ('disp', P * 3), ('scale', F_ * 3),
                     ('out', P), ('out_lo', P), ('out_up', P), ('o', I * 3), ('K', I), ('extrema', I),
                     ('nb', I), ('grid_stride', ctypes.c_longlong), ('disp_stride', ctypes.c_longlong),
-                    ('flag', P)]
+                    ('flag', P), ('verdict', P)]
     return InterpArgs
 
 
@@ -343,7 +349,7 @@ def _ctypes_grad_args():
         _fields_ = [('grid', _build.src_struct()), ('disp', P * 3), ('scale', F_ * 3),
                     ('g_out', P), ('g_lo', P), ('g_up', P), ('d_grid', P), ('d_disp', P * 3),
                     ('o', I * 3), ('K', I), ('nb', I), ('grid_stride', ctypes.c_longlong),
-                    ('disp_stride', ctypes.c_longlong), ('chunk', I), ('ring', I), ('flag', P)]
+                    ('disp_stride', ctypes.c_longlong), ('chunk', I), ('ring', I), ('flag', P), ('verdict', P)]
     return InterpGradArgs
 
 
@@ -502,7 +508,10 @@ def _fill_src(src, grid, K, mode, const, d):
     src.c = const
 
 
-def _window_interp_cuda(name, grid, disps, K, compute_extrema, scale, mode, const):
+def _window_interp_cuda(name, grid, disps, K, compute_extrema, scale, mode, const, verdict=None):
+    """K6 / K7. `verdict`: None, or a one-int CUDA tensor into which the
+    call's fix kernel writes whether the grid held a NaN or an infinity (1)
+    or not (0), for the backward of the same grid (`_WindowInterp`)."""
     import ctypes
     d = len(disps)
     _check_inputs(grid, disps)
@@ -524,6 +533,7 @@ def _window_interp_cuda(name, grid, disps, K, compute_extrema, scale, mode, cons
         a.extrema = 1
     a.K = K
     a.flag = _build.nonfinite_flag(grid)
+    a.verdict = None if verdict is None else verdict.data_ptr()
     err = lib.window_interp(ctypes.byref(a), d, int(vector_route(spatial, (*disps, *planes))),
                             _build.stream_of(grid))
     _build.check(lib, err, name)
@@ -532,7 +542,7 @@ def _window_interp_cuda(name, grid, disps, K, compute_extrema, scale, mode, cons
 
 
 def _window_interp_grad_cuda(name, grid, disps, K, compute_extrema, scale, mode, const, grads, need_grid,
-                             need_disp):
+                             need_disp, verdict=None):
     """K6ᵀ / K7ᵀ: (d_grid or None, [d_disp or None] * d) of the upstream
     `grads` (out[, lo, up]; None entries are zero) in one call for the batch
     (d_disp's kernel and d_grid's, planned by `grad_plan`; one launch counted).
@@ -541,7 +551,10 @@ def _window_interp_grad_cuda(name, grid, disps, K, compute_extrema, scale, mode,
     the thread that owns it, in a fixed order: no atomics and no zero fill,
     the same gradients from launch to launch, for every K the forward takes.
     The displacements' are written per entry and summed over the batch where
-    they are shared. Empty outputs launch nothing: the gradients are zeros."""
+    they are shared. Empty outputs launch nothing: the gradients are zeros.
+    `verdict`: the word the forward of this grid wrote (`_window_interp_cuda`),
+    which d_disp then takes in place of testing the grid's cells itself; None
+    (a call without that forward) tests them."""
     import ctypes
     d = len(disps)
     _check_inputs(grid, disps)
@@ -574,6 +587,7 @@ def _window_interp_grad_cuda(name, grid, disps, K, compute_extrema, scale, mode,
     a.d_grid = d_grid.data_ptr() if need_grid else None
     a.K = K
     a.flag = _build.nonfinite_flag(grid)
+    a.verdict = None if verdict is None else verdict.data_ptr()
     if need_grid:
         a.chunk = grad_plan(d, K, tuple(grid.shape[-d:]), nb, g_stride == 0,
                             **dict(zip(('sms', 'smem_per_sm'), sm_budget(grid.device.index))))['chunk']

@@ -1076,12 +1076,20 @@ def _make_incompressible_mesh(velocity, obstacles, solve: Solve, active, order: 
     with no preconditioner or 'auto' the mesh Chebyshev preconditioner, and
     'auto' becomes BiCGStab (A = V⁻¹L is nonsymmetric); `masked_laplace`
     solved without the offset f(0) where the pressure boundary is
-    homogeneous; the Green-Gauss gradient of the pressure subtracted."""
-    if _get_obstacles_for(obstacles) or active is not None:
-        raise NotImplementedError("obstacles or active cells with a velocity on a mesh come with a later slice of "
-                                  "the port")
+    homogeneous; the Green-Gauss gradient of the pressure subtracted. An
+    `active` Field multiplies the divergence (non-finite products 0) and
+    drops the balance, as there; the operator stays the mesh Laplacian.
+    Obstacles raise: the JAX package fails on them too."""
+    if _get_obstacles_for(obstacles):
+        raise NotImplementedError("obstacles with a velocity on a mesh: the JAX package fails there too (its "
+                                  "`stagger` of the accessible mask takes grids only, an AssertionError at "
+                                  "phiflow_tpu/field/_field_math.py:214); a mesh without the obstacle's cells "
+                                  "(`build_mesh(obstacles=...)`) is the mesh form")
     div = divergence(velocity, order=order)
-    if not velocity.boundary.is_flexible:
+    if active is not None:
+        div = div * active
+        div = field_where(field_is_finite(div), div, 0)
+    elif not velocity.boundary.is_flexible:
         solve = solve.with_preprocessing(_balance_divergence_field, None)
         if solve.rank_deficiency is None:
             solve = copy_solve(solve, rank_deficiency=1)

@@ -13,11 +13,10 @@ import phiflow_tpu.math as jm
 import phiflow_tpu_torch.geom as tg
 import phiflow_tpu_torch.math as tm
 
-EXCLUDED = {  # marching cubes, splines, the mesh builder and the mesh loaders: the mesh slice
-    'as_sdf', 'surface_mesh', 'b_spline_knots', 'eval_nurbs_bases', 'spline_eval', 'BSplineSheet', 'SplineVolume',
-    'to_spline_volume', 'double_cover', 'SplineSolid', 'to_spline', 'apply_spline_bounds', 'transform_with_spline',
-    'closest_param', 'spline_eval_surface', 'MeshBuilder', 'join_meshes', 'decimate_tri_mesh', 'load_su2', 'load_gmsh',
-    'load_stl'}
+EXCLUDED = {  # the splines: a slice of their own
+    'b_spline_knots', 'eval_nurbs_bases', 'spline_eval', 'BSplineSheet', 'SplineVolume', 'to_spline_volume',
+    'double_cover', 'SplineSolid', 'to_spline', 'apply_spline_bounds', 'transform_with_spline', 'closest_param',
+    'spline_eval_surface'}
 
 
 @pytest.fixture(autouse=True)

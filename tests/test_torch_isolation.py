@@ -20,7 +20,10 @@ GRID_MODEL_MODULES = ['field._noise', 'field._stencil1d', 'field._higher_order',
 SPH_MODULES = ['math._neighbors', 'geom._graph', 'physics.sph', 'models.sph_dam']
 FVM_MODULES = ['native._lib', 'geom._mesh', 'field._mesh_math', 'models.cylinder_wake']
 GRADIENT_MODULES = ['math._functional', 'math._solve', 'math._nd', 'ops.interp', 'nn._nets', 'nn._optim']
-MODULES = OBSTACLE_MODULES + FIELD_MODULES + GRID_MODEL_MODULES + SPH_MODULES + FVM_MODULES + GRADIENT_MODULES
+IO_MODULES = ['field._field_io', 'field._scene', 'utils._checkpoint', 'utils._profile', '_entry']
+MESH_MODULES = ['geom._mesh_builder', 'geom._convert']
+MODULES = (OBSTACLE_MODULES + FIELD_MODULES + GRID_MODEL_MODULES + SPH_MODULES + FVM_MODULES + GRADIENT_MODULES +
+           IO_MODULES + MESH_MODULES)
 
 
 def test_imports_with_jax_blocked():

@@ -129,8 +129,11 @@ def test_jax_python_face_matcher_is_not_the_reference(meshes, monkeypatch):
 
 
 def test_3d_input_raises():
-    with pytest.raises(NotImplementedError):
-        mesh_from_numpy(np.zeros((8, 3)), [tuple(range(8))])
+    """A 3D element of a vertex count no volume element has (7) raises, as
+    in the JAX package (an AssertionError there); tetrahedra, pyramids,
+    wedges and hexahedra build (`tests/test_torch_mesh3d.py`)."""
+    with pytest.raises(ValueError, match='7 vertices'):
+        mesh_from_numpy(np.random.default_rng(0).uniform(size=(8, 3)), [tuple(range(7))])
 
 
 # ---------------------------------------------------------------------------

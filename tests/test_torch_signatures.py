@@ -76,9 +76,12 @@ def test_models_take_jax_signatures(model, extra):
 
 
 @pytest.mark.parametrize('jax_name,port_name,names', [
-    ('phiflow_tpu.geom', 'phiflow_tpu_torch.geom', ['Mesh', 'mesh', 'mesh_from_numpy', 'build_mesh']),
+    ('phiflow_tpu.geom', 'phiflow_tpu_torch.geom', ['Mesh', 'mesh', 'mesh_from_numpy', 'build_mesh', 'load_su2',
+                                                    'load_gmsh', 'load_stl', 'MeshBuilder', 'join_meshes',
+                                                    'decimate_tri_mesh', 'as_sdf', 'surface_mesh']),
     ('phiflow_tpu.physics.fluid', 'phiflow_tpu_torch.physics.fluid', ['masked_laplace']),
-], ids=['geom-mesh', 'fluid-mesh'])
+    ('phiflow_tpu.field', 'phiflow_tpu_torch.field', ['write', 'read', 'Scene', 'SceneBatch']),
+], ids=['geom-mesh', 'fluid-mesh', 'field-io'])
 def test_mesh_names_are_shared(jax_name, port_name, names):
     """The mesh's entry points are among the shared names the test above
     holds to JAX's signatures."""
@@ -141,3 +144,23 @@ def test_gradient_and_nn_names_are_shared(jax_name, port_name, names):
         assert name in shared, name
         a, b = shared[name]
         assert _signature(a) == _signature(b), name
+
+
+@pytest.mark.parametrize('name', ['profile', 'profile_function', 'benchmark', 'Timer', 'CheckpointManager',
+                                  'save_checkpoint', 'load_checkpoint'])
+def test_utils_take_jax_parameters(name):
+    """`phiflow_tpu_torch.utils` has every name of `phiflow_tpu.utils`, each
+    taking JAX's parameters in JAX's order (defaults apart: the trace folder
+    lies in the temporary directory), then only `device` where a checkpoint
+    is loaded; so do `CheckpointManager`'s methods."""
+    jax_utils, port_utils = importlib.import_module('phiflow_tpu.utils'), importlib.import_module('phiflow_tpu_torch.utils')
+    assert sorted(n for n in dir(jax_utils) if not n.startswith('_')) == \
+        sorted(n for n in dir(port_utils) if not n.startswith('_') and n not in ('utils',))
+    pairs = [(getattr(jax_utils, name), getattr(port_utils, name))]
+    if name == 'CheckpointManager':
+        pairs += [(getattr(pairs[0][0], m), getattr(pairs[0][1], m)) for m in ('save', 'restore', 'all_steps')]
+    for a, b in pairs:
+        ref = [(p.name, p.kind) for p in inspect.signature(a).parameters.values()]
+        got = [(p.name, p.kind) for p in inspect.signature(b).parameters.values()]
+        assert got[:len(ref)] == ref, (name, got, ref)
+        assert [p for p, _ in got[len(ref):]] in ([], ['device']), (name, got)

@@ -15,7 +15,11 @@ that, default 1), and times on the same seeded inputs, by CUDA-graph replay
 - K5: a step's three fused calls at 256³, K = 1, closed box, and the step;
 - K6 256³ and K7 4096², K = 1: a velocity component with a constant halo,
   and the smoke's forward pass with an edge halo and the extrema;
-- K6ᵀ 256³ and K7ᵀ 4096²: the same two forms' backward.
+- K6ᵀ 256³ and K7ᵀ 4096²: the same two forms' backward, bare (a call
+  that tests the grid itself) and as autograd runs it (`autograd` rows:
+  after a forward of the same grid, which leaves its verdict on the grid for
+  the backward to read; a tree whose wrappers take no verdict runs its
+  backward as autograd does there, bare).
 
 Prints each run's rows (each run's log also under DIR, default
 `window_cost/`), the registers and spills of the K5 kernels in each tree,
@@ -37,6 +41,8 @@ def worker():
     from phiflow_tpu_torch.ops import _build
     from phiflow_tpu_torch.ops import advect3d as A
     from phiflow_tpu_torch.ops import interp as I
+    import inspect
+    has_word = 'verdict' in inspect.signature(I._window_interp_grad_cuda).parameters
 
     with open(_build.ptxas_log('advect3d')) as f:
         for entry, n_regs, n_spill, n_load, stack in cs.ptxas_entries(f.read()):
@@ -77,6 +83,14 @@ def worker():
         timed(f'{bwd} {tag} const', lambda: cs._grad_call(d, grid, disps, 1, False, scale, 'const', 0.0, g[:1], False))
         timed(f'{bwd} {tag} edge + extrema',
               lambda: cs._grad_call(d, grid, disps, 1, True, scale, 'edge', 0.0, g, False))
+        name = f'window_interp_{d}d'
+        for what, extrema, mode, ups in (('const', False, 'const', g[:1]), ('edge + extrema', True, 'edge', g)):
+            args = (grid, disps, 1, extrema, tuple(I._f32(x) for x in scale), mode, 0.0, ups, True, True)
+            word = {}
+            if has_word:  # the forward's verdict, written once: the backward only reads it
+                word['verdict'] = torch.empty(1, dtype=torch.int32, device=dev)
+                I._window_interp_cuda(name, *args[:7], verdict=word['verdict'])
+            timed(f'{bwd} {tag} {what} autograd', lambda: I._window_interp_grad_cuda(name, *args, **word))
         del grid, disps, g
         torch.cuda.empty_cache()
     print('JSON ' + json.dumps(rows))
