@@ -120,20 +120,22 @@ Phases; any failure exits non-zero and prints no result:
          the divergence under 8e-4 (ten times its reading of 8.237e-05);
      4h. terrain-flip-128: a 3D version of examples/terrain_flip.py at 128³,
          1,310,720 particles of a liquid block over a heightmap terrain
-         (`run_terrain_flip`: P2G, finite_fill, the projection with the
-         terrain as an obstacle and the occupied cells active, the FLIP
-         update, finite_rk4, boundary_push out of the terrain): 20 steps for
-         the block to fall onto the terrain, 2 warm-up and 5 timed steps, ms
-         a step on the host clock and the device's busy time under
-         torch.profiler, K8 and K1m launched every step and no other kernel
-         (every stencil launch the masked form), CG iterations > 0, max |div|
-         over the occupied cells the terrain does not cut, ≥ 97% of the particles at or above the
-         terrain less one cell and > 1% within one cell above it, one step at
-         32³ from a state on the terrain (10 CPU steps), CPU against the card
-         within FLIP's 5e-4, CG > 0 on both; then each geometry at 10⁶ points against the CPU
-         (`check_geometry_on_card`) and an obstacle of each new shape in a
-         16³ projection, K1m launched, against the CPU
-         (`check_obstacles_on_card`);
+         (`run_solid_flip` of `terrain_step`: P2G, finite_fill, the projection
+         with the terrain as an obstacle and the occupied cells active, the
+         FLIP update, finite_rk4, boundary_push out of the terrain): 20 steps
+         for the block to fall onto the terrain, 2 warm-up and 5 timed steps,
+         ms a step on the host clock and the device's busy time under
+         torch.profiler, one more step with the terrain's queries (its masks,
+         its push) timed inside it, K8 and K1m launched every step and no
+         other kernel (every stencil launch the masked form), CG iterations >
+         0, max |div| over the occupied cells the terrain does not cut, ≥ 97%
+         of the particles at or above the terrain less one cell and > 1%
+         within one cell of it, one step at 32³ from a state on the terrain
+         (10 CPU steps), CPU against the card within FLIP's 5e-4 before and
+         after the push, CG at most 1 apart; then each geometry at 10⁶ points
+         against the CPU (`check_geometry_on_card`) and an obstacle of each
+         new shape (the spline chute too, in float64 and float32) in a 16³
+         projection, K1m launched, against the CPU (`check_obstacles_on_card`);
      then the two 2D obstacle models at the JAX benchmark's size,
      MovingObstacles(256) and LidDrivenCavity(256, obstacle=True), their
      Field `step`: ms per step, CG iterations, K7 launched (their masked
@@ -305,9 +307,22 @@ Phases; any failure exits non-zero and prints no result:
      within 1e-5 (the divergence under ANTISYMMETRIC walls, a cloud of spheres resampled onto a grid
      without scatter, hard, soft and staggered, a grid Field and the cloud sampled at a mesh); 11d
      `_entry.entry()` on the card, 2 steps, finite, K6 and K1 launched;
-  12. the `kernels` JSON line (every row above and the batched forms, `<kernel>_batched`, whose
+  12. the splines and the user namespace (`run_splines`, after phase 11): spline-flip-128, FLIP's
+     full width (128³ unit cells, Box['x,y,z', 16:64, 16:112, 80:116] at 8 particles a cell,
+     1,327,104 particles) dropped onto a SplineSolid chute (a 5 × 3 net, thickness 8, fillets u 1 /
+     v 0.5, order u 2 / v 1) whose signed distance shapes the projection's masks (K1m's mA / c0,
+     with `active`) and the push: phase 4h's `run_solid_flip` with the chute in place of the
+     heightmap and its signed distance as the gap (the spline queries' split of a step timed inside
+     one more step); then 10 CPU steps at 32³ and one step on the CPU and the card from that state,
+     held at FLIP's 5e-4 with the chute's float64 witness (`as_float64`), and with its float32
+     queries where they are well-conditioned (`hold_float32`: the step's particles, the push, the
+     masks); the chute and `to_spline(cylinder)` at 10⁶ points and `transform_with_spline` card vs
+     CPU (float64: at most 0.1% of the points on another branch, the rest within 1e-4 of scale;
+     float32 where well-conditioned); `_argmin_2d`'s first index on ties and NaN; `from
+     phiflow_tpu_torch.flow import *`, `verify()`, `detect_backends()`, `troubleshoot()`;
+  13. the `kernels` JSON line (every row above and the batched forms, `<kernel>_batched`, whose
      launches are counted on phase 9's paths — K1m's on batched-obstacle-256x4; `launches_by_path`
-     has phase 10's and 11's paths too), then
+     has phase 10's, 11's and 12's paths too), then
      the last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each phase prints its seconds on the host clock as it ends (`phase …: … s`, the larger ones their
@@ -1713,12 +1728,12 @@ def terrain_setup(N, device):
     return domain, terrain, particles
 
 
-def terrain_step(N, domain, terrain, particles, dt=0.1):
-    """One step of examples/terrain_flip.py in 3D through the port's Field functions: P2G (K8) with
-    outside_handling='clamp', finite_fill, the occupied cells, make_incompressible with the terrain as an
-    Obstacle and `active` the occupied cells (CG at 1e-4, the Chebyshev masked preconditioner: K1m with mA + c0
-    + active), the FLIP update, advect.points with finite_rk4, boundary_push out of the terrain and into the
-    domain. Returns (particles, the projected velocity, the occupied cells, the solve's iterations)."""
+def flip_solid_step(N, domain, solid, particles, dt=0.1):
+    """One step of examples/terrain_flip.py in 3D through the port's Field functions, up to the push: P2G (K8)
+    with outside_handling='clamp', finite_fill, the occupied cells, make_incompressible with the solid (a
+    heightmap, a spline chute) as an Obstacle and `active` the occupied cells (CG at 1e-4, the Chebyshev masked
+    preconditioner: K1m with mA + c0 + active), the FLIP update, advect.points with finite_rk4. Returns
+    (particles, the projected velocity, the occupied cells, the solve's iterations); `solid_push` ends the step."""
     from phiflow_tpu_torch import field, math
     from phiflow_tpu_torch.physics import advect, fluid
     grid_v = prev_v = field.finite_fill(field.resample(particles, field.StaggeredGrid(0, 0, domain, x=N, y=N, z=N),
@@ -1726,110 +1741,187 @@ def terrain_step(N, domain, terrain, particles, dt=0.1):
     occupied = field.resample(field.mask(particles), field.CenteredGrid(0, grid_v.boundary.spatial_gradient(), domain,
                                                                         x=N, y=N, z=N), scatter=True)
     with math.SolveTape() as tape:
-        grid_v, _ = fluid.make_incompressible(grid_v + (0, 0, -9.81 * dt), [fluid.Obstacle(terrain)], active=occupied,
+        grid_v, _ = fluid.make_incompressible(grid_v + (0, 0, -9.81 * dt), [fluid.Obstacle(solid)], active=occupied,
                                               solve=math.Solve('CG', 1e-4, suppress=(math.ConvergenceException,)))
     particles = particles + field.resample(grid_v - prev_v, particles)
     particles = advect.points(particles, grid_v, dt, advect.finite_rk4)
-    particles = fluid.boundary_push(particles, [terrain, ~domain])
     return particles, grid_v, occupied, [int(info.iterations) for info in tape]
 
 
-def _terrain_gaps(particles, N):
-    """Each particle's height above the terrain (examples/terrain_flip.py's heightmap), in cells."""
+def solid_push(domain, solid, particles):
+    """The step's end: boundary_push out of the solid and into the domain."""
+    from phiflow_tpu_torch.physics import fluid
+    return fluid.boundary_push(particles, [solid, ~domain])
+
+
+def terrain_step(N, domain, solid, particles, dt=0.1):
+    """One step of terrain-flip-128 (the solid the heightmap) or spline-flip-128 (the spline chute):
+    `flip_solid_step`, then `solid_push`. Returns what `flip_solid_step` returns, the particles pushed."""
+    particles, grid_v, occupied, its = flip_solid_step(N, domain, solid, particles, dt)
+    return solid_push(domain, solid, particles), grid_v, occupied, its
+
+
+def _terrain_gaps(points, N):
+    """Each point's height above the terrain (examples/terrain_flip.py's heightmap), in cells; `points` an (n, 3)
+    torch tensor."""
     import torch
-    p = particles.points.native(('points', 'vector')).float()
+    p = points.float()
     s = N / 128
     h = 24 * s + 16 * s * torch.sin(p[:, 0] / N * TWO_PI) + 8 * s * torch.cos(p[:, 1] / N * TWO_PI)
     return p[:, 2] - h
 
 
-def run_terrain_flip(tag, N=TERRAIN_N, settle=20, warmup=2, steps=5, cpu_n=32, cpu_settle=10):
-    """terrain-flip-128 (`terrain_step`): `settle` steps from rest (the block's lower face, 8 cells above the
-    terrain's top, reaches it after about 13 steps of dt = 0.1, so that the liquid lies on the terrain: the
-    projection works around it and the push moves particles out of it), then `warmup` + `steps` steps on the
-    card, the counters set to 0 just before the timed steps and read just after, then 2 steps under
-    torch.profiler. Prints ms/step on the host clock and the device's kernel time a step (the profiler's), K8 and
-    K1m launches a step (> 0; no other kernel launched: every stencil launch the masked form), the CG iterations
-    (> 0), the largest |div| over the occupied cells the terrain does not cut (< 1), the share of particles at or
-    above the terrain less one cell (≥ 97%, as the example asserts) and the share within one cell above it (> 1%: the liquid lies on the
-    terrain). Then `cpu_settle` steps at `cpu_n`³ on the CPU and one more step on the CPU and on the card from
-    that state: positions and velocities within FLIP's 5e-4 of their scale, CG counts > 0 and at most 1 apart."""
+def query_split(N, domain, solid, particles):
+    """One more `terrain_step` with cuda.synchronize around each of the solid's queries inside it: the masks
+    make_incompressible makes of it (`fluid.geometry_mask`: the accessible cells, the faces' soft masks) and its
+    push in boundary_push. Returns (the step's ms, the masks' ms, the push's ms), all on the host clock within
+    that one step, so the queries' share of it is at most 1."""
     import torch
-    from phiflow_tpu_torch import field, math as tmath
-    from phiflow_tpu_torch.models import to_device
+    from phiflow_tpu_torch.physics import fluid
+    spent = {'masks': 0., 'push': 0.}
+
+    def timed(kind, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                spent[kind] += time.perf_counter() - t
+        return call
+
+    cls, mask = type(solid), fluid.geometry_mask
+    own_push = vars(cls).get('push')
+    fluid.geometry_mask, cls.push = timed('masks', mask), timed('push', cls.push)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        terrain_step(N, domain, solid, particles)
+        torch.cuda.synchronize()
+        step = time.perf_counter() - t0
+    finally:
+        fluid.geometry_mask = mask
+        if own_push is None:
+            del cls.push
+        else:
+            cls.push = own_push
+    return step * 1e3, spent['masks'] * 1e3, spent['push'] * 1e3
+
+
+def run_solid_flip(tag, setup, gaps, witness, N, settle=20, warmup=2, steps=5):
+    """terrain-flip-128 or spline-flip-128 (`terrain_step` on `setup(N, 'cuda')`'s domain, solid and particles):
+    `settle` steps from rest, so that the liquid lies on the solid (the projection works around it and the push
+    moves particles out of it), then `warmup` + `steps` steps on the card, the counters set to 0 just before the
+    timed steps and read just after, then 2 steps under torch.profiler and one more timed query by query
+    (`query_split`). Prints ms/step on the host clock, the device's kernel time a step (the profiler's), the
+    solid's queries' split of a step, K8 and K1m launches a step (every step; no other kernel launched: every
+    stencil launch the masked form), the CG iterations (> 0), the largest |div| over the occupied cells whose
+    centre lies more than 2.5 cells from the solid (< 1: none of their faces is cut), the share of particles at
+    a gap ≥ −1 cell (≥ 97%, as the example asserts) and within one cell of the surface (> 1%: the liquid lies on
+    the solid). `gaps(points, N)` is a point's gap to the solid in cells (a height above the terrain, the
+    chute's signed distance). Then `witness()`, the step on the CPU against the card."""
+    import torch
+    from phiflow_tpu_torch import field
     from phiflow_tpu_torch.ops import _build
-    domain, terrain, particles = terrain_setup(N, 'cuda')
+    domain, solid, particles = setup(N, 'cuda')
     n = int(particles.points.shape.get_size('points'))
     for _ in range(settle + warmup):
-        particles, *_ = terrain_step(N, domain, terrain, particles)
+        particles, *_ = terrain_step(N, domain, solid, particles)
     torch.cuda.synchronize()
     _build.reset_launches()
     iters = []
     t0 = time.perf_counter()
     for _ in range(steps):
-        particles, grid_v, occupied, its = terrain_step(N, domain, terrain, particles)
+        particles, grid_v, occupied, its = terrain_step(N, domain, solid, particles)
         iters.append(its)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / steps * 1e3
     launches = dict(_build.LAUNCHES, steps=steps)
     active = occupied.values.native(('x', 'y', 'z')) > 0
     d = field.divergence(grid_v).values.native(('x', 'y', 'z'))
-    # cells the terrain cuts hold the divergence of the open face fractions' flux, not of the velocity: the
-    # gate reads the occupied cells whose centre lies more than 2.5 cells above the terrain (its slope is at most
-    # 0.8, so none of their faces is cut)
-    c = (torch.arange(N, device=d.device, dtype=torch.float32) + 0.5) * (N / d.shape[0])
-    h = 24 * N / 128 + 16 * N / 128 * torch.sin(c / N * TWO_PI)[:, None] + 8 * N / 128 * torch.cos(c / N * TWO_PI)[None]
-    clear = active & (c[None, None, :] - h[:, :, None] > 2.5)
+    # cells the solid cuts hold the divergence of the open face fractions' flux, not of the velocity: the gate
+    # reads the occupied cells whose centre lies more than 2.5 cells from the solid
+    c = torch.arange(N, device='cuda', dtype=torch.float32) + 0.5
+    centres = torch.stack(torch.meshgrid(c, c, c, indexing='ij'), -1).reshape(-1, 3)
+    clear = active & (gaps(centres, N).reshape(N, N, N) > 2.5)
     div = float(torch.where(clear, d, torch.zeros_like(d)).abs().max())
     div_all = float(torch.where(active, d, torch.zeros_like(d)).abs().max())
-    gaps = _terrain_gaps(particles, N)
-    above, contact = float((gaps >= -1.0).float().mean()), float((gaps < 1.0).float().mean())
+    g = gaps(particles.points.native(('points', 'vector')), N)
+    outside, contact = float((g >= -1.0).float().mean()), float((g.abs() < 1.0).float().mean())
     finite = bool(torch.isfinite(particles.points.native(('points', 'vector'))).all())
-    del grid_v, occupied, d, active, clear, gaps
-    device_ms, wall_ms = profile_path(tag, f'{N}^3', lambda p: terrain_step(N, domain, terrain, p)[0], particles,
-                                      warmup=0, steps=2, rows_shown=6)
+    del grid_v, occupied, d, active, clear, g, centres
+    device_ms, wall_ms = profile_path(tag, f'{N}^3', lambda p: terrain_step(N, domain, solid, p)[0], particles,
+                                      warmup=0, steps=2, rows_shown=8)
+    step_ms, mask_ms, push_ms = query_split(N, domain, solid, particles)
     print(f'{tag} {N}^3, {n} particles: {ms:.2f} ms/step host clock over {steps} steps after {settle} settling and '
           f'{warmup} warm-up, {device_ms:.2f} ms/step device busy (torch.profiler over 2 more steps, {wall_ms:.2f} '
           f'ms/step wall under it); CG iterations per step {iters} (CG 1e-4, Chebyshev masked preconditioner)')
+    print(f'{tag} the solid\'s queries in one more step, cuda.synchronize around each inside it: its masks '
+          f'(accessible cells + faces\' soft masks, {4 * N ** 3:,} points) {mask_ms:.2f} ms, its push ({n:,} '
+          f'particles) {push_ms:.2f} ms, of a step of {step_ms:.2f} ms: {100 * (mask_ms + push_ms) / step_ms:.1f}%')
     print(f'{tag} launches per step: ' + ', '.join(f'{k}={launches.get(k, 0) / steps:g}' for k in KERNELS))
-    print(f'{tag} max |div| over the occupied cells more than 2.5 cells above the terrain {div:.3e} (over all the '
-          f'occupied cells {div_all:.3e}: the terrain cuts some); {above * 100:.2f}% of the particles at or above the '
-          f'terrain less one cell, {contact * 100:.2f}% within one cell above it; finite: {finite}')
+    print(f'{tag} max |div| over the occupied cells more than 2.5 cells from the solid {div:.3e} (over all the '
+          f'occupied cells {div_all:.3e}: the solid cuts some); {outside * 100:.2f}% of the particles at a gap >= -1 '
+          f'cell, {contact * 100:.2f}% within one cell of the surface; finite: {finite}')
     path = ('p2g', 'p2g_mean', 'poisson_stencil_masked')
     # the masked stencil also counts under the stencil's and the coefficient form's names (K1m itself): every
-    # stencil launch must be the masked form with the terrain's coefficients
+    # stencil launch must be the masked form with the solid's coefficients
     others = {k: v for k, v in launches.items()
               if k not in path + ('poisson_stencil', 'poisson_stencil_coeffs', 'steps') and v}
-    if (any(launches.get(k, 0) == 0 for k in path) or others
+    if (any(launches.get(k, 0) < steps for k in path) or others
             or not launches['poisson_stencil'] == launches['poisson_stencil_masked']
             == launches.get('poisson_stencil_coeffs', 0)):
-        raise RuntimeError(f'{tag}: K8 / K1m not launched, an unmasked K1 or other kernels launched: {launches}')
-    if not (finite and above >= 0.97 and contact > 0.01 and div < 1.0 and min(sum(i) for i in iters) > 0):
-        raise RuntimeError(f'{tag} output wrong: finite={finite} above={above} contact={contact} div={div} '
+        raise RuntimeError(f'{tag}: K8 / K1m not launched every step, an unmasked K1 or other kernels launched: '
+                           f'{launches}')
+    if not (finite and outside >= 0.97 and contact > 0.01 and div < 1.0 and min(sum(i) for i in iters) > 0):
+        raise RuntimeError(f'{tag} output wrong: finite={finite} outside={outside} contact={contact} div={div} '
                            f'CG {iters}')
     del particles
-    # CPU against the card at cpu_n³: one step from a state in which the liquid lies on the terrain
-    with tmath.default_device('cpu'):
-        dom, ter, parts = terrain_setup(cpu_n, 'cpu')
-        for _ in range(cpu_settle):
-            parts, *_ = terrain_step(cpu_n, dom, ter, parts)
-    contact = float((_terrain_gaps(parts, cpu_n) < 1.0).float().mean())
-    out = {}
-    for dev in ('cpu', 'cuda'):
-        with tmath.default_device(dev):
-            dom, ter, _ = terrain_setup(cpu_n, dev)
-            p, _, _, its = terrain_step(cpu_n, dom, ter, to_device(parts, dev))
-            out[dev] = (p.points.native(('points', 'vector')).cpu(), p.values.native(('points', 'vector')).cpu(), its)
-    errs = [float((out['cuda'][i] - out['cpu'][i]).abs().max() / out['cpu'][i].abs().max().clamp(min=1e-6))
-            for i in (0, 1)]
-    print(f'{tag} CPU against the card at {cpu_n}^3, one step after {cpu_settle} on the CPU ({contact * 100:.2f}% of '
-          f'the particles within one cell above the terrain): positions / velocities {errs[0]:.2e} / {errs[1]:.2e} '
-          f'of their scale (tolerance 5e-4), CG {out["cpu"][2]} / {out["cuda"][2]}')
-    if (max(errs) > 5e-4 or contact <= 0.01 or min(sum(out[k][2]) for k in out) == 0
-            or any(abs(a - b) > 1 for a, b in zip(out['cpu'][2], out['cuda'][2]))):
-        raise RuntimeError(f'{tag}: CPU and card differ, or the state is not on the terrain: {errs}, contact '
-                           f'{contact}, CG {out["cpu"][2]} / {out["cuda"][2]}')
+    torch.cuda.empty_cache()
+    witness()
     return launches
+
+
+def solid_flip_cpu_vs_card(tag, setup, gaps, solids, cpu_n=32, cpu_settle=10):
+    """`cpu_settle` steps of `terrain_step` at cpu_n³ on the CPU from `setup`, so that the liquid lies on the
+    solid, then one more step on the CPU and on the card from that state with each solid of `solids` ({label:
+    (make(n, device) or None for the setup's own, held)}). Held: positions and velocities before the push and
+    positions after it within FLIP's 5e-4 of their scale, CG counts > 0 and at most 1 apart; the others printed
+    (finite). Returns {(label, device): [positions and velocities before the push, positions after it, the CG
+    counts]}, on the host."""
+    from phiflow_tpu_torch import math as tmath
+    from phiflow_tpu_torch.models import to_device
+    with tmath.default_device('cpu'):
+        dom, sol, parts = setup(cpu_n, 'cpu')
+        for _ in range(cpu_settle):
+            parts, *_ = terrain_step(cpu_n, dom, sol, parts)
+    contact = float((gaps(parts.points.native(('points', 'vector')), cpu_n).abs() < 1.0).double().mean())
+    n = int(parts.points.shape.get_size('points'))
+    out = {}
+    for label, (make, held) in solids.items():
+        for dev in ('cpu', 'cuda'):
+            with tmath.default_device(dev):
+                dom, sol, _ = setup(cpu_n, dev)
+                sol = sol if make is None else make(cpu_n, dev)
+                pre, _, _, its = flip_solid_step(cpu_n, dom, sol, to_device(parts, dev))
+                post = solid_push(dom, sol, pre)
+                out[label, dev] = [pre.points.native(('points', 'vector')).cpu(),
+                                   pre.values.native(('points', 'vector')).cpu(),
+                                   post.points.native(('points', 'vector')).cpu(), its]
+        (*card, card_cg), (*cpu, cpu_cg) = out[label, 'cuda'], out[label, 'cpu']
+        errs = [_relative(a, b) for a, b in zip(card, cpu)]
+        parted = int(((card[2] - cpu[2]).abs().amax(-1) > 5e-4 * float(cpu[2].abs().max())).sum())
+        print(f'{tag} CPU against the card at {cpu_n}^3, one step after {cpu_settle} on the CPU ({contact * 100:.2f}% '
+              f'of the particles within one cell of the solid), {label}: before the push positions / velocities '
+              f'{errs[0]:.2e} / {errs[1]:.2e} of their scale, after it positions {errs[2]:.2e} ({parted} of {n} '
+              f'particles parted by more than 5e-4 of the scale), CG {cpu_cg} / {card_cg}'
+              + (' (tolerance 5e-4, CG at most 1 apart)' if held else ' (printed)'))
+        if (contact <= 0.01 or min(sum(cpu_cg), sum(card_cg)) == 0 or not all(e < float('inf') for e in errs)
+                or held and (max(errs) > 5e-4 or any(abs(a - b) > 1 for a, b in zip(cpu_cg, card_cg)))):
+            raise RuntimeError(f'{tag} {label}: CPU and card differ, or the state is not on the solid: {errs}, '
+                               f'contact {contact}, CG {cpu_cg} / {card_cg}')
+    return out
 
 
 def check_geometry_on_card(n=1_000_000):
@@ -1882,14 +1974,17 @@ def check_geometry_on_card(n=1_000_000):
 
 def check_obstacles_on_card(N=16):
     """An obstacle of each geometry the layer gained (cylinder, heightmap, SDF, sampled SDF, union,
-    intersection) in the Field `make_incompressible` at N³ on the card: K1m (its mA / c0 masks from the shape's
-    signed distance) launched, the projected velocity within 1e-4 of its scale of the CPU's and the CG counts at
-    most 1 apart."""
-    import torch
+    intersection, the spline chute) in the Field `make_incompressible` at N³ on the card: K1m (its mA / c0 masks
+    from the shape's signed distance) launched, the projected velocity within 1e-4 of its scale of the CPU's and
+    the CG counts at most 1 apart. The chute (spline-flip's, scaled to N³ and moved by SPLINE_WITNESS_SHIFT) is
+    held so in its float64 witness (`as_float64`: its masks in float64, the projection in float32); with its
+    float32 queries (a mask entry that parts moves the whole projection: its gap printed), the chute's masks
+    where they are well-conditioned (`hold_float32`)."""
     from phiflow_tpu_torch import field, geom, math as tmath
     from phiflow_tpu_torch.physics import fluid
     from phiflow_tpu_torch.ops import _build
     c = N / 2
+    chute = lambda bits: spline_chute(N, tmath.get_default_device(), bits=bits, shift=SPLINE_WITNESS_SHIFT)
     shapes = {
         'cylinder': lambda: geom.cylinder(x=c, y=c, z=c * 0.8, radius=N / 5, depth=N / 3, axis='z'),
         'heightmap': lambda: geom.Heightmap(N / 5 + N / 12 * tmath.sin(tmath.linspace(0., 6., tmath.spatial(x=N + 1)))
@@ -1903,27 +1998,34 @@ def check_obstacles_on_card(N=16):
                                     geom.Sphere(x=2 * N / 3, y=c, z=c, radius=N / 6)),
         'intersection': lambda: geom.intersection(geom.Box(x=(N / 6, 5 * N / 6), y=(N / 6, 5 * N / 6), z=(0, c)),
                                                   geom.Sphere(x=c, y=c, z=N / 4, radius=N / 3)),
+        'spline': lambda: chute(64),
+        'spline-float32': lambda: chute(32),
     }
     flow = lambda p: tmath.stack({'x': tmath.sin(p.vector['y'] / 4) + 0.3, 'y': tmath.cos(p.vector['z'] / 5),
                                   'z': tmath.sin(p.vector['x'] / 4) - 0.5}, tmath.channel(vector='x,y,z'))
+    out = {}
     for name, make in shapes.items():
-        out = {}
         for dev in ('cpu', 'cuda'):
             with tmath.default_device(dev):
                 v = field.StaggeredGrid(flow, 0, geom.Box(x=N, y=N, z=N), x=N, y=N, z=N)
+                obstacle = make()
                 _build.reset_launches()
                 with tmath.SolveTape() as tape:
-                    v, _ = fluid.make_incompressible(v, [fluid.Obstacle(make())],
+                    v, _ = fluid.make_incompressible(v, [fluid.Obstacle(obstacle)],
                                                      solve=tmath.Solve('CG', 1e-5, 1e-5, max_iterations=1000))
-                out[dev] = ([v.values.vector[d].native('x,y,z') for d in 'xyz'], int(tape[0].iterations),
-                            _build.LAUNCHES.get('poisson_stencil_masked', 0))
-        (cv, ci, _), (gv, gi, k1m) = out['cpu'], out['cuda']
-        err = max(float((g.cpu() - c_).abs().max() / c_.abs().max()) for g, c_ in zip(gv, cv))
-        ok = err < 1e-4 and abs(ci - gi) <= 1 and k1m > 0
+                out[name, dev] = ([v.values.vector[d].native('x,y,z').cpu() for d in 'xyz'], int(tape[0].iterations), _build.LAUNCHES.get('poisson_stencil_masked', 0),
+                                  chute_masks(obstacle, N, dev) if name.startswith('spline') else None)
+        (cv, ci, _, _), (gv, gi, k1m, _) = out[name, 'cpu'], out[name, 'cuda']
+        err = max(_relative(g, c_) for g, c_ in zip(gv, cv))
+        held = name != 'spline-float32'
+        ok = (not held or err < 1e-4 and abs(ci - gi) <= 1) and k1m > 0 and min(ci, gi) > 0
         print(f'check obstacle         {name:17s} {N}^3 projection: card vs CPU {err:.2e} of scale, CG {gi} / {ci}, '
-              f'K1m launched {k1m} times {"ok" if ok else "FAIL"}')
+              f'K1m launched {k1m} times' + ('' if held else ' (printed; its masks held where well-conditioned, below)')
+              + f' {"ok" if ok else "FAIL"}')
         if not ok:
             raise RuntimeError(f'obstacle {name}: card and CPU differ or K1m not launched')
+    hold_float32(f'obstacle spline {N}^3 masks', [out['spline-float32', 'cuda'][3]], [out['spline-float32', 'cpu'][3]],
+                 [out['spline', 'cpu'][3]], FLOAT32_APART['masks'])
 
 
 def profile_path(tag, size, advance, state, warmup=2, steps=3, rows_shown=12):
@@ -3363,8 +3465,8 @@ def check_interp_grad(ch, gen, quick):
     """K6ᵀ / K7ᵀ against the twin's VJP (autograd of the window sum in the JAX
     package's AD conventions) on the card, both gradients within 1e-5 of each
     one's largest entry: every halo form, K = 1 and 2, with and without the
-    extrema's upstream gradients, fractional, clipped and integer
-    displacements; the one-slot-plane route (3D K = 6, 2D K = 24), wrapped
+    extrema's upstream gradients at one small shape a rank (the ragged rows
+    in two forms), fractional, clipped and integer displacements; the one-slot-plane route (3D K = 6, 2D K = 24), wrapped
     axes of at most 2K cells, the wide kernel past the slot window (3D K = 8,
     2D K = 33: in 3D padded, wrapped and a batch on a shared grid, in 2D
     a shared grid's clamped sides), empty outputs
@@ -3382,21 +3484,23 @@ def check_interp_grad(ch, gen, quick):
     def rnd(shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    for d, shape in ((3, SMALL), (3, K6_RAGGED), (2, SMALL[1:]), (2, (37, 45))):
+    # every form (K, halo, extrema) at one small shape a rank; the ragged rows (scalar loads, border blocks) in
+    # two forms each
+    every_form = [(K, mode, extrema) for K in (1, 2) for mode in (None, 'const', 'edge', 'wrap')
+                  for extrema in (False, True)]
+    two_forms = [(1, None, True), (2, 'edge', True)]
+    for d, shape, forms in ((3, SMALL, every_form), (3, K6_RAGGED, two_forms), (2, SMALL[1:], every_form),
+                            (2, (37, 45), two_forms)):
         scale = (0.8, -1.1, 0.6)[:d]
-        for K in (1, 2):
-            for mode in (None, 'const', 'edge', 'wrap'):
-                gshape = tuple(n + 2 * K for n in shape) if mode is None else shape
-                grid = rnd(gshape)
-                disps = list((torch.rand((d,) + shape, generator=gen, device=dev) * 2 - 1) * ((K + 1) / 0.6))
-                for extrema in (False, True):
-                    ups = [rnd(shape) for _ in range(3 if extrema else 1)]
-                    case = f'{shape} K={K} {mode or "padded"}{" extrema" if extrema else ""}'
-                    got = _grad_call(d, grid, disps, K, extrema, scale, mode, 0.25, ups, False)
-                    _grad_compare(ch, d, case, got, _grad_call(d, grid, disps, K, extrema, scale, mode, 0.25, ups,
-                                                               True))
-                    _grad_repeat(ch, d, case, got, _grad_call(d, grid, disps, K, extrema, scale, mode, 0.25, ups,
-                                                              False))
+        for K, mode, extrema in forms:
+            gshape = tuple(n + 2 * K for n in shape) if mode is None else shape
+            grid = rnd(gshape)
+            disps = list((torch.rand((d,) + shape, generator=gen, device=dev) * 2 - 1) * ((K + 1) / 0.6))
+            ups = [rnd(shape) for _ in range(3 if extrema else 1)]
+            case = f'{shape} K={K} {mode or "padded"}{" extrema" if extrema else ""}'
+            got = _grad_call(d, grid, disps, K, extrema, scale, mode, 0.25, ups, False)
+            _grad_compare(ch, d, case, got, _grad_call(d, grid, disps, K, extrema, scale, mode, 0.25, ups, True))
+            _grad_repeat(ch, d, case, got, _grad_call(d, grid, disps, K, extrema, scale, mode, 0.25, ups, False))
         K = 2
         grid = torch.round(rnd(tuple(n + 2 * K for n in shape)) * 2) / 2  # ties in the extrema chain
         ints = list(torch.randint(-1, 2, (d,) + shape, generator=gen, device=dev).float() * K)  # −K, 0, +K
@@ -6777,6 +6881,333 @@ def run_mesh_and_io():
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the splines (spline-flip-128, the spline shapes and obstacle on the card, transform_with_spline) and
+# the user namespace
+# ---------------------------------------------------------------------------
+
+SPLINE_N = 128  # spline-flip-128: FLIP's full width, a SplineSolid chute in place of terrain-flip's heightmap
+SPLINE_FILLET = {'u-': 1, 'u+': 1, 'v-': .5, 'v+': .5}
+SPLINE_ORDER = {'u': 2, 'v': 1}
+# the chute's translation in the CPU-against-card witnesses, in cells: scaled to 32³ (and 16³) the net's v edges
+# put whole planes of cell and face centres exactly on the fillet's surface or edge, where the inside test and the
+# fillet branch are rounding ties on any device; a generic sub-cell shift leaves none
+SPLINE_WITNESS_SHIFT = (0.137, 0.291, 0.073)
+# float32 card against CPU: of the entries where the CPU's float32 lies within 1e-4 of the scale of its float64
+# (well-conditioned), the largest share that may part by more than 1e-4 of the scale (`hold_float32`); twice the
+# H100's readings: 0.097% of the 32³ push, 0.298% / 0.245% of the 32³ / 16³ masks, 0.484% / 0.376% of the chute's /
+# transform_with_spline's 10⁶ points
+FLOAT32_APART = {'push': 0.002, 'masks': 0.006, 'points': 0.01}
+
+
+def chute_net(n, lip=0., shift=(0., 0., 0.)):
+    """The chute's 5 × 3 control net at n³ (the 128³ net scaled by n / 128): u along x at x = 16, 40, 64, 88, 112,
+    v along y at y = 24, 64, 104, z = 64, 44, 28, 24, 34 (+ `lip` at the last row) along u; moved by `shift`
+    cells."""
+    import numpy as np
+    s = n / 128
+    xs, ys = np.array([16, 40, 64, 88, 112.]) * s, np.array([24, 64, 104.]) * s
+    zs = np.array([64, 44, 28, 24, 34. + lip]) * s
+    net = np.stack(np.broadcast_arrays(xs[:, None], ys[None, :], zs[:, None]), -1) + np.asarray(shift)
+    return net.astype(np.float32)
+
+
+def spline_chute(n, device, thickness=8., lip=0., bits=32, shift=(0., 0., 0.)):
+    """SplineSolid(points, thickness, fillet={'u-': 1, 'u+': 1, 'v-': .5, 'v+': .5}, order={'u': 2, 'v': 1}) at
+    n³ (thickness scaled by n / 128), its float32 control points on `device`; with `bits=64` its float64 witness
+    (`as_float64`)."""
+    import torch
+    from phiflow_tpu_torch import geom, math
+    points = math.wrap(torch.as_tensor(chute_net(n, lip, shift), device=device), math.spatial('u,v'),
+                       math.channel(vector='x,y,z'))
+    chute = geom.SplineSolid(points, thickness=thickness * n / 128, fillet=SPLINE_FILLET, order=SPLINE_ORDER)
+    return as_float64(chute) if bits == 64 else chute
+
+
+def as_float64(solid):
+    """The float64 witness of a SplineSolid: its control points cast to float64 and every query computed in
+    float64 (`_float64_spline_class`), its results handed back in the precision of the points asked."""
+    import torch
+    from phiflow_tpu_torch import math
+    return _float64_spline_class()(math.cast(solid.points, torch.float64), solid.thickness, solid.fillet, solid.order)
+
+
+@functools.lru_cache(maxsize=None)
+def _float64_spline_class():
+    """A SplineSolid whose closest surface (and so its inside test, signed distance and push) is computed in
+    float64 at points of any precision, the distance, delta and normal cast back to the points' dtype. The
+    points are flattened to one list first, so that the CPU and the card sum each point's squared distances to
+    the control points in the same layout: a seed tie (a point equidistant from two control points, common at
+    cell centres) then breaks the same way on both."""
+    import torch
+    from phiflow_tpu_torch import geom, math
+
+    class Float64SplineSolid(geom.SplineSolid):
+        def approximate_closest_surface(self, location):
+            dtype, dims = location.dtype, location.shape.without('vector')
+            flat = math.pack_dims(location, dims, math.instance('_q')) if dims else location
+            with math.precision(64):
+                out = super().approximate_closest_surface(math.cast(flat, torch.float64))
+            out = [math.cast(o, dtype) for o in out[:3]] + list(out[3:])
+            return tuple(math.unpack_dim(o, '_q', dims) if o is not None and dims else o for o in out)
+
+    return Float64SplineSolid
+
+
+def spline_setup(N, device, shift=(0., 0., 0.)):
+    """spline-flip's state at N³ unit cells in a closed box: the chute (moved by `shift` cells) and the liquid
+    block Box['x,y,z', 16:64, 16:112, 80:116] at 128³ (scaled by N / 128), 8 particles a cell at rest (1,327,104
+    at 128³). Returns (domain, chute, particles)."""
+    from phiflow_tpu_torch import field, geom, math
+    s = N / 128
+    with math.default_device(device):
+        domain = geom.Box(x=N, y=N, z=N)
+        block = geom.Box['x,y,z', 16 * s:64 * s, 16 * s:112 * s, 80 * s:116 * s]
+        particles = field.distribute_points(block, x=N, y=N, z=N) * (0, 0, 0)
+    return domain, spline_chute(N, device, shift=shift), particles
+
+
+def spline_branches(solid, loc):
+    """Each point's branch of the signed distance: the seed (the flat control-point index of `_argmin_2d`) and,
+    per parameter, whether the Gauss-Newton parameter overran the net's lower or upper edge (the fillet branch),
+    as one int64 key a point (a torch tensor on the points' device)."""
+    from phiflow_tpu_torch import math
+    from phiflow_tpu_torch.geom import _spline_solid
+    d2 = math.sum((loc - solid.points) ** 2, 'vector')
+    iu, iv = _spline_solid._argmin_2d(d2, 'u', 'v')
+    names = loc.shape.without('vector').names
+    seed = iu.native(names).long() * solid.points.shape.get_size('v') + iv.native(names).long()
+    _, uv, unbounded, _ = _spline_solid.closest_param(solid.order, solid.points, loc)
+    uv, unbounded = uv.native(names + ('vector',)), unbounded.native(names + ('vector',))
+    over = (unbounded < uv - 1e-6).long() + 2 * (unbounded > uv + 1e-6).long()
+    return seed * 16 + over[..., 0] * 4 + over[..., 1]
+
+
+def _spline_gaps(points, N):
+    """The chute's signed distance at an (n, 3) torch tensor of points, in cells."""
+    from phiflow_tpu_torch import math
+    loc = math.tensor(points, math.instance('p'), math.channel(vector='x,y,z'))
+    return spline_chute(N, points.device).approximate_signed_distance(loc).native('p')
+
+
+def _apart(a, b, scales):
+    """Each entry's largest gap between the arrays of `a` and of `b` (entries along the first axis), in units of
+    each array's scale."""
+    import torch
+    return torch.stack([(x.double() - y.double()).abs().reshape(len(x), -1).amax(-1) / s
+                        for x, y, s in zip(a, b, scales)]).amax(0)
+
+
+def hold_float32(what, card32, cpu32, cpu64, limit):
+    """Float32 card against CPU where it is well-conditioned. `card32`, `cpu32`, `cpu64`: lists of arrays, entries
+    along the first axis; an array's scale is its largest |value| in the CPU's float64. An entry is
+    well-conditioned where the CPU's float32 lies within 1e-4 of the scale of the CPU's float64 (a float32 query
+    of a SplineSolid follows rounding where a Gauss-Newton step lies at its fillet threshold); of those, at most
+    a share `limit` may part between card and CPU by more than 1e-4 of the scale. Prints the shares; raises if
+    the hold fails."""
+    scales = [max(float(x.double().abs().max()), 1e-6) for x in cpu64]
+    good = _apart(cpu32, cpu64, scales) <= 1e-4
+    apart = good & (_apart(card32, cpu32, scales) > 1e-4)
+    share = int(apart.sum()) / max(int(good.sum()), 1)
+    ok = share <= limit and int(good.sum()) > 0
+    print(f'check float32          {what}: {100 * float(good.double().mean()):.3f}% of {len(good):,} entries '
+          f'well-conditioned (the CPU\'s float32 within 1e-4 of the scale of its float64), {int(apart.sum())} of them '
+          f'({100 * share:.3f}%) apart on the card by more than 1e-4 of the scale (at most {100 * limit:g}%) '
+          f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        raise RuntimeError(f'{what}: float32 card and CPU differ where it is well-conditioned')
+
+
+def chute_masks(chute, n, device):
+    """The masks make_incompressible makes of the chute at n³ unit cells: the accessible cells and the faces' soft
+    masks, flattened into one column (on the host)."""
+    import torch
+    from phiflow_tpu_torch.field._resample import cell_grid, geometry_mask, staggered_cells
+    from phiflow_tpu_torch.geom import union
+    cells = cell_grid((n, n, n), 1.0, device)
+    masks = [geometry_mask(~union([chute]), cells),
+             *geometry_mask(chute, staggered_cells(cells, False), soft=True, balance=1)]
+    return torch.cat([m.reshape(-1).cpu() for m in masks])[:, None]
+
+
+def spline_cpu_vs_card(tag, cpu_n=32, cpu_settle=10):
+    """spline-flip's step on the CPU against the card (`solid_flip_cpu_vs_card`) at cpu_n³, the chute moved by
+    SPLINE_WITNESS_SHIFT (scaled to 32³ its v edges put planes of cell centres exactly on the fillet's surface:
+    52 centres at |d| < 1e-13 in float64, a rounding tie on any device). With the chute's float64 witness (its
+    masks and push computed in float64; the rest of the step, K8 and K1m, in float32) the step is held at FLIP's
+    5e-4. The chute's float32 queries are ill-conditioned at some points (where 12 Gauss-Newton steps leave a last
+    step at the fillet threshold of JAX's `approximate_closest_surface`, its sign picks the branch), and a mask
+    entry that parts moves the whole projection: the float32 step's gaps are printed, and its two uses of the
+    chute are held where they are well-conditioned (`hold_float32`): the push of the CPU's float32 particles
+    before it, and the masks at cpu_n³ (the rest of the step is the float64 witness's float32)."""
+    import torch
+    from phiflow_tpu_torch import math as tmath
+    shift = SPLINE_WITNESS_SHIFT
+    f64, f32 = 'the chute in float64', 'the chute in float32'
+    out = solid_flip_cpu_vs_card(
+        tag, lambda n, dev: spline_setup(n, dev, shift), _spline_gaps,
+        {f64: (lambda n, dev: spline_chute(n, dev, bits=64, shift=shift), True), f32: (None, False)}, cpu_n, cpu_settle)
+    pushed, masks = {}, {}
+    for dev, bits in (('cuda', 32), ('cpu', 32), ('cpu', 64)):
+        with tmath.default_device(dev):
+            chute = spline_chute(cpu_n, dev, bits=bits, shift=shift)
+            loc = tmath.tensor(out[f32, 'cpu'][0].to(dev), tmath.instance('points'), tmath.channel(vector='x,y,z'))
+            pushed[dev, bits] = [chute.push(loc, shift_amount=0.5).native(('points', 'vector')).cpu()]
+            masks[dev, bits] = [chute_masks(chute, cpu_n, dev)]
+    for what, res in ((f'push of the {len(pushed["cpu", 32][0]):,} particles', pushed), ('masks', masks)):
+        hold_float32(f'{tag} {cpu_n}^3 chute {what}', res['cuda', 32], res['cpu', 32], res['cpu', 64],
+                     FLOAT32_APART['push' if res is pushed else 'masks'])
+    torch.cuda.empty_cache()
+
+
+def _relative(got, ref):
+    return float((got.double() - ref.double()).abs().max() / ref.double().abs().max().clamp(min=1e-6))
+
+
+def check_splines_on_card(n=1_000_000, n_push=100_000):
+    """The spline shapes, card against CPU, at `n` points: the chute of spline-flip-128, `to_spline(cylinder)` (a
+    degenerate 2 × 2 net: its v edge 1e-5 of the depth) and `transform_with_spline` from the chute to a copy
+    with its lip raised 16 cells and thickness 10. Held in float64 (`as_float64`) as the rule for a spline query
+    is: at most 0.1% of the points on another branch (`spline_branches`), the signed distance (the moved points)
+    at the rest within 1e-4 of its scale; at the first `n_push` points lies_inside equal but within 1e-4 of the
+    surface and the push (shift 0.1 of the shape's size / 8) parting at most 0.1% by more than 1e-3 of the
+    domain. Held in float32 (each shape's own float32 points) where it is well-conditioned (`hold_float32`),
+    but `to_spline(cylinder)`: with its float32 points the sheet's v tangent lies below float32's rounding at
+    every point (3.9% of the points within 1e-4 of float64, by chance), so its float32 signed distance is
+    rounding noise on either device, held in distribution: its quantiles within 1e-2 of the scale, the inside
+    shares within 0.5%. `_argmin_2d` on ties and NaN: the first index on both devices."""
+    import torch
+    from phiflow_tpu_torch import geom, math as tmath
+    from phiflow_tpu_torch.geom import _spline_solid
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(12)
+    cylinder = lambda: geom.to_spline(geom.cylinder(x=4, y=4, z=4, radius=2., depth=3., axis='z').rotated(
+        tmath.vec(x=0.4, y=0.2, z=0.)))
+    shapes = {  # name: (make(device, bits), size, float32 held point by point)
+        'chute': (lambda dev, bits: spline_chute(SPLINE_N, dev, bits=bits), 128., True),
+        'to_spline(cylinder)': (lambda dev, bits: as_float64(cylinder()) if bits == 64 else cylinder(), 8., False),
+    }
+
+    def run(make, pts, bits, dev, size=None):
+        """(branch keys, signed distance, inside test and push at the first n_push) with `size`, else the signed
+        distance alone."""
+        with tmath.default_device(dev), tmath.precision(bits):
+            shape = make(dev, bits)
+            loc = tmath.tensor(pts.to(dev, torch.float64 if bits == 64 else torch.float32), tmath.instance('p'),
+                               tmath.channel(vector='x,y,z'))
+            if size is None:
+                return shape.approximate_signed_distance(loc).native('p').cpu()
+            few = loc[{'p': slice(0, n_push)}]
+            return [spline_branches(shape, loc).cpu(), shape.approximate_signed_distance(loc).native('p').cpu(),
+                    shape.lies_inside(few).native('p').cpu(),
+                    shape.push(few, shift_amount=0.1 * size / 8).native(('p', 'vector')).cpu()]
+
+    for name, (make, size, pointwise) in shapes.items():
+        pts = torch.rand((n, 3), generator=gen, device='cuda', dtype=torch.float64) * size
+        (gk, gd, gi, gp), (ck, cd, ci, cp) = [run(make, pts, 64, dev, size) for dev in ('cuda', 'cpu')]
+        scale = float(cd.abs().max())
+        branch = gk != ck
+        apart = ((gd - cd).abs() > 1e-4 * scale) & ~branch
+        inside_ok = bool(((gi == ci) | (cd[:n_push].abs() < 1e-4 * size)).all())
+        parted = int(((gp - cp).abs().amax(-1) > 1e-3 * size).sum())
+        ok = int(branch.sum()) <= 1e-3 * n and int(apart.sum()) == 0 and inside_ok and parted <= 1e-3 * n_push
+        print(f'check geometry         {name:17s} at {n} points in float64: card vs CPU {int(branch.sum())} points on '
+              f'another branch (at most 0.1%), {int(apart.sum())} of the rest apart by more than 1e-4 of the scale, '
+              f'the rest within {_relative(gd[~branch], cd[~branch]):.2e}; at {n_push}: lies_inside equal but at the '
+              f'surface {inside_ok}, the push parts {parted} by more than 1e-3 of the domain (at most 0.1%) '
+              f'{"ok" if ok else "FAIL"}')
+        if not ok:
+            raise RuntimeError(f'geometry {name}: card and CPU differ')
+        gd32, cd32 = [run(make, pts, 32, dev) for dev in ('cuda', 'cpu')]
+        if pointwise:
+            hold_float32(f'{name} signed distance at {n} points', [gd32], [cd32], [cd], FLOAT32_APART['points'])
+            continue
+        q = torch.tensor([0.05, 0.25, 0.5, 0.75, 0.95], dtype=torch.float64)
+        quantiles = float((torch.quantile(gd32.double(), q) - torch.quantile(cd32.double(), q)).abs().max() / scale)
+        inside = abs(float((gd32 <= 0).double().mean() - (cd32 <= 0).double().mean()))
+        ok = quantiles <= 1e-2 and inside <= 5e-3 and bool(torch.isfinite(gd32).all())
+        print(f'check float32          {name} signed distance at {n} points: rounding noise at every point '
+              f'({100 * float(((cd32.double() - cd).abs() <= 1e-4 * scale).double().mean()):.3f}% within 1e-4 of the '
+              f'scale of float64 on the CPU), held in distribution: quantiles {quantiles:.2e} of the scale apart (at '
+              f'most 1e-2), inside shares {inside:.2e} apart (at most 5e-3) {"ok" if ok else "FAIL"}')
+        if not ok:
+            raise RuntimeError(f'geometry {name}: float32 card and CPU differ in distribution')
+    pts = torch.rand((n, 3), generator=gen, device='cuda', dtype=torch.float64) * 128
+    res = {}
+    for bits in (64, 32):
+        for dev in ('cuda', 'cpu'):
+            with tmath.default_device(dev), tmath.precision(bits):
+                src = spline_chute(SPLINE_N, dev, bits=bits)
+                tgt = spline_chute(SPLINE_N, dev, thickness=10., lip=16., bits=bits)
+                loc = tmath.tensor(pts.to(dev, torch.float64 if bits == 64 else torch.float32), tmath.instance('p'),
+                                   tmath.channel(vector='x,y,z'))
+                if dev == 'cuda':
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                moved = geom.transform_with_spline(loc, src, tgt).native(('p', 'vector'))
+                if dev == 'cuda':
+                    torch.cuda.synchronize()
+                res[bits, dev] = (moved.cpu().double(), time.perf_counter() - t0)
+    scale = float(res[64, 'cpu'][0].abs().max())
+    apart = int(((res[64, 'cuda'][0] - res[64, 'cpu'][0]).abs().amax(-1) > 1e-4 * scale).sum())
+    ok = apart <= 1e-3 * n
+    print(f'check geometry         transform_with_spline at {n} points: float32 {res[32, "cuda"][1] * 1e3:.1f} ms on the '
+          f'card, {res[32, "cpu"][1] * 1e3:.1f} ms on the CPU; float64 card vs CPU {apart} points apart by more than '
+          f'1e-4 of the scale (at most 0.1%) {"ok" if ok else "FAIL"}')
+    if not ok:
+        raise RuntimeError('transform_with_spline: card and CPU differ')
+    hold_float32(f'transform_with_spline at {n} points', [res[32, 'cuda'][0]], [res[32, 'cpu'][0]], [res[64, 'cpu'][0]],
+                 FLOAT32_APART['points'])
+    d2 = torch.tensor([[[3., 1., 2.], [1., 5., 1.]], [[float('nan'), 0., 1.], [2., float('nan'), 0.]],
+                       [[4., 4., 4.], [4., 4., 4.]]])
+    seeds = {}
+    for dev in ('cuda', 'cpu'):
+        iu, iv = _spline_solid._argmin_2d(tmath.tensor(d2.to(dev), tmath.instance('p'), tmath.spatial('u,v')), 'u', 'v')
+        seeds[dev] = (iu.native('p').cpu().tolist(), iv.native('p').cpu().tolist())
+    print(f'check geometry         _argmin_2d on ties and NaN: card {seeds["cuda"]}, CPU {seeds["cpu"]}')
+    if not seeds['cuda'] == seeds['cpu'] == ([0, 0, 0], [1, 0, 0]):
+        raise RuntimeError('_argmin_2d: not the first index on ties and NaN')
+
+
+def check_namespace():
+    """The user namespace on the card's machine: `from phiflow_tpu_torch.flow import *` (without matplotlib or
+    plotly where the machine has none), verify() on the card, detect_backends(), troubleshoot()."""
+    import io
+    from contextlib import redirect_stdout
+    namespace = {}
+    exec('from phiflow_tpu_torch.flow import *', namespace)
+    import phiflow_tpu_torch
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        phiflow_tpu_torch.verify()
+    backends = phiflow_tpu_torch.detect_backends()
+    report = phiflow_tpu_torch.troubleshoot()
+    names = sorted(k for k in namespace if not k.startswith('_'))
+    print(f'namespace: `from phiflow_tpu_torch.flow import *` gives {len(names)} names; verify(): '
+          + ' | '.join(buf.getvalue().strip().splitlines()))
+    print(f'namespace: detect_backends() {backends}; troubleshoot(): ' + ' | '.join(report.splitlines()))
+    if 'torch-cuda:0' not in backends or 'CenteredGrid' not in namespace or 'plot' not in namespace \
+            or 'basic field ops on cuda: OK' not in buf.getvalue():
+        raise RuntimeError('the namespace, verify() or detect_backends() is wrong')
+
+
+def run_splines():
+    """Phase 12: spline-flip-128 and its CPU against the card, the spline shapes, transform_with_spline, the
+    namespace (the spline obstacle is an entry of `check_obstacles_on_card`, phase 4h)."""
+    import torch
+    part = PhaseClock('part of phase')
+    tag = f'spline-flip-{SPLINE_N}'
+    by_path = {tag: run_solid_flip(tag, spline_setup, _spline_gaps, lambda: spline_cpu_vs_card(tag), SPLINE_N)}
+    torch.cuda.empty_cache()
+    part.done(f'12 {tag} and its CPU against card')
+    check_splines_on_card()
+    torch.cuda.empty_cache()
+    part.done('12 the spline shapes and transform_with_spline on the card')
+    check_namespace()
+    part.done('12 the namespace')
+    return by_path
+
+
 class PhaseClock:
     """Seconds of each phase (or part of one) on the host clock, printed on a line of its own as it ends."""
 
@@ -6894,7 +7325,9 @@ def main(argv):
         by_path[f'flip-{N}'] = run_flip(f'flip-{N}', N)
         torch.cuda.empty_cache()
     part.done('4d-4e FLIP')
-    by_path[f'terrain-flip-{TERRAIN_N}'] = run_terrain_flip(f'terrain-flip-{TERRAIN_N}')
+    tag = f'terrain-flip-{TERRAIN_N}'
+    by_path[tag] = run_solid_flip(tag, terrain_setup, _terrain_gaps, lambda: solid_flip_cpu_vs_card(
+        tag, terrain_setup, _terrain_gaps, {'the terrain': (None, True)}), TERRAIN_N)
     check_geometry_on_card()
     check_obstacles_on_card()
     torch.cuda.empty_cache()
@@ -6942,6 +7375,8 @@ def main(argv):
     clock.done('10 open boundaries')
     by_path.update(run_mesh_and_io())
     clock.done('11 mesh slice, I/O and utilities')
+    by_path.update(run_splines())
+    clock.done('12 splines and the namespace')
     if '--profile' in argv:
         for tag, dims, N, per_phase, _ in PATHS:
             profile_slice(tag, dims, N, per_phase)

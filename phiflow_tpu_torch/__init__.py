@@ -34,12 +34,17 @@ tensors on the CPU.
 
 Entry points run on the card (`device='cuda'`) unless the caller passes
 `device='cpu'`, as the tests do.
+
+Import `phiflow_tpu_torch.flow` for the full user namespace.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ['resolve_device']
+__version__ = '0.1.0'
+
+__all__ = ['resolve_device', 'verify', 'troubleshoot', 'assert_minimal_config', 'detect_backends',
+           'set_logging_level']
 
 
 def resolve_device(device=None) -> torch.device:
@@ -54,3 +59,31 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ('cuda', 'cpu'):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def verify(device=None):
+    """Print the package's version, torch's and the device, then run a small
+    `laplace` of a noise grid there: on the card unless `device='cpu'`."""
+    from . import math
+    from .field import CenteredGrid, Noise, laplace
+    dev = resolve_device(device)
+    print(f"phiflow_tpu_torch {__version__}")
+    name = torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'the CPU'
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda or 'none'}, device: {dev} ({name})")
+    with math.default_device(dev):
+        g = laplace(CenteredGrid(Noise(), 0., x=8, y=8))
+        assert bool(math.all(math.is_finite(g.values))), "laplace of a noise grid is not finite"
+    print(f"basic field ops on {dev.type}: OK")
+
+
+def detect_backends():
+    """torch's devices: 'torch-cpu', then 'torch-cuda:<i>' for each card."""
+    return ['torch-cpu'] + [f"torch-cuda:{i}" for i in range(torch.cuda.device_count())]
+
+
+def set_logging_level(level='debug'):
+    import logging
+    logging.getLogger('phiflow_tpu_torch').setLevel(getattr(logging, level.upper()))
+
+
+from ._troubleshoot import troubleshoot, assert_minimal_config  # noqa: E402

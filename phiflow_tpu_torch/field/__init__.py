@@ -25,7 +25,7 @@ from ._embed import FieldEmbedding
 from ._field_io import write, read
 from ._scene import Scene, SceneBatch
 from ._mask import GeometryMask, HardGeometryMask, SoftGeometryMask
-from ._angular_velocity import angular_velocity, angular_velocity_at_faces
+from ._angular_velocity import AngularVelocity, angular_velocity, angular_velocity_at_faces
 from ._point_cloud import PointCloud, nonzero, distribute_points, distribute_points_native
 from ._resample import (sample_grid_at_centers, sample_grid_at_points, scatter_to_grid, cell_grid, staggered_cells,
                         geometry_mask)

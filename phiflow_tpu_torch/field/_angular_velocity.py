@@ -1,7 +1,9 @@
 """The velocity field of a rigid rotation — port of
-`phiflow_tpu/field/_angular_velocity.py::AngularVelocity` without falloff:
-v(x) = ω × (x − x₀), in 2D (−dy, dx)·ω. Moving obstacles impose it on the
-faces they cover (`physics/fluid.py::apply_boundary_conditions`).
+`phiflow_tpu/field/_angular_velocity.py`: v(x) = ω × (x − x₀), in 2D
+(−dy, dx)·ω. `AngularVelocity` is JAX's Field initializer (with its
+falloff); `angular_velocity` / `angular_velocity_at_faces` the array layer's
+form without falloff, which moving obstacles impose on the faces they cover
+(`physics/fluid.py::apply_boundary_conditions`).
 """
 from __future__ import annotations
 
@@ -11,8 +13,40 @@ import numpy as np
 import torch
 
 from ..geom._grid import UniformGrid_native
+from ..math import Tensor, wrap, channel, stack
+from ..math import _ops as ops
+from ._field import FieldInitializer
 
-__all__ = ['angular_velocity', 'angular_velocity_at_faces']
+__all__ = ['AngularVelocity', 'angular_velocity', 'angular_velocity_at_faces']
+
+
+class AngularVelocity(FieldInitializer):
+    """v(x) = ω × (x − x₀), optionally times `falloff(x − x₀)`; `location`
+    may hold several centres along an instance dim, whose fields add up."""
+
+    def __init__(self, location: Tensor, strength=1.0, falloff=None):
+        self.location = wrap(location)
+        self.strength = wrap(strength)
+        self.falloff = falloff
+
+    def _sample(self, geometry, at: str, boundaries, **kwargs) -> Tensor:
+        points = geometry.face_centers if at == 'face' else geometry.center
+        distances = points - self.location
+        labels = points.shape.get_labels('vector')
+        if len(labels) == 2:
+            x, y = labels
+            velocity = stack({x: -distances.vector[y], y: distances.vector[x]},
+                             channel(vector=labels)) * self.strength
+        elif len(labels) == 3:
+            velocity = ops.cross(self.strength, distances)
+        else:
+            raise NotImplementedError(f"AngularVelocity in {len(labels)}D")
+        if self.falloff is not None:
+            velocity = velocity * self.falloff(distances)
+        reduce = self.location.shape.instance.without(points.shape.instance.names)
+        if reduce:
+            velocity = ops.sum_(velocity, reduce)
+        return velocity
 
 
 def angular_velocity(location: Sequence[torch.Tensor], center, strength) -> Tuple[torch.Tensor, ...]:

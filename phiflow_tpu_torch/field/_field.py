@@ -173,6 +173,11 @@ class Field:
         return _is_mesh(self._geometry)
 
     @property
+    def is_graph(self) -> bool:
+        from ..geom._graph import Graph
+        return isinstance(self._geometry, Graph)
+
+    @property
     def is_point_cloud(self) -> bool:
         if isinstance(self._geometry, UniformGrid):
             return False

@@ -1,4 +1,4 @@
-"""Geometry — port of `phiflow_tpu/geom`: its names but the splines."""
+"""Geometry — port of `phiflow_tpu/geom`: all of its names."""
 from ._geom import (Geometry, InvertedGeometry, Point, NoGeometry, GeometryException, assert_same_rank, invert, rotate,
                     scale, sample_function)
 from ._box import Box, BaseBox, Cuboid, box_push, bounding_box, box_from_limits
@@ -20,3 +20,7 @@ from ._graph import Graph, graph
 from ._mesh import Mesh, mesh, mesh_from_numpy, build_mesh, load_su2, load_gmsh, load_stl
 from ._mesh_builder import MeshBuilder, join_meshes, decimate_tri_mesh
 from ._convert import as_sdf, surface_mesh, marching_tetrahedra
+from ._spline import b_spline_knots, eval_nurbs_bases, spline_eval
+from ._spline_sheet import BSplineSheet, SplineVolume, to_spline_volume, double_cover
+from ._spline_solid import (SplineSolid, to_spline, apply_spline_bounds, transform_with_spline, closest_param,
+                            spline_eval_surface)

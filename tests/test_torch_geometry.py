@@ -13,12 +13,6 @@ import phiflow_tpu.math as jm
 import phiflow_tpu_torch.geom as tg
 import phiflow_tpu_torch.math as tm
 
-EXCLUDED = {  # the splines: a slice of their own
-    'b_spline_knots', 'eval_nurbs_bases', 'spline_eval', 'BSplineSheet', 'SplineVolume', 'to_spline_volume',
-    'double_cover', 'SplineSolid', 'to_spline', 'apply_spline_bounds', 'transform_with_spline', 'closest_param',
-    'spline_eval_surface'}
-
-
 @pytest.fixture(autouse=True)
 def _cpu():
     with tm.default_device('cpu'):
@@ -55,7 +49,7 @@ def _both(fn, order=None, tol=1e-5):
 
 
 def test_every_name_is_ported():
-    missing = sorted(n for n in dir(jg) if not n.startswith('_') and n not in EXCLUDED and not hasattr(tg, n))
+    missing = sorted(n for n in dir(jg) if not n.startswith('_') and not hasattr(tg, n))
     assert not missing, missing
 
 

@@ -22,8 +22,12 @@ FVM_MODULES = ['native._lib', 'geom._mesh', 'field._mesh_math', 'models.cylinder
 GRADIENT_MODULES = ['math._functional', 'math._solve', 'math._nd', 'ops.interp', 'nn._nets', 'nn._optim']
 IO_MODULES = ['field._field_io', 'field._scene', 'utils._checkpoint', 'utils._profile', '_entry']
 MESH_MODULES = ['geom._mesh_builder', 'geom._convert']
+SPLINE_MODULES = ['geom._spline', 'geom._spline_sheet', 'geom._spline_solid']
+# import with matplotlib and plotly blocked too: the card's machine has neither
+VIS_MODULES = ['vis', 'vis._vis_base', 'vis._console', 'vis._log', 'vis._matplotlib_plots', 'vis._plotly_plots',
+               'vis._vis', 'vis._viewer', 'vis._web', 'flow', '_troubleshoot']
 MODULES = (OBSTACLE_MODULES + FIELD_MODULES + GRID_MODEL_MODULES + SPH_MODULES + FVM_MODULES + GRADIENT_MODULES +
-           IO_MODULES + MESH_MODULES)
+           IO_MODULES + MESH_MODULES + SPLINE_MODULES + VIS_MODULES)
 
 
 def test_imports_with_jax_blocked():
@@ -50,10 +54,38 @@ def test_no_module_imports_jax():
         files += [os.path.join(dirpath, n) for n in names if n.endswith('.py')]
     assert len(files) > 10
     for module in MODULES:
-        assert os.path.join(PKG, *module.split('.')) + '.py' in files, module
+        path = os.path.join(PKG, *module.split('.'))
+        assert path + '.py' in files or os.path.join(path, '__init__.py') in files, module
     offenders = []
     for path in files:
         with open(path, encoding='utf-8') as f:
             if FORBIDDEN.search(f.read()):
                 offenders.append(os.path.relpath(path, ROOT))
     assert not offenders, offenders
+
+
+def test_flow_and_vis_import_without_plotting_packages():
+    """`flow`, `vis` and the top-level helpers import with JAX, matplotlib and
+    plotly blocked; `troubleshoot()` reports them missing; a plot raises
+    ImportError naming matplotlib."""
+    code = ("import sys\n"
+            "for name in ('jax', 'flax', 'optax', 'phiflow_tpu', 'matplotlib', 'matplotlib.pyplot', 'plotly',\n"
+            "             'plotly.graph_objects', 'plotly.subplots'):\n"
+            "    sys.modules[name] = None\n"
+            "from phiflow_tpu_torch.flow import *\n"
+            "import phiflow_tpu_torch, phiflow_tpu_torch.vis._plotly_plots as pp\n"
+            "report = phiflow_tpu_torch.troubleshoot()\n"
+            "assert 'matplotlib NOT installed' in report and 'plotly backend: not installed' in report, report\n"
+            "assert pp.PLOTLY is None and not pp.plotly_available()\n"
+            "from phiflow_tpu_torch import math as m\n"
+            "with m.default_device('cpu'):\n"
+            "    try:\n"
+            "        plot(CenteredGrid(0, 0, x=4, y=4))\n"
+            "    except ImportError as e:\n"
+            "        assert 'matplotlib' in str(e), e\n"
+            "    else:\n"
+            "        raise AssertionError('plot without matplotlib did not raise')\n"
+            "print('imported')\n")
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert 'imported' in out.stdout

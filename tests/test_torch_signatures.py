@@ -1,5 +1,5 @@
 """Every public name that the JAX package's `phiflow_tpu.math`,
-`phiflow_tpu.field`, `phiflow_tpu.geom`, `phiflow_tpu.nn` or
+`phiflow_tpu.field`, `phiflow_tpu.geom`, `phiflow_tpu.nn`, `phiflow_tpu.vis` or
 `phiflow_tpu.physics.{advect,diffuse,fluid,integrate,sph}` exports and the port exports too
 takes the JAX package's signature: the same parameters, kinds and defaults.
 The models' constructors, `initial_state` and `step` take JAX's parameters
@@ -19,7 +19,8 @@ PAIRS = [('phiflow_tpu.math', 'phiflow_tpu_torch.math', False), ('phiflow_tpu.fi
          ('phiflow_tpu.physics.fluid', 'phiflow_tpu_torch.physics.fluid', True),
          ('phiflow_tpu.physics.integrate', 'phiflow_tpu_torch.physics.integrate', True),
          ('phiflow_tpu.physics.sph', 'phiflow_tpu_torch.physics.sph', True),
-         ('phiflow_tpu.nn', 'phiflow_tpu_torch.nn', False)]
+         ('phiflow_tpu.nn', 'phiflow_tpu_torch.nn', False),
+         ('phiflow_tpu.vis', 'phiflow_tpu_torch.vis', False)]
 
 
 def _default(value):
@@ -81,10 +82,18 @@ def test_models_take_jax_signatures(model, extra):
                                                     'decimate_tri_mesh', 'as_sdf', 'surface_mesh']),
     ('phiflow_tpu.physics.fluid', 'phiflow_tpu_torch.physics.fluid', ['masked_laplace']),
     ('phiflow_tpu.field', 'phiflow_tpu_torch.field', ['write', 'read', 'Scene', 'SceneBatch']),
-], ids=['geom-mesh', 'fluid-mesh', 'field-io'])
+    ('phiflow_tpu.geom', 'phiflow_tpu_torch.geom', ['b_spline_knots', 'eval_nurbs_bases', 'spline_eval',
+                                                    'BSplineSheet', 'SplineVolume', 'to_spline_volume', 'double_cover',
+                                                    'SplineSolid', 'to_spline', 'apply_spline_bounds',
+                                                    'transform_with_spline', 'closest_param', 'spline_eval_surface']),
+    ('phiflow_tpu.vis', 'phiflow_tpu_torch.vis', ['plot', 'show', 'show_hist', 'close', 'control', 'action', 'overlay',
+                                                  'write_image', 'plot_scalars', 'smooth', 'Viewer', 'Record', 'view',
+                                                  'create_viewer', 'SceneLog', 'load_scalars', 'WebGui', 'web_view',
+                                                  'VisModel', 'Control', 'Action', 'benchmark', 'play_async']),
+], ids=['geom-mesh', 'fluid-mesh', 'field-io', 'geom-splines', 'vis'])
 def test_mesh_names_are_shared(jax_name, port_name, names):
-    """The mesh's entry points are among the shared names the test above
-    holds to JAX's signatures."""
+    """The mesh's, the splines' and `vis`' entry points are among the shared
+    names the test above holds to JAX's signatures."""
     shared = {name: (a, b) for name, a, b in _shared(jax_name, port_name, jax_name.endswith('fluid'))}
     for name in names:
         assert name in shared, name
